@@ -7,18 +7,28 @@ Every phase fails the run on any error (no exception is caught, and there
 is no CPU path):
 
 1. the card (``nvidia-smi`` name and power limit) and the ``nvcc`` build
-   of ``mm_s2ut_torch/csrc/*.cu``, with its seconds;
+   of ``mm_s2ut_torch/csrc/*.cu`` (one process per source), with its seconds;
 2. kernels A, B and C against their plain PyTorch versions on the card at
-   the main path's flagship shapes, in bf16 and fp32, each timed beside
-   its plain version with CUDA events;
+   the main path's flagship shapes, and D, E and F at the reference
+   bench's shapes (B=128, K=10, T·S=2010 at step 150, S=250), in bf16 and
+   fp32, each timed beside its plain version with CUDA events;
 3. the small fp32 config on the card against the same parameters on the
-   CPU through ``UnitGenerator.generate`` (TF32 off): tokens equal;
+   CPU through ``UnitGenerator.generate`` (TF32 off), with the default,
+   int8 and int4 caches and a search long enough to grow the cache:
+   tokens equal;
 4. the main path at the full flagship width in bf16 with random weights
    from a seeded ``torch.Generator``: 8 synthetic 1-4 s wavs and 8 random
    577x768 image feature arrays → fbank → encode + selective fusion →
    beam 10 (max_len_a 1, max_len_b 200) → units → CodeHiFiGAN at its
    default config → wav, with the launches of A, B and C counted over
-   exactly this run.
+   exactly this run;
+5. the reference bench's operating point (``bench.py:236-247``): the same
+   model, 128 synthetic 10 s wavs and 128 image arrays, beam 10,
+   max_len_a 0, max_len_b 200, int8 KV cache, units → wav, with the
+   launches of A, D and E counted over exactly this run; then the same
+   batch with the bf16 cache, for both rates from one card;
+6. the int4 cache at flagship width: 8 utterances, beam 10, max_len_b 200,
+   with the launches of F and E counted.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Artifacts (.unit files,
@@ -41,8 +51,21 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # bf16: the plain versions round the softmax weights and every product to
 # bf16 between the two contractions; the kernels keep fp32 until the
 # final store. Outputs are convex mixes of O(1) values, so a few bf16
-# ulps (2^-8 relative) of them stay well inside 2e-2.
+# ulps (2^-8 relative) of them stay well inside 2e-2. Kernel E takes TOL
+# too: its plain version dequantizes k and v to bf16 (2^-9 relative per
+# element), the kernel folds the f32 scales in after the products.
+TOL_REQUANT = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
+# Kernels D and F: kernel and plain version quantize q and the softmax
+# weights by the same rules in fp32 and sum the integer products exactly,
+# but take the softmax denominator in another order. Where w_eff/ws lands
+# within an ulp of a rounding tie, one w8 level flips, which moves an
+# output by ws·|v8_j| <= (max_j w_eff_j / 127)·levels <= p_max·max|v|/127
+# (sv·levels = the column's amax): at the bench inputs below (a softmax
+# over ~150 on-path columns of N(0, 1) scores, p_max ~0.05, |v| <= ~3)
+# that is ~1.2e-3 for int8 and int4 alike, hence fp32 2e-3; bf16 adds the
+# output's rounding.
 FLAGSHIP = dict(B=8, H=8, Dh=64, K=10, L=6, T_enc=250, T_dec=500, step=300, S_cross=250)
+BENCH = dict(B=128, H=8, Dh=64, K=10, L=6, T_dec=201, step=150, S_cross=250)
 
 
 # ------------------------------------------------------------------ inputs
@@ -97,8 +120,55 @@ def cross_inputs(B, H, K, Dh, S, dtype, seed=0):
     return q, kv, bias
 
 
-def kernel_cases(dtype, shapes=FLAGSHIP):
-    """(name, kernel call, plain call) at the given shapes."""
+def quant_ancestry_inputs(B, H, K, Dh, L, T, step, dtype, int4=False, seed=0):
+    """q, k_new, v_new (B, H, K, Dh), a (B, L, H, T·K, 2·Dh) int8 cache
+    (int4: nibble-packed, T·K/2 rows) with its (B, L, H, T·K) scales, and
+    the flat_rep of a random ancestry at ``step``. The rows are quantized by
+    the decoder's own write path (``quantize_rows``, ``i4_pack``), made on
+    the card from a seeded generator one layer at a time."""
+    from mm_s2ut_torch.models.decoder import quantize_rows
+    from mm_s2ut_torch.ops.decode_attention import i4_pack
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    q = (randn(B, H, K, Dh) * Dh ** -0.5).to(dtype)
+    k_new, v_new = (randn(B, H, K, Dh).to(dtype) for _ in range(2))
+    TS = T * K
+    kv = torch.empty((B, L, H, TS // 2 if int4 else TS, 2 * Dh), dtype=torch.int8, device="cuda")
+    sk, sv = (torch.empty((B, L, H, TS), device="cuda") for _ in range(2))
+    for layer in range(L):
+        rows = randn(B, H, TS, 2 * Dh).to(dtype)
+        cols, sk[:, layer], sv[:, layer] = quantize_rows(
+            rows[..., :Dh], rows[..., Dh:], 7.0 if int4 else 127.0)
+        kv[:, layer] = i4_pack(cols, TS // 2) if int4 else cols
+    ancestry = torch.randint(0, K, (B, K, T), generator=g, device="cuda")
+    t_idx = torch.arange(T, device="cuda")[None, None, :]
+    flat = torch.where(t_idx < step, t_idx * K + ancestry, torch.full_like(ancestry, -1))
+    return q, k_new, v_new, kv, sk, sv, flat.repeat_interleave(K, dim=2).to(torch.int32)
+
+
+def quant_cross_inputs(B, H, K, Dh, S, dtype, seed=0):
+    """q (B, H, K, Dh) and an int8 encoder slab with its scales, made by
+    ``MultiHeadAttention.precompute_kv(kv_dtype="int8")`` from random
+    encoder states, and a ragged padding bias."""
+    from mm_s2ut_torch.models.layers import MultiHeadAttention
+
+    gen = torch.Generator().manual_seed(seed)
+    attn = init_random_(MultiHeadAttention(H * Dh, H), gen).to("cuda", dtype)
+    with torch.no_grad():
+        cache = attn.precompute_kv(_randn((B, S, H * Dh), gen, dtype), kv_dtype="int8")
+    q = _randn((B, H, K, Dh), gen, dtype, Dh ** -0.5)
+    lengths = torch.clamp(S - 23 * torch.arange(B), min=1)
+    bias = torch.where(torch.arange(S)[None, :] < lengths[:, None], 0.0, -1e9).cuda()
+    return q, cache["kv"], cache["sk"], cache["sv"], bias
+
+
+def kernel_cases(dtype, shapes=FLAGSHIP, bench=BENCH):
+    """(name, kernel call, plain call, tolerance): A, B and C at the main
+    path's flagship shapes, D, E and F at the reference bench's."""
     from mm_s2ut_torch.ops import attention as A
     from mm_s2ut_torch.ops import decode_attention as D
 
@@ -109,13 +179,25 @@ def kernel_cases(dtype, shapes=FLAGSHIP):
     b_args = ancestry_inputs(s["B"], s["H"], s["K"], s["Dh"], s["L"], s["T_dec"], s["step"], dtype)
     layer = s["L"] // 2
     c_args = cross_inputs(s["B"], s["H"], s["K"], s["Dh"], s["S_cross"], dtype)
+    n = bench
+    d_args = quant_ancestry_inputs(n["B"], n["H"], n["K"], n["Dh"], n["L"], n["T_dec"],
+                                   n["step"], dtype)
+    f_args = quant_ancestry_inputs(n["B"], n["H"], n["K"], n["Dh"], n["L"], n["T_dec"],
+                                   n["step"], dtype, int4=True, seed=1)
+    e_args = quant_cross_inputs(n["B"], n["H"], n["K"], n["Dh"], n["S_cross"], dtype)
     return [
         ("A", lambda: A.flash_attention(q, k, v, kpm),
-         lambda: A.reference_attention(q * scale, k, v, bias)),
+         lambda: A.reference_attention(q * scale, k, v, bias), TOL[dtype]),
         ("B", lambda: D.ancestry_decode_attention(*b_args, layer),
-         lambda: D.reference(*b_args, layer)),
+         lambda: D.reference(*b_args, layer), TOL[dtype]),
         ("C", lambda: D.cross_decode_attention(*c_args),
-         lambda: D.cross_reference(*c_args)),
+         lambda: D.cross_reference(*c_args), TOL[dtype]),
+        ("D", lambda: D.ancestry_decode_attention_i8(*d_args, layer),
+         lambda: D.reference_i8(*d_args, layer), TOL_REQUANT[dtype]),
+        ("E", lambda: D.cross_decode_attention_i8(*e_args),
+         lambda: D.cross_reference_i8(*e_args), TOL[dtype]),
+        ("F", lambda: D.ancestry_decode_attention_i4(*f_args, layer),
+         lambda: D.reference_i4(*f_args, layer), TOL_REQUANT[dtype]),
     ]
 
 
@@ -163,18 +245,19 @@ def phase_build():
 def phase_kernels():
     record = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for name, kern, plain in kernel_cases(dtype):
+        for name, kern, plain, tol in kernel_cases(dtype):
             got, want = kern(), plain()
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             assert torch.isfinite(got).all(), f"kernel {name} {dtype}: non-finite output"
-            assert err <= TOL[dtype], f"kernel {name} {dtype}: max|err| {err} > {TOL[dtype]}"
+            assert err <= tol, f"kernel {name} {dtype}: max|err| {err} > {tol}"
             t = [time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)]
             ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
             print(f"phase 2: kernel {name} {str(dtype)[6:]}: max|err| {err:.3e} "
-                  f"(tol {TOL[dtype]:g}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                  f"(tol {tol:g}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
             if dtype == torch.bfloat16:
                 record[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        torch.cuda.empty_cache()
     return record
 
 
@@ -219,103 +302,160 @@ def phase_small_parity():
         cpu_model.decoder.final_norm.weight.mul_(8.0)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     wav, lens, imgs = synthetic_batch(2, gen)
-    gcfg = GenerationConfig(beam=10, max_len_a=0.0, max_len_b=40)
+    masks = torch.zeros(imgs.shape[:2], dtype=torch.bool)
 
-    def generate(model, dev):
-        feats, flens = waveform_frontend(wav.to(dev), lens.to(dev), FbankConfig())
-        return UnitGenerator(model, gcfg).generate(
-            feats, flens, [imgs.to(dev)], [torch.zeros(imgs.shape[:2], dtype=torch.bool)]
-        )
+    # max_len_b 80 > 64: the search grows its cache (int4: re-packs it).
+    for kv in ("bfloat16", "int8", "int4"):
+        gcfg = GenerationConfig(beam=10, max_len_a=0.0, max_len_b=80, kv_cache_dtype=kv)
 
-    on_cpu, on_card = generate(cpu_model, "cpu"), generate(gpu_model, "cuda")
-    for b in range(2):
-        assert on_card[b][0]["tokens"] == on_cpu[b][0]["tokens"], f"utt {b}: tokens differ"
-    print("phase 3: small fp32 config, card vs CPU through UnitGenerator.generate: tokens equal "
-          f"(lengths {[len(h[0]['tokens']) for h in on_card]}, scores "
-          f"{[round(h[0]['score'], 4) for h in on_card]} vs "
-          f"{[round(h[0]['score'], 4) for h in on_cpu]})")
+        def generate(model, dev):
+            feats, flens = waveform_frontend(wav.to(dev), lens.to(dev), FbankConfig())
+            return UnitGenerator(model, gcfg).generate(feats, flens, [imgs.to(dev)], [masks])
+
+        on_cpu, on_card = generate(cpu_model, "cpu"), generate(gpu_model, "cuda")
+        for b in range(2):
+            card, cpu = on_card[b][0]["tokens"], on_cpu[b][0]["tokens"]
+            if card != cpu:
+                step = next((i for i, (x, y) in enumerate(zip(card, cpu)) if x != y),
+                            min(len(card), len(cpu)))
+                gaps = [logit_gap(m, wav[b : b + 1], lens[b : b + 1], imgs[b : b + 1], card, cpu,
+                                  step, kv) for m in (gpu_model, cpu_model)]
+                print(f"phase 3: {kv} cache, utt {b}: tokens differ from step {step}; logit of "
+                      f"the card's token minus the CPU's there: card {gaps[0]:.6g}, CPU "
+                      f"{gaps[1]:.6g}")
+            assert card == cpu, f"{kv} cache, utt {b}: tokens differ"
+        print(f"phase 3: small fp32 config, {kv} cache, card vs CPU through "
+              f"UnitGenerator.generate: tokens equal (lengths "
+              f"{[len(h[0]['tokens']) for h in on_card]}, scores "
+              f"{[round(h[0]['score'], 4) for h in on_card]} vs "
+              f"{[round(h[0]['score'], 4) for h in on_cpu]})")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for the runs below
 
 
-def phase_main_path(out_dir: Path):
-    import numpy as np
+@torch.no_grad()
+def logit_gap(model, wav, lens, imgs, card, cpu, step, kv) -> float:
+    """Decode the common prefix of two hypotheses as one beam and return
+    logit[card's token] - logit[CPU's token] at the first differing step."""
+    from mm_s2ut_torch.infer.beam_search import tile_state_for_beams
+    from mm_s2ut_torch.ops.fbank import FbankConfig, waveform_frontend
 
-    from mm_s2ut_torch.config import GenerationConfig, ModelConfig, MultimodalConfig
-    from mm_s2ut_torch.data.audio_io import write_wav
-    from mm_s2ut_torch.data.dictionary import UnitDictionary
-    from mm_s2ut_torch.infer.generator import UnitGenerator, format_generation_output
+    dev = model.device
+    feats, flens = waveform_frontend(wav.to(dev), lens.to(dev), FbankConfig())
+    enc = model.encode(feats, flens, [imgs.to(dev)], [torch.zeros(imgs.shape[:2], dtype=torch.bool,
+                                                                   device=dev)])
+    state = tile_state_for_beams(model.decode_init(enc, step + 2, kv_dtype=kv), 1)
+    for tok in [2] + card[:step]:  # BOS, then the shared prefix
+        logits, state = model.decode_step(torch.tensor([[tok]], device=dev), state)
+    pick = [card[step] if step < len(card) else 2, cpu[step] if step < len(cpu) else 2]
+    return float(logits[0, pick[0]] - logits[0, pick[1]])
+
+
+def flagship():
+    """The flagship model (bf16, on the card) and its vocoder, with random
+    weights from one seeded generator, and that generator."""
+    from mm_s2ut_torch.config import ModelConfig, MultimodalConfig
     from mm_s2ut_torch.models.hifigan import CodeHiFiGAN, HiFiGANConfig
     from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
-    from mm_s2ut_torch.ops import attention as A
-    from mm_s2ut_torch.ops import decode_attention as D
-    from mm_s2ut_torch.ops.fbank import FbankConfig, waveform_frontend
 
     gen = torch.Generator().manual_seed(0)
     mm = MultimodalConfig(image_feat_dim=[768], multimodal_attention_type="selective_attention",
                           use_selective_gate=True, modality_dropout=0.5, audio_dropout=0.5)
     cfg = ModelConfig(vocab_size=1004, dtype="bfloat16", multimodal=mm)  # the flagship
     model = init_random_(MMS2UTModel(cfg), gen).to("cuda").eval()
-    vocoder = init_random_(CodeHiFiGAN(HiFiGANConfig()), gen)
+    vocoder = init_random_(CodeHiFiGAN(HiFiGANConfig()), gen).to("cuda").eval()
+    return model, vocoder, gen
+
+
+def drive(generator, vocoder, wav, lens, imgs, masks):
+    """The main path once: wav → fbank → encode + fusion → beam search →
+    units → CodeHiFiGAN → wav. Returns (feats, frame lengths, hyps, unit
+    lines, wavs, stage seconds)."""
+    import numpy as np
+
+    from mm_s2ut_torch.data.dictionary import UnitDictionary
+    from mm_s2ut_torch.ops.fbank import FbankConfig, waveform_frontend
+
+    tgt_dict = UnitDictionary(1000)
+    stages = {}
+    (feats, flens), stages["fbank_s"] = timed(lambda: waveform_frontend(
+        wav.cuda(), lens.cuda(), FbankConfig()))
+    hyps, stages["encode_and_search_s"] = timed(lambda: generator.generate(
+        feats, flens, [imgs.cuda()], [masks.cuda()]))
+    unit_lines = [
+        " ".join(str(u) for u in tgt_dict.ids_to_units(np.asarray(h[0]["tokens"])))
+        for h in hyps
+    ]
+    vocoder.max_frames = 4 * max((len(l.split()) for l in unit_lines if l), default=1) + 8
+
+    def vocode():
+        wavs = []
+        for line in unit_lines:
+            units = [int(u) for u in line.split()]
+            if not units:
+                wavs.append(torch.zeros(1600))
+                continue
+            w, n = vocoder(torch.tensor([units], device="cuda"),
+                           torch.tensor([len(units)], device="cuda"))
+            wavs.append(w[0, : int(n[0])].float().cpu())
+        return wavs
+
+    wavs, stages["vocoder_s"] = timed(vocode)
+    return feats, flens, hyps, unit_lines, wavs, stages
+
+
+def counted(counters, fn):
+    """Run ``fn`` with every counter set to 0 just before; (result, seconds,
+    launches read just after)."""
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    total = time.perf_counter() - t0
+    return out, total, {k: c.launches for k, c in counters.items()}
+
+
+def check_outputs(hyps, unit_lines, wavs, n, beam):
+    """Right by the repo's own means: shapes, finiteness, ranges."""
+    import numpy as np
+
+    assert len(hyps) == n and all(len(h) == beam for h in hyps)
+    assert all(np.isfinite(h[0]["score"]) for h in hyps)
+    assert all(0 <= int(u) < 1000 for line in unit_lines for u in line.split())
+    assert all(torch.isfinite(w).all() and w.abs().max() <= 1.0 and w.numel() > 0 for w in wavs)
+
+
+def phase_main_path(model, vocoder, gen, out_dir: Path):
+    from mm_s2ut_torch.config import GenerationConfig
+    from mm_s2ut_torch.data.audio_io import write_wav
+    from mm_s2ut_torch.data.dictionary import UnitDictionary
+    from mm_s2ut_torch.infer.generator import UnitGenerator, format_generation_output
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.ops import decode_attention as D
+
     n_params = sum(p.numel() for p in model.parameters())
     gcfg = GenerationConfig(beam=10, max_len_a=1.0, max_len_b=200)
-    generator = UnitGenerator(model, gcfg, max_target_positions=cfg.max_target_positions)
-    tgt_dict = UnitDictionary(1000)
+    generator = UnitGenerator(model, gcfg, max_target_positions=model.cfg.max_target_positions)
     wav, lens, imgs = synthetic_batch(8, gen)
     masks = torch.zeros(imgs.shape[:2], dtype=torch.bool)
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    def main_path(wav, lens, imgs, masks):
-        stages = {}
-        (feats, flens), stages["fbank_s"] = timed(lambda: waveform_frontend(
-            wav.cuda(), lens.cuda(), FbankConfig()))
-        hyps, stages["encode_and_search_s"] = timed(lambda: generator.generate(
-            feats, flens, [imgs.cuda()], [masks.cuda()]))
-        unit_lines = [
-            " ".join(str(u) for u in tgt_dict.ids_to_units(np.asarray(h[0]["tokens"])))
-            for h in hyps
-        ]
-        max_units = max((len(l.split()) for l in unit_lines if l), default=1)
-        voc = vocoder.to("cuda").eval()
-        voc.max_frames = 4 * max_units + 8
+    drive(generator, vocoder, wav[:2, :16000], torch.clamp(lens[:2], max=16000), imgs[:2],
+          masks[:2])  # warm-up
+    counters = {"A": A.flash_attention, "B": D.ancestry_decode_attention,
+                "C": D.cross_decode_attention}
+    (feats, flens, hyps, unit_lines, wavs, stages), total, launches = counted(
+        counters, lambda: drive(generator, vocoder, wav, lens, imgs, masks))
 
-        def vocode():
-            wavs = []
-            for line in unit_lines:
-                units = [int(u) for u in line.split()]
-                if not units:
-                    wavs.append(torch.zeros(1600))
-                    continue
-                w, n = voc(torch.tensor([units], device="cuda"),
-                           torch.tensor([len(units)], device="cuda"))
-                wavs.append(w[0, : int(n[0])].float().cpu())
-            return wavs
-
-        wavs, stages["vocoder_s"] = timed(vocode)
-        return feats, flens, hyps, unit_lines, wavs, stages
-
-    main_path(wav[:2, :16000], torch.clamp(lens[:2], max=16000), imgs[:2], masks[:2])  # warm-up
-
-    counters = (A.flash_attention, D.ancestry_decode_attention, D.cross_decode_attention)
-    for fn in counters:
-        fn.launches = 0
-    t0 = time.perf_counter()
-    feats, flens, hyps, unit_lines, wavs, stages = main_path(wav, lens, imgs, masks)
-    total = time.perf_counter() - t0
-    launches = dict(zip("ABC", (fn.launches for fn in counters)))
-
+    tgt_dict = UnitDictionary(1000)
     for i, (line, w) in enumerate(zip(unit_lines, wavs)):
         (out_dir / f"{i}.unit").write_text(line + "\n")
         write_wav(out_dir / f"{i}_pred.wav", w.numpy(), 16000)
     (out_dir / "generate-smoke.txt").write_text(
         "\n".join(format_generation_output(range(len(hyps)), hyps, tgt_dict)) + "\n")
 
-    # Outputs are right by the repo's own means: shapes, finiteness, ranges.
     assert all(v > 0 for v in launches.values()), f"a kernel of the path never launched: {launches}"
-    assert len(hyps) == 8 and all(len(h) == gcfg.beam for h in hyps)
-    assert all(np.isfinite(h[0]["score"]) for h in hyps)
-    assert all(0 <= int(u) < 1000 for line in unit_lines for u in line.split())
-    assert all(torch.isfinite(w).all() and w.abs().max() <= 1.0 and w.numel() > 0 for w in wavs)
+    check_outputs(hyps, unit_lines, wavs, 8, gcfg.beam)
     with torch.no_grad():
         enc, stages["encode_only_s"] = timed(lambda: model.encode(
             feats, flens, [imgs.cuda()], [masks.cuda()]))
@@ -328,6 +468,82 @@ def phase_main_path(out_dir: Path):
     print(f"phase 4: launches {launches}; stages {json.dumps({k: round(v, 4) for k, v in stages.items()})}; "
           f"total {total:.3f} s; {8 / total:.3f} utt/s")
     return launches
+
+
+def phase_bench_point(model, vocoder, gen):
+    """bench.py's default operating point with the int8 cache, then the same
+    batch with the bf16 cache."""
+    from mm_s2ut_torch.config import GenerationConfig
+    from mm_s2ut_torch.infer.generator import UnitGenerator
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.ops import decode_attention as D
+
+    n = 128
+    wav, lens, imgs = synthetic_batch(n, gen, min_s=10.0, max_s=10.0)
+    masks = torch.zeros(imgs.shape[:2], dtype=torch.bool)
+    counters = {"A": A.flash_attention, "B": D.ancestry_decode_attention,
+                "C": D.cross_decode_attention, "D": D.ancestry_decode_attention_i8,
+                "E": D.cross_decode_attention_i8}
+    launches = {}
+    for kv in ("int8", "bfloat16"):
+        gcfg = GenerationConfig(beam=10, max_len_a=0.0, max_len_b=200, kv_cache_dtype=kv)
+        generator = UnitGenerator(model, gcfg, max_target_positions=model.cfg.max_target_positions)
+        drive(generator, vocoder, wav[:2, :16000], torch.clamp(lens[:2], max=16000), imgs[:2],
+              masks[:2])  # warm-up
+        (_, _, hyps, unit_lines, wavs, stages), total, counts = counted(
+            counters, lambda: drive(generator, vocoder, wav, lens, imgs, masks))
+        check_outputs(hyps, unit_lines, wavs, n, gcfg.beam)
+        need = "ADE" if kv == "int8" else "ABC"
+        assert all(counts[k] > 0 for k in need), f"{kv}: a kernel of the path never launched: {counts}"
+        if kv == "int8":
+            launches = counts
+        print(f"phase 5: bench point, {kv} cache, {n} x 10 s utts, beam 10, max_len 200: "
+              f"unit lengths min {min(len(l.split()) for l in unit_lines)} max "
+              f"{max(len(l.split()) for l in unit_lines)}; launches {counts}; stages "
+              f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}; total {total:.3f} s; "
+              f"{n / total:.3f} utt/s; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del hyps, wavs
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_int4(model, vocoder, gen):
+    from mm_s2ut_torch.config import GenerationConfig
+    from mm_s2ut_torch.infer.generator import UnitGenerator
+    from mm_s2ut_torch.ops import decode_attention as D
+
+    n = 8
+    wav, lens, imgs = synthetic_batch(n, gen)
+    masks = torch.zeros(imgs.shape[:2], dtype=torch.bool)
+    gcfg = GenerationConfig(beam=10, max_len_a=0.0, max_len_b=200, kv_cache_dtype="int4")
+    generator = UnitGenerator(model, gcfg, max_target_positions=model.cfg.max_target_positions)
+    counters = {"E": D.cross_decode_attention_i8, "F": D.ancestry_decode_attention_i4}
+    (_, _, hyps, unit_lines, wavs, stages), total, launches = counted(
+        counters, lambda: drive(generator, vocoder, wav, lens, imgs, masks))
+    check_outputs(hyps, unit_lines, wavs, n, gcfg.beam)
+    assert all(v > 0 for v in launches.values()), f"a kernel of the path never launched: {launches}"
+    print(f"phase 6: int4 cache, flagship bf16, {n} utts, beam 10, max_len 200: unit lengths "
+          f"{[len(l.split()) for l in unit_lines]}; launches {launches}; stages "
+          f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}; total {total:.3f} s; "
+          f"{n / total:.3f} utt/s")
+    return launches
+
+
+KERNELS = {  # name, source, the TPU kernel it replaces
+    "A": ("flash_attention", "mm_s2ut_torch/csrc/flash_attention.cu",
+          "mm_s2ut/ops/attention.py:140"),
+    "B": ("ancestry_decode_attention", "mm_s2ut_torch/csrc/decode_attention.cu",
+          "mm_s2ut/ops/decode_attention.py:50"),
+    "C": ("cross_decode_attention", "mm_s2ut_torch/csrc/decode_attention.cu",
+          "mm_s2ut/ops/decode_attention.py:477"),
+    "D": ("ancestry_decode_attention_i8", "mm_s2ut_torch/csrc/decode_attention_q.cu",
+          "mm_s2ut/ops/decode_attention.py:109"),
+    "E": ("cross_decode_attention_i8", "mm_s2ut_torch/csrc/decode_attention_q.cu",
+          "mm_s2ut/ops/decode_attention.py:533"),
+    "F": ("ancestry_decode_attention_i4", "mm_s2ut_torch/csrc/decode_attention_q.cu",
+          "mm_s2ut/ops/decode_attention.py:291"),
+}
 
 
 def main(argv=None) -> int:
@@ -344,22 +560,20 @@ def main(argv=None) -> int:
         print(f"chip_smoke: mm_s2ut_torch comes from {pkg_root}, not from {HERE}", file=sys.stderr)
         return 1
 
+    t0 = time.perf_counter()
     phase_build()
     record = phase_kernels()
     phase_small_parity()
-    launches = phase_main_path(Path(args.out))
-    sources = {"A": "mm_s2ut_torch/csrc/flash_attention.cu",
-               "B": "mm_s2ut_torch/csrc/decode_attention.cu",
-               "C": "mm_s2ut_torch/csrc/decode_attention.cu"}
-    replaces = {"A": "mm_s2ut/ops/attention.py:140",
-                "B": "mm_s2ut/ops/decode_attention.py:50",
-                "C": "mm_s2ut/ops/decode_attention.py:477"}
-    names = {"A": "flash_attention", "B": "ancestry_decode_attention",
-             "C": "cross_decode_attention"}
+    model, vocoder, gen = flagship()
+    launches = phase_main_path(model, vocoder, gen, Path(args.out))
+    bench = phase_bench_point(model, vocoder, gen)
+    launches.update(D=bench["D"], E=bench["E"])
+    launches["F"] = phase_int4(model, vocoder, gen)["F"]
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
-        {"name": names[k], "route": "cuda", "source": sources[k], "replaces": replaces[k],
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], **record[k]}
-        for k in "ABC"
+        for k, (name, src, rep) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,13 +10,19 @@ flag back from the device per step. Top-k uses a stable descending sort,
 so ties go to the lower index as ``jax.lax.top_k`` breaks them. The cache
 grows in segments (64 → 128 → … → max_len+1 steps) as in the reference,
 but as views of one full allocation: the kernel reads only the first
-cap·K columns, and nothing is copied when a segment grows.
+cap·K columns, and nothing is copied when a segment grows. The int8/int4
+dequant scales are such views too. An int4 cache is the exception: its
+half boundary moves with the capacity, so each growth re-packs it with
+``i4_regrow`` (a copy per growth, as in the reference).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
 
 import torch
+
+from mm_s2ut_torch.models.decoder import is_int4
+from mm_s2ut_torch.ops.decode_attention import i4_regrow
 
 NEG_INF = -1.0e7  # beam-search mask value (the attention ops use -1e9)
 
@@ -71,6 +77,8 @@ def beam_search(
         raise ValueError(f"vocab_size must be >= 2, got {V}")
     state = init_state
     kv_full, anc_full = state["self_kv"], state["ancestry"]
+    scales_full = {k: state[k] for k in ("self_kv_sk", "self_kv_sv") if k in state}
+    int4 = is_int4(state)
     dev = kv_full.device
     L1 = max_len + 1
 
@@ -90,7 +98,7 @@ def beam_search(
         worst_fin = torch.where(fin_flags, fin_scores, torch.full_like(fin_scores, NEG_INF)).amin(1)
         return bool(torch.any(~fin_flags.all(1) | (best_alive > worst_fin)))
 
-    T_full = kv_full.shape[3] // K
+    T_full = anc_full.shape[2]  # logical steps
     caps: List[int] = []
     c = 64
     while c < T_full:
@@ -99,8 +107,17 @@ def beam_search(
     caps.append(T_full)
 
     step = 0
-    for cap in caps:
-        state["self_kv"] = kv_full[:, :, :, : cap * K]
+    if int4:  # it lives in re-packed segments: keep the first, drop the full allocation
+        state["self_kv"] = kv_full[:, :, :, : caps[0] * K // 2].clone()
+        kv_full = None
+    for i, cap in enumerate(caps):
+        if int4:
+            if i > 0:
+                state["self_kv"] = i4_regrow(state["self_kv"], cap * K // 2)
+        else:
+            state["self_kv"] = kv_full[:, :, :, : cap * K]
+        for key, full in scales_full.items():
+            state[key] = full[:, :, :, : cap * K]
         state["ancestry"] = anc_full[:, :, :cap]
         while step < min(cap, max_len) and improvable():
             prev_tok = alive_seq.reshape(B * K, L1)[:, step : step + 1]
@@ -153,16 +170,25 @@ def tile_state_for_beams(state: Any, beam_size: int) -> Any:
     (B, L, H, T, 2·Dh) → (B, L, H, T·K, 2·Dh) with column j = t·K + slot,
     and attach a zero (B, K, T) ancestry table. The cache is empty here,
     so this is a fresh zero allocation, not a copy. Cross K/V and the
-    cross bias stay at batch size B (the beams share them)."""
+    cross bias stay at batch size B (the beams share them). The ancestry
+    table and the int8/int4 scales are sized by the LOGICAL T, which for
+    an int4 cache is twice its physical column count."""
     kv = state["self_kv"]
-    B, T = kv.shape[0], kv.shape[3]
+    B = kv.shape[0]
+    T = state["self_kv_sk"].shape[3] if "self_kv_sk" in state else kv.shape[3]
     shape = list(kv.shape)
-    shape[3] = T * beam_size
-    return {
+    shape[3] = kv.shape[3] * beam_size
+    out = {
         **state,
         "self_kv": torch.zeros(shape, dtype=kv.dtype, device=kv.device),
         "ancestry": torch.zeros((B, beam_size, T), dtype=torch.long, device=kv.device),
     }
+    for key in ("self_kv_sk", "self_kv_sv"):
+        if key in state:
+            s_shape = list(state[key].shape)
+            s_shape[3] = T * beam_size
+            out[key] = torch.zeros(s_shape, dtype=state[key].dtype, device=kv.device)
+    return out
 
 
 def trim_hypothesis(tokens, eos_id: int = 2, pad_id: int = 1) -> List[int]:

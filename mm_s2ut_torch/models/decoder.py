@@ -2,15 +2,22 @@
 
 Port of the incremental-decoding half of ``mm_s2ut/models/decoder.py``
 (``StackedEmbedding`` with n_frames_per_step = 1, ``UnitDecoder.init_state``
-for a bf16/fp32 cache, ``step``, ``_step_core`` and the ancestry branch
-of ``_self_attn_step``). The cache layout is the reference's: ONE stacked
-buffer (B, L, H, T·S, 2·Dh), key column j = t·S + s, K‖V interleaved on
-the last axis. Rows are never reordered: beam k reads its history through
-``flat_rep`` (kernel B), and each step writes its rows in place.
+for a bf16/fp32, int8 or int4 cache, ``step``, ``_step_core`` and the
+ancestry branch of ``_self_attn_step``). The cache layout is the
+reference's: ONE stacked buffer (B, L, H, T·S, 2·Dh), key column
+j = t·S + s, K‖V interleaved on the last axis. Rows are never reordered:
+beam k reads its history through ``flat_rep`` (kernel B; D over an int8
+cache, F over an int4 one), and each step writes its rows in place.
 
 Decoder state is a plain dict: ``step`` (int), ``self_kv``, ``cross``
-(per-layer packed encoder K‖V), ``cross_bias`` and, once tiled for beams,
+(per-layer packed encoder K‖V, with ``sk``/``sv`` when int8),
+``cross_bias``, for a quantized cache ``self_kv_sk``/``self_kv_sv``
+(B, L, H, T·S) f32 dequant scales, and, once tiled for beams,
 ``ancestry`` (B, K, T) int64. :meth:`UnitDecoder.step` updates it in place.
+An int4 cache is nibble-packed in the half-split layout
+(``ops/decode_attention.i4_pack``): its physical column axis is half the
+logical one, which is how the code tells it from int8 (the scales keep
+the logical length).
 """
 from __future__ import annotations
 
@@ -26,9 +33,32 @@ from mm_s2ut_torch.models.layers import (
     layer_norm,
     make_padding_bias,
 )
-from mm_s2ut_torch.ops.decode_attention import ancestry_decode_attention
+from mm_s2ut_torch.ops.decode_attention import (
+    ancestry_decode_attention,
+    ancestry_decode_attention_i4,
+    ancestry_decode_attention_i8,
+)
 
 DecoderState = Dict[str, Any]
+
+
+def quantize_rows(
+    k_rows: torch.Tensor, v_rows: torch.Tensor, levels: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The cache write's per-row symmetric quantization (127 levels for
+    int8, 7 for int4): scale = max(amax/levels, 1e-8) over Dh, values
+    rounded half to even and clipped. (…, Dh) rows → (int8 K‖V rows
+    (…, 2·Dh), sk (…), sv (…))."""
+    kf, vf = k_rows.float(), v_rows.float()
+    sk = (kf.abs().amax(-1) / levels).clamp_min(1e-8)
+    sv = (vf.abs().amax(-1) / levels).clamp_min(1e-8)
+    rows = torch.cat([torch.round(kf / sk[..., None]), torch.round(vf / sv[..., None])], dim=-1)
+    return rows.clamp(-levels, levels).to(torch.int8), sk, sv
+
+
+def is_int4(state: DecoderState) -> bool:
+    """An int4 cache holds two logical columns per physical one."""
+    return "self_kv_sk" in state and state["self_kv_sk"].shape[3] == 2 * state["self_kv"].shape[3]
 
 
 class StackedEmbedding(nn.Module):
@@ -80,46 +110,73 @@ class UnitDecoder(nn.Module):
     ) -> DecoderState:
         """Pre-project encoder K/V per layer and allocate the stacked
         self-attention cache (B, L, H, max_len, 2·Dh) (S = 1 until
-        ``tile_state_for_beams``)."""
-        if kv_dtype not in (None, "bfloat16", "float32"):
-            raise NotImplementedError(
-                f"kv_cache_dtype={kv_dtype!r}: only the bf16/fp32 cache is ported"
-            )
+        ``tile_state_for_beams``).
+
+        ``kv_dtype="int8"`` stores the cache as int8 with per-column,
+        per-head f32 scales ``self_kv_sk``/``self_kv_sv`` (B, L, H, max_len),
+        and the cross slab as int8 with its scales. ``"int4"`` also packs the
+        self-attention cache two columns per byte, (B, L, H, max_len/2, 2·Dh),
+        with max_len rounded up to even so a step's write never straddles
+        the half boundary; its cross slab is int8. Other values keep the
+        model's dtype."""
+        if kv_dtype not in (None, "bfloat16", "float32", "int8", "int4"):
+            raise ValueError(f"kv_cache_dtype={kv_dtype!r}: expected bfloat16, int8 or int4")
         B = encoder_out.shape[0]
-        Dh = self.embed_dim // self.num_heads
-        return {
+        H, Dh = self.num_heads, self.embed_dim // self.num_heads
+        dev = encoder_out.device
+        quant, int4 = kv_dtype in ("int8", "int4"), kv_dtype == "int4"
+        if int4:
+            max_len += max_len % 2
+        state: DecoderState = {
             "step": 0,
             "self_kv": torch.zeros(
-                (B, self.num_layers, self.num_heads, max_len, 2 * Dh),
-                dtype=encoder_out.dtype, device=encoder_out.device,
+                (B, self.num_layers, H, max_len // 2 if int4 else max_len, 2 * Dh),
+                dtype=torch.int8 if quant else encoder_out.dtype, device=dev,
             ),
-            "cross": [layer.cross_attn.precompute_kv(encoder_out) for layer in self.layers],
+            "cross": [
+                layer.cross_attn.precompute_kv(encoder_out, kv_dtype="int8" if quant else None)
+                for layer in self.layers
+            ],
             "cross_bias": (
                 make_padding_bias(encoder_padding_mask, encoder_out.dtype)
                 if encoder_padding_mask is not None else None
             ),
         }
+        if quant:
+            for key in ("self_kv_sk", "self_kv_sv"):
+                state[key] = torch.zeros((B, self.num_layers, H, max_len), device=dev)
+        return state
+
+    @staticmethod
+    def _flat_len(state: DecoderState) -> int:
+        """Logical length of the cache's flattened (t·S + s) axis."""
+        n = state["self_kv"].shape[3]
+        return 2 * n if is_int4(state) else n
 
     def _self_attn_step(
-        self, layer: TransformerDecoderLayer, x: torch.Tensor, kv: torch.Tensor,
+        self, layer: TransformerDecoderLayer, x: torch.Tensor, state: DecoderState,
         layer_idx: int, flat_rep: torch.Tensor,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Single-token self-attention of every beam over the read-only
-        stacked cache plus its own fresh token (kernel B)."""
+        stacked cache plus its own fresh token (kernel B, D or F)."""
         attn = layer.self_attn
         q = attn._split(attn.q_proj(x)) * attn.head_dim ** -0.5  # (N, 1, H, Dh)
         k_new = attn._split(attn.k_proj(x))
         v_new = attn._split(attn.v_proj(x))
         N = x.shape[0]
+        kv = state["self_kv"]
         B, H, Dh = kv.shape[0], kv.shape[2], kv.shape[4] // 2
         K = N // B
 
         def to_bhkd(t):  # (N, 1, H, Dh) → (B, H, K, Dh)
             return t.reshape(B, K, H, Dh).transpose(1, 2)
 
-        out = ancestry_decode_attention(
-            to_bhkd(q), to_bhkd(k_new), to_bhkd(v_new), kv, flat_rep, layer_idx
-        )
+        args = (to_bhkd(q), to_bhkd(k_new), to_bhkd(v_new), kv)
+        if "self_kv_sk" not in state:
+            out = ancestry_decode_attention(*args, flat_rep, layer_idx)
+        else:
+            fn = ancestry_decode_attention_i4 if is_int4(state) else ancestry_decode_attention_i8
+            out = fn(*args, state["self_kv_sk"], state["self_kv_sv"], flat_rep, layer_idx)
         out = out.transpose(1, 2).reshape(N, 1, H * Dh)
         return attn.out_proj(out), k_new, v_new
 
@@ -131,7 +188,7 @@ class UnitDecoder(nn.Module):
         step_idx = state["step"]
         ancestry = state["ancestry"]
         T_ = ancestry.shape[2]
-        S_ = state["self_kv"].shape[3] // T_  # cache slots per step: the beam count
+        S_ = self._flat_len(state) // T_  # cache slots per step: the beam count
         # Column j = t·S + s is on beam k's path iff ancestry[b, k, t] == s
         # and t is in the past; kernel B compares flat_rep against j.
         t_idx = torch.arange(T_, device=ancestry.device)[None, None, :]
@@ -148,21 +205,22 @@ class UnitDecoder(nn.Module):
         flat_rep: torch.Tensor, write_pos: int,
     ) -> torch.Tensor:
         """embed → pre-norm layers → shared-embedding logits, then ONE
-        in-place cache write of this step's K‖V rows at flattened column
-        ``write_pos``."""
+        in-place cache write of this step's K‖V rows at flattened (logical)
+        column ``write_pos``, quantized for an int8/int4 cache with its
+        scales written beside it."""
         kv = state["self_kv"]
         x = self.embed(prev_token) * self.embed_scale
         x = self.pos(x, offset=pos_offset)
         new_ks, new_vs = [], []
         for i, layer in enumerate(self.layers):
             h, k_new, v_new = self._self_attn_step(
-                layer, layer.self_attn_layer_norm(x), kv, i, flat_rep
+                layer, layer.self_attn_layer_norm(x), state, i, flat_rep
             )
             new_ks.append(k_new)
             new_vs.append(v_new)
             x = x + h
             x = x + layer.cross_attn.packed_cross(
-                layer.cross_attn_layer_norm(x), state["cross"][i]["kv"], state["cross_bias"]
+                layer.cross_attn_layer_norm(x), state["cross"][i], state["cross_bias"]
             )
             x = x + layer.ffn(layer.final_layer_norm(x))
         logits = self.embed.attend(self.final_norm(x))[:, -1]
@@ -173,7 +231,26 @@ class UnitDecoder(nn.Module):
             r = torch.stack(per_layer, dim=1).reshape(B_, S_, len(per_layer), H_, Dh_)
             return r.permute(0, 2, 3, 1, 4)
 
-        kv[:, :, :, write_pos : write_pos + S_] = torch.cat(
-            [to_rows(new_ks), to_rows(new_vs)], dim=-1
-        )
+        k_rows, v_rows = to_rows(new_ks), to_rows(new_vs)
+        if "self_kv_sk" not in state:
+            kv[:, :, :, write_pos : write_pos + S_] = torch.cat([k_rows, v_rows], dim=-1)
+            return logits
+        int4 = is_int4(state)
+        rows, sk, sv = quantize_rows(k_rows, v_rows, 7.0 if int4 else 127.0)
+        if int4:
+            # Half-split nibble write: logical column p sits in the low
+            # nibble of byte p, column p + P in the high one. T even keeps
+            # the S-column write on one side of P; a read-merge-write of
+            # the S target bytes keeps the other nibble.
+            P = kv.shape[3]
+            high = write_pos >= P
+            pb = write_pos - P if high else write_pos
+            nib = rows.to(torch.int32) & 0xF
+            old = kv[:, :, :, pb : pb + S_].to(torch.int32) & 0xFF
+            merged = (old & 0x0F) | (nib << 4) if high else (old & 0xF0) | nib
+            kv[:, :, :, pb : pb + S_] = (merged - 256 * (merged >= 128).to(torch.int32)).to(torch.int8)
+        else:
+            kv[:, :, :, write_pos : write_pos + S_] = rows
+        state["self_kv_sk"][:, :, :, write_pos : write_pos + S_] = sk
+        state["self_kv_sv"][:, :, :, write_pos : write_pos + S_] = sv
         return logits

@@ -2,7 +2,8 @@
 
 Port of ``mm_s2ut/models/layers.py`` for the offline inference path:
 sinusoidal positions, the cache-free self-attention (kernel A), the
-decode-time packed cross-attention (kernel C) and its K/V precompute,
+decode-time packed cross-attention (kernel C, or E over an int8 slab)
+and its K/V precompute,
 the ReLU feed-forward block, pre-norm encoder and decoder layers, the
 conv subsampler and the mask helpers (the flagship's choices; other
 activations and post-norm are not ported, see ``models/mm_s2ut.py``).
@@ -23,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mm_s2ut_torch.ops.attention import flash_attention
-from mm_s2ut_torch.ops.decode_attention import cross_decode_attention
+from mm_s2ut_torch.ops.decode_attention import cross_decode_attention, cross_decode_attention_i8
 
 NEG_INF = -1e9  # additive mask value
 LN_EPS = 1e-6  # flax nn.LayerNorm default
@@ -68,7 +69,8 @@ class SinusoidalPositionalEmbedding(nn.Module):
 class MultiHeadAttention(nn.Module):
     """q/k/v/out projections with the two attention forms the inference
     path runs: cache-free self-attention (encoder, kernel A) and
-    cross-attention over a precomputed packed K‖V slab (decoder, kernel C).
+    cross-attention over a precomputed packed K‖V slab (decoder, kernel C,
+    or E when the slab is int8).
     The decoder's incremental self-attention lives in
     ``UnitDecoder._self_attn_step`` (kernel B), as in the reference."""
 
@@ -96,19 +98,36 @@ class MultiHeadAttention(nn.Module):
         out = flash_attention(q, k, v, key_padding_mask=key_padding_mask)
         return self.out_proj(out.reshape(*query.shape[:2], self.embed_dim))
 
-    def precompute_kv(self, key: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def precompute_kv(
+        self, key: torch.Tensor, kv_dtype: Optional[str] = None
+    ) -> Dict[str, torch.Tensor]:
         """Project encoder states once per decode into ONE interleaved
-        (B, H, S, 2·Dh) slab in decode storage order."""
+        (B, H, S, 2·Dh) slab in decode storage order.
+
+        ``kv_dtype="int8"`` quantizes the slab per source column and head
+        (symmetric, scale = amax/127 over Dh, stored unclamped; the divisor
+        is clamped at 1e-20) and returns the f32 dequant scales ``sk``/``sv``
+        (B, H, S) beside it."""
         k = self._split(self.k_proj(key)).transpose(1, 2)
         v = self._split(self.v_proj(key)).transpose(1, 2)
-        return {"kv": torch.cat([k, v], dim=-1).contiguous()}
+        if kv_dtype != "int8":
+            return {"kv": torch.cat([k, v], dim=-1).contiguous()}
+        kf, vf = k.float(), v.float()
+        sk = kf.abs().amax(-1) / 127.0
+        sv = vf.abs().amax(-1) / 127.0
+        k_q = torch.round(kf / sk.clamp_min(1e-20)[..., None])
+        v_q = torch.round(vf / sv.clamp_min(1e-20)[..., None])
+        kv_q = torch.cat([k_q, v_q], dim=-1).clamp(-127, 127).to(torch.int8)
+        return {"kv": kv_q.contiguous(), "sk": sk.contiguous(), "sv": sv.contiguous()}
 
     def packed_cross(
-        self, query: torch.Tensor, kv: torch.Tensor, bias: Optional[torch.Tensor]
+        self, query: torch.Tensor, cache: Dict[str, torch.Tensor], bias: Optional[torch.Tensor]
     ) -> torch.Tensor:
-        """query (B·K, Tq, E); kv (B, H, S, 2·Dh); bias (B, 1, 1, S) or None.
-        The K beams of a batch row share its slab (beam-broadcast read)."""
+        """query (B·K, Tq, E); ``cache`` from :meth:`precompute_kv`; bias
+        (B, 1, 1, S) or None. The K beams of a batch row share its slab
+        (beam-broadcast read); a slab with scales takes kernel E."""
         q = self._split(self.q_proj(query)) * self.head_dim ** -0.5
+        kv = cache["kv"]
         B, H, S, _ = kv.shape
         BK, Tq = q.shape[:2]
         K = BK // B
@@ -117,7 +136,10 @@ class MultiHeadAttention(nn.Module):
             torch.zeros((B, S), dtype=torch.float32, device=kv.device) if bias is None
             else bias.float().reshape(B, -1, S)[:, -1]
         )
-        out = cross_decode_attention(qb, kv, bias_row)
+        if "sk" in cache:
+            out = cross_decode_attention_i8(qb, kv, cache["sk"], cache["sv"], bias_row)
+        else:
+            out = cross_decode_attention(qb, kv, bias_row)
         out = out.transpose(1, 2).reshape(BK, Tq, self.embed_dim)
         return self.out_proj(out)
 

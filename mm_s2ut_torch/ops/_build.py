@@ -2,9 +2,11 @@
 
 The kernels are compiled by ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface and loaded through ``ctypes`` — no
-PyTorch headers, so a build takes seconds. The library is built at first
-use into ``mm_s2ut_torch/_build/``, named by a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one is reused.
+PyTorch headers, so a build takes seconds. Each ``.cu`` file compiles to
+an object in its own ``nvcc`` process, all started together, and one
+more ``nvcc`` links them. The library is built at first use into
+``mm_s2ut_torch/_build/``, named by a hash of the sources and flags, so
+an edited source rebuilds and an unchanged one is reused.
 
 Every C entry returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises on a nonzero code. Nothing here is imported or run
@@ -26,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # dtype codes of the C interface (csrc/common.cuh, enum DType).
@@ -47,6 +49,16 @@ _SIGNATURES = {
     "mm_cross_decode_smem_bytes": ([_i, _i, _i], ctypes.c_longlong),
     "mm_cross_decode_attention": (
         [_i, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
+        ctypes.c_int,
+    ),
+    "mm_ancestry_decode_q_smem_bytes": ([_i, _i, _i], ctypes.c_longlong),
+    "mm_ancestry_decode_attention_q": (
+        [_i, _i, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i]
+        + [_i64] * 10 + [_p],
+        ctypes.c_int,
+    ),
+    "mm_cross_decode_attention_i8": (
+        [_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
         ctypes.c_int,
     ),
 }
@@ -82,17 +94,29 @@ def build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so)  # atomic: a concurrent process never loads half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in cu]
+        _run_all([
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)]
+            for src, obj in zip(cu, objs)
+        ])
+        lib = os.path.join(tmp, so.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, so)  # atomic: a concurrent process never loads half a file
     return so
+
+
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; wait for all, then raise on a failure."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in cmds
+    ]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
 
 
 @functools.lru_cache(maxsize=None)

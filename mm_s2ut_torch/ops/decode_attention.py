@@ -1,17 +1,23 @@
-"""Beam-decode attention: kernels B and C and their plain PyTorch twins.
+"""Beam-decode attention: kernels B–F and their plain PyTorch twins.
 
-Port of ``mm_s2ut/ops/decode_attention.py`` (bf16/fp32 cache only; the
-int8 and int4 variants are not ported yet). Argument layouts are the
+Port of ``mm_s2ut/ops/decode_attention.py``. Argument layouts are the
 reference's, so the tests compare like with like:
 
 * the self-attention cache is ONE stacked buffer (B, L, H, T·S, 2·Dh)
   with key column j = t·S + s and K‖V interleaved on the last axis;
   ``flat_rep`` (B, K, T·S) int32 holds j where column j is on beam k's
   ancestry path and in the past, else -1;
-* the cross-attention slab is (B, H, S, 2·Dh), shared by the K beams.
+* the cross-attention slab is (B, H, S, 2·Dh), shared by the K beams;
+* an int8 cache stores each column quantized per head with f32 dequant
+  scales ``sk``/``sv`` (B, L, H, T·S) (cross: (B, H, S)); q is quantized
+  per row (:func:`_quantize_q`) and both contractions are integer
+  (kernel D, cross kernel E);
+* an int4 cache packs two logical columns per byte in the half-split
+  layout (byte p = column p in the low nibble, column p + T·S/2 in the
+  high one; :func:`i4_pack`), with scales as int8's (kernel F).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-(``csrc/decode_attention.cu``) or raises.
+(``csrc/decode_attention.cu``, ``csrc/decode_attention_q.cu``) or raises.
 """
 from __future__ import annotations
 
@@ -54,6 +60,102 @@ def cross_reference(q, kv, bias) -> torch.Tensor:
     scores = scores + bias.float()[:, None, None, :]
     w = torch.softmax(scores, dim=-1).to(v2.dtype)
     return torch.einsum("bhks,bhsd->bhkd", w, v2).to(q.dtype)
+
+
+def _quantize_q(q, k_new):
+    """Per-(b, h, k) row int8 quantization of q, and the exact
+    (full-precision q) self logit: (q8 int8, qs (B, H, K) f32, sl f32)."""
+    qf = q.float()
+    qs = qf.abs().amax(-1) / 127.0 + 1e-20
+    q8 = torch.round(qf / qs[..., None]).to(torch.int8)
+    return q8, qs, (qf * k_new.float()).sum(-1)
+
+
+def reference_i8(q, k_new, v_new, kv, sk, sv, flat_rep, layer: int) -> torch.Tensor:
+    """Plain version of kernel D: B's contraction over an int8 cache with
+    the reference's quantization — int8 q, integer scores (exact in f32),
+    softmax weights ×sv requantized per row to int8."""
+    Dh = q.shape[-1]
+    q8, qs, sl = _quantize_q(q, k_new)
+    slab = kv[:, layer]  # (B, H, T·S, 2·Dh) int8
+    TS = slab.shape[2]
+    s_int = torch.einsum("bhkd,bhjd->bhkj", q8.float(), slab[..., :Dh].float())
+    scores = s_int * qs[..., None] * sk[:, layer][:, :, None, :]
+    col = torch.arange(TS, dtype=torch.int32, device=q.device)
+    scores = torch.where(flat_rep[:, None] == col, scores, torch.full_like(scores, NEG_INF))
+    self_logit = sl[..., None]
+    m = torch.maximum(scores.amax(-1, keepdim=True), self_logit)
+    p = torch.exp(scores - m)
+    p_self = torch.exp(self_logit - m)
+    denom = p.sum(-1, keepdim=True) + p_self
+    w_eff = (p / denom) * sv[:, layer][:, :, None, :]
+    ws = w_eff.amax(-1, keepdim=True) / 127.0 + 1e-20
+    w8 = torch.round(w_eff / ws)
+    out = torch.einsum("bhkj,bhjd->bhkd", w8, slab[..., Dh:].float()) * ws
+    out = out + (p_self / denom) * v_new.float()
+    return out.to(q.dtype)
+
+
+def cross_reference_i8(q, kv, sk, sv, bias) -> torch.Tensor:
+    """Plain version of kernel E: dequantize the int8 slab to q's dtype,
+    then :func:`cross_reference`."""
+    Dh = q.shape[-1]
+    slab = kv.float()
+    deq = torch.cat([slab[..., :Dh] * sk[..., None], slab[..., Dh:] * sv[..., None]], dim=-1)
+    return cross_reference(q, deq.to(q.dtype), bias)
+
+
+def i4_pack(cols: torch.Tensor, P: int) -> torch.Tensor:
+    """Logical columns (..., C, lanes) int8 with values in [-8, 7] → the
+    half-split layout (..., P, lanes); C ≤ 2·P, missing columns are 0."""
+    C = cols.shape[-2]
+    pad = torch.zeros((*cols.shape[:-2], 2 * P - C, cols.shape[-1]), dtype=torch.int32,
+                      device=cols.device)
+    cols = torch.cat([cols.to(torch.int32), pad], dim=-2)
+    merged = (cols[..., :P, :] & 0xF) | ((cols[..., P:, :] & 0xF) << 4)  # [0, 255]
+    return (merged - 256 * (merged >= 128).to(torch.int32)).to(torch.int8)
+
+
+def i4_unpack(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`i4_pack`: (..., P, lanes) → (..., 2·P, lanes)
+    int8, each nibble sign-extended."""
+    wide = packed.to(torch.int32)
+    lo = ((wide & 0xF) ^ 8) - 8
+    hi = wide >> 4  # arithmetic shift of the sign-extended byte
+    return torch.cat([lo, hi], dim=-2).to(torch.int8)
+
+
+def i4_regrow(kv_packed: torch.Tensor, P_new: int) -> torch.Tensor:
+    """Grow a half-split packed cache (..., P_old, lanes) to P_new ≥ P_old:
+    the half boundary moves with the capacity, so every stored column is
+    re-paired. Pure int8 bit operations, the reference's bytes exactly,
+    written into the output in place: eager PyTorch would otherwise
+    materialize several cache-sized temporaries that XLA fuses away."""
+    P_old = kv_packed.shape[-2]
+    if P_new < P_old:
+        raise ValueError(f"i4_regrow: cannot shrink {P_old} packed rows to {P_new}")
+    out = torch.zeros((*kv_packed.shape[:-2], P_new, kv_packed.shape[-1]),
+                      dtype=torch.int8, device=kv_packed.device)
+    # Columns 0 .. P_old-1 stay in the low nibbles of their bytes.
+    out[..., :P_old, :].copy_(kv_packed).bitwise_and_(0xF)
+    # Old high column P_old + i lands in the low nibble of byte P_old + i
+    # while it is below P_new ...
+    n = min(P_new, 2 * P_old) - P_old
+    out[..., P_old : P_old + n, :].copy_(kv_packed[..., :n, :]).bitwise_right_shift_(4) \
+        .bitwise_and_(0xF)
+    # ... and in the high nibble of byte P_old + i - P_new from there on.
+    m = 2 * P_old - P_new
+    if m > 0:
+        out[..., :m, :] |= kv_packed[..., P_old - m :, :] & -16  # -16 = 0xF0
+    return out
+
+
+def reference_i4(q, k_new, v_new, kv, sk, sv, flat_rep, layer: int) -> torch.Tensor:
+    """Plain version of kernel F: unpack the layer's slab to int8 columns
+    and take :func:`reference_i8`."""
+    slab = i4_unpack(kv[:, layer])  # (B, H, T·S, 2·Dh)
+    return reference_i8(q, k_new, v_new, slab[:, None], sk[:, layer][:, None],
+                         sv[:, layer][:, None], flat_rep, 0)
 
 
 def _check_common(name, q, tensors, K, Dh):
@@ -142,3 +244,137 @@ def cross_decode_attention(
 
 
 cross_decode_attention.launches = 0
+
+
+def _launch_quant_ancestry(name, packed, q, k_new, v_new, kv, sk, sv, flat_rep, layer):
+    """Kernels D (packed=False) and F (packed=True): check, then launch.
+    The cache and both scale arrays are read through their strides (the
+    beam search passes prefix views of one allocation). The kernels keep
+    scores per (beam, step) and so take the contract of ``flat_rep`` that
+    ``UnitDecoder.step`` builds: T·S = T·K, and a beam has at most one
+    on-path column among the K slots of a step."""
+    B, H, K, Dh = q.shape
+    _check_common(name, q, (k_new, v_new, kv, sk, sv, flat_rep), K, Dh)
+    if q.dtype not in (torch.float32, torch.bfloat16) or k_new.dtype != q.dtype \
+            or v_new.dtype != q.dtype:
+        raise ValueError(f"{name}: q, k_new, v_new must share a float32/bfloat16 dtype")
+    if kv.dtype != torch.int8 or kv.dim() != 5 or kv.shape[0] != B or kv.shape[2] != H \
+            or kv.shape[4] != 2 * Dh or kv.stride(4) != 1:
+        raise ValueError(f"{name}: int8 cache shape {tuple(kv.shape)} / strides")
+    if not 0 <= layer < kv.shape[1]:
+        raise ValueError(f"{name}: layer {layer} out of range")
+    TS = kv.shape[3] * (2 if packed else 1)
+    for s in (sk, sv):
+        if s.dtype != torch.float32 or tuple(s.shape) != (B, kv.shape[1], H, TS) \
+                or s.stride(3) != 1:
+            raise ValueError(f"{name}: scales must be (B, L, H, T·S) float32, got "
+                             f"{tuple(s.shape)} {s.dtype}")
+    if flat_rep.dtype != torch.int32 or tuple(flat_rep.shape) != (B, K, TS):
+        raise ValueError(f"{name}: flat_rep must be (B, K, T·S) int32")
+    if TS % K:
+        raise ValueError(f"{name}: T·S={TS} is not a multiple of the {K} beam slots")
+    lib = _build.library()
+    if lib.mm_ancestry_decode_q_smem_bytes(K, TS // K, Dh) > MAX_SHARED_BYTES:
+        raise ValueError(f"{name}: K={K} x T={TS // K} scores exceed a block's shared memory")
+    q, k_new, v_new, flat_rep = (t.contiguous() for t in (q, k_new, v_new, flat_rep))
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = lib.mm_ancestry_decode_attention_q(
+            _build.dtype_code(q.dtype), int(packed), q.data_ptr(), k_new.data_ptr(),
+            v_new.data_ptr(), kv.data_ptr(), sk.data_ptr(), sv.data_ptr(),
+            flat_rep.data_ptr(), out.data_ptr(), B, H, K, Dh, TS, layer,
+            kv.stride(0), kv.stride(1), kv.stride(2), kv.stride(3),
+            sk.stride(0), sk.stride(1), sk.stride(2),
+            sv.stride(0), sv.stride(1), sv.stride(2),
+            _build.stream_ptr(q.device),
+        )
+    _build.check(rc, name)
+    return out
+
+
+def ancestry_decode_attention_i8(
+    q: torch.Tensor,  # (B, H, K, Dh), already scaled by Dh^-0.5
+    k_new: torch.Tensor,  # (B, H, K, Dh)
+    v_new: torch.Tensor,  # (B, H, K, Dh)
+    kv: torch.Tensor,  # (B, L, H, T·S, 2·Dh) int8, the WHOLE stacked cache
+    sk: torch.Tensor,  # (B, L, H, T·S) f32 per-column K dequant scale
+    sv: torch.Tensor,  # (B, L, H, T·S) f32 per-column V dequant scale
+    flat_rep: torch.Tensor,  # (B, K, T·S) int32
+    layer: int,
+) -> torch.Tensor:
+    """int8-cache variant of :func:`ancestry_decode_attention` (kernel D)."""
+    if q.device.type == "cpu":
+        return reference_i8(q, k_new, v_new, kv, sk, sv, flat_rep, layer)
+    out = _launch_quant_ancestry("ancestry_decode_attention_i8", False,
+                                 q, k_new, v_new, kv, sk, sv, flat_rep, layer)
+    ancestry_decode_attention_i8.launches += 1
+    return out
+
+
+ancestry_decode_attention_i8.launches = 0
+
+
+def ancestry_decode_attention_i4(
+    q: torch.Tensor,  # (B, H, K, Dh), already scaled by Dh^-0.5
+    k_new: torch.Tensor,  # (B, H, K, Dh)
+    v_new: torch.Tensor,  # (B, H, K, Dh)
+    kv: torch.Tensor,  # (B, L, H, T·S/2, 2·Dh) int8, nibble-packed (half-split)
+    sk: torch.Tensor,  # (B, L, H, T·S) f32, logical column ids
+    sv: torch.Tensor,  # (B, L, H, T·S) f32
+    flat_rep: torch.Tensor,  # (B, K, T·S) int32, logical column ids
+    layer: int,
+) -> torch.Tensor:
+    """int4-cache variant of :func:`ancestry_decode_attention` (kernel F)."""
+    if q.device.type == "cpu":
+        return reference_i4(q, k_new, v_new, kv, sk, sv, flat_rep, layer)
+    out = _launch_quant_ancestry("ancestry_decode_attention_i4", True,
+                                 q, k_new, v_new, kv, sk, sv, flat_rep, layer)
+    ancestry_decode_attention_i4.launches += 1
+    return out
+
+
+ancestry_decode_attention_i4.launches = 0
+
+
+def cross_decode_attention_i8(
+    q: torch.Tensor,  # (B, H, K, Dh), already scaled by Dh^-0.5
+    kv: torch.Tensor,  # (B, H, S, 2·Dh) int8 packed encoder K‖V
+    sk: torch.Tensor,  # (B, H, S) f32 per-column K dequant scale
+    sv: torch.Tensor,  # (B, H, S) f32 per-column V dequant scale
+    bias: torch.Tensor,  # (B, S) f32 additive mask (0 valid / -1e9 pad)
+) -> torch.Tensor:
+    """int8-slab variant of :func:`cross_decode_attention` (kernel E)."""
+    if q.device.type == "cpu":
+        return cross_reference_i8(q, kv, sk, sv, bias)
+    name = "cross_decode_attention_i8"
+    B, H, K, Dh = q.shape
+    S = kv.shape[2]
+    _check_common(name, q, (kv, sk, sv, bias), K, Dh)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: q must be float32 or bfloat16, got {q.dtype}")
+    if kv.dtype != torch.int8 or tuple(kv.shape) != (B, H, S, 2 * Dh):
+        raise ValueError(f"{name}: slab {tuple(kv.shape)} {kv.dtype}")
+    if any(s.dtype != torch.float32 or tuple(s.shape) != (B, H, S) for s in (sk, sv)):
+        raise ValueError(f"{name}: scales must be (B, H, S) float32")
+    if tuple(bias.shape) != (B, S):
+        raise ValueError(f"{name}: bias must be (B, S)")
+    lib = _build.library()
+    if lib.mm_cross_decode_smem_bytes(K, S, Dh) > MAX_SHARED_BYTES:
+        raise ValueError(f"{name}: K={K} x S={S} scores exceed a block's shared memory")
+    q, kv, sk, sv = (t.contiguous() for t in (q, kv, sk, sv))
+    if kv.data_ptr() % 16:
+        raise ValueError(f"{name}: the slab must start on a 16-byte boundary (16-byte row reads)")
+    bias = bias.float().contiguous()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = lib.mm_cross_decode_attention_i8(
+            _build.dtype_code(q.dtype), q.data_ptr(), kv.data_ptr(), sk.data_ptr(),
+            sv.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, K, Dh, S,
+            _build.stream_ptr(q.device),
+        )
+    _build.check(rc, name)
+    cross_decode_attention_i8.launches += 1
+    return out
+
+
+cross_decode_attention_i8.launches = 0

@@ -2,9 +2,11 @@
 wav + npy corpus: it writes the JAX CLI's three artifacts, and its
 ``.unit`` lines equal the JAX UnitGenerator's output on the same
 features and parameters (exported the way scripts/export_jax_params.py
-exports a Trainer checkpoint)."""
+exports a Trainer checkpoint), also with ``generation.kv_cache_dtype:
+int8`` in the model's ``config.yaml``."""
 import dataclasses
 import json
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ from mm_s2ut.data.manifest import ManifestRow, write_manifest
 from mm_s2ut.infer.generator import UnitGenerator
 from mm_s2ut.ops.fbank import FbankConfig
 from mm_s2ut.tasks.s2s_task import waveform_frontend
+from mm_s2ut_torch.config import load_config
 from mm_s2ut_torch.inference import main
 from scripts.export_jax_params import flatten_params
 from tests.test_hifigan import SMALL, _torch_generator
@@ -55,7 +58,7 @@ def corpus(tmp_path_factory):
     return root, jmodel, params
 
 
-def _jax_units(jmodel, params, wav_paths, img=None):
+def _jax_units(jmodel, params, wav_paths, img=None, gen=GEN):
     wavs = [get_waveform(str(p), use_sample_rate=16000)[0] for p in wav_paths]
     batch = np.zeros((len(wavs), max(map(len, wavs))), np.float32)
     for i, w in enumerate(wavs):
@@ -65,7 +68,7 @@ def _jax_units(jmodel, params, wav_paths, img=None):
     )
     imgs = (img[None],) if img is not None else ()
     masks = (np.zeros((1, img.shape[0]), bool),) if img is not None else ()
-    hyps = UnitGenerator(jmodel, params, GenerationConfig(**GEN)).generate(
+    hyps = UnitGenerator(jmodel, params, GenerationConfig(**gen)).generate(
         np.asarray(feats), np.asarray(lens), imgs, masks
     )
     d = UnitDictionary(1000)
@@ -88,6 +91,28 @@ def test_single_sample_with_image_and_vocoder(corpus, tmp_path):
     assert "H-0" in gen and "D-0" in gen
     wav, sr = get_waveform(str(tmp_path / "1_pred.wav"))
     assert sr == 16000 and len(wav) == len(got.split()) * SMALL.hop_length
+
+
+def test_int8_kv_cache_from_config_yaml(corpus, tmp_path):
+    """The yaml key the JAX CLI reads (generation.kv_cache_dtype) reaches
+    the port's decoder: int8 cache and cross slab, the JAX int8 units."""
+    root, jmodel, params = corpus
+    gen = dict(GEN, kv_cache_dtype="int8")
+    model_dir = tmp_path / "model_int8"
+    model_dir.mkdir()
+    save_yaml(Config(model=jmodel.cfg, data=DataConfig(), generation=GenerationConfig(**gen)),
+              model_dir / "config.yaml")
+    assert load_config(model_dir / "config.yaml").generation.kv_cache_dtype == "int8"
+    shutil.copy(root / "model" / "params.npz", model_dir / "params.npz")
+    rc = main([
+        "--model_path", str(model_dir), "--audio_path", str(root / "1.wav"),
+        "--image_path", str(root / "img.npy"), "--output_dir", str(tmp_path / "out"),
+        "--device", "cpu",
+    ])
+    assert rc == 0
+    got = (tmp_path / "out" / "1.unit").read_text().strip()
+    want = _jax_units(jmodel, params, [root / "1.wav"], np.load(root / "img.npy"), gen)[0]
+    assert got == want and got
 
 
 def test_batch_manifest(corpus, tmp_path):

@@ -1,16 +1,29 @@
-"""Kernels A, B and C on the card against their plain PyTorch versions on
-the same CUDA tensors. Skipped without a CUDA device. On a GPU machine
+"""Kernels A–F on the card against their plain PyTorch versions on the
+same CUDA tensors. Skipped without a CUDA device. On a GPU machine
 (which needs neither JAX nor this directory's conftest):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: fp32 1e-4 (both sides fp32; summation order differs), bf16
 2e-2 (the plain versions round softmax weights and products to bf16
-between the two contractions, the kernels keep fp32 until the store)."""
+between the two contractions, the kernels keep fp32 until the store).
+Kernels D and F (int8 / int4 cache): fp32 2e-3, bf16 2e-2, for a
+requantized softmax weight that flips one level at a rounding tie
+(``chip_smoke.TOL_REQUANT``); E as C."""
 import pytest
 import torch
 
-from chip_smoke import FLAGSHIP, TOL, ancestry_inputs, cross_inputs, flash_inputs, kernel_cases
+from chip_smoke import (
+    FLAGSHIP,
+    TOL,
+    TOL_REQUANT,
+    ancestry_inputs,
+    cross_inputs,
+    flash_inputs,
+    kernel_cases,
+    quant_ancestry_inputs,
+    quant_cross_inputs,
+)
 from mm_s2ut_torch.ops import attention as A
 from mm_s2ut_torch.ops import decode_attention as D
 
@@ -26,11 +39,11 @@ def card():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _close(got, want, dtype):
+def _close(got, want, dtype, tol=None):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= TOL[dtype], err
+    assert err <= (TOL[dtype] if tol is None else tol), err
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -75,9 +88,43 @@ def test_cross_decode(card, dtype, K, Dh, S):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("K,Dh,step", [(1, 16, 0), (1, 64, 20), (10, 64, 0), (10, 64, 33),
+                                       (16, 32, 12), (4, 128, 7)])
+def test_quant_ancestry_decode(card, dtype, int4, K, Dh, step):
+    """Kernels D and F read segment views of the cache and both scale
+    arrays (the first T·K columns of larger allocations)."""
+    B, H, L, T = 2, 3, 2, 40
+    q, k_new, v_new, kv, sk, sv, flat_rep = quant_ancestry_inputs(
+        B, H, K, Dh, L, T, step, dtype, int4=int4, seed=K)
+    kv_view = torch.cat([kv, torch.ones_like(kv)], dim=3)[:, :, :, : kv.shape[3]]
+    sk_view, sv_view = (torch.cat([s, torch.ones_like(s)], dim=3)[..., : T * K] for s in (sk, sv))
+    assert not (kv_view.is_contiguous() or sk_view.is_contiguous())
+    kern = D.ancestry_decode_attention_i4 if int4 else D.ancestry_decode_attention_i8
+    plain = D.reference_i4 if int4 else D.reference_i8
+    before = kern.launches
+    got = kern(q, k_new, v_new, kv_view, sk_view, sv_view, flat_rep, 1)
+    assert kern.launches == before + 1
+    if step == 0:  # no column on any path: exactly the fresh value
+        torch.cuda.synchronize()
+        assert torch.equal(got, v_new)
+    _close(got, plain(q, k_new, v_new, kv, sk, sv, flat_rep, 1), dtype, TOL_REQUANT[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K,Dh,S", [(1, 16, 13), (10, 64, 250), (10, 64, 1500), (16, 128, 70)])
+def test_cross_decode_i8(card, dtype, K, Dh, S):
+    args = quant_cross_inputs(2, 3, K, Dh, S, dtype, seed=S)
+    before = D.cross_decode_attention_i8.launches
+    got = D.cross_decode_attention_i8(*args)
+    assert D.cross_decode_attention_i8.launches == before + 1
+    _close(got, D.cross_reference_i8(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_flagship_shapes(card, dtype):
-    for name, kern, plain in kernel_cases(dtype, FLAGSHIP):
-        _close(kern(), plain(), dtype)
+    for name, kern, plain, tol in kernel_cases(dtype, FLAGSHIP):
+        _close(kern(), plain(), dtype, tol)
 
 
 def test_unsupported_inputs_raise(card):
@@ -89,3 +136,15 @@ def test_unsupported_inputs_raise(card):
     args = ancestry_inputs(1, 1, 17, 16, 1, 4, 2, torch.float32)
     with pytest.raises(ValueError, match="queries per head"):
         D.ancestry_decode_attention(*args, 0)
+
+
+def test_unsupported_quant_inputs_raise(card):
+    q, k_new, v_new, kv, sk, sv, flat_rep = quant_ancestry_inputs(1, 2, 3, 16, 1, 5, 2,
+                                                                  torch.float32)  # T·S = 15
+    with pytest.raises(ValueError, match="int8 cache"):
+        D.ancestry_decode_attention_i8(q, k_new, v_new, kv.float(), sk, sv, flat_rep, 0)
+    with pytest.raises(ValueError, match="scales"):
+        D.ancestry_decode_attention_i4(q, k_new, v_new, kv, sk, sv, flat_rep, 0)  # not packed
+    with pytest.raises(ValueError, match="multiple"):
+        D.ancestry_decode_attention_i8(q[:, :, :2], k_new[:, :, :2], v_new[:, :, :2], kv, sk, sv,
+                                       flat_rep[:, :2], 0)
