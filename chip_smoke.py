@@ -11,7 +11,10 @@ is no CPU path):
 2. kernels A, B and C against their plain PyTorch versions on the card at
    the main path's flagship shapes, and D, E and F at the reference
    bench's shapes (B=128, K=10, T·S=2010 at step 150, S=250), in bf16 and
-   fp32, each timed beside its plain version with CUDA events;
+   fp32, each timed beside its plain version with CUDA events; then A's
+   causal branch and G at the streaming encoder's shapes (B=1 and B=8 at
+   T=250, B=1 at T=1000, window 0 and 64), and C and E with the prefill's
+   501 query rows at S=250;
 3. the small fp32 config on the card against the same parameters on the
    CPU through ``UnitGenerator.generate`` (TF32 off), with the default,
    int8 and int4 caches and a search long enough to grow the cache:
@@ -28,7 +31,28 @@ is no CPU path):
    launches of A, D and E counted over exactly this run; then the same
    batch with the bf16 cache, for both rates from one card;
 6. the int4 cache at flagship width: 8 utterances, beam 10, max_len_b 200,
-   with the launches of F and E counted.
+   with the launches of F and E counted;
+7. streaming on a small fp32 causal config (TF32 off): the streamed
+   encoder rows on the card equal the offline causal encoder's (kernel G)
+   and the CPU's, and ``StreamingS2ST.finalize()`` equals
+   ``UnitGenerator.generate`` on the same frames token for token, with full
+   re-decode, prefix reuse, and prefix reuse with the int8 cache, its
+   committed units a prefix of the final hypothesis;
+8. the reference streaming bench's operating point
+   (``benchmarks/bench_streaming.py:56-82``) at full width with random
+   weights: the 12-layer causal encoder, speech only, bf16, 320 ms chunks
+   (32 frames) of 10 s utterances, beam 10, max_len 500, 48 new tokens per
+   search with prefix reuse; one warm-up and three measured utterances
+   through ``StreamingS2ST``, per-chunk latency percentiles, finalize ms and
+   commit ratio, then one offline encode of the same frames, with the
+   launches of G, B and C counted over the measured utterances and that
+   encode;
+9. the two entry points of the causal model on an exported checkpoint
+   (small fp32 config, random weights) and a default-config vocoder:
+   ``python -m mm_s2ut_torch.inference`` (its encoder runs G) and
+   ``python -m mm_s2ut_torch.cli.stream`` (prefix reuse, streaming
+   vocoder) give the same units, and the streamed wav equals an offline
+   vocode of them.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Artifacts (.unit files,
@@ -246,17 +270,64 @@ def phase_kernels():
     record = {}
     for dtype in (torch.bfloat16, torch.float32):
         for name, kern, plain, tol in kernel_cases(dtype):
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            assert torch.isfinite(got).all(), f"kernel {name} {dtype}: non-finite output"
-            assert err <= tol, f"kernel {name} {dtype}: max|err| {err} > {tol}"
-            t = [time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)]
-            ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-            print(f"phase 2: kernel {name} {str(dtype)[6:]}: max|err| {err:.3e} "
-                  f"(tol {tol:g}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            result = check_and_time(name, dtype, kern, plain, tol)
             if dtype == torch.bfloat16:
-                record[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                record[name] = result
+        torch.cuda.empty_cache()
+    return record
+
+
+def check_and_time(label, dtype, kern, plain, tol):
+    """Hold a kernel against its plain version, then time both (plain,
+    kernel, kernel, plain); prints one phase-2 line."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert torch.isfinite(got).all(), f"kernel {label} {dtype}: non-finite output"
+    assert err <= tol, f"kernel {label} {dtype}: max|err| {err} > {tol}"
+    t = [time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)]
+    ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    print(f"phase 2: kernel {label} {str(dtype)[6:]}: max|err| {err:.3e} "
+          f"(tol {tol:g}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+STREAM_ENCODE = [(1, 250), (8, 250), (1, 1000)]  # (B, T after subsampling): 10 s, 8 x 10 s, 40 s
+
+
+def phase_causal_kernels():
+    """A's causal branch and G at the causal encoder's shapes (H=8, D=64;
+    lengths T, T-17, ... so B=8 has padded rows, with window 64 some whose
+    whole band is padding), and C and E with the prefill's P = 501 query
+    rows over S=250. Returns G's record at B=1, T=250, window 0, bf16."""
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.ops import decode_attention as D
+
+    record = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, T in STREAM_ENCODE:
+            q, k, v, kpm = flash_inputs(B, T, 8, 64, dtype, seed=T)
+            bias = torch.zeros(kpm.shape, device="cuda").masked_fill(kpm, A.NEG_INF)[:, None, None]
+            for window in (0, 64):
+                def plain():
+                    return A.reference_attention(q * 64 ** -0.5, k, v, bias, True, window)
+
+                a = check_and_time(f"A-causal B={B} T={T} window={window}", dtype,
+                                   lambda: A.flash_attention(q, k, v, kpm, causal=True,
+                                                             window=window), plain, TOL[dtype])
+                g = check_and_time(f"G B={B} T={T} window={window}", dtype,
+                                   lambda: A.causal_skip_attention(q, k, v, kpm, window=window),
+                                   plain, TOL[dtype])
+                print(f"phase 2: G / A-causal at B={B} T={T} window={window} "
+                      f"{str(dtype)[6:]}: {g['ms'] / a['ms']:.3f}")
+                if (B, T, window, dtype) == (1, 250, 0, torch.bfloat16):
+                    record["G"] = g
+        c_args = cross_inputs(1, 8, 501, 64, 250, dtype)
+        check_and_time("C 501 rows S=250", dtype, lambda: D.cross_decode_attention(*c_args),
+                       lambda: D.cross_reference(*c_args), TOL[dtype])
+        e_args = quant_cross_inputs(1, 8, 501, 64, 250, dtype)
+        check_and_time("E 501 rows S=250", dtype, lambda: D.cross_decode_attention_i8(*e_args),
+                       lambda: D.cross_reference_i8(*e_args), TOL[dtype])
         torch.cuda.empty_cache()
     return record
 
@@ -530,6 +601,246 @@ def phase_int4(model, vocoder, gen):
     return launches
 
 
+def small_causal_config(window=0):
+    from mm_s2ut_torch.config import ModelConfig, MultimodalConfig
+
+    return ModelConfig(
+        encoder_embed_dim=64, encoder_ffn_embed_dim=128, encoder_layers=2,
+        encoder_attention_heads=4, decoder_embed_dim=64, decoder_ffn_embed_dim=128,
+        decoder_layers=2, decoder_attention_heads=4, conv_channels=32, vocab_size=1004,
+        dtype="float32", encoder_causal_attention=True, encoder_attention_window=window,
+        multimodal=MultimodalConfig(multimodal_attention_type=None),
+    )
+
+
+def stream(srv, feats, chunk):
+    """Feed ``feats`` (1, T, F) in chunks; (commits per feed, final hypothesis)."""
+    commits = [srv.feed(feats[:, s : s + chunk]) for s in range(0, feats.shape[1], chunk)]
+    return commits, srv.finalize()
+
+
+def phase_stream_parity():
+    """Small fp32 causal configs on the card, TF32 off: streamed encoder rows
+    against the offline causal encoder (G) and the CPU (windows 0 and 16);
+    then finalize() against UnitGenerator.generate (window 0)."""
+    import copy
+
+    from mm_s2ut_torch.config import GenerationConfig
+    from mm_s2ut_torch.infer.generator import UnitGenerator
+    from mm_s2ut_torch.infer.streaming import StreamingEncoderSession, StreamingS2ST
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+    from mm_s2ut_torch.ops import attention as A
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(7)
+    T, CHUNK, MAXLEN = 300, 32, 60
+    feats = torch.randn(1, T, 80, generator=gen)
+    lens = torch.tensor([T])
+    for window in (0, 16):
+        cpu_model = init_random_(MMS2UTModel(small_causal_config(window)), gen).eval()
+        with torch.no_grad():  # sharper logits, so argmaxes are not near-ties
+            cpu_model.decoder.final_norm.weight.mul_(8.0)
+        model = copy.deepcopy(cpu_model).to("cuda")
+        before = A.causal_skip_attention.launches
+        with torch.no_grad():
+            off_cpu = cpu_model.encode(feats, lens)["encoder_out"]
+            off = model.encode(feats.cuda(), lens.cuda())["encoder_out"]
+        assert A.causal_skip_attention.launches == before + 2, "the offline encoder skipped G"
+        sess = StreamingEncoderSession(model.encoder, batch=1, chunk_frames=CHUNK,
+                                       max_frames=T + 4)
+        _, (streamed, _) = stream(sess, feats.cuda(), CHUNK)
+        err_stream = (streamed - off).abs().max().item()
+        err_cpu = max((off.cpu() - off_cpu).abs().max().item(),
+                      (streamed.cpu() - off_cpu).abs().max().item())
+        print(f"phase 7: window {window}: streamed vs offline (G) encoder rows on the card "
+              f"max|diff| {err_stream:.3e}, card vs CPU {err_cpu:.3e} (tol 1e-4)")
+        assert streamed.shape == off.shape and err_stream <= 1e-4 and err_cpu <= 1e-4
+        if window:
+            continue
+        for mode in ({}, {"prefix_reuse": True}, {"prefix_reuse": True, "kv_cache_dtype": "int8"}):
+            gcfg = GenerationConfig(beam=5, max_len_a=0.0, max_len_b=MAXLEN,
+                                    kv_cache_dtype=mode.get("kv_cache_dtype"))
+            offline = UnitGenerator(model, gcfg).generate(feats, lens)[0][0]["tokens"]
+            srv = StreamingS2ST(model, chunk_frames=CHUNK, max_frames=T + 4, beam=5,
+                                max_len=MAXLEN, max_new_tokens=16, **mode)
+            commits, final = stream(srv, feats.cuda(), CHUNK)
+            committed = [u for c in commits for u in c]
+            print(f"phase 7: {mode or 'full re-decode'}: final {len(final)} units, "
+                  f"{len(committed)} committed before finalize; finalize == generate: "
+                  f"{final == offline}")
+            assert final == offline, "finalize differs from UnitGenerator.generate"
+            assert final[: len(committed)] == committed, "committed units are not a prefix"
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for the runs below
+
+
+STREAM_TOL = 0.125
+# Streamed against offline encoder rows, bf16, 12 layers: the streamed
+# layers attend in plain PyTorch (bf16 weights before the V product), the
+# offline ones through G (fp32 until its store), so each layer's attention
+# output can differ by a bf16 rounding, and the difference rides the
+# residual stream through 12 layers. bf16 keeps 8 significant bits; after
+# the final LayerNorm an output of magnitude up to ~4 has an ulp of 2^-6,
+# so 0.125 allows 8 such ulps, and a fault (a wrong mask, position or
+# cache row) moves rows by O(1).
+
+
+def phase_streaming():
+    """The reference streaming bench's operating point at full width."""
+    import numpy as np
+
+    from mm_s2ut_torch.config import ModelConfig, MultimodalConfig
+    from mm_s2ut_torch.infer.streaming import StreamingS2ST
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.ops import decode_attention as D
+
+    gen = torch.Generator().manual_seed(3)
+    cfg = ModelConfig(vocab_size=1004, dtype="bfloat16", encoder_causal_attention=True,
+                      encoder_attention_window=0,
+                      multimodal=MultimodalConfig(multimodal_attention_type=None))
+    model = init_random_(MMS2UTModel(cfg), gen).to("cuda").eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    sr, shift, flen, chunk_ms = 16000, 160, 400, 320
+    total = (10 * sr - flen) // shift + 1  # 998 frames of 10 s
+    chunk = chunk_ms * sr // 1000 // shift  # 32
+    max_len = min(500, cfg.max_target_positions - 1)
+    srv = StreamingS2ST(model, chunk_frames=chunk, max_frames=total + 4, beam=10,
+                        max_len=max_len, prefix_reuse=True, max_new_tokens=48)
+    utts = torch.randn(4, 1, total, 80, generator=gen).cuda()
+
+    def run(feats):
+        srv.reset()
+        lat = []
+        for s in range(0, total, chunk):
+            _, secs = timed(lambda: srv.feed(feats[:, s : s + chunk]))
+            lat.append(secs * 1e3)
+        n_committed = len(srv.committed)
+        final, secs = timed(srv.finalize)
+        return lat, secs * 1e3, final, n_committed
+
+    run(utts[0])  # warm-up
+    counters = {"G": A.causal_skip_attention, "B": D.ancestry_decode_attention,
+                "C": D.cross_decode_attention}
+
+    def measured():
+        res = [run(utts[i]) for i in (1, 2, 3)]
+        with torch.no_grad():  # one offline encode of the last utterance's frames
+            off = model.encode(utts[3], torch.tensor([total], device="cuda"))["encoder_out"]
+        return res, off
+
+    (res, off), wall, launches = counted(counters, measured)
+    streamed = torch.cat(srv.enc.outputs, dim=1)
+    lat = np.asarray([x for r in res for x in r[0]])
+    fin = [r[1] for r in res]
+    ratios = [r[3] / max(1, len(r[2])) for r in res]
+    for _, _, final, _ in res:
+        assert final and len(final) <= max_len and all(4 <= u < 1004 for u in final)
+    assert all(v > 0 for v in launches.values()), f"a kernel of the path never launched: {launches}"
+    assert streamed.shape == off.shape and torch.isfinite(streamed).all()
+    diff = (streamed.float() - off.float()).abs()
+    print(f"phase 8: streaming, causal flagship bf16 ({n_params / 1e6:.1f} M params), "
+          f"{chunk_ms} ms chunks of 10 s utts, beam 10, max_len {max_len}, 48 new tokens per "
+          f"search, prefix reuse: {len(lat)} chunks over 3 utts; per-chunk ms p50 "
+          f"{np.percentile(lat, 50):.3f} p95 {np.percentile(lat, 95):.3f} p99 "
+          f"{np.percentile(lat, 99):.3f} max {lat.max():.3f}; finalize ms "
+          f"{[round(f, 3) for f in fin]}; commit ratio {[round(r, 3) for r in ratios]}; final "
+          f"lengths {[len(r[2]) for r in res]}; launches {launches}; total {wall:.3f} s")
+    print(f"phase 8: streamed vs offline (G) encoder rows: max|diff| {diff.max().item():.4e}, "
+          f"mean {diff.mean().item():.4e} (tol {STREAM_TOL})")
+    assert diff.max().item() <= STREAM_TOL, "streamed encoder rows differ from offline"
+    return launches
+
+
+def fairseq_vocoder_state(vocoder):
+    """The port's CodeHiFiGAN parameters under a fairseq CodeHiFiGANVocoder
+    checkpoint's names (weight norm already folded), which
+    ``load_fairseq_checkpoint`` maps back."""
+    import re
+
+    rules = [(r"^generator\.", ""), (r"^ups_(\d+)", r"ups.\1"),
+             (r"^resblocks_(\d+)\.(convs[12])_(\d+)", r"resblocks.\1.\2.\3"),
+             (r"^dur_predictor\.(conv[12])\.", r"dur_predictor.\1.0.")]
+    out = {}
+    for name, value in vocoder.state_dict().items():
+        for pattern, repl in rules:
+            name = re.sub(pattern, repl, name)
+        out[name] = value.detach().cpu()
+    return out
+
+
+def phase_entry_points(out_dir: Path):
+    """The slice's two entry points on the card, on an exported checkpoint
+    (``config.yaml`` + ``params.npz``, as scripts/export_jax_params.py
+    writes them; random weights of the small fp32 causal config) and a
+    fairseq-layout vocoder at its default config: ``python -m
+    mm_s2ut_torch.inference``, whose encoder runs G, and ``python -m
+    mm_s2ut_torch.cli.stream`` (prefix reuse, streaming vocoder), each
+    through its ``main``. TF32 off. Their .unit files are equal (finalize
+    equals offline decoding), and the streamed wav equals one exact-length
+    offline vocode of the final units within PCM16 quantization (2e-4)."""
+    import dataclasses
+
+    import numpy as np
+
+    from mm_s2ut_torch import inference
+    from mm_s2ut_torch.cli import stream as stream_cli
+    from mm_s2ut_torch.config import Config, DataConfig, GenerationConfig
+    from mm_s2ut_torch.convert import to_flax
+    from mm_s2ut_torch.data.audio_io import get_waveform, write_wav
+    from mm_s2ut_torch.models.hifigan import CodeHiFiGAN, HiFiGANConfig
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.ops import decode_attention as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(12)
+    root = out_dir / "entry_points"
+    (root / "model").mkdir(parents=True, exist_ok=True)
+    model = init_random_(MMS2UTModel(small_causal_config()), gen)
+    with torch.no_grad():  # sharper logits, so argmaxes are not near-ties
+        model.decoder.final_norm.weight.mul_(8.0)
+    cfg = Config(model=model.cfg, data=DataConfig(standardize_audio=False),
+                 generation=GenerationConfig(beam=5, max_len_a=0.0, max_len_b=60,
+                                             kv_cache_dtype=None))
+    (root / "model" / "config.yaml").write_text(json.dumps(dataclasses.asdict(cfg)))  # JSON is YAML
+    np.savez(root / "model" / "params.npz", **to_flax(model))
+    vocoder = init_random_(CodeHiFiGAN(HiFiGANConfig()), gen).eval()
+    torch.save(fairseq_vocoder_state(vocoder), root / "vocoder.pt")
+    write_wav(root / "utt.wav", (0.3 * torch.randn(3 * 16000 + 731, generator=gen)).numpy(), 16000)
+
+    args = ["--model_path", str(root / "model"), "--audio_path", str(root / "utt.wav"),
+            "--vocoder_path", str(root / "vocoder.pt"), "--device", "cuda"]
+    counters = {"G": A.causal_skip_attention, "B": D.ancestry_decode_attention,
+                "C": D.cross_decode_attention}
+    rc_off, off_s, off_launches = counted(
+        counters, lambda: inference.main(args + ["--output_dir", str(root / "offline")]))
+    rc_st, st_s, st_launches = counted(
+        counters, lambda: stream_cli.main(args + ["--output_dir", str(root / "stream")]))
+    assert rc_off == 0 and rc_st == 0
+    assert off_launches["G"] == model.cfg.encoder_layers, f"offline: {off_launches}"
+    assert st_launches["G"] == 0 and st_launches["B"] > 0 and st_launches["C"] > 0, st_launches
+    units_off = (root / "offline" / "utt.unit").read_text().split()
+    units = (root / "stream" / "utt.unit").read_text().split()
+    assert units and units == units_off, "the stream CLI's units differ from the offline CLI's"
+
+    vocoder = vocoder.to("cuda")
+    u = torch.tensor([[int(x) for x in units]], device="cuda")
+    vocoder.max_frames = int(vocoder.unit_durations(u).sum())
+    want, n = vocoder(u)
+    want = want[0, : int(n[0])].float().cpu().numpy()
+    got, sr = get_waveform(str(root / "stream" / "utt_pred.wav"))
+    assert sr == 16000 and got.shape == want.shape, (sr, got.shape, want.shape)
+    err = float(np.abs(got - want).max())
+    print(f"phase 9: inference CLI on a causal checkpoint: {len(units_off)} units, launches "
+          f"{off_launches}, {off_s:.3f} s; stream CLI (prefix reuse, streaming vocoder): same "
+          f"units, launches {st_launches}, {st_s:.3f} s; streamed wav {got.size} samples, "
+          f"max|diff| vs offline vocode {err:.3e} (tol 2e-4)")
+    assert err <= 2e-4, "the streamed wav differs from the offline vocode"
+    return off_launches
+
+
 KERNELS = {  # name, source, the TPU kernel it replaces
     "A": ("flash_attention", "mm_s2ut_torch/csrc/flash_attention.cu",
           "mm_s2ut/ops/attention.py:140"),
@@ -543,6 +854,8 @@ KERNELS = {  # name, source, the TPU kernel it replaces
           "mm_s2ut/ops/decode_attention.py:533"),
     "F": ("ancestry_decode_attention_i4", "mm_s2ut_torch/csrc/decode_attention_q.cu",
           "mm_s2ut/ops/decode_attention.py:291"),
+    "G": ("causal_skip_attention", "mm_s2ut_torch/csrc/flash_attention.cu",
+          "mm_s2ut/ops/attention.py:194"),
 }
 
 
@@ -563,12 +876,18 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_build()
     record = phase_kernels()
+    record.update(phase_causal_kernels())
     phase_small_parity()
     model, vocoder, gen = flagship()
     launches = phase_main_path(model, vocoder, gen, Path(args.out))
     bench = phase_bench_point(model, vocoder, gen)
     launches.update(D=bench["D"], E=bench["E"])
     launches["F"] = phase_int4(model, vocoder, gen)["F"]
+    del model, vocoder
+    torch.cuda.empty_cache()
+    phase_stream_parity()
+    launches["G"] = phase_streaming()["G"]
+    phase_entry_points(Path(args.out))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

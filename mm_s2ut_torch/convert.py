@@ -105,3 +105,31 @@ def from_flax(params: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
                              f"{tuple(expected[k].shape)}")
         out[k] = torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
     return out
+
+
+def to_flax(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`from_flax`: ``model``'s parameters as flat
+    flax leaves {"a/b/leaf": float32 array}, what ``np.savez`` writes into
+    a ``params.npz`` that :func:`load_npz` reads back."""
+    flat: Dict[str, np.ndarray] = {}
+    for name, mod in model.named_modules():
+        own = dict(mod.named_parameters(recurse=False))
+        if not own:
+            continue
+        prefix = name.replace(".", "/")
+        w = own["weight"].detach().float().cpu().numpy()
+        if isinstance(mod, nn.Linear):
+            flat[f"{prefix}/kernel"] = w.T
+        elif isinstance(mod, nn.ConvTranspose1d):
+            flat[f"{prefix}/kernel"] = w.transpose(2, 0, 1)[::-1]
+        elif isinstance(mod, nn.Conv1d):
+            flat[f"{prefix}/kernel"] = w.transpose(2, 1, 0)
+        elif isinstance(mod, nn.Embedding):
+            flat[f"{prefix}/embedding"] = w
+        elif isinstance(mod, nn.LayerNorm):
+            flat[f"{prefix}/scale"] = w
+        else:
+            raise TypeError(f"to_flax: no rule for {type(mod).__name__} at {name!r}")
+        if own.get("bias") is not None:
+            flat[f"{prefix}/bias"] = own["bias"].detach().float().cpu().numpy()
+    return {k: np.ascontiguousarray(v) for k, v in flat.items()}

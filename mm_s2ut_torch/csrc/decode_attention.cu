@@ -10,8 +10,11 @@
 //
 // Kernel C replaces mm_s2ut/ops/decode_attention.py:_kernel_cross
 // (pallas_call at :519, launched by cross_decode_attention, reached from
-// models/layers.py:277-278): decode cross-attention of the K beams of a
-// batch row over their shared encoder K||V slab, softmax(q.k + bias).v.
+// models/layers.py:277-278): decode cross-attention of the K query rows of
+// a batch row over their shared encoder K||V slab, softmax(q.k + bias).v.
+// The rows are the K beams of a decode step (K <= 16), or the P = max_len
+// + 1 prefix positions of UnitDecoder.prefill (501 at the streaming
+// bench's max_len 500); the TPU kernel takes any row count too.
 //
 // What bounds them on the card: both read far more bytes than they
 // compute with (K <= 16 queries per head against a 2.Dh-wide row per
@@ -31,10 +34,14 @@
 // contract), and it streams, so any T.S runs. At step 0 no column is on a
 // path and the output is exactly v_new.
 //
-// Design of C: grid (B, H); the K pre-scaled queries sit in shared
-// memory; one thread per source column computes the K scores, which stay
-// in shared memory (K.S floats) for a two-pass softmax; then each thread
-// owns one output dim for a few beams and streams the V half of the slab.
+// Design of C: grid (B.H, ceil(K/16)); a block takes 16 of the rows (all
+// K when K <= 16, so a decode step runs one block per (b, h) as before,
+// and many rows re-read the slab once per 16 of them: 32 reads of a
+// 64 KB slab at 501 rows). The block's pre-scaled queries sit in shared
+// memory; one thread per source column computes its rows' scores, which
+// stay in shared memory (16.S floats at most) for a two-pass softmax; then
+// each thread owns one output dim for a few rows and streams the V half of
+// the slab.
 // The TPU version's batch-row blocking (_cross_block_rows) and the host
 // broadcast of the bias over K were Mosaic/VMEM workarounds and have no
 // counterpart.
@@ -206,14 +213,16 @@ struct CrossArgs {
 template <typename T, int DH>
 __global__ void __launch_bounds__(kCrossThreads) cross_decode_kernel(const CrossArgs a) {
   extern __shared__ float smem[];
-  const int K = a.K, S = a.S;
+  const int r0 = blockIdx.y * kMaxBeams;  // this block's rows: [r0, r0 + K)
+  const int K = min(kMaxBeams, a.K - r0), S = a.S;
   float* qs = smem;            // [K][DH]
   float* sc = qs + K * DH;     // [K][S] scores, then probabilities
   float* rsum = sc + K * S;    // [K]
 
   const int bh = blockIdx.x;
   const int b = bh / a.H;
-  const T* q = static_cast<const T*>(a.q) + (int64_t)bh * K * DH;
+  const int64_t row0 = (int64_t)bh * a.K + r0;
+  const T* q = static_cast<const T*>(a.q) + row0 * DH;
   const T* kv = static_cast<const T*>(a.kv) + (int64_t)bh * S * 2 * DH;
   const float* bias = a.bias + (int64_t)b * S;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -273,7 +282,7 @@ __global__ void __launch_bounds__(kCrossThreads) cross_decode_kernel(const Cross
       if (k < K) acc[i] = fmaf(sc[k * S + s], vd, acc[i]);
     }
   }
-  T* out = static_cast<T*>(a.out) + (int64_t)bh * K * DH;
+  T* out = static_cast<T*>(a.out) + row0 * DH;
 #pragma unroll
   for (int i = 0; i < KPT; ++i) {
     const int k = kg + i * NKG;
@@ -288,7 +297,8 @@ cudaError_t launch_cross(const CrossArgs& a, int B, size_t smem, cudaStream_t st
         cross_decode_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  cross_decode_kernel<T, DH><<<B * a.H, kCrossThreads, smem, stream>>>(a);
+  const dim3 grid(B * a.H, (a.K + kMaxBeams - 1) / kMaxBeams);
+  cross_decode_kernel<T, DH><<<grid, kCrossThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -321,15 +331,17 @@ extern "C" int mm_ancestry_decode_attention(
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of kernel C for (K, S, Dh), in bytes.
+// Dynamic shared memory of kernel C (and E) for (K rows, S, Dh), in bytes:
+// a block holds at most 16 rows' queries, scores and sums.
 extern "C" long long mm_cross_decode_smem_bytes(int K, int S, int DH) {
-  return 4LL * ((long long)K * DH + (long long)K * S + K);
+  const long long k = K < mm::kMaxBeams ? K : mm::kMaxBeams;
+  return 4LL * (k * DH + k * S + k);
 }
 
 extern "C" int mm_cross_decode_attention(
     int dtype, const void* q, const void* kv, const void* bias, void* out,
     int B, int H, int K, int DH, int S, void* stream) {
-  if (K < 1 || K > mm::kMaxBeams) return (int)cudaErrorInvalidValue;
+  if (K < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)mm_cross_decode_smem_bytes(K, S, DH);
   const mm::CrossArgs a{q, kv, static_cast<const float*>(bias), out, H, K, S};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -52,10 +52,11 @@
 // move 2.B.L.H.T.S.4 bytes per layer call). At step 0 no column is on a
 // path and the output is exactly v_new.
 //
-// Design of E: kernel C's (one block per (b, h), the K.S scores in shared
-// memory for a two-pass softmax, one thread per output dim in the V pass),
-// with the scales folded where the reference folds them and each thread's
-// K row read in 16-byte chunks.
+// Design of E: kernel C's (grid (B.H, ceil(K/16)), a block's <= 16 rows of
+// scores in shared memory for a two-pass softmax, one thread per output
+// dim in the V pass; any row count, as the prefill's P rows), with the
+// scales folded where the reference folds them and each thread's K row
+// read in 16-byte chunks.
 #include "common.cuh"
 
 namespace mm {
@@ -322,13 +323,15 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(kCrossThreadsQ) cross_decode_i8_kernel(const CrossQArgs a) {
   extern __shared__ float smem[];
   constexpr int NW = kCrossThreadsQ / 32;
-  const int K = a.K, S = a.S;
+  const int r0 = blockIdx.y * kMaxBeamsQ;  // this block's rows: [r0, r0 + K)
+  const int K = min(kMaxBeamsQ, a.K - r0), S = a.S;
   float* qs = smem;         // [K][DH]
   float* sc = qs + K * DH;  // [K][S] scores, then weights (p/sum).sv
 
   const int bh = blockIdx.x;
   const int b = bh / a.H;
-  const T* q = static_cast<const T*>(a.q) + (int64_t)bh * K * DH;
+  const int64_t row0 = (int64_t)bh * a.K + r0;
+  const T* q = static_cast<const T*>(a.q) + row0 * DH;
   const int8_t* kv = a.kv + (int64_t)bh * S * 2 * DH;
   const float* sk = a.sk + (int64_t)bh * S;
   const float* sv = a.sv + (int64_t)bh * S;
@@ -399,7 +402,7 @@ __global__ void __launch_bounds__(kCrossThreadsQ) cross_decode_i8_kernel(const C
       if (k < K) acc[i] = fmaf(sc[k * S + s], vd, acc[i]);
     }
   }
-  T* out = static_cast<T*>(a.out) + (int64_t)bh * K * DH;
+  T* out = static_cast<T*>(a.out) + row0 * DH;
 #pragma unroll
   for (int i = 0; i < KPT; ++i) {
     const int k = kg + i * NKG;
@@ -414,7 +417,8 @@ cudaError_t launch_cross_q(const CrossQArgs& a, int B, size_t smem, cudaStream_t
         cross_decode_i8_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  cross_decode_i8_kernel<T, DH><<<B * a.H, kCrossThreadsQ, smem, stream>>>(a);
+  const dim3 grid(B * a.H, (a.K + kMaxBeamsQ - 1) / kMaxBeamsQ);
+  cross_decode_i8_kernel<T, DH><<<grid, kCrossThreadsQ, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -466,9 +470,11 @@ extern "C" int mm_ancestry_decode_attention_q(
 extern "C" int mm_cross_decode_attention_i8(
     int dtype, const void* q, const void* kv, const void* sk, const void* sv,
     const void* bias, void* out, int B, int H, int K, int DH, int S, void* stream) {
-  if (K < 1 || K > mm::kMaxBeamsQ) return (int)cudaErrorInvalidValue;
-  // The same layout as kernel C's: K.Dh query floats, then K.S scores.
-  const size_t smem = 4 * ((size_t)K * DH + (size_t)K * S + K);
+  if (K < 1) return (int)cudaErrorInvalidValue;
+  // The same layout as kernel C's: a block's <= 16 rows of Dh query floats,
+  // then their S scores each.
+  const size_t k = K < mm::kMaxBeamsQ ? K : mm::kMaxBeamsQ;
+  const size_t smem = 4 * (k * DH + k * S + k);
   const mm::CrossQArgs a{q, static_cast<const int8_t*>(kv), static_cast<const float*>(sk),
                          static_cast<const float*>(sv), static_cast<const float*>(bias),
                          out, H, K, S};

@@ -1,18 +1,28 @@
-// Kernel A — encoder self-attention forward (non-causal, no dropout).
+// Kernels A and G — encoder self-attention forward (no dropout).
 //
-// Replaces the Pallas TPU kernel mm_s2ut/ops/attention.py:_attn_kernel,
+// Kernel A replaces the Pallas TPU kernel mm_s2ut/ops/attention.py:_attn_kernel,
 // launched by _flash_call (pallas_call at attention.py:362) and reached
-// from flash_attention / attention() for the encoder's self-attention.
+// from flash_attention / attention() for the encoder's self-attention,
+// with its causal/window branch (attention.py:160-168).
+// Kernel G replaces attention.py:_attn_kernel_causal_skip (pallas_call at
+// :348, _flash_call with block_k set): the causal/window forward that
+// computes only the key blocks meeting a query block's band.
 //
-// Computes, for q, k, v in their (B, T, H, D) layout read through strides,
-//   out[b, t, h, :] = softmax_s(scale * q[b, t, h] . k[b, s, h] + bias[b, s]) . v[b, s, h, :]
-// with bias the additive key-padding row (0 valid, -1e9 pad).
+// Both compute, for q, k, v in their (B, T, H, D) layout read through strides,
+//   out[b, t, h, :] = softmax_s(l[t, s]) . v[b, s, h, :],
+//   l[t, s] = scale * q[b, t, h] . k[b, s, h] + bias[b, s]
+// with bias the additive key-padding row (0 valid, -1e9 pad). Under a
+// causal mask, l[t, s] is REPLACED by -1e9 unless s <= t (and, with a
+// window W > 0, s > t - W), as the reference replaces it; query t sits at
+// position t, so G also takes T < S, as the reference's _flash_call does.
 //
-// What bounds it on the card: at the flagship encoder shapes (B = 8,
-// H = 8, D = 64, T ~ 100-250 after subsampling) one call does
-// 4.B.H.T^2.D ~ 0.1-0.5 GFLOP against ~2-8 MB of q/k/v, so it is bound by
+// What bounds them on the card: at the encoder shapes (B = 1..8, H = 8,
+// D = 64, T ~ 100-1000 after subsampling) one call does 4.B.H.T^2.D
+// ~ 0.01-4 GFLOP against ~0.1-8 MB of q/k/v, so it is bound by
 // arithmetic, done here on the fp32 FMA pipes (no tensor cores yet), and
-// at short T by block count: B.H.ceil(T/64) = 128 blocks for 132 SMs.
+// at short T by block count: B.H.ceil(T/64) blocks for 132 SMs. G does
+// about half of A's causal work (more with a window) by never visiting
+// the tiles above the diagonal or left of the window.
 //
 // Design: one block per (b.h, 64-query tile); two threads per query row,
 // each owning D/2 dims of q and of the fp32 accumulator, their partial
@@ -22,7 +32,26 @@
 // K/V in VMEM and ran one softmax pass; a block's shared memory is far
 // smaller, hence the tile loop with a running max. The ragged query and
 // key edges are masked in-kernel, so any T and S run: the reference's
-// pad-to-16 and alignment gate have no counterpart here.
+// pad-to-16 and alignment gate have no counterpart here. A masked logit
+// is -1e9, never -inf, so a tile in which every key of a row is masked
+// still has a finite maximum and the online softmax stays exact: such a
+// row's weights are uniform until a tile with an allowed key wipes them
+// (alpha = exp(-1e9 - m) = 0).
+//
+// G visits key tiles [lo, hi): lo = max(q0 - W + 1, 0) / BK (0 without a
+// window), hi = ceil((q0 + 64) / BK) clamped to the key count, masking in
+// the edge tiles. A skipped tile holds only masked keys, and for a row
+// with an allowed, unpadded key in its band those weigh exp(-1e9 - m) = 0,
+// so skipping them is exact. A row whose whole band is padding (window
+// > 0, t >= len + W - 1) is the exception: every one of its logits is
+// -1e9, and the reference averages v over ALL S keys. G reproduces that:
+// if any row of the block ends the band with a running max below -5e8
+// (no real logit comes near), the block goes on to visit the skipped
+// tiles, where the causal/window mask sets every logit of the block to
+// -1e9; for every other row those add exactly 0. Such rows are padding
+// the encoder masks downstream, so this costs only blocks that hold them.
+// Band and skipped tiles go through one loop, so the tile code is
+// generated once.
 #include "common.cuh"
 
 namespace mm {
@@ -30,6 +59,7 @@ namespace {
 
 constexpr int kBlockQ = 64;
 constexpr int kFlashThreads = 2 * kBlockQ;
+constexpr float kMasked = -1e9f;
 
 struct FlashArgs {
   const void* q;
@@ -42,12 +72,84 @@ struct FlashArgs {
   int64_t k_sb, k_st, k_sh;
   int64_t v_sb, v_st, v_sh;
   float scale;
+  int window;  // with a causal mask: keys s > t - window only (0 = unbounded)
 };
 
-template <typename T, int D>
+// One key tile [s0, s0 + BK) into the running softmax of query row t.
+template <typename T, int D, int BK, bool CAUSAL>
+__device__ __forceinline__ void visit_tile(
+    const FlashArgs& a, const T* kb, const T* vb, const float* bias_row, int s0, int t,
+    float (&ks)[BK][D], float (&vs)[BK][D], float (&bs)[BK],
+    const float (&qr)[D / 2], float (&acc)[D / 2], float& m_run, float& l_run) {
+  constexpr int HALF = D / 2;
+  const int part = threadIdx.x & 1;
+  __syncthreads();  // the previous tile is fully consumed
+  for (int i = threadIdx.x; i < BK * D; i += kFlashThreads) {
+    const int j = i / D, d = i % D;
+    const int s = s0 + j;
+    const bool ok = s < a.S;
+    ks[j][d] = ok ? to_f32(kb[(int64_t)s * a.k_st + d]) : 0.f;
+    vs[j][d] = ok ? to_f32(vb[(int64_t)s * a.v_st + d]) : 0.f;
+  }
+  for (int j = threadIdx.x; j < BK; j += kFlashThreads)
+    bs[j] = s0 + j < a.S ? bias_row[s0 + j] : 0.f;
+  __syncthreads();
+
+  const int n = min(BK, a.S - s0);  // >= 1: every visited tile starts below S
+  float sc[BK];
+  float m_tile = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < BK; ++j) {
+    const float4* kr = reinterpret_cast<const float4*>(&ks[j][part * HALF]);
+    float s = 0.f;
+#pragma unroll
+    for (int d4 = 0; d4 < HALF / 4; ++d4) {
+      const float4 kk = kr[d4];
+      s = fmaf(qr[4 * d4 + 0], kk.x, s);
+      s = fmaf(qr[4 * d4 + 1], kk.y, s);
+      s = fmaf(qr[4 * d4 + 2], kk.z, s);
+      s = fmaf(qr[4 * d4 + 3], kk.w, s);
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s = fmaf(s, a.scale, bs[j]);
+    if (CAUSAL) {
+      const int kpos = s0 + j;
+      if (kpos > t || (a.window > 0 && kpos <= t - a.window)) s = kMasked;
+    }
+    s = j < n ? s : -INFINITY;
+    sc[j] = s;
+    m_tile = fmaxf(m_tile, s);
+  }
+  // m_tile >= -1e9 is finite: key s0 < S is in the tile, and a masked
+  // logit is -1e9, not -inf.
+  const float m_new = fmaxf(m_run, m_tile);
+  const float alpha = expf(m_run - m_new);  // 0 on the first tile (m_run = -inf)
+  l_run *= alpha;
+#pragma unroll
+  for (int d = 0; d < HALF; ++d) acc[d] *= alpha;
+#pragma unroll
+  for (int j = 0; j < BK; ++j) {
+    const float p = expf(sc[j] - m_new);  // 0 past the key edge
+    l_run += p;
+    const float4* vr = reinterpret_cast<const float4*>(&vs[j][part * HALF]);
+#pragma unroll
+    for (int d4 = 0; d4 < HALF / 4; ++d4) {
+      const float4 vv = vr[d4];
+      acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
+      acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
+      acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
+      acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
+    }
+  }
+  m_run = m_new;
+}
+
+// CAUSAL: apply the causal/window mask. SKIP (kernel G, needs CAUSAL):
+// visit only the key tiles that meet the block's band.
+template <typename T, int D, bool CAUSAL, bool SKIP>
 __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashArgs a) {
   constexpr int BK = D <= 64 ? 64 : 32;  // 2.BK.D.4 B = 32 KB of shared memory
-  constexpr int HALF = D / 2;            // dims per thread
+  constexpr int HALF = D / 2;  // dims per thread
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
   __shared__ float bs[BK];
@@ -56,12 +158,14 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashArg
   const int b = bh / a.H, h = bh % a.H;
   const int row = threadIdx.x >> 1;
   const int part = threadIdx.x & 1;
-  const int t = blockIdx.y * kBlockQ + row;
+  const int q0 = blockIdx.y * kBlockQ;
+  const int t = q0 + row;
   const bool row_ok = t < a.T;
 
   const T* q = static_cast<const T*>(a.q);
   const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
   const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const float* bias_row = a.bias + (int64_t)b * a.S;
 
   float qr[HALF], acc[HALF];
   const T* qp = q + b * a.q_sb + (int64_t)(row_ok ? t : 0) * a.q_st + h * a.q_sh + part * HALF;
@@ -72,60 +176,26 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashArg
   }
   float m_run = -INFINITY, l_run = 0.f;
 
-  for (int s0 = 0; s0 < a.S; s0 += BK) {
-    __syncthreads();  // the previous tile is fully consumed
-    for (int i = threadIdx.x; i < BK * D; i += kFlashThreads) {
-      const int j = i / D, d = i % D;
-      const int s = s0 + j;
-      const bool ok = s < a.S;
-      ks[j][d] = ok ? to_f32(kb[(int64_t)s * a.k_st + d]) : 0.f;
-      vs[j][d] = ok ? to_f32(vb[(int64_t)s * a.v_st + d]) : 0.f;
-    }
-    for (int j = threadIdx.x; j < BK; j += kFlashThreads)
-      bs[j] = s0 + j < a.S ? a.bias[(int64_t)b * a.S + s0 + j] : 0.f;
-    __syncthreads();
-
-    const int n = min(BK, a.S - s0);
-    float sc[BK];
-    float m_tile = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(&ks[j][part * HALF]);
-      float s = 0.f;
-#pragma unroll
-      for (int d4 = 0; d4 < HALF / 4; ++d4) {
-        const float4 kk = kr[d4];
-        s = fmaf(qr[4 * d4 + 0], kk.x, s);
-        s = fmaf(qr[4 * d4 + 1], kk.y, s);
-        s = fmaf(qr[4 * d4 + 2], kk.z, s);
-        s = fmaf(qr[4 * d4 + 3], kk.w, s);
-      }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s = j < n ? fmaf(s, a.scale, bs[j]) : -INFINITY;
-      sc[j] = s;
-      m_tile = fmaxf(m_tile, s);
-    }
-    // m_tile is finite: key s0 < S is in every tile.
-    const float m_new = fmaxf(m_run, m_tile);
-    const float alpha = expf(m_run - m_new);
-    l_run *= alpha;
-#pragma unroll
-    for (int d = 0; d < HALF; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float p = expf(sc[j] - m_new);  // 0 past the key edge
-      l_run += p;
-      const float4* vr = reinterpret_cast<const float4*>(&vs[j][part * HALF]);
-#pragma unroll
-      for (int d4 = 0; d4 < HALF / 4; ++d4) {
-        const float4 vv = vr[d4];
-        acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
-        acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-        acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-        acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-      }
-    }
-    m_run = m_new;
+  const int n_tiles = (a.S + BK - 1) / BK;
+  int lo = 0, hi = n_tiles;
+  if (SKIP) {
+    hi = min((q0 + kBlockQ + BK - 1) / BK, n_tiles);
+    if (a.window > 0) lo = max(q0 - a.window + 1, 0) / BK;
+  }
+  // Visit i < hi - lo is band tile lo + i; past that, only when a row of
+  // the block found no allowed key in its band, come the skipped tiles
+  // [0, lo) and [hi, n_tiles), all masked for every row of the block.
+  const int n_band = hi - lo;  // >= 1: tile q0 / BK is in the band
+  int n_visits = n_band;
+  for (int i = 0; i < n_visits; ++i) {
+    const int e = i - n_band;
+    const int tile = e < 0 ? lo + i : (e < lo ? e : e + n_band);
+    visit_tile<T, D, BK, CAUSAL>(a, kb, vb, bias_row, tile * BK, t, ks, vs, bs, qr, acc, m_run,
+                                 l_run);
+    // A row whose whole band is padding: the reference's softmax spans all
+    // S keys at -1e9, so the skipped tiles join (block-uniform test).
+    if (SKIP && i + 1 == n_band && __syncthreads_or(row_ok && m_run < -5e8f))
+      n_visits = n_tiles;
   }
 
   if (row_ok) {
@@ -136,39 +206,61 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashArg
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL, bool SKIP>
 cudaError_t launch_flash(const FlashArgs& a, int B, cudaStream_t stream) {
   const dim3 grid(B * a.H, (a.T + kBlockQ - 1) / kBlockQ);
-  flash_fwd_kernel<T, D><<<grid, kFlashThreads, 0, stream>>>(a);
+  flash_fwd_kernel<T, D, CAUSAL, SKIP><<<grid, kFlashThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool CAUSAL, bool SKIP>
 cudaError_t dispatch_flash(int D, const FlashArgs& a, int B, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_flash<T, 16>(a, B, stream);
-    case 32: return launch_flash<T, 32>(a, B, stream);
-    case 64: return launch_flash<T, 64>(a, B, stream);
-    case 128: return launch_flash<T, 128>(a, B, stream);
+    case 16: return launch_flash<T, 16, CAUSAL, SKIP>(a, B, stream);
+    case 32: return launch_flash<T, 32, CAUSAL, SKIP>(a, B, stream);
+    case 64: return launch_flash<T, 64, CAUSAL, SKIP>(a, B, stream);
+    case 128: return launch_flash<T, 128, CAUSAL, SKIP>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <bool CAUSAL, bool SKIP>
+int dispatch_dtype(int dtype, int D, const FlashArgs& a, int B, cudaStream_t st) {
+  if (dtype == kFloat32) return (int)dispatch_flash<float, CAUSAL, SKIP>(D, a, B, st);
+  if (dtype == kBFloat16) return (int)dispatch_flash<__nv_bfloat16, CAUSAL, SKIP>(D, a, B, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace mm
 
-// C entry: returns cudaGetLastError() after the launch (0 on success).
+// C entries: each returns cudaGetLastError() after its launch (0 on success).
+
+// Kernel A: every key tile; the causal/window mask when ``causal`` != 0.
 extern "C" int mm_flash_attention(
     int dtype, const void* q, const void* k, const void* v, const void* bias,
     void* out, int B, int T, int S, int H, int D,
     int64_t q_sb, int64_t q_st, int64_t q_sh,
     int64_t k_sb, int64_t k_st, int64_t k_sh,
     int64_t v_sb, int64_t v_st, int64_t v_sh,
-    float scale, void* stream) {
+    float scale, int causal, int window, void* stream) {
   const mm::FlashArgs a{q, k, v, static_cast<const float*>(bias), out, T, S, H,
-                        q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale};
+                        q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == mm::kFloat32) return (int)mm::dispatch_flash<float>(D, a, B, st);
-  if (dtype == mm::kBFloat16) return (int)mm::dispatch_flash<__nv_bfloat16>(D, a, B, st);
-  return (int)cudaErrorInvalidValue;
+  return causal ? mm::dispatch_dtype<true, false>(dtype, D, a, B, st)
+                : mm::dispatch_dtype<false, false>(dtype, D, a, B, st);
+}
+
+// Kernel G: causal (``causal`` must be 1) with key-tile skipping, T <= S.
+extern "C" int mm_flash_attention_causal_skip(
+    int dtype, const void* q, const void* k, const void* v, const void* bias,
+    void* out, int B, int T, int S, int H, int D,
+    int64_t q_sb, int64_t q_st, int64_t q_sh,
+    int64_t k_sb, int64_t k_st, int64_t k_sh,
+    int64_t v_sb, int64_t v_st, int64_t v_sh,
+    float scale, int causal, int window, void* stream) {
+  if (!causal || T > S) return (int)cudaErrorInvalidValue;
+  const mm::FlashArgs a{q, k, v, static_cast<const float*>(bias), out, T, S, H,
+                        q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window};
+  return mm::dispatch_dtype<true, true>(dtype, D, a, B, static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,7 @@
 """Batched beam search over a never-reordered, ancestry-indexed KV cache.
 
-Port of ``mm_s2ut/infer/beam_search.py`` (no prefix mode, one model).
+Port of ``mm_s2ut/infer/beam_search.py`` for one model, with its prefix
+mode (streaming's prefix-reuse continuation).
 Scoring follows fairseq's SequenceGenerator: candidates from the top 2K,
 hypothesis score Σ log p / length^len_penalty, the length budget forcing
 EOS, and early exit once no alive beam can beat the worst finished one.
@@ -13,11 +14,13 @@ but as views of one full allocation: the kernel reads only the first
 cap·K columns, and nothing is copied when a segment grows. The int8/int4
 dequant scales are such views too. An int4 cache is the exception: its
 half boundary moves with the capacity, so each growth re-packs it with
-``i4_regrow`` (a copy per growth, as in the reference).
+``i4_regrow`` (a copy per growth, as in the reference). In prefix mode
+the search starts at the prefilled step and uses the full allocation from
+the start, as the reference disables growth there.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
@@ -67,11 +70,23 @@ def beam_search(
     len_penalty: float = 1.0,
     unk_penalty: float = 0.0,
     unk_id: int = 3,
+    prefix_tokens: Optional[torch.Tensor] = None,
+    prefix_len: Optional[int] = None,
+    prefix_logp: Optional[torch.Tensor] = None,
+    max_new: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``decode_step(tokens (N, 1), state) -> (logits (N, V), state)`` with
     N = batch_size·beam_size; ``init_state`` is tiled to N
     (:func:`tile_state_for_beams`). Returns (sequences (B, K, max_len)
-    padded with pad_id — EOS included — and scores (B, K), best first)."""
+    padded with pad_id — EOS included — and scores (B, K), best first).
+
+    Prefix mode: ``prefix_tokens`` (B, P) with BOS at position 0,
+    ``prefix_len`` (tokens incl. BOS) and ``prefix_logp`` (B,) from
+    ``UnitDecoder.prefill``, which must have filled the state. The search
+    starts at step prefix_len − 1 with the prefix as the only live beam and
+    runs at most ``max_new`` steps; the length penalty and the EOS force
+    at max_len keep their global step, so a BOS-only prefix reproduces the
+    plain search."""
     B, K, V = batch_size, beam_size, vocab_size
     if V < 2:
         raise ValueError(f"vocab_size must be >= 2, got {V}")
@@ -82,10 +97,19 @@ def beam_search(
     dev = kv_full.device
     L1 = max_len + 1
 
+    prefixed = prefix_tokens is not None
     alive_seq = torch.full((B, K, L1), pad_id, dtype=torch.long, device=dev)
     alive_seq[:, :, 0] = bos_id
     alive_logp = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
     alive_logp[:, 0] = 0.0  # only beam 0 is live initially
+    step = 0
+    if prefixed:
+        n = min(int(prefix_len), prefix_tokens.shape[1], L1)
+        alive_seq[:, :, :n] = prefix_tokens[:, None, :n].to(device=dev, dtype=torch.long)
+        if prefix_logp is not None:
+            alive_logp[:, 0] = prefix_logp.to(device=dev, dtype=torch.float32).reshape(B)
+        step = max(int(prefix_len) - 1, 0)
+    stop = max_len if max_new is None else min(max_len, step + max_new)
     fin_seq = torch.full((B, K, L1), pad_id, dtype=torch.long, device=dev)
     fin_scores = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
     fin_flags = torch.zeros((B, K), dtype=torch.bool, device=dev)
@@ -101,12 +125,11 @@ def beam_search(
     T_full = anc_full.shape[2]  # logical steps
     caps: List[int] = []
     c = 64
-    while c < T_full:
+    while c < T_full and not prefixed:  # a prefilled cache is used whole
         caps.append(c)
         c *= 2
     caps.append(T_full)
 
-    step = 0
     if int4:  # it lives in re-packed segments: keep the first, drop the full allocation
         state["self_kv"] = kv_full[:, :, :, : caps[0] * K // 2].clone()
         kv_full = None
@@ -119,7 +142,7 @@ def beam_search(
         for key, full in scales_full.items():
             state[key] = full[:, :, :, : cap * K]
         state["ancestry"] = anc_full[:, :, :cap]
-        while step < min(cap, max_len) and improvable():
+        while step < min(cap, stop) and improvable():
             prev_tok = alive_seq.reshape(B * K, L1)[:, step : step + 1]
             logits, state = decode_step(prev_tok, state)
             logp = torch.log_softmax(logits.float(), dim=-1)

@@ -2,8 +2,9 @@
 
 Port of the incremental-decoding half of ``mm_s2ut/models/decoder.py``
 (``StackedEmbedding`` with n_frames_per_step = 1, ``UnitDecoder.init_state``
-for a bf16/fp32, int8 or int4 cache, ``step``, ``_step_core`` and the
-ancestry branch of ``_self_attn_step``). The cache layout is the
+for a bf16/fp32, int8 or int4 cache, ``step``, ``_step_core``, the
+ancestry branch of ``_self_attn_step``, and ``prefill`` for streaming's
+prefix reuse). The cache layout is the
 reference's: ONE stacked buffer (B, L, H, T·S, 2·Dh), key column
 j = t·S + s, K‖V interleaved on the last axis. Rows are never reordered:
 beam k reads its history through ``flat_rep`` (kernel B; D over an int8
@@ -179,6 +180,80 @@ class UnitDecoder(nn.Module):
             out = fn(*args, state["self_kv_sk"], state["self_kv_sv"], flat_rep, layer_idx)
         out = out.transpose(1, 2).reshape(N, 1, H * Dh)
         return attn.out_proj(out), k_new, v_new
+
+    def prefill(
+        self, prefix_tokens: torch.Tensor, prefix_len: int, state: DecoderState,
+    ) -> Tuple[DecoderState, torch.Tensor]:
+        """Teacher-forced prefill of a beam-tiled cache in one causal pass.
+
+        ``prefix_tokens`` (B, P) holds BOS then the prefix, ``prefix_len``
+        counts the real tokens (≤ P ≤ the cache's T). Every layer's K‖V of
+        the P positions lands in beam slot 0 of steps 0..P-1, where stepwise
+        decoding of the same tokens would put them (all beams share the
+        prefix; the ancestry stays 0). Positions ≥ ``prefix_len`` hold pad
+        rows that the step counter masks until decoding overwrites them.
+        The self-attention over the prefix is plain PyTorch, as the
+        reference computes it with einsums; the cross-attention is kernel C
+        (E for an int8 slab) with P query rows. An int8 cache stores the
+        rows quantized as a step would, while the pass itself attends to
+        exact history. Updates ``state`` in place and returns it with
+        ``step = prefix_len - 1`` (the search re-feeds the last prefix token)
+        and ``prefix_logp`` (B,) = Σ_{t=1}^{len-1} log p(tok_t | tok_<t)."""
+        if "ancestry" not in state:
+            raise ValueError("prefill expects a beam-tiled state")
+        if is_int4(state):
+            raise NotImplementedError(
+                "prefill supports float/bf16/int8 caches (int4 packs two columns per byte)"
+            )
+        kv = state["self_kv"]
+        B, P = prefix_tokens.shape
+        L, H, Dh = self.num_layers, kv.shape[2], kv.shape[4] // 2
+        T_ = state["ancestry"].shape[2]
+        S_ = kv.shape[3] // T_
+        if P > T_:
+            raise ValueError(f"prefill: {P} prefix positions exceed the cache's {T_} steps")
+        x = self.embed(prefix_tokens) * self.embed_scale
+        x = self.pos(x)
+        causal = torch.tril(torch.ones((P, P), dtype=torch.bool, device=x.device))
+        self_bias = torch.zeros((P, P), device=x.device).masked_fill(~causal, -1e9).to(x.dtype)
+        new_ks, new_vs = [], []
+        for i, layer in enumerate(self.layers):
+            attn = layer.self_attn
+            h = layer.self_attn_layer_norm(x)
+            q = attn._split(attn.q_proj(h)) * attn.head_dim ** -0.5
+            k_new = attn._split(attn.k_proj(h))  # (B, P, H, Dh)
+            v_new = attn._split(attn.v_proj(h))
+            logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_new.float()) + self_bias.float()
+            wgt = torch.softmax(logits, dim=-1).to(x.dtype)
+            h = torch.einsum("bhqk,bkhd->bqhd", wgt, v_new)
+            x = x + attn.out_proj(h.reshape(B, P, self.embed_dim))
+            new_ks.append(k_new)
+            new_vs.append(v_new)
+            x = x + layer.cross_attn.packed_cross(
+                layer.cross_attn_layer_norm(x), state["cross"][i], state["cross_bias"]
+            )
+            x = x + layer.ffn(layer.final_layer_norm(x))
+        logp = torch.log_softmax(self.embed.attend(self.final_norm(x)), dim=-1)  # (B, P, V)
+        # Position t predicts token t+1; only real (t+1 < prefix_len) transitions count.
+        nxt = torch.cat([prefix_tokens[:, 1:], prefix_tokens[:, :1]], dim=1)
+        tok_lp = torch.gather(logp, 2, nxt[..., None].long())[..., 0]
+        real = torch.arange(P, device=x.device)[None, :] + 1 < int(prefix_len)
+        prefix_logp = torch.where(real, tok_lp, torch.zeros_like(tok_lp)).sum(1)
+
+        # Slot 0 of steps 0..P-1: the (t, s) axis is row-major, so a
+        # (B, L, H, T, S, 2·Dh) view is the slot view and one strided write fills it.
+        k_rows = torch.stack(new_ks, dim=1).transpose(2, 3)  # (B, L, H, P, Dh)
+        v_rows = torch.stack(new_vs, dim=1).transpose(2, 3)
+        kv5 = kv.view(B, L, H, T_, S_, 2 * Dh)
+        if "self_kv_sk" in state:
+            rows, sk, sv = quantize_rows(k_rows, v_rows, 127.0)
+            kv5[:, :, :, :P, 0] = rows
+            state["self_kv_sk"].view(B, L, H, T_, S_)[..., :P, 0] = sk
+            state["self_kv_sv"].view(B, L, H, T_, S_)[..., :P, 0] = sv
+        else:
+            kv5[:, :, :, :P, 0] = torch.cat([k_rows, v_rows], dim=-1).to(kv.dtype)
+        state["step"] = max(int(prefix_len) - 1, 0)
+        return state, prefix_logp
 
     def step(self, prev_token: torch.Tensor, state: DecoderState) -> Tuple[torch.Tensor, DecoderState]:
         """One decode step of a beam-tiled state: (N, 1) tokens →

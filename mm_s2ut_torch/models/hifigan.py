@@ -185,6 +185,33 @@ class CodeHiFiGAN(nn.Module):
         self.generator = HiFiGANGenerator(cfg)
 
     @torch.no_grad()
+    def unit_durations(
+        self,
+        units: torch.Tensor,  # (B, L) unit ids
+        unit_lengths: Optional[torch.Tensor] = None,  # (B,)
+        dur_prediction: bool = True,
+    ) -> torch.Tensor:
+        """(B, L) per-unit frame durations (predicted, or 1 per unit),
+        zeroed past ``unit_lengths``."""
+        B, L = units.shape
+        if unit_lengths is None:
+            unit_lengths = torch.full((B,), L, dtype=torch.long, device=units.device)
+        valid = torch.arange(L, device=units.device)[None, :] < unit_lengths[:, None]
+        if self.cfg.dur_prediction and dur_prediction:
+            log_dur = self.dur_predictor(self.dict(units), valid=valid)
+            dur = torch.clamp(torch.round(torch.exp(log_dur) - 1.0), min=1.0).long()
+        else:
+            dur = torch.ones((B, L), dtype=torch.long, device=units.device)
+        return dur * valid.long()
+
+    @torch.no_grad()
+    def vocode_frames(self, frame_units: torch.Tensor) -> torch.Tensor:
+        """(B, T) length-regulated unit ids, one per frame → (B, T·hop)
+        waveform: the half of :meth:`forward` after length regulation
+        (``infer/streaming_vocoder.py`` feeds it halo windows)."""
+        return self.generator(self.dict(frame_units))
+
+    @torch.no_grad()
     def forward(
         self,
         units: torch.Tensor,  # (B, L) unit ids
@@ -192,18 +219,8 @@ class CodeHiFiGAN(nn.Module):
         dur_prediction: bool = True,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """((B, max_frames·hop) waveform, (B,) valid sample counts)."""
-        B, L = units.shape
-        if unit_lengths is None:
-            unit_lengths = torch.full((B,), L, dtype=torch.long, device=units.device)
-        valid = torch.arange(L, device=units.device)[None, :] < unit_lengths[:, None]
-        emb = self.dict(units)
-        if self.cfg.dur_prediction and dur_prediction:
-            log_dur = self.dur_predictor(emb, valid=valid)
-            dur = torch.clamp(torch.round(torch.exp(log_dur) - 1.0), min=1.0).long()
-        else:
-            dur = torch.ones((B, L), dtype=torch.long, device=units.device)
-        dur = dur * valid.long()
-        frames, n_frames = length_regulate(emb, dur, self.max_frames)
+        dur = self.unit_durations(units, unit_lengths, dur_prediction)
+        frames, n_frames = length_regulate(self.dict(units), dur, self.max_frames)
         return self.generator(frames), n_frames * self.cfg.hop_length
 
 

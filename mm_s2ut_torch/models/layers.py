@@ -1,7 +1,8 @@
 """Transformer building blocks of the port.
 
-Port of ``mm_s2ut/models/layers.py`` for the offline inference path:
-sinusoidal positions, the cache-free self-attention (kernel A), the
+Port of ``mm_s2ut/models/layers.py`` for the inference paths:
+sinusoidal positions, the cache-free self-attention (kernel A, or G
+under a causal mask), the
 decode-time packed cross-attention (kernel C, or E over an int8 slab)
 and its K/V precompute,
 the ReLU feed-forward block, pre-norm encoder and decoder layers, the
@@ -27,6 +28,9 @@ from mm_s2ut_torch.ops.attention import flash_attention
 from mm_s2ut_torch.ops.decode_attention import cross_decode_attention, cross_decode_attention_i8
 
 NEG_INF = -1e9  # additive mask value
+# Any integer routes causal self-attention to kernel G (key-tile skipping);
+# the kernel's key tile is its own (ops/attention.flash_attention).
+CAUSAL_BLOCK_K = 64
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 
 
@@ -90,12 +94,19 @@ class MultiHeadAttention(nn.Module):
         b, t, _ = x.shape
         return x.reshape(b, t, self.num_heads, self.head_dim)
 
-    def forward(self, query: torch.Tensor, key_padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        """Self-attention over ``query`` (B, T, E) with a key-padding mask."""
+    def forward(
+        self, query: torch.Tensor, key_padding_mask: Optional[torch.Tensor],
+        causal: bool = False, window: int = 0,
+    ) -> torch.Tensor:
+        """Self-attention over ``query`` (B, T, E) with a key-padding mask;
+        ``causal`` (+ ``window``) masks position-causally, through kernel G."""
         q = self._split(self.q_proj(query))
         k = self._split(self.k_proj(query))
         v = self._split(self.v_proj(query))
-        out = flash_attention(q, k, v, key_padding_mask=key_padding_mask)
+        out = flash_attention(
+            q, k, v, key_padding_mask=key_padding_mask, causal=causal, window=window,
+            block_k=CAUSAL_BLOCK_K if causal else None,
+        )
         return self.out_proj(out.reshape(*query.shape[:2], self.embed_dim))
 
     def precompute_kv(
@@ -155,17 +166,21 @@ class FeedForward(nn.Module):
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Pre-norm: x + attn(LN(x)), then x + ffn(LN(x))."""
+    """Pre-norm: x + attn(LN(x)), then x + ffn(LN(x)); ``causal`` (+
+    ``window``) makes the self-attention position-causal."""
 
-    def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
+                 causal: bool = False, window: int = 0):
         super().__init__()
+        self.causal, self.window = causal, window
         self.self_attn_layer_norm = layer_norm(embed_dim)
         self.final_layer_norm = layer_norm(embed_dim)
         self.self_attn = MultiHeadAttention(embed_dim, num_heads)
         self.ffn = FeedForward(embed_dim, ffn_dim)
 
     def forward(self, x: torch.Tensor, key_padding_mask: torch.Tensor) -> torch.Tensor:
-        x = x + self.self_attn(self.self_attn_layer_norm(x), key_padding_mask)
+        h = self.self_attn(self.self_attn_layer_norm(x), key_padding_mask, self.causal, self.window)
+        x = x + h
         return x + self.ffn(self.final_layer_norm(x))
 
 
@@ -191,6 +206,7 @@ class Conv1dSubsampler(nn.Module):
         super().__init__()
         n = len(kernel_sizes)
         self.n = n
+        self.kernel_sizes = tuple(kernel_sizes)
         ch_in = in_dim
         for i, k in enumerate(kernel_sizes):
             out_ch = mid_channels if i < n - 1 else out_dim * 2
@@ -210,3 +226,10 @@ class Conv1dSubsampler(nn.Module):
             valid = torch.arange(x.shape[2], device=x.device)[None, :] < lengths[:, None]
             x = x * valid[:, None, :].to(x.dtype)
         return x.transpose(1, 2), lengths
+
+
+def subsampled_length(length: int, n_convs: int = 2) -> int:
+    """Output rows of the stride-2 conv stack for ``length`` input frames."""
+    for _ in range(n_convs):
+        length = (length - 1) // 2 + 1
+    return length

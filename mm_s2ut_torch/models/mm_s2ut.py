@@ -1,13 +1,15 @@
 """Flagship model of the port: multimodal speech-to-unit transformer.
 
-Port of ``mm_s2ut/models/mm_s2ut.py`` ``MMS2UTModel`` for offline
-inference: ``encode`` (conv-transformer speech encoder, then top
-selective-attention fusion of each image source, summed), ``decode_init``
-and ``decode_step``, for the flagship's choices (pre-norm, ReLU, tied
-output embedding, gated fusion with image pre-norm). Other branches and
-choices raise at construction. The encoder's self-attention always runs
-kernel A; ``use_flash_attention`` is read by the JAX package only (its
-non-flash path computes the same attention).
+Port of ``mm_s2ut/models/mm_s2ut.py`` ``MMS2UTModel`` for inference:
+``encode`` (conv-transformer speech encoder, then top selective-attention
+fusion of each image source, summed), ``decode_init``, ``decode_step``
+and ``decode_prefill`` (streaming's prefix reuse), for the flagship's
+choices (pre-norm, ReLU, tied output embedding, gated fusion with image
+pre-norm). Other branches and choices raise at construction. The
+encoder's self-attention runs kernel A, or kernel G with
+``encoder_causal_attention`` (and ``encoder_attention_window``);
+``use_flash_attention`` is read by the JAX package only (its non-flash
+path computes the same attention).
 
 The model is built in the config's compute dtype (``cfg.dtype``); move it
 to a device with ``.to(device)``.
@@ -38,7 +40,6 @@ def _check_ported(cfg: ModelConfig) -> None:
         "ctc_weight": cfg.ctc_weight > 0,
         "multitask": bool(cfg.multitask),
         "n_frames_per_step": cfg.n_frames_per_step > 1,
-        "encoder_causal_attention": cfg.encoder_causal_attention,
         "pipeline_stages": cfg.pipeline_stages > 1,
         "activation_fn": cfg.activation_fn != "relu",
         "post-norm": not (cfg.encoder_normalize_before and cfg.decoder_normalize_before),
@@ -65,6 +66,8 @@ class MMS2UTModel(nn.Module):
             num_heads=cfg.encoder_attention_heads,
             conv_channels=cfg.conv_channels,
             conv_kernel_sizes=tuple(cfg.conv_kernel_sizes),
+            causal_attention=cfg.encoder_causal_attention,
+            attention_window=cfg.encoder_attention_window,
         )
         self.n_fusion = len(mm.image_feat_dim) if mm.multimodal_attention_type else 0
         for i in range(self.n_fusion):
@@ -110,3 +113,8 @@ class MMS2UTModel(nn.Module):
 
     def decode_step(self, prev_token: torch.Tensor, state: DecoderState):
         return self.decoder.step(prev_token, state)
+
+    def decode_prefill(self, prefix_tokens: torch.Tensor, prefix_len: int, state: DecoderState):
+        """Teacher-forced prefill of a beam-tiled state (streaming prefix
+        reuse; see ``UnitDecoder.prefill``)."""
+        return self.decoder.prefill(prefix_tokens, prefix_len, state)

@@ -1,11 +1,15 @@
 """Speech transformer encoder (conv-subsample branch) of the port.
 
-Port of ``mm_s2ut/models/s2t_encoder.py`` (non-causal, not pipelined,
-no rematerialization): (B, T, 80) log-mels → Conv1dSubsampler (4×) →
+Port of ``mm_s2ut/models/s2t_encoder.py`` (not pipelined, no
+rematerialization): (B, T, 80) log-mels → Conv1dSubsampler (4×) →
 scaled sinusoidal positions → N pre-norm layers whose self-attention is
-kernel A → final LayerNorm. The reference pads the frame axis to a
-multiple of 16 on the TPU for its kernel; kernel A takes any length, so
-nothing is padded here.
+kernel A, or with ``causal_attention`` kernel G (position i attends to
+j ≤ i, and j > i − W with ``attention_window`` W) → final LayerNorm. The
+reference pads the frame axis to a multiple of 16 on the TPU for its
+kernel; A and G take any length, so nothing is padded here. The causal
+mask replaces masked logits (the reference's flash route); its folded-bias
+route adds −1e9 instead, which gives the same rows wherever a row's band
+holds a real key, i.e. on every unpadded row.
 """
 from __future__ import annotations
 
@@ -34,14 +38,18 @@ class SpeechTransformerEncoder(nn.Module):
         num_heads: int = 8,
         conv_channels: int = 1024,
         conv_kernel_sizes: Sequence[int] = (5, 5),
+        causal_attention: bool = False,
+        attention_window: int = 0,
     ):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_layers = num_layers
         self.subsampler = Conv1dSubsampler(in_dim, conv_channels, embed_dim, conv_kernel_sizes)
         self.pos = SinusoidalPositionalEmbedding(embed_dim)
+        window = attention_window if causal_attention else 0
         for i in range(num_layers):
-            self.add_module(f"layer{i}", TransformerEncoderLayer(embed_dim, ffn_dim, num_heads))
+            self.add_module(f"layer{i}", TransformerEncoderLayer(
+                embed_dim, ffn_dim, num_heads, causal=causal_attention, window=window))
         self.final_layer_norm = layer_norm(embed_dim)
 
     def forward(self, features: torch.Tensor, lengths: torch.Tensor) -> Dict[str, torch.Tensor]:

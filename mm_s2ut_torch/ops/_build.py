@@ -35,12 +35,13 @@ NVCC_FLAGS = (
 F32, BF16 = 0, 1
 
 _p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_FLASH = (
+    [_i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i] + [_i64] * 9 + [_f, _i, _i, _p],
+    ctypes.c_int,
+)
 _SIGNATURES = {
-    "mm_flash_attention": (
-        [_i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i]
-        + [_i64] * 9 + [_f, _p],
-        ctypes.c_int,
-    ),
+    "mm_flash_attention": _FLASH,
+    "mm_flash_attention_causal_skip": _FLASH,
     "mm_ancestry_decode_attention": (
         [_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i]
         + [_i64] * 4 + [_p],

@@ -27,7 +27,7 @@ from mm_s2ut_torch.ops import _build
 
 NEG_INF = -1e9
 HEAD_DIMS = (16, 32, 64, 128)
-MAX_BEAMS = 16
+MAX_BEAMS = 16  # query rows per (b, h) of kernels B, D, F; C and E tile any count by 16
 MAX_SHARED_BYTES = 232448  # a block's shared memory on Hopper
 
 
@@ -158,13 +158,13 @@ def reference_i4(q, k_new, v_new, kv, sk, sv, flat_rep, layer: int) -> torch.Ten
                          sv[:, layer][:, None], flat_rep, 0)
 
 
-def _check_common(name, q, tensors, K, Dh):
+def _check_common(name, q, tensors, K, Dh, max_rows=MAX_BEAMS):
     if q.device.type != "cuda":
         raise RuntimeError(f"{name}: unsupported device {q.device}")
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"{name}: all inputs must be on {q.device}")
-    if not 1 <= K <= MAX_BEAMS:
-        raise ValueError(f"{name}: {K} queries per head, the kernel takes 1..{MAX_BEAMS}")
+    if K < 1 or (max_rows is not None and K > max_rows):
+        raise ValueError(f"{name}: {K} queries per head, the kernel takes 1..{max_rows or 'any'}")
     if Dh not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {Dh} not in {HEAD_DIMS}")
 
@@ -215,12 +215,13 @@ def cross_decode_attention(
     kv: torch.Tensor,  # (B, H, S, 2·Dh) packed encoder K‖V
     bias: torch.Tensor,  # (B, S) f32 additive mask (0 valid / -1e9 pad)
 ) -> torch.Tensor:
-    """(B, H, K, Dh) in q's dtype."""
+    """(B, H, K, Dh) in q's dtype. K is any number of query rows: the
+    beams of a decode step, or the prefix positions of a prefill."""
     if q.device.type == "cpu":
         return cross_reference(q, kv, bias)
     B, H, K, Dh = q.shape
     S = kv.shape[2]
-    _check_common("cross_decode_attention", q, (kv, bias), K, Dh)
+    _check_common("cross_decode_attention", q, (kv, bias), K, Dh, max_rows=None)
     if kv.dtype != q.dtype or tuple(kv.shape) != (B, H, S, 2 * Dh):
         raise ValueError(f"cross_decode_attention: slab {tuple(kv.shape)} {kv.dtype}")
     if tuple(bias.shape) != (B, S):
@@ -228,7 +229,8 @@ def cross_decode_attention(
     lib = _build.library()
     if lib.mm_cross_decode_smem_bytes(K, S, Dh) > MAX_SHARED_BYTES:
         raise ValueError(
-            f"cross_decode_attention: K={K} x S={S} scores exceed a block's shared memory"
+            f"cross_decode_attention: {min(K, MAX_BEAMS)} rows x S={S} scores exceed a "
+            "block's shared memory"
         )
     q, kv = q.contiguous(), kv.contiguous()
     bias = bias.float().contiguous()
@@ -343,13 +345,14 @@ def cross_decode_attention_i8(
     sv: torch.Tensor,  # (B, H, S) f32 per-column V dequant scale
     bias: torch.Tensor,  # (B, S) f32 additive mask (0 valid / -1e9 pad)
 ) -> torch.Tensor:
-    """int8-slab variant of :func:`cross_decode_attention` (kernel E)."""
+    """int8-slab variant of :func:`cross_decode_attention` (kernel E),
+    for any number of query rows too."""
     if q.device.type == "cpu":
         return cross_reference_i8(q, kv, sk, sv, bias)
     name = "cross_decode_attention_i8"
     B, H, K, Dh = q.shape
     S = kv.shape[2]
-    _check_common(name, q, (kv, sk, sv, bias), K, Dh)
+    _check_common(name, q, (kv, sk, sv, bias), K, Dh, max_rows=None)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: q must be float32 or bfloat16, got {q.dtype}")
     if kv.dtype != torch.int8 or tuple(kv.shape) != (B, H, S, 2 * Dh):
@@ -360,7 +363,8 @@ def cross_decode_attention_i8(
         raise ValueError(f"{name}: bias must be (B, S)")
     lib = _build.library()
     if lib.mm_cross_decode_smem_bytes(K, S, Dh) > MAX_SHARED_BYTES:
-        raise ValueError(f"{name}: K={K} x S={S} scores exceed a block's shared memory")
+        raise ValueError(f"{name}: {min(K, MAX_BEAMS)} rows x S={S} scores exceed a block's "
+                         "shared memory")
     q, kv, sk, sv = (t.contiguous() for t in (q, kv, sk, sv))
     if kv.data_ptr() % 16:
         raise ValueError(f"{name}: the slab must start on a 16-byte boundary (16-byte row reads)")

@@ -1,5 +1,6 @@
-"""convert.from_flax is strict in both directions, and the npz layout of
-scripts/export_jax_params.py round-trips through convert.load_npz."""
+"""convert.from_flax is strict in both directions, convert.to_flax is its
+exact inverse, and the npz layout of scripts/export_jax_params.py
+round-trips through convert.load_npz."""
 import dataclasses
 
 import jax
@@ -7,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from mm_s2ut_torch.convert import flatten, from_flax, load_npz
+from mm_s2ut_torch.convert import flatten, from_flax, load_npz, to_flax, unflatten
 from mm_s2ut_torch.models.hifigan import CodeHiFiGAN, HiFiGANConfig
 from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
 from scripts.export_jax_params import flatten_params
@@ -71,3 +72,19 @@ def test_npz_round_trip(small, tmp_path):
     assert set(flatten(loaded)) == set(flatten(params["params"]))
     a, b = from_flax(loaded, tmodel), from_flax(params, tmodel)
     assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_to_flax_inverts_from_flax(small):
+    """The JAX tree comes back leaf for leaf, and a vocoder (transposed
+    convs) survives torch → flax → torch unchanged."""
+    params, tmodel = small
+    tmodel.load_state_dict(from_flax(params, tmodel))
+    got, want = to_flax(tmodel), flatten(params["params"])
+    assert set(got) == set(want)
+    assert all(np.array_equal(got[k], want[k]) for k in want)
+    torch.manual_seed(0)
+    voc = CodeHiFiGAN(HiFiGANConfig(num_embeddings=6, embedding_dim=4, model_in_dim=4,
+                                    upsample_initial_channel=8, upsample_rates=(2, 2),
+                                    upsample_kernel_sizes=(4, 4)))
+    sd = from_flax(unflatten(to_flax(voc)), voc)
+    assert all(torch.equal(sd[k], p) for k, p in voc.named_parameters())

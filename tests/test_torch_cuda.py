@@ -1,4 +1,4 @@
-"""Kernels A–F on the card against their plain PyTorch versions on the
+"""Kernels A–G on the card against their plain PyTorch versions on the
 same CUDA tensors. Skipped without a CUDA device. On a GPU machine
 (which needs neither JAX nor this directory's conftest):
 
@@ -9,7 +9,10 @@ Tolerances: fp32 1e-4 (both sides fp32; summation order differs), bf16
 between the two contractions, the kernels keep fp32 until the store).
 Kernels D and F (int8 / int4 cache): fp32 2e-3, bf16 2e-2, for a
 requantized softmax weight that flips one level at a rounding tie
-(``chip_smoke.TOL_REQUANT``); E as C."""
+(``chip_smoke.TOL_REQUANT``); E as C. A's causal branch and G are held
+against the plain version on every row, the padded rows whose whole
+window band is padding included (G reproduces the reference's uniform
+average there, ``csrc/flash_attention.cu``)."""
 import pytest
 import torch
 
@@ -64,6 +67,42 @@ def test_flash_attention_reads_strided_heads(card, dtype):
     q, k, v = (qkv[..., i * H * D : (i + 1) * H * D].view(B, T, H, D) for i in range(3))
     assert not q.is_contiguous()
     _close(A.flash_attention(q, k, v), A.reference_attention(q * D ** -0.5, k, v), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [0, 5, 64])
+@pytest.mark.parametrize("B,T,H,D", [(2, 37, 4, 16), (3, 130, 2, 64), (2, 250, 2, 128)])
+def test_flash_attention_causal(card, dtype, window, B, T, H, D):
+    """Kernel A's causal/window branch; lengths T, T-17, T-34 leave rows
+    whose window band is all padding."""
+    q, k, v, kpm = flash_inputs(B, T, H, D, dtype, seed=T + window)
+    bias = torch.zeros(kpm.shape, device="cuda").masked_fill(kpm, A.NEG_INF)[:, None, None, :]
+    before = A.flash_attention.launches
+    got = A.flash_attention(q, k, v, kpm, causal=True, window=window)
+    assert A.flash_attention.launches == before + 1
+    _close(got, A.reference_attention(q * D ** -0.5, k, v, bias, True, window), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [0, 5, 64])
+@pytest.mark.parametrize("B,Tq,S,H,D", [(2, 37, 37, 4, 16), (3, 130, 130, 2, 64),
+                                        (2, 40, 64, 2, 32), (1, 250, 250, 8, 64),
+                                        (2, 100, 300, 2, 128)])
+def test_causal_skip_attention(card, dtype, window, B, Tq, S, H, D):
+    """Kernel G, with a ragged Tq < S and padded rows (some with an
+    all-padding band), against the plain version on every row; through
+    flash_attention(block_k=...) where Tq == S."""
+    q, k, v, kpm = flash_inputs(B, S, H, D, dtype, seed=S + window)
+    q = q[:, :Tq]
+    bias = torch.zeros(kpm.shape, device="cuda").masked_fill(kpm, A.NEG_INF)[:, None, None, :]
+    before = (A.causal_skip_attention.launches, A.flash_attention.launches)
+    if Tq == S:
+        got = A.flash_attention(q, k, v, kpm, causal=True, window=window, block_k=64)
+    else:
+        got = A.causal_skip_attention(q, k, v, kpm, window=window)
+    assert (A.causal_skip_attention.launches, A.flash_attention.launches) == \
+        (before[0] + 1, before[1])
+    _close(got, A.reference_attention(q * D ** -0.5, k, v, bias, True, window), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -122,6 +161,31 @@ def test_cross_decode_i8(card, dtype, K, Dh, S):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("K,Dh,S", [(17, 64, 250), (501, 64, 250), (40, 128, 70), (33, 16, 13)])
+def test_cross_decode_many_rows(card, dtype, int8, K, Dh, S):
+    """Kernels C and E with more rows than a decode step has (the
+    prefill's P = max_len + 1): against the plain version, and the first
+    16 rows bit-equal to a 16-row (decode-step) call, whose code path is
+    the one block per (b, h) it always was."""
+    if int8:
+        args = quant_cross_inputs(2, 3, K, Dh, S, dtype, seed=S)
+        kern, plain, counter = D.cross_decode_attention_i8, D.cross_reference_i8, \
+            D.cross_decode_attention_i8
+    else:
+        args = cross_inputs(2, 3, K, Dh, S, dtype, seed=S)
+        kern, plain, counter = D.cross_decode_attention, D.cross_reference, \
+            D.cross_decode_attention
+    before = counter.launches
+    got = kern(*args)
+    assert counter.launches == before + 1
+    _close(got, plain(*args), dtype)
+    head = kern(args[0][:, :, :16].contiguous(), *args[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :, :16], head)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_flagship_shapes(card, dtype):
     for name, kern, plain, tol in kernel_cases(dtype, FLAGSHIP):
         _close(kern(), plain(), dtype, tol)
@@ -131,8 +195,13 @@ def test_unsupported_inputs_raise(card):
     q, k, v, _ = flash_inputs(1, 8, 2, 24, torch.float32)
     with pytest.raises(ValueError, match="head dim"):
         A.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError):
-        A.flash_attention(q, k, v, causal=True)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        A.flash_attention(q, k, v, dropout_rate=0.1)
+    q, k, v, _ = flash_inputs(1, 8, 2, 16, torch.float32)
+    with pytest.raises(ValueError, match="Tq == Tk"):
+        A.flash_attention(q[:, :4], k, v, causal=True)
+    with pytest.raises(ValueError, match="Tq=8 > S=4"):
+        A.causal_skip_attention(q, k[:, :4], v[:, :4])
     args = ancestry_inputs(1, 1, 17, 16, 1, 4, 2, torch.float32)
     with pytest.raises(ValueError, match="queries per head"):
         D.ancestry_decode_attention(*args, 0)

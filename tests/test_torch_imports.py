@@ -15,7 +15,11 @@ ROOT = Path(__file__).resolve().parents[1]
 MODULES = sorted(m.name for m in pkgutil.walk_packages(mm_s2ut_torch.__path__, "mm_s2ut_torch."))
 
 
-@pytest.mark.parametrize("modules", [["mm_s2ut_torch.inference"], MODULES])
+STREAMING = ["mm_s2ut_torch.cli.stream", "mm_s2ut_torch.infer.streaming",
+             "mm_s2ut_torch.infer.streaming_vocoder"]
+
+
+@pytest.mark.parametrize("modules", [["mm_s2ut_torch.inference"], STREAMING, MODULES])
 def test_import_leaves_jax_out(modules):
     code = (
         f"import sys, {', '.join(modules)}\n"
