@@ -52,11 +52,38 @@ is no CPU path):
    ``python -m mm_s2ut_torch.inference`` (its encoder runs G) and
    ``python -m mm_s2ut_torch.cli.stream`` (prefix reuse, streaming
    vocoder) give the same units, and the streamed wav equals an offline
-   vocode of them.
+   vocode of them;
+10. one train step, card against CPU: the small fp32 config with every
+    dropout rate 0, TF32 off, three ``Trainer.train_batch`` steps from the
+    same weights on the same batch: losses within a relative 1e-5, the
+    first step's gradients within a relative 1e-4, A and H launched once
+    per encoder layer per step;
+11. the reference's train bench point (``bench.py:125-191``, ``:410-426``)
+    at full width: the flagship bf16 with fusion over 577x768 image
+    features, every dropout 0.1, modality and audio dropout 0.5, label
+    smoothing 0.2, Adam (update_freq 1, warmup 10); B=8, 1000 frames,
+    100 targets (3 warm-up + 17 timed steps), then B=2, 4000 frames, 200
+    targets (3 + 5): ms per step, peak memory, loss and grad norm per
+    step, A and H launches per step, the share of a profiled step in A and
+    H; the loss falls over the 20 steps on the fixed B=8 batch;
+12. the train entry point on the card: ``mm_s2ut_torch.cli.train.main`` on
+    a synthetic corpus (8 wavs, image features, a small bf16 config) on
+    the default device for 6 steps, ``--resume`` to 8, then
+    ``mm_s2ut_torch.inference`` decodes a wav from that ``save_dir``.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Artifacts (.unit files,
-generate-smoke.txt, wavs) go to ``--out`` (default
+Phase 2 also holds, at the train bench's encoder shapes (B=8, T=250 and
+B=2, T=1000, H=8, D=64, ragged key padding), A and G with attention
+dropout 0.1 against their twins, and H (dq, dk, dv, dbias) against its
+twin, non-causal and causal/window 64, dropout 0 and 0.1, each timed
+beside PyTorch's ``scaled_dot_product_attention`` with the same additive
+mask (forward for A and G; its backward alone, and forward + backward,
+for H), which the port never calls.
+
+The line before the last is the kernels' JSON record (with each
+kernel's bound at its recorded shape: the larger of its bytes over
+3.35 TB/s and its operations over the peak for its inputs' type); the
+last line is ``{"ok": true, "device": {...}}``. Artifacts (.unit files,
+generate-smoke.txt, wavs, the training runs) go to ``--out`` (default
 ``smoke_out/`` beside this file).
 """
 from __future__ import annotations
@@ -90,6 +117,74 @@ TOL_REQUANT = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
 # output's rounding.
 FLAGSHIP = dict(B=8, H=8, Dh=64, K=10, L=6, T_enc=250, T_dec=500, step=300, S_cross=250)
 BENCH = dict(B=128, H=8, Dh=64, K=10, L=6, T_dec=201, step=150, S_cross=250)
+# H100 SXM (NVIDIA's data sheet): HBM bytes/s and dense peak op/s by input type.
+HBM = 3.35e12
+PEAK = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
+EB = {torch.bfloat16: 2, torch.float32: 4}
+DROP_SEED = 0x5EED
+
+
+def bound(flops: float, nbytes: float, peak: str) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak for the inputs' type."""
+    t_bytes, t_ops = nbytes / HBM * 1e3, flops / PEAK[peak] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def flash_work(B, Tq, S, H, D, dtype, pairs=None):
+    """A / G forward: q, k, v, the (B, S) bias and the output; 4·D
+    operations per attended (query, key) pair (``pairs``, default all)."""
+    pairs = B * H * Tq * S if pairs is None else pairs
+    return bound(4 * D * pairs, EB[dtype] * B * D * H * (2 * Tq + 2 * S) + 4 * B * S, "bf16")
+
+
+def bwd_work(B, T, H, D, dtype):
+    """H: q, k, v, dO, O, the row statistics and the bias in; dq, dk, dv
+    and dbias out; 10·D operations per (query, key) pair (the recomputed
+    scores, dP, dV, dK and dQ)."""
+    rows = B * T * H * D * EB[dtype]
+    return bound(10 * B * H * T * T * D, 8 * rows + 8 * B * H * T + 8 * B * T, "bf16")
+
+
+def ancestry_work(q, kv, flat_rep, col_bytes, peak):
+    """B, D, F: q, k_new, v_new, flat_rep and the output, plus the cache
+    columns on some beam's path in this run's ancestry (``col_bytes`` per
+    column and head); 4·Dh operations per on-path column and beam."""
+    B, H, K, Dh = q.shape
+    cols = sum(int(torch.unique(f[f >= 0]).numel()) for f in flat_rep)
+    on_path = int((flat_rep >= 0).sum()) // K  # flat_rep repeats each step's index K times
+    nbytes = 4 * q.numel() * q.element_size() + flat_rep.numel() * 4 + cols * H * col_bytes
+    return bound(4 * Dh * H * (on_path + B * K), nbytes, peak)
+
+
+def cross_work(q, S, slab_bytes, peak):
+    """C, E: q and the output, the (B, H, S) slab (``slab_bytes`` per
+    column and head) and the bias; 4·Dh operations per (row, column)."""
+    B, H, K, Dh = q.shape
+    nbytes = 2 * q.numel() * q.element_size() + B * H * S * slab_bytes + 4 * B * S
+    return bound(4 * B * H * K * S * Dh, nbytes, peak)
+
+
+def sdpa(q, k, v, mask, scale=None):
+    """PyTorch's ``scaled_dot_product_attention`` on (B, T, H, D) tensors
+    with an additive mask: the yardstick library call (the port never
+    calls it)."""
+    import torch.nn.functional as F
+
+    out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                         attn_mask=mask, scale=scale)
+    return out.transpose(1, 2)
+
+
+def additive_mask(kpm, T, dtype, causal=False, window=0):
+    """The (B, 1, 1|T, S) additive mask of kernels A and G for SDPA."""
+    from mm_s2ut_torch.ops import attention as A
+
+    bias = torch.zeros(kpm.shape, device="cuda").masked_fill(kpm, A.NEG_INF)[:, None, None, :]
+    if causal:
+        allowed = A._causal_allowed(T, kpm.shape[1], window, "cuda")
+        bias = torch.where(allowed, bias, torch.full_like(bias, A.NEG_INF))
+    return bias.to(dtype)
 
 
 # ------------------------------------------------------------------ inputs
@@ -191,8 +286,10 @@ def quant_cross_inputs(B, H, K, Dh, S, dtype, seed=0):
 
 
 def kernel_cases(dtype, shapes=FLAGSHIP, bench=BENCH):
-    """(name, kernel call, plain call, tolerance): A, B and C at the main
-    path's flagship shapes, D, E and F at the reference bench's."""
+    """(name, kernel call, plain call, tolerance, library call or None,
+    bound): A, B and C at the main path's flagship shapes, D, E and F at
+    the reference bench's. B, D and F read an ancestry-indexed or quantized
+    cache and E a quantized slab: no single PyTorch call takes them."""
     from mm_s2ut_torch.ops import attention as A
     from mm_s2ut_torch.ops import decode_attention as D
 
@@ -209,19 +306,31 @@ def kernel_cases(dtype, shapes=FLAGSHIP, bench=BENCH):
     f_args = quant_ancestry_inputs(n["B"], n["H"], n["K"], n["Dh"], n["L"], n["T_dec"],
                                    n["step"], dtype, int4=True, seed=1)
     e_args = quant_cross_inputs(n["B"], n["H"], n["K"], n["Dh"], n["S_cross"], dtype)
+    c_mask = c_args[2][:, None, None, :].to(dtype)
+    c_k, c_v = c_args[1][..., : s["Dh"]], c_args[1][..., s["Dh"] :]
+    eb = EB[dtype]
     return [
         ("A", lambda: A.flash_attention(q, k, v, kpm),
-         lambda: A.reference_attention(q * scale, k, v, bias), TOL[dtype]),
+         lambda: A.reference_attention(q * scale, k, v, bias), TOL[dtype],
+         lambda: sdpa(q, k, v, bias.to(dtype)),
+         flash_work(s["B"], s["T_enc"], s["T_enc"], s["H"], s["Dh"], dtype)),
         ("B", lambda: D.ancestry_decode_attention(*b_args, layer),
-         lambda: D.reference(*b_args, layer), TOL[dtype]),
+         lambda: D.reference(*b_args, layer), TOL[dtype], None,
+         ancestry_work(b_args[0], b_args[3], b_args[4], 2 * s["Dh"] * eb, "bf16")),
         ("C", lambda: D.cross_decode_attention(*c_args),
-         lambda: D.cross_reference(*c_args), TOL[dtype]),
+         lambda: D.cross_reference(*c_args), TOL[dtype],
+         lambda: torch.nn.functional.scaled_dot_product_attention(c_args[0], c_k, c_v,
+                                                                  attn_mask=c_mask, scale=1.0),
+         cross_work(c_args[0], s["S_cross"], 2 * s["Dh"] * eb, "bf16")),
         ("D", lambda: D.ancestry_decode_attention_i8(*d_args, layer),
-         lambda: D.reference_i8(*d_args, layer), TOL_REQUANT[dtype]),
+         lambda: D.reference_i8(*d_args, layer), TOL_REQUANT[dtype], None,
+         ancestry_work(d_args[0], d_args[3], d_args[6], 2 * n["Dh"] + 8, "int8")),
         ("E", lambda: D.cross_decode_attention_i8(*e_args),
-         lambda: D.cross_reference_i8(*e_args), TOL[dtype]),
+         lambda: D.cross_reference_i8(*e_args), TOL[dtype], None,
+         cross_work(e_args[0], n["S_cross"], 2 * n["Dh"] + 8, "bf16")),
         ("F", lambda: D.ancestry_decode_attention_i4(*f_args, layer),
-         lambda: D.reference_i4(*f_args, layer), TOL_REQUANT[dtype]),
+         lambda: D.reference_i4(*f_args, layer), TOL_REQUANT[dtype], None,
+         ancestry_work(f_args[0], f_args[3], f_args[6], n["Dh"] + 8, "int8")),
     ]
 
 
@@ -269,27 +378,38 @@ def phase_build():
 def phase_kernels():
     record = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for name, kern, plain, tol in kernel_cases(dtype):
-            result = check_and_time(name, dtype, kern, plain, tol)
+        for name, kern, plain, tol, library, work in kernel_cases(dtype):
+            result = check_and_time(name, dtype, kern, plain, tol, library)
             if dtype == torch.bfloat16:
-                record[name] = result
+                record[name] = {**result, **work}
         torch.cuda.empty_cache()
     return record
 
 
-def check_and_time(label, dtype, kern, plain, tol):
+def check_and_time(label, dtype, kern, plain, tol, library=None, scaled=False):
     """Hold a kernel against its plain version, then time both (plain,
-    kernel, kernel, plain); prints one phase-2 line."""
+    kernel, kernel, plain) and, when given, the PyTorch call computing the
+    same function; prints one phase-2 line. A kernel with several outputs
+    (H) is held output by output; ``scaled`` multiplies the tolerance by
+    max(1, the largest |plain| of that output)."""
     got, want = kern(), plain()
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    assert torch.isfinite(got).all(), f"kernel {label} {dtype}: non-finite output"
-    assert err <= tol, f"kernel {label} {dtype}: max|err| {err} > {tol}"
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    err = 0.0
+    for x, y in pairs:
+        assert torch.isfinite(x).all(), f"kernel {label} {dtype}: non-finite output"
+        e = (x.float() - y.float()).abs().max().item()
+        lim = tol * (max(1.0, y.float().abs().max().item()) if scaled else 1.0)
+        assert e <= lim, f"kernel {label} {dtype}: max|err| {e} > {lim}"
+        err = max(err, e)
     t = [time_ms(plain), time_ms(kern), time_ms(kern), time_ms(plain)]
     ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    library_ms = time_ms(library) if library is not None else None
+    lib = f", library {library_ms:.4f} ms" if library is not None else ""
     print(f"phase 2: kernel {label} {str(dtype)[6:]}: max|err| {err:.3e} "
-          f"(tol {tol:g}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          f"(tol {tol:g}{' x scale' if scaled else ''}), kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms{lib}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms}
 
 
 STREAM_ENCODE = [(1, 250), (8, 250), (1, 1000)]  # (B, T after subsampling): 10 s, 8 x 10 s, 40 s
@@ -315,13 +435,16 @@ def phase_causal_kernels():
                 a = check_and_time(f"A-causal B={B} T={T} window={window}", dtype,
                                    lambda: A.flash_attention(q, k, v, kpm, causal=True,
                                                              window=window), plain, TOL[dtype])
+                mask = additive_mask(kpm, T, dtype, True, window)
                 g = check_and_time(f"G B={B} T={T} window={window}", dtype,
                                    lambda: A.causal_skip_attention(q, k, v, kpm, window=window),
-                                   plain, TOL[dtype])
+                                   plain, TOL[dtype], lambda: sdpa(q, k, v, mask))
                 print(f"phase 2: G / A-causal at B={B} T={T} window={window} "
                       f"{str(dtype)[6:]}: {g['ms'] / a['ms']:.3f}")
                 if (B, T, window, dtype) == (1, 250, 0, torch.bfloat16):
-                    record["G"] = g
+                    # window 0: query t attends keys 0..t
+                    record["G"] = {**g, **flash_work(B, T, T, 8, 64, dtype,
+                                                     pairs=B * 8 * T * (T + 1) // 2)}
         c_args = cross_inputs(1, 8, 501, 64, 250, dtype)
         check_and_time("C 501 rows S=250", dtype, lambda: D.cross_decode_attention(*c_args),
                        lambda: D.cross_reference(*c_args), TOL[dtype])
@@ -329,6 +452,78 @@ def phase_causal_kernels():
         check_and_time("E 501 rows S=250", dtype, lambda: D.cross_decode_attention_i8(*e_args),
                        lambda: D.cross_reference_i8(*e_args), TOL[dtype])
         torch.cuda.empty_cache()
+    return record
+
+
+TRAIN_ENCODE = [(8, 250), (2, 1000)]  # encoder rows of the train bench: 8 x 10 s, 2 x 40 s
+
+
+def sdpa_backward(q, k, v, mask, g):
+    """The SDPA backward alone (its graph kept between calls), and its
+    forward + backward, on the same inputs as kernel H."""
+    qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = sdpa(qq, kk, vv, mask)
+
+    def fwd_bwd():
+        return torch.autograd.grad(sdpa(qq, kk, vv, mask), (qq, kk, vv), g)
+
+    return lambda: torch.autograd.grad(out, (qq, kk, vv), g, retain_graph=True), fwd_bwd
+
+
+def phase_train_kernels():
+    """A and G with attention dropout 0.1, and H, against their twins at
+    the train bench's encoder shapes (H=8, D=64, lengths T, T-17, ...),
+    non-causal and causal/window 64 (G), dropout 0 and 0.1 for H; the
+    yardstick is SDPA with the same additive mask at dropout 0 (its
+    dropout draws Philox bits, not the hash). Returns H's record at B=8,
+    T=250, non-causal, dropout 0.1, bf16 (the flagship encoder's
+    training backward).
+
+    Tolerances scale with the largest |plain| output: with dropout a row
+    of few keys puts out up to |v|/(1 − p) > 4, where one bf16 ulp is
+    2^-5 > 2e-2 (and the bf16 twin divides by 1 − p rounded to bf16,
+    0.8984); H's gradients grow with T. The fp32 comparison, 1e-4 times
+    that scale, is what holds the dropout mask itself: one weight dropped
+    on one side only moves an output by ~w·|v|/(1 − p) ≥ 1e-3 here."""
+    from mm_s2ut_torch.ops import attention as A
+
+    record = {}
+    scale = 64 ** -0.5
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, T in TRAIN_ENCODE:
+            q, k, v, kpm = flash_inputs(B, T, 8, 64, dtype, seed=T + 3)
+            g = _randn(q.shape, torch.Generator().manual_seed(T), dtype)
+            bias = torch.zeros(kpm.shape, device="cuda").masked_fill(kpm, A.NEG_INF)
+            for causal, window in ((False, 0), (True, 64)):
+                mask = additive_mask(kpm, T, dtype, causal, window)
+                block_k = 64 if causal else None
+                check_and_time(
+                    f"{'G' if causal else 'A'} dropout 0.1 B={B} T={T} window={window}", dtype,
+                    lambda: A.flash_attention(q, k, v, kpm, causal=causal, window=window,
+                                              dropout_rate=0.1, dropout_seed=DROP_SEED,
+                                              block_k=block_k),
+                    lambda: A.reference_attention(q * scale, k, v, bias[:, None, None, :], causal,
+                                                  window, 0.1, DROP_SEED),
+                    TOL[dtype], lambda: sdpa(q, k, v, mask), scaled=True)
+                bwd_only, fwd_bwd = sdpa_backward(q, k, v, mask, g)
+                for rate in (0.0, 0.1):
+                    seed = DROP_SEED if rate else None
+                    stats = torch.empty((2, B * 8, T), device="cuda")
+                    entry = "mm_flash_attention_causal_skip" if causal else "mm_flash_attention"
+                    out = A._launch(entry, q, k, v, bias, scale, causal, window, rate, seed, stats)
+                    res = check_and_time(
+                        f"H B={B} T={T} window={window if causal else 'none'} dropout {rate}", dtype,
+                        lambda: A.flash_attention_bwd(q, k, v, bias, out, stats, g, scale, causal,
+                                                      window, rate, seed),
+                        lambda: A.reference_attention_bwd(q, k, v, bias, g, scale, causal, window,
+                                                          rate, seed),
+                        TOL[dtype], bwd_only, scaled=True)
+                    if (dtype, B, causal, rate) == (torch.bfloat16, 8, False, 0.1):
+                        record["H"] = {**res, **bwd_work(B, T, 8, 64, dtype)}
+                print(f"phase 2: SDPA forward + backward B={B} T={T} "
+                      f"window={window if causal else 'none'} {str(dtype)[6:]}: "
+                      f"{time_ms(fwd_bwd):.4f} ms")
+            torch.cuda.empty_cache()
     return record
 
 
@@ -841,6 +1036,227 @@ def phase_entry_points(out_dir: Path):
     return off_launches
 
 
+def train_batch(B, T, Tt, vocab=1004, img_tokens=577, seed=0):
+    """A fixed training batch as ``bench.py``'s train bench makes one:
+    random log-mels of T frames, full lengths, random prev tokens and
+    targets, random 577x768 image features."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return {
+        "src_features": rng.randn(B, T, 80).astype(np.float32),
+        "src_lengths": np.full((B,), T, np.int32),
+        "prev_output_tokens": rng.randint(4, vocab, (B, Tt)).astype(np.int32),
+        "target": rng.randint(4, vocab, (B, Tt)).astype(np.int32),
+        "imgs_list": (rng.randn(B, img_tokens, 768).astype(np.float32),),
+        "img_masks_list": (np.zeros((B, img_tokens), bool),),
+    }
+
+
+def phase_train_parity(out_dir: Path):
+    """Three train steps of the small fp32 config with every dropout rate
+    0, TF32 off, on the card and on the CPU from the same weights and
+    batch: the losses within a relative 1e-5 at each step, the first
+    step's gradients within a relative 1e-4 of each tensor's largest
+    (floored at 1e-4, as the CPU test against JAX), and A and H launched
+    once per encoder layer per step on the card."""
+    import copy
+    import dataclasses
+
+    from mm_s2ut_torch.config import Config, TrainConfig
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mcfg = small_config()
+    mcfg = dataclasses.replace(
+        mcfg, dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+        multimodal=dataclasses.replace(mcfg.multimodal, SA_image_dropout=0.0,
+                                       SA_attention_dropout=0.0, modality_dropout=0.0))
+    cfg = Config(model=mcfg, train=TrainConfig(lr=1e-3, warmup_updates=2,
+                                               save_dir=str(out_dir / "train_parity")))
+    model = init_random_(MMS2UTModel(mcfg), torch.Generator().manual_seed(10))
+    batch = train_batch(2, 400, 24, img_tokens=50, seed=10)
+    trainers = {dev: Trainer(cfg, copy.deepcopy(model), dev) for dev in ("cpu", "cuda")}
+    counters = {"A": A.flash_attention, "H": A.flash_attention_bwd}
+    losses = {"cpu": [], "cuda": []}
+    for step in range(3):
+        for dev, trainer in trainers.items():
+            m, _, counts = counted(counters, lambda: trainer.train_batch(batch))
+            losses[dev].append(m["loss"])
+            if dev == "cuda":
+                assert counts == {"A": mcfg.encoder_layers, "H": mcfg.encoder_layers}, counts
+        if step == 0:
+            worst = 0.0
+            for p_cpu, p_card in zip(trainers["cpu"].params, trainers["cuda"].params):
+                if p_cpu.grad is None:  # a parameter the step does not reach
+                    assert p_card.grad is None
+                    continue
+                want, got = p_cpu.grad, p_card.grad.cpu()
+                rel = ((got - want).abs().max() / max(want.abs().max().item(), 1e-4)).item()
+                worst = max(worst, rel)
+            assert worst <= 1e-4, f"step-1 gradients differ: relative {worst}"
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    print(f"phase 10: small fp32 config, 3 train steps card vs CPU: losses card "
+          f"{[round(x, 6) for x in losses['cuda']]} CPU {[round(x, 6) for x in losses['cpu']]} "
+          f"(max relative diff {rel_loss:.2e}, tol 1e-5); step-1 gradients max relative diff "
+          f"{worst:.2e} (tol 1e-4); A and H {mcfg.encoder_layers} launches each per step")
+    assert rel_loss <= 1e-5, "card and CPU losses differ"
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for the runs below
+
+
+def phase_train_bench():
+    """The reference's train bench point at full width (``bench.py:125-191``):
+    B=8 x 1000 frames x 100 targets for 3 + 17 steps, then B=2 x 4000 x
+    200 for 3 + 5. Returns H's launches over the timed B=8 steps."""
+    import numpy as np
+
+    from mm_s2ut_torch.config import Config, ModelConfig, MultimodalConfig, TrainConfig
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel, init_parameters_
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.train.trainer import Trainer, to_device
+
+    mm = MultimodalConfig(image_feat_dim=[768], multimodal_attention_type="selective_attention",
+                          use_selective_gate=True, modality_dropout=0.5, audio_dropout=0.5)
+    mcfg = ModelConfig(vocab_size=1004, dtype="bfloat16", multimodal=mm)  # dropouts 0.1
+    cfg = Config(model=mcfg, train=TrainConfig(update_freq=1, warmup_updates=10,
+                                               label_smoothing=0.2))
+    model = init_parameters_(MMS2UTModel(mcfg), torch.Generator().manual_seed(11))
+    trainer = Trainer(cfg, model, "cuda")
+    n_params = sum(p.numel() for p in trainer.params)
+    counters = {"A": A.flash_attention, "H": A.flash_attention_bwd}
+    h_launches = 0
+    for B, T, Tt, warm, timed_steps in ((8, 1000, 100, 3, 17), (2, 4000, 200, 3, 5)):
+        batch = to_device(train_batch(B, T, Tt), torch.device("cuda"))
+        torch.cuda.reset_peak_memory_stats()
+        metrics = [trainer.train_batch(batch) for _ in range(warm)]
+        torch.cuda.synchronize()
+
+        def run():
+            return [trainer.train_batch(batch) for _ in range(timed_steps)]
+
+        (timed_m, secs), _, counts = counted(counters, lambda: timed(run))
+        metrics += timed_m
+        ms = secs * 1e3 / timed_steps
+        per_step = {k: v / timed_steps for k, v in counts.items()}
+        losses = [m["loss"] / m["ntokens"] for m in metrics]
+        norms = [m["grad_norm"] for m in metrics]
+        assert all(np.isfinite(losses)) and all(np.isfinite(norms)), (losses, norms)
+        assert per_step == {"A": 12.0, "H": 12.0}, per_step
+        print(f"phase 11: train bench, flagship bf16 ({n_params / 1e6:.1f} M params), B={B} "
+              f"T_src={T} Tt={Tt}: {ms:.3f} ms per step over {timed_steps} steps "
+              f"(CUDA-synchronised host clock, {warm} warm-up), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches per step {per_step}")
+        print(f"phase 11: B={B} loss per step {[round(x, 4) for x in losses]}; grad norm "
+              f"{[round(x, 3) for x in norms]}; skipped {sum(m['skipped'] for m in metrics)}")
+        if B == 8:
+            h_launches = counts["H"]
+            assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
+            profile_step(trainer, batch, ms)
+        del batch
+        torch.cuda.empty_cache()
+    return h_launches
+
+
+def profile_step(trainer, batch, step_ms):
+    """One train step under torch.profiler: device time by kernel (the
+    profiler's kernel events only; its CPU ops repeat their kernels' time),
+    the shares of A and H, the hash dropout's elementwise int64 passes, and
+    the device-busy share of an unprofiled step of ``step_ms``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_batch(batch)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    aten_calls = sum(e.count for e in events if e.key.startswith("aten::"))
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    total = sum(dev_us(e) for e in kernels)
+    if total <= 0:
+        print("phase 11: profiled step: the profiler saw no device time (not measured)")
+        return
+    a = sum(dev_us(e) for e in kernels if "flash_fwd_kernel" in e.key)
+    h = sum(dev_us(e) for e in kernels if "attn_bwd" in e.key)
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    print(f"phase 11: profiled B=8 step: {aten_calls} aten calls, {sum(e.count for e in kernels)} "
+          f"kernel launches, device time {total / 1e3:.3f} "
+          f"ms = {total / 1e3 / step_ms:.1%} of an unprofiled step; A {a / 1e3:.3f} ms "
+          f"({a / total:.1%} of device time), H {h / 1e3:.3f} ms ({h / total:.1%}); top kernels "
+          f"{[(e.key[:60], e.count, round(dev_us(e) / 1e3, 3)) for e in top]}")
+
+
+def phase_train_entry(out_dir: Path):
+    """``mm_s2ut_torch.cli.train.main`` on the default device (the card):
+    a synthetic corpus of 8 wavs (1-2 s) with 10x768 image features per
+    utterance, the small config in bf16 with the flagship's dropouts, 6
+    steps with a checkpoint, ``--resume`` to step 8, then
+    ``mm_s2ut_torch.inference`` decodes one wav from that save_dir."""
+    import dataclasses
+
+    import numpy as np
+
+    from mm_s2ut_torch import inference
+    from mm_s2ut_torch.cli import train as train_cli
+    from mm_s2ut_torch.config import (Config, DataConfig, GenerationConfig, TrainConfig,
+                                      save_yaml)
+    from mm_s2ut_torch.data.audio_io import write_wav
+    from mm_s2ut_torch.data.manifest import ManifestRow, write_manifest
+    from mm_s2ut_torch.ops import attention as A
+
+    root = out_dir / "train_entry"
+    (root / "img_feat").mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(12)
+    rows = []
+    for i in range(8):
+        n = 16000 + 2000 * i
+        write_wav(root / f"{i + 1}.wav", (0.3 * rng.randn(n)).astype(np.float32), 16000)
+        units = " ".join(str(u) for u in rng.randint(0, 1000, 10 + i))
+        rows.append(ManifestRow(str(i), f"{i + 1}.wav", n, units, 10 + i))
+    write_manifest(root / "train.tsv", rows)
+    write_manifest(root / "valid.tsv", rows[:4])
+    for split in ("train", "valid"):
+        np.save(root / "img_feat" / f"{split}.npy", rng.randn(8, 10, 768).astype(np.float32))
+    np.save(root / "img1.npy", np.load(root / "img_feat" / "train.npy")[0])
+    mcfg = dataclasses.replace(small_config(), dtype="bfloat16")
+    mcfg.multimodal.image_feat_path = [str(root / "img_feat")]
+    save = root / "ckpt"
+    cfg = Config(model=mcfg,
+                 data=DataConfig(data_root=str(root), audio_root=str(root), max_tokens=800,
+                                 num_buckets=1),
+                 train=TrainConfig(max_update=6, save_interval_updates=3, log_interval=1,
+                                   warmup_updates=3, save_dir=str(save)),
+                 generation=GenerationConfig(beam=2, max_len_a=0.0, max_len_b=10))
+    save_yaml(cfg, root / "run.yaml")  # YAML reads JSON's 1e-07 as a string
+    counters = {"A": A.flash_attention, "H": A.flash_attention_bwd}
+    rc, secs, launches = counted(counters, lambda: train_cli.main(["--config",
+                                                                   str(root / "run.yaml")]))
+    assert rc == 0 and all(v > 0 for v in launches.values()), launches
+    for f in ("config.yaml", "params.npz", "optim.pt", "logs/metrics.csv"):
+        assert (save / f).exists(), f
+    assert torch.load(save / "optim.pt", weights_only=True)["step"] == 6
+    rc, resume_s, _ = counted(counters, lambda: train_cli.main(
+        ["--config", str(root / "run.yaml"), "--resume", "train.max_update=8"]))
+    assert rc == 0 and torch.load(save / "optim.pt", weights_only=True)["step"] == 8
+    assert inference.main(["--model_path", str(save), "--audio_path", str(root / "1.wav"),
+                           "--image_path", str(root / "img1.npy"),
+                           "--output_dir", str(root / "out")]) == 0
+    # 8 steps on random targets may leave EOS the best first token: the
+    # hypothesis can be empty, the files must be there.
+    units = (root / "out" / "1.unit").read_text().split()
+    assert all(0 <= int(u) < 1000 for u in units)
+    assert "H-0" in (root / "out" / "generate-test.txt").read_text()
+    print(f"phase 12: cli.train on the default device: 6 steps in {secs:.2f} s (launches "
+          f"{launches}), --resume to step 8 in {resume_s:.2f} s; save_dir holds config.yaml, "
+          f"params.npz, optim.pt, logs/metrics.csv; inference decoded {len(units)} units")
+
+
 KERNELS = {  # name, source, the TPU kernel it replaces
     "A": ("flash_attention", "mm_s2ut_torch/csrc/flash_attention.cu",
           "mm_s2ut/ops/attention.py:140"),
@@ -856,6 +1272,8 @@ KERNELS = {  # name, source, the TPU kernel it replaces
           "mm_s2ut/ops/decode_attention.py:291"),
     "G": ("causal_skip_attention", "mm_s2ut_torch/csrc/flash_attention.cu",
           "mm_s2ut/ops/attention.py:194"),
+    "H": ("flash_attention_bwd", "mm_s2ut_torch/csrc/flash_attention_bwd.cu",
+          "mm_s2ut/ops/attention.py:377"),
 }
 
 
@@ -877,6 +1295,7 @@ def main(argv=None) -> int:
     phase_build()
     record = phase_kernels()
     record.update(phase_causal_kernels())
+    record.update(phase_train_kernels())
     phase_small_parity()
     model, vocoder, gen = flagship()
     launches = phase_main_path(model, vocoder, gen, Path(args.out))
@@ -888,6 +1307,9 @@ def main(argv=None) -> int:
     phase_stream_parity()
     launches["G"] = phase_streaming()["G"]
     phase_entry_points(Path(args.out))
+    phase_train_parity(Path(args.out))
+    launches["H"] = phase_train_bench()
+    phase_train_entry(Path(args.out))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -2,12 +2,12 @@
 
 The dataclasses and yaml keys are those of ``mm_s2ut/config.py``
 (``ModelConfig``, ``MultimodalConfig``, ``GenerationConfig``,
-``DataConfig``), so one ``config.yaml`` drives either package. Only the
-sections the inference path reads are typed here; the ``train`` and
-``mesh`` sections of a Trainer yaml are kept as untyped extras.
+``DataConfig``, ``TrainConfig``), so one ``config.yaml`` drives either
+package. The ``mesh`` section of a Trainer yaml is kept as an untyped
+extra (the port trains on one card) and written back by :func:`save_yaml`.
 
-``yaml`` is imported inside :func:`load_yaml` only: PyYAML is not a
-dependency of the port's kernels or models.
+``yaml`` is imported inside :func:`load_yaml` and :func:`save_yaml` only:
+PyYAML is not a dependency of the port's kernels or models.
 """
 from __future__ import annotations
 
@@ -187,10 +187,40 @@ class GenerationConfig:
 
 
 @dataclass
+class TrainConfig:
+    lr: float = 5e-4
+    warmup_updates: int = 10000
+    warmup_init_lr: float = 1e-7
+    lr_scheduler: str = "inverse_sqrt"
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.98
+    adam_eps: float = 1e-8
+    weight_decay: float = 0.0
+    clip_norm: float = 10.0
+    update_freq: int = 1
+    max_update: int = 400000
+    label_smoothing: float = 0.2
+    rdrop_alpha: float = 0.0
+    seed: int = 1
+    save_dir: str = "checkpoints"
+    save_interval_updates: int = 1000
+    keep_last_checkpoints: int = 5
+    log_interval: int = 100
+    best_checkpoint_metric: str = "loss"
+    maximize_best_checkpoint_metric: bool = False
+    freezing_updates: int = 0
+    eval_inference: bool = False
+    eval_vocoder_path: str = ""
+    eval_vocoder_cfg: str = ""
+    checkpoint_activations: bool = False
+
+
+@dataclass
 class Config:
     task: str = "multimodal_speech_to_speech"
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     generation: GenerationConfig = field(default_factory=GenerationConfig)
 
 
@@ -225,6 +255,27 @@ def load_yaml(path: str | Path) -> dict:
 
     with open(path) as f:
         return yaml.safe_load(f) or {}
+
+
+def to_dict(cfg: Any) -> dict:
+    """A config dataclass as a plain dict, its untyped extras included."""
+    out = {}
+    for f in dataclasses.fields(cfg):
+        value = getattr(cfg, f.name)
+        if dataclasses.is_dataclass(value):
+            value = to_dict(value)
+        elif isinstance(value, list):
+            value = [to_dict(v) if dataclasses.is_dataclass(v) else v for v in value]
+        out[f.name] = value
+    out.update(getattr(cfg, "_extra", {}))
+    return out
+
+
+def save_yaml(cfg: Any, path: str | Path) -> None:
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(to_dict(cfg), f, sort_keys=False)
 
 
 def load_config(path: str | Path) -> Config:

@@ -27,6 +27,26 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
+// Attention dropout: the reference's counter hash (mm_s2ut/ops/attention.py
+// _mix, dropout_keep) of the absolute coordinates (bh = b.H + h, query t,
+// key s) and a per-call seed, in uint32 arithmetic that wraps as JAX's does.
+// Weight (bh, t, s) is kept iff the top 24 bits, as a float in [0, 1), are
+// >= the rate (a float32, as JAX's weak typing compares it).
+__device__ __forceinline__ uint32_t hash_mix(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ __forceinline__ bool hash_keep(uint32_t bh, uint32_t t, uint32_t s, uint32_t seed,
+                                          float rate) {
+  const uint32_t h = hash_mix((t * 0x27D4EB2Fu) ^ (s * 0x85EBCA6Bu) ^ (bh * 0xC2B2AE35u) ^ seed);
+  return (float)(int)(h >> 8) * (1.0f / 16777216.0f) >= rate;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

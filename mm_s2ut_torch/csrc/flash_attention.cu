@@ -1,4 +1,4 @@
-// Kernels A and G — encoder self-attention forward (no dropout).
+// Kernels A and G — encoder self-attention forward, with attention dropout.
 //
 // Kernel A replaces the Pallas TPU kernel mm_s2ut/ops/attention.py:_attn_kernel,
 // launched by _flash_call (pallas_call at attention.py:362) and reached
@@ -52,6 +52,18 @@
 // the encoder masks downstream, so this costs only blocks that hold them.
 // Band and skipped tiles go through one loop, so the tile code is
 // generated once.
+//
+// Dropout (training; attention.py:173-186 and :239-247): the reference
+// multiplies the NORMALISED weights by keep / (1 - rate), with keep the
+// counter hash of (bh, t, s) and a per-call seed (common.cuh hash_keep).
+// The mask is a factor, so the online softmax stays exact when l_run sums
+// the unmasked p and acc sums p . keep / (1 - rate). The rate is a runtime
+// argument (a launch with rate > 0 branches uniformly), so dropout adds no
+// kernel instance. When the caller needs a gradient, each row's final
+// running max m and denominator l go to stat_m / stat_l (B.H, T) for kernel
+// H, which recomputes P = exp(logit - m) / l with the same logits: a row
+// whose logits are all -1e9 keeps l = (its key count) there, where a
+// log-sum-exp m + log(l) would round back to -1e9 and lose it.
 #include "common.cuh"
 
 namespace mm {
@@ -73,6 +85,11 @@ struct FlashArgs {
   int64_t v_sb, v_st, v_sh;
   float scale;
   int window;  // with a causal mask: keys s > t - window only (0 = unbounded)
+  float rate;      // attention dropout rate (0 = none)
+  float inv_keep;  // 1 / (1 - rate), rounded to float as JAX's weak typing does
+  uint32_t seed;
+  float* stat_m;  // (B.H, T) row max, or nullptr
+  float* stat_l;  // (B.H, T) row denominator, or nullptr
 };
 
 // One key tile [s0, s0 + BK) into the running softmax of query row t.
@@ -129,8 +146,19 @@ __device__ __forceinline__ void visit_tile(
   for (int d = 0; d < HALF; ++d) acc[d] *= alpha;
 #pragma unroll
   for (int j = 0; j < BK; ++j) {
-    const float p = expf(sc[j] - m_new);  // 0 past the key edge
-    l_run += p;
+    sc[j] = expf(sc[j] - m_new);  // 0 past the key edge
+    l_run += sc[j];
+  }
+  // Dropout touches the weights alone, in a loop of its own, so the
+  // accumulation below is the same code with and without it.
+  if (a.rate > 0.f) {
+#pragma unroll
+    for (int j = 0; j < BK; ++j)
+      sc[j] = hash_keep(blockIdx.x, t, s0 + j, a.seed, a.rate) ? sc[j] * a.inv_keep : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < BK; ++j) {
+    const float p = sc[j];
     const float4* vr = reinterpret_cast<const float4*>(&vs[j][part * HALF]);
 #pragma unroll
     for (int d4 = 0; d4 < HALF / 4; ++d4) {
@@ -198,6 +226,10 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashArg
       n_visits = n_tiles;
   }
 
+  if (row_ok && a.stat_m != nullptr && part == 0) {
+    a.stat_m[(int64_t)bh * a.T + t] = m_run;
+    a.stat_l[(int64_t)bh * a.T + t] = l_run;
+  }
   if (row_ok) {
     const float inv = 1.f / l_run;
     T* op = static_cast<T*>(a.out) + (((int64_t)b * a.T + t) * a.H + h) * D + part * HALF;
@@ -237,15 +269,20 @@ int dispatch_dtype(int dtype, int D, const FlashArgs& a, int B, cudaStream_t st)
 // C entries: each returns cudaGetLastError() after its launch (0 on success).
 
 // Kernel A: every key tile; the causal/window mask when ``causal`` != 0.
+// ``rate`` > 0: attention dropout with ``seed``; non-null ``stat_m`` /
+// ``stat_l``: each row's softmax max and denominator for kernel H.
 extern "C" int mm_flash_attention(
     int dtype, const void* q, const void* k, const void* v, const void* bias,
     void* out, int B, int T, int S, int H, int D,
     int64_t q_sb, int64_t q_st, int64_t q_sh,
     int64_t k_sb, int64_t k_st, int64_t k_sh,
     int64_t v_sb, int64_t v_st, int64_t v_sh,
-    float scale, int causal, int window, void* stream) {
+    float scale, int causal, int window, double rate, unsigned int seed,
+    float* stat_m, float* stat_l, void* stream) {
+  if (!(rate >= 0.0 && rate < 1.0)) return (int)cudaErrorInvalidValue;
   const mm::FlashArgs a{q, k, v, static_cast<const float*>(bias), out, T, S, H,
-                        q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window};
+                        q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window,
+                        (float)rate, (float)(1.0 / (1.0 - rate)), seed, stat_m, stat_l};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return causal ? mm::dispatch_dtype<true, false>(dtype, D, a, B, st)
                 : mm::dispatch_dtype<false, false>(dtype, D, a, B, st);
@@ -258,9 +295,12 @@ extern "C" int mm_flash_attention_causal_skip(
     int64_t q_sb, int64_t q_st, int64_t q_sh,
     int64_t k_sb, int64_t k_st, int64_t k_sh,
     int64_t v_sb, int64_t v_st, int64_t v_sh,
-    float scale, int causal, int window, void* stream) {
+    float scale, int causal, int window, double rate, unsigned int seed,
+    float* stat_m, float* stat_l, void* stream) {
   if (!causal || T > S) return (int)cudaErrorInvalidValue;
+  if (!(rate >= 0.0 && rate < 1.0)) return (int)cudaErrorInvalidValue;
   const mm::FlashArgs a{q, k, v, static_cast<const float*>(bias), out, T, S, H,
-                        q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window};
+                        q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window,
+                        (float)rate, (float)(1.0 / (1.0 - rate)), seed, stat_m, stat_l};
   return mm::dispatch_dtype<true, true>(dtype, D, a, B, static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,138 @@
+"""Speech-to-unit dataset and collation (numpy only).
+
+A copy of ``mm_s2ut/data/dataset.py`` trimmed to what the port's task
+runs: ``SpeechToSpeechDataset.from_tsv`` (manifest, unit targets, image
+features by ``int(stem(audio)) - 1``), ``__getitem__`` and ``collate``
+(bucket-padded numpy batches sorted by source length, descending;
+``prev_output_tokens`` = EOS or the target lang tag, then the target
+shifted right). Waveforms stay waveforms: the task's device fbank turns
+them into log-mels. Not carried over (the task raises when they are
+configured): noise mixing, the native C++ loader, raw-image stores,
+speaker embeddings and n_frames_per_step > 1 packing.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from mm_s2ut_torch.config import DataConfig, MultimodalConfig
+from mm_s2ut_torch.data.audio_io import get_waveform
+from mm_s2ut_torch.data.dictionary import Dictionary
+from mm_s2ut_torch.data.image_store import ImageFeatureStore, audio_stem_to_image_index
+from mm_s2ut_torch.data.manifest import ManifestRow, read_manifest
+
+
+@dataclass
+class S2SItem:
+    index: int
+    id: str
+    source: np.ndarray  # (S,) float32 waveform
+    target: np.ndarray  # (Lt,) unit ids incl. EOS
+    tgt_lang_tag: Optional[int]
+    imgs: List[np.ndarray]
+    img_masks: List[Optional[np.ndarray]]
+
+
+class SpeechToSpeechDataset:
+    def __init__(self, split: str, is_train: bool, data_cfg: DataConfig,
+                 rows: Sequence[ManifestRow], tgt_dict: Dictionary,
+                 image_stores: Sequence[ImageFeatureStore] = ()):
+        self.split = split
+        self.is_train = is_train
+        self.cfg = data_cfg
+        self.rows = list(rows)
+        self.tgt_dict = tgt_dict
+        self.image_stores = list(image_stores)
+
+    @classmethod
+    def from_tsv(cls, root: str | Path, split: str, data_cfg: DataConfig, tgt_dict: Dictionary,
+                 mm_cfg: Optional[MultimodalConfig] = None,
+                 is_train: Optional[bool] = None) -> "SpeechToSpeechDataset":
+        rows = read_manifest(Path(root) / f"{split}.tsv")
+        is_train = split.startswith("train") if is_train is None else is_train
+        stores = [
+            ImageFeatureStore.for_split(feat_root, split)
+            for feat_root in (mm_cfg.image_feat_path if mm_cfg is not None else ())
+        ]
+        return cls(split, is_train, data_cfg, rows, tgt_dict, stores)
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def num_frames(self, index: int) -> int:
+        return self.rows[index].src_n_frames
+
+    def num_target_frames(self, index: int) -> int:
+        return self.rows[index].tgt_n_frames
+
+    def __getitem__(self, index: int) -> S2SItem:
+        row = self.rows[index]
+        path = row.src_audio
+        if self.cfg.audio_root and not os.path.isabs(path):
+            path = os.path.join(self.cfg.audio_root, path)
+        wav, _ = get_waveform(path, use_sample_rate=self.cfg.sample_rate)
+        target = self.tgt_dict.encode_line(row.tgt_text, append_eos=True).astype(np.int64)
+        tgt_lang_tag = None
+        if self.cfg.prepend_tgt_lang_tag_as_bos and row.tgt_lang:
+            tag = row.tgt_lang if row.tgt_lang.startswith("<lang:") else f"<lang:{row.tgt_lang}>"
+            tgt_lang_tag = self.tgt_dict.index(tag)
+        imgs: List[np.ndarray] = []
+        masks: List[Optional[np.ndarray]] = []
+        if self.image_stores:
+            img_idx = audio_stem_to_image_index(row.src_audio)
+            for store in self.image_stores:
+                feat, mask = store[img_idx]
+                imgs.append(np.asarray(feat, np.float32))
+                masks.append(None if mask is None else np.asarray(mask, bool))
+        return S2SItem(index, row.id, wav.astype(np.float32), target, tgt_lang_tag, imgs, masks)
+
+    def collate(self, items: Sequence[S2SItem], src_pad: Optional[int] = None,
+                tgt_pad: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """Pad + sort descending by source length; ``src_pad``/``tgt_pad``
+        fix the padded shapes (bucketing), default the batch maximum."""
+        order = np.argsort([-len(it.source) for it in items], kind="stable")
+        items = [items[i] for i in order]
+        B = len(items)
+        S = src_pad or max(len(it.source) for it in items)
+        src = np.zeros((B, S), np.float32)
+        src_lengths = np.zeros((B,), np.int32)
+        for i, it in enumerate(items):
+            n = min(len(it.source), S)
+            src[i, :n] = it.source[:n]
+            src_lengths[i] = n
+
+        pad_id, eos_id = self.tgt_dict.pad(), self.tgt_dict.eos()
+        L = tgt_pad or max(len(it.target) for it in items)
+        target = np.full((B, L), pad_id, np.int32)
+        prev = np.full((B, L), pad_id, np.int32)
+        target_lengths = np.zeros((B,), np.int32)
+        for i, it in enumerate(items):
+            n = min(len(it.target), L)
+            target[i, :n] = it.target[:n]
+            prev[i, 0] = it.tgt_lang_tag if it.tgt_lang_tag is not None else eos_id
+            prev[i, 1:n] = it.target[: n - 1]
+            target_lengths[i] = n
+        batch: Dict[str, np.ndarray] = {
+            "id": np.asarray([it.index for it in items], np.int64),
+            "src_features": src,  # waveforms; the task's device fbank converts them
+            "src_lengths": src_lengths,
+            "prev_output_tokens": prev,
+            "target": target,
+            "target_lengths": target_lengths,
+            "ntokens": np.asarray(target_lengths.sum(), np.int64),
+            "nsentences": np.asarray(B, np.int64),
+        }
+        if items[0].imgs:
+            imgs, masks = [], []
+            for k in range(len(items[0].imgs)):
+                imgs.append(np.stack([it.imgs[k] for it in items]))
+                masks.append(np.stack([it.img_masks[k] for it in items])
+                             if items[0].img_masks[k] is not None
+                             else np.zeros((B, imgs[k].shape[1]), bool))
+            batch["imgs_list"] = tuple(imgs)
+            batch["img_masks_list"] = tuple(masks)
+        return batch

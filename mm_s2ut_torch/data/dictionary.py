@@ -1,12 +1,13 @@
 """Unit vocabulary with the fairseq special-token layout (numpy only).
 
-A copy of ``mm_s2ut/data/dictionary.py`` (the part the inference CLI
-reads): ids ``<s>=0, <pad>=1, </s>=2, <unk>=3``, then unit ``k`` at id
-``k + 4``.
+A copy of ``mm_s2ut/data/dictionary.py``: ids ``<s>=0, <pad>=1, </s>=2,
+<unk>=3``, then unit ``k`` at id ``k + 4``, then any ``<lang:xx>`` tags;
+``Dictionary.load`` reads a fairseq ``dict.txt``.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from pathlib import Path
+from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 
@@ -31,6 +32,16 @@ class Dictionary:
         self.symbols.append(word)
         return idx
 
+    @classmethod
+    def load(cls, path: str | Path) -> "Dictionary":
+        """A fairseq-format ``dict.txt`` (one "symbol count" per line)."""
+        d = cls()
+        for line in Path(path).read_text().splitlines():
+            line = line.strip()
+            if line:
+                d.add_symbol(line.rsplit(" ", 1)[0])
+        return d
+
     def __len__(self) -> int:
         return len(self.symbols)
 
@@ -39,6 +50,15 @@ class Dictionary:
 
     def index(self, word: str) -> int:
         return self.indices.get(word, self.unk_index)
+
+    def bos(self) -> int:
+        return self.bos_index
+
+    def pad(self) -> int:
+        return self.pad_index
+
+    def eos(self) -> int:
+        return self.eos_index
 
     def encode_line(self, line: str, append_eos: bool = True) -> np.ndarray:
         ids = [self.index(w) for w in line.split()]
@@ -55,13 +75,15 @@ class Dictionary:
 
 
 class UnitDictionary(Dictionary):
-    """Dictionary over discrete acoustic units "0".."K-1" (unit k at id k+4)."""
+    """Dictionary over discrete acoustic units "0".."K-1" (unit k at id
+    k+4), then the given lang tags."""
 
-    def __init__(self, n_units: int = 1000):
+    def __init__(self, n_units: int = 1000, lang_tags: Optional[Iterable[str]] = None):
         super().__init__()
         self.n_units = n_units
         for k in range(n_units):
             self.add_symbol(str(k))
+        self.lang_tags = {tag: self.add_symbol(tag) for tag in lang_tags or ()}
 
     def ids_to_units(self, ids: Sequence[int]) -> np.ndarray:
         """vocab id -> unit index, dropping specials/lang-tags."""

@@ -1,6 +1,6 @@
 """TSV manifest reader (stdlib only).
 
-A copy of the reader in ``mm_s2ut/data/manifest.py``. Mandatory columns:
+A copy of the reader and writer in ``mm_s2ut/data/manifest.py``. Mandatory columns:
 ``id, src_audio, src_n_frames, tgt_text, tgt_n_frames``; optional
 ``src_lang, tgt_lang``.
 """
@@ -53,3 +53,16 @@ def read_manifest(path: str | Path) -> List[ManifestRow]:
                 },
             ))
     return rows
+
+
+def write_manifest(path: str | Path, rows: List[ManifestRow]) -> None:
+    has_lang = any(r.src_lang or r.tgt_lang for r in rows)
+    fields = list(MANDATORY) + (["src_lang", "tgt_lang"] if has_lang else [])
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f, delimiter="\t", lineterminator="\n")
+        w.writerow(fields)
+        for r in rows:
+            rec = [r.id, r.src_audio, r.src_n_frames, r.tgt_text, r.tgt_n_frames]
+            if has_lang:
+                rec += [r.src_lang, r.tgt_lang]
+            w.writerow(rec)

@@ -1,6 +1,9 @@
 """Autoregressive unit decoder with a beam-shared, ancestry-indexed cache.
 
-Port of the incremental-decoding half of ``mm_s2ut/models/decoder.py``
+Port of ``mm_s2ut/models/decoder.py``: the teacher-forced ``forward`` of
+training (causal dense self-attention, dense cross-attention, embedding
+dropout, tied output; plain PyTorch, as the reference's einsums) and the
+incremental decoding
 (``StackedEmbedding`` with n_frames_per_step = 1, ``UnitDecoder.init_state``
 for a bf16/fp32, int8 or int4 cache, ``step``, ``_step_core``, the
 ancestry branch of ``_self_attn_step``, and ``prefill`` for streaming's
@@ -31,7 +34,9 @@ from torch import nn
 from mm_s2ut_torch.models.layers import (
     SinusoidalPositionalEmbedding,
     TransformerDecoderLayer,
+    compute_dtype,
     layer_norm,
+    make_causal_bias,
     make_padding_bias,
 )
 from mm_s2ut_torch.ops.decode_attention import (
@@ -39,6 +44,7 @@ from mm_s2ut_torch.ops.decode_attention import (
     ancestry_decode_attention_i4,
     ancestry_decode_attention_i8,
 )
+from mm_s2ut_torch.ops.dropout import BernoulliDropout
 
 DecoderState = Dict[str, Any]
 
@@ -74,8 +80,12 @@ class StackedEmbedding(nn.Module):
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """Output projection sharing the input table; fp32 logits from the
-        working-dtype operands, as the reference's preferred_element_type."""
-        return torch.matmul(x.float(), self.embed_tokens.weight.float().t())
+        operands rounded to the compute dtype, as the reference's
+        preferred_element_type."""
+        dt = compute_dtype(x)
+        with torch.autocast(x.device.type, enabled=False):
+            w = self.embed_tokens.weight.to(dt).float()
+            return torch.matmul(x.to(dt).float(), w.t())
 
 
 class UnitDecoder(nn.Module):
@@ -86,6 +96,9 @@ class UnitDecoder(nn.Module):
         ffn_dim: int = 2048,
         num_layers: int = 6,
         num_heads: int = 8,
+        dropout: float = 0.0,
+        attention_dropout: float = 0.0,
+        activation_dropout: float = 0.0,
     ):
         super().__init__()
         self.embed_dim = embed_dim
@@ -93,10 +106,27 @@ class UnitDecoder(nn.Module):
         self.num_heads = num_heads
         self.embed = StackedEmbedding(vocab_size, embed_dim)
         self.pos = SinusoidalPositionalEmbedding(embed_dim)
+        self.drop = BernoulliDropout(dropout)
         for i in range(num_layers):
-            self.add_module(f"layer{i}", TransformerDecoderLayer(embed_dim, ffn_dim, num_heads))
+            self.add_module(f"layer{i}", TransformerDecoderLayer(
+                embed_dim, ffn_dim, num_heads, dropout, attention_dropout, activation_dropout))
         self.final_norm = layer_norm(embed_dim)
         self.embed_scale = math.sqrt(embed_dim)
+
+    def forward(
+        self,
+        prev_tokens: torch.Tensor,  # (B, T) teacher-forced inputs
+        encoder_out: torch.Tensor,  # (B, S, D)
+        encoder_padding_mask: Optional[torch.Tensor] = None,  # (B, S) True = pad
+    ) -> torch.Tensor:
+        """Teacher-forced pass (training): (B, T, V) fp32 logits."""
+        x = self.drop(self.pos(self.embed(prev_tokens) * self.embed_scale))
+        self_bias = make_causal_bias(prev_tokens.shape[1], x.device)
+        cross_bias = (make_padding_bias(encoder_padding_mask, torch.float32)
+                      if encoder_padding_mask is not None else None)
+        for layer in self.layers:
+            x = layer(x, encoder_out, self_bias, cross_bias)
+        return self.embed.attend(self.final_norm(x))
 
     @property
     def layers(self) -> List[TransformerDecoderLayer]:

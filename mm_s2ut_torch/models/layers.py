@@ -1,13 +1,21 @@
 """Transformer building blocks of the port.
 
-Port of ``mm_s2ut/models/layers.py`` for the inference paths:
-sinusoidal positions, the cache-free self-attention (kernel A, or G
-under a causal mask), the
-decode-time packed cross-attention (kernel C, or E over an int8 slab)
-and its K/V precompute,
-the ReLU feed-forward block, pre-norm encoder and decoder layers, the
-conv subsampler and the mask helpers (the flagship's choices; other
-activations and post-norm are not ported, see ``models/mm_s2ut.py``).
+Port of ``mm_s2ut/models/layers.py``: sinusoidal positions, the
+cache-free self-attention (kernel A, or G under a causal mask; kernel H
+in its backward), the dense attention of the teacher-forced decoder
+(plain einsums, as in the reference), the decode-time packed
+cross-attention (kernel C, or E over an int8 slab) and its K/V
+precompute, the ReLU feed-forward block, pre-norm encoder and decoder
+layers, the conv subsampler and the mask helpers (the flagship's
+choices; other activations and post-norm are not ported, see
+``models/mm_s2ut.py``).
+
+Training mode (``module.train()``) turns on the reference's dropouts:
+hash dropout on the residual branches and the activations, attention
+dropout inside A/G/H for the encoder, Bernoulli dropout on the dense
+attention weights (``ops/dropout.py``). Under ``torch.autocast`` the
+logits and the tied output projection stay fp32 from operands rounded to
+the compute dtype, as the reference's ``preferred_element_type``.
 
 Submodule names mirror the flax parameter tree (``self_attn.q_proj``,
 ``ffn.fc1``, ``subsampler.conv0`` …) so that ``convert.from_flax`` maps
@@ -26,6 +34,7 @@ from torch import nn
 
 from mm_s2ut_torch.ops.attention import flash_attention
 from mm_s2ut_torch.ops.decode_attention import cross_decode_attention, cross_decode_attention_i8
+from mm_s2ut_torch.ops.dropout import BernoulliDropout, DropoutRng, HashDropout, need_rng
 
 NEG_INF = -1e9  # additive mask value
 # Any integer routes causal self-attention to kernel G (key-tile skipping);
@@ -36,6 +45,25 @@ LN_EPS = 1e-6  # flax nn.LayerNorm default
 
 def layer_norm(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=LN_EPS)
+
+
+def compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """The dtype matmuls run in: autocast's when it is on, else ``t``'s."""
+    dev = t.device.type
+    return torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else t.dtype
+
+
+def fp32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fp32 einsum of the operands as they are (autocast would round the
+    product to its dtype)."""
+    with torch.autocast(a.device.type, enabled=False):
+        return torch.einsum(eq, a.float(), b.float())
+
+
+def make_causal_bias(t: int, device) -> torch.Tensor:
+    """(1, 1, T, T) additive causal bias."""
+    allowed = torch.tril(torch.ones((t, t), dtype=torch.bool, device=device))
+    return torch.zeros((t, t), device=device).masked_fill(~allowed, NEG_INF)[None, None]
 
 
 def make_padding_bias(padding_mask: torch.Tensor, dtype) -> torch.Tensor:
@@ -71,24 +99,28 @@ class SinusoidalPositionalEmbedding(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """q/k/v/out projections with the two attention forms the inference
-    path runs: cache-free self-attention (encoder, kernel A) and
-    cross-attention over a precomputed packed K‖V slab (decoder, kernel C,
-    or E when the slab is int8).
-    The decoder's incremental self-attention lives in
+    """q/k/v/out projections with three attention forms: cache-free
+    self-attention (encoder, kernel A; attention dropout in-kernel in
+    training), dense attention (the teacher-forced decoder; Bernoulli
+    dropout on the weights in training) and cross-attention over a
+    precomputed packed K‖V slab (decoder, kernel C, or E when the slab is
+    int8). The decoder's incremental self-attention lives in
     ``UnitDecoder._self_attn_step`` (kernel B), as in the reference."""
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError("embed_dim must divide num_heads")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
+        self.dropout = dropout
         self.q_proj = nn.Linear(embed_dim, embed_dim)
         self.k_proj = nn.Linear(embed_dim, embed_dim)
         self.v_proj = nn.Linear(embed_dim, embed_dim)
         self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.drop = BernoulliDropout(dropout)
+        self.rng: Optional[DropoutRng] = None  # seeds of the in-kernel dropout
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         b, t, _ = x.shape
@@ -99,14 +131,32 @@ class MultiHeadAttention(nn.Module):
         causal: bool = False, window: int = 0,
     ) -> torch.Tensor:
         """Self-attention over ``query`` (B, T, E) with a key-padding mask;
-        ``causal`` (+ ``window``) masks position-causally, through kernel G."""
+        ``causal`` (+ ``window``) masks position-causally, through kernel G.
+        In training, attention dropout with a fresh seed per call."""
         q = self._split(self.q_proj(query))
         k = self._split(self.k_proj(query))
         v = self._split(self.v_proj(query))
+        rate = self.dropout if self.training else 0.0
         out = flash_attention(
             q, k, v, key_padding_mask=key_padding_mask, causal=causal, window=window,
-            block_k=CAUSAL_BLOCK_K if causal else None,
+            block_k=CAUSAL_BLOCK_K if causal else None, dropout_rate=rate,
+            dropout_seed=need_rng(self).next_seed() if rate > 0.0 else None,
         )
+        return self.out_proj(out.reshape(*query.shape[:2], self.embed_dim))
+
+    def dense(self, query: torch.Tensor, key: torch.Tensor,
+              bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """The reference's dense path: softmax(q.kᵀ/√Dh + bias) over ``key``
+        (B, S, E) with fp32 logits, weights in the compute dtype (dropped in
+        training), then · v. Plain PyTorch, as the reference's einsums."""
+        q = self._split(self.q_proj(query)) * self.head_dim ** -0.5
+        k = self._split(self.k_proj(key))
+        v = self._split(self.v_proj(key))
+        logits = fp32_einsum("bqhd,bkhd->bhqk", q, k)
+        if bias is not None:
+            logits = logits + bias.float()
+        weights = self.drop(torch.softmax(logits, dim=-1).to(q.dtype))
+        out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
         return self.out_proj(out.reshape(*query.shape[:2], self.embed_dim))
 
     def precompute_kv(
@@ -156,46 +206,62 @@ class MultiHeadAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, embed_dim: int, ffn_dim: int):
+    """fc2(drop(relu(fc1(x)))), hash dropout on the activation in training."""
+
+    def __init__(self, embed_dim: int, ffn_dim: int, activation_dropout: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(embed_dim, ffn_dim)
         self.fc2 = nn.Linear(ffn_dim, embed_dim)
+        self.drop = HashDropout(activation_dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.relu(self.fc1(x)))
+        return self.fc2(self.drop(F.relu(self.fc1(x))))
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Pre-norm: x + attn(LN(x)), then x + ffn(LN(x)); ``causal`` (+
-    ``window``) makes the self-attention position-causal."""
+    """Pre-norm: x + drop(attn(LN(x))), then x + drop(ffn(LN(x)));
+    ``causal`` (+ ``window``) makes the self-attention position-causal."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
-                 causal: bool = False, window: int = 0):
+                 causal: bool = False, window: int = 0, dropout: float = 0.0,
+                 attention_dropout: float = 0.0, activation_dropout: float = 0.0):
         super().__init__()
         self.causal, self.window = causal, window
         self.self_attn_layer_norm = layer_norm(embed_dim)
         self.final_layer_norm = layer_norm(embed_dim)
-        self.self_attn = MultiHeadAttention(embed_dim, num_heads)
-        self.ffn = FeedForward(embed_dim, ffn_dim)
+        self.self_attn = MultiHeadAttention(embed_dim, num_heads, attention_dropout)
+        self.ffn = FeedForward(embed_dim, ffn_dim, activation_dropout)
+        self.drop = HashDropout(dropout)
 
     def forward(self, x: torch.Tensor, key_padding_mask: torch.Tensor) -> torch.Tensor:
         h = self.self_attn(self.self_attn_layer_norm(x), key_padding_mask, self.causal, self.window)
-        x = x + h
-        return x + self.ffn(self.final_layer_norm(x))
+        x = x + self.drop(h)
+        return x + self.drop(self.ffn(self.final_layer_norm(x)))
 
 
 class TransformerDecoderLayer(nn.Module):
-    """Parameters of one decoder layer; the incremental step that uses
-    them is ``UnitDecoder._step_core``."""
+    """One pre-norm decoder layer. :meth:`forward` is the teacher-forced
+    pass of training; the incremental step that uses the same parameters
+    is ``UnitDecoder._step_core``."""
 
-    def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int, dropout: float = 0.0,
+                 attention_dropout: float = 0.0, activation_dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(embed_dim, num_heads)
-        self.cross_attn = MultiHeadAttention(embed_dim, num_heads)
+        self.self_attn = MultiHeadAttention(embed_dim, num_heads, attention_dropout)
+        self.cross_attn = MultiHeadAttention(embed_dim, num_heads, attention_dropout)
         self.self_attn_layer_norm = layer_norm(embed_dim)
         self.cross_attn_layer_norm = layer_norm(embed_dim)
         self.final_layer_norm = layer_norm(embed_dim)
-        self.ffn = FeedForward(embed_dim, ffn_dim)
+        self.ffn = FeedForward(embed_dim, ffn_dim, activation_dropout)
+        self.drop = HashDropout(dropout)
+
+    def forward(self, x: torch.Tensor, encoder_out: torch.Tensor, self_bias: torch.Tensor,
+                cross_bias: Optional[torch.Tensor]) -> torch.Tensor:
+        h = self.self_attn_layer_norm(x)
+        x = x + self.drop(self.self_attn.dense(h, h, self_bias))
+        x = x + self.drop(self.cross_attn.dense(self.cross_attn_layer_norm(x), encoder_out,
+                                                cross_bias))
+        return x + self.drop(self.ffn(self.final_layer_norm(x)))
 
 
 class Conv1dSubsampler(nn.Module):

@@ -2,11 +2,13 @@
 
 Port of ``mm_s2ut/models/s2t_encoder.py`` (not pipelined, no
 rematerialization): (B, T, 80) log-mels → Conv1dSubsampler (4×) →
-scaled sinusoidal positions → N pre-norm layers whose self-attention is
-kernel A, or with ``causal_attention`` kernel G (position i attends to
-j ≤ i, and j > i − W with ``attention_window`` W) → final LayerNorm. The
-reference pads the frame axis to a multiple of 16 on the TPU for its
-kernel; A and G take any length, so nothing is padded here. The causal
+scaled sinusoidal positions → hash dropout (training) → N pre-norm
+layers whose self-attention is kernel A, or with ``causal_attention``
+kernel G (position i attends to j ≤ i, and j > i − W with
+``attention_window`` W), and kernel H in the backward → final
+LayerNorm. The reference pads the frame axis to a multiple of 16 on the
+TPU for its kernel; A, G and H take any length, so nothing is padded
+here. The causal
 mask replaces masked logits (the reference's flash route); its folded-bias
 route adds −1e9 instead, which gives the same rows wherever a row's band
 holds a real key, i.e. on every unpadded row.
@@ -26,6 +28,7 @@ from mm_s2ut_torch.models.layers import (
     layer_norm,
     lengths_to_padding_mask,
 )
+from mm_s2ut_torch.ops.dropout import HashDropout
 
 
 class SpeechTransformerEncoder(nn.Module):
@@ -40,23 +43,29 @@ class SpeechTransformerEncoder(nn.Module):
         conv_kernel_sizes: Sequence[int] = (5, 5),
         causal_attention: bool = False,
         attention_window: int = 0,
+        dropout: float = 0.0,
+        attention_dropout: float = 0.0,
+        activation_dropout: float = 0.0,
     ):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_layers = num_layers
         self.subsampler = Conv1dSubsampler(in_dim, conv_channels, embed_dim, conv_kernel_sizes)
         self.pos = SinusoidalPositionalEmbedding(embed_dim)
+        self.drop = HashDropout(dropout)
         window = attention_window if causal_attention else 0
         for i in range(num_layers):
             self.add_module(f"layer{i}", TransformerEncoderLayer(
-                embed_dim, ffn_dim, num_heads, causal=causal_attention, window=window))
+                embed_dim, ffn_dim, num_heads, causal=causal_attention, window=window,
+                dropout=dropout, attention_dropout=attention_dropout,
+                activation_dropout=activation_dropout))
         self.final_layer_norm = layer_norm(embed_dim)
 
     def forward(self, features: torch.Tensor, lengths: torch.Tensor) -> Dict[str, torch.Tensor]:
         dtype = self.subsampler.conv0.weight.dtype
         x, lengths = self.subsampler(features.to(dtype), lengths)
         x = x * math.sqrt(self.embed_dim)
-        x = self.pos(x)
+        x = self.drop(self.pos(x))
         padding_mask = lengths_to_padding_mask(lengths, x.shape[1])
         # Zero padded positions so they cannot leak through LN/attention.
         x = x * (~padding_mask)[..., None].to(x.dtype)

@@ -35,13 +35,19 @@ NVCC_FLAGS = (
 F32, BF16 = 0, 1
 
 _p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_d, _u32 = ctypes.c_double, ctypes.c_uint32
 _FLASH = (
-    [_i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i] + [_i64] * 9 + [_f, _i, _i, _p],
+    [_i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i] + [_i64] * 9
+    + [_f, _i, _i, _d, _u32, _p, _p, _p],
     ctypes.c_int,
 )
 _SIGNATURES = {
     "mm_flash_attention": _FLASH,
     "mm_flash_attention_causal_skip": _FLASH,
+    "mm_flash_attention_bwd": (
+        [_i] + [_p] * 12 + [_i] * 5 + [_i64] * 9 + [_f, _i, _i, _d, _u32, _p],
+        ctypes.c_int,
+    ),
     "mm_ancestry_decode_attention": (
         [_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i]
         + [_i64] * 4 + [_p],
@@ -65,8 +71,8 @@ _SIGNATURES = {
 }
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+def _sources(csrc: Path = CSRC):
+    return sorted(csrc.glob("*.cu")), sorted(csrc.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -79,8 +85,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build the CUDA kernels")
 
 
-def library_path() -> Path:
-    cu, cuh = _sources()
+def library_path(csrc: Path = CSRC) -> Path:
+    cu, cuh = _sources(csrc)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in cu + cuh:
         h.update(f.name.encode())
@@ -88,18 +94,19 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmm_s2ut_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
-    so = library_path()
+def build(csrc: Path = CSRC) -> Path:
+    """Compile the kernels of ``csrc`` (the package's own by default)
+    unless a library for these sources exists."""
+    so = library_path(csrc)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu, _ = _sources()
+    cu, _ = _sources(csrc)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, f"{src.stem}.o") for src in cu]
         _run_all([
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)]
+            [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-c", "-o", obj, str(src)]
             for src, obj in zip(cu, objs)
         ])
         lib = os.path.join(tmp, so.name)

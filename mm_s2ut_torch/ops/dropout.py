@@ -1,0 +1,122 @@
+"""Dropout of the training path: counter-hash and Bernoulli.
+
+Port of ``mm_s2ut/ops/dropout.py``. :func:`hash_dropout` keeps element
+``i`` (the row-major flat index of the contiguous tensor) when the
+reference's hash of ``(i, seed)`` clears the rate, bit for bit as JAX
+computes it; its backward recomputes the mask from the seed, as the
+reference's ``_hd_bwd`` does, so nothing but the seed is saved. It is
+elementwise, so plain PyTorch is the right tool (no kernel).
+
+JAX draws its seeds from flax's "dropout" stream, which no torch
+generator reproduces. The port draws every hash seed (and the modality
+dropout's two uniforms) from a CPU ``torch.Generator`` and the Bernoulli
+masks (decoder embedding, dense attention weights, fusion) from a
+generator on the model's device, both held by one :class:`DropoutRng`
+that the trainer hands the model (``MMS2UTModel.set_dropout_rng``). A
+module in training mode with a rate > 0 and no rng raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from mm_s2ut_torch.ops.attention import _H1, _H3, _M32, _keep_from_hash, _mix
+
+
+class DropoutRng:
+    """The generators of one training run, seeded by ``train.seed``."""
+
+    def __init__(self, seed: int, device):
+        self.seeds = torch.Generator().manual_seed(seed)
+        self.bernoulli = torch.Generator(device=device).manual_seed(seed)
+
+    def next_seed(self) -> int:
+        """A uint32 seed for one hash-dropout or attention-dropout call."""
+        return int(torch.randint(0, 1 << 32, (), generator=self.seeds))
+
+    def state_dict(self):
+        return {"seeds": self.seeds.get_state(), "bernoulli": self.bernoulli.get_state()}
+
+    def load_state_dict(self, state) -> None:
+        self.seeds.set_state(state["seeds"].cpu())
+        self.bernoulli.set_state(state["bernoulli"].cpu())
+
+
+def keep_mask(shape, seed: int, rate: float, device) -> torch.Tensor:
+    """The reference's ``_keep_mask``: keep where the hash of the flat
+    index and the seed clears the rate."""
+    n = 1
+    for s in shape:
+        n *= s
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    h = _mix(((idx * _H3) & _M32) ^ ((int(seed) * _H1) & _M32))
+    return _keep_from_hash(h, rate).reshape(shape)
+
+
+def _weak(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python constant as JAX's weak typing uses it: rounded to the
+    other operand's dtype first (bf16 rounds 1/0.9 to 1.109375)."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+def _apply(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    keep = keep_mask(x.shape, seed, rate, x.device)
+    return torch.where(keep, x * _weak(1.0 / (1.0 - rate), x), torch.zeros_like(x))
+
+
+class _HashDropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seed, rate):
+        ctx.seed, ctx.rate = seed, rate
+        return _apply(x, seed, rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _apply(g, ctx.seed, ctx.rate), None, None
+
+
+def hash_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
+    """Counter-hash dropout of ``x`` with a uint32 ``seed``."""
+    return _HashDropout.apply(x, int(seed) & _M32, float(rate))
+
+
+class HashDropout(nn.Module):
+    """Hash dropout with a fresh seed per call from ``self.rng`` (set by
+    ``MMS2UTModel.set_dropout_rng``); the identity in eval mode."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.rng: Optional[DropoutRng] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        return hash_dropout(x, need_rng(self).next_seed(), self.rate)
+
+
+class BernoulliDropout(nn.Module):
+    """``flax.linen.Dropout``'s semantics (keep with probability 1 − rate,
+    scale by 1/(1 − rate)) drawn from the device generator of ``self.rng``;
+    the identity in eval mode."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.rng: Optional[DropoutRng] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        u = torch.rand(x.shape, generator=need_rng(self).bernoulli, device=x.device)
+        return torch.where(u >= self.rate, x / _weak(1.0 - self.rate, x), torch.zeros_like(x))
+
+
+def need_rng(module: nn.Module) -> DropoutRng:
+    if module.rng is None:
+        raise RuntimeError(
+            f"{type(module).__name__}: training with dropout needs a DropoutRng "
+            "(MMS2UTModel.set_dropout_rng)")
+    return module.rng

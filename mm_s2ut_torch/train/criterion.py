@@ -1,0 +1,92 @@
+"""Training criterions: label-smoothed CE and its R-Drop variant.
+
+Port of ``mm_s2ut/train/criterion.py`` (``label_smoothed_nll_loss``,
+``kl_symmetric``, ``speech_to_unit`` and ``speech_to_unit_v2``). Each
+criterion returns (loss summed over non-pad targets, metrics); the
+trainer normalises by ``ntokens`` (fairseq's sample_size convention).
+The CTC and multitask terms are not ported: the model raises on
+``ctc_weight`` and ``multitask`` at construction.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+
+def label_smoothed_nll_loss(
+    logits: torch.Tensor,  # (B, T, V)
+    targets: torch.Tensor,  # (B, T) int
+    epsilon: float = 0.0,
+    pad_id: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    """Sum-reduced (1 − eps)·nll + eps·(mean over the vocabulary of −log p)
+    over non-pad positions; (loss_sum, ntokens, metrics)."""
+    logits = logits.float()
+    logp = torch.log_softmax(logits, dim=-1)
+    targets = targets.long()
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    smooth = -logp.mean(dim=-1)
+    mask = (targets != pad_id).float()
+    nll = nll * mask
+    smooth = smooth * mask
+    loss = (1.0 - epsilon) * nll + epsilon * smooth
+    ntokens = mask.sum()
+    n_correct = (logits.argmax(-1) == targets).float() * mask
+    metrics = {"nll_loss": nll.sum(), "n_correct": n_correct.sum(), "ntokens": ntokens}
+    return loss.sum(), ntokens, metrics
+
+
+def kl_symmetric(logits_p: torch.Tensor, logits_q: torch.Tensor, targets: torch.Tensor,
+                 pad_id: int = 1) -> torch.Tensor:
+    """R-Drop's term: half the sum over non-pad positions of
+    KL(p‖q) + KL(q‖p)."""
+    lp = torch.log_softmax(logits_p.float(), dim=-1)
+    lq = torch.log_softmax(logits_q.float(), dim=-1)
+    p, q = lp.exp(), lq.exp()
+    kl_pq = (p * (lp - lq)).sum(-1)
+    kl_qp = (q * (lq - lp)).sum(-1)
+    mask = (targets != pad_id).float()
+    return ((kl_pq + kl_qp) * mask).sum() / 2.0
+
+
+def speech_to_unit_criterion(
+    outputs: Dict[str, torch.Tensor],
+    batch: Dict[str, torch.Tensor],
+    label_smoothing: float = 0.2,
+    pad_id: int = 1,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Label-smoothed CE over the unit logits; (loss_sum, metrics)."""
+    target = batch["target"]
+    logits = outputs["logits"][:, : target.shape[1]]
+    loss, _, metrics = label_smoothed_nll_loss(logits, target, label_smoothing, pad_id)
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def speech_to_unit_rdrop_criterion(
+    outputs: Dict[str, torch.Tensor],
+    batch: Dict[str, torch.Tensor],
+    label_smoothing: float = 0.2,
+    pad_id: int = 1,
+    rdrop_alpha: float = 0.0,
+    outputs_b: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """R-Drop: CE on two stochastic passes + α·symmetric KL between them;
+    without ``outputs_b``, plain CE."""
+    loss, metrics = speech_to_unit_criterion(outputs, batch, label_smoothing, pad_id)
+    if outputs_b is not None and rdrop_alpha > 0:
+        loss_b, _ = speech_to_unit_criterion(outputs_b, batch, label_smoothing, pad_id)
+        Tt = batch["target"].shape[1]
+        kl = kl_symmetric(outputs["logits"][:, :Tt], outputs_b["logits"][:, :Tt],
+                          batch["target"], pad_id)
+        loss = loss + loss_b + rdrop_alpha * kl
+        metrics["kl_loss"] = kl
+        metrics["loss"] = loss
+    return loss, metrics
+
+
+CRITERIONS = {
+    "speech_to_unit": speech_to_unit_criterion,
+    "speech_to_unit_v2": speech_to_unit_rdrop_criterion,
+}

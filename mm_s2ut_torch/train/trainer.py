@@ -1,0 +1,213 @@
+"""Trainer of the port: train step, evaluation, checkpoints, the fit loop.
+
+Port of ``mm_s2ut/train/trainer.py`` on one device. A train step is the
+reference's: the teacher-forced forward in training mode (dropouts on,
+drawn from the run's :class:`~mm_s2ut_torch.ops.dropout.DropoutRng`),
+the label-smoothed loss over ``ntokens``, the backward (kernel H for the
+encoder's attention on the card), then the global gradient norm — a
+non-finite norm skips the update (parameters and optimizer state stay,
+the step advances) — and the optimizer (clip → Adam → schedule, with
+MultiSteps accumulation; ``train/optimizer.py``). R-Drop
+(``rdrop_alpha`` > 0) runs the forward twice.
+
+Parameters stay fp32 (the model is cast with ``.float()``); with
+``model.dtype: bfloat16`` the forward and backward run under
+``torch.autocast`` in bf16, with no loss scaling, as the reference keeps
+fp32 parameters and computes in bf16.
+
+Checkpoints are the port's own, in ``train.save_dir``: ``config.yaml``
+(the full config, what ``mm_s2ut_torch.inference`` reads), ``params.npz``
+(the parameters in flax's layout, ``convert.to_flax``) and ``optim.pt``
+(optimizer state, step and generator states, for ``--resume``). The
+reference's orbax checkpoints are not read.
+"""
+from __future__ import annotations
+
+import logging
+import os
+from pathlib import Path
+from typing import Callable, Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from mm_s2ut_torch.config import Config, save_yaml
+from mm_s2ut_torch.convert import from_flax, load_npz, to_flax
+from mm_s2ut_torch.ops.dropout import DropoutRng
+from mm_s2ut_torch.train.criterion import CRITERIONS
+from mm_s2ut_torch.train.metrics import MetricsAggregator
+from mm_s2ut_torch.train.optimizer import Optimizer, global_norm
+
+logger = logging.getLogger(__name__)
+
+
+def to_device(batch: Dict, device: torch.device) -> Dict:
+    """numpy arrays and tensors of a batch on ``device`` (integers as int64)."""
+
+    def move(x):
+        if isinstance(x, (tuple, list)):
+            return type(x)(move(v) for v in x)
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        if isinstance(x, torch.Tensor):
+            if x.dtype in (torch.int32, torch.int16, torch.uint8):
+                x = x.long()
+            return x.to(device)
+        return x
+
+    return {k: move(v) for k, v in batch.items()}
+
+
+class Trainer:
+    def __init__(self, cfg: Config, model, device, criterion_name: str = "speech_to_unit"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        if cfg.train.freezing_updates and hasattr(model, "speech_encoder"):
+            raise NotImplementedError("freezing_updates of a speech_encoder is not ported")
+        self.model = model.float().to(self.device)
+        self.rng = DropoutRng(cfg.train.seed, self.device)
+        self.model.set_dropout_rng(self.rng)
+        if cfg.train.rdrop_alpha > 0 and criterion_name == "speech_to_unit":
+            criterion_name = "speech_to_unit_v2"  # R-Drop needs the two-pass criterion
+        self.criterion = CRITERIONS[criterion_name]
+        self.params = list(self.model.parameters())
+        self.optimizer = Optimizer(self.params, cfg.train)
+        self.step = 0
+        self.amp_dtype = torch.bfloat16 if cfg.model.dtype == "bfloat16" else None
+        self.metrics_history: list = []
+
+    # -- steps ---------------------------------------------------------------
+
+    def _autocast(self):
+        return torch.autocast(self.device.type, dtype=self.amp_dtype or torch.float32,
+                              enabled=self.amp_dtype is not None)
+
+    def _outputs(self, batch):
+        return self.model(batch["src_features"], batch["src_lengths"],
+                          batch["prev_output_tokens"], batch.get("imgs_list", ()),
+                          batch.get("img_masks_list", ()))
+
+    def _loss(self, batch):
+        tcfg = self.cfg.train
+        with self._autocast():
+            outputs = self._outputs(batch)
+            kw = {}
+            if tcfg.rdrop_alpha > 0:
+                kw = dict(outputs_b=self._outputs(batch), rdrop_alpha=tcfg.rdrop_alpha)
+        return self.criterion(outputs, batch, label_smoothing=tcfg.label_smoothing, **kw)
+
+    def train_batch(self, batch: Dict) -> Dict[str, float]:
+        """One update (one mini-step under ``update_freq`` > 1)."""
+        batch = to_device(batch, self.device)
+        self.model.train()
+        for p in self.params:
+            p.grad = None
+        loss, metrics = self._loss(batch)
+        (loss / metrics["ntokens"].clamp_min(1.0)).backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        grad_norm = global_norm(grads)
+        ok = bool(torch.isfinite(grad_norm))
+        if ok:
+            self.optimizer.step(grads, grad_norm if self.cfg.train.update_freq <= 1 else None)
+        self.step += 1
+        names = sorted(metrics)
+        out = dict(zip(names, torch.stack([metrics[k].float() for k in names]).tolist()))
+        out["grad_norm"] = float(grad_norm)
+        out["skipped"] = 0.0 if ok else 1.0
+        return out
+
+    @torch.no_grad()
+    def evaluate(self, batches: Iterator[Dict]) -> Dict[str, float]:
+        """Criterion metrics over the batches, normalised by ntokens."""
+        self.model.eval()
+        totals: Dict[str, float] = {}
+        for batch in batches:
+            batch = to_device(batch, self.device)
+            with self._autocast():
+                _, m = self.criterion(self._outputs(batch), batch,
+                                      label_smoothing=self.cfg.train.label_smoothing)
+            for k, v in m.items():
+                totals[k] = totals.get(k, 0.0) + float(v)
+        ntok = max(totals.get("ntokens", 1.0), 1.0)
+        return {
+            "loss": totals.get("loss", 0.0) / ntok,
+            "nll_loss": totals.get("nll_loss", 0.0) / ntok,
+            "accuracy": totals.get("n_correct", 0.0) / ntok,
+            "ntokens": ntok,
+        }
+
+    # -- checkpoints ---------------------------------------------------------
+
+    @property
+    def save_dir(self) -> Path:
+        return Path(self.cfg.train.save_dir)
+
+    def save_checkpoint(self) -> None:
+        """config.yaml (once), params.npz and optim.pt, each replaced atomically."""
+        d = self.save_dir
+        d.mkdir(parents=True, exist_ok=True)
+        if not (d / "config.yaml").exists():
+            save_yaml(self.cfg, d / "config.yaml")
+        tmp = d / "params.tmp.npz"
+        np.savez(tmp, **to_flax(self.model))
+        os.replace(tmp, d / "params.npz")
+        state = {"step": self.step, "optimizer": self.optimizer.state_dict(),
+                 "rng": self.rng.state_dict()}
+        torch.save(state, d / "optim.tmp.pt")
+        os.replace(d / "optim.tmp.pt", d / "optim.pt")
+
+    def restore_checkpoint(self) -> int:
+        """Parameters, optimizer state, step and generators from save_dir."""
+        d = self.save_dir
+        if not ((d / "params.npz").exists() and (d / "optim.pt").exists()):
+            raise FileNotFoundError(f"no checkpoint (params.npz + optim.pt) in {d}")
+        self.model.load_state_dict(from_flax(load_npz(d / "params.npz"), self.model))
+        state = torch.load(d / "optim.pt", map_location=self.device, weights_only=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.rng.load_state_dict(state["rng"])
+        self.step = int(state["step"])
+        return self.step
+
+    # -- loop ----------------------------------------------------------------
+
+    def fit(self, train_iter: Callable[[int], Iterator[Dict]],
+            valid_iter: Optional[Callable[[], Iterator[Dict]]] = None,
+            max_update: Optional[int] = None, metrics_writer=None) -> int:
+        """Epoch loop: ``train_iter(epoch)`` yields batches, one update
+        each, until ``max_update``; validation and a checkpoint every
+        ``save_interval_updates`` and at the end. Returns the step."""
+        cfg = self.cfg.train
+        max_update = max_update or cfg.max_update
+        agg = MetricsAggregator()
+        epoch = 0
+        while self.step < max_update:
+            saw_batch = False
+            for batch in train_iter(epoch):
+                saw_batch = True
+                agg.update(self.train_batch(batch))
+                step = self.step
+                if step % cfg.log_interval == 0:
+                    snap = agg.flush()
+                    logger.info("epoch %d step %d loss %.4f nll %.4f acc %.3f %.0f tok/s",
+                                epoch, step, snap.get("loss", 0.0), snap.get("nll_loss", 0.0),
+                                snap.get("n_correct", 0.0), snap.get("ntokens_per_sec", 0.0))
+                    self.metrics_history.append({"step": step, **snap})
+                    if metrics_writer is not None:
+                        metrics_writer.write(step, snap, "train")
+                if cfg.save_interval_updates and step % cfg.save_interval_updates == 0:
+                    self._validate_and_save(valid_iter, metrics_writer)
+                if step >= max_update:
+                    break
+            if not saw_batch:
+                break
+            epoch += 1
+        self._validate_and_save(valid_iter, metrics_writer)
+        return self.step
+
+    def _validate_and_save(self, valid_iter, metrics_writer) -> None:
+        if valid_iter is not None:
+            metrics = self.evaluate(valid_iter())
+            logger.info("valid at %d: %s", self.step, metrics)
+            if metrics_writer is not None:
+                metrics_writer.write(self.step, metrics, "valid")
+        self.save_checkpoint()

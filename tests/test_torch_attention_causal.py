@@ -99,7 +99,7 @@ def test_flash_rejects_what_the_reference_rejects():
     q, k, v, _ = (torch.from_numpy(x) for x in _qkv(40, 64))
     with pytest.raises(ValueError, match="Tq == Tk"):
         TA.flash_attention(q, k, v, causal=True)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="requires dropout_seed"):
         TA.flash_attention(q, q, q, dropout_rate=0.1)
 
 

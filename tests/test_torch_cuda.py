@@ -1,4 +1,4 @@
-"""Kernels A–G on the card against their plain PyTorch versions on the
+"""Kernels A–H on the card against their plain PyTorch versions on the
 same CUDA tensors. Skipped without a CUDA device. On a GPU machine
 (which needs neither JAX nor this directory's conftest):
 
@@ -12,7 +12,11 @@ requantized softmax weight that flips one level at a rounding tie
 (``chip_smoke.TOL_REQUANT``); E as C. A's causal branch and G are held
 against the plain version on every row, the padded rows whose whole
 window band is padding included (G reproduces the reference's uniform
-average there, ``csrc/flash_attention.cu``)."""
+average there, ``csrc/flash_attention.cu``). A and G with attention
+dropout, and H's four gradients, are held to the same tolerances times
+the largest magnitude of the twin's output (a dropped-out row of few
+keys puts out up to |v|/(1 − p), gradients grow with T); in fp32 that
+still catches a single weight dropped on one side only."""
 import pytest
 import torch
 
@@ -105,6 +109,66 @@ def test_causal_skip_attention(card, dtype, window, B, Tq, S, H, D):
     _close(got, A.reference_attention(q * D ** -0.5, k, v, bias, True, window), dtype)
 
 
+TRAIN_SHAPES = [(2, 37, 4, 16), (3, 130, 2, 64), (2, 250, 2, 128), (2, 70, 2, 32)]
+TRAIN_MASKS = [(False, 0, None), (True, 0, None), (True, 5, None), (True, 0, 64), (True, 64, 64)]
+
+
+def _rel_close(got, want, dtype):
+    """A/G with dropout and H's outputs against their twins: TOL times
+    max(1, the largest |want|)."""
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype] * max(1.0, want.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal,window,block_k", TRAIN_MASKS)
+@pytest.mark.parametrize("B,T,H,D", TRAIN_SHAPES)
+def test_flash_attention_dropout(card, dtype, causal, window, block_k, B, T, H, D):
+    """A (and G with ``block_k``) with attention dropout 0.1 against the
+    twin with the same seed: a mask mismatch moves outputs by O(0.1)."""
+    q, k, v, kpm = flash_inputs(B, T, H, D, dtype, seed=T + window)
+    bias = torch.zeros(kpm.shape, device="cuda").masked_fill(kpm, A.NEG_INF)[:, None, None, :]
+    counter = A.causal_skip_attention if block_k else A.flash_attention
+    before = counter.launches
+    got = A.flash_attention(q, k, v, kpm, causal=causal, window=window, dropout_rate=0.1,
+                            dropout_seed=0xDEADBEEF, block_k=block_k)
+    assert counter.launches == before + 1
+    want = A.reference_attention(q * D ** -0.5, k, v, bias, causal, window, 0.1, 0xDEADBEEF)
+    _rel_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal,window,block_k", TRAIN_MASKS)
+@pytest.mark.parametrize("B,T,H,D", TRAIN_SHAPES)
+def test_flash_attention_bwd(card, dtype, rate, causal, window, block_k, B, T, H, D):
+    """Kernel H (dq, dk, dv, dbias) after A or G, against the plain twin
+    of H on the same inputs; and the autograd route (flash_attention's
+    backward) launches H once and gives the same dq, dk, dv."""
+    q, k, v, kpm = flash_inputs(B, T, H, D, dtype, seed=2 * T + window)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(T)).to("cuda", dtype)
+    bias = torch.zeros(kpm.shape, device="cuda").masked_fill(kpm, A.NEG_INF)
+    seed = 77 if rate else None
+    scale = D ** -0.5
+    stats = torch.empty((2, B * H, T), device="cuda")
+    entry = "mm_flash_attention_causal_skip" if block_k else "mm_flash_attention"
+    out = A._launch(entry, q, k, v, bias, scale, causal, window, rate, seed, stats)
+    got = A.flash_attention_bwd(q, k, v, bias, out, stats, g, scale, causal, window, rate, seed)
+    want = A.reference_attention_bwd(q, k, v, bias, g, scale, causal, window, rate, seed)
+    for x, y in zip(got, want):
+        _rel_close(x, y, dtype)
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    before = A.flash_attention_bwd.launches
+    A.flash_attention(qg, kg, vg, kpm, causal=causal, window=window, dropout_rate=rate,
+                      dropout_seed=seed, block_k=block_k).backward(g)
+    assert A.flash_attention_bwd.launches == before + 1
+    for x, y in zip((qg.grad, kg.grad, vg.grad), got[:3]):
+        torch.cuda.synchronize()
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("K,Dh,step", [(1, 16, 0), (1, 64, 20), (10, 64, 0), (10, 64, 33),
                                        (16, 32, 12), (4, 128, 7)])
@@ -187,7 +251,7 @@ def test_cross_decode_many_rows(card, dtype, int8, K, Dh, S):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flagship_shapes(card, dtype):
-    for name, kern, plain, tol in kernel_cases(dtype, FLAGSHIP):
+    for name, kern, plain, tol, _, _ in kernel_cases(dtype, FLAGSHIP):
         _close(kern(), plain(), dtype, tol)
 
 
@@ -195,7 +259,7 @@ def test_unsupported_inputs_raise(card):
     q, k, v, _ = flash_inputs(1, 8, 2, 24, torch.float32)
     with pytest.raises(ValueError, match="head dim"):
         A.flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="requires dropout_seed"):
         A.flash_attention(q, k, v, dropout_rate=0.1)
     q, k, v, _ = flash_inputs(1, 8, 2, 16, torch.float32)
     with pytest.raises(ValueError, match="Tq == Tk"):

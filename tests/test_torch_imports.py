@@ -19,7 +19,11 @@ STREAMING = ["mm_s2ut_torch.cli.stream", "mm_s2ut_torch.infer.streaming",
              "mm_s2ut_torch.infer.streaming_vocoder"]
 
 
-@pytest.mark.parametrize("modules", [["mm_s2ut_torch.inference"], STREAMING, MODULES])
+TRAINING = ["mm_s2ut_torch.cli.train", "mm_s2ut_torch.tasks.s2s_task",
+            "mm_s2ut_torch.train.trainer", "mm_s2ut_torch.ops.dropout"]
+
+
+@pytest.mark.parametrize("modules", [["mm_s2ut_torch.inference"], STREAMING, TRAINING, MODULES])
 def test_import_leaves_jax_out(modules):
     code = (
         f"import sys, {', '.join(modules)}\n"
