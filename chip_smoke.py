@@ -11,7 +11,8 @@ is no CPU path):
 2. kernels A, B and C against their plain PyTorch versions on the card at
    the main path's flagship shapes, and D, E and F at the reference
    bench's shapes (B=128, K=10, T·S=2010 at step 150, S=250), in bf16 and
-   fp32, each timed beside its plain version with CUDA events; then A's
+   fp32, each timed beside its plain version with CUDA events, and A at
+   the offline bench point's encoder call (B=128, T=250); then A's
    causal branch and G at the streaming encoder's shapes (B=1 and B=8 at
    T=250, B=1 at T=1000, window 0 and 64), and C and E with the prefill's
    501 query rows at S=250;
@@ -100,8 +101,13 @@ import torch
 HERE = Path(__file__).resolve().parent
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # bf16: the plain versions round the softmax weights and every product to
-# bf16 between the two contractions; the kernels keep fp32 until the
-# final store. Outputs are convex mixes of O(1) values, so a few bf16
+# bf16 between the two contractions. The SIMT kernels (B-G, and A and H in
+# fp32) keep fp32 until the final store; bf16 A and H (tensor cores) round
+# p times the dropout factor, and H its dS, to bf16 before the second
+# products and accumulate in fp32, as the plain versions round the
+# weights (tests/test_torch_attention_tc_numerics.py emulates those points
+# against the JAX reference on the CPU and holds them to TOL). Outputs are
+# convex mixes of O(1) values, so a few bf16
 # ulps (2^-8 relative) of them stay well inside 2e-2. Kernel E takes TOL
 # too: its plain version dequantizes k and v to bf16 (2^-9 relative per
 # element), the kernel folds the f32 scales in after the products.
@@ -376,12 +382,25 @@ def phase_build():
 
 
 def phase_kernels():
+    from mm_s2ut_torch.ops import attention as A
+
     record = {}
     for dtype in (torch.bfloat16, torch.float32):
         for name, kern, plain, tol, library, work in kernel_cases(dtype):
             result = check_and_time(name, dtype, kern, plain, tol, library)
             if dtype == torch.bfloat16:
                 record[name] = {**result, **work}
+        # A at the offline bench point's encoder call (phase 5): 128 x 10 s
+        # -> 250 rows after subsampling, rate 0, no statistics.
+        q, k, v, kpm = flash_inputs(128, 250, 8, 64, dtype, seed=128)
+        bias = torch.zeros(kpm.shape, device="cuda").masked_fill(kpm, A.NEG_INF)[:, None, None, :]
+        res = check_and_time("A B=128 T=250", dtype, lambda: A.flash_attention(q, k, v, kpm),
+                             lambda: A.reference_attention(q * 64 ** -0.5, k, v, bias),
+                             TOL[dtype], lambda: sdpa(q, k, v, bias.to(dtype)))
+        work = flash_work(128, 250, 250, 8, 64, dtype)
+        print(f"phase 2: A B=128 T=250 {str(dtype)[6:]}: bound {work['bound_ms'] * 1e3:.2f} us "
+              f"({work['bound_by']}), kernel / SDPA {res['ms'] / res['library_ms']:.3f}")
+        del q, k, v, kpm, bias
         torch.cuda.empty_cache()
     return record
 
@@ -1182,8 +1201,10 @@ def profile_step(trainer, batch, step_ms):
     if total <= 0:
         print("phase 11: profiled step: the profiler saw no device time (not measured)")
         return
+    # A's kernels (flash_fwd_kernel_mma in bf16) and H's (attn_bwd_*_kernel_mma)
     a = sum(dev_us(e) for e in kernels if "flash_fwd_kernel" in e.key)
     h = sum(dev_us(e) for e in kernels if "attn_bwd" in e.key)
+    assert a > 0 and h > 0, f"the profile names no A or H kernel: {[e.key for e in kernels]}"
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
     print(f"phase 11: profiled B=8 step: {aten_calls} aten calls, {sum(e.count for e in kernels)} "
           f"kernel launches, device time {total / 1e3:.3f} "
@@ -1257,8 +1278,8 @@ def phase_train_entry(out_dir: Path):
           f"params.npz, optim.pt, logs/metrics.csv; inference decoded {len(units)} units")
 
 
-KERNELS = {  # name, source, the TPU kernel it replaces
-    "A": ("flash_attention", "mm_s2ut_torch/csrc/flash_attention.cu",
+KERNELS = {  # name, source (of the bf16 instance the record times), the TPU kernel it replaces
+    "A": ("flash_attention", "mm_s2ut_torch/csrc/flash_attention_mma.cu",
           "mm_s2ut/ops/attention.py:140"),
     "B": ("ancestry_decode_attention", "mm_s2ut_torch/csrc/decode_attention.cu",
           "mm_s2ut/ops/decode_attention.py:50"),
@@ -1272,7 +1293,7 @@ KERNELS = {  # name, source, the TPU kernel it replaces
           "mm_s2ut/ops/decode_attention.py:291"),
     "G": ("causal_skip_attention", "mm_s2ut_torch/csrc/flash_attention.cu",
           "mm_s2ut/ops/attention.py:194"),
-    "H": ("flash_attention_bwd", "mm_s2ut_torch/csrc/flash_attention_bwd.cu",
+    "H": ("flash_attention_bwd", "mm_s2ut_torch/csrc/flash_attention_bwd_mma.cu",
           "mm_s2ut/ops/attention.py:377"),
 }
 

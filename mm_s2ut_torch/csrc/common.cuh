@@ -1,8 +1,10 @@
 // Shared helpers for the port's hand-written sm_90a kernels.
 //
-// Every kernel is templated on its element type T (float or
+// The SIMT kernels are templated on their element type T (float or
 // __nv_bfloat16): loads convert to fp32, softmax and accumulation run in
-// fp32, stores round back to T (round-to-nearest-even for bf16).
+// fp32, stores round back to T (round-to-nearest-even for bf16). The
+// bf16 tensor-core kernels (flash_attention_mma.cuh) also round the
+// softmax weights to bf16 before their second product.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,6 +16,9 @@ namespace mm {
 
 // Element-type codes of the C interface (ops/_build.py passes them).
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+// The logit of a (query, key) pair outside the causal/window band.
+constexpr float kMasked = -1e9f;
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }

@@ -1,4 +1,7 @@
 // Kernels A and G — encoder self-attention forward, with attention dropout.
+// This file holds the SIMT kernel: every instance of G, and A in fp32. A in
+// bf16 runs on the tensor cores (flash_attention_mma.cu); mm_flash_attention
+// below dispatches to it.
 //
 // Kernel A replaces the Pallas TPU kernel mm_s2ut/ops/attention.py:_attn_kernel,
 // launched by _flash_call (pallas_call at attention.py:362) and reached
@@ -19,7 +22,7 @@
 // What bounds them on the card: at the encoder shapes (B = 1..8, H = 8,
 // D = 64, T ~ 100-1000 after subsampling) one call does 4.B.H.T^2.D
 // ~ 0.01-4 GFLOP against ~0.1-8 MB of q/k/v, so it is bound by
-// arithmetic, done here on the fp32 FMA pipes (no tensor cores yet), and
+// arithmetic, done in this file on the fp32 FMA pipes (no tensor cores), and
 // at short T by block count: B.H.ceil(T/64) blocks for 132 SMs. G does
 // about half of A's causal work (more with a window) by never visiting
 // the tiles above the diagonal or left of the window.
@@ -64,33 +67,13 @@
 // H, which recomputes P = exp(logit - m) / l with the same logits: a row
 // whose logits are all -1e9 keeps l = (its key count) there, where a
 // log-sum-exp m + log(l) would round back to -1e9 and lose it.
-#include "common.cuh"
+#include "flash_attention_mma.cuh"
 
 namespace mm {
 namespace {
 
 constexpr int kBlockQ = 64;
 constexpr int kFlashThreads = 2 * kBlockQ;
-constexpr float kMasked = -1e9f;
-
-struct FlashArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const float* bias;  // (B, S) additive key bias
-  void* out;          // (B, T, H, D) contiguous
-  int T, S, H;
-  int64_t q_sb, q_st, q_sh;
-  int64_t k_sb, k_st, k_sh;
-  int64_t v_sb, v_st, v_sh;
-  float scale;
-  int window;  // with a causal mask: keys s > t - window only (0 = unbounded)
-  float rate;      // attention dropout rate (0 = none)
-  float inv_keep;  // 1 / (1 - rate), rounded to float as JAX's weak typing does
-  uint32_t seed;
-  float* stat_m;  // (B.H, T) row max, or nullptr
-  float* stat_l;  // (B.H, T) row denominator, or nullptr
-};
 
 // One key tile [s0, s0 + BK) into the running softmax of query row t.
 template <typename T, int D, int BK, bool CAUSAL>
@@ -256,13 +239,6 @@ cudaError_t dispatch_flash(int D, const FlashArgs& a, int B, cudaStream_t stream
   }
 }
 
-template <bool CAUSAL, bool SKIP>
-int dispatch_dtype(int dtype, int D, const FlashArgs& a, int B, cudaStream_t st) {
-  if (dtype == kFloat32) return (int)dispatch_flash<float, CAUSAL, SKIP>(D, a, B, st);
-  if (dtype == kBFloat16) return (int)dispatch_flash<__nv_bfloat16, CAUSAL, SKIP>(D, a, B, st);
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 }  // namespace mm
 
@@ -270,7 +246,8 @@ int dispatch_dtype(int dtype, int D, const FlashArgs& a, int B, cudaStream_t st)
 
 // Kernel A: every key tile; the causal/window mask when ``causal`` != 0.
 // ``rate`` > 0: attention dropout with ``seed``; non-null ``stat_m`` /
-// ``stat_l``: each row's softmax max and denominator for kernel H.
+// ``stat_l``: each row's softmax max and denominator for kernel H. bf16
+// runs on the tensor cores (rows 16-byte aligned), fp32 here.
 extern "C" int mm_flash_attention(
     int dtype, const void* q, const void* k, const void* v, const void* bias,
     void* out, int B, int T, int S, int H, int D,
@@ -284,8 +261,10 @@ extern "C" int mm_flash_attention(
                         q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window,
                         (float)rate, (float)(1.0 / (1.0 - rate)), seed, stat_m, stat_l};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return causal ? mm::dispatch_dtype<true, false>(dtype, D, a, B, st)
-                : mm::dispatch_dtype<false, false>(dtype, D, a, B, st);
+  if (dtype == mm::kBFloat16) return (int)mm::launch_flash_fwd_mma(a, B, D, causal != 0, st);
+  if (dtype != mm::kFloat32) return (int)cudaErrorInvalidValue;
+  return causal ? (int)mm::dispatch_flash<float, true, false>(D, a, B, st)
+                : (int)mm::dispatch_flash<float, false, false>(D, a, B, st);
 }
 
 // Kernel G: causal (``causal`` must be 1) with key-tile skipping, T <= S.
@@ -302,5 +281,8 @@ extern "C" int mm_flash_attention_causal_skip(
   const mm::FlashArgs a{q, k, v, static_cast<const float*>(bias), out, T, S, H,
                         q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window,
                         (float)rate, (float)(1.0 / (1.0 - rate)), seed, stat_m, stat_l};
-  return mm::dispatch_dtype<true, true>(dtype, D, a, B, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == mm::kFloat32) return (int)mm::dispatch_flash<float, true, true>(D, a, B, st);
+  if (dtype == mm::kBFloat16) return (int)mm::dispatch_flash<__nv_bfloat16, true, true>(D, a, B, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,4 +1,6 @@
 // Kernel H — encoder self-attention backward (the fused attention VJP).
+// This file holds the SIMT kernels, which run H in fp32; bf16 runs on the
+// tensor cores (flash_attention_bwd_mma.cu), the same split and formulas.
 //
 // Replaces the Pallas TPU kernel mm_s2ut/ops/attention.py:_attn_bwd_kernel
 // (pallas_call at attention.py:500, launched by _flash_bwd_call), the
@@ -39,39 +41,12 @@
 // What bounds it on the card: at the encoder's training shapes (B = 8,
 // H = 8, T = S = 250, D = 64) the VJP does ~10.B.H.T.S.D ~ 2.6 GFLOP
 // against ~16-20 MB of q, k, v, dO, O and the fp32 dq, dk, dv, so by
-// bytes the bound is ~5-6 us; done on the fp32 FMA pipes (no tensor cores
-// yet) it is bound by arithmetic, at ~4 FMA per (t, s, d) pair per kernel.
-#include "common.cuh"
+// bytes the bound is ~5-6 us; done on the fp32 FMA pipes (no tensor cores)
+// it is bound by arithmetic, at ~4 FMA per (t, s, d) pair per kernel.
+#include "flash_attention_mma.cuh"
 
 namespace mm {
 namespace {
-
-constexpr float kMasked = -1e9f;
-
-struct BwdArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const float* bias;    // (B, S) additive key bias
-  const void* dout;     // (B, T, H, D) contiguous, q's type
-  const float* stat_m;  // (B.H, T) row max of the forward's softmax
-  const float* stat_l;  // (B.H, T) row denominator
-  const float* delta;   // (B.H, T) sum_d dO . O
-  void* dq;             // (B, T, H, D) contiguous, q's type
-  float* dk;            // (B, S, H, D) fp32
-  float* dv;            // (B, S, H, D) fp32
-  float* dbias;         // (B.H, S) fp32
-  int T, S, H;
-  int64_t q_sb, q_st, q_sh;
-  int64_t k_sb, k_st, k_sh;
-  int64_t v_sb, v_st, v_sh;
-  float scale;
-  int causal;
-  int window;
-  float rate;
-  float inv_keep;
-  uint32_t seed;
-};
 
 template <int D>
 struct Split {
@@ -87,11 +62,6 @@ __device__ __forceinline__ float part_sum(float x) {
   return x;
 }
 
-// Outside the causal/window band: the forward replaced the logit by -1e9.
-__device__ __forceinline__ bool masked(const BwdArgs& a, int t, int s) {
-  return a.causal && (s > t || (a.window > 0 && s <= t - a.window));
-}
-
 // The weight P of (t, s) from the logit as the forward computes it (one
 // fmaf, or -1e9 where masked) and the forward's row statistics.
 __device__ __forceinline__ float weight(const BwdArgs& a, float dot, float bias, bool mask,
@@ -99,14 +69,8 @@ __device__ __forceinline__ float weight(const BwdArgs& a, float dot, float bias,
   return expf((mask ? kMasked : fmaf(dot, a.scale, bias)) - m) / l;
 }
 
-// Dropout factor of weight (bh, t, s): keep / (1 - rate), or 1.
-__device__ __forceinline__ float keep_factor(const BwdArgs& a, int bh, int t, int s) {
-  if (a.rate <= 0.f) return 1.f;
-  return hash_keep(bh, t, s, a.seed, a.rate) ? a.inv_keep : 0.f;
-}
-
 // H-kv: dK, dV and dbias of one 64-key tile.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(64 * Split<D>::PARTS) attn_bwd_kv_kernel(const BwdArgs a) {
   constexpr int DT = Split<D>::DT, PARTS = Split<D>::PARTS;
   constexpr int BK = 64;                 // keys per block
@@ -120,31 +84,31 @@ __global__ void __launch_bounds__(64 * Split<D>::PARTS) attn_bwd_kv_kernel(const
   const int part = threadIdx.x % PARTS;
   const int s = blockIdx.y * BK + threadIdx.x / PARTS;
   const bool key_ok = s < a.S;
-  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + (int64_t)(key_ok ? s : 0) * a.k_st +
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + (int64_t)(key_ok ? s : 0) * a.k_st +
                 h * a.k_sh + part * DT;
-  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + (int64_t)(key_ok ? s : 0) * a.v_st +
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + (int64_t)(key_ok ? s : 0) * a.v_st +
                 h * a.v_sh + part * DT;
   float kr[DT], vr[DT], dk[DT], dv[DT];
 #pragma unroll
   for (int d = 0; d < DT; ++d) {
-    kr[d] = key_ok ? to_f32(kp[d]) : 0.f;
-    vr[d] = key_ok ? to_f32(vp[d]) : 0.f;
+    kr[d] = key_ok ? kp[d] : 0.f;
+    vr[d] = key_ok ? vp[d] : 0.f;
     dk[d] = 0.f;
     dv[d] = 0.f;
   }
   const float bias_s = key_ok ? a.bias[(int64_t)b * a.S + s] : 0.f;
   float dbias = 0.f;
 
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* gb = static_cast<const T*>(a.dout) + ((int64_t)b * a.T * a.H + h) * D;
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* gb = static_cast<const float*>(a.dout) + ((int64_t)b * a.T * a.H + h) * D;
   const int64_t row0 = (int64_t)bh * a.T;
   for (int q0 = 0; q0 < a.T; q0 += BQ) {
     __syncthreads();  // the previous tile is fully consumed
     for (int i = threadIdx.x; i < BQ * D; i += NT) {
       const int r = i / D, d = i % D, t = q0 + r;
       const bool ok = t < a.T;
-      qs[r][d] = ok ? to_f32(qb[(int64_t)t * a.q_st + d]) : 0.f;
-      gs[r][d] = ok ? to_f32(gb[(int64_t)t * a.H * D + d]) : 0.f;
+      qs[r][d] = ok ? qb[(int64_t)t * a.q_st + d] : 0.f;
+      gs[r][d] = ok ? gb[(int64_t)t * a.H * D + d] : 0.f;
     }
     for (int r = threadIdx.x; r < BQ; r += NT) {
       const int t = q0 + r;
@@ -206,7 +170,7 @@ __global__ void __launch_bounds__(64 * Split<D>::PARTS) attn_bwd_kv_kernel(const
 }
 
 // H-q: dQ of one 64-query tile.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(64 * Split<D>::PARTS) attn_bwd_q_kernel(const BwdArgs a) {
   constexpr int DT = Split<D>::DT, PARTS = Split<D>::PARTS;
   constexpr int BQ = 64;                 // query rows per block
@@ -221,15 +185,15 @@ __global__ void __launch_bounds__(64 * Split<D>::PARTS) attn_bwd_q_kernel(const 
   const int t = blockIdx.y * BQ + threadIdx.x / PARTS;
   const bool row_ok = t < a.T;
   const int tt = row_ok ? t : 0;
-  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + (int64_t)tt * a.q_st + h * a.q_sh +
+  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + (int64_t)tt * a.q_st + h * a.q_sh +
                 part * DT;
-  const T* gp = static_cast<const T*>(a.dout) + (((int64_t)b * a.T + tt) * a.H + h) * D +
+  const float* gp = static_cast<const float*>(a.dout) + (((int64_t)b * a.T + tt) * a.H + h) * D +
                 part * DT;
   float qr[DT], gr[DT], dq[DT];
 #pragma unroll
   for (int d = 0; d < DT; ++d) {
-    qr[d] = row_ok ? to_f32(qp[d]) : 0.f;
-    gr[d] = row_ok ? to_f32(gp[d]) : 0.f;
+    qr[d] = row_ok ? qp[d] : 0.f;
+    gr[d] = row_ok ? gp[d] : 0.f;
     dq[d] = 0.f;
   }
   const int64_t row = (int64_t)bh * a.T + tt;
@@ -237,16 +201,16 @@ __global__ void __launch_bounds__(64 * Split<D>::PARTS) attn_bwd_q_kernel(const 
   const float l = row_ok ? a.stat_l[row] : 1.f;
   const float dl = row_ok ? a.delta[row] : 0.f;
 
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
   const float* bias_row = a.bias + (int64_t)b * a.S;
   for (int s0 = 0; s0 < a.S; s0 += BK) {
     __syncthreads();  // the previous tile is fully consumed
     for (int i = threadIdx.x; i < BK * D; i += NT) {
       const int j = i / D, d = i % D, s = s0 + j;
       const bool ok = s < a.S;
-      ks[j][d] = ok ? to_f32(kb[(int64_t)s * a.k_st + d]) : 0.f;
-      vs[j][d] = ok ? to_f32(vb[(int64_t)s * a.v_st + d]) : 0.f;
+      ks[j][d] = ok ? kb[(int64_t)s * a.k_st + d] : 0.f;
+      vs[j][d] = ok ? vb[(int64_t)s * a.v_st + d] : 0.f;
     }
     for (int j = threadIdx.x; j < BK; j += NT) bs[j] = s0 + j < a.S ? bias_row[s0 + j] : 0.f;
     __syncthreads();
@@ -284,29 +248,28 @@ __global__ void __launch_bounds__(64 * Split<D>::PARTS) attn_bwd_q_kernel(const 
     }
   }
   if (row_ok) {
-    T* o = static_cast<T*>(a.dq) + (((int64_t)b * a.T + t) * a.H + h) * D + part * DT;
+    float* o = static_cast<float*>(a.dq) + (((int64_t)b * a.T + t) * a.H + h) * D + part * DT;
 #pragma unroll
-    for (int d = 0; d < DT; ++d) o[d] = from_f32<T>(dq[d] * a.scale);
+    for (int d = 0; d < DT; ++d) o[d] = dq[d] * a.scale;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_bwd(const BwdArgs& a, int B, cudaStream_t stream) {
   constexpr int NT = 64 * Split<D>::PARTS;
-  attn_bwd_kv_kernel<T, D><<<dim3(B * a.H, (a.S + 63) / 64), NT, 0, stream>>>(a);
+  attn_bwd_kv_kernel<D><<<dim3(B * a.H, (a.S + 63) / 64), NT, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_q_kernel<T, D><<<dim3(B * a.H, (a.T + 63) / 64), NT, 0, stream>>>(a);
+  attn_bwd_q_kernel<D><<<dim3(B * a.H, (a.T + 63) / 64), NT, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_bwd(int D, const BwdArgs& a, int B, cudaStream_t stream) {
+cudaError_t dispatch_bwd_f32(int D, const BwdArgs& a, int B, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_bwd<T, 16>(a, B, stream);
-    case 32: return launch_bwd<T, 32>(a, B, stream);
-    case 64: return launch_bwd<T, 64>(a, B, stream);
-    case 128: return launch_bwd<T, 128>(a, B, stream);
+    case 16: return launch_bwd<16>(a, B, stream);
+    case 32: return launch_bwd<32>(a, B, stream);
+    case 64: return launch_bwd<64>(a, B, stream);
+    case 128: return launch_bwd<128>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -316,7 +279,8 @@ cudaError_t dispatch_bwd(int D, const BwdArgs& a, int B, cudaStream_t stream) {
 
 // Kernel H (H-kv then H-q on ``stream``): returns cudaGetLastError() after
 // the launches (0 on success). ``causal`` needs T <= S (query t at
-// position t), as kernel G.
+// position t), as kernel G. bf16 runs on the tensor cores
+// (flash_attention_bwd_mma.cu; rows 16-byte aligned), fp32 here.
 extern "C" int mm_flash_attention_bwd(
     int dtype, const void* q, const void* k, const void* v, const void* bias,
     const void* dout, const void* stat_m, const void* stat_l, const void* delta,
@@ -333,7 +297,7 @@ extern "C" int mm_flash_attention_bwd(
                       q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, causal,
                       window, (float)rate, (float)(1.0 / (1.0 - rate)), seed};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == mm::kFloat32) return (int)mm::dispatch_bwd<float>(D, a, B, st);
-  if (dtype == mm::kBFloat16) return (int)mm::dispatch_bwd<__nv_bfloat16>(D, a, B, st);
+  if (dtype == mm::kFloat32) return (int)mm::dispatch_bwd_f32(D, a, B, st);
+  if (dtype == mm::kBFloat16) return (int)mm::launch_flash_bwd_mma(a, B, D, st);
   return (int)cudaErrorInvalidValue;
 }

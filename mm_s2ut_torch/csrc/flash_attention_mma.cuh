@@ -1,0 +1,245 @@
+// The arguments of kernels A, G and H, the launchers of their bf16
+// tensor-core versions (flash_attention_mma.cu: A; flash_attention_bwd_mma.cu:
+// H), and the sm_80+ building blocks those use: 16-byte cp.async into
+// XOR-swizzled shared tiles, ldmatrix, and mma.sync m16n8k16 (bf16 in,
+// fp32 accumulate).
+//
+// Fragment layouts of mma.m16n8k16.row.col (lane = 4 g + tq):
+//   A (16 x 16): a0 = (g, 2tq..2tq+1), a1 = (g + 8, 2tq..), a2 = (g, 8 + 2tq..),
+//                a3 = (g + 8, 8 + 2tq..), two bf16 each, the lower column low;
+//   B (16 x 8):  b0 = (k 2tq..2tq+1, n g), b1 = (k 8 + 2tq.., n g);
+//   C (16 x 8):  c0, c1 = (g, 2tq), (g, 2tq + 1); c2, c3 = the same at row g + 8.
+// So the C fragments of n-tiles 2j and 2j+1 are, packed to bf16, the A
+// fragment of k-step j (acc_to_a): a softmax tile feeds the next product
+// straight from registers.
+#pragma once
+
+#include "common.cuh"
+
+namespace mm {
+
+struct FlashArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* bias;  // (B, S) additive key bias
+  void* out;          // (B, T, H, D) contiguous
+  int T, S, H;
+  int64_t q_sb, q_st, q_sh;
+  int64_t k_sb, k_st, k_sh;
+  int64_t v_sb, v_st, v_sh;
+  float scale;
+  int window;  // with a causal mask: keys s > t - window only (0 = unbounded)
+  float rate;      // attention dropout rate (0 = none)
+  float inv_keep;  // 1 / (1 - rate), rounded to float as JAX's weak typing does
+  uint32_t seed;
+  float* stat_m;  // (B.H, T) row max, or nullptr
+  float* stat_l;  // (B.H, T) row denominator, or nullptr
+};
+
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* bias;    // (B, S) additive key bias
+  const void* dout;     // (B, T, H, D) contiguous, q's type
+  const float* stat_m;  // (B.H, T) row max of the forward's softmax
+  const float* stat_l;  // (B.H, T) row denominator
+  const float* delta;   // (B.H, T) sum_d dO . O
+  void* dq;             // (B, T, H, D) contiguous, q's type
+  float* dk;            // (B, S, H, D) fp32
+  float* dv;            // (B, S, H, D) fp32
+  float* dbias;         // (B.H, S) fp32
+  int T, S, H;
+  int64_t q_sb, q_st, q_sh;
+  int64_t k_sb, k_st, k_sh;
+  int64_t v_sb, v_st, v_sh;
+  float scale;
+  int causal;
+  int window;
+  float rate;
+  float inv_keep;
+  uint32_t seed;
+};
+
+// Kernel H: outside the causal/window band, where the forward replaced the logit by -1e9.
+__device__ __forceinline__ bool masked(const BwdArgs& a, int t, int s) {
+  return a.causal && (s > t || (a.window > 0 && s <= t - a.window));
+}
+
+// Kernel H: the dropout factor of weight (bh, t, s), keep / (1 - rate), or 1.
+__device__ __forceinline__ float keep_factor(const BwdArgs& a, int bh, int t, int s) {
+  if (a.rate <= 0.f) return 1.f;
+  return hash_keep(bh, t, s, a.seed, a.rate) ? a.inv_keep : 0.f;
+}
+
+// Kernel A in bf16 on the tensor cores; D in {16, 32, 64, 128}. Rows of
+// q, k, v must be 16-byte aligned (base and strides multiples of 8).
+cudaError_t launch_flash_fwd_mma(const FlashArgs& a, int B, int D, bool causal,
+                                 cudaStream_t stream);
+// Kernel H (H-kv, then H-q) in bf16 on the tensor cores; the same rules.
+cudaError_t launch_flash_bwd_mma(const BwdArgs& a, int B, int D, cudaStream_t stream);
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kThreads = 128;  // 4 warps, each owning 16 rows of an mma tile
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared, asynchronously; ok = false writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a . b, one m16n8k16 tile, bf16 inputs, fp32 accumulators.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 (nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The accumulators of n-tiles 2j (c0) and 2j + 1 (c1) as the A fragment of k-step j.
+__device__ __forceinline__ void acc_to_a(uint32_t (&f)[4], const float (&c0)[4],
+                                         const float (&c1)[4]) {
+  f[0] = pack_bf16(c0[0], c0[1]);
+  f[1] = pack_bf16(c0[2], c0[3]);
+  f[2] = pack_bf16(c1[0], c1[1]);
+  f[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// A shared tile holds rows of D bf16 (D / 8 chunks of 16 bytes). Chunk c
+// of row r sits at chunk c ^ sw(r), where sw spreads the 8 rows that one
+// ldmatrix phase reads over all 32 banks (for D < 64 several rows share a
+// 128-byte line, so sw steps every 8 / chunks rows).
+template <int D>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  constexpr int CH = D / 8;
+  constexpr int SPAN = CH < 8 ? CH : 8;
+  constexpr int STEP = CH < 8 ? 8 / CH : 1;
+  return static_cast<uint32_t>(r * D * 2 + ((c ^ ((r / STEP) % SPAN)) << 4));
+}
+
+// Rows [r0, r0 + ROWS) of a bf16 matrix with row stride `stride` (elements)
+// into the swizzled tile at `dst`; rows at or past n are zeros.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src, int64_t stride, int r0,
+                                          int n) {
+  constexpr int CH = D / 8;
+  static_assert(ROWS * CH % kThreads == 0, "whole rounds of 16-byte copies");
+#pragma unroll
+  for (int it = 0; it < ROWS * CH / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int r = i / CH, c = i % CH;
+    const bool ok = r0 + r < n;
+    cp_async16(dst + swz<D>(r, c), src + (int64_t)(ok ? r0 + r : 0) * stride + c * 8, ok);
+  }
+}
+
+// Elements [i0, i0 + N) of a float vector into shared `dst`; past n zeros.
+template <int N>
+__device__ __forceinline__ void load_vec(float* dst, const float* src, int i0, int n) {
+  for (int i = threadIdx.x; i < N; i += kThreads) {
+    const bool ok = i0 + i < n;
+    cp_async4(smem_u32(dst + i), src + (ok ? i0 + i : 0), ok);
+  }
+}
+
+// A fragment: rows r0..r0+15 of a tile, k = head dims 16 kk..16 kk+15.
+template <int D>
+__device__ __forceinline__ void frag_a(uint32_t (&f)[4], uint32_t tile, int r0, int kk) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(f, tile + swz<D>(r0 + (lane & 15), 2 * kk + (lane >> 4)));
+}
+
+// The A fragment of k-step kk of a warp's 16 resident rows (r0..): the
+// copy held in registers (REGS), or read from the tile again (at D = 128,
+// where holding them would spill).
+template <int D, bool REGS>
+__device__ __forceinline__ void resident(uint32_t (&f)[4], const uint32_t (&held)[4],
+                                         uint32_t tile, int r0, int kk) {
+  if (REGS) {
+    f[0] = held[0];
+    f[1] = held[1];
+    f[2] = held[2];
+    f[3] = held[3];
+  } else {
+    frag_a<D>(f, tile, r0, kk);
+  }
+}
+
+// B fragments with n = tile rows r0..r0+15 and k = head dims 16 kk..:
+// {b0, b1} of n-tile r0..r0+7, then of r0+8..r0+15 (Q.K^T reads K so).
+template <int D>
+__device__ __forceinline__ void frag_b(uint32_t (&f)[4], uint32_t tile, int r0, int kk) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(f, tile + swz<D>(r0 + (lane & 7) + ((lane >> 4) << 3), 2 * kk + ((lane >> 3) & 1)));
+}
+
+// B fragments with k = tile rows r0..r0+15 and n = head dims 16 dp..16 dp+15
+// (P.V reads V so): {b0, b1} of n-tile 2 dp, then of 2 dp + 1.
+template <int D>
+__device__ __forceinline__ void frag_bt(uint32_t (&f)[4], uint32_t tile, int r0, int dp) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_t(f, tile + swz<D>(r0 + (lane & 7) + (((lane >> 3) & 1) << 3), 2 * dp + (lane >> 4)));
+}
+
+// e^x as exp2f(x . log2 e): the ex2 unit and one multiply, fewer
+// instructions than expf's range reduction, a few ulp apart from it.
+__device__ __forceinline__ float exp_e(float x) { return exp2f(x * 1.4426950408889634f); }
+
+// Sum over the 4 lanes of a quad (the lanes that share an accumulator row).
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// Raise a kernel's dynamic shared memory limit where it passes the 48 KB default.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+}  // namespace tc
+}  // namespace mm

@@ -2,10 +2,11 @@
 
     python -m mm_s2ut_torch.tools.kernel_ab --other DIR [DIR ...] [--reps 200]
 
-Each ``DIR`` is another ``csrc`` directory (``flash_attention.cu`` and
-``common.cuh``, with ``flash_attention_bwd.cu`` where it has kernel H),
-for example the parent commit's (``git archive HEAD mm_s2ut_torch/csrc |
-tar -x -C tmp/parent``, into a gitignored directory). Every tree is built
+Each ``DIR`` is another ``csrc`` directory (every ``.cu`` in it is
+built; the entries are ``flash_attention.cu``'s, with
+``flash_attention_bwd.cu``'s where it has kernel H), for example the
+parent commit's (``git archive HEAD mm_s2ut_torch/csrc | tar -x -C
+tmp/parent``, into a gitignored directory). Every tree is built
 with ``ops/_build.py``'s flags. Each case launches the C entries directly
 through ctypes, so no wrapper work is timed, alternating the trees in the
 order given, twice (CUDA events over ``reps`` back-to-back launches
@@ -28,21 +29,23 @@ import torch
 
 from mm_s2ut_torch.ops import _build
 
-H_, D_ = 8, 64
 SEED = 0x5EED
-CASES = [  # (entry, B, T, causal, window, rate) at H=8, D=64, bf16
-    ("mm_flash_attention", 8, 250, 0, 0, 0.0),
-    ("mm_flash_attention", 2, 1000, 0, 0, 0.0),
-    ("mm_flash_attention", 8, 250, 1, 0, 0.0),
-    ("mm_flash_attention_causal_skip", 1, 250, 1, 0, 0.0),
-    ("mm_flash_attention_causal_skip", 8, 250, 1, 64, 0.0),
-    ("mm_flash_attention_causal_skip", 1, 1000, 1, 64, 0.0),
-    ("mm_flash_attention", 8, 250, 0, 0, 0.1),
-    ("mm_flash_attention", 2, 1000, 0, 0, 0.1),
-    ("mm_flash_attention_bwd", 8, 250, 0, 0, 0.0),
-    ("mm_flash_attention_bwd", 8, 250, 0, 0, 0.1),
-    ("mm_flash_attention_bwd", 2, 1000, 0, 0, 0.1),
-    ("mm_flash_attention_bwd", 8, 250, 1, 64, 0.1),
+CASES = [  # (entry, B, T, H, D, causal, window, rate), bf16
+    ("mm_flash_attention", 8, 250, 8, 64, 0, 0, 0.0),
+    ("mm_flash_attention", 2, 1000, 8, 64, 0, 0, 0.0),
+    ("mm_flash_attention", 128, 250, 8, 64, 0, 0, 0.0),  # the offline bench point's encoder
+    ("mm_flash_attention", 8, 250, 4, 128, 0, 0, 0.0),
+    ("mm_flash_attention", 8, 250, 8, 64, 1, 0, 0.0),
+    ("mm_flash_attention_causal_skip", 1, 250, 8, 64, 1, 0, 0.0),
+    ("mm_flash_attention_causal_skip", 8, 250, 8, 64, 1, 64, 0.0),
+    ("mm_flash_attention_causal_skip", 1, 1000, 8, 64, 1, 64, 0.0),
+    ("mm_flash_attention", 8, 250, 8, 64, 0, 0, 0.1),
+    ("mm_flash_attention", 2, 1000, 8, 64, 0, 0, 0.1),
+    ("mm_flash_attention_bwd", 8, 250, 8, 64, 0, 0, 0.0),
+    ("mm_flash_attention_bwd", 8, 250, 8, 64, 0, 0, 0.1),
+    ("mm_flash_attention_bwd", 2, 1000, 8, 64, 0, 0, 0.1),
+    ("mm_flash_attention_bwd", 8, 250, 8, 64, 1, 64, 0.1),
+    ("mm_flash_attention_bwd", 8, 250, 4, 128, 0, 0, 0.1),
 ]
 
 
@@ -70,22 +73,22 @@ class Tree:
         return self.dropout or rate == 0.0
 
 
-def _inputs(B, T):
+def _inputs(B, T, H, D):
     g = torch.Generator().manual_seed(T)
-    q, k, v, dout = (torch.randn(B, T, H_, D_, generator=g).to("cuda", torch.bfloat16)
+    q, k, v, dout = (torch.randn(B, T, H, D, generator=g).to("cuda", torch.bfloat16)
                      for _ in range(4))
     lengths = torch.clamp(T - 17 * torch.arange(B), min=1)
     bias = torch.where(torch.arange(T)[None, :] < lengths[:, None], 0.0, -1e9).cuda()
     return q, k, v, dout, bias
 
 
-def _launcher(tree: Tree, entry, B, T, causal, window, rate):
-    q, k, v, dout, bias = _inputs(B, T)
+def _launcher(tree: Tree, entry, B, T, H, D, causal, window, rate):
+    q, k, v, dout, bias = _inputs(B, T, H, D)
     strides = [s for t in (q, k, v) for s in (t.stride(0), t.stride(1), t.stride(2))]
     stream = torch.cuda.current_stream().cuda_stream
-    common = [B, T, T, H_, D_, *strides, D_ ** -0.5, causal, window]
+    common = [B, T, T, H, D, *strides, D ** -0.5, causal, window]
     out = torch.empty_like(q)
-    stats = torch.empty((2, B * H_, T), device="cuda")
+    stats = torch.empty((2, B * H, T), device="cuda")
     fwd_entry = "mm_flash_attention_causal_skip" if causal else "mm_flash_attention"
     fwd = getattr(tree.lib, fwd_entry if entry == "mm_flash_attention_bwd" else entry)
     with_stats = rate > 0.0 or entry == "mm_flash_attention_bwd"
@@ -103,7 +106,7 @@ def _launcher(tree: Tree, entry, B, T, causal, window, rate):
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
         dq = torch.empty_like(q)
         dk, dv = (torch.empty(q.shape, device="cuda") for _ in range(2))
-        dbias = torch.empty((B, H_, T), device="cuda")
+        dbias = torch.empty((B, H, T), device="cuda")
         keep += [delta, dq, dk, dv, dbias]
         ptrs = [t.data_ptr() for t in (q, k, v, bias, dout, stats[0], stats[1], delta,
                                        dq, dk, dv, dbias)]
@@ -136,17 +139,17 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip())
     trees = [Tree("this", _build.CSRC)] + [Tree(d, Path(d)) for d in args.other]
     rows = []
-    for entry, B, T, causal, window, rate in CASES:
-        fns = {tr.label: _launcher(tr, entry, B, T, causal, window, rate)
+    for entry, B, T, H, D, causal, window, rate in CASES:
+        fns = {tr.label: _launcher(tr, entry, B, T, H, D, causal, window, rate)
                for tr in trees if tr.takes(entry, rate)}
         runs = {label: [] for label in fns}
         for _ in range(2):
             for label, fn in fns.items():
                 runs[label].append(_time(fn, args.reps))
         ms = {label: sum(v) / len(v) for label, v in runs.items()}
-        rows.append({"entry": entry, "B": B, "T": T, "causal": causal, "window": window,
-                     "rate": rate, "ms": ms, "runs": runs})
-        print(f"{entry} B={B} T={T} causal={causal} window={window} rate={rate}: "
+        rows.append({"entry": entry, "B": B, "T": T, "H": H, "D": D, "causal": causal,
+                     "window": window, "rate": rate, "ms": ms, "runs": runs})
+        print(f"{entry} B={B} T={T} H={H} D={D} causal={causal} window={window} rate={rate}: "
               + ", ".join(f"{label} {m:.4f} ms {[round(x, 4) for x in runs[label]]}"
                           for label, m in ms.items()))
         torch.cuda.empty_cache()

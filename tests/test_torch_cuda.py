@@ -6,7 +6,11 @@ same CUDA tensors. Skipped without a CUDA device. On a GPU machine
 
 Tolerances: fp32 1e-4 (both sides fp32; summation order differs), bf16
 2e-2 (the plain versions round softmax weights and products to bf16
-between the two contractions, the kernels keep fp32 until the store).
+between the two contractions; the SIMT kernels keep fp32 until the
+store, while bf16 A and H, on the tensor cores, round the weights times
+the dropout factor and dS to bf16 before their second products, with
+fp32 accumulation: ``tests/test_torch_attention_tc_numerics.py`` holds
+those rounding points to the same tolerances on the CPU).
 Kernels D and F (int8 / int4 cache): fp32 2e-3, bf16 2e-2, for a
 requantized softmax weight that flips one level at a rounding tie
 (``chip_smoke.TOL_REQUANT``); E as C. A's causal branch and G are held
@@ -65,12 +69,25 @@ def test_flash_attention(card, dtype, B, T, H, D):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_flash_attention_reads_strided_heads(card, dtype):
-    B, T, H, D = 2, 50, 4, 16
+@pytest.mark.parametrize("D", [16, 64])
+def test_flash_attention_reads_strided_heads(card, dtype, D):
+    """A and H on q, k, v viewed from one fused projection: against the
+    twin, and bit-equal to the same kernels on contiguous copies."""
+    B, T, H = 2, 50, 4
     qkv = torch.randn(B, T, 3 * H * D, device="cuda").to(dtype)
     q, k, v = (qkv[..., i * H * D : (i + 1) * H * D].view(B, T, H, D) for i in range(3))
     assert not q.is_contiguous()
-    _close(A.flash_attention(q, k, v), A.reference_attention(q * D ** -0.5, k, v), dtype)
+    got = A.flash_attention(q, k, v)
+    _close(got, A.reference_attention(q * D ** -0.5, k, v), dtype)
+    g = torch.randn(q.shape, device="cuda").to(dtype)
+    grads = []
+    for qq, kk, vv in ((q, k, v), (q.contiguous(), k.contiguous(), v.contiguous())):
+        leaves = [t.detach().requires_grad_(True) for t in (qq, kk, vv)]
+        out = A.flash_attention(*leaves)
+        out.backward(g)
+        grads.append([out] + [t.grad for t in leaves])
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*grads))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -113,13 +130,13 @@ TRAIN_SHAPES = [(2, 37, 4, 16), (3, 130, 2, 64), (2, 250, 2, 128), (2, 70, 2, 32
 TRAIN_MASKS = [(False, 0, None), (True, 0, None), (True, 5, None), (True, 0, 64), (True, 64, 64)]
 
 
-def _rel_close(got, want, dtype):
+def _rel_close(got, want, dtype, floor=1.0):
     """A/G with dropout and H's outputs against their twins: TOL times
-    max(1, the largest |want|)."""
+    max(``floor``, the largest |want|)."""
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= TOL[dtype] * max(1.0, want.float().abs().max().item()), err
+    assert err <= TOL[dtype] * max(floor, want.float().abs().max().item()), err
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -167,6 +184,87 @@ def test_flash_attention_bwd(card, dtype, rate, causal, window, block_k, B, T, H
     for x, y in zip((qg.grad, kg.grad, vg.grad), got[:3]):
         torch.cuda.synchronize()
         assert torch.equal(x, y)
+
+
+def _a_then_h(q, k, v, kpm, g, causal, window, block_k, rate, seed):
+    """A (or G with ``block_k``) with row statistics, then H: (out, dq, dk,
+    dv, dbias)."""
+    B, T, H, D = q.shape
+    bias = torch.zeros(kpm.shape, device="cuda").masked_fill(kpm, A.NEG_INF)
+    stats = torch.empty((2, B * H, T), device="cuda")
+    entry = "mm_flash_attention_causal_skip" if block_k else "mm_flash_attention"
+    out = A._launch(entry, q, k, v, bias, D ** -0.5, causal, window, rate, seed, stats)
+    return (out,) + A.flash_attention_bwd(q, k, v, bias, out, stats, g, D ** -0.5, causal,
+                                          window, rate, seed)
+
+
+@pytest.mark.parametrize("causal,window,block_k", TRAIN_MASKS)
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("T", [1, 16, 63, 64, 65, 127, 1000])
+def test_bf16_tensor_core_tile_edges(card, T, D, causal, window, block_k):
+    """bf16 A (tensor cores) and H after it, or after G's SIMT statistics
+    with ``block_k``, at the 64-row tile edges, dropout 0 and 0.1, against
+    the twins; lengths T and T - 17 leave padded rows, some whose whole
+    window band is padding.
+
+    Where a batch row has a single valid key (T = 1, and T = 16's row of
+    length 1), its softmax gradient is exactly 0: dS = P (dP F - Δ) is the
+    difference of two terms of size |Δ| that cancel. H takes Δ = Σ dO·O
+    from the bf16 output (the wrapper's one reduction), so there dq, dk
+    and dbias are held to TOL times max(1, the largest |want|, the largest
+    |Δ|) (``test_torch_attention_tc_numerics.py`` shows that the error is
+    Δ's, and that an exact Δ holds it to TOL)."""
+    dtype = torch.bfloat16
+    q, k, v, kpm = flash_inputs(2, T, 2, D, dtype, seed=T + D + window)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(D)).to("cuda", dtype)
+    bias = torch.zeros(kpm.shape, device="cuda").masked_fill(kpm, A.NEG_INF)
+    one_key = int((~kpm).sum(-1).min()) == 1
+    for rate in (0.0, 0.1):
+        seed = 99 if rate else None
+        got = _a_then_h(q, k, v, kpm, g, causal, window, block_k, rate, seed)
+        want = (A.reference_attention(q * D ** -0.5, k, v, bias[:, None, None, :], causal, window,
+                                      rate, seed),) + \
+            A.reference_attention_bwd(q, k, v, bias, g, D ** -0.5, causal, window, rate, seed)
+        delta = (g.float() * got[0].float()).sum(-1).abs().max().item() if one_key else 1.0
+        for x, y, floor in zip(got, want, (1.0, delta, delta, 1.0, delta)):  # out dq dk dv dbias
+            _rel_close(x, y, dtype, max(1.0, floor))
+
+
+@pytest.mark.parametrize("D", [16, 64, 128])
+def test_bf16_tensor_core_deterministic(card, D):
+    """Two launches of bf16 A (dropout and statistics on) and H on the same
+    inputs give the same bits: no atomics, fixed summation orders."""
+    q, k, v, kpm = flash_inputs(3, 200, 4, D, torch.bfloat16, seed=D)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to("cuda", q.dtype)
+    runs = [_a_then_h(q, k, v, kpm, g, True, 64, None, 0.1, 5) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+def test_bf16_misaligned_rows_raise(card):
+    """The tensor-core kernels copy 16-byte row chunks: a bf16 view whose
+    row stride or data pointer is not a multiple of 8 elements raises (fp32
+    takes it), for A and for H."""
+    B, T, H, D = 2, 20, 2, 16
+    wide = torch.randn(B, T, H * D + 4, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        x = wide.to(dtype)
+        views = {
+            "row stride": x[..., : H * D].unflatten(-1, (H, D)),
+            "data pointer": x.flatten()[4 : 4 + B * T * H * D].view(B, T, H, D),
+        }
+        for what, q in views.items():
+            k = v = q
+            if dtype == torch.float32:
+                _close(A.flash_attention(q, k, v), A.reference_attention(q * D ** -0.5, k, v),
+                       dtype)
+                continue
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                A.flash_attention(q, k, v)
+            bias = torch.zeros((B, T), device="cuda")
+            stats = torch.zeros((2, B * H, T), device="cuda")
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                A.flash_attention_bwd(q, k, v, bias, q, stats, q, D ** -0.5, False, 0)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
