@@ -12,7 +12,8 @@ is no CPU path):
    the main path's flagship shapes, and D, E and F at the reference
    bench's shapes (B=128, K=10, T·S=2010 at step 150, S=250), in bf16 and
    fp32, each timed beside its plain version with CUDA events, and A at
-   the offline bench point's encoder call (B=128, T=250); then A's
+   the offline bench point's encoder call (B=128, T=250) and B at its
+   decode shape (B=128, step 150 of 201); then A's
    causal branch and G at the streaming encoder's shapes (B=1 and B=8 at
    T=250, B=1 at T=1000, window 0 and 64), and C and E with the prefill's
    501 query rows at S=250;
@@ -25,7 +26,9 @@ is no CPU path):
    577x768 image feature arrays → fbank → encode + selective fusion →
    beam 10 (max_len_a 1, max_len_b 200) → units → CodeHiFiGAN at its
    default config → wav, with the launches of A, B and C counted over
-   exactly this run;
+   exactly this run; then one decode step of the same search traced by
+   ``torch.profiler`` (B's and C's share of the device time, the device's
+   busy share);
 5. the reference bench's operating point (``bench.py:236-247``): the same
    model, 128 synthetic 10 s wavs and 128 image arrays, beam 10,
    max_len_a 0, max_len_b 200, int8 KV cache, units → wav, with the
@@ -383,6 +386,7 @@ def phase_build():
 
 def phase_kernels():
     from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.ops import decode_attention as D
 
     record = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -401,6 +405,17 @@ def phase_kernels():
         print(f"phase 2: A B=128 T=250 {str(dtype)[6:]}: bound {work['bound_ms'] * 1e3:.2f} us "
               f"({work['bound_by']}), kernel / SDPA {res['ms'] / res['library_ms']:.3f}")
         del q, k, v, kpm, bias
+        # B at the offline bench point's decode shape (phase 5's bf16 half).
+        n = BENCH
+        b_args = ancestry_inputs(n["B"], n["H"], n["K"], n["Dh"], n["L"], n["T_dec"], n["step"],
+                                 dtype, seed=2)
+        res = check_and_time("B B=128 step 150", dtype,
+                             lambda: D.ancestry_decode_attention(*b_args, n["L"] // 2),
+                             lambda: D.reference(*b_args, n["L"] // 2), TOL[dtype])
+        work = ancestry_work(b_args[0], b_args[3], b_args[4], 2 * n["Dh"] * EB[dtype], "bf16")
+        print(f"phase 2: B B=128 step 150 {str(dtype)[6:]}: bound {work['bound_ms'] * 1e3:.2f} us "
+              f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}")
+        del b_args
         torch.cuda.empty_cache()
     return record
 
@@ -529,11 +544,11 @@ def phase_train_kernels():
                     seed = DROP_SEED if rate else None
                     stats = torch.empty((2, B * 8, T), device="cuda")
                     entry = "mm_flash_attention_causal_skip" if causal else "mm_flash_attention"
-                    out = A._launch(entry, q, k, v, bias, scale, causal, window, rate, seed, stats)
+                    A._launch(entry, q, k, v, bias, scale, causal, window, rate, seed, stats)
                     res = check_and_time(
                         f"H B={B} T={T} window={window if causal else 'none'} dropout {rate}", dtype,
-                        lambda: A.flash_attention_bwd(q, k, v, bias, out, stats, g, scale, causal,
-                                                      window, rate, seed),
+                        lambda: A.flash_attention_bwd(q, k, v, bias, stats, g, scale, causal, window,
+                                                      rate, seed),
                         lambda: A.reference_attention_bwd(q, k, v, bias, g, scale, causal, window,
                                                           rate, seed),
                         TOL[dtype], bwd_only, scaled=True)
@@ -717,6 +732,7 @@ def phase_main_path(model, vocoder, gen, out_dir: Path):
     from mm_s2ut_torch.infer.generator import UnitGenerator, format_generation_output
     from mm_s2ut_torch.ops import attention as A
     from mm_s2ut_torch.ops import decode_attention as D
+    from mm_s2ut_torch.tools.host_cost import profile_decode_step
 
     n_params = sum(p.numel() for p in model.parameters())
     gcfg = GenerationConfig(beam=10, max_len_a=1.0, max_len_b=200)
@@ -752,6 +768,9 @@ def phase_main_path(model, vocoder, gen, out_dir: Path):
           f"unit lengths {[len(l.split()) for l in unit_lines]}")
     print(f"phase 4: launches {launches}; stages {json.dumps({k: round(v, 4) for k, v in stages.items()})}; "
           f"total {total:.3f} s; {8 / total:.3f} utt/s")
+    prof = profile_decode_step(generator, feats, flens, [imgs.cuda()], [masks.cuda()], 200)
+    print(f"phase 4: profiled decode step 200: {json.dumps(prof)}")
+    assert prof["B_ms"] > 0 and prof["C_ms"] > 0, f"the profile names no B or C kernel: {prof}"
     return launches
 
 
@@ -1291,7 +1310,7 @@ KERNELS = {  # name, source (of the bf16 instance the record times), the TPU ker
           "mm_s2ut/ops/decode_attention.py:533"),
     "F": ("ancestry_decode_attention_i4", "mm_s2ut_torch/csrc/decode_attention_q.cu",
           "mm_s2ut/ops/decode_attention.py:291"),
-    "G": ("causal_skip_attention", "mm_s2ut_torch/csrc/flash_attention.cu",
+    "G": ("causal_skip_attention", "mm_s2ut_torch/csrc/flash_attention_mma.cu",
           "mm_s2ut/ops/attention.py:194"),
     "H": ("flash_attention_bwd", "mm_s2ut_torch/csrc/flash_attention_bwd_mma.cu",
           "mm_s2ut/ops/attention.py:377"),

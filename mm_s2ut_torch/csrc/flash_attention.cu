@@ -1,7 +1,7 @@
 // Kernels A and G — encoder self-attention forward, with attention dropout.
-// This file holds the SIMT kernel: every instance of G, and A in fp32. A in
-// bf16 runs on the tensor cores (flash_attention_mma.cu); mm_flash_attention
-// below dispatches to it.
+// This file holds the SIMT kernel, which runs A and G in fp32. In bf16 both
+// run on the tensor cores (flash_attention_mma.cu); the C entries below
+// dispatch to it.
 //
 // Kernel A replaces the Pallas TPU kernel mm_s2ut/ops/attention.py:_attn_kernel,
 // launched by _flash_call (pallas_call at attention.py:362) and reached
@@ -76,9 +76,9 @@ constexpr int kBlockQ = 64;
 constexpr int kFlashThreads = 2 * kBlockQ;
 
 // One key tile [s0, s0 + BK) into the running softmax of query row t.
-template <typename T, int D, int BK, bool CAUSAL>
+template <int D, int BK, bool CAUSAL>
 __device__ __forceinline__ void visit_tile(
-    const FlashArgs& a, const T* kb, const T* vb, const float* bias_row, int s0, int t,
+    const FlashArgs& a, const float* kb, const float* vb, const float* bias_row, int s0, int t,
     float (&ks)[BK][D], float (&vs)[BK][D], float (&bs)[BK],
     const float (&qr)[D / 2], float (&acc)[D / 2], float& m_run, float& l_run) {
   constexpr int HALF = D / 2;
@@ -88,8 +88,8 @@ __device__ __forceinline__ void visit_tile(
     const int j = i / D, d = i % D;
     const int s = s0 + j;
     const bool ok = s < a.S;
-    ks[j][d] = ok ? to_f32(kb[(int64_t)s * a.k_st + d]) : 0.f;
-    vs[j][d] = ok ? to_f32(vb[(int64_t)s * a.v_st + d]) : 0.f;
+    ks[j][d] = ok ? kb[(int64_t)s * a.k_st + d] : 0.f;
+    vs[j][d] = ok ? vb[(int64_t)s * a.v_st + d] : 0.f;
   }
   for (int j = threadIdx.x; j < BK; j += kFlashThreads)
     bs[j] = s0 + j < a.S ? bias_row[s0 + j] : 0.f;
@@ -157,7 +157,7 @@ __device__ __forceinline__ void visit_tile(
 
 // CAUSAL: apply the causal/window mask. SKIP (kernel G, needs CAUSAL):
 // visit only the key tiles that meet the block's band.
-template <typename T, int D, bool CAUSAL, bool SKIP>
+template <int D, bool CAUSAL, bool SKIP>
 __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashArgs a) {
   constexpr int BK = D <= 64 ? 64 : 32;  // 2.BK.D.4 B = 32 KB of shared memory
   constexpr int HALF = D / 2;  // dims per thread
@@ -173,16 +173,16 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashArg
   const int t = q0 + row;
   const bool row_ok = t < a.T;
 
-  const T* q = static_cast<const T*>(a.q);
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const float* q = static_cast<const float*>(a.q);
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
   const float* bias_row = a.bias + (int64_t)b * a.S;
 
   float qr[HALF], acc[HALF];
-  const T* qp = q + b * a.q_sb + (int64_t)(row_ok ? t : 0) * a.q_st + h * a.q_sh + part * HALF;
+  const float* qp = q + b * a.q_sb + (int64_t)(row_ok ? t : 0) * a.q_st + h * a.q_sh + part * HALF;
 #pragma unroll
   for (int d = 0; d < HALF; ++d) {
-    qr[d] = row_ok ? to_f32(qp[d]) : 0.f;
+    qr[d] = row_ok ? qp[d] : 0.f;
     acc[d] = 0.f;
   }
   float m_run = -INFINITY, l_run = 0.f;
@@ -201,8 +201,8 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashArg
   for (int i = 0; i < n_visits; ++i) {
     const int e = i - n_band;
     const int tile = e < 0 ? lo + i : (e < lo ? e : e + n_band);
-    visit_tile<T, D, BK, CAUSAL>(a, kb, vb, bias_row, tile * BK, t, ks, vs, bs, qr, acc, m_run,
-                                 l_run);
+    visit_tile<D, BK, CAUSAL>(a, kb, vb, bias_row, tile * BK, t, ks, vs, bs, qr, acc, m_run,
+                              l_run);
     // A row whose whole band is padding: the reference's softmax spans all
     // S keys at -1e9, so the skipped tiles join (block-uniform test).
     if (SKIP && i + 1 == n_band && __syncthreads_or(row_ok && m_run < -5e8f))
@@ -215,26 +215,26 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashArg
   }
   if (row_ok) {
     const float inv = 1.f / l_run;
-    T* op = static_cast<T*>(a.out) + (((int64_t)b * a.T + t) * a.H + h) * D + part * HALF;
+    float* op = static_cast<float*>(a.out) + (((int64_t)b * a.T + t) * a.H + h) * D + part * HALF;
 #pragma unroll
-    for (int d = 0; d < HALF; ++d) op[d] = from_f32<T>(acc[d] * inv);
+    for (int d = 0; d < HALF; ++d) op[d] = acc[d] * inv;
   }
 }
 
-template <typename T, int D, bool CAUSAL, bool SKIP>
+template <int D, bool CAUSAL, bool SKIP>
 cudaError_t launch_flash(const FlashArgs& a, int B, cudaStream_t stream) {
   const dim3 grid(B * a.H, (a.T + kBlockQ - 1) / kBlockQ);
-  flash_fwd_kernel<T, D, CAUSAL, SKIP><<<grid, kFlashThreads, 0, stream>>>(a);
+  flash_fwd_kernel<D, CAUSAL, SKIP><<<grid, kFlashThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, bool CAUSAL, bool SKIP>
+template <bool CAUSAL, bool SKIP>
 cudaError_t dispatch_flash(int D, const FlashArgs& a, int B, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_flash<T, 16, CAUSAL, SKIP>(a, B, stream);
-    case 32: return launch_flash<T, 32, CAUSAL, SKIP>(a, B, stream);
-    case 64: return launch_flash<T, 64, CAUSAL, SKIP>(a, B, stream);
-    case 128: return launch_flash<T, 128, CAUSAL, SKIP>(a, B, stream);
+    case 16: return launch_flash<16, CAUSAL, SKIP>(a, B, stream);
+    case 32: return launch_flash<32, CAUSAL, SKIP>(a, B, stream);
+    case 64: return launch_flash<64, CAUSAL, SKIP>(a, B, stream);
+    case 128: return launch_flash<128, CAUSAL, SKIP>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -261,13 +261,15 @@ extern "C" int mm_flash_attention(
                         q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window,
                         (float)rate, (float)(1.0 / (1.0 - rate)), seed, stat_m, stat_l};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == mm::kBFloat16) return (int)mm::launch_flash_fwd_mma(a, B, D, causal != 0, st);
+  if (dtype == mm::kBFloat16)
+    return (int)mm::launch_flash_fwd_mma(a, B, D, causal != 0, false, st);
   if (dtype != mm::kFloat32) return (int)cudaErrorInvalidValue;
-  return causal ? (int)mm::dispatch_flash<float, true, false>(D, a, B, st)
-                : (int)mm::dispatch_flash<float, false, false>(D, a, B, st);
+  return causal ? (int)mm::dispatch_flash<true, false>(D, a, B, st)
+                : (int)mm::dispatch_flash<false, false>(D, a, B, st);
 }
 
-// Kernel G: causal (``causal`` must be 1) with key-tile skipping, T <= S.
+// Kernel G: causal (``causal`` must be 1) with key-tile skipping, T <= S;
+// bf16 on the tensor cores (rows 16-byte aligned), fp32 here.
 extern "C" int mm_flash_attention_causal_skip(
     int dtype, const void* q, const void* k, const void* v, const void* bias,
     void* out, int B, int T, int S, int H, int D,
@@ -282,7 +284,7 @@ extern "C" int mm_flash_attention_causal_skip(
                         q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window,
                         (float)rate, (float)(1.0 / (1.0 - rate)), seed, stat_m, stat_l};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == mm::kFloat32) return (int)mm::dispatch_flash<float, true, true>(D, a, B, st);
-  if (dtype == mm::kBFloat16) return (int)mm::dispatch_flash<__nv_bfloat16, true, true>(D, a, B, st);
+  if (dtype == mm::kFloat32) return (int)mm::dispatch_flash<true, true>(D, a, B, st);
+  if (dtype == mm::kBFloat16) return (int)mm::launch_flash_fwd_mma(a, B, D, true, true, st);
   return (int)cudaErrorInvalidValue;
 }

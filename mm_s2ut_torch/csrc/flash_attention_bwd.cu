@@ -13,8 +13,10 @@
 //   dP       = dO . V^T,   dS = P * (dP * F - Delta[t]) * A[t, s],
 //   dQ = scale . dS . K,   dK = scale . dS^T . Q,   dV = (P * F)^T . dO,
 //   dbias[s] = sum_t dS[t, s]   (per head; the wrapper sums the heads),
-// with Delta[t] = sum_d dO[t, d] O[t, d] = sum_s dP[t, s] F[t, s] P[t, s]
-// (O carries the mask), computed by the wrapper, and A the causal/window
+// with Delta[t] = sum_s P[t, s] (dP[t, s] F[t, s]) over every key, summed
+// in fp32 by H-q from the same products that form dS (the reference's
+// sum_k dW W, mm_s2ut/ops/attention.py:443; sum_d dO O from a rounded
+// output would leave its rounding on rows of one valid key), and A the causal/window
 // band (1 without a causal mask). The dropout mask is regenerated from the
 // seed by the forward's counter hash (common.cuh hash_keep). A is the
 // reference's own VJP (jax.vjp of reference_attention, its default
@@ -31,8 +33,9 @@
 //         dv rows in registers and loop over every query tile staged in
 //         shared memory (fp32), accumulating dV, dK and dbias;
 //   H-q:  one block per (b.h, 64-query tile), the same split per query
-//         row, looping over every key tile staged in shared memory and
-//         accumulating dQ.
+//         row, looping twice over every key tile staged in shared memory:
+//         first summing Delta (written for H-kv, so H-q launches first),
+//         then accumulating dQ.
 // Every tile is visited, under the causal/window mask too: a row whose
 // whole band is padding has the reference's uniform weights over all S
 // keys, and its gradients reach every key. Query rows t >= T are the only
@@ -169,7 +172,7 @@ __global__ void __launch_bounds__(64 * Split<D>::PARTS) attn_bwd_kv_kernel(const
   }
 }
 
-// H-q: dQ of one 64-query tile.
+// H-q: Delta, then dQ, of one 64-query tile.
 template <int D>
 __global__ void __launch_bounds__(64 * Split<D>::PARTS) attn_bwd_q_kernel(const BwdArgs a) {
   constexpr int DT = Split<D>::DT, PARTS = Split<D>::PARTS;
@@ -199,53 +202,64 @@ __global__ void __launch_bounds__(64 * Split<D>::PARTS) attn_bwd_q_kernel(const 
   const int64_t row = (int64_t)bh * a.T + tt;
   const float m = row_ok ? a.stat_m[row] : 0.f;
   const float l = row_ok ? a.stat_l[row] : 1.f;
-  const float dl = row_ok ? a.delta[row] : 0.f;
 
   const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
   const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
   const float* bias_row = a.bias + (int64_t)b * a.S;
-  for (int s0 = 0; s0 < a.S; s0 += BK) {
-    __syncthreads();  // the previous tile is fully consumed
-    for (int i = threadIdx.x; i < BK * D; i += NT) {
-      const int j = i / D, d = i % D, s = s0 + j;
-      const bool ok = s < a.S;
-      ks[j][d] = ok ? kb[(int64_t)s * a.k_st + d] : 0.f;
-      vs[j][d] = ok ? vb[(int64_t)s * a.v_st + d] : 0.f;
-    }
-    for (int j = threadIdx.x; j < BK; j += NT) bs[j] = s0 + j < a.S ? bias_row[s0 + j] : 0.f;
-    __syncthreads();
-    const int n = min(BK, a.S - s0);
-    for (int j = 0; j < n; ++j) {
-      const int s = s0 + j;
-      const float4* krow = reinterpret_cast<const float4*>(&ks[j][part * DT]);
-      const float4* vrow = reinterpret_cast<const float4*>(&vs[j][part * DT]);
-      float sdot = 0.f, pdot = 0.f;
-#pragma unroll
-      for (int d4 = 0; d4 < DT / 4; ++d4) {
-        const float4 kk = krow[d4], vv = vrow[d4];
-        sdot = fmaf(qr[4 * d4 + 0], kk.x, sdot);
-        sdot = fmaf(qr[4 * d4 + 1], kk.y, sdot);
-        sdot = fmaf(qr[4 * d4 + 2], kk.z, sdot);
-        sdot = fmaf(qr[4 * d4 + 3], kk.w, sdot);
-        pdot = fmaf(gr[4 * d4 + 0], vv.x, pdot);
-        pdot = fmaf(gr[4 * d4 + 1], vv.y, pdot);
-        pdot = fmaf(gr[4 * d4 + 2], vv.z, pdot);
-        pdot = fmaf(gr[4 * d4 + 3], vv.w, pdot);
+  // Pass 0 sums Delta = sum_s P (dP F) over every key; pass 1 forms dS and
+  // dQ. Both form P and dP F by the same instructions, so a row of one
+  // valid key gets dS = 0 exactly, as the reference does.
+  float dl = 0.f;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int s0 = 0; s0 < a.S; s0 += BK) {
+      __syncthreads();  // the previous tile is fully consumed
+      for (int i = threadIdx.x; i < BK * D; i += NT) {
+        const int j = i / D, d = i % D, s = s0 + j;
+        const bool ok = s < a.S;
+        ks[j][d] = ok ? kb[(int64_t)s * a.k_st + d] : 0.f;
+        vs[j][d] = ok ? vb[(int64_t)s * a.v_st + d] : 0.f;
       }
-      sdot = part_sum<PARTS>(sdot);
-      pdot = part_sum<PARTS>(pdot);
-      const bool mask = masked(a, t, s);
-      const float p = row_ok ? weight(a, sdot, bs[j], mask, m, l) : 0.f;
-      const float ds = mask ? 0.f : p * (pdot * keep_factor(a, bh, t, s) - dl);
+      for (int j = threadIdx.x; j < BK; j += NT) bs[j] = s0 + j < a.S ? bias_row[s0 + j] : 0.f;
+      __syncthreads();
+      const int n = min(BK, a.S - s0);
+      for (int j = 0; j < n; ++j) {
+        const int s = s0 + j;
+        const float4* krow = reinterpret_cast<const float4*>(&ks[j][part * DT]);
+        const float4* vrow = reinterpret_cast<const float4*>(&vs[j][part * DT]);
+        float sdot = 0.f, pdot = 0.f;
 #pragma unroll
-      for (int d4 = 0; d4 < DT / 4; ++d4) {
-        const float4 kk = krow[d4];
-        dq[4 * d4 + 0] = fmaf(ds, kk.x, dq[4 * d4 + 0]);
-        dq[4 * d4 + 1] = fmaf(ds, kk.y, dq[4 * d4 + 1]);
-        dq[4 * d4 + 2] = fmaf(ds, kk.z, dq[4 * d4 + 2]);
-        dq[4 * d4 + 3] = fmaf(ds, kk.w, dq[4 * d4 + 3]);
+        for (int d4 = 0; d4 < DT / 4; ++d4) {
+          const float4 kk = krow[d4], vv = vrow[d4];
+          sdot = fmaf(qr[4 * d4 + 0], kk.x, sdot);
+          sdot = fmaf(qr[4 * d4 + 1], kk.y, sdot);
+          sdot = fmaf(qr[4 * d4 + 2], kk.z, sdot);
+          sdot = fmaf(qr[4 * d4 + 3], kk.w, sdot);
+          pdot = fmaf(gr[4 * d4 + 0], vv.x, pdot);
+          pdot = fmaf(gr[4 * d4 + 1], vv.y, pdot);
+          pdot = fmaf(gr[4 * d4 + 2], vv.z, pdot);
+          pdot = fmaf(gr[4 * d4 + 3], vv.w, pdot);
+        }
+        sdot = part_sum<PARTS>(sdot);
+        pdot = part_sum<PARTS>(pdot);
+        const bool mask = masked(a, t, s);
+        const float p = row_ok ? weight(a, sdot, bs[j], mask, m, l) : 0.f;
+        const float dw = pdot * keep_factor(a, bh, t, s);
+        if (pass == 0) {
+          dl = fmaf(p, dw, dl);
+          continue;
+        }
+        const float ds = mask ? 0.f : p * (dw - dl);
+#pragma unroll
+        for (int d4 = 0; d4 < DT / 4; ++d4) {
+          const float4 kk = krow[d4];
+          dq[4 * d4 + 0] = fmaf(ds, kk.x, dq[4 * d4 + 0]);
+          dq[4 * d4 + 1] = fmaf(ds, kk.y, dq[4 * d4 + 1]);
+          dq[4 * d4 + 2] = fmaf(ds, kk.z, dq[4 * d4 + 2]);
+          dq[4 * d4 + 3] = fmaf(ds, kk.w, dq[4 * d4 + 3]);
+        }
       }
     }
+    if (pass == 0 && row_ok && part == 0) a.delta[row] = dl;
   }
   if (row_ok) {
     float* o = static_cast<float*>(a.dq) + (((int64_t)b * a.T + t) * a.H + h) * D + part * DT;
@@ -257,10 +271,11 @@ __global__ void __launch_bounds__(64 * Split<D>::PARTS) attn_bwd_q_kernel(const 
 template <int D>
 cudaError_t launch_bwd(const BwdArgs& a, int B, cudaStream_t stream) {
   constexpr int NT = 64 * Split<D>::PARTS;
-  attn_bwd_kv_kernel<D><<<dim3(B * a.H, (a.S + 63) / 64), NT, 0, stream>>>(a);
+  // H-q first: it writes the Delta that H-kv reads.
+  attn_bwd_q_kernel<D><<<dim3(B * a.H, (a.T + 63) / 64), NT, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_q_kernel<D><<<dim3(B * a.H, (a.T + 63) / 64), NT, 0, stream>>>(a);
+  attn_bwd_kv_kernel<D><<<dim3(B * a.H, (a.S + 63) / 64), NT, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -277,13 +292,14 @@ cudaError_t dispatch_bwd_f32(int D, const BwdArgs& a, int B, cudaStream_t stream
 }  // namespace
 }  // namespace mm
 
-// Kernel H (H-kv then H-q on ``stream``): returns cudaGetLastError() after
-// the launches (0 on success). ``causal`` needs T <= S (query t at
-// position t), as kernel G. bf16 runs on the tensor cores
-// (flash_attention_bwd_mma.cu; rows 16-byte aligned), fp32 here.
+// Kernel H (H-q then H-kv on ``stream``; ``delta`` is (B.H, T) fp32
+// scratch): returns cudaGetLastError() after the launches (0 on success).
+// ``causal`` needs T <= S (query t at position t), as kernel G. bf16 runs
+// on the tensor cores (flash_attention_bwd_mma.cu; rows 16-byte aligned),
+// fp32 here.
 extern "C" int mm_flash_attention_bwd(
     int dtype, const void* q, const void* k, const void* v, const void* bias,
-    const void* dout, const void* stat_m, const void* stat_l, const void* delta,
+    const void* dout, const void* stat_m, const void* stat_l, void* delta,
     void* dq, void* dk, void* dv, void* dbias, int B, int T, int S, int H, int D,
     int64_t q_sb, int64_t q_st, int64_t q_sh,
     int64_t k_sb, int64_t k_st, int64_t k_sh,
@@ -292,7 +308,7 @@ extern "C" int mm_flash_attention_bwd(
   if (!(rate >= 0.0 && rate < 1.0) || (causal && T > S)) return (int)cudaErrorInvalidValue;
   const mm::BwdArgs a{q, k, v, static_cast<const float*>(bias), dout,
                       static_cast<const float*>(stat_m), static_cast<const float*>(stat_l),
-                      static_cast<const float*>(delta), dq, static_cast<float*>(dk),
+                      static_cast<float*>(delta), dq, static_cast<float*>(dk),
                       static_cast<float*>(dv), static_cast<float*>(dbias), T, S, H,
                       q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, causal,
                       window, (float)rate, (float)(1.0 / (1.0 - rate)), seed};

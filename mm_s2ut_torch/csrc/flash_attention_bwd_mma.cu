@@ -1,5 +1,5 @@
 // Kernel H in bf16 on Hopper's tensor cores: the encoder self-attention
-// backward (H-kv: dK, dV, dbias; H-q: dQ), two kernels, no atomics.
+// backward (H-q: Delta and dQ; H-kv: dK, dV, dbias), two kernels, no atomics.
 //
 // Replaces the Pallas TPU kernel mm_s2ut/ops/attention.py:_attn_bwd_kernel
 // (pallas_call at attention.py:500) for bf16 inputs; fp32 inputs keep the
@@ -7,15 +7,17 @@
 //   P = exp(l - m) / L (l recomputed as the forward's: one fmaf, -1e9 in
 //   place of a logit outside the causal/window band), F = keep / (1 - rate),
 //   dS = P (dP F - Delta) inside the band and 0 outside it, dP = dO.V^T,
-//   dV = (P F)^T.dO, dK = scale.dS^T.Q, dQ = scale.dS.K, dbias = sum_t dS.
+//   dV = (P F)^T.dO, dK = scale.dS^T.Q, dQ = scale.dS.K, dbias = sum_t dS,
+//   Delta_t = sum_s P (dP F) taken in fp32 in the kernel, as the reference
+//   takes sum_k dW W from its fp32 weights (mm_s2ut/ops/attention.py:443).
 //
-// What bounds it on the card: at B = 2, T = 1000 (H = 8, D = 64) the VJP
-// does 10.B.H.T^2.D = 10 GFLOP (10.4 us at 989 TFLOP/s bf16); at B = 8,
-// T = 250 it moves ~16.5 MB of q, k, v, dO, O and the fp32 dk, dv for
-// 2.6 GFLOP, so bytes bound it (4.9 us). The SIMT kernels it replaces did
-// the products on the fp32 FMA pipes, and the D / 32 threads that shared a
-// key or row each repeated the pair's exp, division, hash and shuffles:
-// that scalar work set their time.
+// What bounds it on the card: at B = 2, T = 1000 (H = 8, D = 64) the VJP does
+// 10.B.H.T^2.D = 10 GFLOP (10.4 us at 989 TFLOP/s bf16; Delta's pass recomputes
+// two of the five products on top); at B = 8, T = 250 it moves ~16.5 MB of q,
+// k, v, dO, O and the fp32 dk, dv for 2.6 GFLOP, so bytes bound it (4.9 us).
+// The SIMT kernels it replaces did the products on the fp32 FMA pipes, and the
+// D / 32 threads that shared a key or row each repeated the pair's exp,
+// division, hash and shuffles: that scalar work set their time.
 //
 // Design: every product is mma.m16n8k16 (bf16 in, fp32 accumulate), and
 // each thread owns distinct (key, query) elements of the S / dP tiles, so
@@ -32,10 +34,14 @@
 //     sums dS^T's rows in fp32. At D = 128 a tile goes in four steps of
 //     16 queries, which keeps the S^T / dP^T accumulators to 16 registers
 //     (ptxas spilled with 32).
-//   H-q: one block of 4 warps per (b.h, 64-query tile). Q and dO are A
-//     fragments (as K, V above); the block loops over every key tile (K,
-//     V and the key bias in the ring): S = Q.K^T, dP = dO.V^T, the
-//     elementwise step, dQ += bf16(dS).K (K through ldmatrix.trans).
+//   H-q (launched first): one block of 4 warps per (b.h, 64-query tile).
+//     Q and dO are A fragments (as K, V above); the block loops twice over
+//     every key tile (K, V and the key bias in the ring): S = Q.K^T and
+//     dP = dO.V^T each time; pass 0 sums Delta = sum_s P (dP F) per row
+//     and writes it for H-kv, pass 1 takes the elementwise step and
+//     dQ += bf16(dS).K (K through ldmatrix.trans). A Delta taken from the
+//     bf16 output (sum_d dO O) would leave its rounding as the whole result
+//     on a row of one valid key, where dS cancels to 0.
 // Every tile is visited, under a causal mask too: a row whose whole band
 // is padding has uniform weights over all S keys and its gradient reaches
 // every key. Rows t >= T and keys s >= S are zero-filled in shared memory
@@ -219,7 +225,12 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kv_kernel_mma(const BwdArgs
   }
 }
 
-// H-q: dQ of one 64-query tile.
+// H-q: Delta, then dQ, of one 64-query tile. Two passes over the key tiles
+// through one ring: pass 0 sums Delta_t = sum_s P (dP F) in fp32 and
+// writes it for H-kv; pass 1 forms dS = P (dP F - Delta) and dQ. Both
+// passes form P and dP F with the same instructions in the same order, so
+// on a row whose band holds one key (P = 1 there, 0 elsewhere) Delta is
+// that key's dP F exactly and dS is exactly 0, as in the reference.
 template <int D>
 __global__ void __launch_bounds__(kThreads) attn_bwd_q_kernel_mma(const BwdArgs a) {
   using C = Cfg<D>;
@@ -255,14 +266,13 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_q_kernel_mma(const BwdArgs 
   load_kv(0, 0);
   cp_async_commit();
 
-  float m_r[2], il_r[2], dl_r[2];
+  float m_r[2], il_r[2], dl_r[2] = {0.f, 0.f};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const bool ok = t_r[r] < a.T;
     const int64_t row = (int64_t)bh * a.T + (ok ? t_r[r] : 0);
     m_r[r] = ok ? a.stat_m[row] : 0.f;
     il_r[r] = ok ? 1.f / a.stat_l[row] : 0.f;
-    dl_r[r] = ok ? a.delta[row] : 0.f;
   }
   uint32_t qf[REGS ? KS : 1][4], gf[REGS ? KS : 1][4];
   float dq[NT][4];
@@ -270,10 +280,11 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_q_kernel_mma(const BwdArgs 
   for (int n = 0; n < NT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 
   const int n_tiles = (a.S + kTile - 1) / kTile;
-  for (int i = 0; i < n_tiles; ++i) {
+  for (int i = 0; i < 2 * n_tiles; ++i) {  // visit i: pass i / n_tiles, key tile i % n_tiles
     const int stage = i & 1;
-    if (i + 1 < n_tiles) {
-      load_kv(stage ^ 1, (i + 1) * kTile);
+    const bool pass1 = i >= n_tiles;
+    if (i + 1 < 2 * n_tiles) {
+      load_kv(stage ^ 1, ((i + 1) % n_tiles) * kTile);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -287,9 +298,16 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_q_kernel_mma(const BwdArgs 
         frag_a<D>(gf[kk], g_sm, qr0, kk);
       }
     }
+    if (i == n_tiles) {  // Delta of each row: the quad's partial sums, in a fixed order
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        dl_r[r] = quad_sum(dl_r[r]);
+        if (tq == 0 && t_r[r] < a.T) a.delta[(int64_t)bh * a.T + t_r[r]] = dl_r[r];
+      }
+    }
     const uint32_t ks = k_sm + stage * TB, vs = v_sm + stage * TB;
     const float* bs = bias_sm + stage * kTile;
-    const int s0 = i * kTile;
+    const int s0 = (i % n_tiles) * kTile;
 
 #pragma unroll 1  // one step for D <= 64; at D = 128 a loop keeps the live ranges short
     for (int c0 = 0; c0 < kTile; c0 += KC) {
@@ -316,8 +334,10 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_q_kernel_mma(const BwdArgs 
           mma(dp[2 * np + 1], ga, f[2], f[3]);
         }
       }
-      // Element e of n-tile n: query t_r[e >> 1], key s0 + c0 + 8 n + 2 tq + (e & 1);
-      // sc becomes dS.
+      // Element e of n-tile n: query t_r[e >> 1], key s0 + c0 + 8 n + 2 tq + (e & 1).
+      // Pass 0 adds P (dP F) to Delta over every key (the masked ones carry
+      // P = 0 unless the row's whole band is padding, as in the reference);
+      // pass 1 turns sc into dS.
 #pragma unroll
       for (int n = 0; n < KC / 8; ++n) {
 #pragma unroll
@@ -326,20 +346,26 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_q_kernel_mma(const BwdArgs 
           const bool mask = masked(a, t, s);
           const float x = mask ? kMasked : fmaf(sc[n][e], a.scale, bs[j]);
           const float p = (t < a.T && s < a.S) ? exp_e(x - m_r[r]) * il_r[r] : 0.f;
-          sc[n][e] = mask ? 0.f : p * (dp[n][e] * keep_factor(a, bh, t, s) - dl_r[r]);
+          const float dw = dp[n][e] * keep_factor(a, bh, t, s);
+          if (pass1)
+            sc[n][e] = mask ? 0.f : p * (dw - dl_r[r]);
+          else
+            dl_r[r] = fmaf(p, dw, dl_r[r]);
         }
       }
-      // dQ += bf16(dS).K: 16 queries x D per warp.
+      if (pass1) {
+        // dQ += bf16(dS).K: 16 queries x D per warp.
 #pragma unroll
-      for (int kk = 0; kk < KC / 16; ++kk) {
-        uint32_t da[4];
-        acc_to_a(da, sc[2 * kk], sc[2 * kk + 1]);
+        for (int kk = 0; kk < KC / 16; ++kk) {
+          uint32_t da[4];
+          acc_to_a(da, sc[2 * kk], sc[2 * kk + 1]);
 #pragma unroll
-        for (int dd = 0; dd < NT / 2; ++dd) {
-          uint32_t f[4];
-          frag_bt<D>(f, ks, c0 + kk * 16, dd);
-          mma(dq[2 * dd], da, f[0], f[1]);
-          mma(dq[2 * dd + 1], da, f[2], f[3]);
+          for (int dd = 0; dd < NT / 2; ++dd) {
+            uint32_t f[4];
+            frag_bt<D>(f, ks, c0 + kk * 16, dd);
+            mma(dq[2 * dd], da, f[0], f[1]);
+            mma(dq[2 * dd + 1], da, f[2], f[3]);
+          }
         }
       }
     }
@@ -364,12 +390,13 @@ cudaError_t launch(const BwdArgs& a, int B, cudaStream_t stream) {
   cudaError_t err = allow_smem(attn_bwd_kv_kernel_mma<D>, C::kKvSmem);
   if (err == cudaSuccess) err = allow_smem(attn_bwd_q_kernel_mma<D>, C::kQSmem);
   if (err != cudaSuccess) return err;
-  attn_bwd_kv_kernel_mma<D>
-      <<<dim3(B * a.H, (a.S + kTile - 1) / kTile), kThreads, C::kKvSmem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  // H-q first: it writes the Delta that H-kv reads.
   attn_bwd_q_kernel_mma<D>
       <<<dim3(B * a.H, (a.T + kTile - 1) / kTile), kThreads, C::kQSmem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_kv_kernel_mma<D>
+      <<<dim3(B * a.H, (a.S + kTile - 1) / kTile), kThreads, C::kKvSmem, stream>>>(a);
   return cudaGetLastError();
 }
 

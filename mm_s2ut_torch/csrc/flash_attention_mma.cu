@@ -1,10 +1,11 @@
-// Kernel A in bf16 on Hopper's tensor cores: encoder self-attention forward
-// with its causal/window mask, attention dropout and row statistics.
+// Kernels A and G in bf16 on Hopper's tensor cores: encoder self-attention
+// forward with its causal/window mask, attention dropout and row statistics.
 //
-// Replaces the Pallas TPU kernel mm_s2ut/ops/attention.py:_attn_kernel
-// (pallas_call at attention.py:362) for bf16 inputs; fp32 inputs keep the
-// SIMT kernel of flash_attention.cu, and so does kernel G. It computes what
-// that kernel computes (see flash_attention.cu): per (b, h),
+// Replaces the Pallas TPU kernels mm_s2ut/ops/attention.py:_attn_kernel
+// (A, pallas_call at attention.py:362) and _attn_kernel_causal_skip (G,
+// pallas_call at :348) for bf16 inputs; fp32 inputs keep the SIMT kernel
+// of flash_attention.cu. It computes what that kernel computes (see
+// flash_attention.cu): per (b, h),
 //   out[t] = sum_s softmax_s(l[t, s]) . F[t, s] . v[s],
 //   l[t, s] = scale . q[t] . k[s] + bias[s], or -1e9 outside the
 //   causal/window band, -inf past S; F the dropout factor keep / (1 - rate).
@@ -33,10 +34,26 @@
 // registers as the A operand, V through ldmatrix.trans. The epilogue
 // divides by l in fp32 and stores bf16; each row's final max m and
 // denominator l go to stat_m / stat_l for kernel H, with the SIMT
-// kernel's contract (no log-sum-exp: an all -1e9 row keeps l). Every key
-// tile is visited, so a row whose band is all padding gets the
-// reference's uniform average. Rows are read through the (B, T, H, D)
-// strides; the wrapper checks that they are 16-byte aligned.
+// kernel's contract (no log-sum-exp: an all -1e9 row keeps l). A visits
+// every key tile, so a row whose band is all padding gets the reference's
+// uniform average. Rows are read through the (B, T, H, D) strides; the
+// wrapper checks that they are 16-byte aligned.
+//
+// Kernel G (SKIP; the causal encoder's forward, T <= S with query t at position
+// t) is the same tile loop over the key tiles that meet the block's band only,
+// [lo, hi) as flash_attention.cu computes them: at most two tiles per query
+// tile with a window of 64. The SIMT G it replaces (2 threads per row, fp32 FMA
+// pipes) was 5.8x slower at B = 8, T = 250, window 64 than this loop over every
+// tile (A-causal; H100, PERF.md). The ring prefetches the next visit's tile,
+// not tile i + 1. After the last band tile a block-uniform __syncthreads_or
+// asks whether a row of the block still has a running max below -5e8 (its whole
+// band is padding); if so the block goes on over the skipped tiles, whose
+// logits the mask sets to -1e9, and the row becomes the reference's uniform mix
+// over all S keys. The first of those tiles is fetched only after that test.
+// Skipped tiles add exactly 0 to a row with a real key (p = exp(-1e9 - m) = 0,
+// alpha = 1), and the tiles before the band only ever raise the -1e9 max that
+// the first real logit wipes (alpha = 0), so on such rows G gives A-causal's
+// bits.
 #include "flash_attention_mma.cuh"
 
 namespace mm {
@@ -52,8 +69,12 @@ struct Cfg {
   static constexpr int kSmem = (kBQ + 4 * kBK) * D * 2 + 2 * kBK * 4;  // Q, 2 x (K, V), 2 x bias
 };
 
-template <int D, bool CAUSAL>
+// CAUSAL: apply the causal/window mask. SKIP (kernel G, needs CAUSAL):
+// visit only the key tiles that meet the block's band, then, if a row of
+// the block found no allowed key there, the skipped ones.
+template <int D, bool CAUSAL, bool SKIP>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_mma(const FlashArgs a) {
+  static_assert(CAUSAL || !SKIP, "band skipping needs the causal mask");
   constexpr int KS = D / 16;  // k-steps over the head dim
   constexpr int NT = D / 8;   // n-tiles of the output row
   constexpr int BK = Cfg<D>::kBK;
@@ -77,13 +98,27 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_mma(const FlashArgs
   const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + h * a.v_sh;
   const float* bias_row = a.bias + (int64_t)b * a.S;
 
+  // Visit i < n_band is band tile lo + i; past that (G only, when a row of
+  // the block found no allowed key in its band) come the skipped tiles
+  // [0, lo) and [hi, n_tiles), which the mask sets to -1e9 for every row.
+  const int n_tiles = (a.S + BK - 1) / BK;
+  int lo = 0, hi = n_tiles;
+  if (SKIP) {
+    hi = min((q0 + kBQ + BK - 1) / BK, n_tiles);
+    if (a.window > 0) lo = max(q0 - a.window + 1, 0) / BK;
+  }
+  const int n_band = hi - lo;  // >= 1: tile q0 / BK is in the band
+  auto tile_of = [&](int i) {
+    const int e = i - n_band;
+    return e < 0 ? lo + i : (e < lo ? e : e + n_band);
+  };
   auto load_kv = [&](int stage, int s0) {
     load_rows<BK, D>(k_sm + stage * TILE, kb, a.k_st, s0, a.S);
     load_rows<BK, D>(v_sm + stage * TILE, vb, a.v_st, s0, a.S);
     load_vec<BK>(bias_sm + stage * BK, bias_row, s0, a.S);
   };
   load_rows<kBQ, D>(q_sm, qb, a.q_st, q0, a.T);
-  load_kv(0, 0);
+  load_kv(0, tile_of(0) * BK);
   cp_async_commit();
 
   uint32_t qf[Q_REGS ? KS : 1][4];
@@ -92,12 +127,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_mma(const FlashArgs
   for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
-  const int n_tiles = (a.S + BK - 1) / BK;
-  for (int i = 0; i < n_tiles; ++i) {
+  int n_visits = n_band, fetched = 0;  // fetched: the last visit whose tile load was issued
+  for (int i = 0; i < n_visits; ++i) {
     const int stage = i & 1;
-    if (i + 1 < n_tiles) {
-      load_kv(stage ^ 1, (i + 1) * BK);
+    if (SKIP && i > fetched) {  // the first skipped tile: known only after the band
+      load_kv(stage, tile_of(i) * BK);
       cp_async_commit();
+    }
+    if (i + 1 < n_visits) {
+      load_kv(stage ^ 1, tile_of(i + 1) * BK);
+      cp_async_commit();
+      fetched = i + 1;
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -109,7 +149,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_mma(const FlashArgs
     }
     const uint32_t ks = k_sm + stage * TILE, vs = v_sm + stage * TILE;
     const float* bs = bias_sm + stage * BK;
-    const int s0 = i * BK;
+    const int s0 = tile_of(i) * BK;
 
     // S = Q.K^T: 16 rows x BK keys per warp.
     float s[BK / 8][4];
@@ -193,6 +233,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_mma(const FlashArgs
       }
     }
     __syncthreads();  // stage i & 1 is refilled by the next iteration's load
+    // A row whose whole band is padding: the reference's softmax spans all
+    // S keys at -1e9, so the skipped tiles join (block-uniform test).
+    if (SKIP && i + 1 == n_band &&
+        __syncthreads_or((t_r[0] < a.T && m_run[0] < -5e8f) || (t_r[1] < a.T && m_run[1] < -5e8f)))
+      n_visits = n_tiles;
   }
 
 #pragma unroll
@@ -213,32 +258,33 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_mma(const FlashArgs
   }
 }
 
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool SKIP>
 cudaError_t launch(const FlashArgs& a, int B, cudaStream_t stream) {
   constexpr int smem = Cfg<D>::kSmem;
-  const cudaError_t err = allow_smem(flash_fwd_kernel_mma<D, CAUSAL>, smem);
+  const cudaError_t err = allow_smem(flash_fwd_kernel_mma<D, CAUSAL, SKIP>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * a.H, (a.T + kBQ - 1) / kBQ);
-  flash_fwd_kernel_mma<D, CAUSAL><<<grid, kThreads, smem, stream>>>(a);
+  flash_fwd_kernel_mma<D, CAUSAL, SKIP><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool CAUSAL>
+template <bool CAUSAL, bool SKIP>
 cudaError_t dispatch(const FlashArgs& a, int B, int D, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<16, CAUSAL>(a, B, stream);
-    case 32: return launch<32, CAUSAL>(a, B, stream);
-    case 64: return launch<64, CAUSAL>(a, B, stream);
-    case 128: return launch<128, CAUSAL>(a, B, stream);
+    case 16: return launch<16, CAUSAL, SKIP>(a, B, stream);
+    case 32: return launch<32, CAUSAL, SKIP>(a, B, stream);
+    case 64: return launch<64, CAUSAL, SKIP>(a, B, stream);
+    case 128: return launch<128, CAUSAL, SKIP>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-cudaError_t launch_flash_fwd_mma(const FlashArgs& a, int B, int D, bool causal,
+cudaError_t launch_flash_fwd_mma(const FlashArgs& a, int B, int D, bool causal, bool skip,
                                  cudaStream_t stream) {
-  return causal ? dispatch<true>(a, B, D, stream) : dispatch<false>(a, B, D, stream);
+  if (skip) return causal ? dispatch<true, true>(a, B, D, stream) : cudaErrorInvalidValue;
+  return causal ? dispatch<true, false>(a, B, D, stream) : dispatch<false, false>(a, B, D, stream);
 }
 
 }  // namespace mm

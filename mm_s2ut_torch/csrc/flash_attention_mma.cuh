@@ -1,6 +1,6 @@
 // The arguments of kernels A, G and H, the launchers of their bf16
-// tensor-core versions (flash_attention_mma.cu: A; flash_attention_bwd_mma.cu:
-// H), and the sm_80+ building blocks those use: 16-byte cp.async into
+// tensor-core versions (flash_attention_mma.cu: A and G;
+// flash_attention_bwd_mma.cu: H), and the sm_80+ building blocks those use: 16-byte cp.async into
 // XOR-swizzled shared tiles, ldmatrix, and mma.sync m16n8k16 (bf16 in,
 // fp32 accumulate).
 //
@@ -45,7 +45,7 @@ struct BwdArgs {
   const void* dout;     // (B, T, H, D) contiguous, q's type
   const float* stat_m;  // (B.H, T) row max of the forward's softmax
   const float* stat_l;  // (B.H, T) row denominator
-  const float* delta;   // (B.H, T) sum_d dO . O
+  float* delta;         // (B.H, T) sum_s P (dP F): written by H-q, read by H-kv
   void* dq;             // (B, T, H, D) contiguous, q's type
   float* dk;            // (B, S, H, D) fp32
   float* dv;            // (B, S, H, D) fp32
@@ -73,9 +73,10 @@ __device__ __forceinline__ float keep_factor(const BwdArgs& a, int bh, int t, in
   return hash_keep(bh, t, s, a.seed, a.rate) ? a.inv_keep : 0.f;
 }
 
-// Kernel A in bf16 on the tensor cores; D in {16, 32, 64, 128}. Rows of
-// q, k, v must be 16-byte aligned (base and strides multiples of 8).
-cudaError_t launch_flash_fwd_mma(const FlashArgs& a, int B, int D, bool causal,
+// Kernel A (skip = false) or G (skip = true, needs causal) in bf16 on the
+// tensor cores; D in {16, 32, 64, 128}. Rows of q, k, v must be 16-byte
+// aligned (base and strides multiples of 8).
+cudaError_t launch_flash_fwd_mma(const FlashArgs& a, int B, int D, bool causal, bool skip,
                                  cudaStream_t stream);
 // Kernel H (H-kv, then H-q) in bf16 on the tensor cores; the same rules.
 cudaError_t launch_flash_bwd_mma(const BwdArgs& a, int B, int D, cudaStream_t stream);

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mm_s2ut_torch.ops.attention import flash_attention
+from mm_s2ut_torch.ops.attention import flash_attention_biased
 from mm_s2ut_torch.ops.decode_attention import cross_decode_attention, cross_decode_attention_i8
 from mm_s2ut_torch.ops.dropout import BernoulliDropout, DropoutRng, HashDropout, need_rng
 
@@ -127,18 +127,19 @@ class MultiHeadAttention(nn.Module):
         return x.reshape(b, t, self.num_heads, self.head_dim)
 
     def forward(
-        self, query: torch.Tensor, key_padding_mask: Optional[torch.Tensor],
-        causal: bool = False, window: int = 0,
+        self, query: torch.Tensor, key_bias: torch.Tensor, causal: bool = False, window: int = 0,
     ) -> torch.Tensor:
-        """Self-attention over ``query`` (B, T, E) with a key-padding mask;
-        ``causal`` (+ ``window``) masks position-causally, through kernel G.
-        In training, attention dropout with a fresh seed per call."""
+        """Self-attention over ``query`` (B, T, E) with the (B, T) f32
+        additive key bias of its padding (``ops.attention.padding_bias``,
+        built once for all layers); ``causal`` (+ ``window``) masks
+        position-causally, through kernel G. In training, attention dropout
+        with a fresh seed per call."""
         q = self._split(self.q_proj(query))
         k = self._split(self.k_proj(query))
         v = self._split(self.v_proj(query))
         rate = self.dropout if self.training else 0.0
-        out = flash_attention(
-            q, k, v, key_padding_mask=key_padding_mask, causal=causal, window=window,
+        out = flash_attention_biased(
+            q, k, v, key_bias, causal=causal, window=window,
             block_k=CAUSAL_BLOCK_K if causal else None, dropout_rate=rate,
             dropout_seed=need_rng(self).next_seed() if rate > 0.0 else None,
         )
@@ -233,8 +234,9 @@ class TransformerEncoderLayer(nn.Module):
         self.ffn = FeedForward(embed_dim, ffn_dim, activation_dropout)
         self.drop = HashDropout(dropout)
 
-    def forward(self, x: torch.Tensor, key_padding_mask: torch.Tensor) -> torch.Tensor:
-        h = self.self_attn(self.self_attn_layer_norm(x), key_padding_mask, self.causal, self.window)
+    def forward(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
+        """``key_bias``: the (B, T) f32 additive bias of the padding."""
+        h = self.self_attn(self.self_attn_layer_norm(x), key_bias, self.causal, self.window)
         x = x + self.drop(h)
         return x + self.drop(self.ffn(self.final_layer_norm(x)))
 

@@ -28,6 +28,7 @@ from mm_s2ut_torch.models.layers import (
     layer_norm,
     lengths_to_padding_mask,
 )
+from mm_s2ut_torch.ops.attention import padding_bias
 from mm_s2ut_torch.ops.dropout import HashDropout
 
 
@@ -69,7 +70,8 @@ class SpeechTransformerEncoder(nn.Module):
         padding_mask = lengths_to_padding_mask(lengths, x.shape[1])
         # Zero padded positions so they cannot leak through LN/attention.
         x = x * (~padding_mask)[..., None].to(x.dtype)
+        key_bias = padding_bias(padding_mask, *padding_mask.shape, x.device)  # once for all layers
         for i in range(self.num_layers):
-            x = getattr(self, f"layer{i}")(x, padding_mask)
+            x = getattr(self, f"layer{i}")(x, key_bias)
         x = self.final_layer_norm(x)
         return {"encoder_out": x, "encoder_padding_mask": padding_mask, "lengths": lengths}

@@ -48,9 +48,9 @@ _SIGNATURES = {
         [_i] + [_p] * 12 + [_i] * 5 + [_i64] * 9 + [_f, _i, _i, _d, _u32, _p],
         ctypes.c_int,
     ),
+    "mm_ancestry_decode_splits": ([_i] * 5, ctypes.c_int),
     "mm_ancestry_decode_attention": (
-        [_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i]
-        + [_i64] * 4 + [_p],
+        [_i, _i] + [_p] * 7 + [_i] * 7 + [_i64] * 16 + [_p],
         ctypes.c_int,
     ),
     "mm_cross_decode_smem_bytes": ([_i, _i, _i], ctypes.c_longlong),

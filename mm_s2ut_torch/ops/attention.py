@@ -3,8 +3,8 @@
 Port of ``mm_s2ut/ops/attention.py``. :func:`flash_attention` is a
 ``torch.autograd.Function``: for a CUDA tensor its forward runs the
 hand-written kernel ``csrc/flash_attention.cu`` (A, or G with ``block_k``)
-and its backward kernel H (``csrc/flash_attention_bwd.cu``); in bf16, A
-and H run on the tensor cores (``csrc/flash_attention_mma.cu``,
+and its backward kernel H (``csrc/flash_attention_bwd.cu``); in bf16, A,
+G and H run on the tensor cores (``csrc/flash_attention_mma.cu``,
 ``csrc/flash_attention_bwd_mma.cu``), which round the softmax weights
 (times the dropout factor) and dS to bf16 before their products and need
 16-byte-aligned rows; for a CPU
@@ -31,6 +31,7 @@ and int64 multiplication wraps, which keeps the low 32 bits right.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -194,7 +195,11 @@ def reference_attention_bwd(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dS.sum(dim=(1, 2))
 
 
-def _padding_bias(key_padding_mask, B, S, device) -> torch.Tensor:
+def padding_bias(key_padding_mask: Optional[torch.Tensor], B: int, S: int, device) -> torch.Tensor:
+    """(B, S) f32 additive key bias of a (B, S) padding mask (True = pad):
+    0 on a valid key, −1e9 on a padded one; zeros without a mask. The
+    encoder builds it once per forward for all its layers
+    (:func:`flash_attention_biased`)."""
     bias = torch.zeros((B, S), dtype=torch.float32, device=device)
     return bias if key_padding_mask is None else bias.masked_fill(key_padding_mask, NEG_INF)
 
@@ -227,10 +232,19 @@ def _dropout_args(rate: float, seed: Optional[int]):
     return float(rate), (int(seed) & _M32) if rate > 0.0 else 0
 
 
+def _device_context(device):
+    """``torch.cuda.device(device)`` where ``device`` is not the current
+    card (a launch goes to the current one), else no context."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def _launch(entry: str, q, k, v, bias, scale: float, causal: bool, window: int,
             rate: float, seed: Optional[int], stats: Optional[torch.Tensor]) -> torch.Tensor:
-    """Check a CUDA input and launch kernel A or G (``entry``); with
-    ``stats`` (2, B·H, Tq) f32, also write each row's softmax max and
+    """Check a CUDA input and launch kernel A or G (``entry``), counting the
+    launch on :func:`flash_attention` or :func:`causal_skip_attention`;
+    with ``stats`` (2, B·H, Tq) f32, also write each row's softmax max and
     denominator for kernel H."""
     B, Tq, H, D = q.shape
     S = k.shape[1]
@@ -238,44 +252,46 @@ def _launch(entry: str, q, k, v, bias, scale: float, causal: bool, window: int,
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
     out = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
+    with _device_context(q.device):
         rc = getattr(_build.library(), entry)(
             _build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr(), out.data_ptr(), B, Tq, S, H, D, *_strides(q, k, v),
-            float(scale), int(causal), int(window), *_dropout_args(rate, seed),
+            scale, causal, window, *_dropout_args(rate, seed),
             None if stats is None else stats[0].data_ptr(),
             None if stats is None else stats[1].data_ptr(),
             _build.stream_ptr(q.device),
         )
     _build.check(rc, entry)
+    counter = causal_skip_attention if entry == _SKIP_ENTRY else flash_attention
+    counter.launches += 1
     return out
 
 
-def flash_attention_bwd(q, k, v, bias, out, stats, g, scale: float, causal: bool, window: int,
+def flash_attention_bwd(q, k, v, bias, stats, g, scale: float, causal: bool, window: int,
                         dropout_rate: float = 0.0, dropout_seed: Optional[int] = None):
     """Kernel H: the attention backward on the card from the forward's
-    inputs, output and row statistics (``stats``: max and denominator of
-    each row's softmax, written by A or G). Returns (dq in q's dtype, dk,
-    dv cast from fp32 to k's dtype, dbias (B, S) f32). Δᵢ = Σ_d dOᵢ·Oᵢ,
-    the softmax VJP's row term, is one plain PyTorch reduction before the
-    launch (O already carries the dropout mask)."""
+    inputs and row statistics (``stats``: max and denominator of each row's
+    softmax, written by A or G). Returns (dq in q's dtype, dk, dv cast from
+    fp32 to k's dtype, dbias (B, S) f32). The softmax VJP's row term Δᵢ =
+    Σₖ Pᵢₖ·dWᵢₖ is the kernel's own, in fp32 (its (B·H, Tq) buffer is
+    scratch here)."""
     B, Tq, H, D = q.shape
     S = k.shape[1]
     _check_cuda("flash_attention_bwd", q, k, v)
-    if g.shape != q.shape or out.shape != q.shape:
-        raise ValueError("flash_attention_bwd: dO and O must have q's shape")
+    if g.shape != q.shape:
+        raise ValueError("flash_attention_bwd: dO must have q's shape")
     g = g.to(q.dtype).contiguous()
-    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()  # (B, H, Tq)
+    delta = torch.empty((B * H, Tq), dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty((B, S, H, D), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     dbias = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
+    with _device_context(q.device):
         rc = _build.library().mm_flash_attention_bwd(
             _build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr(), g.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
-            B, Tq, S, H, D, *_strides(q, k, v), float(scale), int(causal), int(window),
+            B, Tq, S, H, D, *_strides(q, k, v), scale, causal, window,
             *_dropout_args(dropout_rate, dropout_seed), _build.stream_ptr(q.device),
         )
     _build.check(rc, "mm_flash_attention_bwd")
@@ -288,9 +304,9 @@ flash_attention_bwd.launches = 0
 
 class _FlashAttention(torch.autograd.Function):
     """Forward: A or G (CUDA) / :func:`reference_attention` (CPU), saving
-    q, k, v, the output and, on the card, the row statistics. Backward: H
-    (CUDA) / :func:`reference_attention_bwd` (CPU). The key bias is built
-    from the padding mask and gets no gradient."""
+    q, k, v, the key bias and, on the card, the row statistics. Backward: H
+    (CUDA) / :func:`reference_attention_bwd` (CPU). The key bias gets no
+    gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale, causal, window, rate, seed, entry):
@@ -306,29 +322,24 @@ class _FlashAttention(torch.autograd.Function):
                     B, Tq, H, _ = q.shape
                     stats = torch.empty((2, B * H, Tq), dtype=torch.float32, device=q.device)
                 out = _launch(entry, q, k, v, bias, scale, causal, window, rate, seed, stats)
-        ctx.save_for_backward(q, k, v, bias, out, stats)
+        ctx.save_for_backward(q, k, v, bias, stats)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias, out, stats = ctx.saved_tensors
+        q, k, v, bias, stats = ctx.saved_tensors
         scale, causal, window, rate, seed = ctx.cfg
         with torch.autocast(q.device.type, enabled=False):
             if q.device.type == "cpu":
                 dq, dk, dv, _ = reference_attention_bwd(q, k, v, bias, g, scale, causal, window,
                                                         rate, seed)
             else:
-                dq, dk, dv, _ = flash_attention_bwd(q, k, v, bias, out, stats, g, scale, causal,
+                dq, dk, dv, _ = flash_attention_bwd(q, k, v, bias, stats, g, scale, causal,
                                                     window, rate, seed)
         return dq, dk, dv, None, None, None, None, None, None, None
 
 
-def _attend(entry, q, k, v, key_padding_mask, scale, causal, window, rate, seed):
-    _check_dropout(rate, seed)
-    scale = q.shape[3] ** -0.5 if scale is None else scale
-    bias = _padding_bias(key_padding_mask, q.shape[0], k.shape[1], q.device)
-    return _FlashAttention.apply(q, k, v, bias, float(scale), causal, window, float(rate),
-                                 seed, entry)
+_SKIP_ENTRY = "mm_flash_attention_causal_skip"
 
 
 def causal_skip_attention(
@@ -348,11 +359,8 @@ def causal_skip_attention(
     Tq, S = q.shape[1], k.shape[1]
     if Tq > S:
         raise ValueError(f"causal_skip_attention: Tq={Tq} > S={S}")
-    out = _attend("mm_flash_attention_causal_skip", q, k, v, key_padding_mask, scale, True,
-                  window, dropout_rate, dropout_seed)
-    if q.device.type != "cpu":
-        causal_skip_attention.launches += 1
-    return out
+    bias = padding_bias(key_padding_mask, q.shape[0], S, q.device)
+    return _attend(_SKIP_ENTRY, q, k, v, bias, scale, True, window, dropout_rate, dropout_seed)
 
 
 causal_skip_attention.launches = 0
@@ -380,19 +388,39 @@ def flash_attention(
     weights by the hash of (b·H + h, t, s) and the uint32 ``dropout_seed``,
     which the caller varies per call. Differentiable: the backward is
     kernel H on the card."""
+    bias = padding_bias(key_padding_mask, q.shape[0], k.shape[1], q.device)
+    return flash_attention_biased(q, k, v, bias, scale, causal, window, dropout_rate, block_k,
+                                  dropout_seed)
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_biased(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,  # (B, Tk) f32 additive key bias, :func:`padding_bias`
+    scale: Optional[float] = None,
+    causal: bool = False,
+    window: int = 0,
+    dropout_rate: float = 0.0,
+    block_k: Optional[int] = None,
+    dropout_seed: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`flash_attention` with the key bias already built, as the
+    encoder hands one bias to all its layers."""
     S = k.shape[1]
     if causal and q.shape[1] != S:
         raise ValueError("causal flash attention requires Tq == Tk")
     if window and not causal:
         raise ValueError("window needs causal=True")
-    if causal and block_k is not None:
-        return causal_skip_attention(q, k, v, key_padding_mask, scale, window, dropout_rate,
-                                     dropout_seed)
-    out = _attend("mm_flash_attention", q, k, v, key_padding_mask, scale, causal, window,
-                  dropout_rate, dropout_seed)
-    if q.device.type != "cpu":
-        flash_attention.launches += 1
-    return out
+    entry = _SKIP_ENTRY if causal and block_k is not None else "mm_flash_attention"
+    return _attend(entry, q, k, v, bias, scale, causal, window, dropout_rate, dropout_seed)
 
 
-flash_attention.launches = 0
+def _attend(entry, q, k, v, bias, scale, causal, window, rate, seed):
+    _check_dropout(rate, seed)
+    scale = q.shape[3] ** -0.5 if scale is None else scale
+    return _FlashAttention.apply(q, k, v, bias, float(scale), causal, window, float(rate),
+                                 seed, entry)

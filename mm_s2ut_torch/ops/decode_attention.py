@@ -178,31 +178,48 @@ def ancestry_decode_attention(
     layer: int,
 ) -> torch.Tensor:
     """(B, H, K, Dh) in q's dtype. The layer's slab is read through the
-    cache's strides, never copied."""
+    cache's strides, never copied; q, k_new and v_new through theirs (the
+    decoder's beam-major views), and the result is a (B, H, K, Dh) view of
+    a beam-major (B, K, H, Dh) buffer, which the decoder flattens without
+    a copy."""
     if q.device.type == "cpu":
         return reference(q, k_new, v_new, kv, flat_rep, layer)
+    return _launch_ancestry(q, k_new, v_new, kv, flat_rep, layer)
+
+
+def _launch_ancestry(q, k_new, v_new, kv, flat_rep, layer: int, variant: int = 0):
+    """Check a CUDA input and launch kernel B (the split pass and the merge);
+    ``variant`` picks one of the kernel's alternative designs, which only
+    ``tools/kernel_ab.py`` times."""
+    name = "ancestry_decode_attention"
     B, H, K, Dh = q.shape
-    _check_common("ancestry_decode_attention", q, (k_new, v_new, kv, flat_rep), K, Dh)
+    _check_common(name, q, (k_new, v_new, kv, flat_rep), K, Dh)
     if any(t.dtype != q.dtype for t in (k_new, v_new, kv)):
-        raise ValueError("ancestry_decode_attention: q, k_new, v_new, kv must share a dtype")
+        raise ValueError(f"{name}: q, k_new, v_new, kv must share a dtype")
     if kv.shape[0] != B or kv.shape[2] != H or kv.shape[4] != 2 * Dh or kv.stride(4) != 1:
-        raise ValueError(f"ancestry_decode_attention: cache shape {tuple(kv.shape)} / strides")
+        raise ValueError(f"{name}: cache shape {tuple(kv.shape)} / strides")
+    if kv.data_ptr() % 16 or any(kv.stride(i) * kv.element_size() % 16 for i in range(4)):
+        raise ValueError(f"{name}: cache rows must be 16-byte aligned (16-byte row copies)")
     if not 0 <= layer < kv.shape[1]:
-        raise ValueError(f"ancestry_decode_attention: layer {layer} out of range")
+        raise ValueError(f"{name}: layer {layer} out of range")
     TS = kv.shape[3]
     if flat_rep.dtype != torch.int32 or tuple(flat_rep.shape) != (B, K, TS):
-        raise ValueError("ancestry_decode_attention: flat_rep must be (B, K, T·S) int32")
-    q, k_new, v_new, flat_rep = (t.contiguous() for t in (q, k_new, v_new, flat_rep))
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        rc = _build.library().mm_ancestry_decode_attention(
-            _build.dtype_code(q.dtype), q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            kv.data_ptr(), flat_rep.data_ptr(), out.data_ptr(),
-            B, H, K, Dh, TS, layer,
-            kv.stride(0), kv.stride(1), kv.stride(2), kv.stride(3),
-            _build.stream_ptr(q.device),
-        )
-    _build.check(rc, "ancestry_decode_attention")
+        raise ValueError(f"{name}: flat_rep must be (B, K, T·S) int32")
+    if any(t.shape != q.shape or t.stride(3) != 1 for t in (q, k_new, v_new)):
+        raise ValueError(f"{name}: q, k_new, v_new must be (B, H, K, Dh) with a dense head dim")
+    flat_rep = flat_rep.contiguous()
+    lib = _build.library()
+    n_split = lib.mm_ancestry_decode_splits(_build.dtype_code(q.dtype), B, H, TS, variant)
+    scratch = torch.empty(B * H * n_split * K * (Dh + 2), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, K, H, Dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    rc = lib.mm_ancestry_decode_attention(
+        _build.dtype_code(q.dtype), variant, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        kv.data_ptr(), flat_rep.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        B, H, K, Dh, TS, layer, n_split,
+        *(st for t in (q, k_new, v_new, out) for st in t.stride()[:3]),
+        *kv.stride()[:4], _build.stream_ptr(q.device),
+    )
+    _build.check(rc, name)
     ancestry_decode_attention.launches += 1
     return out
 
