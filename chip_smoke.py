@@ -12,8 +12,9 @@ is no CPU path):
    the main path's flagship shapes, and D, E and F at the reference
    bench's shapes (B=128, K=10, T·S=2010 at step 150, S=250), in bf16 and
    fp32, each timed beside its plain version with CUDA events, and A at
-   the offline bench point's encoder call (B=128, T=250) and B at its
-   decode shape (B=128, step 150 of 201); then A's
+   the offline bench point's encoder call (B=128, T=250), B and C at its
+   decode shape (B=128, step 150 of 201; C beside SDPA), and D at the
+   flagship's (B=8, step 300 of 500); then A's
    causal branch and G at the streaming encoder's shapes (B=1 and B=8 at
    T=250, B=1 at T=1000, window 0 and 64), and C and E with the prefill's
    501 query rows at S=250;
@@ -416,6 +417,31 @@ def phase_kernels():
         print(f"phase 2: B B=128 step 150 {str(dtype)[6:]}: bound {work['bound_ms'] * 1e3:.2f} us "
               f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}")
         del b_args
+        # C at the bench point's decode shape (B=128, one split per (b, h))
+        # beside SDPA, and D at the flagship's (B=8, split over blocks).
+        c_args = cross_inputs(n["B"], n["H"], n["K"], n["Dh"], n["S_cross"], dtype, seed=3)
+        c_mask = c_args[2][:, None, None, :].to(dtype)
+        c_k, c_v = c_args[1][..., : n["Dh"]], c_args[1][..., n["Dh"] :]
+        res = check_and_time("C B=128", dtype, lambda: D.cross_decode_attention(*c_args),
+                             lambda: D.cross_reference(*c_args), TOL[dtype],
+                             lambda: torch.nn.functional.scaled_dot_product_attention(
+                                 c_args[0], c_k, c_v, attn_mask=c_mask, scale=1.0))
+        work = cross_work(c_args[0], n["S_cross"], 2 * n["Dh"] * EB[dtype], "bf16")
+        print(f"phase 2: C B=128 {str(dtype)[6:]}: bound {work['bound_ms'] * 1e3:.2f} us "
+              f"({work['bound_by']}), kernel / SDPA {res['ms'] / res['library_ms']:.3f}, "
+              f"kernel / bound {res['ms'] / work['bound_ms']:.2f}")
+        del c_args, c_mask, c_k, c_v
+        s = FLAGSHIP
+        d_args = quant_ancestry_inputs(s["B"], s["H"], s["K"], s["Dh"], s["L"], s["T_dec"],
+                                       s["step"], dtype, seed=4)
+        res = check_and_time("D flagship step 300", dtype,
+                             lambda: D.ancestry_decode_attention_i8(*d_args, s["L"] // 2),
+                             lambda: D.reference_i8(*d_args, s["L"] // 2), TOL_REQUANT[dtype])
+        work = ancestry_work(d_args[0], d_args[3], d_args[6], 2 * s["Dh"] + 8, "int8")
+        print(f"phase 2: D flagship step 300 {str(dtype)[6:]}: bound "
+              f"{work['bound_ms'] * 1e3:.2f} us ({work['bound_by']}), kernel / bound "
+              f"{res['ms'] / work['bound_ms']:.2f}")
+        del d_args
         torch.cuda.empty_cache()
     return record
 

@@ -54,34 +54,52 @@
 // any T.S runs; q, k_new, v_new and the output go through strides too (the
 // decoder's beam-major views, without copies).
 //
-// Design of C: grid (B.H, ceil(K/16)); a block takes 16 of the rows (all
-// K when K <= 16, so a decode step runs one block per (b, h) as before,
-// and many rows re-read the slab once per 16 of them: 32 reads of a
-// 64 KB slab at 501 rows). The block's pre-scaled queries sit in shared
-// memory; one thread per source column computes its rows' scores, which
-// stay in shared memory (16.S floats at most) for a two-pass softmax; then
-// each thread owns one output dim for a few rows and streams the V half of
-// the slab.
+// Design of C. In bf16 the K <= 16 rows of a decode step are the 16 rows
+// of mma.m16n8k16 (rows past K are zeros), as B's beams are: grid (B.H,
+// n_split), the S columns cut into n_split spans of whole key tiles where
+// B.H is under a wave (n_split 1 at B = 128, the slab then read once per
+// (b, h)), 4 warps per block, and each warp takes its own tiles of the
+// span (32 keys, 16 at Dh = 128) through its own 2-stage cp.async ring of
+// XOR-swizzled K and V rows with the tile's bias beside them, and keeps
+// its own online softmax: S = Q.K^T + bias (-inf past S), O += bf16(P).V.
+// The slab is dense, so no compaction. The warps merge in shared memory at
+// the end; with one split the block divides by the denominator and stores,
+// else it leaves (max, denominator, unnormalised O) per row in fp32 scratch
+// and a small merge kernel per (b, h) folds the splits in split order. No
+// atomics, so two launches give the same bits. A warp, or a split, that
+// saw no column keeps max -inf and weighs 0 in the merge (a span of -1e9
+// padding keeps a finite max that the merge weighs exp(-1e9 - M) = 0).
+// P is rounded to bf16 before P.V, unnormalised, as in A, B and G; the
+// reference rounds the normalised weights (p / sum p) to bf16
+// (_kernel_cross, decode_attention.py:497): both round each weight to a
+// few bf16 ulps of a convex mix, inside the card checks' bf16 2e-2. The
+// prefill's many rows (K > 16, P = max_len + 1) take A's tensor-core
+// forward (flash_attention_mma.cu) with scale 1 over the slab's K and V
+// halves as strided (B, S, H, Dh) views: 4 warps x 16 query rows per
+// block over every key tile, so the slab is read once per 64 rows. In
+// fp32 (the tensor cores' TF32 would miss the 1e-4 tolerance) C keeps its
+// SIMT kernel: grid (B.H, ceil(K/16)), a block's <= 16 rows of scores in
+// shared memory for a two-pass softmax, each thread reading its K row in
+// 16-byte chunks, then one output dim per thread over the V half.
+// q and the output go through strides: the decoder hands a beam-major
+// (B, K, H, Dh) query viewed as (B, H, K, Dh), and the result is a view
+// of a beam-major buffer, so neither is copied.
 // The TPU version's batch-row blocking (_cross_block_rows) and the host
 // broadcast of the bias over K were Mosaic/VMEM workarounds and have no
 // counterpart.
-#include "flash_attention_mma.cuh"
+#include "decode_attention.cuh"
 
 namespace mm {
 namespace {
-
-constexpr int kMaxBeams = 16;
 
 // ---------------------------------------------------------------- kernel B
 
 using namespace tc;
 
-constexpr int kBSpan = 2048;      // most columns one split covers (16-bit offsets)
 constexpr int kBMaxSplits = 64;   // most splits of one (b, h): the merge's weights table
 constexpr int kBThreads = 256;    // SIMT split pass and merge: 8 warps
 constexpr int kBTile = 32;        // SIMT: live columns per staged tile, one per lane
 constexpr int kBMmaThreads = 128; // tensor-core split pass: 4 warps, each with its own tiles
-constexpr int kSMs = 132;         // an H100's SMs
 
 struct AncestryArgs {
   const void* q;       // (B, H, K, Dh) through strides, pre-scaled
@@ -98,53 +116,6 @@ struct AncestryArgs {
   float* part_acc;     // (B.H, n_split, K, Dh) its unnormalised w.V
   int H, K, TS, layer, n_split, span, hpb;  // hpb: heads per block (1 or H)
 };
-
-// The live columns of [c0, c1) (those on some beam's path, flat_rep[k][j]
-// == j), in column order, as (offset | beams << 16) into ``live``; returns
-// their count. Each thread reads R columns per round with all its K loads
-// in flight at once (``count`` holds R x NT / 32 ints).
-template <int NT, int R>
-__device__ __forceinline__ int compact_live(const int* fr, int K, int TS, int c0, int c1,
-                                            uint32_t* live, int* count) {
-  constexpr int NW = NT / 32;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int n_live = 0;
-  for (int base = c0; base < c1; base += NT * R) {
-    int v[R][kMaxBeams];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int j = base + r * NT + threadIdx.x;
-#pragma unroll
-      for (int k = 0; k < kMaxBeams; ++k) v[r][k] = k < K && j < c1 ? fr[(int64_t)k * TS + j] : -1;
-    }
-    unsigned beams[R], ballot[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int j = base + r * NT + threadIdx.x;
-      beams[r] = 0;
-#pragma unroll
-      for (int k = 0; k < kMaxBeams; ++k) beams[r] |= (unsigned)(v[r][k] == j) << k;
-      ballot[r] = __ballot_sync(0xffffffffu, beams[r] != 0);
-      if (lane == 0) count[r * NW + warp] = __popc(ballot[r]);
-    }
-    __syncthreads();
-    int off = n_live;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      int mine = off;
-      for (int w = 0; w < NW; ++w) {
-        mine += w < warp ? count[r * NW + w] : 0;
-        off += count[r * NW + w];
-      }
-      if (beams[r])
-        live[mine + __popc(ballot[r] & ((1u << lane) - 1))] =
-            (uint32_t)(base + r * NT + threadIdx.x - c0) | (beams[r] << 16);
-    }
-    n_live = off;
-    __syncthreads();  // count is rewritten by the next round
-  }
-  return n_live;
-}
 
 // A split with no live column: only its maxima are read, by the merge.
 __device__ __forceinline__ void write_empty(const AncestryArgs& a, int64_t part0) {
@@ -615,17 +586,241 @@ cudaError_t dispatch_ancestry(int DH, const AncestryArgs& a, int B, cudaStream_t
 
 // ---------------------------------------------------------------- kernel C
 
-constexpr int kCrossThreads = 256;
+constexpr int kCrossThreads = 256;  // fp32 SIMT kernel
+constexpr int kCThreads = 128;      // bf16 split pass and merge: 4 warps
+constexpr int kCMaxSplits = 16;
 
 struct CrossArgs {
-  const void* q;      // (B, H, K, Dh) contiguous, pre-scaled
-  const void* kv;     // (B, H, S, 2.Dh) contiguous
-  const float* bias;  // (B, S) additive
-  void* out;          // (B, H, K, Dh) contiguous
-  int H, K, S;
+  const void* q;       // (B, H, K, Dh) through strides, pre-scaled
+  int64_t q_sb, q_sh, q_sk;
+  const void* kv;      // (B, H, S, 2.Dh) contiguous
+  const float* bias;   // (B, S) additive
+  void* out;           // (B, H, K, Dh) through strides
+  int64_t o_sb, o_sh, o_sk;
+  float* part_m;       // (B.H, n_split, K) max of each split, -inf if it saw no column
+  float* part_l;       // (B.H, n_split, K) its denominator
+  float* part_acc;     // (B.H, n_split, K, Dh) its unnormalised P.V
+  int H, K, S, n_split, tps;  // tps: key tiles per split
 };
 
-template <typename T, int DH>
+// Shared memory of the bf16 split pass: each warp's 2-stage ring of TW-key
+// K and V tiles (swizzled) and their TW bias values, then the head's q as
+// 16 zero-padded rows. The warps' (O, m, l) for the block's merge go over
+// the drained ring.
+template <int D>
+struct CMma {
+  static constexpr int kTW = D <= 64 ? 32 : 16;  // keys per warp tile
+  static constexpr int kTile = kTW * D * 2;      // one K (or V) tile, bf16
+  static constexpr int kStage = 2 * kTile + kTW * 4;
+  static constexpr int kRing = 0;
+  static constexpr int kQ = kRing + 4 * 2 * kStage;
+  static constexpr int kBytes = kQ + 16 * D * 2;
+  static constexpr int kMerge = 16 * (D + 2);  // floats per warp: O (16 x D), m, l
+  static_assert(4 * kMerge * 4 <= kQ - kRing, "the merge fits over the ring");
+  static_assert(kStage % 16 == 0, "16-byte aligned stages");
+};
+
+// bf16 split pass: block (b.h, split). Warp w takes key tiles i0 + w, i0 +
+// w + 4, ... of the split's [i0, i1), each gathered by its own lanes, and
+// keeps its own online softmax with the K rows as mma rows; the four
+// warps' (m, l, O) merge at the end, into the output (one split) or the
+// split's partial.
+template <int D>
+__global__ void __launch_bounds__(kCThreads) cross_decode_split_kernel_mma(const CrossArgs a) {
+  using C = CMma<D>;
+  constexpr int KS = D / 16, NT = D / 8, TW = C::kTW, CH = D / 8;
+  extern __shared__ __align__(128) unsigned char c_smem[];
+  float* merge = reinterpret_cast<float*>(c_smem + C::kRing);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int K = a.K, S = a.S;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, split = blockIdx.y;
+  const int i1 = min((S + TW - 1) / TW, (split + 1) * a.tps);
+  const bf16* slab = static_cast<const bf16*>(a.kv) + (int64_t)bh * S * 2 * D;
+  const float* bias = a.bias + (int64_t)b * S;
+  const uint32_t ring = smem_u32(c_smem + C::kRing) + warp * 2 * C::kStage;
+  auto gather = [&](int stage, int i) {  // key tile i into this warp's stage; past S zeros
+    const uint32_t kt = ring + stage * C::kStage, vt = kt + C::kTile;
+    const int s0 = i * TW;
+    for (int e = lane; e < TW * 2 * CH; e += 32) {
+      const int r = e / (2 * CH), c = e % (2 * CH);
+      const bool ok = s0 + r < S;
+      cp_async16(c < CH ? kt + swz<D>(r, c) : vt + swz<D>(r, c - CH),
+                 slab + (int64_t)(ok ? s0 + r : 0) * 2 * D + c * 8, ok);
+    }
+    if (lane < TW) {
+      const bool ok = s0 + lane < S;
+      cp_async4(kt + 2 * C::kTile + lane * 4, bias + (ok ? s0 + lane : 0), ok);
+    }
+  };
+  int i = split * a.tps + warp;
+  if (i < i1) {  // the warp's first tile goes in flight before q is staged
+    gather(0, i);
+    cp_async_commit();
+  }
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  for (int e = threadIdx.x; e < 16 * D; e += kCThreads) {
+    const int r = e / D, d = e % D;
+    *reinterpret_cast<bf16*>(c_smem + C::kQ + swz<D>(r, d / 8) + (d % 8) * 2) =
+        r < K ? q[r * a.q_sk + d] : __float2bfloat16(0.f);
+  }
+  __syncthreads();
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) frag_a<D>(qf[kk], smem_u32(c_smem + C::kQ), 0, kk);
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  for (int j = 0; i < i1; ++j, i += 4) {
+    const int stage = j & 1;
+    if (i + 4 < i1) {
+      gather(stage ^ 1, i + 4);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const uint32_t kt = ring + stage * C::kStage, vt = kt + C::kTile;
+    const float* bs = reinterpret_cast<const float*>(c_smem + C::kRing + warp * 2 * C::kStage +
+                                                     stage * C::kStage + 2 * C::kTile);
+    const int n_in = min(TW, S - i * TW);
+    float s[TW / 8][4];
+#pragma unroll
+    for (int n = 0; n < TW / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int np = 0; np < TW / 16; ++np) {
+        uint32_t f[4];
+        frag_b<D>(f, kt, np * 16, kk);
+        mma(s[2 * np], qf[kk], f[0], f[1]);
+        mma(s[2 * np + 1], qf[kk], f[2], f[3]);
+      }
+    }
+    // Element e of n-tile n: row g + 8 (e >> 1), key i.TW + 8 n + 2 tq + (e & 1).
+    float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < TW / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * tq + (e & 1);
+        s[n][e] = c < n_in ? s[n][e] + bs[c] : -INFINITY;
+        mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
+      }
+    }
+    float alpha[2], m_new[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_new[r] = fmaxf(m_run[r], quad_max(mt[r]));
+      // -inf until a key with a finite logit comes: nothing to rescale yet
+      alpha[r] = m_new[r] == -INFINITY ? 1.f : exp_e(m_run[r] - m_new[r]);
+      m_run[r] = m_new[r];
+      l_run[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < TW / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = m_new[r] == -INFINITY ? 0.f : exp_e(s[n][e] - m_new[r]);
+        l_run[r] += p;
+        s[n][e] = p;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < TW / 16; ++kk) {
+      uint32_t pa[4];
+      acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dp = 0; dp < NT / 2; ++dp) {
+        uint32_t f[4];
+        frag_bt<D>(f, vt, kk * 16, dp);
+        mma(o[2 * dp], pa, f[0], f[1]);
+        mma(o[2 * dp + 1], pa, f[2], f[3]);
+      }
+    }
+    __syncwarp();  // the stage is refilled by the next iteration's gather
+  }
+
+  __syncthreads();  // every ring is drained: the merge goes over them
+  float* mw = merge + warp * C::kMerge;  // O [16][D], then m [16], l [16]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l = quad_sum(l_run[r]);
+    if (tq == 0) {
+      mw[16 * D + g + 8 * r] = m_run[r];
+      mw[16 * D + 16 + g + 8 * r] = l;
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mw[(g + 8 * (e >> 1)) * D + 8 * n + 2 * tq + (e & 1)] = o[n][e];
+  }
+  __syncthreads();
+  const int64_t part = (int64_t)bh * a.n_split + split;
+  bf16* out = static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh;
+  for (int e = threadIdx.x; e < K * D; e += kCThreads) {
+    const int k = e / D, d = e % D;
+    float M = -INFINITY, l = 0.f, acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) M = fmaxf(M, merge[w * C::kMerge + 16 * D + k]);
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float* mv = merge + w * C::kMerge;
+      const float m = mv[16 * D + k];
+      if (m == -INFINITY) continue;  // the warp saw no key (or only -inf logits)
+      const float sc = exp_e(m - M);
+      l = fmaf(sc, mv[16 * D + 16 + k], l);
+      acc = fmaf(sc, mv[k * D + d], acc);
+    }
+    if (a.n_split == 1) {
+      out[k * a.o_sk + d] = __float2bfloat16_rn(acc / l);
+      continue;
+    }
+    if (d == 0) {
+      a.part_m[part * K + k] = M;
+      a.part_l[part * K + k] = l;
+    }
+    a.part_acc[(part * K + k) * D + d] = acc;
+  }
+}
+
+// bf16 merge: one block per (b, h) folds the splits' (m, l, O) in split
+// order; a split that saw no column (max -inf) weighs 0.
+template <int D>
+__global__ void __launch_bounds__(kCThreads) cross_decode_merge_kernel(const CrossArgs a) {
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, K = a.K, S = a.n_split;
+  const int64_t part0 = (int64_t)bh * S;
+  bf16* out = static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh;
+  for (int e = threadIdx.x; e < K * D; e += kCThreads) {
+    const int k = e / D, d = e % D;
+    float M = -INFINITY;
+    for (int sp = 0; sp < S; ++sp) M = fmaxf(M, a.part_m[(part0 + sp) * K + k]);
+    float l = 0.f, acc = 0.f;
+    for (int sp = 0; sp < S; ++sp) {
+      const float m = a.part_m[(part0 + sp) * K + k];
+      if (m == -INFINITY) continue;  // its l and O may be unwritten
+      const float sc = exp_e(m - M);
+      l = fmaf(sc, a.part_l[(part0 + sp) * K + k], l);
+      acc = fmaf(sc, a.part_acc[((part0 + sp) * K + k) * D + d], acc);
+    }
+    out[k * a.o_sk + d] = __float2bfloat16_rn(acc / l);
+  }
+}
+
+// fp32 SIMT kernel: grid (B.H, ceil(K/16)), a block's <= 16 rows.
+template <int DH>
 __global__ void __launch_bounds__(kCrossThreads) cross_decode_kernel(const CrossArgs a) {
   extern __shared__ float smem[];
   const int r0 = blockIdx.y * kMaxBeams;  // this block's rows: [r0, r0 + K)
@@ -635,29 +830,33 @@ __global__ void __launch_bounds__(kCrossThreads) cross_decode_kernel(const Cross
   float* rsum = sc + K * S;    // [K]
 
   const int bh = blockIdx.x;
-  const int b = bh / a.H;
-  const int64_t row0 = (int64_t)bh * a.K + r0;
-  const T* q = static_cast<const T*>(a.q) + row0 * DH;
-  const T* kv = static_cast<const T*>(a.kv) + (int64_t)bh * S * 2 * DH;
+  const int b = bh / a.H, h = bh % a.H;
+  const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh + r0 * a.q_sk;
+  const float* kv = static_cast<const float*>(a.kv) + (int64_t)bh * S * 2 * DH;
   const float* bias = a.bias + (int64_t)b * S;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   constexpr int NW = kCrossThreads / 32;
 
-  for (int i = threadIdx.x; i < K * DH; i += kCrossThreads) qs[i] = to_f32(q[i]);
+  for (int i = threadIdx.x; i < K * DH; i += kCrossThreads) qs[i] = q[(i / DH) * a.q_sk + i % DH];
   __syncthreads();
 
-  // Pass 1: scores, one thread per source column.
+  // Pass 1: scores, one thread per source column, its K row read 16 bytes
+  // (4 floats) at a time.
   for (int s = threadIdx.x; s < S; s += kCrossThreads) {
-    const T* krow = kv + (int64_t)s * 2 * DH;
+    const float4* krow = reinterpret_cast<const float4*>(kv + (int64_t)s * 2 * DH);
     float acc[kMaxBeams];
 #pragma unroll
     for (int k = 0; k < kMaxBeams; ++k) acc[k] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      const float kd = to_f32(krow[d]);
+#pragma unroll 2
+    for (int c = 0; c < DH / 4; ++c) {
+      const float4 x = krow[c];
+      const float kd[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-      for (int k = 0; k < kMaxBeams; ++k)
-        if (k < K) acc[k] = fmaf(qs[k * DH + d], kd, acc[k]);
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int k = 0; k < kMaxBeams; ++k)
+          if (k < K) acc[k] = fmaf(qs[k * DH + 4 * c + i], kd[i], acc[k]);
+      }
     }
     const float bs = bias[s];
 #pragma unroll
@@ -690,43 +889,43 @@ __global__ void __launch_bounds__(kCrossThreads) cross_decode_kernel(const Cross
 #pragma unroll
   for (int i = 0; i < KPT; ++i) acc[i] = 0.f;
   for (int s = 0; s < S; ++s) {
-    const float vd = to_f32(kv[(int64_t)s * 2 * DH + DH + d]);
+    const float vd = kv[(int64_t)s * 2 * DH + DH + d];
 #pragma unroll
     for (int i = 0; i < KPT; ++i) {
       const int k = kg + i * NKG;
       if (k < K) acc[i] = fmaf(sc[k * S + s], vd, acc[i]);
     }
   }
-  T* out = static_cast<T*>(a.out) + row0 * DH;
+  float* out = static_cast<float*>(a.out) + b * a.o_sb + h * a.o_sh + r0 * a.o_sk;
 #pragma unroll
   for (int i = 0; i < KPT; ++i) {
     const int k = kg + i * NKG;
-    if (k < K) out[k * DH + d] = from_f32<T>(acc[i] / rsum[k]);
+    if (k < K) out[k * a.o_sk + d] = acc[i] / rsum[k];
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch_cross(const CrossArgs& a, int B, size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        cross_decode_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+template <int DH>
+cudaError_t launch_cross_f32(const CrossArgs& a, int B, size_t smem, cudaStream_t stream) {
+  cudaError_t err = allow_smem(cross_decode_kernel<DH>, (int)smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid(B * a.H, (a.K + kMaxBeams - 1) / kMaxBeams);
-  cross_decode_kernel<T, DH><<<grid, kCrossThreads, smem, stream>>>(a);
+  cross_decode_kernel<DH><<<grid, kCrossThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_cross(int DH, const CrossArgs& a, int B, size_t smem, cudaStream_t stream) {
-  switch (DH) {
-    case 16: return launch_cross<T, 16>(a, B, smem, stream);
-    case 32: return launch_cross<T, 32>(a, B, smem, stream);
-    case 64: return launch_cross<T, 64>(a, B, smem, stream);
-    case 128: return launch_cross<T, 128>(a, B, smem, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <int D>
+cudaError_t launch_cross_mma(const CrossArgs& a, int B, cudaStream_t stream) {
+  constexpr int smem = CMma<D>::kBytes;
+  cudaError_t err = allow_smem(cross_decode_split_kernel_mma<D>, smem);
+  if (err != cudaSuccess) return err;
+  cross_decode_split_kernel_mma<D><<<dim3(B * a.H, a.n_split), kCThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_split == 1) return err;
+  cross_decode_merge_kernel<D><<<B * a.H, kCThreads, 0, stream>>>(a);
+  return cudaGetLastError();
 }
+
+int cross_tile(int DH) { return DH <= 64 ? 32 : 16; }
 
 }  // namespace
 }  // namespace mm
@@ -788,14 +987,64 @@ extern "C" long long mm_cross_decode_smem_bytes(int K, int S, int DH) {
   return 4LL * (k * DH + k * S + k);
 }
 
+// Kernel C's split count for B batch rows of H heads, K rows, S columns:
+// 1 in fp32 and for more than 16 rows; in bf16 enough (b.h) x split blocks
+// for about two per SM, each split a whole number (>= 1) of key tiles.
+extern "C" int mm_cross_decode_splits(int dtype, int B, int H, int K, int S, int DH) {
+  if (dtype != mm::kBFloat16 || K > mm::kMaxBeams || S < 1) return 1;
+  const int n_tiles = (S + mm::cross_tile(DH) - 1) / mm::cross_tile(DH);
+  int n = (2 * mm::kSMs + B * H - 1) / (B * H);
+  n = n < n_tiles ? n : n_tiles;
+  n = n < mm::kCMaxSplits ? n : mm::kCMaxSplits;
+  const int tps = (n_tiles + n - 1) / n;
+  return (n_tiles + tps - 1) / tps;
+}
+
+// Kernel C on ``stream``. q and out go through their (b, h, k) strides (the
+// head dim dense). bf16: up to 16 rows the split pass (then the merge when
+// n_split > 1; ``scratch`` holds (B.H.n_split.K) maxima, as many
+// denominators and (B.H.n_split.K.Dh) partial sums, fp32), more rows A's
+// tensor-core forward, which needs out beam-major contiguous (B, K, H, Dh).
+// fp32: the SIMT kernel, n_split 1.
 extern "C" int mm_cross_decode_attention(
-    int dtype, const void* q, const void* kv, const void* bias, void* out,
-    int B, int H, int K, int DH, int S, void* stream) {
-  if (K < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)mm_cross_decode_smem_bytes(K, S, DH);
-  const mm::CrossArgs a{q, kv, static_cast<const float*>(bias), out, H, K, S};
+    int dtype, const void* q, const void* kv, const void* bias, void* out, void* scratch,
+    int B, int H, int K, int DH, int S, int n_split, int64_t q_sb, int64_t q_sh, int64_t q_sk,
+    int64_t o_sb, int64_t o_sh, int64_t o_sk, void* stream) {
+  if (K < 1 || S < 1 || n_split != mm_cross_decode_splits(dtype, B, H, K, S, DH))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == mm::kFloat32) return (int)mm::dispatch_cross<float>(DH, a, B, smem, st);
-  if (dtype == mm::kBFloat16) return (int)mm::dispatch_cross<__nv_bfloat16>(DH, a, B, smem, st);
-  return (int)cudaErrorInvalidValue;
+  const int n_tiles = (S + mm::cross_tile(DH) - 1) / mm::cross_tile(DH);
+  float* part = static_cast<float*>(scratch);
+  const int64_t n_part = (int64_t)B * H * n_split * K;
+  const mm::CrossArgs a{q, q_sb, q_sh, q_sk, kv, static_cast<const float*>(bias), out,
+                        o_sb, o_sh, o_sk, part, part + n_part, part + 2 * n_part,
+                        H, K, S, n_split, (n_tiles + n_split - 1) / n_split};
+  if (dtype == mm::kFloat32) {
+    const size_t smem = (size_t)mm_cross_decode_smem_bytes(K, S, DH);
+    switch (DH) {
+      case 16: return (int)mm::launch_cross_f32<16>(a, B, smem, st);
+      case 32: return (int)mm::launch_cross_f32<32>(a, B, smem, st);
+      case 64: return (int)mm::launch_cross_f32<64>(a, B, smem, st);
+      case 128: return (int)mm::launch_cross_f32<128>(a, B, smem, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (dtype != mm::kBFloat16) return (int)cudaErrorInvalidValue;
+  if (K > mm::kMaxBeams) {  // the prefill's rows: A over the slab's K and V halves
+    if (o_sk != (int64_t)H * DH || o_sh != DH || o_sb != (int64_t)K * H * DH)
+      return (int)cudaErrorInvalidValue;
+    const int64_t row = 2 * DH, head = (int64_t)S * row, batch = H * head;
+    const mm::FlashArgs f{q, kv, static_cast<const __nv_bfloat16*>(kv) + DH,
+                          static_cast<const float*>(bias), out, K, S, H,
+                          q_sb, q_sk, q_sh, batch, row, head, batch, row, head,
+                          1.0f, 0, 0.0f, 1.0f, 0u, nullptr, nullptr};
+    return (int)mm::launch_flash_fwd_mma(f, B, DH, false, false, st);
+  }
+  switch (DH) {
+    case 16: return (int)mm::launch_cross_mma<16>(a, B, st);
+    case 32: return (int)mm::launch_cross_mma<32>(a, B, st);
+    case 64: return (int)mm::launch_cross_mma<64>(a, B, st);
+    case 128: return (int)mm::launch_cross_mma<128>(a, B, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -54,14 +54,20 @@ _SIGNATURES = {
         ctypes.c_int,
     ),
     "mm_cross_decode_smem_bytes": ([_i, _i, _i], ctypes.c_longlong),
+    "mm_cross_decode_splits": ([_i] * 6, ctypes.c_int),
     "mm_cross_decode_attention": (
-        [_i, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
+        [_i] + [_p] * 5 + [_i] * 6 + [_i64] * 6 + [_p],
         ctypes.c_int,
     ),
-    "mm_ancestry_decode_q_smem_bytes": ([_i, _i, _i], ctypes.c_longlong),
-    "mm_ancestry_decode_attention_q": (
-        [_i, _i, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i]
-        + [_i64] * 10 + [_p],
+    "mm_ancestry_decode_i8_splits": ([_i] * 4, ctypes.c_int),
+    "mm_ancestry_decode_i8_scratch_bytes": ([_i] * 6, ctypes.c_longlong),
+    "mm_ancestry_decode_attention_i8": (
+        [_i, _i] + [_p] * 9 + [_i] * 7 + [_i64] * 22 + [_p],
+        ctypes.c_int,
+    ),
+    "mm_ancestry_decode_i4_smem_bytes": ([_i, _i, _i], ctypes.c_longlong),
+    "mm_ancestry_decode_attention_i4": (
+        [_i] + [_p] * 8 + [_i] * 6 + [_i64] * 10 + [_p],
         ctypes.c_int,
     ),
     "mm_cross_decode_attention_i8": (

@@ -27,7 +27,7 @@ from mm_s2ut_torch.ops import _build
 
 NEG_INF = -1e9
 HEAD_DIMS = (16, 32, 64, 128)
-MAX_BEAMS = 16  # query rows per (b, h) of kernels B, D, F; C and E tile any count by 16
+MAX_BEAMS = 16  # query rows per (b, h) of kernels B, D, F; C and E take any count
 MAX_SHARED_BYTES = 232448  # a block's shared memory on Hopper
 
 
@@ -233,31 +233,41 @@ def cross_decode_attention(
     bias: torch.Tensor,  # (B, S) f32 additive mask (0 valid / -1e9 pad)
 ) -> torch.Tensor:
     """(B, H, K, Dh) in q's dtype. K is any number of query rows: the
-    beams of a decode step, or the prefix positions of a prefill."""
+    beams of a decode step, or the prefix positions of a prefill. q is read
+    through its strides (the decoder's beam-major view), and the result is
+    a (B, H, K, Dh) view of a beam-major (B, K, H, Dh) buffer."""
     if q.device.type == "cpu":
         return cross_reference(q, kv, bias)
+    name = "cross_decode_attention"
     B, H, K, Dh = q.shape
     S = kv.shape[2]
-    _check_common("cross_decode_attention", q, (kv, bias), K, Dh, max_rows=None)
+    _check_common(name, q, (kv, bias), K, Dh, max_rows=None)
     if kv.dtype != q.dtype or tuple(kv.shape) != (B, H, S, 2 * Dh):
-        raise ValueError(f"cross_decode_attention: slab {tuple(kv.shape)} {kv.dtype}")
+        raise ValueError(f"{name}: slab {tuple(kv.shape)} {kv.dtype}")
     if tuple(bias.shape) != (B, S):
-        raise ValueError("cross_decode_attention: bias must be (B, S)")
+        raise ValueError(f"{name}: bias must be (B, S)")
     lib = _build.library()
-    if lib.mm_cross_decode_smem_bytes(K, S, Dh) > MAX_SHARED_BYTES:
+    code = _build.dtype_code(q.dtype)
+    if q.dtype == torch.float32 and lib.mm_cross_decode_smem_bytes(K, S, Dh) > MAX_SHARED_BYTES:
         raise ValueError(
-            f"cross_decode_attention: {min(K, MAX_BEAMS)} rows x S={S} scores exceed a "
-            "block's shared memory"
+            f"{name}: {min(K, MAX_BEAMS)} rows x S={S} fp32 scores exceed a block's shared memory"
         )
-    q, kv = q.contiguous(), kv.contiguous()
+    kv = kv.contiguous()
+    if kv.data_ptr() % 16:
+        raise ValueError(f"{name}: the slab must start on a 16-byte boundary (16-byte row copies)")
+    if q.stride(3) != 1 or q.data_ptr() % 16 or any(
+            q.stride(i) * q.element_size() % 16 for i in range(3)):
+        q = q.contiguous()  # rows 16-byte aligned, as A's tensor-core path copies them
     bias = bias.float().contiguous()
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        rc = lib.mm_cross_decode_attention(
-            _build.dtype_code(q.dtype), q.data_ptr(), kv.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, H, K, Dh, S, _build.stream_ptr(q.device),
-        )
-    _build.check(rc, "cross_decode_attention")
+    n_split = lib.mm_cross_decode_splits(code, B, H, K, S, Dh)
+    scratch = torch.empty(B * H * n_split * K * (Dh + 2) if n_split > 1 else 1,
+                          dtype=torch.float32, device=q.device)
+    out = torch.empty((B, K, H, Dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    rc = lib.mm_cross_decode_attention(
+        code, q.data_ptr(), kv.data_ptr(), bias.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        B, H, K, Dh, S, n_split, *q.stride()[:3], *out.stride()[:3], _build.stream_ptr(q.device),
+    )
+    _build.check(rc, name)
     cross_decode_attention.launches += 1
     return out
 
@@ -265,11 +275,9 @@ def cross_decode_attention(
 cross_decode_attention.launches = 0
 
 
-def _launch_quant_ancestry(name, packed, q, k_new, v_new, kv, sk, sv, flat_rep, layer):
-    """Kernels D (packed=False) and F (packed=True): check, then launch.
-    The cache and both scale arrays are read through their strides (the
-    beam search passes prefix views of one allocation). The kernels keep
-    scores per (beam, step) and so take the contract of ``flat_rep`` that
+def _check_quant(name, packed, q, k_new, v_new, kv, sk, sv, flat_rep, layer) -> int:
+    """The checks that kernels D (packed=False) and F (packed=True) share;
+    returns T·S. Both take the contract of ``flat_rep`` that
     ``UnitDecoder.step`` builds: T·S = T·K, and a beam has at most one
     on-path column among the K slots of a step."""
     B, H, K, Dh = q.shape
@@ -292,14 +300,57 @@ def _launch_quant_ancestry(name, packed, q, k_new, v_new, kv, sk, sv, flat_rep, 
         raise ValueError(f"{name}: flat_rep must be (B, K, T·S) int32")
     if TS % K:
         raise ValueError(f"{name}: T·S={TS} is not a multiple of the {K} beam slots")
+    return TS
+
+
+def _launch_i8(q, k_new, v_new, kv, sk, sv, flat_rep, layer: int, variant: int = 0):
+    """Check a CUDA input and launch kernel D (the score pass, the output
+    pass and, with several splits, the merge). The cache and both scale
+    arrays are read through their strides (the beam search passes prefix
+    views of one allocation), q, k_new and v_new through theirs (the
+    decoder's beam-major views); the result is a (B, H, K, Dh) view of a
+    beam-major (B, K, H, Dh) buffer. ``variant`` picks one of the kernel's
+    alternative designs, which only ``tools/kernel_ab.py`` times; all give
+    the same bits."""
+    name = "ancestry_decode_attention_i8"
+    B, H, K, Dh = q.shape
+    TS = _check_quant(name, False, q, k_new, v_new, kv, sk, sv, flat_rep, layer)
+    if any(t.shape != q.shape or t.stride(3) != 1 for t in (q, k_new, v_new)):
+        raise ValueError(f"{name}: q, k_new, v_new must be (B, H, K, Dh) with a dense head dim")
+    if kv.data_ptr() % 16 or any(kv.stride(i) % 16 for i in range(4)):
+        raise ValueError(f"{name}: cache rows must be 16-byte aligned (16-byte row copies)")
+    flat_rep = flat_rep.contiguous()
     lib = _build.library()
-    if lib.mm_ancestry_decode_q_smem_bytes(K, TS // K, Dh) > MAX_SHARED_BYTES:
+    n_split = lib.mm_ancestry_decode_i8_splits(B, H, K, TS)
+    scratch = torch.empty(lib.mm_ancestry_decode_i8_scratch_bytes(B, H, K, Dh, TS, n_split),
+                          dtype=torch.uint8, device=q.device)
+    out = torch.empty((B, K, H, Dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    rc = lib.mm_ancestry_decode_attention_i8(
+        _build.dtype_code(q.dtype), variant, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        kv.data_ptr(), sk.data_ptr(), sv.data_ptr(), flat_rep.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), B, H, K, Dh, TS, layer, n_split,
+        *(st for t in (q, k_new, v_new, out) for st in t.stride()[:3]),
+        *kv.stride()[:4], *sk.stride()[:3], *sv.stride()[:3], _build.stream_ptr(q.device),
+    )
+    _build.check(rc, name)
+    ancestry_decode_attention_i8.launches += 1
+    return out
+
+
+def _launch_i4(q, k_new, v_new, kv, sk, sv, flat_rep, layer: int):
+    """Check a CUDA input and launch kernel F (one block per (b, h), the
+    row's scores in shared memory)."""
+    name = "ancestry_decode_attention_i4"
+    B, H, K, Dh = q.shape
+    TS = _check_quant(name, True, q, k_new, v_new, kv, sk, sv, flat_rep, layer)
+    lib = _build.library()
+    if lib.mm_ancestry_decode_i4_smem_bytes(K, TS // K, Dh) > MAX_SHARED_BYTES:
         raise ValueError(f"{name}: K={K} x T={TS // K} scores exceed a block's shared memory")
     q, k_new, v_new, flat_rep = (t.contiguous() for t in (q, k_new, v_new, flat_rep))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        rc = lib.mm_ancestry_decode_attention_q(
-            _build.dtype_code(q.dtype), int(packed), q.data_ptr(), k_new.data_ptr(),
+        rc = lib.mm_ancestry_decode_attention_i4(
+            _build.dtype_code(q.dtype), q.data_ptr(), k_new.data_ptr(),
             v_new.data_ptr(), kv.data_ptr(), sk.data_ptr(), sv.data_ptr(),
             flat_rep.data_ptr(), out.data_ptr(), B, H, K, Dh, TS, layer,
             kv.stride(0), kv.stride(1), kv.stride(2), kv.stride(3),
@@ -308,6 +359,7 @@ def _launch_quant_ancestry(name, packed, q, k_new, v_new, kv, sk, sv, flat_rep, 
             _build.stream_ptr(q.device),
         )
     _build.check(rc, name)
+    ancestry_decode_attention_i4.launches += 1
     return out
 
 
@@ -321,13 +373,11 @@ def ancestry_decode_attention_i8(
     flat_rep: torch.Tensor,  # (B, K, T·S) int32
     layer: int,
 ) -> torch.Tensor:
-    """int8-cache variant of :func:`ancestry_decode_attention` (kernel D)."""
+    """int8-cache variant of :func:`ancestry_decode_attention` (kernel D):
+    (B, H, K, Dh) in q's dtype, a view of a beam-major buffer."""
     if q.device.type == "cpu":
         return reference_i8(q, k_new, v_new, kv, sk, sv, flat_rep, layer)
-    out = _launch_quant_ancestry("ancestry_decode_attention_i8", False,
-                                 q, k_new, v_new, kv, sk, sv, flat_rep, layer)
-    ancestry_decode_attention_i8.launches += 1
-    return out
+    return _launch_i8(q, k_new, v_new, kv, sk, sv, flat_rep, layer)
 
 
 ancestry_decode_attention_i8.launches = 0
@@ -346,10 +396,7 @@ def ancestry_decode_attention_i4(
     """int4-cache variant of :func:`ancestry_decode_attention` (kernel F)."""
     if q.device.type == "cpu":
         return reference_i4(q, k_new, v_new, kv, sk, sv, flat_rep, layer)
-    out = _launch_quant_ancestry("ancestry_decode_attention_i4", True,
-                                 q, k_new, v_new, kv, sk, sv, flat_rep, layer)
-    ancestry_decode_attention_i4.launches += 1
-    return out
+    return _launch_i4(q, k_new, v_new, kv, sk, sv, flat_rep, layer)
 
 
 ancestry_decode_attention_i4.launches = 0

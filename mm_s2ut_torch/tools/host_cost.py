@@ -141,7 +141,7 @@ def profile_decode_step(generator, feats, flens, imgs, masks, at_step: int) -> d
     interval from the start of that ``decode_step`` call to the start of
     the next: the model's step and the search's bookkeeping) traced by
     ``torch.profiler``. Returns the device time by kernel there, the shares
-    of kernels B (``ancestry_*``) and C (``cross_decode_kernel``), and the
+    of kernels B (``ancestry_*``) and C (``cross_decode_*``), and the
     busy share against the mean wall time of the 50 unprofiled steps before
     it (the search reads a flag back every step, so each step ends
     synchronised)."""
@@ -173,7 +173,7 @@ def profile_decode_step(generator, feats, flens, imgs, masks, at_step: int) -> d
 
     total = sum(dev_us(e) for e in kernels)
     b_us = sum(dev_us(e) for e in kernels if "ancestry_" in e.key)
-    c_us = sum(dev_us(e) for e in kernels if "cross_decode_kernel" in e.key)
+    c_us = sum(dev_us(e) for e in kernels if "cross_decode_" in e.key)
     n = min(50, at_step - 1)  # unprofiled steps just before the traced one
     wall_ms = (stamps[at_step - 1] - stamps[at_step - 1 - n]) * 1e3 / n
     top = sorted(kernels, key=dev_us, reverse=True)[:8]

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from chip_smoke import (
+    BENCH,
     FLAGSHIP,
     TOL,
     TOL_REQUANT,
@@ -336,20 +337,66 @@ def test_ancestry_decode_takes_the_decoder_views(card):
     _close(got, D.reference(q, k_new, v_new, kv, flat_rep, 0), torch.bfloat16)
 
 
+CROSS_SHAPES = [(1, 16, 13), (10, 64, 250), (10, 64, 1500), (16, 128, 70), (16, 32, 250),
+                (1, 64, 37), (10, 16, 300), (5, 128, 250), (10, 64, 8)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("K,Dh,S", [(1, 16, 13), (10, 64, 250), (10, 64, 1500), (16, 128, 70)])
-def test_cross_decode(card, dtype, K, Dh, S):
-    q, kv, bias = cross_inputs(2, 3, K, Dh, S, dtype, seed=S)
-    _close(D.cross_decode_attention(q, kv, bias), D.cross_reference(q, kv, bias), dtype)
+@pytest.mark.parametrize("B", [2, 128])
+@pytest.mark.parametrize("K,Dh,S", CROSS_SHAPES)
+def test_cross_decode(card, dtype, B, K, Dh, S):
+    """Kernel C against the plain version, S on and off the key tile (32
+    keys, 16 at Dh = 128), K = 1..16, every head dim, split over blocks
+    (B = 2) and not (B = 128); a second launch gives the same bits."""
+    q, kv, bias = cross_inputs(B, 3, K, Dh, S, dtype, seed=S)
+    before = D.cross_decode_attention.launches
+    got = D.cross_decode_attention(q, kv, bias)
+    again = D.cross_decode_attention(q, kv, bias)
+    assert D.cross_decode_attention.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, D.cross_reference(q, kv, bias), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pad", [A.NEG_INF, float("-inf")])
+@pytest.mark.parametrize("K,Dh", [(10, 64), (16, 128), (1, 16)])
+def test_cross_decode_padded_splits(card, dtype, pad, K, Dh):
+    """Rows whose padding fills whole splits and warp spans (valid lengths
+    250, 40 and 1 of S = 250), padded with -1e9 or -inf: the spans of
+    padding weigh 0."""
+    B, H, S = 3, 2, 250
+    q, kv, _ = cross_inputs(B, H, K, Dh, S, dtype, seed=K + Dh)
+    lengths = torch.tensor([S, 40, 1], device="cuda")
+    bias = torch.where(torch.arange(S, device="cuda")[None, :] < lengths[:, None], 0.0, pad)
+    got = D.cross_decode_attention(q, kv, bias)
+    _close(got, D.cross_reference(q, kv, bias), dtype)
+
+
+def test_cross_decode_takes_the_decoder_views(card):
+    """Kernel C reads q as the decoder hands it (a beam-major (B, K, H, Dh)
+    buffer viewed as (B, H, K, Dh)) and returns a view the decoder
+    flattens without a copy, for a decode step and for a prefill."""
+    for K in (10, 40):
+        q, kv, bias = cross_inputs(2, 4, K, 64, 120, torch.bfloat16, seed=K)
+        view = q.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not view.is_contiguous()
+        got = D.cross_decode_attention(view, kv, bias)
+        assert got.transpose(1, 2).is_contiguous()
+        _close(got, D.cross_reference(q, kv, bias), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("int4", [False, True])
 @pytest.mark.parametrize("K,Dh,step", [(1, 16, 0), (1, 64, 20), (10, 64, 0), (10, 64, 33),
-                                       (16, 32, 12), (4, 128, 7)])
+                                       (16, 32, 12), (4, 128, 7), (16, 128, 40), (5, 16, 3),
+                                       (16, 64, 1)])
 def test_quant_ancestry_decode(card, dtype, int4, K, Dh, step):
     """Kernels D and F read segment views of the cache and both scale
-    arrays (the first T·K columns of larger allocations)."""
+    arrays (the first T·K columns of larger allocations). T = 40 steps over
+    6 (b, h): D runs one split per step, so every split past ``step`` is
+    wholly off-path; step 0 gives exactly v_new; D's second launch gives
+    the same bits."""
     B, H, L, T = 2, 3, 2, 40
     q, k_new, v_new, kv, sk, sv, flat_rep = quant_ancestry_inputs(
         B, H, K, Dh, L, T, step, dtype, int4=int4, seed=K)
@@ -364,7 +411,42 @@ def test_quant_ancestry_decode(card, dtype, int4, K, Dh, step):
     if step == 0:  # no column on any path: exactly the fresh value
         torch.cuda.synchronize()
         assert torch.equal(got, v_new)
+    if not int4:
+        again = kern(q, k_new, v_new, kv_view, sk_view, sv_view, flat_rep, 1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
     _close(got, plain(q, k_new, v_new, kv, sk, sv, flat_rep, 1), dtype, TOL_REQUANT[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", ["flagship", "bench"])
+def test_quant_ancestry_variants_give_the_same_bits(card, dtype, shape):
+    """D's designs that ``tools/kernel_ab.py`` times (v1 the output product
+    on bf16 tensor cores, v2 both products so, v3 two batch rows per block)
+    form the same integers from the same w8: all four give v0's bits, at
+    the flagship's int8 shape (split over blocks) and the bench's (one
+    split), and v0 holds the plain version's tolerance there."""
+    s = FLAGSHIP if shape == "flagship" else BENCH
+    args = quant_ancestry_inputs(s["B"], s["H"], s["K"], s["Dh"], s["L"], s["T_dec"], s["step"],
+                                 dtype)
+    runs = [D._launch_i8(*args, s["L"] // 2, variant=v) for v in range(4)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    _close(runs[0], D.reference_i8(*args, s["L"] // 2), dtype, TOL_REQUANT[dtype])
+
+
+def test_quant_ancestry_decode_takes_the_decoder_views(card):
+    """Kernel D reads q, k_new and v_new as the decoder hands them and
+    returns a view the decoder flattens without a copy."""
+    B, H, K, Dh, L, T = 3, 4, 5, 32, 2, 16
+    q, k_new, v_new, kv, sk, sv, flat_rep = quant_ancestry_inputs(B, H, K, Dh, L, T, 9,
+                                                                  torch.bfloat16)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k_new, v_new)]
+    assert not views[0].is_contiguous()
+    got = D.ancestry_decode_attention_i8(*views, kv, sk, sv, flat_rep, 0)
+    assert got.transpose(1, 2).is_contiguous()
+    _close(got, D.reference_i8(q, k_new, v_new, kv, sk, sv, flat_rep, 0), torch.bfloat16,
+           TOL_REQUANT[torch.bfloat16])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -379,12 +461,15 @@ def test_cross_decode_i8(card, dtype, K, Dh, S):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("K,Dh,S", [(17, 64, 250), (501, 64, 250), (40, 128, 70), (33, 16, 13)])
+@pytest.mark.parametrize("K,Dh,S", [(17, 64, 250), (501, 64, 250), (40, 128, 70), (33, 16, 13),
+                                    (64, 32, 100)])
 def test_cross_decode_many_rows(card, dtype, int8, K, Dh, S):
     """Kernels C and E with more rows than a decode step has (the
-    prefill's P = max_len + 1): against the plain version, and the first
-    16 rows bit-equal to a 16-row (decode-step) call, whose code path is
-    the one block per (b, h) it always was."""
+    prefill's P = max_len + 1): against the plain version. A 16-row
+    (decode-step) call on the first 16 rows takes the same code path in
+    fp32 C and in E (one block per 16 rows), so there it gives the same
+    bits; bf16 C takes A's tensor-core forward for many rows and its split
+    kernel for 16, so there both are held to the plain version."""
     if int8:
         args = quant_cross_inputs(2, 3, K, Dh, S, dtype, seed=S)
         kern, plain, counter = D.cross_decode_attention_i8, D.cross_reference_i8, \
@@ -399,7 +484,13 @@ def test_cross_decode_many_rows(card, dtype, int8, K, Dh, S):
     _close(got, plain(*args), dtype)
     head = kern(args[0][:, :, :16].contiguous(), *args[1:])
     torch.cuda.synchronize()
-    assert torch.equal(got[:, :, :16], head)
+    if int8 or dtype == torch.float32:
+        assert torch.equal(got[:, :, :16], head)
+    else:
+        _close(head, plain(args[0][:, :, :16].contiguous(), *args[1:]), dtype)
+    again = kern(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
