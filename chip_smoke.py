@@ -13,8 +13,8 @@ is no CPU path):
    bench's shapes (B=128, K=10, T·S=2010 at step 150, S=250), in bf16 and
    fp32, each timed beside its plain version with CUDA events, and A at
    the offline bench point's encoder call (B=128, T=250), B and C at its
-   decode shape (B=128, step 150 of 201; C beside SDPA), and D at the
-   flagship's (B=8, step 300 of 500); then A's
+   decode shape (B=128, step 150 of 201; C beside SDPA), and D, F and E
+   at the flagship's (B=8, step 300 of 500; S=250); then A's
    causal branch and G at the streaming encoder's shapes (B=1 and B=8 at
    T=250, B=1 at T=1000, window 0 and 64), and C and E with the prefill's
    501 query rows at S=250;
@@ -114,7 +114,9 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # convex mixes of O(1) values, so a few bf16
 # ulps (2^-8 relative) of them stay well inside 2e-2. Kernel E takes TOL
 # too: its plain version dequantizes k and v to bf16 (2^-9 relative per
-# element), the kernel folds the f32 scales in after the products.
+# element), the kernel folds the f32 scales in after the products (bf16:
+# sk into the fp32 scores, sv into each unnormalised weight before it is
+# rounded to bf16).
 TOL_REQUANT = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
 # Kernels D and F: kernel and plain version quantize q and the softmax
 # weights by the same rules in fp32 and sum the integer products exactly,
@@ -156,14 +158,24 @@ def bwd_work(B, T, H, D, dtype):
     return bound(10 * B * H * T * T * D, 8 * rows + 8 * B * H * T + 8 * B * T, "bf16")
 
 
-def ancestry_work(q, kv, flat_rep, col_bytes, peak):
+def ancestry_work(q, kv, flat_rep, col_bytes, peak, packed=False):
     """B, D, F: q, k_new, v_new, flat_rep and the output, plus the cache
     columns on some beam's path in this run's ancestry (``col_bytes`` per
-    column and head); 4·Dh operations per on-path column and beam."""
+    column and head); 4·Dh operations per on-path column and beam.
+    ``packed`` (F): live column j's K and V halves share every byte of
+    packed row j mod P (P = ``kv.shape[3]``) with its partner j ± P, so the
+    cache bytes are 2·Dh per distinct packed row touched plus 8 (its sk and
+    sv) per live column, per head."""
     B, H, K, Dh = q.shape
-    cols = sum(int(torch.unique(f[f >= 0]).numel()) for f in flat_rep)
+    live = [torch.unique(f[f >= 0]) for f in flat_rep]
+    cols = sum(int(c.numel()) for c in live)
     on_path = int((flat_rep >= 0).sum()) // K  # flat_rep repeats each step's index K times
-    nbytes = 4 * q.numel() * q.element_size() + flat_rep.numel() * 4 + cols * H * col_bytes
+    if packed:
+        rows = sum(int(torch.unique(c % kv.shape[3]).numel()) for c in live)
+        cache_bytes = H * (rows * 2 * Dh + cols * 8)
+    else:
+        cache_bytes = cols * H * col_bytes
+    nbytes = 4 * q.numel() * q.element_size() + flat_rep.numel() * 4 + cache_bytes
     return bound(4 * Dh * H * (on_path + B * K), nbytes, peak)
 
 
@@ -340,7 +352,7 @@ def kernel_cases(dtype, shapes=FLAGSHIP, bench=BENCH):
          cross_work(e_args[0], n["S_cross"], 2 * n["Dh"] + 8, "bf16")),
         ("F", lambda: D.ancestry_decode_attention_i4(*f_args, layer),
          lambda: D.reference_i4(*f_args, layer), TOL_REQUANT[dtype], None,
-         ancestry_work(f_args[0], f_args[3], f_args[6], n["Dh"] + 8, "int8")),
+         ancestry_work(f_args[0], f_args[3], f_args[6], 0, "int8", packed=True)),
     ]
 
 
@@ -442,6 +454,25 @@ def phase_kernels():
               f"{work['bound_ms'] * 1e3:.2f} us ({work['bound_by']}), kernel / bound "
               f"{res['ms'] / work['bound_ms']:.2f}")
         del d_args
+        # F at the flagship's int4 shape (B=8, step 300, split over blocks)
+        # and E at B=8 (split over blocks), next to D.
+        f_args = quant_ancestry_inputs(s["B"], s["H"], s["K"], s["Dh"], s["L"], s["T_dec"],
+                                       s["step"], dtype, int4=True, seed=5)
+        res = check_and_time("F flagship step 300", dtype,
+                             lambda: D.ancestry_decode_attention_i4(*f_args, s["L"] // 2),
+                             lambda: D.reference_i4(*f_args, s["L"] // 2), TOL_REQUANT[dtype])
+        work = ancestry_work(f_args[0], f_args[3], f_args[6], 0, "int8", packed=True)
+        print(f"phase 2: F flagship step 300 {str(dtype)[6:]}: bound "
+              f"{work['bound_ms'] * 1e3:.2f} us ({work['bound_by']}), kernel / bound "
+              f"{res['ms'] / work['bound_ms']:.2f}")
+        del f_args
+        e_args = quant_cross_inputs(s["B"], s["H"], s["K"], s["Dh"], s["S_cross"], dtype, seed=6)
+        res = check_and_time("E B=8", dtype, lambda: D.cross_decode_attention_i8(*e_args),
+                             lambda: D.cross_reference_i8(*e_args), TOL[dtype])
+        work = cross_work(e_args[0], s["S_cross"], 2 * s["Dh"] + 8, "bf16")
+        print(f"phase 2: E B=8 {str(dtype)[6:]}: bound {work['bound_ms'] * 1e3:.2f} us "
+              f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}")
+        del e_args
         torch.cuda.empty_cache()
     return record
 

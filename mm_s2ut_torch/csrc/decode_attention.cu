@@ -552,6 +552,127 @@ __global__ void __launch_bounds__(kBThreads) ancestry_merge_kernel(const Ancestr
   }
 }
 
+// Variant 3 (tools/kernel_ab.py; the port of scripts_dev/interleave_probe.py:67):
+// one block per (b, h) over the whole interleaved slab, no split, a
+// single-pass softmax with all of the row's scores in shared memory. It
+// takes UnitDecoder.step's contract (TS = T.K, a beam on at most one column
+// of a step), so the scores are K.T floats. Warps stride over 32-column
+// chunks of flat_rep, a ballot picks the live columns, each is read once
+// for all the beams on it (a lane's Dh / 32 dims, then a warp sum per
+// beam); one warp per beam takes the max and the denominator with the self
+// logit; the V pass adds each weight (rounded to T, as the plain version
+// rounds it) times its row into per-warp fp32 sums, merged in warp order.
+template <typename T, int DH>
+__global__ void __launch_bounds__(kBThreads) ancestry_whole_kernel(const AncestryArgs a) {
+  constexpr int E = (DH + 31) / 32, NW = kBThreads / 32;
+  extern __shared__ float w_smem[];
+  const int K = a.K, Tn = a.TS / K, b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  float* sc = w_smem;                      // [K][Tn]
+  float* part = sc + K * Tn;               // [NW][K][DH]
+  float* st = part + NW * K * DH;          // m, den, p_self: [3][16]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const T* kn = static_cast<const T*>(a.k_new) + b * a.kn_sb + h * a.kn_sh;
+  const T* vn = static_cast<const T*>(a.v_new) + b * a.vn_sb + h * a.vn_sh;
+  const T* slab = static_cast<const T*>(a.kv) + b * a.kv_sb + (int64_t)a.layer * a.kv_sl + h * a.kv_sh;
+  const int* fr = a.flat_rep + (int64_t)b * K * a.TS;
+  for (int i = threadIdx.x; i < K * Tn; i += kBThreads) sc[i] = -INFINITY;
+  float qv[kMaxBeams][E];
+#pragma unroll
+  for (int k = 0; k < kMaxBeams; ++k)
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int d = lane + 32 * e;
+      qv[k][e] = k < K && d < DH ? to_f32(q[k * a.q_sk + d]) : 0.f;
+    }
+  __syncthreads();
+  for (int pass = 0; pass < 2; ++pass) {
+    float acc[kMaxBeams][E];
+#pragma unroll
+    for (int k = 0; k < kMaxBeams; ++k)
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[k][e] = 0.f;
+    for (int j0 = warp * 32; j0 < a.TS; j0 += kBThreads) {
+      const int j = j0 + lane;
+      unsigned beams = 0;
+      if (j < a.TS)
+        for (int k = 0; k < K; ++k) beams |= (unsigned)(fr[(int64_t)k * a.TS + j] == j) << k;
+      unsigned live = __ballot_sync(0xffffffffu, beams != 0);
+      while (live) {
+        const int c = __ffs(live) - 1;
+        live &= live - 1;
+        const unsigned on = __shfl_sync(0xffffffffu, beams, c);
+        const int col = j0 + c, t = col / K;
+        float x[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int d = lane + 32 * e;
+          x[e] = d < DH ? to_f32(slab[(int64_t)col * a.kv_sj + pass * DH + d]) : 0.f;
+        }
+#pragma unroll
+        for (int k = 0; k < kMaxBeams; ++k) {
+          if (!((on >> k) & 1u)) continue;  // warp-uniform
+          if (pass == 0) {
+            float s = 0.f;
+#pragma unroll
+            for (int e = 0; e < E; ++e) s = fmaf(qv[k][e], x[e], s);
+            s = warp_sum(s);
+            if (lane == 0) sc[k * Tn + t] = s;
+          } else {
+            const float w = to_f32(from_f32<T>(expf(sc[k * Tn + t] - st[k]) / st[16 + k]));
+#pragma unroll
+            for (int e = 0; e < E; ++e) acc[k][e] = fmaf(w, x[e], acc[k][e]);
+          }
+        }
+      }
+    }
+    if (pass == 1) {
+#pragma unroll
+      for (int k = 0; k < kMaxBeams; ++k)
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const int d = lane + 32 * e;
+          if (k < K && d < DH) part[(warp * K + k) * DH + d] = acc[k][e];
+        }
+      break;
+    }
+    __syncthreads();  // every score is in shared memory
+    for (int k = warp; k < K; k += NW) {
+      float self = 0.f;
+      for (int d = lane; d < DH; d += 32) self = fmaf(to_f32(q[k * a.q_sk + d]), to_f32(kn[k * a.kn_sk + d]), self);
+      self = warp_sum(self);
+      float m = self;
+      for (int t = lane; t < Tn; t += 32) m = fmaxf(m, sc[k * Tn + t]);
+      m = warp_max(m);
+      float den = 0.f;
+      for (int t = lane; t < Tn; t += 32)
+        if (sc[k * Tn + t] != -INFINITY) den += expf(sc[k * Tn + t] - m);
+      den = warp_sum(den);
+      const float p_self = expf(self - m);
+      if (lane == 0) st[k] = m, st[16 + k] = den + p_self, st[32 + k] = p_self;
+    }
+    __syncthreads();
+  }
+  __syncthreads();
+  T* out = static_cast<T*>(a.out) + b * a.o_sb + h * a.o_sh;
+  for (int i = threadIdx.x; i < K * DH; i += kBThreads) {
+    const int k = i / DH, d = i % DH;
+    float num = 0.f;
+    for (int w = 0; w < NW; ++w) num += part[(w * K + k) * DH + d];
+    num = fmaf(st[32 + k] / st[16 + k], to_f32(vn[k * a.vn_sk + d]), num);
+    out[k * a.o_sk + d] = from_f32<T>(num);
+  }
+}
+
+template <typename T, int DH>
+cudaError_t launch_ancestry_whole(const AncestryArgs& a, int B, cudaStream_t stream) {
+  const int smem = 4 * (a.K * (a.TS / a.K) + (kBThreads / 32) * a.K * DH + 48);
+  cudaError_t err = allow_smem(ancestry_whole_kernel<T, DH>, smem);
+  if (err != cudaSuccess) return err;
+  ancestry_whole_kernel<T, DH><<<B * a.H, kBThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T, int DH, bool MMA>
 cudaError_t launch_ancestry(const AncestryArgs& a, int B, cudaStream_t stream) {
   constexpr int threads = MMA ? kBMmaThreads : kBThreads;
@@ -937,6 +1058,7 @@ int cross_tile(int DH) { return DH <= 64 ? 32 : 16; }
 // tile and at most kBSpan columns wide, at most kBMaxSplits. ``variant`` as
 // mm_ancestry_decode_attention's.
 extern "C" int mm_ancestry_decode_splits(int dtype, int B, int H, int TS, int variant) {
+  if (variant == 3) return 1;
   const bool mma = dtype == mm::kBFloat16 && variant != 2;
   const int groups = B * (variant == 1 ? 1 : H);
   const int target = (mma ? 3 : 8) * mm::kSMs;
@@ -953,7 +1075,8 @@ extern "C" int mm_ancestry_decode_splits(int dtype, int B, int H, int TS, int va
 // ``variant`` (0 in the port; the others for tools/kernel_ab.py): 0 one
 // head per block, on the tensor cores in bf16 and SIMT in fp32; 1 all H
 // heads of a batch row per block (the reference's grid); 2 the SIMT pass
-// in bf16 too.
+// in bf16 too; 3 one block per (b, h) over the whole slab, no split
+// (ancestry_whole_kernel: Dh = 64, TS = T.K, n_split 1).
 extern "C" int mm_ancestry_decode_attention(
     int dtype, int variant, const void* q, const void* k_new, const void* v_new,
     const void* kv, const void* flat_rep, void* out, void* scratch,
@@ -962,10 +1085,10 @@ extern "C" int mm_ancestry_decode_attention(
     int64_t vn_sb, int64_t vn_sh, int64_t vn_sk, int64_t o_sb, int64_t o_sh, int64_t o_sk,
     int64_t kv_sb, int64_t kv_sl, int64_t kv_sh, int64_t kv_sj, void* stream) {
   if (K < 1 || K > mm::kMaxBeams || TS < 1 || n_split < 1 || n_split > mm::kBMaxSplits ||
-      variant < 0 || variant > 2)
+      variant < 0 || variant > 3 || (variant == 3 && (TS % K != 0 || n_split != 1)))
     return (int)cudaErrorInvalidValue;
   const int span = (TS + n_split - 1) / n_split;
-  if (span > mm::kBSpan) return (int)cudaErrorInvalidValue;
+  if (span > mm::kBSpan && variant != 3) return (int)cudaErrorInvalidValue;
   float* part = static_cast<float*>(scratch);
   const int64_t n_part = (int64_t)B * H * n_split * K;
   const mm::AncestryArgs a{q, k_new, v_new, q_sb, q_sh, q_sk, kn_sb, kn_sh, kn_sk,
@@ -974,6 +1097,17 @@ extern "C" int mm_ancestry_decode_attention(
                            part, part + n_part, part + 2 * n_part,
                            H, K, TS, layer, n_split, span, variant == 1 ? H : 1};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant == 3) {
+    const int smem = 4 * (TS + 8 * K * DH + 48);
+    if (smem > 232448 || (dtype != mm::kFloat32 && dtype != mm::kBFloat16))
+      return (int)cudaErrorInvalidValue;
+    switch (DH) {
+      case 64:
+        return dtype == mm::kFloat32 ? (int)mm::launch_ancestry_whole<float, 64>(a, B, st)
+                                     : (int)mm::launch_ancestry_whole<__nv_bfloat16, 64>(a, B, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   if (dtype == mm::kFloat32) return (int)mm::dispatch_ancestry<float, false>(DH, a, B, st);
   if (dtype != mm::kBFloat16) return (int)cudaErrorInvalidValue;
   return variant == 2 ? (int)mm::dispatch_ancestry<__nv_bfloat16, false>(DH, a, B, st)

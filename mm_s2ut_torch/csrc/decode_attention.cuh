@@ -1,6 +1,7 @@
-// What the beam-decode kernels share: B and C (decode_attention.cu) and D
-// (decode_attention_q.cu). The compaction of the live cache columns of a
-// split, and mma.sync on signed 8-bit operands.
+// What the beam-decode kernels share: B and C (decode_attention.cu), D, E
+// and F (decode_attention_q.cu). The compaction of the live cache columns
+// of a split, mma.sync on signed 8-bit operands, and the int4 cache's
+// nibble unpack.
 //
 // Fragment layouts of mma.m16n8k32.row.col.s32.s8.s8.s32 (lane = 4 g + tq),
 // four int8 per register, the lowest k in the lowest byte:
@@ -25,28 +26,38 @@ constexpr int kSMs = 132;      // an H100's SMs
 // their count. Each thread reads R columns per round with all its K loads
 // in flight at once (``count`` holds R x NT / 32 ints). Ends with a block
 // barrier, so what the block wrote before the call is visible after it.
-template <int NT, int R>
+// PAIR: [c0, c1) are packed rows of an int4 cache (P rows, row j holds
+// columns j and j + P); a row is live if either column is, ``live`` gets
+// its low column's beams and ``live_hi`` its high column's.
+template <int NT, int R, bool PAIR = false>
 __device__ __forceinline__ int compact_live(const int* fr, int K, int TS, int c0, int c1,
-                                            uint32_t* live, int* count) {
-  constexpr int NW = NT / 32;
+                                            uint32_t* live, int* count, int P = 0,
+                                            uint16_t* live_hi = nullptr) {
+  constexpr int NW = NT / 32, NH = PAIR ? 2 : 1;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int n_live = 0;
   for (int base = c0; base < c1; base += NT * R) {
-    int v[R][kMaxBeams];
+    int v[R][NH][kMaxBeams];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int j = base + r * NT + threadIdx.x;
 #pragma unroll
-      for (int k = 0; k < kMaxBeams; ++k) v[r][k] = k < K && j < c1 ? fr[(int64_t)k * TS + j] : -1;
+      for (int hf = 0; hf < NH; ++hf)
+#pragma unroll
+        for (int k = 0; k < kMaxBeams; ++k)
+          v[r][hf][k] = k < K && j < c1 ? fr[(int64_t)k * TS + j + hf * P] : -1;
     }
-    unsigned beams[R], ballot[R];
+    unsigned beams[R][NH], ballot[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int j = base + r * NT + threadIdx.x;
-      beams[r] = 0;
 #pragma unroll
-      for (int k = 0; k < kMaxBeams; ++k) beams[r] |= (unsigned)(v[r][k] == j) << k;
-      ballot[r] = __ballot_sync(0xffffffffu, beams[r] != 0);
+      for (int hf = 0; hf < NH; ++hf) {
+        beams[r][hf] = 0;
+#pragma unroll
+        for (int k = 0; k < kMaxBeams; ++k) beams[r][hf] |= (unsigned)(v[r][hf][k] == j + hf * P) << k;
+      }
+      ballot[r] = __ballot_sync(0xffffffffu, (beams[r][0] | beams[r][NH - 1]) != 0);
       if (lane == 0) count[r * NW + warp] = __popc(ballot[r]);
     }
     __syncthreads();
@@ -58,9 +69,11 @@ __device__ __forceinline__ int compact_live(const int* fr, int K, int TS, int c0
         mine += w < warp ? count[r * NW + w] : 0;
         off += count[r * NW + w];
       }
-      if (beams[r])
-        live[mine + __popc(ballot[r] & ((1u << lane) - 1))] =
-            (uint32_t)(base + r * NT + threadIdx.x - c0) | (beams[r] << 16);
+      if (beams[r][0] | beams[r][NH - 1]) {
+        mine += __popc(ballot[r] & ((1u << lane) - 1));
+        live[mine] = (uint32_t)(base + r * NT + threadIdx.x - c0) | (beams[r][0] << 16);
+        if constexpr (PAIR) live_hi[mine] = (uint16_t)beams[r][1];
+      }
     }
     n_live = off;
     __syncthreads();  // count is rewritten by the next round
@@ -88,6 +101,26 @@ __device__ __forceinline__ uint32_t i8x2_bf16x2(uint32_t x) {
 __device__ __forceinline__ uint32_t pack_i8x4(int a, int b, int c, int d) {
   return (uint32_t)(a & 0xFF) | ((uint32_t)(b & 0xFF) << 8) | ((uint32_t)(c & 0xFF) << 16) |
          ((uint32_t)(d & 0xFF) << 24);
+}
+
+// The low (high = false) or high nibbles of four packed int4 bytes, each
+// sign-extended to a byte: byte-parallel, (n ^ 8) - 8 on four nibbles at
+// once (WIDE = false), or each byte widened to int32 and shifted, as the
+// reference's unpack does (WIDE = true). The same bytes either way.
+template <bool WIDE = false>
+__device__ __forceinline__ uint32_t nibbles(uint32_t w, bool high) {
+  if constexpr (WIDE) {
+    uint32_t r = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int x = (int)(int8_t)(w >> (8 * i));
+      r |= (uint32_t)((high ? x >> 4 : (int)((uint32_t)x << 28) >> 28) & 0xFF) << (8 * i);
+    }
+    return r;
+  } else {
+    const uint32_t n = (high ? w >> 4 : w) & 0x0F0F0F0Fu;
+    return __vsub4(n ^ 0x08080808u, 0x08080808u);
+  }
 }
 
 }  // namespace tc

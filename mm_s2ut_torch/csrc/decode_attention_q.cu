@@ -21,18 +21,21 @@
 // models/decoder.py:340-348): D over the half-split nibble-packed int4 cache.
 // Logical column j lives in byte row j mod P, P = TS/2 of the current
 // segment: the low nibble if j < P, the high one otherwise, sign-extended.
-// flat_rep, sk and sv use logical column ids, so F computes D's math with
-// another load (on D's former grid until its own redesign).
+// flat_rep, sk and sv use logical column ids, so F is D's math with another
+// load.
 //
 // Kernel E replaces mm_s2ut/ops/decode_attention.py:_kernel_cross_i8
 // (pallas_call at :577, launched by cross_decode_attention_i8, reached from
-// models/layers.py:273-276): kernel C over an int8 encoder slab. k8 converts
-// exactly to float, the scores are (q.k8).sk + bias, the softmax weights are
-// (p/sum).sv, and out = sum w.v8.
+// models/layers.py:201-202): kernel C over an int8 encoder slab. k8 converts
+// exactly to bf16 or float, the scores are (q.k8).sk + bias, the softmax
+// weights are (p/sum).sv, and out = sum w.v8.
 //
 // What bounds them on the card: like B and C, bytes and latency, not
 // arithmetic (K <= 16 queries per head against a 2.Dh-byte row per column).
-// The int8 cache halves B's bytes and int4 quarters them.
+// The int8 cache halves B's bytes. The int4 cache halves them again only
+// where a column's partner (j + P or j - P) is live too: the two share every
+// byte of their packed row, so a live column costs its whole 2.Dh-byte
+// packed row unless its partner is read in the same pass.
 //
 // Design of D, B's split over blocks (decode_attention.cu) with integer
 // tensor-core products. Grid (B.H, n_split) (with variant 3 two batch rows
@@ -83,280 +86,82 @@
 // <= 32 . 127^2 < 2^24, turned to int32), 2 both products so (|s32| <=
 // 128 . 127^2 < 2^24), 3 two batch rows per block.
 //
-// Design of F: the grid (B, H) that D had before, warps striding over
-// 32-column chunks of the T.S axis with a ballot over coalesced flat_rep
-// reads, so only on-path columns are read, each once for all the beams on
-// it. Pass 1 reads the K halves and keeps each beam's on-path scores in
-// shared memory (K.T floats plus one slot byte each); between the passes
-// one warp per beam takes the row max, the denominator and ws from shared
-// memory; pass 2 reads the V halves, recomputes each w_eff with the same
-// expression, and accumulates w8.v8 in int32 registers, merged across
-// warps with shared-memory integer atomics (exact in any order). At step 0
-// the output is exactly v_new.
+// Design of F: D's two passes, the same template instances' code, with the
+// load (template argument LOAD) changed: the gather takes live column j's
+// half from packed row j mod P (16-byte cp.async as D), and the lanes turn
+// the packed words into the columns' int8 values (the low or high nibbles,
+// sign-extended, four bytes at a time by __vsub4) as they read them: the
+// score pass in its s8 fragment loads, the output pass in its byte
+// transpose, each lane knowing which of its rows hold high columns (a
+// separate unpack pass in shared memory cost 8% more at B = 128). From
+// there the s8 products, the scratch, the w8 table and the
+// integer merge are D's, so F's output equals D's on i4_unpack of the same
+// cache bit for bit. The scores moved to global scratch with D's design, so
+// F has no ceiling in K.T (its former one-block-per-(b, h) design kept K.T
+// scores in shared memory and refused beam 16 from T ~ 2850). Variants for
+// tools/kernel_ab.py, all v0's bits: 1 the unpack one byte at a time through
+// int32 shifts (the reference's unpack); 2 D's variant 2 (both products on
+// bf16 mma over exactly converted values) on F's gather; 3 the gather by
+// packed row: the splits cut the P packed rows, a row whose low or high
+// column is live is read once, both nibbles unpacked and both columns run
+// through the products, the dead one's bits masked (the scores start as
+// -inf in a fill kernel, since a step may straddle two splits' rows; a
+// stats kernel then takes the softmax partials over D's split of the steps,
+// so that every float is formed as in v0).
 //
-// Design of E: kernel C's SIMT design (grid (B.H, ceil(K/16)), a block's
-// <= 16 rows of scores in shared memory for a two-pass softmax, one thread
-// per output dim in the V pass; any row count, as the prefill's P rows),
-// with the scales folded where the reference folds them and each thread's
-// K row read in 16-byte chunks.
+// Design of E, kernel C's tensor-core split (decode_attention.cu) over the
+// int8 slab. bf16: grid (B.H, n_split, ceil(K/16)); each group of <= 16
+// rows (the beams of a decode step, or 16 of the prefill's P rows) are the
+// 16 rows of mma.m16n8k16; the S columns are cut into n_split spans of
+// whole key tiles where B.H.groups is under a wave (one tile per split
+// for a 501-row prefill would pay a merge for nothing); 4 warps per block,
+// each with its own 2-stage cp.async ring of raw int8 K||V rows and their
+// sk, sv and bias; K's B fragments are converted to bf16 (exact: |x| <=
+// 127) as they are read from the raw rows, V's rows into the warp's bf16
+// tile in C's swizzled layout, which P.V reads through ldmatrix .trans as
+// C does (a bf16 K tile as well cost a fifth block's worth of shared
+// memory: three blocks per SM, not four); and its own
+// online softmax: s = (q.k8) . sk + bias (the reference's order, -inf past
+// S), l += p, O += bf16(p . sv).V (sv folded into the weight before it is
+// rounded, as the reference folds it, but unnormalised: both round each
+// weight to a few bf16 ulps of a convex mix, inside the card checks' 2e-2).
+// The warps merge in shared memory, the splits in a merge kernel in split
+// order (a span that saw only -inf keeps max -inf and weighs 0; a span of
+// -1e9 padding keeps a finite max that exp(-1e9 - M) wipes). fp32 (TF32
+// would miss the 1e-4 tolerance) stays on the SIMT pipes: a block's <= 16
+// rows of scores in shared memory for a two-pass softmax, each thread
+// reading its K row in 16-byte chunks, one output dim per thread over the V
+// half; S split over blocks, merged as in bf16, wherever one block's scores
+// would not fit (S > 3567 at Dh = 64). q and the output go through strides.
+// Variant 1 (tools/kernel_ab.py; the port of scripts_dev/cross_block_probe.py):
+// two batch rows per block, in turn; v0's bits at the same split count. The
+// same split kernel, without scales or bias, reads a dense int8 slab or its
+// values nibble-packed (mm_dense_attention_probe, the port of
+// scripts_dev/int4_support_probe.py's _attnish timing).
 #include "decode_attention.cuh"
 
 namespace mm {
 namespace {
 
 using namespace tc;
-constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ int warp_sum_int(int v) { return __reduce_add_sync(kFull, v); }
-
-// ---------------------------------------------------------------- kernel F
-
-struct QuantAncestryArgs {
-  const void* q;        // (B, H, K, Dh) contiguous, pre-scaled
-  const void* k_new;    // (B, H, K, Dh) contiguous
-  const void* v_new;    // (B, H, K, Dh) contiguous
-  const int8_t* kv;     // (B, L, H, rows, 2.Dh) through strides, last dim dense;
-                        // rows = TS/2 (nibble-packed)
-  const float* sk;      // (B, L, H, TS) through strides, last dim dense
-  const float* sv;      // (B, L, H, TS) through strides, last dim dense
-  const int* flat_rep;  // (B, K, TS) contiguous
-  void* out;            // (B, H, K, Dh) contiguous
-  int H, K, TS, layer;
-  int64_t kv_sb, kv_sl, kv_sh, kv_sj;
-  int64_t sk_sb, sk_sl, sk_sh;
-  int64_t sv_sb, sv_sl, sv_sh;
-};
-
-// Element e (< 2.Dh) of logical column j of the packed slab, as a signed integer.
-__device__ __forceinline__ int load_col(const int8_t* slab, int64_t sj, int P, int j, int e) {
-  const bool high = j >= P;
-  const int x = slab[(int64_t)(high ? j - P : j) * sj + e];
-  return high ? (x >> 4) : (((x & 0xF) ^ 8) - 8);  // sign-extended nibble
-}
-
-// Static shared memory of the F kernel besides the dynamic score area.
-template <int DH>
-struct QuantShared {
-  float qs[kMaxBeams], sl[kMaxBeams], m[kMaxBeams], den[kMaxBeams], pself[kMaxBeams],
-      ws[kMaxBeams];
-  int acc[kMaxBeams][DH];
-};
-
-template <typename T, int DH, int NW>
-__global__ void __launch_bounds__(NW * 32) ancestry_decode_q_kernel(const QuantAncestryArgs a) {
-  constexpr int E = (DH + 31) / 32;  // dims per lane
-  constexpr int NT = NW * 32;
-  extern __shared__ float dyn[];
-  __shared__ QuantShared<DH> sh;
-
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int K = a.K, TS = a.TS, Tn = TS / K, P = TS / 2;
-  float* sc = dyn;                                              // [K][Tn] scores
-  uint8_t* slot = reinterpret_cast<uint8_t*>(dyn + K * Tn);     // [K][Tn] column - t.K
-  const int64_t bh = (int64_t)b * a.H + h;
-  const T* q = static_cast<const T*>(a.q) + bh * K * DH;
-  const T* kn = static_cast<const T*>(a.k_new) + bh * K * DH;
-  const T* vn = static_cast<const T*>(a.v_new) + bh * K * DH;
-  const int8_t* slab = a.kv + b * a.kv_sb + (int64_t)a.layer * a.kv_sl + h * a.kv_sh;
-  const float* skp = a.sk + b * a.sk_sb + (int64_t)a.layer * a.sk_sl + h * a.sk_sh;
-  const float* svp = a.sv + b * a.sv_sb + (int64_t)a.layer * a.sv_sl + h * a.sv_sh;
-  const int* fr = a.flat_rep + (int64_t)b * K * TS;
-
-  for (int i = threadIdx.x; i < K * Tn; i += NT) sc[i] = -INFINITY;  // no on-path column
-  for (int i = threadIdx.x; i < K * DH; i += NT) sh.acc[i / DH][i % DH] = 0;
-
-  // Row scale qs and the full-precision self logit of each beam.
-  for (int k = warp; k < K; k += NW) {
-    float amax = 0.f, s = 0.f;
-    for (int d = lane; d < DH; d += 32) {
-      const float x = to_f32(q[k * DH + d]);
-      amax = fmaxf(amax, fabsf(x));
-      s = fmaf(x, to_f32(kn[k * DH + d]), s);
-    }
-    amax = warp_max(amax);
-    s = warp_sum(s);
-    if (lane == 0) {
-      sh.qs[k] = amax / 127.0f + 1e-20f;
-      sh.sl[k] = s;
-    }
-  }
-  __syncthreads();
-
-  // Pass 1: integer scores of the on-path columns into shared memory.
-  {
-    int q8[kMaxBeams][E];
-#pragma unroll
-    for (int k = 0; k < kMaxBeams; ++k) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const int d = lane * E + e;
-        q8[k][e] = (k < K && d < DH) ? (int)rintf(to_f32(q[k * DH + d]) / sh.qs[k]) : 0;
-      }
-    }
-    for (int j0 = warp * 32; j0 < TS; j0 += NT) {
-      const int j = j0 + lane;
-      unsigned beams = 0;  // bit k: column j is on beam k's path
-      if (j < TS)
-        for (int k = 0; k < K; ++k) beams |= (unsigned)(fr[(int64_t)k * TS + j] == j) << k;
-      unsigned live = __ballot_sync(kFull, beams != 0);
-      while (live) {
-        const int c = __ffs(live) - 1;
-        live &= live - 1;
-        const unsigned on = __shfl_sync(kFull, beams, c);
-        const int jj = j0 + c, t = jj / K;
-        int kr[E];
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const int d = lane * E + e;
-          kr[e] = d < DH ? load_col(slab, a.kv_sj, P, jj, d) : 0;
-        }
-        const float skj = skp[jj];
-#pragma unroll
-        for (int k = 0; k < kMaxBeams; ++k) {
-          if (!((on >> k) & 1u)) continue;  // warp-uniform
-          int s = 0;
-#pragma unroll
-          for (int e = 0; e < E; ++e) s += q8[k][e] * kr[e];
-          s = warp_sum_int(s);
-          if (lane == 0) {
-            sc[k * Tn + t] = __fmul_rn(__fmul_rn((float)s, sh.qs[k]), skj);
-            slot[k * Tn + t] = (uint8_t)(jj - t * K);
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // Row max, denominator (with the self term) and requant scale, per beam.
-  for (int k = warp; k < K; k += NW) {
-    const float* sck = sc + k * Tn;
-    float m = -INFINITY;
-    for (int t = lane; t < Tn; t += 32) m = fmaxf(m, sck[t]);
-    m = fmaxf(warp_max(m), sh.sl[k]);
-    float sum = 0.f;
-    for (int t = lane; t < Tn; t += 32)
-      if (sck[t] != -INFINITY) sum += expf(sck[t] - m);
-    sum = warp_sum(sum);
-    const float p_self = expf(sh.sl[k] - m);
-    const float den = sum + p_self;
-    float wmax = 0.f;
-    for (int t = lane; t < Tn; t += 32) {
-      if (sck[t] == -INFINITY) continue;
-      const int jj = t * K + slot[k * Tn + t];
-      wmax = fmaxf(wmax, __fmul_rn(expf(sck[t] - m) / den, svp[jj]));
-    }
-    wmax = warp_max(wmax);
-    if (lane == 0) {
-      sh.m[k] = m;
-      sh.den[k] = den;
-      sh.pself[k] = p_self;
-      sh.ws[k] = wmax / 127.0f + 1e-20f;
-    }
-  }
-  __syncthreads();
-
-  // Pass 2: requantized weights times the V halves, in int32.
-  {
-    int acc[kMaxBeams][E];
-#pragma unroll
-    for (int k = 0; k < kMaxBeams; ++k)
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[k][e] = 0;
-    for (int j0 = warp * 32; j0 < TS; j0 += NT) {
-      const int j = j0 + lane;
-      unsigned beams = 0;
-      if (j < TS)
-        for (int k = 0; k < K; ++k) beams |= (unsigned)(fr[(int64_t)k * TS + j] == j) << k;
-      unsigned live = __ballot_sync(kFull, beams != 0);
-      while (live) {
-        const int c = __ffs(live) - 1;
-        live &= live - 1;
-        const unsigned on = __shfl_sync(kFull, beams, c);
-        const int jj = j0 + c, t = jj / K;
-        int vr[E];
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          const int d = lane * E + e;
-          vr[e] = d < DH ? load_col(slab, a.kv_sj, P, jj, DH + d) : 0;
-        }
-        const float svj = svp[jj];
-#pragma unroll
-        for (int k = 0; k < kMaxBeams; ++k) {
-          if (!((on >> k) & 1u)) continue;  // warp-uniform
-          const float w_eff = __fmul_rn(expf(sc[k * Tn + t] - sh.m[k]) / sh.den[k], svj);
-          const int w8 = (int)rintf(w_eff / sh.ws[k]);
-#pragma unroll
-          for (int e = 0; e < E; ++e) acc[k][e] += w8 * vr[e];
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kMaxBeams; ++k) {
-      if (k >= K) break;
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const int d = lane * E + e;
-        if (d < DH && acc[k][e] != 0) atomicAdd(&sh.acc[k][d], acc[k][e]);
-      }
-    }
-  }
-  __syncthreads();
-
-  T* out = static_cast<T*>(a.out) + bh * K * DH;
-  for (int i = threadIdx.x; i < K * DH; i += NT) {
-    const int k = i / DH, d = i % DH;
-    const float hist = __fmul_rn((float)sh.acc[k][d], sh.ws[k]);
-    const float self = __fmul_rn(sh.pself[k] / sh.den[k], to_f32(vn[i]));
-    out[i] = from_f32<T>(__fadd_rn(hist, self));
-  }
-}
-
-// Dynamic shared memory of the F kernel: K.T scores and K.T slot bytes.
-size_t quant_dyn_bytes(int K, int Tn) {
-  const size_t n = (size_t)K * Tn;
-  return n * sizeof(float) + ((n + 3) / 4) * 4;
-}
-
-template <typename T, int DH>
-cudaError_t launch_quant_ancestry(const QuantAncestryArgs& a, int B, cudaStream_t stream) {
-  constexpr int NW = 8;
-  const size_t smem = quant_dyn_bytes(a.K, a.TS / a.K);
-  auto kernel = ancestry_decode_q_kernel<T, DH, NW>;
-  if (smem + sizeof(QuantShared<DH>) > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<dim3(B, a.H), NW * 32, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_quant_ancestry(int DH, const QuantAncestryArgs& a, int B,
-                                    cudaStream_t stream) {
-  switch (DH) {
-    case 16: return launch_quant_ancestry<T, 16>(a, B, stream);
-    case 32: return launch_quant_ancestry<T, 32>(a, B, stream);
-    case 64: return launch_quant_ancestry<T, 64>(a, B, stream);
-    case 128: return launch_quant_ancestry<T, 128>(a, B, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// ---------------------------------------------------------------- kernel D
+// ------------------------------------------------------------ kernels D and F
 
 constexpr int kDThreads = 128;   // 4 warps, each with its own tiles
 constexpr int kDTile = 32;       // live columns per warp tile: one k-step of the s8 output product
 constexpr int kDMaxSplits = 64;
+
+// The load of D's passes: D's int8 rows; F's nibble-packed rows unpacked
+// byte-parallel (kI4) or through int32 shifts (kI4Wide); or F's gather by
+// packed row (kI4Pair).
+enum Load : int { kI8 = 0, kI4 = 1, kI4Wide = 2, kI4Pair = 3 };
 
 struct I8Args {
   const void* q;       // (B, H, K, Dh) through strides, pre-scaled
   const void* k_new;   // (B, H, K, Dh) through strides
   const void* v_new;   // (B, H, K, Dh) through strides
   int64_t q_sb, q_sh, q_sk, kn_sb, kn_sh, kn_sk, vn_sb, vn_sh, vn_sk;
-  const int8_t* kv;    // (B, L, H, TS, 2.Dh) through strides, rows 16-byte aligned
+  const int8_t* kv;    // (B, L, H, TS or P, 2.Dh) through strides, rows 16-byte aligned
   int64_t kv_sb, kv_sl, kv_sh, kv_sj;
   const float* sk;     // (B, L, H, TS) through strides, last dim dense
   int64_t sk_sb, sk_sl, sk_sh;
@@ -367,37 +172,48 @@ struct I8Args {
   int64_t o_sb, o_sh, o_sk;
   float* sc;           // (B.H, K, T) each beam's on-path score at step t, -inf if none
   float* svs;          // (B.H, K, T) its column's sv
-  int* live_g;         // (B, n_split, 1 + span) each split's live column count, then the
-                       // columns (compact_live's format), from the score pass's head-0 blocks
+  int* live_g;         // (B, n_split, lstride) each split's live column count, then the
+                       // columns (compact_live's format; kI4Pair: then the high beams),
+                       // from the score pass's head-0 blocks
   float* part_m;       // (B.H, n_split, K) each split's score max, -inf if it saw none
   float* part_l;       // (B.H, n_split, K) its sum of exp(score - max)
   int* part_acc;       // (B.H, n_split, K, Dh) its sum of w8.v8 (n_split > 1)
   float* row_st;       // (B.H, K, 2) ws and p_self / den of each row (n_split > 1)
-  int H, K, TS, T, layer, n_split, span, rpb;  // span: columns per split, a multiple of K;
-                                               // rpb: batch rows per block
+  int H, K, TS, T, layer, n_split, span, rpb;  // span: columns (kI4Pair: packed rows) per
+                                               // split, D and F a multiple of K; rpb: batch
+                                               // rows per block
+  int n_stat, stat_span;  // the splits of the softmax partials (part_m, part_l): D's, F's
+                          // v0-v2: n_split and span; kI4Pair: D's split of the steps
+  int P;               // F: packed rows of the segment, TS / 2
+  int lstride;         // ints per (b, split) of live_g
 };
 
 // Shared memory of D's passes. A staged K (or V) half row is padded to
 // kRow bytes, so that the 8 rows of one 32-bit fragment load hit distinct
 // banks; a stage holds kDTile such rows and, in the score pass, their
-// kDTile sk and sv. The V tile is transposed into kTRow-byte rows, one per
-// head dim. The block's int32 merge of pass 2 goes over the drained rings;
-// its w8 table (K.nt <= kBSpan bytes) follows the compaction's counts.
-template <int DH>
+// kDTile sk and sv (PAIR: both columns'). The V tile is transposed into
+// kTRow-byte rows, one per head dim. The block's int32 merge of pass 2
+// goes over the drained rings; its w8 table (K.nt <= kBSpan bytes) follows
+// the compaction's counts. PAIR adds each warp's tile of high columns and
+// the live rows' high beams.
+template <int DH, bool PAIR = false>
 struct DSh {
   static constexpr int kRow = (DH < 32 ? 32 : DH) + 16;
   static constexpr int kTRow = kDTile + 16;
-  static constexpr int kStage = kDTile * kRow + 2 * kDTile * 4;
+  static constexpr int kStage = kDTile * kRow + (PAIR ? 4 : 2) * kDTile * 4;
   static constexpr int kRing = 0;                        // 4 warps x 2 stages
-  static constexpr int kVt = kRing + 4 * 2 * kStage;     // 4 warps x DH x kTRow
+  static constexpr int kHi = kRing + 4 * 2 * kStage;     // PAIR: 4 warps x kDTile x kRow
+  static constexpr int kVt = kHi + (PAIR ? 4 * kDTile * kRow : 0);  // 4 warps x DH x kTRow
   static constexpr int kQ = kVt + 4 * DH * kTRow;        // q8, 16 rows x kRow
   static constexpr int kRowSt = kQ + 16 * kRow;          // per-row values: 160 floats
   static constexpr int kLive = kRowSt + 160 * 4;
-  static constexpr int kCount = kLive + kBSpan * 4;
+  static constexpr int kLiveHi = kLive + kBSpan * 4;     // PAIR: kBSpan / 2 uint16
+  static constexpr int kCount = kLiveHi + (PAIR ? kBSpan : 0);
   static constexpr int kW8 = kCount + 4 * 4 * 4;
   static constexpr int kBytes = kW8 + kBSpan;
   static_assert(4 * 16 * DH * 4 <= kVt - kRing, "the merge fits over the rings");
-  static_assert(kStage % 16 == 0 && kVt % 16 == 0 && kQ % 16 == 0, "16-byte aligned tiles");
+  static_assert(kStage % 16 == 0 && kHi % 16 == 0 && kVt % 16 == 0 && kQ % 16 == 0,
+                "16-byte aligned tiles");
 };
 
 // Column c = 8a + 2t + e (a < 4, t < 4, e < 2) of a 32-column tile sits at
@@ -411,51 +227,256 @@ __device__ __forceinline__ int d_pi(int c) {
 }
 
 // The live tile i of a split: each live column's DH-byte K (half = 0) or V
-// (half = 1) half, and its ``scale`` and ``scale2`` where given, into the
-// warp's stage; rows past n_live zeros.
-template <int DH>
-__device__ __forceinline__ void d_gather(uint32_t dst, const int8_t* slab, int64_t sj,
+// (half = 1) half (F: of its packed row), and its ``scale`` and ``scale2``
+// where given (kI4Pair: the row's low and high columns'), into the warp's
+// stage; rows past n_live zeros.
+template <int DH, int LOAD>
+__device__ __forceinline__ void d_gather(uint32_t dst, const int8_t* slab, int64_t sj, int P,
                                          const float* scale, const float* scale2,
                                          const uint32_t* live, int c0, int n_live, int i,
                                          int half) {
-  using C = DSh<DH>;
-  constexpr int CH = DH / 16;
+  constexpr bool PAIR = LOAD == kI4Pair;
+  using C = DSh<DH, PAIR>;
+  constexpr int CH = DH / 16, NS = PAIR ? 2 : 1;
   const int lane = threadIdx.x & 31;
   const int r0 = i * kDTile, n = min(kDTile, n_live - r0);
   for (int e = lane; e < kDTile * CH; e += 32) {
     const int r = e / CH, c = e % CH;
     const bool ok = r < n;
-    const int col = c0 + (ok ? (int)(live[r0 + r] & 0xFFFFu) : 0);
-    cp_async16(dst + r * C::kRow + c * 16, slab + (int64_t)col * sj + half * DH + c * 16, ok);
+    int row = c0 + (ok ? (int)(live[r0 + r] & 0xFFFFu) : 0);
+    if (LOAD == kI4 || LOAD == kI4Wide) row -= row >= P ? P : 0;  // the column's packed row
+    cp_async16(dst + r * C::kRow + c * 16, slab + (int64_t)row * sj + half * DH + c * 16, ok);
   }
   const bool ok = lane < n;
   const int col = c0 + (ok ? (int)(live[r0 + lane] & 0xFFFFu) : 0);
-  if (scale) cp_async4(dst + kDTile * C::kRow + lane * 4, scale + col, ok);
-  if (scale2) cp_async4(dst + kDTile * C::kRow + (kDTile + lane) * 4, scale2 + col, ok);
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    if (scale) cp_async4(dst + kDTile * C::kRow + (s * kDTile + lane) * 4, scale + col + s * P, ok);
+    if (scale2)
+      cp_async4(dst + kDTile * C::kRow + ((NS + s) * kDTile + lane) * 4, scale2 + col + s * P, ok);
+  }
+}
+
+// F: bit i of the result is set where row r0 + rows[i] of the live list
+// (a staged row of the tile) holds a high (j >= P) column.
+template <int N>
+__device__ __forceinline__ uint32_t d_high(const uint32_t* live, int r0, int n_in, int c0, int P,
+                                           const int (&rows)[N]) {
+  uint32_t hi = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    hi |= (uint32_t)(rows[i] < n_in && c0 + (int)(live[r0 + rows[i]] & 0xFFFFu) >= P) << i;
+  return hi;
+}
+
+// kI4Pair: the high columns of the n_in staged packed rows to ``hi``, the
+// low ones in place.
+template <int DH>
+__device__ __forceinline__ void d_unpack_pair(unsigned char* tile, unsigned char* hi, int n_in) {
+  constexpr int W = DH / 4;
+  const int lane = threadIdx.x & 31;
+  for (int e = lane; e < n_in * W; e += 32) {
+    const int off = (e / W) * DSh<DH, true>::kRow + 4 * (e % W);
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(tile + off);
+    *reinterpret_cast<uint32_t*>(hi + off) = nibbles(w, true);
+    *reinterpret_cast<uint32_t*>(tile + off) = nibbles(w, false);
+  }
+}
+
+// s32 = q8.k8 of a staged 32-column tile: s32[n][e] is beam g + 8 (e >> 1),
+// tile column 8 n + 2 tq + (e & 1). SC8: on the s8 tensor cores, else on
+// bf16 ones over exactly converted operands (|s| <= 128 . 127^2 < 2^24).
+// F (LOAD kI4, kI4Wide): the staged rows are packed bytes, unpacked here
+// as the fragments are loaded, row 8 n + g's high nibbles where bit n of hi
+// is set.
+template <int DH, bool SC8, int KS, int LOAD = kI8>
+__device__ __forceinline__ void d_s32(int (&s32)[4][4], const uint32_t (&qf)[KS][4],
+                                      const unsigned char* kt, int g, int tq, uint32_t hi = 0) {
+  constexpr int kRow = DSh<DH>::kRow;
+  constexpr bool F = LOAD == kI4 || LOAD == kI4Wide;
+  auto ld = [&](const unsigned char* at, bool high) {  // a fragment's 32 (SC8) or 16 bits
+    const uint32_t w = SC8 ? *reinterpret_cast<const uint32_t*>(at)
+                           : (uint32_t)*reinterpret_cast<const uint16_t*>(at);
+    return F ? nibbles<LOAD == kI4Wide>(w, high) : w;
+  };
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const unsigned char* krow = kt + (8 * n + g) * kRow;
+    const bool high = (hi >> n) & 1u;
+    if constexpr (SC8) {
+      int acc[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const int o = 32 * kk + 4 * tq;
+        mma_s8(acc, qf[kk], ld(krow + o, high), DH >= 32 ? ld(krow + o + 16, high) : 0u);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s32[n][e] = acc[e];
+    } else {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const int o = 16 * kk + 2 * tq;
+        mma(acc, qf[kk], i8x2_bf16x2(ld(krow + o, high)), i8x2_bf16x2(ld(krow + o + 8, high)));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s32[n][e] = (int)acc[e];
+    }
+  }
+}
+
+// A V tile's bytes (kRow-byte rows) transposed into vt: 4 x 4 byte blocks,
+// column c of dim d to vt[d][pi(c)]. A lane's blocks are all in rows
+// 4 (lane & 7).. + 3; F (LOAD kI4, kI4Wide) unpacks their bytes as it
+// reads them, row 4 (lane & 7) + i's high nibbles where bit i of hi4 is set.
+template <int DH, int LOAD = kI8>
+__device__ __forceinline__ void d_transpose(unsigned char* vt, const unsigned char* vr,
+                                            uint32_t hi4 = 0) {
+  constexpr int kRow = DSh<DH>::kRow, kTRow = DSh<DH>::kTRow;
+  constexpr bool F = LOAD == kI4 || LOAD == kI4Wide;
+  const int lane = threadIdx.x & 31;
+  auto ld = [&](const unsigned char* at, int i) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(at);
+    return F ? nibbles<LOAD == kI4Wide>(w, (hi4 >> i) & 1u) : w;
+  };
+  for (int u = lane; u < 2 * DH; u += 32) {
+    const int rb4 = u & 7, db = u >> 3;  // columns 4 rb4.., dims 4 db..
+    const unsigned char* src = vr + 4 * rb4 * kRow + 4 * db;
+    const uint32_t w0 = ld(src, 0), w1 = ld(src + kRow, 1), w2 = ld(src + 2 * kRow, 2),
+                   w3 = ld(src + 3 * kRow, 3);
+    const uint32_t lo01 = __byte_perm(w0, w1, 0x5140), hi01 = __byte_perm(w0, w1, 0x7362);
+    const uint32_t lo23 = __byte_perm(w2, w3, 0x5140), hi23 = __byte_perm(w2, w3, 0x7362);
+    const uint32_t col4[4] = {__byte_perm(lo01, lo23, 0x5410), __byte_perm(lo01, lo23, 0x7632),
+                              __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632)};
+    const int p0 = d_pi(4 * rb4);  // columns 4 rb4, +1 at p0, p0 + 1; +2, +3 at p0 + 4, p0 + 5
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      unsigned char* dst = vt + (4 * db + e) * kTRow + p0;
+      *reinterpret_cast<uint16_t*>(dst) = (uint16_t)(col4[e] & 0xFFFFu);
+      *reinterpret_cast<uint16_t*>(dst + 4) = (uint16_t)(col4[e] >> 16);
+    }
+  }
+}
+
+// acc += w8.v8 over a transposed tile: on the s8 tensor cores (OUT8), or on
+// bf16 ones over exactly converted operands, each 32-column tile's fp32
+// sums turned to int32 (exact: <= 32 . 127^2 < 2^24).
+template <int DH, bool OUT8>
+__device__ __forceinline__ void d_wv(int (&acc)[DH / 8][4], const int (&w8)[4][4],
+                                     const unsigned char* vt, int g, int tq) {
+  constexpr int NT = DH / 8, kTRow = DSh<DH>::kTRow;
+  if constexpr (OUT8) {
+    // A (16 beams x 32 columns in pi order): reg 0 = row g, columns
+    // 2tq, 2tq+1, 8+2tq, 9+2tq (n-tiles 0, 1); reg 2 the same of n-tiles 2, 3.
+    const uint32_t wa[4] = {pack_i8x4(w8[0][0], w8[0][1], w8[1][0], w8[1][1]),
+                            pack_i8x4(w8[0][2], w8[0][3], w8[1][2], w8[1][3]),
+                            pack_i8x4(w8[2][0], w8[2][1], w8[3][0], w8[3][1]),
+                            pack_i8x4(w8[2][2], w8[2][3], w8[3][2], w8[3][3])};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const unsigned char* vrow = vt + (8 * n + g) * kTRow + 4 * tq;
+      mma_s8(acc[n], wa, *reinterpret_cast<const uint32_t*>(vrow),
+             *reinterpret_cast<const uint32_t*>(vrow + 16));
+    }
+  } else {
+    float f[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) f[n][0] = f[n][1] = f[n][2] = f[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const float c0f[4] = {(float)w8[2 * kk][0], (float)w8[2 * kk][1], (float)w8[2 * kk][2],
+                            (float)w8[2 * kk][3]};
+      const float c1f[4] = {(float)w8[2 * kk + 1][0], (float)w8[2 * kk + 1][1],
+                            (float)w8[2 * kk + 1][2], (float)w8[2 * kk + 1][3]};
+      uint32_t wa[4];
+      acc_to_a(wa, c0f, c1f);  // exact: |w8| <= 127
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        // columns 16 kk + 2tq, +1 at pi = 16 kk + 4tq, +1; 16 kk + 8 + 2tq, +1 at +2, +3
+        const uint32_t v = *reinterpret_cast<const uint32_t*>(vt + (8 * n + g) * kTRow +
+                                                              16 * kk + 4 * tq);
+        mma(f[n], wa, i8x2_bf16x2(v & 0xFFFFu), i8x2_bf16x2(v >> 16));
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += (int)f[n][e];
+  }
+}
+
+// A split's softmax partials: one warp per beam (beams warp, warp + 4, ...
+// together, so that their loads overlap) takes the max and the sum of exp
+// of the beam's stored scores at steps [t0, t0 + nt), lanes over the steps
+// in a fixed order; a beam with no score there keeps max -inf.
+__device__ __forceinline__ void d_split_stats(const I8Args& a, const float* sc, int64_t bh,
+                                              int split, int t0, int nt) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, K = a.K;
+  float mk[4], lk[4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) mk[kk] = -INFINITY, lk[kk] = 0.f;
+  for (int t = lane; t < nt; t += 32) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      if (warp + 4 * kk < K) mk[kk] = fmaxf(mk[kk], sc[(warp + 4 * kk) * a.T + t0 + t]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) mk[kk] = warp_max(mk[kk]);
+  for (int t = lane; t < nt; t += 32) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // mk -inf: no column of the split on this beam's path
+      if (warp + 4 * kk < K && mk[kk] != -INFINITY)
+        lk[kk] += expf(sc[(warp + 4 * kk) * a.T + t0 + t] - mk[kk]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int k = warp + 4 * kk;
+    const float l = warp_sum(lk[kk]);
+    if (k < K && lane == 0) {
+      a.part_m[(bh * a.n_stat + split) * K + k] = mk[kk];
+      a.part_l[(bh * a.n_stat + split) * K + k] = l;
+    }
+  }
+}
+
+// kI4Pair: D's softmax partials over D's split of the steps, once every
+// score is stored (grid (B.H, n_stat)), so that the output pass folds the
+// same floats in the same order as D's and v0's bits follow.
+__global__ void __launch_bounds__(kDThreads) ancestry_q_stats_kernel(const I8Args a) {
+  const int64_t bh = blockIdx.x;
+  const int c0 = blockIdx.y * a.stat_span, c1 = min(a.TS, c0 + a.stat_span);
+  d_split_stats(a, a.sc + bh * a.K * a.T, bh, blockIdx.y, c0 / a.K, (c1 - c0) / a.K);
 }
 
 // Pass 1: block (batch row group x head, split). Per batch row: q quantized
 // (q8 = rint(q / qs), qs = max|q| / 127 + 1e-20) into shared memory, the
 // split's score entries set to -inf, its live columns compacted (and, in
 // the head-0 block, left in scratch for pass 2); then warp w takes live
-// tiles w, w + 4, ...: s32 = q8.k8 with the K beams as mma rows (exact, on
-// the s8 tensor cores, or with SC8 = false on bf16 ones over exactly
-// converted operands), score = (s32 . qs) . sk in fp32, each on-path
-// (beam, column) score and sv stored to scratch at (beam, step). Last, one
-// warp per beam takes the split's (max, sum of exp) from its stored
-// scores, lanes over the steps in a fixed order.
-template <typename T, int DH, bool SC8>
-__global__ void __launch_bounds__(kDThreads) ancestry_i8_score_kernel(const I8Args a) {
-  using C = DSh<DH>;
+// tiles w, w + 4, ...: s32 = q8.k8 (F: the packed bytes unpacked as loaded)
+// with the K beams as mma rows, score = (s32 . qs) . sk in fp32, each
+// on-path (beam, column) score and sv stored to scratch at (beam, step).
+// Last (not kI4Pair, whose stats kernel follows), the split's softmax
+// partials (d_split_stats).
+//
+// PROBE (not 0 only in mm_ancestry_decode_fixed_work, whose output is not
+// valid) leaves parts of both passes out: 1 the tiles, 2 the compaction, 4
+// the ws and the w8 table.
+template <typename T, int DH, bool SC8, int LOAD, int PROBE = 0>
+__global__ void __launch_bounds__(kDThreads, 4) ancestry_q_score_kernel(const I8Args a) {
+  constexpr bool PAIR = LOAD == kI4Pair;
+  constexpr int NH = PAIR ? 2 : 1;  // columns per staged row
+  using C = DSh<DH, PAIR>;
   extern __shared__ __align__(128) unsigned char d_smem[];
   uint32_t* live = reinterpret_cast<uint32_t*>(d_smem + C::kLive);
+  uint16_t* live_hi = reinterpret_cast<uint16_t*>(d_smem + C::kLiveHi);
   float* qs_sm = reinterpret_cast<float*>(d_smem + C::kRowSt);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   const int K = a.K, h = blockIdx.x % a.H, split = blockIdx.y;
-  const int c0 = split * a.span, c1 = min(a.TS, c0 + a.span);
-  const int t0 = c0 / K, nt = (c1 - c0) / K;
+  const int c0 = split * a.span, c1 = min(PAIR ? a.P : a.TS, c0 + a.span);
+  const int t0 = c0 / K, nt = (c1 - c0) / K;  // D, F: the split's whole steps
   const uint32_t kmag = (65536u + K - 1) / K;  // step of column offset o < 2^11: (o . kmag) >> 16
   const uint32_t ring = smem_u32(d_smem + C::kRing) + warp * 2 * C::kStage;
+  unsigned char* hi_w = d_smem + C::kHi + warp * kDTile * C::kRow;
   const unsigned char* q8 = d_smem + C::kQ;
 
   for (int rb = 0; rb < a.rpb; ++rb) {
@@ -463,7 +484,8 @@ __global__ void __launch_bounds__(kDThreads) ancestry_i8_score_kernel(const I8Ar
     const int64_t bh = (int64_t)b * a.H + h;
     float* sc = a.sc + bh * K * a.T;
     float* svs = a.svs + bh * K * a.T;
-    for (int i = threadIdx.x; i < K * nt; i += kDThreads) sc[(i / nt) * a.T + t0 + i % nt] = -INFINITY;
+    if constexpr (!PAIR)  // kI4Pair: a step may straddle two splits; a fill kernel sets them
+      for (int i = threadIdx.x; i < K * nt; i += kDThreads) sc[(i / nt) * a.T + t0 + i % nt] = -INFINITY;
     {  // q8 of rows warp, warp + 4, ...: every load in flight before the first reduction
       constexpr int QE = (DH + 31) / 32;
       const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
@@ -492,21 +514,30 @@ __global__ void __launch_bounds__(kDThreads) ancestry_i8_score_kernel(const I8Ar
         if (lane == 0) qs_sm[k] = qs;
       }
     }
-    const int n_live = compact_live<kDThreads, 4>(a.flat_rep + (int64_t)b * K * a.TS, K, a.TS, c0,
-                                                  c1, live, reinterpret_cast<int*>(d_smem + C::kCount));
+    const int* fr = a.flat_rep + (int64_t)b * K * a.TS;
+    int* count = reinterpret_cast<int*>(d_smem + C::kCount);
+    int n_live = 0;
+    if constexpr ((PROBE & 2) != 0)
+      __syncthreads();
+    else if constexpr (PAIR)
+      n_live = compact_live<kDThreads, 2, true>(fr, K, a.TS, c0, c1, live, count, a.P, live_hi);
+    else
+      n_live = compact_live<kDThreads, 4>(fr, K, a.TS, c0, c1, live, count);
     if (h == 0) {  // the output pass of every head of b reads these
-      int* lg = a.live_g + ((int64_t)b * a.n_split + split) * (a.span + 1);
-      for (int e = threadIdx.x; e <= n_live; e += kDThreads)
+      int* lg = a.live_g + ((int64_t)b * a.n_split + split) * a.lstride;
+      for (int e = threadIdx.x; e <= n_live; e += kDThreads) {
         lg[e] = e == 0 ? n_live : (int)live[e - 1];
+        if (PAIR && e > 0) lg[a.span + e] = live_hi[e - 1];
+      }
     }
-    const int n_tiles = (n_live + kDTile - 1) / kDTile;
+    const int n_tiles = (PROBE & 1) ? 0 : (n_live + kDTile - 1) / kDTile;
     const int8_t* slab = a.kv + b * a.kv_sb + (int64_t)a.layer * a.kv_sl + h * a.kv_sh;
     const float* skp = a.sk + b * a.sk_sb + (int64_t)a.layer * a.sk_sl + h * a.sk_sh;
     const float* svp = a.sv + b * a.sv_sb + (int64_t)a.layer * a.sv_sl + h * a.sv_sh;
 
     int i = warp;
     if (i < n_tiles) {
-      d_gather<DH>(ring, slab, a.kv_sj, skp, svp, live, c0, n_live, i, 0);
+      d_gather<DH, LOAD>(ring, slab, a.kv_sj, a.P, skp, svp, live, c0, n_live, i, 0);
       cp_async_commit();
     }
     // q8 as A fragments: s8 (k-steps of 32 dims) or bf16 (k-steps of 16).
@@ -533,58 +564,46 @@ __global__ void __launch_bounds__(kDThreads) ancestry_i8_score_kernel(const I8Ar
     for (int j = 0; i < n_tiles; ++j, i += 4) {
       const int stage = j & 1;
       if (i + 4 < n_tiles) {
-        d_gather<DH>(ring + (stage ^ 1) * C::kStage, slab, a.kv_sj, skp, svp, live, c0, n_live,
-                     i + 4, 0);
+        d_gather<DH, LOAD>(ring + (stage ^ 1) * C::kStage, slab, a.kv_sj, a.P, skp, svp, live, c0,
+                           n_live, i + 4, 0);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
       __syncwarp();
-      const unsigned char* kt = d_smem + C::kRing + (warp * 2 + stage) * C::kStage;
+      unsigned char* kt = d_smem + C::kRing + (warp * 2 + stage) * C::kStage;
       const float* skt = reinterpret_cast<const float*>(kt + kDTile * C::kRow);
-      const float* svt = skt + kDTile;
       const int r0 = i * kDTile, n_in = min(kDTile, n_live - r0);
-      // s32[n][e]: beam g + 8 (e >> 1), tile column 8 n + 2 tq + (e & 1).
-      int s32[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const unsigned char* krow = kt + (8 * n + g) * C::kRow;
-        if constexpr (SC8) {
-          int acc[4] = {0, 0, 0, 0};
-#pragma unroll
-          for (int kk = 0; kk < KS; ++kk) {
-            const int o = 32 * kk + 4 * tq;
-            mma_s8(acc, qf[kk], *reinterpret_cast<const uint32_t*>(krow + o),
-                   DH >= 32 ? *reinterpret_cast<const uint32_t*>(krow + o + 16) : 0u);
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s32[n][e] = acc[e];
-        } else {
-          float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int kk = 0; kk < KS; ++kk) {
-            const int o = 16 * kk + 2 * tq;
-            mma(acc, qf[kk], i8x2_bf16x2(*reinterpret_cast<const uint16_t*>(krow + o)),
-                i8x2_bf16x2(*reinterpret_cast<const uint16_t*>(krow + o + 8)));
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s32[n][e] = (int)acc[e];  // exact: |s| <= 128 . 127^2 < 2^24
-        }
+      uint32_t hi = 0;  // F: which of the lane's fragment rows hold high columns
+      if constexpr (LOAD == kI4 || LOAD == kI4Wide) {
+        const int rows[4] = {g, 8 + g, 16 + g, 24 + g};
+        hi = d_high(live, r0, n_in, c0, a.P, rows);
+      } else if constexpr (PAIR) {
+        d_unpack_pair<DH>(kt, hi_w, n_in);
+        __syncwarp();
       }
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
+      for (int hf = 0; hf < NH; ++hf) {
+        int s32[4][4];
+        d_s32<DH, SC8, KS, PAIR ? kI8 : LOAD>(s32, qf, hf ? hi_w : kt, g, tq, hi);
 #pragma unroll
-        for (int e1 = 0; e1 < 2; ++e1) {
-          const int c = 8 * n + 2 * tq + e1;
-          const uint32_t col = c < n_in ? live[r0 + c] : 0u;
-          const int t = t0 + (int)(((col & 0xFFFFu) * kmag) >> 16);
+        for (int n = 0; n < 4; ++n) {
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int beam = g + 8 * r;
-            if ((col >> (16 + beam)) & 1u) {
-              sc[beam * a.T + t] = __fmul_rn(__fmul_rn((float)s32[n][2 * r + e1], qs_r[r]), skt[c]);
-              svs[beam * a.T + t] = svt[c];
+          for (int e1 = 0; e1 < 2; ++e1) {
+            const int c = 8 * n + 2 * tq + e1;
+            const uint32_t col = c < n_in ? live[r0 + c] : 0u;
+            const uint32_t beams = hf ? (c < n_in ? (uint32_t)live_hi[r0 + c] : 0u) : col >> 16;
+            const int t = PAIR ? (c0 + (int)(col & 0xFFFFu) + hf * a.P) / K
+                               : t0 + (int)(((col & 0xFFFFu) * kmag) >> 16);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int beam = g + 8 * r;
+              if ((beams >> beam) & 1u) {
+                sc[beam * a.T + t] = __fmul_rn(__fmul_rn((float)s32[n][2 * r + e1], qs_r[r]),
+                                               skt[hf * kDTile + c]);
+                svs[beam * a.T + t] = skt[(NH + hf) * kDTile + c];
+              }
             }
           }
         }
@@ -592,33 +611,7 @@ __global__ void __launch_bounds__(kDThreads) ancestry_i8_score_kernel(const I8Ar
       __syncwarp();  // the stage is refilled by the next iteration's gather
     }
     __syncthreads();  // the block's scores are in scratch
-    {  // beams warp, warp + 4, ... together, so that their loads overlap
-      float mk[4], lk[4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) mk[kk] = -INFINITY, lk[kk] = 0.f;
-      for (int t = lane; t < nt; t += 32) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          if (warp + 4 * kk < K) mk[kk] = fmaxf(mk[kk], sc[(warp + 4 * kk) * a.T + t0 + t]);
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) mk[kk] = warp_max(mk[kk]);
-      for (int t = lane; t < nt; t += 32) {
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)  // mk -inf: no column of the split on this beam's path
-          if (warp + 4 * kk < K && mk[kk] != -INFINITY)
-            lk[kk] += expf(sc[(warp + 4 * kk) * a.T + t0 + t] - mk[kk]);
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const int k = warp + 4 * kk;
-        const float l = warp_sum(lk[kk]);
-        if (k < K && lane == 0) {
-          a.part_m[(bh * a.n_split + split) * K + k] = mk[kk];
-          a.part_l[(bh * a.n_split + split) * K + k] = l;
-        }
-      }
-    }
+    if constexpr (!PAIR) d_split_stats(a, sc, bh, split, t0, nt);
     __syncthreads();  // shared memory is the next batch row's
   }
 }
@@ -632,20 +625,21 @@ __global__ void __launch_bounds__(kDThreads) ancestry_i8_score_kernel(const I8Ar
 // . sv, the block's threads over the steps (the same in every split); and
 // w8 = rint(w_eff / ws) of each (beam, step) of the split, formed once,
 // into a shared table. Then warp w takes live tiles w, w + 4, ... of the V
-// halves, transposes each into dim-major rows, reads the w8 of the
-// (beam, column) elements it holds from the table, and adds w8.v8 in
-// int32: on the s8 tensor cores, or (OUT8 = false) on bf16 ones over
-// exactly converted operands, each 32-column tile's fp32 sums turned to
-// int32 (exact: <= 32 . 127^2 < 2^24). The warps' int32 sums merge exactly
-// in shared memory; with one split the block writes out = float(sum) . ws
-// + (p_self / den) . v_new, else the split's int32 partial, which the
-// merge kernel adds.
-template <typename T, int DH, bool OUT8>
-__global__ void __launch_bounds__(kDThreads) ancestry_i8_out_kernel(const I8Args a) {
-  using C = DSh<DH>;
+// halves, transposes each into dim-major rows (F: unpacked as read), reads
+// the w8 of the (beam, column) elements it holds from the table, and adds
+// w8.v8 in int32 (d_wv). The warps' int32 sums merge exactly in shared
+// memory; with one split the block writes out = float(sum) . ws + (p_self
+// / den) . v_new, else the split's int32 partial, which the merge kernel
+// adds.
+template <typename T, int DH, bool OUT8, int LOAD, int PROBE = 0>
+__global__ void __launch_bounds__(kDThreads, 4) ancestry_q_out_kernel(const I8Args a) {
+  constexpr bool PAIR = LOAD == kI4Pair;
+  constexpr int NH = PAIR ? 2 : 1;
+  using C = DSh<DH, PAIR>;
   constexpr int NT = DH / 8;  // n-tiles of the output row
   extern __shared__ __align__(128) unsigned char d_smem[];
   uint32_t* live = reinterpret_cast<uint32_t*>(d_smem + C::kLive);
+  uint16_t* live_hi = reinterpret_cast<uint16_t*>(d_smem + C::kLiveHi);
   int8_t* w8s = reinterpret_cast<int8_t*>(d_smem + C::kW8);  // [K][nt]
   float* st_m = reinterpret_cast<float*>(d_smem + C::kRowSt);
   float* st_den = st_m + 16;
@@ -655,26 +649,35 @@ __global__ void __launch_bounds__(kDThreads) ancestry_i8_out_kernel(const I8Args
   int* merge = reinterpret_cast<int*>(d_smem + C::kRing);  // [4 warps][16][DH], after the tiles
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
   const int K = a.K, h = blockIdx.x % a.H, split = blockIdx.y;
-  const int c0 = split * a.span;
-  const int t0 = c0 / K, nt = (min(a.TS, c0 + a.span) - c0) / K;
+  const int c0 = split * a.span, c1 = min(PAIR ? a.P : a.TS, c0 + a.span);
+  // The split's steps: D and F [t0, t0 + nt); kI4Pair those of its low
+  // columns [t0, t0 + nl), then of its high ones from th0.
+  const int t0 = c0 / K;
+  const int nl = PAIR ? (c1 - 1) / K - t0 + 1 : (c1 - c0) / K;
+  const int th0 = (c0 + a.P) / K;
+  const int nt = PAIR ? nl + (c1 - 1 + a.P) / K - th0 + 1 : nl;
   const uint32_t kmag = (65536u + K - 1) / K;
   const uint32_t ring = smem_u32(d_smem + C::kRing) + warp * 2 * C::kStage;
   unsigned char* vt = d_smem + C::kVt + warp * DH * C::kTRow;
+  unsigned char* hi_w = d_smem + C::kHi + warp * kDTile * C::kRow;
 
   for (int rb = 0; rb < a.rpb; ++rb) {
     const int b = (blockIdx.x / a.H) * a.rpb + rb;
     const int64_t bh = (int64_t)b * a.H + h;
     const float* sc = a.sc + bh * K * a.T;
     const float* svs = a.svs + bh * K * a.T;
-    const int* lg = a.live_g + ((int64_t)b * a.n_split + split) * (a.span + 1);
+    const int* lg = a.live_g + ((int64_t)b * a.n_split + split) * a.lstride;
     const int n_live = lg[0];
-    for (int e = threadIdx.x; e < n_live; e += kDThreads) live[e] = (uint32_t)lg[1 + e];
+    for (int e = threadIdx.x; e < n_live; e += kDThreads) {
+      live[e] = (uint32_t)lg[1 + e];
+      if constexpr (PAIR) live_hi[e] = (uint16_t)lg[1 + a.span + e];
+    }
     __syncthreads();
-    const int n_tiles = (n_live + kDTile - 1) / kDTile;
+    const int n_tiles = (PROBE & 1) ? 0 : (n_live + kDTile - 1) / kDTile;
     const int8_t* slab = a.kv + b * a.kv_sb + (int64_t)a.layer * a.kv_sl + h * a.kv_sh;
     int i = warp;
     if (i < n_tiles) {  // in flight while the row's statistics are formed
-      d_gather<DH>(ring, slab, a.kv_sj, nullptr, nullptr, live, c0, n_live, i, 1);
+      d_gather<DH, LOAD>(ring, slab, a.kv_sj, a.P, nullptr, nullptr, live, c0, n_live, i, 1);
       cp_async_commit();
     }
     {  // beams warp, warp + 4, ...: every load in flight before the first reduction
@@ -693,8 +696,8 @@ __global__ void __launch_bounds__(kDThreads) ancestry_i8_out_kernel(const I8Args
         }
 #pragma unroll
         for (int u = 0; u < SE; ++u) {
-          const int64_t at = (bh * a.n_split + lane + 32 * u) * K + k;
-          const bool ok = k < K && lane + 32 * u < a.n_split;
+          const int64_t at = (bh * a.n_stat + lane + 32 * u) * K + k;
+          const bool ok = k < K && lane + 32 * u < a.n_stat;
           pmv[kk][u] = ok ? a.part_m[at] : -INFINITY;
           plv[kk][u] = ok ? a.part_l[at] : 0.f;
         }
@@ -722,7 +725,7 @@ __global__ void __launch_bounds__(kDThreads) ancestry_i8_out_kernel(const I8Args
       }
     }
     __syncthreads();
-    {  // ws: each thread's steps of every beam, then the beams' maxima over the block
+    if constexpr (!(PROBE & 4)) {  // ws: each thread's steps of every beam, then the beams' maxima
       float wmax[kMaxBeams];
 #pragma unroll
       for (int k = 0; k < kMaxBeams; ++k) wmax[k] = 0.f;
@@ -754,12 +757,13 @@ __global__ void __launch_bounds__(kDThreads) ancestry_i8_out_kernel(const I8Args
       }
     }
     __syncthreads();
-    {  // K.nt <= kBSpan entries: every load in flight before the first w8
+    if constexpr (!(PROBE & 4)) {  // K.nt <= kBSpan entries: every load in flight before the first w8
       constexpr int WE = kBSpan / kDThreads;
       float xv[WE], vv[WE];
 #pragma unroll
       for (int u = 0; u < WE; ++u) {
-        const int e = threadIdx.x + kDThreads * u, k = e / nt, t = t0 + e - k * nt;
+        const int e = threadIdx.x + kDThreads * u, k = e / nt, s = e - k * nt;
+        const int t = !PAIR || s < nl ? t0 + s : th0 + s - nl;
         xv[u] = e < K * nt ? sc[k * a.T + t] : -INFINITY;
         vv[u] = e < K * nt ? svs[k * a.T + t] : 0.f;
       }
@@ -780,90 +784,55 @@ __global__ void __launch_bounds__(kDThreads) ancestry_i8_out_kernel(const I8Args
     for (int j = 0; i < n_tiles; ++j, i += 4) {
       const int stage = j & 1;
       if (i + 4 < n_tiles) {
-        d_gather<DH>(ring + (stage ^ 1) * C::kStage, slab, a.kv_sj, nullptr, nullptr, live, c0,
-                     n_live, i + 4, 1);
+        d_gather<DH, LOAD>(ring + (stage ^ 1) * C::kStage, slab, a.kv_sj, a.P, nullptr, nullptr,
+                           live, c0, n_live, i + 4, 1);
         cp_async_commit();
       }
       // The w8 of this tile's (beam, column) elements, while the V rows land.
       const int r0 = i * kDTile, n_in = min(kDTile, n_live - r0);
-      int w8[4][4];
+      int w8[NH][4][4];
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
+      for (int hf = 0; hf < NH; ++hf) {
 #pragma unroll
-        for (int e1 = 0; e1 < 2; ++e1) {
-          const int c = 8 * n + 2 * tq + e1;
-          const uint32_t col = c < n_in ? live[r0 + c] : 0u;
-          const int t = (int)(((col & 0xFFFFu) * kmag) >> 16);  // the step within the split
+        for (int n = 0; n < 4; ++n) {
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int beam = g + 8 * r;
-            w8[n][2 * r + e1] = (col >> (16 + beam)) & 1u ? (int)w8s[beam * nt + t] : 0;
+          for (int e1 = 0; e1 < 2; ++e1) {
+            const int c = 8 * n + 2 * tq + e1;
+            const uint32_t col = c < n_in ? live[r0 + c] : 0u;
+            const uint32_t beams = hf ? (c < n_in ? (uint32_t)live_hi[r0 + c] : 0u) : col >> 16;
+            int t;  // the step's entry in the table
+            if constexpr (PAIR)
+              t = hf ? nl + (c0 + (int)(col & 0xFFFFu) + a.P) / K - th0
+                     : (c0 + (int)(col & 0xFFFFu)) / K - t0;
+            else
+              t = (int)(((col & 0xFFFFu) * kmag) >> 16);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int beam = g + 8 * r;
+              w8[hf][n][2 * r + e1] = (beams >> beam) & 1u ? (int)w8s[beam * nt + t] : 0;
+            }
           }
         }
       }
       if (i + 4 < n_tiles) cp_async_wait<1>(); else cp_async_wait<0>();
       __syncwarp();
-      const unsigned char* vr = d_smem + C::kRing + (warp * 2 + stage) * C::kStage;
-      // Transpose the V tile: 4 x 4 byte blocks, column c of dim d to vt[d][pi(c)].
-      for (int u = lane; u < 2 * DH; u += 32) {
-        const int rb4 = u & 7, db = u >> 3;  // columns 4 rb4.., dims 4 db..
-        const unsigned char* src = vr + 4 * rb4 * C::kRow + 4 * db;
-        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(src);
-        const uint32_t w1 = *reinterpret_cast<const uint32_t*>(src + C::kRow);
-        const uint32_t w2 = *reinterpret_cast<const uint32_t*>(src + 2 * C::kRow);
-        const uint32_t w3 = *reinterpret_cast<const uint32_t*>(src + 3 * C::kRow);
-        const uint32_t lo01 = __byte_perm(w0, w1, 0x5140), hi01 = __byte_perm(w0, w1, 0x7362);
-        const uint32_t lo23 = __byte_perm(w2, w3, 0x5140), hi23 = __byte_perm(w2, w3, 0x7362);
-        const uint32_t col4[4] = {__byte_perm(lo01, lo23, 0x5410), __byte_perm(lo01, lo23, 0x7632),
-                                  __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632)};
-        const int p0 = d_pi(4 * rb4);  // columns 4 rb4, +1 at p0, p0 + 1; +2, +3 at p0 + 4, p0 + 5
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          unsigned char* dst = vt + (4 * db + e) * C::kTRow + p0;
-          *reinterpret_cast<uint16_t*>(dst) = (uint16_t)(col4[e] & 0xFFFFu);
-          *reinterpret_cast<uint16_t*>(dst + 4) = (uint16_t)(col4[e] >> 16);
-        }
+      unsigned char* vr = d_smem + C::kRing + (warp * 2 + stage) * C::kStage;
+      uint32_t hi4 = 0;  // F: which of the lane's transpose rows hold high columns
+      if constexpr (LOAD == kI4 || LOAD == kI4Wide) {
+        const int rows[4] = {4 * (lane & 7), 4 * (lane & 7) + 1, 4 * (lane & 7) + 2,
+                             4 * (lane & 7) + 3};
+        hi4 = d_high(live, r0, n_in, c0, a.P, rows);
+      } else if constexpr (PAIR) {
+        d_unpack_pair<DH>(vr, hi_w, n_in);
+        __syncwarp();
       }
-      __syncwarp();  // vt is written
-      if constexpr (OUT8) {
-        // A (16 beams x 32 columns in pi order): reg 0 = row g, columns
-        // 2tq, 2tq+1, 8+2tq, 9+2tq (n-tiles 0, 1); reg 2 the same of n-tiles 2, 3.
-        const uint32_t wa[4] = {pack_i8x4(w8[0][0], w8[0][1], w8[1][0], w8[1][1]),
-                                pack_i8x4(w8[0][2], w8[0][3], w8[1][2], w8[1][3]),
-                                pack_i8x4(w8[2][0], w8[2][1], w8[3][0], w8[3][1]),
-                                pack_i8x4(w8[2][2], w8[2][3], w8[3][2], w8[3][3])};
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const unsigned char* vrow = vt + (8 * n + g) * C::kTRow + 4 * tq;
-          mma_s8(acc[n], wa, *reinterpret_cast<const uint32_t*>(vrow),
-                 *reinterpret_cast<const uint32_t*>(vrow + 16));
-        }
-      } else {
-        float f[NT][4];
-#pragma unroll
-        for (int n = 0; n < NT; ++n) f[n][0] = f[n][1] = f[n][2] = f[n][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          const float c0f[4] = {(float)w8[2 * kk][0], (float)w8[2 * kk][1], (float)w8[2 * kk][2],
-                                (float)w8[2 * kk][3]};
-          const float c1f[4] = {(float)w8[2 * kk + 1][0], (float)w8[2 * kk + 1][1],
-                                (float)w8[2 * kk + 1][2], (float)w8[2 * kk + 1][3]};
-          uint32_t wa[4];
-          acc_to_a(wa, c0f, c1f);  // exact: |w8| <= 127
-#pragma unroll
-          for (int n = 0; n < NT; ++n) {
-            // columns 16 kk + 2tq, +1 at pi = 16 kk + 4tq, +1; 16 kk + 8 + 2tq, +1 at +2, +3
-            const uint32_t v = *reinterpret_cast<const uint32_t*>(vt + (8 * n + g) * C::kTRow +
-                                                                  16 * kk + 4 * tq);
-            mma(f[n], wa, i8x2_bf16x2(v & 0xFFFFu), i8x2_bf16x2(v >> 16));
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n][e] += (int)f[n][e];
+      for (int hf = 0; hf < NH; ++hf) {
+        d_transpose<DH, PAIR ? kI8 : LOAD>(vt, hf ? hi_w : vr, hi4);
+        __syncwarp();  // vt is written
+        d_wv<DH, OUT8>(acc, w8[hf], vt, g, tq);
+        __syncwarp();  // the stage and vt are rewritten next
       }
-      __syncwarp();  // the stage and vt are rewritten by the next tile
     }
     __syncthreads();  // every ring is drained: the merge goes over them
     int* mw = merge + warp * 16 * DH;
@@ -893,8 +862,8 @@ __global__ void __launch_bounds__(kDThreads) ancestry_i8_out_kernel(const I8Args
 
 // Merge (n_split > 1): one block per (b, h) adds the splits' int32 sums
 // (exact in any order) and applies ws and the self term.
-template <typename T, int DH>
-__global__ void __launch_bounds__(kDThreads) ancestry_i8_merge_kernel(const I8Args a) {
+template <typename T, int DH, int LOAD>
+__global__ void __launch_bounds__(kDThreads) ancestry_q_merge_kernel(const I8Args a) {
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, K = a.K;
   const T* vn = static_cast<const T*>(a.v_new) + b * a.vn_sb + h * a.vn_sh;
   T* out = static_cast<T*>(a.out) + b * a.o_sb + h * a.o_sh;
@@ -909,85 +878,363 @@ __global__ void __launch_bounds__(kDThreads) ancestry_i8_merge_kernel(const I8Ar
   }
 }
 
-template <typename T, int DH, bool SC8, bool OUT8>
-cudaError_t launch_i8(const I8Args& a, int B, cudaStream_t stream) {
-  constexpr int smem = DSh<DH>::kBytes;
+// kI4Pair: every score entry -inf before the score pass (a step's columns
+// may lie in two splits' rows, so no split owns its entries).
+__global__ void fill_kernel(float* p, float v, int64_t n) {
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x)
+    p[i] = v;
+}
+
+template <typename T, int DH, bool SC8, bool OUT8, int LOAD, int PROBE = 0>
+cudaError_t launch_q(const I8Args& a, int B, cudaStream_t stream) {
+  constexpr int smem = DSh<DH, LOAD == kI4Pair>::kBytes;
   const dim3 grid(B / a.rpb * a.H, a.n_split);
-  cudaError_t err = allow_smem(ancestry_i8_score_kernel<T, DH, SC8>, smem);
-  if (err == cudaSuccess) err = allow_smem(ancestry_i8_out_kernel<T, DH, OUT8>, smem);
+  cudaError_t err = allow_smem(ancestry_q_score_kernel<T, DH, SC8, LOAD, PROBE>, smem);
+  if (err == cudaSuccess) err = allow_smem(ancestry_q_out_kernel<T, DH, OUT8, LOAD, PROBE>, smem);
   if (err != cudaSuccess) return err;
-  ancestry_i8_score_kernel<T, DH, SC8><<<grid, kDThreads, smem, stream>>>(a);
+  if (LOAD == kI4Pair) {
+    fill_kernel<<<4 * kSMs, 256, 0, stream>>>(a.sc, -INFINITY, (int64_t)B * a.H * a.K * a.T);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  ancestry_q_score_kernel<T, DH, SC8, LOAD, PROBE><<<grid, kDThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ancestry_i8_out_kernel<T, DH, OUT8><<<grid, kDThreads, smem, stream>>>(a);
+  if (LOAD == kI4Pair) {
+    ancestry_q_stats_kernel<<<dim3(B * a.H, a.n_stat), kDThreads, 0, stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  ancestry_q_out_kernel<T, DH, OUT8, LOAD, PROBE><<<grid, kDThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.n_split == 1) return err;
-  ancestry_i8_merge_kernel<T, DH><<<B * a.H, kDThreads, 0, stream>>>(a);
+  ancestry_q_merge_kernel<T, DH, LOAD><<<B * a.H, kDThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, bool SC8, bool OUT8>
-cudaError_t dispatch_i8(int DH, const I8Args& a, int B, cudaStream_t stream) {
+template <typename T, bool SC8, bool OUT8, int LOAD>
+cudaError_t dispatch_q(int DH, const I8Args& a, int B, cudaStream_t stream) {
   switch (DH) {
-    case 16: return launch_i8<T, 16, SC8, OUT8>(a, B, stream);
-    case 32: return launch_i8<T, 32, SC8, OUT8>(a, B, stream);
-    case 64: return launch_i8<T, 64, SC8, OUT8>(a, B, stream);
-    case 128: return launch_i8<T, 128, SC8, OUT8>(a, B, stream);
+    case 16: return launch_q<T, 16, SC8, OUT8, LOAD>(a, B, stream);
+    case 32: return launch_q<T, 32, SC8, OUT8, LOAD>(a, B, stream);
+    case 64: return launch_q<T, 64, SC8, OUT8, LOAD>(a, B, stream);
+    case 128: return launch_q<T, 128, SC8, OUT8, LOAD>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// D (packed = false) or F: the variant's products and load. F's variants
+// 1-3 are instantiated at Dh = 64 only (tools/kernel_ab.py's shapes).
 template <typename T>
-cudaError_t dispatch_i8_variant(int variant, int DH, const I8Args& a, int B, cudaStream_t stream) {
+cudaError_t dispatch_q_variant(bool packed, int variant, int DH, const I8Args& a, int B,
+                               cudaStream_t stream) {
+  if (!packed) switch (variant) {
+      case 1: return dispatch_q<T, true, false, kI8>(DH, a, B, stream);
+      case 2: return dispatch_q<T, false, false, kI8>(DH, a, B, stream);
+      default: return dispatch_q<T, true, true, kI8>(DH, a, B, stream);  // 0 and 3 (rpb 2)
+    }
+  if (variant == 0) return dispatch_q<T, true, true, kI4>(DH, a, B, stream);
+  if (DH != 64) return cudaErrorInvalidValue;
   switch (variant) {
-    case 1: return dispatch_i8<T, true, false>(DH, a, B, stream);
-    case 2: return dispatch_i8<T, false, false>(DH, a, B, stream);
-    default: return dispatch_i8<T, true, true>(DH, a, B, stream);  // 0 and 3 (rpb 2)
+    case 1: return launch_q<T, 64, true, true, kI4Wide>(a, B, stream);
+    case 2: return launch_q<T, 64, false, false, kI4>(a, B, stream);
+    case 3: return launch_q<T, 64, true, true, kI4Pair>(a, B, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
-// ---------------------------------------------------------------- kernel E
+// mm_ancestry_decode_fixed_work's instances: D's or F's v0, bf16, Dh = 64.
+template <int PROBE>
+cudaError_t launch_fixed_work(bool packed, const I8Args& a, int B, cudaStream_t stream) {
+  return packed ? launch_q<__nv_bfloat16, 64, true, true, kI4, PROBE>(a, B, stream)
+                : launch_q<__nv_bfloat16, 64, true, true, kI8, PROBE>(a, B, stream);
+}
 
-constexpr int kCrossThreadsQ = 256;
+// ------------------------------------------------------------------ kernel E
+
+constexpr int kEThreads = 128;   // bf16 split pass and merge: 4 warps
+constexpr int kEFThreads = 256;  // fp32 SIMT pass
+constexpr int kEMaxSplits = 16;
+
+// What the bf16 split pass reads: E's int8 slab with its scales and the
+// bias, or (mm_dense_attention_probe) a dense int8 slab or the same values
+// nibble-packed (half-split, as the int4 cache), without scales or bias.
+enum CrossLoad : int { kE = 0, kDense8 = 1, kDense4 = 2 };
 
 struct CrossQArgs {
-  const void* q;      // (B, H, K, Dh) contiguous, pre-scaled
-  const int8_t* kv;   // (B, H, S, 2.Dh) contiguous
-  const float* sk;    // (B, H, S) contiguous
-  const float* sv;    // (B, H, S) contiguous
-  const float* bias;  // (B, S) additive
-  void* out;          // (B, H, K, Dh) contiguous
-  int H, K, S;
+  const void* q;       // (B, H, K, Dh) through strides, pre-scaled
+  int64_t q_sb, q_sh, q_sk;
+  const int8_t* kv;    // (B, H, S, 2.Dh) contiguous (kDense4: (B, H, S/2, 2.Dh) packed)
+  const float* sk;     // (B, H, S) contiguous
+  const float* sv;     // (B, H, S) contiguous
+  const float* bias;   // (B, S) additive
+  void* out;           // (B, H, K, Dh) through strides
+  int64_t o_sb, o_sh, o_sk;
+  float* part_m;       // (B.H.G, n_split, 16) max of each split, -inf if it saw no column
+  float* part_l;       // (B.H.G, n_split, 16) its denominator
+  float* part_acc;     // (B.H.G, n_split, 16, Dh) its unnormalised sum
+  int H, K, S, G, n_split, tps, rpb;  // G: groups of 16 rows; tps: key tiles (bf16) or keys
+                                      // (fp32) per split; rpb: batch rows per block
 };
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kCrossThreadsQ) cross_decode_i8_kernel(const CrossQArgs a) {
-  extern __shared__ float smem[];
-  constexpr int NW = kCrossThreadsQ / 32;
-  const int r0 = blockIdx.y * kMaxBeams;  // this block's rows: [r0, r0 + K)
-  const int K = min(kMaxBeams, a.K - r0), S = a.S;
-  float* qs = smem;         // [K][DH]
-  float* sc = qs + K * DH;  // [K][S] scores, then weights (p/sum).sv
+// Shared memory of the bf16 split pass: each warp's 2-stage ring of TW raw
+// int8 K||V rows (padded to kRawRow bytes, so that the 8 rows of one
+// fragment load hit distinct banks) with their sk, sv and bias, its bf16 V
+// tile (swizzled, as C's), then the rows' q as 16 zero-padded rows: 54 KB
+// at Dh = 64, four blocks per SM. The warps' (O, m, l) for the block's
+// merge go over the drained ring.
+template <int D>
+struct EMma {
+  static constexpr int kTW = D <= 64 ? 32 : 16;   // keys per warp tile
+  static constexpr int kRawRow = 2 * D + 16;
+  static constexpr int kRaw = kTW * kRawRow;      // the int8 rows
+  static constexpr int kStage = kRaw + 3 * kTW * 4;
+  static constexpr int kTile = kTW * D * 2;       // the bf16 V tile
+  static constexpr int kRing = 0;
+  static constexpr int kTiles = kRing + 4 * 2 * kStage;
+  static constexpr int kQ = kTiles + 4 * kTile;
+  static constexpr int kBytes = kQ + 16 * D * 2;
+  static constexpr int kMerge = 16 * (D + 2);  // floats per warp: O (16 x D), m, l
+  static_assert(4 * kMerge * 4 <= kQ - kRing, "the merge fits over the ring and tiles");
+  static_assert(kStage % 16 == 0 && kTiles % 16 == 0 && kRawRow % 16 == 0, "16-byte aligned rows");
+};
 
-  const int bh = blockIdx.x;
-  const int b = bh / a.H;
-  const int64_t row0 = (int64_t)bh * a.K + r0;
-  const T* q = static_cast<const T*>(a.q) + row0 * DH;
-  const int8_t* kv = a.kv + (int64_t)bh * S * 2 * DH;
-  const float* sk = a.sk + (int64_t)bh * S;
-  const float* sv = a.sv + (int64_t)bh * S;
-  const float* bias = a.bias + (int64_t)b * S;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// bf16 split pass: block ((b.H + h) / rpb, split, row group). Warp w takes
+// key tiles i0 + w, i0 + w + 4, ... of the split's [i0, i1), gathers each
+// tile's raw rows by its own lanes, converts the K halves to bf16 fragments
+// as it reads them and the V halves into its own bf16 tile, and keeps its own online softmax with the group's rows as mma rows; the
+// four warps' (m, l, O) merge at the end, into the output (one split) or
+// the split's partial.
+template <int D, int LOAD>
+__global__ void __launch_bounds__(kEThreads, 4) cross_i8_split_kernel_mma(const CrossQArgs a) {
+  using C = EMma<D>;
+  constexpr int KS = D / 16, NT = D / 8, TW = C::kTW, CH = 2 * D / 16;
+  extern __shared__ __align__(128) unsigned char e_smem[];
+  float* merge = reinterpret_cast<float*>(e_smem + C::kRing);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int S = a.S, P = S / 2, h = blockIdx.x % a.H, split = blockIdx.y, grp = blockIdx.z;
+  const int r0 = grp * 16, K = min(16, a.K - r0);
+  const int i1 = min((S + TW - 1) / TW, (split + 1) * a.tps);
+  const uint32_t ring = smem_u32(e_smem + C::kRing) + warp * 2 * C::kStage;
+  unsigned char* tiles = e_smem + C::kTiles + warp * C::kTile;
+  const uint32_t vt = smem_u32(tiles);
 
-  for (int i = threadIdx.x; i < K * DH; i += kCrossThreadsQ) qs[i] = to_f32(q[i]);
+  for (int rb = 0; rb < a.rpb; ++rb) {
+    const int b = (blockIdx.x / a.H) * a.rpb + rb;
+    const int64_t bh = (int64_t)b * a.H + h;
+    const int8_t* slab = a.kv + bh * (LOAD == kDense4 ? P : S) * 2 * D;
+    const float* skp = a.sk + bh * S;
+    const float* svp = a.sv + bh * S;
+    const float* bias = a.bias + (int64_t)b * S;
+    auto gather = [&](uint32_t stage, int i) {  // key tile i; past S zeros
+      const int s0 = i * TW;
+      for (int e = lane; e < TW * CH; e += 32) {
+        const int r = e / CH, c = e % CH;
+        const bool ok = s0 + r < S;
+        int row = ok ? s0 + r : 0;
+        if (LOAD == kDense4) row -= row >= P ? P : 0;
+        cp_async16(stage + r * C::kRawRow + c * 16, slab + (int64_t)row * 2 * D + c * 16, ok);
+      }
+      if (LOAD == kE && lane < TW) {
+        const bool ok = s0 + lane < S;
+        const int s = ok ? s0 + lane : 0;
+        cp_async4(stage + C::kRaw + lane * 4, skp + s, ok);
+        cp_async4(stage + C::kRaw + (TW + lane) * 4, svp + s, ok);
+        cp_async4(stage + C::kRaw + (2 * TW + lane) * 4, bias + s, ok);
+      }
+    };
+    int i = split * a.tps + warp;
+    if (i < i1) {  // the warp's first tile goes in flight before q is staged
+      gather(ring, i);
+      cp_async_commit();
+    }
+    const bf16* q = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh + r0 * a.q_sk;
+    for (int e = threadIdx.x; e < 16 * D; e += kEThreads) {
+      const int r = e / D, d = e % D;
+      *reinterpret_cast<bf16*>(e_smem + C::kQ + swz<D>(r, d / 8) + (d % 8) * 2) =
+          r < K ? q[r * a.q_sk + d] : __float2bfloat16(0.f);
+    }
+    __syncthreads();
+    uint32_t qf[KS][4];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) frag_a<D>(qf[kk], smem_u32(e_smem + C::kQ), 0, kk);
+    float o[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+    for (int j = 0; i < i1; ++j, i += 4) {
+      const int stage = j & 1;
+      if (i + 4 < i1) {
+        gather(ring + (stage ^ 1) * C::kStage, i + 4);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncwarp();
+      const unsigned char* raw = e_smem + C::kRing + (warp * 2 + stage) * C::kStage;
+      const float* sks = reinterpret_cast<const float*>(raw + C::kRaw);  // sk, sv, bias
+      const int s0 = i * TW, n_in = min(TW, S - s0);
+      // The raw V halves to bf16 (exact: |x| <= 127), 8 values per lane step.
+      for (int e = lane; e < TW * (D / 8); e += 32) {
+        const int r = e / (D / 8), c = e % (D / 8);
+        uint2 w = *reinterpret_cast<const uint2*>(raw + r * C::kRawRow + D + c * 8);
+        if (LOAD == kDense4) {
+          const bool high = s0 + r >= P;
+          w.x = nibbles(w.x, high);
+          w.y = nibbles(w.y, high);
+        }
+        const uint4 v = {i8x2_bf16x2(w.x & 0xFFFFu), i8x2_bf16x2(w.x >> 16),
+                         i8x2_bf16x2(w.y & 0xFFFFu), i8x2_bf16x2(w.y >> 16)};
+        *reinterpret_cast<uint4*>(tiles + swz<D>(r, c)) = v;
+      }
+      // S = Q.K^T, K's B fragments (key row 8 n + g, dims 16 kk + 2 tq, +1
+      // and + 8) converted from the raw int8 rows as they are read.
+      float s[TW / 8][4];
+#pragma unroll
+      for (int n = 0; n < TW / 8; ++n) {
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+        const unsigned char* kr = raw + (8 * n + g) * C::kRawRow + 2 * tq;
+        const bool high = LOAD == kDense4 && s0 + 8 * n + g >= P;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t b0 = *reinterpret_cast<const uint16_t*>(kr + 16 * kk);
+          uint32_t b1 = *reinterpret_cast<const uint16_t*>(kr + 16 * kk + 8);
+          if (LOAD == kDense4) b0 = nibbles(b0, high), b1 = nibbles(b1, high);
+          mma(s[n], qf[kk], i8x2_bf16x2(b0), i8x2_bf16x2(b1));
+        }
+      }
+      __syncwarp();  // the V tile is written
+      // Element e of n-tile n: row g + 8 (e >> 1), key s0 + 8 n + 2 tq + (e & 1).
+      float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < TW / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * tq + (e & 1);
+          const float x = LOAD == kE ? __fadd_rn(__fmul_rn(s[n][e], sks[c]), sks[2 * TW + c])
+                                     : s[n][e];
+          s[n][e] = c < n_in ? x : -INFINITY;
+          mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
+        }
+      }
+      float alpha[2], m_new[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m_new[r] = fmaxf(m_run[r], quad_max(mt[r]));
+        // -inf until a key with a finite logit comes: nothing to rescale yet
+        alpha[r] = m_new[r] == -INFINITY ? 1.f : exp_e(m_run[r] - m_new[r]);
+        m_run[r] = m_new[r];
+        l_run[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int n = 0; n < TW / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, c = 8 * n + 2 * tq + (e & 1);
+          const float p = m_new[r] == -INFINITY ? 0.f : exp_e(s[n][e] - m_new[r]);
+          l_run[r] += p;
+          s[n][e] = LOAD == kE ? p * sks[TW + c] : p;  // sv folded in before the bf16 rounding
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < TW / 16; ++kk) {
+        uint32_t pa[4];
+        acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int dp = 0; dp < NT / 2; ++dp) {
+          uint32_t f[4];
+          frag_bt<D>(f, vt, kk * 16, dp);
+          mma(o[2 * dp], pa, f[0], f[1]);
+          mma(o[2 * dp + 1], pa, f[2], f[3]);
+        }
+      }
+      __syncwarp();  // the stage and the tiles are rewritten by the next tile
+    }
+
+    __syncthreads();  // every ring is drained: the merge goes over them
+    float* mw = merge + warp * C::kMerge;  // O [16][D], then m [16], l [16]
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float l = quad_sum(l_run[r]);
+      if (tq == 0) {
+        mw[16 * D + g + 8 * r] = m_run[r];
+        mw[16 * D + 16 + g + 8 * r] = l;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mw[(g + 8 * (e >> 1)) * D + 8 * n + 2 * tq + (e & 1)] = o[n][e];
+    }
+    __syncthreads();
+    const int64_t part = (bh * a.G + grp) * a.n_split + split;
+    bf16* out = static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh + r0 * a.o_sk;
+    for (int e = threadIdx.x; e < K * D; e += kEThreads) {
+      const int k = e / D, d = e % D;
+      float M = -INFINITY, l = 0.f, acc = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) M = fmaxf(M, merge[w * C::kMerge + 16 * D + k]);
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float* mv = merge + w * C::kMerge;
+        const float m = mv[16 * D + k];
+        if (m == -INFINITY) continue;  // the warp saw no key (or only -inf logits)
+        const float sc = exp_e(m - M);
+        l = fmaf(sc, mv[16 * D + 16 + k], l);
+        acc = fmaf(sc, mv[k * D + d], acc);
+      }
+      if (a.n_split == 1) {
+        out[k * a.o_sk + d] = __float2bfloat16_rn(acc / l);
+        continue;
+      }
+      if (d == 0) {
+        a.part_m[part * 16 + k] = M;
+        a.part_l[part * 16 + k] = l;
+      }
+      a.part_acc[(part * 16 + k) * D + d] = acc;
+    }
+    __syncthreads();  // shared memory is the next batch row's
+  }
+}
+
+// fp32 SIMT pass: block (b.H + h, split, row group), the group's <= 16 rows
+// over the split's keys [s0, s0 + tps): scores (q.k8).sk + bias, one thread
+// per key, each K row read 16 bytes at a time (a byte-wide load would touch
+// 32 rows' lines per warp instruction, Dh times over); one warp per row
+// takes the max and the sum and leaves p . sv; then one thread per output
+// dim adds p . sv . v8 over the keys. One split writes acc / sum, several
+// their (max, sum, acc).
+template <int DH>
+__global__ void __launch_bounds__(kEFThreads) cross_i8_kernel_f32(const CrossQArgs a) {
+  extern __shared__ float f_smem[];
+  constexpr int NW = kEFThreads / 32;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, split = blockIdx.y, grp = blockIdx.z;
+  const int r0 = grp * 16, K = min(16, a.K - r0);
+  const int s0 = split * a.tps, n = min(a.S - s0, a.tps);
+  float* qs = f_smem;              // [K][DH]
+  float* sc = qs + 16 * DH;        // [K][tps] scores, then p . sv
+  float* rmax = sc + 16 * a.tps;   // [16]
+  float* rsum = rmax + 16;         // [16]
+  const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh + r0 * a.q_sk;
+  const int8_t* kv = a.kv + ((int64_t)bh * a.S + s0) * 2 * DH;
+  const float* sk = a.sk + (int64_t)bh * a.S + s0;
+  const float* sv = a.sv + (int64_t)bh * a.S + s0;
+  const float* bias = a.bias + (int64_t)b * a.S + s0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, T = a.tps;
+
+  for (int i = threadIdx.x; i < K * DH; i += kEFThreads) qs[i] = q[(i / DH) * a.q_sk + i % DH];
   __syncthreads();
-
-  // Pass 1: scores (q.k8).sk + bias, one thread per source column. Each
-  // thread reads the K half of its row 16 bytes at a time (a row is
-  // 2.Dh >= 32 bytes and the wrapper checks the slab's alignment): a
-  // byte-wide load would touch 32 rows' lines per warp instruction, Dh
-  // times over.
-  for (int s = threadIdx.x; s < S; s += kCrossThreadsQ) {
+  for (int s = threadIdx.x; s < n; s += kEFThreads) {
     const int4* krow = reinterpret_cast<const int4*>(kv + (int64_t)s * 2 * DH);
     float acc[kMaxBeams];
 #pragma unroll
@@ -1008,119 +1255,114 @@ __global__ void __launch_bounds__(kCrossThreadsQ) cross_decode_i8_kernel(const C
     const float sks = sk[s], bs = bias[s];
 #pragma unroll
     for (int k = 0; k < kMaxBeams; ++k)
-      if (k < K) sc[k * S + s] = __fadd_rn(__fmul_rn(acc[k], sks), bs);
+      if (k < K) sc[k * T + s] = __fadd_rn(__fmul_rn(acc[k], sks), bs);
   }
   __syncthreads();
-
-  // Softmax weights folded with sv, one warp per beam row.
   for (int k = warp; k < K; k += NW) {
     float mx = -INFINITY;
-    for (int s = lane; s < S; s += 32) mx = fmaxf(mx, sc[k * S + s]);
+    for (int s = lane; s < n; s += 32) mx = fmaxf(mx, sc[k * T + s]);
     mx = warp_max(mx);
     float sum = 0.f;
-    for (int s = lane; s < S; s += 32) {
-      const float p = expf(sc[k * S + s] - mx);
-      sc[k * S + s] = p;
+    for (int s = lane; s < n; s += 32) {
+      const float p = mx == -INFINITY ? 0.f : expf(sc[k * T + s] - mx);
+      sc[k * T + s] = __fmul_rn(p, sv[s]);
       sum += p;
     }
     sum = warp_sum(sum);
-    for (int s = lane; s < S; s += 32) sc[k * S + s] = __fmul_rn(sc[k * S + s] / sum, sv[s]);
+    if (lane == 0) rmax[k] = mx, rsum[k] = sum;
   }
   __syncthreads();
-
-  // Pass 2: out[k, d] = sum_s w[k, s] . v8[s, d].
-  constexpr int NKG = kCrossThreadsQ / DH;           // beam groups
-  constexpr int KPT = (kMaxBeams + NKG - 1) / NKG;  // beams per thread
+  constexpr int NKG = kEFThreads / DH;               // row groups
+  constexpr int KPT = (kMaxBeams + NKG - 1) / NKG;  // rows per thread
   const int d = threadIdx.x % DH, kg = threadIdx.x / DH;
   float acc[KPT];
 #pragma unroll
   for (int i = 0; i < KPT; ++i) acc[i] = 0.f;
-  for (int s = 0; s < S; ++s) {
+  for (int s = 0; s < n; ++s) {
     const float vd = (float)kv[(int64_t)s * 2 * DH + DH + d];
 #pragma unroll
     for (int i = 0; i < KPT; ++i) {
       const int k = kg + i * NKG;
-      if (k < K) acc[i] = fmaf(sc[k * S + s], vd, acc[i]);
+      if (k < K) acc[i] = fmaf(sc[k * T + s], vd, acc[i]);
     }
   }
-  T* out = static_cast<T*>(a.out) + row0 * DH;
+  const int64_t part = ((int64_t)bh * a.G + grp) * a.n_split + split;
+  float* out = static_cast<float*>(a.out) + b * a.o_sb + h * a.o_sh + r0 * a.o_sk;
 #pragma unroll
   for (int i = 0; i < KPT; ++i) {
     const int k = kg + i * NKG;
-    if (k < K) out[k * DH + d] = from_f32<T>(acc[i]);
+    if (k >= K) continue;
+    if (a.n_split == 1) {
+      out[k * a.o_sk + d] = acc[i] / rsum[k];
+    } else {
+      if (d == 0) {
+        a.part_m[part * 16 + k] = rmax[k];
+        a.part_l[part * 16 + k] = rsum[k];
+      }
+      a.part_acc[(part * 16 + k) * DH + d] = acc[i];
+    }
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch_cross_q(const CrossQArgs& a, int B, size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        cross_decode_i8_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+// Merge (n_split > 1): one block per (b, h, row group) folds the splits'
+// (m, l, O) in split order; a split that saw no column (max -inf) weighs 0.
+template <typename T, int D>
+__global__ void __launch_bounds__(kEThreads) cross_i8_merge_kernel(const CrossQArgs a) {
+  const int bhg = blockIdx.x, grp = bhg % a.G, bh = bhg / a.G, b = bh / a.H, h = bh % a.H;
+  const int r0 = grp * 16, K = min(16, a.K - r0), NS = a.n_split;
+  const int64_t part0 = (int64_t)bhg * NS;
+  T* out = static_cast<T*>(a.out) + b * a.o_sb + h * a.o_sh + r0 * a.o_sk;
+  for (int e = threadIdx.x; e < K * D; e += kEThreads) {
+    const int k = e / D, d = e % D;
+    float M = -INFINITY;
+    for (int sp = 0; sp < NS; ++sp) M = fmaxf(M, a.part_m[(part0 + sp) * 16 + k]);
+    float l = 0.f, acc = 0.f;
+    for (int sp = 0; sp < NS; ++sp) {
+      const float m = a.part_m[(part0 + sp) * 16 + k];
+      if (m == -INFINITY) continue;  // its l and O may be unwritten
+      const float sc = expf(m - M);
+      l = fmaf(sc, a.part_l[(part0 + sp) * 16 + k], l);
+      acc = fmaf(sc, a.part_acc[((part0 + sp) * 16 + k) * D + d], acc);
+    }
+    out[k * a.o_sk + d] = from_f32<T>(acc / l);
   }
-  const dim3 grid(B * a.H, (a.K + kMaxBeams - 1) / kMaxBeams);
-  cross_decode_i8_kernel<T, DH><<<grid, kCrossThreadsQ, smem, stream>>>(a);
+}
+
+template <int D, int LOAD>
+cudaError_t launch_cross_i8_mma(const CrossQArgs& a, int B, cudaStream_t stream) {
+  constexpr int smem = EMma<D>::kBytes;
+  cudaError_t err = allow_smem(cross_i8_split_kernel_mma<D, LOAD>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B / a.rpb * a.H, a.n_split, a.G);
+  cross_i8_split_kernel_mma<D, LOAD><<<grid, kEThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_split == 1) return err;
+  cross_i8_merge_kernel<bf16, D><<<B * a.H * a.G, kEThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_cross_q(int DH, const CrossQArgs& a, int B, size_t smem,
-                             cudaStream_t stream) {
-  switch (DH) {
-    case 16: return launch_cross_q<T, 16>(a, B, smem, stream);
-    case 32: return launch_cross_q<T, 32>(a, B, smem, stream);
-    case 64: return launch_cross_q<T, 64>(a, B, smem, stream);
-    case 128: return launch_cross_q<T, 128>(a, B, smem, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <int DH>
+cudaError_t launch_cross_i8_f32(const CrossQArgs& a, int B, cudaStream_t stream) {
+  const int smem = 4 * (16 * DH + 16 * a.tps + 32);
+  cudaError_t err = allow_smem(cross_i8_kernel_f32<DH>, smem);
+  if (err != cudaSuccess) return err;
+  cross_i8_kernel_f32<DH><<<dim3(B * a.H, a.n_split, a.G), kEFThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_split == 1) return err;
+  cross_i8_merge_kernel<float, DH><<<B * a.H * a.G, kEThreads, 0, stream>>>(a);
+  return cudaGetLastError();
 }
+
+int e_tile(int DH) { return DH <= 64 ? 32 : 16; }
+
+// Most keys of one fp32 split: 16 rows' scores, queries and statistics in a
+// block's 227 KB.
+int e_f32_keys(int DH) { return (232448 / 4 - 16 * DH - 32) / 16; }
 
 }  // namespace
 }  // namespace mm
 
 // C entries: each returns cudaGetLastError() after its launch (0 on success).
-
-// All shared memory of kernel F for (K, T = TS/K, Dh), in bytes.
-extern "C" long long mm_ancestry_decode_i4_smem_bytes(int K, int T, int DH) {
-  return (long long)mm::quant_dyn_bytes(K, T) + 4LL * (6 * mm::kMaxBeams + mm::kMaxBeams * DH);
-}
-
-extern "C" int mm_ancestry_decode_attention_i4(
-    int dtype, const void* q, const void* k_new, const void* v_new,
-    const void* kv, const void* sk, const void* sv, const void* flat_rep, void* out,
-    int B, int H, int K, int DH, int TS, int layer,
-    int64_t kv_sb, int64_t kv_sl, int64_t kv_sh, int64_t kv_sj,
-    int64_t sk_sb, int64_t sk_sl, int64_t sk_sh,
-    int64_t sv_sb, int64_t sv_sl, int64_t sv_sh, void* stream) {
-  if (K < 1 || K > mm::kMaxBeams || TS % K != 0 || TS % 2 != 0)
-    return (int)cudaErrorInvalidValue;
-  const mm::QuantAncestryArgs a{
-      q, k_new, v_new, static_cast<const int8_t*>(kv), static_cast<const float*>(sk),
-      static_cast<const float*>(sv), static_cast<const int*>(flat_rep), out,
-      H, K, TS, layer, kv_sb, kv_sl, kv_sh, kv_sj, sk_sb, sk_sl, sk_sh, sv_sb, sv_sl, sv_sh};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == mm::kFloat32) return (int)mm::dispatch_quant_ancestry<float>(DH, a, B, st);
-  if (dtype == mm::kBFloat16)
-    return (int)mm::dispatch_quant_ancestry<__nv_bfloat16>(DH, a, B, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int mm_cross_decode_attention_i8(
-    int dtype, const void* q, const void* kv, const void* sk, const void* sv,
-    const void* bias, void* out, int B, int H, int K, int DH, int S, void* stream) {
-  if (K < 1) return (int)cudaErrorInvalidValue;
-  // The same layout as kernel C's: a block's <= 16 rows of Dh query floats,
-  // then their S scores each.
-  const size_t k = K < mm::kMaxBeams ? K : mm::kMaxBeams;
-  const size_t smem = 4 * (k * DH + k * S + k);
-  const mm::CrossQArgs a{q, static_cast<const int8_t*>(kv), static_cast<const float*>(sk),
-                         static_cast<const float*>(sv), static_cast<const float*>(bias),
-                         out, H, K, S};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == mm::kFloat32) return (int)mm::dispatch_cross_q<float>(DH, a, B, smem, st);
-  if (dtype == mm::kBFloat16) return (int)mm::dispatch_cross_q<__nv_bfloat16>(DH, a, B, smem, st);
-  return (int)cudaErrorInvalidValue;
-}
 
 // Kernel D's split count for B batch rows of H heads over TS = T.K
 // columns: as many (b.h) x split blocks as fit in one wave of four per SM
@@ -1140,6 +1382,23 @@ extern "C" int mm_ancestry_decode_i8_splits(int B, int H, int K, int TS) {
   return (T + spt - 1) / spt;
 }
 
+// Kernel F's split count: D's for variants 0-2; variant 3 cuts the TS / 2
+// packed rows instead, at most (kBSpan - 4.K) / 2 per split (its w8 table
+// holds the steps of both columns of each row).
+extern "C" int mm_ancestry_decode_i4_splits(int B, int H, int K, int TS, int variant) {
+  if (variant != 3) return mm_ancestry_decode_i8_splits(B, H, K, TS);
+  if (K < 1 || K > mm::kMaxBeams || TS < 2) return 1;
+  const int P = TS / 2, most = (mm::kBSpan - 4 * K) / 2;
+  const int lo = (P + most - 1) / most;
+  int n = 4 * mm::kSMs / (B * H);
+  n = n > 1 ? n : 1;
+  n = n < P ? n : P;
+  n = n < mm::kDMaxSplits ? n : mm::kDMaxSplits;
+  n = n > lo ? n : lo;
+  const int span = (P + n - 1) / n;
+  return (P + span - 1) / span;
+}
+
 // Bytes of kernel D's scratch: scores (B.H.K.T floats), each split's max and
 // sum (2 x B.H.n_split.K floats), with several splits their int32 sums
 // (B.H.n_split.K.Dh) and each row's ws and p_self / den (B.H.K.2 floats),
@@ -1152,6 +1411,82 @@ extern "C" long long mm_ancestry_decode_i8_scratch_bytes(int B, int H, int K, in
   if (n_split > 1) n += 4 * bhk * n_split * DH + 8 * bhk;
   return n;
 }
+
+// Kernel F's: D's, except that variant 3's live lists hold 1 + 2 x span ints
+// (span packed rows, then their high columns' beams) and its softmax
+// partials follow D's split count.
+extern "C" long long mm_ancestry_decode_i4_scratch_bytes(int B, int H, int K, int DH, int TS,
+                                                         int n_split, int variant) {
+  if (variant != 3) return mm_ancestry_decode_i8_scratch_bytes(B, H, K, DH, TS, n_split);
+  const long long bhk = (long long)B * H * K, T = TS / K;
+  const long long span = (TS / 2 + n_split - 1) / n_split;
+  const long long n_stat = mm_ancestry_decode_i8_splits(B, H, K, TS);
+  long long n = 8 * bhk * T + 8 * bhk * n_stat + 4LL * B * n_split * (1 + 2 * span);
+  if (n_split > 1) n += 4 * bhk * n_split * DH + 8 * bhk;
+  return n;
+}
+
+namespace {
+
+// Kernels D (packed = false) and F, after their entries' checks; probe 0,
+// or mm_ancestry_decode_fixed_work's.
+int quant_ancestry(bool packed, int probe, int dtype, int variant, const void* q,
+                   const void* k_new, const void* v_new, const void* kv, const void* sk,
+                   const void* sv, const void* flat_rep, void* out, void* scratch, int B, int H,
+                   int K, int DH, int TS, int layer, int n_split, const int64_t* st,
+                   void* stream) {
+  const bool pair = packed && variant == 3;
+  if (K < 1 || K > mm::kMaxBeams || TS < K || TS % K != 0 || (packed && TS % 2 != 0) ||
+      variant < 0 || variant > 3 || (!packed && variant == 3 && B % 2 != 0) || n_split < 1 ||
+      n_split > mm::kDMaxSplits)
+    return (int)cudaErrorInvalidValue;
+  const int T = TS / K, P = TS / 2;
+  int span;
+  if (pair) {
+    span = (P + n_split - 1) / n_split;
+    if ((P + span - 1) / span != n_split || 2 * span + 4 * K > mm::kBSpan)
+      return (int)cudaErrorInvalidValue;
+  } else {
+    const int spt = (T + n_split - 1) / n_split;
+    span = spt * K;
+    if ((T + spt - 1) / spt != n_split || span > mm::kBSpan) return (int)cudaErrorInvalidValue;
+  }
+  const int n_stat = pair ? mm_ancestry_decode_i8_splits(B, H, K, TS) : n_split;
+  const int stat_span = pair ? (T + n_stat - 1) / n_stat * K : span;
+  const long long bhk = (long long)B * H * K;
+  float* sc = static_cast<float*>(scratch);
+  float* part_m = sc + bhk * T;
+  float* part_l = part_m + bhk * n_stat;
+  int* part_acc = reinterpret_cast<int*>(part_l + bhk * n_stat);
+  float* row_st = reinterpret_cast<float*>(part_acc + (n_split > 1 ? bhk * n_split * DH : 0));
+  float* svs = row_st + (n_split > 1 ? 2 * bhk : 0);
+  int* live_g = reinterpret_cast<int*>(svs + bhk * T);
+  const mm::I8Args a{q, k_new, v_new, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+                     static_cast<const int8_t*>(kv), st[12], st[13], st[14], st[15],
+                     static_cast<const float*>(sk), st[16], st[17], st[18],
+                     static_cast<const float*>(sv), st[19], st[20], st[21],
+                     static_cast<const int*>(flat_rep), out, st[9], st[10], st[11],
+                     sc, svs, live_g, part_m, part_l, part_acc, row_st,
+                     H, K, TS, T, layer, n_split, span, !packed && variant == 3 ? 2 : 1,
+                     n_stat, stat_span, packed ? P : 0, 1 + (pair ? 2 : 1) * span};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (probe != 0) {
+    if (dtype != mm::kBFloat16 || variant != 0 || DH != 64) return (int)cudaErrorInvalidValue;
+    switch (probe) {
+      case 1: return (int)mm::launch_fixed_work<1>(packed, a, B, s);
+      case 3: return (int)mm::launch_fixed_work<3>(packed, a, B, s);
+      case 7: return (int)mm::launch_fixed_work<7>(packed, a, B, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (dtype == mm::kFloat32)
+    return (int)mm::dispatch_q_variant<float>(packed, variant, DH, a, B, s);
+  if (dtype == mm::kBFloat16)
+    return (int)mm::dispatch_q_variant<__nv_bfloat16>(packed, variant, DH, a, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
 
 // Kernel D: the score pass, the output pass and, with several splits, the
 // merge on ``stream``; n_split from mm_ancestry_decode_i8_splits, and
@@ -1170,29 +1505,144 @@ extern "C" int mm_ancestry_decode_attention_i8(
     int64_t kv_sb, int64_t kv_sl, int64_t kv_sh, int64_t kv_sj,
     int64_t sk_sb, int64_t sk_sl, int64_t sk_sh, int64_t sv_sb, int64_t sv_sl, int64_t sv_sh,
     void* stream) {
-  if (K < 1 || K > mm::kMaxBeams || TS < K || TS % K != 0 || variant < 0 || variant > 3 ||
-      (variant == 3 && B % 2 != 0) || n_split < 1 || n_split > mm::kDMaxSplits)
+  const int64_t st[22] = {q_sb, q_sh, q_sk, kn_sb, kn_sh, kn_sk, vn_sb, vn_sh, vn_sk, o_sb, o_sh,
+                          o_sk, kv_sb, kv_sl, kv_sh, kv_sj, sk_sb, sk_sl, sk_sh, sv_sb, sv_sl, sv_sh};
+  return quant_ancestry(false, 0, dtype, variant, q, k_new, v_new, kv, sk, sv, flat_rep, out,
+                        scratch, B, H, K, DH, TS, layer, n_split, st, stream);
+}
+
+// Kernel F: D's entry over the nibble-packed cache (kv (B, L, H, TS / 2,
+// 2.Dh); sk, sv and flat_rep by logical column); n_split from
+// mm_ancestry_decode_i4_splits, ``scratch`` of
+// mm_ancestry_decode_i4_scratch_bytes. ``variant`` (0 in the port; the
+// others, at Dh = 64, for tools/kernel_ab.py; all give the same bits): 0
+// byte-parallel unpack; 1 the unpack through int32 shifts; 2 both products
+// on bf16 tensor cores; 3 the gather by packed row.
+extern "C" int mm_ancestry_decode_attention_i4(
+    int dtype, int variant, const void* q, const void* k_new, const void* v_new,
+    const void* kv, const void* sk, const void* sv, const void* flat_rep, void* out,
+    void* scratch, int B, int H, int K, int DH, int TS, int layer, int n_split,
+    int64_t q_sb, int64_t q_sh, int64_t q_sk, int64_t kn_sb, int64_t kn_sh, int64_t kn_sk,
+    int64_t vn_sb, int64_t vn_sh, int64_t vn_sk, int64_t o_sb, int64_t o_sh, int64_t o_sk,
+    int64_t kv_sb, int64_t kv_sl, int64_t kv_sh, int64_t kv_sj,
+    int64_t sk_sb, int64_t sk_sl, int64_t sk_sh, int64_t sv_sb, int64_t sv_sl, int64_t sv_sh,
+    void* stream) {
+  const int64_t st[22] = {q_sb, q_sh, q_sk, kn_sb, kn_sh, kn_sk, vn_sb, vn_sh, vn_sk, o_sb, o_sh,
+                          o_sk, kv_sb, kv_sl, kv_sh, kv_sj, sk_sb, sk_sl, sk_sh, sv_sb, sv_sl, sv_sh};
+  return quant_ancestry(true, 0, dtype, variant, q, k_new, v_new, kv, sk, sv, flat_rep, out,
+                        scratch, B, H, K, DH, TS, layer, n_split, st, stream);
+}
+
+// tools/kernel_ab.py --fixed-work: D's (packed = 0) or F's (packed = 1)
+// v0 passes, bf16, Dh = 64, with parts left out to time the per-block work
+// that does not scale with the tiles (the output is not valid): probe 1 no
+// tiles, 3 no compaction either, 7 no ws and w8 table either. The other
+// arguments as mm_ancestry_decode_attention_i8's (i4's) after ``variant``.
+extern "C" int mm_ancestry_decode_fixed_work(
+    int packed, int probe, const void* q, const void* k_new, const void* v_new,
+    const void* kv, const void* sk, const void* sv, const void* flat_rep, void* out,
+    void* scratch, int B, int H, int K, int DH, int TS, int layer, int n_split,
+    int64_t q_sb, int64_t q_sh, int64_t q_sk, int64_t kn_sb, int64_t kn_sh, int64_t kn_sk,
+    int64_t vn_sb, int64_t vn_sh, int64_t vn_sk, int64_t o_sb, int64_t o_sh, int64_t o_sk,
+    int64_t kv_sb, int64_t kv_sl, int64_t kv_sh, int64_t kv_sj,
+    int64_t sk_sb, int64_t sk_sl, int64_t sk_sh, int64_t sv_sb, int64_t sv_sl, int64_t sv_sh,
+    void* stream) {
+  if (probe == 0) return (int)cudaErrorInvalidValue;
+  const int64_t st[22] = {q_sb, q_sh, q_sk, kn_sb, kn_sh, kn_sk, vn_sb, vn_sh, vn_sk, o_sb, o_sh,
+                          o_sk, kv_sb, kv_sl, kv_sh, kv_sj, sk_sb, sk_sl, sk_sh, sv_sb, sv_sl, sv_sh};
+  return quant_ancestry(packed != 0, probe, mm::kBFloat16, 0, q, k_new, v_new, kv, sk, sv,
+                        flat_rep, out, scratch, B, H, K, DH, TS, layer, n_split, st, stream);
+}
+
+// Kernel E's split count for B batch rows of H heads, K rows (groups of 16)
+// over S columns: bf16 one split where the (b.h, group) blocks fill a wave,
+// else enough splits for about two blocks per SM, each a whole number of
+// key tiles, at most kEMaxSplits; fp32 as
+// few as keep each block's scores in shared memory (not a function of K,
+// so a group of 16 rows gets the same bits in a decode step and a prefill).
+extern "C" int mm_cross_decode_i8_splits(int dtype, int B, int H, int K, int S, int DH) {
+  if (S < 1 || B * H < 1 || K < 1) return 1;
+  if (dtype == mm::kFloat32) {
+    const int most = mm::e_f32_keys(DH);
+    return (S + most - 1) / most;
+  }
+  const int n_tiles = (S + mm::e_tile(DH) - 1) / mm::e_tile(DH);
+  const int blocks = B * H * ((K + 15) / 16);
+  if (blocks >= mm::kSMs) return 1;  // a wave already: a split would only add a merge
+  int n = (2 * mm::kSMs + blocks - 1) / blocks;
+  n = n < n_tiles ? n : n_tiles;
+  n = n < mm::kEMaxSplits ? n : mm::kEMaxSplits;
+  const int tps = (n_tiles + n - 1) / n;
+  return (n_tiles + tps - 1) / tps;
+}
+
+// Kernel E on ``stream``: the split pass, then with several splits the
+// merge; ``scratch`` holds (B.H.G.n_split.16) maxima, as many denominators
+// and (B.H.G.n_split.16.Dh) partial sums, fp32, G = ceil(K / 16), with
+// n_split from mm_cross_decode_i8_splits. q and out go through their
+// (b, h, k) strides (head dim dense); kv, sk, sv and bias are contiguous.
+// ``variant`` (bf16; 0 in the port, 1 for tools/kernel_ab.py): 1 two batch
+// rows per block, in turn (B even).
+extern "C" int mm_cross_decode_attention_i8(
+    int dtype, int variant, const void* q, const void* kv, const void* sk, const void* sv,
+    const void* bias, void* out, void* scratch, int B, int H, int K, int DH, int S, int n_split,
+    int64_t q_sb, int64_t q_sh, int64_t q_sk, int64_t o_sb, int64_t o_sh, int64_t o_sk,
+    void* stream) {
+  if (K < 1 || S < 1 || variant < 0 || variant > 1 || (variant == 1 && (B % 2 || dtype != mm::kBFloat16)) ||
+      n_split != mm_cross_decode_i8_splits(dtype, B, H, K, S, DH))
     return (int)cudaErrorInvalidValue;
-  const int T = TS / K, spt = (T + n_split - 1) / n_split;
-  if ((T + spt - 1) / spt != n_split || spt * K > mm::kBSpan) return (int)cudaErrorInvalidValue;
-  const long long bhk = (long long)B * H * K;
-  float* sc = static_cast<float*>(scratch);
-  float* part_m = sc + bhk * T;
-  float* part_l = part_m + bhk * n_split;
-  int* part_acc = reinterpret_cast<int*>(part_l + bhk * n_split);
-  float* row_st = reinterpret_cast<float*>(part_acc + (n_split > 1 ? bhk * n_split * DH : 0));
-  float* svs = row_st + (n_split > 1 ? 2 * bhk : 0);
-  int* live_g = reinterpret_cast<int*>(svs + bhk * T);
-  const mm::I8Args a{q, k_new, v_new, q_sb, q_sh, q_sk, kn_sb, kn_sh, kn_sk, vn_sb, vn_sh, vn_sk,
-                     static_cast<const int8_t*>(kv), kv_sb, kv_sl, kv_sh, kv_sj,
-                     static_cast<const float*>(sk), sk_sb, sk_sl, sk_sh,
-                     static_cast<const float*>(sv), sv_sb, sv_sl, sv_sh,
-                     static_cast<const int*>(flat_rep), out, o_sb, o_sh, o_sk,
-                     sc, svs, live_g, part_m, part_l, part_acc, row_st,
-                     H, K, TS, T, layer, n_split, spt * K, variant == 3 ? 2 : 1};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == mm::kFloat32) return (int)mm::dispatch_i8_variant<float>(variant, DH, a, B, st);
-  if (dtype == mm::kBFloat16)
-    return (int)mm::dispatch_i8_variant<__nv_bfloat16>(variant, DH, a, B, st);
-  return (int)cudaErrorInvalidValue;
+  float* part = static_cast<float*>(scratch);
+  const int G = (K + 15) / 16;
+  const int64_t n_part = (int64_t)B * H * G * n_split * 16;
+  const bool f32 = dtype == mm::kFloat32;
+  const int n_tiles = (S + mm::e_tile(DH) - 1) / mm::e_tile(DH);
+  const int tps = f32 ? (S + n_split - 1) / n_split : (n_tiles + n_split - 1) / n_split;
+  const mm::CrossQArgs a{q, q_sb, q_sh, q_sk, static_cast<const int8_t*>(kv),
+                         static_cast<const float*>(sk), static_cast<const float*>(sv),
+                         static_cast<const float*>(bias), out, o_sb, o_sh, o_sk,
+                         part, part + n_part, part + 2 * n_part, H, K, S, G, n_split, tps,
+                         variant == 1 ? 2 : 1};
+  if (f32) {
+    switch (DH) {
+      case 16: return (int)mm::launch_cross_i8_f32<16>(a, B, st);
+      case 32: return (int)mm::launch_cross_i8_f32<32>(a, B, st);
+      case 64: return (int)mm::launch_cross_i8_f32<64>(a, B, st);
+      case 128: return (int)mm::launch_cross_i8_f32<128>(a, B, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (dtype != mm::kBFloat16) return (int)cudaErrorInvalidValue;
+  switch (DH) {
+    case 16: return (int)mm::launch_cross_i8_mma<16, mm::kE>(a, B, st);
+    case 32: return (int)mm::launch_cross_i8_mma<32, mm::kE>(a, B, st);
+    case 64: return (int)mm::launch_cross_i8_mma<64, mm::kE>(a, B, st);
+    case 128: return (int)mm::launch_cross_i8_mma<128, mm::kE>(a, B, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The dense probe (tools/kernel_ab.py; the port of
+// scripts_dev/int4_support_probe.py:73's _attnish): softmax(q.k).v over
+// every column of a (B, H, S, 2.Dh) int8 slab (packed = 0) or of the same
+// values nibble-packed, (B, H, S / 2, 2.Dh) (packed = 1), bf16 products, no
+// scales or bias; E's split pass with another load, bf16, Dh = 64. n_split
+// and scratch as E's.
+extern "C" int mm_dense_attention_probe(int packed, const void* q, const void* kv, void* out,
+                                        void* scratch, int B, int H, int K, int DH, int S,
+                                        int n_split, int64_t q_sb, int64_t q_sh, int64_t q_sk,
+                                        int64_t o_sb, int64_t o_sh, int64_t o_sk, void* stream) {
+  if (K < 1 || S < 2 || DH != 64 || (packed && S % 2) ||
+      n_split != mm_cross_decode_i8_splits(mm::kBFloat16, B, H, K, S, DH))
+    return (int)cudaErrorInvalidValue;
+  float* part = static_cast<float*>(scratch);
+  const int G = (K + 15) / 16;
+  const int64_t n_part = (int64_t)B * H * G * n_split * 16;
+  const int n_tiles = (S + mm::e_tile(DH) - 1) / mm::e_tile(DH);
+  const mm::CrossQArgs a{q, q_sb, q_sh, q_sk, static_cast<const int8_t*>(kv), nullptr, nullptr,
+                         nullptr, out, o_sb, o_sh, o_sk, part, part + n_part, part + 2 * n_part,
+                         H, K, S, G, n_split, (n_tiles + n_split - 1) / n_split, 1};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return packed ? (int)mm::launch_cross_i8_mma<64, mm::kDense4>(a, B, st)
+                : (int)mm::launch_cross_i8_mma<64, mm::kDense8>(a, B, st);
 }

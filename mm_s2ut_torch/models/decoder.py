@@ -43,24 +43,12 @@ from mm_s2ut_torch.ops.decode_attention import (
     ancestry_decode_attention,
     ancestry_decode_attention_i4,
     ancestry_decode_attention_i8,
+    quantize_rows,
+    write_step,
 )
 from mm_s2ut_torch.ops.dropout import BernoulliDropout
 
 DecoderState = Dict[str, Any]
-
-
-def quantize_rows(
-    k_rows: torch.Tensor, v_rows: torch.Tensor, levels: float
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The cache write's per-row symmetric quantization (127 levels for
-    int8, 7 for int4): scale = max(amax/levels, 1e-8) over Dh, values
-    rounded half to even and clipped. (…, Dh) rows → (int8 K‖V rows
-    (…, 2·Dh), sk (…), sv (…))."""
-    kf, vf = k_rows.float(), v_rows.float()
-    sk = (kf.abs().amax(-1) / levels).clamp_min(1e-8)
-    sv = (vf.abs().amax(-1) / levels).clamp_min(1e-8)
-    rows = torch.cat([torch.round(kf / sk[..., None]), torch.round(vf / sv[..., None])], dim=-1)
-    return rows.clamp(-levels, levels).to(torch.int8), sk, sv
 
 
 def is_int4(state: DecoderState) -> bool:
@@ -337,25 +325,5 @@ class UnitDecoder(nn.Module):
             return r.permute(0, 2, 3, 1, 4)
 
         k_rows, v_rows = to_rows(new_ks), to_rows(new_vs)
-        if "self_kv_sk" not in state:
-            kv[:, :, :, write_pos : write_pos + S_] = torch.cat([k_rows, v_rows], dim=-1)
-            return logits
-        int4 = is_int4(state)
-        rows, sk, sv = quantize_rows(k_rows, v_rows, 7.0 if int4 else 127.0)
-        if int4:
-            # Half-split nibble write: logical column p sits in the low
-            # nibble of byte p, column p + P in the high one. T even keeps
-            # the S-column write on one side of P; a read-merge-write of
-            # the S target bytes keeps the other nibble.
-            P = kv.shape[3]
-            high = write_pos >= P
-            pb = write_pos - P if high else write_pos
-            nib = rows.to(torch.int32) & 0xF
-            old = kv[:, :, :, pb : pb + S_].to(torch.int32) & 0xFF
-            merged = (old & 0x0F) | (nib << 4) if high else (old & 0xF0) | nib
-            kv[:, :, :, pb : pb + S_] = (merged - 256 * (merged >= 128).to(torch.int32)).to(torch.int8)
-        else:
-            kv[:, :, :, write_pos : write_pos + S_] = rows
-        state["self_kv_sk"][:, :, :, write_pos : write_pos + S_] = sk
-        state["self_kv_sv"][:, :, :, write_pos : write_pos + S_] = sv
+        write_step(kv, k_rows, v_rows, write_pos, state.get("self_kv_sk"), state.get("self_kv_sv"))
         return logits

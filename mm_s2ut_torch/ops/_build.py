@@ -65,13 +65,27 @@ _SIGNATURES = {
         [_i, _i] + [_p] * 9 + [_i] * 7 + [_i64] * 22 + [_p],
         ctypes.c_int,
     ),
-    "mm_ancestry_decode_i4_smem_bytes": ([_i, _i, _i], ctypes.c_longlong),
+    "mm_ancestry_decode_i4_splits": ([_i] * 5, ctypes.c_int),
+    "mm_ancestry_decode_i4_scratch_bytes": ([_i] * 7, ctypes.c_longlong),
     "mm_ancestry_decode_attention_i4": (
-        [_i] + [_p] * 8 + [_i] * 6 + [_i64] * 10 + [_p],
+        [_i, _i] + [_p] * 9 + [_i] * 7 + [_i64] * 22 + [_p],
         ctypes.c_int,
     ),
+    "mm_ancestry_decode_fixed_work": (
+        [_i, _i] + [_p] * 9 + [_i] * 7 + [_i64] * 22 + [_p],
+        ctypes.c_int,
+    ),
+    "mm_cross_decode_i8_splits": ([_i] * 6, ctypes.c_int),
     "mm_cross_decode_attention_i8": (
-        [_i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p],
+        [_i, _i] + [_p] * 7 + [_i] * 6 + [_i64] * 6 + [_p],
+        ctypes.c_int,
+    ),
+    "mm_dense_attention_probe": (
+        [_i] + [_p] * 4 + [_i] * 6 + [_i64] * 6 + [_p],
+        ctypes.c_int,
+    ),
+    "mm_cache_write": (
+        [_i] + [_p] * 7 + [_i] * 8 + [_i64] * 11 + [_p],
         ctypes.c_int,
     ),
 }

@@ -18,6 +18,12 @@ reference's, so the tests compare like with like:
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 (``csrc/decode_attention.cu``, ``csrc/decode_attention_q.cu``) or raises.
+
+Also here: the decode step's cache write (:func:`write_step`, which the
+decoder calls, and :func:`cache_write`, the same write as one kernel,
+``csrc/cache_write.cu``) and :func:`dense_attention`, a dense attention
+over an int8 or nibble-packed slab; those two kernels are not on a path of
+the system, ``tools/kernel_ab.py`` times them.
 """
 from __future__ import annotations
 
@@ -148,6 +154,50 @@ def i4_regrow(kv_packed: torch.Tensor, P_new: int) -> torch.Tensor:
     if m > 0:
         out[..., :m, :] |= kv_packed[..., P_old - m :, :] & -16  # -16 = 0xF0
     return out
+
+
+def quantize_rows(k_rows: torch.Tensor, v_rows: torch.Tensor, levels: float):
+    """The cache write's per-row symmetric quantization (127 levels for
+    int8, 7 for int4): scale = max(amax/levels, 1e-8) over Dh, values
+    rounded half to even and clipped. (…, Dh) rows → (int8 K‖V rows
+    (…, 2·Dh), sk (…), sv (…))."""
+    kf, vf = k_rows.float(), v_rows.float()
+    sk = (kf.abs().amax(-1) / levels).clamp_min(1e-8)
+    sv = (vf.abs().amax(-1) / levels).clamp_min(1e-8)
+    rows = torch.cat([torch.round(kf / sk[..., None]), torch.round(vf / sv[..., None])], dim=-1)
+    return rows.clamp(-levels, levels).to(torch.int8), sk, sv
+
+
+def write_step(kv, k_rows, v_rows, write_pos: int, sk=None, sv=None) -> None:
+    """The decode step's cache write (``UnitDecoder._step_core``), in place:
+    this step's K and V rows (B, L, H, S, Dh) of every layer at logical
+    column ``write_pos`` of the stacked cache ``kv``; with scale arrays
+    ``sk``/``sv`` (B, L, H, T·S) the rows are quantized first
+    (:func:`quantize_rows`) and their scales written beside them. An int4
+    cache (``sk`` twice as wide as ``kv``) takes the half-split nibble
+    write: logical column p sits in the low nibble of byte p, column p + P
+    in the high one; T even keeps the S-column write on one side of P, and
+    a read-merge-write of the S target bytes keeps the other nibble. The
+    plain version of :func:`cache_write`, and what the decoder runs, as the
+    JAX package keeps its XLA ``dynamic_update_slice``."""
+    S_ = k_rows.shape[3]
+    if sk is None:
+        kv[:, :, :, write_pos : write_pos + S_] = torch.cat([k_rows, v_rows], dim=-1)
+        return
+    int4 = sk.shape[3] == 2 * kv.shape[3]
+    rows, rsk, rsv = quantize_rows(k_rows, v_rows, 7.0 if int4 else 127.0)
+    if int4:
+        P = kv.shape[3]
+        high = write_pos >= P
+        pb = write_pos - P if high else write_pos
+        nib = rows.to(torch.int32) & 0xF
+        old = kv[:, :, :, pb : pb + S_].to(torch.int32) & 0xFF
+        merged = (old & 0x0F) | (nib << 4) if high else (old & 0xF0) | nib
+        kv[:, :, :, pb : pb + S_] = (merged - 256 * (merged >= 128).to(torch.int32)).to(torch.int8)
+    else:
+        kv[:, :, :, write_pos : write_pos + S_] = rows
+    sk[:, :, :, write_pos : write_pos + S_] = rsk
+    sv[:, :, :, write_pos : write_pos + S_] = rsv
 
 
 def reference_i4(q, k_new, v_new, kv, sk, sv, flat_rep, layer: int) -> torch.Tensor:
@@ -337,27 +387,31 @@ def _launch_i8(q, k_new, v_new, kv, sk, sv, flat_rep, layer: int, variant: int =
     return out
 
 
-def _launch_i4(q, k_new, v_new, kv, sk, sv, flat_rep, layer: int):
-    """Check a CUDA input and launch kernel F (one block per (b, h), the
-    row's scores in shared memory)."""
+def _launch_i4(q, k_new, v_new, kv, sk, sv, flat_rep, layer: int, variant: int = 0):
+    """Check a CUDA input and launch kernel F: D's passes over the
+    nibble-packed cache, the views and the result as :func:`_launch_i8`'s.
+    ``variant`` picks one of the kernel's alternative designs (Dh = 64),
+    which only ``tools/kernel_ab.py`` times; all give the same bits."""
     name = "ancestry_decode_attention_i4"
     B, H, K, Dh = q.shape
     TS = _check_quant(name, True, q, k_new, v_new, kv, sk, sv, flat_rep, layer)
+    if any(t.shape != q.shape or t.stride(3) != 1 for t in (q, k_new, v_new)):
+        raise ValueError(f"{name}: q, k_new, v_new must be (B, H, K, Dh) with a dense head dim")
+    if kv.data_ptr() % 16 or any(kv.stride(i) % 16 for i in range(4)):
+        raise ValueError(f"{name}: cache rows must be 16-byte aligned (16-byte row copies)")
+    flat_rep = flat_rep.contiguous()
     lib = _build.library()
-    if lib.mm_ancestry_decode_i4_smem_bytes(K, TS // K, Dh) > MAX_SHARED_BYTES:
-        raise ValueError(f"{name}: K={K} x T={TS // K} scores exceed a block's shared memory")
-    q, k_new, v_new, flat_rep = (t.contiguous() for t in (q, k_new, v_new, flat_rep))
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        rc = lib.mm_ancestry_decode_attention_i4(
-            _build.dtype_code(q.dtype), q.data_ptr(), k_new.data_ptr(),
-            v_new.data_ptr(), kv.data_ptr(), sk.data_ptr(), sv.data_ptr(),
-            flat_rep.data_ptr(), out.data_ptr(), B, H, K, Dh, TS, layer,
-            kv.stride(0), kv.stride(1), kv.stride(2), kv.stride(3),
-            sk.stride(0), sk.stride(1), sk.stride(2),
-            sv.stride(0), sv.stride(1), sv.stride(2),
-            _build.stream_ptr(q.device),
-        )
+    n_split = lib.mm_ancestry_decode_i4_splits(B, H, K, TS, variant)
+    scratch = torch.empty(lib.mm_ancestry_decode_i4_scratch_bytes(B, H, K, Dh, TS, n_split, variant),
+                          dtype=torch.uint8, device=q.device)
+    out = torch.empty((B, K, H, Dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    rc = lib.mm_ancestry_decode_attention_i4(
+        _build.dtype_code(q.dtype), variant, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        kv.data_ptr(), sk.data_ptr(), sv.data_ptr(), flat_rep.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), B, H, K, Dh, TS, layer, n_split,
+        *(st for t in (q, k_new, v_new, out) for st in t.stride()[:3]),
+        *kv.stride()[:4], *sk.stride()[:3], *sv.stride()[:3], _build.stream_ptr(q.device),
+    )
     _build.check(rc, name)
     ancestry_decode_attention_i4.launches += 1
     return out
@@ -413,6 +467,16 @@ def cross_decode_attention_i8(
     for any number of query rows too."""
     if q.device.type == "cpu":
         return cross_reference_i8(q, kv, sk, sv, bias)
+    return _launch_cross_i8(q, kv, sk, sv, bias)
+
+
+def _launch_cross_i8(q, kv, sk, sv, bias, variant: int = 0):
+    """Check a CUDA input and launch kernel E (the split pass over groups of
+    16 rows and, with several splits, the merge). q is read through its
+    strides (the decoder's beam-major view), and the result is a (B, H, K,
+    Dh) view of a beam-major (B, K, H, Dh) buffer. ``variant`` 1 (bf16, B
+    even: two batch rows per block) is the design ``tools/kernel_ab.py``
+    times beside v0."""
     name = "cross_decode_attention_i8"
     B, H, K, Dh = q.shape
     S = kv.shape[2]
@@ -425,24 +489,121 @@ def cross_decode_attention_i8(
         raise ValueError(f"{name}: scales must be (B, H, S) float32")
     if tuple(bias.shape) != (B, S):
         raise ValueError(f"{name}: bias must be (B, S)")
-    lib = _build.library()
-    if lib.mm_cross_decode_smem_bytes(K, S, Dh) > MAX_SHARED_BYTES:
-        raise ValueError(f"{name}: {min(K, MAX_BEAMS)} rows x S={S} scores exceed a block's "
-                         "shared memory")
-    q, kv, sk, sv = (t.contiguous() for t in (q, kv, sk, sv))
+    if q.stride(3) != 1:
+        raise ValueError(f"{name}: q must have a dense head dim")
+    kv, sk, sv = (t.contiguous() for t in (kv, sk, sv))
     if kv.data_ptr() % 16:
         raise ValueError(f"{name}: the slab must start on a 16-byte boundary (16-byte row reads)")
     bias = bias.float().contiguous()
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        rc = lib.mm_cross_decode_attention_i8(
-            _build.dtype_code(q.dtype), q.data_ptr(), kv.data_ptr(), sk.data_ptr(),
-            sv.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, K, Dh, S,
-            _build.stream_ptr(q.device),
-        )
+    lib = _build.library()
+    code = _build.dtype_code(q.dtype)
+    n_split = lib.mm_cross_decode_i8_splits(code, B, H, K, S, Dh)
+    groups = -(-K // MAX_BEAMS)
+    scratch = torch.empty(B * H * groups * n_split * MAX_BEAMS * (Dh + 2) if n_split > 1 else 1,
+                          dtype=torch.float32, device=q.device)
+    out = torch.empty((B, K, H, Dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    rc = lib.mm_cross_decode_attention_i8(
+        code, variant, q.data_ptr(), kv.data_ptr(), sk.data_ptr(), sv.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), B, H, K, Dh, S, n_split, *q.stride()[:3],
+        *out.stride()[:3], _build.stream_ptr(q.device),
+    )
     _build.check(rc, name)
     cross_decode_attention_i8.launches += 1
     return out
 
 
 cross_decode_attention_i8.launches = 0
+
+
+def dense_reference(q, kv, packed: bool = False) -> torch.Tensor:
+    """Plain version of :func:`dense_attention`: softmax(q·k)·v over every
+    column of an int8 slab (B, H, S, 2·Dh), or of the same values
+    nibble-packed (B, H, S/2, 2·Dh, :func:`i4_pack`'s layout), the values
+    in q's dtype, the weights rounded to it (the probe's ``_attnish``)."""
+    slab = i4_unpack(kv) if packed else kv
+    Dh = q.shape[-1]
+    scores = torch.einsum("bhkd,bhsd->bhks", q.float(), slab[..., :Dh].to(q.dtype).float())
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhks,bhsd->bhkd", w.float(), slab[..., Dh:].to(q.dtype).float()).to(q.dtype)
+
+
+def dense_attention(q, kv, packed: bool = False) -> torch.Tensor:
+    """The dense probe kernel (bf16, Dh = 64; kernel E's split pass with
+    another load and no scales or bias): does reading half the slab's bytes
+    halve the time? (B, H, K, Dh) in q's dtype."""
+    if q.device.type == "cpu":
+        return dense_reference(q, kv, packed)
+    name = "dense_attention"
+    B, H, K, Dh = q.shape
+    S = kv.shape[2] * (2 if packed else 1)
+    _check_common(name, q, (kv,), K, Dh, max_rows=None)
+    if q.dtype != torch.bfloat16 or Dh != 64 or q.stride(3) != 1:
+        raise ValueError(f"{name}: bf16 q with a dense head dim of 64")
+    if kv.dtype != torch.int8 or tuple(kv.shape) != (B, H, S // (2 if packed else 1), 2 * Dh):
+        raise ValueError(f"{name}: slab {tuple(kv.shape)} {kv.dtype}")
+    kv = kv.contiguous()
+    lib = _build.library()
+    n_split = lib.mm_cross_decode_i8_splits(_build.BF16, B, H, K, S, Dh)
+    scratch = torch.empty(B * H * -(-K // MAX_BEAMS) * n_split * MAX_BEAMS * (Dh + 2)
+                          if n_split > 1 else 1, dtype=torch.float32, device=q.device)
+    out = torch.empty((B, K, H, Dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    rc = lib.mm_dense_attention_probe(
+        int(packed), q.data_ptr(), kv.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        B, H, K, Dh, S, n_split, *q.stride()[:3], *out.stride()[:3], _build.stream_ptr(q.device))
+    _build.check(rc, name)
+    dense_attention.launches += 1
+    return out
+
+
+dense_attention.launches = 0
+
+
+def cache_write(kv, k_rows, v_rows, write_pos: int, sk=None, sv=None) -> None:
+    """:func:`write_step` with the write itself as one kernel launch
+    (``csrc/cache_write.cu``; the quantization stays plain PyTorch, so both
+    write the same bytes). Not on the decoder's path: ``tools/kernel_ab.py``
+    times it against :func:`write_step`."""
+    if kv.device.type == "cpu":
+        return write_step(kv, k_rows, v_rows, write_pos, sk, sv)
+    name = "cache_write"
+    B, L, H, S_, Dh = k_rows.shape
+    if kv.device != k_rows.device or v_rows.shape != k_rows.shape or kv.stride(4) != 1:
+        raise ValueError(f"{name}: rows {tuple(k_rows.shape)} / cache {tuple(kv.shape)}")
+    if sk is None:
+        if k_rows.dtype != kv.dtype or v_rows.dtype != kv.dtype:
+            raise ValueError(f"{name}: the rows must be in the cache's dtype {kv.dtype}")
+        mode, k_src, v_src, row, high = 0, k_rows, v_rows, write_pos, 0
+        scales = [None] * 4
+    else:
+        int4 = sk.shape[3] == 2 * kv.shape[3]
+        rows, rsk, rsv = quantize_rows(k_rows, v_rows, 7.0 if int4 else 127.0)
+        P = kv.shape[3]
+        high = int(int4 and write_pos >= P)
+        row = write_pos - P if high else write_pos
+        if int4 and row + S_ > P:
+            raise ValueError(f"{name}: the {S_} columns at {write_pos} straddle the half {P}")
+        if any(s.stride(3) != 1 for s in (sk, sv)) or sk.stride() != sv.stride():
+            raise ValueError(f"{name}: sk and sv must share strides with a dense last dim")
+        mode, k_src, v_src = (2 if int4 else 1), rows[..., :Dh], rows[..., Dh:]
+        scales = [sk, sv, rsk.contiguous(), rsv.contiguous()]
+    if any(t.stride(4) != 1 or t.data_ptr() % 16
+           or any(t.stride(i) * t.element_size() % 16 for i in range(4)) for t in (k_src, v_src)):
+        k_src, v_src = k_src.contiguous(), v_src.contiguous()
+    if kv.data_ptr() % 16 or any(kv.stride(i) * kv.element_size() % 16 for i in range(4)):
+        raise ValueError(f"{name}: cache rows must be 16-byte aligned")
+    if k_src.stride() != v_src.stride():
+        raise ValueError(f"{name}: k_rows and v_rows must share strides")
+    es = kv.element_size()
+    d_strides = scales[0].stride()[:3] if scales[0] is not None else (0, 0, 0)
+    rc = _build.library().mm_cache_write(
+        mode, kv.data_ptr(), k_src.data_ptr(), v_src.data_ptr(),
+        *(t.data_ptr() if t is not None else None for t in scales),
+        B, L, H, S_, Dh * es, row, high, write_pos,
+        *(st * es for st in kv.stride()[:4]), *(st * es for st in k_src.stride()[:4]),
+        *d_strides, _build.stream_ptr(kv.device),
+    )
+    _build.check(rc, name)
+    cache_write.launches += 1
+
+
+cache_write.launches = 0

@@ -1,7 +1,8 @@
 """Host cost around the kernels, timed on the card.
 
     PYTHONPATH=TREE python mm_s2ut_torch/tools/host_cost.py wrappers [--reps 200]
-    PYTHONPATH=TREE python mm_s2ut_torch/tools/host_cost.py decode-step [--at-step 200]
+    PYTHONPATH=TREE python mm_s2ut_torch/tools/host_cost.py decode-step [--at-step 200] \
+        [--kv bfloat16|int8|int4]
 
 ``TREE`` is the directory holding the ``mm_s2ut_torch`` package to
 measure: ``.`` for this checkout, or another tree unpacked into a
@@ -22,16 +23,18 @@ its raw time is ``tools/kernel_ab.py``'s).
 
 ``decode-step``: phase 4 of ``chip_smoke.py`` (the flagship in bf16 with
 random weights, 8 synthetic 1–4 s utterances with 577×768 image features,
-beam 10, max_len_a 1, max_len_b 200) with one decode step, the interval
-between the starts of two consecutive ``decode_step`` calls, traced by
-``torch.profiler`` (:func:`profile_decode_step`): kernel time on the
-device, the shares of kernels B and C, and the device's busy share of the
-mean wall time of the 50 unprofiled steps before it.
+beam 10, max_len_a 1, max_len_b 200; ``--kv`` the cache, bf16 by default,
+or int8 or int4) with one decode step, the interval between the starts of
+two consecutive ``decode_step`` calls, traced by ``torch.profiler``
+(:func:`profile_decode_step`): kernel time on the device, the shares of
+kernels B-F (:func:`kernel_of`), and the device's busy share of the mean
+wall time of the 50 unprofiled steps before it.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -136,15 +139,39 @@ def wrapper_costs(reps: int) -> list:
     return rows
 
 
+def kernel_of(name: str):
+    """Which of the decode kernels B-F a CUDA kernel's name belongs to, in
+    this tree or an older one (None for any other kernel). D and F share
+    the ``ancestry_q_*`` passes, told apart by their load template argument
+    (0 D's int8 rows): the fourth of the score and output passes' five
+    (T, DH, SC8 or OUT8, LOAD, PROBE), the last of the merge's three;
+    the stats kernel, which has none, runs for F's packed-row walk only."""
+    if "ancestry_q_" in name:
+        m = re.search(r"<([^<>]*)>", name)
+        args = [x.strip() for x in m.group(1).split(",")] if m else []
+        load = args[3] if len(args) == 5 else (args[-1] if args else None)
+        return "D" if load == "0" else "F"
+    if "ancestry_i8_" in name:
+        return "D"
+    if "ancestry_decode_q_kernel" in name:
+        return "F"
+    if "ancestry_" in name:
+        return "B"
+    if "cross_i8_" in name or "cross_decode_i8" in name:
+        return "E"
+    if "cross_decode_" in name:
+        return "C"
+    return None
+
+
 def profile_decode_step(generator, feats, flens, imgs, masks, at_step: int) -> dict:
     """Run ``generator.generate`` once with decode step ``at_step`` (the
     interval from the start of that ``decode_step`` call to the start of
     the next: the model's step and the search's bookkeeping) traced by
-    ``torch.profiler``. Returns the device time by kernel there, the shares
-    of kernels B (``ancestry_*``) and C (``cross_decode_*``), and the
-    busy share against the mean wall time of the 50 unprofiled steps before
-    it (the search reads a flag back every step, so each step ends
-    synchronised)."""
+    ``torch.profiler``. Returns the device time by kernel there, the time
+    and share of each of kernels B-F, and the busy share against the mean
+    wall time of the 50 unprofiled steps before it (the search reads a flag
+    back every step, so each step ends synchronised)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     model = generator.model
@@ -172,20 +199,21 @@ def profile_decode_step(generator, feats, flens, imgs, masks, at_step: int) -> d
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
 
     total = sum(dev_us(e) for e in kernels)
-    b_us = sum(dev_us(e) for e in kernels if "ancestry_" in e.key)
-    c_us = sum(dev_us(e) for e in kernels if "cross_decode_" in e.key)
     n = min(50, at_step - 1)  # unprofiled steps just before the traced one
     wall_ms = (stamps[at_step - 1] - stamps[at_step - 1 - n]) * 1e3 / n
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
-    return {
+    result = {
         "at_step": at_step, "step_ms": wall_ms, "device_ms": total / 1e3,
         "busy": total / 1e3 / wall_ms if total > 0 else None,
         "launches": sum(e.count for e in kernels),
         "aten_calls": sum(e.count for e in events if e.key.startswith("aten::")),
-        "B_ms": b_us / 1e3, "B_share": b_us / total if total > 0 else None,
-        "C_ms": c_us / 1e3, "C_share": c_us / total if total > 0 else None,
-        "top": [(e.key[:60], e.count, round(dev_us(e) / 1e3, 4)) for e in top],
     }
+    for k in "BCDEF":
+        us = sum(dev_us(e) for e in kernels if kernel_of(e.key) == k)
+        result[f"{k}_ms"] = us / 1e3
+        result[f"{k}_share"] = us / total if total > 0 else None
+    result["top"] = [(e.key[:60], e.count, round(dev_us(e) / 1e3, 4)) for e in top]
+    return result
 
 
 def _init_random_(module, generator):
@@ -200,8 +228,9 @@ def _init_random_(module, generator):
     return module
 
 
-def decode_step(at_step: int) -> dict:
-    """Phase 4's search with one profiled step (:func:`profile_decode_step`)."""
+def decode_step(at_step: int, kv: str = "bfloat16") -> dict:
+    """Phase 4's search, with the ``kv`` cache, and one profiled step
+    (:func:`profile_decode_step`)."""
     from mm_s2ut_torch.config import GenerationConfig, ModelConfig, MultimodalConfig
     from mm_s2ut_torch.infer.generator import UnitGenerator
     from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
@@ -219,7 +248,8 @@ def decode_step(at_step: int) -> dict:
     imgs = torch.randn(n, 577, 768, generator=gen).cuda()
     masks = torch.zeros(imgs.shape[:2], dtype=torch.bool, device="cuda")
     feats, flens = waveform_frontend(wav.cuda(), lens.cuda(), FbankConfig())
-    generator = UnitGenerator(model, GenerationConfig(beam=10, max_len_a=1.0, max_len_b=200),
+    generator = UnitGenerator(model, GenerationConfig(beam=10, max_len_a=1.0, max_len_b=200,
+                                                      kv_cache_dtype=kv),
                               max_target_positions=model.cfg.max_target_positions)
     generator.generate(feats[:2, :100], torch.clamp(flens[:2], max=100), [imgs[:2]],
                        [masks[:2]])  # warm-up
@@ -231,6 +261,8 @@ def main(argv=None) -> int:
     ap.add_argument("what", choices=["wrappers", "decode-step"])
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--at-step", type=int, default=200)
+    ap.add_argument("--kv", choices=["bfloat16", "int8", "int4"], default="bfloat16",
+                    help="decode-step: the cache's dtype")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("host_cost: no CUDA device is visible", file=sys.stderr)
@@ -242,7 +274,7 @@ def main(argv=None) -> int:
     if args.what == "wrappers":
         result = {"wrappers": wrapper_costs(args.reps)}
     else:
-        result = {"decode_step": decode_step(args.at_step)}
+        result = {"decode_step": {"kv": args.kv, **decode_step(args.at_step, args.kv)}}
     print(json.dumps(result))
     return 0
 

@@ -1,6 +1,7 @@
-"""Kernels A, G, H, B, C and D of several source trees, timed in one process on the card.
+"""Kernels A-H of several source trees, and the ports of the TPU probes, timed in one process on the card.
 
     python -m mm_s2ut_torch.tools.kernel_ab --other DIR [DIR ...] [--reps 200] [--only NAME ...]
+        [--per-kernel] [--fixed-work]
 
 Each ``DIR`` is another ``csrc`` directory (every ``.cu`` in it is
 built), for example the parent commit's (``git archive HEAD
@@ -13,14 +14,16 @@ statistics (the inference path's call) and, in trees that have attention
 dropout, at rate 0.1 with the statistics (the training forward); H runs
 in trees that have it. A tree whose flash entries predate dropout (no
 rate, seed and statistics arguments), or whose kernel B predates the
-split over blocks, or whose kernel C or D predates this tree's design, is
-launched with its own signature. Kernel B runs at
+split over blocks, or whose kernel C, D, E or F predates this tree's
+design, is launched with its own signature. Kernel B runs at
 the flagship's decode shape (phase 2 of ``chip_smoke.py``) and the bench
-point's (B = 128), and in this tree also as its two alternative designs
+point's (B = 128), and in this tree also as its alternative designs
 (``this/v1``: all heads of a batch row per block, the reference's grid;
 ``this/v2``: the SIMT split pass, a (beam, column) pair per thread on
 the FMA pipes, in place of the tensor cores' beam-rows orientation; the
-port of ``scripts_dev/decode_kernel_variants.py``'s v0-v2). Kernel D
+port of ``scripts_dev/decode_kernel_variants.py``'s v0-v2; ``this/v3``:
+one block per (b, h) over the whole slab with all its scores in shared
+memory, the port of ``scripts_dev/interleave_probe.py``). Kernel D
 (the int8 cache) runs at the same two shapes, and in this tree also as
 its alternative designs, which give v0's bits (checked and printed):
 ``this/v1`` the output product on bf16 tensor cores over converted int8
@@ -28,16 +31,33 @@ its alternative designs, which give v0's bits (checked and printed):
 ``this/v2`` both products so (``scripts_dev/int8_mxu_probe.py``'s
 operand comparison and its A_base), ``this/v3`` two batch rows per block
 (``scripts_dev/self_block_probe.py``); D itself is
-``decode_kernel_variants.py``'s int8 v3. Kernel C runs at the decode
-step's K = 10 rows (B = 8 and 128) and at the prefill's 501 rows, beside
-one raw-timed ``scaled_dot_product_attention`` call on the same inputs
-(``sdpa``).
+``decode_kernel_variants.py``'s int8 v3. Kernel F (the int4 cache) runs
+at the same two shapes, with ``this/D``, kernel D on the unpacked cache,
+whose bits F's must equal, and F's designs (the ports of
+``scripts_dev/int4_unpack_variants.py`` and ``int4_support_probe.py:36``):
+``this/v1`` the unpack through int32 shifts, ``this/v2`` both products on
+bf16 tensor cores, ``this/v3`` the gather by packed row. Kernel C runs at
+the decode step's K = 10 rows (B = 8 and 128) and at the prefill's 501
+rows, beside one raw-timed ``scaled_dot_product_attention`` call on the
+same inputs (``sdpa``); kernel E at the same shapes, beside this tree's C
+on a bf16 slab of the same values (``this/C``), and as ``this/v1``, two
+batch rows per block (``scripts_dev/cross_block_probe.py``). ``dense``:
+one dense attention over every column of an int8 slab and of the same
+values nibble-packed (``int4_support_probe.py:73``: does half the bytes
+take half the time?). ``write``: the decode step's cache write as one
+kernel (``scripts_dev/cache_write_fix_probe.py``, ``write_kernel_probe.py``)
+against the decoder's plain write, bf16, int8 and both int4 halves, the
+written bytes checked equal.
 ``--only`` keeps the cases whose entry name contains one of the given
-strings (e.g. ``--only ancestry cross``). ``--per-kernel`` also traces 50
+strings or whose kind is one of them (``i4``, ``cross_i8``, ``dense``,
+``write``; e.g. ``--only ancestry cross``). ``--per-kernel`` also traces 50
 launches of each launcher with ``torch.profiler`` and prints the mean
 device time of each CUDA kernel a launch runs (e.g. D's score pass,
-output pass and merge). Prints the card, one line per case and a JSON
-summary.
+output pass and merge). ``--fixed-work`` adds D's and F's passes with
+parts left out (``this/fixed1`` no tiles, ``/fixed3`` no compaction
+either, ``/fixed7`` no ws and w8 table either; their output is not
+valid), which, with ``--per-kernel``, splits each pass's time. Prints the
+card, one line per case and a JSON summary.
 """
 from __future__ import annotations
 
@@ -77,11 +97,49 @@ DECODE_CASES = [  # (entry, B, H, K, Dh, L, T_dec, step or S), bf16
     ("mm_cross_decode_attention", 8, 8, 10, 64, 0, 0, 250),
     ("mm_cross_decode_attention", 128, 8, 10, 64, 0, 0, 250),
     ("mm_cross_decode_attention", 1, 8, 501, 64, 0, 0, 250),  # the streaming prefill's rows
+    ("mm_ancestry_decode_attention_i4", 8, 8, 10, 64, 6, 500, 300),  # chip_smoke.FLAGSHIP, int4
+    ("mm_ancestry_decode_attention_i4", 128, 8, 10, 64, 6, 201, 150),  # chip_smoke.BENCH
+    ("mm_cross_decode_attention_i8", 8, 8, 10, 64, 0, 0, 250),
+    ("mm_cross_decode_attention_i8", 128, 8, 10, 64, 0, 0, 250),
+    ("mm_cross_decode_attention_i8", 1, 8, 501, 64, 0, 0, 250),
+    ("mm_dense_attention_probe", 128, 8, 10, 64, 0, 0, 2010),  # int4_support_probe.py's shape
 ]
+WRITE_CASES = [  # (cache, B, K, cap, L, H, Dh, step)
+    ("bfloat16", 32, 5, 201, 6, 8, 64, 100),  # cache_write_fix_probe.py's shape
+    ("int8", 128, 10, 201, 6, 8, 64, 150),  # write_kernel_probe.py's
+    ("int4", 128, 10, 201, 6, 8, 64, 20),  # the low half of the packed rows
+    ("int4", 128, 10, 201, 6, 8, 64, 150),  # the high half
+]
+# H100 SXM (NVIDIA's data sheet, as chip_smoke.py's): HBM bytes/s, dense bf16 op/s.
+HBM, PEAK_BF16 = 3.35e12, 989e12
+
+
+def dense_bound_us(B, H, K, Dh, S, packed):
+    """Least time of the dense probe: its slab (S columns of 2.Dh int8
+    values, half the bytes packed), q and out in bf16 each moved once over
+    HBM, or its two bf16 products over the peak, whichever is longer."""
+    nbytes = B * H * (S // 2 if packed else S) * 2 * Dh + 2 * B * H * K * Dh * 2
+    return max(nbytes / HBM, 4 * B * H * K * S * Dh / PEAK_BF16) * 1e6
+
+
+def write_bound_us(cache, B, K, L, H, Dh):
+    """Least time of the raw cache-write launch: the step's B.L.H.K rows
+    read once and written once (2.Dh values each, bf16 or int8), the int4
+    cache's packed rows read too (the nibble merge), and the quantized
+    caches' sk and sv (fp32) read and written, over HBM."""
+    per_row = {"bfloat16": 2 * 2 * Dh * 2, "int8": 2 * 2 * Dh + 16, "int4": 3 * 2 * Dh + 16}
+    return B * L * H * K * per_row[cache] / HBM * 1e6
+
+
+KINDS = {"mm_ancestry_decode_attention_i4": "i4", "mm_cross_decode_attention_i8": "cross_i8",
+         "mm_dense_attention_probe": "dense", "mm_cache_write": "write"}
 # Signatures of entries older trees have in place of this tree's.
 _OLD_CROSS = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _OLD_I8 = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
     + [ctypes.c_int64] * 10 + [ctypes.c_void_p]
+_OLD_I4 = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 10 \
+    + [ctypes.c_void_p]
+_OLD_CROSS_I8 = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 class Tree:
@@ -93,7 +151,10 @@ class Tree:
         self.has_bwd = (csrc / "flash_attention_bwd.cu").exists()
         self.split_b = "mm_ancestry_decode_splits" in (csrc / "decode_attention.cu").read_text()
         self.split_c = "mm_cross_decode_splits" in (csrc / "decode_attention.cu").read_text()
-        self.split_d = "mm_ancestry_decode_i8_splits" in (csrc / "decode_attention_q.cu").read_text()
+        q_src = (csrc / "decode_attention_q.cu").read_text()
+        self.split_d = "mm_ancestry_decode_i8_splits" in q_src
+        self.split_f = "mm_ancestry_decode_i4_splits" in q_src
+        self.split_e = "mm_cross_decode_i8_splits" in q_src
         self.lib = ctypes.CDLL(str(_build.build(csrc)))
         flash = list(_build._FLASH[0])
         if not self.dropout:  # before dropout: no rate, seed, stat_m, stat_l
@@ -109,6 +170,13 @@ class Tree:
         if self.split_d:
             names += ["mm_ancestry_decode_attention_i8", "mm_ancestry_decode_i8_splits",
                       "mm_ancestry_decode_i8_scratch_bytes"]
+        if self.split_f:
+            names += ["mm_ancestry_decode_attention_i4", "mm_ancestry_decode_i4_splits",
+                      "mm_ancestry_decode_i4_scratch_bytes"]
+        if self.split_e:
+            names += ["mm_cross_decode_attention_i8", "mm_cross_decode_i8_splits"]
+        if "mm_ancestry_decode_fixed_work" in q_src:
+            names.append("mm_ancestry_decode_fixed_work")
         for name in names:
             fn = getattr(self.lib, name)
             fn.argtypes, fn.restype = _build._SIGNATURES[name]
@@ -118,6 +186,12 @@ class Tree:
         if not self.split_d:  # D and F in one entry, grid (B, H), contiguous q and out
             fn = self.lib.mm_ancestry_decode_attention_q
             fn.argtypes, fn.restype = _OLD_I8, ctypes.c_int
+        if not self.split_f:  # one block per (b, h), contiguous q and out
+            fn = self.lib.mm_ancestry_decode_attention_i4
+            fn.argtypes, fn.restype = _OLD_I4, ctypes.c_int
+        if not self.split_e:  # one block per (b.h, 16 rows), contiguous q and out
+            fn = self.lib.mm_cross_decode_attention_i8
+            fn.argtypes, fn.restype = _OLD_CROSS_I8, ctypes.c_int
         if not self.split_b:  # one block per (b, h), contiguous q, no scratch
             fn = self.lib.mm_ancestry_decode_attention
             fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
@@ -189,12 +263,18 @@ def _ancestry_inputs(B, H, K, Dh, L, T, step):
     return [t.to("cuda", torch.bfloat16) for t in (q, k_new, v_new, kv)] + [flat_rep]
 
 
-def _decode_launchers(trees, entry, B, H, K, Dh, L, T, step):
-    """{label: launch} for kernel B (each tree, and this tree's variants) or
-    C (each tree, and SDPA on the same inputs)."""
+def _decode_launchers(trees, entry, B, H, K, Dh, L, T, step, fixed_work=False):
+    """{label: launch} for kernel B (each tree, and this tree's variants), C
+    (each tree, and SDPA on the same inputs), D, E, F or the dense probe."""
     stream = torch.cuda.current_stream().cuda_stream
     fns = {}
-    if entry == "mm_cross_decode_attention":
+    if entry == "mm_ancestry_decode_attention_i4":
+        keep = _i4_launchers(trees, fns, B, H, K, Dh, L, T, step, fixed_work)
+    elif entry == "mm_cross_decode_attention_i8":
+        keep = _cross_i8_launchers(trees, fns, B, H, K, Dh, step)
+    elif entry == "mm_dense_attention_probe":
+        keep = _dense_launchers(fns, B, H, K, Dh, step)
+    elif entry == "mm_cross_decode_attention":
         S = step
         g = torch.Generator().manual_seed(S)
         q = (torch.randn((B, H, K, Dh), generator=g) * Dh ** -0.5).to("cuda", torch.bfloat16)
@@ -224,14 +304,14 @@ def _decode_launchers(trees, entry, B, H, K, Dh, L, T, step):
             q, k2, v2, attn_mask=mask, scale=1.0)
         keep.append(mask)
     elif entry == "mm_ancestry_decode_attention_i8":
-        keep = _i8_launchers(trees, fns, B, H, K, Dh, L, T, step)
+        keep = _i8_launchers(trees, fns, B, H, K, Dh, L, T, step, fixed_work)
     else:
         q, k_new, v_new, kv, flat_rep = _ancestry_inputs(B, H, K, Dh, L, T, step)
         keep = [q, k_new, v_new, kv, flat_rep]
         TS, layer = T * K, L // 2
         kv_strides = list(kv.stride()[:4])
         for tree in trees:
-            for variant in ((0, 1, 2) if tree.split_b and tree.label == "this" else (0,)):
+            for variant in ((0, 1, 2, 3) if tree.split_b and tree.label == "this" else (0,)):
                 label = tree.label + (f"/v{variant}" if variant else "")
                 fn = tree.lib.mm_ancestry_decode_attention
                 if not tree.split_b:
@@ -256,14 +336,14 @@ def _decode_launchers(trees, entry, B, H, K, Dh, L, T, step):
     return fns
 
 
-def _i8_inputs(B, H, K, Dh, L, T, step):
-    """bf16 q, k_new, v_new, a random (B, L, H, T·K, 2·Dh) int8 cache with
-    per-column scales, and the flat_rep of a random ancestry at ``step``,
-    made on the card from a seeded generator."""
+def _i8_inputs(B, H, K, Dh, L, T, step, levels=127):
+    """bf16 q, k_new, v_new, a random (B, L, H, T·K, 2·Dh) int8 cache (values
+    in [-levels, levels]) with per-column scales, and the flat_rep of a
+    random ancestry at ``step``, made on the card from a seeded generator."""
     g = torch.Generator(device="cuda").manual_seed(0)
     q = torch.randn((B, H, K, Dh), generator=g, device="cuda") * Dh ** -0.5
     k_new, v_new = (torch.randn((B, H, K, Dh), generator=g, device="cuda") for _ in range(2))
-    kv = torch.randint(-127, 128, (B, L, H, T * K, 2 * Dh), generator=g, device="cuda",
+    kv = torch.randint(-levels, levels + 1, (B, L, H, T * K, 2 * Dh), generator=g, device="cuda",
                        dtype=torch.int8)
     sk, sv = (torch.rand((B, L, H, T * K), generator=g, device="cuda") * 0.01 + 0.002
               for _ in range(2))
@@ -274,9 +354,33 @@ def _i8_inputs(B, H, K, Dh, L, T, step):
     return [t.to(torch.bfloat16) for t in (q, k_new, v_new)] + [kv, sk, sv, flat_rep]
 
 
-def _i8_launchers(trees, fns, B, H, K, Dh, L, T, step):
+def _q_args(tree, entry, v, B, H, K, Dh, TS, layer, ptrs, strides, q, k_new, v_new, keep):
+    """The argument list of this design of D or F (variant ``v``) and its
+    output."""
+    stream = torch.cuda.current_stream().cuda_stream
+    lib, f = tree.lib, entry.endswith("_i4")
+    n_split = (lib.mm_ancestry_decode_i4_splits(B, H, K, TS, v) if f
+               else lib.mm_ancestry_decode_i8_splits(B, H, K, TS))
+    nbytes = (lib.mm_ancestry_decode_i4_scratch_bytes(B, H, K, Dh, TS, n_split, v) if f
+              else lib.mm_ancestry_decode_i8_scratch_bytes(B, H, K, Dh, TS, n_split))
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    out = torch.empty((B, K, H, Dh), dtype=q.dtype, device="cuda").transpose(1, 2)
+    keep += [scratch, out]
+    return [_build.BF16, v, *ptrs, out.data_ptr(), scratch.data_ptr(), B, H, K, Dh, TS, layer,
+            n_split, *(st for t in (q, k_new, v_new, out) for st in t.stride()[:3]), *strides,
+            stream], out
+
+
+def _add(fns, label, fn, args, entry, out=None):
+    fns[label] = (lambda fn, args: lambda: _build.check(fn(*args), entry))(fn, args)
+    if out is not None:
+        fns[label].out = out
+
+
+def _i8_launchers(trees, fns, B, H, K, Dh, L, T, step, fixed_work=False):
     """Kernel D of each tree into ``fns`` (this tree also as v1-v3, each
-    launcher's output as its ``out``); returns the tensors to keep."""
+    launcher's output as its ``out``, and with ``fixed_work`` its passes with
+    parts left out); returns the tensors to keep."""
     entry = "mm_ancestry_decode_attention_i8"
     stream = torch.cuda.current_stream().cuda_stream
     q, k_new, v_new, kv, sk, sv, flat_rep = _i8_inputs(B, H, K, Dh, L, T, step)
@@ -287,30 +391,183 @@ def _i8_launchers(trees, fns, B, H, K, Dh, L, T, step):
     for tree in trees:
         if not tree.split_d:
             out = torch.empty_like(q)
-            fn, args = tree.lib.mm_ancestry_decode_attention_q, [
-                _build.BF16, 0, *ptrs, out.data_ptr(), B, H, K, Dh, TS, layer, *strides, stream]
-            variants = [(tree.label, fn, args, out)]
-        else:
-            n_split = tree.lib.mm_ancestry_decode_i8_splits(B, H, K, TS)
-            variants = []
-            for v in (0, 1, 2, 3) if tree.label == "this" else (0,):
-                if v == 3 and B % 2:
-                    continue
-                scratch = torch.empty(tree.lib.mm_ancestry_decode_i8_scratch_bytes(
-                    B, H, K, Dh, TS, n_split), dtype=torch.uint8, device="cuda")
-                out = torch.empty((B, K, H, Dh), dtype=q.dtype, device="cuda").transpose(1, 2)
-                keep.append(scratch)
-                args = [_build.BF16, v, *ptrs, out.data_ptr(), scratch.data_ptr(), B, H, K, Dh,
-                        TS, layer, n_split,
-                        *(st for t in (q, k_new, v_new, out) for st in t.stride()[:3]),
-                        *strides, stream]
-                variants.append((tree.label + (f"/v{v}" if v else ""),
-                                 tree.lib.mm_ancestry_decode_attention_i8, args, out))
-        for label, fn, args, out in variants:
-            fns[label] = (lambda fn, args: lambda: _build.check(fn(*args), entry))(fn, args)
-            fns[label].out = out
             keep.append(out)
+            _add(fns, tree.label, tree.lib.mm_ancestry_decode_attention_q,
+                 [_build.BF16, 0, *ptrs, out.data_ptr(), B, H, K, Dh, TS, layer, *strides, stream],
+                 entry, out)
+            continue
+        for v in (0, 1, 2, 3) if tree.label == "this" else (0,):
+            if v == 3 and B % 2:
+                continue
+            args, out = _q_args(tree, entry, v, B, H, K, Dh, TS, layer, ptrs, strides, q, k_new,
+                                v_new, keep)
+            _add(fns, tree.label + (f"/v{v}" if v else ""), tree.lib.mm_ancestry_decode_attention_i8,
+                 args, entry, out)
+        if fixed_work and tree.label == "this":
+            for probe in (1, 3, 7):
+                args, _ = _q_args(tree, entry, 0, B, H, K, Dh, TS, layer, ptrs, strides, q,
+                                  k_new, v_new, keep)
+                _add(fns, f"this/fixed{probe}", tree.lib.mm_ancestry_decode_fixed_work,
+                     [0, probe, *args[2:]], entry)
     return keep
+
+
+def _i4_launchers(trees, fns, B, H, K, Dh, L, T, step, fixed_work=False):
+    """Kernel F of each tree (this tree also as v1-v3 and, with
+    ``fixed_work``, its passes with parts left out), and this tree's D on
+    the same values unpacked (``this/D``, whose bits F must give)."""
+    from mm_s2ut_torch.ops.decode_attention import i4_pack
+
+    entry = "mm_ancestry_decode_attention_i4"
+    stream = torch.cuda.current_stream().cuda_stream
+    q, k_new, v_new, kv8, sk, sv, flat_rep = _i8_inputs(B, H, K, Dh, L, T, step, levels=7)
+    TS, layer = T * K, L // 2
+    kv4 = torch.empty((B, L, H, TS // 2, 2 * Dh), dtype=torch.int8, device="cuda")
+    for lay in range(L):
+        kv4[:, lay] = i4_pack(kv8[:, lay], TS // 2)
+    keep = [q, k_new, v_new, kv8, kv4, sk, sv, flat_rep]
+    sc_strides = [*sk.stride()[:3], *sv.stride()[:3]]
+    ptrs = [t.data_ptr() for t in (q, k_new, v_new, kv4, sk, sv, flat_rep)]
+    for tree in trees:
+        if not tree.split_f:
+            out = torch.empty_like(q)
+            keep.append(out)
+            _add(fns, tree.label, tree.lib.mm_ancestry_decode_attention_i4,
+                 [_build.BF16, *ptrs, out.data_ptr(), B, H, K, Dh, TS, layer, *kv4.stride()[:4],
+                  *sc_strides, stream], entry, out)
+            continue
+        for v in (0, 1, 2, 3) if tree.label == "this" else (0,):
+            args, out = _q_args(tree, entry, v, B, H, K, Dh, TS, layer, ptrs,
+                                [*kv4.stride()[:4], *sc_strides], q, k_new, v_new, keep)
+            _add(fns, tree.label + (f"/v{v}" if v else ""), tree.lib.mm_ancestry_decode_attention_i4,
+                 args, entry, out)
+        if tree.label == "this":
+            d_ptrs = [t.data_ptr() for t in (q, k_new, v_new, kv8, sk, sv, flat_rep)]
+            args, out = _q_args(tree, "mm_ancestry_decode_attention_i8", 0, B, H, K, Dh, TS, layer,
+                                d_ptrs, [*kv8.stride()[:4], *sc_strides], q, k_new, v_new, keep)
+            _add(fns, "this/D", tree.lib.mm_ancestry_decode_attention_i8, args, entry, out)
+        if fixed_work and tree.label == "this":
+            for probe in (1, 3, 7):
+                args, _ = _q_args(tree, entry, 0, B, H, K, Dh, TS, layer, ptrs,
+                                  [*kv4.stride()[:4], *sc_strides], q, k_new, v_new, keep)
+                _add(fns, f"this/fixed{probe}", tree.lib.mm_ancestry_decode_fixed_work,
+                     [1, probe, *args[2:]], entry)
+    return keep
+
+
+def _cross_i8_launchers(trees, fns, B, H, K, Dh, S):
+    """Kernel E of each tree (this tree also as v1, two batch rows per
+    block), and this tree's C on a bf16 slab of the same values (``this/C``)."""
+    entry = "mm_cross_decode_attention_i8"
+    stream = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device="cuda").manual_seed(S)
+    q = (torch.randn((B, H, K, Dh), generator=g, device="cuda") * Dh ** -0.5).to(torch.bfloat16)
+    kv = torch.randint(-127, 128, (B, H, S, 2 * Dh), generator=g, device="cuda", dtype=torch.int8)
+    sk, sv = (torch.rand((B, H, S), generator=g, device="cuda") * 0.01 + 0.002 for _ in range(2))
+    lengths = torch.clamp(S - 23 * torch.arange(B, device="cuda"), min=1)
+    bias = torch.where(torch.arange(S, device="cuda")[None, :] < lengths[:, None], 0.0, -1e9)
+    keep = [q, kv, sk, sv, bias]
+    ptrs = [t.data_ptr() for t in (q, kv, sk, sv, bias)]
+    for tree in trees:
+        if not tree.split_e:
+            out = torch.empty_like(q)
+            keep.append(out)
+            _add(fns, tree.label, tree.lib.mm_cross_decode_attention_i8,
+                 [_build.BF16, *ptrs, out.data_ptr(), B, H, K, Dh, S, stream], entry, out)
+            continue
+        n_split = tree.lib.mm_cross_decode_i8_splits(_build.BF16, B, H, K, S, Dh)
+        for v in (0, 1) if tree.label == "this" and B % 2 == 0 else (0,):
+            scratch = torch.empty(max(1, B * H * -(-K // 16) * n_split * 16 * (Dh + 2)),
+                                  device="cuda")
+            out = torch.empty((B, K, H, Dh), dtype=q.dtype, device="cuda").transpose(1, 2)
+            keep += [scratch, out]
+            _add(fns, tree.label + (f"/v{v}" if v else ""), tree.lib.mm_cross_decode_attention_i8,
+                 [_build.BF16, v, *ptrs, out.data_ptr(), scratch.data_ptr(), B, H, K, Dh, S,
+                  n_split, *q.stride()[:3], *out.stride()[:3], stream], entry, out)
+        if tree.label == "this":
+            kvb = kv.to(torch.bfloat16)
+            c_split = tree.lib.mm_cross_decode_splits(_build.BF16, B, H, K, S, Dh)
+            scratch = torch.empty(max(1, B * H * c_split * K * (Dh + 2)), device="cuda")
+            out = torch.empty((B, K, H, Dh), dtype=q.dtype, device="cuda").transpose(1, 2)
+            keep += [kvb, scratch, out]
+            _add(fns, "C", tree.lib.mm_cross_decode_attention,
+                 [_build.BF16, q.data_ptr(), kvb.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr(), B, H, K, Dh, S, c_split, *q.stride()[:3],
+                  *out.stride()[:3], stream], "mm_cross_decode_attention")
+    return keep
+
+
+def _dense_launchers(fns, B, H, K, Dh, S):
+    """The dense probe of this tree over an int8 slab (``this/int8``) and
+    over the same values nibble-packed (``this/int4``): the same bits."""
+    from mm_s2ut_torch.ops.decode_attention import i4_pack
+
+    entry = "mm_dense_attention_probe"
+    lib, stream = _build.library(), torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device="cuda").manual_seed(S)
+    q = (torch.randn((B, H, K, Dh), generator=g, device="cuda") * 0.3).to(torch.bfloat16)
+    kv8 = torch.randint(-7, 8, (B, H, S, 2 * Dh), generator=g, device="cuda", dtype=torch.int8)
+    kv4 = i4_pack(kv8, S // 2)
+    n_split = lib.mm_cross_decode_i8_splits(_build.BF16, B, H, K, S, Dh)
+    keep = [q, kv8, kv4]
+    for packed, kv in ((0, kv8), (1, kv4)):
+        scratch = torch.empty(max(1, B * H * -(-K // 16) * n_split * 16 * (Dh + 2)), device="cuda")
+        out = torch.empty((B, K, H, Dh), dtype=q.dtype, device="cuda").transpose(1, 2)
+        keep += [scratch, out]
+        _add(fns, f"this/{'int4' if packed else 'int8'}", lib.mm_dense_attention_probe,
+             [packed, q.data_ptr(), kv.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, H, K, Dh,
+              S, n_split, *q.stride()[:3], *out.stride()[:3], stream], entry, out)
+    return keep
+
+
+def _write_launchers(cache, B, K, cap, L, H, Dh, step):
+    """The decode step's cache write at ``step``: ``this/kernel``
+    (``cache_write``), ``this/plain`` (the decoder's ``write_step``), each on
+    its own copy of the cache, whose written bytes (and scales) are its
+    ``out``; ``this/raw``, the kernel's ctypes launch alone on pre-quantized
+    rows (no ``out``)."""
+    from mm_s2ut_torch.ops import decode_attention as D
+
+    g = torch.Generator(device="cuda").manual_seed(step)
+    TS = cap * K
+    int4, quant = cache == "int4", cache != "bfloat16"
+    k_rows, v_rows = (torch.randn((B, L, H, K, Dh), generator=g, device="cuda").to(torch.bfloat16)
+                      for _ in range(2))
+    if quant:
+        kv = torch.randint(-128, 128, (B, L, H, TS // 2 if int4 else TS, 2 * Dh), generator=g,
+                           device="cuda", dtype=torch.int8)
+        sk, sv = (torch.rand((B, L, H, TS), generator=g, device="cuda") for _ in range(2))
+    else:
+        kv = torch.randn((B, L, H, TS, 2 * Dh), generator=g, device="cuda").to(torch.bfloat16)
+        sk = sv = None
+    copies = [(kv, sk, sv), tuple(t.clone() if t is not None else None for t in (kv, sk, sv))]
+    fns = {}
+    for label, (kv, sk, sv) in zip(("kernel", "plain"), copies):
+        fn = D.cache_write if label == "kernel" else D.write_step
+        fns[f"this/{label}"] = (lambda fn, kv, sk, sv: lambda: fn(
+            kv, k_rows, v_rows, step * K, sk, sv))(fn, kv, sk, sv)
+    for (kv, sk, sv), fn in zip(copies, fns.values()):
+        fn.out = (lambda kv, sk, sv: lambda: torch.cat(
+            [t.view(torch.uint8).flatten() for t in (kv, sk, sv) if t is not None]))(kv, sk, sv)
+    kv, sk, sv = copies[0]
+    if quant:
+        rows, rsk, rsv = D.quantize_rows(k_rows, v_rows, 7.0 if int4 else 127.0)
+        src = [rows[..., :Dh], rows[..., Dh:]]
+        P, pos = kv.shape[3], step * K
+        high = int(int4 and pos >= P)
+        mode, row, scales = (2 if int4 else 1), pos - P * high, [sk, sv, rsk, rsv]
+    else:
+        src, mode, row, high, scales = [k_rows, v_rows], 0, step * K, 0, [None] * 4
+    es = kv.element_size()
+    args = [mode, kv.data_ptr(), src[0].data_ptr(), src[1].data_ptr(),
+            *(t.data_ptr() if t is not None else None for t in scales), B, L, H, K, Dh * es, row,
+            high, step * K, *(st * es for st in kv.stride()[:4]),
+            *(st * es for st in src[0].stride()[:4]),
+            *(sk.stride()[:3] if quant else (0, 0, 0)), torch.cuda.current_stream().cuda_stream]
+    _add(fns, "this/raw", _build.library().mm_cache_write, args, "mm_cache_write")
+    for fn in fns.values():
+        fn.keep = [k_rows, v_rows, copies, src, scales]
+    return fns
 
 
 def _time(launch, reps: int) -> float:
@@ -351,6 +608,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", nargs="+", default=None, help="entry name substrings to keep")
     ap.add_argument("--per-kernel", action="store_true",
                     help="also each launch's device time by CUDA kernel (torch.profiler)")
+    ap.add_argument("--fixed-work", action="store_true",
+                    help="also D's and F's passes with parts left out (output not valid)")
     args = ap.parse_args(argv)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
@@ -362,10 +621,15 @@ def main(argv=None) -> int:
              for entry, B, T, H, D, causal, window, rate in CASES]
     cases += [(dict(entry=entry, B=B, H=H, K=K, Dh=Dh,
                     **({"S": n} if L == 0 else {"T_dec": T, "step": n})),
-               lambda c=(entry, B, H, K, Dh, L, T, n): _decode_launchers(trees, *c))
+               lambda c=(entry, B, H, K, Dh, L, T, n): _decode_launchers(
+                   trees, *c, fixed_work=args.fixed_work))
               for entry, B, H, K, Dh, L, T, n in DECODE_CASES]
+    cases += [(dict(entry="mm_cache_write", cache=cache, B=B, K=K, cap=cap, L=L, H=H, Dh=Dh,
+                    step=step), lambda c=(cache, B, K, cap, L, H, Dh, step): _write_launchers(*c))
+              for cache, B, K, cap, L, H, Dh, step in WRITE_CASES]
     for case, make in cases:
-        if args.only and not any(o in case["entry"] for o in args.only):
+        kind = KINDS.get(case["entry"])
+        if args.only and not any(o in case["entry"] or o == kind for o in args.only):
             continue
         fns = make()
         runs = {label: [] for label in fns}
@@ -375,8 +639,17 @@ def main(argv=None) -> int:
         ms = {label: sum(v) / len(v) for label, v in runs.items()}
         torch.cuda.synchronize()
         outs = [fn.out for label, fn in fns.items() if label.startswith("this") and hasattr(fn, "out")]
+        outs = [o() if callable(o) else o for o in outs]
         if len(outs) > 1:
             case["variants_same_bits"] = all(torch.equal(outs[0], o) for o in outs[1:])
+        if kind == "dense":  # does half the bytes take half the time?
+            case["int4_over_int8_ms"] = ms["this/int4"] / ms["this/int8"]
+            case["int4_over_int8_slab_bytes"] = 0.5
+            case["bound_us"] = {p: dense_bound_us(case["B"], case["H"], case["K"], case["Dh"],
+                                                  case["S"], p == "int4")
+                                for p in ("int8", "int4")}
+        if kind == "write":
+            case["bound_us"] = write_bound_us(*(case[k] for k in ("cache", "B", "K", "L", "H", "Dh")))
         rows.append({**case, "ms": ms, "runs": runs})
         print(" ".join(f"{k}={v}" for k, v in case.items()) + ": "
               + ", ".join(f"{label} {m:.4f} ms {[round(x, 4) for x in runs[label]]}"
@@ -385,7 +658,7 @@ def main(argv=None) -> int:
             rows[-1]["per_kernel_us"] = {label: _per_kernel(fn) for label, fn in fns.items()}
             for label, times in rows[-1]["per_kernel_us"].items():
                 print(f"  {label}: " + "; ".join(f"{k} {v} us" for k, v in times.items()))
-        del fns
+        del fns, outs
         torch.cuda.empty_cache()
     print(json.dumps({"kernel_ab": rows}))
     return 0

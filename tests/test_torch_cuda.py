@@ -36,6 +36,7 @@ from chip_smoke import (
     quant_ancestry_inputs,
     quant_cross_inputs,
 )
+from mm_s2ut_torch.ops import _build
 from mm_s2ut_torch.ops import attention as A
 from mm_s2ut_torch.ops import decode_attention as D
 
@@ -312,11 +313,12 @@ def test_ancestry_decode(card, K, Dh, B, step):
         _close(got, D.reference(q, k_new, v_new, kv, flat_rep, 1), dtype)
 
 
-@pytest.mark.parametrize("variant", [1, 2])
+@pytest.mark.parametrize("variant", [1, 2, 3])
 def test_ancestry_decode_variants(card, variant):
     """The designs ``tools/kernel_ab.py`` times against kernel B's (all
-    heads per block; the SIMT split pass in bf16) at the flagship's bf16
-    shape give the plain version's result too."""
+    heads per block; the SIMT split pass in bf16; one block per (b, h)
+    over the whole slab) at the flagship's bf16 shape give the plain
+    version's result too."""
     s = FLAGSHIP
     args = ancestry_inputs(s["B"], s["H"], s["K"], s["Dh"], s["L"], s["T_dec"], s["step"],
                            torch.bfloat16)
@@ -467,9 +469,12 @@ def test_cross_decode_many_rows(card, dtype, int8, K, Dh, S):
     """Kernels C and E with more rows than a decode step has (the
     prefill's P = max_len + 1): against the plain version. A 16-row
     (decode-step) call on the first 16 rows takes the same code path in
-    fp32 C and in E (one block per 16 rows), so there it gives the same
-    bits; bf16 C takes A's tensor-core forward for many rows and its split
-    kernel for 16, so there both are held to the plain version."""
+    fp32 C and in E (one block per 16 rows) wherever E splits S the same
+    way for 16 rows and for K, so there it gives the same bits (fp32 E's
+    split is a function of S alone; bf16 E takes fewer splits once its row
+    groups fill a wave); bf16 C takes A's tensor-core forward for many rows
+    and its split kernel for 16, so there both are held to the plain
+    version."""
     if int8:
         args = quant_cross_inputs(2, 3, K, Dh, S, dtype, seed=S)
         kern, plain, counter = D.cross_decode_attention_i8, D.cross_reference_i8, \
@@ -484,13 +489,34 @@ def test_cross_decode_many_rows(card, dtype, int8, K, Dh, S):
     _close(got, plain(*args), dtype)
     head = kern(args[0][:, :, :16].contiguous(), *args[1:])
     torch.cuda.synchronize()
-    if int8 or dtype == torch.float32:
+    if dtype == torch.float32 or (int8 and _e_splits(dtype, 2, 3, K, S, Dh)
+                                  == _e_splits(dtype, 2, 3, 16, S, Dh)):
         assert torch.equal(got[:, :, :16], head)
     else:
         _close(head, plain(args[0][:, :, :16].contiguous(), *args[1:]), dtype)
     again = kern(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
+
+
+def _e_splits(dtype, B, H, K, S, Dh):
+    return _build.library().mm_cross_decode_i8_splits(_build.dtype_code(dtype), B, H, K, S, Dh)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K,Dh,S", [(501, 64, 250), (40, 128, 70), (17, 16, 13)])
+def test_cross_decode_i8_many_rows_one_wave(card, dtype, K, Dh, S):
+    """Kernel E where B.H alone fills a wave, so that 16 rows and K rows
+    take the same split count in both dtypes: the first 16 of K rows give
+    a 16-row call's bits, and both match the plain version."""
+    B, H = 24, 6
+    assert _e_splits(dtype, B, H, K, S, Dh) == _e_splits(dtype, B, H, 16, S, Dh)
+    args = quant_cross_inputs(B, H, K, Dh, S, dtype, seed=K)
+    got = D.cross_decode_attention_i8(*args)
+    head = D.cross_decode_attention_i8(args[0][:, :, :16].contiguous(), *args[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :, :16], head)
+    _close(got, D.cross_reference_i8(*args), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -525,3 +551,143 @@ def test_unsupported_quant_inputs_raise(card):
     with pytest.raises(ValueError, match="multiple"):
         D.ancestry_decode_attention_i8(q[:, :, :2], k_new[:, :, :2], v_new[:, :, :2], kv, sk, sv,
                                        flat_rep[:, :2], 0)
+
+
+def _unpacked(kv):
+    """A nibble-packed int4 cache's values as an int8 cache (layer by layer)."""
+    out = torch.empty((*kv.shape[:3], 2 * kv.shape[3], kv.shape[4]), dtype=torch.int8,
+                      device=kv.device)
+    for layer in range(kv.shape[1]):
+        out[:, layer] = D.i4_unpack(kv[:, layer])
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", ["flagship", "bench", "small"])
+def test_i4_equals_i8_on_the_unpacked_cache(card, dtype, shape):
+    """Kernel F runs D's passes with the nibble gather: on the card its
+    output equals D's on i4_unpack of the same cache bit for bit (flagship:
+    split over blocks; bench: T = 201 odd, so P is not a multiple of K; a
+    small cache with K = 5 and Dh = 16), and its designs v1-v3 (Dh = 64)
+    give the same bits."""
+    s = dict(B=3, H=2, Dh=16, K=5, L=2, T_dec=36, step=30) if shape == "small" else \
+        (FLAGSHIP if shape == "flagship" else BENCH)
+    q, k_new, v_new, kv, sk, sv, flat_rep = quant_ancestry_inputs(
+        s["B"], s["H"], s["K"], s["Dh"], s["L"], s["T_dec"], s["step"], dtype, int4=True, seed=7)
+    layer = s["L"] // 2
+    got = D.ancestry_decode_attention_i4(q, k_new, v_new, kv, sk, sv, flat_rep, layer)
+    want = D.ancestry_decode_attention_i8(q, k_new, v_new, _unpacked(kv), sk, sv, flat_rep, layer)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+    if s["Dh"] == 64:
+        for v in (1, 2, 3):
+            other = D._launch_i4(q, k_new, v_new, kv, sk, sv, flat_rep, layer, variant=v)
+            torch.cuda.synchronize()
+            assert torch.equal(got, other), (v, (got.float() - other.float()).abs().max().item())
+    _close(got, D.reference_i4(q, k_new, v_new, kv, sk, sv, flat_rep, layer), dtype,
+           TOL_REQUANT[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_i4_beam16_at_the_position_clamp(card, dtype):
+    """F at beam 16 over 3000 positions (T.K = 48000 columns, past what
+    one block's shared memory holds as scores) against the plain version."""
+    q, k_new, v_new, kv, sk, sv, flat_rep = quant_ancestry_inputs(1, 2, 16, 64, 1, 3000, 2999,
+                                                                  dtype, int4=True, seed=16)
+    got = D.ancestry_decode_attention_i4(q, k_new, v_new, kv, sk, sv, flat_rep, 0)
+    _close(got, D.reference_i4(q, k_new, v_new, kv, sk, sv, flat_rep, 0), dtype,
+           TOL_REQUANT[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cross_decode_i8_long_slab(card, dtype):
+    """E over S = 4000 encoder positions (fp32: split over blocks, where
+    one block's scores would not fit) against the plain version."""
+    args = quant_cross_inputs(2, 2, 10, 64, 4000, dtype, seed=40)
+    _close(D.cross_decode_attention_i8(*args), D.cross_reference_i8(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("K", [1, 5, 10, 16, 40, 501])
+def test_cross_decode_i8_rows(card, dtype, K):
+    """E at a decode step's row counts and at the prefill's (groups of 16
+    rows), B = 8 (split over blocks) at S = 250, against the plain version;
+    two launches give the same bits."""
+    args = quant_cross_inputs(8, 2, K, 64, 250, dtype, seed=K)
+    got = D.cross_decode_attention_i8(*args)
+    again = D.cross_decode_attention_i8(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, D.cross_reference_i8(*args), dtype)
+
+
+@pytest.mark.parametrize("B", [8, 128])
+def test_cross_decode_i8_variants_give_the_same_bits(card, B):
+    """E's v1 (two batch rows per block, in turn) gives v0's bits."""
+    args = quant_cross_inputs(B, 8, 10, 64, 250, torch.bfloat16, seed=B)
+    got = D._launch_cross_i8(*args)
+    other = D._launch_cross_i8(*args, variant=1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, other)
+
+
+def test_cross_decode_i8_takes_the_decoder_views(card):
+    """Kernel E reads q as the decoder hands it and returns a view the
+    decoder flattens without a copy."""
+    q, kv, sk, sv, bias = quant_cross_inputs(2, 4, 10, 64, 120, torch.bfloat16, seed=3)
+    view = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not view.is_contiguous()
+    got = D.cross_decode_attention_i8(view, kv, sk, sv, bias)
+    assert got.transpose(1, 2).is_contiguous()
+    _close(got, D.cross_reference_i8(q, kv, sk, sv, bias), torch.bfloat16)
+
+
+@pytest.mark.parametrize("cache,step", [("bfloat16", 10), ("float32", 7), ("int8", 25),
+                                        ("int4", 3), ("int4", 20)])
+def test_cache_write_kernel_bit_exact(card, cache, step):
+    """The cache-write kernel writes the decoder's plain write's bytes (and
+    scales), at a step index in the low and the high half of an int4
+    cache, from the decoder's permuted row views."""
+    B, K, cap, L, H, Dh = 4, 5, 32, 3, 2, 32
+    TS = cap * K  # int4: P = 80 packed rows, steps 3 and 20 on either side
+    g = torch.Generator(device="cuda").manual_seed(step)
+    dt = torch.float32 if cache == "float32" else torch.bfloat16
+    rows = torch.randn((B, K, L, H, 2 * Dh), generator=g, device="cuda").to(dt)
+    k_rows, v_rows = (rows[..., i * Dh:(i + 1) * Dh].permute(0, 2, 3, 1, 4) for i in range(2))
+    quant = cache in ("int8", "int4")
+    if quant:
+        kv = torch.randint(-128, 128, (B, L, H, TS // 2 if cache == "int4" else TS, 2 * Dh),
+                           generator=g, device="cuda", dtype=torch.int8)
+        sk, sv = (torch.rand((B, L, H, TS), generator=g, device="cuda") for _ in range(2))
+    else:
+        kv = torch.randn((B, L, H, TS, 2 * Dh), generator=g, device="cuda").to(dt)
+        sk = sv = None
+    mine = [t.clone() if t is not None else None for t in (kv, sk, sv)]
+    before = D.cache_write.launches
+    D.cache_write(mine[0], k_rows, v_rows, step * K, mine[1], mine[2])
+    assert D.cache_write.launches == before + 1
+    D.write_step(kv, k_rows, v_rows, step * K, sk, sv)
+    torch.cuda.synchronize()
+    for x, y in zip(mine, (kv, sk, sv)):
+        if x is not None:
+            assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_dense_probe(card, packed):
+    """The dense probe kernel over an int8 slab and over the same values
+    nibble-packed: against its plain version, and the same bits both ways.
+    Its outputs are convex mixes of values up to 7, where one bf16 ulp is
+    2^-5: the tolerance is bf16's 2e-2 times the largest |output| (as for
+    A with dropout)."""
+    B, H, K, S = 4, 8, 10, 2010
+    g = torch.Generator(device="cuda").manual_seed(S)
+    q = (torch.randn((B, H, K, 64), generator=g, device="cuda") * 0.3).to(torch.bfloat16)
+    vals = torch.randint(-7, 8, (B, H, S, 128), generator=g, device="cuda", dtype=torch.int8)
+    kv = D.i4_pack(vals, S // 2) if packed else vals
+    got = D.dense_attention(q, kv, packed)
+    want = D.dense_reference(q, kv, packed)
+    _close(got, want, torch.bfloat16, TOL[torch.bfloat16] * max(1.0, want.float().abs().max().item()))
+    other = D.dense_attention(q, vals if packed else D.i4_pack(vals, S // 2), not packed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, other)
