@@ -75,8 +75,32 @@ is no CPU path):
     a synthetic corpus (8 wavs, image features, a small bf16 config) on
     the default device for 6 steps, ``--resume`` to 8, then
     ``mm_s2ut_torch.inference`` decodes a wav from that ``save_dir``.
+13. continuous-batching serving at full width, at
+    ``benchmarks/bench_serving.py``'s point: the flagship bf16 with random
+    weights (no image sources), ``ContinuousServer`` with 64 slots, beam
+    10, a 256-step ring, 16-step chunks, 1024 encoder frames, the int8
+    cache, admission waves of 8, budgets 0.2 x the source frames; requests
+    of 205-1024 random fbank frames from ``np.random.RandomState(2)``; a
+    warm call of 64 requests, then a timed call of 256 (every request
+    answered once, each unit list within its budget, finite scores) with
+    the launches of A, D and E counted over it: utt/s, decode steps, waves,
+    chunks and the host phases; then one chunk of a third call traced by
+    ``torch.profiler`` (the device's busy share, D's and E's shares);
+14. the server on the small fp32 config of phase 3 (TF32 off), on the card
+    and on the CPU, over a 32-step ring that wraps, with the bf16, int8 and
+    int4 caches: tokens equal; on the card, tokens and scores (atol 1e-4)
+    equal to the port's offline search (``UnitGenerator``) per utterance,
+    and the kernels of each cache launched;
+15. the flagship config branches: a small fp32 model with every decodable
+    branch set (gelu, post-norm, an untied output, a speaker projection,
+    no fusion gate, no image pre-norm) through ``UnitGenerator`` on the
+    card and the CPU (tokens equal), and one ``n_frames_per_step = 2``
+    train step card against CPU (losses within a relative 1e-4, A and H
+    launched).
 
-Phase 2 also holds, at the train bench's encoder shapes (B=8, T=250 and
+Phase 2 also holds fp32 C over S = 4000 encoder positions (16 rows,
+where the slab is split over S and merged, and 10 beams, where it is
+not) against its plain version. It also holds, at the train bench's encoder shapes (B=8, T=250 and
 B=2, T=1000, H=8, D=64, ragged key padding), A and G with attention
 dropout 0.1 against their twins, and H (dq, dk, dv, dbias) against its
 twin, non-causal and causal/window 64, dropout 0 and 0.1, each timed
@@ -501,6 +525,29 @@ def check_and_time(label, dtype, kern, plain, tol, library=None, scaled=False):
           f"(tol {tol:g}{' x scale' if scaled else ''}), kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms{lib}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms}
+
+
+def phase_long_cross():
+    """fp32 C over S = 4000 encoder positions (≈ 160 s of speech), B=2, H=8:
+    16 rows, whose scores would pass a block's shared memory, and 10 beams;
+    B·H = 16 is under a wave, so both split the slab over S (16 spans of
+    250 keys) and merge in split order; each against the plain version
+    and beside SDPA."""
+    from mm_s2ut_torch.ops import _build
+    from mm_s2ut_torch.ops import decode_attention as D
+
+    for K in (16, 10):
+        args = cross_inputs(2, 8, K, 64, 4000, torch.float32, seed=4000 + K)
+        n_split = _build.library().mm_cross_decode_splits(_build.F32, 2, 8, K, 4000, 64)
+        mask = args[2][:, None, None, :]
+        k, v = args[1][..., :64], args[1][..., 64:]
+        check_and_time(f"C fp32 S=4000 K={K} ({n_split} splits)", torch.float32,
+                       lambda: D.cross_decode_attention(*args), lambda: D.cross_reference(*args),
+                       TOL[torch.float32],
+                       lambda: torch.nn.functional.scaled_dot_product_attention(
+                           args[0], k, v, attn_mask=mask, scale=1.0))
+        assert n_split == 16, f"K={K}: {n_split} splits"
+        del args, mask, k, v
 
 
 STREAM_ENCODE = [(1, 250), (8, 250), (1, 1000)]  # (B, T after subsampling): 10 s, 8 x 10 s, 40 s
@@ -1354,6 +1401,388 @@ def phase_train_entry(out_dir: Path):
           f"params.npz, optim.pt, logs/metrics.csv; inference decoded {len(units)} units")
 
 
+SERVE = dict(slots=64, beam_size=10, ring=256, chunk=16, enc_frames=1024, kv_cache_dtype="int8",
+             admit_width=8, max_len_a=0.2, max_len_b=0)  # bench_serving.py's point
+
+
+def serve_requests(n, seed, enc_frames):
+    """``benchmarks/bench_serving.py``'s ``make_requests``: n requests of
+    enc_frames/5 .. enc_frames random fbank frames."""
+    import numpy as np
+
+    from mm_s2ut_torch.infer.serving import Request
+
+    r = np.random.RandomState(seed)
+    reqs = []
+    for i in range(n):
+        src = int(r.randint(enc_frames // 5, enc_frames + 1))
+        reqs.append(Request(uid=i, features=r.randn(src, 80).astype(np.float32), length=src))
+    return reqs
+
+
+def check_served(results, reqs, srv):
+    """Every request answered exactly once, each unit list within its
+    budget (EOS stripped: at most budget − 1 units), finite scores."""
+    import math
+
+    import numpy as np
+
+    assert sorted(r.uid for r in results) == sorted(q.uid for q in reqs), "a request lost or doubled"
+    budget = {q.uid: int(srv._budgets(np.asarray([min(q.length, srv.enc_frames)]))[0])
+              for q in reqs}
+    for r in results:
+        assert len(r.tokens) <= budget[r.uid] - 1, f"uid {r.uid}: {len(r.tokens)} units, budget {budget[r.uid]}"
+        assert all(0 <= t < srv.V and t != srv.eos for t in r.tokens)
+        assert math.isfinite(r.score), f"uid {r.uid}: score {r.score}"
+
+
+def serve_checking_a_wrapped_step(srv, reqs):
+    """``srv.run(reqs)``, with the first decode step of the first chunk in
+    which a slot's live window has wrapped (ring_base + local_step > ring:
+    its oldest live ring step lies physically after its newest) checked:
+    each layer's kernel D and E call there is held against its plain
+    version on the same inputs (the live cache, its scales and the
+    ``flat_rep`` that ``UnitDecoder.serve_step`` built; the admitted int8
+    cross slabs), D to TOL_REQUANT and E to TOL, bf16, times max(1, the
+    largest |plain|). Returns (results, what was checked)."""
+    import mm_s2ut_torch.models.decoder as decoder_mod
+    import mm_s2ut_torch.models.layers as layers_mod
+    from mm_s2ut_torch.ops import decode_attention as D
+
+    T, S, L = srv.ring, srv.K, srv.model.decoder.num_layers
+    seen = {"armed": False, "D": [], "E": [], "slots": []}
+    d_kernel, e_kernel = decoder_mod.ancestry_decode_attention_i8, layers_mod.cross_decode_attention_i8
+
+    def held(name, got, want, tol):
+        assert torch.isfinite(got).all(), f"kernel {name} on the wrapped ring: non-finite output"
+        err = (got.float() - want.float()).abs().max().item()
+        lim = tol * max(1.0, want.float().abs().max().item())
+        assert err <= lim, f"kernel {name} on the wrapped ring: max|err| {err} > {lim}"
+        seen[name].append((err, lim))
+
+    def d_checked(q, k_new, v_new, kv, sk, sv, flat_rep, layer):
+        out = d_kernel(q, k_new, v_new, kv, sk, sv, flat_rep, layer)
+        if seen["armed"] and len(seen["D"]) < L:
+            assert flat_rep.shape[-1] == T * S
+            for b in seen["slots"]:  # live columns at both physical ends of the ring
+                assert (flat_rep[b, :, :S] >= 0).any() and (flat_rep[b, :, -S:] >= 0).any()
+            held("D", out, D.reference_i8(q, k_new, v_new, kv, sk, sv, flat_rep, layer),
+                 TOL_REQUANT[torch.bfloat16])
+        return out
+
+    def e_checked(q, kv, sk, sv, bias):
+        out = e_kernel(q, kv, sk, sv, bias)
+        if seen["armed"] and len(seen["E"]) < L:
+            held("E", out, D.cross_reference_i8(q, kv, sk, sv, bias), TOL[torch.bfloat16])
+        return out
+
+    inner = srv._decode_chunk
+
+    def chunk(state):
+        if not seen["D"]:
+            wrapped = state["active"] & (state["ring_base"] + state["local_step"] > T)
+            seen["slots"] = wrapped.nonzero().flatten().tolist()
+            seen["armed"] = bool(seen["slots"])
+            if seen["armed"]:
+                b = seen["slots"][0]
+                seen["at"] = {"g": state["g"], "slot": b, "ring_base": int(state["ring_base"][b]),
+                              "local_step": int(state["local_step"][b]),
+                              "wrapped_slots": len(seen["slots"])}
+        try:
+            return inner(state)
+        finally:
+            seen["armed"] = False
+
+    srv._decode_chunk = chunk
+    decoder_mod.ancestry_decode_attention_i8 = d_checked
+    layers_mod.cross_decode_attention_i8 = e_checked
+    try:
+        results = srv.run(reqs)
+    finally:
+        del srv._decode_chunk
+        decoder_mod.ancestry_decode_attention_i8 = d_kernel
+        layers_mod.cross_decode_attention_i8 = e_kernel
+    assert len(seen["D"]) == len(seen["E"]) == L, f"no wrapped step was checked: {seen}"
+    worst = {k: max(seen[k], key=lambda e: e[0] / e[1]) for k in "DE"}
+    return results, {"D_err": worst["D"], "E_err": worst["E"], **seen["at"]}
+
+
+def phase_serving(smi: str):
+    """Phase 13: ``ContinuousServer`` at bench_serving.py's point, full width."""
+    from mm_s2ut_torch.infer.serving import ContinuousServer
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.ops import decode_attention as D
+    from mm_s2ut_torch.tools.host_cost import profile_serving_chunk
+
+    model, _, _ = flagship()
+    srv = ContinuousServer(model, **SERVE)
+    assert srv.device.type == "cuda"
+    reqs = serve_requests(256, 2, SERVE["enc_frames"])
+    warm, warm_s = timed(lambda: srv.run(reqs[:64]))
+    check_served(warm, reqs[:64], srv)
+    counters = {"A": A.flash_attention, "D": D.ancestry_decode_attention_i8,
+                "E": D.cross_decode_attention_i8, "B": D.ancestry_decode_attention,
+                "C": D.cross_decode_attention}
+    torch.cuda.synchronize()
+    results, total, launches = counted(counters, lambda: srv.run(reqs))
+    check_served(results, reqs, srv)
+    assert all(launches[k] > 0 for k in "ADE"), f"a kernel of the path never launched: {launches}"
+    assert launches["B"] == launches["C"] == 0, f"a bf16 kernel ran on the int8 path: {launches}"
+    stats = dict(srv.stats)
+    lengths = [len(r.tokens) for r in results]
+    print(f"phase 13: serving, flagship bf16, {smi}: {len(reqs)} requests of "
+          f"{min(q.length for q in reqs)}-{max(q.length for q in reqs)} frames, slots 64, beam 10, "
+          f"ring 256, chunk 16, int8, admit 8: {len(results) / total:.3f} utt/s ({total:.3f} s; "
+          f"warm call of 64: {warm_s:.3f} s); decode steps {stats['steps']}, waves "
+          f"{stats['waves']}, chunks {stats['chunks']}; host phases s "
+          f"{json.dumps({k: round(stats[k], 4) for k in ('stage_s', 'admit_s', 'decode_s', 'drain_s')})}; "
+          f"units min {min(lengths)} mean {sum(lengths) / len(lengths):.1f} max {max(lengths)}; "
+          f"launches {launches}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    checked, at = serve_checking_a_wrapped_step(srv, reqs)
+    check_served(checked, reqs, srv)
+    print(f"phase 13: first step with a wrapped window (g {at['g']}, {at['wrapped_slots']} "
+          f"slots wrapped; slot {at['slot']}: ring_base {at['ring_base']}, local_step "
+          f"{at['local_step']}), T·S {SERVE['ring'] * SERVE['beam_size']}, every layer against "
+          f"the plain versions, the layer nearest its limit: D max|err| {at['D_err'][0]:.3e} "
+          f"(limit {TOL_REQUANT[torch.bfloat16]:g} x scale = {at['D_err'][1]:.3e}), E max|err| "
+          f"{at['E_err'][0]:.3e} (limit {TOL[torch.bfloat16]:g} x scale = {at['E_err'][1]:.3e})")
+    prof = profile_serving_chunk(srv, reqs[:64], 10)
+    print(f"phase 13: profiled chunk 10 of 64 requests: {json.dumps(prof)}")
+    assert prof["D_ms"] > 0 and prof["E_ms"] > 0, f"the profile names no D or E kernel: {prof}"
+    del model, srv
+    torch.cuda.empty_cache()
+    return launches
+
+
+SMALL_SERVE = dict(slots=2, beam_size=5, ring=24, chunk=4, enc_frames=256, max_len_a=0.0,
+                   max_len_b=20, img_shapes=((50, 768),))
+# Phase 14's models (``serving_model``): c of the EOS row, and the caches.
+SERVE_MODELS = {
+    "running to the budget": (None, ("bfloat16", "int8", "int4")),
+    "ending on EOS": (3.0, ("bfloat16", "int8")),
+    "done early": (7.5, ("bfloat16", "int8")),
+}
+
+
+def serving_model(c):
+    """Phase 3's random small model, eval mode, its final norm's gain x8
+    (sharper logits, so argmaxes are not near-ties): its hypotheses run to
+    the budget. With ``c``, EOS's logit rises over the decode steps.
+    Dimension 38 of the sinusoidal positions is cos(0.168 (t + 2)): the EOS
+    row (tied to the output, and BOS's input) gets c there and the final
+    norm's gain there is negated, so at step 0 (BOS's c dominating the
+    normed state) EOS is pushed down, and later it rises as the cosine
+    falls through 0 near step 7. At c = 3 the best hypotheses end on EOS at
+    14-15 units or run to the budget; at c = 7.5 every slot's beams finish
+    by step ~12 and the search's improvability rule ends them before their
+    budget."""
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+
+    model = init_random_(MMS2UTModel(small_config()), torch.Generator().manual_seed(14)).eval()
+    with torch.no_grad():
+        model.decoder.final_norm.weight.mul_(8.0)
+        if c is not None:
+            model.decoder.final_norm.weight[38].neg_()
+            model.decoder.embed.embed_tokens.weight[2, 38] = c
+    return model
+
+
+def small_serving_requests():
+    """Six requests of 100-256 frames with one 50-token image source, two
+    of them with a padded image tail."""
+    import numpy as np
+
+    from mm_s2ut_torch.infer.serving import Request
+
+    rng = np.random.RandomState(14)
+    img_t = SMALL_SERVE["img_shapes"][0][0]
+    reqs = []
+    for i in range(6):
+        n = int(rng.randint(100, SMALL_SERVE["enc_frames"] + 1))
+        mask = np.zeros(img_t, bool)
+        mask[img_t - 7 * (i % 2):] = True
+        reqs.append(Request(i, rng.randn(n, 80).astype(np.float32), n,
+                            imgs=(rng.randn(img_t, 768).astype(np.float32),), img_masks=(mask,)))
+    return reqs
+
+
+def phase_small_serving():
+    """Phase 14: the server on phase 3's small fp32 config, card and CPU,
+    over a ring that wraps, for each model of SERVE_MODELS and its caches:
+    the same tokens and the same schedule (decode steps) on both, and on
+    the card the offline search's tokens and scores (atol 1e-4). The first
+    model's hypotheses run to the budget; the second's end on EOS before
+    it; with the third the improvability rule frees slots early, which are
+    refilled. The EOS-rising models leave out the int4 cache: there a
+    4-bit requantization level of the softmax weights flips with the
+    rounding of a two-slot batch against the one-utterance offline search
+    (the CPU server's score of one request of "ending on EOS" is 1.25e-4
+    from the offline one's; 0 with one slot), which the 1e-4 bound does
+    not allow for."""
+    import copy
+    import math
+
+    import numpy as np
+
+    from mm_s2ut_torch.config import GenerationConfig
+    from mm_s2ut_torch.infer.generator import UnitGenerator
+    from mm_s2ut_torch.infer.serving import ContinuousServer
+    from mm_s2ut_torch.ops import decode_attention as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reqs = small_serving_requests()
+    kw, ml = SMALL_SERVE, SMALL_SERVE["max_len_b"]
+    frames = kw["enc_frames"]
+    per_slot = math.ceil(len(reqs) / kw["slots"])
+    # Decode steps when every request runs to its budget: ml + 1 steps
+    # each, rounded up to whole chunks.
+    full = per_slot * kw["chunk"] * math.ceil((ml + 1) / kw["chunk"])
+    kernels = {"bfloat16": ("B", "C"), "int8": ("D", "E"), "int4": ("F", "E")}
+    counters = {"B": D.ancestry_decode_attention, "C": D.cross_decode_attention,
+                "D": D.ancestry_decode_attention_i8, "E": D.cross_decode_attention_i8,
+                "F": D.ancestry_decode_attention_i4}
+    for label, (c, caches) in SERVE_MODELS.items():
+        cpu_model = serving_model(c)
+        gpu_model = copy.deepcopy(cpu_model).to("cuda")
+        for kv in caches:
+            need = kernels[kv]
+            runs, steps = {}, {}
+            for dev, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+                srv = ContinuousServer(model, kv_cache_dtype=kv, **kw)
+                results, _, counts = counted(counters, lambda: srv.run(reqs))
+                runs[dev] = {r.uid: r for r in results}
+                steps[dev] = srv.stats["steps"]
+            assert all(counts[k] > 0 for k in need), f"{kv}: a kernel of the path never launched: {counts}"
+            assert steps["cuda"] == steps["cpu"], f"{label}, {kv}: schedules differ: {steps}"
+            assert steps["cuda"] > kw["ring"], f"{label}, {kv}: the ring never wrapped"
+            gen = UnitGenerator(gpu_model, GenerationConfig(beam=kw["beam_size"], max_len_a=0.0,
+                                                            max_len_b=ml, kv_cache_dtype=kv))
+            worst = 0.0
+            for q in reqs:
+                card, cpu = runs["cuda"][q.uid], runs["cpu"][q.uid]
+                assert card.tokens == cpu.tokens, f"{label}, {kv}, uid {q.uid}: card and CPU tokens differ"
+                feats = np.zeros((1, frames, 80), np.float32)
+                feats[0, : q.length] = q.features
+                off = gen.generate(feats, np.asarray([q.length]), [q.imgs[0][None]],
+                                   [q.img_masks[0][None]])[0][0]
+                assert card.tokens == off["tokens"], f"{label}, {kv}, uid {q.uid}: server and offline differ"
+                worst = max(worst, abs(card.score - off["score"]))
+            assert worst <= 1e-4, f"{label}, {kv}: server and offline scores differ by {worst}"
+            lengths = [len(runs["cuda"][q.uid].tokens) for q in reqs]
+            if c is not None:
+                assert min(lengths) < ml - 1, f"{label}, {kv}: every hypothesis ran to its budget"
+            if label == "done early":
+                assert steps["cuda"] < full, f"{kv}: no slot finished before its budget ({full} steps)"
+            print(f"phase 14: small fp32 config, {label}, {kv} cache, server over a "
+                  f"{kw['ring']}-step ring: {steps['cuda']} steps on card and CPU ({full} if "
+                  f"every request ran to its budget), {srv.stats['waves']} waves; card tokens "
+                  f"equal the CPU's and the offline search's, scores max|diff| {worst:.2e} "
+                  f"(tol 1e-4); unit lengths {lengths}; launches {counts}")
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for the runs below
+
+
+def phase_config_branches(out_dir: Path):
+    """Phase 15: every decodable config branch through UnitGenerator, and an
+    n_frames_per_step = 2 train step, card against CPU."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from mm_s2ut_torch.config import Config, GenerationConfig, TrainConfig
+    from mm_s2ut_torch.infer.generator import UnitGenerator
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = small_config()
+    cfg = dataclasses.replace(
+        base, activation_fn="gelu", encoder_normalize_before=False,
+        decoder_normalize_before=False, share_decoder_input_output_embed=False,
+        speaker_embed_dim=16, multimodal=dataclasses.replace(
+            base.multimodal, use_selective_gate=False, image_pre_norm=False))
+    cpu_model = init_random_(MMS2UTModel(cfg), torch.Generator().manual_seed(15)).eval()
+    with torch.no_grad():  # sharper logits, so argmaxes are not near-ties
+        cpu_model.decoder.output_proj.weight.mul_(8.0)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    wav_gen = torch.Generator().manual_seed(15)
+    feats = torch.randn(2, 300, 80, generator=wav_gen)
+    flens = torch.tensor([300, 217])
+    imgs = torch.randn(2, 50, 768, generator=wav_gen)
+    masks = torch.zeros(2, 50, dtype=torch.bool)
+    gcfg = GenerationConfig(beam=5, max_len_a=0.0, max_len_b=30)
+    hyps = {dev: UnitGenerator(m, gcfg).generate(feats.to(dev), flens.to(dev), [imgs.to(dev)],
+                                                  [masks.to(dev)])
+            for dev, m in (("cpu", cpu_model), ("cuda", gpu_model))}
+    for b in range(2):
+        assert hyps["cuda"][b][0]["tokens"] == hyps["cpu"][b][0]["tokens"], f"utt {b}: tokens differ"
+    print(f"phase 15: gelu, post-norm, untied output, speaker projection, no gate, no image "
+          f"pre-norm: card tokens equal the CPU's (lengths "
+          f"{[len(h[0]['tokens']) for h in hyps['cuda']]}, scores "
+          f"{[round(h[0]['score'], 4) for h in hyps['cuda']]} vs "
+          f"{[round(h[0]['score'], 4) for h in hyps['cpu']]})")
+
+    mcfg = dataclasses.replace(
+        base, n_frames_per_step=2, dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+        multimodal=dataclasses.replace(base.multimodal, SA_image_dropout=0.0,
+                                       SA_attention_dropout=0.0, modality_dropout=0.0))
+    tcfg = Config(model=mcfg, train=TrainConfig(lr=1e-3, warmup_updates=2,
+                                                save_dir=str(out_dir / "train_n_frames")))
+    model = init_random_(MMS2UTModel(mcfg), torch.Generator().manual_seed(16))
+    batch = train_batch(2, 400, 12, img_tokens=50, seed=16)
+    rng = np.random.RandomState(16)
+    batch["prev_output_tokens"] = rng.randint(4, 1000 ** 2 + 4, (2, 12)).astype(np.int32)
+    batch["target"] = rng.randint(4, 1004, (2, 2 * 11 + 1)).astype(np.int32)  # unpacked units
+    metrics, trainers = {}, {}
+    for dev in ("cpu", "cuda"):
+        trainers[dev] = trainer = Trainer(tcfg, copy.deepcopy(model), dev)
+        metrics[dev], _, counts = counted({"A": A.flash_attention, "H": A.flash_attention_bwd},
+                                          lambda: trainer.train_batch(batch))
+    assert counts == {"A": mcfg.encoder_layers, "H": mcfg.encoder_layers}, counts
+    rel = {k: abs(metrics["cuda"][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
+           for k in ("loss", "grad_norm")}
+    # Gradients as phase 10 holds them: within 1e-4 of each tensor's
+    # largest |g| (floored at 1e-4). The first Adam update is
+    # rate * g / (|g| + eps), about rate * sign(g). Outside the band
+    # |g| <= 1e-4 (and 1e-4 of the tensor's largest), no sign can flip
+    # and |g| >= 1e4 * eps, so a gradient error of 1e-4 of the largest moves
+    # an update by at most rate * eps * 1e-4 * largest / |g|^2 (5e-8 at a
+    # largest of 1) and the updated parameters agree to 1e-6; inside the
+    # band an element can move by up to 2 * rate.
+    rate = trainers["cpu"].optimizer.schedule(0)
+    g_worst = p_worst = band_worst = 0.0
+    n_band = 0
+    for p_cpu, p_card in zip(trainers["cpu"].params, trainers["cuda"].params):
+        if p_cpu.grad is None:  # a parameter the step does not reach
+            assert p_card.grad is None and torch.equal(p_card.detach().cpu(), p_cpu.detach())
+            continue
+        want, got = p_cpu.grad, p_card.grad.cpu()
+        scale = max(want.abs().max().item(), 1e-4)
+        g_worst = max(g_worst, ((got - want).abs().max() / scale).item())
+        band = want.abs() <= max(1e-4 * scale, 1e-4)
+        diff = (p_card.detach().cpu() - p_cpu.detach()).abs()
+        p_worst = max(p_worst, diff[~band].max().item() if (~band).any() else 0.0)
+        band_worst = max(band_worst, diff[band].max().item() if band.any() else 0.0)
+        n_band += int(band.sum())
+    print(f"phase 15: n_frames_per_step 2, one train step card vs CPU: loss (summed over "
+          f"targets) card {metrics['cuda']['loss']:.6f} CPU {metrics['cpu']['loss']:.6f} "
+          f"(relative diff {rel['loss']:.2e}, tol 1e-4), grad norm card "
+          f"{metrics['cuda']['grad_norm']:.6f} CPU {metrics['cpu']['grad_norm']:.6f} (relative "
+          f"diff {rel['grad_norm']:.2e}, tol 1e-4), gradients max relative diff {g_worst:.2e} "
+          f"(tol 1e-4); updated parameters max|diff| {p_worst:.2e} (tol 1e-6), {n_band} elements "
+          f"with |g| in the gradients' band max|diff| {band_worst:.2e} (tol 2 x rate "
+          f"{2 * rate:.1e}); launches {counts}")
+    assert rel["loss"] <= 1e-4, "card and CPU losses differ"
+    assert rel["grad_norm"] <= 1e-4, "card and CPU gradient norms differ"
+    assert g_worst <= 1e-4, f"card and CPU gradients differ: relative {g_worst}"
+    assert p_worst <= 1e-6, f"card and CPU updated parameters differ by {p_worst}"
+    assert band_worst <= 2 * rate + 1e-6, f"an update in the band moved by {band_worst}"
+    torch.backends.cudnn.allow_tf32 = True
+
+
 KERNELS = {  # name, source (of the bf16 instance the record times), the TPU kernel it replaces
     "A": ("flash_attention", "mm_s2ut_torch/csrc/flash_attention_mma.cu",
           "mm_s2ut/ops/attention.py:140"),
@@ -1389,8 +1818,9 @@ def main(argv=None) -> int:
         return 1
 
     t0 = time.perf_counter()
-    phase_build()
+    smi = phase_build()
     record = phase_kernels()
+    phase_long_cross()
     record.update(phase_causal_kernels())
     record.update(phase_train_kernels())
     phase_small_parity()
@@ -1407,6 +1837,9 @@ def main(argv=None) -> int:
     phase_train_parity(Path(args.out))
     launches["H"] = phase_train_bench()
     phase_train_entry(Path(args.out))
+    phase_serving(smi)
+    phase_small_serving()
+    phase_config_branches(Path(args.out))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -78,9 +78,12 @@
 // halves as strided (B, S, H, Dh) views: 4 warps x 16 query rows per
 // block over every key tile, so the slab is read once per 64 rows. In
 // fp32 (the tensor cores' TF32 would miss the 1e-4 tolerance) C keeps its
-// SIMT kernel: grid (B.H, ceil(K/16)), a block's <= 16 rows of scores in
-// shared memory for a two-pass softmax, each thread reading its K row in
-// 16-byte chunks, then one output dim per thread over the V half.
+// SIMT kernel: grid (B.H, n_split, ceil(K/16)), a block's <= 16 rows of
+// its span's scores in shared memory for a two-pass softmax, each thread
+// reading its K row in 16-byte chunks, then one output dim per thread over
+// the V half. S is split where the scores would not fit in a block's
+// shared memory, and while B.H is under a wave (spans of >= 256 keys),
+// then merged in split order by C's merge kernel.
 // q and the output go through strides: the decoder hands a beam-major
 // (B, K, H, Dh) query viewed as (B, H, K, Dh), and the result is a view
 // of a beam-major buffer, so neither is copied.
@@ -710,6 +713,7 @@ cudaError_t dispatch_ancestry(int DH, const AncestryArgs& a, int B, cudaStream_t
 constexpr int kCrossThreads = 256;  // fp32 SIMT kernel
 constexpr int kCThreads = 128;      // bf16 split pass and merge: 4 warps
 constexpr int kCMaxSplits = 16;
+constexpr int kCF32MinKeys = 256;  // fewest keys per fp32 split when splitting to fill a wave
 
 struct CrossArgs {
   const void* q;       // (B, H, K, Dh) through strides, pre-scaled
@@ -917,13 +921,14 @@ __global__ void __launch_bounds__(kCThreads) cross_decode_split_kernel_mma(const
   }
 }
 
-// bf16 merge: one block per (b, h) folds the splits' (m, l, O) in split
-// order; a split that saw no column (max -inf) weighs 0.
-template <int D>
+// Merge (n_split > 1): one block per (b, h) folds the splits' (m, l, O) in
+// split order; a split that saw no column (max -inf) weighs 0. bf16 takes
+// the split pass's exp_e, fp32 the SIMT pass's expf.
+template <typename T, int D>
 __global__ void __launch_bounds__(kCThreads) cross_decode_merge_kernel(const CrossArgs a) {
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, K = a.K, S = a.n_split;
   const int64_t part0 = (int64_t)bh * S;
-  bf16* out = static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh;
+  T* out = static_cast<T*>(a.out) + b * a.o_sb + h * a.o_sh;
   for (int e = threadIdx.x; e < K * D; e += kCThreads) {
     const int k = e / D, d = e % D;
     float M = -INFINITY;
@@ -932,29 +937,33 @@ __global__ void __launch_bounds__(kCThreads) cross_decode_merge_kernel(const Cro
     for (int sp = 0; sp < S; ++sp) {
       const float m = a.part_m[(part0 + sp) * K + k];
       if (m == -INFINITY) continue;  // its l and O may be unwritten
-      const float sc = exp_e(m - M);
+      const float sc = std::is_same<T, float>::value ? expf(m - M) : exp_e(m - M);
       l = fmaf(sc, a.part_l[(part0 + sp) * K + k], l);
       acc = fmaf(sc, a.part_acc[((part0 + sp) * K + k) * D + d], acc);
     }
-    out[k * a.o_sk + d] = __float2bfloat16_rn(acc / l);
+    out[k * a.o_sk + d] = from_f32<T>(acc / l);
   }
 }
 
-// fp32 SIMT kernel: grid (B.H, ceil(K/16)), a block's <= 16 rows.
+// fp32 SIMT kernel: grid (B.H, n_split, ceil(K/16)), a block's <= 16 rows
+// over its split's keys [s0, s0 + tps). One split writes acc / sum, several
+// their (max, sum, acc) for the merge (a.tps counts keys here, not tiles).
 template <int DH>
 __global__ void __launch_bounds__(kCrossThreads) cross_decode_kernel(const CrossArgs a) {
   extern __shared__ float smem[];
-  const int r0 = blockIdx.y * kMaxBeams;  // this block's rows: [r0, r0 + K)
-  const int K = min(kMaxBeams, a.K - r0), S = a.S;
+  const int r0 = blockIdx.z * kMaxBeams;  // this block's rows: [r0, r0 + K)
+  const int K = min(kMaxBeams, a.K - r0), split = blockIdx.y;
+  const int s0 = split * a.tps, S = min(a.S - s0, a.tps);
   float* qs = smem;            // [K][DH]
   float* sc = qs + K * DH;     // [K][S] scores, then probabilities
   float* rsum = sc + K * S;    // [K]
+  float* rmax = rsum + K;      // [K]
 
   const int bh = blockIdx.x;
   const int b = bh / a.H, h = bh % a.H;
   const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh + r0 * a.q_sk;
-  const float* kv = static_cast<const float*>(a.kv) + (int64_t)bh * S * 2 * DH;
-  const float* bias = a.bias + (int64_t)b * S;
+  const float* kv = static_cast<const float*>(a.kv) + ((int64_t)bh * a.S + s0) * 2 * DH;
+  const float* bias = a.bias + (int64_t)b * a.S + s0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   constexpr int NW = kCrossThreads / 32;
 
@@ -993,12 +1002,12 @@ __global__ void __launch_bounds__(kCrossThreads) cross_decode_kernel(const Cross
     mx = warp_max(mx);
     float sum = 0.f;
     for (int s = lane; s < S; s += 32) {
-      const float p = expf(sc[k * S + s] - mx);
+      const float p = mx == -INFINITY ? 0.f : expf(sc[k * S + s] - mx);
       sc[k * S + s] = p;
       sum += p;
     }
     sum = warp_sum(sum);
-    if (lane == 0) rsum[k] = sum;
+    if (lane == 0) rsum[k] = sum, rmax[k] = mx;
   }
   __syncthreads();
 
@@ -1017,11 +1026,21 @@ __global__ void __launch_bounds__(kCrossThreads) cross_decode_kernel(const Cross
       if (k < K) acc[i] = fmaf(sc[k * S + s], vd, acc[i]);
     }
   }
+  const int64_t part = ((int64_t)bh * a.n_split + split) * a.K + r0;
   float* out = static_cast<float*>(a.out) + b * a.o_sb + h * a.o_sh + r0 * a.o_sk;
 #pragma unroll
   for (int i = 0; i < KPT; ++i) {
     const int k = kg + i * NKG;
-    if (k < K) out[k * a.o_sk + d] = acc[i] / rsum[k];
+    if (k >= K) continue;
+    if (a.n_split == 1) {
+      out[k * a.o_sk + d] = acc[i] / rsum[k];
+    } else {
+      if (d == 0) {
+        a.part_m[part + k] = rmax[k];
+        a.part_l[part + k] = rsum[k];
+      }
+      a.part_acc[(part + k) * DH + d] = acc[i];
+    }
   }
 }
 
@@ -1029,8 +1048,11 @@ template <int DH>
 cudaError_t launch_cross_f32(const CrossArgs& a, int B, size_t smem, cudaStream_t stream) {
   cudaError_t err = allow_smem(cross_decode_kernel<DH>, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * a.H, (a.K + kMaxBeams - 1) / kMaxBeams);
+  const dim3 grid(B * a.H, a.n_split, (a.K + kMaxBeams - 1) / kMaxBeams);
   cross_decode_kernel<DH><<<grid, kCrossThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_split == 1) return err;
+  cross_decode_merge_kernel<float, DH><<<B * a.H, kCThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1042,7 +1064,7 @@ cudaError_t launch_cross_mma(const CrossArgs& a, int B, cudaStream_t stream) {
   cross_decode_split_kernel_mma<D><<<dim3(B * a.H, a.n_split), kCThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.n_split == 1) return err;
-  cross_decode_merge_kernel<D><<<B * a.H, kCThreads, 0, stream>>>(a);
+  cross_decode_merge_kernel<bf16, D><<<B * a.H, kCThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1114,18 +1136,37 @@ extern "C" int mm_ancestry_decode_attention(
                       : (int)mm::dispatch_ancestry<__nv_bfloat16, true>(DH, a, B, st);
 }
 
-// Dynamic shared memory of kernel C (and E) for (K rows, S, Dh), in bytes:
-// a block holds at most 16 rows' queries, scores and sums.
+// Dynamic shared memory of fp32 kernel C for (K rows, S keys of a split,
+// Dh), in bytes: a block holds at most 16 rows' queries, scores, maxima and
+// sums.
 extern "C" long long mm_cross_decode_smem_bytes(int K, int S, int DH) {
   const long long k = K < mm::kMaxBeams ? K : mm::kMaxBeams;
-  return 4LL * (k * DH + k * S + k);
+  return 4LL * (k * DH + k * S + 2 * k);
 }
 
-// Kernel C's split count for B batch rows of H heads, K rows, S columns:
-// 1 in fp32 and for more than 16 rows; in bf16 enough (b.h) x split blocks
-// for about two per SM, each split a whole number (>= 1) of key tiles.
+// Kernel C's split count for B batch rows of H heads, K rows, S columns.
+// fp32: enough splits over S that a block's min(K, 16) rows of scores fit
+// in its shared memory, and more while B.H is under a wave: about two
+// (b.h) x split blocks per SM, each split at least kCF32MinKeys keys, at
+// most kCMaxSplits (merged in split order). B.H, S and min(K, 16) alone
+// decide it, so a 16-row call splits as the K rows it heads. bf16: 1 for
+// more than 16 rows; else enough (b.h) x split blocks for about two per
+// SM, each split a whole number (>= 1) of key tiles.
 extern "C" int mm_cross_decode_splits(int dtype, int B, int H, int K, int S, int DH) {
-  if (dtype != mm::kBFloat16 || K > mm::kMaxBeams || S < 1) return 1;
+  if (S < 1 || K < 1) return 1;
+  if (dtype == mm::kFloat32) {
+    const long long k = K < mm::kMaxBeams ? K : mm::kMaxBeams;
+    const long long most = (mm::kMaxSmem / 4 - k * DH - 2 * k) / k;  // keys of one split
+    long long n = (2LL * mm::kSMs + (long long)B * H - 1) / ((long long)B * H);
+    const long long by_keys = (S + mm::kCF32MinKeys - 1) / mm::kCF32MinKeys;
+    n = n < by_keys ? n : by_keys;
+    n = n < mm::kCMaxSplits ? n : mm::kCMaxSplits;
+    const long long fit = (S + most - 1) / most;
+    n = n > fit ? n : fit;
+    const long long tps = (S + n - 1) / n;
+    return (int)((S + tps - 1) / tps);  // no empty split
+  }
+  if (dtype != mm::kBFloat16 || K > mm::kMaxBeams) return 1;
   const int n_tiles = (S + mm::cross_tile(DH) - 1) / mm::cross_tile(DH);
   int n = (2 * mm::kSMs + B * H - 1) / (B * H);
   n = n < n_tiles ? n : n_tiles;
@@ -1139,7 +1180,8 @@ extern "C" int mm_cross_decode_splits(int dtype, int B, int H, int K, int S, int
 // n_split > 1; ``scratch`` holds (B.H.n_split.K) maxima, as many
 // denominators and (B.H.n_split.K.Dh) partial sums, fp32), more rows A's
 // tensor-core forward, which needs out beam-major contiguous (B, K, H, Dh).
-// fp32: the SIMT kernel, n_split 1.
+// fp32: the SIMT kernel over n_split spans of S, then the merge when
+// n_split > 1 (scratch as bf16's).
 extern "C" int mm_cross_decode_attention(
     int dtype, const void* q, const void* kv, const void* bias, void* out, void* scratch,
     int B, int H, int K, int DH, int S, int n_split, int64_t q_sb, int64_t q_sh, int64_t q_sk,
@@ -1150,11 +1192,13 @@ extern "C" int mm_cross_decode_attention(
   const int n_tiles = (S + mm::cross_tile(DH) - 1) / mm::cross_tile(DH);
   float* part = static_cast<float*>(scratch);
   const int64_t n_part = (int64_t)B * H * n_split * K;
+  const bool f32 = dtype == mm::kFloat32;
+  const int tps = f32 ? (S + n_split - 1) / n_split : (n_tiles + n_split - 1) / n_split;
   const mm::CrossArgs a{q, q_sb, q_sh, q_sk, kv, static_cast<const float*>(bias), out,
                         o_sb, o_sh, o_sk, part, part + n_part, part + 2 * n_part,
-                        H, K, S, n_split, (n_tiles + n_split - 1) / n_split};
-  if (dtype == mm::kFloat32) {
-    const size_t smem = (size_t)mm_cross_decode_smem_bytes(K, S, DH);
+                        H, K, S, n_split, tps};
+  if (f32) {
+    const size_t smem = (size_t)mm_cross_decode_smem_bytes(K, tps, DH);
     switch (DH) {
       case 16: return (int)mm::launch_cross_f32<16>(a, B, smem, st);
       case 32: return (int)mm::launch_cross_f32<32>(a, B, smem, st);

@@ -13,6 +13,8 @@
 // read as a row of 16 bf16 would be.
 #pragma once
 
+#include <type_traits>
+
 #include "flash_attention_mma.cuh"
 
 namespace mm {
@@ -20,6 +22,7 @@ namespace mm {
 constexpr int kMaxBeams = 16;  // query rows per (b, h) of B, C's decode step, D, F
 constexpr int kBSpan = 2048;   // most columns one split covers (16-bit offsets)
 constexpr int kSMs = 132;      // an H100's SMs
+constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory on Hopper, bytes
 
 // The live columns of [c0, c1) (those on some beam's path, flat_rep[k][j]
 // == j), in column order, as (offset | beams << 16) into ``live``; returns

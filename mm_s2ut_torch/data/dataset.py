@@ -5,13 +5,16 @@ runs: ``SpeechToSpeechDataset.from_tsv`` (manifest, unit targets, image
 features by ``int(stem(audio)) - 1``), ``__getitem__`` and ``collate``
 (bucket-padded numpy batches sorted by source length, descending;
 ``prev_output_tokens`` = EOS or the target lang tag, then the target
-shifted right). Waveforms stay waveforms: the task's device fbank turns
-them into log-mels. Not carried over (the task raises when they are
-configured): noise mixing, the native C++ loader, raw-image stores,
-speaker embeddings and n_frames_per_step > 1 packing.
+shifted right; with n_frames_per_step = n > 1 the decoder input packs n
+units per id, :func:`pack_units`, while the loss target stays unpacked),
+and the target speaker embeddings of ``data.target_speaker_embed``
+(``tgt_speaker``). Waveforms stay waveforms: the task's device fbank
+turns them into log-mels. Not carried over (the task raises when they are
+configured): noise mixing, the native C++ loader and raw-image stores.
 """
 from __future__ import annotations
 
+import csv
 import os
 from dataclasses import dataclass
 from pathlib import Path
@@ -26,6 +29,21 @@ from mm_s2ut_torch.data.image_store import ImageFeatureStore, audio_stem_to_imag
 from mm_s2ut_torch.data.manifest import ManifestRow, read_manifest
 
 
+def pack_units(ids: np.ndarray, n_frames_per_step: int, vocab_size: int, offset: int = 4) -> np.ndarray:
+    """Base-V packing of n consecutive unit ids into one id; the input ends
+    with EOS, which stays the last element."""
+    if n_frames_per_step <= 1:
+        return ids
+    V = vocab_size - offset
+    if V ** n_frames_per_step + offset > 2 ** 31 - 1:
+        raise ValueError(f"pack_units: V={V}^n={n_frames_per_step} exceeds the int32 id space")
+    body = ids[:-1].reshape(-1, n_frames_per_step) - offset
+    scale = np.array([V ** (n_frames_per_step - 1 - i) for i in range(n_frames_per_step)],
+                     dtype=np.int64)
+    packed = (body * scale).sum(axis=1) + offset
+    return np.concatenate([packed, ids[-1:]]).astype(np.int64)
+
+
 @dataclass
 class S2SItem:
     index: int
@@ -35,6 +53,7 @@ class S2SItem:
     tgt_lang_tag: Optional[int]
     imgs: List[np.ndarray]
     img_masks: List[Optional[np.ndarray]]
+    speaker: Optional[np.ndarray] = None
 
 
 class SpeechToSpeechDataset:
@@ -47,6 +66,14 @@ class SpeechToSpeechDataset:
         self.rows = list(rows)
         self.tgt_dict = tgt_dict
         self.image_stores = list(image_stores)
+        self.n_frames_per_step = data_cfg.n_frames_per_step
+        # Target speaker embeddings (one .npy path per manifest id).
+        self.speaker_embeds: Optional[Dict[str, str]] = None
+        if data_cfg.target_speaker_embed:
+            with open(data_cfg.target_speaker_embed, newline="") as f:
+                self.speaker_embeds = {
+                    r["id"]: r["speaker_embed"] for r in csv.DictReader(f, delimiter="\t")
+                }
 
     @classmethod
     def from_tsv(cls, root: str | Path, split: str, data_cfg: DataConfig, tgt_dict: Dictionary,
@@ -67,7 +94,7 @@ class SpeechToSpeechDataset:
         return self.rows[index].src_n_frames
 
     def num_target_frames(self, index: int) -> int:
-        return self.rows[index].tgt_n_frames
+        return self.rows[index].tgt_n_frames // self.n_frames_per_step
 
     def __getitem__(self, index: int) -> S2SItem:
         row = self.rows[index]
@@ -76,6 +103,10 @@ class SpeechToSpeechDataset:
             path = os.path.join(self.cfg.audio_root, path)
         wav, _ = get_waveform(path, use_sample_rate=self.cfg.sample_rate)
         target = self.tgt_dict.encode_line(row.tgt_text, append_eos=True).astype(np.int64)
+        n = self.n_frames_per_step
+        if n > 1:  # whole packs only, then EOS
+            keep = (len(target) - 1) - (len(target) - 1) % n
+            target = np.concatenate([target[:keep], [self.tgt_dict.eos()]])
         tgt_lang_tag = None
         if self.cfg.prepend_tgt_lang_tag_as_bos and row.tgt_lang:
             tag = row.tgt_lang if row.tgt_lang.startswith("<lang:") else f"<lang:{row.tgt_lang}>"
@@ -88,7 +119,11 @@ class SpeechToSpeechDataset:
                 feat, mask = store[img_idx]
                 imgs.append(np.asarray(feat, np.float32))
                 masks.append(None if mask is None else np.asarray(mask, bool))
-        return S2SItem(index, row.id, wav.astype(np.float32), target, tgt_lang_tag, imgs, masks)
+        speaker = None
+        if self.speaker_embeds is not None and row.id in self.speaker_embeds:
+            speaker = np.load(self.speaker_embeds[row.id]).astype(np.float32).reshape(-1)
+        return S2SItem(index, row.id, wav.astype(np.float32), target, tgt_lang_tag, imgs, masks,
+                       speaker)
 
     def collate(self, items: Sequence[S2SItem], src_pad: Optional[int] = None,
                 tgt_pad: Optional[int] = None) -> Dict[str, np.ndarray]:
@@ -106,15 +141,21 @@ class SpeechToSpeechDataset:
             src_lengths[i] = n
 
         pad_id, eos_id = self.tgt_dict.pad(), self.tgt_dict.eos()
-        L = tgt_pad or max(len(it.target) for it in items)
-        target = np.full((B, L), pad_id, np.int32)
+        nfs = self.n_frames_per_step
+        packed = [pack_units(it.target, nfs, len(self.tgt_dict)) for it in items]
+        L = tgt_pad or max(len(p) for p in packed)
+        # Only the decoder input packs; the target stays base-V, n·(L−1)+1
+        # long, and target_lengths / ntokens count packed positions.
+        Lt = L if nfs <= 1 else nfs * (L - 1) + 1
+        target = np.full((B, Lt), pad_id, np.int32)
         prev = np.full((B, L), pad_id, np.int32)
         target_lengths = np.zeros((B,), np.int32)
-        for i, it in enumerate(items):
-            n = min(len(it.target), L)
-            target[i, :n] = it.target[:n]
+        for i, (it, p) in enumerate(zip(items, packed)):
+            n = min(len(p), L)
+            nt = min(len(it.target), Lt)
+            target[i, :nt] = it.target[:nt]
             prev[i, 0] = it.tgt_lang_tag if it.tgt_lang_tag is not None else eos_id
-            prev[i, 1:n] = it.target[: n - 1]
+            prev[i, 1:n] = p[: n - 1]
             target_lengths[i] = n
         batch: Dict[str, np.ndarray] = {
             "id": np.asarray([it.index for it in items], np.int64),
@@ -135,4 +176,6 @@ class SpeechToSpeechDataset:
                              else np.zeros((B, imgs[k].shape[1]), bool))
             batch["imgs_list"] = tuple(imgs)
             batch["img_masks_list"] = tuple(masks)
+        if items[0].speaker is not None:
+            batch["tgt_speaker"] = np.stack([it.speaker for it in items])
         return batch

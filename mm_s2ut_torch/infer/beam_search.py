@@ -51,8 +51,51 @@ def _reorder_ancestry(state: Any, indices: torch.Tensor, step: int) -> None:
     anc.copy_(new_anc)
 
 
-def _length_norm(length: int, alpha: float, device) -> torch.Tensor:
-    return torch.tensor(float(max(length, 1)), dtype=torch.float32, device=device) ** alpha
+def _length_norm(length, alpha: float, device=None) -> torch.Tensor:
+    """fairseq's length normaliser max(length, 1)^alpha in fp32, for an int
+    or a tensor of lengths (the server's per-slot steps)."""
+    return torch.as_tensor(length, dtype=torch.float32, device=device).clamp_min(1.0) ** alpha
+
+
+def select_beams(
+    logp: torch.Tensor, alive_logp: torch.Tensor, alive_seq: torch.Tensor,
+    fin_seq: torch.Tensor, fin_scores: torch.Tensor, fin_flags: torch.Tensor,
+    write_at, norm: torch.Tensor, eos_id: int, live: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """One step's selection, shared by the offline search and the server:
+    the exact two-stage top-2K of alive_logp + logp (B, K, V) (at most 2K
+    of the global top-2K share one beam row, so each row's top-2K holds
+    them; ties to the lower beam-major index), the candidates' tokens
+    written at ``write_at`` (an int, or (B, 1, 1) per-slot positions), EOS
+    candidates scored ÷ ``norm`` and merged into the finished set (their
+    flags masked by ``live`` (B, 1) where given), the best K others alive.
+    Returns (alive_logp, alive_seq, fin_scores, fin_seq, fin_flags,
+    src_beam (B, K): the alive beams' parents)."""
+    B, K, V = logp.shape
+    cand = alive_logp[:, :, None] + logp
+    k1 = min(2 * K, V)
+    s1, i1 = _top_k(cand, k1)
+    top_scores, pidx = _top_k(s1.reshape(B, k1 * K), 2 * K)
+    top_beam = pidx // k1
+    top_tok = torch.gather(i1.reshape(B, k1 * K), 1, pidx)
+    seq2k = _take(alive_seq, top_beam)
+    pos = torch.arange(seq2k.shape[2], device=seq2k.device)
+    seq2k = torch.where(pos == write_at, top_tok[..., None], seq2k)
+    is_eos = top_tok == eos_id
+
+    cand_fin = torch.where(is_eos, top_scores / norm, torch.full_like(top_scores, NEG_INF))
+    all_seq = torch.cat([fin_seq, seq2k], dim=1)
+    all_scores = torch.cat([fin_scores, cand_fin], dim=1)
+    all_flags = torch.cat([fin_flags, is_eos if live is None else is_eos & live], dim=1)
+    fin_scores, fin_top = _top_k(all_scores, K)
+    fin_seq = _take(all_seq, fin_top)
+    fin_flags = torch.gather(all_flags, 1, fin_top)
+
+    alive_cand = torch.where(is_eos, torch.full_like(top_scores, NEG_INF), top_scores)
+    alive_logp, alive_top = _top_k(alive_cand, K)
+    alive_seq = _take(seq2k, alive_top)
+    src_beam = torch.gather(top_beam, 1, alive_top)
+    return alive_logp, alive_seq, fin_scores, fin_seq, fin_flags, src_beam
 
 
 @torch.no_grad()
@@ -152,31 +195,9 @@ def beam_search(
             if step + 1 >= max_len:  # the length budget forces EOS
                 logp = eos_only.expand(B, K, V)
 
-            cand = alive_logp[:, :, None] + logp  # (B, K, V)
-            # Exact two-stage top-2K (see the reference for the proof).
-            k1 = min(2 * K, V)
-            s1, i1 = _top_k(cand, k1)
-            top_scores, pidx = _top_k(s1.reshape(B, k1 * K), 2 * K)
-            top_beam = pidx // k1
-            top_tok = torch.gather(i1.reshape(B, k1 * K), 1, pidx)
-
-            seq2k = _take(alive_seq, top_beam)
-            seq2k[:, :, step + 1] = top_tok
-            is_eos = top_tok == eos_id
-
-            norm = _length_norm(step + 1, len_penalty, dev)
-            cand_fin = torch.where(is_eos, top_scores / norm, torch.full_like(top_scores, NEG_INF))
-            all_seq = torch.cat([fin_seq, seq2k], dim=1)
-            all_scores = torch.cat([fin_scores, cand_fin], dim=1)
-            all_flags = torch.cat([fin_flags, is_eos], dim=1)
-            fin_scores, fin_top = _top_k(all_scores, K)
-            fin_seq = _take(all_seq, fin_top)
-            fin_flags = torch.gather(all_flags, 1, fin_top)
-
-            alive_cand = torch.where(is_eos, torch.full_like(top_scores, NEG_INF), top_scores)
-            alive_logp, alive_top = _top_k(alive_cand, K)
-            alive_seq = _take(seq2k, alive_top)
-            src_beam = torch.gather(top_beam, 1, alive_top)
+            alive_logp, alive_seq, fin_scores, fin_seq, fin_flags, src_beam = select_beams(
+                logp, alive_logp, alive_seq, fin_seq, fin_scores, fin_flags, step + 1,
+                _length_norm(step + 1, len_penalty, dev), eos_id)
             _reorder_ancestry(state, src_beam, step)
             step += 1
 

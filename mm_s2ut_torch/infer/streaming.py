@@ -31,7 +31,7 @@ import torch
 from torch import nn
 
 from mm_s2ut_torch.infer.beam_search import beam_search, tile_state_for_beams
-from mm_s2ut_torch.models.layers import NEG_INF, TransformerEncoderLayer, subsampled_length
+from mm_s2ut_torch.models.layers import NEG_INF, TransformerEncoderLayer, sublayer, subsampled_length
 from mm_s2ut_torch.models.s2t_encoder import SpeechTransformerEncoder
 
 
@@ -56,31 +56,38 @@ def mature_subsampled(n_input_frames: int, kernel_sizes: Tuple[int, ...] = (5, 5
 def streaming_layer(
     layer: TransformerEncoderLayer, x: torch.Tensor, cache: Dict[str, torch.Tensor], index: int,
 ) -> torch.Tensor:
-    """One pre-norm encoder layer for ``x`` (B, Tn, E), the rows at
-    positions index .. index+Tn-1, over its K/V cache (B, T_max, H, Dh)
-    each, which this call extends in place. The reference's block bias
-    (column j ≤ position, j > position − W) plus its unwritten-tail bias
-    (j ≥ index + Tn), both −1e9 and summed in the model's dtype."""
+    """One encoder layer (pre- or post-norm, as the layer is built) for
+    ``x`` (B, Tn, E), the rows at positions index .. index+Tn-1, over its
+    K/V cache (B, T_max, H, Dh) each, which this call extends in place."""
+    x = sublayer(layer.self_attn_layer_norm, layer.normalize_before, x,
+                 lambda h: _cached_attention(layer, h, cache, index))
+    return sublayer(layer.final_layer_norm, layer.normalize_before, x, layer.ffn)
+
+
+def _cached_attention(layer: TransformerEncoderLayer, h: torch.Tensor,
+                      cache: Dict[str, torch.Tensor], index: int) -> torch.Tensor:
+    """The layer's self-attention of rows ``h`` over its cache: the
+    reference's block bias (column j ≤ position, j > position − W) plus its
+    unwritten-tail bias (j ≥ index + Tn), both −1e9 and summed in the
+    model's dtype."""
     attn = layer.self_attn
-    B, Tn, _ = x.shape
-    h = layer.self_attn_layer_norm(x)
+    B, Tn, _ = h.shape
     q = attn._split(attn.q_proj(h)) * attn.head_dim ** -0.5
     cache["k"][:, index : index + Tn] = attn._split(attn.k_proj(h))
     cache["v"][:, index : index + Tn] = attn._split(attn.v_proj(h))
     k, v = cache["k"], cache["v"]
-    j = torch.arange(k.shape[1], device=x.device)[None, :]
-    pos_q = index + torch.arange(Tn, device=x.device)[:, None]
+    j = torch.arange(k.shape[1], device=h.device)[None, :]
+    pos_q = index + torch.arange(Tn, device=h.device)[:, None]
     allowed = j <= pos_q
     if layer.window > 0:
         allowed = allowed & (j > pos_q - layer.window)
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    neg = torch.full((), NEG_INF, dtype=x.dtype, device=x.device)
+    zero = torch.zeros((), dtype=h.dtype, device=h.device)
+    neg = torch.full((), NEG_INF, dtype=h.dtype, device=h.device)
     bias = torch.where(allowed, zero, neg) + torch.where(j < index + Tn, zero, neg)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) + bias.float()
-    weights = torch.softmax(logits, dim=-1).to(x.dtype)
+    weights = torch.softmax(logits, dim=-1).to(h.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", weights, v).reshape(B, Tn, attn.embed_dim)
-    x = x + attn.out_proj(out)
-    return x + layer.ffn(layer.final_layer_norm(x))
+    return attn.out_proj(out)
 
 
 class StreamingEncoderStack(nn.Module):
@@ -101,7 +108,7 @@ class StreamingEncoderStack(nn.Module):
         self.pos = encoder.pos
         for i in range(encoder.num_layers):
             self.add_module(f"layer{i}", getattr(encoder, f"layer{i}"))
-        self.final_layer_norm = encoder.final_layer_norm
+        self.final_layer_norm = getattr(encoder, "final_layer_norm", nn.Identity())
 
     def forward(
         self,

@@ -2,12 +2,15 @@
 
 Port of ``mm_s2ut/models/decoder.py``: the teacher-forced ``forward`` of
 training (causal dense self-attention, dense cross-attention, embedding
-dropout, tied output; plain PyTorch, as the reference's einsums) and the
-incremental decoding
-(``StackedEmbedding`` with n_frames_per_step = 1, ``UnitDecoder.init_state``
-for a bf16/fp32, int8 or int4 cache, ``step``, ``_step_core``, the
-ancestry branch of ``_self_attn_step``, and ``prefill`` for streaming's
-prefix reuse). The cache layout is the
+dropout; plain PyTorch, as the reference's einsums) and the incremental
+decoding (``UnitDecoder.init_state`` for a bf16/fp32, int8 or int4 cache,
+``step``, ``_step_core``, the ancestry branch of ``_self_attn_step``,
+``prefill`` for streaming's prefix reuse, and ``serve_step``, the
+continuous-batching step over a ring cache). Pre-norm or post-norm layers
+(no final LayerNorm when post-norm), the output tied to the unit embedding
+or an untied ``output_proj``. ``n_frames_per_step`` > 1 (the packed
+``StackedEmbedding`` and ``out_proj_n_frames``) is for ``forward`` only:
+beam decode and prefill raise, as in the reference. The cache layout is the
 reference's: ONE stacked buffer (B, L, H, T·S, 2·Dh), key column
 j = t·S + s, K‖V interleaved on the last axis. Rows are never reordered:
 beam k reads its history through ``flat_rep`` (kernel B; D over an int8
@@ -57,14 +60,32 @@ def is_int4(state: DecoderState) -> bool:
 
 
 class StackedEmbedding(nn.Module):
-    """Unit embedding for n_frames_per_step = 1 (a plain table)."""
+    """Unit embedding; with n_frames_per_step = n > 1 a packed id
+    p = Σ u_i·V^(n-1-i) + offset is unpacked, each unit embedded with the
+    shared table plus a learned position-in-pack embedding (``pack_pos``),
+    and the n summed. Special ids (< offset) embed directly."""
 
-    def __init__(self, vocab_size: int, embed_dim: int):
+    def __init__(self, vocab_size: int, embed_dim: int, n_frames_per_step: int = 1,
+                 offset: int = 4):
         super().__init__()
+        self.n, self.offset = n_frames_per_step, offset
+        self.n_units = vocab_size - offset
         self.embed_tokens = nn.Embedding(vocab_size, embed_dim)
+        if self.n > 1:
+            self.pack_pos = nn.Embedding(self.n, embed_dim)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embed_tokens(ids)
+        if self.n <= 1:
+            return self.embed_tokens(ids)
+        V = self.n_units
+        packed = (ids - self.offset).clamp_min(0)
+        out = torch.zeros((*ids.shape, self.embed_tokens.embedding_dim),
+                          dtype=self.embed_tokens.weight.dtype, device=ids.device)
+        for i in range(self.n):
+            unit = (packed // V ** (self.n - 1 - i)) % V
+            out = out + self.embed_tokens(unit + self.offset) + self.pack_pos.weight[i]
+        special = self.embed_tokens(ids.clamp_max(self.offset - 1))
+        return torch.where((ids < self.offset)[..., None], special, out)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """Output projection sharing the input table; fp32 logits from the
@@ -87,19 +108,52 @@ class UnitDecoder(nn.Module):
         dropout: float = 0.0,
         attention_dropout: float = 0.0,
         activation_dropout: float = 0.0,
+        activation: str = "relu",
+        normalize_before: bool = True,
+        share_input_output_embed: bool = True,
+        n_frames_per_step: int = 1,
     ):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_layers = num_layers
         self.num_heads = num_heads
-        self.embed = StackedEmbedding(vocab_size, embed_dim)
+        self.normalize_before = normalize_before
+        self.n_frames_per_step = n_frames_per_step
+        self.embed = StackedEmbedding(vocab_size, embed_dim, n_frames_per_step)
         self.pos = SinusoidalPositionalEmbedding(embed_dim)
         self.drop = BernoulliDropout(dropout)
         for i in range(num_layers):
             self.add_module(f"layer{i}", TransformerDecoderLayer(
-                embed_dim, ffn_dim, num_heads, dropout, attention_dropout, activation_dropout))
-        self.final_norm = layer_norm(embed_dim)
+                embed_dim, ffn_dim, num_heads, dropout, attention_dropout, activation_dropout,
+                activation, normalize_before))
+        if normalize_before:
+            self.final_norm = layer_norm(embed_dim)
+        if not share_input_output_embed:
+            self.output_proj = nn.Linear(embed_dim, vocab_size, bias=False)
+        if n_frames_per_step > 1:
+            # Each packed position expands to n sub-frame states, each with
+            # its own V-way logits (the loss side stays base-V).
+            self.out_proj_n_frames = nn.Linear(embed_dim, n_frames_per_step * embed_dim,
+                                               bias=False)
         self.embed_scale = math.sqrt(embed_dim)
+
+    def _output(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm (pre-norm) → sub-frame expansion (n > 1) → fp32
+        logits, tied to the unit table or through ``output_proj``."""
+        if self.normalize_before:
+            x = self.final_norm(x)
+        if self.n_frames_per_step > 1:
+            B, L, d = x.shape
+            x = self.out_proj_n_frames(x).reshape(B, L * self.n_frames_per_step, d)
+        if hasattr(self, "output_proj"):
+            return self.output_proj(x).float()
+        return self.embed.attend(x)
+
+    def _no_packed_decode(self, what: str) -> None:
+        if self.n_frames_per_step > 1:
+            # The search emits one base-V unit per step; the packed space is
+            # not searched (the reference raises the same).
+            raise NotImplementedError(f"{what} with n_frames_per_step > 1 is not supported")
 
     def forward(
         self,
@@ -114,7 +168,7 @@ class UnitDecoder(nn.Module):
                       if encoder_padding_mask is not None else None)
         for layer in self.layers:
             x = layer(x, encoder_out, self_bias, cross_bias)
-        return self.embed.attend(self.final_norm(x))
+        return self._output(x)
 
     @property
     def layers(self) -> List[TransformerDecoderLayer]:
@@ -140,6 +194,7 @@ class UnitDecoder(nn.Module):
         model's dtype."""
         if kv_dtype not in (None, "bfloat16", "float32", "int8", "int4"):
             raise ValueError(f"kv_cache_dtype={kv_dtype!r}: expected bfloat16, int8 or int4")
+        self._no_packed_decode("beam decode")
         B = encoder_out.shape[0]
         H, Dh = self.num_heads, self.embed_dim // self.num_heads
         dev = encoder_out.device
@@ -152,6 +207,20 @@ class UnitDecoder(nn.Module):
                 (B, self.num_layers, H, max_len // 2 if int4 else max_len, 2 * Dh),
                 dtype=torch.int8 if quant else encoder_out.dtype, device=dev,
             ),
+            **self.init_cross(encoder_out, encoder_padding_mask, kv_dtype),
+        }
+        if quant:
+            for key in ("self_kv_sk", "self_kv_sv"):
+                state[key] = torch.zeros((B, self.num_layers, H, max_len), device=dev)
+        return state
+
+    def init_cross(self, encoder_out: torch.Tensor, encoder_padding_mask: Optional[torch.Tensor],
+                   kv_dtype: Optional[str] = None) -> DecoderState:
+        """The cross-attention part of :meth:`init_state`: ``cross``, each
+        layer's packed encoder K‖V (int8 with its scales for an int8 or
+        int4 cache), and ``cross_bias``."""
+        quant = kv_dtype in ("int8", "int4")
+        return {
             "cross": [
                 layer.cross_attn.precompute_kv(encoder_out, kv_dtype="int8" if quant else None)
                 for layer in self.layers
@@ -161,10 +230,6 @@ class UnitDecoder(nn.Module):
                 if encoder_padding_mask is not None else None
             ),
         }
-        if quant:
-            for key in ("self_kv_sk", "self_kv_sv"):
-                state[key] = torch.zeros((B, self.num_layers, H, max_len), device=dev)
-        return state
 
     @staticmethod
     def _flat_len(state: DecoderState) -> int:
@@ -217,6 +282,7 @@ class UnitDecoder(nn.Module):
         exact history. Updates ``state`` in place and returns it with
         ``step = prefix_len - 1`` (the search re-feeds the last prefix token)
         and ``prefix_logp`` (B,) = Σ_{t=1}^{len-1} log p(tok_t | tok_<t)."""
+        self._no_packed_decode("prefill")
         if "ancestry" not in state:
             raise ValueError("prefill expects a beam-tiled state")
         if is_int4(state):
@@ -235,23 +301,22 @@ class UnitDecoder(nn.Module):
         causal = torch.tril(torch.ones((P, P), dtype=torch.bool, device=x.device))
         self_bias = torch.zeros((P, P), device=x.device).masked_fill(~causal, -1e9).to(x.dtype)
         new_ks, new_vs = [], []
-        for i, layer in enumerate(self.layers):
+
+        def causal_attn(layer, h):
             attn = layer.self_attn
-            h = layer.self_attn_layer_norm(x)
             q = attn._split(attn.q_proj(h)) * attn.head_dim ** -0.5
             k_new = attn._split(attn.k_proj(h))  # (B, P, H, Dh)
             v_new = attn._split(attn.v_proj(h))
             logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_new.float()) + self_bias.float()
-            wgt = torch.softmax(logits, dim=-1).to(x.dtype)
-            h = torch.einsum("bhqk,bkhd->bqhd", wgt, v_new)
-            x = x + attn.out_proj(h.reshape(B, P, self.embed_dim))
+            wgt = torch.softmax(logits, dim=-1).to(h.dtype)
             new_ks.append(k_new)
             new_vs.append(v_new)
-            x = x + layer.cross_attn.packed_cross(
-                layer.cross_attn_layer_norm(x), state["cross"][i], state["cross_bias"]
-            )
-            x = x + layer.ffn(layer.final_layer_norm(x))
-        logp = torch.log_softmax(self.embed.attend(self.final_norm(x)), dim=-1)  # (B, P, V)
+            out = torch.einsum("bhqk,bkhd->bqhd", wgt, v_new)
+            return attn.out_proj(out.reshape(B, P, self.embed_dim))
+
+        for i, layer in enumerate(self.layers):
+            x = self._layer_step(layer, i, x, state, lambda h, layer=layer: causal_attn(layer, h))
+        logp = torch.log_softmax(self._output(x), dim=-1)  # (B, P, V)
         # Position t predicts token t+1; only real (t+1 < prefix_len) transitions count.
         nxt = torch.cat([prefix_tokens[:, 1:], prefix_tokens[:, :1]], dim=1)
         tok_lp = torch.gather(logp, 2, nxt[..., None].long())[..., 0]
@@ -293,30 +358,68 @@ class UnitDecoder(nn.Module):
         state["step"] = step_idx + 1
         return logits, state
 
+    def serve_step(self, prev_token: torch.Tensor, state: DecoderState) -> Tuple[torch.Tensor, DecoderState]:
+        """Continuous-batching decode step (``infer/serving.py``): (B·K, 1)
+        tokens → ((B·K, V) fp32 logits, state), ``state`` updated in place.
+
+        The cache's flattened (t·S) axis is a RING of T steps indexed by the
+        global counter ``g`` (a host int shared by every slot, so the write
+        position needs no device sync): every slot writes its rows at ring
+        step g mod T, while each slot's logical time is its own
+        ``local_step`` (B,). Ring step tp holds a live row of slot b iff
+        (tp − ring_base[b]) mod T < local_step[b]; ``ancestry`` (B, K, T)
+        holds the beam slot by PHYSICAL ring step. Validity and ancestry
+        reach kernels B, D and F only through ``flat_rep``, so a wrapped
+        window (the oldest live step physically after the newest) needs
+        nothing else. Positions take each slot's own step."""
+        ancestry = state["ancestry"]
+        T_ = ancestry.shape[2]
+        S_ = self._flat_len(state) // T_
+        g, local = state["g"], state["local_step"]
+        tp = torch.arange(T_, device=ancestry.device)
+        valid = (tp[None, :] - state["ring_base"][:, None]) % T_ < local[:, None]  # (B, T)
+        flat_idx = torch.where(valid[:, None, :], tp * S_ + ancestry,
+                               torch.full_like(ancestry, -1)).to(torch.int32)
+        flat_rep = flat_idx.repeat_interleave(S_, dim=2)  # (B, K, T·S)
+        logits = self._step_core(prev_token, state, local.repeat_interleave(S_), flat_rep,
+                                 (g % T_) * S_)
+        state["g"] = g + 1
+        state["local_step"] = (local + 1).clamp_max(T_ - 1)
+        return logits, state
+
+    def _layer_step(self, layer: TransformerDecoderLayer, i: int, x: torch.Tensor,
+                    state: DecoderState, self_attn) -> torch.Tensor:
+        """One layer of a decode step or a prefill: ``self_attn`` over the
+        normed (pre-norm) or raw (post-norm) input, then the packed
+        cross-attention (kernel C, E over an int8 slab) and the FFN."""
+        x = layer.self_branch(x, self_attn)
+        x = layer.cross_branch(x, lambda h: layer.cross_attn.packed_cross(
+            h, state["cross"][i], state["cross_bias"]))
+        return layer.ffn_branch(x)
+
     def _step_core(
-        self, prev_token: torch.Tensor, state: DecoderState, pos_offset: int,
+        self, prev_token: torch.Tensor, state: DecoderState, pos_offset,
         flat_rep: torch.Tensor, write_pos: int,
     ) -> torch.Tensor:
-        """embed → pre-norm layers → shared-embedding logits, then ONE
-        in-place cache write of this step's K‖V rows at flattened (logical)
-        column ``write_pos``, quantized for an int8/int4 cache with its
-        scales written beside it."""
+        """embed → layers → logits, then ONE in-place cache write of this
+        step's K‖V rows at flattened (logical) column ``write_pos``,
+        quantized for an int8/int4 cache with its scales written beside it.
+        ``pos_offset`` is the step (int), or each row's step ((N,) tensor)."""
         kv = state["self_kv"]
         x = self.embed(prev_token) * self.embed_scale
         x = self.pos(x, offset=pos_offset)
         new_ks, new_vs = [], []
-        for i, layer in enumerate(self.layers):
-            h, k_new, v_new = self._self_attn_step(
-                layer, layer.self_attn_layer_norm(x), state, i, flat_rep
-            )
+
+        def self_attn(layer, i, h):
+            out, k_new, v_new = self._self_attn_step(layer, h, state, i, flat_rep)
             new_ks.append(k_new)
             new_vs.append(v_new)
-            x = x + h
-            x = x + layer.cross_attn.packed_cross(
-                layer.cross_attn_layer_norm(x), state["cross"][i], state["cross_bias"]
-            )
-            x = x + layer.ffn(layer.final_layer_norm(x))
-        logits = self.embed.attend(self.final_norm(x))[:, -1]
+            return out
+
+        for i, layer in enumerate(self.layers):
+            x = self._layer_step(layer, i, x, state,
+                                 lambda h, layer=layer, i=i: self_attn(layer, i, h))
+        logits = self._output(x)[:, -1]
         B_, H_, Dh_ = kv.shape[0], kv.shape[2], kv.shape[4] // 2
         S_ = prev_token.shape[0] // B_
 

@@ -1,10 +1,12 @@
 """Selective-attention gated image fusion of the port.
 
 Port of the ``selective_attention`` branch of ``mm_s2ut/models/fusion.py``
-(``SelectiveAttention``, ``GatedFusion``, ``FusionBlock``) with the
-flagship's image pre-norm and sigmoid gate, and of ``modality_dropout``:
-each speech frame attends over the image features, and the gate mixes
-the result into the speech stream. The reference runs it as plain
+(``SelectiveAttention``, ``GatedFusion``, ``FusionBlock``), with or
+without the image pre-norm and the sigmoid gate (``image_pre_norm``,
+``use_selective_gate``; the flagship sets both), and of
+``modality_dropout``: each speech frame attends over the image features,
+and the gate mixes the result into the speech stream (without the gate, a
+plain residual add). The reference runs it as plain
 einsums; so does the port (no kernel). In training mode the image, text
 and attention-weight dropouts are Bernoulli (``ops/dropout.py``), as the
 reference's ``nn.Dropout``.
@@ -45,36 +47,45 @@ class SelectiveAttention(nn.Module):
 
 
 class GatedFusion(nn.Module):
-    """res = (1 - g)·text + g·attn_out, g = σ(W [attn_out; text])."""
+    """res = (1 - g)·text + g·attn_out, g = σ(W [attn_out; text]); without
+    the gate, text + attn_out."""
 
-    def __init__(self, embed_dim: int):
+    def __init__(self, embed_dim: int, use_gate: bool = True):
         super().__init__()
-        self.gate = nn.Linear(2 * embed_dim, embed_dim)
+        if use_gate:
+            self.gate = nn.Linear(2 * embed_dim, embed_dim)
 
     def forward(self, text: torch.Tensor, attn_out: torch.Tensor) -> torch.Tensor:
+        if not hasattr(self, "gate"):
+            return text + attn_out
         gate = torch.sigmoid(self.gate(torch.cat([attn_out, text], dim=-1)))
         return (1.0 - gate) * text + gate * attn_out
 
 
 class FusionBlock(nn.Module):
-    """One image source → speech fusion: image pre-norm, image and text
-    dropout, selective attention, gated merge (of the dropped text)."""
+    """One image source → speech fusion: image pre-norm (optional), image
+    and text dropout, selective attention, gated merge (of the dropped
+    text)."""
 
     def __init__(self, embed_dim: int, image_dim: int, image_dropout: float = 0.0,
-                 text_dropout: float = 0.0, attention_dropout: float = 0.0):
+                 text_dropout: float = 0.0, attention_dropout: float = 0.0,
+                 use_selective_gate: bool = True, image_pre_norm: bool = True):
         super().__init__()
-        self.image_pre_norm = layer_norm(image_dim)
+        if image_pre_norm:
+            self.image_pre_norm = layer_norm(image_dim)
         self.image_drop = BernoulliDropout(image_dropout)
         self.text_drop = BernoulliDropout(text_dropout)
         self.selective_attn = SelectiveAttention(
             qdim=embed_dim, kdim=image_dim, vdim=image_dim, attn_dim=embed_dim,
             intermediate_dim=embed_dim, output_dim=embed_dim, attn_drop=attention_dropout,
         )
-        self.gated_fusion = GatedFusion(embed_dim)
+        self.gated_fusion = GatedFusion(embed_dim, use_selective_gate)
 
     def forward(self, text: torch.Tensor, image: torch.Tensor,
                 image_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        image = self.image_drop(self.image_pre_norm(image))
+        if hasattr(self, "image_pre_norm"):
+            image = self.image_pre_norm(image)
+        image = self.image_drop(image)
         text = self.text_drop(text)
         out, _ = self.selective_attn(text, image, image, key_padding_mask=image_mask)
         return self.gated_fusion(text, out)

@@ -4,8 +4,9 @@ Port of ``mm_s2ut/models/hifigan.py``: ``CodeHiFiGAN``,
 ``DurationPredictor``, ``length_regulate`` and ``HiFiGANGenerator`` as
 plain ``nn.Conv1d`` / ``nn.ConvTranspose1d`` (the reference's folded and
 grouped MRF repackings are TPU matrix-unit layouts of the same convs and
-are not carried over). ``load_fairseq_checkpoint`` maps a fairseq
-``code_hifigan`` state dict onto this module. Submodule names mirror the
+are not carried over), with the speaker embedding (``spkr``) of a
+multi-speaker vocoder appended to every frame. ``load_fairseq_checkpoint``
+maps a fairseq ``code_hifigan`` state dict onto this module. Submodule names mirror the
 flax parameter tree (``generator.ups_0``, ``resblocks_3.convs1_2`` …).
 """
 from __future__ import annotations
@@ -173,8 +174,6 @@ class CodeHiFiGAN(nn.Module):
 
     def __init__(self, cfg: HiFiGANConfig, max_frames: int = 2048):
         super().__init__()
-        if cfg.num_speakers:
-            raise NotImplementedError("speaker-conditioned vocoding is not ported")
         self.cfg = cfg
         self.max_frames = max_frames
         self.dict = nn.Embedding(cfg.num_embeddings, cfg.embedding_dim)
@@ -182,7 +181,19 @@ class CodeHiFiGAN(nn.Module):
             self.dur_predictor = DurationPredictor(
                 cfg.embedding_dim, cfg.var_pred_hidden_dim, cfg.var_pred_kernel_size
             )
+        if cfg.num_speakers:
+            # Speaker-conditioned vocoding: each frame's unit embedding gets
+            # the speaker's embedding appended (model_in_dim counts both).
+            self.spkr = nn.Embedding(cfg.num_speakers, cfg.speaker_embedding_dim)
         self.generator = HiFiGANGenerator(cfg)
+
+    def _with_speaker(self, frames: torch.Tensor, speaker: Optional[torch.Tensor]) -> torch.Tensor:
+        """(B, T, D) frames ‖ the (B,) speakers' embeddings, when the
+        vocoder has speakers and ``speaker`` is given."""
+        if not self.cfg.num_speakers or speaker is None:
+            return frames
+        spk = self.spkr(speaker)[:, None, :].expand(*frames.shape[:2], -1)
+        return torch.cat([frames, spk.to(frames.dtype)], dim=-1)
 
     @torch.no_grad()
     def unit_durations(
@@ -205,11 +216,13 @@ class CodeHiFiGAN(nn.Module):
         return dur * valid.long()
 
     @torch.no_grad()
-    def vocode_frames(self, frame_units: torch.Tensor) -> torch.Tensor:
+    def vocode_frames(self, frame_units: torch.Tensor,
+                      speaker: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, T) length-regulated unit ids, one per frame → (B, T·hop)
         waveform: the half of :meth:`forward` after length regulation
-        (``infer/streaming_vocoder.py`` feeds it halo windows)."""
-        return self.generator(self.dict(frame_units))
+        (``infer/streaming_vocoder.py`` feeds it halo windows); ``speaker``
+        (B,) speaker ids."""
+        return self.generator(self._with_speaker(self.dict(frame_units), speaker))
 
     @torch.no_grad()
     def forward(
@@ -217,11 +230,12 @@ class CodeHiFiGAN(nn.Module):
         units: torch.Tensor,  # (B, L) unit ids
         unit_lengths: Optional[torch.Tensor] = None,  # (B,)
         dur_prediction: bool = True,
+        speaker: Optional[torch.Tensor] = None,  # (B,) speaker ids
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """((B, max_frames·hop) waveform, (B,) valid sample counts)."""
         dur = self.unit_durations(units, unit_lengths, dur_prediction)
         frames, n_frames = length_regulate(self.dict(units), dur, self.max_frames)
-        return self.generator(frames), n_frames * self.cfg.hop_length
+        return self.generator(self._with_speaker(frames, speaker)), n_frames * self.cfg.hop_length
 
 
 def _fold_weight_norm(sd: Dict[str, torch.Tensor], prefix: str) -> torch.Tensor:
@@ -269,4 +283,6 @@ def load_fairseq_checkpoint(path: str | Path, cfg: HiFiGANConfig) -> Dict[str, t
             out[f"dur_predictor.ln{i}.bias"] = sd[f"dur_predictor.ln{i}.bias"]
         out["dur_predictor.proj.weight"] = sd["dur_predictor.proj.weight"]
         out["dur_predictor.proj.bias"] = sd["dur_predictor.proj.bias"]
+    if cfg.num_speakers:
+        out["spkr.weight"] = sd["spkr.weight"]
     return {k: v.float() for k, v in out.items()}

@@ -5,10 +5,10 @@ cache-free self-attention (kernel A, or G under a causal mask; kernel H
 in its backward), the dense attention of the teacher-forced decoder
 (plain einsums, as in the reference), the decode-time packed
 cross-attention (kernel C, or E over an int8 slab) and its K/V
-precompute, the ReLU feed-forward block, pre-norm encoder and decoder
-layers, the conv subsampler and the mask helpers (the flagship's
-choices; other activations and post-norm are not ported, see
-``models/mm_s2ut.py``).
+precompute, the feed-forward block (relu, gelu in its tanh form as
+``jax.nn.gelu``, silu/swish, tanh; ``glu`` raises, as the reference maps
+it to no function), pre-norm or post-norm encoder and decoder layers, the
+conv subsampler and the mask helpers.
 
 Training mode (``module.train()``) turns on the reference's dropouts:
 hash dropout on the residual branches and the activations, attention
@@ -45,6 +45,30 @@ LN_EPS = 1e-6  # flax nn.LayerNorm default
 
 def layer_norm(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=LN_EPS)
+
+
+ACTIVATIONS = {
+    "relu": F.relu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu's default
+    "silu": F.silu,
+    "swish": F.silu,
+    "tanh": torch.tanh,
+}
+
+
+def get_activation(name: str):
+    """The reference's activation table (``get_activation``); its ``glu``
+    entry is no function, so it raises here too."""
+    if name not in ACTIVATIONS:
+        raise NotImplementedError(f"activation_fn={name!r} is not supported")
+    return ACTIVATIONS[name]
+
+
+def sublayer(norm: nn.LayerNorm, normalize_before: bool, x: torch.Tensor, fn) -> torch.Tensor:
+    """One residual branch: x + fn(LN(x)) pre-norm, LN(x + fn(x)) post-norm."""
+    if normalize_before:
+        return x + fn(norm(x))
+    return norm(x + fn(x))
 
 
 def compute_dtype(t: torch.Tensor) -> torch.dtype:
@@ -85,17 +109,22 @@ class SinusoidalPositionalEmbedding(nn.Module):
         super().__init__()
         self.dim = dim
 
-    def forward(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, offset=0) -> torch.Tensor:
+        """x (N, T, D); ``offset`` an int start position (a decode step), or
+        an (N,) tensor of per-row start positions (continuous batching,
+        where co-scheduled utterances sit at different steps)."""
         t = x.shape[1]
         half = self.dim // 2
         emb = math.log(10000.0) / (half - 1)
         freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=x.device) * -emb)
         pos = torch.arange(t, dtype=torch.float32, device=x.device) + 2.0
-        if offset:
-            pos = pos + float(offset)
-        args = pos[:, None] * freqs[None, :]
+        if isinstance(offset, torch.Tensor):
+            pos = pos[None, :] + offset.to(device=x.device, dtype=torch.float32)[:, None]
+        else:
+            pos = (pos + float(offset))[None] if offset else pos[None]
+        args = pos[..., None] * freqs
         pe = torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
-        return x + pe.to(x.dtype)[None]
+        return x + pe.to(x.dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -207,63 +236,84 @@ class MultiHeadAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """fc2(drop(relu(fc1(x)))), hash dropout on the activation in training."""
+    """fc2(drop(act(fc1(x)))), hash dropout on the activation in training."""
 
-    def __init__(self, embed_dim: int, ffn_dim: int, activation_dropout: float = 0.0):
+    def __init__(self, embed_dim: int, ffn_dim: int, activation_dropout: float = 0.0,
+                 activation: str = "relu"):
         super().__init__()
         self.fc1 = nn.Linear(embed_dim, ffn_dim)
         self.fc2 = nn.Linear(ffn_dim, embed_dim)
         self.drop = HashDropout(activation_dropout)
+        self.act = get_activation(activation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.drop(F.relu(self.fc1(x))))
+        return self.fc2(self.drop(self.act(self.fc1(x))))
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Pre-norm: x + drop(attn(LN(x))), then x + drop(ffn(LN(x)));
-    ``causal`` (+ ``window``) makes the self-attention position-causal."""
+    """Pre-norm: x + drop(attn(LN(x))), then x + drop(ffn(LN(x))); post-norm
+    (``normalize_before=False``) LN(x + drop(attn(x))), then the same for
+    the FFN. ``causal`` (+ ``window``) makes the self-attention
+    position-causal."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
                  causal: bool = False, window: int = 0, dropout: float = 0.0,
-                 attention_dropout: float = 0.0, activation_dropout: float = 0.0):
+                 attention_dropout: float = 0.0, activation_dropout: float = 0.0,
+                 activation: str = "relu", normalize_before: bool = True):
         super().__init__()
         self.causal, self.window = causal, window
+        self.normalize_before = normalize_before
         self.self_attn_layer_norm = layer_norm(embed_dim)
         self.final_layer_norm = layer_norm(embed_dim)
         self.self_attn = MultiHeadAttention(embed_dim, num_heads, attention_dropout)
-        self.ffn = FeedForward(embed_dim, ffn_dim, activation_dropout)
+        self.ffn = FeedForward(embed_dim, ffn_dim, activation_dropout, activation)
         self.drop = HashDropout(dropout)
 
     def forward(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
         """``key_bias``: the (B, T) f32 additive bias of the padding."""
-        h = self.self_attn(self.self_attn_layer_norm(x), key_bias, self.causal, self.window)
-        x = x + self.drop(h)
-        return x + self.drop(self.ffn(self.final_layer_norm(x)))
+        pre = self.normalize_before
+        x = sublayer(self.self_attn_layer_norm, pre, x, lambda h: self.drop(
+            self.self_attn(h, key_bias, self.causal, self.window)))
+        return sublayer(self.final_layer_norm, pre, x, lambda h: self.drop(self.ffn(h)))
 
 
 class TransformerDecoderLayer(nn.Module):
-    """One pre-norm decoder layer. :meth:`forward` is the teacher-forced
-    pass of training; the incremental step that uses the same parameters
-    is ``UnitDecoder._step_core``."""
+    """One decoder layer, pre-norm or post-norm as the encoder's. Its three
+    residual branches are :meth:`self_branch`, :meth:`cross_branch` and
+    :meth:`ffn_branch`; :meth:`forward` is the teacher-forced pass of
+    training, and ``UnitDecoder._step_core`` / ``prefill`` run the same
+    branches with the decode-time attention."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int, dropout: float = 0.0,
-                 attention_dropout: float = 0.0, activation_dropout: float = 0.0):
+                 attention_dropout: float = 0.0, activation_dropout: float = 0.0,
+                 activation: str = "relu", normalize_before: bool = True):
         super().__init__()
+        self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(embed_dim, num_heads, attention_dropout)
         self.cross_attn = MultiHeadAttention(embed_dim, num_heads, attention_dropout)
         self.self_attn_layer_norm = layer_norm(embed_dim)
         self.cross_attn_layer_norm = layer_norm(embed_dim)
         self.final_layer_norm = layer_norm(embed_dim)
-        self.ffn = FeedForward(embed_dim, ffn_dim, activation_dropout)
+        self.ffn = FeedForward(embed_dim, ffn_dim, activation_dropout, activation)
         self.drop = HashDropout(dropout)
+
+    def self_branch(self, x: torch.Tensor, attn) -> torch.Tensor:
+        return sublayer(self.self_attn_layer_norm, self.normalize_before, x,
+                        lambda h: self.drop(attn(h)))
+
+    def cross_branch(self, x: torch.Tensor, attn) -> torch.Tensor:
+        return sublayer(self.cross_attn_layer_norm, self.normalize_before, x,
+                        lambda h: self.drop(attn(h)))
+
+    def ffn_branch(self, x: torch.Tensor) -> torch.Tensor:
+        return sublayer(self.final_layer_norm, self.normalize_before, x,
+                        lambda h: self.drop(self.ffn(h)))
 
     def forward(self, x: torch.Tensor, encoder_out: torch.Tensor, self_bias: torch.Tensor,
                 cross_bias: Optional[torch.Tensor]) -> torch.Tensor:
-        h = self.self_attn_layer_norm(x)
-        x = x + self.drop(self.self_attn.dense(h, h, self_bias))
-        x = x + self.drop(self.cross_attn.dense(self.cross_attn_layer_norm(x), encoder_out,
-                                                cross_bias))
-        return x + self.drop(self.ffn(self.final_layer_norm(x)))
+        x = self.self_branch(x, lambda h: self.self_attn.dense(h, h, self_bias))
+        x = self.cross_branch(x, lambda h: self.cross_attn.dense(h, encoder_out, cross_bias))
+        return self.ffn_branch(x)
 
 
 class Conv1dSubsampler(nn.Module):

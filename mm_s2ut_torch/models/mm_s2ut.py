@@ -5,10 +5,17 @@ teacher-forced training pass: encode, then the decoder over
 ``prev_output_tokens``), ``encode`` (conv-transformer speech encoder,
 batch-level modality dropout in training, then top selective-attention
 fusion of each image source, summed), ``decode_init``, ``decode_step``
-and ``decode_prefill`` (streaming's prefix reuse), for the flagship's
-choices (pre-norm, ReLU, tied output embedding, gated fusion with image
-pre-norm). Other branches and choices raise at construction, the CTC and
-multitask heads among them. The encoder's self-attention runs kernel A,
+and ``decode_prefill`` (streaming's prefix reuse) and ``serve_step``
+(continuous batching), for the conv-transformer encoder with top
+selective-attention fusion: any activation of the reference's table but
+``glu``, pre- or post-norm, a tied or untied output embedding, stacked
+units (training only), target-speaker conditioning (``spk_emb_proj``),
+``only_img`` (the first image source stands in for the encoder output,
+through ``only_img_proj`` when its width differs), fusion kept off the
+top (``is_fusion_top=False``: the encoder's states are returned and no
+fusion runs, as in the reference), and the gate and image pre-norm on or
+off. Other encoders, fusion types and heads raise at construction
+(:func:`_check_ported`). The encoder's self-attention runs kernel A,
 or kernel G with ``encoder_causal_attention`` (and
 ``encoder_attention_window``), and kernel H in the backward;
 ``use_flash_attention`` is read by the JAX package only (its non-flash
@@ -37,24 +44,20 @@ from mm_s2ut_torch.ops.dropout import DropoutRng
 
 
 def _check_ported(cfg: ModelConfig) -> None:
+    """Refuse the settings whose modules the port does not have yet: the
+    other speech encoders and fusion types, the on-line extractors, the CTC
+    and multitask heads and the pipelined encoder (ROADMAP.md §1). Every
+    other setting of ``ModelConfig`` is ported."""
     mm = cfg.multimodal
     unported = {
         "speech_encoder_type": cfg.speech_encoder_type != "conv_transformer",
         "multimodal_attention_type": mm.multimodal_attention_type not in (None, "selective_attention"),
-        "is_fusion_top=False": not mm.is_fusion_top,
         "multimodal_extractor_type": mm.multimodal_extractor_type is not None,
         "load_visual_extractor_type": bool(mm.load_visual_extractor_type),
-        "only_img": mm.only_img,
-        "speaker_embed_dim": cfg.speaker_embed_dim > 0,
         "ctc_weight": cfg.ctc_weight > 0,
         "multitask": bool(cfg.multitask),
-        "n_frames_per_step": cfg.n_frames_per_step > 1,
         "pipeline_stages": cfg.pipeline_stages > 1,
-        "activation_fn": cfg.activation_fn != "relu",
-        "post-norm": not (cfg.encoder_normalize_before and cfg.decoder_normalize_before),
-        "share_decoder_input_output_embed=False": not cfg.share_decoder_input_output_embed,
-        "use_selective_gate=False": bool(mm.multimodal_attention_type) and not mm.use_selective_gate,
-        "image_pre_norm=False": bool(mm.multimodal_attention_type) and not mm.image_pre_norm,
+        "activation_fn=glu": cfg.activation_fn == "glu",
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -95,30 +98,45 @@ class MMS2UTModel(nn.Module):
         self.cfg = cfg
         mm = cfg.multimodal
         drops = dict(dropout=cfg.dropout, attention_dropout=cfg.attention_dropout,
-                     activation_dropout=cfg.activation_dropout)
-        self.encoder = SpeechTransformerEncoder(
-            in_dim=cfg.input_feat_per_channel * cfg.input_channels,
-            embed_dim=cfg.encoder_embed_dim,
-            ffn_dim=cfg.encoder_ffn_embed_dim,
-            num_layers=cfg.encoder_layers,
-            num_heads=cfg.encoder_attention_heads,
-            conv_channels=cfg.conv_channels,
-            conv_kernel_sizes=tuple(cfg.conv_kernel_sizes),
-            causal_attention=cfg.encoder_causal_attention,
-            attention_window=cfg.encoder_attention_window,
-            **drops,
-        )
-        self.n_fusion = len(mm.image_feat_dim) if mm.multimodal_attention_type else 0
+                     activation_dropout=cfg.activation_dropout, activation=cfg.activation_fn)
+        # The modules the reference's forward calls are the ones its
+        # parameter tree holds: with only_img neither the speech encoder nor
+        # the fusion, and without top fusion no fusion blocks.
+        if not mm.only_img:
+            self.encoder = SpeechTransformerEncoder(
+                in_dim=cfg.input_feat_per_channel * cfg.input_channels,
+                embed_dim=cfg.encoder_embed_dim,
+                ffn_dim=cfg.encoder_ffn_embed_dim,
+                num_layers=cfg.encoder_layers,
+                num_heads=cfg.encoder_attention_heads,
+                conv_channels=cfg.conv_channels,
+                conv_kernel_sizes=tuple(cfg.conv_kernel_sizes),
+                causal_attention=cfg.encoder_causal_attention,
+                attention_window=cfg.encoder_attention_window,
+                normalize_before=cfg.encoder_normalize_before,
+                **drops,
+            )
+        elif mm.image_feat_dim and mm.image_feat_dim[0] != cfg.encoder_embed_dim:
+            self.only_img_proj = nn.Linear(mm.image_feat_dim[0], cfg.encoder_embed_dim)
+        if cfg.speaker_embed_dim:
+            self.spk_emb_proj = nn.Linear(cfg.encoder_embed_dim + cfg.speaker_embed_dim,
+                                          cfg.encoder_embed_dim)
+        fused = mm.multimodal_attention_type and mm.is_fusion_top and not mm.only_img
+        self.n_fusion = len(mm.image_feat_dim) if fused else 0
         for i in range(self.n_fusion):
             self.add_module(f"fusion{i}", FusionBlock(
                 cfg.encoder_embed_dim, mm.image_feat_dim[i], mm.SA_image_dropout,
-                mm.SA_text_dropout, mm.SA_attention_dropout))
+                mm.SA_text_dropout, mm.SA_attention_dropout, mm.use_selective_gate,
+                mm.image_pre_norm))
         self.decoder = UnitDecoder(
             vocab_size=cfg.vocab_size,
             embed_dim=cfg.decoder_embed_dim,
             ffn_dim=cfg.decoder_ffn_embed_dim,
             num_layers=cfg.decoder_layers,
             num_heads=cfg.decoder_attention_heads,
+            normalize_before=cfg.decoder_normalize_before,
+            share_input_output_embed=cfg.share_decoder_input_output_embed,
+            n_frames_per_step=cfg.n_frames_per_step,
             **drops,
         )
         self.rng: Optional[DropoutRng] = None
@@ -141,11 +159,26 @@ class MMS2UTModel(nn.Module):
         src_lengths: torch.Tensor,  # (B,)
         imgs_list: Sequence[torch.Tensor] = (),  # (B, Ti, Di) per source
         img_masks_list: Sequence[Optional[torch.Tensor]] = (),  # (B, Ti) True = pad
+        tgt_speaker: Optional[torch.Tensor] = None,  # (B, speaker_embed_dim)
     ) -> Dict[str, Any]:
-        out = self.encoder(src_features, src_lengths)
-        x, padding_mask = out["encoder_out"], out["encoder_padding_mask"]
         imgs_list = list(imgs_list)
         img_masks_list = list(img_masks_list) or [None] * len(imgs_list)
+        if self.cfg.multimodal.only_img:
+            # The first image source replaces the encoder output, and the
+            # others are never read (the reference's loop breaks there).
+            img = imgs_list[0].to(self.decoder.embed.embed_tokens.weight.dtype)
+            if hasattr(self, "only_img_proj"):
+                img = self.only_img_proj(img)
+            mask = img_masks_list[0]
+            if mask is None:
+                mask = torch.zeros(img.shape[:2], dtype=torch.bool, device=img.device)
+            return {"encoder_out": img, "encoder_padding_mask": mask, "encoder_states": []}
+        out = self.encoder(src_features, src_lengths,
+                           return_all_states=not self.cfg.multimodal.is_fusion_top)
+        x, padding_mask = out["encoder_out"], out["encoder_padding_mask"]
+        if hasattr(self, "spk_emb_proj") and tgt_speaker is not None:
+            spk = tgt_speaker[:, None, :].to(x.dtype).expand(*x.shape[:2], tgt_speaker.shape[-1])
+            x = self.spk_emb_proj(torch.cat([x, spk], dim=-1))
         if self.n_fusion and imgs_list:
             mm = self.cfg.multimodal
             if self.training and mm.modality_dropout > 0:
@@ -160,7 +193,8 @@ class MMS2UTModel(nn.Module):
             x = fused[0]
             for extra in fused[1:]:
                 x = x + extra
-        return {"encoder_out": x, "encoder_padding_mask": padding_mask}
+        return {"encoder_out": x, "encoder_padding_mask": padding_mask,
+                "encoder_states": out["encoder_states"]}
 
     def forward(
         self,
@@ -169,12 +203,15 @@ class MMS2UTModel(nn.Module):
         prev_output_tokens: torch.Tensor,  # (B, Tt)
         imgs_list: Sequence[torch.Tensor] = (),
         img_masks_list: Sequence[Optional[torch.Tensor]] = (),
+        tgt_speaker: Optional[torch.Tensor] = None,
     ) -> Dict[str, Any]:
-        """The teacher-forced pass of training: ``logits`` (B, Tt, V) fp32,
-        ``encoder_out`` and ``encoder_padding_mask``."""
-        enc = self.encode(src_features, src_lengths, imgs_list, img_masks_list)
+        """The teacher-forced pass of training: ``logits`` (B, Tt, V) fp32
+        (B, Tt·n, V) with n_frames_per_step = n), ``encoder_out`` and
+        ``encoder_padding_mask``."""
+        enc = self.encode(src_features, src_lengths, imgs_list, img_masks_list, tgt_speaker)
         logits = self.decoder(prev_output_tokens, enc["encoder_out"], enc["encoder_padding_mask"])
-        return {"logits": logits, **enc}
+        return {"logits": logits, "encoder_out": enc["encoder_out"],
+                "encoder_padding_mask": enc["encoder_padding_mask"]}
 
     def decode_init(self, enc: Dict[str, Any], max_len: int, kv_dtype=None) -> DecoderState:
         return self.decoder.init_state(
@@ -188,3 +225,8 @@ class MMS2UTModel(nn.Module):
         """Teacher-forced prefill of a beam-tiled state (streaming prefix
         reuse; see ``UnitDecoder.prefill``)."""
         return self.decoder.prefill(prefix_tokens, prefix_len, state)
+
+    def serve_step(self, prev_token: torch.Tensor, state: DecoderState):
+        """Continuous-batching decode step (``infer/serving.py``; see
+        ``UnitDecoder.serve_step``)."""
+        return self.decoder.serve_step(prev_token, state)

@@ -2,11 +2,13 @@
 
 Port of ``mm_s2ut/models/s2t_encoder.py`` (not pipelined, no
 rematerialization): (B, T, 80) log-mels → Conv1dSubsampler (4×) →
-scaled sinusoidal positions → hash dropout (training) → N pre-norm
-layers whose self-attention is kernel A, or with ``causal_attention``
-kernel G (position i attends to j ≤ i, and j > i − W with
-``attention_window`` W), and kernel H in the backward → final
-LayerNorm. The reference pads the frame axis to a multiple of 16 on the
+scaled sinusoidal positions → hash dropout (training) → N pre-norm (or
+post-norm) layers whose self-attention is kernel A, or with
+``causal_attention`` kernel G (position i attends to j ≤ i, and j > i − W
+with ``attention_window`` W), and kernel H in the backward → a final
+LayerNorm when pre-norm. ``return_all_states`` also returns every layer's
+output (``encoder_states``), as the reference does for the fusion
+variants that read them. The reference pads the frame axis to a multiple of 16 on the
 TPU for its kernel; A, G and H take any length, so nothing is padded
 here. The causal
 mask replaces masked logits (the reference's flash route); its folded-bias
@@ -16,7 +18,7 @@ holds a real key, i.e. on every unpadded row.
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence
+from typing import Any, Dict, List, Sequence
 
 import torch
 from torch import nn
@@ -47,9 +49,12 @@ class SpeechTransformerEncoder(nn.Module):
         dropout: float = 0.0,
         attention_dropout: float = 0.0,
         activation_dropout: float = 0.0,
+        activation: str = "relu",
+        normalize_before: bool = True,
     ):
         super().__init__()
         self.embed_dim = embed_dim
+        self.normalize_before = normalize_before
         self.num_layers = num_layers
         self.subsampler = Conv1dSubsampler(in_dim, conv_channels, embed_dim, conv_kernel_sizes)
         self.pos = SinusoidalPositionalEmbedding(embed_dim)
@@ -59,10 +64,13 @@ class SpeechTransformerEncoder(nn.Module):
             self.add_module(f"layer{i}", TransformerEncoderLayer(
                 embed_dim, ffn_dim, num_heads, causal=causal_attention, window=window,
                 dropout=dropout, attention_dropout=attention_dropout,
-                activation_dropout=activation_dropout))
-        self.final_layer_norm = layer_norm(embed_dim)
+                activation_dropout=activation_dropout, activation=activation,
+                normalize_before=normalize_before))
+        if normalize_before:
+            self.final_layer_norm = layer_norm(embed_dim)
 
-    def forward(self, features: torch.Tensor, lengths: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, features: torch.Tensor, lengths: torch.Tensor,
+                return_all_states: bool = False) -> Dict[str, Any]:
         dtype = self.subsampler.conv0.weight.dtype
         x, lengths = self.subsampler(features.to(dtype), lengths)
         x = x * math.sqrt(self.embed_dim)
@@ -71,7 +79,12 @@ class SpeechTransformerEncoder(nn.Module):
         # Zero padded positions so they cannot leak through LN/attention.
         x = x * (~padding_mask)[..., None].to(x.dtype)
         key_bias = padding_bias(padding_mask, *padding_mask.shape, x.device)  # once for all layers
+        states: List[torch.Tensor] = []
         for i in range(self.num_layers):
             x = getattr(self, f"layer{i}")(x, key_bias)
-        x = self.final_layer_norm(x)
-        return {"encoder_out": x, "encoder_padding_mask": padding_mask, "lengths": lengths}
+            if return_all_states:
+                states.append(x)
+        if self.normalize_before:
+            x = self.final_layer_norm(x)
+        return {"encoder_out": x, "encoder_padding_mask": padding_mask,
+                "encoder_states": states, "lengths": lengths}

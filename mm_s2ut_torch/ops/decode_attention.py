@@ -34,7 +34,6 @@ from mm_s2ut_torch.ops import _build
 NEG_INF = -1e9
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_BEAMS = 16  # query rows per (b, h) of kernels B, D, F; C and E take any count
-MAX_SHARED_BYTES = 232448  # a block's shared memory on Hopper
 
 
 def reference(q, k_new, v_new, kv, flat_rep, layer: int) -> torch.Tensor:
@@ -285,7 +284,10 @@ def cross_decode_attention(
     """(B, H, K, Dh) in q's dtype. K is any number of query rows: the
     beams of a decode step, or the prefix positions of a prefill. q is read
     through its strides (the decoder's beam-major view), and the result is
-    a (B, H, K, Dh) view of a beam-major (B, K, H, Dh) buffer."""
+    a (B, H, K, Dh) view of a beam-major (B, K, H, Dh) buffer. In fp32 the
+    slab is split over S where its scores would not fit in a block's
+    shared memory and while B·H is under a wave, and merged in split
+    order (``mm_cross_decode_splits``)."""
     if q.device.type == "cpu":
         return cross_reference(q, kv, bias)
     name = "cross_decode_attention"
@@ -298,10 +300,6 @@ def cross_decode_attention(
         raise ValueError(f"{name}: bias must be (B, S)")
     lib = _build.library()
     code = _build.dtype_code(q.dtype)
-    if q.dtype == torch.float32 and lib.mm_cross_decode_smem_bytes(K, S, Dh) > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"{name}: {min(K, MAX_BEAMS)} rows x S={S} fp32 scores exceed a block's shared memory"
-        )
     kv = kv.contiguous()
     if kv.data_ptr() % 16:
         raise ValueError(f"{name}: the slab must start on a 16-byte boundary (16-byte row copies)")

@@ -7,7 +7,7 @@ standardised log-mels on the device through the port's ``ops/fbank.py``.
 The batch order is the reference's (``LengthBucketBatcher`` seeded by
 ``train.seed``). Not ported, and refused when configured: noise mixing,
 the on-line visual extractor, raw-waveform speech encoders,
-``eval_inference`` and speaker embeddings; the native C++ loader, which
+and ``eval_inference``; the native C++ loader, which
 the reference also skips when it is absent, is left out.
 """
 from __future__ import annotations
@@ -47,7 +47,6 @@ def _check_ported(cfg: Config) -> None:
     unported = {
         "data.noise": cfg.data.noise.noise_prob > 0 and bool(cfg.data.noise.noise_wav_dir),
         "train.eval_inference": cfg.train.eval_inference,
-        "data.target_speaker_embed": bool(cfg.data.target_speaker_embed),
         "model.multimodal.load_visual_extractor_type":
             bool(cfg.model.multimodal.load_visual_extractor_type),
         "model.speech_encoder_type": cfg.model.speech_encoder_type != "conv_transformer",

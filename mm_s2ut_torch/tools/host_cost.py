@@ -191,6 +191,15 @@ def profile_decode_step(generator, feats, flens, imgs, masks, at_step: int) -> d
             del model.decode_step
     if len(stamps) < at_step + 3:
         raise RuntimeError(f"the search ran {len(stamps)} steps, fewer than {at_step + 3}")
+    n = min(50, at_step - 1)  # unprofiled steps just before the traced one
+    wall_ms = (stamps[at_step - 1] - stamps[at_step - 1 - n]) * 1e3 / n
+    return {"at_step": at_step, "step_ms": wall_ms, **_device_shares(prof, wall_ms)}
+
+
+def _device_shares(prof, wall_ms: float) -> dict:
+    """A trace's kernel time on the device, its busy share of ``wall_ms``,
+    launches and aten calls, the time and share of each of kernels B-F,
+    and the eight longest kernels."""
     events = prof.key_averages()
     kernels = [e for e in events
                if str(e.device_type).endswith("CUDA") and not e.key.startswith("ProfilerStep")]
@@ -199,11 +208,9 @@ def profile_decode_step(generator, feats, flens, imgs, masks, at_step: int) -> d
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
 
     total = sum(dev_us(e) for e in kernels)
-    n = min(50, at_step - 1)  # unprofiled steps just before the traced one
-    wall_ms = (stamps[at_step - 1] - stamps[at_step - 1 - n]) * 1e3 / n
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
     result = {
-        "at_step": at_step, "step_ms": wall_ms, "device_ms": total / 1e3,
+        "device_ms": total / 1e3,
         "busy": total / 1e3 / wall_ms if total > 0 else None,
         "launches": sum(e.count for e in kernels),
         "aten_calls": sum(e.count for e in events if e.key.startswith("aten::")),
@@ -214,6 +221,38 @@ def profile_decode_step(generator, feats, flens, imgs, masks, at_step: int) -> d
         result[f"{k}_share"] = us / total if total > 0 else None
     result["top"] = [(e.key[:60], e.count, round(dev_us(e) / 1e3, 4)) for e in top]
     return result
+
+
+def profile_serving_chunk(server, requests, at_chunk: int) -> dict:
+    """Run ``server.run(requests)`` with decode chunk ``at_chunk`` (the
+    interval from the start of that chunk's dispatch to the start of the
+    next: its ``chunk`` steps, then the host's wait on the previous chunk's
+    report and any admission wave) traced by ``torch.profiler``. Returns
+    the device time by kernel there, the shares of kernels B-F, and the
+    busy share against the mean wall time of the unprofiled chunks before
+    it (at most 8; the loop syncs once per chunk)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    inner = server._decode_chunk
+    stamps = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=at_chunk, warmup=1, active=1, repeat=1)) as prof:
+        def chunk(state):
+            stamps.append(time.perf_counter())
+            prof.step()
+            return inner(state)
+
+        server._decode_chunk = chunk
+        try:
+            results = server.run(requests)
+        finally:
+            del server._decode_chunk
+    if len(stamps) < at_chunk + 3:
+        raise RuntimeError(f"the server ran {len(stamps)} chunks, fewer than {at_chunk + 3}")
+    n = min(8, at_chunk - 1)
+    wall_ms = (stamps[at_chunk - 1] - stamps[at_chunk - 1 - n]) * 1e3 / n
+    return {"at_chunk": at_chunk, "chunk_ms": wall_ms, "steps": server.chunk,
+            "answered": len(results), **_device_shares(prof, wall_ms)}
 
 
 def _init_random_(module, generator):

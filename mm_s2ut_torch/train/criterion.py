@@ -4,8 +4,11 @@ Port of ``mm_s2ut/train/criterion.py`` (``label_smoothed_nll_loss``,
 ``kl_symmetric``, ``speech_to_unit`` and ``speech_to_unit_v2``). Each
 criterion returns (loss summed over non-pad targets, metrics); the
 trainer normalises by ``ntokens`` (fairseq's sample_size convention).
-The CTC and multitask terms are not ported: the model raises on
-``ctc_weight`` and ``multitask`` at construction.
+With n_frames_per_step = n > 1 the decoder puts out n sub-frame logits
+per packed position, and the loss reads the first columns that the
+unpacked target has, as the reference does. The CTC and multitask terms
+are not ported yet: the model raises on ``ctc_weight`` and ``multitask``
+at construction.
 """
 from __future__ import annotations
 
@@ -56,7 +59,8 @@ def speech_to_unit_criterion(
     label_smoothing: float = 0.2,
     pad_id: int = 1,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Label-smoothed CE over the unit logits; (loss_sum, metrics)."""
+    """Label-smoothed CE over the unit logits (cut to the target's length,
+    for n_frames_per_step > 1); (loss_sum, metrics)."""
     target = batch["target"]
     logits = outputs["logits"][:, : target.shape[1]]
     loss, _, metrics = label_smoothed_nll_loss(logits, target, label_smoothing, pad_id)

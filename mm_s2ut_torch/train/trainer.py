@@ -85,7 +85,7 @@ class Trainer:
     def _outputs(self, batch):
         return self.model(batch["src_features"], batch["src_lengths"],
                           batch["prev_output_tokens"], batch.get("imgs_list", ()),
-                          batch.get("img_masks_list", ()))
+                          batch.get("img_masks_list", ()), batch.get("tgt_speaker"))
 
     def _loss(self, batch):
         tcfg = self.cfg.train

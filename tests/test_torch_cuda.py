@@ -599,6 +599,91 @@ def test_i4_beam16_at_the_position_clamp(card, dtype):
            TOL_REQUANT[dtype])
 
 
+@pytest.mark.parametrize("K", [16, 10, 40])
+def test_cross_decode_f32_long_slab(card, K):
+    """fp32 C over S = 4000 encoder positions: 16 rows of scores pass a
+    block's shared memory, and B.H = 8 is under a wave, so the slab is
+    split over S (16 spans of 250 keys for 10, 16 and 40 rows, the last in
+    three row groups) and merged in split order. Each against the plain
+    version."""
+    n_split = _build.library().mm_cross_decode_splits(_build.F32, 2, 4, K, 4000, 64)
+    assert n_split == 16, n_split
+    q, kv, bias = cross_inputs(2, 4, K, 64, 4000, torch.float32, seed=K)
+    before = D.cross_decode_attention.launches
+    got = D.cross_decode_attention(q, kv, bias)
+    assert D.cross_decode_attention.launches == before + 1
+    _close(got, D.cross_reference(q, kv, bias), torch.float32)
+
+
+def _to(state, device):
+    """A server state (tensors, per-layer cross dicts, the host int g) on
+    ``device``."""
+    out = {}
+    for key, v in state.items():
+        if key == "cross":
+            out[key] = [{k: t.to(device, copy=True) for k, t in c.items()} for c in v]
+        else:
+            out[key] = v.to(device, copy=True) if isinstance(v, torch.Tensor) else v
+    return out
+
+
+@pytest.mark.parametrize("cache", ["bfloat16", "int8", "int4"])
+def test_serve_step_on_a_wrapped_ring(card, cache):
+    """``UnitDecoder.serve_step`` (kernels B, D or F over the ring, C or E
+    across) at B=4 slots, K=5 beams, on a 12-step ring at g = 29: slots
+    admitted at ring steps 3, 7, 11 and 0 with 10, 5, 11 and 2 live steps,
+    so three windows wrap (the oldest live step physically after the
+    newest); random cache contents and ancestry. A bf16 small model on the
+    card against the same state on the CPU (the plain versions), three
+    steps: logits within TOL (int8 / int4: TOL_REQUANT) times max(1, the
+    largest |logit|)."""
+    import copy
+    import dataclasses
+
+    from chip_smoke import init_random_, small_config
+    from mm_s2ut_torch.infer.serving import ContinuousServer
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+
+    cfg = dataclasses.replace(small_config(), dtype="bfloat16")
+    cpu_model = init_random_(MMS2UTModel(cfg), torch.Generator().manual_seed(9)).eval()
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    B, K, T = 4, 5, 12
+    srv = ContinuousServer(cpu_model, slots=B, beam_size=K, ring=T, chunk=1, enc_frames=96,
+                           max_len_a=0.0, max_len_b=8, kv_cache_dtype=cache,
+                           img_shapes=((20, 768),))
+    g = torch.Generator().manual_seed(29)
+    state = srv.init_state()
+    wave = {"feats": torch.randn(B, 96, 80, generator=g), "lens": torch.tensor([96, 80, 61, 40]),
+            "imgs": [torch.randn(B, 20, 768, generator=g)],
+            "masks": [torch.zeros(B, 20, dtype=torch.bool)]}
+    srv._admit(state, srv._encode(wave), list(range(B)), list(range(B)),
+               srv._budgets(wave["lens"].numpy()))
+    kv = state["self_kv"]
+    if cache == "bfloat16":
+        kv.copy_(torch.randn(kv.shape, generator=g).to(kv.dtype))
+    else:
+        kv.copy_(torch.randint(-127, 128, kv.shape, generator=g, dtype=torch.int8))
+        for key in ("self_kv_sk", "self_kv_sv"):
+            state[key].copy_(torch.rand(state[key].shape, generator=g) * 0.05 + 1e-3)
+    state.update(g=29, ring_base=torch.tensor([3, 7, 11, 0]), local_step=torch.tensor([10, 5, 11, 2]),
+                 ancestry=torch.randint(0, K, (B, K, T), generator=g))
+    card = _to(state, "cuda")
+    counter = {"bfloat16": D.ancestry_decode_attention, "int8": D.ancestry_decode_attention_i8,
+               "int4": D.ancestry_decode_attention_i4}[cache]
+    tol = (TOL if cache == "bfloat16" else TOL_REQUANT)[torch.bfloat16]
+    before = counter.launches
+    with torch.no_grad():
+        for _ in range(3):
+            tokens = torch.randint(4, 1004, (B * K, 1), generator=g)
+            want, state = cpu_model.serve_step(tokens, state)
+            got, card = gpu_model.serve_step(tokens.cuda(), card)
+            _close(got, want.cuda(), torch.bfloat16,
+                   tol * max(1.0, want.float().abs().max().item()))
+    assert counter.launches == before + 3 * cfg.decoder_layers
+    assert card["g"] == state["g"] == 32
+    assert torch.equal(card["local_step"].cpu(), state["local_step"])
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cross_decode_i8_long_slab(card, dtype):
     """E over S = 4000 encoder positions (fp32: split over blocks, where
