@@ -96,9 +96,35 @@ is no CPU path):
     no fusion gate, no image pre-norm) through ``UnitGenerator`` on the
     card and the CPU (tokens equal), and one ``n_frames_per_step = 2``
     train step card against CPU (losses within a relative 1e-4, A and H
-    launched).
+    launched);
+16. the enhanced path at full width: ``mm_xm_transformer`` at
+    ``mm_xm_architecture_base`` (decoder 1024-d, FFN 4096, 12 layers, 16
+    heads, vocab 1010) over wav2vec2-base (7 convs of 512, 12 x 768, 12
+    heads, group norm, post-norm), the 3-layer stride-2 adaptor and
+    selective fusion over 577x768 image features, bf16, random weights
+    from a seeded ``torch.Generator``: 8 synthetic 2-10 s wavs, beam 10,
+    max_len_a 1, max_len_b 200, with the bf16 then the int8 cache, the
+    launches of A-E counted over both (the kernels line's ``xm_launches``;
+    its ``launches`` stay those of the flagship paths), utt/s; one decode
+    step profiled; one forward at wav2vec2-large-lv60's geometry (layer norms, conv bias,
+    pre-norm, 24 x 1024, 16 heads) with A launched 24 times; then the
+    bench point, 128 x 10 s, beam 10, max_len_b 200, int8 then bf16;
+17. small fp32 configs card against CPU (TF32 off): XM and MMS2UTModel
+    with the ``hubert`` and ``wav2vec2_multimodal`` encoders through
+    ``UnitGenerator`` with the bf16, int8 and int4 caches, tokens equal;
+    a raw-waveform ``ContinuousServer`` on the XM model over a 24-step ring
+    that wraps: tokens equal to the card's offline search, scores atol 1e-4;
+18. ``python -m mm_s2ut_torch.cli.generate`` on a synthetic S2T corpus
+    (wavs, a SentencePiece model, the lang-tag dictionary, image features)
+    and an exported small XM checkpoint, on the card and with ``--device
+    cpu``: the same D- lines.
 
-Phase 2 also holds fp32 C over S = 4000 encoder positions (16 rows,
+Phase 2 also holds the enhanced path's shapes: A over wav2vec2 frames
+(B=8, T=499, H=12 and 16, and B=128, H=12; the key padding of 2-10 s
+utterances), B and D in the XM decoder (H=16, L=12, K=10, step 200 of
+263), C and E over the adaptor's short slab (B=8, H=16, K=10, S=63 and
+S=7), and B, C, D and E at phase 16's bench point (B=128, H=16, K=10,
+L=12, step 150 of 201, S=63 of 10 s utterances). It also holds fp32 C over S = 4000 encoder positions (16 rows,
 where the slab is split over S and merged, and 10 beams, where it is
 not) against its plain version. It also holds, at the train bench's encoder shapes (B=8, T=250 and
 B=2, T=1000, H=8, D=64, ragged key padding), A and G with attention
@@ -262,15 +288,27 @@ def flash_inputs(B, T, H, D, dtype, seed=0):
     return q, k, v, kpm
 
 
-def ancestry_inputs(B, H, K, Dh, L, T, step, dtype, seed=0):
+def ancestry_inputs(B, H, K, Dh, L, T, step, dtype, seed=0, on_card=False):
     """q, k_new, v_new (B, H, K, Dh), a (B, L, H, T·K, 2·Dh) cache and the
-    flat_rep of a random ancestry at ``step``."""
-    g = torch.Generator().manual_seed(seed)
-    q = _randn((B, H, K, Dh), g, dtype, Dh ** -0.5)
-    k_new, v_new = (_randn((B, H, K, Dh), g, dtype) for _ in range(2))
-    kv = _randn((B, L, H, T * K, 2 * Dh), g, dtype)
-    ancestry = torch.randint(0, K, (B, K, T), generator=g)
-    t_idx = torch.arange(T)[None, None, :]
+    flat_rep of a random ancestry at ``step``. ``on_card``: drawn on the
+    card from a seeded CUDA generator, the cache one layer at a time (a
+    bench-sized cache is 12.6 GB in bf16)."""
+    dev = "cuda" if on_card else "cpu"
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to("cuda", dtype)
+
+    q = draw((B, H, K, Dh), Dh ** -0.5)
+    k_new, v_new = (draw((B, H, K, Dh)) for _ in range(2))
+    if on_card:
+        kv = torch.empty((B, L, H, T * K, 2 * Dh), dtype=dtype, device="cuda")
+        for layer in range(L):
+            kv[:, layer] = draw((B, H, T * K, 2 * Dh))
+    else:
+        kv = draw((B, L, H, T * K, 2 * Dh))
+    ancestry = torch.randint(0, K, (B, K, T), generator=g, device=dev)
+    t_idx = torch.arange(T, device=dev)[None, None, :]
     flat = torch.where(t_idx < step, t_idx * K + ancestry, torch.full_like(ancestry, -1))
     flat_rep = flat.repeat_interleave(K, dim=2).to("cuda", torch.int32)
     return q, k_new, v_new, kv, flat_rep
@@ -1783,6 +1821,497 @@ def phase_config_branches(out_dir: Path):
     torch.backends.cudnn.allow_tf32 = True
 
 
+# ------------------------------------------------------------------ the enhanced path
+
+# The XM decoder's geometry (``mm_xm_architecture_base``): 16 heads of 64,
+# 12 layers; a 10 s utterance's budget with max_len_a 1 is 63 + 200 steps.
+XM = dict(B=8, H=16, Dh=64, K=10, L=12, T_dec=263, step=200)
+# Phase 16's bench point in the XM decoder: 128 x 10 s (S = 63), beam 10,
+# max_len_a 0, max_len_b 200, held at step 150 of 201.
+XM_BENCH = dict(B=128, H=16, Dh=64, K=10, L=12, T_dec=201, step=150, S=63)
+
+
+def xm_lengths(n, lo_s=2.0, hi_s=10.0):
+    """Sample counts of n utterances spread over lo_s..hi_s seconds, their
+    wav2vec2 frames (the conv lengths; 499 for 10 s) and their XM encoder
+    positions after the 3-layer stride-2 adaptor (63 for 10 s)."""
+    from mm_s2ut_torch.models.wav2vec2 import Wav2Vec2Config
+
+    samples = torch.linspace(lo_s * 16000, hi_s * 16000, n).long()
+    frames = Wav2Vec2Config().feature_lengths(samples)
+    positions = frames
+    for _ in range(3):
+        positions = (positions + 1) // 2
+    return samples, frames, positions
+
+
+def xm_bias(positions, S):
+    """The (B, S) f32 cross-attention bias of those encoder lengths."""
+    return torch.where(torch.arange(S)[None, :] < positions[:, None], 0.0, -1e9).cuda()
+
+
+def phase_xm_kernels():
+    """Phase 2's cases at the enhanced path's shapes: A over wav2vec2 frames
+    (T=499, the key padding of 2-10 s utterances through the conv lengths;
+    H=12 base, 16 large; and B=128 at H=12), B and D in the XM decoder
+    (H=16, L=12, K=10, step 200 of 263), and C and E over the adaptor's
+    short slab (S=63 for 10 s, S=7 for 1 s) at B=8, H=16, K=10."""
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.ops import decode_attention as D
+
+    x = XM
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        for B, H in ((8, 12), (8, 16), (128, 12)):
+            _, frames, _ = xm_lengths(B)
+            T = int(frames.max())
+            g = torch.Generator().manual_seed(B + H)
+            q, k, v = (_randn((B, T, H, 64), g, dtype) for _ in range(3))
+            kpm = (torch.arange(T)[None, :] >= frames[:, None]).cuda()
+            bias = torch.zeros(kpm.shape, device="cuda").masked_fill(kpm, A.NEG_INF)[:, None, None, :]
+            label = f"A wav2vec2 B={B} T={T} H={H}"
+            res = check_and_time(label, dtype, lambda: A.flash_attention(q, k, v, kpm),
+                                 lambda: A.reference_attention(q * 64 ** -0.5, k, v, bias),
+                                 TOL[dtype], lambda: sdpa(q, k, v, bias.to(dtype)))
+            work = flash_work(B, T, T, H, 64, dtype)
+            print(f"phase 2: {label} {name}: bound {work['bound_ms'] * 1e3:.2f} us "
+                  f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}, "
+                  f"kernel / SDPA {res['ms'] / res['library_ms']:.3f}")
+            del q, k, v, kpm, bias
+        b_args = ancestry_inputs(x["B"], x["H"], x["K"], x["Dh"], x["L"], x["T_dec"], x["step"],
+                                 dtype, seed=20)
+        res = check_and_time("B XM step 200 of 263", dtype,
+                             lambda: D.ancestry_decode_attention(*b_args, x["L"] // 2),
+                             lambda: D.reference(*b_args, x["L"] // 2), TOL[dtype])
+        work = ancestry_work(b_args[0], b_args[3], b_args[4], 2 * x["Dh"] * EB[dtype], "bf16")
+        print(f"phase 2: B XM step 200 {name}: bound {work['bound_ms'] * 1e3:.2f} us "
+              f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}")
+        del b_args
+        d_args = quant_ancestry_inputs(x["B"], x["H"], x["K"], x["Dh"], x["L"], x["T_dec"],
+                                       x["step"], dtype, seed=21)
+        res = check_and_time("D XM step 200 of 263", dtype,
+                             lambda: D.ancestry_decode_attention_i8(*d_args, x["L"] - 1),
+                             lambda: D.reference_i8(*d_args, x["L"] - 1), TOL_REQUANT[dtype])
+        work = ancestry_work(d_args[0], d_args[3], d_args[6], 2 * x["Dh"] + 8, "int8")
+        print(f"phase 2: D XM step 200 {name}: bound {work['bound_ms'] * 1e3:.2f} us "
+              f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}")
+        del d_args
+        for S, seconds in ((63, (2.0, 10.0)), (7, (1.0, 1.0))):
+            _, _, positions = xm_lengths(x["B"], *seconds)
+            assert int(positions.max()) == S
+            q, kv, _ = cross_inputs(x["B"], x["H"], x["K"], x["Dh"], S, dtype, seed=22 + S)
+            c_args = (q, kv, xm_bias(positions, S))
+            c_mask = c_args[2][:, None, None, :].to(dtype)
+            res = check_and_time(f"C XM S={S}", dtype, lambda: D.cross_decode_attention(*c_args),
+                                 lambda: D.cross_reference(*c_args), TOL[dtype],
+                                 lambda: torch.nn.functional.scaled_dot_product_attention(
+                                     q, kv[..., : x["Dh"]], kv[..., x["Dh"] :], attn_mask=c_mask,
+                                     scale=1.0))
+            work = cross_work(q, S, 2 * x["Dh"] * EB[dtype], "bf16")
+            print(f"phase 2: C XM S={S} {name}: bound {work['bound_ms'] * 1e3:.2f} us "
+                  f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}")
+            e_args = quant_cross_inputs(x["B"], x["H"], x["K"], x["Dh"], S, dtype, seed=23 + S)
+            e_args = (*e_args[:4], xm_bias(positions, S))
+            res = check_and_time(f"E XM S={S}", dtype, lambda: D.cross_decode_attention_i8(*e_args),
+                                 lambda: D.cross_reference_i8(*e_args), TOL[dtype])
+            work = cross_work(e_args[0], S, 2 * x["Dh"] + 8, "bf16")
+            print(f"phase 2: E XM S={S} {name}: bound {work['bound_ms'] * 1e3:.2f} us "
+                  f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}")
+            del q, kv, c_args, e_args
+        torch.cuda.empty_cache()
+        xm_bench_kernels(dtype)
+
+
+def xm_bench_kernels(dtype):
+    """B, C, D and E at phase 16's bench point (``XM_BENCH``): B·H = 2048,
+    where the split rules take another route than at B=8 (D's two passes
+    with no merge, B in one split), the last layer of the 12-layer cache
+    and scales, and the 63-position slab of 10 s utterances."""
+    from mm_s2ut_torch.ops import decode_attention as D
+
+    x, name = XM_BENCH, str(dtype)[6:]
+    layer = x["L"] - 1
+    b_args = ancestry_inputs(x["B"], x["H"], x["K"], x["Dh"], x["L"], x["T_dec"], x["step"],
+                             dtype, seed=30, on_card=True)
+    res = check_and_time("B XM bench step 150 of 201", dtype,
+                         lambda: D.ancestry_decode_attention(*b_args, layer),
+                         lambda: D.reference(*b_args, layer), TOL[dtype])
+    work = ancestry_work(b_args[0], b_args[3], b_args[4], 2 * x["Dh"] * EB[dtype], "bf16")
+    print(f"phase 2: B XM bench step 150 {name}: bound {work['bound_ms'] * 1e3:.2f} us "
+          f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}")
+    del b_args
+    torch.cuda.empty_cache()
+    d_args = quant_ancestry_inputs(x["B"], x["H"], x["K"], x["Dh"], x["L"], x["T_dec"],
+                                   x["step"], dtype, seed=31)
+    res = check_and_time("D XM bench step 150 of 201", dtype,
+                         lambda: D.ancestry_decode_attention_i8(*d_args, layer),
+                         lambda: D.reference_i8(*d_args, layer), TOL_REQUANT[dtype])
+    work = ancestry_work(d_args[0], d_args[3], d_args[6], 2 * x["Dh"] + 8, "int8")
+    print(f"phase 2: D XM bench step 150 {name}: bound {work['bound_ms'] * 1e3:.2f} us "
+          f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}")
+    del d_args
+    torch.cuda.empty_cache()
+    _, _, positions = xm_lengths(x["B"], 10.0, 10.0)
+    S = x["S"]
+    assert int(positions.max()) == int(positions.min()) == S
+    bias = xm_bias(positions, S)
+    q, kv, _ = cross_inputs(x["B"], x["H"], x["K"], x["Dh"], S, dtype, seed=32)
+    mask = bias[:, None, None, :].to(dtype)
+    res = check_and_time("C XM bench S=63", dtype, lambda: D.cross_decode_attention(q, kv, bias),
+                         lambda: D.cross_reference(q, kv, bias), TOL[dtype],
+                         lambda: torch.nn.functional.scaled_dot_product_attention(
+                             q, kv[..., : x["Dh"]], kv[..., x["Dh"] :], attn_mask=mask,
+                             scale=1.0))
+    work = cross_work(q, S, 2 * x["Dh"] * EB[dtype], "bf16")
+    print(f"phase 2: C XM bench S=63 {name}: bound {work['bound_ms'] * 1e3:.2f} us "
+          f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}, "
+          f"kernel / SDPA {res['ms'] / res['library_ms']:.3f}")
+    e_args = (*quant_cross_inputs(x["B"], x["H"], x["K"], x["Dh"], S, dtype, seed=33)[:4], bias)
+    res = check_and_time("E XM bench S=63", dtype, lambda: D.cross_decode_attention_i8(*e_args),
+                         lambda: D.cross_reference_i8(*e_args), TOL[dtype])
+    work = cross_work(e_args[0], S, 2 * x["Dh"] + 8, "bf16")
+    print(f"phase 2: E XM bench S=63 {name}: bound {work['bound_ms'] * 1e3:.2f} us "
+          f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}")
+    del q, kv, e_args
+    torch.cuda.empty_cache()
+
+
+def xm_config(w2v_args=None, dtype="bfloat16", small=False):
+    """``mm_xm_transformer`` at ``mm_xm_architecture_base`` (1024-d, FFN
+    4096, 12 layers, 16 heads; vocab 1010, the ModelConfig default) with
+    selective fusion over 768-d image features and the wav2vec2 geometry
+    of ``w2v_args`` (default: wav2vec2-base); ``small``: 64-d, 2 + 2 layers."""
+    from mm_s2ut_torch.config import ModelConfig, MultimodalConfig
+    from mm_s2ut_torch.models.mm_xm import mm_xm_architecture_base
+
+    mm = MultimodalConfig(image_feat_dim=[768], multimodal_attention_type="selective_attention")
+    if small:
+        return ModelConfig(decoder_embed_dim=64, decoder_ffn_embed_dim=128, decoder_layers=2,
+                           decoder_attention_heads=4, dtype=dtype, multimodal=mm,
+                           w2v_args=dict(SMALL_W2V, **(w2v_args or {})))
+    return mm_xm_architecture_base(ModelConfig(dtype=dtype, multimodal=mm,
+                                               w2v_args=w2v_args or {}))
+
+
+# HF's wav2vec2-large-lv60 geometry (the conv stack as base's).
+LARGE_W2V = dict(feat_extract_norm="layer", conv_bias=True, do_stable_layer_norm=True,
+                 hidden_size=1024, num_hidden_layers=24, num_attention_heads=16,
+                 intermediate_size=4096)
+# Phase 17's wav2vec2: base's conv strides (320 samples a frame), narrow.
+SMALL_W2V = dict(conv_dim=[64] * 7, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                 intermediate_size=128, num_conv_pos_embeddings=16,
+                 num_conv_pos_embedding_groups=4)
+
+
+def xm_generate(generator, wav, lens, imgs, masks):
+    """The enhanced path once: raw samples → wav2vec2 → adaptor → fusion →
+    beam search. Returns the hypotheses."""
+    return generator.generate(wav.cuda(), lens.cuda(), [imgs.cuda()], [masks.cuda()])
+
+
+def check_xm_outputs(hyps, n, beam, vocab):
+    import numpy as np
+
+    assert len(hyps) == n and all(len(h) == beam for h in hyps)
+    assert all(np.isfinite(x["score"]) for h in hyps for x in h)
+    assert all(0 <= t < vocab for h in hyps for t in h[0]["tokens"])
+
+
+def phase_xm_path(gen):
+    """Phase 16: the enhanced path at full width (bf16, random weights),
+    8 utterances with the bf16 then the int8 cache, a profiled decode
+    step, one forward at wav2vec2-large's geometry, then the bench point."""
+    from mm_s2ut_torch.config import GenerationConfig
+    from mm_s2ut_torch.infer.generator import UnitGenerator
+    from mm_s2ut_torch.models.mm_xm import MMXMTransformerModel
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.ops import decode_attention as D
+    from mm_s2ut_torch.tools.host_cost import profile_decode_step
+
+    cfg = xm_config()
+    model = init_random_(MMXMTransformerModel(cfg), gen).to("cuda").eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_w2v = sum(p.numel() for p in model.wav2vec2.parameters())
+    samples, frames, positions = xm_lengths(8)
+    wav, _, imgs = synthetic_batch(8, gen, min_s=10.0, max_s=10.0)
+    lens = samples
+    for i, m in enumerate(lens.tolist()):
+        wav[i, m:] = 0.0
+    masks = torch.zeros(imgs.shape[:2], dtype=torch.bool)
+    counters = {"A": A.flash_attention, "B": D.ancestry_decode_attention,
+                "C": D.cross_decode_attention, "D": D.ancestry_decode_attention_i8,
+                "E": D.cross_decode_attention_i8}
+    gens = {kv: UnitGenerator(model, GenerationConfig(beam=10, max_len_a=1.0, max_len_b=200,
+                                                      kv_cache_dtype=kv),
+                              max_target_positions=cfg.max_target_positions)
+            for kv in ("bfloat16", "int8")}
+    for g in gens.values():  # warm-up
+        xm_generate(g, wav[:2, :32000], torch.clamp(lens[:2], max=32000), imgs[:2], masks[:2])
+    seconds = {}
+
+    def run():
+        out = {}
+        for kv, g in gens.items():
+            out[kv], seconds[kv] = timed(lambda: xm_generate(g, wav, lens, imgs, masks))
+        return out
+
+    hyps, total, launches = counted(counters, run)
+    for kv in gens:
+        check_xm_outputs(hyps[kv], 8, 10, cfg.vocab_size)
+    assert launches["A"] == 2 * model.w2v_cfg.num_hidden_layers, launches  # an encode per cache
+    assert all(launches[k] > 0 for k in "BCDE"), f"a kernel of the path never launched: {launches}"
+    with torch.no_grad():
+        enc, enc_s = timed(lambda: model.encode(wav.cuda(), lens.cuda(), [imgs.cuda()],
+                                                [masks.cuda()]))
+    assert torch.isfinite(enc["encoder_out"]).all()
+    assert enc["encoder_out"].shape == (8, 63, cfg.decoder_embed_dim)
+    assert (~enc["encoder_padding_mask"]).sum(1).cpu().tolist() == positions.tolist()
+    audio_s = float(lens.sum()) / 16000
+    print(f"phase 16: mm_xm_transformer bf16 ({n_params / 1e6:.1f} M params, wav2vec2-base "
+          f"{n_w2v / 1e6:.1f} M), 8 utts of 2-10 s ({audio_s:.2f} s audio), wav2vec2 frames "
+          f"{frames.tolist()}, encoder positions {positions.tolist()}, beam 10, max_len_a 1, "
+          f"max_len_b 200: launches over both caches {launches}")
+    for kv in gens:
+        print(f"phase 16: {kv} cache: unit lengths {[len(h[0]['tokens']) for h in hyps[kv]]}; "
+              f"{seconds[kv]:.3f} s; {8 / seconds[kv]:.3f} utt/s; encode alone {enc_s:.4f} s "
+              f"({100 * enc_s / seconds[kv]:.1f}% of the run)")
+    prof = profile_decode_step(gens["bfloat16"], wav.cuda(), lens.cuda(), [imgs.cuda()],
+                               [masks.cuda()], 200)
+    print(f"phase 16: profiled decode step 200 (bf16 cache): {json.dumps(prof)}")
+    assert prof["B_ms"] > 0 and prof["C_ms"] > 0, f"the profile names no B or C kernel: {prof}"
+    del model, gens, hyps, enc
+    torch.cuda.empty_cache()
+
+    large = init_random_(MMXMTransformerModel(xm_config(LARGE_W2V)), gen).to("cuda").eval()
+    n_large = sum(p.numel() for p in large.wav2vec2.parameters())
+    prev = torch.full((8, 6), 2, dtype=torch.long, device="cuda")
+    with torch.no_grad():
+        (out, large_s), _, counts = counted(
+            {"A": A.flash_attention},
+            lambda: timed(lambda: large(wav.cuda(), lens.cuda(), prev, [imgs.cuda()],
+                                        [masks.cuda()])))
+    assert counts["A"] == 24, counts
+    assert torch.isfinite(out["logits"]).all() and torch.isfinite(out["encoder_out"]).all()
+    assert out["logits"].shape == (8, 6, cfg.vocab_size) and out["encoder_out"].shape[1] == 63
+    print(f"phase 16: wav2vec2-large-lv60 geometry ({n_large / 1e6:.1f} M params; layer norms, "
+          f"conv bias, pre-norm, 24 x 1024, 16 heads): one forward of 8 utts, {large_s:.4f} s, "
+          f"launches {counts}, logits and encoder states finite")
+    del large, out
+    torch.cuda.empty_cache()
+
+    model = init_random_(MMXMTransformerModel(cfg), gen).to("cuda").eval()
+    n = 128
+    wav, lens, imgs = synthetic_batch(n, gen, min_s=10.0, max_s=10.0)
+    masks = torch.zeros(imgs.shape[:2], dtype=torch.bool)
+    for kv in ("int8", "bfloat16"):
+        gcfg = GenerationConfig(beam=10, max_len_a=0.0, max_len_b=200, kv_cache_dtype=kv)
+        g = UnitGenerator(model, gcfg, max_target_positions=cfg.max_target_positions)
+        xm_generate(g, wav[:2, :32000], torch.clamp(lens[:2], max=32000), imgs[:2], masks[:2])
+        hyps, secs, counts = counted(counters, lambda: timed(
+            lambda: xm_generate(g, wav, lens, imgs, masks))[0])
+        check_xm_outputs(hyps, n, 10, cfg.vocab_size)
+        need = "ADE" if kv == "int8" else "ABC"
+        assert all(counts[k] > 0 for k in need), f"{kv}: a kernel of the path never launched"
+        print(f"phase 16: bench point, {kv} cache, {n} x 10 s utts, beam 10, max_len 200: unit "
+              f"lengths min {min(len(h[0]['tokens']) for h in hyps)} max "
+              f"{max(len(h[0]['tokens']) for h in hyps)}; launches {counts}; {secs:.3f} s; "
+              f"{n / secs:.3f} utt/s; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del hyps
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharpened_(model, eos: int = 2):
+    """Random weights made decodable: the final norm's gain x8, so argmaxes
+    are not near-ties, and the (tied) embedding rows of EOS and the four
+    specials x0.1, so their logits stay near 0 while the others spread
+    over about ±20: hypotheses of real tokens that run to their budget,
+    rather than EOS at step 0 or a run of <pad> (which cuts a hypothesis)."""
+    with torch.no_grad():
+        model.decoder.final_norm.weight.mul_(8.0)
+        rows = model.decoder.embed.embed_tokens.weight
+        rows[:4].mul_(0.1)
+        rows[eos].mul_(0.1 if eos >= 4 else 1.0)
+    return model
+
+
+def small_xm_models():
+    """Phase 17's small fp32 models (random weights, ``sharpened_``): XM,
+    and MMS2UTModel with the hubert and the wav2vec2_multimodal encoders."""
+    import dataclasses
+
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+    from mm_s2ut_torch.models.mm_xm import MMXMTransformerModel
+
+    base = small_config()
+    out = {"xm": MMXMTransformerModel(xm_config(dtype="float32", small=True))}
+    for kind in ("hubert", "wav2vec2_multimodal"):
+        cfg = dataclasses.replace(base, speech_encoder_type=kind, w2v_args=dict(SMALL_W2V))
+        out[kind] = MMS2UTModel(cfg)
+    for i, model in enumerate(out.values()):
+        sharpened_(init_random_(model, torch.Generator().manual_seed(17 + i)).eval())
+    return out
+
+
+def phase_xm_small_parity():
+    """Phase 17: the small fp32 models on the card against the CPU (TF32
+    off) through UnitGenerator with each cache, tokens equal; then a
+    raw-waveform ContinuousServer on the XM model over a ring that wraps,
+    against the card's offline search per utterance."""
+    import copy
+
+    import numpy as np
+
+    from mm_s2ut_torch.config import GenerationConfig
+    from mm_s2ut_torch.infer.generator import UnitGenerator
+    from mm_s2ut_torch.infer.serving import ContinuousServer, Request
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.ops import decode_attention as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = {"A": A.flash_attention, "B": D.ancestry_decode_attention,
+                "C": D.cross_decode_attention, "D": D.ancestry_decode_attention_i8,
+                "E": D.cross_decode_attention_i8, "F": D.ancestry_decode_attention_i4}
+    need = {"bfloat16": "ABC", "int8": "ADE", "int4": "AFE"}
+    gen = torch.Generator().manual_seed(17)
+    samples, _, _ = xm_lengths(2, 1.0, 3.0)
+    wav = 0.3 * torch.randn(2, int(samples.max()), generator=gen)
+    wav[0, int(samples[0]):] = 0.0
+    imgs = torch.randn(2, 50, 768, generator=gen)
+    masks = torch.zeros(2, 50, dtype=torch.bool)
+    masks[1, 40:] = True
+    models = small_xm_models()
+    for kind, cpu_model in models.items():
+        gpu_model = copy.deepcopy(cpu_model).to("cuda")
+        for kv in ("bfloat16", "int8", "int4"):
+            gcfg = GenerationConfig(beam=5, max_len_a=0.0, max_len_b=30, kv_cache_dtype=kv)
+            on_cpu = UnitGenerator(cpu_model, gcfg).generate(wav, samples, [imgs], [masks])
+            on_card, _, counts = counted(counters, lambda: UnitGenerator(gpu_model, gcfg).generate(
+                wav.cuda(), samples.cuda(), [imgs.cuda()], [masks.cuda()]))
+            assert all(counts[k] > 0 for k in need[kv]), f"{kind} {kv}: {counts}"
+            for b in range(2):
+                assert on_card[b][0]["tokens"], f"{kind}, {kv} cache, utt {b}: no tokens"
+                assert on_card[b][0]["tokens"] == on_cpu[b][0]["tokens"], \
+                    f"{kind}, {kv} cache, utt {b}: card and CPU tokens differ"
+            print(f"phase 17: small fp32 {kind}, {kv} cache, card vs CPU through "
+                  f"UnitGenerator: tokens equal (lengths "
+                  f"{[len(h[0]['tokens']) for h in on_card]}, scores "
+                  f"{[round(h[0]['score'], 4) for h in on_card]} vs "
+                  f"{[round(h[0]['score'], 4) for h in on_cpu]}); launches {counts}")
+
+    model = copy.deepcopy(models["xm"]).to("cuda")
+    enc_samples, ml = 48000, 12
+    rng = np.random.RandomState(17)
+    reqs = []
+    for i in range(6):
+        n = int(rng.randint(8000, enc_samples + 1))
+        mask = np.zeros(50, bool)
+        mask[50 - 7 * (i % 2):] = True
+        reqs.append(Request(i, (0.3 * rng.randn(n)).astype(np.float32), n,
+                            imgs=(rng.randn(50, 768).astype(np.float32),), img_masks=(mask,)))
+    for kv in ("bfloat16", "int8"):
+        srv = ContinuousServer(model, slots=2, beam_size=5, ring=24, chunk=4,
+                               enc_frames=enc_samples, enc_feat_dim=None, max_len_a=0.0,
+                               max_len_b=ml, img_shapes=((50, 768),), kv_cache_dtype=kv)
+        results, _, counts = counted(counters, lambda: srv.run(reqs))
+        assert srv.stats["steps"] > srv.ring, "the ring never wrapped"
+        assert all(counts[k] > 0 for k in need[kv]), counts
+        got = {r.uid: r for r in results}
+        g = UnitGenerator(model, GenerationConfig(beam=5, max_len_a=0.0, max_len_b=ml,
+                                                  kv_cache_dtype=kv))
+        worst = 0.0
+        for q in reqs:
+            w = np.zeros((1, enc_samples), np.float32)
+            w[0, : q.length] = q.features
+            off = g.generate(w, np.asarray([q.length]), [q.imgs[0][None]],
+                             [q.img_masks[0][None]])[0][0]
+            assert got[q.uid].tokens == off["tokens"], f"{kv}, uid {q.uid}: server and offline differ"
+            worst = max(worst, abs(got[q.uid].score - off["score"]))
+        assert worst <= 1e-4, f"{kv}: server and offline scores differ by {worst}"
+        print(f"phase 17: raw-waveform ContinuousServer on the small XM, {kv} cache, "
+              f"{len(reqs)} requests of {min(q.length for q in reqs)}-"
+              f"{max(q.length for q in reqs)} samples over a 24-step ring: {srv.stats['steps']} "
+              f"steps; tokens equal the card's offline search, scores max|diff| {worst:.2e} "
+              f"(tol 1e-4); launches {counts}")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def phase_xm_entry(out_dir: Path):
+    """Phase 18: ``python -m mm_s2ut_torch.cli.generate`` on a synthetic S2T
+    corpus (wavs, a SentencePiece model from ``build_model``, the lang-tag
+    dictionary, image .npy features) and an exported small XM checkpoint
+    (config.yaml + params.npz), on the card and with ``--device cpu``: the
+    same D- lines."""
+    import dataclasses
+
+    import numpy as np
+
+    from mm_s2ut_torch.config import Config, DataConfig, GenerationConfig
+    from mm_s2ut_torch.convert import to_flax
+    from mm_s2ut_torch.data.audio_io import write_wav
+    from mm_s2ut_torch.data.manifest import ManifestRow, write_manifest
+    from mm_s2ut_torch.data.sentencepiece import build_model
+    from mm_s2ut_torch.models.mm_xm import MMXMTransformerModel
+
+    root = out_dir / "generate"
+    (root / "model").mkdir(parents=True, exist_ok=True)
+    (root / "img").mkdir(exist_ok=True)
+    words = ["the", "a", "cat", "dog", "sat", "ran", "on", "mat", "in", "sun"]
+    pieces = [("▁" + w, -1.0 - i / 10) for i, w in enumerate(words)]
+    pieces += [(c, -6.0) for c in sorted(set("".join(words)))] + [("▁", -5.0)]
+    (root / "spm.model").write_bytes(build_model(pieces))
+    symbols = [p for p, _ in pieces] + ["<lang:de>"]
+    (root / "dict.txt").write_text("".join(f"{s} 1\n" for s in symbols))
+    rng = np.random.RandomState(18)
+    rows = []
+    for i in range(6):
+        n = int(rng.randint(16000, 48000))
+        write_wav(root / f"{i + 1}.wav", (0.3 * rng.randn(n)).astype(np.float32), 16000)
+        text = " ".join(rng.choice(words, 5))
+        rows.append(ManifestRow(str(i), f"{i + 1}.wav", n, text, 5, tgt_lang="de"))
+    write_manifest(root / "test.tsv", rows)
+    np.save(root / "img" / "test.npy", rng.randn(len(rows), 50, 768).astype(np.float32))
+
+    mcfg = xm_config(dtype="float32", small=True)
+    mcfg.vocab_size = len(symbols) + 4
+    mcfg.multimodal.image_feat_path = [str(root / "img")]
+    data = DataConfig(data_root=str(root), audio_root=str(root), vocab_filename="dict.txt",
+                      target_is_code=False, tgt_lang="<lang:de>", eos_token="<lang:de>",
+                      prepend_bos_and_append_tgt_lang_tag=True, max_tokens=600, num_buckets=2,
+                      bpe_tokenizer={"bpe": "sentencepiece",
+                                     "sentencepiece_model": str(root / "spm.model")})
+    cfg = Config(task="multimodal_speech_to_text", model=mcfg, data=data,
+                 generation=GenerationConfig(beam=5, max_len_a=0.0, max_len_b=20))
+    model = sharpened_(init_random_(MMXMTransformerModel(mcfg), torch.Generator().manual_seed(18)),
+                       eos=len(symbols) + 3)  # the lang tag: generation starts and ends there
+    (root / "model" / "config.yaml").write_text(json.dumps(dataclasses.asdict(cfg)))  # JSON is YAML
+    np.savez(root / "model" / "params.npz", **to_flax(model))
+    lines, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "mm_s2ut_torch.cli.generate", "--model_path",
+                        str(root / "model"), "--gen-subset", "test", "--results-path",
+                        str(root / dev), "--device", dev], cwd=HERE, check=True)
+        secs[dev] = time.perf_counter() - t0
+        lines[dev] = (root / dev / "generate-test.txt").read_text().splitlines()
+    d_lines = {dev: [line for line in ls if line.startswith("D-")] for dev, ls in lines.items()}
+    assert len(d_lines["cuda"]) == len(rows), d_lines["cuda"]
+    assert all(line.split("\t")[2] for line in d_lines["cuda"]), "an empty hypothesis"
+    toks = {dev: [line.split("\t")[2] for line in ls] for dev, ls in d_lines.items()}
+    assert toks["cuda"] == toks["cpu"], "cli.generate's D- lines differ between card and CPU"
+    assert not any("<lang:" in line for line in lines["cuda"])
+    scores = [abs(float(a.split("\t")[1]) - float(b.split("\t")[1]))
+              for a, b in zip(d_lines["cuda"], d_lines["cpu"])]
+    print(f"phase 18: python -m mm_s2ut_torch.cli.generate on a {len(rows)}-utterance S2T corpus "
+          f"(SentencePiece targets, <lang:de> framing, image features), exported small XM: "
+          f"D- lines' text equal on the card ({secs['cuda']:.1f} s) and the CPU "
+          f"({secs['cpu']:.1f} s), scores max|diff| {max(scores):.1e}; e.g. "
+          f"{d_lines['cuda'][0]!r}")
+
+
 KERNELS = {  # name, source (of the bf16 instance the record times), the TPU kernel it replaces
     "A": ("flash_attention", "mm_s2ut_torch/csrc/flash_attention_mma.cu",
           "mm_s2ut/ops/attention.py:140"),
@@ -1820,6 +2349,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     smi = phase_build()
     record = phase_kernels()
+    phase_xm_kernels()
     phase_long_cross()
     record.update(phase_causal_kernels())
     record.update(phase_train_kernels())
@@ -1840,10 +2370,13 @@ def main(argv=None) -> int:
     phase_serving(smi)
     phase_small_serving()
     phase_config_branches(Path(args.out))
+    xm_launches = phase_xm_path(torch.Generator().manual_seed(16))
+    phase_xm_small_parity()
+    phase_xm_entry(Path(args.out))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k], **record[k]}
+         "launches": launches[k], "xm_launches": xm_launches.get(k, 0), **record[k]}
         for k, (name, src, rep) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,10 @@ module at path ``a.b`` takes its parameters from the flax subtree
   (in, out, k), flipped in time (the reference's fairseq loader flips the
   other way, ``mm_s2ut/models/hifigan.py:547-550``)
 * Embed ``embedding`` → Embedding ``weight``
-* LayerNorm ``scale``/``bias`` → ``weight``/``bias``
+* LayerNorm and GroupNorm ``scale``/``bias`` → ``weight``/``bias``
+* a parameter a module holds itself (flax's ``self.param``) and names in
+  its ``FLAX_LEAVES`` (wav2vec2's ``masked_spec_embed``) → the leaf of
+  its own name, as is
 
 :func:`from_flax` is strict: a flax leaf no torch parameter takes, or a
 torch parameter no flax leaf fills, raises.
@@ -23,6 +26,18 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+
+_LAYOUTS = (nn.Linear, nn.Conv1d, nn.ConvTranspose1d, nn.Embedding, nn.LayerNorm, nn.GroupNorm)
+
+
+def _raw_leaves(mod: nn.Module, own: Mapping, name: str, fn: str):
+    """The own parameters of a module outside ``_LAYOUTS``: only those its
+    ``FLAX_LEAVES`` names."""
+    raw = getattr(mod, "FLAX_LEAVES", ())
+    if set(own) - set(raw):
+        raise TypeError(f"{fn}: no rule for {type(mod).__name__} at {name!r}")
+    return own
 
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -76,6 +91,10 @@ def from_flax(params: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
         if not own:
             continue
         prefix = name.replace(".", "/")
+        if not isinstance(mod, _LAYOUTS):
+            for leaf in _raw_leaves(mod, own, name, "from_flax"):
+                sd[f"{name}.{leaf}" if name else leaf] = take(prefix, leaf)
+            continue
         if isinstance(mod, nn.Linear):
             sd[f"{name}.weight"] = take(prefix, "kernel").T
         elif isinstance(mod, nn.ConvTranspose1d):
@@ -84,10 +103,8 @@ def from_flax(params: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
             sd[f"{name}.weight"] = take(prefix, "kernel").transpose(2, 1, 0)
         elif isinstance(mod, nn.Embedding):
             sd[f"{name}.weight"] = take(prefix, "embedding")
-        elif isinstance(mod, nn.LayerNorm):
+        else:  # LayerNorm, GroupNorm
             sd[f"{name}.weight"] = take(prefix, "scale")
-        else:
-            raise TypeError(f"from_flax: no rule for {type(mod).__name__} at {name!r}")
         if "bias" in own and own["bias"] is not None:
             sd[f"{name}.bias"] = take(prefix, "bias")
 
@@ -117,6 +134,10 @@ def to_flax(model: nn.Module) -> Dict[str, np.ndarray]:
         if not own:
             continue
         prefix = name.replace(".", "/")
+        if not isinstance(mod, _LAYOUTS):
+            for leaf, p in _raw_leaves(mod, own, name, "to_flax").items():
+                flat[f"{prefix}/{leaf}" if prefix else leaf] = p.detach().float().cpu().numpy()
+            continue
         w = own["weight"].detach().float().cpu().numpy()
         if isinstance(mod, nn.Linear):
             flat[f"{prefix}/kernel"] = w.T
@@ -126,10 +147,8 @@ def to_flax(model: nn.Module) -> Dict[str, np.ndarray]:
             flat[f"{prefix}/kernel"] = w.transpose(2, 1, 0)
         elif isinstance(mod, nn.Embedding):
             flat[f"{prefix}/embedding"] = w
-        elif isinstance(mod, nn.LayerNorm):
+        else:  # LayerNorm, GroupNorm
             flat[f"{prefix}/scale"] = w
-        else:
-            raise TypeError(f"to_flax: no rule for {type(mod).__name__} at {name!r}")
         if own.get("bias") is not None:
             flat[f"{prefix}/bias"] = own["bias"].detach().float().cpu().numpy()
     return {k: np.ascontiguousarray(v) for k, v in flat.items()}

@@ -44,6 +44,17 @@ def pack_units(ids: np.ndarray, n_frames_per_step: int, vocab_size: int, offset:
     return np.concatenate([packed, ids[-1:]]).astype(np.int64)
 
 
+def standardize_waveforms(wavs: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """Per-utterance zero mean, unit variance over each row's valid samples
+    (float64 statistics, eps 1e-7; padding stays 0): ``standardize_audio``
+    for the raw-waveform encoders, as the reference's task computes it."""
+    valid = np.arange(wavs.shape[1])[None, :] < lengths[:, None]
+    n = np.maximum(lengths.astype(np.float64), 1)[:, None]
+    mean = (wavs * valid).sum(1, keepdims=True) / n
+    var = (((wavs - mean) * valid) ** 2).sum(1, keepdims=True) / n
+    return ((wavs - mean) / np.sqrt(var + 1e-7) * valid).astype(np.float32)
+
+
 @dataclass
 class S2SItem:
     index: int
@@ -96,12 +107,14 @@ class SpeechToSpeechDataset:
     def num_target_frames(self, index: int) -> int:
         return self.rows[index].tgt_n_frames // self.n_frames_per_step
 
-    def __getitem__(self, index: int) -> S2SItem:
-        row = self.rows[index]
-        path = row.src_audio
-        if self.cfg.audio_root and not os.path.isabs(path):
-            path = os.path.join(self.cfg.audio_root, path)
-        wav, _ = get_waveform(path, use_sample_rate=self.cfg.sample_rate)
+    def lang_tag_index(self, lang: str) -> int:
+        """Vocabulary id of ``<lang:xx>``."""
+        tag = lang if lang.startswith("<lang:") else f"<lang:{lang}>"
+        return self.tgt_dict.index(tag)
+
+    def _encode_target(self, row: ManifestRow):
+        """(target ids with EOS, the lang tag that leads the decoder input
+        or None); the S2T dataset overrides it."""
         target = self.tgt_dict.encode_line(row.tgt_text, append_eos=True).astype(np.int64)
         n = self.n_frames_per_step
         if n > 1:  # whole packs only, then EOS
@@ -109,8 +122,16 @@ class SpeechToSpeechDataset:
             target = np.concatenate([target[:keep], [self.tgt_dict.eos()]])
         tgt_lang_tag = None
         if self.cfg.prepend_tgt_lang_tag_as_bos and row.tgt_lang:
-            tag = row.tgt_lang if row.tgt_lang.startswith("<lang:") else f"<lang:{row.tgt_lang}>"
-            tgt_lang_tag = self.tgt_dict.index(tag)
+            tgt_lang_tag = self.lang_tag_index(row.tgt_lang)
+        return target, tgt_lang_tag
+
+    def __getitem__(self, index: int) -> S2SItem:
+        row = self.rows[index]
+        path = row.src_audio
+        if self.cfg.audio_root and not os.path.isabs(path):
+            path = os.path.join(self.cfg.audio_root, path)
+        wav, _ = get_waveform(path, use_sample_rate=self.cfg.sample_rate)
+        target, tgt_lang_tag = self._encode_target(row)
         imgs: List[np.ndarray] = []
         masks: List[Optional[np.ndarray]] = []
         if self.image_stores:

@@ -60,6 +60,9 @@ class Dictionary:
     def eos(self) -> int:
         return self.eos_index
 
+    def unk(self) -> int:
+        return self.unk_index
+
     def encode_line(self, line: str, append_eos: bool = True) -> np.ndarray:
         ids = [self.index(w) for w in line.split()]
         if append_eos:

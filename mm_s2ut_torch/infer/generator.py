@@ -1,8 +1,8 @@
 """High-level generator: encode → tiled decode state → beam search.
 
 Port of ``UnitGenerator.generate`` and ``format_generation_output`` from
-``mm_s2ut/infer/generator.py`` for one model (the logit ensemble and the
-ahead-of-time executables are not ported).
+``mm_s2ut/infer/generator.py`` for one model (the logit ensemble,
+ROADMAP.md §1 item 8, and the ahead-of-time executables are not ported).
 """
 from __future__ import annotations
 
@@ -21,7 +21,10 @@ def _tensor(x, device, dtype=None) -> torch.Tensor:
 
 
 class UnitGenerator:
-    """Beam-search generator over an ``MMS2UTModel`` (on the model's device)."""
+    """Beam-search generator over an ``MMS2UTModel`` or an
+    ``MMXMTransformerModel`` (on the model's device). ``eos_id``/``bos_id``
+    override the dictionary's EOS: the XM path starts from and stops on
+    its target language tag."""
 
     def __init__(
         self,
@@ -40,16 +43,22 @@ class UnitGenerator:
         self.vocab_size = model.cfg.vocab_size
 
     def _max_len(self, src_frames: int) -> int:
+        """The search's budget a·src + b, where src counts the model's
+        input positions per ``source_downsample_ratio`` (fbank frames; for
+        raw-waveform encoders, their frames: 320 samples, or 2560 through
+        the XM adaptor), rounded up."""
+        ratio = getattr(self.model, "source_downsample_ratio", 1)
+        src_positions = -(-src_frames // ratio)
         return int(min(
-            self.cfg.max_len_a * src_frames + self.cfg.max_len_b,
+            self.cfg.max_len_a * src_positions + self.cfg.max_len_b,
             self.max_target_positions - 1,
         ))
 
     @torch.no_grad()
     def generate(
         self,
-        src_features,  # (B, T, F)
-        src_lengths,  # (B,)
+        src_features,  # (B, T, F) fbank frames, or (B, S) waveforms
+        src_lengths,  # (B,) frames, or samples
         imgs_list: Sequence[Any] = (),
         img_masks_list: Sequence[Any] = (),
     ) -> List[List[Dict[str, Any]]]:

@@ -33,9 +33,13 @@ selection is its ``select_beams``): chunking and slot sharing change the
 schedule, and the arithmetic only by the rounding of batched products,
 which a requantizing int4 cache can carry to ~1e-4 in a score. The device
 is the model's; the vocabulary is the model's, the image sources are
-``img_shapes``. Not carried over: the reference's ``sync_every`` (a workaround
-for its TPU relay) and raw-waveform requests (``enc_feat_dim=None``, for
-the XM encoders that are not ported yet, ROADMAP.md §1 item 6).
+``img_shapes``. With ``enc_feat_dim=None`` the model reads raw waveforms
+(the XM model, or a wav2vec2/HuBERT ``speech_encoder_type``): a request is
+then a (T,) waveform and ``enc_frames`` counts samples, and a slot's
+budget counts the model's frames, ⌈samples / ``source_downsample_ratio``⌉,
+as the offline generator does (the reference's server takes a·samples + b,
+which with a > 0 always reaches the ring's limit). Not carried over: the
+reference's ``sync_every`` (a workaround for its TPU relay).
 """
 from __future__ import annotations
 
@@ -51,8 +55,9 @@ from mm_s2ut_torch.infer.beam_search import NEG_INF, _length_norm, _take, select
 
 @dataclasses.dataclass
 class Request:
-    """One utterance to decode: ``features`` (T, F) log-mels and their
-    ``length``; ``imgs``/``img_masks`` the optional image sources."""
+    """One utterance to decode: ``features`` (T, F) log-mels, or a (T,)
+    waveform for a raw-waveform server, and their ``length``;
+    ``imgs``/``img_masks`` the optional image sources."""
 
     uid: Any
     features: np.ndarray
@@ -69,10 +74,10 @@ class Result:
 
 
 class ContinuousServer:
-    """Slot-pool beam-decode server around an ``MMS2UTModel`` (eval mode,
-    on its device). ``run(requests)`` returns one :class:`Result` per
-    request, in completion order; ``stats`` then holds the last run's host
-    phases (seconds) and counts."""
+    """Slot-pool beam-decode server around an ``MMS2UTModel`` or an
+    ``MMXMTransformerModel`` (eval mode, on its device). ``run(requests)``
+    returns one :class:`Result` per request, in completion order; ``stats``
+    then holds the last run's host phases (seconds) and counts."""
 
     def __init__(
         self,
@@ -94,13 +99,12 @@ class ContinuousServer:
         admit_width: Optional[int] = None,
         enc_feat_dim: Optional[int] = 80,
     ):
-        if enc_feat_dim is None:
-            raise NotImplementedError(
-                "raw-waveform requests (enc_feat_dim=None) need the XM / wav2vec2 encoders, "
-                "which are not ported yet (ROADMAP.md §1 item 6, speech encoders)")
-        feat_dim = model.cfg.input_feat_per_channel * model.cfg.input_channels
+        self.ratio = model.source_downsample_ratio
+        feat_dim = (None if model.reads_waveform else
+                    model.cfg.input_feat_per_channel * model.cfg.input_channels)
         if enc_feat_dim != feat_dim:
-            raise ValueError(f"enc_feat_dim {enc_feat_dim}: the model reads {feat_dim} features")
+            raise ValueError(f"enc_feat_dim {enc_feat_dim}: the model reads "
+                             f"{'raw waveforms (None)' if feat_dim is None else feat_dim}")
         if max_len_b >= ring:
             raise ValueError("ring must exceed max_len_b (no wrap within one utterance)")
         if kv_cache_dtype == "int4":
@@ -132,7 +136,7 @@ class ContinuousServer:
         features, the self cache tiled to ring·K columns, per-slot search
         state. ``g`` is a host int."""
         B, K, T = self.B, self.K, self.ring
-        feats = torch.zeros((B, self.enc_frames, self.enc_feat_dim), device=self.device)
+        feats = torch.zeros(self._src_shape(B), device=self.device)
         lengths = torch.full((B,), self.enc_frames, dtype=torch.long, device=self.device)
         imgs = [torch.zeros((B, t, d), device=self.device) for t, d in self.img_shapes]
         masks = [torch.zeros((B, t), dtype=torch.bool, device=self.device)
@@ -163,6 +167,12 @@ class ContinuousServer:
             finished=self._full((B,), False, torch.bool),
         )
         return state
+
+    def _src_shape(self, n: int) -> Tuple[int, ...]:
+        """(n, frames, features), or (n, samples) for raw waveforms."""
+        if self.enc_feat_dim is None:
+            return (n, self.enc_frames)
+        return (n, self.enc_frames, self.enc_feat_dim)
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         """Host array → device tensor without a host sync: through a fresh
@@ -215,9 +225,11 @@ class ContinuousServer:
 
     def _budgets(self, lengths: np.ndarray) -> np.ndarray:
         """Each slot's step budget from its RAW source frames (the offline
-        generator's rule; the encoder's mask is subsampled), in fp32 as the
-        reference computes it, at most ring − 2."""
-        raw = np.float32(self.max_len_a) * lengths.astype(np.float32) + np.float32(self.max_len_b)
+        generator's rule; the encoder's mask is subsampled; a waveform's
+        frames are ⌈samples / ratio⌉), in fp32 as the reference computes
+        it, at most ring − 2."""
+        frames = -(-lengths // self.ratio)
+        raw = np.float32(self.max_len_a) * frames.astype(np.float32) + np.float32(self.max_len_b)
         return np.minimum(raw.astype(np.int64), self.ring - 2)
 
     @torch.no_grad()
@@ -285,7 +297,7 @@ class ContinuousServer:
             admitted."""
             if not queue:
                 return None
-            feats = np.zeros((A, self.enc_frames, self.enc_feat_dim), np.float32)
+            feats = np.zeros(self._src_shape(A), np.float32)
             lens = np.zeros((A,), np.int64)
             imgs = [np.zeros((A, t, d), np.float32) for t, d in self.img_shapes]
             masks = [np.ones((A, t), bool) for t, _ in self.img_shapes]

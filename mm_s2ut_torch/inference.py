@@ -10,7 +10,11 @@ artifacts (``<name>.unit``, ``generate-<subset>.txt``, ``<name>_pred.wav``):
 
 ``--model_path`` is a directory holding ``config.yaml`` and ``params.npz``
 (``scripts/export_jax_params.py`` writes both from a Trainer checkpoint).
-Images are precomputed ``.npy`` feature arrays. ``--device`` picks the
+Images are precomputed ``.npy`` feature arrays. A model with a
+wav2vec2/HuBERT ``speech_encoder_type`` reads the samples (standardized
+per utterance with ``data.standardize_audio``) instead of fbank frames; a
+speech-to-text checkpoint is decoded by ``python -m
+mm_s2ut_torch.cli.generate``. ``--device`` picks the
 device (default ``cuda``); with ``cuda`` and no visible card the command
 raises rather than running on the CPU.
 """
@@ -27,11 +31,12 @@ import torch
 from mm_s2ut_torch.config import load_config
 from mm_s2ut_torch.convert import from_flax, load_npz
 from mm_s2ut_torch.data.audio_io import get_waveform, write_wav
+from mm_s2ut_torch.data.dataset import standardize_waveforms
 from mm_s2ut_torch.data.dictionary import UnitDictionary
 from mm_s2ut_torch.data.manifest import read_manifest
 from mm_s2ut_torch.infer.generator import UnitGenerator, format_generation_output
 from mm_s2ut_torch.models.hifigan import CodeHiFiGAN, HiFiGANConfig, load_fairseq_checkpoint
-from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+from mm_s2ut_torch.models import build_model_from_config
 from mm_s2ut_torch.ops.fbank import FbankConfig, waveform_frontend
 
 logger = logging.getLogger("mm_s2ut_torch.inference")
@@ -48,13 +53,15 @@ def resolve_device(name: str) -> torch.device:
 
 
 def load_model(model_path: str, device: torch.device):
-    """(config, MMS2UTModel on ``device``) from a config.yaml + params.npz dir."""
+    """(config, model on ``device``) from a config.yaml + params.npz dir: an
+    ``MMS2UTModel``, or an ``MMXMTransformerModel`` for ``task:
+    multimodal_speech_to_text`` (``models.build_model_from_config``)."""
     path = Path(model_path)
     for f in ("config.yaml", "params.npz"):
         if not (path / f).exists():
             raise FileNotFoundError(f"{path / f} not found — pass an exported model dir")
     cfg = load_config(path / "config.yaml")
-    model = MMS2UTModel(cfg.model)
+    model = build_model_from_config(cfg)
     model.load_state_dict(from_flax(load_npz(path / "params.npz"), model))
     return cfg, model.to(device).eval()
 
@@ -94,6 +101,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     cfg, model = load_model(args.model_path, device)
+    if cfg.task == "multimodal_speech_to_text":
+        raise ValueError(f"{args.model_path} is a speech-to-text model: decode it with "
+                         "python -m mm_s2ut_torch.cli.generate")
+    raw = model.reads_waveform
     if args.beam:
         cfg.generation.beam = args.beam
     tgt_dict = UnitDictionary(cfg.data.target_code_size)
@@ -106,9 +117,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         for i, w in enumerate(wavs):
             batch[i, : len(w)] = w
         lens = torch.tensor([len(w) for w in wavs], dtype=torch.long, device=device)
-        feats, frame_lens = waveform_frontend(
-            torch.from_numpy(batch).to(device), lens, fbank_cfg, cfg.data.standardize_audio,
-        )
+        if raw:
+            if cfg.data.standardize_audio:
+                batch = standardize_waveforms(batch, lens.cpu().numpy())
+            feats, frame_lens = torch.from_numpy(batch).to(device), lens
+        else:
+            feats, frame_lens = waveform_frontend(
+                torch.from_numpy(batch).to(device), lens, fbank_cfg, cfg.data.standardize_audio,
+            )
         imgs_list = (imgs,) if imgs is not None else ()
         masks = (np.zeros(imgs.shape[:2], bool),) if imgs is not None else ()
         return gen.generate(feats, frame_lens, imgs_list, masks)

@@ -24,7 +24,8 @@ Decoder state is a plain dict: ``step`` (int), ``self_kv``, ``cross``
 An int4 cache is nibble-packed in the half-split layout
 (``ops/decode_attention.i4_pack``): its physical column axis is half the
 logical one, which is how the code tells it from int8 (the scales keep
-the logical length).
+the logical length). :class:`CTCHead` is the auxiliary CTC projection
+of the multitask heads (logits only).
 """
 from __future__ import annotations
 
@@ -430,3 +431,16 @@ class UnitDecoder(nn.Module):
         k_rows, v_rows = to_rows(new_ks), to_rows(new_vs)
         write_step(kv, k_rows, v_rows, write_pos, state.get("self_kv_sk"), state.get("self_kv_sv"))
         return logits
+
+
+class CTCHead(nn.Module):
+    """The auxiliary CTC projection over encoder states (the multitask
+    heads'): fp32 logits. Only the logits are ported; the CTC loss waits
+    for training (ROADMAP.md §1 item 4)."""
+
+    def __init__(self, embed_dim: int, vocab_size: int):
+        super().__init__()
+        self.ctc_proj = nn.Linear(embed_dim, vocab_size)
+
+    def forward(self, encoder_out: torch.Tensor) -> torch.Tensor:
+        return self.ctc_proj(encoder_out).float()

@@ -136,7 +136,8 @@ class MultiHeadAttention(nn.Module):
     int8). The decoder's incremental self-attention lives in
     ``UnitDecoder._self_attn_step`` (kernel B), as in the reference."""
 
-    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 kdim: Optional[int] = None):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError("embed_dim must divide num_heads")
@@ -144,9 +145,10 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.dropout = dropout
+        kdim = kdim or embed_dim  # the width of what the keys and values are made from
         self.q_proj = nn.Linear(embed_dim, embed_dim)
-        self.k_proj = nn.Linear(embed_dim, embed_dim)
-        self.v_proj = nn.Linear(embed_dim, embed_dim)
+        self.k_proj = nn.Linear(kdim, embed_dim)
+        self.v_proj = nn.Linear(kdim, embed_dim)
         self.out_proj = nn.Linear(embed_dim, embed_dim)
         self.drop = BernoulliDropout(dropout)
         self.rng: Optional[DropoutRng] = None  # seeds of the in-kernel dropout

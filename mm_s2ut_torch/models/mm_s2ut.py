@@ -6,7 +6,11 @@ teacher-forced training pass: encode, then the decoder over
 batch-level modality dropout in training, then top selective-attention
 fusion of each image source, summed), ``decode_init``, ``decode_step``
 and ``decode_prefill`` (streaming's prefix reuse) and ``serve_step``
-(continuous batching), for the conv-transformer encoder with top
+(continuous batching), for the conv-transformer encoder or a raw-waveform
+wav2vec2/HuBERT encoder (``speech_encoder_type`` ``hubert`` or
+``wav2vec2``, or ``wav2vec2_multimodal`` with its in-layer image fusion
+instead of top fusion; ``models/wav2vec2.py``, configured by
+``w2v_args``; ``speech_proj`` takes its width to the encoder's) with top
 selective-attention fusion: any activation of the reference's table but
 ``glu``, pre- or post-norm, a tied or untied output embedding, stacked
 units (training only), target-speaker conditioning (``spk_emb_proj``),
@@ -14,7 +18,7 @@ units (training only), target-speaker conditioning (``spk_emb_proj``),
 through ``only_img_proj`` when its width differs), fusion kept off the
 top (``is_fusion_top=False``: the encoder's states are returned and no
 fusion runs, as in the reference), and the gate and image pre-norm on or
-off. Other encoders, fusion types and heads raise at construction
+off. Other fusion types and heads raise at construction
 (:func:`_check_ported`). The encoder's self-attention runs kernel A,
 or kernel G with ``encoder_causal_attention`` (and
 ``encoder_attention_window``), and kernel H in the backward;
@@ -40,17 +44,29 @@ from mm_s2ut_torch.models.decoder import DecoderState, UnitDecoder
 from mm_s2ut_torch.models.fusion import FusionBlock, modality_dropout
 from mm_s2ut_torch.models.layers import MultiHeadAttention
 from mm_s2ut_torch.models.s2t_encoder import SpeechTransformerEncoder
+from mm_s2ut_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model, Wav2Vec2WithMultiModal
 from mm_s2ut_torch.ops.dropout import DropoutRng
+
+
+SPEECH_ENCODERS = ("conv_transformer", "hubert", "wav2vec2", "wav2vec2_multimodal")
+
+
+def reads_waveform(cfg: ModelConfig) -> bool:
+    """Whether the model reads raw samples (a wav2vec2/HuBERT encoder)
+    rather than fbank frames (the conv-transformer)."""
+    return cfg.speech_encoder_type != "conv_transformer"
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     """Refuse the settings whose modules the port does not have yet: the
-    other speech encoders and fusion types, the on-line extractors, the CTC
-    and multitask heads and the pipelined encoder (ROADMAP.md §1). Every
-    other setting of ``ModelConfig`` is ported."""
+    other fusion types, the on-line extractors, the CTC and multitask heads
+    and the pipelined encoder (ROADMAP.md §1). Every other setting of
+    ``ModelConfig`` is ported."""
     mm = cfg.multimodal
+    if cfg.speech_encoder_type not in SPEECH_ENCODERS:
+        raise ValueError(f"speech_encoder_type={cfg.speech_encoder_type!r}: expected one of "
+                         f"{SPEECH_ENCODERS}")
     unported = {
-        "speech_encoder_type": cfg.speech_encoder_type != "conv_transformer",
         "multimodal_attention_type": mm.multimodal_attention_type not in (None, "selective_attention"),
         "multimodal_extractor_type": mm.multimodal_extractor_type is not None,
         "load_visual_extractor_type": bool(mm.load_visual_extractor_type),
@@ -70,13 +86,16 @@ def init_parameters_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     choices), drawn from ``generator``: xavier-uniform for the attention
     projections, lecun-normal (truncated at 2σ) for every other dense and
     conv kernel, N(0, D^-1/2) for the unit embedding, zero biases, unit
-    LayerNorm scales. Training from scratch starts here."""
+    LayerNorm and GroupNorm scales, U[0, 1) for wav2vec2's
+    ``masked_spec_embed``. Training from scratch starts here."""
     attn = {id(m) for mha in model.modules() if isinstance(mha, MultiHeadAttention)
             for m in (mha.q_proj, mha.k_proj, mha.v_proj, mha.out_proj)}
     for mod in model.modules():
-        if isinstance(mod, nn.LayerNorm):
+        if isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             mod.weight.fill_(1.0)
             mod.bias.fill_(0.0)
+        elif isinstance(mod, Wav2Vec2Model):
+            mod.masked_spec_embed.uniform_(0.0, 1.0, generator=generator)
         elif isinstance(mod, nn.Embedding):
             mod.weight.normal_(0.0, mod.weight.shape[1] ** -0.5, generator=generator)
         elif isinstance(mod, (nn.Linear, nn.Conv1d)):
@@ -92,17 +111,30 @@ def init_parameters_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 class MMS2UTModel(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, w2v_cfg: Optional[Wav2Vec2Config] = None):
+        """``w2v_cfg``: the wav2vec2/HuBERT encoder's geometry, by default
+        ``Wav2Vec2Config.from_args(cfg.w2v_args)``."""
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
+        self.w2v_cfg = w2v_cfg or Wav2Vec2Config.from_args(cfg.w2v_args)
         mm = cfg.multimodal
         drops = dict(dropout=cfg.dropout, attention_dropout=cfg.attention_dropout,
                      activation_dropout=cfg.activation_dropout, activation=cfg.activation_fn)
+        in_layer = cfg.speech_encoder_type == "wav2vec2_multimodal"
         # The modules the reference's forward calls are the ones its
         # parameter tree holds: with only_img neither the speech encoder nor
-        # the fusion, and without top fusion no fusion blocks.
-        if not mm.only_img:
+        # the fusion, with a wav2vec2 encoder no conv-transformer, and
+        # without top fusion (or with the in-layer kind) no fusion blocks.
+        if mm.only_img:
+            pass  # the first image source stands in for the encoder
+        elif in_layer:
+            self.speech_encoder = Wav2Vec2WithMultiModal(
+                self.w2v_cfg, m2_dim=mm.image_feat_dim[0] if mm.image_feat_dim else 768,
+                num_cross_attention_layers=mm.num_cross_attention_layers)
+        elif reads_waveform(cfg):
+            self.speech_encoder = Wav2Vec2Model(self.w2v_cfg)
+        else:
             self.encoder = SpeechTransformerEncoder(
                 in_dim=cfg.input_feat_per_channel * cfg.input_channels,
                 embed_dim=cfg.encoder_embed_dim,
@@ -116,12 +148,15 @@ class MMS2UTModel(nn.Module):
                 normalize_before=cfg.encoder_normalize_before,
                 **drops,
             )
-        elif mm.image_feat_dim and mm.image_feat_dim[0] != cfg.encoder_embed_dim:
+        if hasattr(self, "speech_encoder") and self.w2v_cfg.hidden_size != cfg.encoder_embed_dim:
+            self.speech_proj = nn.Linear(self.w2v_cfg.hidden_size, cfg.encoder_embed_dim)
+        if mm.only_img and mm.image_feat_dim and mm.image_feat_dim[0] != cfg.encoder_embed_dim:
             self.only_img_proj = nn.Linear(mm.image_feat_dim[0], cfg.encoder_embed_dim)
         if cfg.speaker_embed_dim:
             self.spk_emb_proj = nn.Linear(cfg.encoder_embed_dim + cfg.speaker_embed_dim,
                                           cfg.encoder_embed_dim)
-        fused = mm.multimodal_attention_type and mm.is_fusion_top and not mm.only_img
+        fused = (mm.multimodal_attention_type and mm.is_fusion_top and not mm.only_img
+                 and not in_layer)
         self.n_fusion = len(mm.image_feat_dim) if fused else 0
         for i in range(self.n_fusion):
             self.add_module(f"fusion{i}", FusionBlock(
@@ -153,10 +188,38 @@ class MMS2UTModel(nn.Module):
     def device(self) -> torch.device:
         return self.decoder.embed.embed_tokens.weight.device
 
+    @property
+    def reads_waveform(self) -> bool:
+        return reads_waveform(self.cfg)
+
+    @property
+    def source_downsample_ratio(self) -> int:
+        """Input positions per encoder frame before any subsampling: 1 for
+        fbank frames, the conv stack's stride product (320 samples) for a
+        raw-waveform encoder. Generation budgets count these frames."""
+        return self.w2v_cfg.frame_stride if self.reads_waveform else 1
+
+    def _speech_encode(self, wave, lengths, imgs_list, img_masks_list) -> Dict[str, Any]:
+        """The wav2vec2 branches: (B, S) waveforms → encoder states (span
+        masking only in training, where it is not ported)."""
+        if self.cfg.speech_encoder_type == "wav2vec2_multimodal":
+            img = (imgs_list[0] if imgs_list else torch.zeros(
+                (wave.shape[0], 1, self.cfg.multimodal.image_feat_dim[0]), device=wave.device))
+            w2v = self.speech_encoder(wave, lengths, img,
+                                      img_masks_list[0] if img_masks_list else None,
+                                      apply_mask=self.training)
+        else:
+            w2v = self.speech_encoder(wave, lengths, apply_mask=self.training)
+        x = w2v["last_hidden_state"]
+        if hasattr(self, "speech_proj"):
+            x = self.speech_proj(x)
+        return {"encoder_out": x, "encoder_padding_mask": w2v["padding_mask"],
+                "encoder_states": w2v["hidden_states"]}
+
     def encode(
         self,
-        src_features: torch.Tensor,  # (B, T, F) log-mels
-        src_lengths: torch.Tensor,  # (B,)
+        src_features: torch.Tensor,  # (B, T, F) log-mels, or (B, S) waveforms
+        src_lengths: torch.Tensor,  # (B,) frames, or samples
         imgs_list: Sequence[torch.Tensor] = (),  # (B, Ti, Di) per source
         img_masks_list: Sequence[Optional[torch.Tensor]] = (),  # (B, Ti) True = pad
         tgt_speaker: Optional[torch.Tensor] = None,  # (B, speaker_embed_dim)
@@ -173,8 +236,11 @@ class MMS2UTModel(nn.Module):
             if mask is None:
                 mask = torch.zeros(img.shape[:2], dtype=torch.bool, device=img.device)
             return {"encoder_out": img, "encoder_padding_mask": mask, "encoder_states": []}
-        out = self.encoder(src_features, src_lengths,
-                           return_all_states=not self.cfg.multimodal.is_fusion_top)
+        if hasattr(self, "speech_encoder"):
+            out = self._speech_encode(src_features, src_lengths, imgs_list, img_masks_list)
+        else:
+            out = self.encoder(src_features, src_lengths,
+                               return_all_states=not self.cfg.multimodal.is_fusion_top)
         x, padding_mask = out["encoder_out"], out["encoder_padding_mask"]
         if hasattr(self, "spk_emb_proj") and tgt_speaker is not None:
             spk = tgt_speaker[:, None, :].to(x.dtype).expand(*x.shape[:2], tgt_speaker.shape[-1])

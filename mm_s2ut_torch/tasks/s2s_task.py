@@ -6,9 +6,13 @@ frontend: host batches (waveforms padded to their bucket) become
 standardised log-mels on the device through the port's ``ops/fbank.py``.
 The batch order is the reference's (``LengthBucketBatcher`` seeded by
 ``train.seed``). Not ported, and refused when configured: noise mixing,
-the on-line visual extractor, raw-waveform speech encoders,
-and ``eval_inference``; the native C++ loader, which
-the reference also skips when it is absent, is left out.
+the on-line visual extractor and ``eval_inference``; the native C++
+loader, which the reference also skips when it is absent, is left out.
+With a raw-waveform speech encoder (``speech_encoder_type`` ``hubert``,
+``wav2vec2`` or ``wav2vec2_multimodal``) the batches keep their
+waveforms: no fbank, ``standardize_audio`` per utterance on the host,
+and manifest lengths in samples. Training those encoders is not ported
+(the model raises in training mode where it would mask spans).
 """
 from __future__ import annotations
 
@@ -22,10 +26,12 @@ import torch
 
 from mm_s2ut_torch.config import Config
 from mm_s2ut_torch.data.bucketing import LengthBucketBatcher
-from mm_s2ut_torch.data.dataset import SpeechToSpeechDataset
+from mm_s2ut_torch.data.dataset import SpeechToSpeechDataset, standardize_waveforms
 from mm_s2ut_torch.data.dictionary import Dictionary, UnitDictionary
 from mm_s2ut_torch.data.prefetch import prefetch
-from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel, init_parameters_
+from mm_s2ut_torch.models import build_model_from_config
+from mm_s2ut_torch.models.mm_s2ut import init_parameters_, reads_waveform
+from mm_s2ut_torch.models.mm_xm import mm_xm_architecture_base
 from mm_s2ut_torch.ops.fbank import FbankConfig, waveform_frontend
 from mm_s2ut_torch.train.trainer import Trainer, to_device
 
@@ -39,8 +45,9 @@ def _small_arch(cfg) -> None:
     cfg.decoder_layers, cfg.decoder_attention_heads = 3, 4
 
 
-# The reference's registered architectures (mm_s2ut/models/mm_s2ut.py).
-ARCHS = {"mm_s2ut_transformer": lambda cfg: None, "mm_s2ut_transformer_small": _small_arch}
+# The reference's registered architectures (mm_s2ut/models/mm_s2ut.py, mm_xm.py).
+ARCHS = {"mm_s2ut_transformer": lambda cfg: None, "mm_s2ut_transformer_small": _small_arch,
+         "mm_xm_transformer": mm_xm_architecture_base}
 
 
 def _check_ported(cfg: Config) -> None:
@@ -49,7 +56,6 @@ def _check_ported(cfg: Config) -> None:
         "train.eval_inference": cfg.train.eval_inference,
         "model.multimodal.load_visual_extractor_type":
             bool(cfg.model.multimodal.load_visual_extractor_type),
-        "model.speech_encoder_type": cfg.model.speech_encoder_type != "conv_transformer",
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -90,20 +96,23 @@ class MultiModalSpeechToSpeechTask:
                 mm_cfg=self.cfg.model.multimodal)
         return self.datasets[split]
 
-    def build_model(self) -> MMS2UTModel:
+    def build_model(self):
         """The configured architecture with the reference's initializers,
         drawn from ``train.seed``, in fp32 (the trainer's master copy)."""
         arch = ARCHS.get(self.cfg.model.arch)
         if arch is not None:
             arch(self.cfg.model)
-        model = MMS2UTModel(self.cfg.model).float()
-        return init_parameters_(model, torch.Generator().manual_seed(self.cfg.train.seed))
+        return self._initialized(build_model_from_config(self.cfg))
+
+    def _initialized(self, model):
+        return init_parameters_(model.float(), torch.Generator().manual_seed(self.cfg.train.seed))
 
     def batch_iterator(self, split: str, epoch: int = 0,
                        shuffle: Optional[bool] = None) -> Iterator[Dict]:
         """Host collation (waveforms, bucket-padded) in a prefetch thread →
         batches on the task's device, ``src_features`` as log-mels and
-        ``src_lengths`` as frame counts."""
+        ``src_lengths`` as frame counts (for a raw-waveform encoder, the
+        waveforms and their sample counts)."""
         ds = self.load_dataset(split)
         data = self.cfg.data
         shuffle = ds.is_train if shuffle is None else shuffle
@@ -123,7 +132,14 @@ class MultiModalSpeechToSpeechTask:
                 items = [ds[int(i)] for i in idx]
                 yield ds.collate(items, src_pad=bucket.src_len, tgt_pad=bucket.tgt_len)
 
+        raw = reads_waveform(self.cfg.model)
         for batch in prefetch(host_batches(), depth=2):
+            if raw:
+                if data.standardize_audio:
+                    batch["src_features"] = standardize_waveforms(batch["src_features"],
+                                                                  batch["src_lengths"])
+                yield to_device(batch, self.device)
+                continue
             batch = to_device(batch, self.device)
             batch["src_features"], batch["src_lengths"] = waveform_frontend(
                 batch["src_features"], batch["src_lengths"], self.fbank_cfg,

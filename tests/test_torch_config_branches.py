@@ -16,7 +16,8 @@ with the same flax parameters (``convert.from_flax``).
    top tokens equal, scores atol 1e-4.
 4. Speaker-conditioned vocoding against JAX's ``CodeHiFiGAN`` (atol 1e-4),
    from flax parameters and from a fairseq checkpoint.
-5. The settings still unported raise ``NotImplementedError``."""
+5. The settings still unported raise ``NotImplementedError`` (the
+   wav2vec2/HuBERT speech encoders are ported: ``tests/test_torch_xm.py``)."""
 import copy
 import dataclasses
 import functools
@@ -315,8 +316,8 @@ def test_speaker_vocoder_fairseq_checkpoint_matches_jax_loader(tmp_path):
 
 
 @pytest.mark.parametrize("fields,mm", [
-    ({"speech_encoder_type": "hubert"}, {}),
-    ({"speech_encoder_type": "wav2vec2_multimodal"}, {}),
+    ({}, {"load_visual_extractor_type": "vit_openai"}),
+    ({"speech_encoder_type": "hubert"}, {"multimodal_extractor_type": "q_former"}),
     ({}, {"multimodal_attention_type": "multimodal_attention"}),
     ({}, {"multimodal_attention_type": "external_multimodal_transformer"}),
     ({}, {"multimodal_attention_type": "bridge_tower"}),

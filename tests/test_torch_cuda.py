@@ -29,12 +29,16 @@ from chip_smoke import (
     FLAGSHIP,
     TOL,
     TOL_REQUANT,
+    XM,
+    XM_BENCH,
     ancestry_inputs,
     cross_inputs,
     flash_inputs,
     kernel_cases,
     quant_ancestry_inputs,
     quant_cross_inputs,
+    xm_bias,
+    xm_lengths,
 )
 from mm_s2ut_torch.ops import _build
 from mm_s2ut_torch.ops import attention as A
@@ -776,3 +780,89 @@ def test_dense_probe(card, packed):
     other = D.dense_attention(q, vals if packed else D.i4_pack(vals, S // 2), not packed)
     torch.cuda.synchronize()
     assert torch.equal(got, other)
+
+
+# The enhanced path's shapes (chip_smoke phase 2's XM cases): wav2vec2
+# frames of 2-10 s utterances (T = 499 for 10 s), the XM decoder (H = 16,
+# L = 12, K = 10, step 200 of 263) and the adaptor's slab (S = 63 for 10 s,
+# 7 for 1 s: shorter than one key tile).
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H", [(8, 12), (8, 16), (128, 12)])
+def test_flash_attention_wav2vec2_frames(card, dtype, B, H):
+    _, frames, _ = xm_lengths(B)
+    T = int(frames.max())
+    assert T == 499
+    g = torch.Generator().manual_seed(B + H)
+    q, k, v = ((torch.randn((B, T, H, 64), generator=g)).to("cuda", dtype) for _ in range(3))
+    kpm = (torch.arange(T)[None, :] >= frames[:, None]).cuda()
+    bias = torch.zeros(kpm.shape, device="cuda").masked_fill(kpm, A.NEG_INF)[:, None, None, :]
+    before = A.flash_attention.launches
+    got = A.flash_attention(q, k, v, kpm)
+    assert A.flash_attention.launches == before + 1
+    _close(got, A.reference_attention(q * 64 ** -0.5, k, v, bias), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ancestry_decode_xm_decoder(card, dtype):
+    x = XM
+    args = ancestry_inputs(x["B"], x["H"], x["K"], x["Dh"], x["L"], x["T_dec"], x["step"], dtype)
+    for layer in (0, x["L"] - 1):
+        _close(D.ancestry_decode_attention(*args, layer), D.reference(*args, layer), dtype)
+    qargs = quant_ancestry_inputs(x["B"], x["H"], x["K"], x["Dh"], x["L"], x["T_dec"], x["step"],
+                                  dtype, seed=1)
+    for layer in (0, x["L"] - 1):
+        _close(D.ancestry_decode_attention_i8(*qargs, layer), D.reference_i8(*qargs, layer), dtype,
+               TOL_REQUANT[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S,seconds", [(63, (2.0, 10.0)), (7, (1.0, 1.0))])
+def test_cross_decode_xm_slab(card, dtype, S, seconds):
+    x = XM
+    _, _, positions = xm_lengths(x["B"], *seconds)
+    assert int(positions.max()) == S
+    bias = xm_bias(positions, S)
+    q, kv, _ = cross_inputs(x["B"], x["H"], x["K"], x["Dh"], S, dtype, seed=S)
+    _close(D.cross_decode_attention(q, kv, bias), D.cross_reference(q, kv, bias), dtype)
+    q8, kv8, sk, sv, _ = quant_cross_inputs(x["B"], x["H"], x["K"], x["Dh"], S, dtype, seed=S)
+    _close(D.cross_decode_attention_i8(q8, kv8, sk, sv, bias),
+           D.cross_reference_i8(q8, kv8, sk, sv, bias), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_xm_bench_point_shapes(card, dtype):
+    """B, C, D and E at phase 16's bench point: B·H = 2048 (the split
+    rules' other route), all 12 layers' cache and scales at step 150 of
+    201, and the 63-position slab of 10 s utterances."""
+    x = XM_BENCH
+    TS = x["T_dec"] * x["K"]
+    if dtype == torch.bfloat16:  # one split each here; at XM's B=8 both split over blocks
+        lib = _build.library()
+        assert lib.mm_ancestry_decode_splits(_build.BF16, x["B"], x["H"], TS, 0) == 1
+        assert lib.mm_ancestry_decode_i8_splits(x["B"], x["H"], x["K"], TS) == 1
+        ts8 = XM["T_dec"] * XM["K"]
+        assert lib.mm_ancestry_decode_splits(_build.BF16, XM["B"], XM["H"], ts8, 0) > 1
+        assert lib.mm_ancestry_decode_i8_splits(XM["B"], XM["H"], XM["K"], ts8) > 1
+    args = ancestry_inputs(x["B"], x["H"], x["K"], x["Dh"], x["L"], x["T_dec"], x["step"], dtype,
+                           seed=30, on_card=True)
+    for layer in (0, x["L"] - 1):
+        _close(D.ancestry_decode_attention(*args, layer), D.reference(*args, layer), dtype)
+    del args
+    torch.cuda.empty_cache()
+    qargs = quant_ancestry_inputs(x["B"], x["H"], x["K"], x["Dh"], x["L"], x["T_dec"], x["step"],
+                                  dtype, seed=31)
+    for layer in (0, x["L"] - 1):
+        _close(D.ancestry_decode_attention_i8(*qargs, layer), D.reference_i8(*qargs, layer), dtype,
+               TOL_REQUANT[dtype])
+    del qargs
+    torch.cuda.empty_cache()
+    _, _, positions = xm_lengths(x["B"], 10.0, 10.0)
+    assert int(positions.max()) == int(positions.min()) == x["S"]
+    bias = xm_bias(positions, x["S"])
+    q, kv, _ = cross_inputs(x["B"], x["H"], x["K"], x["Dh"], x["S"], dtype, seed=32)
+    _close(D.cross_decode_attention(q, kv, bias), D.cross_reference(q, kv, bias), dtype)
+    q8, kv8, sk, sv, _ = quant_cross_inputs(x["B"], x["H"], x["K"], x["Dh"], x["S"], dtype, seed=33)
+    _close(D.cross_decode_attention_i8(q8, kv8, sk, sv, bias),
+           D.cross_reference_i8(q8, kv8, sk, sv, bias), dtype)

@@ -23,11 +23,19 @@ TRAINING = ["mm_s2ut_torch.cli.train", "mm_s2ut_torch.tasks.s2s_task",
             "mm_s2ut_torch.train.trainer", "mm_s2ut_torch.ops.dropout"]
 
 
-@pytest.mark.parametrize("modules", [["mm_s2ut_torch.inference"], STREAMING, TRAINING, MODULES])
+ENHANCED = ["mm_s2ut_torch.cli.generate", "mm_s2ut_torch.models.wav2vec2",
+            "mm_s2ut_torch.models.mm_xm", "mm_s2ut_torch.tasks.s2t_task",
+            "mm_s2ut_torch.data.s2t_dataset", "mm_s2ut_torch.data.sentencepiece"]
+
+
+@pytest.mark.parametrize("modules", [["mm_s2ut_torch.inference"], STREAMING, TRAINING, MODULES,
+                                     ENHANCED])
 def test_import_leaves_jax_out(modules):
+    assert set(modules) <= set(MODULES) | {"mm_s2ut_torch.inference"}
     code = (
         f"import sys, {', '.join(modules)}\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'mm_s2ut')]\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'mm_s2ut', 'transformers', 'safetensors')]\n"
         "assert not bad, bad\n"
         "from mm_s2ut_torch.ops import _build\n"
         "assert _build.library.cache_info().currsize == 0\n"
@@ -38,7 +46,8 @@ def test_import_leaves_jax_out(modules):
 
 
 def test_sources_name_no_jax_import():
-    pattern = re.compile(r"^\s*(import (jax|flax)|from (jax|flax)|(import|from) mm_s2ut([. ]|$))", re.M)
+    pattern = re.compile(r"^\s*(import (jax|flax|transformers)|from (jax|flax|transformers)"
+                         r"|(import|from) mm_s2ut([. ]|$))", re.M)
     files = sorted((ROOT / "mm_s2ut_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders

@@ -270,7 +270,9 @@ def test_slot_budget_uses_raw_source_frames():
 
 
 def test_server_refuses_raw_waveforms_and_a_short_ring(pair):
-    with pytest.raises(NotImplementedError, match="speech encoders"):
+    """The fbank model takes no raw waveforms (a wav2vec2 or XM model does:
+    ``tests/test_torch_xm.py``), nor features of another width."""
+    with pytest.raises(ValueError, match="enc_feat_dim None: the model reads 80"):
         ContinuousServer(pair.tmodel, enc_feat_dim=None, **COMMON)
     with pytest.raises(ValueError, match="enc_feat_dim"):
         ContinuousServer(pair.tmodel, enc_feat_dim=40, **COMMON)
