@@ -117,9 +117,27 @@ is no CPU path):
 18. ``python -m mm_s2ut_torch.cli.generate`` on a synthetic S2T corpus
     (wavs, a SentencePiece model, the lang-tag dictionary, image features)
     and an exported small XM checkpoint, on the card and with ``--device
-    cpu``: the same D- lines.
+    cpu``: the same D- lines;
+19. the image path (``phase_image_path``): the committed JPEG fixtures of
+    ``tests/torch_images/`` decoded without Pillow (pixels equal to PIL's
+    committed ones, and the decoder's images/s); ViT-B/16-384 from random
+    timm weights saved with ``torch.save`` and read by
+    ``load_timm_checkpoint``, 16 preprocessed images in fp32 and bf16
+    (A launched 12 times per forward, images/s, card against CPU with
+    TF32 off on two images); ViT-L/16-384, one forward (A 24 times);
+    ``return_attn`` and ``attention_rollout``, and the CLIP tower at
+    ``CLIPVisionConfig()``, card against CPU; the flagship with
+    ``load_visual_extractor_type: vit_timm`` at 384² over 8 wavs and 8
+    decoded images, beam 10, max_len_b 200, bf16 cache (utt/s, the
+    launches of A, B and C, the ViT's share of the encode), and a small
+    fp32 config with the extractor, tokens card = CPU per cache; then
+    ``python -m mm_s2ut_torch.inference --image_path <fixture>.jpg
+    --vit_checkpoint`` (``vit_tiny``) card = CPU, ``cli.extract_features``
+    over JPEG and PNG images card against CPU, and ``cli.vit_rollout``.
 
-Phase 2 also holds the enhanced path's shapes: A over wav2vec2 frames
+Phase 2 also holds A at the image encoders' shape (B=16, 577 queries
+over 584 keys, the last 7 padding, H=12 and 16, Dh=64), and the enhanced
+path's shapes: A over wav2vec2 frames
 (B=8, T=499, H=12 and 16, and B=128, H=12; the key padding of 2-10 s
 utterances), B and D in the XM decoder (H=16, L=12, K=10, step 200 of
 263), C and E over the adaptor's short slab (B=8, H=16, K=10, S=63 and
@@ -136,7 +154,8 @@ for H), which the port never calls.
 
 The line before the last is the kernels' JSON record (with each
 kernel's bound at its recorded shape: the larger of its bytes over
-3.35 TB/s and its operations over the peak for its inputs' type); the
+3.35 TB/s and its operations over the peak for its inputs' type; A's
+``launches`` add phase 19's image path to the flagship paths'); the
 last line is ``{"ok": true, "device": {...}}``. Artifacts (.unit files,
 generate-smoke.txt, wavs, the training runs) go to ``--out`` (default
 ``smoke_out/`` beside this file).
@@ -1597,8 +1616,8 @@ SMALL_SERVE = dict(slots=2, beam_size=5, ring=24, chunk=4, enc_frames=256, max_l
 # Phase 14's models (``serving_model``): c of the EOS row, and the caches.
 SERVE_MODELS = {
     "running to the budget": (None, ("bfloat16", "int8", "int4")),
-    "ending on EOS": (3.0, ("bfloat16", "int8")),
-    "done early": (7.5, ("bfloat16", "int8")),
+    "ending on EOS": (3.0, ("bfloat16", "int8", "int4")),
+    "done early": (7.5, ("bfloat16", "int8", "int4")),
 }
 
 
@@ -1651,12 +1670,9 @@ def phase_small_serving():
     the card the offline search's tokens and scores (atol 1e-4). The first
     model's hypotheses run to the budget; the second's end on EOS before
     it; with the third the improvability rule frees slots early, which are
-    refilled. The EOS-rising models leave out the int4 cache: there a
-    4-bit requantization level of the softmax weights flips with the
-    rounding of a two-slot batch against the one-utterance offline search
-    (the CPU server's score of one request of "ending on EOS" is 1.25e-4
-    from the offline one's; 0 with one slot), which the 1e-4 bound does
-    not allow for."""
+    refilled. Every model runs every cache: the subsampler's convs take one
+    row per call, so a two-row admission wave rounds each row as the
+    one-utterance search does."""
     import copy
     import math
 
@@ -2312,6 +2328,389 @@ def phase_xm_entry(out_dir: Path):
           f"{d_lines['cuda'][0]!r}")
 
 
+# ------------------------------------------------------------- image path
+
+VIT = dict(B=16, Tq=577, S=584, Dh=64)  # ViT-B/16 at 384²: 577 tokens, keys padded to 584
+FIXTURES = HERE / "tests" / "torch_images"
+
+
+def phase_vit_kernels():
+    """Phase 2's cases at the image encoders' shape: kernel A with Tq = 577
+    queries over S = 584 keys whose last 7 are padding (the ViT's keys
+    padded to a multiple of 8), B=16, Dh=64, H=12 (ViT-B) and 16 (ViT-L),
+    bf16 and fp32; q a strided view of one (B, T, 3, H, Dh) projection, as
+    in the ViT; the bias built once, as the ViT builds it per forward.
+    Each held against its plain version, timed beside SDPA with the same
+    additive mask and its bound."""
+    import torch.nn.functional as F
+
+    from mm_s2ut_torch.ops import attention as A
+
+    B, Tq, S, Dh = VIT["B"], VIT["Tq"], VIT["S"], VIT["Dh"]
+    for dtype in (torch.bfloat16, torch.float32):
+        for H in (12, 16):
+            g = torch.Generator().manual_seed(H)
+            qkv = _randn((B, Tq, 3, H, Dh), g, dtype)
+            q = qkv[:, :, 0]
+            k, v = (F.pad(qkv[:, :, i], (0, 0, 0, 0, 0, S - Tq)) for i in (1, 2))
+            kpm = (torch.arange(S)[None, :] >= Tq).expand(B, S).cuda()
+            key_bias = A.padding_bias(kpm, B, S, "cuda")
+            bias = key_bias[:, None, None, :]
+            label = f"A ViT B={B} Tq={Tq} S={S} H={H}"
+            res = check_and_time(label, dtype, lambda: A.flash_attention_biased(q, k, v, key_bias),
+                                 lambda: A.reference_attention(q * Dh ** -0.5, k, v, bias),
+                                 TOL[dtype], lambda: sdpa(q, k, v, bias.to(dtype)))
+            work = flash_work(B, Tq, S, H, Dh, dtype)
+            print(f"phase 2: {label} {str(dtype)[6:]}: bound {work['bound_ms'] * 1e3:.2f} us "
+                  f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}, "
+                  f"kernel / SDPA {res['ms'] / res['library_ms']:.3f}")
+            del qkv, q, k, v
+        torch.cuda.empty_cache()
+
+
+def timm_vit_state(cfg, gen):
+    """A timm-layout ViT state dict for ``cfg`` (what ``load_timm_checkpoint``
+    reads from a ``pytorch_model.bin``): matrices N(0, 1/fan_in), biases
+    and the class token and positions N(0, 0.02²), LayerNorm gains 1."""
+    import numpy as np
+
+    D, M, P = cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio), cfg.patch_size
+
+    def w(*shape):
+        return torch.randn(*shape, generator=gen) * int(np.prod(shape[1:])) ** -0.5
+
+    def small(*shape):
+        return torch.randn(*shape, generator=gen) * 0.02
+
+    sd = {"cls_token": small(1, 1, D), "pos_embed": small(1, cfg.seq_len, D),
+          "patch_embed.proj.weight": w(D, 3, P, P), "patch_embed.proj.bias": small(D),
+          "norm.weight": torch.ones(D), "norm.bias": torch.zeros(D)}
+    for i in range(cfg.depth):
+        b = f"blocks.{i}"
+        sd.update({f"{b}.norm1.weight": torch.ones(D), f"{b}.norm1.bias": torch.zeros(D),
+                   f"{b}.attn.qkv.weight": w(3 * D, D), f"{b}.attn.qkv.bias": small(3 * D),
+                   f"{b}.attn.proj.weight": w(D, D), f"{b}.attn.proj.bias": small(D),
+                   f"{b}.norm2.weight": torch.ones(D), f"{b}.norm2.bias": torch.zeros(D),
+                   f"{b}.mlp.fc1.weight": w(M, D), f"{b}.mlp.fc1.bias": small(M),
+                   f"{b}.mlp.fc2.weight": w(D, M), f"{b}.mlp.fc2.bias": small(D)})
+    return sd
+
+
+def fixture_images():
+    """The committed JPEG fixtures, decoded on the host without Pillow and
+    held to the PIL pixels committed beside them: [(name, pixels)]."""
+    import numpy as np
+
+    from mm_s2ut_torch.data.image_io import read_image
+
+    out = []
+    for path in sorted(FIXTURES.glob("*.jpg")):
+        px = read_image(path)
+        want = np.load(path.with_suffix(".npy"))
+        assert px.shape == want.shape and (px == want).all(), f"{path.name}: decoded pixels differ"
+        out.append((path.name, px))
+    assert len(out) == 4, [n for n, _ in out]
+    return out
+
+
+def vit_pixels(images, n, size, mode="timm"):
+    from mm_s2ut_torch.models.vit import preprocess_images
+
+    return torch.from_numpy(preprocess_images([images[i % len(images)][1] for i in range(n)],
+                                              size, mode=mode))
+
+
+def loaded_vit(name, gen, path=None):
+    """A VIT_VARIANTS model on the CPU in fp32, from random timm-layout
+    weights: saved to ``path`` and read back by ``load_timm_checkpoint``,
+    or without a path converted in memory."""
+    from mm_s2ut_torch.convert import from_flax
+    from mm_s2ut_torch.models.vit import (VIT_VARIANTS, VisionTransformer,
+                                          convert_timm_state_dict, load_timm_checkpoint)
+
+    cfg = VIT_VARIANTS[name]
+    state = timm_vit_state(cfg, gen)
+    if path is None:
+        variables = convert_timm_state_dict({k: v.numpy() for k, v in state.items()}, cfg)
+    else:
+        torch.save(state, path)
+        variables = load_timm_checkpoint(str(path), cfg)
+    vit = VisionTransformer(cfg)
+    vit.load_state_dict(from_flax(variables, vit))
+    return vit.eval()
+
+
+def phase_image_path(out_dir: Path):
+    """Phase 19: the image encoders and the raw-image path at full width.
+    (a) the fixtures decoded on the host (pixels equal to PIL's), with the
+    decoder's images/s; (b) ViT-B/16-384 from a saved timm checkpoint over
+    16 preprocessed images in bf16 and fp32, A launched 12 times per
+    forward, images/s, card against CPU (TF32 off) on two images; (c)
+    ViT-L/16-384, one forward, A 24 times; (d) ``return_attn`` and
+    ``attention_rollout``, and the CLIP tower at its default width, card
+    against CPU; (e) the flagship with ``vit_timm`` in its graph over 8
+    wavs and 8 decoded images, beam 10, bf16 cache: utt/s, the launches
+    of A, B, C and the ViT's share of the encode, and a small fp32 config
+    with the extractor, tokens card = CPU; (f) the entry points on the
+    card and the CPU. Returns the launches of (e)'s counted flagship run,
+    the image path's own count; the per-forward counts of (b), (c) and
+    (f) are asserted and printed only."""
+    import copy
+
+    import numpy as np
+
+    from mm_s2ut_torch.config import GenerationConfig, ModelConfig, MultimodalConfig
+    from mm_s2ut_torch.data.image_io import read_image
+    from mm_s2ut_torch.infer.generator import UnitGenerator
+    from mm_s2ut_torch.models.hifigan import CodeHiFiGAN, HiFiGANConfig
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+    from mm_s2ut_torch.models.vit import (CLIPVisionConfig, CLIPVisionTransformer, ViTConfig,
+                                          attention_rollout)
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.ops import decode_attention as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = out_dir / "images"
+    root.mkdir(parents=True, exist_ok=True)
+    gen = torch.Generator().manual_seed(19)
+
+    # (a) decoding on the host
+    images, secs = timed(fixture_images)
+    t0 = time.perf_counter()
+    reps = 3
+    for _ in range(reps):
+        fixture_images()
+    per = (time.perf_counter() - t0) / (reps * len(images))
+    big = [n for n, px in images if px.shape[:2] == (375, 500)]
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        read_image(FIXTURES / big[0])
+    big_s = (time.perf_counter() - t0) / reps
+    px16, prep_s = timed(lambda: vit_pixels(images, 16, 384))
+    print(f"phase 19a: {len(images)} fixture JPEGs decoded without Pillow, pixels equal to PIL's "
+          f"({', '.join(f'{n} {px.shape[1]}x{px.shape[0]}' for n, px in images)}); host decode "
+          f"{1 / per:.1f} images/s over the fixtures, {1 / big_s:.2f} images/s at 500x375 "
+          f"({big[0]}, {(FIXTURES / big[0]).stat().st_size} B); timm preprocess of 16 to 384²: "
+          f"{prep_s:.3f} s")
+
+    # (b) ViT-B/16-384
+    vit_cpu = loaded_vit("vit_base_patch16_384", gen, root / "vit_base.bin")
+    (root / "vit_base.bin").unlink()
+    cfg = vit_cpu.cfg
+    with torch.no_grad():
+        want = vit_cpu(px16[:2])[0]
+    scale = max(1.0, want.abs().max().item())
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 5e-2)):
+        vit = copy.deepcopy(vit_cpu).to("cuda", dtype)
+        x = px16.cuda()
+        with torch.no_grad():
+            vit(x)  # warm-up at the timed shape
+            A.flash_attention.launches = 0
+            (feats, attns), secs = timed(lambda: vit(x))
+            n_a = A.flash_attention.launches
+            _, secs2 = timed(lambda: vit(x))
+        assert attns is None and feats.shape == (16, 577, cfg.embed_dim), feats.shape
+        assert n_a == cfg.depth, f"A launched {n_a} times in one ViT-B forward"
+        assert torch.isfinite(feats).all()
+        err = (feats[:2].float().cpu() - want).abs().max().item()
+        assert err <= tol * scale, f"ViT-B {dtype}: card vs CPU max|err| {err} > {tol * scale}"
+        print(f"phase 19b: ViT-B/16-384 {str(dtype)[6:]}, 16 images: features {tuple(feats.shape)}, "
+              f"A launched {n_a} times, {16 / secs:.1f} / {16 / secs2:.1f} images/s (two calls), "
+              f"card vs CPU on 2 images max|err| {err:.3e} (tol {tol:g} x {scale:.3f})")
+        del vit, feats
+    torch.cuda.empty_cache()
+
+    # (c) ViT-L/16-384
+    vit_l = loaded_vit("vit_large_patch16_384", gen).to("cuda", torch.bfloat16)
+    with torch.no_grad():
+        vit_l(px16.cuda())  # warm-up
+        A.flash_attention.launches = 0
+        (feats, _), secs = timed(lambda: vit_l(px16.cuda()))
+        n_a = A.flash_attention.launches
+    assert n_a == 24 and torch.isfinite(feats).all() and feats.shape == (16, 577, 1024)
+    print(f"phase 19c: ViT-L/16-384 bf16, 16 images: features {tuple(feats.shape)} finite, A "
+          f"launched {n_a} times, {16 / secs:.1f} images/s")
+    del vit_l, feats
+    torch.cuda.empty_cache()
+
+    # (d) rollout and the CLIP tower
+    vit = copy.deepcopy(vit_cpu).to("cuda")
+    with torch.no_grad():
+        _, att_card = vit(px16[:1].cuda(), return_attn=True)
+        _, att_cpu = vit_cpu(px16[:1], return_attn=True)
+    att_err = max((a.cpu() - b).abs().max().item() for a, b in zip(att_card, att_cpu))
+    m_card = attention_rollout([a.cpu().numpy() for a in att_card])
+    m_cpu = attention_rollout([a.numpy() for a in att_cpu])
+    m_err = float(np.abs(m_card - m_cpu).max())
+    assert att_err <= 1e-4 and m_err <= 1e-3, (att_err, m_err)
+    clip_cfg = CLIPVisionConfig()
+    clip_cpu = init_random_(CLIPVisionTransformer(clip_cfg), gen).eval()
+    clip = copy.deepcopy(clip_cpu).to("cuda")
+    px224 = vit_pixels(images, 2, 224, mode="vit_openai")
+    with torch.no_grad():
+        s_card, s_cpu = clip(px224.cuda()), clip_cpu(px224)
+    assert len(s_card) == clip_cfg.depth + 1 and s_card[-1].shape == (2, 197, 768)
+    c_err = max((a.cpu() - b).abs().max().item() / max(1.0, b.abs().max().item())
+                for a, b in zip(s_card, s_cpu))
+    assert c_err <= 1e-4, f"CLIP card vs CPU {c_err}"
+    print(f"phase 19d: ViT-B return_attn: 12 maps {tuple(att_card[0].shape)}, card vs CPU "
+          f"max|err| {att_err:.3e}; rollout masks {m_card.shape} max|err| {m_err:.3e} (tol 1e-3); "
+          f"CLIP tower at CLIPVisionConfig() (224², 768-d, 12 layers): {len(s_card)} states, "
+          f"card vs CPU max relative err {c_err:.3e}")
+    del vit, clip, att_card, s_card
+    torch.cuda.empty_cache()
+
+    # (e) the flagship with the in-graph extractor
+    mm = MultimodalConfig(image_feat_dim=[768], multimodal_attention_type="selective_attention",
+                          use_selective_gate=True, modality_dropout=0.5, audio_dropout=0.5,
+                          load_visual_extractor_type="vit_timm", image_input_size=384)
+    model = init_random_(MMS2UTModel(ModelConfig(vocab_size=1004, dtype="bfloat16",
+                                                 multimodal=mm), vit_cfg=ViTConfig()), gen)
+    model.visual_extractor.load_state_dict(vit_cpu.state_dict())
+    model = model.to("cuda", torch.bfloat16).eval()
+    vocoder = init_random_(CodeHiFiGAN(HiFiGANConfig()), gen).to("cuda").eval()
+    gcfg = GenerationConfig(beam=10, max_len_a=1.0, max_len_b=200)
+    generator = UnitGenerator(model, gcfg, max_target_positions=model.cfg.max_target_positions)
+    wav, lens, _ = synthetic_batch(8, gen)
+    pixels = vit_pixels(images, 8, 384)
+    masks = torch.zeros((8, 384), dtype=torch.bool)
+    drive(generator, vocoder, wav[:2, :16000], torch.clamp(lens[:2], max=16000), pixels[:2],
+          masks[:2])  # warm-up
+    counters = {"A": A.flash_attention, "B": D.ancestry_decode_attention,
+                "C": D.cross_decode_attention}
+    (feats, flens, hyps, unit_lines, wavs, stages), total, launches = counted(
+        counters, lambda: drive(generator, vocoder, wav, lens, pixels, masks))
+    check_outputs(hyps, unit_lines, wavs, 8, gcfg.beam)
+    assert launches["A"] == 24, f"A per encode: {launches}"  # 12 speech + 12 ViT
+    assert launches["B"] > 0 and launches["C"] > 0, launches
+    with torch.no_grad():
+        enc, enc_s = timed(lambda: model.encode(feats, flens, [pixels.cuda()], [masks.cuda()]))
+        _, vit_s = timed(lambda: model.visual_extractor(pixels.cuda().to(torch.bfloat16)))
+    assert torch.isfinite(enc["encoder_out"]).all()
+    print(f"phase 19e: flagship bf16 with vit_timm in its graph "
+          f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params), 8 utts + 8 "
+          f"decoded 384² images, beam 10, max_len_b 200, bf16 cache: launches {launches}; "
+          f"stages {json.dumps({k: round(v, 4) for k, v in stages.items()})}; total "
+          f"{total:.3f} s; {8 / total:.3f} utt/s; encode {enc_s * 1e3:.1f} ms of which the ViT "
+          f"{vit_s * 1e3:.1f} ms ({100 * vit_s / enc_s:.1f}%)")
+    del model, vocoder, generator, enc
+    torch.cuda.empty_cache()
+
+    small = small_config()
+    small.multimodal.image_feat_dim = [64]
+    small.multimodal.load_visual_extractor_type = "vit_timm"
+    small.multimodal.image_input_size = 48
+    small_vit = ViTConfig(image_size=48, patch_size=16, embed_dim=64, depth=2, num_heads=4)
+    cpu_model = init_random_(MMS2UTModel(small, vit_cfg=small_vit), gen).eval()
+    with torch.no_grad():
+        cpu_model.decoder.final_norm.weight.mul_(8.0)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    wav, lens, _ = synthetic_batch(4, gen)
+    from mm_s2ut_torch.ops.fbank import FbankConfig, waveform_frontend
+
+    feats, flens = waveform_frontend(wav, lens, FbankConfig())
+    px48 = vit_pixels(images, 4, 48)
+    m48 = torch.zeros((4, 48), dtype=torch.bool)
+    toks = {}
+    for kv in (None, "int8", "int4"):
+        g_cfg = GenerationConfig(beam=5, max_len_a=0.0, max_len_b=30, kv_cache_dtype=kv)
+        out = {}
+        for dev, m in (("cpu", cpu_model), ("cuda", gpu_model)):
+            A.flash_attention.launches = 0
+            hyps = UnitGenerator(m, g_cfg).generate(feats, flens, [px48], [m48])
+            out[dev] = [h[0]["tokens"] for h in hyps]
+        assert A.flash_attention.launches == small.encoder_layers + small_vit.depth, kv
+        assert out["cuda"] == out["cpu"], f"small fp32 with vit_timm, {kv}: card and CPU differ"
+        toks[kv or "float"] = [len(t) for t in out["cuda"]]
+    print(f"phase 19e: small fp32 config with vit_timm (48², 64-d, 2 blocks): tokens equal on "
+          f"card and CPU for the float, int8 and int4 caches; unit lengths {toks}")
+
+    # (f) the entry points
+    image_entry_points(root, vit_cpu, gen, images)
+    return launches
+
+
+def image_entry_points(root: Path, vit_b, gen, images):
+    """``python -m mm_s2ut_torch.inference --image_path <fixture>.jpg
+    --vit_checkpoint`` on an exported small checkpoint (``image_feat_dim``
+    192 → ``vit_tiny_patch16_384``) on the card and the CPU (units equal);
+    ``cli.extract_features`` over a flickr30k layout of the fixture JPEGs
+    and ``write_png`` PNGs (card against CPU within 1e-4 × the largest
+    |feature|); ``cli.vit_rollout`` (its .npy and .png). Each through its
+    ``main``; prints their launches of A."""
+    import dataclasses
+
+    import numpy as np
+
+    from mm_s2ut_torch import inference
+    from mm_s2ut_torch.cli import extract_features, vit_rollout
+    from mm_s2ut_torch.config import Config, DataConfig, GenerationConfig
+    from mm_s2ut_torch.convert import to_flax
+    from mm_s2ut_torch.data.audio_io import write_wav
+    from mm_s2ut_torch.data.image_io import read_image, write_png
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+    from mm_s2ut_torch.ops import attention as A
+
+    loaded_vit("vit_tiny_patch16_384", gen, root / "vit_tiny.bin")
+    cfg = small_config()
+    cfg.multimodal.image_feat_dim = [192]
+    model = init_random_(MMS2UTModel(cfg), gen)
+    with torch.no_grad():
+        model.decoder.final_norm.weight.mul_(8.0)
+    conf = Config(model=cfg, data=DataConfig(standardize_audio=False),
+                  generation=GenerationConfig(beam=5, max_len_a=0.0, max_len_b=40))
+    (root / "model").mkdir(exist_ok=True)
+    (root / "model" / "config.yaml").write_text(json.dumps(dataclasses.asdict(conf)))
+    np.savez(root / "model" / "params.npz", **to_flax(model))
+    write_wav(root / "utt.wav", (0.3 * torch.randn(2 * 16000, generator=gen)).numpy(), 16000)
+    image = FIXTURES / images[0][0]
+    args = ["--model_path", str(root / "model"), "--audio_path", str(root / "utt.wav"),
+            "--image_path", str(image), "--vit_checkpoint", str(root / "vit_tiny.bin")]
+    A.flash_attention.launches = 0
+    units = {}
+    for dev in ("cuda", "cpu"):
+        assert inference.main(args + ["--output_dir", str(root / dev), "--device", dev]) == 0
+        units[dev] = (root / dev / "utt.unit").read_text().split()
+    n_a = A.flash_attention.launches
+    assert n_a == 12 + cfg.encoder_layers, f"inference with a raw image: A launched {n_a} times"
+    assert units["cuda"] and units["cuda"] == units["cpu"], "raw-image units differ card vs CPU"
+
+    flickr = root / "flickr30k"
+    (flickr / "flickr30k-images").mkdir(parents=True, exist_ok=True)
+    names = []
+    for name, px in images:
+        (flickr / "flickr30k-images" / name).write_bytes((FIXTURES / name).read_bytes())
+        write_png(flickr / "flickr30k-images" / (name[:-4] + ".png"), px)
+        names += [name, name[:-4] + ".png"]
+    (flickr / "test_2016_flickr.txt").write_text("\n".join(names) + "\n")
+    assert (read_image(flickr / "flickr30k-images" / names[1]) == images[0][1]).all()
+    feats = {}
+    for dev in ("cuda", "cpu"):
+        A.flash_attention.launches = 0
+        assert extract_features.main([
+            "--flickr30k-root", str(flickr), "--splits", "test2016", "--model",
+            "vit_tiny_patch16_384", "--checkpoint", str(root / "vit_tiny.bin"), "--batch-size",
+            "3", "--output-dir", str(root / f"feats_{dev}"), "--device", dev]) == 0
+        n_a += A.flash_attention.launches
+        feats[dev] = np.load(root / f"feats_{dev}" / "test2016.npy")
+    assert feats["cuda"].shape == (len(names), 577, 192)
+    f_err = float(np.abs(feats["cuda"] - feats["cpu"]).max())
+    f_tol = 1e-4 * max(1.0, float(np.abs(feats["cpu"]).max()))
+    assert f_err <= f_tol, f"extract_features card vs CPU {f_err} > {f_tol}"
+    assert vit_rollout.main(["--image", str(image), "--model", "vit_tiny_patch16_384",
+                             "--checkpoint", str(root / "vit_tiny.bin"), "--output",
+                             str(root / "rollout"), "--device", "cuda"]) == 0
+    mask = np.load(root / "rollout.npy")
+    overlay = read_image(root / "rollout.png")
+    assert mask.shape == (24, 24) and np.isfinite(mask).all() and overlay.shape == images[0][1].shape
+    print(f"phase 19f: inference --image_path {image.name} --vit_checkpoint (vit_tiny, "
+          f"image_feat_dim 192): {len(units['cuda'])} units, equal on card and CPU; "
+          f"extract_features over {len(names)} JPEG/PNG images: {feats['cuda'].shape}, card vs "
+          f"CPU max|err| {f_err:.3e} (tol {f_tol:.2e}); vit_rollout: mask {mask.shape}, overlay "
+          f"{overlay.shape[1]}x{overlay.shape[0]} PNG; A launched {n_a} times in all")
+
+
 KERNELS = {  # name, source (of the bf16 instance the record times), the TPU kernel it replaces
     "A": ("flash_attention", "mm_s2ut_torch/csrc/flash_attention_mma.cu",
           "mm_s2ut/ops/attention.py:140"),
@@ -2350,6 +2749,7 @@ def main(argv=None) -> int:
     smi = phase_build()
     record = phase_kernels()
     phase_xm_kernels()
+    phase_vit_kernels()
     phase_long_cross()
     record.update(phase_causal_kernels())
     record.update(phase_train_kernels())
@@ -2373,10 +2773,12 @@ def main(argv=None) -> int:
     xm_launches = phase_xm_path(torch.Generator().manual_seed(16))
     phase_xm_small_parity()
     phase_xm_entry(Path(args.out))
+    image_launches = phase_image_path(Path(args.out))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k], "xm_launches": xm_launches.get(k, 0), **record[k]}
+         "launches": launches[k], "xm_launches": xm_launches.get(k, 0),
+         "image_launches": image_launches.get(k, 0), **record[k]}
         for k, (name, src, rep) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

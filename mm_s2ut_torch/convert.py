@@ -5,15 +5,19 @@ module at path ``a.b`` takes its parameters from the flax subtree
 ``a/b``; only the leaf layouts differ:
 
 * Dense ``kernel`` (in, out) → Linear ``weight`` (out, in)
-* Conv ``kernel`` (k, in, out) → Conv1d ``weight`` (out, in, k)
+* Conv ``kernel`` (k, in, out) → Conv1d ``weight`` (out, in, k); a 2-D or
+  3-D Conv ``kernel`` (kh, kw, in, out) → Conv2d ``weight`` (out, in, kh,
+  kw), and likewise for Conv3d
 * ConvTranspose ``kernel`` (k, in, out) → ConvTranspose1d ``weight``
   (in, out, k), flipped in time (the reference's fairseq loader flips the
   other way, ``mm_s2ut/models/hifigan.py:547-550``)
 * Embed ``embedding`` → Embedding ``weight``
-* LayerNorm and GroupNorm ``scale``/``bias`` → ``weight``/``bias``
+* LayerNorm, GroupNorm and BatchNorm ``scale``/``bias`` →
+  ``weight``/``bias`` (BatchNorm's running statistics are buffers, which
+  ``models/resnet_encoder.from_flax_variables`` fills)
 * a parameter a module holds itself (flax's ``self.param``) and names in
-  its ``FLAX_LEAVES`` (wav2vec2's ``masked_spec_embed``) → the leaf of
-  its own name, as is
+  its ``FLAX_LEAVES`` (wav2vec2's ``masked_spec_embed``, the image
+  encoders' class token and positions) → the leaf of its own name, as is
 
 :func:`from_flax` is strict: a flax leaf no torch parameter takes, or a
 torch parameter no flax leaf fills, raises.
@@ -28,7 +32,8 @@ import torch
 from torch import nn
 
 
-_LAYOUTS = (nn.Linear, nn.Conv1d, nn.ConvTranspose1d, nn.Embedding, nn.LayerNorm, nn.GroupNorm)
+_LAYOUTS = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.ConvTranspose1d, nn.Embedding,
+            nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._BatchNorm)
 
 
 def _raw_leaves(mod: nn.Module, own: Mapping, name: str, fn: str):
@@ -101,9 +106,13 @@ def from_flax(params: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
             sd[f"{name}.weight"] = take(prefix, "kernel")[::-1].transpose(1, 2, 0)
         elif isinstance(mod, nn.Conv1d):
             sd[f"{name}.weight"] = take(prefix, "kernel").transpose(2, 1, 0)
+        elif isinstance(mod, (nn.Conv2d, nn.Conv3d)):
+            kernel = take(prefix, "kernel")
+            nd = kernel.ndim - 2
+            sd[f"{name}.weight"] = kernel.transpose(nd + 1, nd, *range(nd))
         elif isinstance(mod, nn.Embedding):
             sd[f"{name}.weight"] = take(prefix, "embedding")
-        else:  # LayerNorm, GroupNorm
+        else:  # LayerNorm, GroupNorm, BatchNorm
             sd[f"{name}.weight"] = take(prefix, "scale")
         if "bias" in own and own["bias"] is not None:
             sd[f"{name}.bias"] = take(prefix, "bias")
@@ -145,9 +154,11 @@ def to_flax(model: nn.Module) -> Dict[str, np.ndarray]:
             flat[f"{prefix}/kernel"] = w.transpose(2, 0, 1)[::-1]
         elif isinstance(mod, nn.Conv1d):
             flat[f"{prefix}/kernel"] = w.transpose(2, 1, 0)
+        elif isinstance(mod, (nn.Conv2d, nn.Conv3d)):
+            flat[f"{prefix}/kernel"] = w.transpose(*range(2, w.ndim), 1, 0)
         elif isinstance(mod, nn.Embedding):
             flat[f"{prefix}/embedding"] = w
-        else:  # LayerNorm, GroupNorm
+        else:  # LayerNorm, GroupNorm, BatchNorm
             flat[f"{prefix}/scale"] = w
         if own.get("bias") is not None:
             flat[f"{prefix}/bias"] = own["bias"].detach().float().cpu().numpy()

@@ -2,15 +2,17 @@
 
 A copy of ``mm_s2ut/data/dataset.py`` trimmed to what the port's task
 runs: ``SpeechToSpeechDataset.from_tsv`` (manifest, unit targets, image
-features by ``int(stem(audio)) - 1``), ``__getitem__`` and ``collate``
+features by ``int(stem(audio)) - 1``, or, with
+``multimodal.load_visual_extractor_type``, the preprocessed pixels of the
+raw images, ``RawImageStore``), ``__getitem__`` and ``collate``
 (bucket-padded numpy batches sorted by source length, descending;
 ``prev_output_tokens`` = EOS or the target lang tag, then the target
 shifted right; with n_frames_per_step = n > 1 the decoder input packs n
 units per id, :func:`pack_units`, while the loss target stays unpacked),
 and the target speaker embeddings of ``data.target_speaker_embed``
 (``tgt_speaker``). Waveforms stay waveforms: the task's device fbank
-turns them into log-mels. Not carried over (the task raises when they are
-configured): noise mixing, the native C++ loader and raw-image stores.
+turns them into log-mels. Not carried over: noise mixing (the task
+raises when it is configured) and the native C++ loader.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ import numpy as np
 from mm_s2ut_torch.config import DataConfig, MultimodalConfig
 from mm_s2ut_torch.data.audio_io import get_waveform
 from mm_s2ut_torch.data.dictionary import Dictionary
-from mm_s2ut_torch.data.image_store import ImageFeatureStore, audio_stem_to_image_index
+from mm_s2ut_torch.data.image_store import (ImageFeatureStore, RawImageStore,
+                                             audio_stem_to_image_index)
 from mm_s2ut_torch.data.manifest import ManifestRow, read_manifest
 
 
@@ -92,10 +95,16 @@ class SpeechToSpeechDataset:
                  is_train: Optional[bool] = None) -> "SpeechToSpeechDataset":
         rows = read_manifest(Path(root) / f"{split}.tsv")
         is_train = split.startswith("train") if is_train is None else is_train
-        stores = [
-            ImageFeatureStore.for_split(feat_root, split)
-            for feat_root in (mm_cfg.image_feat_path if mm_cfg is not None else ())
-        ]
+        if mm_cfg is not None and mm_cfg.load_visual_extractor_type:
+            # The on-line path: preprocessed pixels; the model's extractor
+            # turns them into features.
+            stores = [RawImageStore.for_split(
+                mm_cfg.flickr30k_root, split, mode=mm_cfg.load_visual_extractor_type,
+                image_size=mm_cfg.image_input_size, mean=tuple(mm_cfg.image_mean) or None,
+                std=tuple(mm_cfg.image_std) or None)]
+        else:
+            stores = [ImageFeatureStore.for_split(feat_root, split)
+                      for feat_root in (mm_cfg.image_feat_path if mm_cfg is not None else ())]
         return cls(split, is_train, data_cfg, rows, tgt_dict, stores)
 
     def __len__(self) -> int:
@@ -137,7 +146,7 @@ class SpeechToSpeechDataset:
         if self.image_stores:
             img_idx = audio_stem_to_image_index(row.src_audio)
             for store in self.image_stores:
-                feat, mask = store[img_idx]
+                *_, feat, mask = store[img_idx]  # RawImageStore items lead with the path
                 imgs.append(np.asarray(feat, np.float32))
                 masks.append(None if mask is None else np.asarray(mask, bool))
         speaker = None
@@ -190,7 +199,7 @@ class SpeechToSpeechDataset:
         }
         if items[0].imgs:
             imgs, masks = [], []
-            for k in range(len(items[0].imgs)):
+            for k in range(len(items[0].imgs)):  # (B, T, D) features or (B, S, S, 3) pixels
                 imgs.append(np.stack([it.imgs[k] for it in items]))
                 masks.append(np.stack([it.img_masks[k] for it in items])
                              if items[0].img_masks[k] is not None

@@ -5,12 +5,18 @@ artifacts (``<name>.unit``, ``generate-<subset>.txt``, ``<name>_pred.wav``):
 
   python -m mm_s2ut_torch.inference --model_path MODEL --audio_path a.wav \
       --image_path img.npy --output_dir out/            # single sample
+  python -m mm_s2ut_torch.inference --model_path MODEL --audio_path a.wav \
+      --image_path img.jpg --vit_checkpoint vit.bin --output_dir out/
   python -m mm_s2ut_torch.inference --model_path MODEL \
       --manifest_file test.tsv --output_dir out/        # batch (8 per batch)
 
 ``--model_path`` is a directory holding ``config.yaml`` and ``params.npz``
 (``scripts/export_jax_params.py`` writes both from a Trainer checkpoint).
-Images are precomputed ``.npy`` feature arrays. A model with a
+An image is a precomputed ``.npy``/``.npz`` feature array, or a raw
+``.jpg``/``.png`` (decoded by ``data/image_io.py``, no Pillow) that the
+timm ViT of ``--vit_checkpoint`` turns into features on the model's
+device: the variant whose width is the model's ``image_feat_dim``, its
+self-attention on kernel A. A model with a
 wav2vec2/HuBERT ``speech_encoder_type`` reads the samples (standardized
 per utterance with ``data.standardize_audio``) instead of fbank frames; a
 speech-to-text checkpoint is decoded by ``python -m
@@ -32,6 +38,7 @@ from mm_s2ut_torch.config import load_config
 from mm_s2ut_torch.convert import from_flax, load_npz
 from mm_s2ut_torch.data.audio_io import get_waveform, write_wav
 from mm_s2ut_torch.data.dataset import standardize_waveforms
+from mm_s2ut_torch.data.image_io import read_image
 from mm_s2ut_torch.data.dictionary import UnitDictionary
 from mm_s2ut_torch.data.manifest import read_manifest
 from mm_s2ut_torch.infer.generator import UnitGenerator, format_generation_output
@@ -66,16 +73,40 @@ def load_model(model_path: str, device: torch.device):
     return cfg, model.to(device).eval()
 
 
-def load_image_features(image_path: str) -> np.ndarray:
-    """(1, T_img, D) features from a ``.npy`` array."""
-    if not image_path.endswith(".npy"):
-        raise ValueError(f"{image_path}: only precomputed .npy image features are supported")
-    feats = np.asarray(np.load(image_path), np.float32)
-    if feats.ndim == 2:
-        return feats[None]
-    if feats.ndim == 3 and feats.shape[0] == 1:
-        return feats
-    raise ValueError(f"{image_path}: expected one (T_img, D) feature array, got {feats.shape}")
+def load_image_features(image_path: str, vit_checkpoint: Optional[str] = None,
+                        image_feat_dim: int = 768, device: torch.device = torch.device("cpu")
+                        ) -> np.ndarray:
+    """(1, T_img, D) features from a ``.npy``/``.npz`` array, or from a raw
+    image through the timm ViT of ``vit_checkpoint`` on ``device``."""
+    if image_path.endswith((".npy", ".npz")):
+        feats = np.load(image_path)
+        if hasattr(feats, "keys"):
+            feats = feats[list(feats.keys())[0]]
+        feats = np.asarray(feats, np.float32)
+        if feats.ndim == 2:
+            return feats[None]
+        if feats.ndim == 3 and feats.shape[0] == 1:
+            return feats
+        raise ValueError(f"{image_path} holds {feats.shape[0]} images — single-sample "
+                         "inference needs one (T_img, D) feature array; slice the split "
+                         "blob first (np.save(out, blob[i]))")
+    if vit_checkpoint is None:
+        raise ValueError("raw image input requires --vit_checkpoint (timm pytorch_model.bin)")
+    from mm_s2ut_torch.models.vit import (VIT_VARIANTS, VisionTransformer, load_timm_checkpoint,
+                                          preprocess_images)
+
+    names = [n for n, c in VIT_VARIANTS.items() if c.embed_dim == image_feat_dim]
+    if not names:
+        raise ValueError(f"no ViT variant of width {image_feat_dim} (image_feat_dim); "
+                         f"the variants: {sorted(VIT_VARIANTS)}")
+    vit_cfg = VIT_VARIANTS[names[-1]]
+    vit = VisionTransformer(vit_cfg)
+    vit.load_state_dict(from_flax(load_timm_checkpoint(vit_checkpoint, vit_cfg), vit))
+    vit = vit.to(device).eval()
+    pixels = preprocess_images([read_image(image_path)], vit_cfg.image_size)
+    with torch.no_grad():
+        feats, _ = vit(torch.from_numpy(pixels).to(device))
+    return feats.cpu().numpy()
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -85,10 +116,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     ap.add_argument("--model_path", required=True, help="dir with config.yaml + params.npz")
     ap.add_argument("--audio_path", help="single-sample source wav")
-    ap.add_argument("--image_path", help="image features (.npy)")
+    ap.add_argument("--image_path", help="image (.jpg/.png) or features (.npy/.npz)")
     ap.add_argument("--manifest_file", help="batch mode: TSV manifest")
     ap.add_argument("--output_dir", required=True)
     ap.add_argument("--beam", type=int, default=None)
+    ap.add_argument("--vit_checkpoint", help="timm ViT weights for raw images")
     ap.add_argument("--vocoder_path", help="CodeHiFiGAN checkpoint (.pt)")
     ap.add_argument("--vocoder_cfg", help="CodeHiFiGAN config.json")
     ap.add_argument("--gen_subset", default="test", help="batch output naming")
@@ -131,7 +163,10 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if args.audio_path:
         wav, _ = get_waveform(args.audio_path, use_sample_rate=cfg.data.sample_rate)
-        imgs = load_image_features(args.image_path) if args.image_path else None
+        dims = cfg.model.multimodal.image_feat_dim
+        imgs = (load_image_features(args.image_path, args.vit_checkpoint,
+                                    dims[0] if dims else 768, device)
+                if args.image_path else None)
         hypos = decode_batch([wav.astype(np.float32)], imgs)
         names, sample_ids, targets = [Path(args.audio_path).stem], [0], None
     else:

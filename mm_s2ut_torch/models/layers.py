@@ -339,7 +339,13 @@ class Conv1dSubsampler(nn.Module):
         """(B, T, F) features → (B, T', out_dim), updated lengths."""
         x = x.transpose(1, 2)
         for i in range(self.n):
-            x = F.glu(getattr(self, f"conv{i}")(x), dim=1)
+            conv = getattr(self, f"conv{i}")
+            # One row per call: a batched conv can round a row by the batch's
+            # size (oneDNN does on the CPU, cuDNN in bf16 and TF32 on the
+            # card: tools/host_cost.py subsampler), which a 4-bit cache can
+            # turn into another hypothesis between a served wave and a
+            # one-utterance search.
+            x = F.glu(torch.cat([conv(row) for row in x.split(1)]), dim=1)
             lengths = (lengths - 1) // 2 + 1
             # Zero padded frames between convs: the conv bias makes them
             # nonzero and the next conv reads them near the pad boundary.

@@ -18,7 +18,12 @@ units (training only), target-speaker conditioning (``spk_emb_proj``),
 through ``only_img_proj`` when its width differs), fusion kept off the
 top (``is_fusion_top=False``: the encoder's states are returned and no
 fusion runs, as in the reference), and the gate and image pre-norm on or
-off. Other fusion types and heads raise at construction
+off. With ``multimodal.load_visual_extractor_type`` the model holds the
+on-line image encoder (``visual_extractor``: the timm ViT over kernel A
+for ``vit_timm``/``vit_huggingface``, the CLIP tower for ``vit_openai``;
+``models/vit.py``): a 4-D first image source of (B, S, S, 3) pixels runs
+it, and its features replace that source with no padding (inference
+only). Other fusion types and heads raise at construction
 (:func:`_check_ported`). The encoder's self-attention runs kernel A,
 or kernel G with ``encoder_causal_attention`` (and
 ``encoder_attention_window``), and kernel H in the backward;
@@ -44,6 +49,8 @@ from mm_s2ut_torch.models.decoder import DecoderState, UnitDecoder
 from mm_s2ut_torch.models.fusion import FusionBlock, modality_dropout
 from mm_s2ut_torch.models.layers import MultiHeadAttention
 from mm_s2ut_torch.models.s2t_encoder import SpeechTransformerEncoder
+from mm_s2ut_torch.models.vit import (CLIPVisionConfig, CLIPVisionTransformer, ViTConfig,
+                                      VisionTransformer)
 from mm_s2ut_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model, Wav2Vec2WithMultiModal
 from mm_s2ut_torch.ops.dropout import DropoutRng
 
@@ -59,9 +66,9 @@ def reads_waveform(cfg: ModelConfig) -> bool:
 
 def _check_ported(cfg: ModelConfig) -> None:
     """Refuse the settings whose modules the port does not have yet: the
-    other fusion types, the on-line extractors, the CTC and multitask heads
-    and the pipelined encoder (ROADMAP.md §1). Every other setting of
-    ``ModelConfig`` is ported."""
+    other fusion types, the CTC and multitask heads and the pipelined
+    encoder (ROADMAP.md §1). Every other setting of ``ModelConfig`` is
+    ported."""
     mm = cfg.multimodal
     if cfg.speech_encoder_type not in SPEECH_ENCODERS:
         raise ValueError(f"speech_encoder_type={cfg.speech_encoder_type!r}: expected one of "
@@ -69,7 +76,6 @@ def _check_ported(cfg: ModelConfig) -> None:
     unported = {
         "multimodal_attention_type": mm.multimodal_attention_type not in (None, "selective_attention"),
         "multimodal_extractor_type": mm.multimodal_extractor_type is not None,
-        "load_visual_extractor_type": bool(mm.load_visual_extractor_type),
         "ctc_weight": cfg.ctc_weight > 0,
         "multitask": bool(cfg.multitask),
         "pipeline_stages": cfg.pipeline_stages > 1,
@@ -87,7 +93,8 @@ def init_parameters_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     projections, lecun-normal (truncated at 2σ) for every other dense and
     conv kernel, N(0, D^-1/2) for the unit embedding, zero biases, unit
     LayerNorm and GroupNorm scales, U[0, 1) for wav2vec2's
-    ``masked_spec_embed``. Training from scratch starts here."""
+    ``masked_spec_embed``, zeros for the image encoders' class token and
+    N(0, 0.02) for their positions. Training from scratch starts here."""
     attn = {id(m) for mha in model.modules() if isinstance(mha, MultiHeadAttention)
             for m in (mha.q_proj, mha.k_proj, mha.v_proj, mha.out_proj)}
     for mod in model.modules():
@@ -96,9 +103,15 @@ def init_parameters_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.bias.fill_(0.0)
         elif isinstance(mod, Wav2Vec2Model):
             mod.masked_spec_embed.uniform_(0.0, 1.0, generator=generator)
+        elif isinstance(mod, (VisionTransformer, CLIPVisionTransformer)):
+            for name, p in mod.named_parameters(recurse=False):
+                if name == "pos_embed":
+                    p.normal_(0.0, 0.02, generator=generator)
+                else:  # the class token
+                    p.zero_()
         elif isinstance(mod, nn.Embedding):
             mod.weight.normal_(0.0, mod.weight.shape[1] ** -0.5, generator=generator)
-        elif isinstance(mod, (nn.Linear, nn.Conv1d)):
+        elif isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             w = mod.weight
             if id(mod) in attn:
                 nn.init.xavier_uniform_(w, generator=generator)
@@ -111,14 +124,23 @@ def init_parameters_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 class MMS2UTModel(nn.Module):
-    def __init__(self, cfg: ModelConfig, w2v_cfg: Optional[Wav2Vec2Config] = None):
+    def __init__(self, cfg: ModelConfig, w2v_cfg: Optional[Wav2Vec2Config] = None,
+                 vit_cfg: Optional[Any] = None):
         """``w2v_cfg``: the wav2vec2/HuBERT encoder's geometry, by default
-        ``Wav2Vec2Config.from_args(cfg.w2v_args)``."""
+        ``Wav2Vec2Config.from_args(cfg.w2v_args)``; ``vit_cfg``: the on-line
+        image encoder's (a ``ViTConfig``, or a ``CLIPVisionConfig`` for
+        ``vit_openai``), by default its type's published one."""
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
         self.w2v_cfg = w2v_cfg or Wav2Vec2Config.from_args(cfg.w2v_args)
         mm = cfg.multimodal
+        if mm.load_visual_extractor_type == "vit_openai":
+            self.vit_cfg = vit_cfg or CLIPVisionConfig()
+            self.visual_extractor = CLIPVisionTransformer(self.vit_cfg)
+        elif mm.load_visual_extractor_type:  # vit_timm / vit_huggingface: timm's graph
+            self.vit_cfg = vit_cfg or ViTConfig()
+            self.visual_extractor = VisionTransformer(self.vit_cfg)
         drops = dict(dropout=cfg.dropout, attention_dropout=cfg.attention_dropout,
                      activation_dropout=cfg.activation_dropout, activation=cfg.activation_fn)
         in_layer = cfg.speech_encoder_type == "wav2vec2_multimodal"
@@ -216,16 +238,30 @@ class MMS2UTModel(nn.Module):
         return {"encoder_out": x, "encoder_padding_mask": w2v["padding_mask"],
                 "encoder_states": w2v["hidden_states"]}
 
+    def _extract_visual(self, pixels: torch.Tensor) -> torch.Tensor:
+        """(B, S, S, 3) pixels → (B, T, D) features: the CLIP tower's last
+        hidden state, or the ViT's features."""
+        if self.training:
+            raise NotImplementedError("training through the on-line visual extractor is not "
+                                      "ported yet (ROADMAP.md §1 item 4)")
+        out = self.visual_extractor(pixels.to(self.decoder.embed.embed_tokens.weight.dtype))
+        return out[-1] if isinstance(out, list) else out[0]
+
     def encode(
         self,
         src_features: torch.Tensor,  # (B, T, F) log-mels, or (B, S) waveforms
         src_lengths: torch.Tensor,  # (B,) frames, or samples
-        imgs_list: Sequence[torch.Tensor] = (),  # (B, Ti, Di) per source
+        imgs_list: Sequence[torch.Tensor] = (),  # (B, Ti, Di) per source; the first
+        # may be (B, S, S, 3) pixels for the visual extractor
         img_masks_list: Sequence[Optional[torch.Tensor]] = (),  # (B, Ti) True = pad
         tgt_speaker: Optional[torch.Tensor] = None,  # (B, speaker_embed_dim)
     ) -> Dict[str, Any]:
         imgs_list = list(imgs_list)
         img_masks_list = list(img_masks_list) or [None] * len(imgs_list)
+        if hasattr(self, "visual_extractor") and imgs_list and imgs_list[0].dim() == 4:
+            imgs_list[0] = self._extract_visual(imgs_list[0])
+            img_masks_list[0] = torch.zeros(imgs_list[0].shape[:2], dtype=torch.bool,
+                                            device=imgs_list[0].device)
         if self.cfg.multimodal.only_img:
             # The first image source replaces the encoder output, and the
             # others are never read (the reference's loop breaks there).

@@ -5,9 +5,14 @@ dictionary, the datasets, the model and the trainer, and owns the device
 frontend: host batches (waveforms padded to their bucket) become
 standardised log-mels on the device through the port's ``ops/fbank.py``.
 The batch order is the reference's (``LengthBucketBatcher`` seeded by
-``train.seed``). Not ported, and refused when configured: noise mixing,
-the on-line visual extractor and ``eval_inference``; the native C++
-loader, which the reference also skips when it is absent, is left out.
+``train.seed``). With ``multimodal.load_visual_extractor_type`` the
+batches carry preprocessed pixels and the model's extractor starts from
+``multimodal.load_visual_extractor``'s checkpoint when one is named (a
+timm ``.bin``/``.pth``, or an HF CLIP dir for ``vit_openai``); the model
+raises if it is trained through the extractor (ROADMAP.md §1 item 4).
+Not ported, and refused when configured: noise mixing and
+``eval_inference``; the native C++ loader, which the reference also
+skips when it is absent, is left out.
 With a raw-waveform speech encoder (``speech_encoder_type`` ``hubert``,
 ``wav2vec2`` or ``wav2vec2_multimodal``) the batches keep their
 waveforms: no fbank, ``standardize_audio`` per utterance on the host,
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from mm_s2ut_torch.config import Config
+from mm_s2ut_torch.convert import flatten, from_flax, to_flax
 from mm_s2ut_torch.data.bucketing import LengthBucketBatcher
 from mm_s2ut_torch.data.dataset import SpeechToSpeechDataset, standardize_waveforms
 from mm_s2ut_torch.data.dictionary import Dictionary, UnitDictionary
@@ -32,6 +38,7 @@ from mm_s2ut_torch.data.prefetch import prefetch
 from mm_s2ut_torch.models import build_model_from_config
 from mm_s2ut_torch.models.mm_s2ut import init_parameters_, reads_waveform
 from mm_s2ut_torch.models.mm_xm import mm_xm_architecture_base
+from mm_s2ut_torch.models.vit import load_clip_checkpoint, load_timm_checkpoint
 from mm_s2ut_torch.ops.fbank import FbankConfig, waveform_frontend
 from mm_s2ut_torch.train.trainer import Trainer, to_device
 
@@ -54,8 +61,6 @@ def _check_ported(cfg: Config) -> None:
     unported = {
         "data.noise": cfg.data.noise.noise_prob > 0 and bool(cfg.data.noise.noise_wav_dir),
         "train.eval_inference": cfg.train.eval_inference,
-        "model.multimodal.load_visual_extractor_type":
-            bool(cfg.model.multimodal.load_visual_extractor_type),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -98,11 +103,34 @@ class MultiModalSpeechToSpeechTask:
 
     def build_model(self):
         """The configured architecture with the reference's initializers,
-        drawn from ``train.seed``, in fp32 (the trainer's master copy)."""
+        drawn from ``train.seed``, in fp32 (the trainer's master copy), and
+        the pretrained visual extractor where one is named."""
         arch = ARCHS.get(self.cfg.model.arch)
         if arch is not None:
             arch(self.cfg.model)
-        return self._initialized(build_model_from_config(self.cfg))
+        model = self._initialized(build_model_from_config(self.cfg))
+        mm = self.cfg.model.multimodal
+        if mm.load_visual_extractor_type and mm.load_visual_extractor:
+            self._load_visual_extractor_weights(model)
+        return model
+
+    def _load_visual_extractor_weights(self, model) -> None:
+        """Fill ``model.visual_extractor`` from ``multimodal.load_visual_
+        extractor``; a checkpoint of another geometry raises."""
+        mm = self.cfg.model.multimodal
+        if mm.load_visual_extractor_type == "vit_openai":
+            _, variables = load_clip_checkpoint(mm.load_visual_extractor)
+        else:
+            variables = load_timm_checkpoint(mm.load_visual_extractor, model.vit_cfg)
+        want = {k: v.shape for k, v in to_flax(model.visual_extractor).items()}
+        got = {k: v.shape for k, v in flatten(variables["params"]).items()}
+        if want != got:
+            raise ValueError(
+                f"visual extractor checkpoint {mm.load_visual_extractor} does not match the "
+                f"configured graph (visual_extractor_args={mm.visual_extractor_args})")
+        model.visual_extractor.load_state_dict(from_flax(variables, model.visual_extractor))
+        logger.info("loaded visual extractor (%s) from %s", mm.load_visual_extractor_type,
+                    mm.load_visual_extractor)
 
     def _initialized(self, model):
         return init_parameters_(model.float(), torch.Generator().manual_seed(self.cfg.train.seed))

@@ -3,6 +3,7 @@
     PYTHONPATH=TREE python mm_s2ut_torch/tools/host_cost.py wrappers [--reps 200]
     PYTHONPATH=TREE python mm_s2ut_torch/tools/host_cost.py decode-step [--at-step 200] \
         [--kv bfloat16|int8|int4]
+    PYTHONPATH=TREE python mm_s2ut_torch/tools/host_cost.py subsampler
 
 ``TREE`` is the directory holding the ``mm_s2ut_torch`` package to
 measure: ``.`` for this checkout, or another tree unpacked into a
@@ -29,6 +30,23 @@ two consecutive ``decode_step`` calls, traced by ``torch.profiler``
 (:func:`profile_decode_step`): kernel time on the device, the shares of
 kernels B-F (:func:`kernel_of`), and the device's busy share of the mean
 wall time of the 50 unprofiled steps before it.
+
+``subsampler``: the speech encoder's conv subsampler
+(``models.layers.Conv1dSubsampler``). First, whether the card's batched
+``Conv1d`` rounds a row by the batch's size: the flagship's two convs
+(80 → 1024 and 512 → 1024 channels, kernel 5, stride 2) and the small
+config's (80 → 32 and 16 → 128), bf16 and fp32 with TF32 on and off,
+B ∈ {2, 8, 64, 128} rows of T ∈ {256, 1000} frames, each row of the
+batched call against the same row alone (:func:`conv_batch_rounding`;
+it calls the convs itself, so it reads the same in any tree). Then the
+tree's own subsampler alone at those paths' shapes
+(:func:`subsampler_alone`), then the three flagship paths that run it
+(:func:`subsampler_paths`, CUDA-synchronised host clock): the encode of
+128 × 1000 frames (phase 5's bench point, bf16, no grad; median of 5),
+the server at bench_serving.py's point (phase 13's: 256 requests after a
+warm call of 64) and the train step at B=8 × 1000 frames × 100 targets
+(phase 11's: 10 steps after 3 warm-up). To compare two trees, run both
+in one call, in the order parent, change, change, parent.
 """
 from __future__ import annotations
 
@@ -295,9 +313,153 @@ def decode_step(at_step: int, kv: str = "bfloat16") -> dict:
     return profile_decode_step(generator, feats, flens, [imgs], [masks], at_step)
 
 
+def conv_batch_rounding() -> list:
+    """For each conv, dtype and (B, T): the rows of a B-row call that
+    differ from the same row run alone, and the largest |difference|."""
+    from torch import nn
+
+    convs = {"flagship": ((80, 1024), (512, 1024)), "small": ((80, 32), (16, 128))}
+    rows = []
+    for name, shapes in convs.items():
+        for i, (c_in, c_out) in enumerate(shapes):
+            g = torch.Generator().manual_seed(i)
+            conv = nn.Conv1d(c_in, c_out, 5, stride=2, padding=2)
+            with torch.no_grad():
+                conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) * (5 * c_in) ** -0.5)
+                conv.bias.copy_(torch.randn(c_out, generator=g) * 0.1)
+            for dtype, tf32 in ((torch.bfloat16, False), (torch.float32, False),
+                                (torch.float32, True)):
+                torch.backends.cudnn.allow_tf32 = tf32
+                c = conv.to("cuda", dtype)
+                for B in (2, 8, 64, 128):
+                    for T in (256, 1000):
+                        x = torch.randn((B, c_in, T), generator=g).to("cuda", dtype)
+                        with torch.no_grad():
+                            batched = c(x)
+                            alone = torch.cat([c(r) for r in x.split(1)])
+                        diff = (batched.float() - alone.float()).abs().amax(dim=(1, 2))
+                        rows.append({"conv": f"{name}.conv{i}", "dtype": str(dtype)[6:],
+                                     "tf32": tf32, "B": B, "T": T,
+                                     "rows_differ": int((diff > 0).sum()),
+                                     "max_abs": float(diff.max())})
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    return rows
+
+
+def _serve_requests(n: int, seed: int, enc_frames: int) -> list:
+    """``chip_smoke.serve_requests``: n requests of enc_frames/5 ..
+    enc_frames random fbank frames."""
+    import numpy as np
+
+    from mm_s2ut_torch.infer.serving import Request
+
+    r = np.random.RandomState(seed)
+    reqs = []
+    for i in range(n):
+        src = int(r.randint(enc_frames // 5, enc_frames + 1))
+        reqs.append(Request(uid=i, features=r.randn(src, 80).astype(np.float32), length=src))
+    return reqs
+
+
+def _synced(fn, n: int = 1) -> float:
+    """Median wall seconds of ``n`` calls, CUDA-synchronised around each."""
+    secs = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return sorted(secs)[n // 2]
+
+
+def subsampler_alone() -> dict:
+    """The tree's flagship subsampler by itself, in bf16 autocast as the
+    model runs it, at the three paths' shapes: the encode's 128 × 1000
+    frames and a serving wave's 8 × 1024 (no grad), the train step's
+    8 × 1000 forward and backward. Median ms of 20 after 3 warm-up."""
+    from mm_s2ut_torch.models.layers import Conv1dSubsampler
+
+    sub = _init_random_(Conv1dSubsampler(80, 1024, 512), torch.Generator().manual_seed(0)).cuda()
+    g = torch.Generator().manual_seed(1)
+    out = {}
+    for label, B, T, grad in (("encode_B128_T1000", 128, 1000, False),
+                              ("serving_wave_B8_T1024", 8, 1024, False),
+                              ("train_fwd_bwd_B8_T1000", 8, 1000, True)):
+        x = torch.randn((B, T, 80), generator=g).cuda().requires_grad_(grad)
+        lens = torch.full((B,), T, device="cuda")
+
+        def call():
+            with torch.autocast("cuda", dtype=torch.bfloat16), torch.set_grad_enabled(grad):
+                y, _ = sub(x, lens)
+            if grad:
+                y.float().sum().backward()
+
+        for _ in range(3):
+            call()
+        out[label] = {"ms": _synced(call, 20) * 1e3}
+    return out
+
+
+def subsampler_paths() -> dict:
+    """The encode, the server and the train step of the flagship (bf16),
+    with this tree's subsampler, unpatched: end-to-end wall times."""
+    import numpy as np
+
+    from mm_s2ut_torch.config import Config, ModelConfig, MultimodalConfig, TrainConfig
+    from mm_s2ut_torch.infer.serving import ContinuousServer
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+    from mm_s2ut_torch.train.trainer import Trainer, to_device
+
+    mm = MultimodalConfig(image_feat_dim=[768], multimodal_attention_type="selective_attention",
+                          use_selective_gate=True, modality_dropout=0.5, audio_dropout=0.5)
+    mcfg = ModelConfig(vocab_size=1004, dtype="bfloat16", multimodal=mm)
+    rng = np.random.RandomState(0)
+    result = {}
+    model = _init_random_(MMS2UTModel(mcfg), torch.Generator().manual_seed(0)).to("cuda").eval()
+    B, T = 128, 1000
+    feats = torch.from_numpy(rng.randn(B, T, 80).astype(np.float32)).cuda()
+    lens = torch.full((B,), T, device="cuda")
+    imgs = [torch.randn(B, 577, 768, device="cuda")]
+    masks = [torch.zeros(B, 577, dtype=torch.bool, device="cuda")]
+    with torch.no_grad():
+        model.encode(feats, lens, imgs, masks)  # warm-up
+        result["encode_B128_T1000"] = {
+            "ms": _synced(lambda: model.encode(feats, lens, imgs, masks), 5) * 1e3}
+
+    srv = ContinuousServer(model, slots=64, beam_size=10, ring=256, chunk=16, enc_frames=1024,
+                           kv_cache_dtype="int8", admit_width=8, max_len_a=0.2,
+                           max_len_b=0)  # bench_serving.py's point
+    reqs = _serve_requests(256, 2, 1024)
+    srv.run(reqs[:64])
+    secs = _synced(lambda: srv.run(reqs))
+    result["serving_256"] = {"utt_s": len(reqs) / secs, "s": secs, "waves": srv.stats["waves"]}
+    del model, srv
+    torch.cuda.empty_cache()
+
+    cfg = Config(model=mcfg, train=TrainConfig(update_freq=1, warmup_updates=10,
+                                               label_smoothing=0.2))
+    trainer = Trainer(cfg, _init_random_(MMS2UTModel(mcfg), torch.Generator().manual_seed(11)),
+                      "cuda")
+    B, T, Tt = 8, 1000, 100
+    batch = to_device({
+        "src_features": rng.randn(B, T, 80).astype(np.float32),
+        "src_lengths": np.full((B,), T, np.int32),
+        "prev_output_tokens": rng.randint(4, 1004, (B, Tt)).astype(np.int32),
+        "target": rng.randint(4, 1004, (B, Tt)).astype(np.int32),
+        "imgs_list": (rng.randn(B, 577, 768).astype(np.float32),),
+        "img_masks_list": (np.zeros((B, 577), bool),),
+    }, torch.device("cuda"))
+    for _ in range(3):
+        trainer.train_batch(batch)
+    secs = _synced(lambda: [trainer.train_batch(batch) for _ in range(10)])
+    result["train_step_B8_T1000"] = {"ms": secs * 1e2}
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="host_cost.py")
-    ap.add_argument("what", choices=["wrappers", "decode-step"])
+    ap.add_argument("what", choices=["wrappers", "decode-step", "subsampler"])
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--at-step", type=int, default=200)
     ap.add_argument("--kv", choices=["bfloat16", "int8", "int4"], default="bfloat16",
@@ -312,8 +474,11 @@ def main(argv=None) -> int:
     print(f"package: {mm_s2ut_torch.__file__}")
     if args.what == "wrappers":
         result = {"wrappers": wrapper_costs(args.reps)}
-    else:
+    elif args.what == "decode-step":
         result = {"decode_step": {"kv": args.kv, **decode_step(args.at_step, args.kv)}}
+    else:
+        result = {"conv_batch_rounding": conv_batch_rounding(),
+                  "alone": subsampler_alone(), "paths": subsampler_paths()}
     print(json.dumps(result))
     return 0
 

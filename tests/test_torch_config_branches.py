@@ -316,13 +316,11 @@ def test_speaker_vocoder_fairseq_checkpoint_matches_jax_loader(tmp_path):
 
 
 @pytest.mark.parametrize("fields,mm", [
-    ({}, {"load_visual_extractor_type": "vit_openai"}),
     ({"speech_encoder_type": "hubert"}, {"multimodal_extractor_type": "q_former"}),
     ({}, {"multimodal_attention_type": "multimodal_attention"}),
     ({}, {"multimodal_attention_type": "external_multimodal_transformer"}),
     ({}, {"multimodal_attention_type": "bridge_tower"}),
     ({}, {"multimodal_extractor_type": "q_former"}),
-    ({}, {"load_visual_extractor_type": "vit_timm"}),
     ({"ctc_weight": 0.3}, {}),
     ({"multitask": [tconfig.MultitaskTaskConfig()]}, {}),
     ({"pipeline_stages": 2}, {}),

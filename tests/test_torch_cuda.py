@@ -20,7 +20,10 @@ average there, ``csrc/flash_attention.cu``). A and G with attention
 dropout, and H's four gradients, are held to the same tolerances times
 the largest magnitude of the twin's output (a dropped-out row of few
 keys puts out up to |v|/(1 − p), gradients grow with T); in fp32 that
-still catches a single weight dropped on one side only."""
+still catches a single weight dropped on one side only. A at the ViT's
+shape (577 queries over 584 keys, 7 of them padding; H = 12 and 16) is
+held to its plain version, and a small ViT forward on the card to the
+same weights on the CPU."""
 import pytest
 import torch
 
@@ -29,6 +32,7 @@ from chip_smoke import (
     FLAGSHIP,
     TOL,
     TOL_REQUANT,
+    VIT,
     XM,
     XM_BENCH,
     ancestry_inputs,
@@ -866,3 +870,50 @@ def test_xm_bench_point_shapes(card, dtype):
     q8, kv8, sk, sv, _ = quant_cross_inputs(x["B"], x["H"], x["K"], x["Dh"], x["S"], dtype, seed=33)
     _close(D.cross_decode_attention_i8(q8, kv8, sk, sv, bias),
            D.cross_reference_i8(q8, kv8, sk, sv, bias), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H", [12, 16])
+def test_flash_attention_at_the_vit_shape(card, dtype, H):
+    """A at the image encoders' shape (``chip_smoke.VIT``): 577 queries
+    over 584 keys whose last 7 are padding, q a strided view of one
+    (B, T, 3, H, Dh) projection and k, v padded copies, as the ViT makes
+    them; against the plain version."""
+    import torch.nn.functional as F
+
+    B, Tq, S, Dh = VIT["B"], VIT["Tq"], VIT["S"], VIT["Dh"]
+    g = torch.Generator().manual_seed(H)
+    qkv = (torch.randn(B, Tq, 3, H, Dh, generator=g)).to("cuda", dtype)
+    q = qkv[:, :, 0]
+    k, v = (F.pad(qkv[:, :, i], (0, 0, 0, 0, 0, S - Tq)) for i in (1, 2))
+    assert not q.is_contiguous() and A._rows_aligned(q)
+    key_bias = A.padding_bias((torch.arange(S)[None, :] >= Tq).expand(B, S).cuda(), B, S, "cuda")
+    before = A.flash_attention.launches
+    got = A.flash_attention_biased(q, k, v, key_bias)
+    assert A.flash_attention.launches == before + 1 and got.shape == (B, Tq, H, Dh)
+    _close(got, A.reference_attention(q * Dh ** -0.5, k, v, key_bias[:, None, None, :]), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_small_vit_card_against_cpu(card, dtype):
+    """A ViT of two 64-d blocks at 48² (10 tokens, keys padded to 16) on
+    the card against the same weights on the CPU (the plain version), with
+    A launched once per block; fp32 1e-4, bf16 5e-2, times max(1, the
+    largest |CPU feature|)."""
+    import copy
+
+    from mm_s2ut_torch.models.vit import ViTConfig, VisionTransformer
+
+    vit = VisionTransformer(ViTConfig(image_size=48, embed_dim=64, depth=2, num_heads=4))
+    with torch.no_grad():
+        for p in vit.parameters():
+            p.copy_(torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())) * 0.1)
+    vit = vit.to(dtype).eval()
+    x = torch.randn(3, 48, 48, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want, _ = vit(x)
+        before = A.flash_attention.launches
+        got, _ = copy.deepcopy(vit).cuda()(x.cuda())
+    assert A.flash_attention.launches == before + 2
+    tol = (5e-2 if dtype == torch.bfloat16 else 1e-4) * max(1.0, want.float().abs().max().item())
+    _close(got.cpu(), want, dtype, tol)

@@ -12,7 +12,8 @@ carried across by ``convert.from_flax``.
    ``beam_search``: tokens equal, scores atol 1e-4, for admission widths
    None and 1, a slot reused until the ring wraps, int8 and a wrapped int4
    ring, image fusion, and the budget from raw source frames; one case
-   also against JAX's ``ContinuousServer`` itself.
+   also against JAX's ``ContinuousServer`` itself, and the int4 server at
+   two slots against JAX's on the card smoke run's "ending on EOS" model.
 3. Admission into an int8 cross cache keeps int8 and its scales, writes
    the JAX admission's bytes, and leaves the state's shapes and dtypes as
    they were."""
@@ -191,6 +192,47 @@ def test_quantized_ring_matches_jax_offline_search(pair, kv_dtype, slots):
                            max_len_b=MAX_LEN, kv_cache_dtype=kv_dtype, **COMMON)
     _check_against_offline(pair, srv, _requests(9, 5, lengths=(24,)), kv_dtype)
     assert srv.stats["steps"] > 16
+
+
+def test_int4_two_slot_server_matches_jax_server_on_eos_model():
+    """The int4 server at two slots against JAX's at two slots, on a CPU
+    copy of the card smoke run's "ending on EOS" serving model and its six
+    requests (one 50x768 image source, two padded tails): tokens equal and
+    scores within 1e-4 of JAX's server and of the port's one-utterance
+    search. Before the subsampler's convs ran one row per call, one score
+    of a two-row admission wave sat 1.25e-4 off both."""
+    import chip_smoke
+
+    from mm_s2ut.config import ModelConfig as JModelConfig
+    from mm_s2ut.config import _build as j_build
+    from mm_s2ut_torch.config import GenerationConfig
+    from mm_s2ut_torch.convert import to_flax, unflatten
+    from mm_s2ut_torch.infer.generator import UnitGenerator
+
+    model = chip_smoke.serving_model(3.0)
+    jmodel = JModel(j_build(JModelConfig, dataclasses.asdict(model.cfg)))
+    params = {"params": unflatten(to_flax(model))}
+    reqs = chip_smoke.small_serving_requests()
+    kw = dict(chip_smoke.SMALL_SERVE, kv_cache_dtype="int4")
+    assert kw["slots"] == 2
+    port = {r.uid: r for r in ContinuousServer(model, **kw).run(reqs)}
+    jres = {r.uid: r for r in JServer(jmodel, params, vocab_size=model.cfg.vocab_size,
+                                      n_img_sources=1, **kw).run(
+        [JRequest(r.uid, r.features, r.length, r.imgs, r.img_masks) for r in reqs])}
+    gen = UnitGenerator(model, GenerationConfig(beam=kw["beam_size"], max_len_a=0.0,
+                                                max_len_b=kw["max_len_b"], kv_cache_dtype="int4"))
+    lengths = set()
+    for q in reqs:
+        feats = np.zeros((1, kw["enc_frames"], 80), np.float32)
+        feats[0, : q.length] = q.features
+        off = gen.generate(feats, np.asarray([q.length]), [q.imgs[0][None]],
+                           [q.img_masks[0][None]])[0][0]
+        got, want = port[q.uid], jres[q.uid]
+        assert got.tokens == want.tokens == off["tokens"], q.uid
+        np.testing.assert_allclose(got.score, want.score, atol=1e-4)
+        np.testing.assert_allclose(got.score, off["score"], atol=1e-4)
+        lengths.add(len(got.tokens))
+    assert min(lengths) < kw["max_len_b"] - 1  # some hypotheses end on EOS
 
 
 def test_server_with_image_fusion_matches_jax_offline_search():
