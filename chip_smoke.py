@@ -133,7 +133,30 @@ is no CPU path):
     fp32 config with the extractor, tokens card = CPU per cache; then
     ``python -m mm_s2ut_torch.inference --image_path <fixture>.jpg
     --vit_checkpoint`` (``vit_tiny``) card = CPU, ``cli.extract_features``
-    over JPEG and PNG images card against CPU, and ``cli.vit_rollout``.
+    over JPEG and PNG images card against CPU, and ``cli.vit_rollout``;
+20. training the speech encoders and the enhanced path
+    (``phase_train_speech_encoders``): (e) A with attention dropout 0.1
+    and 0, and H after it, at B=8, T=499 over the padding of 2-10 s
+    utterances, H=12 and 16, bf16 and fp32, against their plain versions,
+    timed beside SDPA (its backward for H) with their bounds; (a) the XM
+    train step at full width (``mm_xm_architecture_base`` over
+    wav2vec2-base, LayerDrop 0.1, every dropout 0.1, bf16, Adam) on phase
+    16's 8 waves of 2-10 s with 20-60 text tokens: 3 + 10 steps with
+    ``gradient_checkpointing`` off, then on from the same weights (the
+    step-1 loss equal), ms per step and its spread, peak memory, A and H
+    per step (the layers LayerDrop keeps; A twice with checkpointing), one
+    step profiled, then one step at wav2vec2-large-lv60's geometry; (b)
+    the flagship with a ``hubert`` encoder at HuBERT-base's geometry, span
+    masking, ``freezing_updates`` 2 (the encoder bit-unchanged by steps
+    1-2, moved by step 3), B=8 x 10 s; (c) phase 11's point with
+    ``ctc_weight`` 0.3 and a ctc and a transformer task on caller-built
+    targets, with and without ``checkpoint_activations``, against phase
+    11's plain step, and the CTC terms alone timed and profiled; (d)
+    small fp32 configs card against CPU over three steps (losses,
+    gradients, parameters): masking, LayerDrop, both checkpointings,
+    freezing, CTC and multitask, then ``cli.train`` on a tiny S2T corpus
+    with noise mixing on the card and with ``--device cpu``, the same
+    metrics.csv.
 
 Phase 2 also holds A at the image encoders' shape (B=16, 577 queries
 over 584 keys, the last 7 padding, H=12 and 16, Dh=64), and the enhanced
@@ -155,8 +178,9 @@ for H), which the port never calls.
 The line before the last is the kernels' JSON record (with each
 kernel's bound at its recorded shape: the larger of its bytes over
 3.35 TB/s and its operations over the peak for its inputs' type; A's
-``launches`` add phase 19's image path to the flagship paths'); the
-last line is ``{"ok": true, "device": {...}}``. Artifacts (.unit files,
+``launches`` add phase 19's image path to the flagship paths'; its
+``train_launches`` are A's and H's in phase 20a's first timed XM step);
+the last line is ``{"ok": true, "device": {...}}``. Artifacts (.unit files,
 generate-smoke.txt, wavs, the training runs) go to ``--out`` (default
 ``smoke_out/`` beside this file).
 """
@@ -558,7 +582,7 @@ def phase_kernels():
     return record
 
 
-def check_and_time(label, dtype, kern, plain, tol, library=None, scaled=False):
+def check_and_time(label, dtype, kern, plain, tol, library=None, scaled=False, phase="phase 2"):
     """Hold a kernel against its plain version, then time both (plain,
     kernel, kernel, plain) and, when given, the PyTorch call computing the
     same function; prints one phase-2 line. A kernel with several outputs
@@ -578,7 +602,7 @@ def check_and_time(label, dtype, kern, plain, tol, library=None, scaled=False):
     ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
     library_ms = time_ms(library) if library is not None else None
     lib = f", library {library_ms:.4f} ms" if library is not None else ""
-    print(f"phase 2: kernel {label} {str(dtype)[6:]}: max|err| {err:.3e} "
+    print(f"{phase}: kernel {label} {str(dtype)[6:]}: max|err| {err:.3e} "
           f"(tol {tol:g}{' x scale' if scaled else ''}), kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms{lib}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms}
@@ -1309,7 +1333,8 @@ def phase_train_parity(out_dir: Path):
 def phase_train_bench():
     """The reference's train bench point at full width (``bench.py:125-191``):
     B=8 x 1000 frames x 100 targets for 3 + 17 steps, then B=2 x 4000 x
-    200 for 3 + 5. Returns H's launches over the timed B=8 steps."""
+    200 for 3 + 5. Returns H's launches over the timed B=8 steps and the
+    B=8 ms per step."""
     import numpy as np
 
     from mm_s2ut_torch.config import Config, ModelConfig, MultimodalConfig, TrainConfig
@@ -1351,15 +1376,15 @@ def phase_train_bench():
         print(f"phase 11: B={B} loss per step {[round(x, 4) for x in losses]}; grad norm "
               f"{[round(x, 3) for x in norms]}; skipped {sum(m['skipped'] for m in metrics)}")
         if B == 8:
-            h_launches = counts["H"]
+            h_launches, plain_ms = counts["H"], ms
             assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
             profile_step(trainer, batch, ms)
         del batch
         torch.cuda.empty_cache()
-    return h_launches
+    return h_launches, plain_ms
 
 
-def profile_step(trainer, batch, step_ms):
+def profile_step(trainer, batch, step_ms, label="phase 11"):
     """One train step under torch.profiler: device time by kernel (the
     profiler's kernel events only; its CPU ops repeat their kernels' time),
     the shares of A and H, the hash dropout's elementwise int64 passes, and
@@ -1379,14 +1404,14 @@ def profile_step(trainer, batch, step_ms):
 
     total = sum(dev_us(e) for e in kernels)
     if total <= 0:
-        print("phase 11: profiled step: the profiler saw no device time (not measured)")
+        print(f"{label}: profiled step: the profiler saw no device time (not measured)")
         return
     # A's kernels (flash_fwd_kernel_mma in bf16) and H's (attn_bwd_*_kernel_mma)
     a = sum(dev_us(e) for e in kernels if "flash_fwd_kernel" in e.key)
     h = sum(dev_us(e) for e in kernels if "attn_bwd" in e.key)
     assert a > 0 and h > 0, f"the profile names no A or H kernel: {[e.key for e in kernels]}"
     top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    print(f"phase 11: profiled B=8 step: {aten_calls} aten calls, {sum(e.count for e in kernels)} "
+    print(f"{label}: profiled step: {aten_calls} aten calls, {sum(e.count for e in kernels)} "
           f"kernel launches, device time {total / 1e3:.3f} "
           f"ms = {total / 1e3 / step_ms:.1%} of an unprofiled step; A {a / 1e3:.3f} ms "
           f"({a / total:.1%} of device time), H {h / 1e3:.3f} ms ({h / total:.1%}); top kernels "
@@ -2255,6 +2280,47 @@ def phase_xm_small_parity():
     torch.backends.cudnn.allow_tf32 = True
 
 
+def s2t_corpus(root: Path, splits, n: int, seed: int):
+    """A synthetic S2T corpus in ``root``: n wavs of 1-3 s, a manifest per
+    split with 5-word German transcripts, a SentencePiece model
+    (``build_model``), the dictionary with ``<lang:de>``, and 50x768 image
+    features per split. Returns (rows, the dictionary's symbols)."""
+    import numpy as np
+
+    from mm_s2ut_torch.data.audio_io import write_wav
+    from mm_s2ut_torch.data.manifest import ManifestRow, write_manifest
+    from mm_s2ut_torch.data.sentencepiece import build_model
+
+    (root / "img").mkdir(parents=True, exist_ok=True)
+    words = ["the", "a", "cat", "dog", "sat", "ran", "on", "mat", "in", "sun"]
+    pieces = [("▁" + w, -1.0 - i / 10) for i, w in enumerate(words)]
+    pieces += [(c, -6.0) for c in sorted(set("".join(words)))] + [("▁", -5.0)]
+    (root / "spm.model").write_bytes(build_model(pieces))
+    symbols = [p for p, _ in pieces] + ["<lang:de>"]
+    (root / "dict.txt").write_text("".join(f"{s} 1\n" for s in symbols))
+    rng = np.random.RandomState(seed)
+    rows = []
+    for i in range(n):
+        m = int(rng.randint(16000, 48000))
+        write_wav(root / f"{i + 1}.wav", (0.3 * rng.randn(m)).astype(np.float32), 16000)
+        text = " ".join(rng.choice(words, 5))
+        rows.append(ManifestRow(str(i), f"{i + 1}.wav", m, text, 5, tgt_lang="de"))
+    for split in splits:
+        write_manifest(root / f"{split}.tsv", rows)
+        np.save(root / "img" / f"{split}.npy", rng.randn(n, 50, 768).astype(np.float32))
+    return rows, symbols
+
+
+def s2t_data_config(root: Path, **kw):
+    from mm_s2ut_torch.config import DataConfig
+
+    return DataConfig(data_root=str(root), audio_root=str(root), vocab_filename="dict.txt",
+                      target_is_code=False, tgt_lang="<lang:de>", eos_token="<lang:de>",
+                      prepend_bos_and_append_tgt_lang_tag=True, max_tokens=600, num_buckets=2,
+                      bpe_tokenizer={"bpe": "sentencepiece",
+                                     "sentencepiece_model": str(root / "spm.model")}, **kw)
+
+
 def phase_xm_entry(out_dir: Path):
     """Phase 18: ``python -m mm_s2ut_torch.cli.generate`` on a synthetic S2T
     corpus (wavs, a SentencePiece model from ``build_model``, the lang-tag
@@ -2265,40 +2331,17 @@ def phase_xm_entry(out_dir: Path):
 
     import numpy as np
 
-    from mm_s2ut_torch.config import Config, DataConfig, GenerationConfig
+    from mm_s2ut_torch.config import Config, GenerationConfig
     from mm_s2ut_torch.convert import to_flax
-    from mm_s2ut_torch.data.audio_io import write_wav
-    from mm_s2ut_torch.data.manifest import ManifestRow, write_manifest
-    from mm_s2ut_torch.data.sentencepiece import build_model
     from mm_s2ut_torch.models.mm_xm import MMXMTransformerModel
 
     root = out_dir / "generate"
     (root / "model").mkdir(parents=True, exist_ok=True)
-    (root / "img").mkdir(exist_ok=True)
-    words = ["the", "a", "cat", "dog", "sat", "ran", "on", "mat", "in", "sun"]
-    pieces = [("▁" + w, -1.0 - i / 10) for i, w in enumerate(words)]
-    pieces += [(c, -6.0) for c in sorted(set("".join(words)))] + [("▁", -5.0)]
-    (root / "spm.model").write_bytes(build_model(pieces))
-    symbols = [p for p, _ in pieces] + ["<lang:de>"]
-    (root / "dict.txt").write_text("".join(f"{s} 1\n" for s in symbols))
-    rng = np.random.RandomState(18)
-    rows = []
-    for i in range(6):
-        n = int(rng.randint(16000, 48000))
-        write_wav(root / f"{i + 1}.wav", (0.3 * rng.randn(n)).astype(np.float32), 16000)
-        text = " ".join(rng.choice(words, 5))
-        rows.append(ManifestRow(str(i), f"{i + 1}.wav", n, text, 5, tgt_lang="de"))
-    write_manifest(root / "test.tsv", rows)
-    np.save(root / "img" / "test.npy", rng.randn(len(rows), 50, 768).astype(np.float32))
-
+    rows, symbols = s2t_corpus(root, ("test",), 6, seed=18)
     mcfg = xm_config(dtype="float32", small=True)
     mcfg.vocab_size = len(symbols) + 4
     mcfg.multimodal.image_feat_path = [str(root / "img")]
-    data = DataConfig(data_root=str(root), audio_root=str(root), vocab_filename="dict.txt",
-                      target_is_code=False, tgt_lang="<lang:de>", eos_token="<lang:de>",
-                      prepend_bos_and_append_tgt_lang_tag=True, max_tokens=600, num_buckets=2,
-                      bpe_tokenizer={"bpe": "sentencepiece",
-                                     "sentencepiece_model": str(root / "spm.model")})
+    data = s2t_data_config(root)
     cfg = Config(task="multimodal_speech_to_text", model=mcfg, data=data,
                  generation=GenerationConfig(beam=5, max_len_a=0.0, max_len_b=20))
     model = sharpened_(init_random_(MMXMTransformerModel(mcfg), torch.Generator().manual_seed(18)),
@@ -2711,6 +2754,552 @@ def image_entry_points(root: Path, vit_b, gen, images):
           f"{overlay.shape[1]}x{overlay.shape[0]} PNG; A launched {n_a} times in all")
 
 
+# ------------------------------------------------- training the speech encoders
+
+
+def xm_train_batch(n, gen, vocab, min_tok=20, max_tok=60, seed=20):
+    """Phase 16's n waves of 2-10 s (zeros past each length), random text
+    targets of 20-60 tokens ending in EOS (2) and padded with 1, their
+    decoder inputs (EOS, then the target shifted right), and 577x768
+    image features: a host batch as the S2T task collates one."""
+    import numpy as np
+
+    samples, frames, _ = xm_lengths(n)
+    wav, _, imgs = synthetic_batch(n, gen, min_s=10.0, max_s=10.0)
+    for i, m in enumerate(samples.tolist()):
+        wav[i, m:] = 0.0
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(min_tok, max_tok + 1, n)
+    target = np.ones((n, int(lens.max())), np.int32)
+    prev = np.ones_like(target)
+    for i, m in enumerate(lens):
+        toks = rng.randint(4, vocab, m).astype(np.int32)
+        toks[-1] = 2
+        target[i, :m] = toks
+        prev[i, 0], prev[i, 1:m] = 2, toks[:-1]
+    return {"src_features": wav.numpy(), "src_lengths": samples.numpy().astype(np.int32),
+            "prev_output_tokens": prev, "target": target, "imgs_list": (imgs.numpy(),),
+            "img_masks_list": (np.zeros((n, 577), bool),)}, frames
+
+
+def timed_steps(trainer, batch, n, counters):
+    """n train steps, each timed on the CUDA-synchronised host clock, with
+    the launches of ``counters`` per step: (metrics, ms per step, launches
+    per step)."""
+    metrics, ms, launches = [], [], []
+    for _ in range(n):
+        (m, secs), _, counts = counted(counters, lambda: timed(lambda: trainer.train_batch(batch)))
+        metrics.append(m)
+        ms.append(secs * 1e3)
+        launches.append(counts)
+    return metrics, ms, launches
+
+
+def spread(ms):
+    import numpy as np
+
+    return (f"{np.mean(ms):.3f} ms per step (min {min(ms):.3f}, max {max(ms):.3f}, "
+            f"sd {np.std(ms):.3f})")
+
+
+def activation_peak(trainer, batch) -> float:
+    """GiB that one training forward and backward (no optimizer step)
+    allocates at its peak above what is held before it."""
+    for p in trainer.params:
+        p.grad = None
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.model.train()
+    loss, m = trainer._loss(batch)
+    (loss / m["ntokens"]).backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    for p in trainer.params:
+        p.grad = None
+    return peak / 2**30
+
+
+def pos_conv_ms(pos_conv) -> float:
+    """The positional conv's forward and backward alone on phase 16's
+    frames, under bf16 autocast as in the train step."""
+    x = torch.randn(8, 499, pos_conv.conv.in_channels, device="cuda", requires_grad=True)
+
+    def step():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            y = pos_conv(x)
+        y.float().sum().backward()
+
+    return time_ms(step, n=5)
+
+
+def phase_xm_train():
+    """Phase 20a: the XM train step at full width. ``mm_xm_architecture_base``
+    over wav2vec2-base (LayerDrop 0.1, hidden and attention dropout 0.1),
+    selective fusion over 577x768 features, bf16 autocast, Adam; phase
+    16's 8 waves of 2-10 s with 20-60 text tokens each. 3 warm-up + 10
+    timed steps with ``gradient_checkpointing`` off, then on, from the
+    same weights and seed (the step-1 loss equal); one step profiled; then
+    one step at wav2vec2-large-lv60's geometry with checkpointing.
+    Returns A's and H's launches in the first timed step without
+    checkpointing."""
+    import numpy as np
+
+    from mm_s2ut_torch.config import Config, TrainConfig
+    from mm_s2ut_torch.models.mm_xm import MMXMTransformerModel
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.train.trainer import Trainer, to_device
+
+    host, frames = xm_train_batch(8, torch.Generator().manual_seed(20), 1010)
+    batch = to_device(host, torch.device("cuda"))
+    counters = {"A": A.flash_attention, "H": A.flash_attention_bwd}
+    tcfg = TrainConfig(warmup_updates=10, label_smoothing=0.2)
+    first_loss, train_launches = {}, {}
+    for ckpt in (False, True):
+        cfg = xm_config(dict(layerdrop=0.1, gradient_checkpointing=ckpt))
+        model = init_random_(MMXMTransformerModel(cfg), torch.Generator().manual_seed(21))
+        n_params = sum(p.numel() for p in model.parameters())
+        trainer = Trainer(Config(model=cfg, train=tcfg), model, "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        warm, _, _ = timed_steps(trainer, batch, 3, counters)
+        metrics, ms, launches = timed_steps(trainer, batch, 10, counters)
+        first_loss[ckpt] = warm[0]["loss"] / warm[0]["ntokens"]
+        losses = [m["loss"] / m["ntokens"] for m in warm + metrics]
+        assert all(np.isfinite(losses)) and all(np.isfinite(m["grad_norm"]) for m in metrics)
+        n_layers = cfg.w2v_args.get("num_hidden_layers", 12)
+        for c in launches:  # LayerDrop skips layers: A and H once per layer kept (A twice
+            # with checkpointing: the forward and the recompute)
+            assert 0 < c["H"] <= n_layers and c["A"] == (2 if ckpt else 1) * c["H"], launches
+        if not ckpt:
+            train_launches = launches[0]
+        print(f"phase 20a: XM train step, bf16, {n_params / 1e6:.1f} M params, wav2vec2-base "
+              f"(LayerDrop 0.1), B=8 of 2-10 s (frames {frames.tolist()}), "
+              f"{int(host['target'].shape[1])} target columns, gradient_checkpointing {ckpt}: "
+              f"{spread(ms)} over 10 steps (3 warm-up), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; step-1 loss "
+              f"{first_loss[ckpt]:.6f}; launches per step {[(c['A'], c['H']) for c in launches]}")
+        print(f"phase 20a: losses {[round(x, 4) for x in losses]}")
+        print(f"phase 20a: gradient_checkpointing {ckpt}: one forward + backward without the "
+              f"optimizer holds {activation_peak(trainer, batch):.2f} GiB above the weights, "
+              f"gradients and Adam state")
+        if ckpt:
+            profile_step(trainer, batch, float(np.mean(ms)), "phase 20a")
+            conv = trainer.model.wav2vec2.pos_conv.conv
+            conv_ms = pos_conv_ms(trainer.model.wav2vec2.pos_conv)
+            print(f"phase 20a: wav2vec2's positional conv alone ({conv.in_channels} channels, "
+                  f"{conv.groups} groups, kernel {conv.kernel_size[0]}, B=8 x 499 frames, bf16 "
+                  f"autocast): forward + backward {conv_ms:.3f} ms")
+        del trainer, model
+        torch.cuda.empty_cache()
+    rel = abs(first_loss[True] - first_loss[False]) / abs(first_loss[False])
+    assert rel <= 1e-6, f"checkpointing moved the step-1 loss: {first_loss}"
+    print(f"phase 20a: step-1 loss with and without checkpointing: {first_loss[False]!r} and "
+          f"{first_loss[True]!r} (relative diff {rel:.1e})")
+
+    cfg = xm_config(dict(LARGE_W2V, layerdrop=0.1, gradient_checkpointing=True))
+    model = init_random_(MMXMTransformerModel(cfg), torch.Generator().manual_seed(22))
+    n_w2v = sum(p.numel() for p in model.wav2vec2.parameters())
+    trainer = Trainer(Config(model=cfg, train=tcfg), model, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    timed_steps(trainer, batch, 1, counters)
+    metrics, ms, launches = timed_steps(trainer, batch, 1, counters)
+    c = launches[0]
+    assert np.isfinite(metrics[0]["loss"]) and 0 < c["H"] <= 24 and c["A"] == 2 * c["H"], c
+    print(f"phase 20a: wav2vec2-large-lv60 geometry ({n_w2v / 1e6:.1f} M params in the "
+          f"encoder, 24 x 1024, 16 heads, LayerDrop 0.1), checkpointing: one step "
+          f"{ms[0]:.3f} ms after one warm-up, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {c}")
+    del trainer, model, batch
+    torch.cuda.empty_cache()
+    return train_launches
+
+
+def phase_hubert_train():
+    """Phase 20b: the flagship with ``speech_encoder_type: hubert`` at
+    HuBERT-base's geometry (12 x 768, post-norm, group norm), bf16, every
+    dropout 0.1, span masking (p 0.05, length 10), ``freezing_updates`` 2;
+    B=8 x 10 s, 100 unit targets, 577x768 image features: three steps;
+    the ``speech_encoder`` is bit-unchanged by steps 1-2 and moves at 3."""
+    import numpy as np
+
+    from mm_s2ut_torch.config import Config, ModelConfig, MultimodalConfig, TrainConfig
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.train.trainer import Trainer, to_device
+
+    mm = MultimodalConfig(image_feat_dim=[768], multimodal_attention_type="selective_attention",
+                          use_selective_gate=True, modality_dropout=0.5, audio_dropout=0.5)
+    mcfg = ModelConfig(vocab_size=1004, dtype="bfloat16", multimodal=mm,
+                       speech_encoder_type="hubert",
+                       w2v_args=dict(mask_time_prob=0.05, mask_time_length=10))
+    cfg = Config(model=mcfg, train=TrainConfig(warmup_updates=10, freezing_updates=2))
+    model = init_random_(MMS2UTModel(mcfg), torch.Generator().manual_seed(23))
+    n_params = sum(p.numel() for p in model.parameters())
+    trainer = Trainer(cfg, model, "cuda")
+    host = train_batch(8, 100, 100, seed=23)
+    wav, _, _ = synthetic_batch(8, torch.Generator().manual_seed(23), 10.0, 10.0)
+    host["src_features"] = wav.numpy()
+    host["src_lengths"] = np.full((8,), wav.shape[1], np.int32)
+    batch = to_device(host, torch.device("cuda"))
+    enc = dict(trainer.model.speech_encoder.named_parameters())
+    trained = [n for n in enc if not n.startswith("feature_extractor")]
+    counters = {"A": A.flash_attention, "H": A.flash_attention_bwd}
+    before = {n: p.detach().clone() for n, p in enc.items()}
+    report = []
+    for step in range(3):
+        (m, secs), _, counts = counted(counters, lambda: timed(lambda: trainer.train_batch(batch)))
+        moved = [n for n in enc if not torch.equal(enc[n].detach(), before[n])]
+        assert np.isfinite(m["loss"]) and counts == {"A": 12, "H": 12}, (m, counts)
+        if step < 2:
+            assert moved == [], f"step {step + 1} moved frozen parameters: {moved[:5]}"
+        else:
+            assert set(trained) <= set(moved), sorted(set(trained) - set(moved))[:5]
+        report.append((round(m["loss"] / m["ntokens"], 4), round(secs * 1e3, 3), len(moved)))
+    print(f"phase 20b: flagship with a hubert encoder (HuBERT-base geometry, span masking "
+          f"p 0.05 length 10, freezing_updates 2), bf16, {n_params / 1e6:.1f} M params, B=8 x "
+          f"10 s: per step (loss, ms, speech_encoder tensors moved of {len(enc)}) {report}; A "
+          f"and H 12 launches each per step")
+    del trainer, model, batch
+    torch.cuda.empty_cache()
+
+
+def phase_heads_train(plain_ms):
+    """Phase 20c: the flagship conv-transformer at phase 11's point (B=8 x
+    1000 frames x 100 targets, bf16, dropouts 0.1) with ``ctc_weight`` 0.3,
+    a ``ctc`` task and a ``transformer`` task (2 layers, 256-d, 4 heads,
+    JAX's defaults) on caller-built targets; then with
+    ``checkpoint_activations``. ms per step against phase 11's plain step,
+    and the CTC terms alone (their loss and backward) timed and profiled."""
+    import numpy as np
+
+    from mm_s2ut_torch.config import (Config, ModelConfig, MultimodalConfig,
+                                      MultitaskTaskConfig, TrainConfig)
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel, init_parameters_
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.ops.ctc import ctc_loss
+    from mm_s2ut_torch.train.trainer import Trainer, to_device
+
+    mm = MultimodalConfig(image_feat_dim=[768], multimodal_attention_type="selective_attention",
+                          use_selective_gate=True, modality_dropout=0.5, audio_dropout=0.5)
+    tasks = [MultitaskTaskConfig(task_name="src_ctc", decoder_type="ctc"),
+             MultitaskTaskConfig(task_name="tgt_lm", decoder_type="transformer")]
+    host = train_batch(8, 1000, 100)
+    rng = np.random.RandomState(24)
+    host["multitask_target"] = rng.randint(4, 1004, (8, 100)).astype(np.int32)
+    host["multitask_targets"] = {"src_ctc": rng.randint(4, 1004, (8, 80)).astype(np.int32),
+                                 "tgt_lm": rng.randint(4, 1004, (8, 60)).astype(np.int32)}
+    host["multitask_prev_tokens"] = {"tgt_lm": rng.randint(4, 1004, (8, 60)).astype(np.int32)}
+    batch = to_device(host, torch.device("cuda"))
+    counters = {"A": A.flash_attention, "H": A.flash_attention_bwd}
+    step_ms = {}
+    for ckpt in (False, True):
+        mcfg = ModelConfig(vocab_size=1004, dtype="bfloat16", multimodal=mm, ctc_weight=0.3,
+                           multitask=tasks, checkpoint_activations=ckpt)
+        model = init_parameters_(MMS2UTModel(mcfg), torch.Generator().manual_seed(11))
+        trainer = Trainer(Config(model=mcfg, train=TrainConfig(warmup_updates=10)), model,
+                          "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        timed_steps(trainer, batch, 3, counters)
+        metrics, ms, launches = timed_steps(trainer, batch, 5, counters)
+        m = metrics[-1]
+        assert all(k in m for k in ("ctc_loss", "src_ctc_loss", "tgt_lm_loss"))
+        assert all(np.isfinite(x["loss"]) for x in metrics)
+        want = {"A": 24 if ckpt else 12, "H": 12}
+        assert all(c == want for c in launches), launches
+        step_ms[ckpt] = float(np.mean(ms))
+        print(f"phase 20c: flagship bf16 + CTC (0.3) + ctc and transformer tasks, B=8 T_src=1000 "
+              f"Tt=100, checkpoint_activations {ckpt}: {spread(ms)} over 5 (3 warm-up), "
+              f"{step_ms[ckpt] / plain_ms:.3f} x phase 11's plain step ({plain_ms:.3f} ms); "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; last step "
+              f"ctc_loss {m['ctc_loss']:.2f} src_ctc_loss {m['src_ctc_loss']:.2f} tgt_lm_loss "
+              f"{m['tgt_lm_loss']:.2f}; launches per step {launches[0]}")
+        del trainer, model
+        torch.cuda.empty_cache()
+
+    # The two CTC terms alone: B=8, 250 frames, V=1004, 100 and 80 labels.
+    from torch.profiler import ProfilerActivity, profile
+
+    logits = torch.randn(8, 250, 1004, device="cuda", requires_grad=True)
+    frames = torch.full((8,), 250, device="cuda")
+    labels = [batch["multitask_target"], batch["multitask_targets"]["src_ctc"]]
+
+    def ctc_terms():
+        loss = sum(ctc_loss(logits, frames, y, (y != 1).sum(-1)).sum() for y in labels)
+        loss.backward()
+
+    ctc_ms = time_ms(ctc_terms, n=5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ctc_terms()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    dev_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+                 for e in kernels)
+    n_launch = sum(e.count for e in kernels)
+    print(f"phase 20c: the two CTC terms alone (loss + backward, 250 frames, 100 and 80 labels): "
+          f"{ctc_ms:.3f} ms = {ctc_ms / step_ms[False]:.1%} of the step; {n_launch} kernel "
+          f"launches, device busy {dev_us / 1e3:.3f} ms ({dev_us / 1e3 / ctc_ms:.1%} of the "
+          f"time; the loop over 250 frames is launch-bound)")
+    del batch, logits
+    torch.cuda.empty_cache()
+
+
+UPDATE_TOL = 2e-2  # phase 20d: the card's parameter change against the CPU's
+
+
+def card_vs_cpu(label, model, cfg, batch, counters, frozen_prefix=None):
+    """Three ``Trainer.train_batch`` steps of one small fp32 model on the
+    card and on the CPU from the same weights and batch (TF32 off; at
+    ``cfg``'s lr, 1e-3 in phase 20d as in phase 10): losses within a relative 1e-5 at each step, step-1
+    gradients within a relative 1e-4 of each tensor's largest (floored at
+    1e-4), and the change of the parameters over the three steps, card
+    against CPU, within a relative ``UPDATE_TOL`` in the L2 norm over all
+    parameters. Adam moves nearly every parameter by about lr a step, so
+    one step is about a third of that change; the control, the card's
+    parameters with its third update left out, must read above the
+    limit. The parameters under ``frozen_prefix`` are unchanged by steps
+    1-2 on both. Returns the card's launches over the steps."""
+    import copy
+
+    from mm_s2ut_torch.train.trainer import Trainer
+
+    trainers = {dev: Trainer(cfg, copy.deepcopy(model), dev) for dev in ("cpu", "cuda")}
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    losses = {"cpu": [], "cuda": []}
+    total = {k: 0 for k in counters}
+    worst = 0.0
+    for step in range(3):
+        if step == 2:
+            skipped = [p.detach().cpu().clone() for p in trainers["cuda"].params]
+        for dev, trainer in trainers.items():
+            m, _, counts = counted(counters, lambda: trainer.train_batch(copy.deepcopy(batch)))
+            losses[dev].append(m["loss"])
+            if dev == "cuda":
+                total = {k: total[k] + counts[k] for k in counts}
+            if frozen_prefix and step < 2:
+                for n, p in trainer.model.named_parameters():
+                    if n.startswith(frozen_prefix):
+                        assert torch.equal(p.detach().cpu(), start[n]), f"{label}: {n} moved"
+        if step == 0:
+            for p_cpu, p_card in zip(trainers["cpu"].params, trainers["cuda"].params):
+                if p_cpu.grad is None:
+                    assert p_card.grad is None
+                    continue
+                want, got = p_cpu.grad, p_card.grad.cpu()
+                worst = max(worst, ((got - want).abs().max()
+                                    / max(want.abs().max().item(), 1e-4)).item())
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    begin = [start[n] for n, _ in trainers["cpu"].model.named_parameters()]
+    want = [p.detach() - p0 for p, p0 in zip(trainers["cpu"].params, begin)]
+
+    def update_err(card):
+        diff = sum(((c - p0) - w).pow(2).sum() for c, p0, w in zip(card, begin, want))
+        return (diff / sum(w.pow(2).sum() for w in want)).sqrt().item()
+
+    err = update_err([p.detach().cpu() for p in trainers["cuda"].params])
+    control = update_err(skipped)
+    print(f"phase 20d: {label}: 3 steps card vs CPU, losses {[round(x, 5) for x in losses['cuda']]}"
+          f" (max relative diff {rel:.1e}, tol 1e-5), step-1 gradients {worst:.1e} (tol 1e-4), "
+          f"parameter change over 3 steps {err:.2e} of the CPU's (tol {UPDATE_TOL:.0e}; control, "
+          f"the card's third update left out: {control:.2e}); card launches {total}")
+    assert control > UPDATE_TOL, (label, control)
+    assert rel <= 1e-5 and worst <= 1e-4 and err <= UPDATE_TOL, (label, rel, worst, err)
+    return total
+
+
+def phase_train_card_vs_cpu(out_dir: Path):
+    """Phase 20d: every new training setting on small fp32 configs (64-d,
+    2 + 2 layers; wav2vec2 of 2 x 64 with base's conv strides), card
+    against CPU (``card_vs_cpu``): a ``hubert`` flagship with span masking,
+    LayerDrop, ``gradient_checkpointing``, attention dropout 0.1 and
+    ``freezing_updates`` 2 with weight decay 0.1; XM with LayerDrop,
+    checkpointing, CTC and a ctc and a transformer task; the
+    conv-transformer with ``checkpoint_activations``, activation dropout
+    0.1 and the same heads (the Bernoulli dropout sites, whose generator
+    differs by device, at 0); then ``cli.train`` on a tiny S2T corpus with
+    noise mixing on the card and with ``--device cpu``: the same
+    metrics.csv (loss columns within a relative 1e-5, grad_norm 1e-4).
+    Every run trains at lr 1e-3, so the later steps' losses depend on the
+    earlier updates."""
+    import csv
+    import dataclasses
+
+    import numpy as np
+
+    from mm_s2ut_torch.cli import train as train_cli
+    from mm_s2ut_torch.config import (Config, MultitaskTaskConfig, NoiseConfig, TrainConfig,
+                                      save_yaml)
+    from mm_s2ut_torch.data.audio_io import write_wav
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+    from mm_s2ut_torch.models.mm_xm import MMXMTransformerModel
+    from mm_s2ut_torch.ops import attention as A
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = {"A": A.flash_attention, "H": A.flash_attention_bwd}
+    tasks = [MultitaskTaskConfig(task_name="asr", decoder_type="ctc", vocab_size=60,
+                                 loss_weight=0.5),
+             MultitaskTaskConfig(task_name="st", decoder_type="transformer", decoder_layers=1,
+                                 decoder_embed_dim=32, decoder_attention_heads=2,
+                                 label_smoothing=0.1)]
+    drops = dict(dropout=0.0, attention_dropout=0.0, activation_dropout=0.1)
+    w2v = dict(hidden_dropout=0.0, attention_dropout=0.1, layerdrop=0.3,
+               gradient_checkpointing=True)
+    small = small_config()
+    mm = dataclasses.replace(small.multimodal, modality_dropout=0.0, SA_image_dropout=0.0,
+                             SA_attention_dropout=0.0)
+    train = TrainConfig(lr=1e-3, warmup_updates=1, weight_decay=0.1, freezing_updates=2)
+    gen = torch.Generator().manual_seed(25)
+    wav, lens, imgs = synthetic_batch(2, gen, 1.0, 2.0)
+    rng = np.random.RandomState(25)
+    target = rng.randint(4, 1004, (2, 12)).astype(np.int32)
+    target[1, 8:] = 1
+    base = {"src_lengths": lens.numpy().astype(np.int32), "target": target,
+            "prev_output_tokens": rng.randint(4, 1004, (2, 12)).astype(np.int32),
+            "imgs_list": (imgs[:, :50].numpy(),), "img_masks_list": (np.zeros((2, 50), bool),),
+            "multitask_target": rng.randint(4, 1004, (2, 5)).astype(np.int32),
+            "multitask_targets": {"asr": rng.randint(2, 60, (2, 4)).astype(np.int32),
+                                  "st": rng.randint(4, 1004, (2, 6)).astype(np.int32)},
+            "multitask_prev_tokens": {"st": rng.randint(4, 1004, (2, 6)).astype(np.int32)}}
+    waves = dict(base, src_features=wav.numpy())
+    xm = xm_config(w2v, dtype="float32", small=True)
+    fbank = dict(base, src_features=rng.randn(2, 200, 80).astype(np.float32),
+                 src_lengths=np.array([200, 151], np.int32))
+    runs = {
+        "hubert flagship (masking p 0.3, LayerDrop 0.3, checkpointing, freezing 2)": (
+            MMS2UTModel, dataclasses.replace(
+                small, **drops, multimodal=mm, speech_encoder_type="hubert",
+                w2v_args=dict(SMALL_W2V, **w2v, mask_time_prob=0.3)), waves, "speech_encoder."),
+        "XM (LayerDrop 0.3, checkpointing, CTC, ctc + transformer tasks)": (
+            MMXMTransformerModel, dataclasses.replace(
+                xm, **drops, multimodal=dataclasses.replace(
+                    xm.multimodal, SA_image_dropout=0.0, SA_attention_dropout=0.0),
+                ctc_weight=0.3, multitask=tasks, vocab_size=1004), waves, None),
+        "conv-transformer (checkpoint_activations, CTC, ctc + transformer tasks)": (
+            MMS2UTModel, dataclasses.replace(small, **drops, multimodal=mm, ctc_weight=0.3,
+                                             multitask=tasks, checkpoint_activations=True),
+            fbank, None),
+    }
+    for i, (label, (cls, mcfg, batch, frozen)) in enumerate(runs.items()):
+        model = init_random_(cls(mcfg), torch.Generator().manual_seed(26 + i))
+        cfg = Config(model=mcfg, train=train if frozen else dataclasses.replace(
+            train, freezing_updates=0))
+        launched = card_vs_cpu(label, model, cfg, batch, counters, frozen)
+        assert launched["A"] > 0 and launched["H"] > 0, launched
+
+    root = out_dir / "train_s2t"
+    rows, symbols = s2t_corpus(root, ("train", "valid"), 6, seed=27)
+    (root / "noise").mkdir(exist_ok=True)
+    for k, n in enumerate((4000, 60000)):
+        write_wav(root / "noise" / f"{k}.wav", (0.4 * rng.randn(n)).astype(np.float32), 16000)
+    mcfg = dataclasses.replace(xm_config(dict(w2v, mask_time_prob=0.3), dtype="float32",
+                                         small=True), **drops, vocab_size=len(symbols) + 4)
+    mcfg.multimodal.image_feat_path = [str(root / "img")]
+    mcfg.multimodal.modality_dropout = 0.0
+    mcfg.multimodal.SA_image_dropout = mcfg.multimodal.SA_attention_dropout = 0.0
+    data = s2t_data_config(root, noise=NoiseConfig(noise_wav_dir=str(root / "noise"),
+                                                   noise_prob=0.7))
+    conf = Config(task="multimodal_speech_to_text", model=mcfg, data=data,
+                  train=TrainConfig(lr=1e-3, warmup_updates=1, max_update=4,
+                                    save_interval_updates=2, log_interval=1))
+    save_yaml(conf, root / "run.yaml")
+    tables = {}
+    for dev in ("cuda", "cpu"):
+        save = root / f"ckpt_{dev}"
+        (rc, secs), _, counts = counted(counters, lambda: timed(lambda: train_cli.main(
+            ["--config", str(root / "run.yaml"), "--device", dev, f"train.save_dir={save}"])))
+        assert rc == 0, dev
+        with open(save / "logs" / "metrics.csv", newline="") as f:
+            tables[dev] = list(csv.DictReader(f))
+        if dev == "cuda":
+            assert counts["A"] > 0 and counts["H"] > 0, counts
+            card_s, card_counts = secs, counts
+    assert len(tables["cuda"]) == len(tables["cpu"]) >= 4
+    worst = {"loss": 0.0, "grad_norm": 0.0}
+    for a, b in zip(tables["cuda"], tables["cpu"]):
+        assert a["step"] == b["step"]
+        for key in a:
+            if not a[key] or not (key.endswith("loss") or key.endswith("grad_norm")):
+                continue
+            kind = "grad_norm" if key.endswith("grad_norm") else "loss"
+            x, y = float(a[key]), float(b[key])
+            worst[kind] = max(worst[kind], abs(x - y) / max(abs(y), 1e-12))
+    print(f"phase 20d: cli.train, task multimodal_speech_to_text, small XM (span masking asked "
+          f"of the wav2vec2 config and not applied, as the reference's trainer never asks XM "
+          f"to mask; LayerDrop, checkpointing) on a {len(rows)}-utterance S2T corpus with noise "
+          f"mixing (p 0.7): 4 steps on the card in {card_s:.2f} s (launches {card_counts}) and "
+          f"with --device cpu; metrics.csv rows {len(tables['cuda'])}, loss columns max "
+          f"relative diff {worst['loss']:.1e} (tol 1e-5), grad_norm {worst['grad_norm']:.1e} "
+          f"(tol 1e-4)")
+    assert worst["loss"] <= 1e-5 and worst["grad_norm"] <= 1e-4, worst
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for the runs below
+
+
+def phase_w2v_train_kernels():
+    """Phase 20e: A (attention dropout 0.1 and 0) and H after it at the
+    wav2vec2 training shapes: B=8, T=499 (the key padding of 2-10 s
+    utterances), H=12 (base) and 16 (large), D=64, bf16 and fp32, each
+    against its plain version, timed beside SDPA (forward for A, its
+    backward alone for H) with the bound (``flash_work``/``bwd_work``)."""
+    from mm_s2ut_torch.ops import attention as A
+
+    scale = 64 ** -0.5
+    _, frames, _ = xm_lengths(8)
+    T = int(frames.max())
+    kpm = (torch.arange(T)[None, :] >= frames[:, None]).cuda()
+    bias = torch.zeros(kpm.shape, device="cuda").masked_fill(kpm, A.NEG_INF)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        for H in (12, 16):
+            g = torch.Generator().manual_seed(200 + H)
+            q, k, v = (_randn((8, T, H, 64), g, dtype) for _ in range(3))
+            dout = _randn(q.shape, g, dtype)
+            mask = bias[:, None, None, :].to(dtype)
+            bwd_only, _ = sdpa_backward(q, k, v, mask, dout)
+            for rate in (0.1, 0.0):
+                seed = DROP_SEED if rate else None
+                label = f"A wav2vec2 train B=8 T={T} H={H} dropout {rate}"
+                res = check_and_time(
+                    label, dtype,
+                    lambda: A.flash_attention(q, k, v, kpm, dropout_rate=rate, dropout_seed=seed),
+                    lambda: A.reference_attention(q * scale, k, v, bias[:, None, None, :], False,
+                                                  0, rate, seed),
+                    TOL[dtype], lambda: sdpa(q, k, v, mask), scaled=True, phase="phase 20e")
+                work = flash_work(8, T, T, H, 64, dtype)
+                print(f"phase 20e: {label} {name}: bound {work['bound_ms'] * 1e3:.2f} us "
+                      f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}, "
+                      f"kernel / SDPA {res['ms'] / res['library_ms']:.3f}")
+                stats = torch.empty((2, 8 * H, T), device="cuda")
+                A._launch("mm_flash_attention", q, k, v, bias, scale, False, 0, rate, seed, stats)
+                label = f"H wav2vec2 train B=8 T={T} H={H} dropout {rate}"
+                res = check_and_time(
+                    label, dtype,
+                    lambda: A.flash_attention_bwd(q, k, v, bias, stats, dout, scale, False, 0,
+                                                  rate, seed),
+                    lambda: A.reference_attention_bwd(q, k, v, bias, dout, scale, False, 0, rate,
+                                                      seed),
+                    TOL[dtype], bwd_only, scaled=True, phase="phase 20e")
+                work = bwd_work(8, T, H, 64, dtype)
+                print(f"phase 20e: {label} {name}: bound {work['bound_ms'] * 1e3:.2f} us "
+                      f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}, "
+                      f"kernel / SDPA backward {res['ms'] / res['library_ms']:.3f}")
+            del q, k, v, dout, bwd_only
+            torch.cuda.empty_cache()
+
+
+
+def phase_train_speech_encoders(out_dir: Path, plain_step_ms: float):
+    """Phase 20 (training the speech encoders and the enhanced path):
+    20e's kernel cases first, then 20a-d. Returns 20a's ``train_launches``."""
+    phase_w2v_train_kernels()
+    train_launches = phase_xm_train()
+    phase_hubert_train()
+    phase_heads_train(plain_step_ms)
+    phase_train_card_vs_cpu(out_dir)
+    return train_launches
+
+
 KERNELS = {  # name, source (of the bf16 instance the record times), the TPU kernel it replaces
     "A": ("flash_attention", "mm_s2ut_torch/csrc/flash_attention_mma.cu",
           "mm_s2ut/ops/attention.py:140"),
@@ -2765,7 +3354,7 @@ def main(argv=None) -> int:
     launches["G"] = phase_streaming()["G"]
     phase_entry_points(Path(args.out))
     phase_train_parity(Path(args.out))
-    launches["H"] = phase_train_bench()
+    launches["H"], plain_step_ms = phase_train_bench()
     phase_train_entry(Path(args.out))
     phase_serving(smi)
     phase_small_serving()
@@ -2774,11 +3363,13 @@ def main(argv=None) -> int:
     phase_xm_small_parity()
     phase_xm_entry(Path(args.out))
     image_launches = phase_image_path(Path(args.out))
+    train_launches = phase_train_speech_encoders(Path(args.out), plain_step_ms)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "xm_launches": xm_launches.get(k, 0),
-         "image_launches": image_launches.get(k, 0), **record[k]}
+         "image_launches": image_launches.get(k, 0),
+         "train_launches": train_launches.get(k, 0), **record[k]}
         for k, (name, src, rep) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

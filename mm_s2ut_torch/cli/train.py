@@ -10,8 +10,13 @@ training on one device, with validation, metrics
   python -m mm_s2ut_torch.cli.train --config run.yaml \
       train.max_update=40000 train.save_dir=checkpoints/run1
 
-``--device`` picks the device (default ``cuda``; with no visible card it
-raises unless given ``--device cpu``). ``--resume`` continues from the
+``task`` picks the task, as in the reference: ``multimodal_speech_to_speech``
+(units) or ``multimodal_speech_to_text`` (the enhanced path's text, the
+``mm_xm_transformer`` model). ``--device`` picks the device (default
+``cuda``; with no visible card it raises unless given ``--device cpu``).
+``--load-pretrained-encoder-from DIR`` copies the ``encoder`` subtree of
+``DIR/params.npz`` (a save_dir of this trainer, flax names) into the fresh
+model, strict on names and shapes; ``--resume`` continues from the
 checkpoint in ``save_dir``. The ``mesh`` section is read and ignored: the
 port trains on one card.
 """
@@ -54,6 +59,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--train-subset", default="train")
     ap.add_argument("--resume", action="store_true",
                     help="resume from the checkpoint in save_dir")
+    ap.add_argument("--load-pretrained-encoder-from", default=None,
+                    help="save_dir whose params.npz initializes the encoder")
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     ap.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     args = ap.parse_intermixed_args(argv)
@@ -61,13 +68,21 @@ def main(argv: Optional[List[str]] = None) -> int:
     from mm_s2ut_torch.config import load_config
     from mm_s2ut_torch.inference import resolve_device
     from mm_s2ut_torch.tasks.s2s_task import MultiModalSpeechToSpeechTask
+    from mm_s2ut_torch.tasks.s2t_task import MultiModalSpeechToTextTask
     from mm_s2ut_torch.train.metrics import MetricsWriter
+    from mm_s2ut_torch.train.trainer import load_pretrained_encoder
 
+    tasks = {"multimodal_speech_to_speech": MultiModalSpeechToSpeechTask,
+             "multimodal_speech_to_text": MultiModalSpeechToTextTask}
     device = resolve_device(args.device)
     cfg = load_config(args.config)
     apply_overrides(cfg, args.overrides)
-    task = MultiModalSpeechToSpeechTask(cfg, device)
+    if cfg.task not in tasks:
+        raise ValueError(f"task {cfg.task!r}: expected one of {sorted(tasks)}")
+    task = tasks[cfg.task](cfg, device)
     trainer = task.build_trainer()
+    if args.load_pretrained_encoder_from:
+        load_pretrained_encoder(trainer.model, args.load_pretrained_encoder_from)
     if args.resume:
         try:
             logger.info("resumed from step %d", trainer.restore_checkpoint())

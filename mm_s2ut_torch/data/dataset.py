@@ -10,9 +10,13 @@ raw images, ``RawImageStore``), ``__getitem__`` and ``collate``
 shifted right; with n_frames_per_step = n > 1 the decoder input packs n
 units per id, :func:`pack_units`, while the loss target stays unpacked),
 and the target speaker embeddings of ``data.target_speaker_embed``
-(``tgt_speaker``). Waveforms stay waveforms: the task's device fbank
-turns them into log-mels. Not carried over: noise mixing (the task
-raises when it is configured) and the native C++ loader.
+(``tgt_speaker``), and, in training, noise mixing at a random SNR
+(``data.noise``: the clips of ``noise_wav_dir/*.wav`` in sorted order, each
+draw from the dataset's own ``np.random.RandomState(seed)`` in the
+reference's order, so the mixed waves equal its bit for bit). Waveforms
+stay waveforms: the task's device fbank turns them into log-mels. Not
+carried over: the native C++ loader, which the reference skips too when
+noise mixing is on.
 """
 from __future__ import annotations
 
@@ -24,12 +28,13 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from mm_s2ut_torch.config import DataConfig, MultimodalConfig
+from mm_s2ut_torch.config import DataConfig, MultimodalConfig, NoiseConfig
 from mm_s2ut_torch.data.audio_io import get_waveform
 from mm_s2ut_torch.data.dictionary import Dictionary
 from mm_s2ut_torch.data.image_store import (ImageFeatureStore, RawImageStore,
                                              audio_stem_to_image_index)
 from mm_s2ut_torch.data.manifest import ManifestRow, read_manifest
+from mm_s2ut_torch.ops.noise import select_noise, tile_noise_to_length
 
 
 def pack_units(ids: np.ndarray, n_frames_per_step: int, vocab_size: int, offset: int = 4) -> np.ndarray:
@@ -73,13 +78,18 @@ class S2SItem:
 class SpeechToSpeechDataset:
     def __init__(self, split: str, is_train: bool, data_cfg: DataConfig,
                  rows: Sequence[ManifestRow], tgt_dict: Dictionary,
-                 image_stores: Sequence[ImageFeatureStore] = ()):
+                 image_stores: Sequence[ImageFeatureStore] = (),
+                 noise_wavs: Sequence[np.ndarray] = (), noise_cfg: Optional[NoiseConfig] = None,
+                 seed: int = 1):
         self.split = split
         self.is_train = is_train
         self.cfg = data_cfg
         self.rows = list(rows)
         self.tgt_dict = tgt_dict
         self.image_stores = list(image_stores)
+        self.noise_wavs = list(noise_wavs)
+        self.noise_cfg = noise_cfg or NoiseConfig()
+        self.rng = np.random.RandomState(seed)
         self.n_frames_per_step = data_cfg.n_frames_per_step
         # Target speaker embeddings (one .npy path per manifest id).
         self.speaker_embeds: Optional[Dict[str, str]] = None
@@ -92,7 +102,8 @@ class SpeechToSpeechDataset:
     @classmethod
     def from_tsv(cls, root: str | Path, split: str, data_cfg: DataConfig, tgt_dict: Dictionary,
                  mm_cfg: Optional[MultimodalConfig] = None,
-                 is_train: Optional[bool] = None) -> "SpeechToSpeechDataset":
+                 noise_cfg: Optional[NoiseConfig] = None, is_train: Optional[bool] = None,
+                 seed: int = 1) -> "SpeechToSpeechDataset":
         rows = read_manifest(Path(root) / f"{split}.tsv")
         is_train = split.startswith("train") if is_train is None else is_train
         if mm_cfg is not None and mm_cfg.load_visual_extractor_type:
@@ -105,7 +116,11 @@ class SpeechToSpeechDataset:
         else:
             stores = [ImageFeatureStore.for_split(feat_root, split)
                       for feat_root in (mm_cfg.image_feat_path if mm_cfg is not None else ())]
-        return cls(split, is_train, data_cfg, rows, tgt_dict, stores)
+        noise_wavs = []
+        if noise_cfg and noise_cfg.noise_wav_dir and noise_cfg.noise_prob > 0:
+            noise_wavs = [get_waveform(str(p))[0]
+                          for p in sorted(Path(noise_cfg.noise_wav_dir).glob("*.wav"))]
+        return cls(split, is_train, data_cfg, rows, tgt_dict, stores, noise_wavs, noise_cfg, seed)
 
     def __len__(self) -> int:
         return len(self.rows)
@@ -115,6 +130,25 @@ class SpeechToSpeechDataset:
 
     def num_target_frames(self, index: int) -> int:
         return self.rows[index].tgt_n_frames // self.n_frames_per_step
+
+    def _maybe_add_noise(self, wav: np.ndarray) -> np.ndarray:
+        """With probability ``noise_prob``: one clip, tiled and cropped from
+        a random start to the wave's length, mixed at an SNR uniform in
+        [snr_low, snr_high] dB (noise scaled to factor·mean|wav|/mean|noise|
+        with factor = 1/(10^(SNR/20) + 1), the wave by 1 − factor), then
+        divided by max(peak, 1)."""
+        nc = self.noise_cfg
+        if not self.noise_wavs or self.rng.rand() >= nc.noise_prob:
+            return wav
+        noise = select_noise(self.noise_wavs, 1, self.rng)
+        noise = tile_noise_to_length(noise.reshape(-1), len(wav), -1, self.rng)
+        snr = self.rng.uniform(nc.noise_snr_low, nc.noise_snr_high)
+        factor = 1.0 / (10.0 ** (snr / 20.0) + 1.0)
+        clean_amp = np.abs(wav).mean()
+        noise_amp = np.abs(noise).mean() + 1e-14
+        noisy = wav * (1 - factor) + noise * (factor * clean_amp / noise_amp)
+        peak = max(np.abs(noisy).max(), 1.0)
+        return (noisy / peak).astype(np.float32)
 
     def lang_tag_index(self, lang: str) -> int:
         """Vocabulary id of ``<lang:xx>``."""
@@ -140,6 +174,8 @@ class SpeechToSpeechDataset:
         if self.cfg.audio_root and not os.path.isabs(path):
             path = os.path.join(self.cfg.audio_root, path)
         wav, _ = get_waveform(path, use_sample_rate=self.cfg.sample_rate)
+        if self.is_train:
+            wav = self._maybe_add_noise(wav.astype(np.float32))
         target, tgt_lang_tag = self._encode_target(row)
         imgs: List[np.ndarray] = []
         masks: List[Optional[np.ndarray]] = []

@@ -25,7 +25,7 @@ An int4 cache is nibble-packed in the half-split layout
 (``ops/decode_attention.i4_pack``): its physical column axis is half the
 logical one, which is how the code tells it from int8 (the scales keep
 the logical length). :class:`CTCHead` is the auxiliary CTC projection
-of the multitask heads (logits only).
+of the CTC and multitask heads.
 """
 from __future__ import annotations
 
@@ -434,9 +434,9 @@ class UnitDecoder(nn.Module):
 
 
 class CTCHead(nn.Module):
-    """The auxiliary CTC projection over encoder states (the multitask
-    heads'): fp32 logits. Only the logits are ported; the CTC loss waits
-    for training (ROADMAP.md §1 item 4)."""
+    """The auxiliary CTC projection over encoder states (``ctc_head`` and
+    the CTC multitask heads; flax name ``ctc_proj``): fp32 logits, whose
+    loss is ``ops/ctc.ctc_loss``."""
 
     def __init__(self, embed_dim: int, vocab_size: int):
         super().__init__()

@@ -23,8 +23,12 @@ on-line image encoder (``visual_extractor``: the timm ViT over kernel A
 for ``vit_timm``/``vit_huggingface``, the CLIP tower for ``vit_openai``;
 ``models/vit.py``): a 4-D first image source of (B, S, S, 3) pixels runs
 it, and its features replace that source with no padding (inference
-only). Other fusion types and heads raise at construction
-(:func:`_check_ported`). The encoder's self-attention runs kernel A,
+only). The auxiliary heads over the encoder output (:func:`add_aux_heads`:
+the CTC head with ``ctc_weight`` > 0, a CTC or small transformer head per
+``multitask`` task) give their logits in ``forward``. Other fusion types
+and the pipelined encoder raise at construction (:func:`_check_ported`).
+With ``checkpoint_activations`` the conv-transformer's layers are
+rematerialised in training. The encoder's self-attention runs kernel A,
 or kernel G with ``encoder_causal_attention`` (and
 ``encoder_attention_window``), and kernel H in the backward;
 ``use_flash_attention`` is read by the JAX package only (its non-flash
@@ -45,7 +49,7 @@ import torch
 from torch import nn
 
 from mm_s2ut_torch.config import ModelConfig
-from mm_s2ut_torch.models.decoder import DecoderState, UnitDecoder
+from mm_s2ut_torch.models.decoder import CTCHead, DecoderState, UnitDecoder
 from mm_s2ut_torch.models.fusion import FusionBlock, modality_dropout
 from mm_s2ut_torch.models.layers import MultiHeadAttention
 from mm_s2ut_torch.models.s2t_encoder import SpeechTransformerEncoder
@@ -66,9 +70,8 @@ def reads_waveform(cfg: ModelConfig) -> bool:
 
 def _check_ported(cfg: ModelConfig) -> None:
     """Refuse the settings whose modules the port does not have yet: the
-    other fusion types, the CTC and multitask heads and the pipelined
-    encoder (ROADMAP.md §1). Every other setting of ``ModelConfig`` is
-    ported."""
+    other fusion types and the pipelined encoder (ROADMAP.md §1). Every
+    other setting of ``ModelConfig`` is ported."""
     mm = cfg.multimodal
     if cfg.speech_encoder_type not in SPEECH_ENCODERS:
         raise ValueError(f"speech_encoder_type={cfg.speech_encoder_type!r}: expected one of "
@@ -76,14 +79,58 @@ def _check_ported(cfg: ModelConfig) -> None:
     unported = {
         "multimodal_attention_type": mm.multimodal_attention_type not in (None, "selective_attention"),
         "multimodal_extractor_type": mm.multimodal_extractor_type is not None,
-        "ctc_weight": cfg.ctc_weight > 0,
-        "multitask": bool(cfg.multitask),
         "pipeline_stages": cfg.pipeline_stages > 1,
         "activation_fn=glu": cfg.activation_fn == "glu",
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+
+
+def add_aux_heads(model: nn.Module, cfg: ModelConfig, enc_dim: int) -> None:
+    """The auxiliary heads over the ``enc_dim``-wide encoder output:
+    ``ctc_head`` with ``ctc_weight`` > 0, and per multitask task
+    ``mt_{name}``, a :class:`CTCHead` or a small :class:`UnitDecoder` (4x
+    FFN, the model's dropouts, activation dropout 0.1 as the reference's
+    default) with ``mt_{name}_proj`` to its width where it differs."""
+    if cfg.ctc_weight > 0:
+        model.ctc_head = CTCHead(enc_dim, cfg.vocab_size)
+    for t in cfg.multitask:
+        vocab = t.vocab_size or cfg.vocab_size
+        if t.decoder_type == "ctc":
+            model.add_module(f"mt_{t.task_name}", CTCHead(enc_dim, vocab))
+            continue
+        model.add_module(f"mt_{t.task_name}", UnitDecoder(
+            vocab_size=vocab, embed_dim=t.decoder_embed_dim, ffn_dim=4 * t.decoder_embed_dim,
+            num_layers=t.decoder_layers, num_heads=t.decoder_attention_heads,
+            dropout=cfg.dropout, attention_dropout=cfg.attention_dropout,
+            activation_dropout=0.1))
+        if t.decoder_embed_dim != enc_dim:
+            model.add_module(f"mt_{t.task_name}_proj", nn.Linear(enc_dim, t.decoder_embed_dim))
+
+
+def aux_outputs(model: nn.Module, cfg: ModelConfig, mem: torch.Tensor, mask: torch.Tensor,
+                multitask_prev_tokens: Optional[Dict[str, torch.Tensor]]) -> Dict[str, Any]:
+    """``ctc_logits`` and ``multitask_logits`` over the encoder output
+    ``mem``; a transformer task whose ``multitask_prev_tokens`` the batch
+    lacks is left out."""
+    out: Dict[str, Any] = {}
+    if cfg.ctc_weight > 0:
+        out["ctc_logits"] = model.ctc_head(mem)
+    if cfg.multitask:
+        mt_out = {}
+        for t in cfg.multitask:
+            head = getattr(model, f"mt_{t.task_name}")
+            if t.decoder_type == "ctc":
+                mt_out[t.task_name] = head(mem)
+                continue
+            prev = (multitask_prev_tokens or {}).get(t.task_name)
+            if prev is None:
+                continue  # no auxiliary targets in this batch
+            proj = getattr(model, f"mt_{t.task_name}_proj", None)
+            mt_out[t.task_name] = head(prev, proj(mem) if proj is not None else mem, mask)
+        out["multitask_logits"] = mt_out
+    return out
 
 
 @torch.no_grad()
@@ -168,6 +215,7 @@ class MMS2UTModel(nn.Module):
                 causal_attention=cfg.encoder_causal_attention,
                 attention_window=cfg.encoder_attention_window,
                 normalize_before=cfg.encoder_normalize_before,
+                checkpoint_activations=cfg.checkpoint_activations,
                 **drops,
             )
         if hasattr(self, "speech_encoder") and self.w2v_cfg.hidden_size != cfg.encoder_embed_dim:
@@ -196,6 +244,7 @@ class MMS2UTModel(nn.Module):
             n_frames_per_step=cfg.n_frames_per_step,
             **drops,
         )
+        add_aux_heads(self, cfg, cfg.encoder_embed_dim)
         self.rng: Optional[DropoutRng] = None
         self.to(torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
 
@@ -223,7 +272,7 @@ class MMS2UTModel(nn.Module):
 
     def _speech_encode(self, wave, lengths, imgs_list, img_masks_list) -> Dict[str, Any]:
         """The wav2vec2 branches: (B, S) waveforms → encoder states (span
-        masking only in training, where it is not ported)."""
+        masking in training)."""
         if self.cfg.speech_encoder_type == "wav2vec2_multimodal":
             img = (imgs_list[0] if imgs_list else torch.zeros(
                 (wave.shape[0], 1, self.cfg.multimodal.image_feat_dim[0]), device=wave.device))
@@ -306,14 +355,17 @@ class MMS2UTModel(nn.Module):
         imgs_list: Sequence[torch.Tensor] = (),
         img_masks_list: Sequence[Optional[torch.Tensor]] = (),
         tgt_speaker: Optional[torch.Tensor] = None,
+        multitask_prev_tokens: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Dict[str, Any]:
         """The teacher-forced pass of training: ``logits`` (B, Tt, V) fp32
-        (B, Tt·n, V) with n_frames_per_step = n), ``encoder_out`` and
-        ``encoder_padding_mask``."""
+        (B, Tt·n, V) with n_frames_per_step = n), ``encoder_out``,
+        ``encoder_padding_mask`` and, when configured, ``ctc_logits`` and
+        ``multitask_logits`` (:func:`aux_outputs`)."""
         enc = self.encode(src_features, src_lengths, imgs_list, img_masks_list, tgt_speaker)
-        logits = self.decoder(prev_output_tokens, enc["encoder_out"], enc["encoder_padding_mask"])
-        return {"logits": logits, "encoder_out": enc["encoder_out"],
-                "encoder_padding_mask": enc["encoder_padding_mask"]}
+        mem, mask = enc["encoder_out"], enc["encoder_padding_mask"]
+        return {"logits": self.decoder(prev_output_tokens, mem, mask), "encoder_out": mem,
+                "encoder_padding_mask": mask,
+                **aux_outputs(self, self.cfg, mem, mask, multitask_prev_tokens)}
 
     def decode_init(self, enc: Dict[str, Any], max_len: int, kv_dtype=None) -> DecoderState:
         return self.decoder.init_state(

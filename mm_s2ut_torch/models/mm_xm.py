@@ -1,4 +1,4 @@
-"""The enhanced path of the port: ``mm_xm_transformer`` (inference).
+"""The enhanced path of the port: ``mm_xm_transformer``.
 
 Port of ``mm_s2ut/models/mm_xm.py``: a wav2vec2 encoder
 (``models/wav2vec2.py``; kernel A in every layer) reads the raw
@@ -7,9 +7,10 @@ decoder's, a stride-2 :class:`Conv1dAdaptor` shortens it (3 layers: 8×,
 so 10 s of audio is 499 → 63 positions), selective-attention fusion with
 a sigmoid gate adds each image source (summed over sources), and the
 port's ``UnitDecoder`` decodes over the text vocabulary (kernels B and C,
-or D/F and E over a quantized cache). The CTC and multitask heads give
-their logits only; their losses wait for training (ROADMAP.md §1
-item 4). Modality dropout runs in training mode, as in the flagship.
+or D/F and E over a quantized cache). The CTC and multitask heads are the
+flagship's (``mm_s2ut.add_aux_heads``). Modality dropout runs in training
+mode, as in the flagship. As in the reference, the trainer never passes
+``apply_mask``, so this model trains without span masking.
 
 The model is built in the config's compute dtype (``cfg.dtype``); move
 it to a device with ``.to(device)``.
@@ -23,9 +24,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from mm_s2ut_torch.config import ModelConfig
-from mm_s2ut_torch.models.decoder import CTCHead, DecoderState, UnitDecoder
+from mm_s2ut_torch.models.decoder import DecoderState, UnitDecoder
 from mm_s2ut_torch.models.fusion import FusionBlock, modality_dropout
 from mm_s2ut_torch.models.layers import layer_norm, lengths_to_padding_mask
+from mm_s2ut_torch.models.mm_s2ut import add_aux_heads, aux_outputs
 from mm_s2ut_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
 from mm_s2ut_torch.ops.dropout import DropoutRng
 
@@ -99,20 +101,7 @@ class MMXMTransformerModel(nn.Module):
             normalize_before=cfg.decoder_normalize_before,
             share_input_output_embed=cfg.share_decoder_input_output_embed,
         )
-        if cfg.ctc_weight > 0:
-            self.ctc_head = CTCHead(d, cfg.vocab_size)
-        for t in cfg.multitask:
-            vocab = t.vocab_size or cfg.vocab_size
-            if t.decoder_type == "ctc":
-                self.add_module(f"mt_{t.task_name}", CTCHead(d, vocab))
-                continue
-            self.add_module(f"mt_{t.task_name}", UnitDecoder(
-                vocab_size=vocab, embed_dim=t.decoder_embed_dim,
-                ffn_dim=4 * t.decoder_embed_dim, num_layers=t.decoder_layers,
-                num_heads=t.decoder_attention_heads, dropout=cfg.dropout,
-                attention_dropout=cfg.attention_dropout))
-            if t.decoder_embed_dim != d:
-                self.add_module(f"mt_{t.task_name}_proj", nn.Linear(d, t.decoder_embed_dim))
+        add_aux_heads(self, cfg, d)
         self.rng: Optional[DropoutRng] = None
         self.to(torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32)
 
@@ -182,21 +171,7 @@ class MMXMTransformerModel(nn.Module):
         mem, mask = enc["encoder_out"], enc["encoder_padding_mask"]
         out = {"logits": self.decoder(prev_output_tokens, mem, mask),
                "encoder_out": mem, "encoder_padding_mask": mask}
-        if hasattr(self, "ctc_head"):
-            out["ctc_logits"] = self.ctc_head(mem)
-        if self.cfg.multitask:
-            mt_out = {}
-            for t in self.cfg.multitask:
-                head = getattr(self, f"mt_{t.task_name}")
-                if t.decoder_type == "ctc":
-                    mt_out[t.task_name] = head(mem)
-                    continue
-                prev = (multitask_prev_tokens or {}).get(t.task_name)
-                if prev is None:
-                    continue  # no auxiliary targets in this batch
-                proj = getattr(self, f"mt_{t.task_name}_proj", None)
-                mt_out[t.task_name] = head(prev, proj(mem) if proj is not None else mem, mask)
-            out["multitask_logits"] = mt_out
+        out.update(aux_outputs(self, self.cfg, mem, mask, multitask_prev_tokens))
         return out
 
     def decode_init(self, enc: Dict[str, Any], max_len: int, kv_dtype=None) -> DecoderState:

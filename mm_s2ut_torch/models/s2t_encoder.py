@@ -1,9 +1,8 @@
 """Speech transformer encoder (conv-subsample branch) of the port.
 
-Port of ``mm_s2ut/models/s2t_encoder.py`` (not pipelined, no
-rematerialization): (B, T, 80) log-mels → Conv1dSubsampler (4×) →
-scaled sinusoidal positions → hash dropout (training) → N pre-norm (or
-post-norm) layers whose self-attention is kernel A, or with
+Port of ``mm_s2ut/models/s2t_encoder.py`` (not pipelined): (B, T, 80)
+log-mels → Conv1dSubsampler (4×) → scaled sinusoidal positions → hash
+dropout (training) → N pre-norm (or post-norm) layers whose self-attention is kernel A, or with
 ``causal_attention`` kernel G (position i attends to j ≤ i, and j > i − W
 with ``attention_window`` W), and kernel H in the backward → a final
 LayerNorm when pre-norm. ``return_all_states`` also returns every layer's
@@ -13,12 +12,15 @@ TPU for its kernel; A, G and H take any length, so nothing is padded
 here. The causal
 mask replaces masked logits (the reference's flash route); its folded-bias
 route adds −1e9 instead, which gives the same rows wherever a row's band
-holds a real key, i.e. on every unpadded row.
+holds a real key, i.e. on every unpadded row. With
+``checkpoint_activations`` each layer is rematerialised in training (the
+reference's ``nn.remat``), its dropout drawn again as in the forward
+(``ops.dropout.checkpoint``).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -31,7 +33,7 @@ from mm_s2ut_torch.models.layers import (
     lengths_to_padding_mask,
 )
 from mm_s2ut_torch.ops.attention import padding_bias
-from mm_s2ut_torch.ops.dropout import HashDropout
+from mm_s2ut_torch.ops.dropout import DropoutRng, HashDropout, checkpoint
 
 
 class SpeechTransformerEncoder(nn.Module):
@@ -51,8 +53,11 @@ class SpeechTransformerEncoder(nn.Module):
         activation_dropout: float = 0.0,
         activation: str = "relu",
         normalize_before: bool = True,
+        checkpoint_activations: bool = False,
     ):
         super().__init__()
+        self.checkpoint_activations = checkpoint_activations
+        self.rng: Optional[DropoutRng] = None  # what a checkpointed layer draws from
         self.embed_dim = embed_dim
         self.normalize_before = normalize_before
         self.num_layers = num_layers
@@ -80,8 +85,10 @@ class SpeechTransformerEncoder(nn.Module):
         x = x * (~padding_mask)[..., None].to(x.dtype)
         key_bias = padding_bias(padding_mask, *padding_mask.shape, x.device)  # once for all layers
         states: List[torch.Tensor] = []
+        remat = self.checkpoint_activations and self.training and torch.is_grad_enabled()
         for i in range(self.num_layers):
-            x = getattr(self, f"layer{i}")(x, key_bias)
+            layer = getattr(self, f"layer{i}")
+            x = checkpoint(layer, self.rng, x, key_bias) if remat else layer(x, key_bias)
             if return_all_states:
                 states.append(x)
         if self.normalize_before:

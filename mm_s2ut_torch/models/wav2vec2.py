@@ -1,4 +1,4 @@
-"""wav2vec 2.0 / HuBERT speech encoders of the port (inference).
+"""wav2vec 2.0 / HuBERT speech encoders of the port.
 
 Port of ``mm_s2ut/models/wav2vec2.py``: the HF ``Wav2Vec2Model`` graph,
 so published checkpoints convert weight for weight (raw 16 kHz waveform →
@@ -25,11 +25,25 @@ What differs from the rest of the port, and from PyTorch's defaults:
 * an even positional kernel (128) drops the last frame of the conv;
 * padded frames are zeroed before the positional conv.
 
-Training of these encoders is not ported (ROADMAP.md §1 item 4): in
-training mode, span masking (``apply_mask`` with ``mask_time_prob`` > 0),
-LayerDrop and gradient checkpointing raise. :func:`load_hf_checkpoint`
-reads a local HF directory (``config.json``, ``pytorch_model.bin`` or
-``model.safetensors``) without ``transformers``.
+In training mode (the dropouts drawn from the run's ``DropoutRng``):
+
+* span masking, with ``apply_mask`` and ``mask_time_prob`` > 0: the
+  reference's ``span_mask`` over (B, T) uniform scores drawn from the seed
+  generator on the host and copied to the device, so the card and the CPU
+  mask the same frames (:func:`span_mask_from_scores`),
+  ``masked_spec_embed`` put in at the masked frames before the padding is
+  zeroed;
+* LayerDrop: one uniform per layer per forward for the whole batch, from
+  the seed generator (a host number, so a dropped layer, and the in-layer
+  fusion after it, is not computed: its input passes through, and its
+  parameters get a zero gradient, as the reference's select gives them);
+* ``gradient_checkpointing``: each encoder layer rematerialised, its
+  dropout drawn again as in the forward (``ops.dropout.checkpoint``).
+
+The conv frontend stays frozen (``no_grad``), as the reference's
+``stop_gradient``. :func:`load_hf_checkpoint` reads a local HF directory
+(``config.json``, ``pytorch_model.bin`` or ``model.safetensors``) without
+``transformers``.
 """
 from __future__ import annotations
 
@@ -46,9 +60,7 @@ from torch import nn
 
 from mm_s2ut_torch.models.layers import MultiHeadAttention, make_padding_bias
 from mm_s2ut_torch.ops.attention import padding_bias
-from mm_s2ut_torch.ops.dropout import BernoulliDropout
-
-TRAINING_ITEM = "ROADMAP.md §1 item 4, training of the wav2vec2/HuBERT encoders"
+from mm_s2ut_torch.ops.dropout import BernoulliDropout, DropoutRng, checkpoint, need_rng
 
 
 @dataclass(frozen=True)
@@ -124,16 +136,29 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)  # exact, as jax.nn.gelu(approximate=False)
 
 
-def _check_not_training_only(module: nn.Module, cfg: Wav2Vec2Config, apply_mask: bool) -> None:
-    if not module.training:
-        return
-    unported = {"apply_mask": apply_mask and cfg.mask_time_prob > 0,
-                "layerdrop": cfg.layerdrop > 0,
-                "gradient_checkpointing": cfg.gradient_checkpointing}
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"wav2vec2 in training mode with {', '.join(bad)}: not "
-                                  f"ported yet ({TRAINING_ITEM})")
+MIN_MASKS = 2  # the reference's span_mask default, which no caller changes
+
+
+def span_mask_from_scores(scores: torch.Tensor, mask_prob: float, mask_length: int,
+                          lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reference's ``span_mask`` over given uniform ``scores`` (B, T):
+    max(MIN_MASKS, int(p·T/len + 0.5)) spans per row, at most T // len,
+    starting at the rows' smallest scores (ties to the lower frame, as
+    ``lax.top_k``), never where a span would pass the row's length, each
+    ``mask_length`` frames long and cut at that length. (B, T) bool, True
+    = masked."""
+    B, T = scores.shape
+    n_spans = max(MIN_MASKS, int(mask_prob * T / mask_length + 0.5))
+    n_spans = min(n_spans, max(T // mask_length, 1))
+    t = torch.arange(T, device=scores.device)
+    if lengths is not None:
+        valid = t[None, :] < (lengths[:, None] - mask_length + 1)
+        scores = torch.where(valid, scores, torch.full_like(scores, 2.0))  # never start in padding
+    starts = torch.sort(scores, dim=1, stable=True).indices[:, :n_spans, None]
+    mask = ((t >= starts) & (t < starts + mask_length)).any(1)
+    if lengths is not None:
+        mask &= t[None, :] < lengths[:, None]
+    return mask
 
 
 class FeatureEncoder(nn.Module):
@@ -233,16 +258,27 @@ class Wav2Vec2Model(nn.Module):
         for i in range(cfg.num_hidden_layers):
             self.add_module(f"layer{i}", Wav2Vec2EncoderLayer(cfg))
         self.drop = BernoulliDropout(cfg.hidden_dropout)
+        self.rng: Optional[DropoutRng] = None  # span scores, LayerDrop, checkpointed layers
 
     @property
     def layers(self):
         return [getattr(self, f"layer{i}") for i in range(self.cfg.num_hidden_layers)]
 
+    def _span_scores(self, B: int, T: int, device) -> torch.Tensor:
+        """The uniforms span masking starts from, from the seed generator."""
+        return torch.rand((B, T), generator=need_rng(self).seeds).to(device)
+
+    def _layerdrop_draw(self) -> float:
+        """One layer's LayerDrop uniform, from the seed generator."""
+        return float(torch.rand((), generator=need_rng(self).seeds))
+
     def embed(self, waveform: torch.Tensor, lengths: Optional[torch.Tensor],
-              pad_to_multiple: int = 1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+              pad_to_multiple: int = 1,
+              mask_spans: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Conv features (frozen, as the reference keeps them) → projection →
-        padded frames zeroed → positional conv → (post-norm) LayerNorm →
-        dropout: (hidden, padding mask, frame lengths)."""
+        span masking (``mask_spans``) → padded frames zeroed → positional
+        conv → (post-norm) LayerNorm → dropout: (hidden, padding mask, frame
+        lengths)."""
         c = self.cfg
         with torch.no_grad():
             feats = self.feature_extractor(waveform.to(self.feature_projection.weight.dtype))
@@ -255,6 +291,10 @@ class Wav2Vec2Model(nn.Module):
                      else torch.full((B,), t_true, dtype=torch.long, device=feats.device))
         padding_mask = torch.arange(T, device=feats.device)[None, :] >= feat_lens[:, None]
         hidden = self.feature_projection(self.feature_projection_norm(feats))
+        if mask_spans:
+            mask = span_mask_from_scores(self._span_scores(B, T, feats.device), c.mask_time_prob,
+                                         c.mask_time_length, feat_lens)
+            hidden = torch.where(mask[..., None], self.masked_spec_embed.to(hidden.dtype), hidden)
         hidden = hidden * (~padding_mask)[..., None].to(hidden.dtype)
         hidden = hidden + self.pos_conv(hidden)
         if not c.do_stable_layer_norm:
@@ -269,18 +309,28 @@ class Wav2Vec2Model(nn.Module):
         ``after_layer(i, hidden)``, when given, maps layer i's output before
         the next layer reads it (the in-layer fusion of
         :class:`Wav2Vec2WithMultiModal`); ``pad_to_multiple`` defaults to
-        the config's."""
-        _check_not_training_only(self, self.cfg, apply_mask)
-        pad = self.cfg.pad_to_multiple if pad_to_multiple is None else pad_to_multiple
-        hidden, padding_mask, feat_lens = self.embed(waveform, lengths, pad)
+        the config's. In training: span masking with ``apply_mask``,
+        LayerDrop and checkpointing as the config sets them."""
+        c = self.cfg
+        pad = c.pad_to_multiple if pad_to_multiple is None else pad_to_multiple
+        mask_spans = apply_mask and self.training and c.mask_time_prob > 0
+        hidden, padding_mask, feat_lens = self.embed(waveform, lengths, pad, mask_spans)
         key_bias = padding_bias(padding_mask, *padding_mask.shape, hidden.device)
+        layerdrop = self.training and c.layerdrop > 0
+        remat = self.training and c.gradient_checkpointing and torch.is_grad_enabled()
         states = [hidden]
         for i, layer in enumerate(self.layers):
-            hidden = layer(hidden, key_bias)
+            if layerdrop and self._layerdrop_draw() < c.layerdrop:
+                states.append(hidden)  # the layer and its fusion pass their input through
+                continue
+            if remat:
+                hidden = checkpoint(layer, self.rng, hidden, key_bias)
+            else:
+                hidden = layer(hidden, key_bias)
             if after_layer is not None:
                 hidden = after_layer(i, hidden)
             states.append(hidden)
-        if self.cfg.do_stable_layer_norm:
+        if c.do_stable_layer_norm:
             hidden = self.encoder_norm(hidden)
             states[-1] = hidden
         return {"last_hidden_state": hidden, "hidden_states": states,

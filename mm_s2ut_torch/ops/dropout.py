@@ -14,12 +14,20 @@ masks (decoder embedding, dense attention weights, fusion) from a
 generator on the model's device, both held by one :class:`DropoutRng`
 that the trainer hands the model (``MMS2UTModel.set_dropout_rng``). A
 module in training mode with a rate > 0 and no rng raises.
+
+:func:`checkpoint` rematerialises a layer (``torch.utils.checkpoint``,
+non-reentrant) and puts both generators back to their state at the
+forward for the recompute, then returns them to where the run stands:
+``torch.utils.checkpoint`` restores only the global generators, so the
+recompute would otherwise draw new seeds and build other dropout masks
+than the forward did, and move the run's seed stream on.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from mm_s2ut_torch.ops.attention import _H1, _H3, _M32, _keep_from_hash, _mix
@@ -42,6 +50,26 @@ class DropoutRng:
     def load_state_dict(self, state) -> None:
         self.seeds.set_state(state["seeds"].cpu())
         self.bernoulli.set_state(state["bernoulli"].cpu())
+
+
+def checkpoint(fn: Callable, rng: Optional[DropoutRng], *args) -> torch.Tensor:
+    """``fn(*args)`` under non-reentrant activation checkpointing, its
+    recompute drawing from ``rng`` what its forward drew."""
+    at_forward = rng.state_dict() if rng is not None else None
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1 or rng is None:
+            return fn(*a)
+        now = rng.state_dict()
+        rng.load_state_dict(at_forward)
+        try:
+            return fn(*a)
+        finally:
+            rng.load_state_dict(now)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 def keep_mask(shape, seed: int, rate: float, device) -> torch.Tensor:

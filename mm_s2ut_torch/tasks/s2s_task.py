@@ -10,14 +10,14 @@ batches carry preprocessed pixels and the model's extractor starts from
 ``multimodal.load_visual_extractor``'s checkpoint when one is named (a
 timm ``.bin``/``.pth``, or an HF CLIP dir for ``vit_openai``); the model
 raises if it is trained through the extractor (ROADMAP.md §1 item 4).
-Not ported, and refused when configured: noise mixing and
-``eval_inference``; the native C++ loader, which the reference also
-skips when it is absent, is left out.
+The training split mixes in noise when ``data.noise`` names clips
+(``data/dataset.py``). Not ported, and refused when configured:
+``eval_inference`` (ROADMAP.md §1 item 8, with ``eval/``); the native C++
+loader, which the reference also skips when it is absent, is left out.
 With a raw-waveform speech encoder (``speech_encoder_type`` ``hubert``,
 ``wav2vec2`` or ``wav2vec2_multimodal``) the batches keep their
 waveforms: no fbank, ``standardize_audio`` per utterance on the host,
-and manifest lengths in samples. Training those encoders is not ported
-(the model raises in training mode where it would mask spans).
+and manifest lengths in samples; in training the encoder masks spans.
 """
 from __future__ import annotations
 
@@ -58,13 +58,8 @@ ARCHS = {"mm_s2ut_transformer": lambda cfg: None, "mm_s2ut_transformer_small": _
 
 
 def _check_ported(cfg: Config) -> None:
-    unported = {
-        "data.noise": cfg.data.noise.noise_prob > 0 and bool(cfg.data.noise.noise_wav_dir),
-        "train.eval_inference": cfg.train.eval_inference,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    if cfg.train.eval_inference:
+        raise NotImplementedError("not ported yet: train.eval_inference")
 
 
 class MultiModalSpeechToSpeechTask:
@@ -98,7 +93,8 @@ class MultiModalSpeechToSpeechTask:
         if split not in self.datasets:
             self.datasets[split] = SpeechToSpeechDataset.from_tsv(
                 self.cfg.data.data_root, split, self.cfg.data, self.tgt_dict,
-                mm_cfg=self.cfg.model.multimodal)
+                mm_cfg=self.cfg.model.multimodal, noise_cfg=self.cfg.data.noise,
+                seed=self.cfg.train.seed)
         return self.datasets[split]
 
     def build_model(self):

@@ -24,7 +24,8 @@ class MultiModalSpeechToTextTask(MultiModalSpeechToSpeechTask):
         if split not in self.datasets:
             self.datasets[split] = MultiModalSpeechToTextDataset.from_tsv(
                 self.cfg.data.data_root, split, self.cfg.data, self.tgt_dict,
-                mm_cfg=self.cfg.model.multimodal)
+                mm_cfg=self.cfg.model.multimodal, noise_cfg=self.cfg.data.noise,
+                seed=self.cfg.train.seed)
         return self.datasets[split]
 
     def build_model(self, w2v_cfg: Optional[Wav2Vec2Config] = None) -> MMXMTransformerModel:

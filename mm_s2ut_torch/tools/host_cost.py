@@ -4,6 +4,7 @@
     PYTHONPATH=TREE python mm_s2ut_torch/tools/host_cost.py decode-step [--at-step 200] \
         [--kv bfloat16|int8|int4]
     PYTHONPATH=TREE python mm_s2ut_torch/tools/host_cost.py subsampler
+    PYTHONPATH=TREE python mm_s2ut_torch/tools/host_cost.py train-step
 
 ``TREE`` is the directory holding the ``mm_s2ut_torch`` package to
 measure: ``.`` for this checkout, or another tree unpacked into a
@@ -47,6 +48,17 @@ the server at bench_serving.py's point (phase 13's: 256 requests after a
 warm call of 64) and the train step at B=8 × 1000 frames × 100 targets
 (phase 11's: 10 steps after 3 warm-up). To compare two trees, run both
 in one call, in the order parent, change, change, parent.
+
+``train-step``: phase 11 of ``chip_smoke.py`` alone: the flagship in bf16
+(``init_parameters_`` from seed 11, the flagship's dropouts), one batch
+of B=8 × 1000 frames × 100 targets with 577×768 image features, 3
+warm-up steps then 30 steps, each timed on its own
+(CUDA-synchronised host clock): mean, median, min, max and standard
+deviation; then one step traced by ``torch.profiler``
+(:func:`_device_shares`: kernel time on the device, its busy share of the
+median step, launches and aten calls). Two trees whose steps issue the
+same aten calls and kernels and differ in wall time differ on the host's
+clock, not in the work. Run parent, change, change, parent in one call.
 """
 from __future__ import annotations
 
@@ -457,9 +469,51 @@ def subsampler_paths() -> dict:
     return result
 
 
+def train_step() -> dict:
+    """Phase 11's train step of this tree's package, 30 steps timed one by
+    one after 3 warm-up, then one traced."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from mm_s2ut_torch.config import Config, ModelConfig, MultimodalConfig, TrainConfig
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel, init_parameters_
+    from mm_s2ut_torch.train.trainer import Trainer, to_device
+
+    mm = MultimodalConfig(image_feat_dim=[768], multimodal_attention_type="selective_attention",
+                          use_selective_gate=True, modality_dropout=0.5, audio_dropout=0.5)
+    mcfg = ModelConfig(vocab_size=1004, dtype="bfloat16", multimodal=mm)  # dropouts 0.1
+    cfg = Config(model=mcfg, train=TrainConfig(update_freq=1, warmup_updates=10,
+                                               label_smoothing=0.2))
+    trainer = Trainer(cfg, init_parameters_(MMS2UTModel(mcfg), torch.Generator().manual_seed(11)),
+                      "cuda")
+    rng = np.random.RandomState(0)
+    B, T, Tt = 8, 1000, 100
+    batch = to_device({
+        "src_features": rng.randn(B, T, 80).astype(np.float32),
+        "src_lengths": np.full((B,), T, np.int32),
+        "prev_output_tokens": rng.randint(4, 1004, (B, Tt)).astype(np.int32),
+        "target": rng.randint(4, 1004, (B, Tt)).astype(np.int32),
+        "imgs_list": (rng.randn(B, 577, 768).astype(np.float32),),
+        "img_masks_list": (np.zeros((B, 577), bool),),
+    }, torch.device("cuda"))
+    for _ in range(3):
+        trainer.train_batch(batch)
+    steps = 30
+    ms = [_synced(lambda: trainer.train_batch(batch)) * 1e3 for _ in range(steps)]
+    median = sorted(ms)[steps // 2]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_batch(batch)
+        torch.cuda.synchronize()
+    shares = _device_shares(prof, median)
+    return {"steps": steps, "ms_mean": float(np.mean(ms)), "ms_median": median,
+            "ms_min": min(ms), "ms_max": max(ms), "ms_sd": float(np.std(ms)), "ms": ms,
+            **{k: shares[k] for k in ("device_ms", "busy", "launches", "aten_calls", "top")}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="host_cost.py")
-    ap.add_argument("what", choices=["wrappers", "decode-step", "subsampler"])
+    ap.add_argument("what", choices=["wrappers", "decode-step", "subsampler", "train-step"])
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--at-step", type=int, default=200)
     ap.add_argument("--kv", choices=["bfloat16", "int8", "int4"], default="bfloat16",
@@ -476,6 +530,8 @@ def main(argv=None) -> int:
         result = {"wrappers": wrapper_costs(args.reps)}
     elif args.what == "decode-step":
         result = {"decode_step": {"kv": args.kv, **decode_step(args.at_step, args.kv)}}
+    elif args.what == "train-step":
+        result = {"train_step": train_step()}
     else:
         result = {"conv_batch_rounding": conv_batch_rounding(),
                   "alone": subsampler_alone(), "paths": subsampler_paths()}

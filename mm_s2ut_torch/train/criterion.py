@@ -6,15 +6,23 @@ criterion returns (loss summed over non-pad targets, metrics); the
 trainer normalises by ``ntokens`` (fairseq's sample_size convention).
 With n_frames_per_step = n > 1 the decoder puts out n sub-frame logits
 per packed position, and the loss reads the first columns that the
-unpacked target has, as the reference does. The CTC and multitask terms
-are not ported yet: the model raises on ``ctc_weight`` and ``multitask``
-at construction.
+unpacked target has, as the reference does. With ``ctc_weight`` > 0 the
+encoder CTC term over ``batch["multitask_target"]`` is added, and per
+``multitask`` task its CTC or label-smoothed CE term (the task's own
+smoothing and ``loss_weight``) over ``batch["multitask_targets"][name]``;
+the reference's data pipeline makes neither, so only batches the caller
+builds carry them. A multitask task whose logits or targets are missing
+is left out; the encoder CTC term is not: with ``ctc_weight`` > 0 a batch
+without ``multitask_target`` raises ``KeyError``, as in the reference, so
+``cli.train`` over the dataset's batches fails at its first step.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+
+from mm_s2ut_torch.ops.ctc import ctc_loss
 
 
 def label_smoothed_nll_loss(
@@ -58,14 +66,44 @@ def speech_to_unit_criterion(
     batch: Dict[str, torch.Tensor],
     label_smoothing: float = 0.2,
     pad_id: int = 1,
+    ctc_weight: float = 0.0,
+    ctc_blank_id: int = 0,
+    multitask: Sequence = (),
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Label-smoothed CE over the unit logits (cut to the target's length,
-    for n_frames_per_step > 1); (loss_sum, metrics)."""
+    for n_frames_per_step > 1), plus the CTC and multitask terms;
+    (loss_sum, metrics)."""
     target = batch["target"]
     logits = outputs["logits"][:, : target.shape[1]]
     loss, _, metrics = label_smoothed_nll_loss(logits, target, label_smoothing, pad_id)
+    if ctc_weight > 0 and "ctc_logits" in outputs:
+        ctc = _ctc_term(outputs, outputs["ctc_logits"], batch["multitask_target"], pad_id,
+                        ctc_blank_id)
+        loss = loss + ctc_weight * ctc
+        metrics["ctc_loss"] = ctc
+    mt_logits = outputs.get("multitask_logits") or {}
+    mt_targets = batch.get("multitask_targets") or {}
+    for task in multitask:
+        name = task.task_name
+        if name not in mt_logits or name not in mt_targets:
+            continue
+        if task.decoder_type == "ctc":
+            aux = _ctc_term(outputs, mt_logits[name], mt_targets[name], pad_id, ctc_blank_id)
+        else:
+            aux, _, _ = label_smoothed_nll_loss(mt_logits[name], mt_targets[name],
+                                                task.label_smoothing, pad_id)
+        loss = loss + task.loss_weight * aux
+        metrics[f"{name}_loss"] = aux
     metrics["loss"] = loss
     return loss, metrics
+
+
+def _ctc_term(outputs, logits, targets, pad_id: int, blank_id: int) -> torch.Tensor:
+    """The summed CTC loss of ``logits`` over the encoder's frames against
+    ``targets`` (pad-padded)."""
+    input_lengths = (~outputs["encoder_padding_mask"]).sum(-1)
+    return ctc_loss(logits, input_lengths, targets, (targets != pad_id).sum(-1),
+                    blank_id=blank_id).sum()
 
 
 def speech_to_unit_rdrop_criterion(
@@ -75,12 +113,13 @@ def speech_to_unit_rdrop_criterion(
     pad_id: int = 1,
     rdrop_alpha: float = 0.0,
     outputs_b: Optional[Dict[str, torch.Tensor]] = None,
+    **kwargs,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """R-Drop: CE on two stochastic passes + α·symmetric KL between them;
-    without ``outputs_b``, plain CE."""
-    loss, metrics = speech_to_unit_criterion(outputs, batch, label_smoothing, pad_id)
+    """R-Drop: CE (and the auxiliary terms, ``kwargs``) on two stochastic
+    passes + α·symmetric KL between them; without ``outputs_b``, one pass."""
+    loss, metrics = speech_to_unit_criterion(outputs, batch, label_smoothing, pad_id, **kwargs)
     if outputs_b is not None and rdrop_alpha > 0:
-        loss_b, _ = speech_to_unit_criterion(outputs_b, batch, label_smoothing, pad_id)
+        loss_b, _ = speech_to_unit_criterion(outputs_b, batch, label_smoothing, pad_id, **kwargs)
         Tt = batch["target"].shape[1]
         kl = kl_symmetric(outputs["logits"][:, :Tt], outputs_b["logits"][:, :Tt],
                           batch["target"], pad_id)

@@ -24,7 +24,7 @@ no parameter and no Adam state.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -82,22 +82,26 @@ class Optimizer:
         self.acc = [torch.zeros_like(p) for p in self.params] if cfg.update_freq > 1 else []
 
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor], grad_norm: Optional[torch.Tensor] = None) -> None:
+    def step(self, grads: List[torch.Tensor], grad_norm: Optional[torch.Tensor] = None,
+             frozen: Sequence[int] = ()) -> None:
         """One call of the optax update (one mini-step under MultiSteps).
-        ``grad_norm``, when given, is ``global_norm(grads)``."""
+        ``grad_norm``, when given, is ``global_norm(grads)``. The parameters
+        at the indices ``frozen`` take no update (their gradients still
+        enter the norm and Adam's moments)."""
         k = self.cfg.update_freq
         if k <= 1:
-            self._update(grads, grad_norm)
+            self._update(grads, grad_norm, frozen)
             return
         delta = torch._foreach_sub(grads, self.acc)
         torch._foreach_div_(delta, float(self.mini_step + 1))
         torch._foreach_add_(self.acc, delta)
         if self.mini_step == k - 1:
-            self._update(self.acc, None)
+            self._update(self.acc, None, frozen)
             torch._foreach_zero_(self.acc)
         self.mini_step = (self.mini_step + 1) % k
 
-    def _update(self, grads: List[torch.Tensor], grad_norm: Optional[torch.Tensor]) -> None:
+    def _update(self, grads: List[torch.Tensor], grad_norm: Optional[torch.Tensor],
+                frozen: Sequence[int] = ()) -> None:
         cfg = self.cfg
         if cfg.clip_norm > 0:
             norm = global_norm(grads) if grad_norm is None else grad_norm
@@ -121,7 +125,11 @@ class Optimizer:
         if cfg.weight_decay > 0:
             torch._foreach_add_(upd, torch._foreach_mul(self.params, cfg.weight_decay))
         torch._foreach_mul_(upd, rate)
-        torch._foreach_sub_(self.params, upd)
+        params = self.params
+        if frozen:
+            keep = sorted(set(range(len(params))) - set(frozen))
+            params, upd = [params[i] for i in keep], [upd[i] for i in keep]
+        torch._foreach_sub_(params, upd)
 
     def state_dict(self) -> Dict:
         return {"count": self.count, "mini_step": self.mini_step, "mu": self.mu, "nu": self.nu,

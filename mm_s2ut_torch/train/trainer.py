@@ -3,12 +3,20 @@
 Port of ``mm_s2ut/train/trainer.py`` on one device. A train step is the
 reference's: the teacher-forced forward in training mode (dropouts on,
 drawn from the run's :class:`~mm_s2ut_torch.ops.dropout.DropoutRng`),
-the label-smoothed loss over ``ntokens``, the backward (kernel H for the
+the label-smoothed loss over ``ntokens`` (with the model's CTC and
+multitask terms, ``ctc_weight`` and ``multitask``; the batch's
+``multitask_prev_tokens`` go to the model), the backward (kernel H for the
 encoder's attention on the card), then the global gradient norm — a
 non-finite norm skips the update (parameters and optimizer state stay,
 the step advances) — and the optimizer (clip → Adam → schedule, with
 MultiSteps accumulation; ``train/optimizer.py``). R-Drop
 (``rdrop_alpha`` > 0) runs the forward twice.
+
+``train.freezing_updates`` = N freezes every parameter under a module
+named ``speech_encoder`` (the flagship's wav2vec2/HuBERT branch; the XM
+model's is ``wav2vec2``, which the reference never freezes) for the steps
+before N: a zero gradient, so Adam's moments decay as optax's do on it,
+and no update, so weight decay does not shrink it either.
 
 Parameters stay fp32 (the model is cast with ``.float()``); with
 ``model.dtype: bfloat16`` the forward and backward run under
@@ -19,7 +27,9 @@ Checkpoints are the port's own, in ``train.save_dir``: ``config.yaml``
 (the full config, what ``mm_s2ut_torch.inference`` reads), ``params.npz``
 (the parameters in flax's layout, ``convert.to_flax``) and ``optim.pt``
 (optimizer state, step and generator states, for ``--resume``). The
-reference's orbax checkpoints are not read.
+reference's orbax checkpoints are not read. :func:`load_pretrained_encoder`
+copies the ``encoder`` of such a save_dir into a fresh model, as the
+reference's ``load_component``.
 """
 from __future__ import annotations
 
@@ -32,7 +42,7 @@ import numpy as np
 import torch
 
 from mm_s2ut_torch.config import Config, save_yaml
-from mm_s2ut_torch.convert import from_flax, load_npz, to_flax
+from mm_s2ut_torch.convert import flatten, from_flax, load_npz, to_flax, unflatten
 from mm_s2ut_torch.ops.dropout import DropoutRng
 from mm_s2ut_torch.train.criterion import CRITERIONS
 from mm_s2ut_torch.train.metrics import MetricsAggregator
@@ -47,6 +57,8 @@ def to_device(batch: Dict, device: torch.device) -> Dict:
     def move(x):
         if isinstance(x, (tuple, list)):
             return type(x)(move(v) for v in x)
+        if isinstance(x, dict):  # multitask_targets, multitask_prev_tokens
+            return {k: move(v) for k, v in x.items()}
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(x)
         if isinstance(x, torch.Tensor):
@@ -58,19 +70,49 @@ def to_device(batch: Dict, device: torch.device) -> Dict:
     return {k: move(v) for k, v in batch.items()}
 
 
+def load_pretrained_encoder(model: torch.nn.Module, ckpt_dir) -> None:
+    """Copy the ``encoder`` subtree of ``ckpt_dir/params.npz`` into
+    ``model``; every other parameter keeps its value. Strict, with the
+    reference's ``load_component`` messages: an ``encoder`` missing from
+    the checkpoint or the model raises ``KeyError``, other names or shapes
+    under it raise ``ValueError``."""
+    path = Path(ckpt_dir) / "params.npz"
+    if not path.exists():
+        raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    src = load_npz(path)
+    tgt = unflatten(to_flax(model))
+    if "encoder" not in src:
+        raise KeyError(f"component 'encoder' not in checkpoint ({sorted(src)})")
+    if "encoder" not in tgt:
+        raise KeyError("component 'encoder' not in target model")
+
+    def shapes(tree):
+        return {k: v.shape for k, v in flatten(tree).items()}
+
+    if shapes(src["encoder"]) != shapes(tgt["encoder"]):
+        raise ValueError("shape mismatch loading 'encoder'")
+    tgt["encoder"] = src["encoder"]
+    model.load_state_dict(from_flax(tgt, model))
+    logger.info("loaded pretrained encoder from %s", ckpt_dir)
+
+
 class Trainer:
     def __init__(self, cfg: Config, model, device, criterion_name: str = "speech_to_unit"):
         self.cfg = cfg
         self.device = torch.device(device)
-        if cfg.train.freezing_updates and hasattr(model, "speech_encoder"):
-            raise NotImplementedError("freezing_updates of a speech_encoder is not ported")
         self.model = model.float().to(self.device)
         self.rng = DropoutRng(cfg.train.seed, self.device)
         self.model.set_dropout_rng(self.rng)
         if cfg.train.rdrop_alpha > 0 and criterion_name == "speech_to_unit":
             criterion_name = "speech_to_unit_v2"  # R-Drop needs the two-pass criterion
         self.criterion = CRITERIONS[criterion_name]
-        self.params = list(self.model.parameters())
+        self.criterion_kwargs = dict(label_smoothing=cfg.train.label_smoothing,
+                                     ctc_weight=cfg.model.ctc_weight,
+                                     multitask=tuple(cfg.model.multitask))
+        names, self.params = zip(*self.model.named_parameters())
+        self.params = list(self.params)
+        # The parameters freezing_updates holds: those under a "speech_encoder".
+        self.frozen = [i for i, n in enumerate(names) if "speech_encoder" in n.split(".")]
         self.optimizer = Optimizer(self.params, cfg.train)
         self.step = 0
         self.amp_dtype = torch.bfloat16 if cfg.model.dtype == "bfloat16" else None
@@ -82,19 +124,21 @@ class Trainer:
         return torch.autocast(self.device.type, dtype=self.amp_dtype or torch.float32,
                               enabled=self.amp_dtype is not None)
 
-    def _outputs(self, batch):
+    def _outputs(self, batch, multitask_prev_tokens=None):
         return self.model(batch["src_features"], batch["src_lengths"],
                           batch["prev_output_tokens"], batch.get("imgs_list", ()),
-                          batch.get("img_masks_list", ()), batch.get("tgt_speaker"))
+                          batch.get("img_masks_list", ()), batch.get("tgt_speaker"),
+                          multitask_prev_tokens=multitask_prev_tokens)
 
     def _loss(self, batch):
         tcfg = self.cfg.train
+        mt_prev = batch.get("multitask_prev_tokens")
         with self._autocast():
-            outputs = self._outputs(batch)
+            outputs = self._outputs(batch, mt_prev)
             kw = {}
             if tcfg.rdrop_alpha > 0:
-                kw = dict(outputs_b=self._outputs(batch), rdrop_alpha=tcfg.rdrop_alpha)
-        return self.criterion(outputs, batch, label_smoothing=tcfg.label_smoothing, **kw)
+                kw = dict(outputs_b=self._outputs(batch, mt_prev), rdrop_alpha=tcfg.rdrop_alpha)
+        return self.criterion(outputs, batch, **self.criterion_kwargs, **kw)
 
     def train_batch(self, batch: Dict) -> Dict[str, float]:
         """One update (one mini-step under ``update_freq`` > 1)."""
@@ -105,10 +149,14 @@ class Trainer:
         loss, metrics = self._loss(batch)
         (loss / metrics["ntokens"].clamp_min(1.0)).backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        frozen = self.frozen if self.step < self.cfg.train.freezing_updates else []
+        for i in frozen:
+            grads[i] = torch.zeros_like(grads[i])
         grad_norm = global_norm(grads)
         ok = bool(torch.isfinite(grad_norm))
         if ok:
-            self.optimizer.step(grads, grad_norm if self.cfg.train.update_freq <= 1 else None)
+            self.optimizer.step(grads, grad_norm if self.cfg.train.update_freq <= 1 else None,
+                                frozen=frozen)
         self.step += 1
         names = sorted(metrics)
         out = dict(zip(names, torch.stack([metrics[k].float() for k in names]).tolist()))
@@ -124,8 +172,7 @@ class Trainer:
         for batch in batches:
             batch = to_device(batch, self.device)
             with self._autocast():
-                _, m = self.criterion(self._outputs(batch), batch,
-                                      label_smoothing=self.cfg.train.label_smoothing)
+                _, m = self.criterion(self._outputs(batch), batch, **self.criterion_kwargs)
             for k, v in m.items():
                 totals[k] = totals.get(k, 0.0) + float(v)
         ntok = max(totals.get("ntokens", 1.0), 1.0)

@@ -321,8 +321,6 @@ def test_speaker_vocoder_fairseq_checkpoint_matches_jax_loader(tmp_path):
     ({}, {"multimodal_attention_type": "external_multimodal_transformer"}),
     ({}, {"multimodal_attention_type": "bridge_tower"}),
     ({}, {"multimodal_extractor_type": "q_former"}),
-    ({"ctc_weight": 0.3}, {}),
-    ({"multitask": [tconfig.MultitaskTaskConfig()]}, {}),
     ({"pipeline_stages": 2}, {}),
     ({"activation_fn": "glu"}, {}),
 ])

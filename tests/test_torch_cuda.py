@@ -23,12 +23,18 @@ keys puts out up to |v|/(1 − p), gradients grow with T); in fp32 that
 still catches a single weight dropped on one side only. A at the ViT's
 shape (577 queries over 584 keys, 7 of them padding; H = 12 and 16) is
 held to its plain version, and a small ViT forward on the card to the
-same weights on the CPU."""
+same weights on the CPU. At the wav2vec2 training shapes (B = 8, T = 499
+with the key padding of 2-10 s utterances, H = 12 and 16, attention
+dropout 0 and 0.1) A and H are held to their plain versions, and a small
+XM train step with LayerDrop, ``gradient_checkpointing`` and attention
+dropout on the card to the same weights on the CPU
+(``chip_smoke.card_vs_cpu``)."""
 import pytest
 import torch
 
 from chip_smoke import (
     BENCH,
+    DROP_SEED,
     FLAGSHIP,
     TOL,
     TOL_REQUANT,
@@ -36,12 +42,14 @@ from chip_smoke import (
     XM,
     XM_BENCH,
     ancestry_inputs,
+    card_vs_cpu,
     cross_inputs,
     flash_inputs,
     kernel_cases,
     quant_ancestry_inputs,
     quant_cross_inputs,
     xm_bias,
+    xm_config,
     xm_lengths,
 )
 from mm_s2ut_torch.ops import _build
@@ -917,3 +925,62 @@ def test_small_vit_card_against_cpu(card, dtype):
     assert A.flash_attention.launches == before + 2
     tol = (5e-2 if dtype == torch.bfloat16 else 1e-4) * max(1.0, want.float().abs().max().item())
     _close(got.cpu(), want, dtype, tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H", [12, 16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_wav2vec2_train_shapes_forward_and_backward(card, dtype, H, rate):
+    """A with attention dropout, then H after it, at B=8, T=499 over the
+    key padding of 2-10 s utterances, against their plain versions."""
+    _, frames, _ = xm_lengths(8)
+    T = int(frames.max())
+    g = torch.Generator().manual_seed(300 + H)
+    q, k, v, dout = (torch.randn((8, T, H, 64), generator=g).to("cuda", dtype) for _ in range(4))
+    kpm = (torch.arange(T)[None, :] >= frames[:, None]).cuda()
+    bias = torch.zeros(kpm.shape, device="cuda").masked_fill(kpm, A.NEG_INF)
+    seed = DROP_SEED if rate else None
+    before = A.flash_attention.launches
+    got = A.flash_attention(q, k, v, kpm, dropout_rate=rate, dropout_seed=seed)
+    assert A.flash_attention.launches == before + 1
+    want = A.reference_attention(q * 64 ** -0.5, k, v, bias[:, None, None, :], False, 0, rate,
+                                 seed)
+    _rel_close(got, want, dtype)
+    stats = torch.empty((2, 8 * H, T), device="cuda")
+    A._launch("mm_flash_attention", q, k, v, bias, 64 ** -0.5, False, 0, rate, seed, stats)
+    got = A.flash_attention_bwd(q, k, v, bias, stats, dout, 64 ** -0.5, False, 0, rate, seed)
+    want = A.reference_attention_bwd(q, k, v, bias, dout, 64 ** -0.5, False, 0, rate, seed)
+    for x, y in zip(got, want):
+        _rel_close(x, y, dtype)
+
+
+def test_small_checkpointed_xm_train_step_card_against_cpu(card):
+    """Three train steps of a small fp32 XM model (LayerDrop 0.3,
+    ``gradient_checkpointing``, attention dropout 0.1 in A and H) on the
+    card against the CPU from the same weights: losses, step-1 gradients
+    and parameters (``card_vs_cpu``'s tolerances); A launched twice per
+    kept layer (the forward and the recompute), H once."""
+    import dataclasses
+
+    import numpy as np
+
+    from chip_smoke import init_random_, synthetic_batch
+    from mm_s2ut_torch.config import Config, TrainConfig
+    from mm_s2ut_torch.models.mm_xm import MMXMTransformerModel
+
+    cfg = xm_config(dict(hidden_dropout=0.0, attention_dropout=0.1, layerdrop=0.3,
+                         gradient_checkpointing=True), dtype="float32", small=True)
+    cfg = dataclasses.replace(cfg, dropout=0.0, attention_dropout=0.0, activation_dropout=0.1,
+                              multimodal=dataclasses.replace(cfg.multimodal, SA_image_dropout=0.0,
+                                                             SA_attention_dropout=0.0))
+    model = init_random_(MMXMTransformerModel(cfg), torch.Generator().manual_seed(3))
+    wav, lens, imgs = synthetic_batch(2, torch.Generator().manual_seed(4), 1.0, 2.0)
+    rng = np.random.RandomState(5)
+    batch = {"src_features": wav.numpy(), "src_lengths": lens.numpy().astype(np.int32),
+             "prev_output_tokens": rng.randint(4, 1000, (2, 9)).astype(np.int32),
+             "target": rng.randint(4, 1000, (2, 9)).astype(np.int32),
+             "imgs_list": (imgs[:, :20].numpy(),), "img_masks_list": (np.zeros((2, 20), bool),)}
+    counters = {"A": A.flash_attention, "H": A.flash_attention_bwd}
+    launched = card_vs_cpu("small XM", model, Config(model=cfg, train=TrainConfig(
+        lr=1e-3, warmup_updates=1)), batch, counters)
+    assert launched["H"] > 0 and launched["A"] == 2 * launched["H"], launched

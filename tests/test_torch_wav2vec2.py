@@ -21,8 +21,9 @@ made from a numpy seed at a small size (2 layers, widths 32-64).
    the HF model's own output (skipped only without ``transformers``).
 4. ``Wav2Vec2Config``: ``from_args``, ``from_hf``, ``feature_lengths`` on
    ints and tensors against JAX's.
-5. Training mode: span masking, LayerDrop and gradient checkpointing
-   raise, naming the ROADMAP item that takes them."""
+
+Training mode (span masking, LayerDrop, gradient checkpointing) is held
+against JAX in ``tests/test_torch_w2v_train.py``."""
 import dataclasses
 import json
 
@@ -297,12 +298,3 @@ def test_safetensors_reader_widens_bf16(tmp_path):
     np.testing.assert_array_equal(got["i"], np.arange(4))
 
 
-@pytest.mark.parametrize("field,value", [("mask_time_prob", 0.05), ("layerdrop", 0.1),
-                                         ("gradient_checkpointing", True)])
-def test_training_only_settings_raise(field, value):
-    _, tcfg = configs(**{"mask_time_prob": 0.0, field: value})
-    model = W.Wav2Vec2Model(tcfg).train()
-    wav, lens = wav_inputs()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        model(torch.from_numpy(wav), torch.from_numpy(lens), apply_mask=True)
-    model.eval()(torch.from_numpy(wav), torch.from_numpy(lens), apply_mask=True)  # inference runs

@@ -767,9 +767,3 @@ def test_settings_that_still_raise(tmp_path):
     xm = t_model("xm", jcfg("xm"), params_of("xm"))
     with pytest.raises(ValueError, match="raw waveforms"):
         ContinuousServer(xm, enc_frames=ENC_SAMPLES)  # enc_feat_dim=80 on a waveform model
-    b = batch()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        xm.train().encode(*t_args(b), apply_mask=True)
-    hubert = t_model("hubert", jcfg("hubert"), params_of("hubert")).train()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        hubert.encode(*t_args(b))  # span masking in training
