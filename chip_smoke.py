@@ -156,10 +156,30 @@ is no CPU path):
     gradients, parameters): masking, LayerDrop, both checkpointings,
     freezing, CTC and multitask, then ``cli.train`` on a tiny S2T corpus
     with noise mixing on the card and with ``--device cpu``, the same
-    metrics.csv.
+    metrics.csv;
+21. training through the on-line visual extractor, data parallelism and
+    validation-time inference (``phase_train_through_images``): (a) the
+    flagship with ViT-B/16-384 in its graph (154.5 M params) trained at
+    phase 11's point with 8 decoded fixture images at 384², bf16
+    autocast, dropouts 0.1, Adam, 3 + 10 steps: ms per step and its
+    spread, peak memory, A and H 24 times a step (12 speech, 12 ViT), one
+    step profiled (busy share, A's and H's shares); then ViT-L/16-384 for
+    one step; (b) small fp32 configs with the tiny timm ViT and a CLIP
+    tower card against CPU over three steps at lr 1e-3 (``card_vs_cpu``,
+    its control included), and the ResEncoder's batch statistics card
+    against CPU; (c) ``cli.train`` under ``torch.distributed`` (NCCL,
+    world size 1) against the plain run: params.npz equal; (d)
+    ``train.eval_inference`` at full width (a random CodeHiFiGAN in
+    fairseq's format, 8 utterances, beam 10, the bf16 then the int8 cache:
+    the MCD metrics and the validation's seconds), ``eval.asr`` on the
+    vocoded wavs with a random wav2vec2-base CTC model written as an HF
+    directory, ``eval.bleu`` on its transcripts, and the MCD metrics
+    card against CPU on the small fp32 config.
 
 Phase 2 also holds A at the image encoders' shape (B=16, 577 queries
-over 584 keys, the last 7 padding, H=12 and 16, Dh=64), and the enhanced
+over 584 keys, the last 7 padding, H=12 and 16, Dh=64), H at the ViT's
+training shape (B=8, the same Tq over S, H=12 and 16, bf16 and fp32,
+beside SDPA's backward), and the enhanced
 path's shapes: A over wav2vec2 frames
 (B=8, T=499, H=12 and 16, and B=128, H=12; the key padding of 2-10 s
 utterances), B and D in the XM decoder (H=16, L=12, K=10, step 200 of
@@ -179,7 +199,8 @@ The line before the last is the kernels' JSON record (with each
 kernel's bound at its recorded shape: the larger of its bytes over
 3.35 TB/s and its operations over the peak for its inputs' type; A's
 ``launches`` add phase 19's image path to the flagship paths'; its
-``train_launches`` are A's and H's in phase 20a's first timed XM step);
+``train_launches`` are A's and H's in phase 20a's first timed XM step,
+its ``vit_train_launches`` those in phase 21a's first timed ViT-B step);
 the last line is ``{"ok": true, "device": {...}}``. Artifacts (.unit files,
 generate-smoke.txt, wavs, the training runs) go to ``--out`` (default
 ``smoke_out/`` beside this file).
@@ -243,12 +264,13 @@ def flash_work(B, Tq, S, H, D, dtype, pairs=None):
     return bound(4 * D * pairs, EB[dtype] * B * D * H * (2 * Tq + 2 * S) + 4 * B * S, "bf16")
 
 
-def bwd_work(B, T, H, D, dtype):
-    """H: q, k, v, dO, O, the row statistics and the bias in; dq, dk, dv
-    and dbias out; 10·D operations per (query, key) pair (the recomputed
-    scores, dP, dV, dK and dQ)."""
-    rows = B * T * H * D * EB[dtype]
-    return bound(10 * B * H * T * T * D, 8 * rows + 8 * B * H * T + 8 * B * T, "bf16")
+def bwd_work(B, Tq, S, H, D, dtype):
+    """H: q, dO, O (Tq rows) and k, v (S rows), the row statistics and the
+    bias in; dq (Tq rows), dk, dv (S rows) and dbias out; 10·D operations
+    per (query, key) pair (the recomputed scores, dP, dV, dK and dQ)."""
+    row = B * H * D * EB[dtype]
+    return bound(10 * B * H * Tq * S * D, 4 * Tq * row + 4 * S * row + 8 * B * H * Tq + 8 * B * S,
+                 "bf16")
 
 
 def ancestry_work(q, kv, flat_rep, col_bytes, peak, packed=False):
@@ -738,7 +760,7 @@ def phase_train_kernels():
                                                           rate, seed),
                         TOL[dtype], bwd_only, scaled=True)
                     if (dtype, B, causal, rate) == (torch.bfloat16, 8, False, 0.1):
-                        record["H"] = {**res, **bwd_work(B, T, 8, 64, dtype)}
+                        record["H"] = {**res, **bwd_work(B, T, T, 8, 64, dtype)}
                 print(f"phase 2: SDPA forward + backward B={B} T={T} "
                       f"window={window if causal else 'none'} {str(dtype)[6:]}: "
                       f"{time_ms(fwd_bwd):.4f} ms")
@@ -2374,6 +2396,7 @@ def phase_xm_entry(out_dir: Path):
 # ------------------------------------------------------------- image path
 
 VIT = dict(B=16, Tq=577, S=584, Dh=64)  # ViT-B/16 at 384²: 577 tokens, keys padded to 584
+VIT_TRAIN_B = 8  # phase 21a's images per step
 FIXTURES = HERE / "tests" / "torch_images"
 
 
@@ -2384,7 +2407,11 @@ def phase_vit_kernels():
     bf16 and fp32; q a strided view of one (B, T, 3, H, Dh) projection, as
     in the ViT; the bias built once, as the ViT builds it per forward.
     Each held against its plain version, timed beside SDPA with the same
-    additive mask and its bound."""
+    additive mask and its bound. Then kernel H at the ViT's training shape
+    (phase 21a: B=8, the same Tq over S, H=12 and 16; its first run at
+    Tq ≠ S), after A wrote the row statistics, against
+    ``reference_attention_bwd`` (times max(1, largest |plain|), as phase 2
+    holds H), timed beside SDPA's backward alone, with its bound."""
     import torch.nn.functional as F
 
     from mm_s2ut_torch.ops import attention as A
@@ -2408,6 +2435,37 @@ def phase_vit_kernels():
                   f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}, "
                   f"kernel / SDPA {res['ms'] / res['library_ms']:.3f}")
             del qkv, q, k, v
+        torch.cuda.empty_cache()
+    scale = Dh ** -0.5
+    Bt = VIT_TRAIN_B
+    for dtype in (torch.bfloat16, torch.float32):
+        for H in (12, 16):
+            g = torch.Generator().manual_seed(100 + H)
+            qkv = _randn((Bt, Tq, 3, H, Dh), g, dtype)
+            q = qkv[:, :, 0]
+            k, v = (F.pad(qkv[:, :, i], (0, 0, 0, 0, 0, S - Tq)) for i in (1, 2))
+            dout = _randn((Bt, Tq, H, Dh), g, dtype)
+            kpm = (torch.arange(S)[None, :] >= Tq).expand(Bt, S).cuda()
+            key_bias = A.padding_bias(kpm, Bt, S, "cuda")
+            stats = torch.empty((2, Bt * H, Tq), device="cuda")
+            A._launch("mm_flash_attention", q, k, v, key_bias, scale, False, 0, 0.0, None, stats)
+            bwd_only, _ = sdpa_backward(q, k, v, key_bias[:, None, None, :].to(dtype), dout)
+            label = f"H ViT train B={Bt} Tq={Tq} S={S} H={H}"
+            res = check_and_time(
+                label, dtype,
+                lambda: A.flash_attention_bwd(q, k, v, key_bias, stats, dout, scale, False, 0),
+                lambda: A.reference_attention_bwd(q, k, v, key_bias, dout, scale),
+                TOL[dtype], bwd_only, scaled=True, phase="phase 21")
+            got = A.flash_attention_bwd(q, k, v, key_bias, stats, dout, scale, False, 0)
+            assert all((x[:, Tq:] == 0).all() for x in got[1:3]), "padded keys got a gradient"
+            work = bwd_work(Bt, Tq, S, H, Dh, dtype)
+            fwd = flash_work(Bt, Tq, S, H, Dh, dtype)
+            print(f"phase 21: {label} {str(dtype)[6:]}: bound {work['bound_ms'] * 1e3:.2f} us "
+                  f"({work['bound_by']}; A's forward at this shape {fwd['bound_ms'] * 1e3:.2f} us "
+                  f"by {fwd['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}, "
+                  f"kernel / SDPA backward {res['ms'] / res['library_ms']:.3f}; the padded keys' "
+                  f"dk and dv exactly 0")
+            del qkv, q, k, v, dout, bwd_only, got
         torch.cuda.empty_cache()
 
 
@@ -3047,7 +3105,7 @@ def phase_heads_train(plain_ms):
 UPDATE_TOL = 2e-2  # phase 20d: the card's parameter change against the CPU's
 
 
-def card_vs_cpu(label, model, cfg, batch, counters, frozen_prefix=None):
+def card_vs_cpu(label, model, cfg, batch, counters, frozen_prefix=None, phase="phase 20d"):
     """Three ``Trainer.train_batch`` steps of one small fp32 model on the
     card and on the CPU from the same weights and batch (TF32 off; at
     ``cfg``'s lr, 1e-3 in phase 20d as in phase 10): losses within a relative 1e-5 at each step, step-1
@@ -3098,7 +3156,7 @@ def card_vs_cpu(label, model, cfg, batch, counters, frozen_prefix=None):
 
     err = update_err([p.detach().cpu() for p in trainers["cuda"].params])
     control = update_err(skipped)
-    print(f"phase 20d: {label}: 3 steps card vs CPU, losses {[round(x, 5) for x in losses['cuda']]}"
+    print(f"{phase}: {label}: 3 steps card vs CPU, losses {[round(x, 5) for x in losses['cuda']]}"
           f" (max relative diff {rel:.1e}, tol 1e-5), step-1 gradients {worst:.1e} (tol 1e-4), "
           f"parameter change over 3 steps {err:.2e} of the CPU's (tol {UPDATE_TOL:.0e}; control, "
           f"the card's third update left out: {control:.2e}); card launches {total}")
@@ -3280,7 +3338,7 @@ def phase_w2v_train_kernels():
                     lambda: A.reference_attention_bwd(q, k, v, bias, dout, scale, False, 0, rate,
                                                       seed),
                     TOL[dtype], bwd_only, scaled=True, phase="phase 20e")
-                work = bwd_work(8, T, H, 64, dtype)
+                work = bwd_work(8, T, T, H, 64, dtype)
                 print(f"phase 20e: {label} {name}: bound {work['bound_ms'] * 1e3:.2f} us "
                       f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}, "
                       f"kernel / SDPA backward {res['ms'] / res['library_ms']:.3f}")
@@ -3298,6 +3356,451 @@ def phase_train_speech_encoders(out_dir: Path, plain_step_ms: float):
     phase_heads_train(plain_step_ms)
     phase_train_card_vs_cpu(out_dir)
     return train_launches
+
+
+# ------------------------------------------------------------------ phase 21
+
+
+def vit_train_batch(images, n, size, frames=1000, targets=100, seed=21):
+    """Phase 11's batch (n x ``frames`` log-mel frames, ``targets`` units)
+    with n preprocessed fixture images at ``size``² as the first image
+    source, for the model's on-line extractor."""
+    batch = train_batch(n, frames, targets, seed=seed, img_tokens=1)
+    batch["imgs_list"] = (vit_pixels(images, n, size).numpy(),)
+    batch["img_masks_list"] = (torch.zeros((n, size), dtype=torch.bool).numpy(),)
+    return batch
+
+
+def vit_train_config(vit_name: str):
+    """The flagship (bf16, dropouts 0.1, fusion over the extractor's
+    features) with ``load_visual_extractor_type: vit_timm`` at ``vit_name``'s
+    geometry, and that geometry."""
+    from mm_s2ut_torch.config import ModelConfig, MultimodalConfig
+    from mm_s2ut_torch.models.vit import VIT_VARIANTS
+
+    vit = VIT_VARIANTS[vit_name]
+    mm = MultimodalConfig(image_feat_dim=[vit.embed_dim],
+                          multimodal_attention_type="selective_attention", use_selective_gate=True,
+                          modality_dropout=0.5, audio_dropout=0.5,
+                          load_visual_extractor_type="vit_timm", image_input_size=vit.image_size)
+    return ModelConfig(vocab_size=1004, dtype="bfloat16", multimodal=mm), vit
+
+
+def phase_vit_train(images):
+    """Phase 21a: the flagship with ViT-B/16-384 in its graph trained at full
+    width: phase 11's point (B=8 x 10 s, 100 units, dropouts 0.1, bf16
+    autocast, Adam) with 8 decoded fixture images at 384² through the
+    extractor, 3 warm-up + 10 timed steps (ms per step and its spread,
+    peak memory, A and H per step: 12 in the speech encoder and 12 in the
+    ViT each), one step profiled; then ViT-L/16-384 for one step (A and H
+    36 each). Returns A's and H's launches in the first timed ViT-B step."""
+    import numpy as np
+
+    from mm_s2ut_torch.config import Config, TrainConfig
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.train.trainer import Trainer, to_device
+
+    counters = {"A": A.flash_attention, "H": A.flash_attention_bwd}
+    tcfg = TrainConfig(warmup_updates=10, label_smoothing=0.2)
+    launches_b = {}
+    for name, warm, steps in (("vit_base_patch16_384", 3, 10), ("vit_large_patch16_384", 1, 1)):
+        mcfg, vit = vit_train_config(name)
+        model = init_random_(MMS2UTModel(mcfg, vit_cfg=vit), torch.Generator().manual_seed(21))
+        n_params = sum(p.numel() for p in model.parameters())
+        n_vit = sum(p.numel() for p in model.visual_extractor.parameters())
+        batch = to_device(vit_train_batch(images, VIT_TRAIN_B, vit.image_size), torch.device("cuda"))
+        trainer = Trainer(Config(model=mcfg, train=tcfg), model, "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        warm_m, _, _ = timed_steps(trainer, batch, warm, counters)
+        metrics, ms, launches = timed_steps(trainer, batch, steps, counters)
+        losses = [m["loss"] / m["ntokens"] for m in warm_m + metrics]
+        assert all(np.isfinite(losses)) and all(np.isfinite(m["grad_norm"]) for m in metrics)
+        want = mcfg.encoder_layers + vit.depth
+        assert all(c == {"A": want, "H": want} for c in launches), launches
+        print(f"phase 21a: flagship bf16 with {name} in its graph ({n_params / 1e6:.1f} M params, "
+              f"{n_vit / 1e6:.1f} M in the extractor), B={VIT_TRAIN_B} x 1000 frames x 100 units, "
+              f"{VIT_TRAIN_B} fixture images at {vit.image_size}²: {spread(ms)} over {steps} steps "
+              f"({warm} warm-up), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches per step {launches[0]}; losses {[round(x, 4) for x in losses]}")
+        if name == "vit_base_patch16_384":
+            launches_b = launches[0]
+            print(f"phase 21a: one forward + backward without the optimizer holds "
+                  f"{activation_peak(trainer, batch):.2f} GiB above the weights, gradients and "
+                  f"Adam state")
+            profile_step(trainer, batch, float(np.mean(ms)), "phase 21a")
+        del trainer, model, batch
+        torch.cuda.empty_cache()
+    return launches_b
+
+
+def phase_vit_train_card_vs_cpu(images):
+    """Phase 21b: small fp32 configs trained through the extractor, card
+    against CPU (``card_vs_cpu``, lr 1e-3, 3 steps, with the control that
+    leaves the card's third update out): the tiny ViT of
+    ``test_online_visual_extractor_train_from_jpgs`` (32², 32-d, 1 block)
+    and a CLIP tower of the same size, over 2 decoded fixture images;
+    then ``SubModel``'s ResEncoder in train mode (batch statistics) over
+    two (2, 3, 64, 64, 1) clips: fp32 outputs and running statistics, and
+    float64 gradients, card against CPU."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from mm_s2ut_torch.config import Config, TrainConfig
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+    from mm_s2ut_torch.models.resnet_encoder import SubModel
+    from mm_s2ut_torch.models.vit import CLIPVisionConfig, ViTConfig
+    from mm_s2ut_torch.ops import attention as A
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = {"A": A.flash_attention, "H": A.flash_attention_bwd}
+    drops = dict(dropout=0.0, attention_dropout=0.0, activation_dropout=0.1)
+    small = small_config()
+    geometry = dict(image_size=32, patch_size=16, embed_dim=32, depth=1, num_heads=2)
+    batch = train_batch(2, 200, 12, img_tokens=1, seed=26)
+    batch["imgs_list"] = (vit_pixels(images, 2, 32).numpy(),)
+    batch["img_masks_list"] = (np.zeros((2, 32), bool),)
+    for kind, vit in (("vit_timm", ViTConfig(**geometry)),
+                      ("vit_openai", CLIPVisionConfig(**geometry))):
+        mm = dataclasses.replace(small.multimodal, image_feat_dim=[32], modality_dropout=0.0,
+                                 SA_image_dropout=0.0, SA_attention_dropout=0.0,
+                                 load_visual_extractor_type=kind, image_input_size=32)
+        mcfg = dataclasses.replace(small, **drops, multimodal=mm)
+        model = init_random_(MMS2UTModel(mcfg, vit_cfg=vit), torch.Generator().manual_seed(27))
+        launched = card_vs_cpu(f"small fp32 config with {kind} (32², 32-d, 1 block)", model,
+                               Config(model=mcfg, train=TrainConfig(lr=1e-3, warmup_updates=1)),
+                               batch, counters, phase="phase 21b")
+        # A and H run in the speech encoder's layers, and in the timm ViT's block
+        want = 3 * (small.encoder_layers + (vit.depth if kind == "vit_timm" else 0))
+        assert launched == {"A": want, "H": want}, (kind, launched)
+
+    sub = SubModel(out_dim=32, num_layers=0)
+    gen = torch.Generator().manual_seed(28)
+    videos = [torch.randn(2, 3, 64, 64, 1, generator=gen) for _ in range(2)]
+    worst = {"output": 0.0, "stats": 0.0, "grads": 0.0}
+    # Outputs and running statistics in fp32; the gradients in float64: in
+    # fp32 a BatchNorm'd conv's weight gradient is a sum the normalisation
+    # nearly cancels, and cuDNN's accumulation order (its algorithm varies
+    # by run) moves it by up to 1e-2 of itself (tests/test_torch_resnet_train.py
+    # holds the port to flax's the same way).
+    for dtype in (torch.float32, torch.float64):
+        runs = {dev: copy.deepcopy(sub).to(dev, dtype).train() for dev in ("cpu", "cuda")}
+        for video in videos:  # two train-mode steps: batch statistics, running ones moved
+            outs, grads = {}, {}
+            for dev, m in runs.items():
+                m.zero_grad()
+                out = m(video=video.to(dev, dtype))
+                out.square().sum().backward()
+                outs[dev] = out.detach().cpu()
+                grads[dev] = [p.grad.cpu() for p in m.parameters()]
+            if dtype == torch.float32:
+                worst["output"] = max(worst["output"], ((outs["cuda"] - outs["cpu"]).abs().max()
+                                                        / outs["cpu"].abs().max()).item())
+                continue
+            diff = sum((a - b).pow(2).sum() for a, b in zip(grads["cuda"], grads["cpu"]))
+            worst["grads"] = max(worst["grads"], (diff / sum(
+                b.pow(2).sum() for b in grads["cpu"])).sqrt().item())
+        if dtype == torch.float32:
+            for (name, a), b in zip(runs["cuda"].state_dict().items(),
+                                    runs["cpu"].state_dict().values()):
+                if "running" in name:
+                    worst["stats"] = max(worst["stats"], ((a.cpu() - b).abs().max()
+                                                          / b.abs().max()).item())
+    print(f"phase 21b: ResEncoder train mode (batch statistics, flax's momentum and biased "
+          f"variance), two steps card vs CPU (TF32 off): max relative diff {worst} (tol 1e-4 "
+          f"for fp32 outputs and running statistics, 1e-8 in L2 for all float64 gradients)")
+    assert worst["output"] <= 1e-4 and worst["stats"] <= 1e-4 and worst["grads"] <= 1e-8, worst
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def small_corpus(root: Path, n: int, seed: int, img_dim: int = 64, img_tokens: int = 10,
+                 n_valid: int = 4):
+    """n synthetic 1-2.5 s wavs with unit targets, train and valid
+    manifests (valid: the first ``n_valid``) and per-split image features."""
+    import numpy as np
+
+    from mm_s2ut_torch.data.audio_io import write_wav
+    from mm_s2ut_torch.data.manifest import ManifestRow, write_manifest
+
+    (root / "img_feat").mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    rows = []
+    for i in range(n):
+        m = 16000 + 3000 * (i % 6)
+        write_wav(root / f"{i + 1}.wav", (0.3 * rng.randn(m)).astype(np.float32), 16000)
+        units = " ".join(str(u) for u in rng.randint(0, 1000, 10 + i % 5))
+        rows.append(ManifestRow(str(i), f"{i + 1}.wav", m, units, 10 + i % 5))
+    write_manifest(root / "train.tsv", rows)
+    write_manifest(root / "valid.tsv", rows[:n_valid])
+    for split in ("train", "valid"):
+        np.save(root / "img_feat" / f"{split}.npy",
+                rng.randn(n, img_tokens, img_dim).astype(np.float32))
+    return rows
+
+
+def phase_dp_on_card(out_dir: Path):
+    """Phase 21c: ``cli.train`` under ``torch.distributed`` at world size 1
+    with NCCL (a process with torchrun's ``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``) against the same
+    command without them, on a small fp32 config with every dropout 0.1
+    (TF32 off), 3 steps: ``params.npz`` equal bit for bit, or within phase
+    20d's tolerances (losses 1e-5, the parameter change 2e-2 in L2). The
+    machine has one card: world sizes above 1 run on the CPU (gloo) in
+    ``tests/test_torch_ddp.py``."""
+    import csv
+    import os
+    import socket
+
+    import numpy as np
+
+    from mm_s2ut_torch.config import Config, DataConfig, TrainConfig, save_yaml
+    from mm_s2ut_torch.convert import flatten, load_npz
+
+    root = out_dir / "dp"
+    small_corpus(root, 8, seed=29)
+    mcfg = small_config()
+    mcfg.multimodal.image_feat_dim = [64]
+    mcfg.multimodal.image_feat_path = [str(root / "img_feat")]
+    cfg = Config(model=mcfg, data=DataConfig(data_root=str(root), audio_root=str(root),
+                                             max_tokens=800, num_buckets=1),
+                 train=TrainConfig(lr=1e-3, warmup_updates=1, max_update=3,
+                                   save_interval_updates=3, log_interval=1))
+    save_yaml(cfg, root / "run.yaml")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    code = ("import sys, torch; torch.backends.cuda.matmul.allow_tf32 = False; "
+            "torch.backends.cudnn.allow_tf32 = False; from mm_s2ut_torch.cli import train; "
+            "sys.exit(train.main(sys.argv[1:]))")
+    runs = {}
+    for label, extra in (("plain", {}), ("torch.distributed, NCCL, world 1", dict(
+            RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+            MASTER_PORT=str(port)))):
+        save = root / ("ckpt_dp" if extra else "ckpt")
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+        (proc, secs) = timed(lambda: subprocess.run(
+            [sys.executable, "-c", code, "--config", str(root / "run.yaml"),
+             f"train.save_dir={save}"], cwd=HERE, env=dict(env, **extra), capture_output=True,
+            text=True, timeout=300))
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        with open(save / "logs" / "metrics.csv", newline="") as f:
+            rows = list(csv.DictReader(f))
+        runs[label] = (flatten(load_npz(save / "params.npz")), rows, secs)
+    (p0, r0, s0), (p1, r1, s1) = runs.values()
+    bitwise = all(np.array_equal(p0[k], p1[k]) for k in p0)
+    losses = [(float(a["train/loss"]), float(b["train/loss"])) for a, b in zip(r0, r1)
+              if a.get("train/loss")]
+    rel = max(abs(a - b) / abs(a) for a, b in losses)
+    diff = max(float(np.abs(p0[k] - p1[k]).max()) for k in p0)
+    print(f"phase 21c: cli.train, small fp32 config, dropouts 0.1, 3 steps: plain {s0:.2f} s, "
+          f"under torch.distributed (NCCL, world size 1) {s1:.2f} s; params.npz "
+          f"{'bit for bit equal' if bitwise else f'max abs diff {diff:.3e}'}, train losses max "
+          f"relative diff {rel:.1e} (tol 1e-5); world sizes above 1 are tested on the CPU with "
+          f"gloo (tests/test_torch_ddp.py)")
+    assert rel <= 1e-5 and (bitwise or diff <= 1e-5), (rel, diff)
+
+
+def hf_ctc_dir(root: Path, w2v_cfg, gen, vocab):
+    """A random ``Wav2Vec2ForCTC`` written as a local HF checkpoint directory
+    (``config.json``, ``vocab.json``, ``pytorch_model.bin`` under HF's names,
+    from the flax-layout parameters ``convert.to_flax`` gives), which
+    ``load_hf_checkpoint`` reads back; no ``transformers``."""
+    import dataclasses
+    import re
+
+    import numpy as np
+
+    from mm_s2ut_torch.convert import to_flax
+    from mm_s2ut_torch.models.wav2vec2 import Wav2Vec2ForCTC
+
+    model = init_random_(Wav2Vec2ForCTC(w2v_cfg), gen)
+    rules = [(r"^wav2vec2/feature_extractor/conv(\d+)/", r"wav2vec2.feature_extractor.conv_layers.\1.conv."),
+             (r"^wav2vec2/feature_extractor/group_norm/",
+              "wav2vec2.feature_extractor.conv_layers.0.layer_norm."),
+             (r"^wav2vec2/feature_extractor/layer_norm(\d+)/",
+              r"wav2vec2.feature_extractor.conv_layers.\1.layer_norm."),
+             (r"^wav2vec2/feature_projection_norm/", "wav2vec2.feature_projection.layer_norm."),
+             (r"^wav2vec2/feature_projection/", "wav2vec2.feature_projection.projection."),
+             (r"^wav2vec2/pos_conv/conv/", "wav2vec2.encoder.pos_conv_embed.conv."),
+             (r"^wav2vec2/encoder_norm/", "wav2vec2.encoder.layer_norm."),
+             (r"^wav2vec2/layer(\d+)/attention/", r"wav2vec2.encoder.layers.\1.attention."),
+             (r"^wav2vec2/layer(\d+)/(intermediate_dense|output_dense)/",
+              r"wav2vec2.encoder.layers.\1.feed_forward.\2."),
+             (r"^wav2vec2/layer(\d+)/", r"wav2vec2.encoder.layers.\1."),
+             (r"^wav2vec2/masked_spec_embed$", "wav2vec2.masked_spec_embed"),
+             (r"^lm_head/", "lm_head."), (r"/", ".")]
+    sd = {}
+    for key, value in to_flax(model).items():
+        name = key
+        for pattern, repl in rules:
+            name = re.sub(pattern, repl, name)
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "kernel":
+            value = value.transpose(2, 1, 0) if value.ndim == 3 else value.T
+            name = name[:-len("kernel")] + "weight"
+        elif leaf == "scale":
+            name = name[:-len("scale")] + "weight"
+        sd[name] = torch.from_numpy(value.copy())
+    root.mkdir(parents=True, exist_ok=True)
+    torch.save(sd, root / "pytorch_model.bin")
+    hf = {k: v for k, v in dataclasses.asdict(w2v_cfg).items()
+          if k not in ("gradient_checkpointing", "use_flash_attention", "pad_to_multiple")}
+    (root / "config.json").write_text(json.dumps(hf))
+    (root / "vocab.json").write_text(json.dumps({t: i for i, t in enumerate(vocab)}))
+    from mm_s2ut_torch.convert import flatten
+    from mm_s2ut_torch.models.wav2vec2 import load_hf_checkpoint
+
+    cfg, variables = load_hf_checkpoint(root)  # the directory reads back as written
+    back, want = flatten(variables["params"]), to_flax(model)
+    assert cfg == w2v_cfg and set(back) == set(want), sorted(set(back) ^ set(want))
+    assert all(np.array_equal(back[k], want[k]) for k in want)
+    return model
+
+
+def eval_inference_run(root: Path, mcfg, kv, device, beam, max_len_b):
+    """One validation of ``cli.train``'s trainer with ``train.eval_inference``
+    over ``root``'s valid split on ``device``, from the task's seeded
+    initial weights: (metrics, seconds, the task, the trainer)."""
+    from mm_s2ut_torch.config import Config, DataConfig, GenerationConfig, TrainConfig
+    from mm_s2ut_torch.tasks.s2s_task import MultiModalSpeechToSpeechTask
+
+    cfg = Config(model=mcfg, data=DataConfig(data_root=str(root), audio_root=str(root),
+                                             max_tokens=4000, num_buckets=1),
+                 train=TrainConfig(eval_inference=True,
+                                   eval_vocoder_path=str(root / "vocoder.pt"),
+                                   eval_vocoder_cfg=str(root / "vocoder.json")),
+                 generation=GenerationConfig(beam=beam, max_len_a=0.0, max_len_b=max_len_b,
+                                             kv_cache_dtype=kv))
+    task = MultiModalSpeechToSpeechTask(cfg, device)
+    trainer = task.build_trainer()
+    fn = task.build_inference_metrics_fn(trainer)
+    t0 = time.perf_counter()
+    metrics = trainer.evaluate(task.batch_iterator("valid", shuffle=False), fn)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return metrics, time.perf_counter() - t0, task, trainer
+
+
+def phase_eval_inference(out_dir: Path):
+    """Phase 21d: ``train.eval_inference`` at full width. A random
+    CodeHiFiGAN at its default config (duration prediction) written in
+    fairseq's format with its JSON config; the flagship bf16 with fusion
+    over 577x768 features validates 8 utterances of 1-2.5 s (decode with
+    the live model, beam 10, 200 units, bf16 then int8 cache, vocode the
+    predicted and target units, MCD): the four metrics finite, the
+    validation's wall seconds. Card against CPU on the small fp32 config
+    (TF32 off, beam 5, 30 units) with the same vocoder: the MCD metrics
+    equal. Then the flagship's units of the 8 utterances vocoded into wavs,
+    ``python -m mm_s2ut_torch.eval.asr`` on them with a random
+    wav2vec2-base CTC model written as an HF directory, and
+    ``python -m mm_s2ut_torch.eval.bleu`` on its transcripts."""
+    import dataclasses
+
+    import numpy as np
+
+    from mm_s2ut_torch.config import GenerationConfig, ModelConfig, MultimodalConfig
+    from mm_s2ut_torch.data.audio_io import write_wav
+    from mm_s2ut_torch.eval import asr as eval_asr
+    from mm_s2ut_torch.infer.generator import UnitGenerator
+    from mm_s2ut_torch.eval import bleu as eval_bleu
+    from mm_s2ut_torch.models.hifigan import CodeHiFiGAN, HiFiGANConfig
+    from mm_s2ut_torch.models.wav2vec2 import Wav2Vec2Config
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.ops import decode_attention as D
+
+    root = out_dir / "eval_inference"
+    small_corpus(root, 8, seed=30, img_dim=768, img_tokens=577, n_valid=8)
+    gen = torch.Generator().manual_seed(31)
+    vcfg = HiFiGANConfig()
+    vocoder = init_random_(CodeHiFiGAN(vcfg), gen)
+    torch.save(fairseq_vocoder_state(vocoder), root / "vocoder.pt")
+    (root / "vocoder.json").write_text(json.dumps(dict(
+        dataclasses.asdict(vcfg), sampling_rate=16000)))
+    mm = MultimodalConfig(image_feat_dim=[768], multimodal_attention_type="selective_attention",
+                          use_selective_gate=True, image_feat_path=[str(root / "img_feat")])
+    flagship_cfg = ModelConfig(vocab_size=1004, dtype="bfloat16", multimodal=mm)
+    counters = {"A": A.flash_attention, "B": D.ancestry_decode_attention,
+                "C": D.cross_decode_attention, "D": D.ancestry_decode_attention_i8,
+                "E": D.cross_decode_attention_i8}
+    keys = ("mcd_loss", "pred_ratio", "ins_rate", "del_rate")
+    for kv in (None, "int8"):
+        (metrics, secs, task, trainer), _, launches = counted(
+            counters, lambda: eval_inference_run(root, flagship_cfg, kv, "cuda", 10, 200))
+        assert all(np.isfinite(metrics[k]) for k in keys), metrics
+        want = ("B", "C") if kv is None else ("D", "E")
+        assert all(launches[k] > 0 for k in ("A", *want)), launches
+        print(f"phase 21d: flagship bf16, train.eval_inference over 8 utterances, beam 10, "
+              f"200 units, {kv or 'bf16'} cache: validation {secs:.2f} s; "
+              f"{json.dumps({k: metrics[k] for k in keys + ('loss',)})}; launches {launches}")
+
+    # The flagship's units of the 8 utterances, vocoded, through eval.asr and eval.bleu.
+    wavs_dir = root / "tts"
+    wavs_dir.mkdir(exist_ok=True)
+    model = trainer.model.to(torch.bfloat16).eval()
+    generator = UnitGenerator(model, GenerationConfig(beam=10, max_len_a=0.0, max_len_b=200))
+    voc = vocoder.to("cuda").eval()
+    n_wavs = 0
+    for batch in task.batch_iterator("valid", shuffle=False):
+        hyps = generator.generate(batch["src_features"], batch["src_lengths"],
+                                  batch["imgs_list"], batch["img_masks_list"])
+        for sid, h in zip(batch["id"].tolist(), hyps):
+            units = task.tgt_dict.ids_to_units(np.asarray(h[0]["tokens"])).tolist() or [0]
+            voc.max_frames = 8 * len(units) + 16
+            w, m = voc(torch.tensor([units], device="cuda"),
+                       torch.tensor([len(units)], device="cuda"))
+            write_wav(wavs_dir / f"{int(sid) + 1}_pred.wav",
+                      w[0, :int(m[0])].float().cpu().numpy(), 16000)
+            n_wavs += 1
+    del generator, model, trainer, task, voc
+    torch.cuda.empty_cache()
+    letters = ["<pad>", "<s>", "</s>", "<unk>", "|"] + list("etaoinshrdlcumwfgypbvk")
+    hf_ctc_dir(root / "asr_model", Wav2Vec2Config(vocab_size=len(letters)),
+               torch.Generator().manual_seed(32), letters)  # wav2vec2-base's geometry
+    _, asr_s, asr_launches = counted({"A": A.flash_attention}, lambda: eval_asr.main(
+        ["--wav_dir", str(wavs_dir), "--output", str(root / "transcripts.txt"),
+         "--asr_model", str(root / "asr_model")]))
+    transcripts = (root / "transcripts.txt").read_text().splitlines()
+    assert len(transcripts) == n_wavs == 8 and asr_launches["A"] > 0, (n_wavs, asr_launches)
+    refs = ["the cat sat on the mat", "a dog ran in the park", "it is 3.5 degrees",
+            "hello, world", "we paid $20 for 2 books", "no", "the end.", "Dr. Smith is in"]
+    (root / "refs.txt").write_text("\n".join(refs) + "\n")
+    bleu = eval_bleu.score_from_files(root / "transcripts.txt", root / "refs.txt")
+    assert 0.0 <= bleu.score <= 100.0
+    print(f"phase 21d: eval.asr (a random wav2vec2-base CTC model, {len(letters)} letters, "
+          f"written as an HF directory) over the {n_wavs} vocoded wavs on the card in "
+          f"{asr_s:.2f} s (A launched {asr_launches['A']} times); first transcript "
+          f"{transcripts[0][:40]!r}; eval.bleu on the transcripts: {bleu}")
+
+    # Card against CPU on the small fp32 config, with the same vocoder.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    small = small_config()
+    small.multimodal.image_feat_path = [str(root / "img_feat")]
+    got = {dev: eval_inference_run(root, small, None, dev, 5, 30)[0] for dev in ("cpu", "cuda")}
+    rel = max(abs(got["cuda"][k] - got["cpu"][k]) / max(abs(got["cpu"][k]), 1e-3) for k in keys)
+    print(f"phase 21d: small fp32 config, beam 5, 30 units, eval_inference card vs CPU (TF32 "
+          f"off): card {json.dumps({k: got['cuda'][k] for k in keys})}, CPU "
+          f"{json.dumps({k: got['cpu'][k] for k in keys})}; max relative diff {rel:.1e} "
+          f"(tol 1e-2: each metric is rounded to 3 decimals)")
+    assert rel <= 1e-2, got
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def phase_train_through_images(out_dir: Path):
+    """Phase 21: 21a's full-width train step with the extractor in the
+    graph, 21b card against CPU, 21c data parallelism on the card, 21d
+    ``train.eval_inference`` with eval.asr and eval.bleu. Returns 21a's
+    launches per ViT-B step."""
+    images = fixture_images()
+    launches = phase_vit_train(images)
+    phase_vit_train_card_vs_cpu(images)
+    phase_dp_on_card(out_dir)
+    phase_eval_inference(out_dir)
+    return launches
 
 
 KERNELS = {  # name, source (of the bf16 instance the record times), the TPU kernel it replaces
@@ -3364,12 +3867,14 @@ def main(argv=None) -> int:
     phase_xm_entry(Path(args.out))
     image_launches = phase_image_path(Path(args.out))
     train_launches = phase_train_speech_encoders(Path(args.out), plain_step_ms)
+    vit_train_launches = phase_train_through_images(Path(args.out))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "xm_launches": xm_launches.get(k, 0),
          "image_launches": image_launches.get(k, 0),
-         "train_launches": train_launches.get(k, 0), **record[k]}
+         "train_launches": train_launches.get(k, 0),
+         "vit_train_launches": vit_train_launches.get(k, 0), **record[k]}
         for k, (name, src, rep) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

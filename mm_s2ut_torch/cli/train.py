@@ -2,7 +2,7 @@
 
 The port of ``python -m mm_s2ut.cli.train``: one yaml config (the JAX
 package's keys) plus dotted overrides drives task → data → model →
-training on one device, with validation, metrics
+training on one device, or data-parallel on several, with validation, metrics
 (``{save_dir}/logs/metrics.csv``) and checkpoints in ``train.save_dir``
 (``config.yaml``, ``params.npz``, ``optim.pt``; ``mm_s2ut_torch.inference
 --model_path {save_dir}`` decodes with them):
@@ -17,14 +17,27 @@ training on one device, with validation, metrics
 ``--load-pretrained-encoder-from DIR`` copies the ``encoder`` subtree of
 ``DIR/params.npz`` (a save_dir of this trainer, flax names) into the fresh
 model, strict on names and shapes; ``--resume`` continues from the
-checkpoint in ``save_dir``. The ``mesh`` section is read and ignored: the
-port trains on one card.
+checkpoint in ``save_dir``. With ``train.eval_inference`` each validation
+also decodes its batches with the live model, vocodes the predicted and
+target units with the vocoder of ``train.eval_vocoder_path`` /
+``eval_vocoder_cfg`` and reports the MCD metrics.
+
+Under ``torchrun`` the run is data-parallel, one process per card::
+
+  torchrun --nproc_per_node 8 -m mm_s2ut_torch.cli.train --config run.yaml
+
+Each process takes ``cuda:LOCAL_RANK`` (NCCL; gloo with ``--device cpu``)
+and its rows of every batch; ``mesh.data`` must be -1 or the world size,
+and ``mesh.model`` or ``mesh.pipe`` > 1 raises (not ported). Rank 0
+writes the checkpoints and metrics.
 """
 from __future__ import annotations
 
 import argparse
 import logging
 from typing import List, Optional
+
+import torch
 
 logger = logging.getLogger("mm_s2ut_torch.train")
 
@@ -67,20 +80,31 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from mm_s2ut_torch.config import load_config
     from mm_s2ut_torch.inference import resolve_device
+    from mm_s2ut_torch.parallel.mesh import check_mesh, init_distributed
     from mm_s2ut_torch.tasks.s2s_task import MultiModalSpeechToSpeechTask
     from mm_s2ut_torch.tasks.s2t_task import MultiModalSpeechToTextTask
-    from mm_s2ut_torch.train.metrics import MetricsWriter
-    from mm_s2ut_torch.train.trainer import load_pretrained_encoder
 
     tasks = {"multimodal_speech_to_speech": MultiModalSpeechToSpeechTask,
              "multimodal_speech_to_text": MultiModalSpeechToTextTask}
-    device = resolve_device(args.device)
     cfg = load_config(args.config)
     apply_overrides(cfg, args.overrides)
     if cfg.task not in tasks:
         raise ValueError(f"task {cfg.task!r}: expected one of {sorted(tasks)}")
-    task = tasks[cfg.task](cfg, device)
-    trainer = task.build_trainer()
+    resolve_device(args.device)
+    parallel, device = init_distributed(args.device)
+    try:
+        check_mesh(cfg.mesh, 1 if parallel is None else parallel.world)
+        return _train(args, cfg, tasks[cfg.task](cfg, device), parallel)
+    finally:
+        if parallel is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, cfg, task, parallel) -> int:
+    from mm_s2ut_torch.train.metrics import MetricsWriter
+    from mm_s2ut_torch.train.trainer import load_pretrained_encoder
+
+    trainer = task.build_trainer(parallel=parallel)
     if args.load_pretrained_encoder_from:
         load_pretrained_encoder(trainer.model, args.load_pretrained_encoder_from)
     if args.resume:
@@ -88,7 +112,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             logger.info("resumed from step %d", trainer.restore_checkpoint())
         except FileNotFoundError as e:  # a fresh run
             logger.warning("no checkpoint to resume (%s); starting fresh", e)
-    writer = MetricsWriter(f"{cfg.train.save_dir}/logs")
+    writer = MetricsWriter(f"{cfg.train.save_dir}/logs") if trainer.is_writer else None
+    if cfg.train.eval_inference:
+        trainer.inference_metrics_fn = task.build_inference_metrics_fn(trainer)
+        logger.info("eval_inference on: reporting MCD metrics at validation")
     try:
         task.load_dataset(args.valid_subset)
         valid = lambda: task.batch_iterator(args.valid_subset, shuffle=False)  # noqa: E731

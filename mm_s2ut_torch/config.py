@@ -2,9 +2,9 @@
 
 The dataclasses and yaml keys are those of ``mm_s2ut/config.py``
 (``ModelConfig``, ``MultimodalConfig``, ``GenerationConfig``,
-``DataConfig``, ``TrainConfig``), so one ``config.yaml`` drives either
-package. The ``mesh`` section of a Trainer yaml is kept as an untyped
-extra (the port trains on one card) and written back by :func:`save_yaml`.
+``DataConfig``, ``TrainConfig``, ``MeshConfig``), so one ``config.yaml``
+drives either package; keys the port does not know are kept as untyped
+extras and written back by :func:`save_yaml`.
 
 ``yaml`` is imported inside :func:`load_yaml` and :func:`save_yaml` only:
 PyYAML is not a dependency of the port's kernels or models.
@@ -216,12 +216,24 @@ class TrainConfig:
 
 
 @dataclass
+class MeshConfig:
+    """The reference's device mesh. The port runs data parallelism over
+    torch.distributed (``parallel/mesh.py``): ``data`` is -1 or the world
+    size; ``model`` and ``pipe`` > 1 raise."""
+
+    data: int = -1  # -1: every process on the data axis
+    model: int = 1
+    pipe: int = 1
+
+
+@dataclass
 class Config:
     task: str = "multimodal_speech_to_speech"
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     generation: GenerationConfig = field(default_factory=GenerationConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 def from_dict(cls, data: Any):

@@ -137,7 +137,7 @@ __device__ __forceinline__ void visit_tile(
   if (a.rate > 0.f) {
 #pragma unroll
     for (int j = 0; j < BK; ++j)
-      sc[j] = hash_keep(blockIdx.x, t, s0 + j, a.seed, a.rate) ? sc[j] * a.inv_keep : 0.f;
+      sc[j] = hash_keep(a.bh0 + blockIdx.x, t, s0 + j, a.seed, a.rate) ? sc[j] * a.inv_keep : 0.f;
   }
 #pragma unroll
   for (int j = 0; j < BK; ++j) {
@@ -245,7 +245,8 @@ cudaError_t dispatch_flash(int D, const FlashArgs& a, int B, cudaStream_t stream
 // C entries: each returns cudaGetLastError() after its launch (0 on success).
 
 // Kernel A: every key tile; the causal/window mask when ``causal`` != 0.
-// ``rate`` > 0: attention dropout with ``seed``; non-null ``stat_m`` /
+// ``rate`` > 0: attention dropout with ``seed``, the hash's (b, h) row offset by
+// ``bh0`` (a data-parallel shard's first row times H); non-null ``stat_m`` /
 // ``stat_l``: each row's softmax max and denominator for kernel H. bf16
 // runs on the tensor cores (rows 16-byte aligned), fp32 here.
 extern "C" int mm_flash_attention(
@@ -254,12 +255,12 @@ extern "C" int mm_flash_attention(
     int64_t q_sb, int64_t q_st, int64_t q_sh,
     int64_t k_sb, int64_t k_st, int64_t k_sh,
     int64_t v_sb, int64_t v_st, int64_t v_sh,
-    float scale, int causal, int window, double rate, unsigned int seed,
+    float scale, int causal, int window, double rate, unsigned int seed, unsigned int bh0,
     float* stat_m, float* stat_l, void* stream) {
   if (!(rate >= 0.0 && rate < 1.0)) return (int)cudaErrorInvalidValue;
   const mm::FlashArgs a{q, k, v, static_cast<const float*>(bias), out, T, S, H,
                         q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window,
-                        (float)rate, (float)(1.0 / (1.0 - rate)), seed, stat_m, stat_l};
+                        (float)rate, (float)(1.0 / (1.0 - rate)), seed, bh0, stat_m, stat_l};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == mm::kBFloat16)
     return (int)mm::launch_flash_fwd_mma(a, B, D, causal != 0, false, st);
@@ -276,13 +277,13 @@ extern "C" int mm_flash_attention_causal_skip(
     int64_t q_sb, int64_t q_st, int64_t q_sh,
     int64_t k_sb, int64_t k_st, int64_t k_sh,
     int64_t v_sb, int64_t v_st, int64_t v_sh,
-    float scale, int causal, int window, double rate, unsigned int seed,
+    float scale, int causal, int window, double rate, unsigned int seed, unsigned int bh0,
     float* stat_m, float* stat_l, void* stream) {
   if (!causal || T > S) return (int)cudaErrorInvalidValue;
   if (!(rate >= 0.0 && rate < 1.0)) return (int)cudaErrorInvalidValue;
   const mm::FlashArgs a{q, k, v, static_cast<const float*>(bias), out, T, S, H,
                         q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window,
-                        (float)rate, (float)(1.0 / (1.0 - rate)), seed, stat_m, stat_l};
+                        (float)rate, (float)(1.0 / (1.0 - rate)), seed, bh0, stat_m, stat_l};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == mm::kFloat32) return (int)mm::dispatch_flash<true, true>(D, a, B, st);
   if (dtype == mm::kBFloat16) return (int)mm::launch_flash_fwd_mma(a, B, D, true, true, st);

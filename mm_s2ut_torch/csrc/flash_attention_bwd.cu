@@ -304,14 +304,15 @@ extern "C" int mm_flash_attention_bwd(
     int64_t q_sb, int64_t q_st, int64_t q_sh,
     int64_t k_sb, int64_t k_st, int64_t k_sh,
     int64_t v_sb, int64_t v_st, int64_t v_sh,
-    float scale, int causal, int window, double rate, unsigned int seed, void* stream) {
+    float scale, int causal, int window, double rate, unsigned int seed, unsigned int bh0,
+    void* stream) {
   if (!(rate >= 0.0 && rate < 1.0) || (causal && T > S)) return (int)cudaErrorInvalidValue;
   const mm::BwdArgs a{q, k, v, static_cast<const float*>(bias), dout,
                       static_cast<const float*>(stat_m), static_cast<const float*>(stat_l),
                       static_cast<float*>(delta), dq, static_cast<float*>(dk),
                       static_cast<float*>(dv), static_cast<float*>(dbias), T, S, H,
                       q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, causal,
-                      window, (float)rate, (float)(1.0 / (1.0 - rate)), seed};
+                      window, (float)rate, (float)(1.0 / (1.0 - rate)), seed, bh0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == mm::kFloat32) return (int)mm::dispatch_bwd_f32(D, a, B, st);
   if (dtype == mm::kBFloat16) return (int)mm::launch_flash_bwd_mma(a, B, D, st);

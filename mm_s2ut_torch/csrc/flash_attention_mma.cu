@@ -214,7 +214,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_mma(const FlashArgs
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = s0 + n * 8 + 2 * tq + (e & 1);
-          s[n][e] = hash_keep(bh, t_r[e >> 1], key, a.seed, a.rate) ? s[n][e] * a.inv_keep : 0.f;
+          s[n][e] = hash_keep(a.bh0 + bh, t_r[e >> 1], key, a.seed, a.rate) ? s[n][e] * a.inv_keep : 0.f;
         }
       }
     }

@@ -33,6 +33,7 @@ struct FlashArgs {
   float rate;      // attention dropout rate (0 = none)
   float inv_keep;  // 1 / (1 - rate), rounded to float as JAX's weak typing does
   uint32_t seed;
+  uint32_t bh0;   // the dropout hash's row of (b, h) = (0, 0): a data-parallel shard's offset
   float* stat_m;  // (B.H, T) row max, or nullptr
   float* stat_l;  // (B.H, T) row denominator, or nullptr
 };
@@ -60,6 +61,7 @@ struct BwdArgs {
   float rate;
   float inv_keep;
   uint32_t seed;
+  uint32_t bh0;  // as FlashArgs::bh0
 };
 
 // Kernel H: outside the causal/window band, where the forward replaced the logit by -1e9.
@@ -70,7 +72,7 @@ __device__ __forceinline__ bool masked(const BwdArgs& a, int t, int s) {
 // Kernel H: the dropout factor of weight (bh, t, s), keep / (1 - rate), or 1.
 __device__ __forceinline__ float keep_factor(const BwdArgs& a, int bh, int t, int s) {
   if (a.rate <= 0.f) return 1.f;
-  return hash_keep(bh, t, s, a.seed, a.rate) ? a.inv_keep : 0.f;
+  return hash_keep(a.bh0 + bh, t, s, a.seed, a.rate) ? a.inv_keep : 0.f;
 }
 
 // Kernel A (skip = false) or G (skip = true, needs causal) in bf16 on the

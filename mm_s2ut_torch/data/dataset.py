@@ -4,7 +4,9 @@ A copy of ``mm_s2ut/data/dataset.py`` trimmed to what the port's task
 runs: ``SpeechToSpeechDataset.from_tsv`` (manifest, unit targets, image
 features by ``int(stem(audio)) - 1``, or, with
 ``multimodal.load_visual_extractor_type``, the preprocessed pixels of the
-raw images, ``RawImageStore``), ``__getitem__`` and ``collate``
+raw images in the flickr30k layout, ``RawImageStore``, for every split,
+the training one included: the model's extractor trains on them),
+``__getitem__`` and ``collate``
 (bucket-padded numpy batches sorted by source length, descending;
 ``prev_output_tokens`` = EOS or the target lang tag, then the target
 shifted right; with n_frames_per_step = n > 1 the decoder input packs n

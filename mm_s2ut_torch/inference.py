@@ -74,10 +74,10 @@ def load_model(model_path: str, device: torch.device):
 
 
 def load_image_features(image_path: str, vit_checkpoint: Optional[str] = None,
-                        image_feat_dim: int = 768, device: torch.device = torch.device("cpu")
-                        ) -> np.ndarray:
+                        image_feat_dim: int = 768, *, device: torch.device) -> np.ndarray:
     """(1, T_img, D) features from a ``.npy``/``.npz`` array, or from a raw
-    image through the timm ViT of ``vit_checkpoint`` on ``device``."""
+    image through the timm ViT of ``vit_checkpoint`` on ``device`` (the
+    caller names it: the entry point's ``--device``, ``cuda`` by default)."""
     if image_path.endswith((".npy", ".npz")):
         feats = np.load(image_path)
         if hasattr(feats, "keys"):
@@ -165,7 +165,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         wav, _ = get_waveform(args.audio_path, use_sample_rate=cfg.data.sample_rate)
         dims = cfg.model.multimodal.image_feat_dim
         imgs = (load_image_features(args.image_path, args.vit_checkpoint,
-                                    dims[0] if dims else 768, device)
+                                    dims[0] if dims else 768, device=device)
                 if args.image_path else None)
         hypos = decode_batch([wav.astype(np.float32)], imgs)
         names, sample_ids, targets = [Path(args.audio_path).stem], [0], None

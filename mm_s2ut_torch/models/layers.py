@@ -169,10 +169,14 @@ class MultiHeadAttention(nn.Module):
         k = self._split(self.k_proj(query))
         v = self._split(self.v_proj(query))
         rate = self.dropout if self.training else 0.0
+        seed, row0 = None, 0
+        if rate > 0.0:
+            rng = need_rng(self)
+            seed, row0 = rng.next_seed(), rng.row0
         out = flash_attention_biased(
             q, k, v, key_bias, causal=causal, window=window,
             block_k=CAUSAL_BLOCK_K if causal else None, dropout_rate=rate,
-            dropout_seed=need_rng(self).next_seed() if rate > 0.0 else None,
+            dropout_seed=seed, dropout_row0=row0,
         )
         return self.out_proj(out.reshape(*query.shape[:2], self.embed_dim))
 

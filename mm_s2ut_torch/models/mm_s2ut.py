@@ -22,8 +22,8 @@ off. With ``multimodal.load_visual_extractor_type`` the model holds the
 on-line image encoder (``visual_extractor``: the timm ViT over kernel A
 for ``vit_timm``/``vit_huggingface``, the CLIP tower for ``vit_openai``;
 ``models/vit.py``): a 4-D first image source of (B, S, S, 3) pixels runs
-it, and its features replace that source with no padding (inference
-only). The auxiliary heads over the encoder output (:func:`add_aux_heads`:
+it, and its features replace that source with no padding, in training
+too. The auxiliary heads over the encoder output (:func:`add_aux_heads`:
 the CTC head with ``ctc_weight`` > 0, a CTC or small transformer head per
 ``multitask`` task) give their logits in ``forward``. Other fusion types
 and the pipelined encoder raise at construction (:func:`_check_ported`).
@@ -289,10 +289,9 @@ class MMS2UTModel(nn.Module):
 
     def _extract_visual(self, pixels: torch.Tensor) -> torch.Tensor:
         """(B, S, S, 3) pixels → (B, T, D) features: the CLIP tower's last
-        hidden state, or the ViT's features."""
-        if self.training:
-            raise NotImplementedError("training through the on-line visual extractor is not "
-                                      "ported yet (ROADMAP.md §1 item 4)")
+        hidden state, or the ViT's features. In training the extractor's
+        parameters train with the rest, as in the reference (nothing
+        freezes them); the ViT's attention backward is kernel H."""
         out = self.visual_extractor(pixels.to(self.decoder.embed.embed_tokens.weight.dtype))
         return out[-1] if isinstance(out, list) else out[0]
 

@@ -5,9 +5,12 @@ reaches (the reference's module is vestigial): a Conv3d temporal stem,
 BatchNorm, ReLU and a 3-D max-pool, then a ResNet-18 trunk per frame and
 a global average pool, giving (B, T, 512) frame features; ``SubModel``
 projects them to the fusion width, optionally through pre-norm
-transformer layers (kernel A). Inference only: BatchNorm uses its
-running statistics, which :func:`from_flax_variables` takes from flax's
-``batch_stats`` collection (epsilon 1e-5, flax's default). Videos come in
+transformer layers (kernel A). BatchNorm is flax's (:class:`FlaxBatchNorm`,
+epsilon 1e-5): in eval mode it uses its running statistics, which
+:func:`from_flax_variables` takes from flax's ``batch_stats`` collection;
+in train mode it normalises by the batch's statistics and updates the
+running ones as flax does. Under data parallelism the statistics are each
+process's rows' (no shipped config trains this module). Videos come in
 as (B, T, H, W, C), the reference's layout.
 """
 from __future__ import annotations
@@ -23,18 +26,50 @@ from mm_s2ut_torch.models.layers import TransformerEncoderLayer
 from mm_s2ut_torch.ops.attention import padding_bias
 
 BN_EPS = 1e-5  # flax nn.BatchNorm default
+BN_MOMENTUM = 0.99  # flax nn.BatchNorm default: running = 0.99 running + 0.01 batch
+
+
+class FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
+    """``flax.linen.BatchNorm`` over channel dim 1 of an (N, C, ...) input.
+    Train mode takes flax's rules, which torch's BatchNorm does not: the
+    batch variance is the biased E[x²] − E[x]² (clipped at 0), in fp32 or wider,
+    for the normalisation and for the running variance alike, and the
+    running statistics move by ``BN_MOMENTUM`` (torch would update the
+    variance with the unbiased one)."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
+
+    def _check_input_dim(self, x: torch.Tensor) -> None:
+        if x.dim() < 2:
+            raise ValueError(f"FlaxBatchNorm: expected (N, C, ...), got {tuple(x.shape)}")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        dims = [0, *range(2, x.dim())]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dims)
+        var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+            self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)).to(x.dtype)
 
 
 class BasicBlock(nn.Module):
     def __init__(self, in_channels: int, channels: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, channels, 3, stride, padding=1, bias=False)
-        self.bn1 = nn.BatchNorm2d(channels, eps=BN_EPS)
+        self.bn1 = FlaxBatchNorm(channels)
         self.conv2 = nn.Conv2d(channels, channels, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(channels, eps=BN_EPS)
+        self.bn2 = FlaxBatchNorm(channels)
         if stride != 1 or in_channels != channels:
             self.downsample = nn.Conv2d(in_channels, channels, 1, stride, bias=False)
-            self.bn_down = nn.BatchNorm2d(channels, eps=BN_EPS)
+            self.bn_down = FlaxBatchNorm(channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.relu(self.bn1(self.conv1(x)))
@@ -68,12 +103,10 @@ class ResEncoder(nn.Module):
         super().__init__()
         self.frontend3d = nn.Conv3d(in_channels, frontend_channels, (5, 7, 7), stride=(1, 2, 2),
                                     padding=(2, 3, 3), bias=False)
-        self.bn0 = nn.BatchNorm3d(frontend_channels, eps=BN_EPS)
+        self.bn0 = FlaxBatchNorm(frontend_channels)
         self.trunk = ResNet18Trunk(frontend_channels)
 
     def forward(self, video: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("ResEncoder: training (batch statistics) is not ported")
         B, T = video.shape[:2]
         x = self.frontend3d(video.to(self.frontend3d.weight.dtype).permute(0, 4, 1, 2, 3))
         x = F.max_pool3d(F.relu(self.bn0(x)), (1, 3, 3), stride=(1, 2, 2), padding=(0, 1, 1))

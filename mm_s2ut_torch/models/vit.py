@@ -22,9 +22,11 @@ give the JAX package's flax-layout dicts, which ``convert.from_flax``
 loads; the loaders read local files with ``torch.load`` and the port's
 own safetensors reader (no ``transformers``, no ``safetensors``).
 :func:`preprocess_images` is the JAX function on uint8 arrays, with
-``data/image_io.resize`` for PIL's resize. The modules hold no dropout;
-``MMS2UTModel`` runs them for inference only (training through the
-extractor is ROADMAP.md §1 item 4).
+``data/image_io.resize`` for PIL's resize. The modules hold no dropout,
+as JAX's hold none. In training (``MMS2UTModel``'s on-line extractor) the
+ViT's attention goes through ``flash_attention_biased``'s autograd path:
+kernel A saves its row statistics and kernel H takes the backward at
+Tq = 577 queries over the S = 584 padded keys, which get zero dk and dv.
 """
 from __future__ import annotations
 

@@ -266,7 +266,8 @@ class Wav2Vec2Model(nn.Module):
 
     def _span_scores(self, B: int, T: int, device) -> torch.Tensor:
         """The uniforms span masking starts from, from the seed generator."""
-        return torch.rand((B, T), generator=need_rng(self).seeds).to(device)
+        rng = need_rng(self)
+        return rng.uniform((B, T), rng.seeds).to(device)
 
     def _layerdrop_draw(self) -> float:
         """One layer's LayerDrop uniform, from the seed generator."""

@@ -24,7 +24,11 @@ whose whole band is padding (see ``csrc/flash_attention.cu``).
 Attention dropout (training) drops softmax weights by the reference's
 counter-based hash (:func:`dropout_keep`) of the absolute coordinates
 (b·H + h, query t, key s) and a per-call uint32 seed, so A, G, H and the
-twins rebuild the same mask from the seed alone; nothing is stored. The
+twins rebuild the same mask from the seed alone; nothing is stored. ``b``
+is the row of the global batch: a data-parallel process that holds rows
+``dropout_row0`` onwards passes that offset, and draws the masks that
+rows of one process over the whole batch would draw (JAX's jit sees the
+global batch). The
 hash is computed bit-exactly on uint32 values held in int64 (torch has no
 uint32 right shift on the CPU): every product is masked back to 32 bits,
 and int64 multiplication wraps, which keeps the low 32 bits right.
@@ -81,9 +85,11 @@ def dropout_keep(
     return _keep_from_hash(_mix(h), rate)
 
 
-def attention_keep(B: int, H: int, Tq: int, S: int, seed: int, rate: float, device) -> torch.Tensor:
-    """(B, H, Tq, S) keep-mask of attention dropout at (b·H + h, t, s)."""
-    bh = (torch.arange(B, device=device)[:, None] * H + torch.arange(H, device=device)[None, :])
+def attention_keep(B: int, H: int, Tq: int, S: int, seed: int, rate: float, device,
+                   row0: int = 0) -> torch.Tensor:
+    """(B, H, Tq, S) keep-mask of attention dropout at ((row0 + b)·H + h, t, s)."""
+    bh = ((row0 + torch.arange(B, device=device))[:, None] * H
+          + torch.arange(H, device=device)[None, :])
     return dropout_keep(
         bh[:, :, None, None], torch.arange(Tq, device=device)[None, None, :, None],
         torch.arange(S, device=device)[None, None, None, :], seed, rate,
@@ -121,13 +127,15 @@ def reference_attention(
     window: int = 0,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
+    dropout_row0: int = 0,
 ) -> torch.Tensor:
     """softmax(q.kᵀ + bias).v with fp32 logits and softmax; weights are
     cast to q's dtype before the second product, as in the reference.
     ``causal`` REPLACES the logits of keys after the query (and, with
     ``window`` > 0, at or before query − window) by −1e9; query and key
     positions both start at 0. ``dropout_rate`` > 0 zeroes the weights the
-    hash drops (seed ``dropout_seed``) and scales the rest by 1/(1 − rate)."""
+    hash drops (seed ``dropout_seed``, batch rows from ``dropout_row0``) and
+    scales the rest by 1/(1 − rate)."""
     _check_dropout(dropout_rate, dropout_seed)
     logits = torch.einsum("bqhd,bkhd->bhqk", _acc(q), _acc(k))
     if bias is not None:
@@ -138,7 +146,8 @@ def reference_attention(
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
     if dropout_rate > 0.0:
         B, Tq, H, _ = q.shape
-        keep = attention_keep(B, H, Tq, k.shape[1], dropout_seed, dropout_rate, q.device)
+        keep = attention_keep(B, H, Tq, k.shape[1], dropout_seed, dropout_rate, q.device,
+                              dropout_row0)
         # 1 - rate rounded to the weights' dtype, as JAX's weak typing does.
         denom = torch.tensor(1.0 - dropout_rate, dtype=weights.dtype, device=q.device)
         weights = torch.where(keep, weights, torch.zeros_like(weights)) / denom
@@ -156,6 +165,7 @@ def reference_attention_bwd(
     window: int = 0,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
+    dropout_row0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain twin of kernel H, in H's formulas (the reference's
     ``_attn_bwd_kernel``): recompute W = softmax(scale·q.kᵀ + bias [causal])
@@ -181,7 +191,7 @@ def reference_attention_bwd(
     w = torch.softmax(logits, dim=-1)
     dP = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
     if dropout_rate > 0.0:
-        keep = attention_keep(B, H, Tq, S, dropout_seed, dropout_rate, q.device)
+        keep = attention_keep(B, H, Tq, S, dropout_seed, dropout_rate, q.device, dropout_row0)
         mscale = torch.where(keep, 1.0 / (1.0 - dropout_rate), 0.0)
         dW, wd = dP * mscale, w * mscale
     else:
@@ -228,8 +238,11 @@ def _strides(*ts):
     return [s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))]
 
 
-def _dropout_args(rate: float, seed: Optional[int]):
-    return float(rate), (int(seed) & _M32) if rate > 0.0 else 0
+def _dropout_args(rate: float, seed: Optional[int], row0: int, H: int):
+    """rate, seed and the hash's (b, h) row offset as the C entries take them."""
+    if rate <= 0.0:
+        return 0.0, 0, 0
+    return float(rate), int(seed) & _M32, (int(row0) * H) & _M32
 
 
 def _device_context(device):
@@ -241,11 +254,12 @@ def _device_context(device):
 
 
 def _launch(entry: str, q, k, v, bias, scale: float, causal: bool, window: int,
-            rate: float, seed: Optional[int], stats: Optional[torch.Tensor]) -> torch.Tensor:
+            rate: float, seed: Optional[int], stats: Optional[torch.Tensor],
+            row0: int = 0) -> torch.Tensor:
     """Check a CUDA input and launch kernel A or G (``entry``), counting the
     launch on :func:`flash_attention` or :func:`causal_skip_attention`;
     with ``stats`` (2, B·H, Tq) f32, also write each row's softmax max and
-    denominator for kernel H."""
+    denominator for kernel H. ``row0``: the dropout hash's first batch row."""
     B, Tq, H, D = q.shape
     S = k.shape[1]
     _check_cuda(entry, q, k, v)
@@ -256,7 +270,7 @@ def _launch(entry: str, q, k, v, bias, scale: float, causal: bool, window: int,
         rc = getattr(_build.library(), entry)(
             _build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr(), out.data_ptr(), B, Tq, S, H, D, *_strides(q, k, v),
-            scale, causal, window, *_dropout_args(rate, seed),
+            scale, causal, window, *_dropout_args(rate, seed, row0, H),
             None if stats is None else stats[0].data_ptr(),
             None if stats is None else stats[1].data_ptr(),
             _build.stream_ptr(q.device),
@@ -268,7 +282,8 @@ def _launch(entry: str, q, k, v, bias, scale: float, causal: bool, window: int,
 
 
 def flash_attention_bwd(q, k, v, bias, stats, g, scale: float, causal: bool, window: int,
-                        dropout_rate: float = 0.0, dropout_seed: Optional[int] = None):
+                        dropout_rate: float = 0.0, dropout_seed: Optional[int] = None,
+                        dropout_row0: int = 0):
     """Kernel H: the attention backward on the card from the forward's
     inputs and row statistics (``stats``: max and denominator of each row's
     softmax, written by A or G). Returns (dq in q's dtype, dk, dv cast from
@@ -292,7 +307,8 @@ def flash_attention_bwd(q, k, v, bias, stats, g, scale: float, causal: bool, win
             bias.data_ptr(), g.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
             B, Tq, S, H, D, *_strides(q, k, v), scale, causal, window,
-            *_dropout_args(dropout_rate, dropout_seed), _build.stream_ptr(q.device),
+            *_dropout_args(dropout_rate, dropout_seed, dropout_row0, H),
+            _build.stream_ptr(q.device),
         )
     _build.check(rc, "mm_flash_attention_bwd")
     flash_attention_bwd.launches += 1
@@ -309,34 +325,35 @@ class _FlashAttention(torch.autograd.Function):
     gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, scale, causal, window, rate, seed, entry):
-        ctx.cfg = (scale, causal, window, rate, seed)
+    def forward(ctx, q, k, v, bias, scale, causal, window, rate, seed, row0, entry):
+        ctx.cfg = (scale, causal, window, rate, seed, row0)
         with torch.autocast(q.device.type, enabled=False):
             if q.device.type == "cpu":
                 out = reference_attention(q * scale, k, v, bias[:, None, None, :], causal,
-                                          window, rate, seed)
+                                          window, rate, seed, row0)
                 stats = None
             else:
                 stats = None
                 if any(ctx.needs_input_grad[:3]):
                     B, Tq, H, _ = q.shape
                     stats = torch.empty((2, B * H, Tq), dtype=torch.float32, device=q.device)
-                out = _launch(entry, q, k, v, bias, scale, causal, window, rate, seed, stats)
+                out = _launch(entry, q, k, v, bias, scale, causal, window, rate, seed, stats,
+                              row0)
         ctx.save_for_backward(q, k, v, bias, stats)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, stats = ctx.saved_tensors
-        scale, causal, window, rate, seed = ctx.cfg
+        scale, causal, window, rate, seed, row0 = ctx.cfg
         with torch.autocast(q.device.type, enabled=False):
             if q.device.type == "cpu":
                 dq, dk, dv, _ = reference_attention_bwd(q, k, v, bias, g, scale, causal, window,
-                                                        rate, seed)
+                                                        rate, seed, row0)
             else:
                 dq, dk, dv, _ = flash_attention_bwd(q, k, v, bias, stats, g, scale, causal,
-                                                    window, rate, seed)
-        return dq, dk, dv, None, None, None, None, None, None, None
+                                                    window, rate, seed, row0)
+        return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 _SKIP_ENTRY = "mm_flash_attention_causal_skip"
@@ -351,6 +368,7 @@ def causal_skip_attention(
     window: int = 0,
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
+    dropout_row0: int = 0,
 ) -> torch.Tensor:
     """Kernel G: causal (and optionally windowed) attention that computes
     only the key tiles meeting each query tile's band — the reference's
@@ -360,7 +378,8 @@ def causal_skip_attention(
     if Tq > S:
         raise ValueError(f"causal_skip_attention: Tq={Tq} > S={S}")
     bias = padding_bias(key_padding_mask, q.shape[0], S, q.device)
-    return _attend(_SKIP_ENTRY, q, k, v, bias, scale, True, window, dropout_rate, dropout_seed)
+    return _attend(_SKIP_ENTRY, q, k, v, bias, scale, True, window, dropout_rate, dropout_seed,
+                   dropout_row0)
 
 
 causal_skip_attention.launches = 0
@@ -377,6 +396,7 @@ def flash_attention(
     dropout_rate: float = 0.0,
     block_k: Optional[int] = None,
     dropout_seed: Optional[int] = None,
+    dropout_row0: int = 0,
 ) -> torch.Tensor:
     """(B, Tq, H, D) attention; ``scale`` defaults to D^-1/2. ``causal``
     (+ ``window``) masks in-kernel and needs Tq == Tk, as the reference's
@@ -386,11 +406,12 @@ def flash_attention(
     own (64 keys for D <= 64, 32 for D = 128), so the integer selects the
     kernel and its value is not read. ``dropout_rate`` > 0 drops softmax
     weights by the hash of (b·H + h, t, s) and the uint32 ``dropout_seed``,
-    which the caller varies per call. Differentiable: the backward is
-    kernel H on the card."""
+    which the caller varies per call; ``dropout_row0`` is the global batch
+    row of q's first row (data parallelism). Differentiable: the backward
+    is kernel H on the card."""
     bias = padding_bias(key_padding_mask, q.shape[0], k.shape[1], q.device)
     return flash_attention_biased(q, k, v, bias, scale, causal, window, dropout_rate, block_k,
-                                  dropout_seed)
+                                  dropout_seed, dropout_row0)
 
 
 flash_attention.launches = 0
@@ -407,6 +428,7 @@ def flash_attention_biased(
     dropout_rate: float = 0.0,
     block_k: Optional[int] = None,
     dropout_seed: Optional[int] = None,
+    dropout_row0: int = 0,
 ) -> torch.Tensor:
     """:func:`flash_attention` with the key bias already built, as the
     encoder hands one bias to all its layers."""
@@ -416,11 +438,12 @@ def flash_attention_biased(
     if window and not causal:
         raise ValueError("window needs causal=True")
     entry = _SKIP_ENTRY if causal and block_k is not None else "mm_flash_attention"
-    return _attend(entry, q, k, v, bias, scale, causal, window, dropout_rate, dropout_seed)
+    return _attend(entry, q, k, v, bias, scale, causal, window, dropout_rate, dropout_seed,
+                   dropout_row0)
 
 
-def _attend(entry, q, k, v, bias, scale, causal, window, rate, seed):
+def _attend(entry, q, k, v, bias, scale, causal, window, rate, seed, row0=0):
     _check_dropout(rate, seed)
     scale = q.shape[3] ** -0.5 if scale is None else scale
     return _FlashAttention.apply(q, k, v, bias, float(scale), causal, window, float(rate),
-                                 seed, entry)
+                                 seed, int(row0), entry)

@@ -15,6 +15,14 @@ generator on the model's device, both held by one :class:`DropoutRng`
 that the trainer hands the model (``MMS2UTModel.set_dropout_rng``). A
 module in training mode with a rate > 0 and no rng raises.
 
+Under data parallelism (``train/trainer.py``) every process holds the same
+generators and a contiguous slice of the batch's rows
+(:meth:`DropoutRng.shard`). JAX's jit sees the global batch, so each
+process draws what the whole batch would: the hash keys on the global
+flat index and the global (b·H + h) row, and a Bernoulli mask or a
+uniform over rows is drawn for every row of the batch and sliced, so all
+processes move their generators alike.
+
 :func:`checkpoint` rematerialises a layer (``torch.utils.checkpoint``,
 non-reentrant) and puts both generators back to their state at the
 forward for the recompute, then returns them to where the run stands:
@@ -24,6 +32,7 @@ than the forward did, and move the run's seed stream on.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -39,6 +48,20 @@ class DropoutRng:
     def __init__(self, seed: int, device):
         self.seeds = torch.Generator().manual_seed(seed)
         self.bernoulli = torch.Generator(device=device).manual_seed(seed)
+        self.row0 = 0  # this process's first row of the batch
+        self.rows: Optional[int] = None  # the batch's rows; None: this process holds them all
+
+    def shard(self, row0: int, rows: Optional[int]) -> None:
+        """This process's rows of the next batches start at ``row0`` of ``rows``."""
+        self.row0, self.rows = int(row0), rows
+
+    def uniform(self, shape, generator: torch.Generator, device=None) -> torch.Tensor:
+        """``torch.rand(shape)`` for a batch-leading ``shape``, drawn for all
+        the batch's rows and sliced to this process's."""
+        if self.rows is None:
+            return torch.rand(shape, generator=generator, device=device)
+        full = torch.rand((self.rows, *shape[1:]), generator=generator, device=device)
+        return full[self.row0:self.row0 + shape[0]]
 
     def next_seed(self) -> int:
         """A uint32 seed for one hash-dropout or attention-dropout call."""
@@ -72,13 +95,14 @@ def checkpoint(fn: Callable, rng: Optional[DropoutRng], *args) -> torch.Tensor:
     return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
-def keep_mask(shape, seed: int, rate: float, device) -> torch.Tensor:
+def keep_mask(shape, seed: int, rate: float, device, offset: int = 0) -> torch.Tensor:
     """The reference's ``_keep_mask``: keep where the hash of the flat
-    index and the seed clears the rate."""
+    index (plus ``offset``, the global index of element 0) and the seed
+    clears the rate."""
     n = 1
     for s in shape:
         n *= s
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     h = _mix(((idx * _H3) & _M32) ^ ((int(seed) * _H1) & _M32))
     return _keep_from_hash(h, rate).reshape(shape)
 
@@ -89,25 +113,28 @@ def _weak(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(value, dtype=like.dtype, device=like.device)
 
 
-def _apply(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
-    keep = keep_mask(x.shape, seed, rate, x.device)
+def _apply(x: torch.Tensor, seed: int, rate: float, offset: int) -> torch.Tensor:
+    keep = keep_mask(x.shape, seed, rate, x.device, offset)
     return torch.where(keep, x * _weak(1.0 / (1.0 - rate), x), torch.zeros_like(x))
 
 
 class _HashDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seed, rate):
-        ctx.seed, ctx.rate = seed, rate
-        return _apply(x, seed, rate)
+    def forward(ctx, x, seed, rate, offset):
+        ctx.seed, ctx.rate, ctx.offset = seed, rate, offset
+        return _apply(x, seed, rate, offset)
 
     @staticmethod
     def backward(ctx, g):
-        return _apply(g, ctx.seed, ctx.rate), None, None
+        return _apply(g, ctx.seed, ctx.rate, ctx.offset), None, None, None
 
 
-def hash_dropout(x: torch.Tensor, seed: int, rate: float) -> torch.Tensor:
-    """Counter-hash dropout of ``x`` with a uint32 ``seed``."""
-    return _HashDropout.apply(x, int(seed) & _M32, float(rate))
+def hash_dropout(x: torch.Tensor, seed: int, rate: float, row0: int = 0) -> torch.Tensor:
+    """Counter-hash dropout of ``x`` with a uint32 ``seed``; ``row0``: the
+    batch row of ``x``'s first row (its flat index starts at row0 times a
+    row's elements)."""
+    offset = int(row0) * math.prod(x.shape[1:])
+    return _HashDropout.apply(x, int(seed) & _M32, float(rate), offset)
 
 
 class HashDropout(nn.Module):
@@ -122,7 +149,8 @@ class HashDropout(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        return hash_dropout(x, need_rng(self).next_seed(), self.rate)
+        rng = need_rng(self)
+        return hash_dropout(x, rng.next_seed(), self.rate, rng.row0)
 
 
 class BernoulliDropout(nn.Module):
@@ -138,7 +166,8 @@ class BernoulliDropout(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        u = torch.rand(x.shape, generator=need_rng(self).bernoulli, device=x.device)
+        rng = need_rng(self)
+        u = rng.uniform(x.shape, rng.bernoulli, x.device)
         return torch.where(u >= self.rate, x / _weak(1.0 - self.rate, x), torch.zeros_like(x))
 
 

@@ -6,13 +6,13 @@ frontend: host batches (waveforms padded to their bucket) become
 standardised log-mels on the device through the port's ``ops/fbank.py``.
 The batch order is the reference's (``LengthBucketBatcher`` seeded by
 ``train.seed``). With ``multimodal.load_visual_extractor_type`` the
-batches carry preprocessed pixels and the model's extractor starts from
-``multimodal.load_visual_extractor``'s checkpoint when one is named (a
-timm ``.bin``/``.pth``, or an HF CLIP dir for ``vit_openai``); the model
-raises if it is trained through the extractor (ROADMAP.md §1 item 4).
+batches of every split carry preprocessed pixels (``RawImageStore``) and
+the model's extractor starts from ``multimodal.load_visual_extractor``'s
+checkpoint when one is named (a timm ``.bin``/``.pth``, or an HF CLIP dir
+for ``vit_openai``); it trains with the rest of the model.
 The training split mixes in noise when ``data.noise`` names clips
-(``data/dataset.py``). Not ported, and refused when configured:
-``eval_inference`` (ROADMAP.md §1 item 8, with ``eval/``); the native C++
+(``data/dataset.py``). ``train.eval_inference`` adds the MCD metrics to
+each validation (:meth:`build_inference_metrics_fn`). The native C++
 loader, which the reference also skips when it is absent, is left out.
 With a raw-waveform speech encoder (``speech_encoder_type`` ``hubert``,
 ``wav2vec2`` or ``wav2vec2_multimodal``) the batches keep their
@@ -21,10 +21,11 @@ and manifest lengths in samples; in training the encoder masks spans.
 """
 from __future__ import annotations
 
+import json
 import logging
 import random
 from pathlib import Path
-from typing import Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -40,6 +41,7 @@ from mm_s2ut_torch.models.mm_s2ut import init_parameters_, reads_waveform
 from mm_s2ut_torch.models.mm_xm import mm_xm_architecture_base
 from mm_s2ut_torch.models.vit import load_clip_checkpoint, load_timm_checkpoint
 from mm_s2ut_torch.ops.fbank import FbankConfig, waveform_frontend
+from mm_s2ut_torch.parallel.mesh import DataParallel
 from mm_s2ut_torch.train.trainer import Trainer, to_device
 
 logger = logging.getLogger(__name__)
@@ -57,14 +59,8 @@ ARCHS = {"mm_s2ut_transformer": lambda cfg: None, "mm_s2ut_transformer_small": _
          "mm_xm_transformer": mm_xm_architecture_base}
 
 
-def _check_ported(cfg: Config) -> None:
-    if cfg.train.eval_inference:
-        raise NotImplementedError("not ported yet: train.eval_inference")
-
-
 class MultiModalSpeechToSpeechTask:
     def __init__(self, cfg: Config, device="cuda", tgt_dict: Optional[Dictionary] = None):
-        _check_ported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         random.seed(cfg.train.seed)
@@ -170,8 +166,77 @@ class MultiModalSpeechToSpeechTask:
                 data.standardize_audio)
             yield batch
 
-    def build_trainer(self, criterion: str = "speech_to_unit") -> Trainer:
+    def build_trainer(self, criterion: str = "speech_to_unit",
+                      parallel: Optional[DataParallel] = None) -> Trainer:
         model = self.build_model()
         n_params = sum(p.numel() for p in model.parameters())
         logger.info("model %s: %.1fM params", self.cfg.model.arch, n_params / 1e6)
-        return Trainer(self.cfg, model, self.device, criterion_name=criterion)
+        return Trainer(self.cfg, model, self.device, criterion_name=criterion, parallel=parallel)
+
+    def build_inference_metrics_fn(self, trainer: Trainer) -> Callable[[Dict], Dict[str, float]]:
+        """MCD metrics at validation (``train.eval_inference``, fairseq's
+        ``--eval-inference``): one :class:`UnitGenerator` over the trainer's
+        live model and the CodeHiFiGAN of ``train.eval_vocoder_path`` /
+        ``eval_vocoder_cfg``, built once. Each call decodes a batch with
+        the live weights in the model's compute dtype (``model.dtype``: an
+        fp32 model decodes itself in eval mode, put back in train mode
+        after; a bf16 model's fp32 master weights are copied into a bf16
+        twin first, as flax computes in bf16 from fp32 parameters), vocodes
+        the predicted and the target units batch by batch as the reference
+        does, and returns the summed statistics of
+        ``eval.mcd.batch_mel_cepstral_distortion``. Under data parallelism
+        the trainer hands each process its own rows, and the statistics of
+        all processes are reduced together (``Trainer.evaluate``)."""
+        from mm_s2ut_torch.eval.mcd import batch_mel_cepstral_distortion
+        from mm_s2ut_torch.infer.generator import UnitGenerator
+        from mm_s2ut_torch.models.hifigan import (CodeHiFiGAN, HiFiGANConfig,
+                                                  load_fairseq_checkpoint)
+
+        tcfg = self.cfg.train
+        if not (tcfg.eval_vocoder_path and tcfg.eval_vocoder_cfg):
+            raise ValueError("train.eval_inference needs eval_vocoder_path + eval_vocoder_cfg")
+        raw = json.loads(Path(tcfg.eval_vocoder_cfg).read_text())
+        vcfg = HiFiGANConfig.from_json(tcfg.eval_vocoder_cfg)
+        vocoder = CodeHiFiGAN(vcfg)
+        vocoder.load_state_dict(load_fairseq_checkpoint(tcfg.eval_vocoder_path, vcfg))
+        vocoder = vocoder.to(self.device).eval()
+        dur = bool(raw.get("dur_prediction", vcfg.dur_prediction))
+        sr = raw.get("sampling_rate", 16000)
+
+        def vocode(unit_seqs):
+            seqs = [s if len(s) else [0] for s in unit_seqs]
+            L = max(len(s) for s in seqs)
+            vocoder.max_frames = (8 * L + 16) if dur else (L + 1)
+            units = torch.zeros((len(seqs), L), dtype=torch.long)
+            for i, s in enumerate(seqs):
+                units[i, :len(s)] = torch.tensor(s)
+            lens = torch.tensor([len(s) for s in seqs])
+            wav, n = vocoder(units.to(self.device), lens.to(self.device), dur_prediction=dur)
+            wav, n = wav.float().cpu().numpy(), n.cpu().numpy()
+            return [wav[i, :n[i]] for i in range(len(seqs))]
+
+        def to_units(tokens):
+            return self.tgt_dict.ids_to_units(tokens).tolist()
+
+        decoding = trainer.model
+        if self.cfg.model.dtype == "bfloat16":
+            decoding = build_model_from_config(self.cfg).to(self.device)
+        gen = UnitGenerator(decoding, self.cfg.generation)
+        pad = self.tgt_dict.pad()
+
+        def fn(batch):
+            if decoding is not trainer.model:
+                decoding.load_state_dict(trainer.model.state_dict())
+            was_training = decoding.training
+            decoding.eval()
+            try:
+                hyps = gen.generate(batch["src_features"], batch["src_lengths"],
+                                    batch.get("imgs_list", ()), batch.get("img_masks_list", ()))
+            finally:
+                decoding.train(was_training)
+            pred = [to_units(h[0]["tokens"]) for h in hyps]
+            targ = [to_units([t for t in row if t != pad])
+                    for row in torch.as_tensor(batch["target"]).tolist()]
+            return batch_mel_cepstral_distortion(vocode(targ), vocode(pred), sr)
+
+        return fn

@@ -147,7 +147,9 @@ class Tree:
 
     def __init__(self, label: str, csrc: Path):
         self.label = label
-        self.dropout = "unsigned int seed" in (csrc / "flash_attention.cu").read_text()
+        flash_src = (csrc / "flash_attention.cu").read_text()
+        self.dropout = "unsigned int seed" in flash_src
+        self.bh0 = "unsigned int bh0" in flash_src  # the dropout row offset (data parallelism)
         self.has_bwd = (csrc / "flash_attention_bwd.cu").exists()
         self.split_b = "mm_ancestry_decode_splits" in (csrc / "decode_attention.cu").read_text()
         self.split_c = "mm_cross_decode_splits" in (csrc / "decode_attention.cu").read_text()
@@ -157,6 +159,8 @@ class Tree:
         self.split_e = "mm_cross_decode_i8_splits" in q_src
         self.lib = ctypes.CDLL(str(_build.build(csrc)))
         flash = list(_build._FLASH[0])
+        if not self.bh0:
+            del flash[-4]
         if not self.dropout:  # before dropout: no rate, seed, stat_m, stat_l
             flash = flash[:-5] + flash[-1:]
         for name in ("mm_flash_attention", "mm_flash_attention_causal_skip"):
@@ -180,6 +184,9 @@ class Tree:
         for name in names:
             fn = getattr(self.lib, name)
             fn.argtypes, fn.restype = _build._SIGNATURES[name]
+        if self.has_bwd and not self.bh0:
+            fn = self.lib.mm_flash_attention_bwd
+            fn.argtypes = fn.argtypes[:-2] + fn.argtypes[-1:]
         if not self.split_c:  # one block per (b.h, 16 rows), contiguous q and out
             fn = self.lib.mm_cross_decode_attention
             fn.argtypes, fn.restype = _OLD_CROSS, ctypes.c_int
@@ -223,7 +230,8 @@ def _launcher(tree: Tree, entry, B, T, H, D, causal, window, rate):
     fwd_entry = "mm_flash_attention_causal_skip" if causal else "mm_flash_attention"
     fwd = getattr(tree.lib, fwd_entry if entry == "mm_flash_attention_bwd" else entry)
     with_stats = rate > 0.0 or entry == "mm_flash_attention_bwd"
-    extra = ([rate, SEED if rate else 0] + ([stats[0].data_ptr(), stats[1].data_ptr()]
+    bh0 = [0] if tree.bh0 else []
+    extra = ([rate, SEED if rate else 0, *bh0] + ([stats[0].data_ptr(), stats[1].data_ptr()]
                                             if with_stats else [None, None])
              if tree.dropout else [])
     fwd_args = [_build.BF16, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
@@ -241,7 +249,7 @@ def _launcher(tree: Tree, entry, B, T, H, D, causal, window, rate):
         keep += [delta, dq, dk, dv, dbias]
         ptrs = [t.data_ptr() for t in (q, k, v, bias, dout, stats[0], stats[1], delta,
                                        dq, dk, dv, dbias)]
-        bwd_args = [_build.BF16, *ptrs, *common, rate, SEED if rate else 0, stream]
+        bwd_args = [_build.BF16, *ptrs, *common, rate, SEED if rate else 0, *bh0, stream]
 
         def launch():
             _build.check(tree.lib.mm_flash_attention_bwd(*bwd_args), entry)

@@ -1,6 +1,7 @@
 """Trainer of the port: train step, evaluation, checkpoints, the fit loop.
 
-Port of ``mm_s2ut/train/trainer.py`` on one device. A train step is the
+Port of ``mm_s2ut/train/trainer.py``, on one device or data-parallel over
+``torch.distributed`` (below). A train step is the
 reference's: the teacher-forced forward in training mode (dropouts on,
 drawn from the run's :class:`~mm_s2ut_torch.ops.dropout.DropoutRng`),
 the label-smoothed loss over ``ntokens`` (with the model's CTC and
@@ -23,6 +24,24 @@ Parameters stay fp32 (the model is cast with ``.float()``); with
 ``torch.autocast`` in bf16, with no loss scaling, as the reference keeps
 fp32 parameters and computes in bf16.
 
+Data parallelism (``parallel/mesh.py``; a :class:`DataParallel` from
+``init_distributed``): every process runs the same trainer on its
+contiguous rows of each host batch, and one step computes what one
+process computes over the whole batch, as JAX's jit over the global
+batch does. The processes sum their loss statistics first, so each
+normalises by the batch's ``ntokens`` (a mean of per-process means would
+weigh the processes' tokens wrongly); they sum the gradients in one
+all-reduce of the flat gradient (every parameter, zeros where a process
+has none), then clip and skip on the norm of the sum and step alike.
+Dropout keys on global rows (``DropoutRng.shard``), and every process
+draws from the same seed stream. A process with no rows (fewer rows than
+processes) joins the sums with zeros and takes rank 0's generators after
+the forward. Only rank 0 writes checkpoints and metrics. Validation
+splits its batches the same way and gathers the sums; with
+``inference_metrics_fn`` (``train.eval_inference``) each process decodes
+and vocodes its own rows, and the MCD statistics of all processes are
+reduced together.
+
 Checkpoints are the port's own, in ``train.save_dir``: ``config.yaml``
 (the full config, what ``mm_s2ut_torch.inference`` reads), ``params.npz``
 (the parameters in flax's layout, ``convert.to_flax``) and ``optim.pt``
@@ -44,6 +63,7 @@ import torch
 from mm_s2ut_torch.config import Config, save_yaml
 from mm_s2ut_torch.convert import flatten, from_flax, load_npz, to_flax, unflatten
 from mm_s2ut_torch.ops.dropout import DropoutRng
+from mm_s2ut_torch.parallel.mesh import DataParallel, batch_rows, shard_batch, shard_rows
 from mm_s2ut_torch.train.criterion import CRITERIONS
 from mm_s2ut_torch.train.metrics import MetricsAggregator
 from mm_s2ut_torch.train.optimizer import Optimizer, global_norm
@@ -97,8 +117,10 @@ def load_pretrained_encoder(model: torch.nn.Module, ckpt_dir) -> None:
 
 
 class Trainer:
-    def __init__(self, cfg: Config, model, device, criterion_name: str = "speech_to_unit"):
+    def __init__(self, cfg: Config, model, device, criterion_name: str = "speech_to_unit",
+                 parallel: Optional[DataParallel] = None):
         self.cfg = cfg
+        self.parallel = parallel
         self.device = torch.device(device)
         self.model = model.float().to(self.device)
         self.rng = DropoutRng(cfg.train.seed, self.device)
@@ -117,6 +139,29 @@ class Trainer:
         self.step = 0
         self.amp_dtype = torch.bfloat16 if cfg.model.dtype == "bfloat16" else None
         self.metrics_history: list = []
+        self.metric_names: Optional[list] = None
+        # Set by the entry point when train.eval_inference is on
+        # (task.build_inference_metrics_fn); used by fit()'s validations.
+        self.inference_metrics_fn: Optional[Callable[[Dict], Dict[str, float]]] = None
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes checkpoints and metrics (rank 0)."""
+        return self.parallel is None or self.parallel.rank == 0
+
+    def _shard(self, batch: Dict) -> Dict:
+        """This process's rows of ``batch``, the dropout generators told
+        where they start."""
+        if self.parallel is None:
+            return batch
+        n = batch_rows(batch)
+        self.rng.shard(shard_rows(n, self.parallel.rank, self.parallel.world)[0], n)
+        return shard_batch(batch, self.parallel.rank, self.parallel.world)
+
+    def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        if self.parallel is not None:
+            torch.distributed.all_reduce(t)
+        return t
 
     # -- steps ---------------------------------------------------------------
 
@@ -142,13 +187,35 @@ class Trainer:
 
     def train_batch(self, batch: Dict) -> Dict[str, float]:
         """One update (one mini-step under ``update_freq`` > 1)."""
-        batch = to_device(batch, self.device)
+        n = batch_rows(batch)
+        batch = to_device(self._shard(batch), self.device)
+        has_rows = batch_rows(batch) > 0
         self.model.train()
         for p in self.params:
             p.grad = None
-        loss, metrics = self._loss(batch)
-        (loss / metrics["ntokens"].clamp_min(1.0)).backward()
+        if has_rows:
+            loss, metrics = self._loss(batch)
+            self.metric_names = sorted(metrics)
+        if self.parallel is not None and n < self.parallel.world:
+            # Processes past the rows ran no forward: they take rank 0's
+            # generators (where every forward left them) and metric names.
+            shared = [self.metric_names, self.rng.state_dict()]
+            torch.distributed.broadcast_object_list(shared, src=0)
+            self.metric_names = shared[0]
+            if not has_rows:
+                self.rng.load_state_dict(shared[1])
+        names = self.metric_names
+        sums = (torch.stack([metrics[k].float() for k in names]) if has_rows
+                else torch.zeros(len(names), device=self.device))
+        sums = self._all_reduce(sums)
+        ntokens = sums[names.index("ntokens")]
+        if has_rows:
+            (loss / ntokens.clamp_min(1.0)).backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        if self.parallel is not None:
+            flat = self._all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+            grads = [g.view_as(p) for g, p in zip(flat.split([p.numel() for p in self.params]),
+                                                   self.params)]
         frozen = self.frozen if self.step < self.cfg.train.freezing_updates else []
         for i in frozen:
             grads[i] = torch.zeros_like(grads[i])
@@ -158,30 +225,53 @@ class Trainer:
             self.optimizer.step(grads, grad_norm if self.cfg.train.update_freq <= 1 else None,
                                 frozen=frozen)
         self.step += 1
-        names = sorted(metrics)
-        out = dict(zip(names, torch.stack([metrics[k].float() for k in names]).tolist()))
+        out = dict(zip(names, sums.tolist()))
         out["grad_norm"] = float(grad_norm)
         out["skipped"] = 0.0 if ok else 1.0
         return out
 
     @torch.no_grad()
-    def evaluate(self, batches: Iterator[Dict]) -> Dict[str, float]:
-        """Criterion metrics over the batches, normalised by ntokens."""
-        self.model.eval()
+    def evaluate(self, batches: Iterator[Dict],
+                 inference_metrics_fn: Optional[Callable[[Dict], Dict[str, float]]] = None,
+                 ) -> Dict[str, float]:
+        """Criterion metrics over the batches, normalised by ntokens; with
+        ``inference_metrics_fn`` (``train.eval_inference``) each batch is
+        also decoded and vocoded, and its MCD statistics reduced
+        (``eval.mcd.reduce_inference_metrics``)."""
         totals: Dict[str, float] = {}
+        infer_logs = []
         for batch in batches:
+            batch = self._shard(batch)
+            if batch_rows(batch) == 0:
+                continue
+            if inference_metrics_fn is not None:
+                infer_logs.append(inference_metrics_fn(batch))
             batch = to_device(batch, self.device)
+            self.model.eval()
             with self._autocast():
                 _, m = self.criterion(self._outputs(batch), batch, **self.criterion_kwargs)
             for k, v in m.items():
                 totals[k] = totals.get(k, 0.0) + float(v)
+        if self.parallel is not None:
+            gathered = [None] * self.parallel.world
+            torch.distributed.all_gather_object(gathered, (totals, infer_logs))
+            totals = {}
+            for part, logs in gathered:
+                for k, v in part.items():
+                    totals[k] = totals.get(k, 0.0) + v
+            infer_logs = [lo for _, logs in gathered for lo in logs]
         ntok = max(totals.get("ntokens", 1.0), 1.0)
-        return {
+        out = {
             "loss": totals.get("loss", 0.0) / ntok,
             "nll_loss": totals.get("nll_loss", 0.0) / ntok,
             "accuracy": totals.get("n_correct", 0.0) / ntok,
             "ntokens": ntok,
         }
+        if infer_logs:
+            from mm_s2ut_torch.eval.mcd import reduce_inference_metrics
+
+            out.update(reduce_inference_metrics(infer_logs))
+        return out
 
     # -- checkpoints ---------------------------------------------------------
 
@@ -190,7 +280,10 @@ class Trainer:
         return Path(self.cfg.train.save_dir)
 
     def save_checkpoint(self) -> None:
-        """config.yaml (once), params.npz and optim.pt, each replaced atomically."""
+        """config.yaml (once), params.npz and optim.pt, each replaced
+        atomically; on rank 0 only."""
+        if not self.is_writer:
+            return
         d = self.save_dir
         d.mkdir(parents=True, exist_ok=True)
         if not (d / "config.yaml").exists():
@@ -253,7 +346,7 @@ class Trainer:
 
     def _validate_and_save(self, valid_iter, metrics_writer) -> None:
         if valid_iter is not None:
-            metrics = self.evaluate(valid_iter())
+            metrics = self.evaluate(valid_iter(), self.inference_metrics_fn)
             logger.info("valid at %d: %s", self.step, metrics)
             if metrics_writer is not None:
                 metrics_writer.write(self.step, metrics, "valid")

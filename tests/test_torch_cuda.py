@@ -28,7 +28,10 @@ with the key padding of 2-10 s utterances, H = 12 and 16, attention
 dropout 0 and 0.1) A and H are held to their plain versions, and a small
 XM train step with LayerDrop, ``gradient_checkpointing`` and attention
 dropout on the card to the same weights on the CPU
-(``chip_smoke.card_vs_cpu``)."""
+(``chip_smoke.card_vs_cpu``). H at the ViT's training shape (Tq = 577
+over S = 584) is held to its twin, and A, G and H with attention dropout
+on a data-parallel shard (``dropout_row0``) give that shard's rows of the
+whole batch bit for bit."""
 import pytest
 import torch
 
@@ -900,6 +903,62 @@ def test_flash_attention_at_the_vit_shape(card, dtype, H):
     got = A.flash_attention_biased(q, k, v, key_bias)
     assert A.flash_attention.launches == before + 1 and got.shape == (B, Tq, H, Dh)
     _close(got, A.reference_attention(q * Dh ** -0.5, k, v, key_bias[:, None, None, :]), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H", [12, 16])
+def test_flash_attention_bwd_at_the_vit_training_shape(card, dtype, H):
+    """H after A at the ViT's training shape: 577 queries over 584 keys
+    whose last 7 are padding (Tq ≠ S), B = 2; dq, dk, dv, dbias against
+    the plain twin, the padded keys' dk and dv exactly 0; and the autograd
+    route the ViT trains through gives the same gradients."""
+    import torch.nn.functional as F
+
+    B, Tq, S, Dh = 2, VIT["Tq"], VIT["S"], VIT["Dh"]
+    g = torch.Generator().manual_seed(H + 1)
+    qkv = torch.randn(B, Tq, 3, H, Dh, generator=g).to("cuda", dtype)
+    q = qkv[:, :, 0]
+    k, v = (F.pad(qkv[:, :, i], (0, 0, 0, 0, 0, S - Tq)) for i in (1, 2))
+    dout = torch.randn(B, Tq, H, Dh, generator=g).to("cuda", dtype)
+    bias = A.padding_bias((torch.arange(S)[None, :] >= Tq).expand(B, S).cuda(), B, S, "cuda")
+    scale = Dh ** -0.5
+    stats = torch.empty((2, B * H, Tq), device="cuda")
+    A._launch("mm_flash_attention", q, k, v, bias, scale, False, 0, 0.0, None, stats)
+    got = A.flash_attention_bwd(q, k, v, bias, stats, dout, scale, False, 0)
+    for x, y in zip(got, A.reference_attention_bwd(q, k, v, bias, dout, scale)):
+        _rel_close(x, y, dtype)
+    assert all((x[:, Tq:] == 0).all() for x in got[1:3])
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    A.flash_attention_biased(*leaves, bias, scale=scale).backward(dout)
+    for x, y in zip((t.grad for t in leaves), got[:3]):
+        torch.cuda.synchronize()
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal,window,block_k", [(False, 0, None), (True, 8, 64)])
+def test_dropout_row_offset_gives_those_rows_of_the_batch(card, dtype, causal, window, block_k):
+    """A data-parallel shard: A (or G) and H with attention dropout 0.1 on
+    rows 2.. of a batch, given ``dropout_row0`` 2, equal rows 2.. of the
+    whole batch's output and gradients bit for bit (the kernels hash the
+    global (b·H + h) row); without the offset they draw another mask."""
+    B, T, H, D = 4, 70, 2, 64
+    q, k, v, kpm = flash_inputs(B, T, H, D, dtype, seed=5)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(6)).to("cuda", dtype)
+
+    def run(rows, row0):
+        leaves = [t[rows].detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = A.flash_attention(*leaves, kpm[rows], causal=causal, window=window,
+                                dropout_rate=0.1, dropout_seed=DROP_SEED, block_k=block_k,
+                                dropout_row0=row0)
+        out.backward(g[rows])
+        torch.cuda.synchronize()
+        return [out.detach()] + [t.grad for t in leaves]
+
+    full, part = run(slice(0, B), 0), run(slice(2, B), 2)
+    for x, y in zip(part, full):
+        assert torch.equal(x, y[2:])
+    assert not torch.equal(run(slice(2, B), 0)[0], full[0][2:])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -257,5 +257,8 @@ def test_resnet_encoder_matches_jax_in_eval_mode():
     with torch.no_grad():
         got = tmodel.eval()(video=torch.from_numpy(video))
     _close(got, want, "float32")
-    with pytest.raises(NotImplementedError):
-        tmodel.train()(video=torch.from_numpy(video))
+    # Train mode now runs on the batch's statistics (held against flax's
+    # in test_torch_resnet_train.py).
+    with torch.no_grad():
+        frames = tmodel.resnet.train()(torch.from_numpy(video))
+    assert frames.shape == (1, 2, 512) and torch.isfinite(frames).all()

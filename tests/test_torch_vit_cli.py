@@ -182,11 +182,12 @@ def test_inference_cli_on_a_raw_image_matches_jax(corpus, vit_tiny, tmp_path, mo
                              "--device", "cpu"]) == 0
     got, want = ((tmp_path / d / "2.unit").read_text() for d in ("port", "jax"))
     assert got == want and got.strip()
-    feats = t_inference.load_image_features(str(image), str(vit_tiny), 192)
+    feats = t_inference.load_image_features(str(image), str(vit_tiny), 192,
+                                            device=torch.device("cpu"))
     assert feats.shape == (1, 577, 192)
     np.testing.assert_allclose(feats, j_features(str(image), str(vit_tiny), 192), atol=1e-4)
     with pytest.raises(ValueError, match="raw image input requires --vit_checkpoint"):
-        t_inference.load_image_features(str(image), None, 192)
+        t_inference.load_image_features(str(image), None, 192, device=torch.device("cpu"))
 
 
 @pytest.mark.parametrize("kind", ["vit_timm", "vit_openai"])

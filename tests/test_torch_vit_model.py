@@ -5,7 +5,7 @@ JAX package's, on the same flax parameters: a first image source of
 (``vit_openai``), whose features replace it. Encoder output and the
 teacher-forced logits within fp32 1e-4, and UnitGenerator's tokens equal
 to JAX's (scores within 1e-4) for the float, int8 and int4 caches. The
-extractor refuses training mode (ROADMAP.md §1 item 4)."""
+model trains through the extractor."""
 import dataclasses
 
 import jax
@@ -117,9 +117,18 @@ def test_generate_matches_jax(pair, kv):
 
 
 def test_training_through_the_extractor_raises(pair):
+    """It no longer raises: in train mode the encode runs through the
+    extractor and a loss on it reaches the extractor's patch conv (the
+    gradients against ``jax.grad`` are in ``test_torch_vit_train.py``)."""
+    import copy
+
+    from mm_s2ut_torch.ops.dropout import DropoutRng
+
     _, _, _, tmodel = pair
+    model = copy.deepcopy(tmodel).train().set_dropout_rng(DropoutRng(0, "cpu"))
     feats, lens, px = _inputs()
     t = torch.from_numpy
-    with pytest.raises(NotImplementedError, match="§1 item 4"):
-        tmodel.train().encode(t(feats), t(lens).long(), [t(px)], [t(np.zeros((B, S), bool))])
-    tmodel.eval()
+    enc = model.encode(t(feats), t(lens).long(), [t(px)], [t(np.zeros((B, S), bool))])
+    enc["encoder_out"].square().sum().backward()
+    grad = model.visual_extractor.patch_embed.weight.grad
+    assert grad is not None and torch.isfinite(grad).all() and grad.abs().max() > 0
