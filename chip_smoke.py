@@ -174,7 +174,30 @@ is no CPU path):
     the MCD metrics and the validation's seconds), ``eval.asr`` on the
     vocoded wavs with a random wav2vec2-base CTC model written as an HF
     directory, ``eval.bleu`` on its transcripts, and the MCD metrics
-    card against CPU on the small fp32 config.
+    card against CPU on the small fp32 config;
+22. the textless pipeline's tools (``phase_tools``): (a) ``cli.prep_data``
+    over 16 utterances of 2-10 s (wav, FLAC and, where the host has
+    libvorbis, Ogg): ``manifest``, ``quantize`` through a random
+    HuBERT-base written as an HF directory with 1000 centroids fitted on
+    the card (k-means++ and Lloyd) at layer 11, on the card (A in fp32)
+    and on the CPU, the units equal but at near-ties; the same encoder as
+    a fairseq HuBERT through ``convert_checkpoint --kind hubert``; then
+    ``prep-s2ut``; quantize's seconds of audio per second, A's and
+    k-means' shares, ``kmeans_assign`` at 8192 x 1000 x 768; (b)
+    ``convert_checkpoint --kind mm_s2ut`` on a full-width flagship saved by
+    ``torch.save`` in fairseq's names with fairseq's extras: the loaded
+    directory's logits equal the source model's bit for bit; (c) the
+    logit ensemble: ``cli.generate --model_path a:b`` on two small XM
+    checkpoints, bf16 and int8 caches, card = CPU; two full-width
+    flagships over 8 utterances, beam 10, 200 units, bf16 then int8: ms
+    per decode step of the pair against one model, launches per step;
+    (d) ``cli.vocode --dur-prediction`` and ``vocode_bucketed`` against
+    the fixed budget, with their ms; (e) ``cli.inference_all`` in units
+    mode (the flagship, the vocoder of (d), a random wav2vec2-base CTC
+    ASR) and text mode (a small XM), the references set to the clean
+    run's output, then ``MM_PARITY_CANARY``: BLEU must collapse; (f) the
+    native audio loader's batch against the Python decoder, bit for bit,
+    with the ms of each.
 
 Phase 2 also holds A at the image encoders' shape (B=16, 577 queries
 over 584 keys, the last 7 padding, H=12 and 16, Dh=64), H at the ViT's
@@ -200,7 +223,10 @@ kernel's bound at its recorded shape: the larger of its bytes over
 3.35 TB/s and its operations over the peak for its inputs' type; A's
 ``launches`` add phase 19's image path to the flagship paths'; its
 ``train_launches`` are A's and H's in phase 20a's first timed XM step,
-its ``vit_train_launches`` those in phase 21a's first timed ViT-B step);
+its ``vit_train_launches`` those in phase 21a's first timed ViT-B step,
+its ``tools_launches`` phase 22's: A in 22a's quantize on the card (fp32)
+and 22c's full-width ensemble encodes (bf16), B-E in 22c's ensemble
+decodes, both members counted);
 the last line is ``{"ok": true, "device": {...}}``. Artifacts (.unit files,
 generate-smoke.txt, wavs, the training runs) go to ``--out`` (default
 ``smoke_out/`` beside this file).
@@ -3606,59 +3632,80 @@ def phase_dp_on_card(out_dir: Path):
 
 def hf_ctc_dir(root: Path, w2v_cfg, gen, vocab):
     """A random ``Wav2Vec2ForCTC`` written as a local HF checkpoint directory
-    (``config.json``, ``vocab.json``, ``pytorch_model.bin`` under HF's names,
-    from the flax-layout parameters ``convert.to_flax`` gives), which
-    ``load_hf_checkpoint`` reads back; no ``transformers``."""
-    import dataclasses
-    import re
-
-    import numpy as np
-
-    from mm_s2ut_torch.convert import to_flax
+    (``write_hf_dir``) with its ``vocab.json``."""
     from mm_s2ut_torch.models.wav2vec2 import Wav2Vec2ForCTC
 
     model = init_random_(Wav2Vec2ForCTC(w2v_cfg), gen)
-    rules = [(r"^wav2vec2/feature_extractor/conv(\d+)/", r"wav2vec2.feature_extractor.conv_layers.\1.conv."),
-             (r"^wav2vec2/feature_extractor/group_norm/",
-              "wav2vec2.feature_extractor.conv_layers.0.layer_norm."),
-             (r"^wav2vec2/feature_extractor/layer_norm(\d+)/",
-              r"wav2vec2.feature_extractor.conv_layers.\1.layer_norm."),
-             (r"^wav2vec2/feature_projection_norm/", "wav2vec2.feature_projection.layer_norm."),
-             (r"^wav2vec2/feature_projection/", "wav2vec2.feature_projection.projection."),
-             (r"^wav2vec2/pos_conv/conv/", "wav2vec2.encoder.pos_conv_embed.conv."),
-             (r"^wav2vec2/encoder_norm/", "wav2vec2.encoder.layer_norm."),
-             (r"^wav2vec2/layer(\d+)/attention/", r"wav2vec2.encoder.layers.\1.attention."),
-             (r"^wav2vec2/layer(\d+)/(intermediate_dense|output_dense)/",
-              r"wav2vec2.encoder.layers.\1.feed_forward.\2."),
-             (r"^wav2vec2/layer(\d+)/", r"wav2vec2.encoder.layers.\1."),
-             (r"^wav2vec2/masked_spec_embed$", "wav2vec2.masked_spec_embed"),
-             (r"^lm_head/", "lm_head."), (r"/", ".")]
+    write_hf_dir(root, model, w2v_cfg, vocab)
+    return model
+
+
+# Flax-layout names of a Wav2Vec2ForCTC (a bare Wav2Vec2Model's under "wav2vec2/") → HF's.
+HF_W2V_NAMES = [
+    (r"^wav2vec2/feature_extractor/conv(\d+)/", r"wav2vec2.feature_extractor.conv_layers.\1.conv."),
+    (r"^wav2vec2/feature_extractor/group_norm/",
+     "wav2vec2.feature_extractor.conv_layers.0.layer_norm."),
+    (r"^wav2vec2/feature_extractor/layer_norm(\d+)/",
+     r"wav2vec2.feature_extractor.conv_layers.\1.layer_norm."),
+    (r"^wav2vec2/feature_projection_norm/", "wav2vec2.feature_projection.layer_norm."),
+    (r"^wav2vec2/feature_projection/", "wav2vec2.feature_projection.projection."),
+    (r"^wav2vec2/pos_conv/conv/", "wav2vec2.encoder.pos_conv_embed.conv."),
+    (r"^wav2vec2/encoder_norm/", "wav2vec2.encoder.layer_norm."),
+    (r"^wav2vec2/layer(\d+)/attention/", r"wav2vec2.encoder.layers.\1.attention."),
+    (r"^wav2vec2/layer(\d+)/(intermediate_dense|output_dense)/",
+     r"wav2vec2.encoder.layers.\1.feed_forward.\2."),
+    (r"^wav2vec2/layer(\d+)/", r"wav2vec2.encoder.layers.\1."),
+    (r"^wav2vec2/masked_spec_embed$", "wav2vec2.masked_spec_embed"),
+    (r"^lm_head/", "lm_head."), (r"/", ".")]
+
+
+def torch_names(flat, rules):
+    """Flax leaves {"a/b/leaf": array} → torch state-dict entries under the
+    renames ``rules``: Dense/Conv kernels transposed to (out, in[, k]),
+    LayerNorm ``scale`` → ``weight``."""
+    import re
+
     sd = {}
-    for key, value in to_flax(model).items():
+    for key, value in flat.items():
         name = key
         for pattern, repl in rules:
             name = re.sub(pattern, repl, name)
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "kernel":
+        if name.endswith(".kernel"):
             value = value.transpose(2, 1, 0) if value.ndim == 3 else value.T
-            name = name[:-len("kernel")] + "weight"
-        elif leaf == "scale":
-            name = name[:-len("scale")] + "weight"
+            name = name[: -len("kernel")] + "weight"
+        elif name.endswith(".scale"):
+            name = name[: -len("scale")] + "weight"
         sd[name] = torch.from_numpy(value.copy())
+    return sd
+
+
+def write_hf_dir(root: Path, model, w2v_cfg, vocab=None):
+    """``model`` (a ``Wav2Vec2ForCTC`` or a bare ``Wav2Vec2Model``) written as
+    a local HF checkpoint directory (``config.json``, ``pytorch_model.bin``
+    under HF's names, ``vocab.json`` when ``vocab`` is given), from the
+    flax-layout parameters ``convert.to_flax`` gives; ``load_hf_checkpoint``
+    reads it back leaf for leaf (checked here). No ``transformers``."""
+    import dataclasses
+
+    import numpy as np
+
+    from mm_s2ut_torch.convert import flatten, to_flax
+    from mm_s2ut_torch.models.wav2vec2 import Wav2Vec2ForCTC, load_hf_checkpoint
+
+    want = to_flax(model)
+    flat = want if isinstance(model, Wav2Vec2ForCTC) else {f"wav2vec2/{k}": v
+                                                            for k, v in want.items()}
     root.mkdir(parents=True, exist_ok=True)
-    torch.save(sd, root / "pytorch_model.bin")
+    torch.save(torch_names(flat, HF_W2V_NAMES), root / "pytorch_model.bin")
     hf = {k: v for k, v in dataclasses.asdict(w2v_cfg).items()
           if k not in ("gradient_checkpointing", "use_flash_attention", "pad_to_multiple")}
     (root / "config.json").write_text(json.dumps(hf))
-    (root / "vocab.json").write_text(json.dumps({t: i for i, t in enumerate(vocab)}))
-    from mm_s2ut_torch.convert import flatten
-    from mm_s2ut_torch.models.wav2vec2 import load_hf_checkpoint
-
+    if vocab is not None:
+        (root / "vocab.json").write_text(json.dumps({t: i for i, t in enumerate(vocab)}))
     cfg, variables = load_hf_checkpoint(root)  # the directory reads back as written
-    back, want = flatten(variables["params"]), to_flax(model)
+    back = flatten(variables["params"])
     assert cfg == w2v_cfg and set(back) == set(want), sorted(set(back) ^ set(want))
     assert all(np.array_equal(back[k], want[k]) for k in want)
-    return model
 
 
 def eval_inference_run(root: Path, mcfg, kv, device, beam, max_len_b):
@@ -3803,6 +3850,695 @@ def phase_train_through_images(out_dir: Path):
     return launches
 
 
+# ------------------------------------------------------- phase 22: the tools
+
+class FairseqConfigStandIn:
+    """Pickled beside the weights as fairseq's omegaconf/dataclass configs
+    are: a reader must keep its state without running its code."""
+
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+    def __setstate__(self, state):
+        raise AssertionError("a checkpoint reader ran this class's code")
+
+
+# The port's flax-layout names → fairseq's: the inverse of
+# utils/fairseq_convert.convert_mm_s2ut_checkpoint.
+FAIRSEQ_FLAGSHIP_NAMES = [
+    (r"^encoder/subsampler/conv(\d+)/", r"encoder.subsample.conv_layers.\1."),
+    (r"^encoder/layer(\d+)/ffn/", r"encoder.transformer_layers.\1."),
+    (r"^encoder/layer(\d+)/", r"encoder.transformer_layers.\1."),
+    (r"^encoder/final_layer_norm/", "encoder.layer_norm."),
+    (r"^fusion(\d+)/selective_attn/out_proj/", r"encoder.selective_attns.\1.proj."),
+    (r"^fusion(\d+)/selective_attn/", r"encoder.selective_attns.\1."),
+    (r"^fusion(\d+)/gated_fusion/gate/", r"encoder.gate_denses.\1."),
+    (r"^fusion\d+/image_pre_norm/", "encoder.image_pre_norm_module."),
+    (r"^decoder/embed/embed_tokens/embedding$", "decoder.embed_tokens.weight"),
+    (r"^decoder/layer(\d+)/cross_attn/", r"decoder.layers.\1.encoder_attn."),
+    (r"^decoder/layer(\d+)/cross_attn_layer_norm/", r"decoder.layers.\1.encoder_attn_layer_norm."),
+    (r"^decoder/layer(\d+)/ffn/", r"decoder.layers.\1."),
+    (r"^decoder/layer(\d+)/", r"decoder.layers.\1."),
+    (r"^decoder/final_norm/", "decoder.layer_norm."),
+    (r"/", "."),
+]
+# A bare Wav2Vec2Model's flax-layout names → fairseq HuBERT's.
+FAIRSEQ_HUBERT_NAMES = [
+    (r"^feature_extractor/conv(\d+)/", r"feature_extractor.conv_layers.\1.0."),
+    (r"^feature_extractor/group_norm/", "feature_extractor.conv_layers.0.2."),
+    (r"^feature_projection_norm/", "layer_norm."),
+    (r"^feature_projection/", "post_extract_proj."),
+    (r"^masked_spec_embed$", "mask_emb"),
+    (r"^pos_conv/conv/", "encoder.pos_conv.0."),
+    (r"^encoder_norm/", "encoder.layer_norm."),
+    (r"^layer(\d+)/attention/", r"encoder.layers.\1.self_attn."),
+    (r"^layer(\d+)/layer_norm/", r"encoder.layers.\1.self_attn_layer_norm."),
+    (r"^layer(\d+)/intermediate_dense/", r"encoder.layers.\1.fc1."),
+    (r"^layer(\d+)/output_dense/", r"encoder.layers.\1.fc2."),
+    (r"^layer(\d+)/", r"encoder.layers.\1."),
+    (r"/", "."),
+]
+
+
+def fairseq_flagship_state(model):
+    """``model``'s parameters under a fairseq ``mm_s2ut_transformer``
+    checkpoint's names, with the tied output projection and the buffers
+    fairseq keeps beside them."""
+    from mm_s2ut_torch.convert import to_flax
+
+    sd = torch_names(to_flax(model), FAIRSEQ_FLAGSHIP_NAMES)
+    sd["decoder.output_projection.weight"] = sd["decoder.embed_tokens.weight"].clone()
+    sd["encoder.version"] = torch.tensor([3.0])
+    sd["decoder.embed_positions._float_tensor"] = torch.zeros(1)
+    return sd
+
+
+def fairseq_hubert_state(model):
+    """A ``Wav2Vec2Model``'s parameters under fairseq HuBERT's names, the
+    positional conv as weight norm's (g, v) over dim 2, with HuBERT's label
+    embeddings and final projection beside them."""
+    from mm_s2ut_torch.convert import to_flax
+
+    sd = torch_names(to_flax(model), FAIRSEQ_HUBERT_NAMES)
+    w = sd.pop("encoder.pos_conv.0.weight")
+    g = torch.sqrt((w ** 2).sum(dim=(0, 1), keepdim=True))
+    sd["encoder.pos_conv.0.weight_g"], sd["encoder.pos_conv.0.weight_v"] = g, w / g
+    sd["label_embs_concat"] = torch.zeros(504, 256)
+    sd["final_proj.weight"], sd["final_proj.bias"] = torch.zeros(256, 768), torch.zeros(256)
+    return sd
+
+
+def save_fairseq(path: Path, sd, cfg_blob=None):
+    """A fairseq training checkpoint: the weights under ``model`` and what
+    fairseq pickles beside them (an ``argparse.Namespace``, a config class
+    no reader can import, numpy scalars)."""
+    import argparse
+
+    import numpy as np
+
+    torch.save({"model": sd, "args": argparse.Namespace(arch="mm_s2ut_transformer"),
+                "cfg": cfg_blob if cfg_blob is not None else FairseqConfigStandIn(seed=1),
+                "extra_state": {"val_loss": np.float64(3.25), "epoch": np.int64(20)},
+                "optimizer_history": [{"num_updates": 40000}]}, path)
+
+
+def tools_audio(root: Path, n: int, seed: int):
+    """n 2-10 s utterances at 16 kHz in ``root``: every fourth (from the
+    second) FLAC, every fourth (from the fourth) Ogg/Vorbis where the host
+    has libvorbis, the rest wav. Returns (has_ogg, extensions used)."""
+    import numpy as np
+
+    from mm_s2ut_torch.data import flac, ogg
+    from mm_s2ut_torch.data.audio_io import write_wav
+
+    try:
+        ogg._load_enc()
+        has_ogg = ogg.available()
+    except OSError:
+        has_ogg = False
+    rng = np.random.RandomState(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    exts = set()
+    for i in range(n):
+        m = int(rng.uniform(2.0, 10.0) * 16000)
+        t = np.arange(m) / 16000
+        x = (0.3 * np.sin(2 * np.pi * (100 + 300 * rng.rand()) * t)
+             + 0.05 * rng.randn(m)).astype(np.float32)
+        if i % 4 == 1:
+            ext = "flac"
+            (root / f"{i + 1}.flac").write_bytes(
+                flac.encode_flac((np.clip(x, -1, 1) * 32767).astype(np.int16), 16000))
+        elif i % 4 == 3 and has_ogg:
+            ext = "ogg"
+            (root / f"{i + 1}.ogg").write_bytes(ogg.encode_ogg_bytes(x, 16000))
+        else:
+            ext = "wav"
+            write_wav(root / f"{i + 1}.wav", x, 16000)
+        exts.add(ext)
+    return has_ogg, sorted(exts)
+
+
+def near_ties(x: torch.Tensor, centroids: torch.Tensor, rel: float = 1e-5) -> torch.Tensor:
+    """Rows of x whose two nearest centroids (float64 distances) differ by
+    less than ``rel`` of the nearest."""
+    d = torch.cdist(x.double(), centroids.double()) ** 2
+    two = d.topk(2, dim=-1, largest=False).values
+    return (two[:, 1] - two[:, 0]) < rel * two[:, 0].clamp_min(1e-12)
+
+
+def device_share(fn, match) -> tuple:
+    """Run ``fn`` under torch.profiler: (device ms of the kernels whose name
+    contains one of ``match``, the device ms of all kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    total = sum(dev_us(e) for e in kernels)
+    part = sum(dev_us(e) for e in kernels if any(m in e.key for m in match))
+    return part / 1e3, total / 1e3
+
+
+def flagship_model(seed: int):
+    """A full-width flagship (bf16, on the card) with random weights from
+    ``seed``, made decodable (``sharpened_``: hypotheses that run to their
+    budget)."""
+    from mm_s2ut_torch.config import ModelConfig, MultimodalConfig
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+
+    mm = MultimodalConfig(image_feat_dim=[768], multimodal_attention_type="selective_attention",
+                          use_selective_gate=True, modality_dropout=0.5, audio_dropout=0.5)
+    model = init_random_(MMS2UTModel(ModelConfig(vocab_size=1004, dtype="bfloat16",
+                                                 multimodal=mm)),
+                         torch.Generator().manual_seed(seed))
+    return sharpened_(model).to("cuda").eval()
+
+
+def phase_prep_data(root: Path):
+    """Phase 22a: ``cli.prep_data`` at full width. 16 utterances of 2-10 s
+    (wav, FLAC and, where the host has libvorbis, Ogg); ``manifest`` per
+    extension, merged; a random HuBERT-base (12 x 768, 12 heads) written as
+    an HF directory; 1000 centroids from ``kmeans_plusplus_init`` + 5 Lloyd
+    steps on the card over its layer-11 features; ``quantize`` on the card
+    and on the CPU (units equal but at near-ties, each checked); the same
+    encoder as a fairseq HuBERT through ``convert_checkpoint --kind hubert``
+    and ``quantize`` again (the same units); then ``prep-s2ut``. Timed in
+    process: seconds of audio per second, A's and k-means' shares,
+    ``kmeans_assign`` at 8192 x 1000 x 768. Returns A's launches in the
+    card's quantize."""
+    import numpy as np
+
+    from mm_s2ut_torch.cli import convert_checkpoint, prep_data
+    from mm_s2ut_torch.data.audio_io import get_waveform
+    from mm_s2ut_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.ops import kmeans
+
+    # fp32 without TF32 on the card while its units are held to the CPU's.
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    has_ogg, exts = tools_audio(root / "audio", 16, seed=22)
+    print(f"phase 22a: libvorbisfile/libvorbisenc on this host: {has_ogg}; audio as {exts}")
+    rows = []
+    for ext in exts:
+        prep_data.main(["manifest", "--root", str(root / "audio"), "--ext", ext,
+                        "--dest", str(root / f"src_{ext}.tsv")])
+        rows += (root / f"src_{ext}.tsv").read_text().splitlines()[1:]
+    rows.sort(key=lambda r: int(r.split(".")[0]))
+    (root / "src.tsv").write_text("\n".join([str(root / "audio")] + rows) + "\n")
+    assert len(rows) == 16, rows
+
+    w2v_cfg = Wav2Vec2Config()  # HuBERT-base's geometry
+    encoder = init_random_(Wav2Vec2Model(w2v_cfg), torch.Generator().manual_seed(22))
+    write_hf_dir(root / "hubert", encoder, w2v_cfg)
+    cfg, model = prep_data.load_encoder(root / "hubert")
+    model = model.cuda()
+    audio_root, entries = prep_data.read_manifest_entries(root / "src.tsv")
+    wavs = [get_waveform(str(audio_root / e[0]), use_sample_rate=16000)[0] for e in entries]
+    assert [len(w) for w in wavs] == [int(e[1]) for e in entries]
+    batches = [wavs[i : i + 8] for i in range(0, 16, 8)]
+    with torch.no_grad():
+        feats = []
+        for b in batches:
+            batch, lens = prep_data.padded(b)
+            h = model(torch.from_numpy(batch).cuda(), torch.from_numpy(lens).cuda())[
+                "hidden_states"][11]
+            feats += [h[i, : cfg.feature_lengths(int(n))] for i, n in enumerate(lens)]
+        pool = torch.cat(feats)
+        init = kmeans.kmeans_plusplus_init(pool, 1000, torch.Generator().manual_seed(23))
+        centroids, inertia = kmeans.kmeans_fit(pool, init, 5)
+    inertia = inertia.tolist()
+    assert inertia[-1] <= inertia[0] and torch.isfinite(centroids).all(), inertia
+    np.save(root / "km1000.npy", centroids.cpu().numpy())
+    print(f"phase 22a: {pool.shape[0]} layer-11 frames; k-means++ init and 5 Lloyd steps on the "
+          f"card, inertia {inertia[0]:.4g} -> {inertia[-1]:.4g}")
+
+    quantize = ["quantize", "--manifest", str(root / "src.tsv"), "--km-path",
+                str(root / "km1000.npy"), "--layer", "11", "--batch-size", "8"]
+    _, card_s, launches = counted({"A": A.flash_attention}, lambda: prep_data.main(
+        quantize + ["--hubert-model", str(root / "hubert"), "--dest", str(root / "units_card.txt")]))
+    assert launches["A"] == 2 * 12, launches  # 12 layers, two batches
+    _, cpu_s = timed(lambda: prep_data.main(
+        quantize + ["--hubert-model", str(root / "hubert"), "--dest", str(root / "units_cpu.txt"),
+                    "--device", "cpu"]))
+    card = (root / "units_card.txt").read_text().splitlines()
+    cpu = (root / "units_cpu.txt").read_text().splitlines()
+    assert len(card) == len(cpu) == 16
+    differ = ties = frames = 0
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        a, b = np.array(a.split(), int), np.array(b.split(), int)
+        assert len(a) == len(b) == feats[i].shape[0], (i, len(a), len(b))
+        frames += len(a)
+        rows_differ = torch.from_numpy(a != b).cuda()
+        differ += int(rows_differ.sum())
+        ties += int((near_ties(feats[i], centroids) & rows_differ).sum())
+    print(f"phase 22a: prep_data quantize (HF dir) on the card {card_s:.2f} s and the CPU "
+          f"{cpu_s:.2f} s: {frames} frames, {differ} differ, {ties} of them near-ties "
+          f"(the two nearest centroids within 1e-5 relative); A launched {launches['A']} times")
+    assert differ == ties, (differ, ties)
+
+    # The same encoder as a fairseq HuBERT checkpoint → convert → quantize.
+    save_fairseq(root / "mhubert.pt", fairseq_hubert_state(encoder), cfg_blob={"model": {
+        "encoder_embed_dim": 768, "encoder_attention_heads": 12, "encoder_ffn_embed_dim": 3072,
+        "conv_feature_layers": "[(512, 10, 5)] + [(512, 3, 2)] * 4 + [(512, 2, 2)] * 2",
+        "extractor_mode": "default", "layer_norm_first": False, "conv_pos": 128,
+        "conv_pos_groups": 16}})
+    convert_checkpoint.main(["--kind", "hubert", "--fairseq-ckpt", str(root / "mhubert.pt"),
+                             "--out", str(root / "mhubert")])
+    prep_data.main(quantize + ["--hubert-model", str(root / "mhubert"),
+                               "--dest", str(root / "units_fairseq.txt")])
+    via_fairseq = (root / "units_fairseq.txt").read_text().splitlines()
+    same = sum(x == y for x, y in zip(via_fairseq, card))
+    print(f"phase 22a: the same encoder as a fairseq HuBERT .pt, convert_checkpoint --kind hubert, "
+          f"quantize: {same}/16 lines equal the HF directory's")
+    # weight norm's g·v/‖v‖ folds back to the weight within an ulp or so,
+    # so a frame may move only where it is a near-tie.
+    for x, y, f in zip(via_fairseq, card, feats):
+        x, y = np.array(x.split(), int), np.array(y.split(), int)
+        assert (near_ties(f, centroids)[torch.from_numpy(x != y).cuda()]).all()
+
+    units = [list(map(int, l.split())) for l in card]
+    prep_data.main(["prep-s2ut", "--src-manifest", str(root / "src.tsv"), "--tgt-units",
+                    str(root / "units_card.txt"), "--split", "train", "--output-root",
+                    str(root / "s2ut"), "--reduce-unit"])
+    tsv = (root / "s2ut" / "train.tsv").read_text().splitlines()
+    assert len(tsv) == 17 and int(tsv[1].split("\t")[4]) == len(kmeans.dedup_units(units[0]))
+
+    # Timed in process on the decoded waves (no file decoding, no model
+    # load), with the run's TF32 settings back.
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    quant = kmeans.KMeansQuantizer(centroids.cpu().numpy())
+    prep_data.quantize_batch(model, cfg, quant, batches[0], 11)  # warm-up
+    _, total_s = timed(lambda: [prep_data.quantize_batch(model, cfg, quant, b, 11)
+                                for b in batches])
+    km_s = 0.0
+    for b in batches:
+        batch, lens = prep_data.padded(b)
+        with torch.no_grad():
+            h = model(torch.from_numpy(batch).cuda(), torch.from_numpy(lens).cuda())[
+                "hidden_states"][11]
+        units, secs = timed(lambda: quant(h))
+        assert units.device == h.device, units.device  # the quantizer follows its features
+        km_s += secs
+    a_ms, dev_ms = device_share(lambda: [prep_data.quantize_batch(model, cfg, quant, b, 11)
+                                         for b in batches], ("flash_fwd_kernel",))
+    audio_s = sum(len(w) for w in wavs) / 16000
+    x = torch.randn(8192, 768, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
+    assign_ms = time_ms(lambda: kmeans.kmeans_assign(x, centroids))
+    print(f"phase 22a: quantize of {audio_s:.2f} s of audio (2 batches of 8, fp32): "
+          f"{total_s * 1e3:.2f} ms, {audio_s / total_s:.1f} s of audio per s; k-means "
+          f"{km_s * 1e3:.3f} ms ({km_s / total_s:.1%} of the wall); profiled: A (fp32) "
+          f"{a_ms:.3f} of {dev_ms:.3f} device ms ({a_ms / dev_ms:.1%}); kmeans_assign "
+          f"8192 x 1000 x 768 {assign_ms:.4f} ms")
+    return launches["A"]
+
+
+def phase_convert_flagship(root: Path):
+    """Phase 22b: ``convert_checkpoint --kind mm_s2ut`` on a full-width
+    flagship (12 + 6 layers, 512-d, vocab 1004, fusion over 768-d
+    features) written by ``torch.save`` in fairseq's names with fairseq's
+    extras; the converted directory loaded by ``inference.load_model``
+    gives the logits of the model it came from, bit for bit."""
+    from mm_s2ut_torch.cli import convert_checkpoint
+    from mm_s2ut_torch.config import Config, ModelConfig, MultimodalConfig, save_yaml
+    from mm_s2ut_torch.inference import load_model
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+
+    mm = MultimodalConfig(image_feat_dim=[768], multimodal_attention_type="selective_attention",
+                          use_selective_gate=True, image_pre_norm=True)
+    cfg = ModelConfig(vocab_size=1004, dtype="bfloat16", multimodal=mm)
+    model = init_random_(MMS2UTModel(cfg), torch.Generator().manual_seed(221))
+    root.mkdir(parents=True, exist_ok=True)
+    save_fairseq(root / "checkpoint_best.pt", fairseq_flagship_state(model))
+    save_yaml(Config(model=cfg), root / "run.yaml")
+    _, secs = timed(lambda: convert_checkpoint.main([
+        "--kind", "mm_s2ut", "--fairseq-ckpt", str(root / "checkpoint_best.pt"),
+        "--config", str(root / "run.yaml"), "--out", str(root / "model")]))
+    _, loaded = load_model(str(root / "model"), torch.device("cuda"))
+    model = model.to("cuda").eval()
+    g = torch.Generator().manual_seed(222)
+    feats = torch.randn(2, 400, 80, generator=g).cuda()
+    lens = torch.tensor([400, 300]).cuda()
+    prev = torch.randint(4, 1004, (2, 30), generator=g).cuda()
+    imgs = [torch.randn(2, 577, 768, generator=g).cuda()]
+    masks = [torch.zeros(2, 577, dtype=torch.bool).cuda()]
+    with torch.no_grad():
+        want = model(feats, lens, prev, imgs, masks)["logits"]
+        got = loaded(feats, lens, prev, imgs, masks)["logits"]
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+    n = sum(p.numel() for p in model.parameters())
+    print(f"phase 22b: convert_checkpoint --kind mm_s2ut on a fairseq flagship .pt "
+          f"({n / 1e6:.1f} M params, bf16, Namespace + config stub + numpy scalars beside the "
+          f"weights) in {secs:.2f} s; the loaded directory's logits equal the source model's "
+          f"bit for bit ({tuple(got.shape)})")
+    del model, loaded
+    torch.cuda.empty_cache()
+
+
+def xm_checkpoints(root: Path, seeds, heads=None):
+    """Small fp32 XM checkpoints (config.yaml + params.npz), one per seed,
+    over phase 18's S2T corpus in ``root``. Returns (rows, dirs)."""
+    import dataclasses
+
+    import numpy as np
+
+    from mm_s2ut_torch.config import Config, GenerationConfig
+    from mm_s2ut_torch.convert import to_flax
+    from mm_s2ut_torch.models.mm_xm import MMXMTransformerModel
+
+    rows, symbols = s2t_corpus(root, ("test",), 6, seed=18)
+    dirs = []
+    for seed in seeds:
+        mcfg = xm_config(dtype="float32", small=True)
+        mcfg.vocab_size = len(symbols) + 4
+        mcfg.multimodal.image_feat_path = [str(root / "img")]
+        cfg = Config(task="multimodal_speech_to_text", model=mcfg, data=s2t_data_config(root),
+                     generation=GenerationConfig(beam=5, max_len_a=0.0, max_len_b=20))
+        model = sharpened_(init_random_(MMXMTransformerModel(mcfg),
+                                        torch.Generator().manual_seed(seed)),
+                           eos=len(symbols) + 3)
+        d = root / f"model{seed}"
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "config.yaml").write_text(json.dumps(dataclasses.asdict(cfg)))
+        np.savez(d / "params.npz", **to_flax(model))
+        dirs.append(str(d))
+    return rows, dirs
+
+
+def phase_ensemble(root: Path):
+    """Phase 22c: the logit ensemble. ``cli.generate --model_path a:b`` on
+    phase 18's corpus with two small fp32 XM checkpoints, the bf16 and the
+    int8 cache, on the card and with ``--device cpu`` (TF32 off): the same
+    D- lines. Then two full-width flagships (bf16) over 8 utterances, beam
+    10, 200 units, bf16 then int8 cache: ms per decode step of the pair
+    against the first alone, and B, C / D, E launches per step. Returns
+    the pair's launches over both caches."""
+    from mm_s2ut_torch.cli import generate
+    from mm_s2ut_torch.config import GenerationConfig
+    from mm_s2ut_torch.infer.generator import UnitGenerator
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.ops import decode_attention as D
+    from mm_s2ut_torch.ops.fbank import FbankConfig, waveform_frontend
+
+    rows, dirs = xm_checkpoints(root / "small", (181, 182))
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for kv in ("bfloat16", "int8"):
+        lines = {}
+        for dev in ("cuda", "cpu"):
+            out = root / "small" / f"{kv}_{dev}"
+            generate.main(["--model_path", ":".join(dirs), "--gen-subset", "test",
+                           "--results-path", str(out), "--kv-cache-dtype", kv, "--device", dev])
+            lines[dev] = [l for l in (out / "generate-test.txt").read_text().splitlines()
+                          if l.startswith("D-")]
+        assert len(lines["cuda"]) == len(rows) and all(l.split("\t")[2] for l in lines["cuda"])
+        assert [l.split("\t")[2] for l in lines["cuda"]] == \
+            [l.split("\t")[2] for l in lines["cpu"]], f"{kv}: the card's D- lines differ"
+        worst = max(abs(float(a.split("\t")[1]) - float(b.split("\t")[1]))
+                    for a, b in zip(lines["cuda"], lines["cpu"]))
+        print(f"phase 22c: cli.generate --model_path a:b (two small XM), {kv} cache: D- lines "
+              f"equal on the card and the CPU, scores max|diff| {worst:.1e}; e.g. "
+              f"{lines['cuda'][0]!r}")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    members = [flagship_model(222), flagship_model(223)]
+    wav, lens, imgs = synthetic_batch(8, torch.Generator().manual_seed(224))
+    feats, flens = waveform_frontend(wav.cuda(), lens.cuda(), FbankConfig())
+    imgs, masks = [imgs.cuda()], [torch.zeros(imgs.shape[:2], dtype=torch.bool).cuda()]
+    counters = {"A": A.flash_attention, "B": D.ancestry_decode_attention,
+                "C": D.cross_decode_attention, "D": D.ancestry_decode_attention_i8,
+                "E": D.cross_decode_attention_i8}
+    L = members[0].cfg.decoder_layers
+    totals = {k: 0 for k in counters}
+    for kv in (None, "int8"):
+        gcfg = GenerationConfig(beam=10, max_len_a=0.0, max_len_b=200, kv_cache_dtype=kv)
+        cross = "C" if kv is None else "E"
+        result = {}
+        for n in (1, 2, 2, 1):  # alternated
+            gen = UnitGenerator(members[:n], gcfg)
+            gen.generate(feats[:2, :200], flens[:2].clamp(max=200), [i[:2] for i in imgs],
+                         [m[:2] for m in masks])  # warm-up
+            with torch.no_grad():
+                _, enc_s = timed(lambda: [m.encode(feats, flens, imgs, masks) for m in members[:n]])
+            hyps, secs, launches = counted(counters, lambda: timed(
+                lambda: gen.generate(feats, flens, imgs, masks))[0])
+            torch.cuda.synchronize()
+            check_xm_outputs(hyps, 8, 10, 1004)
+            steps = launches[cross] // (L * n)
+            assert launches[cross] == steps * L * n and steps > 0, launches
+            self_k = "B" if kv is None else "D"
+            assert launches[self_k] == launches[cross], launches
+            result.setdefault(n, []).append((secs - enc_s) * 1e3 / steps)
+            if n == 2:
+                per = {k: launches[k] / steps for k in (self_k, cross)}
+                for k in counters:
+                    totals[k] += launches[k]
+        print(f"phase 22c: flagship bf16 x 8 utts, beam 10, 200 units, {kv or 'bf16'} cache: "
+              f"{steps} steps; ms per step (search alone, encode subtracted) one model "
+              f"{result[1]}, the pair {result[2]}; the pair's launches per step {per} "
+              f"({L} layers x 2 members)")
+    del members
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_vocode(root: Path):
+    """Phase 22d: ``cli.vocode --dur-prediction`` (a random CodeHiFiGAN at its
+    default config, in fairseq's format) on 16 unit lines of 50-150 units
+    at the reference's fixed budget, 8·(longest)+16 frames, and
+    ``vocode_bucketed`` (256/512/1024) on the same batch: the same sample
+    counts, and the waves within 2e-2 (the batch shapes differ, so cuDNN
+    may pick other algorithms: TF32 and another summation order) away from
+    the bucket's last 32 frames, where the generator's convs see the
+    bucket's edge instead of more padding; ms of each."""
+    import dataclasses
+
+    import numpy as np
+
+    from mm_s2ut_torch.cli import vocode
+    from mm_s2ut_torch.data.audio_io import get_waveform
+    from mm_s2ut_torch.models.hifigan import CodeHiFiGAN, HiFiGANConfig, vocode_bucketed
+
+    root.mkdir(parents=True, exist_ok=True)
+    vcfg = HiFiGANConfig()
+    vocoder = init_random_(CodeHiFiGAN(vcfg), torch.Generator().manual_seed(225))
+    torch.save(fairseq_vocoder_state(vocoder), root / "vocoder.pt")
+    (root / "vocoder.json").write_text(json.dumps(dataclasses.asdict(vcfg)))
+    rng = np.random.RandomState(226)
+    seqs = [rng.randint(0, 1000, int(rng.randint(50, 151))).tolist() for _ in range(16)]
+    (root / "test.unit").write_text("".join(" ".join(map(str, s)) + "\n" for s in seqs))
+    _, cli_s = timed(lambda: vocode.main([
+        "--in-code-file", str(root / "test.unit"), "--vocoder", str(root / "vocoder.pt"),
+        "--vocoder-cfg", str(root / "vocoder.json"), "--results-path", str(root / "tts"),
+        "--dur-prediction"]))
+    L = max(len(s) for s in seqs)
+    units = torch.zeros(16, L, dtype=torch.long)
+    for i, s in enumerate(seqs):
+        units[i, : len(s)] = torch.tensor(s)
+    units, lens = units.cuda(), torch.tensor([len(s) for s in seqs]).cuda()
+    vocoder = vocoder.cuda().eval()
+    vocoder.max_frames = 8 * L + 16
+    fixed = lambda: vocoder(units, lens)  # noqa: E731
+    bucketed = lambda: vocode_bucketed(vocoder, units, lens)  # noqa: E731
+    (want, want_n), (got, got_n) = fixed(), bucketed()
+    fixed_ms, bucket_ms = time_ms(fixed, 5), time_ms(bucketed, 5)
+    need = int(vocoder.unit_durations(units, lens).sum(1).max())
+    bucket = next((b for b in (256, 512, 1024) if b >= need), 1024)
+    hop = vcfg.hop_length
+    assert torch.equal(got_n, want_n) and got.shape[1] == 1024 * hop
+    worst_file = worst = 0.0
+    for i in range(16):
+        n = int(got_n[i])
+        m = min(n, (bucket - 32) * hop)
+        worst = max(worst, (got[i, :m] - want[i, :m]).abs().max().item())
+        written, _ = get_waveform(str(root / "tts" / f"{i}_pred.wav"))
+        assert len(written) == n
+        worst_file = max(worst_file, float(np.abs(written[:m] - got[i, :m].cpu().numpy()).max()))
+    print(f"phase 22d: cli.vocode --dur-prediction, 16 lines of 50-150 units, {cli_s:.2f} s; "
+          f"batch of 16 at the fixed budget ({8 * L + 16} frames) {fixed_ms:.3f} ms, "
+          f"vocode_bucketed ({need} frames needed -> the {bucket} bucket) {bucket_ms:.3f} ms; "
+          f"max|diff| {worst:.2e} in memory, {worst_file:.2e} against the CLI's 16-bit files "
+          f"(tol 2e-2)")
+    assert worst <= 2e-2 and worst_file <= 2e-2 + 2 / 32768, (worst, worst_file)
+    return root / "vocoder.pt", root / "vocoder.json"
+
+
+def phase_inference_all(root: Path, vocoder_pt: Path, vocoder_json: Path):
+    """Phase 22e: ``cli.inference_all``. Units mode over one subset: the
+    full-width flagship (bf16, exported as config.yaml + params.npz) on 8
+    utterances of 1-4 s with 577x768 image features, beam 10, 50 units,
+    phase 22d's vocoder, a random wav2vec2-base CTC model as the ASR; then
+    the references set to the transcripts (BLEU 100 by construction) and
+    the chain rerun with ``MM_PARITY_CANARY=offset1:mod1000``: at most half
+    the reference words may stay matched. Text mode on phase 22c's small XM
+    checkpoint, the references set to its hypotheses, then the canary
+    ``droptok``: each hypothesis loses its first word and BLEU falls. Wall
+    seconds per subset."""
+    import dataclasses
+    import os
+
+    import numpy as np
+
+    from mm_s2ut_torch.cli import inference_all
+    from mm_s2ut_torch.config import Config, DataConfig, GenerationConfig
+    from mm_s2ut_torch.convert import to_flax
+    from mm_s2ut_torch.eval.bleu import corpus_asr_bleu, score_from_files
+    from mm_s2ut_torch.models.hifigan import CodeHiFiGAN, HiFiGANConfig, load_fairseq_checkpoint
+    from mm_s2ut_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2ForCTC
+
+    small_corpus(root, 8, seed=227, img_dim=768, img_tokens=577, n_valid=8)
+    model = flagship_model(227)
+    cfg = Config(model=model.cfg, data=DataConfig(data_root=str(root), audio_root=str(root),
+                                                  max_tokens=4000, num_buckets=1),
+                 generation=GenerationConfig(beam=10, max_len_a=0.0, max_len_b=50))
+    cfg.model.multimodal.image_feat_path = [str(root / "img_feat")]
+    (root / "model").mkdir(parents=True, exist_ok=True)
+    (root / "model" / "config.yaml").write_text(json.dumps(dataclasses.asdict(cfg)))
+    np.savez(root / "model" / "params.npz", **to_flax(model))
+    del model
+    torch.cuda.empty_cache()
+    letters = ["<pad>", "<s>", "</s>", "<unk>", "|"] + list("etaoinshrdlcumwfgypbvk")
+    w2v = Wav2Vec2Config(vocab_size=len(letters))  # wav2vec2-base's geometry
+    asr = init_random_(Wav2Vec2ForCTC(w2v), torch.Generator().manual_seed(228)).eval()
+    # Random weights would mostly emit the CTC blank: rule it out, and
+    # raise the word delimiter's bias by the 35% quantile of its gap to the
+    # best letter on this vocoder's waves as eval.asr feeds them
+    # (standardized per utterance). On the H100 each transcript still came
+    # out as one letter, so BLEU is 0 even against itself: the canary check
+    # below counts matched reference words instead of reading the score.
+    vcfg = HiFiGANConfig.from_json(vocoder_json)
+    vocoder = CodeHiFiGAN(vcfg, max_frames=400)
+    vocoder.load_state_dict(load_fairseq_checkpoint(vocoder_pt, vcfg))
+    with torch.no_grad():
+        units = torch.randint(0, 1000, (4, 50), generator=torch.Generator().manual_seed(229))
+        wave, n = vocoder.to("cuda").eval()(units.to("cuda"))
+        valid = (torch.arange(wave.shape[1], device=wave.device)[None] < n[:, None]).float()
+        mean = (wave * valid).sum(1, keepdim=True) / n[:, None]
+        var = (((wave - mean) * valid) ** 2).sum(1, keepdim=True) / n[:, None]
+        wave = (wave - mean) * torch.rsqrt(var + 1e-7) * valid
+        out = asr.to("cuda")(wave, n)["logits"]
+        logits = torch.cat([o[:f] for o, f in zip(out, w2v.feature_lengths(n).tolist())])
+        asr.lm_head.bias[0] -= 1e4
+        gap = logits[:, 5:].max(-1).values - logits[:, 4]
+        asr.lm_head.bias[4] += torch.quantile(gap.float(), 0.35)
+    write_hf_dir(root / "asr", asr.cpu(), w2v, letters)
+    del vocoder
+    refs = root / "refs"
+    refs.mkdir(exist_ok=True)
+    (refs / "valid.txt").write_text("placeholder\n" * 8)
+    units = ["--model_path", str(root / "model"), "--subsets", "valid", "--vocoder",
+             str(vocoder_pt), "--vocoder-cfg", str(vocoder_json), "--asr-model", str(root / "asr"),
+             "--reference-root", str(refs), "--beam", "10"]
+    _, secs = timed(lambda: inference_all.main(units + ["--results-root", str(root / "clean")]))
+    out = root / "clean" / "valid"
+    for name in ("generate-valid.txt", "valid.unit", "transcript.txt", "bleu.txt"):
+        assert (out / name).exists(), name
+    assert len(list((out / "tts").glob("*_pred.wav"))) == 8
+    (refs / "valid.txt").write_text((out / "transcript.txt").read_text())
+    clean = score_from_files(out / "transcript.txt", refs / "valid.txt")
+    os.environ["MM_PARITY_CANARY"] = "offset1:mod1000"
+    try:
+        _, canary_s = timed(lambda: inference_all.main(units + ["--results-root",
+                                                                str(root / "canary")]))
+    finally:
+        del os.environ["MM_PARITY_CANARY"]
+    fault = score_from_files(root / "canary" / "valid" / "transcript.txt", refs / "valid.txt")
+    assert str(fault) == (root / "canary" / "valid" / "bleu.txt").read_text().strip()
+    print(f"phase 22e: inference_all --mode units over 'valid' (8 utterances, flagship bf16, "
+          f"beam 10, 50 units; vocode; wav2vec2-base CTC ASR) {secs:.2f} s; transcript[0] "
+          f"{(out / 'transcript.txt').read_text().splitlines()[0][:40]!r}; references := the "
+          f"transcripts: {clean}; with MM_PARITY_CANARY=offset1:mod1000 ({canary_s:.2f} s): "
+          f"{fault}")
+    # The references are the clean run's transcripts, so every reference
+    # word is matched there; the canary's shifted units must leave at most
+    # half of them matched (BLEU's clipped unigram counts over the
+    # reference length), and its BLEU no higher.
+    assert clean.counts[0] == clean.ref_len > 0, clean
+    assert fault.counts[0] <= clean.ref_len / 2 and fault.score <= clean.score, (clean, fault)
+
+    small = root.parent / "ensemble" / "small"
+    (refs / "test.txt").write_text("placeholder\n" * 6)
+    text = ["--mode", "text", "--model_path", str(small / "model181"), "--subsets", "test",
+            "--reference-root", str(refs), "--beam", "5"]
+    _, text_s = timed(lambda: inference_all.main(text + ["--results-root", str(root / "text")]))
+    hyps = (root / "text" / "test" / "hyp.txt").read_text().splitlines()
+    (refs / "test.txt").write_text("".join(h + "\n" for h in hyps))
+    os.environ["MM_PARITY_CANARY"] = "droptok"
+    try:
+        inference_all.main(text + ["--results-root", str(root / "text_canary")])
+    finally:
+        del os.environ["MM_PARITY_CANARY"]
+    clean_t = corpus_asr_bleu(hyps, hyps, clean=False)
+    dropped = (root / "text_canary" / "test" / "hyp.txt").read_text().splitlines()
+    fault_t = corpus_asr_bleu(dropped, hyps, clean=False)
+    assert str(fault_t) == (root / "text_canary" / "test" / "bleu.txt").read_text().strip()
+    print(f"phase 22e: inference_all --mode text over 'test' (small XM, 6 utterances) "
+          f"{text_s:.2f} s; hyp[0] {hyps[0]!r}; references := the hypotheses: {clean_t}; with "
+          f"MM_PARITY_CANARY=droptok: {fault_t}")
+    # Every hypothesis lost exactly its first word, and BLEU fell.
+    assert [d.split() for d in dropped] == [h.split()[1:] for h in hyps]
+    assert fault_t.score < clean_t.score, (clean_t, fault_t)
+
+
+def phase_native_loader(root: Path):
+    """Phase 22f: the native loader (``csrc/audioio.cpp``, built with the
+    host compiler at first use) on 16 wavs of 2-10 s against the Python
+    decoder: bit-equal, with each one's ms."""
+    import numpy as np
+
+    from mm_s2ut_torch import native
+    from mm_s2ut_torch.data.audio_io import get_waveform, write_wav
+
+    rng = np.random.RandomState(230)
+    root.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for i in range(16):
+        m = int(rng.uniform(2.0, 10.0) * 16000)
+        paths.append(str(root / f"{i + 1}.wav"))
+        write_wav(paths[-1], (0.3 * rng.randn(m)).astype(np.float32).clip(-1, 1), 16000)
+    fresh = not native.library_path().exists()
+    _, build_s = timed(native.library)
+    S = 160000
+    native.load_batch(paths, S)
+    t0 = time.perf_counter()
+    got, lens, rates = native.load_batch(paths, S)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = np.zeros((16, S), np.float32)
+    for i, p in enumerate(paths):
+        w = get_waveform(p)[0]
+        want[i, : len(w)] = w
+    python_ms = (time.perf_counter() - t0) * 1e3
+    assert (rates == 16000).all() and np.array_equal(got, want)
+    print(f"phase 22f: native loader {'built' if fresh else 'loaded'} in {build_s:.2f} s; "
+          f"load_batch of 16 wavs ({lens.sum() / 16000:.1f} s of audio) {native_ms:.2f} ms "
+          f"against the Python decoder's {python_ms:.2f} ms, bit for bit equal")
+
+
+def phase_tools(out_dir: Path):
+    """Phase 22: the textless pipeline's tools (22a-22f). Returns the
+    launches of A (quantize's fp32 and the ensemble's bf16 encodes) and of
+    B-E (the full-width ensemble's decodes)."""
+    root = out_dir / "tools"
+    t0 = time.perf_counter()
+    a_quantize = phase_prep_data(root / "prep")
+    phase_convert_flagship(root / "convert")
+    launches = phase_ensemble(root / "ensemble")
+    launches["A"] += a_quantize
+    vocoder_files = phase_vocode(root / "vocode")
+    phase_inference_all(root / "eval", *vocoder_files)
+    phase_native_loader(root / "native")
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
+
+
 KERNELS = {  # name, source (of the bf16 instance the record times), the TPU kernel it replaces
     "A": ("flash_attention", "mm_s2ut_torch/csrc/flash_attention_mma.cu",
           "mm_s2ut/ops/attention.py:140"),
@@ -3868,13 +4604,15 @@ def main(argv=None) -> int:
     image_launches = phase_image_path(Path(args.out))
     train_launches = phase_train_speech_encoders(Path(args.out), plain_step_ms)
     vit_train_launches = phase_train_through_images(Path(args.out))
+    tools_launches = phase_tools(Path(args.out))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "xm_launches": xm_launches.get(k, 0),
          "image_launches": image_launches.get(k, 0),
          "train_launches": train_launches.get(k, 0),
-         "vit_train_launches": vit_train_launches.get(k, 0), **record[k]}
+         "vit_train_launches": vit_train_launches.get(k, 0),
+         "tools_launches": tools_launches.get(k, 0), **record[k]}
         for k, (name, src, rep) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
-"""PCM/float RIFF-WAVE read and write (numpy only).
+"""Waveform read and write without libsndfile (numpy only).
 
-A copy of the wav part of ``mm_s2ut/data/audio_io.py``: importing that
-module would import the ``mm_s2ut`` package, which imports JAX. FLAC and
-Ogg decoding are not carried over; ``get_waveform`` reads ``.wav`` and
-``.npy`` files.
+A copy of ``mm_s2ut/data/audio_io.py``'s readers: importing that module
+would import the ``mm_s2ut`` package, which imports JAX.
+``get_waveform`` reads ``.npy`` files and, by their first bytes, FLAC
+(``data/flac.py``), Ogg/Vorbis (``data/ogg.py``, through the system's
+libvorbisfile) and RIFF/WAVE (PCM 8/16/24/32, IEEE float).
 """
 from __future__ import annotations
 
@@ -72,7 +73,8 @@ def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
 def get_waveform(
     path: str, *, use_sample_rate: Optional[int] = None
 ) -> Tuple[np.ndarray, int]:
-    """Load a mono waveform in [-1, 1] from ``.wav`` or ``.npy``."""
+    """Load a mono waveform in [-1, 1] from ``.npy``, FLAC, Ogg/Vorbis or
+    RIFF/WAVE; without libvorbisfile an Ogg file raises ``ValueError``."""
     path = str(path)
     if path.endswith(".npy"):
         x = np.load(path).astype(np.float32)
@@ -80,7 +82,22 @@ def get_waveform(
             x = x[:, None]
         sr = use_sample_rate or 16000
     else:
-        x, sr = decode_wav_bytes(Path(path).read_bytes())
+        data = Path(path).read_bytes()
+        if data[:4] == b"fLaC":
+            from mm_s2ut_torch.data.flac import decode_flac_bytes
+
+            x, sr = decode_flac_bytes(data)
+        elif data[:4] == b"OggS":
+            from mm_s2ut_torch.data import ogg
+
+            if not ogg.available():
+                raise ValueError(
+                    f"{path}: no libvorbisfile on this host; convert to wav "
+                    "or flac offline (e.g. ffmpeg -i in.ogg -ar 16000 out.wav)"
+                )
+            x, sr = ogg.decode_ogg_bytes(data)
+        else:
+            x, sr = decode_wav_bytes(data)
     if x.shape[1] > 1:
         x = x.mean(axis=1, keepdims=True)
     if use_sample_rate is not None and sr != use_sample_rate:

@@ -16,9 +16,11 @@ and the target speaker embeddings of ``data.target_speaker_embed``
 (``data.noise``: the clips of ``noise_wav_dir/*.wav`` in sorted order, each
 draw from the dataset's own ``np.random.RandomState(seed)`` in the
 reference's order, so the mixed waves equal its bit for bit). Waveforms
-stay waveforms: the task's device fbank turns them into log-mels. Not
-carried over: the native C++ loader, which the reference skips too when
-noise mixing is on.
+stay waveforms: the task's device fbank turns them into log-mels.
+``collate_native`` decodes a batch's wavs with the native C++ loader
+(``mm_s2ut_torch/native.py``) straight into the padded buffer, where the
+reference's does: not with noise mixing on, a non-wav source or a rate
+that needs resampling.
 """
 from __future__ import annotations
 
@@ -170,14 +172,23 @@ class SpeechToSpeechDataset:
             tgt_lang_tag = self.lang_tag_index(row.tgt_lang)
         return target, tgt_lang_tag
 
-    def __getitem__(self, index: int) -> S2SItem:
-        row = self.rows[index]
+    def _audio_path(self, row: ManifestRow) -> str:
         path = row.src_audio
         if self.cfg.audio_root and not os.path.isabs(path):
             path = os.path.join(self.cfg.audio_root, path)
-        wav, _ = get_waveform(path, use_sample_rate=self.cfg.sample_rate)
+        return path
+
+    def __getitem__(self, index: int) -> S2SItem:
+        row = self.rows[index]
+        wav, _ = get_waveform(self._audio_path(row), use_sample_rate=self.cfg.sample_rate)
         if self.is_train:
             wav = self._maybe_add_noise(wav.astype(np.float32))
+        item = self._target_item(index, row)
+        item.source = wav.astype(np.float32)
+        return item
+
+    def _target_item(self, index: int, row: ManifestRow) -> S2SItem:
+        """The item without its audio: targets, images, speaker."""
         target, tgt_lang_tag = self._encode_target(row)
         imgs: List[np.ndarray] = []
         masks: List[Optional[np.ndarray]] = []
@@ -190,7 +201,7 @@ class SpeechToSpeechDataset:
         speaker = None
         if self.speaker_embeds is not None and row.id in self.speaker_embeds:
             speaker = np.load(self.speaker_embeds[row.id]).astype(np.float32).reshape(-1)
-        return S2SItem(index, row.id, wav.astype(np.float32), target, tgt_lang_tag, imgs, masks,
+        return S2SItem(index, row.id, np.zeros(0, np.float32), target, tgt_lang_tag, imgs, masks,
                        speaker)
 
     def collate(self, items: Sequence[S2SItem], src_pad: Optional[int] = None,
@@ -207,7 +218,40 @@ class SpeechToSpeechDataset:
             n = min(len(it.source), S)
             src[i, :n] = it.source[:n]
             src_lengths[i] = n
+        batch = self._collate_targets(items, tgt_pad)
+        batch["src_features"] = src  # waveforms; the task's device fbank converts them
+        batch["src_lengths"] = src_lengths
+        return batch
 
+    def collate_native(self, indices: Sequence[int], src_pad: int, tgt_pad: Optional[int],
+                       n_threads: int = 8) -> Optional[Dict[str, np.ndarray]]:
+        """:meth:`collate` of the rows ``indices`` with the wavs decoded by
+        the native loader's thread pool straight into the (B, ``src_pad``)
+        buffer. None where it does not apply, as in the reference: noise
+        mixing on, a source that is not ``.wav``, or a file whose rate is
+        not ``data.sample_rate``; the caller then collates items."""
+        from mm_s2ut_torch import native
+
+        if self.is_train and self.noise_wavs and self.noise_cfg.noise_prob > 0:
+            return None
+        rows = [self.rows[int(i)] for i in indices]
+        paths = [self._audio_path(row) for row in rows]
+        if not all(p.endswith(".wav") for p in paths):
+            return None
+        src, src_lengths, rates = native.load_batch(paths, src_pad, n_threads)
+        if not (rates == self.cfg.sample_rate).all():
+            return None  # needs resampling
+        order = np.argsort(-src_lengths, kind="stable")
+        items = [self._target_item(int(indices[int(i)]), rows[int(i)]) for i in order]
+        batch = self._collate_targets(items, tgt_pad)
+        batch["src_features"] = src[order]
+        batch["src_lengths"] = src_lengths[order].astype(np.int32)
+        return batch
+
+    def _collate_targets(self, items: Sequence[S2SItem],
+                         tgt_pad: Optional[int]) -> Dict[str, np.ndarray]:
+        """Targets, images and speakers of items already in batch order."""
+        B = len(items)
         pad_id, eos_id = self.tgt_dict.pad(), self.tgt_dict.eos()
         nfs = self.n_frames_per_step
         packed = [pack_units(it.target, nfs, len(self.tgt_dict)) for it in items]
@@ -227,8 +271,6 @@ class SpeechToSpeechDataset:
             target_lengths[i] = n
         batch: Dict[str, np.ndarray] = {
             "id": np.asarray([it.index for it in items], np.int64),
-            "src_features": src,  # waveforms; the task's device fbank converts them
-            "src_lengths": src_lengths,
             "prev_output_tokens": prev,
             "target": target,
             "target_lengths": target_lengths,

@@ -1,7 +1,10 @@
 """Batched beam search over a never-reordered, ancestry-indexed KV cache.
 
-Port of ``mm_s2ut/infer/beam_search.py`` for one model, with its prefix
-mode (streaming's prefix-reuse continuation).
+Port of ``mm_s2ut/infer/beam_search.py``, with its prefix mode
+(streaming's prefix-reuse continuation) and its ensemble form: the
+state may be a tuple of per-model states (the logit ensemble of
+``infer/generator.py``), and every piece of cache bookkeeping below
+applies to each member.
 Scoring follows fairseq's SequenceGenerator: candidates from the top 2K,
 hypothesis score Σ log p / length^len_penalty, the length budget forcing
 EOS, and early exit once no alive beam can beat the worst finished one.
@@ -120,8 +123,11 @@ def beam_search(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``decode_step(tokens (N, 1), state) -> (logits (N, V), state)`` with
     N = batch_size·beam_size; ``init_state`` is tiled to N
-    (:func:`tile_state_for_beams`). Returns (sequences (B, K, max_len)
-    padded with pad_id — EOS included — and scores (B, K), best first).
+    (:func:`tile_state_for_beams`), or a tuple of such states that
+    ``decode_step`` takes and returns as a tuple (an ensemble: each
+    member's cache grows, re-packs and records the ancestry alike).
+    Returns (sequences (B, K, max_len) padded with pad_id — EOS included —
+    and scores (B, K), best first).
 
     Prefix mode: ``prefix_tokens`` (B, P) with BOS at position 0,
     ``prefix_len`` (tokens incl. BOS) and ``prefix_logp`` (B,) from
@@ -133,11 +139,14 @@ def beam_search(
     B, K, V = batch_size, beam_size, vocab_size
     if V < 2:
         raise ValueError(f"vocab_size must be >= 2, got {V}")
-    state = init_state
-    kv_full, anc_full = state["self_kv"], state["ancestry"]
-    scales_full = {k: state[k] for k in ("self_kv_sk", "self_kv_sv") if k in state}
-    int4 = is_int4(state)
-    dev = kv_full.device
+    multi = isinstance(init_state, (tuple, list))
+    states = list(init_state) if multi else [init_state]
+    # Per member: the full allocations that each cache segment views.
+    kv_full = [st["self_kv"] for st in states]
+    anc_full = [st["ancestry"] for st in states]
+    scales_full = [{k: st[k] for k in ("self_kv_sk", "self_kv_sv") if k in st} for st in states]
+    int4 = [is_int4(st) for st in states]
+    dev = kv_full[0].device
     L1 = max_len + 1
 
     prefixed = prefix_tokens is not None
@@ -165,7 +174,7 @@ def beam_search(
         worst_fin = torch.where(fin_flags, fin_scores, torch.full_like(fin_scores, NEG_INF)).amin(1)
         return bool(torch.any(~fin_flags.all(1) | (best_alive > worst_fin)))
 
-    T_full = anc_full.shape[2]  # logical steps
+    T_full = anc_full[0].shape[2]  # logical steps
     caps: List[int] = []
     c = 64
     while c < T_full and not prefixed:  # a prefilled cache is used whole
@@ -173,21 +182,24 @@ def beam_search(
         c *= 2
     caps.append(T_full)
 
-    if int4:  # it lives in re-packed segments: keep the first, drop the full allocation
-        state["self_kv"] = kv_full[:, :, :, : caps[0] * K // 2].clone()
-        kv_full = None
+    for m, st in enumerate(states):
+        if int4[m]:  # it lives in re-packed segments: keep the first, drop the full allocation
+            st["self_kv"] = kv_full[m][:, :, :, : caps[0] * K // 2].clone()
+            kv_full[m] = None
     for i, cap in enumerate(caps):
-        if int4:
-            if i > 0:
-                state["self_kv"] = i4_regrow(state["self_kv"], cap * K // 2)
-        else:
-            state["self_kv"] = kv_full[:, :, :, : cap * K]
-        for key, full in scales_full.items():
-            state[key] = full[:, :, :, : cap * K]
-        state["ancestry"] = anc_full[:, :, :cap]
+        for m, st in enumerate(states):
+            if int4[m]:
+                if i > 0:
+                    st["self_kv"] = i4_regrow(st["self_kv"], cap * K // 2)
+            else:
+                st["self_kv"] = kv_full[m][:, :, :, : cap * K]
+            for key, full in scales_full[m].items():
+                st[key] = full[:, :, :, : cap * K]
+            st["ancestry"] = anc_full[m][:, :, :cap]
         while step < min(cap, stop) and improvable():
             prev_tok = alive_seq.reshape(B * K, L1)[:, step : step + 1]
-            logits, state = decode_step(prev_tok, state)
+            logits, new_states = decode_step(prev_tok, tuple(states) if multi else states[0])
+            states = list(new_states) if multi else [new_states]
             logp = torch.log_softmax(logits.float(), dim=-1)
             if unk_penalty != 0.0:
                 logp[:, unk_id] -= unk_penalty
@@ -198,7 +210,8 @@ def beam_search(
             alive_logp, alive_seq, fin_scores, fin_seq, fin_flags, src_beam = select_beams(
                 logp, alive_logp, alive_seq, fin_seq, fin_scores, fin_flags, step + 1,
                 _length_norm(step + 1, len_penalty, dev), eos_id)
-            _reorder_ancestry(state, src_beam, step)
+            for st in states:
+                _reorder_ancestry(st, src_beam, step)
             step += 1
 
     # Fall back to alive beams where nothing finished.

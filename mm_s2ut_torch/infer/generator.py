@@ -1,11 +1,13 @@
 """High-level generator: encode → tiled decode state → beam search.
 
 Port of ``UnitGenerator.generate`` and ``format_generation_output`` from
-``mm_s2ut/infer/generator.py`` for one model (the logit ensemble,
-ROADMAP.md §1 item 8, and the ahead-of-time executables are not ported).
+``mm_s2ut/infer/generator.py``, with its logit ensemble (several models of
+one architecture, fairseq's ``--path a.pt:b.pt``). JAX's ahead-of-time
+executables are not ported (ROADMAP.md §1 item 9).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -24,7 +26,13 @@ class UnitGenerator:
     """Beam-search generator over an ``MMS2UTModel`` or an
     ``MMXMTransformerModel`` (on the model's device). ``eos_id``/``bos_id``
     override the dictionary's EOS: the XM path starts from and stops on
-    its target language tag."""
+    its target language tag.
+
+    ``model`` may be a sequence of models of one architecture on one
+    device: a logit ensemble. Each member encodes the batch and keeps its
+    own tiled decode state, and a step's scores are log(mean_i
+    softmax(logits_i)) in fp32. One model, alone or in a list of one,
+    decodes through its own ``decode_step``."""
 
     def __init__(
         self,
@@ -36,11 +44,12 @@ class UnitGenerator:
         unk_id: int = 3,
         max_target_positions: int = 3000,
     ):
-        self.model = model
+        self.models = tuple(model) if isinstance(model, (list, tuple)) else (model,)
+        self.model = self.models[0]
         self.cfg = gen_cfg
         self.eos_id, self.bos_id, self.pad_id, self.unk_id = eos_id, bos_id, pad_id, unk_id
         self.max_target_positions = max_target_positions
-        self.vocab_size = model.cfg.vocab_size
+        self.vocab_size = self.model.cfg.vocab_size
 
     def _max_len(self, src_frames: int) -> int:
         """The search's budget a·src + b, where src counts the model's
@@ -74,13 +83,17 @@ class UnitGenerator:
                 raise ValueError(f"image batch {img.shape[0]} != audio batch {B}")
         imgs = [_tensor(x, dev, torch.float32) for x in imgs_list]
         masks = [_tensor(x, dev, torch.bool) for x in img_masks_list]
-        enc = self.model.encode(feats, lens, imgs, masks)
         max_len = self._max_len(int(feats.shape[1]))
-        state = tile_state_for_beams(
-            self.model.decode_init(enc, max_len + 1, kv_dtype=self.cfg.kv_cache_dtype), K
-        )
+        states = tuple(
+            tile_state_for_beams(m.decode_init(m.encode(feats, lens, imgs, masks), max_len + 1,
+                                               kv_dtype=self.cfg.kv_cache_dtype), K)
+            for m in self.models)
+        if len(self.models) == 1:
+            step, state = self.model.decode_step, states[0]
+        else:
+            step, state = self._ensemble_step, states
         seqs, scores = beam_search(
-            self.model.decode_step, state, B,
+            step, state, B,
             beam_size=K, max_len=max_len, eos_id=self.eos_id, bos_id=self.bos_id,
             pad_id=self.pad_id, vocab_size=self.vocab_size,
             len_penalty=self.cfg.len_penalty, unk_penalty=self.cfg.unk_penalty,
@@ -96,6 +109,16 @@ class UnitGenerator:
             ]
             for b in range(B)
         ]
+
+
+    def _ensemble_step(self, tokens: torch.Tensor, states):
+        """Every member's decode step; log of the mean of their fp32
+        probabilities (normalised, so the search's own log_softmax leaves
+        it as it is)."""
+        outs = [m.decode_step(tokens, st) for m, st in zip(self.models, states)]
+        logps = torch.stack([torch.log_softmax(logits.float(), dim=-1) for logits, _ in outs])
+        avg = torch.logsumexp(logps, dim=0) - math.log(len(outs))
+        return avg, tuple(st for _, st in outs)
 
 
 def format_generation_output(

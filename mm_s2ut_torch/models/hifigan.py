@@ -5,7 +5,9 @@ Port of ``mm_s2ut/models/hifigan.py``: ``CodeHiFiGAN``,
 plain ``nn.Conv1d`` / ``nn.ConvTranspose1d`` (the reference's folded and
 grouped MRF repackings are TPU matrix-unit layouts of the same convs and
 are not carried over), with the speaker embedding (``spkr``) of a
-multi-speaker vocoder appended to every frame. ``load_fairseq_checkpoint``
+multi-speaker vocoder appended to every frame, and ``vocode_bucketed``
+(the generator at the smallest of a few frame budgets that covers the
+batch). ``load_fairseq_checkpoint``
 maps a fairseq ``code_hifigan`` state dict onto this module. Submodule names mirror the
 flax parameter tree (``generator.ups_0``, ``resblocks_3.convs1_2`` …).
 """
@@ -16,7 +18,7 @@ import json
 import re
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -234,8 +236,43 @@ class CodeHiFiGAN(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """((B, max_frames·hop) waveform, (B,) valid sample counts)."""
         dur = self.unit_durations(units, unit_lengths, dur_prediction)
-        frames, n_frames = length_regulate(self.dict(units), dur, self.max_frames)
+        return self.vocode_durations(units, dur, self.max_frames, speaker)
+
+    @torch.no_grad()
+    def vocode_durations(self, units: torch.Tensor, durations: torch.Tensor, max_frames: int,
+                         speaker: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Units (B, L) held for ``durations`` (B, L) frames each, length-
+        regulated into a ``max_frames`` budget and vocoded: ((B, max_frames·
+        hop) waveform, (B,) valid sample counts)."""
+        frames, n_frames = length_regulate(self.dict(units), durations, max_frames)
         return self.generator(self._with_speaker(frames, speaker)), n_frames * self.cfg.hop_length
+
+
+@torch.no_grad()
+def vocode_bucketed(
+    model: CodeHiFiGAN,
+    units: torch.Tensor,  # (B, L) unit ids
+    unit_lengths: Optional[torch.Tensor] = None,  # (B,)
+    buckets: Sequence[int] = (256, 512, 1024),
+    dur_prediction: bool = True,
+    speaker: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Frame-bucketed vocoding (``mm_s2ut/models/hifigan.py:476``): the
+    durations are predicted once, and the generator runs at the smallest
+    budget in ``buckets`` that covers the batch's frames (one ``.item()``
+    picks it on the host), since its convs cost in proportion to the
+    frames. The waveforms come back padded to ``buckets[-1]·hop``; a batch
+    that needs more frames than the largest bucket is cut there, and its
+    lengths capped, as a fixed budget cuts it. A batch whose frames end
+    within the generator's receptive field of its bucket's end gets other
+    last samples than a larger budget gives (the convs' zero padding meets
+    them), so the CLIs keep the reference's fixed budget."""
+    buckets = sorted(buckets)
+    dur = model.unit_durations(units, unit_lengths, dur_prediction)
+    need = int(dur.sum(1).max())
+    budget = next((b for b in buckets if b >= need), buckets[-1])
+    wav, n = model.vocode_durations(units, dur, budget, speaker)
+    return F.pad(wav, (0, (buckets[-1] - budget) * model.cfg.hop_length)), n
 
 
 def _fold_weight_norm(sd: Dict[str, torch.Tensor], prefix: str) -> torch.Tensor:

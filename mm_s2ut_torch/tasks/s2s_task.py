@@ -12,8 +12,9 @@ checkpoint when one is named (a timm ``.bin``/``.pth``, or an HF CLIP dir
 for ``vit_openai``); it trains with the rest of the model.
 The training split mixes in noise when ``data.noise`` names clips
 (``data/dataset.py``). ``train.eval_inference`` adds the MCD metrics to
-each validation (:meth:`build_inference_metrics_fn`). The native C++
-loader, which the reference also skips when it is absent, is left out.
+each validation (:meth:`build_inference_metrics_fn`). A batch of wavs is
+decoded by the native C++ loader (``SpeechToSpeechDataset.collate_native``)
+where it applies, as in the reference.
 With a raw-waveform speech encoder (``speech_encoder_type`` ``hubert``,
 ``wav2vec2`` or ``wav2vec2_multimodal``) the batches keep their
 waveforms: no fbank, ``standardize_audio`` per utterance on the host,
@@ -149,8 +150,12 @@ class MultiModalSpeechToSpeechTask:
 
         def host_batches():
             for bucket, idx in batcher.epoch(epoch, shuffle=shuffle):
-                items = [ds[int(i)] for i in idx]
-                yield ds.collate(items, src_pad=bucket.src_len, tgt_pad=bucket.tgt_len)
+                # The native loader's batch decode, where it applies.
+                batch = ds.collate_native(idx, bucket.src_len, bucket.tgt_len)
+                if batch is None:
+                    items = [ds[int(i)] for i in idx]
+                    batch = ds.collate(items, src_pad=bucket.src_len, tgt_pad=bucket.tgt_len)
+                yield batch
 
         raw = reads_waveform(self.cfg.model)
         for batch in prefetch(host_batches(), depth=2):

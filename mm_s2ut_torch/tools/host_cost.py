@@ -5,6 +5,7 @@
         [--kv bfloat16|int8|int4]
     PYTHONPATH=TREE python mm_s2ut_torch/tools/host_cost.py subsampler
     PYTHONPATH=TREE python mm_s2ut_torch/tools/host_cost.py train-step
+    python mm_s2ut_torch/tools/host_cost.py train-loader [--rounds 3]
 
 ``TREE`` is the directory holding the ``mm_s2ut_torch`` package to
 measure: ``.`` for this checkout, or another tree unpacked into a
@@ -59,6 +60,19 @@ deviation; then one step traced by ``torch.profiler``
 median step, launches and aten calls). Two trees whose steps issue the
 same aten calls and kernels and differ in wall time differ on the host's
 clock, not in the work. Run parent, change, change, parent in one call.
+
+``train-loader``: ``cli.train``'s loop (the task's ``batch_iterator``,
+its prefetch thread, ``Trainer.train_batch``) at phase 11's point over a
+corpus of 64 wavs of 10 s (16-bit PCM, 16 kHz, 100 units each, 577×768
+image features; ``max_tokens`` 8192, so B = 8 × 1024 frames), written
+under the checkout's gitignored ``tmp/``. Epochs alternate between the
+two collations of a batch of wavs: the native loader
+(``SpeechToSpeechDataset.collate_native``, as the task runs) and the
+Python decoder (``collate_native`` patched to decline, which is the loop
+of a tree without the native loader), in the order native, Python,
+Python, native for ``--rounds`` rounds after one warm-up epoch. Each
+epoch's wall time and the ms of each of its steps (CUDA-synchronised
+host clock, from one batch's arrival to the next's).
 """
 from __future__ import annotations
 
@@ -68,8 +82,11 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
+
+HERE = Path(__file__).resolve().parents[2]
 
 
 def _card() -> str:
@@ -511,9 +528,99 @@ def train_step() -> dict:
             **{k: shares[k] for k in ("device_ms", "busy", "launches", "aten_calls", "top")}}
 
 
+def _loader_corpus(root: Path, n: int, seconds: float, img_tokens: int, img_dim: int,
+                   n_units: int, seed: int = 0) -> None:
+    import numpy as np
+
+    from mm_s2ut_torch.data.audio_io import write_wav
+    from mm_s2ut_torch.data.manifest import ManifestRow, write_manifest
+
+    (root / "img_feat").mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    m = int(seconds * 16000)
+    rows = []
+    for i in range(n):
+        write_wav(root / f"{i}.wav", (0.3 * rng.randn(m)).astype(np.float32), 16000)
+        units = " ".join(str(u) for u in rng.randint(0, 1000, n_units))
+        rows.append(ManifestRow(str(i), f"{i}.wav", m, units, n_units))
+    write_manifest(root / "train.tsv", rows)
+    np.save(root / "img_feat" / "train.npy",
+            rng.randn(n, img_tokens, img_dim).astype(np.float32))
+
+
+def train_loader(rounds: int, root: Path, mcfg=None, n: int = 64, seconds: float = 10.0,
+                 max_tokens: int = 8192, device: str = "cuda") -> dict:
+    """Epochs of the task's training loop, native and Python collation in
+    turns (see the module's docstring); ``mcfg`` defaults to phase 11's
+    flagship."""
+    import numpy as np
+
+    from mm_s2ut_torch.config import (Config, DataConfig, ModelConfig, MultimodalConfig,
+                                      TrainConfig)
+    from mm_s2ut_torch.data.dataset import SpeechToSpeechDataset
+    from mm_s2ut_torch.tasks.s2s_task import MultiModalSpeechToSpeechTask
+
+    if mcfg is None:
+        mm = MultimodalConfig(image_feat_dim=[768],
+                              multimodal_attention_type="selective_attention",
+                              use_selective_gate=True, modality_dropout=0.5, audio_dropout=0.5)
+        mcfg = ModelConfig(dtype="bfloat16", multimodal=mm)  # dropouts 0.1
+    img_dim = mcfg.multimodal.image_feat_dim[0]
+    _loader_corpus(root, n, seconds, 577 if img_dim == 768 else 10, img_dim, 100)
+    mcfg.multimodal.image_feat_path = [str(root / "img_feat")]
+    cfg = Config(model=mcfg, data=DataConfig(data_root=str(root), audio_root=str(root),
+                                             max_tokens=max_tokens, num_buckets=1),
+                 train=TrainConfig(update_freq=1, warmup_updates=10, label_smoothing=0.2))
+    task = MultiModalSpeechToSpeechTask(cfg, device)
+    trainer = task.build_trainer()
+    native_collate = SpeechToSpeechDataset.collate_native
+    natives = [0]
+
+    def counted(self, *args, **kwargs):
+        batch = native_collate(self, *args, **kwargs)
+        natives[0] += batch is not None
+        return batch
+
+    def epoch(e: int, native: bool) -> dict:
+        SpeechToSpeechDataset.collate_native = counted if native else (lambda *a, **k: None)
+        natives[0] = 0
+        sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        sync()
+        t0 = last = time.perf_counter()
+        steps, shapes = [], set()
+        for batch in task.batch_iterator("train", e):
+            shapes.add(tuple(batch["src_features"].shape))
+            trainer.train_batch(batch)
+            sync()
+            now = time.perf_counter()
+            steps.append((now - last) * 1e3)
+            last = now
+        wall = time.perf_counter() - t0
+        assert natives[0] == (len(steps) if native else 0), (natives[0], len(steps))
+        return {"native": native, "wall_s": wall, "steps": len(steps),
+                "step_ms": steps, "median_step_ms": float(np.median(steps)),
+                "src_features": sorted(shapes)}
+
+    try:
+        epoch(0, True)  # warm-up: kernels, the native build, cuDNN
+        runs = [epoch(1 + i, native) for i, native in
+                enumerate([True, False, False, True] * rounds)]
+    finally:
+        SpeechToSpeechDataset.collate_native = native_collate
+    out = {"rounds": rounds, "epochs": runs}
+    for native, key in ((True, "native"), (False, "python")):
+        arm = [r for r in runs if r["native"] == native]
+        out[key] = {"wall_s": [r["wall_s"] for r in arm],
+                    "median_wall_s": float(np.median([r["wall_s"] for r in arm])),
+                    "median_step_ms": float(np.median(sum((r["step_ms"] for r in arm), [])))}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="host_cost.py")
-    ap.add_argument("what", choices=["wrappers", "decode-step", "subsampler", "train-step"])
+    ap.add_argument("what", choices=["wrappers", "decode-step", "subsampler", "train-step",
+                                     "train-loader"])
+    ap.add_argument("--rounds", type=int, default=3, help="train-loader: rounds of 4 epochs")
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--at-step", type=int, default=200)
     ap.add_argument("--kv", choices=["bfloat16", "int8", "int4"], default="bfloat16",
@@ -532,6 +639,8 @@ def main(argv=None) -> int:
         result = {"decode_step": {"kv": args.kv, **decode_step(args.at_step, args.kv)}}
     elif args.what == "train-step":
         result = {"train_step": train_step()}
+    elif args.what == "train-loader":
+        result = {"train_loader": train_loader(args.rounds, HERE / "tmp" / "train_loader")}
     else:
         result = {"conv_batch_rounding": conv_batch_rounding(),
                   "alone": subsampler_alone(), "paths": subsampler_paths()}

@@ -31,7 +31,10 @@ dropout on the card to the same weights on the CPU
 (``chip_smoke.card_vs_cpu``). H at the ViT's training shape (Tq = 577
 over S = 584) is held to its twin, and A, G and H with attention dropout
 on a data-parallel shard (``dropout_row0``) give that shard's rows of the
-whole batch bit for bit."""
+whole batch bit for bit. A two-member logit ensemble of the small fp32
+config decodes on the card as on the CPU for each cache (tokens equal,
+scores within 1e-4), and k-means assignment at 1000 x 768 agrees with the
+CPU but at near-ties (``chip_smoke.near_ties``)."""
 import pytest
 import torch
 
@@ -1043,3 +1046,58 @@ def test_small_checkpointed_xm_train_step_card_against_cpu(card):
     launched = card_vs_cpu("small XM", model, Config(model=cfg, train=TrainConfig(
         lr=1e-3, warmup_updates=1)), batch, counters)
     assert launched["H"] > 0 and launched["A"] == 2 * launched["H"], launched
+
+
+@pytest.mark.parametrize("kv", [None, "int8", "int4"])
+def test_small_ensemble_card_against_cpu(card, kv):
+    """A two-member logit ensemble of the small fp32 config, decoded on the
+    card and on the CPU from the same weights: the same tokens, scores
+    within 1e-4; each member's decode steps launch the cache's kernels."""
+    from chip_smoke import init_random_, small_config, synthetic_batch
+    from mm_s2ut_torch.config import GenerationConfig
+    from mm_s2ut_torch.infer.generator import UnitGenerator
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+    from mm_s2ut_torch.ops.fbank import FbankConfig, waveform_frontend
+
+    cpu = [init_random_(MMS2UTModel(small_config()), torch.Generator().manual_seed(s)).eval()
+           for s in (40, 41)]
+    gpu = [MMS2UTModel(small_config()).eval() for _ in cpu]
+    for g, c in zip(gpu, cpu):
+        g.load_state_dict(c.state_dict())
+        g.cuda()
+    wav, lens, imgs = synthetic_batch(2, torch.Generator().manual_seed(42))
+    feats, flens = waveform_frontend(wav, lens, FbankConfig())
+    masks = torch.zeros(imgs.shape[:2], dtype=torch.bool)
+    gcfg = GenerationConfig(beam=3, max_len_a=0.0, max_len_b=70, kv_cache_dtype=kv)
+    want = UnitGenerator(cpu, gcfg).generate(feats, flens, [imgs], [masks])
+    self_k = {None: D.ancestry_decode_attention, "int8": D.ancestry_decode_attention_i8,
+              "int4": D.ancestry_decode_attention_i4}[kv]
+    cross_k = D.cross_decode_attention if kv is None else D.cross_decode_attention_i8
+    self_k.launches = cross_k.launches = 0
+    got = UnitGenerator(gpu, gcfg).generate(feats.cuda(), flens.cuda(), [imgs.cuda()],
+                                            [masks.cuda()])
+    layers = small_config().decoder_layers
+    assert self_k.launches > 0 and self_k.launches % (2 * layers) == 0, self_k.launches
+    assert cross_k.launches == self_k.launches
+    for g, w in zip(got, want):
+        assert [h["tokens"] for h in g] == [h["tokens"] for h in w]
+        assert max(abs(a["score"] - b["score"]) for a, b in zip(g, w)) <= 1e-4
+
+
+def test_kmeans_assign_card_against_cpu(card):
+    """Assignment of 4096 frames to 1000 centroids of 768 dims on the card
+    against the CPU: equal but at near-ties (``chip_smoke.near_ties``)."""
+    from chip_smoke import near_ties
+    from mm_s2ut_torch.ops.kmeans import KMeansQuantizer
+
+    g = torch.Generator().manual_seed(43)
+    centroids = torch.randn(1000, 768, generator=g)
+    x = centroids[torch.randint(0, 1000, (4096,), generator=g)] + torch.randn(4096, 768,
+                                                                               generator=g)
+    quant = KMeansQuantizer(centroids.numpy())
+    want = quant(x)
+    got = quant(x.cuda())
+    assert want.device.type == "cpu" and got.device.type == "cuda"
+    got = got.cpu()
+    differ = got != want
+    assert near_ties(x, centroids)[differ].all(), int(differ.sum())

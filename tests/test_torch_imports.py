@@ -1,7 +1,8 @@
 """The port stands alone: importing it pulls in neither JAX nor the JAX
 package (the card's machine has no JAX, and ``import mm_s2ut`` imports
 it), nor Pillow, ``transformers``, ``safetensors`` or ``sacrebleu`` (the
-card's machine has none of them), and no kernel is built at import time."""
+card's machine has none of them), and no kernel, nor the native audio
+loader, is built at import time."""
 import pkgutil
 import re
 import subprocess
@@ -40,8 +41,15 @@ EVAL_AND_PARALLEL = ["mm_s2ut_torch.eval.asr", "mm_s2ut_torch.eval.bleu",
                      "mm_s2ut_torch.parallel.mesh"]
 
 
+TOOLS = ["mm_s2ut_torch.ops.kmeans", "mm_s2ut_torch.cli.prep_data", "mm_s2ut_torch.cli.vocode",
+         "mm_s2ut_torch.cli.inference_all", "mm_s2ut_torch.cli.convert_checkpoint",
+         "mm_s2ut_torch.utils.torch_pickle", "mm_s2ut_torch.utils.fairseq_convert",
+         "mm_s2ut_torch.utils.checkpoint", "mm_s2ut_torch.data.flac", "mm_s2ut_torch.data.ogg",
+         "mm_s2ut_torch.native"]
+
+
 @pytest.mark.parametrize("modules", [["mm_s2ut_torch.inference"], STREAMING, TRAINING, MODULES,
-                                     ENHANCED, IMAGES, EVAL_AND_PARALLEL])
+                                     ENHANCED, IMAGES, EVAL_AND_PARALLEL, TOOLS])
 def test_import_leaves_jax_out(modules):
     assert set(modules) <= set(MODULES) | {"mm_s2ut_torch.inference"}
     code = (
@@ -52,6 +60,8 @@ def test_import_leaves_jax_out(modules):
         "assert not bad, bad\n"
         "from mm_s2ut_torch.ops import _build\n"
         "assert _build.library.cache_info().currsize == 0\n"
+        "from mm_s2ut_torch import native\n"
+        "assert native.library.cache_info().currsize == 0\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)

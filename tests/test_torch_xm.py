@@ -761,9 +761,20 @@ def test_settings_that_still_raise(tmp_path):
     from mm_s2ut_torch.cli.generate import main as t_main
     from mm_s2ut_torch.infer.serving import ContinuousServer
 
-    with pytest.raises(NotImplementedError, match="item 8"):
+    from mm_s2ut_torch.config import Config, save_yaml
+
+    # A logit ensemble whose members differ in a field that changes the
+    # decode (not in their parameter shapes) is refused, naming the field.
+    xm = t_model("xm", jcfg("xm"), params_of("xm"))
+    w2v_args = {k: list(v) if isinstance(v, tuple) else v for k, v in W2V.items()}
+    for name, heads in (("a", 2), ("b", 1)):
+        (tmp_path / name).mkdir()
+        cfg = tcfg(jcfg("xm", w2v_args=w2v_args))
+        cfg.decoder_attention_heads = heads
+        save_yaml(Config(task="multimodal_speech_to_text", model=cfg), tmp_path / name / "config.yaml")
+        np.savez(tmp_path / name / "params.npz", **to_flax(xm))
+    with pytest.raises(ValueError, match=r"differing fields \['decoder_attention_heads'\]"):
         t_main(["--model_path", f"{tmp_path}/a:{tmp_path}/b", "--results-path",
                 str(tmp_path / "out"), "--device", "cpu"])
-    xm = t_model("xm", jcfg("xm"), params_of("xm"))
     with pytest.raises(ValueError, match="raw waveforms"):
         ContinuousServer(xm, enc_frames=ENC_SAMPLES)  # enc_feat_dim=80 on a waveform model
