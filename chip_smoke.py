@@ -226,7 +226,9 @@ kernel's bound at its recorded shape: the larger of its bytes over
 its ``vit_train_launches`` those in phase 21a's first timed ViT-B step,
 its ``tools_launches`` phase 22's: A in 22a's quantize on the card (fp32)
 and 22c's full-width ensemble encodes (bf16), B-E in 22c's ensemble
-decodes, both members counted);
+decodes, both members counted; A's and H's ``fp32_*`` fields time their
+fp32 instances, 3xTF32 on the tensor cores, at the ViT's shapes, H=12,
+with their bounds at the TF32 peak);
 the last line is ``{"ok": true, "device": {...}}``. Artifacts (.unit files,
 generate-smoke.txt, wavs, the training runs) go to ``--out`` (default
 ``smoke_out/`` beside this file).
@@ -244,9 +246,13 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# fp32: the SIMT kernels (B-F in fp32) keep fp32 throughout; fp32 A, G and
+# H split every operand into two tf32 halves and take three tensor-core
+# products (3xTF32, ~2^-21 of a product's scale where one TF32 pass keeps
+# ~2^-11 and misses 1e-4; tests/test_torch_attention_tf32_numerics.py
+# emulates them against the JAX reference on the CPU and holds them to TOL).
 # bf16: the plain versions round the softmax weights and every product to
-# bf16 between the two contractions. The SIMT kernels (B-G, and A and H in
-# fp32) keep fp32 until the final store; bf16 A and H (tensor cores) round
+# bf16 between the two contractions. bf16 A and H (tensor cores) round
 # p times the dropout factor, and H its dS, to bf16 before the second
 # products and accumulate in fp32, as the plain versions round the
 # weights (tests/test_torch_attention_tc_numerics.py emulates those points
@@ -271,8 +277,9 @@ FLAGSHIP = dict(B=8, H=8, Dh=64, K=10, L=6, T_enc=250, T_dec=500, step=300, S_cr
 BENCH = dict(B=128, H=8, Dh=64, K=10, L=6, T_dec=201, step=150, S_cross=250)
 # H100 SXM (NVIDIA's data sheet): HBM bytes/s and dense peak op/s by input type.
 HBM = 3.35e12
-PEAK = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
+PEAK = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "int8": 1979e12}
 EB = {torch.bfloat16: 2, torch.float32: 4}
+MMA_PEAK = {torch.bfloat16: "bf16", torch.float32: "tf32"}  # A, G and H: the tensor cores' input type
 DROP_SEED = 0x5EED
 
 
@@ -285,18 +292,22 @@ def bound(flops: float, nbytes: float, peak: str) -> dict:
 
 def flash_work(B, Tq, S, H, D, dtype, pairs=None):
     """A / G forward: q, k, v, the (B, S) bias and the output; 4·D
-    operations per attended (query, key) pair (``pairs``, default all)."""
+    operations per attended (query, key) pair (``pairs``, default all), at
+    the tensor cores' peak for the kernel's input type (fp32 runs there as
+    TF32, each product counted once)."""
     pairs = B * H * Tq * S if pairs is None else pairs
-    return bound(4 * D * pairs, EB[dtype] * B * D * H * (2 * Tq + 2 * S) + 4 * B * S, "bf16")
+    return bound(4 * D * pairs, EB[dtype] * B * D * H * (2 * Tq + 2 * S) + 4 * B * S,
+                 MMA_PEAK[dtype])
 
 
 def bwd_work(B, Tq, S, H, D, dtype):
     """H: q, dO, O (Tq rows) and k, v (S rows), the row statistics and the
     bias in; dq (Tq rows), dk, dv (S rows) and dbias out; 10·D operations
-    per (query, key) pair (the recomputed scores, dP, dV, dK and dQ)."""
+    per (query, key) pair (the recomputed scores, dP, dV, dK and dQ), at
+    ``flash_work``'s peak."""
     row = B * H * D * EB[dtype]
     return bound(10 * B * H * Tq * S * D, 4 * Tq * row + 4 * S * row + 8 * B * H * Tq + 8 * B * S,
-                 "bf16")
+                 MMA_PEAK[dtype])
 
 
 def ancestry_work(q, kv, flat_rep, col_bytes, peak, packed=False):
@@ -2437,11 +2448,22 @@ def phase_vit_kernels():
     (phase 21a: B=8, the same Tq over S, H=12 and 16; its first run at
     Tq ≠ S), after A wrote the row statistics, against
     ``reference_attention_bwd`` (times max(1, largest |plain|), as phase 2
-    holds H), timed beside SDPA's backward alone, with its bound."""
+    holds H), timed beside SDPA's backward alone, with its bound. Returns
+    the fp32 fields of A's and H's records on the kernels line (``fp32_ms``,
+    ``fp32_plain_ms``, ``fp32_library_ms``, ``fp32_bound_ms`` ...): A at
+    B=16 and H at B=8, both at H=12, the fp32 instances on the tensor cores
+    in 3xTF32 (bound at the TF32 peak)."""
     import torch.nn.functional as F
 
     from mm_s2ut_torch.ops import attention as A
 
+    def fp32_fields(res, work, src):
+        return {"fp32_source": src, "fp32_max_abs_err": res["max_abs_err"],
+                "fp32_ms": res["ms"], "fp32_plain_ms": res["plain_ms"],
+                "fp32_library_ms": res["library_ms"], "fp32_bound_ms": work["bound_ms"],
+                "fp32_bound_by": work["bound_by"]}
+
+    record = {}
     B, Tq, S, Dh = VIT["B"], VIT["Tq"], VIT["S"], VIT["Dh"]
     for dtype in (torch.bfloat16, torch.float32):
         for H in (12, 16):
@@ -2459,7 +2481,10 @@ def phase_vit_kernels():
             work = flash_work(B, Tq, S, H, Dh, dtype)
             print(f"phase 2: {label} {str(dtype)[6:]}: bound {work['bound_ms'] * 1e3:.2f} us "
                   f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}, "
-                  f"kernel / SDPA {res['ms'] / res['library_ms']:.3f}")
+                  f"kernel / SDPA {res['ms'] / res['library_ms']:.3f}, kernel / plain "
+                  f"{res['ms'] / res['plain_ms']:.3f}")
+            if dtype == torch.float32 and H == 12:
+                record["A"] = fp32_fields(res, work, "mm_s2ut_torch/csrc/flash_attention.cu")
             del qkv, q, k, v
         torch.cuda.empty_cache()
     scale = Dh ** -0.5
@@ -2489,10 +2514,13 @@ def phase_vit_kernels():
             print(f"phase 21: {label} {str(dtype)[6:]}: bound {work['bound_ms'] * 1e3:.2f} us "
                   f"({work['bound_by']}; A's forward at this shape {fwd['bound_ms'] * 1e3:.2f} us "
                   f"by {fwd['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}, "
-                  f"kernel / SDPA backward {res['ms'] / res['library_ms']:.3f}; the padded keys' "
-                  f"dk and dv exactly 0")
+                  f"kernel / SDPA backward {res['ms'] / res['library_ms']:.3f}, kernel / plain "
+                  f"{res['ms'] / res['plain_ms']:.3f}; the padded keys' dk and dv exactly 0")
+            if dtype == torch.float32 and H == 12:
+                record["H"] = fp32_fields(res, work, "mm_s2ut_torch/csrc/flash_attention_bwd.cu")
             del qkv, q, k, v, dout, bwd_only, got
         torch.cuda.empty_cache()
+    return record
 
 
 def timm_vit_state(cfg, gen):
@@ -4539,7 +4567,8 @@ def phase_tools(out_dir: Path):
     return launches
 
 
-KERNELS = {  # name, source (of the bf16 instance the record times), the TPU kernel it replaces
+KERNELS = {  # name, source (of the bf16 instance the record times; A's and H's fp32_* fields
+    # time their fp32 source), the TPU kernel it replaces
     "A": ("flash_attention", "mm_s2ut_torch/csrc/flash_attention_mma.cu",
           "mm_s2ut/ops/attention.py:140"),
     "B": ("ancestry_decode_attention", "mm_s2ut_torch/csrc/decode_attention.cu",
@@ -4577,10 +4606,12 @@ def main(argv=None) -> int:
     smi = phase_build()
     record = phase_kernels()
     phase_xm_kernels()
-    phase_vit_kernels()
+    vit_fp32 = phase_vit_kernels()
     phase_long_cross()
     record.update(phase_causal_kernels())
     record.update(phase_train_kernels())
+    for name, fields in vit_fp32.items():
+        record[name].update(fields)
     phase_small_parity()
     model, vocoder, gen = flagship()
     launches = phase_main_path(model, vocoder, gen, Path(args.out))

@@ -4,7 +4,9 @@
 // __nv_bfloat16): loads convert to fp32, softmax and accumulation run in
 // fp32, stores round back to T (round-to-nearest-even for bf16). The
 // bf16 tensor-core kernels (flash_attention_mma.cuh) also round the
-// softmax weights to bf16 before their second product.
+// softmax weights to bf16 before their second product; the fp32 ones
+// (flash_attention.cu, flash_attention_bwd.cu) split every operand, the
+// weights included, into two tf32 halves.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -2,8 +2,8 @@
 // backward (H-q: Delta and dQ; H-kv: dK, dV, dbias), two kernels, no atomics.
 //
 // Replaces the Pallas TPU kernel mm_s2ut/ops/attention.py:_attn_bwd_kernel
-// (pallas_call at attention.py:500) for bf16 inputs; fp32 inputs keep the
-// SIMT kernels of flash_attention_bwd.cu, whose header states the formulas:
+// (pallas_call at attention.py:500) for bf16 inputs; fp32 inputs take the
+// 3xTF32 kernels of flash_attention_bwd.cu, whose header states the formulas:
 //   P = exp(l - m) / L (l recomputed as the forward's: one fmaf, -1e9 in
 //   place of a logit outside the causal/window band), F = keep / (1 - rate),
 //   dS = P (dP F - Delta) inside the band and 0 outside it, dP = dO.V^T,
@@ -15,7 +15,7 @@
 // 10.B.H.T^2.D = 10 GFLOP (10.4 us at 989 TFLOP/s bf16; Delta's pass recomputes
 // two of the five products on top); at B = 8, T = 250 it moves ~16.5 MB of q,
 // k, v, dO, O and the fp32 dk, dv for 2.6 GFLOP, so bytes bound it (4.9 us).
-// The SIMT kernels it replaces did the products on the fp32 FMA pipes, and the
+// The SIMT kernels it replaced did the products on the fp32 FMA pipes, and the
 // D / 32 threads that shared a key or row each repeated the pair's exp,
 // division, hash and shuffles: that scalar work set their time.
 //

@@ -3,8 +3,8 @@
 //
 // Replaces the Pallas TPU kernels mm_s2ut/ops/attention.py:_attn_kernel
 // (A, pallas_call at attention.py:362) and _attn_kernel_causal_skip (G,
-// pallas_call at :348) for bf16 inputs; fp32 inputs keep the SIMT kernel
-// of flash_attention.cu. It computes what that kernel computes (see
+// pallas_call at :348) for bf16 inputs; fp32 inputs take the 3xTF32
+// kernel of flash_attention.cu. It computes what that kernel computes (see
 // flash_attention.cu): per (b, h),
 //   out[t] = sum_s softmax_s(l[t, s]) . F[t, s] . v[s],
 //   l[t, s] = scale . q[t] . k[s] + bias[s], or -1e9 outside the
@@ -13,7 +13,7 @@
 // What bounds it on the card: at B = 2, T = 1000 (H = 8, D = 64) one call
 // does 4.B.H.T^2.D = 4.1 GFLOP on ~2 MB of q, k, v, so operations bound it
 // (4.1 us at 989 TFLOP/s bf16); at B = 8, T = 250 it moves ~4 MB for 1 GFLOP
-// and bytes bound it (2.45 us). The SIMT kernel it replaces did every
+// and bytes bound it (2.45 us). The SIMT kernel it replaced did every
 // product on the fp32 FMA pipes and repeated each row's softmax scalars
 // in the two threads that shared the row.
 //
@@ -33,7 +33,7 @@
 // weights to v's dtype, attention.py:187) and feeds O += P.V from the S
 // registers as the A operand, V through ldmatrix.trans. The epilogue
 // divides by l in fp32 and stores bf16; each row's final max m and
-// denominator l go to stat_m / stat_l for kernel H, with the SIMT
+// denominator l go to stat_m / stat_l for kernel H, with the fp32
 // kernel's contract (no log-sum-exp: an all -1e9 row keeps l). A visits
 // every key tile, so a row whose band is all padding gets the reference's
 // uniform average. Rows are read through the (B, T, H, D) strides; the
@@ -42,7 +42,7 @@
 // Kernel G (SKIP; the causal encoder's forward, T <= S with query t at position
 // t) is the same tile loop over the key tiles that meet the block's band only,
 // [lo, hi) as flash_attention.cu computes them: at most two tiles per query
-// tile with a window of 64. The SIMT G it replaces (2 threads per row, fp32 FMA
+// tile with a window of 64. The SIMT G it replaced (2 threads per row, fp32 FMA
 // pipes) was 5.8x slower at B = 8, T = 250, window 64 than this loop over every
 // tile (A-causal; H100, PERF.md). The ring prefetches the next visit's tile,
 // not tile i + 1. After the last band tile a block-uniform __syncthreads_or

@@ -1,8 +1,10 @@
 // The arguments of kernels A, G and H, the launchers of their bf16
 // tensor-core versions (flash_attention_mma.cu: A and G;
-// flash_attention_bwd_mma.cu: H), and the sm_80+ building blocks those use: 16-byte cp.async into
-// XOR-swizzled shared tiles, ldmatrix, and mma.sync m16n8k16 (bf16 in,
-// fp32 accumulate).
+// flash_attention_bwd_mma.cu: H), and the sm_80+ building blocks those and
+// the fp32 versions (flash_attention.cu, flash_attention_bwd.cu) use: 16-byte
+// cp.async into XOR-swizzled shared tiles, ldmatrix, mma.sync m16n8k16 (bf16
+// in, fp32 accumulate) and mma.sync m16n8k8 (tf32 in, fp32 accumulate) with
+// 3xTF32 operand splitting.
 //
 // Fragment layouts of mma.m16n8k16.row.col (lane = 4 g + tq):
 //   A (16 x 16): a0 = (g, 2tq..2tq+1), a1 = (g + 8, 2tq..), a2 = (g, 8 + 2tq..),
@@ -12,6 +14,18 @@
 // So the C fragments of n-tiles 2j and 2j+1 are, packed to bf16, the A
 // fragment of k-step j (acc_to_a): a softmax tile feeds the next product
 // straight from registers.
+//
+// Fragment layouts of mma.m16n8k8.row.col.tf32:
+//   A (16 x 8): a0 = (g, tq), a1 = (g + 8, tq), a2 = (g, tq + 4), a3 = (g + 8, tq + 4);
+//   B (8 x 8):  b0 = (k tq, n g), b1 = (k tq + 4, n g);
+//   C (16 x 8): as m16n8k16's.
+// The fp32 kernels give every 8-wide k-step the order 0, 2, 4, 6, 1, 3, 5, 7:
+// k-index tq is element 2 tq of the step and tq + 4 is element 2 tq + 1, in
+// both operands (a sum over k does not depend on its order). Then a0 and a2
+// are one float2 of row g, b0 and b1 one float2 of row n, and the C
+// fragment of an 8-wide n-tile is, reordered (c0, c2, c1, c3), the A
+// fragment of the next product's k-step over the same 8 columns
+// (acc_to_a_f32), with no shuffle.
 #pragma once
 
 #include "common.cuh"
@@ -80,7 +94,7 @@ __device__ __forceinline__ float keep_factor(const BwdArgs& a, int bh, int t, in
 // aligned (base and strides multiples of 8).
 cudaError_t launch_flash_fwd_mma(const FlashArgs& a, int B, int D, bool causal, bool skip,
                                  cudaStream_t stream);
-// Kernel H (H-kv, then H-q) in bf16 on the tensor cores; the same rules.
+// Kernel H (H-q, then H-kv) in bf16 on the tensor cores; the same rules.
 cudaError_t launch_flash_bwd_mma(const BwdArgs& a, int B, int D, cudaStream_t stream);
 
 namespace tc {
@@ -237,11 +251,173 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
+// ---------------------------------------------------------------- fp32: 3xTF32
+//
+// x = hi + lo with hi = tf32(x) and lo = tf32(x - hi) (x - hi is exact), tf32
+// rounding to nearest with ties away from zero on the 13 dropped mantissa
+// bits, as cvt.rna.tf32.f32 rounds (the low 13 bits are left zero). A
+// product is lo.hi + hi.lo + hi.hi, each an mma with fp32 accumulation; the
+// dropped lo.lo term and lo's own rounding leave ~2^-21 of |a.b|, where one
+// tf32 product leaves ~2^-11.
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a . b, one m16n8k8 tile, tf32 inputs, fp32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An operand fragment split into its tf32 halves.
+struct FragA32 {
+  uint32_t hi[4], lo[4];
+};
+struct FragB32 {
+  uint32_t hi[2], lo[2];
+};
+
+// c += a . b in 3xTF32: the two cross terms first, then hi . hi, all
+// accumulated in the tensor cores. Their accumulation is coarser than an
+// fp32 rounded add, so a long sum (P.V over hundreds of keys) drifts:
+// at B = 8, T = 499 A's rms error against float64 is 2.7e-7, 7x the FMA
+// kernel's it replaced; summing each k-step from zero and adding it with a
+// rounded fp32 add took it to 1.9e-8 but A 53% longer (H100, PERF.md).
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA32& a, const FragB32& b) {
+  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
+}
+
+// fp32 tiles live in shared memory twice. cp.async lands the rows as they
+// are (a raw tile, row stride D floats); split_tile then writes each element
+// as a {hi, lo} float2 into a split tile, once per block for all its warps,
+// so that a fragment read is a load and nothing else. In a split tile the
+// 16-byte chunk m = e / 2 of row r (elements 2m and 2m + 1, each {hi, lo})
+// sits at chunk m ^ hs(r), hs(r) = 4 (r & 1) ^ 2 ((r >> 1) & 3), row stride
+// 2 D floats: the 16-byte reads of frag_a32 / frag_b32 (rows g, g + 1 and
+// chunks 4 kk + tq in a quarter-warp) and the 8-byte reads of frag_bt32
+// (rows 2 tq or 2 tq + 1, elements g in a half-warp) each fall on 32
+// distinct banks. Returns the word offset of element (r, e)'s hi.
+template <int D>
+__device__ __forceinline__ int sswz(int r, int e) {
+  const int h = ((r & 1) << 2) ^ (((r >> 1) & 3) << 1);
+  return r * 2 * D + (((e >> 1) ^ h) << 2) + ((e & 1) << 1);
+}
+
+// Rows [r0, r0 + ROWS) of an fp32 matrix with row stride `stride` (elements)
+// into the raw tile at `dst` (row stride D); rows at or past n are zeros.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_raw(float* dst, const float* src, int64_t stride, int r0,
+                                         int n) {
+  constexpr int CH = D / 4;
+  static_assert(ROWS * CH % kThreads == 0, "whole rounds of 16-byte copies");
+#pragma unroll
+  for (int it = 0; it < ROWS * CH / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int r = i / CH, c = i % CH;
+    const bool ok = r0 + r < n;
+    cp_async16(smem_u32(dst + r * D + 4 * c), src + (int64_t)(ok ? r0 + r : 0) * stride + 4 * c,
+               ok);
+  }
+}
+
+// The raw tile `raw` (ROWS x D) split into the split tile `dst`; each thread
+// takes whole 16-byte chunks. The caller synchronises before and after.
+template <int ROWS, int D>
+__device__ __forceinline__ void split_tile(float* dst, const float* raw) {
+  constexpr int CH = D / 4;
+  static_assert(ROWS * CH % kThreads == 0, "whole rounds of chunks");
+#pragma unroll
+  for (int it = 0; it < ROWS * CH / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
+    const int r = i / CH, c = i % CH;
+    const float4 x = *reinterpret_cast<const float4*>(raw + r * D + 4 * c);
+    uint4 a, b;
+    split_tf32(x.x, a.x, a.y);
+    split_tf32(x.y, a.z, a.w);
+    split_tf32(x.z, b.x, b.y);
+    split_tf32(x.w, b.z, b.w);
+    *reinterpret_cast<uint4*>(dst + sswz<D>(r, 4 * c)) = a;
+    *reinterpret_cast<uint4*>(dst + sswz<D>(r, 4 * c + 2)) = b;
+  }
+}
+
+// A fragment: rows r0..r0+15 of a split tile, k = head dims 8 kk..8 kk+7.
+template <int D>
+__device__ __forceinline__ void frag_a32(FragA32& f, const float* tile, int r0, int kk) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const uint4 x0 = *reinterpret_cast<const uint4*>(tile + sswz<D>(r0 + g, 8 * kk + 2 * tq));
+  const uint4 x1 = *reinterpret_cast<const uint4*>(tile + sswz<D>(r0 + g + 8, 8 * kk + 2 * tq));
+  f.hi[0] = x0.x, f.lo[0] = x0.y, f.hi[2] = x0.z, f.lo[2] = x0.w;
+  f.hi[1] = x1.x, f.lo[1] = x1.y, f.hi[3] = x1.z, f.lo[3] = x1.w;
+}
+
+// The same from a raw tile, split here (a block's resident rows, once).
+template <int D>
+__device__ __forceinline__ void frag_a32_raw(FragA32& f, const float* raw, int r0, int kk) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const float2 x0 = *reinterpret_cast<const float2*>(raw + (r0 + g) * D + 8 * kk + 2 * tq);
+  const float2 x1 = *reinterpret_cast<const float2*>(raw + (r0 + g + 8) * D + 8 * kk + 2 * tq);
+  split_tf32(x0.x, f.hi[0], f.lo[0]);
+  split_tf32(x1.x, f.hi[1], f.lo[1]);
+  split_tf32(x0.y, f.hi[2], f.lo[2]);
+  split_tf32(x1.y, f.hi[3], f.lo[3]);
+}
+
+// B fragment with n = rows n0..n0+7 of a split tile and k = head dims
+// 8 kk..8 kk+7 (Q.K^T reads K so).
+template <int D>
+__device__ __forceinline__ void frag_b32(FragB32& f, const float* tile, int n0, int kk) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const uint4 x = *reinterpret_cast<const uint4*>(tile + sswz<D>(n0 + g, 8 * kk + 2 * tq));
+  f.hi[0] = x.x, f.lo[0] = x.y, f.hi[1] = x.z, f.lo[1] = x.w;
+}
+
+// B fragment with k = rows k0..k0+7 of a split tile in the k-step order
+// above and n = head dims 8 dn..8 dn+7 (P.V reads V so).
+template <int D>
+__device__ __forceinline__ void frag_bt32(FragB32& f, const float* tile, int k0, int dn) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const uint2 x0 = *reinterpret_cast<const uint2*>(tile + sswz<D>(k0 + 2 * tq, 8 * dn + g));
+  const uint2 x1 = *reinterpret_cast<const uint2*>(tile + sswz<D>(k0 + 2 * tq + 1, 8 * dn + g));
+  f.hi[0] = x0.x, f.lo[0] = x0.y, f.hi[1] = x1.x, f.lo[1] = x1.y;
+}
+
+// The accumulators of an n-tile over 8 columns as the A fragment of a
+// k-step over those columns, in the k-step order above: split into tf32
+// halves like any operand (not rounded to a narrower type first).
+__device__ __forceinline__ void acc_to_a32(FragA32& f, const float (&c)[4]) {
+  split_tf32(c[0], f.hi[0], f.lo[0]);
+  split_tf32(c[2], f.hi[1], f.lo[1]);
+  split_tf32(c[1], f.hi[2], f.lo[2]);
+  split_tf32(c[3], f.hi[3], f.lo[3]);
+}
+
 // Raise a kernel's dynamic shared memory limit where it passes the 48 KB default.
 template <typename K>
 cudaError_t allow_smem(K kernel, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// allow_smem, and the carveout that gives shared memory all it can, so that
+// two of the fp32 kernels' blocks of up to ~113 KB sit on one SM.
+template <typename K>
+cudaError_t allow_smem_max(K kernel, int bytes) {
+  const cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace tc

@@ -137,7 +137,7 @@ class ViTBlock(nn.Module):
             if pad:
                 k = F.pad(k, (0, 0, 0, 0, 0, pad))
                 v = F.pad(v, (0, 0, 0, 0, 0, pad))
-            # The bf16 kernel reads 16-byte rows; q, k, v are views of qkv.
+            # The kernels read 16-byte rows; q, k, v are views of qkv.
             q, k, v = (t if _rows_aligned(t) else t.contiguous() for t in (q, k, v))
             out, attn = flash_attention_biased(q, k, v, key_bias, scale=scale), None
         else:

@@ -2,12 +2,13 @@
 
 Port of ``mm_s2ut/ops/attention.py``. :func:`flash_attention` is a
 ``torch.autograd.Function``: for a CUDA tensor its forward runs the
-hand-written kernel ``csrc/flash_attention.cu`` (A, or G with ``block_k``)
-and its backward kernel H (``csrc/flash_attention_bwd.cu``); in bf16, A,
-G and H run on the tensor cores (``csrc/flash_attention_mma.cu``,
-``csrc/flash_attention_bwd_mma.cu``), which round the softmax weights
-(times the dropout factor) and dS to bf16 before their products and need
-16-byte-aligned rows; for a CPU
+hand-written kernel A (or G with ``block_k``) and its backward kernel H,
+all on the tensor cores and all reading 16-byte-aligned rows: in fp32
+``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu`` (3xTF32:
+every operand split into two tf32 halves, three products each), in bf16
+``csrc/flash_attention_mma.cu`` and ``csrc/flash_attention_bwd_mma.cu``,
+which round the softmax weights (times the dropout factor) and dS to bf16
+before their products; for a CPU
 tensor the forward is :func:`reference_attention` (the reference's XLA
 formulation) and the backward :func:`reference_attention_bwd` (H's
 formulas, ``attention.py:385-392``) — the same split the reference makes
@@ -223,15 +224,15 @@ def _check_cuda(name: str, q, k, v) -> None:
         raise ValueError(f"flash_attention: head dim {q.shape[3]} not in {HEAD_DIMS}")
     if any(t.stride(-1) != 1 or t.device != q.device for t in (k, v)) or q.stride(-1) != 1:
         raise ValueError("flash_attention: q, k, v must share a device and a dense head dim")
-    if q.dtype == torch.bfloat16 and not all(_rows_aligned(t) for t in (q, k, v)):
-        # the tensor-core kernels copy each row as 16-byte chunks
-        raise ValueError(f"{name}: bf16 rows must be 16-byte aligned (data pointer and "
-                         "strides multiples of 8 elements)")
+    if not all(_rows_aligned(t) for t in (q, k, v)):
+        # the kernels copy each row as 16-byte chunks
+        raise ValueError(f"{name}: rows must be 16-byte aligned (data pointer and strides "
+                         "multiples of 16 bytes)")
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and all(
-        t.stride(i) % 8 == 0 for i in range(3) if t.shape[i] > 1)
+        t.stride(i) * t.element_size() % 16 == 0 for i in range(3) if t.shape[i] > 1)
 
 
 def _strides(*ts):

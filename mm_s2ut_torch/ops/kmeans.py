@@ -4,7 +4,9 @@ features' device, and the unit-sequence beam decode on the host.
 Port of ``mm_s2ut/ops/kmeans.py`` (HuBERT features → discrete units, the
 reference's ``quantize_with_kmeans`` step). Distances use the GEMM
 identity ‖x‖² − 2x·Cᵀ + ‖C‖², one ``torch.matmul`` per call, as the JAX
-package computes them outside any Pallas kernel. ``kmeans_plusplus_init``
+package computes them outside any Pallas kernel; ``kmeans_assign`` then
+re-ranks the nearest few by direct differences, where the identity
+cancels (JAX's assignment keeps the identity's pick). ``kmeans_plusplus_init``
 draws from a ``torch.Generator``, so its picks differ from ``jax.random``'s;
 what it keeps is the rule: uniform candidates, then greedily the farthest.
 """
@@ -25,11 +27,24 @@ def squared_distances(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     return x2 - 2.0 * (x @ centroids.T) + c2
 
 
+REFINE = 8  # the identity's nearest centroids that kmeans_assign re-ranks
+
+
 def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
-    """(..., D) features → (...,) nearest-centroid indices (ties to the
-    lower index)."""
+    """(..., D) features → (...,) nearest-centroid indices (exact ties to
+    the lower index). The GEMM identity ranks every centroid, then its
+    ``REFINE`` nearest are re-ranked by ‖x − c‖² summed from the
+    differences. The identity's fp32 rounding is ~2⁻²⁴ (‖x‖² + ‖c‖²), so
+    for a frame close to its centroids beside their norms it exceeds gaps
+    of 0.1% between the two nearest, and a card and a CPU, or the identity
+    and float64, then pick apart; the differences do not cancel."""
     flat = x.reshape(-1, x.shape[-1])
-    return torch.argmin(squared_distances(flat, centroids), dim=-1).reshape(x.shape[:-1])
+    k = min(REFINE, centroids.shape[0])
+    cand = squared_distances(flat, centroids).topk(k, dim=-1, largest=False).indices
+    cand = cand.sort(dim=-1).values  # argmin takes the first of equal distances
+    diff = flat[:, None, :] - centroids[cand]
+    best = torch.argmin((diff * diff).sum(-1), dim=-1)
+    return cand.gather(1, best[:, None])[:, 0].reshape(x.shape[:-1])
 
 
 def kmeans_fit(x: torch.Tensor, init_centroids: torch.Tensor,

@@ -9,7 +9,10 @@ mm_s2ut_torch/csrc | tar -x -C tmp/parent``, into a gitignored
 directory). Every tree is built with ``ops/_build.py``'s flags. Each case
 launches the C entries directly through ctypes, so no wrapper work is
 timed, alternating the trees in the order given, twice (CUDA events over
-``reps`` back-to-back launches each). A and G run at rate 0 without row
+``reps`` back-to-back launches each). A and G run in bf16 and, in the
+``float32`` cases (A at the ViT's Tq = 577 over S = 584, at B = 8, T = 499
+and at B = 128, T = 250; G at B = 8, T = 250, window 64; H at the ViT's
+training shape and at T = 499), in fp32. A and G run at rate 0 without row
 statistics (the inference path's call) and, in trees that have attention
 dropout, at rate 0.1 with the statistics (the training forward); H runs
 in trees that have it. A tree whose flash entries predate dropout (no
@@ -50,7 +53,7 @@ against the decoder's plain write, bf16, int8 and both int4 halves, the
 written bytes checked equal.
 ``--only`` keeps the cases whose entry name contains one of the given
 strings or whose kind is one of them (``i4``, ``cross_i8``, ``dense``,
-``write``; e.g. ``--only ancestry cross``). ``--per-kernel`` also traces 50
+``write``, ``float32``; e.g. ``--only ancestry cross``). ``--per-kernel`` also traces 50
 launches of each launcher with ``torch.profiler`` and prints the mean
 device time of each CUDA kernel a launch runs (e.g. D's score pass,
 output pass and merge). ``--fixed-work`` adds D's and F's passes with
@@ -88,6 +91,14 @@ CASES = [  # (entry, B, T, H, D, causal, window, rate), bf16
     ("mm_flash_attention_bwd", 2, 1000, 8, 64, 0, 0, 0.1),
     ("mm_flash_attention_bwd", 8, 250, 8, 64, 1, 64, 0.1),
     ("mm_flash_attention_bwd", 8, 250, 4, 128, 0, 0, 0.1),
+]
+FP32_CASES = [  # (entry, B, T, S, H, D, causal, window, rate), fp32 (3xTF32 on the tensor cores)
+    ("mm_flash_attention", 16, 577, 584, 12, 64, 0, 0, 0.0),  # the ViT-B forward (chip_smoke.VIT)
+    ("mm_flash_attention", 8, 499, 499, 12, 64, 0, 0, 0.0),  # HuBERT-base / wav2vec2-base frames
+    ("mm_flash_attention", 128, 250, 250, 8, 64, 0, 0, 0.0),  # the offline bench point's encoder
+    ("mm_flash_attention_causal_skip", 8, 250, 250, 8, 64, 1, 64, 0.0),
+    ("mm_flash_attention_bwd", 8, 577, 584, 12, 64, 0, 0, 0.0),  # the ViT's training shape
+    ("mm_flash_attention_bwd", 8, 499, 499, 12, 64, 0, 0, 0.0),
 ]
 DECODE_CASES = [  # (entry, B, H, K, Dh, L, T_dec, step or S), bf16
     ("mm_ancestry_decode_attention", 8, 8, 10, 64, 6, 500, 300),  # chip_smoke.FLAGSHIP
@@ -211,20 +222,24 @@ class Tree:
         return self.dropout or rate == 0.0
 
 
-def _inputs(B, T, H, D):
+def _inputs(B, T, S, H, D, dtype):
+    """q, dO (B, T, H, D), k, v (B, S, H, D) and the key bias: lengths T, T - 17,
+    ... where S == T, else the keys past T padded (the ViT's)."""
     g = torch.Generator().manual_seed(T)
-    q, k, v, dout = (torch.randn(B, T, H, D, generator=g).to("cuda", torch.bfloat16)
-                     for _ in range(4))
-    lengths = torch.clamp(T - 17 * torch.arange(B), min=1)
-    bias = torch.where(torch.arange(T)[None, :] < lengths[:, None], 0.0, -1e9).cuda()
+    q, dout = (torch.randn(B, T, H, D, generator=g).to("cuda", dtype) for _ in range(2))
+    k, v = (torch.randn(B, S, H, D, generator=g).to("cuda", dtype) for _ in range(2))
+    lengths = torch.clamp(T - 17 * torch.arange(B), min=1) if S == T else torch.full((B,), T)
+    bias = torch.where(torch.arange(S)[None, :] < lengths[:, None], 0.0, -1e9).cuda()
     return q, k, v, dout, bias
 
 
-def _launcher(tree: Tree, entry, B, T, H, D, causal, window, rate):
-    q, k, v, dout, bias = _inputs(B, T, H, D)
+def _launcher(tree: Tree, entry, B, T, H, D, causal, window, rate, S=None, dtype=torch.bfloat16):
+    S = T if S is None else S
+    q, k, v, dout, bias = _inputs(B, T, S, H, D, dtype)
+    code = _build.dtype_code(dtype)
     strides = [s for t in (q, k, v) for s in (t.stride(0), t.stride(1), t.stride(2))]
     stream = torch.cuda.current_stream().cuda_stream
-    common = [B, T, T, H, D, *strides, D ** -0.5, causal, window]
+    common = [B, T, S, H, D, *strides, D ** -0.5, causal, window]
     out = torch.empty_like(q)
     stats = torch.empty((2, B * H, T), device="cuda")
     fwd_entry = "mm_flash_attention_causal_skip" if causal else "mm_flash_attention"
@@ -234,7 +249,7 @@ def _launcher(tree: Tree, entry, B, T, H, D, causal, window, rate):
     extra = ([rate, SEED if rate else 0, *bh0] + ([stats[0].data_ptr(), stats[1].data_ptr()]
                                             if with_stats else [None, None])
              if tree.dropout else [])
-    fwd_args = [_build.BF16, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+    fwd_args = [code, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 out.data_ptr(), *common, *extra, stream]
     keep = [q, k, v, dout, bias, out, stats]  # the tensors outlive the launcher
     if entry != "mm_flash_attention_bwd":
@@ -244,12 +259,12 @@ def _launcher(tree: Tree, entry, B, T, H, D, causal, window, rate):
         _build.check(fwd(*fwd_args), fwd_entry)
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
         dq = torch.empty_like(q)
-        dk, dv = (torch.empty(q.shape, device="cuda") for _ in range(2))
-        dbias = torch.empty((B, H, T), device="cuda")
+        dk, dv = (torch.empty(k.shape, device="cuda") for _ in range(2))
+        dbias = torch.empty((B, H, S), device="cuda")
         keep += [delta, dq, dk, dv, dbias]
         ptrs = [t.data_ptr() for t in (q, k, v, bias, dout, stats[0], stats[1], delta,
                                        dq, dk, dv, dbias)]
-        bwd_args = [_build.BF16, *ptrs, *common, rate, SEED if rate else 0, *bh0, stream]
+        bwd_args = [code, *ptrs, *common, rate, SEED if rate else 0, *bh0, stream]
 
         def launch():
             _build.check(tree.lib.mm_flash_attention_bwd(*bwd_args), entry)
@@ -627,6 +642,11 @@ def main(argv=None) -> int:
               lambda c=(entry, B, T, H, D, causal, window, rate): {
                   tr.label: _launcher(tr, *c) for tr in trees if tr.takes(c[0], c[-1])})
              for entry, B, T, H, D, causal, window, rate in CASES]
+    cases += [(dict(entry=entry, dtype="float32", B=B, T=T, S=S, H=H, D=D, causal=causal,
+                    window=window, rate=rate),
+               lambda c=(entry, B, T, H, D, causal, window, rate, S): {
+                   tr.label: _launcher(tr, *c, dtype=torch.float32) for tr in trees})
+              for entry, B, T, S, H, D, causal, window, rate in FP32_CASES]
     cases += [(dict(entry=entry, B=B, H=H, K=K, Dh=Dh,
                     **({"S": n} if L == 0 else {"T_dec": T, "step": n})),
                lambda c=(entry, B, H, K, Dh, L, T, n): _decode_launchers(
@@ -637,7 +657,8 @@ def main(argv=None) -> int:
               for cache, B, K, cap, L, H, Dh, step in WRITE_CASES]
     for case, make in cases:
         kind = KINDS.get(case["entry"])
-        if args.only and not any(o in case["entry"] or o == kind for o in args.only):
+        if args.only and not any(o in case["entry"] or o in (kind, case.get("dtype"))
+                                 for o in args.only):
             continue
         fns = make()
         runs = {label: [] for label in fns}

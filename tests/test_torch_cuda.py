@@ -4,13 +4,19 @@ same CUDA tensors. Skipped without a CUDA device. On a GPU machine
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: fp32 1e-4 (both sides fp32; summation order differs), bf16
-2e-2 (the plain versions round softmax weights and products to bf16
-between the two contractions; the SIMT kernels keep fp32 until the
-store, while bf16 A and H, on the tensor cores, round the weights times
-the dropout factor and dS to bf16 before their second products, with
-fp32 accumulation: ``tests/test_torch_attention_tc_numerics.py`` holds
-those rounding points to the same tolerances on the CPU).
+Tolerances: fp32 1e-4 (both sides fp32; summation order differs; fp32
+A, G and H take their products on the tensor cores in 3xTF32, two tf32
+halves of every operand, ~2^-21 of a product's scale:
+``tests/test_torch_attention_tf32_numerics.py`` emulates that arithmetic
+against JAX on the CPU), bf16 2e-2 (the plain versions round softmax
+weights and products to bf16 between the two contractions; the SIMT
+kernels keep fp32 until the store, while bf16 A and H, on the tensor
+cores, round the weights times the dropout factor and dS to bf16 before
+their second products, with fp32 accumulation:
+``tests/test_torch_attention_tc_numerics.py`` holds those rounding
+points to the same tolerances on the CPU). fp32 A, G and H are also held
+at the tile edges, G to A-causal's bits, two launches to the same bits,
+and a view one float off a 16-byte boundary raises, as in bf16.
 Kernels D and F (int8 / int4 cache): fp32 2e-3, bf16 2e-2, for a
 requantized softmax weight that flips one level at a rounding tie
 (``chip_smoke.TOL_REQUANT``); E as C. A's causal branch and G are held
@@ -308,6 +314,89 @@ def test_bf16_misaligned_rows_raise(card):
             stats = torch.zeros((2, B * H, T), device="cuda")
             with pytest.raises(ValueError, match="16-byte aligned"):
                 A.flash_attention_bwd(q, k, v, bias, stats, q, D ** -0.5, False, 0)
+
+
+@pytest.mark.parametrize("causal,window,block_k", TRAIN_MASKS)
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("T", [1, 15, 17, 63, 65, 577])
+def test_fp32_tensor_core_tile_edges(card, T, D, causal, window, block_k):
+    """fp32 A (or G with ``block_k``) and H after it, on the tensor cores in
+    3xTF32, at the 64-row query tile and key tile edges (16 keys for A and G
+    at D = 128, 32-row staged tiles in H), dropout 0 and 0.1, against the
+    twins at the fp32 tolerance (TOL times max(1, the largest |want|));
+    lengths T and T - 17 leave padded rows, some whose whole window band is
+    padding, and rows with a single valid key (T = 1, and the second row at
+    T = 15 and 17), where H's dS cancels to 0."""
+    dtype = torch.float32
+    q, k, v, kpm = flash_inputs(2, T, 2, D, dtype, seed=T + D + window)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(D)).to("cuda", dtype)
+    bias = torch.zeros(kpm.shape, device="cuda").masked_fill(kpm, A.NEG_INF)
+    for rate in (0.0, 0.1):
+        seed = 99 if rate else None
+        got = _a_then_h(q, k, v, kpm, g, causal, window, block_k, rate, seed)
+        want = (A.reference_attention(q * D ** -0.5, k, v, bias[:, None, None, :], causal, window,
+                                      rate, seed),) + \
+            A.reference_attention_bwd(q, k, v, bias, g, D ** -0.5, causal, window, rate, seed)
+        for x, y in zip(got, want):  # out dq dk dv dbias
+            _rel_close(x, y, dtype)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("window", [0, 5, 64])
+def test_fp32_g_equals_a_causal_on_rows_with_a_key(card, D, window):
+    """fp32 G (band tiles only) gives A-causal's bits (every tile) on each
+    row whose causal/window band holds a real key, with dropout and row
+    statistics: skipped tiles add p = 0 with alpha = 1."""
+    B, T, H = 3, 300, 2
+    q, k, v, kpm = flash_inputs(B, T, H, D, torch.float32, seed=D + window)
+    bias = torch.zeros(kpm.shape, device="cuda").masked_fill(kpm, A.NEG_INF)
+    runs = []
+    for entry in ("mm_flash_attention_causal_skip", "mm_flash_attention"):
+        stats = torch.empty((2, B * H, T), device="cuda")
+        runs.append((A._launch(entry, q, k, v, bias, D ** -0.5, True, window, 0.1, 3, stats),
+                     stats))
+    torch.cuda.synchronize()
+    t = torch.arange(T, device="cuda")[:, None]
+    j = torch.arange(T, device="cuda")[None, :]
+    band = (j <= t) & ((j > t - window) if window else True)
+    rows = (band[None] & ~kpm[:, None, :]).any(-1)  # (B, T)
+    assert torch.equal(runs[0][0][rows], runs[1][0][rows])
+    rows_bh = rows[:, None, :].expand(B, H, T).reshape(B * H, T)
+    assert torch.equal(runs[0][1][:, rows_bh], runs[1][1][:, rows_bh])
+
+
+@pytest.mark.parametrize("block_k", [None, 64])
+@pytest.mark.parametrize("D", [16, 64, 128])
+def test_fp32_tensor_core_deterministic(card, D, block_k):
+    """Two launches of fp32 A or G (dropout and statistics on) and H on the
+    same inputs give the same bits: no atomics, fixed summation orders."""
+    q, k, v, kpm = flash_inputs(3, 200, 4, D, torch.float32, seed=D)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to("cuda", q.dtype)
+    runs = [_a_then_h(q, k, v, kpm, g, True, 64, block_k, 0.1, 5) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+def test_fp32_misaligned_rows_raise(card):
+    """fp32 A and H copy 16-byte row chunks too: an fp32 view whose row
+    stride or data pointer is one float off a 16-byte boundary raises, for
+    A, G and H; the 16-byte-aligned views of the bf16 test run."""
+    B, T, H, D = 2, 20, 2, 16
+    wide = torch.randn(B, T, H * D + 1, device="cuda")
+    views = {
+        "row stride": wide[..., : H * D].unflatten(-1, (H, D)),
+        "data pointer": wide.flatten()[1 : 1 + B * T * H * D].view(B, T, H, D),
+    }
+    bias = torch.zeros((B, T), device="cuda")
+    stats = torch.zeros((2, B * H, T), device="cuda")
+    for what, q in views.items():
+        assert not A._rows_aligned(q), what
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            A.flash_attention(q, q, q)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            A.flash_attention(q, q, q, causal=True, block_k=64)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            A.flash_attention_bwd(q, q, q, bias, stats, q, D ** -0.5, False, 0)
 
 
 @pytest.mark.parametrize("step", [0, 13, 24])

@@ -60,6 +60,25 @@ def test_assignment_near_ties_are_the_only_differences():
     assert_units_equal_but_near_ties(got, jk.kmeans_assign(jnp.asarray(x), jnp.asarray(c)), x, c)
 
 
+def test_assignment_resolves_what_the_identity_cancels():
+    """Frames close to their centroids beside large norms (‖x − c‖² about
+    1e-6 of ‖x‖²): the GEMM identity's fp32 rounding exceeds the gaps
+    between the nearest centroids and misassigns rows whose float64 gap is
+    far from a tie; ``kmeans_assign`` re-ranks the identity's nearest by the
+    differences and gives every row float64's nearest centroid."""
+    rng = np.random.RandomState(3)
+    base = 30.0 * rng.randn(1, 64)
+    c = (base + 0.01 * rng.randn(6, 64)).astype(np.float32)
+    x = (base + 0.01 * rng.randn(200, 64)).astype(np.float32)
+    d64 = ((x[:, None, :].astype(np.float64) - c[None].astype(np.float64)) ** 2).sum(-1)
+    want = d64.argmin(-1)
+    assert not near_tie_rows(x, c).any()
+    ident = tk.squared_distances(torch.from_numpy(x), torch.from_numpy(c)).argmin(-1).numpy()
+    assert (ident != want).sum() > 10
+    got = tk.kmeans_assign(torch.from_numpy(x), torch.from_numpy(c)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("n_steps", [1, 6])
 def test_kmeans_fit_matches_jax_from_the_same_init(n_steps):
     rng = np.random.RandomState(2)
