@@ -4567,6 +4567,340 @@ def phase_tools(out_dir: Path):
     return launches
 
 
+# ------------------------------------------------------------------ the fusion types
+
+# Phase 23's settings: MultimodalConfig fields over selective_attention's
+# flagship fusion. The merge needs the image width to equal the encoder's
+# (512 at full width, 64 in the small configs).
+FUSION_TYPES = {
+    "multimodal_attention": {"multimodal_attention_type": "multimodal_attention"},
+    "multimodal_attention merged": {"multimodal_attention_type": "multimodal_attention",
+                                    "is_merge_text_img": True},
+    "external_multimodal_transformer": {
+        "multimodal_attention_type": "external_multimodal_transformer"},
+    "bridge_tower": {"multimodal_attention_type": "bridge_tower"},
+    "q_former": {"multimodal_attention_type": "selective_attention",
+                 "multimodal_extractor_type": "q_former"},
+}
+FUSION_FULL = dict(B=8, seconds=10.0, img_tokens=577, beam=10, max_len_b=200, train_B=8,
+                   train_T=1000, train_Tt=100, warm_steps=2, timed_steps=5, profile_step=50)
+
+
+def fusion_small_configs():
+    """Phase 23a's small fp32 configs (``small_config``'s 64-d, 2 + 2
+    layers, modality dropout 0.5 drawn from the host's generator; the
+    Bernoulli rates at 0, hash activation dropout 0.1): each fusion type
+    (towers of 2 levels; the Q-Former of 8 queries, 2 + 1 layers, at an
+    image width of 128) and the Q-Former over a small HuBERT encoder."""
+    import dataclasses
+
+    base = small_config()
+    base = dataclasses.replace(base, dropout=0.0, attention_dropout=0.0,
+                               activation_dropout=0.1)
+    mm = dataclasses.replace(base.multimodal, SA_image_dropout=0.0, SA_attention_dropout=0.0,
+                             external_multimodal_transformer_layers=2, num_queries=8,
+                             num_query_layers=2, num_multimodal_layers=1)
+    widths = {"multimodal_attention merged": 64, "q_former": 128}
+    out = {}
+    for name, fields in FUSION_TYPES.items():
+        out[name] = dataclasses.replace(base, multimodal=dataclasses.replace(
+            mm, image_feat_dim=[widths.get(name, 768)], **fields))
+    out["q_former over hubert"] = dataclasses.replace(  # span masking p 0.05, attention
+        # dropout 0.1 (both drawn on the host); its Bernoulli hidden dropout at 0
+        out["q_former"], speech_encoder_type="hubert", w2v_args=dict(SMALL_W2V,
+                                                                     hidden_dropout=0.0))
+    return out
+
+
+def fusion_full_config(name: str):
+    """The flagship (512-d, 12 + 6 layers, 8 heads, vocab 1004, bf16) with
+    one fusion type: towers of 6 levels, 8 heads, FFN 2048; the Q-Former
+    of 32 queries, 4 + 2 layers at 768 (12 heads); image width 768, or
+    512 for the merge."""
+    from mm_s2ut_torch.config import ModelConfig, MultimodalConfig
+
+    mm = MultimodalConfig(image_feat_dim=[512 if "merged" in name else 768],
+                          use_selective_gate=True, modality_dropout=0.5, audio_dropout=0.5,
+                          **FUSION_TYPES[name])
+    return ModelConfig(vocab_size=1004, dtype="bfloat16", multimodal=mm)
+
+
+def phase_fusion_small(out_dir: Path):
+    """Phase 23a: each small config on the card against the CPU from the
+    same weights (TF32 off): ``UnitGenerator.generate`` on the bf16 and
+    the int8 cache (beam 5, 30 units; ``sharpened_`` weights), tokens
+    equal; then three ``Trainer`` steps (``card_vs_cpu``: losses within a
+    relative 1e-5 and step-1 gradients within 1e-4, phase 10's
+    tolerances, and the parameters' change over the steps)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from mm_s2ut_torch.config import Config, GenerationConfig, TrainConfig
+    from mm_s2ut_torch.infer.generator import UnitGenerator
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+    from mm_s2ut_torch.ops import attention as A
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(23)
+    wav, wav_lens, _ = synthetic_batch(2, gen, 1.0, 2.0)
+    feats = torch.randn(2, 300, 80, generator=gen)
+    flens = torch.tensor([300, 217])
+    masks = torch.zeros(2, 50, dtype=torch.bool)
+    masks[1, 41:] = True
+    rng = np.random.RandomState(23)
+    target = rng.randint(4, 1004, (2, 12)).astype(np.int32)
+    target[1, 8:] = 1
+    counters = {"A": A.flash_attention, "H": A.flash_attention_bwd}
+    for i, (name, mcfg) in enumerate(fusion_small_configs().items()):
+        hubert = mcfg.speech_encoder_type == "hubert"
+        src, lens = (wav, wav_lens) if hubert else (feats, flens)
+        imgs = torch.randn(2, 50, mcfg.multimodal.image_feat_dim[0], generator=gen)
+        model = init_random_(MMS2UTModel(mcfg), torch.Generator().manual_seed(230 + i))
+        cpu_model = sharpened_(copy.deepcopy(model).eval())
+        gpu_model = copy.deepcopy(cpu_model).to("cuda")
+        for kv in ("bfloat16", "int8"):
+            gcfg = GenerationConfig(beam=5, max_len_a=0.0, max_len_b=30, kv_cache_dtype=kv)
+            hyps = {dev: UnitGenerator(m, gcfg).generate(src.to(dev), lens.to(dev),
+                                                         [imgs.to(dev)], [masks.to(dev)])
+                    for dev, m in (("cpu", cpu_model), ("cuda", gpu_model))}
+            for b in range(2):
+                assert hyps["cuda"][b][0]["tokens"] == hyps["cpu"][b][0]["tokens"], (
+                    f"{name}, {kv} cache, utt {b}: tokens differ")
+            print(f"phase 23a: {name}, {kv} cache: card tokens equal the CPU's (lengths "
+                  f"{[len(h[0]['tokens']) for h in hyps['cuda']]}, scores "
+                  f"{[round(h[0]['score'], 4) for h in hyps['cuda']]} vs "
+                  f"{[round(h[0]['score'], 4) for h in hyps['cpu']]})")
+        batch = {"src_features": src.numpy(), "src_lengths": lens.numpy().astype(np.int32),
+                 "target": target, "prev_output_tokens": rng.randint(4, 1004, (2, 12)).astype(
+                     np.int32), "imgs_list": (imgs.numpy(),), "img_masks_list": (masks.numpy(),)}
+        cfg = Config(model=mcfg, train=TrainConfig(lr=1e-3, warmup_updates=1,
+                                                   save_dir=str(out_dir / "fusion_train")))
+        launched = card_vs_cpu(name, model, cfg, batch, counters, phase="phase 23a")
+        layers = mcfg.w2v_args["num_hidden_layers"] if hubert else mcfg.encoder_layers
+        assert launched == {"A": 3 * layers, "H": 3 * layers}, (name, launched)
+        del model, cpu_model, gpu_model
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for the runs below
+
+
+def checking_cross_kernels(S: int, L: int):
+    """A context in which the decoder's first L calls of kernel C and of E
+    over a slab of S columns (one decode step's layers) are held against
+    their plain versions on the same inputs, bf16, TOL times max(1, the
+    largest |plain|); yields the list of (kernel, max|err|, limit)."""
+    import contextlib
+
+    import mm_s2ut_torch.models.layers as layers_mod
+    from mm_s2ut_torch.ops import decode_attention as D
+
+    seen = []
+    c_kernel, e_kernel = layers_mod.cross_decode_attention, layers_mod.cross_decode_attention_i8
+
+    def held(name, got, want):
+        assert torch.isfinite(got).all(), f"kernel {name} at S={S}: non-finite output"
+        err = (got.float() - want.float()).abs().max().item()
+        lim = TOL[torch.bfloat16] * max(1.0, want.float().abs().max().item())
+        assert err <= lim, f"kernel {name} at S={S}: max|err| {err} > {lim}"
+        seen.append((name, err, lim))
+
+    def c_checked(q, kv, bias):
+        out = c_kernel(q, kv, bias)
+        if kv.shape[2] == S and sum(n == "C" for n, _, _ in seen) < L:
+            held("C", out, D.cross_reference(q, kv, bias))
+        return out
+
+    def e_checked(q, kv, sk, sv, bias):
+        out = e_kernel(q, kv, sk, sv, bias)
+        if kv.shape[2] == S and sum(n == "E" for n, _, _ in seen) < L:
+            held("E", out, D.cross_reference_i8(q, kv, sk, sv, bias))
+        return out
+
+    @contextlib.contextmanager
+    def ctx():
+        layers_mod.cross_decode_attention, layers_mod.cross_decode_attention_i8 = (
+            c_checked, e_checked)
+        try:
+            yield seen
+        finally:
+            layers_mod.cross_decode_attention = c_kernel
+            layers_mod.cross_decode_attention_i8 = e_kernel
+
+    return ctx()
+
+
+def phase_fusion_full():
+    """Phase 23b: each fusion type at the flagship's width (random weights),
+    8 x 10 s utterances with 577 image tokens, beam 10, max_len_b 200, the
+    int8 then the bf16 cache: ms per utterance (encode and search), the
+    launches of A-E over exactly that run, one decode step profiled (busy
+    share, launches); for the merged type (S = 250 + 577 = 827) C and E held
+    against their plain versions on the first decode step's slab, and both
+    timed at that shape beside SDPA. Returns the launches summed over the
+    timed runs, and C's and E's records at S = 827."""
+    from mm_s2ut_torch.config import GenerationConfig
+    from mm_s2ut_torch.infer.generator import UnitGenerator
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.ops import decode_attention as D
+    from mm_s2ut_torch.ops.fbank import FbankConfig, waveform_frontend
+    from mm_s2ut_torch.tools.host_cost import profile_decode_step
+
+    f = FUSION_FULL
+    gen = torch.Generator().manual_seed(231)
+    wav, lens, imgs768 = synthetic_batch(f["B"], gen, f["seconds"], f["seconds"])
+    imgs768 = imgs768[:, : f["img_tokens"]]
+    feats, flens = waveform_frontend(wav.cuda(), lens.cuda(), FbankConfig())
+    masks = torch.zeros(imgs768.shape[:2], dtype=torch.bool, device="cuda")
+    counters = {"A": A.flash_attention, "B": D.ancestry_decode_attention,
+                "C": D.cross_decode_attention, "D": D.ancestry_decode_attention_i8,
+                "E": D.cross_decode_attention_i8}
+    total = {k: 0 for k in counters}
+    for name in FUSION_TYPES:
+        cfg = fusion_full_config(name)
+        model = init_random_(MMS2UTModel(cfg), gen).to("cuda").eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        imgs = [imgs768[..., : cfg.multimodal.image_feat_dim[0]].cuda()]
+        with torch.no_grad():
+            enc = model.encode(feats, flens, imgs, [masks])
+        S = enc["encoder_out"].shape[1]
+        T_enc = (feats.shape[1] - 1) // 2 // 2 + 1
+        assert S == T_enc + (f["img_tokens"] if "merged" in name else 0), (name, S)
+        assert torch.isfinite(enc["encoder_out"]).all(), name
+        del enc
+        for kv in ("int8", "bfloat16"):
+            gcfg = GenerationConfig(beam=f["beam"], max_len_a=0.0, max_len_b=f["max_len_b"],
+                                    kv_cache_dtype=kv)
+            generator = UnitGenerator(model, gcfg)
+            if "merged" in name:  # the first decode step's slab, held; doubles as the warm-up
+                short = UnitGenerator(model, GenerationConfig(
+                    beam=f["beam"], max_len_a=0.0, max_len_b=2, kv_cache_dtype=kv))
+                with checking_cross_kernels(S, cfg.decoder_layers) as seen:
+                    short.generate(feats, flens, imgs, [masks])
+                want = "E" if kv == "int8" else "C"
+                assert [n for n, _, _ in seen] == [want] * cfg.decoder_layers, seen
+                print(f"phase 23b: {name}, {kv} cache: kernel {want} on the first decode step's "
+                      f"slab (B={f['B']}, K={f['beam']}, S={S}) held against its plain version "
+                      f"in each of {cfg.decoder_layers} layers, worst max|err| "
+                      f"{max(e for _, e, _ in seen):.3e} (limit {min(l for _, _, l in seen):.3g})")
+            else:
+                generator.generate(feats[:2, :100], flens[:2].clamp(max=100), [imgs[0][:2]],
+                                   [masks[:2]])  # warm-up
+            (hyps, secs), _, counts = counted(counters, lambda: timed(lambda: generator.generate(
+                feats, flens, imgs, [masks])))
+            assert len(hyps) == f["B"] and all(len(h) == f["beam"] for h in hyps)
+            assert all(torch.isfinite(torch.tensor(h[0]["score"])) for h in hyps)
+            assert all(0 <= t < 1004 for h in hyps for t in h[0]["tokens"])
+            need = "ADE" if kv == "int8" else "ABC"
+            assert all(counts[k] > 0 for k in need), f"{name}, {kv}: a kernel never launched: {counts}"
+            assert counts["A"] == cfg.encoder_layers, (name, counts)
+            total = {k: total[k] + counts[k] for k in counts}
+            # the search runs at least as many steps as its longest hypothesis
+            at_step = min(f["profile_step"], max(len(h[0]["tokens"]) for h in hyps) - 3)
+            if at_step >= 2:
+                prof = profile_decode_step(generator, feats, flens, imgs, [masks], at_step)
+                shares = {k: prof[f"{k}_share"] for k in ("B", "C", "D", "E")
+                          if prof.get(f"{k}_share")}
+                profiled = (f"decode step {at_step} profiled: {prof['step_ms']:.3f} ms, device "
+                            f"{prof['device_ms']:.3f} ms, busy {prof['busy']}, "
+                            f"{prof['launches']} launches, {prof['aten_calls']} aten calls, "
+                            f"kernel shares {shares}")
+            else:
+                profiled = "no decode step profiled (the hypotheses end too early)"
+            print(f"phase 23b: {name} ({n_params / 1e6:.1f} M params), {kv} cache, "
+                  f"{f['B']} x {f['seconds']:.0f} s, S={S}: {secs * 1e3 / f['B']:.2f} ms per "
+                  f"utterance (encode and search, {secs:.3f} s), unit lengths "
+                  f"{[len(h[0]['tokens']) for h in hyps]}; launches {counts}; {profiled}")
+        del model
+        torch.cuda.empty_cache()
+    # C and E alone at the merged slab's shape, beside SDPA (C) and the bound
+    s, S = FLAGSHIP, 250 + 577
+    record = {}
+    c_args = cross_inputs(f["B"], s["H"], f["beam"], s["Dh"], S, torch.bfloat16, seed=827)
+    c_mask = c_args[2][:, None, None, :].to(torch.bfloat16)
+    c_k, c_v = c_args[1][..., : s["Dh"]], c_args[1][..., s["Dh"]:]
+    record["C"] = {**check_and_time(
+        f"C B={f['B']} K={f['beam']} S={S}", torch.bfloat16,
+        lambda: D.cross_decode_attention(*c_args), lambda: D.cross_reference(*c_args),
+        TOL[torch.bfloat16], lambda: torch.nn.functional.scaled_dot_product_attention(
+            c_args[0], c_k, c_v, attn_mask=c_mask, scale=1.0), phase="phase 23b"),
+        **cross_work(c_args[0], S, 2 * s["Dh"] * 2, "bf16")}
+    e_args = quant_cross_inputs(f["B"], s["H"], f["beam"], s["Dh"], S, torch.bfloat16, seed=828)
+    record["E"] = {**check_and_time(
+        f"E B={f['B']} K={f['beam']} S={S}", torch.bfloat16,
+        lambda: D.cross_decode_attention_i8(*e_args), lambda: D.cross_reference_i8(*e_args),
+        TOL[torch.bfloat16], phase="phase 23b"),
+        **cross_work(e_args[0], S, 2 * s["Dh"] + 8, "bf16")}
+    for k, r in record.items():
+        lib = f", kernel / SDPA {r['ms'] / r['library_ms']:.3f}" if r["library_ms"] else ""
+        print(f"phase 23b: {k} at S={S}: bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
+              f"kernel / bound {r['ms'] / r['bound_ms']:.2f}{lib}")
+    del c_args, e_args
+    torch.cuda.empty_cache()
+    return total, record
+
+
+def phase_fusion_train():
+    """Phase 23c: one full-width train step per fusion type at phase 11's
+    point (B=8 x 1000 frames x 100 targets, 577 image tokens, bf16
+    autocast, dropouts 0.1, Adam from ``init_parameters_``): 2 warm-up and
+    5 timed steps, ms per step, A and H once per encoder layer per step.
+    Returns H's launches over the timed steps."""
+    import numpy as np
+
+    from mm_s2ut_torch.config import Config, TrainConfig
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel, init_parameters_
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.train.trainer import Trainer, to_device
+
+    f = FUSION_FULL
+    counters = {"A": A.flash_attention, "H": A.flash_attention_bwd}
+    h_launches = 0
+    for i, name in enumerate(FUSION_TYPES):
+        mcfg = fusion_full_config(name)
+        cfg = Config(model=mcfg, train=TrainConfig(update_freq=1, warmup_updates=10,
+                                                   label_smoothing=0.2))
+        trainer = Trainer(cfg, init_parameters_(MMS2UTModel(mcfg),
+                                                torch.Generator().manual_seed(232 + i)), "cuda")
+        n_params = sum(p.numel() for p in trainer.params)
+        batch = train_batch(f["train_B"], f["train_T"], f["train_Tt"],
+                            img_tokens=f["img_tokens"], seed=23)
+        width = mcfg.multimodal.image_feat_dim[0]
+        batch["imgs_list"] = (batch["imgs_list"][0][..., :width],)
+        batch = to_device(batch, torch.device("cuda"))
+        torch.cuda.reset_peak_memory_stats()
+        metrics = [trainer.train_batch(batch) for _ in range(f["warm_steps"])]
+        (timed_m, secs), _, counts = counted(counters, lambda: timed(
+            lambda: [trainer.train_batch(batch) for _ in range(f["timed_steps"])]))
+        metrics += timed_m
+        per_step = {k: v / f["timed_steps"] for k, v in counts.items()}
+        losses = [m["loss"] / m["ntokens"] for m in metrics]
+        assert all(np.isfinite(losses)), (name, losses)
+        assert per_step == {"A": mcfg.encoder_layers, "H": mcfg.encoder_layers}, (name, per_step)
+        h_launches += counts["H"]
+        print(f"phase 23c: {name} ({n_params / 1e6:.1f} M params), B={f['train_B']} "
+              f"T_src={f['train_T']} Tt={f['train_Tt']}: {secs * 1e3 / f['timed_steps']:.3f} ms "
+              f"per step over {f['timed_steps']} steps ({f['warm_steps']} warm-up), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches per step "
+              f"{per_step}; loss per step {[round(x, 4) for x in losses]}")
+        del trainer, batch
+        torch.cuda.empty_cache()
+    return h_launches
+
+
+def phase_fusion_types(out_dir: Path):
+    """Phase 23: the fusion types (23a-23c). Returns the launches of A-E in
+    23b's timed runs and of H in 23c's timed steps, and C's and E's records
+    at the merged slab's S = 827."""
+    t0 = time.perf_counter()
+    phase_fusion_small(out_dir)
+    launches, record = phase_fusion_full()
+    launches["H"] = phase_fusion_train()
+    print(f"phase 23: {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches, record
+
+
 KERNELS = {  # name, source (of the bf16 instance the record times; A's and H's fp32_* fields
     # time their fp32 source), the TPU kernel it replaces
     "A": ("flash_attention", "mm_s2ut_torch/csrc/flash_attention_mma.cu",
@@ -4636,6 +4970,9 @@ def main(argv=None) -> int:
     train_launches = phase_train_speech_encoders(Path(args.out), plain_step_ms)
     vit_train_launches = phase_train_through_images(Path(args.out))
     tools_launches = phase_tools(Path(args.out))
+    fusion_launches, fusion_record = phase_fusion_types(Path(args.out))
+    for name, fields in fusion_record.items():
+        record[name].update({f"s827_{k}": v for k, v in fields.items()})
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -4643,7 +4980,8 @@ def main(argv=None) -> int:
          "image_launches": image_launches.get(k, 0),
          "train_launches": train_launches.get(k, 0),
          "vit_train_launches": vit_train_launches.get(k, 0),
-         "tools_launches": tools_launches.get(k, 0), **record[k]}
+         "tools_launches": tools_launches.get(k, 0),
+         "fusion_launches": fusion_launches.get(k, 0), **record[k]}
         for k, (name, src, rep) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

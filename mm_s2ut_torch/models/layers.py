@@ -181,13 +181,14 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(out.reshape(*query.shape[:2], self.embed_dim))
 
     def dense(self, query: torch.Tensor, key: torch.Tensor,
-              bias: Optional[torch.Tensor]) -> torch.Tensor:
+              bias: Optional[torch.Tensor], value: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The reference's dense path: softmax(q.kᵀ/√Dh + bias) over ``key``
-        (B, S, E) with fp32 logits, weights in the compute dtype (dropped in
-        training), then · v. Plain PyTorch, as the reference's einsums."""
+        (B, S, kdim) with fp32 logits, weights in the compute dtype (dropped
+        in training), then · v, projected from ``value`` (``key`` when it is
+        None). Plain PyTorch, as the reference's einsums."""
         q = self._split(self.q_proj(query)) * self.head_dim ** -0.5
         k = self._split(self.k_proj(key))
-        v = self._split(self.v_proj(key))
+        v = self._split(self.v_proj(key if value is None else value))
         logits = fp32_einsum("bqhd,bkhd->bhqk", q, k)
         if bias is not None:
             logits = logits + bias.float()

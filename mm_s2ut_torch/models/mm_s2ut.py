@@ -10,8 +10,19 @@ and ``decode_prefill`` (streaming's prefix reuse) and ``serve_step``
 wav2vec2/HuBERT encoder (``speech_encoder_type`` ``hubert`` or
 ``wav2vec2``, or ``wav2vec2_multimodal`` with its in-layer image fusion
 instead of top fusion; ``models/wav2vec2.py``, configured by
-``w2v_args``; ``speech_proj`` takes its width to the encoder's) with top
-selective-attention fusion: any activation of the reference's table but
+``w2v_args``; ``speech_proj`` takes its width to the encoder's), with
+every fusion type of the reference (``multimodal_attention_type``): top
+fusion blocks of selective or multimodal attention (the latter with a
+learned extra key/value column and, with ``is_merge_text_img``, the
+encoder output becoming [speech; image] under the mask [speech mask;
+zeros]), or per image source an external or a BridgeTower tower over the
+encoder's last per-layer states (before its final LayerNorm) and the
+projected image, the towers' outputs summed; and with
+``multimodal_extractor_type=q_former`` the Q-Former, whose learned queries
+read the speech (through ``q_former_speech_proj`` where the widths differ)
+and the first image source and replace that source, unmasked (built and
+run even where nothing reads its output, as in the reference). Any
+activation of the reference's table but
 ``glu``, pre- or post-norm, a tied or untied output embedding, stacked
 units (training only), target-speaker conditioning (``spk_emb_proj``),
 ``only_img`` (the first image source stands in for the encoder output,
@@ -25,8 +36,8 @@ for ``vit_timm``/``vit_huggingface``, the CLIP tower for ``vit_openai``;
 it, and its features replace that source with no padding, in training
 too. The auxiliary heads over the encoder output (:func:`add_aux_heads`:
 the CTC head with ``ctc_weight`` > 0, a CTC or small transformer head per
-``multitask`` task) give their logits in ``forward``. Other fusion types
-and the pipelined encoder raise at construction (:func:`_check_ported`).
+``multitask`` task) give their logits in ``forward``. The pipelined
+encoder and ``glu`` raise at construction (:func:`_check_ported`).
 With ``checkpoint_activations`` the conv-transformer's layers are
 rematerialised in training. The encoder's self-attention runs kernel A,
 or kernel G with ``encoder_causal_attention`` (and
@@ -50,7 +61,9 @@ from torch import nn
 
 from mm_s2ut_torch.config import ModelConfig
 from mm_s2ut_torch.models.decoder import CTCHead, DecoderState, UnitDecoder
-from mm_s2ut_torch.models.fusion import FusionBlock, modality_dropout
+from mm_s2ut_torch.models.fusion import (BridgeTowerEncoder, ExternalMultimodalEncoder,
+                                         FusionBlock, MultimodalAttention, QFormer,
+                                         modality_dropout)
 from mm_s2ut_torch.models.layers import MultiHeadAttention
 from mm_s2ut_torch.models.s2t_encoder import SpeechTransformerEncoder
 from mm_s2ut_torch.models.vit import (CLIPVisionConfig, CLIPVisionTransformer, ViTConfig,
@@ -60,6 +73,9 @@ from mm_s2ut_torch.ops.dropout import DropoutRng
 
 
 SPEECH_ENCODERS = ("conv_transformer", "hubert", "wav2vec2", "wav2vec2_multimodal")
+FUSION_BLOCKS = ("selective_attention", "multimodal_attention")  # fusion{i} on top
+TOWERS = {"external_multimodal_transformer": ("external", ExternalMultimodalEncoder),
+          "bridge_tower": ("bridge", BridgeTowerEncoder)}
 
 
 def reads_waveform(cfg: ModelConfig) -> bool:
@@ -69,16 +85,13 @@ def reads_waveform(cfg: ModelConfig) -> bool:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    """Refuse the settings whose modules the port does not have yet: the
-    other fusion types and the pipelined encoder (ROADMAP.md §1). Every
-    other setting of ``ModelConfig`` is ported."""
-    mm = cfg.multimodal
+    """Refuse the settings the port does not have: the pipelined encoder
+    (ROADMAP.md §1 item 9) and ``glu``, which the reference cannot run
+    either. Every other setting of ``ModelConfig`` is ported."""
     if cfg.speech_encoder_type not in SPEECH_ENCODERS:
         raise ValueError(f"speech_encoder_type={cfg.speech_encoder_type!r}: expected one of "
                          f"{SPEECH_ENCODERS}")
     unported = {
-        "multimodal_attention_type": mm.multimodal_attention_type not in (None, "selective_attention"),
-        "multimodal_extractor_type": mm.multimodal_extractor_type is not None,
         "pipeline_stages": cfg.pipeline_stages > 1,
         "activation_fn=glu": cfg.activation_fn == "glu",
     }
@@ -141,7 +154,9 @@ def init_parameters_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     conv kernel, N(0, D^-1/2) for the unit embedding, zero biases, unit
     LayerNorm and GroupNorm scales, U[0, 1) for wav2vec2's
     ``masked_spec_embed``, zeros for the image encoders' class token and
-    N(0, 0.02) for their positions. Training from scratch starts here."""
+    N(0, 0.02) for their positions and the Q-Former's queries, and flax's
+    xavier-normal (truncated at 2σ, fans 1 and kdim) for multimodal
+    attention's ``bias_k``/``bias_v``. Training from scratch starts here."""
     attn = {id(m) for mha in model.modules() if isinstance(mha, MultiHeadAttention)
             for m in (mha.q_proj, mha.k_proj, mha.v_proj, mha.out_proj)}
     for mod in model.modules():
@@ -150,6 +165,12 @@ def init_parameters_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.bias.fill_(0.0)
         elif isinstance(mod, Wav2Vec2Model):
             mod.masked_spec_embed.uniform_(0.0, 1.0, generator=generator)
+        elif isinstance(mod, MultimodalAttention):
+            for p in mod.parameters(recurse=False):
+                std = (2.0 / (p.shape[-2] + p.shape[-1])) ** 0.5 / 0.87962566103423978
+                nn.init.trunc_normal_(p, std=std, a=-2 * std, b=2 * std, generator=generator)
+        elif isinstance(mod, QFormer):
+            mod.query_embedding.normal_(0.0, 0.02, generator=generator)
         elif isinstance(mod, (VisionTransformer, CLIPVisionTransformer)):
             for name, p in mod.named_parameters(recurse=False):
                 if name == "pos_embed":
@@ -225,14 +246,32 @@ class MMS2UTModel(nn.Module):
         if cfg.speaker_embed_dim:
             self.spk_emb_proj = nn.Linear(cfg.encoder_embed_dim + cfg.speaker_embed_dim,
                                           cfg.encoder_embed_dim)
-        fused = (mm.multimodal_attention_type and mm.is_fusion_top and not mm.only_img
+        d, kind = cfg.encoder_embed_dim, mm.multimodal_attention_type
+        fused = (kind in FUSION_BLOCKS and mm.is_fusion_top and not mm.only_img
                  and not in_layer)
         self.n_fusion = len(mm.image_feat_dim) if fused else 0
         for i in range(self.n_fusion):
             self.add_module(f"fusion{i}", FusionBlock(
-                cfg.encoder_embed_dim, mm.image_feat_dim[i], mm.SA_image_dropout,
-                mm.SA_text_dropout, mm.SA_attention_dropout, mm.use_selective_gate,
-                mm.image_pre_norm))
+                d, mm.image_feat_dim[i], mm.SA_image_dropout, mm.SA_text_dropout,
+                mm.SA_attention_dropout, mm.use_selective_gate, mm.image_pre_norm,
+                attention_type=kind, is_merge_text_img=mm.is_merge_text_img))
+        # Per image source a tower and the projection of the image to the
+        # encoder's width: external_tower{i}/external_img_proj{i} or
+        # bridge_tower{i}/bridge_img_proj{i}.
+        self.n_towers = len(mm.image_feat_dim) if kind in TOWERS and not mm.only_img else 0
+        for i in range(self.n_towers):
+            prefix, tower = TOWERS[kind]
+            self.add_module(f"{prefix}_tower{i}", tower(
+                d, max(d // 64, 1), 4 * d, mm.external_multimodal_transformer_layers,
+                mm.SA_attention_dropout))
+            self.add_module(f"{prefix}_img_proj{i}", nn.Linear(mm.image_feat_dim[i], d))
+        if mm.multimodal_extractor_type == "q_former" and not mm.only_img:
+            img_dim = mm.image_feat_dim[0] if mm.image_feat_dim else 768
+            self.q_former = QFormer(
+                img_dim, max(img_dim // 64, 1), 4 * img_dim, mm.num_queries, mm.num_query_layers,
+                mm.num_multimodal_layers, mm.SA_attention_dropout, mm.self_attention_first)
+            if img_dim != d:
+                self.q_former_speech_proj = nn.Linear(d, img_dim)
         self.decoder = UnitDecoder(
             vocab_size=cfg.vocab_size,
             embed_dim=cfg.decoder_embed_dim,
@@ -320,31 +359,66 @@ class MMS2UTModel(nn.Module):
             if mask is None:
                 mask = torch.zeros(img.shape[:2], dtype=torch.bool, device=img.device)
             return {"encoder_out": img, "encoder_padding_mask": mask, "encoder_states": []}
+        mm = self.cfg.multimodal
         if hasattr(self, "speech_encoder"):
             out = self._speech_encode(src_features, src_lengths, imgs_list, img_masks_list)
         else:
-            out = self.encoder(src_features, src_lengths,
-                               return_all_states=not self.cfg.multimodal.is_fusion_top)
+            # The towers read every layer's state, as does a fusion block kept off the top.
+            need_states = bool(self.n_towers) or (
+                mm.multimodal_attention_type in FUSION_BLOCKS and bool(mm.image_feat_dim)
+                and not mm.is_fusion_top)
+            out = self.encoder(src_features, src_lengths, return_all_states=need_states)
         x, padding_mask = out["encoder_out"], out["encoder_padding_mask"]
         if hasattr(self, "spk_emb_proj") and tgt_speaker is not None:
             spk = tgt_speaker[:, None, :].to(x.dtype).expand(*x.shape[:2], tgt_speaker.shape[-1])
             x = self.spk_emb_proj(torch.cat([x, spk], dim=-1))
+        if hasattr(self, "q_former") and imgs_list:
+            speech = self.q_former_speech_proj(x) if hasattr(self, "q_former_speech_proj") else x
+            imgs_list[0] = self.q_former(speech, imgs_list[0].to(x.dtype), padding_mask,
+                                         img_masks_list[0])
+            img_masks_list[0] = torch.zeros(imgs_list[0].shape[:2], dtype=torch.bool,
+                                            device=x.device)
+        if self.n_towers and imgs_list:
+            x = self._run_towers(x, padding_mask, out["encoder_states"], imgs_list,
+                                 img_masks_list)
         if self.n_fusion and imgs_list:
-            mm = self.cfg.multimodal
-            if self.training and mm.modality_dropout > 0:
-                if self.rng is None:
-                    raise RuntimeError("training with modality dropout needs set_dropout_rng")
-                x, imgs_list = modality_dropout(self.rng, x, imgs_list, mm.modality_dropout,
-                                                mm.audio_dropout)
-            fused = [
-                getattr(self, f"fusion{i}")(x, img.to(x.dtype), mask)
-                for i, (img, mask) in enumerate(zip(imgs_list, img_masks_list))
-            ]
-            x = fused[0]
-            for extra in fused[1:]:
-                x = x + extra
+            x, imgs_list = self._modality_dropout(x, imgs_list)
+            fused = []
+            for i, (img, img_mask) in enumerate(zip(imgs_list, img_masks_list)):
+                res, mask = getattr(self, f"fusion{i}")(x, padding_mask, img.to(x.dtype),
+                                                        img_mask)
+                fused.append(res)
+            x = sum(fused[1:], fused[0])
+            padding_mask = mask  # the last block's: with the merge, [speech mask; zeros]
         return {"encoder_out": x, "encoder_padding_mask": padding_mask,
                 "encoder_states": out["encoder_states"]}
+
+    def _modality_dropout(self, x, imgs_list):
+        mm = self.cfg.multimodal
+        if not (self.training and mm.modality_dropout > 0):
+            return x, imgs_list
+        if self.rng is None:
+            raise RuntimeError("training with modality dropout needs set_dropout_rng")
+        return modality_dropout(self.rng, x, imgs_list, mm.modality_dropout, mm.audio_dropout)
+
+    def _run_towers(self, x, padding_mask, states, imgs_list, img_masks_list) -> torch.Tensor:
+        """Per image source, its tower over the encoder's last n per-layer
+        states (the last one repeated when there are fewer; ``x`` alone
+        without states) and the projected image at every level; the
+        towers' speech outputs summed. Modality dropout draws as in top
+        fusion, but only the images' factor reaches the output: the towers
+        read the states, not ``x`` (as in the reference)."""
+        n = self.cfg.multimodal.external_multimodal_transformer_layers
+        _, imgs_list = self._modality_dropout(x, imgs_list)
+        states = list(states) or [x]
+        speech = states[-n:] if len(states) >= n else [states[-1]] * n
+        prefix = TOWERS[self.cfg.multimodal.multimodal_attention_type][0]
+        fused = []
+        for i, (img, img_mask) in enumerate(zip(imgs_list, img_masks_list)):
+            img = getattr(self, f"{prefix}_img_proj{i}")(img.to(x.dtype))
+            res = getattr(self, f"{prefix}_tower{i}")(speech, [img] * n, padding_mask, img_mask)
+            fused.append(res[0] if prefix == "bridge" else res)
+        return sum(fused[1:], fused[0])
 
     def forward(
         self,

@@ -145,7 +145,7 @@ class MMXMTransformerModel(nn.Module):
                 x, imgs_list = modality_dropout(self.rng, x, imgs_list, mm.modality_dropout,
                                                 mm.audio_dropout)
             masks = list(img_masks_list) or [None] * len(imgs_list)
-            fused = [getattr(self, f"fusion{i}")(x, img.to(x.dtype), mask)
+            fused = [getattr(self, f"fusion{i}")(x, padding_mask, img.to(x.dtype), mask)[0]
                      for i, (img, mask) in enumerate(zip(imgs_list, masks))]
             x = fused[0]
             for extra in fused[1:]:

@@ -52,6 +52,7 @@ reference's ``load_component``.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 from pathlib import Path
@@ -69,6 +70,22 @@ from mm_s2ut_torch.train.metrics import MetricsAggregator
 from mm_s2ut_torch.train.optimizer import Optimizer, global_norm
 
 logger = logging.getLogger(__name__)
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN restricted to its deterministic algorithms. The weight
+    gradient of the conv subsampler's first conv otherwise sums in an
+    order that varies from call to call (1e-9 apart in fp32), and Adam
+    turns such a difference in a near-zero gradient into one of about lr,
+    so two runs of one config from one seed would part, where the
+    reference's are equal."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
 
 
 def to_device(batch: Dict, device: torch.device) -> Dict:
@@ -194,7 +211,8 @@ class Trainer:
         for p in self.params:
             p.grad = None
         if has_rows:
-            loss, metrics = self._loss(batch)
+            with deterministic_convs():
+                loss, metrics = self._loss(batch)
             self.metric_names = sorted(metrics)
         if self.parallel is not None and n < self.parallel.world:
             # Processes past the rows ran no forward: they take rank 0's
@@ -210,7 +228,8 @@ class Trainer:
         sums = self._all_reduce(sums)
         ntokens = sums[names.index("ntokens")]
         if has_rows:
-            (loss / ntokens.clamp_min(1.0)).backward()
+            with deterministic_convs():
+                (loss / ntokens.clamp_min(1.0)).backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         if self.parallel is not None:
             flat = self._all_reduce(torch.cat([g.reshape(-1) for g in grads]))

@@ -16,8 +16,10 @@ with the same flax parameters (``convert.from_flax``).
    top tokens equal, scores atol 1e-4.
 4. Speaker-conditioned vocoding against JAX's ``CodeHiFiGAN`` (atol 1e-4),
    from flax parameters and from a fairseq checkpoint.
-5. The settings still unported raise ``NotImplementedError`` (the
-   wav2vec2/HuBERT speech encoders are ported: ``tests/test_torch_xm.py``)."""
+5. ``ModelConfig()`` itself (multimodal attention at the flagship's
+   width) against JAX's model; the settings the port does not have
+   (``pipeline_stages`` > 1, ``glu``) raise ``NotImplementedError`` (the
+   other fusion types: ``tests/test_torch_fusion_types.py``)."""
 import copy
 import dataclasses
 import functools
@@ -315,12 +317,37 @@ def test_speaker_vocoder_fairseq_checkpoint_matches_jax_loader(tmp_path):
     np.testing.assert_allclose(got_wav.numpy(), np.asarray(want_wav), atol=1e-4)
 
 
+def test_default_config_matches_jax():
+    """``ModelConfig()`` as it stands: the flagship's width in bf16 with the
+    default fusion type, multimodal attention with its learned extra
+    key/value column, on one short utterance and 4 image tokens: the
+    encoder output and the logits within 5e-2 times their largest
+    magnitude (the bf16 rule for states; both came within 0.047 absolute
+    of JAX's when this test was written)."""
+    jcfg = ModelConfig()
+    assert jcfg.multimodal.multimodal_attention_type == "multimodal_attention"
+    rng = np.random.RandomState(8)
+    args = (rng.randn(1, 40, 80).astype(np.float32), np.array([40], np.int32),
+            rng.randint(4, jcfg.vocab_size, (1, 4)).astype(np.int32),
+            (rng.randn(1, 4, 768).astype(np.float32),), (np.zeros((1, 4), bool),))
+    jmodel = JModel(jcfg)
+    params = jax.tree_util.tree_map(np.asarray, jmodel.init(jax.random.PRNGKey(9), *args))
+    assert "bias_k" in params["params"]["fusion0"]["multimodal_attn"]
+    tmodel = TModel(tconfig.ModelConfig())
+    tmodel.load_state_dict(from_flax(params, tmodel))
+    tmodel.eval()
+    want = jmodel.apply(params, *args, deterministic=True)
+    with torch.no_grad():
+        got = tmodel(*(_t(x) for x in args[:3]), [_t(x) for x in args[3]],
+                     [_t(x) for x in args[4]])
+    for key in ("encoder_out", "logits"):
+        w = np.asarray(want[key], np.float32)
+        assert tuple(got[key].shape) == w.shape
+        np.testing.assert_allclose(got[key].float().numpy(), w, err_msg=key,
+                                   atol=TOL["bfloat16"] * max(1.0, np.abs(w).max()))
+
+
 @pytest.mark.parametrize("fields,mm", [
-    ({"speech_encoder_type": "hubert"}, {"multimodal_extractor_type": "q_former"}),
-    ({}, {"multimodal_attention_type": "multimodal_attention"}),
-    ({}, {"multimodal_attention_type": "external_multimodal_transformer"}),
-    ({}, {"multimodal_attention_type": "bridge_tower"}),
-    ({}, {"multimodal_extractor_type": "q_former"}),
     ({"pipeline_stages": 2}, {}),
     ({"activation_fn": "glu"}, {}),
 ])

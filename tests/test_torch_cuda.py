@@ -39,8 +39,9 @@ over S = 584) is held to its twin, and A, G and H with attention dropout
 on a data-parallel shard (``dropout_row0``) give that shard's rows of the
 whole batch bit for bit. A two-member logit ensemble of the small fp32
 config decodes on the card as on the CPU for each cache (tokens equal,
-scores within 1e-4), and k-means assignment at 1000 x 768 agrees with the
-CPU but at near-ties (``chip_smoke.near_ties``)."""
+scores within 1e-4), k-means assignment at 1000 x 768 agrees with the
+CPU but at near-ties (``chip_smoke.near_ties``), and two runs of three
+train steps from the same weights end bit for bit equal."""
 import pytest
 import torch
 
@@ -1135,6 +1136,45 @@ def test_small_checkpointed_xm_train_step_card_against_cpu(card):
     launched = card_vs_cpu("small XM", model, Config(model=cfg, train=TrainConfig(
         lr=1e-3, warmup_updates=1)), batch, counters)
     assert launched["H"] > 0 and launched["A"] == 2 * launched["H"], launched
+
+
+def test_train_steps_repeat_bit_for_bit(card):
+    """Two trainers of the small fp32 config (dropouts 0.1) from the same
+    weights take the same three steps on the card: every parameter ends
+    bit for bit equal. cuDNN's default weight gradient for the
+    subsampler's first conv varies from call to call, and Adam enlarges
+    such a difference on a near-zero gradient; the train step holds cuDNN
+    to its deterministic algorithms (``trainer.deterministic_convs``)."""
+    import copy
+
+    import numpy as np
+
+    from chip_smoke import init_random_, small_config
+    from mm_s2ut_torch.config import Config, TrainConfig
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+    from mm_s2ut_torch.train.trainer import Trainer
+
+    cfg = small_config()
+    cfg.multimodal.image_feat_dim = [64]
+    gen = torch.Generator().manual_seed(23)
+    rng = np.random.RandomState(23)
+    target = rng.randint(4, 1004, (4, 12)).astype(np.int32)
+    target[1, 8:] = 1
+    batch = {"src_features": torch.randn(4, 300, 80, generator=gen).numpy(),
+             "src_lengths": np.array([300, 217, 280, 150], np.int32), "target": target,
+             "prev_output_tokens": rng.randint(4, 1004, (4, 12)).astype(np.int32),
+             "imgs_list": (torch.randn(4, 10, 64, generator=gen).numpy(),),
+             "img_masks_list": (np.zeros((4, 10), bool),)}
+    model = init_random_(MMS2UTModel(cfg), torch.Generator().manual_seed(5))
+    runs = []
+    for _ in range(2):
+        trainer = Trainer(Config(model=cfg, train=TrainConfig(lr=1e-3, warmup_updates=1)),
+                          copy.deepcopy(model), "cuda")
+        losses = [trainer.train_batch(copy.deepcopy(batch))["loss"] for _ in range(3)]
+        runs.append((losses, [p.detach().cpu() for p in trainer.params]))
+    assert runs[0][0] == runs[1][0]
+    differ = [i for i, (a, b) in enumerate(zip(runs[0][1], runs[1][1])) if not torch.equal(a, b)]
+    assert not differ, differ
 
 
 @pytest.mark.parametrize("kv", [None, "int8", "int4"])

@@ -10,6 +10,8 @@
   atol 1e-7 on the parameters after every call.
 * a non-finite batch leaves parameters and optimizer state unchanged and
   advances the step, as the reference's skip does.
+* the step's forward and backward run with cuDNN held to its
+  deterministic algorithms, and the setting is restored after.
 """
 import copy
 
@@ -134,3 +136,19 @@ def test_nonfinite_batch_is_skipped(tmp_path):
             assert torch.equal(a, b)
     m = trainer.train_batch(_batch(2))
     assert m["skipped"] == 0.0 and trainer.optimizer.count == 2 and trainer.step == 3
+
+
+def test_train_step_runs_deterministic_convs(tmp_path):
+    trainer = _small_trainer(tmp_path)
+    conv = trainer.model.encoder.subsampler.conv0
+    seen = []
+    conv.register_forward_pre_hook(
+        lambda *_: seen.append(("forward", torch.backends.cudnn.deterministic)))
+    conv.weight.register_hook(
+        lambda g: seen.append(("backward", torch.backends.cudnn.deterministic)))
+    before = torch.backends.cudnn.deterministic
+    m = trainer.train_batch(_batch())
+    assert np.isfinite(m["loss"]) and m["skipped"] == 0.0
+    assert {kind for kind, _ in seen} == {"forward", "backward"}
+    assert all(flag for _, flag in seen), seen
+    assert torch.backends.cudnn.deterministic == before
