@@ -120,7 +120,11 @@ is no CPU path):
     cpu``: the same D- lines;
 19. the image path (``phase_image_path``): the committed JPEG fixtures of
     ``tests/torch_images/`` decoded without Pillow (pixels equal to PIL's
-    committed ones, and the decoder's images/s); ViT-B/16-384 from random
+    committed ones, and the decoder's images/s), and every fixture of
+    ``tests/torch_images/formats/`` (progressive, arithmetic, lossless,
+    CMYK/YCCK, h1v2 and 4:1:1 JPEG; Adam7, 16-bit and low-depth PNG) the
+    same way, with a 500x375 progressive JPEG's images/s beside the
+    baseline's; ViT-B/16-384 from random
     timm weights saved with ``torch.save`` and read by
     ``load_timm_checkpoint``, 16 preprocessed images in fp32 and bf16
     (A launched 12 times per forward, images/s, card against CPU with
@@ -197,7 +201,15 @@ is no CPU path):
     ASR) and text mode (a small XM), the references set to the clean
     run's output, then ``MM_PARITY_CANARY``: BLEU must collapse; (f) the
     native audio loader's batch against the Python decoder, bit for bit,
-    with the ms of each.
+    with the ms of each;
+23. the fusion types (``phase_fusion_types``): small configs card against
+    CPU, each type at full width, one full-width train step per type;
+24. kernels A, G and H on a tensor-parallel rank's heads
+    (``phase_tp_kernels``): for model = 2 and 4 each rank's head slice,
+    called with (h_total, h0), equals that slice of the whole layer's
+    call bit for bit (output, dq, dk, dv) with attention dropout 0.1, and
+    its plain version within TOL, at phase 11's train encoder (A, and G
+    causal) and the ViT's training shape (A), bf16 and fp32, H after each.
 
 Phase 2 also holds A at the image encoders' shape (B=16, 577 queries
 over 584 keys, the last 7 padding, H=12 and 16, Dh=64), H at the ViT's
@@ -2595,6 +2607,27 @@ def loaded_vit(name, gen, path=None):
     return vit.eval()
 
 
+def format_fixtures():
+    """Every fixture of ``tests/torch_images/formats/`` (progressive, stopped
+    early and smoothed, arithmetic-coded, lossless, CMYK, YCCK, h1v2, 4:1:1
+    JPEG; Adam7, 16-bit and 1/2/4-bit PNG), decoded on the host without
+    Pillow and held to the PIL pixels committed beside it: [(name, s)]."""
+    import numpy as np
+
+    from mm_s2ut_torch.data.image_io import read_image
+
+    out = []
+    for path in sorted(p for p in (FIXTURES / "formats").iterdir() if p.suffix != ".npy"):
+        t0 = time.perf_counter()
+        px = read_image(path)
+        secs = time.perf_counter() - t0
+        want = np.load(path.with_suffix(".npy"))
+        assert px.shape == want.shape and (px == want).all(), f"{path.name}: decoded pixels differ"
+        out.append((path.name, secs))
+    assert len(out) == 17, [n for n, _ in out]
+    return out
+
+
 def phase_image_path(out_dir: Path):
     """Phase 19: the image encoders and the raw-image path at full width.
     (a) the fixtures decoded on the host (pixels equal to PIL's), with the
@@ -2648,6 +2681,16 @@ def phase_image_path(out_dir: Path):
           f"{1 / per:.1f} images/s over the fixtures, {1 / big_s:.2f} images/s at 500x375 "
           f"({big[0]}, {(FIXTURES / big[0]).stat().st_size} B); timm preprocess of 16 to 384²: "
           f"{prep_s:.3f} s")
+    formats = format_fixtures()
+    prog = FIXTURES / "formats" / "flickr420_q50_prog.jpg"
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        read_image(prog)
+    prog_s = (time.perf_counter() - t0) / reps
+    print(f"phase 19a: {len(formats)} format fixtures decoded without Pillow, pixels equal to "
+          f"PIL's ({', '.join(f'{n} {s * 1e3:.1f} ms' for n, s in formats)}); host decode "
+          f"{1 / prog_s:.2f} images/s at 500x375 progressive ({prog.name}, "
+          f"{prog.stat().st_size} B) beside {1 / big_s:.2f} images/s baseline")
 
     # (b) ViT-B/16-384
     vit_cpu = loaded_vit("vit_base_patch16_384", gen, root / "vit_base.bin")
@@ -4901,6 +4944,98 @@ def phase_fusion_types(out_dir: Path):
     return launches, record
 
 
+def phase_tp_kernels():
+    """Phase 24: kernels A, G and H on a tensor-parallel rank's heads. One
+    card cannot run two NCCL ranks, so the ranks' calls run one after
+    another: for model = 2 and 4, each rank's slice of heads [h0, h0 + H/model),
+    called with (h_total, h0) as ``MultiHeadAttention`` calls it under
+    tensor parallelism, must give that slice of the whole layer's call
+    bit for bit (the output, then H's dq, dk and dv), with
+    attention dropout 0.1 from global batch row 3 (a data-parallel shard),
+    and stay within TOL of its plain version (``reference_attention(_bwd)``
+    with the same pair). Shapes: phase 11's train encoder (B=8, T=250,
+    H=8, ragged key padding; A, and G causal with window 64) and the ViT's
+    training shape (B=8, 577 queries over 584 keys, H=12; A), bf16 and
+    fp32; H after each forward. Prints the whole call's ms and one rank's.
+    Launches here are checks, not the main path's."""
+    import torch.nn.functional as F
+
+    from mm_s2ut_torch.ops import attention as A
+
+    t0 = time.perf_counter()
+    row0, rate, checked = 3, 0.1, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        cases = []
+        q, k, v, kpm = flash_inputs(8, 250, 8, 64, dtype, seed=2400)
+        cases += [("A train", q, k, v, kpm, False, 0), ("G train", q, k, v, kpm, True, 64)]
+        g = torch.Generator().manual_seed(2401)
+        qkv = _randn((8, VIT["Tq"], 3, 12, 64), g, dtype)
+        kv = [F.pad(qkv[:, :, i], (0, 0, 0, 0, 0, VIT["S"] - VIT["Tq"])).contiguous()
+              for i in (1, 2)]
+        vkpm = (torch.arange(VIT["S"])[None, :] >= VIT["Tq"]).expand(8, VIT["S"]).cuda()
+        cases.append(("A vit", qkv[:, :, 0].contiguous(), *kv, vkpm, False, 0))
+        for label, q, k, v, kpm, causal, window in cases:
+            B, Tq, H, D = q.shape
+            S = k.shape[1]
+            scale = D ** -0.5
+            bias = A.padding_bias(kpm, B, S, "cuda")
+            dout = _randn(q.shape, torch.Generator().manual_seed(Tq + H), dtype)
+            entry = "mm_flash_attention_causal_skip" if causal else "mm_flash_attention"
+
+            def fwd(q, k, v, stats, h_total=None, h0=0):
+                return A._launch(entry, q, k, v, bias, scale, causal, window, rate, DROP_SEED,
+                                 stats, row0, h_total, h0)
+
+            def bwd(q, k, v, stats, h_total=None, h0=0):
+                return A.flash_attention_bwd(q, k, v, bias, stats, dout[:, :, h0:h0 + q.shape[2]]
+                                             .contiguous(), scale, causal, window, rate,
+                                             DROP_SEED, row0, h_total, h0)
+
+            stats = torch.empty((2, B * H, Tq), dtype=torch.float32, device="cuda")
+            whole = fwd(q, k, v, stats)
+            whole_grads = bwd(q, k, v, stats)
+            whole_ms = time_ms(lambda: fwd(q, k, v, stats), n=10)
+            for model in (2, 4):
+                Hl, worst = H // model, 0.0
+                for m in range(model):
+                    h0, sl = m * Hl, slice(m * Hl, (m + 1) * Hl)
+                    qs, ks, vs = (t[:, :, sl].contiguous() for t in (q, k, v))
+                    st = torch.empty((2, B * Hl, Tq), dtype=torch.float32, device="cuda")
+                    out = fwd(qs, ks, vs, st, H, h0)
+                    grads = bwd(qs, ks, vs, st, H, h0)
+                    torch.cuda.synchronize()
+                    assert torch.equal(out, whole[:, :, sl]), \
+                        f"phase 24: {label} {name} model={model} rank {m}: output not the slice"
+                    for what, x, y in zip(("dq", "dk", "dv"), grads[:3], whole_grads[:3]):
+                        assert torch.equal(x, y[:, :, sl]), \
+                            f"phase 24: {label} {name} model={model} rank {m}: {what} not the slice"
+                    want = A.reference_attention(qs * scale, ks, vs, bias[:, None, None, :],
+                                                 causal, window, rate, DROP_SEED, row0, H, h0)
+                    want_g = A.reference_attention_bwd(
+                        qs, ks, vs, bias, dout[:, :, sl].contiguous(), scale, causal, window,
+                        rate, DROP_SEED, row0, H, h0)
+                    err = (out.float() - want.float()).abs().max().item()
+                    lim = TOL[dtype] * max(1.0, want.float().abs().max().item())
+                    assert err <= lim, f"phase 24: {label} {name} model={model} rank {m}: {err}"
+                    for what, x, y in zip(("dq", "dk", "dv"), grads[:3], want_g[:3]):
+                        e = (x.float() - y.float()).abs().max().item()
+                        lim = TOL[dtype] * max(1.0, y.float().abs().max().item())
+                        assert e <= lim, \
+                            f"phase 24: {label} {name} model={model} rank {m} {what}: {e}"
+                        err = max(err, e)
+                    worst = max(worst, err)
+                    checked += 1
+                rank_ms = time_ms(lambda: fwd(qs, ks, vs, st, H, h0), n=10)
+                print(f"phase 24: {label} B={B} Tq={Tq} S={S} H={H} {name} dropout {rate} "
+                      f"model={model}: every rank's slice equals the whole call's bit for bit "
+                      f"(out, dq, dk, dv), max err vs plain {worst:.3g}; forward {whole_ms:.4f} ms "
+                      f"whole, {rank_ms:.4f} ms one rank")
+            del stats, whole, whole_grads
+        torch.cuda.empty_cache()
+    print(f"phase 24: {checked} rank slices checked in {time.perf_counter() - t0:.1f} s")
+
+
 KERNELS = {  # name, source (of the bf16 instance the record times; A's and H's fp32_* fields
     # time their fp32 source), the TPU kernel it replaces
     "A": ("flash_attention", "mm_s2ut_torch/csrc/flash_attention_mma.cu",
@@ -4973,6 +5108,7 @@ def main(argv=None) -> int:
     fusion_launches, fusion_record = phase_fusion_types(Path(args.out))
     for name, fields in fusion_record.items():
         record[name].update({f"s827_{k}": v for k, v in fields.items()})
+    phase_tp_kernels()
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -27,13 +27,24 @@ Under ``torchrun`` the run is data-parallel, one process per card::
   torchrun --nproc_per_node 8 -m mm_s2ut_torch.cli.train --config run.yaml
 
 Each process takes ``cuda:LOCAL_RANK`` (NCCL; gloo with ``--device cpu``)
-and its rows of every batch; ``mesh.data`` must be -1 or the world size,
-and ``mesh.model`` or ``mesh.pipe`` > 1 raises (not ported). Rank 0
-writes the checkpoints and metrics.
+and its rows of every batch. With ``mesh.model=M`` the run is also
+tensor-parallel: M consecutive ranks share rows and split the attention
+and FFN projections and the unit table (``parallel/tensor.py``), and
+``model.sequence_parallel=true`` keeps the speech encoder's activations
+cut on T between layers::
+
+  torchrun --nproc_per_node 8 -m mm_s2ut_torch.cli.train --config run.yaml \
+      mesh.model=4 model.sequence_parallel=true
+
+The world must divide by ``mesh.model`` (one process with ``mesh.model=2``
+raises ``ValueError``, as JAX's ``make_mesh`` does), ``mesh.data`` must
+be -1 or world / model, and ``mesh.pipe`` > 1 raises (not ported). Rank 0
+writes the checkpoints and metrics, whole.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 from typing import List, Optional
 
@@ -93,7 +104,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     resolve_device(args.device)
     parallel, device = init_distributed(args.device)
     try:
-        check_mesh(cfg.mesh, 1 if parallel is None else parallel.world)
+        model = check_mesh(cfg.mesh, 1 if parallel is None else parallel.world)
+        if parallel is not None:
+            parallel = dataclasses.replace(parallel, model=model)
         return _train(args, cfg, tasks[cfg.task](cfg, device), parallel)
     finally:
         if parallel is not None:
@@ -106,7 +119,7 @@ def _train(args, cfg, task, parallel) -> int:
 
     trainer = task.build_trainer(parallel=parallel)
     if args.load_pretrained_encoder_from:
-        load_pretrained_encoder(trainer.model, args.load_pretrained_encoder_from)
+        load_pretrained_encoder(trainer.model, args.load_pretrained_encoder_from, trainer.tp)
     if args.resume:
         try:
             logger.info("resumed from step %d", trainer.restore_checkpoint())

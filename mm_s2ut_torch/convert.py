@@ -31,6 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from mm_s2ut_torch.parallel.mesh import tp_axis
+
 
 _LAYOUTS = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.ConvTranspose1d, nn.Embedding,
             nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._BatchNorm)
@@ -163,3 +165,48 @@ def to_flax(model: nn.Module) -> Dict[str, np.ndarray]:
         if own.get("bias") is not None:
             flat[f"{prefix}/bias"] = own["bias"].detach().float().cpu().numpy()
     return {k: np.ascontiguousarray(v) for k, v in flat.items()}
+
+
+def shard_state_dict(full: Mapping[str, np.ndarray], m: int, model: int) -> Dict[str, np.ndarray]:
+    """Flat flax leaves of a whole model → rank ``m``'s of ``model``
+    tensor-parallel ranks: each leaf the reference's ``_TP_RULES`` match
+    cut to its ``m``-th 1/model on the matched axis (``parallel/mesh.tp_axis``),
+    the others whole; what :func:`from_flax` loads into a model built under
+    tensor parallelism (``parallel/tensor.shard_model_``)."""
+    out = {}
+    for key, v in full.items():
+        axis = tp_axis(key)
+        if axis is None:
+            out[key] = v
+            continue
+        n = v.shape[axis]
+        if n % model:
+            raise ValueError(f"{key}: dimension {axis} of {v.shape} ({n}) does not divide by "
+                             f"mesh.model={model}")
+        out[key] = np.ascontiguousarray(np.take(v, range(m * (n // model), (m + 1) * (n // model)),
+                                                axis=axis))
+    return out
+
+
+def gather_state_dict(local: Mapping[str, np.ndarray], tp) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`shard_state_dict` over a tensor-parallel group
+    ``tp`` (``parallel/tensor.TensorParallel``): every rank of it calls
+    with its own leaves and gets the whole model's."""
+    import torch.distributed as dist
+
+    out = {}
+    for key in sorted(local):
+        v = local[key]
+        axis = tp_axis(key)
+        if axis is None:
+            out[key] = v
+            continue
+        parts = [torch.empty(v.shape, dtype=torch.float32) for _ in range(tp.size)]
+        t = torch.from_numpy(np.ascontiguousarray(v, np.float32))
+        if dist.get_backend(tp.group) == "nccl":
+            dev = torch.device("cuda", torch.cuda.current_device())
+            parts = [q.to(dev) for q in parts]
+            t = t.to(dev)
+        dist.all_gather(parts, t, group=tp.group)
+        out[key] = np.concatenate([q.cpu().numpy() for q in parts], axis=axis)
+    return out

@@ -1215,7 +1215,8 @@ extern "C" int mm_cross_decode_attention(
     const mm::FlashArgs f{q, kv, static_cast<const __nv_bfloat16*>(kv) + DH,
                           static_cast<const float*>(bias), out, K, S, H,
                           q_sb, q_sk, q_sh, batch, row, head, batch, row, head,
-                          1.0f, 0, 0.0f, 1.0f, 0u, 0u, nullptr, nullptr};
+                          1.0f, 0, 0.0f, 1.0f, 0u, 0u, static_cast<uint32_t>(H), 0u,
+                          nullptr, nullptr};
     return (int)mm::launch_flash_fwd_mma(f, B, DH, false, false, st);
   }
   switch (DH) {

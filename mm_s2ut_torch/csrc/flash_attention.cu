@@ -81,7 +81,7 @@
 //
 // Dropout (training; attention.py:173-186 and :239-247): the reference
 // multiplies the NORMALISED weights by keep / (1 - rate), with keep the
-// counter hash of (bh0 + b.H + h, t, s) and a per-call seed (common.cuh
+// counter hash of ((row0 + b).h_total + h0 + h, t, s) and a per-call seed (common.cuh
 // hash_keep). The mask is a factor, so the online softmax stays exact when
 // l sums the unmasked p and O sums p . F. The rate is a runtime argument (a
 // launch with rate > 0 branches uniformly), so dropout adds no instance.
@@ -126,6 +126,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashArgs a) 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const uint32_t hrow = hash_bh(a, b, h);  // the dropout hash's (b, h)
   const int q0 = blockIdx.y * kBQ;
   const int row0 = warp * 16;
   const int t_r[2] = {q0 + row0 + g, q0 + row0 + g + 8};
@@ -254,7 +255,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashArgs a) 
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = s0 + n * 8 + 2 * tq + (e & 1);
-          s[n][e] = hash_keep(a.bh0 + bh, t_r[e >> 1], key, a.seed, a.rate) ? s[n][e] * a.inv_keep : 0.f;
+          s[n][e] = hash_keep(hrow, t_r[e >> 1], key, a.seed, a.rate) ? s[n][e] * a.inv_keep : 0.f;
         }
       }
     }
@@ -323,7 +324,8 @@ cudaError_t dispatch_flash(int D, const FlashArgs& a, int B, cudaStream_t stream
 
 // Kernel A: every key tile; the causal/window mask when ``causal`` != 0.
 // ``rate`` > 0: attention dropout with ``seed``, the hash's (b, h) row offset by
-// ``bh0`` (a data-parallel shard's first row times H); non-null ``stat_m`` /
+// ``bh0`` (a data-parallel shard's first row times ``h_total``), local head h
+// hashed as global head ``h0`` + h of ``h_total`` (tensor parallelism); non-null ``stat_m`` /
 // ``stat_l``: each row's softmax max and denominator for kernel H. Rows
 // 16-byte aligned; bf16 in flash_attention_mma.cu, fp32 here.
 extern "C" int mm_flash_attention(
@@ -333,11 +335,13 @@ extern "C" int mm_flash_attention(
     int64_t k_sb, int64_t k_st, int64_t k_sh,
     int64_t v_sb, int64_t v_st, int64_t v_sh,
     float scale, int causal, int window, double rate, unsigned int seed, unsigned int bh0,
+    unsigned int h_total, unsigned int h0,
     float* stat_m, float* stat_l, void* stream) {
   if (!(rate >= 0.0 && rate < 1.0)) return (int)cudaErrorInvalidValue;
   const mm::FlashArgs a{q, k, v, static_cast<const float*>(bias), out, T, S, H,
                         q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window,
-                        (float)rate, (float)(1.0 / (1.0 - rate)), seed, bh0, stat_m, stat_l};
+                        (float)rate, (float)(1.0 / (1.0 - rate)), seed, bh0, h_total, h0,
+                        stat_m, stat_l};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == mm::kBFloat16)
     return (int)mm::launch_flash_fwd_mma(a, B, D, causal != 0, false, st);
@@ -355,12 +359,14 @@ extern "C" int mm_flash_attention_causal_skip(
     int64_t k_sb, int64_t k_st, int64_t k_sh,
     int64_t v_sb, int64_t v_st, int64_t v_sh,
     float scale, int causal, int window, double rate, unsigned int seed, unsigned int bh0,
+    unsigned int h_total, unsigned int h0,
     float* stat_m, float* stat_l, void* stream) {
   if (!causal || T > S) return (int)cudaErrorInvalidValue;
   if (!(rate >= 0.0 && rate < 1.0)) return (int)cudaErrorInvalidValue;
   const mm::FlashArgs a{q, k, v, static_cast<const float*>(bias), out, T, S, H,
                         q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window,
-                        (float)rate, (float)(1.0 / (1.0 - rate)), seed, bh0, stat_m, stat_l};
+                        (float)rate, (float)(1.0 / (1.0 - rate)), seed, bh0, h_total, h0,
+                        stat_m, stat_l};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == mm::kFloat32) return (int)mm::dispatch_flash<true, true>(D, a, B, st);
   if (dtype == mm::kBFloat16) return (int)mm::launch_flash_fwd_mma(a, B, D, true, true, st);

@@ -122,6 +122,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kv_kernel(const BwdArgs a) 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const uint32_t hrow = hash_bh(a, b, h);  // the dropout hash's (b, h)
   const int k0 = blockIdx.y * kTile;
   const int kr0 = warp * 16;  // the warp's first key row in the tile
   const int s_r[2] = {k0 + kr0 + g, k0 + kr0 + g + 8};
@@ -214,7 +215,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kv_kernel(const BwdArgs a) 
             const bool mask = masked(a, t, s);
             const float x = mask ? kMasked : fmaf(sc[n][e], a.scale, bias_r[r]);
             const float p = (t < a.T && s < a.S) ? exp_e(x - m) * il : 0.f;
-            const float f = keep_factor(a, bh, t, s);
+            const float f = keep_factor(a, hrow, t, s);
             const float ds = mask ? 0.f : p * (dp[n][e] * f - dl);
             db[r] += ds;
             sc[n][e] = p * f;
@@ -279,6 +280,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_q_kernel(const BwdArgs a) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const uint32_t hrow = hash_bh(a, b, h);  // the dropout hash's (b, h)
   const int q0 = blockIdx.y * kTile;
   const int qr0 = warp * 16;  // the warp's first query row in the tile
   const int t_r[2] = {q0 + qr0 + g, q0 + qr0 + g + 8};
@@ -382,7 +384,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_q_kernel(const BwdArgs a) {
           const bool mask = masked(a, t, s);
           const float x = mask ? kMasked : fmaf(sc[n][e], a.scale, bs[j]);
           const float p = (t < a.T && s < a.S) ? exp_e(x - m_r[r]) * il_r[r] : 0.f;
-          const float dw = dp[n][e] * keep_factor(a, bh, t, s);
+          const float dw = dp[n][e] * keep_factor(a, hrow, t, s);
           if (pass1)
             sc[n][e] = mask ? 0.f : p * (dw - dl_r[r]);
           else
@@ -457,6 +459,7 @@ extern "C" int mm_flash_attention_bwd(
     int64_t k_sb, int64_t k_st, int64_t k_sh,
     int64_t v_sb, int64_t v_st, int64_t v_sh,
     float scale, int causal, int window, double rate, unsigned int seed, unsigned int bh0,
+    unsigned int h_total, unsigned int h0,
     void* stream) {
   if (!(rate >= 0.0 && rate < 1.0) || (causal && T > S)) return (int)cudaErrorInvalidValue;
   const mm::BwdArgs a{q, k, v, static_cast<const float*>(bias), dout,
@@ -464,7 +467,7 @@ extern "C" int mm_flash_attention_bwd(
                       static_cast<float*>(delta), dq, static_cast<float*>(dk),
                       static_cast<float*>(dv), static_cast<float*>(dbias), T, S, H,
                       q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, causal,
-                      window, (float)rate, (float)(1.0 / (1.0 - rate)), seed, bh0};
+                      window, (float)rate, (float)(1.0 / (1.0 - rate)), seed, bh0, h_total, h0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == mm::kFloat32) return (int)mm::dispatch_bwd_f32(D, a, B, st);
   if (dtype == mm::kBFloat16) return (int)mm::launch_flash_bwd_mma(a, B, D, st);

@@ -82,6 +82,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kv_kernel_mma(const BwdArgs
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const uint32_t hrow = hash_bh(a, b, h);  // the dropout hash's (b, h)
   const int k0 = blockIdx.y * kTile;
   const int kr0 = warp * 16;  // the warp's first key row in the tile
   const int s_r[2] = {k0 + kr0 + g, k0 + kr0 + g + 8};
@@ -180,7 +181,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kv_kernel_mma(const BwdArgs
             const bool mask = masked(a, t, s);
             const float x = mask ? kMasked : fmaf(sc[n][e], a.scale, bias_r[r]);
             const float p = (t < a.T && s < a.S) ? exp_e(x - m) * il : 0.f;
-            const float f = keep_factor(a, bh, t, s);
+            const float f = keep_factor(a, hrow, t, s);
             const float ds = mask ? 0.f : p * (dp[n][e] * f - dl);
             db[r] += ds;
             sc[n][e] = p * f;
@@ -246,6 +247,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_q_kernel_mma(const BwdArgs 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const uint32_t hrow = hash_bh(a, b, h);  // the dropout hash's (b, h)
   const int q0 = blockIdx.y * kTile;
   const int qr0 = warp * 16;  // the warp's first query row in the tile
   const int t_r[2] = {q0 + qr0 + g, q0 + qr0 + g + 8};
@@ -346,7 +348,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_q_kernel_mma(const BwdArgs 
           const bool mask = masked(a, t, s);
           const float x = mask ? kMasked : fmaf(sc[n][e], a.scale, bs[j]);
           const float p = (t < a.T && s < a.S) ? exp_e(x - m_r[r]) * il_r[r] : 0.f;
-          const float dw = dp[n][e] * keep_factor(a, bh, t, s);
+          const float dw = dp[n][e] * keep_factor(a, hrow, t, s);
           if (pass1)
             sc[n][e] = mask ? 0.f : p * (dw - dl_r[r]);
           else

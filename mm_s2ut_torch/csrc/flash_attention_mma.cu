@@ -89,6 +89,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_mma(const FlashArgs
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const uint32_t hrow = hash_bh(a, b, h);  // the dropout hash's (b, h)
   const int q0 = blockIdx.y * kBQ;
   const int row0 = warp * 16;
   const int t_r[2] = {q0 + row0 + g, q0 + row0 + g + 8};
@@ -214,7 +215,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel_mma(const FlashArgs
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = s0 + n * 8 + 2 * tq + (e & 1);
-          s[n][e] = hash_keep(a.bh0 + bh, t_r[e >> 1], key, a.seed, a.rate) ? s[n][e] * a.inv_keep : 0.f;
+          s[n][e] = hash_keep(hrow, t_r[e >> 1], key, a.seed, a.rate) ? s[n][e] * a.inv_keep : 0.f;
         }
       }
     }

@@ -47,7 +47,9 @@ struct FlashArgs {
   float rate;      // attention dropout rate (0 = none)
   float inv_keep;  // 1 / (1 - rate), rounded to float as JAX's weak typing does
   uint32_t seed;
-  uint32_t bh0;   // the dropout hash's row of (b, h) = (0, 0): a data-parallel shard's offset
+  uint32_t bh0;   // the dropout hash's row of (b, h) = (0, 0): a data-parallel shard's first row times h_total
+  uint32_t h_total;  // the heads of the whole layer (H, or more under tensor parallelism)
+  uint32_t h0;       // the global head of local head 0
   float* stat_m;  // (B.H, T) row max, or nullptr
   float* stat_l;  // (B.H, T) row denominator, or nullptr
 };
@@ -76,17 +78,30 @@ struct BwdArgs {
   float inv_keep;
   uint32_t seed;
   uint32_t bh0;  // as FlashArgs::bh0
+  uint32_t h_total;  // as FlashArgs::h_total
+  uint32_t h0;       // as FlashArgs::h0
 };
+
+// The dropout hash's (b, h) coordinate of the block of local head h of
+// batch row b: (row0 + b).h_total + h0 + h, with bh0 = row0.h_total. A
+// tensor-parallel rank holding heads [h0, h0 + H) of h_total draws the
+// whole layer's mask on its heads; (h_total, h0) = (H, 0) gives bh0 + b.H + h.
+// Each kernel computes it once, beside b and h.
+template <class Args>
+__device__ __forceinline__ uint32_t hash_bh(const Args& a, int b, int h) {
+  return a.bh0 + static_cast<uint32_t>(b) * a.h_total + a.h0 + static_cast<uint32_t>(h);
+}
 
 // Kernel H: outside the causal/window band, where the forward replaced the logit by -1e9.
 __device__ __forceinline__ bool masked(const BwdArgs& a, int t, int s) {
   return a.causal && (s > t || (a.window > 0 && s <= t - a.window));
 }
 
-// Kernel H: the dropout factor of weight (bh, t, s), keep / (1 - rate), or 1.
-__device__ __forceinline__ float keep_factor(const BwdArgs& a, int bh, int t, int s) {
+// Kernel H: the dropout factor of weight (t, s) of the block whose hash row
+// is ``hrow`` (hash_bh), keep / (1 - rate), or 1.
+__device__ __forceinline__ float keep_factor(const BwdArgs& a, uint32_t hrow, int t, int s) {
   if (a.rate <= 0.f) return 1.f;
-  return hash_keep(a.bh0 + bh, t, s, a.seed, a.rate) ? a.inv_keep : 0.f;
+  return hash_keep(hrow, t, s, a.seed, a.rate) ? a.inv_keep : 0.f;
 }
 
 // Kernel A (skip = false) or G (skip = true, needs causal) in bf16 on the

@@ -1,0 +1,1014 @@
+"""JPEG decoding on the host without Pillow (numpy and Python only).
+
+What Pillow 12 gives for a JPEG through libjpeg-turbo's defaults
+(``np.asarray(Image.open(path).convert("RGB"))``), for every JPEG it
+opens:
+
+* frames: sequential (SOF0/SOF1) and progressive (SOF2) Huffman,
+  sequential (SOF9) and progressive (SOF10) arithmetic coding, lossless
+  Huffman (SOF3), all at 8-bit precision, with 1, 3 or 4 components and
+  restart intervals (lossless with 1x1 sampling only where several
+  components are interleaved: those alone raise without Pillow's word). Pillow refuses other precisions (its frame parser
+  takes 8 bits only) and libjpeg-turbo refuses hierarchical frames
+  (SOF5-7, SOF13-15) and lossless arithmetic coding (SOF11): each raises
+  ``ValueError`` naming the file here.
+* progressive scans (``jdphuff.c``, ``jdarith.c``): DC first and
+  refinement, AC first with end-of-band runs and AC refinement with
+  correction bits, the coefficients accumulated over the scans; where the
+  scans leave low AC coefficients unrefined, libjpeg's block smoothing
+  (``jdcoefct.c`` ``decompress_smooth_data``: estimates from a 5 x 5
+  neighbourhood of DC values, and of the DC itself while no AC data has
+  come) fills them before the IDCT.
+* arithmetic coding: the QM decoder of ITU T.81 Annex D as ``jdarith.c``
+  runs it, with the DAC conditioning (L, U of each DC table, K of each
+  AC table; defaults 0, 1, 5).
+* lossless: Annex H's predictors 1-7 with point transform, undifferenced
+  modulo 2^16 and shifted back (``jdpred.c``, ``jdlossls.c``). libjpeg-turbo
+  converts no colour space in lossless mode: 3 components read as RGB
+  unless a JFIF or Adobe marker says YCbCr, which it refuses.
+* samples: the "islow" IDCT (``jidctint.c``) with its range limit; fancy
+  upsampling for 2:1 horizontal, 2:1 vertical and 2:2 ratios
+  (``jdsample.c`` ``h2v1``/``h1v2``/``h2v2_fancy_upsample``), replication
+  for other integral ratios (``int_upsample``), libjpeg's error
+  otherwise; fixed-point YCbCr → RGB (``jdcolor.c``), YCCK → CMYK, and a
+  4-component image as Pillow takes it: inverted (``CMYK;I``), then its
+  CMYK → RGB (k' = 255 − K, c = k' − c·k'/255 rounded as ``MULDIV255``).
+
+The IDCT, smoothing, upsampling and colour conversion are vectorised over
+whole images; the entropy decoders are Python loops over the symbols.
+"""
+from __future__ import annotations
+
+import struct
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+])  # zigzag position → natural (row-major) position
+
+_HIERARCHICAL = {0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF}
+_FRAMES = {0xC0: "huffman", 0xC1: "huffman", 0xC2: "huffman", 0xC3: "lossless",
+           0xC9: "arith", 0xCA: "arith"}
+
+
+def _refuse(name: str, what: str) -> ValueError:
+    return ValueError(f"{name}: {what} is not decoded (Pillow refuses it too)")
+
+
+# ------------------------------------------------------------------ Huffman
+
+def _huffman_table(counts: Sequence[int], symbols: Sequence[int]) -> List[int]:
+    """Canonical Huffman code → a 65536-entry lookup over the next 16 bits:
+    ``symbol | length << 8`` (0 where no code starts)."""
+    lut = np.zeros(1 << 16, np.int64)
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            lo = code << (16 - length)
+            lut[lo: lo + (1 << (16 - length))] = symbols[k] | (length << 8)
+            code += 1
+            k += 1
+        code <<= 1
+    return lut.tolist()
+
+
+def _unstuff(seg: bytes) -> List[int]:
+    """Entropy-coded bytes (0xFF00 → 0xFF), then each byte's 24-bit window
+    (it and the next two), zero-padded past the end as libjpeg pads."""
+    b = np.frombuffer(seg.replace(b"\xff\x00", b"\xff") + b"\x00" * 4, np.uint8).astype(np.int64)
+    return ((b[:-2] << 16) | (b[1:-1] << 8) | b[2:]).tolist()
+
+
+class _Bits:
+    """A Huffman scan segment: symbols through a lookup table, raw bits."""
+
+    def __init__(self, seg: bytes, name: str):
+        self.win, self.p, self.name = _unstuff(seg), 0, name
+
+    def symbol(self, lut: List[int]) -> int:
+        p = self.p
+        e = lut[(self.win[p >> 3] >> (8 - (p & 7))) & 0xFFFF]
+        if not e:
+            raise ValueError(f"{self.name}: corrupt JPEG data (bad Huffman code)")
+        self.p = p + (e >> 8)
+        return e & 0xFF
+
+    def bits(self, n: int) -> int:
+        if n == 0:
+            return 0
+        p = self.p
+        self.p = p + n
+        return ((self.win[p >> 3] >> (8 - (p & 7))) & 0xFFFF) >> (16 - n)
+
+    def extend(self, s: int) -> int:
+        v = self.bits(s)
+        return v - (1 << s) + 1 if s and v < (1 << (s - 1)) else v
+
+
+def _wrap16(v: int) -> int:
+    """``v`` as a JCOEF (int16) holds it."""
+    return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _huffman_sequential(seg, units, coefs, preds, name) -> None:
+    """One restart interval of a sequential scan: ``units`` lists (component,
+    block offset, DC table, AC table); coefficients land in zigzag order."""
+    win = _unstuff(seg)
+    p = 0
+    for c, base, dc, ac in units:
+        w = (win[p >> 3] >> (8 - (p & 7))) & 0xFFFF
+        e = dc[w]
+        if not e:
+            raise ValueError(f"{name}: corrupt JPEG data (bad Huffman code)")
+        p += e >> 8
+        s = e & 0xFF
+        diff = 0
+        if s:
+            diff = ((win[p >> 3] >> (8 - (p & 7))) & 0xFFFF) >> (16 - s)
+            p += s
+            if diff < (1 << (s - 1)):
+                diff -= (1 << s) - 1
+        preds[c] += diff
+        out = coefs[c]
+        out[base] = _wrap16(preds[c])
+        k = 1
+        while k < 64:
+            w = (win[p >> 3] >> (8 - (p & 7))) & 0xFFFF
+            e = ac[w]
+            if not e:
+                raise ValueError(f"{name}: corrupt JPEG data (bad Huffman code)")
+            p += e >> 8
+            rs = e & 0xFF
+            s = rs & 15
+            if s:
+                k += rs >> 4
+                v = ((win[p >> 3] >> (8 - (p & 7))) & 0xFFFF) >> (16 - s)
+                p += s
+                if v < (1 << (s - 1)):
+                    v -= (1 << s) - 1
+                if k < 64:
+                    out[base + k] = v
+                k += 1
+            elif rs == 0xF0:
+                k += 16
+            else:
+                break
+
+
+def _huffman_progressive(seg, units, coefs, ss, se, ah, al, name) -> None:
+    """One restart interval of a progressive Huffman scan (``jdphuff.c``)."""
+    bits = _Bits(seg, name)
+    if ss == 0:  # DC scans: every block of the (possibly interleaved) MCU
+        if ah == 0:
+            preds: Dict[int, int] = {}
+            for c, base, dc, _ in units:
+                preds[c] = preds.get(c, 0) + bits.extend(bits.symbol(dc))
+                coefs[c][base] = _wrap16(preds[c] << al)
+        else:
+            p1 = 1 << al
+            for c, base, _, _ in units:
+                if bits.bits(1):
+                    coefs[c][base] |= p1
+        return
+    eobrun = 0
+    p1, m1 = 1 << al, -1 << al
+    for c, base, _, ac in units:  # one block per MCU
+        out = coefs[c]
+        if ah == 0:
+            if eobrun:
+                eobrun -= 1
+                continue
+            k = ss
+            while k <= se:
+                rs = bits.symbol(ac)
+                r, s = rs >> 4, rs & 15
+                if s:
+                    k += r
+                    out[base + min(k, 63)] = _wrap16(bits.extend(s) << al)
+                elif r == 15:
+                    k += 15
+                else:
+                    eobrun = (1 << r) + bits.bits(r) - 1
+                    break
+                k += 1
+            continue
+        k = ss
+        if eobrun == 0:
+            while k <= se:
+                rs = bits.symbol(ac)
+                r, s = rs >> 4, rs & 15
+                if s:
+                    s = p1 if bits.bits(1) else m1
+                elif r != 15:
+                    eobrun = (1 << r) + bits.bits(r)
+                    break
+                while k <= se:
+                    v = out[base + k]
+                    if v:
+                        if bits.bits(1) and not v & p1:
+                            out[base + k] = v + (p1 if v >= 0 else m1)
+                    else:
+                        r -= 1
+                        if r < 0:
+                            break
+                    k += 1
+                if s:
+                    out[base + min(k, 63)] = s
+                k += 1
+        if eobrun > 0:
+            while k <= se:
+                v = out[base + k]
+                if v and bits.bits(1) and not v & p1:
+                    out[base + k] = v + (p1 if v >= 0 else m1)
+                k += 1
+            eobrun -= 1
+
+
+# --------------------------------------------------------------- arithmetic
+
+# Table D.2 (libjpeg's jaricom.c) packed as jdarith.c reads it: Qe << 16 |
+# Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS.
+_QE = [(q << 16) | (nm << 8) | (sw << 7) | nl for q, nl, nm, sw in [
+    (0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080b, 18, 4, 0),
+    (0x03d8, 20, 5, 0), (0x01da, 23, 6, 0), (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0),
+    (0x0036, 30, 9, 0), (0x001a, 33, 10, 0), (0x000d, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1), (0x3f25, 36, 16, 0),
+    (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0), (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0cef, 43, 21, 0), (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01b1, 54, 28, 0),
+    (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0), (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0),
+    (0x0068, 62, 33, 0), (0x004e, 63, 34, 0), (0x003b, 32, 35, 0), (0x002c, 33, 9, 0),
+    (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0), (0x2ef1, 67, 40, 0),
+    (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0), (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0),
+    (0x1177, 73, 45, 0), (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05cd, 48, 51, 0), (0x04de, 50, 52, 0),
+    (0x040f, 50, 53, 0), (0x0363, 51, 54, 0), (0x02d4, 52, 55, 0), (0x025c, 53, 56, 0),
+    (0x01f8, 54, 57, 0), (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0), (0x008f, 61, 32, 0),
+    (0x5b12, 65, 65, 1), (0x4d04, 80, 66, 0), (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0),
+    (0x2fe8, 83, 69, 0), (0x293c, 84, 70, 0), (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0),
+    (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0), (0x119c, 74, 76, 0),
+    (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0), (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0),
+    (0x34ee, 91, 85, 0), (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0), (0x2516, 86, 71, 0),
+    (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0), (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0),
+    (0x3824, 99, 93, 0), (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0), (0x56a8, 95, 96, 1),
+    (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0), (0x3c3d, 104, 100, 0),
+    (0x375e, 99, 93, 0), (0x5231, 105, 102, 0), (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0),
+    (0x415e, 103, 99, 0), (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504f, 111, 107, 0), (0x5a10, 110, 111, 1), (0x5522, 112, 109, 0),
+    (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0),
+]]
+
+
+class _Arith:
+    """The QM decoder over one restart interval's bytes (``jdarith.c``
+    ``arith_decode``): past the end, zeros."""
+
+    def __init__(self, seg: bytes):
+        self.data = seg.replace(b"\xff\x00", b"\xff")
+        self.pos, self.c, self.a, self.ct = 0, 0, 0, -16
+
+    def decode(self, st: List[int], i: int) -> int:
+        while self.a < 0x8000:
+            self.ct -= 1
+            if self.ct < 0:
+                data = self.data[self.pos] if self.pos < len(self.data) else 0
+                self.pos += 1
+                self.c = (self.c << 8) | data
+                self.ct += 8
+                if self.ct < 0:
+                    self.ct += 1
+                    if self.ct == 0:
+                        self.a = 0x8000
+            self.a <<= 1
+        sv = st[i]
+        qe = _QE[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        temp = self.a - qe
+        self.a = temp
+        temp <<= self.ct
+        if self.c >= temp:  # the upper interval: the LPS, or the MPS exchanged into it
+            self.c -= temp
+            if self.a < qe:
+                self.a = qe
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                self.a = qe
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+        elif self.a < 0x8000:
+            if self.a < qe:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        return sv >> 7
+
+
+def _arith_dc(dec: _Arith, st: List[int], ctx: int, L: int, U: int) -> Tuple[int, int]:
+    """A DC difference in context ``ctx`` (Figures F.19-F.24) → (v, next context)."""
+    if dec.decode(st, ctx) == 0:
+        return 0, 0
+    sign = dec.decode(st, ctx + 1)
+    i = ctx + 2 + sign
+    m = dec.decode(st, i)
+    if m:
+        i = 20
+        while dec.decode(st, i):
+            m <<= 1
+            if m == 0x8000:
+                raise ValueError("corrupt JPEG data (arithmetic magnitude overflow)")
+            i += 1
+    if m < (1 << L) >> 1:
+        nxt = 0
+    elif m > (1 << U) >> 1:
+        nxt = 12 + sign * 4
+    else:
+        nxt = 4 + sign * 4
+    v = m
+    i += 14
+    while m > 1:
+        m >>= 1
+        if dec.decode(st, i):
+            v |= m
+    v += 1
+    return (-v if sign else v), nxt
+
+
+def _arith_ac_value(dec: _Arith, st: List[int], i: int, k: int, K: int) -> int:
+    """|v| of a nonzero AC coefficient from its SP bin ``i`` (Figure F.23/24)."""
+    m = dec.decode(st, i)
+    if m:
+        if dec.decode(st, i):
+            m <<= 1
+            i = 189 if k <= K else 217
+            while dec.decode(st, i):
+                m <<= 1
+                if m == 0x8000:
+                    raise ValueError("corrupt JPEG data (arithmetic magnitude overflow)")
+                i += 1
+    v = m
+    i += 14
+    while m > 1:
+        m >>= 1
+        if dec.decode(st, i):
+            v |= m
+    return v + 1
+
+
+def _arith_scan(seg, units, coefs, ss, se, ah, al, progressive, dc_stats, ac_stats, dac_l,
+                dac_u, dac_k) -> None:
+    """One restart interval of an arithmetic-coded scan (``jdarith.c``
+    ``decode_mcu`` and its four progressive forms); ``units`` lists
+    (component, block offset, DC table, AC table). Statistics start at 0."""
+    dec = _Arith(seg)
+    fixed = [113]  # the fixed probability 0.5 of signs and DC refinement bits
+    dcs = {t: [0] * 64 for t in dc_stats}
+    acs = {t: [0] * 256 for t in ac_stats}
+    ctx: Dict[int, int] = {}
+    last: Dict[int, int] = {}
+    first_dc = not progressive or (ss == 0 and ah == 0)
+    for c, base, dt, at in units:
+        out = coefs[c]
+        if first_dc:
+            v, ctx[c] = _arith_dc(dec, dcs[dt], ctx.get(c, 0), dac_l[dt], dac_u[dt])
+            last[c] = (last.get(c, 0) + v) & 0xFFFF
+            out[base] = _wrap16(last[c] << al)
+            if progressive:
+                continue
+        elif ss == 0:
+            if dec.decode(fixed, 0):
+                out[base] |= 1 << al
+            continue
+        if not progressive or ah == 0:
+            _arith_ac_first(dec, acs[at], fixed, out, base, ss or 1, se, al, dac_k[at])
+        else:
+            _arith_ac_refine(dec, acs[at], fixed, out, base, ss, se, al)
+
+
+def _arith_ac_first(dec, st, fixed, out, base, ss, se, al, K) -> None:
+    """Figure F.20: the band [ss, se] of one block (``decode_mcu_AC_first``;
+    the sequential AC with ss 1, se 63, al 0)."""
+    k = ss
+    while k <= se:
+        i = 3 * (k - 1)
+        if dec.decode(st, i):
+            break
+        while dec.decode(st, i + 1) == 0:
+            i += 3
+            k += 1
+            if k > se:
+                raise ValueError("corrupt JPEG data (arithmetic spectral overflow)")
+        sign = dec.decode(fixed, 0)
+        v = _arith_ac_value(dec, st, i + 2, k, K)
+        out[base + k] = _wrap16((-v if sign else v) << al)
+        k += 1
+
+
+def _arith_ac_refine(dec, st, fixed, out, base, ss, se, al) -> None:
+    """``decode_mcu_AC_refine``: a correction bit for each coefficient
+    already nonzero, new ones of ±2^al, until the end of band."""
+    p1, m1 = 1 << al, -1 << al
+    kex = 0
+    for k in range(se, 0, -1):
+        if out[base + k]:
+            kex = k
+            break
+    k = ss
+    while k <= se:
+        i = 3 * (k - 1)
+        if k > kex and dec.decode(st, i):
+            break
+        while True:
+            v = out[base + k]
+            if v:
+                if dec.decode(st, i + 2):
+                    out[base + k] = v + (m1 if v < 0 else p1)
+                break
+            if dec.decode(st, i + 1):
+                out[base + k] = m1 if dec.decode(fixed, 0) else p1
+                break
+            i += 3
+            k += 1
+            if k > se:
+                raise ValueError("corrupt JPEG data (arithmetic spectral overflow)")
+        k += 1
+
+
+# ----------------------------------------------------------------- lossless
+
+def _lossless_scan(seg, units, diffs, name) -> None:
+    """One restart interval of a lossless Huffman scan: ``units`` lists
+    (component, flat sample index, table); differences land in ``diffs``."""
+    bits = _Bits(seg, name)
+    for c, idx, tab in units:
+        s = bits.symbol(tab)
+        diffs[c][idx] = 32768 if s == 16 else bits.extend(s)
+
+
+def _undifference(d: np.ndarray, psv: int, precision: int, rows_per_interval: int) -> np.ndarray:
+    """``jdpred.c``: (h, w) differences → samples modulo 2^16; the first row
+    of each restart interval from 2^(P-1) then its left neighbour, the first
+    column from above."""
+    h, w = d.shape
+    out = np.zeros((h, w), np.int64)
+    for y in range(h):
+        row = d[y]
+        if y % rows_per_interval == 0:
+            acc = np.cumsum(row) + (1 << (precision - 1))
+            out[y] = acc & 0xFFFF
+            continue
+        rb = out[y - 1]
+        if psv in (2, 3):  # no left neighbour in the predictor
+            pred = rb if psv == 2 else np.concatenate([rb[:1], rb[:-1]])
+            out[y] = (row + pred) & 0xFFFF
+            continue
+        cur = out[y]
+        rbl, rcl, rowl = rb.tolist(), [0] + rb.tolist()[:-1], row.tolist()
+        ra = (rowl[0] + rbl[0]) & 0xFFFF
+        vals = [ra]
+        for x in range(1, w):
+            b, c = rbl[x], rcl[x]
+            if psv == 1:
+                p = ra
+            elif psv == 4:
+                p = ra + b - c
+            elif psv == 5:
+                p = ra + ((b - c) >> 1)
+            elif psv == 6:
+                p = b + ((ra - c) >> 1)
+            else:
+                p = (ra + b) >> 1
+            ra = (rowl[x] + p) & 0xFFFF
+            vals.append(ra)
+        cur[:] = vals
+    return out
+
+
+# --------------------------------------------------------------------- IDCT
+
+# jidctint.c: CONST_BITS 13, PASS1_BITS 2, FIX(x) = round(x · 2^13).
+_F = {"0_298631336": 2446, "0_390180644": 3196, "0_541196100": 4433, "0_765366865": 6270,
+      "0_899976223": 7373, "1_175875602": 9633, "1_501321110": 12299, "1_847759065": 15137,
+      "1_961570560": 16069, "2_053119869": 16819, "2_562915447": 20995, "3_072711026": 25172}
+
+
+def _idct_1d(c: List[np.ndarray], shift: int) -> List[np.ndarray]:
+    """One pass of ``jpeg_idct_islow`` over 8 int64 vectors (the inputs at
+    positions 0..7), descaled by ``shift`` bits with rounding."""
+    z2, z3 = c[2], c[6]
+    z1 = (z2 + z3) * _F["0_541196100"]
+    tmp2 = z1 + z3 * -_F["1_847759065"]
+    tmp3 = z1 + z2 * _F["0_765366865"]
+    tmp0 = (c[0] + c[4]) << 13
+    tmp1 = (c[0] - c[4]) << 13
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    t0, t1, t2, t3 = c[7], c[5], c[3], c[1]
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * _F["1_175875602"]
+    t0 = t0 * _F["0_298631336"]
+    t1 = t1 * _F["2_053119869"]
+    t2 = t2 * _F["3_072711026"]
+    t3 = t3 * _F["1_501321110"]
+    z1 = z1 * -_F["0_899976223"]
+    z2 = z2 * -_F["2_562915447"]
+    z3 = z3 * -_F["1_961570560"] + z5
+    z4 = z4 * -_F["0_390180644"] + z5
+    t0 += z1 + z3
+    t1 += z2 + z4
+    t2 += z2 + z3
+    t3 += z1 + z4
+    half = 1 << (shift - 1)
+    out = [tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+           tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3]
+    return [(o + half) >> shift for o in out]
+
+
+def _range_limit() -> np.ndarray:
+    """libjpeg's post-IDCT table, indexed by (value & 1023) for a value
+    centred on 0: +128 and clamped for |value| < 512, wrapping beyond."""
+    idx = np.arange(1024)
+    table = np.zeros(1024, np.int64)
+    table[:128] = idx[:128] + 128
+    table[128:512] = 255
+    table[896:] = idx[896:] - 896
+    return table
+
+
+_RANGE = _range_limit()
+
+
+def idct_islow(coefs: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """(N, 64) natural-order coefficients, (64,) quantization table →
+    (N, 8, 8) uint8 samples, as libjpeg-turbo's ``jpeg_idct_islow``."""
+    d = coefs.astype(np.int64) * quant.astype(np.int64)[None]
+    d = d.reshape(-1, 8, 8)
+    # Pass 1: columns (input row k of each column), descale to PASS1_BITS.
+    cols = _idct_1d([d[:, k, :] for k in range(8)], 13 - 2)
+    ws = np.stack(cols, axis=1)  # (N, 8 rows, 8 cols)
+    # Pass 2: rows, descale by CONST_BITS + PASS1_BITS + 3.
+    rows = _idct_1d([ws[:, :, k] for k in range(8)], 13 + 2 + 3)
+    out = np.stack(rows, axis=2)
+    return _RANGE[out & 1023].astype(np.uint8)
+
+
+# ---------------------------------------------------------- block smoothing
+
+# (zigzag k, the 5 x 5 DC weights with DC interpolation, without) of
+# jdcoefct.c's estimates; rows are the block rows r-2..r+2, columns c-2..c+2.
+_W = {
+    1: ([[-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3], [-3, 38, 0, -38, 3], [-3, 13, 0, -13, 3],
+         [-1, -1, 0, 1, 1]],
+        [[0] * 5, [0] * 5, [-7, 50, 0, -50, 7], [0] * 5, [0] * 5]),
+    2: ([[-1, -3, -3, -3, -1], [-1, 13, 38, 13, -1], [0] * 5, [1, -13, -38, -13, 1],
+         [1, 3, 3, 3, 1]],
+        [[0, 0, -7, 0, 0], [0, 0, 50, 0, 0], [0] * 5, [0, 0, -50, 0, 0], [0, 0, 7, 0, 0]]),
+    3: ([[0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0], [0, 2, 7, 2, 0], [0, 0, 1, 0, 0]],
+        [[0, 0, -1, 0, 0], [0, 0, 13, 0, 0], [0, 0, -24, 0, 0], [0, 0, 13, 0, 0], [0, 0, -1, 0, 0]]),
+    4: ([[-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], [0] * 5, [0, -9, 0, 9, 0], [1, 0, 0, 0, -1]],
+        [[0, -1, 0, 1, 0], [-1, 10, 0, -10, 1], [0] * 5, [1, -10, 0, 10, -1], [0, 1, 0, -1, 0]]),
+    5: ([[0] * 5, [0, 2, -5, 2, 0], [1, 7, -14, 7, 1], [0, 2, -5, 2, 0], [0] * 5],
+        [[0] * 5, [0] * 5, [-1, 13, -24, 13, -1], [0] * 5, [0] * 5]),
+    6: ([[0] * 5, [0, 1, 0, -1, 0], [0, 2, 0, -2, 0], [0, 1, 0, -1, 0], [0] * 5], None),
+    7: ([[0] * 5, [0, 1, -3, 1, 0], [0] * 5, [0, -1, 3, -1, 0], [0] * 5], None),
+    8: ([[0] * 5, [0, 1, 0, -1, 0], [0, -3, 0, 3, 0], [0, 1, 0, -1, 0], [0] * 5], None),
+    9: ([[0] * 5, [0, 1, 2, 1, 0], [0] * 5, [0, -1, -2, -1, 0], [0] * 5], None),
+}
+_W_DC = [[-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6], [-8, 42, 152, 42, -8], [-6, 6, 42, 6, -6],
+         [-2, -6, -8, -6, -2]]
+
+
+def _smooth(zz: np.ndarray, bits: List[int], q: np.ndarray, hb: int, wb: int, v: int,
+            imcu_rows: int) -> np.ndarray:
+    """``decompress_smooth_data`` on one component's (rows, cols, 64)
+    zigzag coefficients: estimates of the first nine AC coefficients
+    still zero and not fully known (``bits`` = coef_bits, the bits still
+    unknown, -1 for none seen), and of the DC while no AC data has come;
+    on the blocks [0, hb) x [0, wb), from the unsmoothed DC values of the
+    5 x 5 neighbourhood (columns clamped to the component's blocks, rows
+    by libjpeg's iMCU-row rules)."""
+    out = zz.copy()
+    dc = zz[..., 0].astype(np.int64)
+    change_dc = all(b == -1 for b in bits[1:10])
+    cols = np.clip(np.arange(wb)[:, None] + np.arange(-2, 3)[None, :], 0, wb - 1)  # (wb, 5)
+    rows = np.zeros((hb, 5), np.int64)
+    for r in range(hb):
+        i, br = divmod(r, v)
+        block_rows = v if i < imcu_rows - 1 else (hb % v or v)
+        ibr, ibrs = i * block_rows + br, block_rows * imcu_rows
+        prev = r - 1 if ibr > 0 else r
+        nxt = r + 1 if ibr < ibrs - 1 else r
+        rows[r] = [r - 2 if ibr > 1 else prev, prev, r, nxt, r + 2 if ibr < ibrs - 2 else nxt]
+    win = dc[rows[:, :, None, None], cols[None, None, :, :]]  # (hb, 5, wb, 5)
+    win = win.transpose(0, 2, 1, 3)  # (hb, wb, 5 rows, 5 cols)
+    q00 = int(q[0])
+    for k in range(1, 10):
+        al = bits[k]
+        weights = _W[k][0] if change_dc else _W[k][1]
+        if al == 0 or weights is None:
+            continue
+        qk = int(q[ZIGZAG[k]])
+        num = q00 * np.einsum("ijrc,rc->ij", win, np.asarray(weights, np.int64))
+        pred = (np.abs(num) + (qk << 7)) // (qk << 8)
+        if al > 0:
+            pred = np.minimum(pred, (1 << al) - 1)
+        pred = np.where(num >= 0, pred, -pred)
+        cur = out[:hb, :wb, k]
+        out[:hb, :wb, k] = np.where(cur == 0, pred, cur)
+    if change_dc:
+        num = q00 * np.einsum("ijrc,rc->ij", win, np.asarray(_W_DC, np.int64))
+        pred = (np.abs(num) + (q00 << 7)) // (q00 << 8)
+        out[:hb, :wb, 0] = np.where(num >= 0, pred, -pred)
+    return out
+
+
+# --------------------------------------------------------------- upsampling
+
+def _fancy_h(x: np.ndarray, width: int, bias_even: int, bias_odd: int, scale: int,
+             shift: int) -> np.ndarray:
+    """The horizontal half of libjpeg's fancy upsampling over the first
+    ``width`` columns of ``x`` (int64 rows): output 2j = (scale·x[j] +
+    x[j-1] + bias_even) >> shift, 2j+1 = (scale·x[j] + x[j+1] + bias_odd)
+    >> shift, the edges replicated."""
+    x = x[:, :width]
+    left = np.concatenate([x[:, :1], x[:, :-1]], axis=1)
+    right = np.concatenate([x[:, 1:], x[:, -1:]], axis=1)
+    out = np.empty((x.shape[0], 2 * width), np.int64)
+    out[:, 0::2] = (scale * x + left + bias_even) >> shift
+    out[:, 1::2] = (scale * x + right + bias_odd) >> shift
+    return out
+
+
+def _upsample(plane: np.ndarray, hr: int, vr: int, dw: int, dh: int) -> np.ndarray:
+    """A plane (decoded, block-padded) → full resolution, as libjpeg-turbo's
+    ``jdsample.c`` with ``do_fancy_upsampling``: ``dw``, ``dh`` the
+    component's own width and height (``downsampled_width``), (``hr``,
+    ``vr``) its integral ratios to the largest sampling factors."""
+    p = plane.astype(np.int64)
+    if (hr, vr) == (1, 1):
+        return p
+    above = np.concatenate([p[:1], p[:dh - 1]], axis=0)[:dh]
+    below = np.concatenate([p[1:dh], p[dh - 1:dh]], axis=0)
+    if (hr, vr) == (2, 1) and dw > 2:
+        return _fancy_h(p, dw, 1, 2, 3, 2)
+    if (hr, vr) == (1, 2):
+        out = np.empty((2 * dh, p.shape[1]), np.int64)
+        out[0::2] = (3 * p[:dh] + above + 1) >> 2
+        out[1::2] = (3 * p[:dh] + below + 2) >> 2
+        return out
+    if (hr, vr) == (2, 2) and dw > 2:
+        p = p[:dh]
+        out = np.empty((2 * dh, 2 * dw), np.int64)
+        out[0::2] = _fancy_h(3 * p + above, dw, 8, 7, 3, 4)
+        out[1::2] = _fancy_h(3 * p + below, dw, 8, 7, 3, 4)
+        return out
+    return np.repeat(np.repeat(p, vr, axis=0), hr, axis=1)  # int_upsample (and h2v1/h2v2 plain)
+
+
+# ------------------------------------------------------------------- colour
+
+def _fix(v: float) -> int:
+    return int(v * (1 << 16) + 0.5)
+
+
+def _ycc(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> List[np.ndarray]:
+    """``jdcolor.c``'s YCbCr → RGB before its range limit: 16-bit fixed
+    point, rounded table entries."""
+    one_half = 1 << 15
+    cb, cr = cb - 128, cr - 128
+    r = y + ((_fix(1.40200) * cr + one_half) >> 16)
+    g = y + ((-_fix(0.34414) * cb + one_half - _fix(0.71414) * cr) >> 16)
+    b = y + ((_fix(1.77200) * cb + one_half) >> 16)
+    return [r, g, b]
+
+
+def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+def _cmyk_to_rgb(cmyk: List[np.ndarray]) -> np.ndarray:
+    """libjpeg's CMYK samples as Pillow reads them (``CMYK;I``: inverted),
+    then Pillow's ``convert("RGB")``."""
+    c, m, y, k = (255 - x for x in cmyk)
+    nk = 255 - k
+    return np.clip(np.stack([nk - _muldiv255(x, nk) for x in (c, m, y)], -1), 0, 255)
+
+
+# -------------------------------------------------------------------- frame
+
+class _Frame:
+    def __init__(self, marker: int, body: bytes, name: str):
+        self.precision, self.height, self.width, ncomp = struct.unpack(">BHHB", body[:6])
+        if self.precision != 8:
+            raise _refuse(name, f"a {self.precision}-bit JPEG")
+        if ncomp not in (1, 3, 4):
+            raise _refuse(name, f"a {ncomp}-component JPEG")
+        if self.height == 0 or self.width == 0:
+            raise ValueError(f"{name}: JPEG of {self.width}x{self.height} pixels")
+        self.coding = _FRAMES[marker]
+        self.progressive = marker in (0xC2, 0xCA)
+        self.comps = [(body[6 + 3 * k], body[7 + 3 * k] >> 4, body[7 + 3 * k] & 15,
+                       body[8 + 3 * k]) for k in range(ncomp)]
+        if any(not (1 <= h <= 4 and 1 <= v <= 4) for _, h, v, _ in self.comps):
+            raise _refuse(name, "a JPEG with sampling factors outside 1..4")
+        self.hmax = max(c[1] for c in self.comps)
+        self.vmax = max(c[2] for c in self.comps)
+        self.mcux = -(-self.width // (8 * self.hmax))
+        self.mcuy = -(-self.height // (8 * self.vmax))
+        if self.coding == "lossless":
+            if ncomp == 1:  # one component: one sample per MCU whatever its factors
+                self.comps = [(self.comps[0][0], 1, 1, self.comps[0][3])]
+                self.hmax = self.vmax = 1
+            elif any((h, v) != (1, 1) for _, h, v, _ in self.comps):
+                raise ValueError(f"{name}: a lossless JPEG with sampling factors other than "
+                                 "1x1 in several components is not decoded")
+            n = self.width * self.height
+            self.diffs = [[0] * n for _ in self.comps]
+            self.samples: List[Optional[np.ndarray]] = [None] * ncomp
+        else:
+            self.coefs = [[0] * (self.mcuy * v * self.mcux * h * 64)
+                          for _, h, v, _ in self.comps]
+        self.coef_bits = [[-1] * 64 for _ in self.comps]
+        self.quant: List[Optional[np.ndarray]] = [None] * ncomp  # latched at a first scan
+
+    def comp_size(self, ci: int) -> Tuple[int, int]:
+        _, h, v, _ = self.comps[ci]
+        return -(-self.width * h // self.hmax), -(-self.height * v // self.vmax)
+
+
+def decode_jpeg(data: bytes, name: str = "<jpeg>") -> np.ndarray:
+    """Any JPEG Pillow decodes → its RGB uint8 pixels (module docstring)."""
+    pos = 2
+    quant: Dict[int, np.ndarray] = {}
+    dc_tabs: Dict[int, List[int]] = {}
+    ac_tabs: Dict[int, List[int]] = {}
+    dac_l, dac_u, dac_k = [0] * 4, [1] * 4, [5] * 4
+    frame: Optional[_Frame] = None
+    restart = 0
+    jfif = adobe = False
+    adobe_transform = None
+    while True:
+        while pos < len(data) and data[pos] != 0xFF:
+            pos += 1
+        while pos < len(data) and data[pos] == 0xFF:
+            pos += 1
+        if pos >= len(data):
+            raise ValueError(f"{name}: JPEG ends before EOI")
+        marker = data[pos]
+        pos += 1
+        if marker == 0xD9:
+            break
+        if 0xD0 <= marker <= 0xD7 or marker == 0x01:
+            continue
+        length = struct.unpack(">H", data[pos: pos + 2])[0]
+        body = data[pos + 2: pos + length]
+        pos += length
+        if marker in _HIERARCHICAL:
+            raise _refuse(name, "a hierarchical JPEG")
+        if marker == 0xCB:
+            raise _refuse(name, "a lossless arithmetic-coded JPEG")
+        if marker == 0xDB:
+            i = 0
+            while i < len(body):
+                pq, tq = body[i] >> 4, body[i] & 15
+                n = 128 if pq else 64
+                raw = np.frombuffer(body[i + 1: i + 1 + n], ">u2" if pq else np.uint8)
+                table = np.zeros(64, np.int64)
+                table[ZIGZAG] = raw
+                quant[tq] = table
+                i += 1 + n
+        elif marker == 0xC4:
+            i = 0
+            while i < len(body):
+                tc, th = body[i] >> 4, body[i] & 15
+                counts = list(body[i + 1: i + 17])
+                n = sum(counts)
+                table = _huffman_table(counts, list(body[i + 17: i + 17 + n]))
+                (ac_tabs if tc else dc_tabs)[th] = table
+                i += 17 + n
+        elif marker == 0xCC:
+            for i in range(0, len(body) - 1, 2):
+                tc, tb, cs = body[i] >> 4, body[i] & 15, body[i + 1]
+                if tc:
+                    dac_k[tb] = cs
+                else:
+                    dac_l[tb], dac_u[tb] = cs & 15, cs >> 4
+        elif marker in _FRAMES:
+            frame = _Frame(marker, body, name)
+        elif marker == 0xDD:
+            restart = struct.unpack(">H", body[:2])[0]
+        elif marker == 0xE0 and body[:5] == b"JFIF\x00":
+            jfif = True
+        elif marker == 0xEE and body[:5] == b"Adobe":
+            adobe, adobe_transform = True, body[11] if len(body) > 11 else None
+        elif marker == 0xDA:
+            if frame is None:
+                raise ValueError(f"{name}: JPEG scan before its frame header")
+            pos = _scan(data, pos, body, frame, quant, dc_tabs, ac_tabs,
+                        (dac_l, dac_u, dac_k), restart, name)
+    if frame is None:
+        raise ValueError(f"{name}: JPEG without a frame header")
+    return _assemble(frame, jfif, adobe, adobe_transform, name)
+
+
+def _segments(data: bytes, pos: int, name: str) -> Tuple[List[bytes], int]:
+    """The entropy-coded data from ``pos`` split at its restart markers, and
+    the position of the marker that ends the scan."""
+    segments, start = [], pos
+    while True:
+        nxt = data.find(b"\xff", pos)
+        if nxt < 0 or nxt + 1 >= len(data):
+            raise ValueError(f"{name}: JPEG scan runs past the end of the file")
+        m = data[nxt + 1]
+        if m == 0x00 or m == 0xFF:
+            pos = nxt + (2 if m == 0x00 else 1)
+            continue
+        segments.append(data[start:nxt])
+        if 0xD0 <= m <= 0xD7:
+            start = pos = nxt + 2
+            continue
+        return segments, nxt
+
+
+def _scan(data: bytes, pos: int, header: bytes, frame: _Frame, quant, dc_tabs, ac_tabs, dac,
+          restart: int, name: str) -> int:
+    """Decode one scan whose entropy-coded data starts at ``pos``; returns
+    the position of the marker that ends it."""
+    ns = header[0]
+    ids = [c[0] for c in frame.comps]
+    sel = []
+    for k in range(ns):
+        cid, tables = header[1 + 2 * k], header[2 + 2 * k]
+        if cid not in ids:
+            raise ValueError(f"{name}: JPEG scan names no component of the frame")
+        sel.append((ids.index(cid), tables >> 4, tables & 15))
+    if ns > 1 and sum(frame.comps[ci][1] * frame.comps[ci][2] for ci, _, _ in sel) > 10:
+        raise _refuse(name, "a JPEG scan of more than 10 blocks per MCU")
+    ss, se, ahal = header[1 + 2 * ns: 4 + 2 * ns]
+    ah, al = ahal >> 4, ahal & 15
+    for ci, _, _ in sel:
+        tq = frame.comps[ci][3]
+        if frame.coding != "lossless" and frame.quant[ci] is None:
+            if tq not in quant:
+                raise ValueError(f"{name}: JPEG component without its quantization table")
+            frame.quant[ci] = quant[tq].copy()
+    if frame.progressive:
+        if (ss == 0) != (se == 0) or se > 63 or ss > se or (ss and ns != 1) or al > 13:
+            raise ValueError(f"{name}: bad progressive JPEG scan ({ss}, {se}, {ah}, {al})")
+    elif frame.coding != "lossless" and (ss, se, ah, al) != (0, 63, 0, 0):
+        raise ValueError(f"{name}: bad sequential JPEG scan ({ss}, {se}, {ah}, {al})")
+    segments, end = _segments(data, pos, name)
+    huffman = frame.coding in ("huffman", "lossless")
+
+    def table(tabs, i):
+        if i not in tabs:
+            raise ValueError(f"{name}: JPEG scan uses an undefined Huffman table {i}")
+        return tabs[i]
+
+    units = _units(frame, sel, huffman, dc_tabs, ac_tabs, ss, ah, table)
+    per = restart or len(units)
+    for i, seg in enumerate(segments):
+        chunk = units[i * per: (i + 1) * per]
+        if not chunk:
+            break
+        flat = [u for mcu in chunk for u in mcu]
+        if frame.coding == "lossless":
+            _lossless_scan(seg, flat, frame.diffs, name)
+        elif frame.coding == "arith":
+            _arith_scan(seg, flat, frame.coefs, ss, se, ah, al, frame.progressive,
+                        {t for _, t, _ in sel}, {t for _, _, t in sel}, *dac)
+        elif frame.progressive:
+            _huffman_progressive(seg, flat, frame.coefs, ss, se, ah, al, name)
+        else:
+            _huffman_sequential(seg, flat, frame.coefs, [0] * len(frame.comps), name)
+    if frame.coding == "lossless":
+        rows = (restart // frame.width) if restart and len(sel) else frame.height
+        if restart and (restart % frame.width or not rows):
+            raise ValueError(f"{name}: lossless restart interval {restart} is not whole rows")
+        for ci, _, _ in sel:
+            d = np.asarray(frame.diffs[ci], np.int64).reshape(frame.height, frame.width)
+            frame.samples[ci] = _undifference(d, ss, frame.precision - al, rows or frame.height)
+            frame.samples[ci] = (frame.samples[ci] << al) & 0xFF
+    else:
+        for ci, _, _ in sel:
+            bits = frame.coef_bits[ci]
+            for k in range(ss, se + 1):
+                bits[k] = al
+    return end
+
+
+def _units(frame: _Frame, sel, huffman: bool, dc_tabs, ac_tabs, ss: int, ah: int, table):
+    """The MCUs of a scan, each a list of (component, offset, DC table, AC
+    table); for lossless scans (component, sample index, table)."""
+    comps, mcux = frame.comps, frame.mcux
+    need_dc = ss == 0 and ah == 0 or not frame.progressive
+    need_ac = ss > 0 or not frame.progressive
+
+    def tabs(td, ta):
+        if not huffman:
+            return td, ta
+        return (table(dc_tabs, td) if need_dc or frame.coding == "lossless" else None,
+                table(ac_tabs, ta) if need_ac and frame.coding != "lossless" else None)
+
+    units = []
+    if frame.coding == "lossless":
+        for y in range(frame.height):
+            for x in range(frame.width):
+                units.append([(ci, y * frame.width + x, tabs(td, ta)[0]) for ci, td, ta in sel])
+        if len(sel) == 1:  # a non-interleaved scan: one sample per MCU
+            units = [[u] for mcu in units for u in mcu]
+        return units
+    if len(sel) == 1:
+        ci, td, ta = sel[0]
+        dc, ac = tabs(td, ta)
+        _, h, _, _ = comps[ci]
+        cw, ch = frame.comp_size(ci)
+        row_blocks = mcux * h
+        for by in range(-(-ch // 8)):
+            for bx in range(-(-cw // 8)):
+                units.append([(ci, (by * row_blocks + bx) * 64, dc, ac)])
+        return units
+    resolved = [(ci, *tabs(td, ta)) for ci, td, ta in sel]
+    for my in range(frame.mcuy):
+        for mx in range(mcux):
+            mcu = []
+            for ci, dc, ac in resolved:
+                _, h, v, _ = comps[ci]
+                for yy in range(v):
+                    for xx in range(h):
+                        by, bx = my * v + yy, mx * h + xx
+                        mcu.append((ci, (by * mcux * h + bx) * 64, dc, ac))
+            units.append(mcu)
+    return units
+
+
+def _colour_space(n: int, ids, jfif: bool, adobe: bool, transform, lossless: bool) -> str:
+    """libjpeg-turbo's ``default_decompress_parms``: the colour space of the
+    samples of an ``n``-component image."""
+    if n == 1:
+        return "gray"
+    if n == 4:
+        return "ycck" if adobe and transform != 0 else "cmyk"
+    if jfif:
+        return "ycc"
+    if adobe:
+        return "rgb" if transform == 0 else "ycc"
+    if list(ids) == [82, 71, 66]:  # 'R', 'G', 'B'
+        return "rgb"
+    return "rgb" if lossless else "ycc"
+
+
+def _assemble(frame: _Frame, jfif: bool, adobe: bool, adobe_transform, name: str) -> np.ndarray:
+    width, height, comps = frame.width, frame.height, frame.comps
+    n = len(comps)
+    space = _colour_space(n, [c[0] for c in comps], jfif, adobe, adobe_transform,
+                          frame.coding == "lossless")
+    if frame.coding == "lossless":
+        if any(s is None for s in frame.samples):
+            raise ValueError(f"{name}: lossless JPEG with a component no scan carried")
+        if space in ("ycc", "ycck"):
+            raise _refuse(name, "a lossless JPEG in YCbCr (a colour conversion libjpeg-turbo "
+                          "does not make in lossless mode)")
+        planes = frame.samples
+    else:
+        for _, h, v, _ in comps:
+            if frame.hmax % h or frame.vmax % v:
+                raise _refuse(name, "JPEG sampling factors that do not divide the largest")
+        if any(q is None for q in frame.quant):
+            raise ValueError(f"{name}: JPEG with a component no scan carried")
+        smooth = frame.progressive and all(b[0] >= 0 for b in frame.coef_bits) and any(
+            b[k] != 0 for b in frame.coef_bits for k in range(1, 10)) and all(
+            (q[:10] != 0).all() for q in frame.quant)
+        planes = []
+        for ci, ((_, h, v, _), flat) in enumerate(zip(comps, frame.coefs)):
+            nbx, nby = frame.mcux * h, frame.mcuy * v
+            zz = np.asarray(flat, np.int64).reshape(nby, nbx, 64)
+            if smooth:
+                cw, ch = frame.comp_size(ci)
+                zz = _smooth(zz, frame.coef_bits[ci], frame.quant[ci], -(-ch // 8), -(-cw // 8),
+                             v, frame.mcuy)
+            natural = np.zeros((nby * nbx, 64), np.int64)
+            natural[:, ZIGZAG] = zz.reshape(-1, 64)
+            blocks = idct_islow(natural, frame.quant[ci])
+            plane = blocks.reshape(nby, nbx, 8, 8).transpose(0, 2, 1, 3).reshape(nby * 8, nbx * 8)
+            dw, dh = frame.comp_size(ci)
+            planes.append(_upsample(plane, frame.hmax // h, frame.vmax // v, dw, dh)
+                          [:height, :width].astype(np.int64))
+    planes = [p[:height, :width].astype(np.int64) for p in planes]
+    if space == "gray":
+        return np.ascontiguousarray(np.repeat(planes[0].astype(np.uint8)[..., None], 3, axis=2))
+    if space == "rgb":
+        return np.stack(planes, axis=-1).astype(np.uint8)
+    if space == "ycc":
+        return np.clip(np.stack(_ycc(*planes), -1), 0, 255).astype(np.uint8)
+    if space == "ycck":
+        planes = [np.clip(255 - x, 0, 255) for x in _ycc(*planes[:3])] + [planes[3]]
+    return _cmyk_to_rgb(planes).astype(np.uint8)

@@ -94,6 +94,8 @@ class StackedEmbedding(nn.Module):
         preferred_element_type."""
         dt = compute_dtype(x)
         with torch.autocast(x.device.type, enabled=False):
+            if hasattr(self.embed_tokens, "attend"):  # cut over the vocabulary
+                return self.embed_tokens.attend(x, dt)
             w = self.embed_tokens.weight.to(dt).float()
             return torch.matmul(x.to(dt).float(), w.t())
 

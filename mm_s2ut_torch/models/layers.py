@@ -17,6 +17,16 @@ attention weights (``ops/dropout.py``). Under ``torch.autocast`` the
 logits and the tied output projection stay fp32 from operands rounded to
 the compute dtype, as the reference's ``preferred_element_type``.
 
+Under tensor parallelism (``parallel/tensor.py``) a layer whose
+projections are cut runs on its rank's slice: the attention on its heads
+(kernels A, G and H on H/model heads, the dropout hashing their global
+heads), the FFN on its columns of the activations (their dropout hashing
+the global column); ``out_proj`` and ``fc2`` sum their partial products
+over the group and add their bias once. An encoder layer given a
+:class:`~mm_s2ut_torch.parallel.tensor.SeqShard` (sequence parallelism)
+holds its rows of T between those sums: its LayerNorms and residual
+dropout run on them, the dropout hashing the global row.
+
 Submodule names mirror the flax parameter tree (``self_attn.q_proj``,
 ``ffn.fc1``, ``subsampler.conv0`` …) so that ``convert.from_flax`` maps
 parameters by path. Every LayerNorm uses flax's default epsilon 1e-6,
@@ -35,6 +45,7 @@ from torch import nn
 from mm_s2ut_torch.ops.attention import flash_attention_biased
 from mm_s2ut_torch.ops.decode_attention import cross_decode_attention, cross_decode_attention_i8
 from mm_s2ut_torch.ops.dropout import BernoulliDropout, DropoutRng, HashDropout, need_rng
+from mm_s2ut_torch.parallel.tensor import RowParallelLinear, SeqShard, enter, heads_of, leave
 
 NEG_INF = -1e9  # additive mask value
 # Any integer routes causal self-attention to kernel G (key-tile skipping);
@@ -155,46 +166,73 @@ class MultiHeadAttention(nn.Module):
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         b, t, _ = x.shape
-        return x.reshape(b, t, self.num_heads, self.head_dim)
+        return x.reshape(b, t, -1, self.head_dim)  # every head, or a rank's under TP
 
     def forward(
         self, query: torch.Tensor, key_bias: torch.Tensor, causal: bool = False, window: int = 0,
+        seq: Optional[SeqShard] = None,
     ) -> torch.Tensor:
         """Self-attention over ``query`` (B, T, E) with the (B, T) f32
         additive key bias of its padding (``ops.attention.padding_bias``,
         built once for all layers); ``causal`` (+ ``window``) masks
         position-causally, through kernel G. In training, attention dropout
-        with a fresh seed per call."""
-        q = self._split(self.q_proj(query))
-        k = self._split(self.k_proj(query))
-        v = self._split(self.v_proj(query))
+        with a fresh seed per call. Under tensor parallelism, on this
+        rank's heads; with ``seq``, ``query`` and the result are this
+        rank's rows of T."""
+        tp = heads_of(self)
         rate = self.dropout if self.training else 0.0
         seed, row0 = None, 0
         if rate > 0.0:
             rng = need_rng(self)
             seed, row0 = rng.next_seed(), rng.row0
-        out = flash_attention_biased(
-            q, k, v, key_bias, causal=causal, window=window,
-            block_k=CAUSAL_BLOCK_K if causal else None, dropout_rate=rate,
-            dropout_seed=seed, dropout_row0=row0,
-        )
-        return self.out_proj(out.reshape(*query.shape[:2], self.embed_dim))
+        attend = dict(causal=causal, window=window, block_k=CAUSAL_BLOCK_K if causal else None,
+                      dropout_rate=rate, dropout_seed=seed, dropout_row0=row0)
+        if tp is None:
+            q = self._split(self.q_proj(query))
+            k = self._split(self.k_proj(query))
+            v = self._split(self.v_proj(query))
+            out = flash_attention_biased(q, k, v, key_bias, **attend)
+            return self.out_proj(out.reshape(*query.shape[:2], self.embed_dim))
+        x = enter(query, tp, seq)
+        q, k, v = (self._split(p.local(x)) for p in (self.q_proj, self.k_proj, self.v_proj))
+        out = flash_attention_biased(q, k, v, key_bias, **attend, h_total=self.num_heads,
+                                     h0=tp.rank * q.shape[2])
+        part = self.out_proj.partial(out.reshape(*x.shape[:2], -1))
+        return leave(part, tp, seq) + self.out_proj.bias
 
     def dense(self, query: torch.Tensor, key: torch.Tensor,
               bias: Optional[torch.Tensor], value: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The reference's dense path: softmax(q.kᵀ/√Dh + bias) over ``key``
         (B, S, kdim) with fp32 logits, weights in the compute dtype (dropped
         in training), then · v, projected from ``value`` (``key`` when it is
-        None). Plain PyTorch, as the reference's einsums."""
-        q = self._split(self.q_proj(query)) * self.head_dim ** -0.5
-        k = self._split(self.k_proj(key))
-        v = self._split(self.v_proj(key if value is None else value))
+        None). Plain PyTorch, as the reference's einsums. Under tensor
+        parallelism, on this rank's heads, whose dropout draws every
+        head's uniforms and takes its own."""
+        value = key if value is None else value
+        tp = heads_of(self)
+        if tp is None:
+            q = self._split(self.q_proj(query)) * self.head_dim ** -0.5
+            k = self._split(self.k_proj(key))
+            v = self._split(self.v_proj(value))
+            proj = self.out_proj
+        else:
+            xq = enter(query, tp, None)
+            xk = xq if key is query else enter(key, tp, None)
+            xv = xk if value is key else enter(value, tp, None)
+            q = self._split(self.q_proj.local(xq)) * self.head_dim ** -0.5
+            k = self._split(self.k_proj.local(xk))
+            v = self._split(self.v_proj.local(xv))
+
+            def proj(o):
+                return leave(self.out_proj.partial(o), tp, None) + self.out_proj.bias
         logits = fp32_einsum("bqhd,bkhd->bhqk", q, k)
         if bias is not None:
             logits = logits + bias.float()
-        weights = self.drop(torch.softmax(logits, dim=-1).to(q.dtype))
+        at = None if tp is None else ((tp.rank * q.shape[2], 0, 0), (self.num_heads,
+                                                                     *logits.shape[2:]))
+        weights = self.drop(torch.softmax(logits, dim=-1).to(q.dtype), at)
         out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
-        return self.out_proj(out.reshape(*query.shape[:2], self.embed_dim))
+        return proj(out.reshape(*query.shape[:2], -1))
 
     def precompute_kv(
         self, key: torch.Tensor, kv_dtype: Optional[str] = None
@@ -243,7 +281,10 @@ class MultiHeadAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """fc2(drop(act(fc1(x)))), hash dropout on the activation in training."""
+    """fc2(drop(act(fc1(x)))), hash dropout on the activation in training.
+    Under tensor parallelism, on this rank's columns of the activation,
+    the dropout hashing their global index; with ``seq``, ``x`` and the
+    result are this rank's rows of T."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, activation_dropout: float = 0.0,
                  activation: str = "relu"):
@@ -253,8 +294,14 @@ class FeedForward(nn.Module):
         self.drop = HashDropout(activation_dropout)
         self.act = get_activation(activation)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.drop(self.act(self.fc1(x))))
+    def forward(self, x: torch.Tensor, seq: Optional[SeqShard] = None) -> torch.Tensor:
+        tp = getattr(self.fc1, "tp", None)
+        if tp is None or not isinstance(self.fc2, RowParallelLinear):
+            return self.fc2(self.drop(self.act(self.fc1(x))))
+        x = enter(x, tp, seq)
+        h = self.act(self.fc1.local(x))
+        h = self.drop(h, ((0, tp.rank * h.shape[2]), (h.shape[1], self.fc1.out_features)))
+        return leave(self.fc2.partial(h), tp, seq) + self.fc2.bias
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -276,12 +323,15 @@ class TransformerEncoderLayer(nn.Module):
         self.ffn = FeedForward(embed_dim, ffn_dim, activation_dropout, activation)
         self.drop = HashDropout(dropout)
 
-    def forward(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
-        """``key_bias``: the (B, T) f32 additive bias of the padding."""
+    def forward(self, x: torch.Tensor, key_bias: torch.Tensor,
+                seq: Optional[SeqShard] = None) -> torch.Tensor:
+        """``key_bias``: the (B, T) f32 additive bias of the padding;
+        ``seq``: ``x`` is this rank's rows of T (sequence parallelism)."""
         pre = self.normalize_before
+        at = None if seq is None else seq.at(x.shape[2])
         x = sublayer(self.self_attn_layer_norm, pre, x, lambda h: self.drop(
-            self.self_attn(h, key_bias, self.causal, self.window)))
-        return sublayer(self.final_layer_norm, pre, x, lambda h: self.drop(self.ffn(h)))
+            self.self_attn(h, key_bias, self.causal, self.window, seq), at))
+        return sublayer(self.final_layer_norm, pre, x, lambda h: self.drop(self.ffn(h, seq), at))
 
 
 class TransformerDecoderLayer(nn.Module):

@@ -16,9 +16,20 @@ holds a real key, i.e. on every unpadded row. With
 ``checkpoint_activations`` each layer is rematerialised in training (the
 reference's ``nn.remat``), its dropout drawn again as in the forward
 (``ops.dropout.checkpoint``).
+
+Sequence parallelism (``model.sequence_parallel`` under a model axis > 1,
+:meth:`SpeechTransformerEncoder.shard_sequence`; the reference constrains
+the layers' outputs to P(data, model, None) at ``s2t_encoder.py:182-185``)
+keeps the activations between layers cut on T over the tensor-parallel
+group: each rank takes its rows after the input dropout, each layer
+gathers T before its column-parallel projections and reduce-scatters
+after ``out_proj`` and ``fc2``, and T is gathered again before the final
+LayerNorm (and for each state ``return_all_states`` returns). The math is
+the unsharded run's.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -34,6 +45,8 @@ from mm_s2ut_torch.models.layers import (
 )
 from mm_s2ut_torch.ops.attention import padding_bias
 from mm_s2ut_torch.ops.dropout import DropoutRng, HashDropout, checkpoint
+from mm_s2ut_torch.parallel.tensor import (RowParallelLinear, SeqShard, TensorParallel,
+                                           gather_seq_out, heads_of, scatter_seq)
 
 
 class SpeechTransformerEncoder(nn.Module):
@@ -73,6 +86,24 @@ class SpeechTransformerEncoder(nn.Module):
                 normalize_before=normalize_before))
         if normalize_before:
             self.final_layer_norm = layer_norm(embed_dim)
+        self.sequence_tp: Optional[TensorParallel] = None  # set by shard_sequence
+
+    def shard_sequence(self, tp: TensorParallel) -> None:
+        """Hold T cut over ``tp`` between the layers (the model already
+        sharded by ``parallel.tensor.shard_model_``). The parameters the
+        layers apply to their rows alone (LayerNorms, the row-parallel
+        biases) get ``sequence_parallel = True``: each rank's gradient of
+        them is partial, and the trainer sums it over the group."""
+        for i in range(self.num_layers):
+            layer = getattr(self, f"layer{i}")
+            if heads_of(layer.self_attn) is None or not isinstance(layer.ffn.fc2,
+                                                                   RowParallelLinear):
+                raise ValueError(f"sequence_parallel: encoder layer{i}'s attention heads and FFN "
+                                 f"must split over mesh.model={tp.size}")
+            for p in layer.parameters():
+                if not getattr(p, "tp_sharded", False):
+                    p.sequence_parallel = True
+        self.sequence_tp = tp
 
     def forward(self, features: torch.Tensor, lengths: torch.Tensor,
                 return_all_states: bool = False) -> Dict[str, Any]:
@@ -86,11 +117,17 @@ class SpeechTransformerEncoder(nn.Module):
         key_bias = padding_bias(padding_mask, *padding_mask.shape, x.device)  # once for all layers
         states: List[torch.Tensor] = []
         remat = self.checkpoint_activations and self.training and torch.is_grad_enabled()
+        seq = None if self.sequence_tp is None else SeqShard(self.sequence_tp, x.shape[1])
+        if seq is not None:
+            x = scatter_seq(x, seq)
         for i in range(self.num_layers):
             layer = getattr(self, f"layer{i}")
-            x = checkpoint(layer, self.rng, x, key_bias) if remat else layer(x, key_bias)
+            fn = functools.partial(layer, seq=seq)
+            x = checkpoint(fn, self.rng, x, key_bias) if remat else fn(x, key_bias)
             if return_all_states:
-                states.append(x)
+                states.append(x if seq is None else gather_seq_out(x, seq))
+        if seq is not None:
+            x = gather_seq_out(x, seq)
         if self.normalize_before:
             x = self.final_layer_norm(x)
         return {"encoder_out": x, "encoder_padding_mask": padding_mask,

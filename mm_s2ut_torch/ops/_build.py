@@ -38,14 +38,14 @@ _p, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _d, _u32 = ctypes.c_double, ctypes.c_uint32
 _FLASH = (
     [_i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i] + [_i64] * 9
-    + [_f, _i, _i, _d, _u32, _u32, _p, _p, _p],
+    + [_f, _i, _i, _d, _u32, _u32, _u32, _u32, _p, _p, _p],
     ctypes.c_int,
 )
 _SIGNATURES = {
     "mm_flash_attention": _FLASH,
     "mm_flash_attention_causal_skip": _FLASH,
     "mm_flash_attention_bwd": (
-        [_i] + [_p] * 12 + [_i] * 5 + [_i64] * 9 + [_f, _i, _i, _d, _u32, _u32, _p],
+        [_i] + [_p] * 12 + [_i] * 5 + [_i64] * 9 + [_f, _i, _i, _d] + [_u32] * 4 + [_p],
         ctypes.c_int,
     ),
     "mm_ancestry_decode_splits": ([_i] * 5, ctypes.c_int),

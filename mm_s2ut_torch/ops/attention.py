@@ -29,7 +29,10 @@ twins rebuild the same mask from the seed alone; nothing is stored. ``b``
 is the row of the global batch: a data-parallel process that holds rows
 ``dropout_row0`` onwards passes that offset, and draws the masks that
 rows of one process over the whole batch would draw (JAX's jit sees the
-global batch). The
+global batch). Likewise ``h`` is the layer's global head: a
+tensor-parallel rank that holds heads [h0, h0 + H) of ``h_total`` passes
+the pair, and its local head j hashes as (row0 + b)·h_total + h0 + j; the
+defaults (H, 0) are the unsharded call. The
 hash is computed bit-exactly on uint32 values held in int64 (torch has no
 uint32 right shift on the CPU): every product is masked back to 32 bits,
 and int64 multiplication wraps, which keeps the low 32 bits right.
@@ -87,9 +90,12 @@ def dropout_keep(
 
 
 def attention_keep(B: int, H: int, Tq: int, S: int, seed: int, rate: float, device,
-                   row0: int = 0) -> torch.Tensor:
-    """(B, H, Tq, S) keep-mask of attention dropout at ((row0 + b)·H + h, t, s)."""
-    bh = ((row0 + torch.arange(B, device=device))[:, None] * H
+                   row0: int = 0, h_total: Optional[int] = None, h0: int = 0) -> torch.Tensor:
+    """(B, H, Tq, S) keep-mask of attention dropout at ((row0 + b)·h_total
+    + h0 + h, t, s): heads [h0, h0 + H) of a layer of ``h_total`` (H by
+    default)."""
+    h_total = H if h_total is None else h_total
+    bh = ((row0 + torch.arange(B, device=device))[:, None] * h_total + h0
           + torch.arange(H, device=device)[None, :])
     return dropout_keep(
         bh[:, :, None, None], torch.arange(Tq, device=device)[None, None, :, None],
@@ -129,14 +135,17 @@ def reference_attention(
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
     dropout_row0: int = 0,
+    h_total: Optional[int] = None,
+    h0: int = 0,
 ) -> torch.Tensor:
     """softmax(q.kᵀ + bias).v with fp32 logits and softmax; weights are
     cast to q's dtype before the second product, as in the reference.
     ``causal`` REPLACES the logits of keys after the query (and, with
     ``window`` > 0, at or before query − window) by −1e9; query and key
     positions both start at 0. ``dropout_rate`` > 0 zeroes the weights the
-    hash drops (seed ``dropout_seed``, batch rows from ``dropout_row0``) and
-    scales the rest by 1/(1 − rate)."""
+    hash drops (seed ``dropout_seed``, batch rows from ``dropout_row0``, q's
+    heads the layer's [h0, h0 + H) of ``h_total``) and scales the rest by
+    1/(1 − rate)."""
     _check_dropout(dropout_rate, dropout_seed)
     logits = torch.einsum("bqhd,bkhd->bhqk", _acc(q), _acc(k))
     if bias is not None:
@@ -148,7 +157,7 @@ def reference_attention(
     if dropout_rate > 0.0:
         B, Tq, H, _ = q.shape
         keep = attention_keep(B, H, Tq, k.shape[1], dropout_seed, dropout_rate, q.device,
-                              dropout_row0)
+                              dropout_row0, h_total, h0)
         # 1 - rate rounded to the weights' dtype, as JAX's weak typing does.
         denom = torch.tensor(1.0 - dropout_rate, dtype=weights.dtype, device=q.device)
         weights = torch.where(keep, weights, torch.zeros_like(weights)) / denom
@@ -167,6 +176,8 @@ def reference_attention_bwd(
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
     dropout_row0: int = 0,
+    h_total: Optional[int] = None,
+    h0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain twin of kernel H, in H's formulas (the reference's
     ``_attn_bwd_kernel``): recompute W = softmax(scale·q.kᵀ + bias [causal])
@@ -192,7 +203,8 @@ def reference_attention_bwd(
     w = torch.softmax(logits, dim=-1)
     dP = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
     if dropout_rate > 0.0:
-        keep = attention_keep(B, H, Tq, S, dropout_seed, dropout_rate, q.device, dropout_row0)
+        keep = attention_keep(B, H, Tq, S, dropout_seed, dropout_rate, q.device, dropout_row0,
+                              h_total, h0)
         mscale = torch.where(keep, 1.0 / (1.0 - dropout_rate), 0.0)
         dW, wd = dP * mscale, w * mscale
     else:
@@ -239,11 +251,16 @@ def _strides(*ts):
     return [s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))]
 
 
-def _dropout_args(rate: float, seed: Optional[int], row0: int, H: int):
-    """rate, seed and the hash's (b, h) row offset as the C entries take them."""
+def _dropout_args(rate: float, seed: Optional[int], row0: int, H: int,
+                  h_total: Optional[int] = None, h0: int = 0):
+    """rate, seed, the hash's (b, h) row offset and the global heads
+    (h_total, h0) as the C entries take them."""
+    h_total = H if h_total is None else int(h_total)
+    if not 0 <= h0 <= h_total - H:
+        raise ValueError(f"flash_attention: heads [{h0}, {h0 + H}) outside the layer's {h_total}")
     if rate <= 0.0:
-        return 0.0, 0, 0
-    return float(rate), int(seed) & _M32, (int(row0) * H) & _M32
+        return 0.0, 0, 0, h_total, int(h0)
+    return float(rate), int(seed) & _M32, (int(row0) * h_total) & _M32, h_total, int(h0)
 
 
 def _device_context(device):
@@ -256,11 +273,12 @@ def _device_context(device):
 
 def _launch(entry: str, q, k, v, bias, scale: float, causal: bool, window: int,
             rate: float, seed: Optional[int], stats: Optional[torch.Tensor],
-            row0: int = 0) -> torch.Tensor:
+            row0: int = 0, h_total: Optional[int] = None, h0: int = 0) -> torch.Tensor:
     """Check a CUDA input and launch kernel A or G (``entry``), counting the
     launch on :func:`flash_attention` or :func:`causal_skip_attention`;
     with ``stats`` (2, B·H, Tq) f32, also write each row's softmax max and
-    denominator for kernel H. ``row0``: the dropout hash's first batch row."""
+    denominator for kernel H. ``row0``: the dropout hash's first batch row;
+    ``h_total``, ``h0``: its global heads (:func:`attention_keep`)."""
     B, Tq, H, D = q.shape
     S = k.shape[1]
     _check_cuda(entry, q, k, v)
@@ -271,7 +289,7 @@ def _launch(entry: str, q, k, v, bias, scale: float, causal: bool, window: int,
         rc = getattr(_build.library(), entry)(
             _build.dtype_code(q.dtype), q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr(), out.data_ptr(), B, Tq, S, H, D, *_strides(q, k, v),
-            scale, causal, window, *_dropout_args(rate, seed, row0, H),
+            scale, causal, window, *_dropout_args(rate, seed, row0, H, h_total, h0),
             None if stats is None else stats[0].data_ptr(),
             None if stats is None else stats[1].data_ptr(),
             _build.stream_ptr(q.device),
@@ -284,7 +302,7 @@ def _launch(entry: str, q, k, v, bias, scale: float, causal: bool, window: int,
 
 def flash_attention_bwd(q, k, v, bias, stats, g, scale: float, causal: bool, window: int,
                         dropout_rate: float = 0.0, dropout_seed: Optional[int] = None,
-                        dropout_row0: int = 0):
+                        dropout_row0: int = 0, h_total: Optional[int] = None, h0: int = 0):
     """Kernel H: the attention backward on the card from the forward's
     inputs and row statistics (``stats``: max and denominator of each row's
     softmax, written by A or G). Returns (dq in q's dtype, dk, dv cast from
@@ -308,7 +326,7 @@ def flash_attention_bwd(q, k, v, bias, stats, g, scale: float, causal: bool, win
             bias.data_ptr(), g.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
             B, Tq, S, H, D, *_strides(q, k, v), scale, causal, window,
-            *_dropout_args(dropout_rate, dropout_seed, dropout_row0, H),
+            *_dropout_args(dropout_rate, dropout_seed, dropout_row0, H, h_total, h0),
             _build.stream_ptr(q.device),
         )
     _build.check(rc, "mm_flash_attention_bwd")
@@ -326,12 +344,12 @@ class _FlashAttention(torch.autograd.Function):
     gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, scale, causal, window, rate, seed, row0, entry):
-        ctx.cfg = (scale, causal, window, rate, seed, row0)
+    def forward(ctx, q, k, v, bias, scale, causal, window, rate, seed, row0, heads, entry):
+        ctx.cfg = (scale, causal, window, rate, seed, row0, heads)
         with torch.autocast(q.device.type, enabled=False):
             if q.device.type == "cpu":
                 out = reference_attention(q * scale, k, v, bias[:, None, None, :], causal,
-                                          window, rate, seed, row0)
+                                          window, rate, seed, row0, *heads)
                 stats = None
             else:
                 stats = None
@@ -339,22 +357,22 @@ class _FlashAttention(torch.autograd.Function):
                     B, Tq, H, _ = q.shape
                     stats = torch.empty((2, B * H, Tq), dtype=torch.float32, device=q.device)
                 out = _launch(entry, q, k, v, bias, scale, causal, window, rate, seed, stats,
-                              row0)
+                              row0, *heads)
         ctx.save_for_backward(q, k, v, bias, stats)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, stats = ctx.saved_tensors
-        scale, causal, window, rate, seed, row0 = ctx.cfg
+        scale, causal, window, rate, seed, row0, heads = ctx.cfg
         with torch.autocast(q.device.type, enabled=False):
             if q.device.type == "cpu":
                 dq, dk, dv, _ = reference_attention_bwd(q, k, v, bias, g, scale, causal, window,
-                                                        rate, seed, row0)
+                                                        rate, seed, row0, *heads)
             else:
                 dq, dk, dv, _ = flash_attention_bwd(q, k, v, bias, stats, g, scale, causal,
-                                                    window, rate, seed, row0)
-        return dq, dk, dv, None, None, None, None, None, None, None, None
+                                                    window, rate, seed, row0, *heads)
+        return dq, dk, dv, None, None, None, None, None, None, None, None, None
 
 
 _SKIP_ENTRY = "mm_flash_attention_causal_skip"
@@ -370,6 +388,8 @@ def causal_skip_attention(
     dropout_rate: float = 0.0,
     dropout_seed: Optional[int] = None,
     dropout_row0: int = 0,
+    h_total: Optional[int] = None,
+    h0: int = 0,
 ) -> torch.Tensor:
     """Kernel G: causal (and optionally windowed) attention that computes
     only the key tiles meeting each query tile's band — the reference's
@@ -380,7 +400,7 @@ def causal_skip_attention(
         raise ValueError(f"causal_skip_attention: Tq={Tq} > S={S}")
     bias = padding_bias(key_padding_mask, q.shape[0], S, q.device)
     return _attend(_SKIP_ENTRY, q, k, v, bias, scale, True, window, dropout_rate, dropout_seed,
-                   dropout_row0)
+                   dropout_row0, h_total, h0)
 
 
 causal_skip_attention.launches = 0
@@ -398,6 +418,8 @@ def flash_attention(
     block_k: Optional[int] = None,
     dropout_seed: Optional[int] = None,
     dropout_row0: int = 0,
+    h_total: Optional[int] = None,
+    h0: int = 0,
 ) -> torch.Tensor:
     """(B, Tq, H, D) attention; ``scale`` defaults to D^-1/2. ``causal``
     (+ ``window``) masks in-kernel and needs Tq == Tk, as the reference's
@@ -408,11 +430,12 @@ def flash_attention(
     kernel and its value is not read. ``dropout_rate`` > 0 drops softmax
     weights by the hash of (b·H + h, t, s) and the uint32 ``dropout_seed``,
     which the caller varies per call; ``dropout_row0`` is the global batch
-    row of q's first row (data parallelism). Differentiable: the backward
-    is kernel H on the card."""
+    row of q's first row (data parallelism); q's heads are the layer's
+    [``h0``, h0 + H) of ``h_total`` (tensor parallelism; H by default).
+    Differentiable: the backward is kernel H on the card."""
     bias = padding_bias(key_padding_mask, q.shape[0], k.shape[1], q.device)
     return flash_attention_biased(q, k, v, bias, scale, causal, window, dropout_rate, block_k,
-                                  dropout_seed, dropout_row0)
+                                  dropout_seed, dropout_row0, h_total, h0)
 
 
 flash_attention.launches = 0
@@ -430,6 +453,8 @@ def flash_attention_biased(
     block_k: Optional[int] = None,
     dropout_seed: Optional[int] = None,
     dropout_row0: int = 0,
+    h_total: Optional[int] = None,
+    h0: int = 0,
 ) -> torch.Tensor:
     """:func:`flash_attention` with the key bias already built, as the
     encoder hands one bias to all its layers."""
@@ -440,11 +465,12 @@ def flash_attention_biased(
         raise ValueError("window needs causal=True")
     entry = _SKIP_ENTRY if causal and block_k is not None else "mm_flash_attention"
     return _attend(entry, q, k, v, bias, scale, causal, window, dropout_rate, dropout_seed,
-                   dropout_row0)
+                   dropout_row0, h_total, h0)
 
 
-def _attend(entry, q, k, v, bias, scale, causal, window, rate, seed, row0=0):
+def _attend(entry, q, k, v, bias, scale, causal, window, rate, seed, row0=0, h_total=None, h0=0):
     _check_dropout(rate, seed)
     scale = q.shape[3] ** -0.5 if scale is None else scale
+    heads = (q.shape[2] if h_total is None else int(h_total), int(h0))
     return _FlashAttention.apply(q, k, v, bias, float(scale), causal, window, float(rate),
-                                 seed, int(row0), entry)
+                                 seed, int(row0), heads, entry)

@@ -21,7 +21,11 @@ generators and a contiguous slice of the batch's rows
 process draws what the whole batch would: the hash keys on the global
 flat index and the global (b·H + h) row, and a Bernoulli mask or a
 uniform over rows is drawn for every row of the batch and sliced, so all
-processes move their generators alike.
+processes move their generators alike. Tensor parallelism cuts other
+dimensions too (an FFN's columns, attention's heads, the sequence under
+sequence parallelism): a hash site then names where its block sits in
+the whole tensor (``hash_dropout``'s ``at``), and a Bernoulli site draws
+the whole tensor and slices its block (``BernoulliDropout``'s ``at``).
 
 :func:`checkpoint` rematerialises a layer (``torch.utils.checkpoint``,
 non-reentrant) and puts both generators back to their state at the
@@ -33,7 +37,7 @@ than the forward did, and move the run's seed stream on.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -95,14 +99,27 @@ def checkpoint(fn: Callable, rng: Optional[DropoutRng], *args) -> torch.Tensor:
     return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
-def keep_mask(shape, seed: int, rate: float, device, offset: int = 0) -> torch.Tensor:
+Block = Tuple[Tuple[int, ...], Tuple[int, ...]]
+
+
+def keep_mask(shape, seed: int, rate: float, device, offset: int = 0,
+              at: Optional[Block] = None) -> torch.Tensor:
     """The reference's ``_keep_mask``: keep where the hash of the flat
     index (plus ``offset``, the global index of element 0) and the seed
-    clears the rate."""
-    n = 1
-    for s in shape:
-        n *= s
-    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
+    clears the rate. ``at`` = (starts, sizes) of the dimensions after the
+    first: the tensor is the block at those starts of a whole tensor of
+    those sizes (row 0 at ``offset`` / a row's elements of the whole), and
+    each element hashes its index in the whole."""
+    if at is None:
+        idx = torch.arange(offset, offset + math.prod(shape), dtype=torch.int64, device=device)
+    else:
+        starts, sizes = at
+        row = math.prod(sizes)
+        idx = (offset // row + torch.arange(shape[0], dtype=torch.int64, device=device))
+        for n, s0, size in zip(shape[1:], starts, sizes):
+            idx = idx[..., None] * size + (s0 + torch.arange(n, dtype=torch.int64,
+                                                             device=device))
+        idx = idx.reshape(-1)
     h = _mix(((idx * _H3) & _M32) ^ ((int(seed) * _H1) & _M32))
     return _keep_from_hash(h, rate).reshape(shape)
 
@@ -113,28 +130,34 @@ def _weak(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(value, dtype=like.dtype, device=like.device)
 
 
-def _apply(x: torch.Tensor, seed: int, rate: float, offset: int) -> torch.Tensor:
-    keep = keep_mask(x.shape, seed, rate, x.device, offset)
+def _apply(x: torch.Tensor, seed: int, rate: float, offset: int,
+           at: Optional[Block] = None) -> torch.Tensor:
+    keep = keep_mask(x.shape, seed, rate, x.device, offset, at)
     return torch.where(keep, x * _weak(1.0 / (1.0 - rate), x), torch.zeros_like(x))
 
 
 class _HashDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seed, rate, offset):
-        ctx.seed, ctx.rate, ctx.offset = seed, rate, offset
-        return _apply(x, seed, rate, offset)
+    def forward(ctx, x, seed, rate, offset, at):
+        ctx.cfg = (seed, rate, offset, at)
+        return _apply(x, seed, rate, offset, at)
 
     @staticmethod
     def backward(ctx, g):
-        return _apply(g, ctx.seed, ctx.rate, ctx.offset), None, None, None
+        return _apply(g, *ctx.cfg), None, None, None, None
 
 
-def hash_dropout(x: torch.Tensor, seed: int, rate: float, row0: int = 0) -> torch.Tensor:
+def hash_dropout(x: torch.Tensor, seed: int, rate: float, row0: int = 0,
+                 at: Optional[Block] = None) -> torch.Tensor:
     """Counter-hash dropout of ``x`` with a uint32 ``seed``; ``row0``: the
     batch row of ``x``'s first row (its flat index starts at row0 times a
-    row's elements)."""
-    offset = int(row0) * math.prod(x.shape[1:])
-    return _HashDropout.apply(x, int(seed) & _M32, float(rate), offset)
+    row's elements). ``at`` = (starts, sizes): ``x`` is the block at
+    ``starts`` of rows whose other dimensions have ``sizes`` (a column
+    shard of an FFN's activations, a sequence shard), hashed at its
+    indices in those rows (:func:`keep_mask`)."""
+    row = math.prod(x.shape[1:] if at is None else at[1])
+    at = None if at is None else (tuple(map(int, at[0])), tuple(map(int, at[1])))
+    return _HashDropout.apply(x, int(seed) & _M32, float(rate), int(row0) * row, at)
 
 
 class HashDropout(nn.Module):
@@ -146,11 +169,12 @@ class HashDropout(nn.Module):
         self.rate = rate
         self.rng: Optional[DropoutRng] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, at: Optional[Block] = None) -> torch.Tensor:
+        """``at``: where ``x`` sits in the whole tensor (:func:`hash_dropout`)."""
         if not self.training or self.rate == 0.0:
             return x
         rng = need_rng(self)
-        return hash_dropout(x, rng.next_seed(), self.rate, rng.row0)
+        return hash_dropout(x, rng.next_seed(), self.rate, rng.row0, at)
 
 
 class BernoulliDropout(nn.Module):
@@ -163,11 +187,17 @@ class BernoulliDropout(nn.Module):
         self.rate = rate
         self.rng: Optional[DropoutRng] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, at: Optional[Block] = None) -> torch.Tensor:
+        """``at`` = (starts, sizes): ``x`` is that block of the whole
+        tensor's rows, whose uniforms are drawn and sliced."""
         if not self.training or self.rate == 0.0:
             return x
         rng = need_rng(self)
-        u = rng.uniform(x.shape, rng.bernoulli, x.device)
+        if at is None:
+            u = rng.uniform(x.shape, rng.bernoulli, x.device)
+        else:
+            u = rng.uniform((x.shape[0], *at[1]), rng.bernoulli, x.device)
+            u = u[(slice(None),) + tuple(slice(s, s + n) for s, n in zip(at[0], x.shape[1:]))]
         return torch.where(u >= self.rate, x / _weak(1.0 - self.rate, x), torch.zeros_like(x))
 
 

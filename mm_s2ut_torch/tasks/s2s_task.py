@@ -186,7 +186,10 @@ class MultiModalSpeechToSpeechTask:
         the live weights in the model's compute dtype (``model.dtype``: an
         fp32 model decodes itself in eval mode, put back in train mode
         after; a bf16 model's fp32 master weights are copied into a bf16
-        twin first, as flax computes in bf16 from fp32 parameters), vocodes
+        twin first, as flax computes in bf16 from fp32 parameters; under
+        tensor parallelism the weights are gathered whole into such a twin
+        once per step, ``Trainer.full_params``, so kernels B–F see every
+        head), vocodes
         the predicted and the target units batch by batch as the reference
         does, and returns the summed statistics of
         ``eval.mcd.batch_mel_cepstral_distortion``. Under data parallelism
@@ -224,13 +227,20 @@ class MultiModalSpeechToSpeechTask:
             return self.tgt_dict.ids_to_units(tokens).tolist()
 
         decoding = trainer.model
-        if self.cfg.model.dtype == "bfloat16":
+        if self.cfg.model.dtype == "bfloat16" or trainer.tp is not None:
             decoding = build_model_from_config(self.cfg).to(self.device)
         gen = UnitGenerator(decoding, self.cfg.generation)
         pad = self.tgt_dict.pad()
+        loaded_at = [None]  # the step whose gathered weights the twin holds
 
         def fn(batch):
-            if decoding is not trainer.model:
+            if trainer.tp is not None:
+                if loaded_at[0] != trainer.step:
+                    state = dict(trainer.model.named_buffers())  # buffers stay whole
+                    state.update(from_flax(trainer.full_params(), decoding))
+                    decoding.load_state_dict(state)
+                    loaded_at[0] = trainer.step
+            elif decoding is not trainer.model:
                 decoding.load_state_dict(trainer.model.state_dict())
             was_training = decoding.training
             decoding.eval()

@@ -136,7 +136,7 @@ def wrapper_costs(reps: int) -> list:
                                     ("G", "mm_flash_attention_causal_skip", 1)):
             fwd = getattr(lib, entry)
             args = [_build.BF16, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                    out.data_ptr(), *common, causal, 0, 0.0, 0, 0, None, None, stream]
+                    out.data_ptr(), *common, causal, 0, 0.0, 0, 0, H, 0, None, None, stream]
             wrapped = (lambda: A.flash_attention(q, k, v, kpm)) if name == "A" else \
                 (lambda: A.causal_skip_attention(q, k, v, kpm))
             raw_ms = _time(lambda: _build.check(fwd(*args), entry), reps)
@@ -153,7 +153,7 @@ def wrapper_costs(reps: int) -> list:
         y = A.flash_attention(*leaves, kpm)
         _build.check(lib.mm_flash_attention(
             _build.BF16, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), *common, 0, 0, 0.0, 0, 0, stats[0].data_ptr(), stats[1].data_ptr(),
+            out.data_ptr(), *common, 0, 0, 0.0, 0, 0, H, 0, stats[0].data_ptr(), stats[1].data_ptr(),
             stream), "mm_flash_attention")
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
         dq = torch.empty_like(q)
@@ -161,7 +161,7 @@ def wrapper_costs(reps: int) -> list:
         dbias = torch.empty((B, H, T), device="cuda")
         bwd_args = [_build.BF16, *(t.data_ptr() for t in (q, k, v, bias, dout, stats[0], stats[1],
                                                           delta, dq, dk, dv, dbias)),
-                    *common, 0, 0, 0.0, 0, 0, stream]
+                    *common, 0, 0, 0.0, 0, 0, H, 0, stream]
         rows.append({"kernel": "H", "B": B, "T": T,
                      "wrapper_ms": _time(lambda: torch.autograd.grad(
                          y, leaves, dout, retain_graph=True), reps),

@@ -161,6 +161,7 @@ class Tree:
         flash_src = (csrc / "flash_attention.cu").read_text()
         self.dropout = "unsigned int seed" in flash_src
         self.bh0 = "unsigned int bh0" in flash_src  # the dropout row offset (data parallelism)
+        self.heads = "unsigned int h_total" in flash_src  # the hash's global heads (tensor par.)
         self.has_bwd = (csrc / "flash_attention_bwd.cu").exists()
         self.split_b = "mm_ancestry_decode_splits" in (csrc / "decode_attention.cu").read_text()
         self.split_c = "mm_cross_decode_splits" in (csrc / "decode_attention.cu").read_text()
@@ -170,6 +171,8 @@ class Tree:
         self.split_e = "mm_cross_decode_i8_splits" in q_src
         self.lib = ctypes.CDLL(str(_build.build(csrc)))
         flash = list(_build._FLASH[0])
+        if not self.heads:
+            del flash[-5:-3]
         if not self.bh0:
             del flash[-4]
         if not self.dropout:  # before dropout: no rate, seed, stat_m, stat_l
@@ -195,6 +198,9 @@ class Tree:
         for name in names:
             fn = getattr(self.lib, name)
             fn.argtypes, fn.restype = _build._SIGNATURES[name]
+        if self.has_bwd and not self.heads:
+            fn = self.lib.mm_flash_attention_bwd
+            fn.argtypes = fn.argtypes[:-3] + fn.argtypes[-1:]
         if self.has_bwd and not self.bh0:
             fn = self.lib.mm_flash_attention_bwd
             fn.argtypes = fn.argtypes[:-2] + fn.argtypes[-1:]
@@ -245,7 +251,7 @@ def _launcher(tree: Tree, entry, B, T, H, D, causal, window, rate, S=None, dtype
     fwd_entry = "mm_flash_attention_causal_skip" if causal else "mm_flash_attention"
     fwd = getattr(tree.lib, fwd_entry if entry == "mm_flash_attention_bwd" else entry)
     with_stats = rate > 0.0 or entry == "mm_flash_attention_bwd"
-    bh0 = [0] if tree.bh0 else []
+    bh0 = ([0] if tree.bh0 else []) + ([H, 0] if tree.heads else [])
     extra = ([rate, SEED if rate else 0, *bh0] + ([stats[0].data_ptr(), stats[1].data_ptr()]
                                             if with_stats else [None, None])
              if tree.dropout else [])

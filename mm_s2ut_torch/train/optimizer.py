@@ -62,16 +62,29 @@ def build_schedule(cfg: TrainConfig) -> Schedule:
     raise ValueError(f"unknown lr_scheduler {cfg.lr_scheduler!r}")
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """√(Σ over every tensor of Σ x²), a 0-dim fp32 tensor."""
-    return torch.stack([n.float() for n in torch._foreach_norm(tensors)]).square().sum().sqrt()
+def global_norm(tensors: List[torch.Tensor], cut: Optional[Sequence[bool]] = None,
+                group=None) -> torch.Tensor:
+    """√(Σ over every tensor of Σ x²), a 0-dim fp32 tensor. Under tensor
+    parallelism ``cut`` marks the tensors each rank of ``group`` holds a
+    part of: their squares are summed over the group, the others' (whole
+    on every rank) counted once."""
+    sq = torch.stack([n.float() for n in torch._foreach_norm(tensors)]).square()
+    if cut is None:
+        return sq.sum().sqrt()
+    mask = torch.tensor(list(cut), device=sq.device)
+    part = torch.where(mask, sq, torch.zeros_like(sq)).sum()
+    torch.distributed.all_reduce(part, group=group)
+    return (torch.where(mask, torch.zeros_like(sq), sq).sum() + part).sqrt()
 
 
 class Optimizer:
     """Clip → Adam → weight decay → schedule → step, with MultiSteps
     accumulation, on a list of parameters updated in place."""
 
-    def __init__(self, params: List[torch.Tensor], cfg: TrainConfig):
+    def __init__(self, params: List[torch.Tensor], cfg: TrainConfig,
+                 norm: Callable[[List[torch.Tensor]], torch.Tensor] = global_norm):
+        """``norm``: the global norm of a gradient list (the trainer's counts
+        tensor-parallel parts once)."""
         self.params = list(params)
         self.cfg = cfg
         self.schedule = build_schedule(cfg)
@@ -80,6 +93,7 @@ class Optimizer:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.acc = [torch.zeros_like(p) for p in self.params] if cfg.update_freq > 1 else []
+        self.norm = norm
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor], grad_norm: Optional[torch.Tensor] = None,
@@ -104,7 +118,7 @@ class Optimizer:
                 frozen: Sequence[int] = ()) -> None:
         cfg = self.cfg
         if cfg.clip_norm > 0:
-            norm = global_norm(grads) if grad_norm is None else grad_norm
+            norm = self.norm(grads) if grad_norm is None else grad_norm
             if not bool(norm < cfg.clip_norm):
                 grads = torch._foreach_div(grads, norm)
                 torch._foreach_mul_(grads, cfg.clip_norm)

@@ -42,6 +42,18 @@ splits its batches the same way and gathers the sums; with
 and vocodes its own rows, and the MCD statistics of all processes are
 reduced together.
 
+Tensor parallelism (``mesh.model`` > 1, the same :class:`DataParallel`
+with ``model``): the ranks of one data-parallel place ``d`` share its rows
+and split the parameters ``_TP_RULES`` matches (``parallel/tensor.py``);
+the loss statistics and the gradients are summed over the ranks of one
+``m`` (the data-parallel group), the partial gradients that sequence
+parallelism leaves (``model.sequence_parallel``) over the ranks of one
+``d`` first. The global gradient norm counts each cut parameter's
+squares once over its group and each whole one once. A checkpoint holds
+the whole parameters (and optimizer moments), gathered, as a plain run
+writes them; a restore cuts them again, and validation decodes from the
+gathered weights (:meth:`Trainer.full_params`).
+
 Checkpoints are the port's own, in ``train.save_dir``: ``config.yaml``
 (the full config, what ``mm_s2ut_torch.inference`` reads), ``params.npz``
 (the parameters in flax's layout, ``convert.to_flax``) and ``optim.pt``
@@ -62,9 +74,14 @@ import numpy as np
 import torch
 
 from mm_s2ut_torch.config import Config, save_yaml
-from mm_s2ut_torch.convert import flatten, from_flax, load_npz, to_flax, unflatten
+from mm_s2ut_torch.convert import (flatten, from_flax, gather_state_dict, load_npz,
+                                   shard_state_dict, to_flax, unflatten)
+from mm_s2ut_torch.models.s2t_encoder import SpeechTransformerEncoder
 from mm_s2ut_torch.ops.dropout import DropoutRng
-from mm_s2ut_torch.parallel.mesh import DataParallel, batch_rows, shard_batch, shard_rows
+from mm_s2ut_torch.parallel.mesh import (DataParallel, batch_rows, process_groups, shard_batch,
+                                         shard_rows)
+from mm_s2ut_torch.parallel.tensor import (TensorParallel, gather_param, shard_model_,
+                                           shard_param)
 from mm_s2ut_torch.train.criterion import CRITERIONS
 from mm_s2ut_torch.train.metrics import MetricsAggregator
 from mm_s2ut_torch.train.optimizer import Optimizer, global_norm
@@ -107,16 +124,20 @@ def to_device(batch: Dict, device: torch.device) -> Dict:
     return {k: move(v) for k, v in batch.items()}
 
 
-def load_pretrained_encoder(model: torch.nn.Module, ckpt_dir) -> None:
+def load_pretrained_encoder(model: torch.nn.Module, ckpt_dir,
+                            tp: Optional[TensorParallel] = None) -> None:
     """Copy the ``encoder`` subtree of ``ckpt_dir/params.npz`` into
-    ``model``; every other parameter keeps its value. Strict, with the
-    reference's ``load_component`` messages: an ``encoder`` missing from
-    the checkpoint or the model raises ``KeyError``, other names or shapes
-    under it raise ``ValueError``."""
+    ``model`` (cut to this rank's part first when ``tp`` says the model is
+    tensor-parallel); every other parameter keeps its value. Strict, with
+    the reference's ``load_component`` messages: an ``encoder`` missing
+    from the checkpoint or the model raises ``KeyError``, other names or
+    shapes under it raise ``ValueError``."""
     path = Path(ckpt_dir) / "params.npz"
     if not path.exists():
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
     src = load_npz(path)
+    if tp is not None:
+        src = unflatten(shard_state_dict(flatten(src), tp.rank, tp.size))
     tgt = unflatten(to_flax(model))
     if "encoder" not in src:
         raise KeyError(f"component 'encoder' not in checkpoint ({sorted(src)})")
@@ -140,6 +161,15 @@ class Trainer:
         self.parallel = parallel
         self.device = torch.device(device)
         self.model = model.float().to(self.device)
+        self.dp_group = self.tp = None
+        if parallel is not None and parallel.model > 1:
+            self.dp_group, tp_group = process_groups(parallel)
+            self.tp = TensorParallel(tp_group, parallel.tp_rank, parallel.model)
+            shard_model_(self.model, self.tp)
+            if cfg.model.sequence_parallel:
+                for mod in self.model.modules():
+                    if isinstance(mod, SpeechTransformerEncoder):
+                        mod.shard_sequence(self.tp)
         self.rng = DropoutRng(cfg.train.seed, self.device)
         self.model.set_dropout_rng(self.rng)
         if cfg.train.rdrop_alpha > 0 and criterion_name == "speech_to_unit":
@@ -152,7 +182,10 @@ class Trainer:
         self.params = list(self.params)
         # The parameters freezing_updates holds: those under a "speech_encoder".
         self.frozen = [i for i, n in enumerate(names) if "speech_encoder" in n.split(".")]
-        self.optimizer = Optimizer(self.params, cfg.train)
+        self.optimizer = Optimizer(self.params, cfg.train, norm=self.grad_norm)
+        # Partial gradients of sequence parallelism, summed over the TP group.
+        self.seq_partial = [i for i, p in enumerate(self.params)
+                            if getattr(p, "sequence_parallel", False)]
         self.step = 0
         self.amp_dtype = torch.bfloat16 if cfg.model.dtype == "bfloat16" else None
         self.metrics_history: list = []
@@ -167,18 +200,34 @@ class Trainer:
         return self.parallel is None or self.parallel.rank == 0
 
     def _shard(self, batch: Dict) -> Dict:
-        """This process's rows of ``batch``, the dropout generators told
-        where they start."""
+        """This process's rows of ``batch`` (its data-parallel place's),
+        the dropout generators told where they start."""
         if self.parallel is None:
             return batch
         n = batch_rows(batch)
-        self.rng.shard(shard_rows(n, self.parallel.rank, self.parallel.world)[0], n)
-        return shard_batch(batch, self.parallel.rank, self.parallel.world)
+        d, dp_world = self.parallel.dp_rank, self.parallel.dp_world
+        self.rng.shard(shard_rows(n, d, dp_world)[0], n)
+        return shard_batch(batch, d, dp_world)
 
     def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        if self.parallel is not None:
-            torch.distributed.all_reduce(t)
+        """The sum over the data-parallel group."""
+        if self.parallel is not None and self.parallel.dp_world > 1:
+            torch.distributed.all_reduce(t, group=self.dp_group)
         return t
+
+    def grad_norm(self, grads) -> torch.Tensor:
+        """The global norm of ``grads`` (one per parameter): under tensor
+        parallelism the cut parameters' squares summed over the group."""
+        if self.tp is None:
+            return global_norm(grads)
+        cut = [getattr(p, "tp_sharded", False) for p in self.params]
+        return global_norm(grads, cut, self.tp.group)
+
+    def full_params(self) -> Dict[str, np.ndarray]:
+        """The whole parameters as flat flax leaves (``convert.to_flax``),
+        gathered over the tensor-parallel group (every rank of it calls)."""
+        flat = to_flax(self.model)
+        return flat if self.tp is None else gather_state_dict(flat, self.tp)
 
     # -- steps ---------------------------------------------------------------
 
@@ -214,7 +263,7 @@ class Trainer:
             with deterministic_convs():
                 loss, metrics = self._loss(batch)
             self.metric_names = sorted(metrics)
-        if self.parallel is not None and n < self.parallel.world:
+        if self.parallel is not None and n < self.parallel.dp_world:
             # Processes past the rows ran no forward: they take rank 0's
             # generators (where every forward left them) and metric names.
             shared = [self.metric_names, self.rng.state_dict()]
@@ -231,14 +280,20 @@ class Trainer:
             with deterministic_convs():
                 (loss / ntokens.clamp_min(1.0)).backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-        if self.parallel is not None:
+        if self.seq_partial:
+            part = torch.cat([grads[i].reshape(-1) for i in self.seq_partial])
+            torch.distributed.all_reduce(part, group=self.tp.group)
+            for i, g in zip(self.seq_partial, part.split([grads[i].numel()
+                                                          for i in self.seq_partial])):
+                grads[i] = g.view_as(grads[i])
+        if self.parallel is not None and self.parallel.dp_world > 1:
             flat = self._all_reduce(torch.cat([g.reshape(-1) for g in grads]))
             grads = [g.view_as(p) for g, p in zip(flat.split([p.numel() for p in self.params]),
                                                    self.params)]
         frozen = self.frozen if self.step < self.cfg.train.freezing_updates else []
         for i in frozen:
             grads[i] = torch.zeros_like(grads[i])
-        grad_norm = global_norm(grads)
+        grad_norm = self.grad_norm(grads)
         ok = bool(torch.isfinite(grad_norm))
         if ok:
             self.optimizer.step(grads, grad_norm if self.cfg.train.update_freq <= 1 else None,
@@ -271,9 +326,10 @@ class Trainer:
                 _, m = self.criterion(self._outputs(batch), batch, **self.criterion_kwargs)
             for k, v in m.items():
                 totals[k] = totals.get(k, 0.0) + float(v)
-        if self.parallel is not None:
-            gathered = [None] * self.parallel.world
-            torch.distributed.all_gather_object(gathered, (totals, infer_logs))
+        if self.parallel is not None and self.parallel.dp_world > 1:
+            gathered = [None] * self.parallel.dp_world
+            torch.distributed.all_gather_object(gathered, (totals, infer_logs),
+                                                group=self.dp_group)
             totals = {}
             for part, logs in gathered:
                 for k, v in part.items():
@@ -298,9 +354,23 @@ class Trainer:
     def save_dir(self) -> Path:
         return Path(self.cfg.train.save_dir)
 
+    def _optimizer_state(self) -> Dict:
+        """The optimizer's state, its moments whole (cut ones gathered over
+        the tensor-parallel group)."""
+        state = self.optimizer.state_dict()
+        if self.tp is not None:
+            for key in ("mu", "nu", "acc"):
+                state[key] = [gather_param(t, p, self.tp)
+                              for t, p in zip(state[key], self.params)]
+        return state
+
     def save_checkpoint(self) -> None:
         """config.yaml (once), params.npz and optim.pt, each replaced
-        atomically; on rank 0 only."""
+        atomically; on rank 0 only (under tensor parallelism every rank
+        takes part in gathering them)."""
+        if self.tp is None and not self.is_writer:
+            return
+        params, optim = self.full_params(), self._optimizer_state()
         if not self.is_writer:
             return
         d = self.save_dir
@@ -308,10 +378,9 @@ class Trainer:
         if not (d / "config.yaml").exists():
             save_yaml(self.cfg, d / "config.yaml")
         tmp = d / "params.tmp.npz"
-        np.savez(tmp, **to_flax(self.model))
+        np.savez(tmp, **params)
         os.replace(tmp, d / "params.npz")
-        state = {"step": self.step, "optimizer": self.optimizer.state_dict(),
-                 "rng": self.rng.state_dict()}
+        state = {"step": self.step, "optimizer": optim, "rng": self.rng.state_dict()}
         torch.save(state, d / "optim.tmp.pt")
         os.replace(d / "optim.tmp.pt", d / "optim.pt")
 
@@ -320,9 +389,16 @@ class Trainer:
         d = self.save_dir
         if not ((d / "params.npz").exists() and (d / "optim.pt").exists()):
             raise FileNotFoundError(f"no checkpoint (params.npz + optim.pt) in {d}")
-        self.model.load_state_dict(from_flax(load_npz(d / "params.npz"), self.model))
+        params = load_npz(d / "params.npz")
+        if self.tp is not None:
+            params = unflatten(shard_state_dict(flatten(params), self.tp.rank, self.tp.size))
+        self.model.load_state_dict(from_flax(params, self.model))
         state = torch.load(d / "optim.pt", map_location=self.device, weights_only=True)
-        self.optimizer.load_state_dict(state["optimizer"])
+        optim = state["optimizer"]
+        if self.tp is not None:
+            for key in ("mu", "nu", "acc"):
+                optim[key] = [shard_param(t, p, self.tp) for t, p in zip(optim[key], self.params)]
+        self.optimizer.load_state_dict(optim)
         self.rng.load_state_dict(state["rng"])
         self.step = int(state["step"])
         return self.step

@@ -17,7 +17,9 @@ batch:
   (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``): rank 0
   writes the checkpoint and the metrics, rank 1 writes nothing, and the
   parameters equal a one-process run's;
-* ``mesh.model=2`` (and ``mesh.pipe=2``) raises and names ROADMAP.md;
+* one process with ``mesh.model=2`` raises ``ValueError``, as JAX's
+  ``make_mesh`` does on one device (tensor parallelism itself is
+  ``test_torch_tp.py``'s); ``mesh.pipe=2`` raises and names ROADMAP.md;
   ``mesh.data`` other than -1 or the world size raises.
 
 Each multi-process run has its own timeout (120 s at most), so a hung
@@ -351,9 +353,10 @@ def test_mesh_axes_the_port_lacks_raise(tmp_path):
 
     save_yaml(JConfig(), tmp_path / "run.yaml")
     base = ["--config", str(tmp_path / "run.yaml"), "--device", "cpu"]
-    for axis in ("model", "pipe"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1"):
-            train_cli.main([*base, f"mesh.{axis}=2"])
+    with pytest.raises(ValueError, match=r"1 devices not divisible by model=2"):
+        train_cli.main([*base, "mesh.model=2"])
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1"):
+        train_cli.main([*base, "mesh.pipe=2"])
     with pytest.raises(ValueError, match="must be -1 or the world size 1"):
         train_cli.main([*base, "mesh.data=2"])
 

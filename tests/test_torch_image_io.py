@@ -7,7 +7,8 @@ or 16, restart markers; PNG in its five colour modes (and palettes of
 fewer bits), each of the five row filters; ``preprocess_images`` in its
 three modes against JAX's (which resizes with PIL); the rollout overlay's
 mask resize; ``write_png`` read back by PIL. Progressive JPEG and
-interlaced PNG raise ``ValueError`` naming the file.
+interlaced PNG equal Pillow's pixels (``test_torch_image_formats.py``
+holds every other format).
 
 ``tests/torch_images/`` holds four small JPEGs (one flickr30k-sized)
 beside the PIL-decoded pixels of each (the card smoke run decodes them
@@ -161,16 +162,30 @@ def test_read_image_npy(tmp_path):
 
 
 def test_progressive_jpeg_and_interlaced_png_raise(tmp_path):
-    (tmp_path / "prog.jpg").write_bytes(_save(Image.fromarray(scene(20, 20)), "JPEG",
-                                              progressive=True))
-    with pytest.raises(ValueError, match=r"prog\.jpg: a progressive JPEG .*§1 item 8"):
-        I.read_image(tmp_path / "prog.jpg")
-    data = bytearray(_save(Image.fromarray(scene(20, 20)), "PNG"))
-    data[28] = 1  # IHDR's interlace byte; then its CRC
-    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])) & 0xFFFFFFFF)
-    (tmp_path / "adam7.png").write_bytes(bytes(data))
-    with pytest.raises(ValueError, match=r"adam7\.png: an interlaced .*§1 item 8"):
-        I.read_image(tmp_path / "adam7.png")
+    """Once refused, now decoded: a progressive JPEG and an Adam7 PNG, both
+    written by Pillow, equal Pillow's pixels (the kept name is this test's
+    history; ``tests/test_torch_image_formats.py`` covers the formats)."""
+    data = _save(Image.fromarray(scene(20, 20)), "JPEG", progressive=True)
+    (tmp_path / "prog.jpg").write_bytes(data)
+    np.testing.assert_array_equal(I.read_image(tmp_path / "prog.jpg"), _pil_rgb(data))
+    px = scene(20, 20)
+    # An Adam7 image of the same pixels: Pillow writes none, so the passes
+    # are filtered here (filter 0) and packed.
+    passes = [(0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+              (1, 0, 2, 1)]
+    raw = b"".join(bytes([0]) + row.tobytes() for y0, x0, dy, dx in passes
+                   for row in px[y0::dy, x0::dx] if row.size)
+    ihdr = struct.pack(">IIBBBBB", 20, 20, 8, 2, 0, 0, 1)
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(
+            ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+    data = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw))
+            + chunk(b"IEND", b""))
+    (tmp_path / "adam7.png").write_bytes(data)
+    np.testing.assert_array_equal(_pil_rgb(data), px)
+    np.testing.assert_array_equal(I.read_image(tmp_path / "adam7.png"), px)
 
 
 @pytest.mark.parametrize("mode", ["timm", "vit_openai", "vit_huggingface"])
