@@ -209,7 +209,15 @@ is no CPU path):
     called with (h_total, h0), equals that slice of the whole layer's
     call bit for bit (output, dq, dk, dv) with attention dropout 0.1, and
     its plain version within TOL, at phase 11's train encoder (A, and G
-    causal) and the ViT's training shape (A), bf16 and fp32, H after each.
+    causal) and the ViT's training shape (A), bf16 and fp32, H after each;
+25. pipeline parallelism on the one card (``phase_pipeline``): the
+    flagship at phase 11's point with its encoder a GPipe of (S, M) =
+    (2, 4) and (4, 8) over the in-process loopback: the pipelined
+    forward equals the same layers run over the same microbatches bit
+    for bit and the whole batch's within TOL, three steps in fp32 and in
+    bf16 equal the plain step's (losses within 1e-5, the parameter change
+    within phase 20d's ``UPDATE_TOL``), A and H launch 12·M times a step,
+    and ms per step beside the plain step's.
 
 Phase 2 also holds A at the image encoders' shape (B=16, 577 queries
 over 584 keys, the last 7 padding, H=12 and 16, Dh=64), H at the ViT's
@@ -234,7 +242,8 @@ The line before the last is the kernels' JSON record (with each
 kernel's bound at its recorded shape: the larger of its bytes over
 3.35 TB/s and its operations over the peak for its inputs' type; A's
 ``launches`` add phase 19's image path to the flagship paths'; its
-``train_launches`` are A's and H's in phase 20a's first timed XM step,
+``pipe_launches`` are A's and H's over phase 25's pipelined steps (12·M
+each a step), its ``train_launches`` A's and H's in phase 20a's first timed XM step,
 its ``vit_train_launches`` those in phase 21a's first timed ViT-B step,
 its ``tools_launches`` phase 22's: A in 22a's quantize on the card (fp32)
 and 22c's full-width ensemble encodes (bf16), B-E in 22c's ensemble
@@ -1331,20 +1340,11 @@ def phase_entry_points(out_dir: Path):
 
 
 def train_batch(B, T, Tt, vocab=1004, img_tokens=577, seed=0):
-    """A fixed training batch as ``bench.py``'s train bench makes one:
-    random log-mels of T frames, full lengths, random prev tokens and
-    targets, random 577x768 image features."""
-    import numpy as np
+    """A fixed training batch as ``bench.py``'s train bench makes one
+    (``tools/pipe_step.train_batch``)."""
+    from mm_s2ut_torch.tools.pipe_step import train_batch as batch
 
-    rng = np.random.RandomState(seed)
-    return {
-        "src_features": rng.randn(B, T, 80).astype(np.float32),
-        "src_lengths": np.full((B,), T, np.int32),
-        "prev_output_tokens": rng.randint(4, vocab, (B, Tt)).astype(np.int32),
-        "target": rng.randint(4, vocab, (B, Tt)).astype(np.int32),
-        "imgs_list": (rng.randn(B, img_tokens, 768).astype(np.float32),),
-        "img_masks_list": (np.zeros((B, img_tokens), bool),),
-    }
+    return batch(B, T, Tt, vocab, img_tokens, seed)
 
 
 def phase_train_parity(out_dir: Path):
@@ -5036,6 +5036,168 @@ def phase_tp_kernels():
     print(f"phase 24: {checked} rank slices checked in {time.perf_counter() - t0:.1f} s")
 
 
+PIPE_CONFIGS = ((2, 4), (4, 8))  # phase 25: (stages, microbatches)
+
+
+def phase_pipeline():
+    """Phase 25: pipeline parallelism at full width on one card, the
+    stages on the in-process loopback (``parallel.pipeline.Loopback``):
+    the flagship (12 + 6 layers, 512-d, every dropout 0.1, Adam;
+    ``tools/pipe_step.flagship``) at phase 11's point (B=8 x 1000 frames x
+    100 targets), its encoder a GPipe of (S, M) = (2, 4) and (4, 8), each
+    against the plain trainer from the same weights and seed.
+
+    In fp32 (TF32 off) and in bf16 autocast (phase 11's), three
+    ``Trainer.train_batch`` steps hold phase 20d's rule against the plain
+    step: the losses within a relative 1e-5 and the parameters' change
+    within ``UPDATE_TOL``, with phase 20d's control (the pipelined run's
+    third update left out reads above it). In bf16, first, the pipelined
+    encoder's output in training mode equals the same layers run over the
+    same microbatches (seeds replayed, rows global) bit for bit and the
+    whole batch's within TOL; after the steps, five steps each timed
+    beside the plain step's five. A and H launch 12·M times in every
+    pipelined step. The loopback runs the stages one after another, so the
+    schedule's bubble, (S − 1)/(M + S − 1) of a stage's time on S cards,
+    does not show here. Returns A's and H's launches over every pipelined
+    step."""
+    import copy
+    import dataclasses
+
+    from mm_s2ut_torch.config import Config
+    from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.ops.dropout import DropoutRng
+    from mm_s2ut_torch.parallel.pipeline import Loopback, pipe_model_
+    from mm_s2ut_torch.tools.pipe_step import flagship, pipelined_state, update_error
+    from mm_s2ut_torch.train.trainer import Trainer, to_device
+
+    t0 = time.perf_counter()
+    base, tcfg, plain_model = flagship(seed=25)
+    state = plain_model.state_dict()
+    batch = to_device(train_batch(8, 1000, 100, seed=25), torch.device("cuda"))
+    counters = {"A": A.flash_attention, "H": A.flash_attention_bwd}
+    n_timed = 5
+    total = {"A": 0, "H": 0}
+
+    def trainer_for(dtype, S=0, M=0):
+        mcfg = dataclasses.replace(base, dtype=dtype, pipeline_stages=S, pipeline_microbatches=M)
+        model = MMS2UTModel(mcfg)
+        model.load_state_dict(pipelined_state(state) if S else state)
+        if S:
+            pipe_model_(model, Loopback(S))
+        return Trainer(Config(model=mcfg, train=tcfg), model, "cuda")
+
+    def steps(trainer, n, M=0):
+        nonlocal total
+        out = []
+        for _ in range(n):
+            m, _, counts = counted(counters, lambda: trainer.train_batch(batch))
+            if M:
+                assert counts == {"A": 12 * M, "H": 12 * M}, f"phase 25: M={M}: {counts}"
+                total = {k: total[k] + counts[k] for k in total}
+            out.append(m["loss"])
+        return out
+
+    start = [p.detach().float().cuda() for p in plain_model.float().parameters()]
+
+    def change(trainer):
+        return {i: p.detach() - p0 for i, (p, p0) in enumerate(zip(trainer.params, start))}
+
+    def three_steps(trainer, M=0):
+        """The losses and the parameters' change after steps 2 and 3."""
+        losses = steps(trainer, 2, M)
+        after2 = change(trainer)
+        losses += steps(trainer, 1, M)
+        return losses, after2, change(trainer)
+
+    def check(label, trainer, M, want, want_change):
+        losses, after2, end = three_steps(trainer, M)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        upd, control = update_error(end, want_change), update_error(after2, want_change)
+        print(f"phase 25: {label}: 3 steps, losses {[round(x, 5) for x in losses]} against the "
+              f"plain {[round(x, 5) for x in want]} (max relative diff {rel:.2e}, tol 1e-5), "
+              f"parameter change {upd:.2e} of the plain run's (tol {UPDATE_TOL:.0e}; control, "
+              f"the third update left out: {control:.2e}); A and H {12 * M} launches each per "
+              f"step")
+        assert rel <= 1e-5 and upd <= UPDATE_TOL < control, (label, rel, upd, control)
+
+    def with_rng(modules, seed):
+        rng = DropoutRng(seed, "cuda")
+        for mod in modules:
+            if hasattr(mod, "rng"):
+                mod.rng = rng
+        return rng
+
+    def forward_checks(piped, S, M):
+        """The pipelined encoder's bf16 output in training mode: the
+        microbatch run's bit for bit, the whole batch's within TOL."""
+        enc = piped.model.encoder.train()
+        captured = {}
+
+        def capture(mod, args):
+            captured.update(x=args[0], bias=args[1], seeds=mod.rng.seeds.get_state())
+
+        hook = enc.pipe_stack.register_forward_pre_hook(capture)
+        feats, lens = batch["src_features"], batch["src_lengths"]
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            with_rng(enc.modules(), 250)
+            got = enc(feats, lens)["encoder_out"]
+            hook.remove()
+            rng = with_rng(enc.modules(), 250)
+            parts = []
+            for rows in torch.arange(feats.shape[0]).tensor_split(M):
+                r0, r1 = int(rows[0]), int(rows[-1]) + 1
+                rng.seeds.set_state(captured["seeds"])
+                rng.row0 = r0
+                h = captured["x"][r0:r1]
+                for i in range(base.encoder_layers):
+                    h = enc.pipe_stack.layers[str(i)](h, captured["bias"][r0:r1])
+                parts.append(h)
+            by_micro = enc.final_layer_norm(torch.cat(parts))
+            with_rng(whole_encoder.modules(), 250)
+            whole = whole_encoder(feats, lens)["encoder_out"]
+        piped.model.set_dropout_rng(piped.rng)
+        assert torch.equal(got, by_micro), f"phase 25: ({S}, {M}): not the microbatch run"
+        err = (got.float() - whole.float()).abs().max().item()
+        lim = TOL[torch.bfloat16] * max(1.0, whole.float().abs().max().item())
+        print(f"phase 25: bf16 ({S}, {M}): the encoder's output in training equals the sequential "
+              f"run over the same {M} microbatches bit for bit, the whole batch's within {err:.3g} "
+              f"(tol {lim:.3g})")
+        assert err <= lim, f"phase 25: ({S}, {M}) against the whole batch: {err}"
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    whole_encoder = copy.deepcopy(plain_model.encoder).cuda().train()
+    for dtype in ("float32", "bfloat16"):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = dtype != "float32"  # off in fp32, as phase 20d
+        plain = trainer_for(dtype)
+        want, _, want_change = three_steps(plain)
+        if dtype == "bfloat16":
+            _, plain_s = timed(lambda: steps(plain, n_timed))
+            plain_ms = plain_s * 1e3 / n_timed
+        del plain
+        torch.cuda.empty_cache()
+        for S, M in PIPE_CONFIGS:
+            piped = trainer_for(dtype, S, M)
+            if dtype == "bfloat16":
+                forward_checks(piped, S, M)
+            check(f"{dtype} GPipe (S, M) = ({S}, {M}) on the loopback, flagship B=8 T_src=1000 "
+                  f"Tt=100, dropouts 0.1", piped, M, want, want_change)
+            if dtype == "bfloat16":
+                _, secs = timed(lambda: steps(piped, n_timed, M))
+                ms = secs * 1e3 / n_timed
+                print(f"phase 25: ({S}, {M}): {ms:.3f} ms per step against the plain step's "
+                      f"{plain_ms:.3f} ms ({ms / plain_ms:.3f} x; {n_timed} steps each, "
+                      f"CUDA-synchronised host clock, one call); the bubble on {S} cards would be "
+                      f"(S-1)/(M+S-1) = {(S - 1) / (M + S - 1):.3f}; peak memory so far "
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            del piped
+            torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    print(f"phase 25: pipeline parallelism checked in {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 KERNELS = {  # name, source (of the bf16 instance the record times; A's and H's fp32_* fields
     # time their fp32 source), the TPU kernel it replaces
     "A": ("flash_attention", "mm_s2ut_torch/csrc/flash_attention_mma.cu",
@@ -5109,6 +5271,7 @@ def main(argv=None) -> int:
     for name, fields in fusion_record.items():
         record[name].update({f"s827_{k}": v for k, v in fields.items()})
     phase_tp_kernels()
+    pipe_launches = phase_pipeline()
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -5117,7 +5280,8 @@ def main(argv=None) -> int:
          "train_launches": train_launches.get(k, 0),
          "vit_train_launches": vit_train_launches.get(k, 0),
          "tools_launches": tools_launches.get(k, 0),
-         "fusion_launches": fusion_launches.get(k, 0), **record[k]}
+         "fusion_launches": fusion_launches.get(k, 0),
+         "pipe_launches": pipe_launches.get(k, 0), **record[k]}
         for k, (name, src, rep) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

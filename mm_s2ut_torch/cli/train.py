@@ -36,10 +36,22 @@ cut on T between layers::
   torchrun --nproc_per_node 8 -m mm_s2ut_torch.cli.train --config run.yaml \
       mesh.model=4 model.sequence_parallel=true
 
-The world must divide by ``mesh.model`` (one process with ``mesh.model=2``
-raises ``ValueError``, as JAX's ``make_mesh`` does), ``mesh.data`` must
-be -1 or world / model, and ``mesh.pipe`` > 1 raises (not ported). Rank 0
-writes the checkpoints and metrics, whole.
+With ``mesh.pipe=P`` and ``model.pipeline_stages=P`` the speech
+encoder's layers run as a GPipe of P stages (``parallel/pipeline.py``,
+``model.pipeline_microbatches`` microbatches): rank r sits at (d, p, m)
+with r = (d·P + p)·M + m, the P ranks of one (d, m) holding L/P layers
+each; with ``--device cpu``, over gloo::
+
+  torchrun --nproc_per_node 4 -m mm_s2ut_torch.cli.train --config run.yaml \
+      --device cpu mesh.pipe=2 model.pipeline_stages=2
+
+The world must divide by ``mesh.model`` × ``mesh.pipe`` (one process with
+``mesh.model=2`` or ``mesh.pipe=2`` raises ``ValueError``, as JAX's
+``make_mesh`` does), ``mesh.data`` must be -1 or world / (model × pipe),
+and ``model.pipeline_stages`` > 1 needs ``mesh.pipe`` equal to it. Rank 0
+writes the checkpoints and metrics, whole (a pipelined run's
+``params.npz`` in the reference's stacked layout, which
+``mm_s2ut_torch.inference`` and ``cli.generate`` decode on one device).
 """
 from __future__ import annotations
 
@@ -104,9 +116,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     resolve_device(args.device)
     parallel, device = init_distributed(args.device)
     try:
-        model = check_mesh(cfg.mesh, 1 if parallel is None else parallel.world)
+        model, pipe = check_mesh(cfg.mesh, 1 if parallel is None else parallel.world)
         if parallel is not None:
-            parallel = dataclasses.replace(parallel, model=model)
+            parallel = dataclasses.replace(parallel, model=model, pipe=pipe)
         return _train(args, cfg, tasks[cfg.task](cfg, device), parallel)
     finally:
         if parallel is not None:

@@ -217,9 +217,11 @@ class TrainConfig:
 
 @dataclass
 class MeshConfig:
-    """The reference's device mesh. The port runs data parallelism over
-    torch.distributed (``parallel/mesh.py``): ``data`` is -1 or the world
-    size; ``model`` and ``pipe`` > 1 raise."""
+    """The reference's device mesh, over torch.distributed processes
+    (``parallel/mesh.py``): ``data`` is -1 or the world size over
+    ``model`` × ``pipe``; ``model`` ranks split the Megatron projections
+    (``parallel/tensor.py``), ``pipe`` ranks the stages of a pipelined
+    encoder (``model.pipeline_stages``, ``parallel/pipeline.py``)."""
 
     data: int = -1  # -1: every process on the data axis
     model: int = 1

@@ -18,12 +18,18 @@ module at path ``a.b`` takes its parameters from the flax subtree
 * a parameter a module holds itself (flax's ``self.param``) and names in
   its ``FLAX_LEAVES`` (wav2vec2's ``masked_spec_embed``, the image
   encoders' class token and positions) → the leaf of its own name, as is
+* a pipelined encoder's layer ``pipe_stack.layers.{i}`` (``parallel/pipeline.py``)
+  → row i of the stacked leaves ``pipe_stack/layers/…`` (leading axis L),
+  as the reference stores them; a stage holding L/S of the layers takes
+  its rows, and :func:`to_flax` gives its rows in layer order
+  (``parallel.pipeline.gather_stages`` joins the stages' into the whole)
 
 :func:`from_flax` is strict: a flax leaf no torch parameter takes, or a
 torch parameter no flax leaf fills, raises.
 """
 from __future__ import annotations
 
+import re
 from pathlib import Path
 from typing import Dict, Mapping
 
@@ -32,6 +38,7 @@ import torch
 from torch import nn
 
 from mm_s2ut_torch.parallel.mesh import tp_axis
+from mm_s2ut_torch.parallel.pipeline import PipelinedEncoderStack
 
 
 _LAYOUTS = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.ConvTranspose1d, nn.Embedding,
@@ -45,6 +52,26 @@ def _raw_leaves(mod: nn.Module, own: Mapping, name: str, fn: str):
     if set(own) - set(raw):
         raise TypeError(f"{fn}: no rule for {type(mod).__name__} at {name!r}")
     return own
+
+
+_PIPE_LAYER = re.compile(r"^(.*pipe_stack/layers)/(\d+)/(.+)$")  # one layer's leaf
+
+
+def stack_pipe_layers(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Flat leaves with a pipelined stack's per-layer keys
+    ``…/pipe_stack/layers/{i}/leaf`` → the stacked ``…/pipe_stack/layers/leaf``
+    (rows in layer order); other keys as they are."""
+    out: Dict[str, np.ndarray] = {}
+    rows: Dict[str, Dict[int, np.ndarray]] = {}
+    for k, v in flat.items():
+        m = _PIPE_LAYER.match(k)
+        if m is None:
+            out[k] = v
+        else:
+            rows.setdefault(f"{m[1]}/{m[3]}", {})[int(m[2])] = v
+    for k, per in rows.items():
+        out[k] = np.stack([per[i] for i in sorted(per)])
+    return out
 
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -85,9 +112,19 @@ def from_flax(params: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
     flat = flatten(params)
     used = set()
     sd: Dict[str, np.ndarray] = {}
+    stacks = {name.replace(".", "/") + "/layers": mod.num_layers
+              for name, mod in model.named_modules() if isinstance(mod, PipelinedEncoderStack)}
 
     def take(prefix: str, leaf: str) -> np.ndarray:
         key = f"{prefix}/{leaf}" if prefix else leaf
+        m = _PIPE_LAYER.match(key)
+        if key not in flat and m is not None and f"{m[1]}/{m[3]}" in flat:
+            stacked = f"{m[1]}/{m[3]}"
+            if flat[stacked].shape[0] != stacks[m[1]]:
+                raise ValueError(f"from_flax: {stacked} stacks {flat[stacked].shape[0]} layers, "
+                                 f"the model {stacks[m[1]]}")
+            used.add(stacked)
+            return flat[stacked][int(m[2])]
         if key not in flat:
             raise KeyError(f"from_flax: no flax leaf {key!r} for the torch module {prefix!r}")
         used.add(key)
@@ -164,7 +201,7 @@ def to_flax(model: nn.Module) -> Dict[str, np.ndarray]:
             flat[f"{prefix}/scale"] = w
         if own.get("bias") is not None:
             flat[f"{prefix}/bias"] = own["bias"].detach().float().cpu().numpy()
-    return {k: np.ascontiguousarray(v) for k, v in flat.items()}
+    return {k: np.ascontiguousarray(v) for k, v in stack_pipe_layers(flat).items()}
 
 
 def shard_state_dict(full: Mapping[str, np.ndarray], m: int, model: int) -> Dict[str, np.ndarray]:

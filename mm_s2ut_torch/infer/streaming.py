@@ -102,6 +102,9 @@ class StreamingEncoderStack(nn.Module):
 
     def __init__(self, encoder: SpeechTransformerEncoder):
         super().__init__()
+        if encoder.pipelined:
+            raise ValueError("a pipelined encoder streams as the sequential one: load its "
+                             "checkpoint with mm_s2ut_torch.inference.load_model")
         self.embed_dim = encoder.embed_dim
         self.num_layers = encoder.num_layers
         self.subsampler = encoder.subsampler

@@ -45,6 +45,7 @@ from mm_s2ut_torch.infer.generator import UnitGenerator, format_generation_outpu
 from mm_s2ut_torch.models.hifigan import CodeHiFiGAN, HiFiGANConfig, load_fairseq_checkpoint
 from mm_s2ut_torch.models import build_model_from_config
 from mm_s2ut_torch.ops.fbank import FbankConfig, waveform_frontend
+from mm_s2ut_torch.parallel.pipeline import sequential_params
 
 logger = logging.getLogger("mm_s2ut_torch.inference")
 
@@ -62,14 +63,22 @@ def resolve_device(name: str) -> torch.device:
 def load_model(model_path: str, device: torch.device):
     """(config, model on ``device``) from a config.yaml + params.npz dir: an
     ``MMS2UTModel``, or an ``MMXMTransformerModel`` for ``task:
-    multimodal_speech_to_text`` (``models.build_model_from_config``)."""
+    multimodal_speech_to_text`` (``models.build_model_from_config``). A
+    pipelined checkpoint (``pipeline_stages`` > 1, its encoder layers
+    stacked) decodes on one device: its layers are unstacked into the
+    sequential encoder (``parallel.pipeline.sequential_params``), the same
+    function of the same parameters."""
     path = Path(model_path)
     for f in ("config.yaml", "params.npz"):
         if not (path / f).exists():
             raise FileNotFoundError(f"{path / f} not found — pass an exported model dir")
     cfg = load_config(path / "config.yaml")
+    params = load_npz(path / "params.npz")
+    if cfg.model.pipeline_stages > 1:
+        cfg.model.pipeline_stages = 0
+        params = sequential_params(params)
     model = build_model_from_config(cfg)
-    model.load_state_dict(from_flax(load_npz(path / "params.npz"), model))
+    model.load_state_dict(from_flax(params, model))
     return cfg, model.to(device).eval()
 
 

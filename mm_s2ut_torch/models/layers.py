@@ -333,6 +333,13 @@ class TransformerEncoderLayer(nn.Module):
             self.self_attn(h, key_bias, self.causal, self.window, seq), at))
         return sublayer(self.final_layer_norm, pre, x, lambda h: self.drop(self.ffn(h, seq), at))
 
+    def seed_draws(self) -> int:
+        """The hash seeds one call in training draws: the attention's, the
+        two residual branches' and the FFN activation's, each where its
+        rate is above 0 (the pipelined stack replays them per microbatch)."""
+        return (int(self.self_attn.dropout > 0) + 2 * int(self.drop.rate > 0)
+                + int(self.ffn.drop.rate > 0))
+
 
 class TransformerDecoderLayer(nn.Module):
     """One decoder layer, pre-norm or post-norm as the encoder's. Its three

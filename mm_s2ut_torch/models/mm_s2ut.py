@@ -36,8 +36,11 @@ for ``vit_timm``/``vit_huggingface``, the CLIP tower for ``vit_openai``;
 it, and its features replace that source with no padding, in training
 too. The auxiliary heads over the encoder output (:func:`add_aux_heads`:
 the CTC head with ``ctc_weight`` > 0, a CTC or small transformer head per
-``multitask`` task) give their logits in ``forward``. The pipelined
-encoder and ``glu`` raise at construction (:func:`_check_ported`).
+``multitask`` task) give their logits in ``forward``. With
+``pipeline_stages`` > 1 the conv-transformer's layers run as a GPipe over
+a pipe group (``parallel/pipeline.py``; ``pipeline_microbatches``), and
+the fusion variants that read the encoder's per-layer states raise there,
+as in the reference. ``glu`` raises at construction (:func:`_check_ported`).
 With ``checkpoint_activations`` the conv-transformer's layers are
 rematerialised in training. The encoder's self-attention runs kernel A,
 or kernel G with ``encoder_causal_attention`` (and
@@ -85,19 +88,13 @@ def reads_waveform(cfg: ModelConfig) -> bool:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    """Refuse the settings the port does not have: the pipelined encoder
-    (ROADMAP.md §1 item 9) and ``glu``, which the reference cannot run
-    either. Every other setting of ``ModelConfig`` is ported."""
+    """Refuse ``glu``, which the reference cannot run either. Every other
+    setting of ``ModelConfig`` is ported."""
     if cfg.speech_encoder_type not in SPEECH_ENCODERS:
         raise ValueError(f"speech_encoder_type={cfg.speech_encoder_type!r}: expected one of "
                          f"{SPEECH_ENCODERS}")
-    unported = {
-        "pipeline_stages": cfg.pipeline_stages > 1,
-        "activation_fn=glu": cfg.activation_fn == "glu",
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    if cfg.activation_fn == "glu":
+        raise NotImplementedError("not ported yet: activation_fn=glu")
 
 
 def add_aux_heads(model: nn.Module, cfg: ModelConfig, enc_dim: int) -> None:
@@ -237,6 +234,8 @@ class MMS2UTModel(nn.Module):
                 attention_window=cfg.encoder_attention_window,
                 normalize_before=cfg.encoder_normalize_before,
                 checkpoint_activations=cfg.checkpoint_activations,
+                pipeline_stages=cfg.pipeline_stages,
+                pipeline_microbatches=cfg.pipeline_microbatches,
                 **drops,
             )
         if hasattr(self, "speech_encoder") and self.w2v_cfg.hidden_size != cfg.encoder_embed_dim:

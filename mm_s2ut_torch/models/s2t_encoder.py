@@ -1,6 +1,6 @@
 """Speech transformer encoder (conv-subsample branch) of the port.
 
-Port of ``mm_s2ut/models/s2t_encoder.py`` (not pipelined): (B, T, 80)
+Port of ``mm_s2ut/models/s2t_encoder.py``: (B, T, 80)
 log-mels → Conv1dSubsampler (4×) → scaled sinusoidal positions → hash
 dropout (training) → N pre-norm (or post-norm) layers whose self-attention is kernel A, or with
 ``causal_attention`` kernel G (position i attends to j ≤ i, and j > i − W
@@ -26,6 +26,19 @@ gathers T before its column-parallel projections and reduce-scatters
 after ``out_proj`` and ``fc2``, and T is gathered again before the final
 LayerNorm (and for each state ``return_all_states`` returns). The math is
 the unsharded run's.
+
+Pipeline parallelism (``pipeline_stages`` S > 1, the reference's
+``s2t_encoder.py:127-163``): the layers are ``pipe_stack``, a
+:class:`~mm_s2ut_torch.parallel.pipeline.PipelinedEncoderStack` of
+``pipeline_microbatches`` microbatches (0: S) over the pipe group's S
+ranks (``parallel/pipeline.py``), each layer kernel A (G when causal)
+and H as above on each microbatch. The reference folds a causal mask into
+a dense (B, 1, T, T) bias there, its stack taking no ``causal`` flag; the
+port's layers take it, so a pipelined causal layer runs kernel G, the
+same masked softmax. ``return_all_states`` raises (the states
+stay on their stages), sequence parallelism is not applied (the
+reference's pipelined branch constrains nothing), and
+``checkpoint_activations`` rematerialises each layer of each microbatch.
 """
 from __future__ import annotations
 
@@ -45,6 +58,7 @@ from mm_s2ut_torch.models.layers import (
 )
 from mm_s2ut_torch.ops.attention import padding_bias
 from mm_s2ut_torch.ops.dropout import DropoutRng, HashDropout, checkpoint
+from mm_s2ut_torch.parallel.pipeline import PipelinedEncoderStack
 from mm_s2ut_torch.parallel.tensor import (RowParallelLinear, SeqShard, TensorParallel,
                                            gather_seq_out, heads_of, scatter_seq)
 
@@ -67,6 +81,8 @@ class SpeechTransformerEncoder(nn.Module):
         activation: str = "relu",
         normalize_before: bool = True,
         checkpoint_activations: bool = False,
+        pipeline_stages: int = 0,
+        pipeline_microbatches: int = 0,
     ):
         super().__init__()
         self.checkpoint_activations = checkpoint_activations
@@ -78,12 +94,22 @@ class SpeechTransformerEncoder(nn.Module):
         self.pos = SinusoidalPositionalEmbedding(embed_dim)
         self.drop = HashDropout(dropout)
         window = attention_window if causal_attention else 0
-        for i in range(num_layers):
-            self.add_module(f"layer{i}", TransformerEncoderLayer(
+        self.pipelined = pipeline_stages > 1
+
+        def layer() -> TransformerEncoderLayer:
+            return TransformerEncoderLayer(
                 embed_dim, ffn_dim, num_heads, causal=causal_attention, window=window,
                 dropout=dropout, attention_dropout=attention_dropout,
                 activation_dropout=activation_dropout, activation=activation,
-                normalize_before=normalize_before))
+                normalize_before=normalize_before)
+
+        if self.pipelined:
+            self.pipe_stack = PipelinedEncoderStack(layer, num_layers, pipeline_stages,
+                                                    pipeline_microbatches,
+                                                    remat=checkpoint_activations)
+        else:
+            for i in range(num_layers):
+                self.add_module(f"layer{i}", layer())
         if normalize_before:
             self.final_layer_norm = layer_norm(embed_dim)
         self.sequence_tp: Optional[TensorParallel] = None  # set by shard_sequence
@@ -115,6 +141,17 @@ class SpeechTransformerEncoder(nn.Module):
         # Zero padded positions so they cannot leak through LN/attention.
         x = x * (~padding_mask)[..., None].to(x.dtype)
         key_bias = padding_bias(padding_mask, *padding_mask.shape, x.device)  # once for all layers
+        if self.pipelined:
+            if return_all_states:
+                raise ValueError(
+                    "pipeline_stages > 1 keeps per-layer states resident on their stage; "
+                    "in-layer/external fusion variants that need encoder_states cannot run "
+                    "pipelined")
+            states, x = [], self.pipe_stack(x, key_bias)
+            if self.normalize_before:
+                x = self.final_layer_norm(x)
+            return {"encoder_out": x, "encoder_padding_mask": padding_mask,
+                    "encoder_states": states, "lengths": lengths}
         states: List[torch.Tensor] = []
         remat = self.checkpoint_activations and self.training and torch.is_grad_enabled()
         seq = None if self.sequence_tp is None else SeqShard(self.sequence_tp, x.shape[1])

@@ -1,18 +1,20 @@
 """The process grid of the port over ``torch.distributed``.
 
-Port of ``mm_s2ut/parallel/mesh.py`` without its ``pipe`` axis. The
-world is ``data`` × ``model`` processes (one per card, started by
-``torchrun``), the model axis innermost as JAX lays it out: rank r sits
-at (d, m) = (r // model, r % model). JAX lays the rows of one padded
-host batch over the ``data`` axis and lets jit insert the gradient
-all-reduce; here each data-parallel group of ranks (one ``d``) takes a
-contiguous slice of the same padded batch's rows (:func:`shard_rows`,
-:func:`shard_batch`) and the trainer sums the gradients and the loss
-statistics over the ranks of one ``m`` (``train/trainer.py``). A batch
-whose rows do not divide splits unevenly (the first take one row more),
-where JAX replicates it: both compute the same sums. The ranks of one
-``d`` split the parameters that ``_TP_RULES`` matches (:func:`tp_axis`,
-``parallel/tensor.py``).
+Port of ``mm_s2ut/parallel/mesh.py``. The world is ``data`` × ``pipe`` ×
+``model`` processes (one per card, started by ``torchrun``), laid out as
+JAX's ``make_mesh`` lays its devices, the model axis innermost: rank
+r = (d·pipe + p)·model + m. JAX lays the rows of one padded host batch
+over the ``data`` axis and lets jit insert the gradient all-reduce; here
+each data-parallel place ``d`` takes a contiguous slice of the same
+padded batch's rows (:func:`shard_rows`, :func:`shard_batch`), shared by
+its pipe and model ranks, and the trainer sums the gradients and the
+loss statistics over the ranks of one (p, m) (``train/trainer.py``). A
+batch whose rows do not divide splits unevenly (the first take one row
+more), where JAX replicates it: both compute the same sums. The ranks of
+one (d, p) split the parameters that ``_TP_RULES`` matches
+(:func:`tp_axis`, ``parallel/tensor.py``); the ranks of one (d, m) are
+the stages of a pipelined encoder (``parallel/pipeline.py``), each
+holding its L/S layers, and hold every other parameter whole.
 """
 from __future__ import annotations
 
@@ -27,43 +29,66 @@ import torch
 
 @dataclass(frozen=True)
 class DataParallel:
-    """This process's place in the (data, model) grid of ``world`` ranks."""
+    """This process's place in the (data, pipe, model) grid of ``world`` ranks."""
 
     rank: int
     world: int
     model: int = 1  # mesh.model: the tensor-parallel group's size
+    pipe: int = 1  # mesh.pipe: the pipeline's stages
 
     @property
     def dp_rank(self) -> int:
-        return self.rank // self.model
+        return self.rank // (self.pipe * self.model)
 
     @property
     def dp_world(self) -> int:
-        return self.world // self.model
+        return self.world // (self.pipe * self.model)
+
+    @property
+    def pp_rank(self) -> int:
+        return self.rank // self.model % self.pipe
 
     @property
     def tp_rank(self) -> int:
         return self.rank % self.model
 
+    def rank_at(self, d: int, p: int, m: int) -> int:
+        return (d * self.pipe + p) * self.model + m
+
+    def pipe_ranks(self):
+        """The global ranks of this rank's pipe group, in stage order."""
+        return [self.rank_at(self.dp_rank, p, self.tp_rank) for p in range(self.pipe)]
+
 
 def process_groups(parallel: DataParallel):
-    """(data-parallel group, tensor-parallel group) of this rank: the
-    ranks of its ``m`` and of its ``d``. Every rank makes every group, in
-    one order, as ``torch.distributed.new_group`` needs; with model 1 the
-    data-parallel group is the world's and there is no other."""
-    if parallel.model == 1:
-        return None, None
-    model, dp_world = parallel.model, parallel.dp_world
-    dp = tp = None
-    for d in range(dp_world):
-        g = torch.distributed.new_group([d * model + m for m in range(model)])
-        if d == parallel.dp_rank:
-            tp = g
-    for m in range(model):
-        g = torch.distributed.new_group([d * model + m for d in range(dp_world)])
-        if m == parallel.tp_rank:
-            dp = g
-    return dp, tp
+    """(data-parallel, pipe, tensor-parallel) groups of this rank: the
+    ranks of its (p, m), of its (d, m) and of its (d, p). Every rank makes
+    every group, in one order, as ``torch.distributed.new_group`` needs;
+    an axis of size 1 gets no group (None), and with pipe and model both 1
+    the data-parallel group is the world's (None)."""
+    P, M, D = parallel.pipe, parallel.model, parallel.dp_world
+    if P == 1 and M == 1:
+        return None, None, None
+    d0, p0, m0 = parallel.dp_rank, parallel.pp_rank, parallel.tp_rank
+    dp = pp = tp = None
+    if M > 1:
+        for d in range(D):
+            for p in range(P):
+                g = torch.distributed.new_group([parallel.rank_at(d, p, m) for m in range(M)])
+                if (d, p) == (d0, p0):
+                    tp = g
+    if P > 1:
+        for d in range(D):
+            for m in range(M):
+                g = torch.distributed.new_group([parallel.rank_at(d, p, m) for p in range(P)])
+                if (d, m) == (d0, m0):
+                    pp = g
+    for p in range(P):
+        for m in range(M):
+            g = torch.distributed.new_group([parallel.rank_at(d, p, m) for d in range(D)])
+            if (p, m) == (p0, m0):
+                dp = g
+    return dp, pp, tp
 
 
 def init_distributed(device: str = "cuda") -> Tuple[Optional[DataParallel], torch.device]:
@@ -85,21 +110,18 @@ def init_distributed(device: str = "cuda") -> Tuple[Optional[DataParallel], torc
     return DataParallel(rank, world), dev
 
 
-def check_mesh(mesh, world: int) -> int:
-    """The model axis's size: the world must divide by ``mesh.model``
-    (JAX's ``make_mesh`` raises ``ValueError`` otherwise, one device
-    with model 2 among such cases) and ``mesh.data`` must be -1 or
-    world / model; a ``pipe`` axis raises."""
-    if mesh.pipe > 1:
-        raise NotImplementedError(
-            f"mesh.pipe={mesh.pipe}: pipeline parallelism is not ported (ROADMAP.md §1 item 9)")
-    model = max(mesh.model, 1)
-    if world % model:
-        raise ValueError(f"{world} devices not divisible by model={model} x pipe=1")
-    if mesh.data not in (-1, world // model):
+def check_mesh(mesh, world: int) -> Tuple[int, int]:
+    """(model, pipe), the sizes of those axes: the world must divide by
+    ``mesh.model`` × ``mesh.pipe`` (JAX's ``make_mesh`` raises
+    ``ValueError`` otherwise, one device with model 2 or pipe 2 among such
+    cases) and ``mesh.data`` must be -1 or world / (model × pipe)."""
+    model, pipe = max(mesh.model, 1), max(mesh.pipe, 1)
+    if world % (model * pipe):
+        raise ValueError(f"{world} devices not divisible by model={model} x pipe={pipe}")
+    if mesh.data not in (-1, world // (model * pipe)):
         raise ValueError(f"mesh.data={mesh.data} must be -1 or the world size {world} "
-                         f"over mesh.model={model}")
-    return model
+                         f"over mesh.model={model} x mesh.pipe={pipe}")
+    return model, pipe
 
 
 # (regex on the flax path 'a/b/leaf', the axis the model axis cuts): the
@@ -118,13 +140,23 @@ TP_RULES = [
 ]
 
 
+_STACKED = re.compile(r".*pipe_stack/layers/(?!\d+/)")  # a pipelined stack's stacked leaf
+
+
 def tp_axis(path: str) -> Optional[int]:
     """The axis of the flax leaf ``path`` that the model axis cuts, or None
-    (replicated)."""
+    (replicated). A pipelined stack's stacked leaf (``…/pipe_stack/layers/…``,
+    leading axis L) is cut on the per-layer axis, one further on, as the
+    reference's ``_spec_for`` does."""
     for rx, axis in TP_RULES:
         if rx.match(path):
-            return axis
+            return axis + 1 if _STACKED.match(path) else axis
     return None
+
+
+def is_stacked(path: str) -> bool:
+    """Whether the flax leaf ``path`` is a pipelined stack's, rows per layer."""
+    return _STACKED.match(path) is not None
 
 
 def shard_rows(n: int, rank: int, world: int) -> Tuple[int, int]:

@@ -22,6 +22,7 @@ and manifest lengths in samples; in training the encoder masks spans.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import random
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from mm_s2ut_torch.config import Config
-from mm_s2ut_torch.convert import flatten, from_flax, to_flax
+from mm_s2ut_torch.convert import flatten, from_flax, to_flax, unflatten
 from mm_s2ut_torch.data.bucketing import LengthBucketBatcher
 from mm_s2ut_torch.data.dataset import SpeechToSpeechDataset, standardize_waveforms
 from mm_s2ut_torch.data.dictionary import Dictionary, UnitDictionary
@@ -43,6 +44,7 @@ from mm_s2ut_torch.models.mm_xm import mm_xm_architecture_base
 from mm_s2ut_torch.models.vit import load_clip_checkpoint, load_timm_checkpoint
 from mm_s2ut_torch.ops.fbank import FbankConfig, waveform_frontend
 from mm_s2ut_torch.parallel.mesh import DataParallel
+from mm_s2ut_torch.parallel.pipeline import sequential_params
 from mm_s2ut_torch.train.trainer import Trainer, to_device
 
 logger = logging.getLogger(__name__)
@@ -187,9 +189,10 @@ class MultiModalSpeechToSpeechTask:
         fp32 model decodes itself in eval mode, put back in train mode
         after; a bf16 model's fp32 master weights are copied into a bf16
         twin first, as flax computes in bf16 from fp32 parameters; under
-        tensor parallelism the weights are gathered whole into such a twin
-        once per step, ``Trainer.full_params``, so kernels B–F see every
-        head), vocodes
+        tensor or pipeline parallelism the weights are gathered whole into
+        such a twin once per step, ``Trainer.full_params``, so kernels B–F
+        see every head, a pipelined encoder's layers unstacked into a
+        sequential one), vocodes
         the predicted and the target units batch by batch as the reference
         does, and returns the summed statistics of
         ``eval.mcd.batch_mel_cepstral_distortion``. Under data parallelism
@@ -227,17 +230,22 @@ class MultiModalSpeechToSpeechTask:
             return self.tgt_dict.ids_to_units(tokens).tolist()
 
         decoding = trainer.model
-        if self.cfg.model.dtype == "bfloat16" or trainer.tp is not None:
-            decoding = build_model_from_config(self.cfg).to(self.device)
+        gathered = trainer.tp is not None or trainer.pipe is not None
+        if self.cfg.model.dtype == "bfloat16" or gathered:
+            # A pipelined model's twin is sequential: it decodes on one device.
+            cfg = dataclasses.replace(self.cfg, model=dataclasses.replace(self.cfg.model,
+                                                                          pipeline_stages=0))
+            decoding = build_model_from_config(cfg).to(self.device)
         gen = UnitGenerator(decoding, self.cfg.generation)
         pad = self.tgt_dict.pad()
         loaded_at = [None]  # the step whose gathered weights the twin holds
 
         def fn(batch):
-            if trainer.tp is not None:
+            if gathered:
                 if loaded_at[0] != trainer.step:
                     state = dict(trainer.model.named_buffers())  # buffers stay whole
-                    state.update(from_flax(trainer.full_params(), decoding))
+                    params = sequential_params(unflatten(trainer.full_params()))
+                    state.update(from_flax(params, decoding))
                     decoding.load_state_dict(state)
                     loaded_at[0] = trainer.step
             elif decoding is not trainer.model:

@@ -63,18 +63,30 @@ def build_schedule(cfg: TrainConfig) -> Schedule:
 
 
 def global_norm(tensors: List[torch.Tensor], cut: Optional[Sequence[bool]] = None,
-                group=None) -> torch.Tensor:
+                group=None, local: Optional[Sequence[bool]] = None,
+                pipe_group=None) -> torch.Tensor:
     """√(Σ over every tensor of Σ x²), a 0-dim fp32 tensor. Under tensor
     parallelism ``cut`` marks the tensors each rank of ``group`` holds a
     part of: their squares are summed over the group, the others' (whole
-    on every rank) counted once."""
+    on every rank) counted once. Under pipeline parallelism ``local``
+    marks a stage's own tensors: their squares (after the sum over
+    ``group`` where also cut) are summed over ``pipe_group``."""
     sq = torch.stack([n.float() for n in torch._foreach_norm(tensors)]).square()
-    if cut is None:
+    if cut is None and local is None:
         return sq.sum().sqrt()
-    mask = torch.tensor(list(cut), device=sq.device)
-    part = torch.where(mask, sq, torch.zeros_like(sq)).sum()
-    torch.distributed.all_reduce(part, group=group)
-    return (torch.where(mask, torch.zeros_like(sq), sq).sum() + part).sqrt()
+    zero, none = torch.zeros_like(sq), [False] * len(sq)
+    tp, pp = cut is not None, local is not None
+    cut = torch.tensor(list(cut) if tp else none, device=sq.device)
+    local = torch.tensor(list(local) if pp else none, device=sq.device)
+    parts = torch.stack([torch.where(cut & ~local, sq, zero).sum(),
+                         torch.where(cut & local, sq, zero).sum()])
+    if tp:
+        torch.distributed.all_reduce(parts, group=group)
+    if not pp:
+        return (torch.where(cut, zero, sq).sum() + parts[0]).sqrt()
+    staged = torch.stack([torch.where(local & ~cut, sq, zero).sum(), parts[1]])
+    torch.distributed.all_reduce(staged, group=pipe_group)
+    return (torch.where(cut | local, zero, sq).sum() + parts[0] + staged.sum()).sqrt()
 
 
 class Optimizer:

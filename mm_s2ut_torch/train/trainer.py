@@ -54,6 +54,23 @@ the whole parameters (and optimizer moments), gathered, as a plain run
 writes them; a restore cuts them again, and validation decodes from the
 gathered weights (:meth:`Trainer.full_params`).
 
+Pipeline parallelism (``mesh.pipe`` = ``model.pipeline_stages`` = S > 1):
+the S ranks of one (d, m) hold the stages of the pipelined encoder
+(``parallel/pipeline.py``, a :class:`~mm_s2ut_torch.parallel.pipeline.DistributedTransport`
+over their group), each its L/S layers, and every other parameter whole;
+they take the same rows and compute the same loss. A stage's own
+parameters get their gradients from its stage alone, the replicated ones
+(subsampler, fusion, decoder) end equal on every pipe rank, so every
+gradient is summed over the data-parallel group only, and the global norm
+counts each stage's squares once over the pipe group. ``ntokens`` is
+counted as before. A checkpoint gathers the stages into the whole
+stacked tree (and the whole optimizer state, in the order of the whole
+model's parameters), and a restore takes each stage's rows again. With
+``mesh.pipe`` > 1 and an encoder that is not pipelined, the pipe ranks are
+replicas, as JAX's mesh replicates such a model over ``pipe``. A model
+whose stacks the caller has put on a ``Loopback`` (every stage in this
+process: ``parallel.pipeline.pipe_model_``) trains in one process.
+
 Checkpoints are the port's own, in ``train.save_dir``: ``config.yaml``
 (the full config, what ``mm_s2ut_torch.inference`` reads), ``params.npz``
 (the parameters in flax's layout, ``convert.to_flax``) and ``optim.pt``
@@ -78,8 +95,10 @@ from mm_s2ut_torch.convert import (flatten, from_flax, gather_state_dict, load_n
                                    shard_state_dict, to_flax, unflatten)
 from mm_s2ut_torch.models.s2t_encoder import SpeechTransformerEncoder
 from mm_s2ut_torch.ops.dropout import DropoutRng
-from mm_s2ut_torch.parallel.mesh import (DataParallel, batch_rows, process_groups, shard_batch,
-                                         shard_rows)
+from mm_s2ut_torch.parallel.mesh import (DataParallel, batch_rows, is_stacked, process_groups,
+                                         shard_batch, shard_rows)
+from mm_s2ut_torch.parallel.pipeline import (DistributedTransport, PipelinedEncoderStack,
+                                             gather_stages, pipe_model_)
 from mm_s2ut_torch.parallel.tensor import (TensorParallel, gather_param, shard_model_,
                                            shard_param)
 from mm_s2ut_torch.train.criterion import CRITERIONS
@@ -144,8 +163,8 @@ def load_pretrained_encoder(model: torch.nn.Module, ckpt_dir,
     if "encoder" not in tgt:
         raise KeyError("component 'encoder' not in target model")
 
-    def shapes(tree):
-        return {k: v.shape for k, v in flatten(tree).items()}
+    def shapes(tree):  # a pipelined stack's rows per layer: a stage holds L/S of them
+        return {k: v.shape[1:] if is_stacked(k) else v.shape for k, v in flatten(tree).items()}
 
     if shapes(src["encoder"]) != shapes(tgt["encoder"]):
         raise ValueError("shape mismatch loading 'encoder'")
@@ -161,15 +180,28 @@ class Trainer:
         self.parallel = parallel
         self.device = torch.device(device)
         self.model = model.float().to(self.device)
-        self.dp_group = self.tp = None
-        if parallel is not None and parallel.model > 1:
-            self.dp_group, tp_group = process_groups(parallel)
-            self.tp = TensorParallel(tp_group, parallel.tp_rank, parallel.model)
-            shard_model_(self.model, self.tp)
-            if cfg.model.sequence_parallel:
-                for mod in self.model.modules():
-                    if isinstance(mod, SpeechTransformerEncoder):
-                        mod.shard_sequence(self.tp)
+        self.dp_group = self.tp = self.pipe = None
+        stages = cfg.model.pipeline_stages
+        piped = stages > 1 and parallel is not None and parallel.pipe == stages
+        if stages > 1 and not piped and any(
+                m.transport is None for m in self.model.modules()
+                if isinstance(m, PipelinedEncoderStack)):
+            raise ValueError(f"model.pipeline_stages={stages} needs a pipe group of {stages} ranks "
+                             f"(mesh.pipe={stages} under torchrun), not "
+                             f"{1 if parallel is None else parallel.pipe}")
+        if parallel is not None and (parallel.model > 1 or parallel.pipe > 1):
+            self.dp_group, pipe_group, tp_group = process_groups(parallel)
+            if piped:
+                self.pipe = DistributedTransport(pipe_group, parallel.pipe_ranks(),
+                                                 parallel.pp_rank, self.device)
+                pipe_model_(self.model, self.pipe)
+            if parallel.model > 1:
+                self.tp = TensorParallel(tp_group, parallel.tp_rank, parallel.model)
+                shard_model_(self.model, self.tp)
+                if cfg.model.sequence_parallel:
+                    for mod in self.model.modules():
+                        if isinstance(mod, SpeechTransformerEncoder):
+                            mod.shard_sequence(self.tp)
         self.rng = DropoutRng(cfg.train.seed, self.device)
         self.model.set_dropout_rng(self.rng)
         if cfg.train.rdrop_alpha > 0 and criterion_name == "speech_to_unit":
@@ -183,6 +215,9 @@ class Trainer:
         # The parameters freezing_updates holds: those under a "speech_encoder".
         self.frozen = [i for i, n in enumerate(names) if "speech_encoder" in n.split(".")]
         self.optimizer = Optimizer(self.params, cfg.train, norm=self.grad_norm)
+        # This stage's own parameters (a contiguous run of self.params).
+        self.pipe_local = ([i for i, n in enumerate(names) if ".pipe_stack.layers." in n]
+                           if self.pipe is not None else [])
         # Partial gradients of sequence parallelism, summed over the TP group.
         self.seq_partial = [i for i, p in enumerate(self.params)
                             if getattr(p, "sequence_parallel", False)]
@@ -217,17 +252,27 @@ class Trainer:
 
     def grad_norm(self, grads) -> torch.Tensor:
         """The global norm of ``grads`` (one per parameter): under tensor
-        parallelism the cut parameters' squares summed over the group."""
-        if self.tp is None:
+        parallelism the cut parameters' squares summed over the group, under
+        pipeline parallelism each stage's own over the pipe group."""
+        if self.tp is None and self.pipe is None:
             return global_norm(grads)
-        cut = [getattr(p, "tp_sharded", False) for p in self.params]
-        return global_norm(grads, cut, self.tp.group)
+        cut = local = None
+        if self.tp is not None:
+            cut = [getattr(p, "tp_sharded", False) for p in self.params]
+        if self.pipe is not None:
+            own = set(self.pipe_local)
+            local = [i in own for i in range(len(self.params))]
+        return global_norm(grads, cut, self.tp and self.tp.group, local,
+                           self.pipe and self.pipe.group)
 
     def full_params(self) -> Dict[str, np.ndarray]:
         """The whole parameters as flat flax leaves (``convert.to_flax``),
-        gathered over the tensor-parallel group (every rank of it calls)."""
+        gathered over the tensor-parallel group and the pipe group (every
+        rank of them calls)."""
         flat = to_flax(self.model)
-        return flat if self.tp is None else gather_state_dict(flat, self.tp)
+        if self.tp is not None:
+            flat = gather_state_dict(flat, self.tp)
+        return flat if self.pipe is None else gather_stages(flat, self.pipe)
 
     # -- steps ---------------------------------------------------------------
 
@@ -356,19 +401,39 @@ class Trainer:
 
     def _optimizer_state(self) -> Dict:
         """The optimizer's state, its moments whole (cut ones gathered over
-        the tensor-parallel group)."""
+        the tensor-parallel group; under pipeline parallelism every stage's
+        own, in the whole model's parameter order)."""
         state = self.optimizer.state_dict()
-        if self.tp is not None:
-            for key in ("mu", "nu", "acc"):
+        for key in ("mu", "nu", "acc"):
+            if self.tp is not None:
                 state[key] = [gather_param(t, p, self.tp)
                               for t, p in zip(state[key], self.params)]
+            if self.pipe is not None:
+                a, n = self.pipe_local[0], len(self.pipe_local)
+                parts = [None] * self.pipe.n_stages
+                torch.distributed.all_gather_object(
+                    parts, [t.cpu() for t in state[key][a:a + n]], group=self.pipe.group)
+                stages = [t.to(self.device) for part in parts for t in part]
+                state[key] = state[key][:a] + stages + state[key][a + n:]
+        return state
+
+    def _stage_state(self, state: Dict) -> Dict:
+        """The inverse of the pipe gather of :meth:`_optimizer_state`: this
+        stage's entries of a whole optimizer state."""
+        if self.pipe is None:
+            return state
+        a, n, s = self.pipe_local[0], len(self.pipe_local), self.pipe.stages[0]
+        for key in ("mu", "nu", "acc"):
+            whole = state[key]
+            tail = len(whole) - (len(self.params) - a - n)
+            state[key] = whole[:a] + whole[a + s * n:a + (s + 1) * n] + whole[tail:]
         return state
 
     def save_checkpoint(self) -> None:
         """config.yaml (once), params.npz and optim.pt, each replaced
-        atomically; on rank 0 only (under tensor parallelism every rank
-        takes part in gathering them)."""
-        if self.tp is None and not self.is_writer:
+        atomically; on rank 0 only (under tensor and pipeline parallelism
+        every rank takes part in gathering them)."""
+        if self.tp is None and self.pipe is None and not self.is_writer:
             return
         params, optim = self.full_params(), self._optimizer_state()
         if not self.is_writer:
@@ -394,7 +459,7 @@ class Trainer:
             params = unflatten(shard_state_dict(flatten(params), self.tp.rank, self.tp.size))
         self.model.load_state_dict(from_flax(params, self.model))
         state = torch.load(d / "optim.pt", map_location=self.device, weights_only=True)
-        optim = state["optimizer"]
+        optim = self._stage_state(state["optimizer"])
         if self.tp is not None:
             for key in ("mu", "nu", "acc"):
                 optim[key] = [shard_param(t, p, self.tp) for t, p in zip(optim[key], self.params)]

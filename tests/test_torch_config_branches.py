@@ -17,9 +17,9 @@ with the same flax parameters (``convert.from_flax``).
 4. Speaker-conditioned vocoding against JAX's ``CodeHiFiGAN`` (atol 1e-4),
    from flax parameters and from a fairseq checkpoint.
 5. ``ModelConfig()`` itself (multimodal attention at the flagship's
-   width) against JAX's model; the settings the port does not have
-   (``pipeline_stages`` > 1, ``glu``) raise ``NotImplementedError`` (the
-   other fusion types: ``tests/test_torch_fusion_types.py``)."""
+   width) against JAX's model; ``glu`` raises ``NotImplementedError``,
+   and a pipelined encoder's forward without a pipe group ``ValueError``
+   (the other fusion types: ``tests/test_torch_fusion_types.py``)."""
 import copy
 import dataclasses
 import functools
@@ -352,7 +352,17 @@ def test_default_config_matches_jax():
     ({"activation_fn": "glu"}, {}),
 ])
 def test_unported_settings_raise(fields, mm):
+    """``glu`` raises at construction, as the reference cannot run it; a
+    pipelined encoder builds, and its forward raises without a pipe group
+    of its stages' ranks, as JAX's does without a mesh with a pipe axis."""
     cfg = tconfig.ModelConfig(**BASE, **fields,
                               multimodal=tconfig.MultimodalConfig(**{**MM, **mm}))
+    if cfg.pipeline_stages > 1:
+        b = _batch()
+        model = TModel(cfg).eval()
+        with pytest.raises(ValueError, match="needs a pipe group of 2 ranks"), torch.no_grad():
+            model(*(_t(b[k]) for k in ("src_features", "src_lengths", "prev_output_tokens")),
+                  [_t(x) for x in b["imgs_list"]], [_t(x) for x in b["img_masks_list"]])
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         TModel(cfg)

@@ -17,10 +17,11 @@ batch:
   (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``): rank 0
   writes the checkpoint and the metrics, rank 1 writes nothing, and the
   parameters equal a one-process run's;
-* one process with ``mesh.model=2`` raises ``ValueError``, as JAX's
-  ``make_mesh`` does on one device (tensor parallelism itself is
-  ``test_torch_tp.py``'s); ``mesh.pipe=2`` raises and names ROADMAP.md;
-  ``mesh.data`` other than -1 or the world size raises.
+* one process with ``mesh.model=2`` or ``mesh.pipe=2`` raises
+  ``ValueError``, as JAX's ``make_mesh`` does on one device (tensor and
+  pipeline parallelism themselves are ``test_torch_tp.py``'s and
+  ``test_torch_pipeline*.py``'s); ``mesh.data`` other than -1 or the
+  world size raises.
 
 Each multi-process run has its own timeout (120 s at most), so a hung
 rendezvous fails its test instead of the suite. ``shard_rows`` and
@@ -355,7 +356,7 @@ def test_mesh_axes_the_port_lacks_raise(tmp_path):
     base = ["--config", str(tmp_path / "run.yaml"), "--device", "cpu"]
     with pytest.raises(ValueError, match=r"1 devices not divisible by model=2"):
         train_cli.main([*base, "mesh.model=2"])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1"):
+    with pytest.raises(ValueError, match=r"1 devices not divisible by model=1 x pipe=2"):
         train_cli.main([*base, "mesh.pipe=2"])
     with pytest.raises(ValueError, match="must be -1 or the world size 1"):
         train_cli.main([*base, "mesh.data=2"])
