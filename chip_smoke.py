@@ -11,7 +11,8 @@ is no CPU path):
 2. kernels A, B and C against their plain PyTorch versions on the card at
    the main path's flagship shapes, and D, E and F at the reference
    bench's shapes (B=128, K=10, T·S=2010 at step 150, S=250), in bf16 and
-   fp32, each timed beside its plain version with CUDA events, and A at
+   fp32 (B and C with their bounds at the flagship shape), each timed
+   beside its plain version with CUDA events, and A at
    the offline bench point's encoder call (B=128, T=250), B and C at its
    decode shape (B=128, step 150 of 201; C beside SDPA), and D, F and E
    at the flagship's (B=8, step 300 of 500; S=250); then A's
@@ -217,7 +218,16 @@ is no CPU path):
     for bit and the whole batch's within TOL, three steps in fp32 and in
     bf16 equal the plain step's (losses within 1e-5, the parameter change
     within phase 20d's ``UPDATE_TOL``), A and H launch 12·M times a step,
-    and ms per step beside the plain step's.
+    and ms per step beside the plain step's;
+26. the fp32 decode (``phase_fp32_decode``): phase 4's flagship weights
+    and 8 wavs with ``model.dtype: float32`` and the default cache, which
+    then holds fp32, beam 10, max_len_b 200, CodeHiFiGAN after it, TF32
+    off for PyTorch's own matmuls (restored after): unit lengths, stage
+    seconds, utt/s, the launches of A, B and C (B and C 6 per decode
+    step), one profiled decode step 200; then on 2 utterances the CPU's
+    encoder output and the CPU search's 10 hypotheses of 200 units fed as
+    fixed beam paths through ``UnitDecoder.step`` on the card and on the
+    CPU: log-probs within 1e-4 at steps 1, 50, 100, 150 and 200.
 
 Phase 2 also holds A at the image encoders' shape (B=16, 577 queries
 over 584 keys, the last 7 padding, H=12 and 16, Dh=64), H at the ViT's
@@ -228,9 +238,9 @@ path's shapes: A over wav2vec2 frames
 utterances), B and D in the XM decoder (H=16, L=12, K=10, step 200 of
 263), C and E over the adaptor's short slab (B=8, H=16, K=10, S=63 and
 S=7), and B, C, D and E at phase 16's bench point (B=128, H=16, K=10,
-L=12, step 150 of 201, S=63 of 10 s utterances). It also holds fp32 C over S = 4000 encoder positions (16 rows,
-where the slab is split over S and merged, and 10 beams, where it is
-not) against its plain version. It also holds, at the train bench's encoder shapes (B=8, T=250 and
+L=12, step 150 of 201, S=63 of 10 s utterances). It also holds fp32 C over
+S = 4000 encoder positions (16 rows and 10 beams, the slab split over S
+and merged) against its plain version. It also holds, at the train bench's encoder shapes (B=8, T=250 and
 B=2, T=1000, H=8, D=64, ragged key padding), A and G with attention
 dropout 0.1 against their twins, and H (dq, dk, dv, dbias) against its
 twin, non-causal and causal/window 64, dropout 0 and 0.1, each timed
@@ -249,7 +259,10 @@ its ``tools_launches`` phase 22's: A in 22a's quantize on the card (fp32)
 and 22c's full-width ensemble encodes (bf16), B-E in 22c's ensemble
 decodes, both members counted; A's and H's ``fp32_*`` fields time their
 fp32 instances, 3xTF32 on the tensor cores, at the ViT's shapes, H=12,
-with their bounds at the TF32 peak);
+with their bounds at the TF32 peak; B-F's time theirs at phase 2's
+record shapes, B and C 3xTF32 (bound at the TF32 peak), D and F D's s8
+passes, E its SIMT kernel (bound at the fp32 FMA peak); every kernel's
+``fp32_launches`` are its launches in phase 26's fp32 decode);
 the last line is ``{"ok": true, "device": {...}}``. Artifacts (.unit files,
 generate-smoke.txt, wavs, the training runs) go to ``--out`` (default
 ``smoke_out/`` beside this file).
@@ -267,11 +280,13 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-# fp32: the SIMT kernels (B-F in fp32) keep fp32 throughout; fp32 A, G and
-# H split every operand into two tf32 halves and take three tensor-core
-# products (3xTF32, ~2^-21 of a product's scale where one TF32 pass keeps
-# ~2^-11 and misses 1e-4; tests/test_torch_attention_tf32_numerics.py
-# emulates them against the JAX reference on the CPU and holds them to TOL).
+# fp32: fp32 A, B, C, G and H split every operand into two tf32 halves and
+# take three tensor-core products (3xTF32, ~2^-21 of a product's scale
+# where one TF32 pass keeps ~2^-11 and misses 1e-4;
+# tests/test_torch_attention_tf32_numerics.py and
+# tests/test_torch_decode_tf32_numerics.py emulate them against the JAX
+# reference on the CPU and hold them to TOL); fp32 E's SIMT kernel keeps
+# fp32 throughout, and fp32 D and F take D's integer passes.
 # bf16: the plain versions round the softmax weights and every product to
 # bf16 between the two contractions. bf16 A and H (tensor cores) round
 # p times the dropout factor, and H its dS, to bf16 before the second
@@ -300,7 +315,8 @@ BENCH = dict(B=128, H=8, Dh=64, K=10, L=6, T_dec=201, step=150, S_cross=250)
 HBM = 3.35e12
 PEAK = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "int8": 1979e12}
 EB = {torch.bfloat16: 2, torch.float32: 4}
-MMA_PEAK = {torch.bfloat16: "bf16", torch.float32: "tf32"}  # A, G and H: the tensor cores' input type
+MMA_PEAK = {torch.bfloat16: "bf16", torch.float32: "tf32"}  # A-C, G, H: the tensor cores' input type
+E_PEAK = {torch.bfloat16: "bf16", torch.float32: "fp32"}  # E: bf16 tensor cores, fp32 SIMT
 DROP_SEED = 0x5EED
 
 
@@ -523,18 +539,18 @@ def kernel_cases(dtype, shapes=FLAGSHIP, bench=BENCH):
          flash_work(s["B"], s["T_enc"], s["T_enc"], s["H"], s["Dh"], dtype)),
         ("B", lambda: D.ancestry_decode_attention(*b_args, layer),
          lambda: D.reference(*b_args, layer), TOL[dtype], None,
-         ancestry_work(b_args[0], b_args[3], b_args[4], 2 * s["Dh"] * eb, "bf16")),
+         ancestry_work(b_args[0], b_args[3], b_args[4], 2 * s["Dh"] * eb, MMA_PEAK[dtype])),
         ("C", lambda: D.cross_decode_attention(*c_args),
          lambda: D.cross_reference(*c_args), TOL[dtype],
          lambda: torch.nn.functional.scaled_dot_product_attention(c_args[0], c_k, c_v,
                                                                   attn_mask=c_mask, scale=1.0),
-         cross_work(c_args[0], s["S_cross"], 2 * s["Dh"] * eb, "bf16")),
+         cross_work(c_args[0], s["S_cross"], 2 * s["Dh"] * eb, MMA_PEAK[dtype])),
         ("D", lambda: D.ancestry_decode_attention_i8(*d_args, layer),
          lambda: D.reference_i8(*d_args, layer), TOL_REQUANT[dtype], None,
          ancestry_work(d_args[0], d_args[3], d_args[6], 2 * n["Dh"] + 8, "int8")),
         ("E", lambda: D.cross_decode_attention_i8(*e_args),
          lambda: D.cross_reference_i8(*e_args), TOL[dtype], None,
-         cross_work(e_args[0], n["S_cross"], 2 * n["Dh"] + 8, "bf16")),
+         cross_work(e_args[0], n["S_cross"], 2 * n["Dh"] + 8, E_PEAK[dtype])),
         ("F", lambda: D.ancestry_decode_attention_i4(*f_args, layer),
          lambda: D.reference_i4(*f_args, layer), TOL_REQUANT[dtype], None,
          ancestry_work(f_args[0], f_args[3], f_args[6], 0, "int8", packed=True)),
@@ -592,6 +608,14 @@ def phase_kernels():
             result = check_and_time(name, dtype, kern, plain, tol, library)
             if dtype == torch.bfloat16:
                 record[name] = {**result, **work}
+            elif name != "A":  # fp32 A's fields are the ViT shape's (phase_vit_kernels)
+                record[name].update(fp32_fields(result, work, FP32_SOURCES[name]))
+            if name in "BC":
+                print(f"phase 2: {name} flagship {str(dtype)[6:]}: bound "
+                      f"{work['bound_ms'] * 1e3:.2f} us ({work['bound_by']}), kernel / bound "
+                      f"{result['ms'] / work['bound_ms']:.2f}"
+                      + (f", kernel / SDPA {result['ms'] / result['library_ms']:.3f}"
+                         if library is not None else ""))
         # A at the offline bench point's encoder call (phase 5): 128 x 10 s
         # -> 250 rows after subsampling, rate 0, no statistics.
         q, k, v, kpm = flash_inputs(128, 250, 8, 64, dtype, seed=128)
@@ -610,7 +634,8 @@ def phase_kernels():
         res = check_and_time("B B=128 step 150", dtype,
                              lambda: D.ancestry_decode_attention(*b_args, n["L"] // 2),
                              lambda: D.reference(*b_args, n["L"] // 2), TOL[dtype])
-        work = ancestry_work(b_args[0], b_args[3], b_args[4], 2 * n["Dh"] * EB[dtype], "bf16")
+        work = ancestry_work(b_args[0], b_args[3], b_args[4], 2 * n["Dh"] * EB[dtype],
+                             MMA_PEAK[dtype])
         print(f"phase 2: B B=128 step 150 {str(dtype)[6:]}: bound {work['bound_ms'] * 1e3:.2f} us "
               f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}")
         del b_args
@@ -623,7 +648,7 @@ def phase_kernels():
                              lambda: D.cross_reference(*c_args), TOL[dtype],
                              lambda: torch.nn.functional.scaled_dot_product_attention(
                                  c_args[0], c_k, c_v, attn_mask=c_mask, scale=1.0))
-        work = cross_work(c_args[0], n["S_cross"], 2 * n["Dh"] * EB[dtype], "bf16")
+        work = cross_work(c_args[0], n["S_cross"], 2 * n["Dh"] * EB[dtype], MMA_PEAK[dtype])
         print(f"phase 2: C B=128 {str(dtype)[6:]}: bound {work['bound_ms'] * 1e3:.2f} us "
               f"({work['bound_by']}), kernel / SDPA {res['ms'] / res['library_ms']:.3f}, "
               f"kernel / bound {res['ms'] / work['bound_ms']:.2f}")
@@ -654,12 +679,20 @@ def phase_kernels():
         e_args = quant_cross_inputs(s["B"], s["H"], s["K"], s["Dh"], s["S_cross"], dtype, seed=6)
         res = check_and_time("E B=8", dtype, lambda: D.cross_decode_attention_i8(*e_args),
                              lambda: D.cross_reference_i8(*e_args), TOL[dtype])
-        work = cross_work(e_args[0], s["S_cross"], 2 * s["Dh"] + 8, "bf16")
+        work = cross_work(e_args[0], s["S_cross"], 2 * s["Dh"] + 8, E_PEAK[dtype])
         print(f"phase 2: E B=8 {str(dtype)[6:]}: bound {work['bound_ms'] * 1e3:.2f} us "
               f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}")
         del e_args
         torch.cuda.empty_cache()
     return record
+
+
+def fp32_fields(res, work, src):
+    """The kernels line's fp32 fields of a kernel from its check_and_time
+    result and its bound."""
+    return {"fp32_source": src, "fp32_max_abs_err": res["max_abs_err"], "fp32_ms": res["ms"],
+            "fp32_plain_ms": res["plain_ms"], "fp32_library_ms": res["library_ms"],
+            "fp32_bound_ms": work["bound_ms"], "fp32_bound_by": work["bound_by"]}
 
 
 def check_and_time(label, dtype, kern, plain, tol, library=None, scaled=False, phase="phase 2"):
@@ -689,11 +722,10 @@ def check_and_time(label, dtype, kern, plain, tol, library=None, scaled=False, p
 
 
 def phase_long_cross():
-    """fp32 C over S = 4000 encoder positions (≈ 160 s of speech), B=2, H=8:
-    16 rows, whose scores would pass a block's shared memory, and 10 beams;
-    B·H = 16 is under a wave, so both split the slab over S (16 spans of
-    250 keys) and merge in split order; each against the plain version
-    and beside SDPA."""
+    """fp32 C over S = 4000 encoder positions (≈ 160 s of speech), B=2, H=8,
+    16 rows and 10 beams: B·H = 16 is under a wave, so both split the slab
+    over S (16 spans of 16 tiles of 16 keys) and merge in split order;
+    each against the plain version and beside SDPA."""
     from mm_s2ut_torch.ops import _build
     from mm_s2ut_torch.ops import decode_attention as D
 
@@ -916,9 +948,10 @@ def logit_gap(model, wav, lens, imgs, card, cpu, step, kv) -> float:
     return float(logits[0, pick[0]] - logits[0, pick[1]])
 
 
-def flagship():
-    """The flagship model (bf16, on the card) and its vocoder, with random
-    weights from one seeded generator, and that generator."""
+def flagship(dtype: str = "bfloat16"):
+    """The flagship model (bf16 unless ``dtype``, on the card) and its
+    vocoder, with random weights from one seeded generator, and that
+    generator (the same weights and state for either dtype)."""
     from mm_s2ut_torch.config import ModelConfig, MultimodalConfig
     from mm_s2ut_torch.models.hifigan import CodeHiFiGAN, HiFiGANConfig
     from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
@@ -926,7 +959,7 @@ def flagship():
     gen = torch.Generator().manual_seed(0)
     mm = MultimodalConfig(image_feat_dim=[768], multimodal_attention_type="selective_attention",
                           use_selective_gate=True, modality_dropout=0.5, audio_dropout=0.5)
-    cfg = ModelConfig(vocab_size=1004, dtype="bfloat16", multimodal=mm)  # the flagship
+    cfg = ModelConfig(vocab_size=1004, dtype=dtype, multimodal=mm)  # the flagship
     model = init_random_(MMS2UTModel(cfg), gen).to("cuda").eval()
     vocoder = init_random_(CodeHiFiGAN(HiFiGANConfig()), gen).to("cuda").eval()
     return model, vocoder, gen
@@ -2468,12 +2501,6 @@ def phase_vit_kernels():
     import torch.nn.functional as F
 
     from mm_s2ut_torch.ops import attention as A
-
-    def fp32_fields(res, work, src):
-        return {"fp32_source": src, "fp32_max_abs_err": res["max_abs_err"],
-                "fp32_ms": res["ms"], "fp32_plain_ms": res["plain_ms"],
-                "fp32_library_ms": res["library_ms"], "fp32_bound_ms": work["bound_ms"],
-                "fp32_bound_by": work["bound_by"]}
 
     record = {}
     B, Tq, S, Dh = VIT["B"], VIT["Tq"], VIT["S"], VIT["Dh"]
@@ -5198,8 +5225,116 @@ def phase_pipeline():
     return total
 
 
-KERNELS = {  # name, source (of the bf16 instance the record times; A's and H's fp32_* fields
-    # time their fp32 source), the TPU kernel it replaces
+FP32_CHECK_STEPS = (1, 50, 100, 150, 200)
+
+
+def phase_fp32_decode():
+    """Phase 26: the flagship's decode with ``model.dtype: float32`` and the
+    default cache (which then holds fp32), at full width on phase 4's
+    weights and 8 wavs (beam 10, max_len_b 200, CodeHiFiGAN after it), TF32
+    off for PyTorch's own fp32 matmuls and convolutions (restored after):
+    fp32 B and C, 3xTF32 on the tensor cores, 6 launches each per decode
+    step. Then one profiled decode step 200, and the card held against the
+    CPU on 2 utterances: the CPU's encoder output, the CPU search's 10
+    hypotheses of 200 units as the beams' fixed paths (each beam on its
+    own cache slot), fed through ``UnitDecoder.step`` on the card (kernels)
+    and on the CPU (plain versions): every beam's log-probs within 1e-4 at
+    steps 1, 50, 100, 150 and 200. Returns the launches of A, B and C."""
+    import copy
+
+    from mm_s2ut_torch.config import GenerationConfig
+    from mm_s2ut_torch.infer.beam_search import tile_state_for_beams
+    from mm_s2ut_torch.infer.generator import UnitGenerator
+    from mm_s2ut_torch.ops import attention as A
+    from mm_s2ut_torch.ops import decode_attention as D
+    from mm_s2ut_torch.ops.fbank import FbankConfig, waveform_frontend
+    from mm_s2ut_torch.tools.host_cost import profile_decode_step
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    model, vocoder, gen = flagship("float32")
+    n_params = sum(p.numel() for p in model.parameters())
+    wav, lens, imgs = synthetic_batch(8, gen)  # phase 4's
+    masks = torch.zeros(imgs.shape[:2], dtype=torch.bool)
+    gcfg = GenerationConfig(beam=10, max_len_a=1.0, max_len_b=200)
+    generator = UnitGenerator(model, gcfg, max_target_positions=model.cfg.max_target_positions)
+    drive(generator, vocoder, wav[:2, :16000], torch.clamp(lens[:2], max=16000), imgs[:2],
+          masks[:2])  # warm-up
+    steps = [0]
+    inner = model.decode_step
+
+    def step(tok, state):
+        steps[0] += 1
+        return inner(tok, state)
+
+    model.decode_step = step
+    try:
+        (feats, flens, hyps, unit_lines, wavs, stages), total, launches = counted(
+            {"A": A.flash_attention, "B": D.ancestry_decode_attention,
+             "C": D.cross_decode_attention},
+            lambda: drive(generator, vocoder, wav, lens, imgs, masks))
+    finally:
+        del model.decode_step
+    check_outputs(hyps, unit_lines, wavs, 8, gcfg.beam)
+    assert launches["A"] > 0, launches
+    assert launches["B"] == launches["C"] == 6 * steps[0], (launches, steps)
+    print(f"phase 26: flagship fp32 ({n_params / 1e6:.1f} M params), fp32 cache, 8 utts "
+          f"({float(lens.sum()) / 16000:.2f} s audio), unit lengths "
+          f"{[len(l.split()) for l in unit_lines]}")
+    print(f"phase 26: launches {launches} over {steps[0]} decode steps (B and C 6 per step); "
+          f"stages {json.dumps({k: round(v, 4) for k, v in stages.items()})}; total "
+          f"{total:.3f} s; {8 / total:.3f} utt/s")
+    prof = profile_decode_step(generator, feats, flens, [imgs.cuda()], [masks.cuda()], 200)
+    print(f"phase 26: profiled decode step 200: {json.dumps(prof)}")
+    assert prof["B_ms"] > 0 and prof["C_ms"] > 0, f"the profile names no B or C kernel: {prof}"
+
+    # Card against CPU, teacher-forced on the CPU search's hypotheses.
+    cpu_model = copy.deepcopy(model).to("cpu")
+    n, K, T = 2, gcfg.beam, FP32_CHECK_STEPS[-1]
+    with torch.no_grad():
+        cfeats, cflens = waveform_frontend(wav[:n], lens[:n], FbankConfig())
+        enc = cpu_model.encode(cfeats, cflens, [imgs[:n]], [masks[:n]])
+        cpu_hyps = UnitGenerator(cpu_model, GenerationConfig(beam=K, max_len_a=0.0, max_len_b=T + 1)
+                                 ).generate(cfeats, cflens, [imgs[:n]], [masks[:n]])
+    assert all(len(h[0]["tokens"]) >= T for h in cpu_hyps), [len(h[0]["tokens"]) for h in cpu_hyps]
+    paths = torch.tensor([[(h[k] if len(h[k]["tokens"]) >= T else h[0])["tokens"][:T]
+                           for k in range(K)] for h in cpu_hyps])  # (n, K, T)
+    prev = torch.cat([torch.full((n, K, 1), 2), paths[:, :, :-1]], dim=2).reshape(n * K, T)
+
+    @torch.no_grad()
+    def forced(m, dev):
+        e = {"encoder_out": enc["encoder_out"].to(dev),
+             "encoder_padding_mask": None if enc["encoder_padding_mask"] is None
+             else enc["encoder_padding_mask"].to(dev)}
+        state = tile_state_for_beams(m.decode_init(e, T), K)
+        state["ancestry"][:] = torch.arange(K, device=dev)[None, :, None]  # beam k on slot k
+        out = {}
+        for t in range(T):
+            logits, state = m.decode_step(prev[:, t:t + 1].to(dev), state)
+            if t + 1 in FP32_CHECK_STEPS:
+                out[t + 1] = torch.log_softmax(logits.float(), dim=-1).cpu()
+        return out
+
+    before = (D.ancestry_decode_attention.launches, D.cross_decode_attention.launches)
+    card, cpu = forced(model, "cuda"), forced(cpu_model, "cpu")
+    assert (D.ancestry_decode_attention.launches - before[0],
+            D.cross_decode_attention.launches - before[1]) == (6 * T, 6 * T)
+    errs = {t: (card[t] - cpu[t]).abs().max().item() for t in FP32_CHECK_STEPS}
+    print(f"phase 26: card vs CPU, {n} utts x {K} beams teacher-forced on the CPU search's "
+          f"{T}-unit hypotheses: max|log-prob diff| by step {json.dumps(errs)} (tol 1e-4)")
+    assert all(torch.isfinite(card[t]).all() for t in FP32_CHECK_STEPS)
+    assert max(errs.values()) <= 1e-4, errs
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    del model, vocoder, cpu_model
+    torch.cuda.empty_cache()
+    print(f"phase 26: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+KERNELS = {  # name, source (of the bf16 instance the record times; the fp32_* fields time
+    # the fp32 source: A's and H's, and FP32_SOURCES'), the TPU kernel it replaces
     "A": ("flash_attention", "mm_s2ut_torch/csrc/flash_attention_mma.cu",
           "mm_s2ut/ops/attention.py:140"),
     "B": ("ancestry_decode_attention", "mm_s2ut_torch/csrc/decode_attention.cu",
@@ -5216,6 +5351,11 @@ KERNELS = {  # name, source (of the bf16 instance the record times; A's and H's 
           "mm_s2ut/ops/attention.py:194"),
     "H": ("flash_attention_bwd", "mm_s2ut_torch/csrc/flash_attention_bwd_mma.cu",
           "mm_s2ut/ops/attention.py:377"),
+}
+FP32_SOURCES = {  # B-F's fp32 instances (phase 2's fp32 fields; D and F are D's s8 passes)
+    "B": "mm_s2ut_torch/csrc/decode_attention.cu", "C": "mm_s2ut_torch/csrc/decode_attention.cu",
+    "D": "mm_s2ut_torch/csrc/decode_attention_q.cu", "E": "mm_s2ut_torch/csrc/decode_attention_q.cu",
+    "F": "mm_s2ut_torch/csrc/decode_attention_q.cu",
 }
 
 
@@ -5272,6 +5412,7 @@ def main(argv=None) -> int:
         record[name].update({f"s827_{k}": v for k, v in fields.items()})
     phase_tp_kernels()
     pipe_launches = phase_pipeline()
+    fp32_launches = phase_fp32_decode()
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -5281,7 +5422,8 @@ def main(argv=None) -> int:
          "vit_train_launches": vit_train_launches.get(k, 0),
          "tools_launches": tools_launches.get(k, 0),
          "fusion_launches": fusion_launches.get(k, 0),
-         "pipe_launches": pipe_launches.get(k, 0), **record[k]}
+         "pipe_launches": pipe_launches.get(k, 0), "fp32_launches": fp32_launches.get(k, 0),
+         **record[k]}
         for k, (name, src, rep) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

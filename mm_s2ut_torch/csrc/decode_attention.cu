@@ -26,8 +26,10 @@
 // ~10 operations a byte: far under the ~295 at which the tensor cores
 // would bound it, but half the ~20 at which the fp32 FMA pipes (67 TFLOP/s)
 // would, and a SIMT product also spends a shared-memory load per FMA. So
-// bf16 B does its products on the tensor cores, and the design keeps many
-// independent row reads in flight on every SM.
+// both dtypes do their products on the tensor cores (fp32 in 3xTF32, 5
+// operations a byte, far under the TF32 cores' ~148 even counted three
+// times), and the design keeps many independent row reads in flight on
+// every SM.
 //
 // Design of B, flash-decoding style: the T.S column axis is split over
 // blocks, grid (B.H, n_split), n_split picked for one wave of blocks on
@@ -36,14 +38,20 @@
 // dependent 256-byte row read per column). A block reads its span of
 // flat_rep once, all K loads of a column in flight together, and compacts
 // the columns on some beam's path, with the beams' bit mask, into shared
-// memory. In bf16 each of its 4 warps then gathers its own tiles of 32
-// live rows (16 at Dh = 128) through its own 2-stage cp.async ring and
-// keeps its own online softmax, with the K beams as the 16 rows of
-// mma.m16n8k16: S = Q.K^T, -inf off each beam's path (weight 0),
-// O += bf16(P).V; the warps merge in shared memory at the end. No block
-// barrier runs between tiles. In fp32 (and as bf16's measured
-// alternative) the block shares each tile and puts a (beam, column), then
-// a (beam, dim), pair on each thread. Each split leaves (max,
+// memory. Each of its 4 warps then gathers its own tiles of live rows
+// through its own 2-stage cp.async ring and keeps its own online softmax,
+// with the K beams as the 16 rows of the mma (rows past K are zeros): S =
+// Q.K^T, -inf off each beam's path (weight 0), O += P.V; the warps merge
+// in shared memory at the end. No block barrier runs between tiles. bf16:
+// tiles of 32 live rows (16 at Dh = 128), mma.m16n8k16, P rounded to bf16.
+// fp32: tiles of 8 live rows, every product 3xTF32 on mma.m16n8k8
+// (flash_attention_mma.cuh: x = hi + lo, lo.hi + hi.lo + hi.hi; one TF32
+// pass would miss the fp32 checks' 1e-4), each fragment read from the raw
+// fp32 tile and split in registers (decode_attention.cuh: an element meets
+// one warp, so no split tile), Q split once per head, P kept in fp32 and
+// split like any operand; 8-row tiles leave room for five blocks per SM. bf16's alternative design (tools/kernel_ab.py variant 2)
+// shares each tile over the block and puts a (beam, column), then a (beam,
+// dim), pair on each thread, on the FMA pipes. Each split leaves (max,
 // denominator, unnormalised w.V) per beam in fp32 scratch; a second small
 // kernel per (b, h) folds the splits in split order with the beam's own
 // logit q.k_new and v_new. No atomics, so two launches give the same bits;
@@ -54,36 +62,33 @@
 // any T.S runs; q, k_new, v_new and the output go through strides too (the
 // decoder's beam-major views, without copies).
 //
-// Design of C. In bf16 the K <= 16 rows of a decode step are the 16 rows
-// of mma.m16n8k16 (rows past K are zeros), as B's beams are: grid (B.H,
-// n_split), the S columns cut into n_split spans of whole key tiles where
-// B.H is under a wave (n_split 1 at B = 128, the slab then read once per
-// (b, h)), 4 warps per block, and each warp takes its own tiles of the
-// span (32 keys, 16 at Dh = 128) through its own 2-stage cp.async ring of
-// XOR-swizzled K and V rows with the tile's bias beside them, and keeps
-// its own online softmax: S = Q.K^T + bias (-inf past S), O += bf16(P).V.
-// The slab is dense, so no compaction. The warps merge in shared memory at
-// the end; with one split the block divides by the denominator and stores,
-// else it leaves (max, denominator, unnormalised O) per row in fp32 scratch
-// and a small merge kernel per (b, h) folds the splits in split order. No
-// atomics, so two launches give the same bits. A warp, or a split, that
-// saw no column keeps max -inf and weighs 0 in the merge (a span of -1e9
-// padding keeps a finite max that the merge weighs exp(-1e9 - M) = 0).
-// P is rounded to bf16 before P.V, unnormalised, as in A, B and G; the
-// reference rounds the normalised weights (p / sum p) to bf16
-// (_kernel_cross, decode_attention.py:497): both round each weight to a
-// few bf16 ulps of a convex mix, inside the card checks' bf16 2e-2. The
-// prefill's many rows (K > 16, P = max_len + 1) take A's tensor-core
-// forward (flash_attention_mma.cu) with scale 1 over the slab's K and V
-// halves as strided (B, S, H, Dh) views: 4 warps x 16 query rows per
-// block over every key tile, so the slab is read once per 64 rows. In
-// fp32 (the tensor cores' TF32 would miss the 1e-4 tolerance) C keeps its
-// SIMT kernel: grid (B.H, n_split, ceil(K/16)), a block's <= 16 rows of
-// its span's scores in shared memory for a two-pass softmax, each thread
-// reading its K row in 16-byte chunks, then one output dim per thread over
-// the V half. S is split where the scores would not fit in a block's
-// shared memory, and while B.H is under a wave (spans of >= 256 keys),
-// then merged in split order by C's merge kernel.
+// Design of C. The K <= 16 rows of a decode step are the 16 rows of the
+// mma (rows past K are zeros), as B's beams are: grid (B.H, n_split), the
+// S columns cut into n_split spans of whole key tiles where B.H is under
+// a wave (n_split 1 at B = 128, the slab then read once per (b, h)), 4
+// warps per block, and each warp takes its own tiles of the span through
+// its own 2-stage cp.async ring of K and V rows with the tile's bias
+// beside them, and keeps its own online softmax: S = Q.K^T + bias (-inf
+// past S), O += P.V. bf16: 32-key tiles (16 at Dh = 128), XOR-swizzled,
+// mma.m16n8k16, P rounded to bf16. fp32: B's 3xTF32 on raw 16-key tiles
+// (8 at Dh = 128: 8-key tiles tie at B = 128 and split more at B = 8,
+// where the merge then costs more); the online softmax needs no S-sized
+// score buffer, so fp32 splits by bf16's rule. The slab is dense, so no compaction. The
+// warps merge in shared memory at the end; with one split the block
+// divides by the denominator and stores, else it leaves (max, denominator,
+// unnormalised O) per row in fp32 scratch and a small merge kernel per (b,
+// h) folds the splits in split order. No atomics, so two launches give the
+// same bits. A warp, or a split, that saw no column keeps max -inf and
+// weighs 0 in the merge (a span of -1e9 padding keeps a finite max that
+// the merge weighs exp(-1e9 - M) = 0). bf16 rounds P to bf16 before P.V,
+// unnormalised, as in A, B and G; the reference rounds the normalised
+// weights (p / sum p) to bf16 (_kernel_cross, decode_attention.py:497):
+// both round each weight to a few bf16 ulps of a convex mix, inside the
+// card checks' bf16 2e-2. The prefill's many rows (K > 16, P = max_len +
+// 1) take A's forward in either dtype (flash_attention_mma.cu, and
+// flash_attention.cu's 3xTF32 in fp32) with scale 1 over the slab's K and
+// V halves as strided (B, S, H, Dh) views: 4 warps x 16 query rows per
+// block over every key tile, so the slab is read once per 64 rows.
 // q and the output go through strides: the decoder hands a beam-major
 // (B, K, H, Dh) query viewed as (B, H, K, Dh), and the result is a view
 // of a beam-major buffer, so neither is copied.
@@ -126,11 +131,117 @@ __device__ __forceinline__ void write_empty(const AncestryArgs& a, int64_t part0
     a.part_m[(part0 + (int64_t)(i / a.K) * a.n_split) * a.K + i % a.K] = -INFINITY;
 }
 
-// Shared memory of the tensor-core split pass: each warp's 2-stage ring of
-// TW-row K and V tiles (swizzled, as flash_attention_mma.cuh's A and G
-// read them), the head's q as 16 zero-padded rows, the live columns and
-// the compaction's counts. The warps' (O, m, l) for the block's merge go
-// over the drained ring.
+// One tile of a warp's online softmax over its 16 mma rows (rows g and g +
+// 8 of each thread): ``s`` holds the tile's logits, -inf where masked,
+// element e of n-tile n in row g + 8 (e >> 1). On return it holds p =
+// exp(s - m_new) (0 while a row's max is still -inf), and l_run and o are
+// rescaled by exp(m_old - m_new), l_run with the tile's p added. B and C,
+// both dtypes.
+template <int NS, int NT>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS][4], float (&o)[NT][4],
+                                             float (&m_run)[2], float (&l_run)[2]) {
+  float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
+  float alpha[2], m_new[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m_new[r] = fmaxf(m_run[r], quad_max(mt[r]));
+    // -inf until an unmasked column comes: nothing to rescale yet
+    alpha[r] = m_new[r] == -INFINITY ? 1.f : exp_e(m_run[r] - m_new[r]);
+    m_run[r] = m_new[r];
+    l_run[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int n = 0; n < NS; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const float p = m_new[r] == -INFINITY ? 0.f : exp_e(s[n][e] - m_new[r]);
+      l_run[r] += p;
+      s[n][e] = p;
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    o[n][0] *= alpha[0];
+    o[n][1] *= alpha[0];
+    o[n][2] *= alpha[1];
+    o[n][3] *= alpha[1];
+  }
+}
+
+// The end of the 4 warps' tiles: each warp's (m, l, O) of its 16 rows into
+// ``merge`` (4 x 16 (D + 2) floats over the drained rings), then, for each
+// (row k < K, dim d) of the block in turn per thread, fn(k, d, M, l, acc):
+// the warps folded in warp order, a warp that saw no column (max -inf)
+// weighing 0. Starts with a block barrier and ends without one.
+template <int D, class Fn>
+__device__ __forceinline__ void merge_warps(float* merge, int K, const float (&m_run)[2],
+                                            const float (&l_run)[2], const float (&o)[D / 8][4],
+                                            Fn&& fn) {
+  constexpr int W = 16 * (D + 2);  // floats per warp: O (16 x D), m, l
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  __syncthreads();  // every ring is drained: the merge goes over them
+  float* mw = merge + warp * W;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l = quad_sum(l_run[r]);
+    if (tq == 0) {
+      mw[16 * D + g + 8 * r] = m_run[r];
+      mw[16 * D + 16 + g + 8 * r] = l;
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mw[(g + 8 * (e >> 1)) * D + 8 * n + 2 * tq + (e & 1)] = o[n][e];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < K * D; e += blockDim.x) {
+    const int k = e / D, d = e % D;
+    float M = -INFINITY, l = 0.f, acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) M = fmaxf(M, merge[w * W + 16 * D + k]);
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float* mv = merge + w * W;
+      const float m = mv[16 * D + k];
+      if (m == -INFINITY) continue;  // the warp saw no column (or only -inf logits)
+      const float sc = exp_e(m - M);
+      l = fmaf(sc, mv[16 * D + 16 + k], l);
+      acc = fmaf(sc, mv[k * D + d], acc);
+    }
+    fn(k, d, M, l, acc);
+  }
+}
+
+// The split pass's partials of head h: (max, denominator) per beam and the
+// unnormalised w.V, from merge_warps, then the barrier before the merge
+// area is the next head's ring.
+template <int D>
+__device__ __forceinline__ void write_partials(const AncestryArgs& a, float* merge,
+                                               int64_t part, const float (&m_run)[2],
+                                               const float (&l_run)[2],
+                                               const float (&o)[D / 8][4]) {
+  const int K = a.K;
+  merge_warps<D>(merge, K, m_run, l_run, o, [&](int k, int d, float M, float l, float acc) {
+    if (d == 0) {
+      a.part_m[part * K + k] = M;
+      a.part_l[part * K + k] = l;
+    }
+    a.part_acc[(part * K + k) * D + d] = acc;
+  });
+  __syncthreads();
+}
+
+// Shared memory of the bf16 split pass: each warp's 2-stage ring of TW-row
+// K and V tiles (swizzled, as flash_attention_mma.cuh's A and G read them),
+// the head's q as 16 zero-padded rows, the live columns and the
+// compaction's counts. The warps' (O, m, l) for the block's merge go over
+// the drained ring.
 template <int D>
 struct BMma {
   static constexpr int kTW = D <= 64 ? 32 : 16;  // live columns per warp tile
@@ -140,17 +251,16 @@ struct BMma {
   static constexpr int kLive = kQ + 16 * D * 2;
   static constexpr int kCount = kLive + kBSpan * 4;
   static constexpr int kBytes = kCount + 4 * 4 * 4;
-  static constexpr int kMerge = 16 * (D + 2);  // floats per warp: O (16 x D), m, l
-  static_assert(4 * kMerge * 4 <= kQ - kRing, "the merge fits over the ring");
+  static_assert(4 * 16 * (D + 2) * 4 <= kQ - kRing, "the merge fits over the ring");
 };
 
-// Tensor-core split pass (bf16): block (b, head group) x split. After the
-// compaction, warp w takes live tiles w, w + 4, ... of each head, each
-// gathered by its own 32 lanes through its own 2-stage cp.async ring, and
-// keeps its own online softmax: S = Q.K^T with the K beams as the 16 rows
-// of mma.m16n8k16 (rows past K are zeros) and the tile's columns as n,
-// scores off a beam's path set to -inf (weight 0), then O += bf16(P).V with
-// P from the accumulators (acc_to_a) and V through ldmatrix.trans. No block
+// bf16 split pass: block (b, head group) x split. After the compaction,
+// warp w takes live tiles w, w + 4, ... of each head, each gathered by its
+// own 32 lanes through its own 2-stage cp.async ring, and keeps its own
+// online softmax: S = Q.K^T with the K beams as the 16 rows of
+// mma.m16n8k16 (rows past K are zeros) and the tile's columns as n, scores
+// off a beam's path set to -inf (weight 0), then O += bf16(P).V with P
+// from the accumulators (acc_to_a) and V through ldmatrix.trans. No block
 // barrier runs between tiles; at the end of a head the four warps' (m, l,
 // O) merge in shared memory into the split's partial.
 template <int D>
@@ -234,7 +344,6 @@ __global__ void __launch_bounds__(kBMmaThreads) ancestry_split_kernel_mma(const 
         }
       }
       // Element e of n-tile n: beam g + 8 (e >> 1), column 8 n + 2 tq + (e & 1).
-      float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int n = 0; n < TW / 8; ++n) {
 #pragma unroll
@@ -242,35 +351,9 @@ __global__ void __launch_bounds__(kBMmaThreads) ancestry_split_kernel_mma(const 
           const int c = 8 * n + 2 * tq + (e & 1), beam = g + 8 * (e >> 1);
           const bool on = c < n_in && ((live[r0 + c] >> (16 + beam)) & 1u);
           s[n][e] = on ? s[n][e] : -INFINITY;
-          mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
         }
       }
-      float alpha[2], m_new[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        m_new[r] = fmaxf(m_run[r], quad_max(mt[r]));
-        // -inf until a column on the beam's path comes: nothing to rescale yet
-        alpha[r] = m_new[r] == -INFINITY ? 1.f : exp_e(m_run[r] - m_new[r]);
-        m_run[r] = m_new[r];
-        l_run[r] *= alpha[r];
-      }
-#pragma unroll
-      for (int n = 0; n < TW / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const float p = m_new[r] == -INFINITY ? 0.f : exp_e(s[n][e] - m_new[r]);
-          l_run[r] += p;
-          s[n][e] = p;
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        o[n][0] *= alpha[0];
-        o[n][1] *= alpha[0];
-        o[n][2] *= alpha[1];
-        o[n][3] *= alpha[1];
-      }
+      softmax_tile(s, o, m_run, l_run);
 #pragma unroll
       for (int kk = 0; kk < TW / 16; ++kk) {
         uint32_t pa[4];
@@ -285,45 +368,151 @@ __global__ void __launch_bounds__(kBMmaThreads) ancestry_split_kernel_mma(const 
       }
       __syncwarp();  // the stage is refilled by the next iteration's gather
     }
+    write_partials<D>(a, merge, part0 + (int64_t)(h - h0) * a.n_split, m_run, l_run, o);
+  }
+}
 
-    __syncthreads();  // every ring is drained: the merge goes over them
-    float* mw = merge + warp * C::kMerge;  // O [16][D], then m [16], l [16]
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float l = quad_sum(l_run[r]);
-      if (tq == 0) {
-        mw[16 * D + g + 8 * r] = m_run[r];
-        mw[16 * D + 16 + g + 8 * r] = l;
+// Shared memory of the fp32 split pass: each warp's 2-stage ring of TW-row
+// raw K and V tiles (decode_attention.cuh's rsw), the head's q as 16
+// zero-padded raw rows, the live columns and the compaction's counts; the
+// warps' (O, m, l) for the block's merge go over the drained ring. 44 KB
+// at Dh = 64: five blocks per SM. Tiles of 8 rows were measured against 16
+// and 32 (tools/kernel_ab.py, PERF.md): the smaller rings let 5 blocks
+// share an SM instead of 2 or 1, so more compactions and gathers are in
+// flight, and the split pass took 212 us against 246 and 290 at B = 128.
+template <int D>
+struct BTf32 {
+  static constexpr int kTW = 8;                 // live columns per warp tile
+  static constexpr int kTile = kTW * D;         // floats of one K (or V) tile
+  static constexpr int kRing = 0;
+  static constexpr int kQ = kRing + 4 * 2 * 2 * kTile * 4;
+  static constexpr int kLive = kQ + 16 * D * 4;
+  static constexpr int kCount = kLive + kBSpan * 4;
+  static constexpr int kBytes = kCount + 4 * 4 * 4;
+  static_assert(4 * 16 * (D + 2) * 4 <= kQ - kRing, "the merge fits over the ring");
+};
+constexpr int kBF32Blocks = kSmemPerSM / (BTf32<64>::kBytes + 1024);  // per SM at Dh = 64
+
+// fp32 split pass: bf16's blocks, compaction, rings and online softmax,
+// every product in 3xTF32 on mma.m16n8k8 (mma3: lo.hi + hi.lo + hi.hi, fp32
+// accumulators). Q is split once per head (into registers for Dh <= 64; at
+// Dh = 128 its fragments are read and split from the raw q rows at each
+// tile, where holding them would spill); K's and V's fragments are split
+// as they are read from the warp's raw tile; P, in fp32, is split from the
+// S accumulators (acc_to_a32: an n-tile over 8 columns is the A fragment
+// of the k-step over them, in the k-step order 0, 2, 4, 6, 1, 3, 5, 7).
+template <int D>
+__global__ void __launch_bounds__(kBMmaThreads) ancestry_split_kernel_tf32(const AncestryArgs a) {
+  using C = BTf32<D>;
+  constexpr int KS = D / 8, NT = D / 8, TW = C::kTW, CH = D / 4, TF = C::kTile;
+  constexpr bool Q_REGS = D <= 64;
+  extern __shared__ __align__(128) unsigned char f_smem[];
+  uint32_t* live = reinterpret_cast<uint32_t*>(f_smem + C::kLive);
+  float* merge = reinterpret_cast<float*>(f_smem + C::kRing);
+  float* q_tile = reinterpret_cast<float*>(f_smem + C::kQ);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int K = a.K, groups = a.H / a.hpb;
+  const int b = blockIdx.x / groups, h0 = (blockIdx.x % groups) * a.hpb, split = blockIdx.y;
+  const int c0 = split * a.span, c1 = min(a.TS, c0 + a.span);
+  const int n_live = compact_live<kBMmaThreads, 4>(a.flat_rep + (int64_t)b * K * a.TS, K, a.TS,
+                                                   c0, c1, live,
+                                                   reinterpret_cast<int*>(f_smem + C::kCount));
+  const int64_t part0 = ((int64_t)b * a.H + h0) * a.n_split + split;  // (bh, split) of head h0
+  if (n_live == 0) return write_empty(a, part0);
+
+  const int n_tiles = (n_live + TW - 1) / TW;
+  const float* kvb = static_cast<const float*>(a.kv) + b * a.kv_sb + (int64_t)a.layer * a.kv_sl;
+  float* ring = reinterpret_cast<float*>(f_smem + C::kRing) + warp * 2 * 2 * TF;
+  for (int h = h0; h < h0 + a.hpb; ++h) {
+    const float* slab = kvb + (int64_t)h * a.kv_sh;
+    auto gather = [&](int stage, int i) {  // live tile i into this warp's stage; past n_live zeros
+      float* kt = ring + stage * 2 * TF;
+      const int r0 = i * TW, n = min(TW, n_live - r0);
+      for (int e = lane; e < TW * 2 * CH; e += 32) {
+        const int r = e / (2 * CH), c = e % (2 * CH);
+        const bool ok = r < n;
+        const int col = c0 + (ok ? (int)(live[r0 + r] & 0xFFFFu) : 0);
+        cp_async16(smem_u32(c < CH ? kt + rsw<D>(r, 4 * c) : kt + TF + rsw<D>(r, 4 * (c - CH))),
+                   slab + (int64_t)col * a.kv_sj + c * 4, ok);
       }
+    };
+    int i = warp;
+    if (i < n_tiles) {  // the warp's first tile goes in flight before q is staged
+      gather(0, i);
+      cp_async_commit();
     }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mw[(g + 8 * (e >> 1)) * D + 8 * n + 2 * tq + (e & 1)] = o[n][e];
+    const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+    for (int e = threadIdx.x; e < 16 * D; e += kBMmaThreads) {
+      const int r = e / D, d = e % D;
+      q_tile[rsw<D>(r, d)] = r < K ? q[r * a.q_sk + d] : 0.f;
     }
     __syncthreads();
-    const int64_t part = part0 + (int64_t)(h - h0) * a.n_split;
-    for (int e = threadIdx.x; e < K * D; e += kBMmaThreads) {
-      const int k = e / D, d = e % D;
-      float M = -INFINITY, l = 0.f, acc = 0.f;
+    FragA32 qf[Q_REGS ? KS : 1];
+    if constexpr (Q_REGS) {
 #pragma unroll
-      for (int w = 0; w < 4; ++w) M = fmaxf(M, merge[w * C::kMerge + 16 * D + k]);
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const float* mv = merge + w * C::kMerge;
-        const float m = mv[16 * D + k];
-        if (m == -INFINITY) continue;  // the warp saw no column on k's path
-        const float sc = exp_e(m - M);
-        l = fmaf(sc, mv[16 * D + 16 + k], l);
-        acc = fmaf(sc, mv[k * D + d], acc);
-      }
-      if (d == 0) {
-        a.part_m[part * K + k] = M;
-        a.part_l[part * K + k] = l;
-      }
-      a.part_acc[(part * K + k) * D + d] = acc;
+      for (int kk = 0; kk < KS; ++kk) frag_a32_rows<D>(qf[kk], q_tile, 0, kk);
     }
-    __syncthreads();  // the merge area is the next head's ring
+    float o[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+    for (int j = 0; i < n_tiles; ++j, i += 4) {
+      const int stage = j & 1;
+      if (i + 4 < n_tiles) {
+        gather(stage ^ 1, i + 4);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncwarp();
+      const float* kt = ring + stage * 2 * TF;
+      const float* vt = kt + TF;
+      const int r0 = i * TW, n_in = min(TW, n_live - r0);
+      float s[TW / 8][4];
+#pragma unroll
+      for (int n = 0; n < TW / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        FragA32 qa;
+        if constexpr (Q_REGS)
+          qa = qf[kk];
+        else
+          frag_a32_rows<D>(qa, q_tile, 0, kk);
+#pragma unroll
+        for (int n = 0; n < TW / 8; ++n) {
+          FragB32 kf;
+          frag_b32_rows<D>(kf, kt, 8 * n, kk);
+          mma3(s[n], qa, kf);
+        }
+      }
+      // Element e of n-tile n: beam g + 8 (e >> 1), column 8 n + 2 tq + (e & 1).
+#pragma unroll
+      for (int n = 0; n < TW / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * tq + (e & 1), beam = g + 8 * (e >> 1);
+          const bool on = c < n_in && ((live[r0 + c] >> (16 + beam)) & 1u);
+          s[n][e] = on ? s[n][e] : -INFINITY;
+        }
+      }
+      softmax_tile(s, o, m_run, l_run);
+#pragma unroll
+      for (int n = 0; n < TW / 8; ++n) {
+        FragA32 pa;
+        acc_to_a32(pa, s[n]);
+#pragma unroll
+        for (int dn = 0; dn < NT; ++dn) {
+          FragB32 vf;
+          frag_bt32_rows<D>(vf, vt, 8 * n, dn);
+          mma3(o[dn], pa, vf);
+        }
+      }
+      __syncwarp();  // the stage is refilled by the next iteration's gather
+    }
+    write_partials<D>(a, merge, part0 + (int64_t)(h - h0) * a.n_split, m_run, l_run, o);
   }
 }
 
@@ -345,10 +534,10 @@ struct BSimt {
   static constexpr int kBytes = kCount + 2 * 8 * 4;
 };
 
-// SIMT split pass (fp32, and bf16's alternative design): the same blocks
-// and compaction; then the block gathers each head's live rows, 32 at a
-// time, into a 2-stage cp.async ring and runs one online softmax for all K
-// beams over each tile: a (beam, column) pair per thread for the scores
+// SIMT split pass (bf16's alternative design, tools/kernel_ab.py variant
+// 2): the same blocks and compaction; then the block gathers each head's
+// live rows, 32 at a time, into a 2-stage cp.async ring and runs one online
+// softmax for all K beams over each tile: a (beam, column) pair per thread for the scores
 // (warp w: beams w and w + 8, lane: column; -inf off the beam's path), the
 // beam's max and sum by one warp, then a (beam, dim) pair per thread for
 // w.V, on the fp32 FMA pipes.
@@ -676,20 +865,27 @@ cudaError_t launch_ancestry_whole(const AncestryArgs& a, int B, cudaStream_t str
   return cudaGetLastError();
 }
 
+// MMA: the tensor-core split pass of T (bf16 m16n8k16, or fp32 3xTF32),
+// else the SIMT one (bf16's alternative design); then the merge.
 template <typename T, int DH, bool MMA>
 cudaError_t launch_ancestry(const AncestryArgs& a, int B, cudaStream_t stream) {
-  constexpr int threads = MMA ? kBMmaThreads : kBThreads;
-  constexpr int smem = MMA ? BMma<DH>::kBytes : BSimt<T, DH>::kBytes;
   const dim3 grid(B * (a.H / a.hpb), a.n_split);
   cudaError_t err;
-  if constexpr (MMA) {
-    err = allow_smem(ancestry_split_kernel_mma<DH>, smem);
-    if (err != cudaSuccess) return err;
-    ancestry_split_kernel_mma<DH><<<grid, threads, smem, stream>>>(a);
-  } else {
+  if constexpr (!MMA) {
+    constexpr int smem = BSimt<T, DH>::kBytes;
     err = allow_smem(ancestry_split_kernel_simt<T, DH>, smem);
     if (err != cudaSuccess) return err;
-    ancestry_split_kernel_simt<T, DH><<<grid, threads, smem, stream>>>(a);
+    ancestry_split_kernel_simt<T, DH><<<grid, kBThreads, smem, stream>>>(a);
+  } else if constexpr (std::is_same<T, float>::value) {
+    constexpr int smem = BTf32<DH>::kBytes;
+    err = allow_smem_max(ancestry_split_kernel_tf32<DH>, smem);
+    if (err != cudaSuccess) return err;
+    ancestry_split_kernel_tf32<DH><<<grid, kBMmaThreads, smem, stream>>>(a);
+  } else {
+    constexpr int smem = BMma<DH>::kBytes;
+    err = allow_smem(ancestry_split_kernel_mma<DH>, smem);
+    if (err != cudaSuccess) return err;
+    ancestry_split_kernel_mma<DH><<<grid, kBMmaThreads, smem, stream>>>(a);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -710,10 +906,8 @@ cudaError_t dispatch_ancestry(int DH, const AncestryArgs& a, int B, cudaStream_t
 
 // ---------------------------------------------------------------- kernel C
 
-constexpr int kCrossThreads = 256;  // fp32 SIMT kernel
-constexpr int kCThreads = 128;      // bf16 split pass and merge: 4 warps
+constexpr int kCThreads = 128;  // split pass and merge: 4 warps
 constexpr int kCMaxSplits = 16;
-constexpr int kCF32MinKeys = 256;  // fewest keys per fp32 split when splitting to fill a wave
 
 struct CrossArgs {
   const void* q;       // (B, H, K, Dh) through strides, pre-scaled
@@ -728,6 +922,28 @@ struct CrossArgs {
   int H, K, S, n_split, tps;  // tps: key tiles per split
 };
 
+// The split pass's result: with one split out = acc / l in T, else the
+// split's (max, denominator) per row and unnormalised P.V, for the merge.
+template <typename T, int D>
+__device__ __forceinline__ void write_cross(const CrossArgs& a, float* merge, int b, int h,
+                                            const float (&m_run)[2], const float (&l_run)[2],
+                                            const float (&o)[D / 8][4]) {
+  const int K = a.K;
+  const int64_t part = ((int64_t)b * a.H + h) * a.n_split + blockIdx.y;
+  T* out = static_cast<T*>(a.out) + b * a.o_sb + h * a.o_sh;
+  merge_warps<D>(merge, K, m_run, l_run, o, [&](int k, int d, float M, float l, float acc) {
+    if (a.n_split == 1) {
+      out[k * a.o_sk + d] = from_f32<T>(acc / l);
+      return;
+    }
+    if (d == 0) {
+      a.part_m[part * K + k] = M;
+      a.part_l[part * K + k] = l;
+    }
+    a.part_acc[(part * K + k) * D + d] = acc;
+  });
+}
+
 // Shared memory of the bf16 split pass: each warp's 2-stage ring of TW-key
 // K and V tiles (swizzled) and their TW bias values, then the head's q as
 // 16 zero-padded rows. The warps' (O, m, l) for the block's merge go over
@@ -740,8 +956,7 @@ struct CMma {
   static constexpr int kRing = 0;
   static constexpr int kQ = kRing + 4 * 2 * kStage;
   static constexpr int kBytes = kQ + 16 * D * 2;
-  static constexpr int kMerge = 16 * (D + 2);  // floats per warp: O (16 x D), m, l
-  static_assert(4 * kMerge * 4 <= kQ - kRing, "the merge fits over the ring");
+  static_assert(4 * 16 * (D + 2) * 4 <= kQ - kRing, "the merge fits over the ring");
   static_assert(kStage % 16 == 0, "16-byte aligned stages");
 };
 
@@ -757,7 +972,7 @@ __global__ void __launch_bounds__(kCThreads) cross_decode_split_kernel_mma(const
   extern __shared__ __align__(128) unsigned char c_smem[];
   float* merge = reinterpret_cast<float*>(c_smem + C::kRing);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tq = lane & 3;
   const int K = a.K, S = a.S;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, split = blockIdx.y;
   const int i1 = min((S + TW - 1) / TW, (split + 1) * a.tps);
@@ -826,42 +1041,15 @@ __global__ void __launch_bounds__(kCThreads) cross_decode_split_kernel_mma(const
       }
     }
     // Element e of n-tile n: row g + 8 (e >> 1), key i.TW + 8 n + 2 tq + (e & 1).
-    float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int n = 0; n < TW / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 8 * n + 2 * tq + (e & 1);
         s[n][e] = c < n_in ? s[n][e] + bs[c] : -INFINITY;
-        mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
       }
     }
-    float alpha[2], m_new[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      m_new[r] = fmaxf(m_run[r], quad_max(mt[r]));
-      // -inf until a key with a finite logit comes: nothing to rescale yet
-      alpha[r] = m_new[r] == -INFINITY ? 1.f : exp_e(m_run[r] - m_new[r]);
-      m_run[r] = m_new[r];
-      l_run[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int n = 0; n < TW / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const float p = m_new[r] == -INFINITY ? 0.f : exp_e(s[n][e] - m_new[r]);
-        l_run[r] += p;
-        s[n][e] = p;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
+    softmax_tile(s, o, m_run, l_run);
 #pragma unroll
     for (int kk = 0; kk < TW / 16; ++kk) {
       uint32_t pa[4];
@@ -876,54 +1064,140 @@ __global__ void __launch_bounds__(kCThreads) cross_decode_split_kernel_mma(const
     }
     __syncwarp();  // the stage is refilled by the next iteration's gather
   }
+  write_cross<bf16, D>(a, merge, b, h, m_run, l_run, o);
+}
 
-  __syncthreads();  // every ring is drained: the merge goes over them
-  float* mw = merge + warp * C::kMerge;  // O [16][D], then m [16], l [16]
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l = quad_sum(l_run[r]);
-    if (tq == 0) {
-      mw[16 * D + g + 8 * r] = m_run[r];
-      mw[16 * D + 16 + g + 8 * r] = l;
+// Shared memory of the fp32 split pass: each warp's 2-stage ring of TW-key
+// raw K and V tiles (rsw) and their TW bias values, then the head's q as
+// 16 zero-padded raw rows; the warps' (O, m, l) go over the drained ring.
+// ~70 KB at Dh = 64: three blocks per SM.
+template <int D>
+struct CTf32 {
+  static constexpr int kTW = D <= 64 ? 16 : 8;  // keys per warp tile
+  static constexpr int kTile = kTW * D;         // floats of one K (or V) tile
+  static constexpr int kStage = 2 * kTile + kTW;  // floats: K, V, bias
+  static constexpr int kRing = 0;
+  static constexpr int kQ = kRing + 4 * 2 * kStage * 4;
+  static constexpr int kBytes = kQ + 16 * D * 4;
+  static_assert(4 * 16 * (D + 2) * 4 <= kQ - kRing, "the merge fits over the ring");
+  static_assert(kStage % 4 == 0, "16-byte aligned stages");
+};
+
+// fp32 split pass: bf16's blocks, rings and online softmax with B's fp32
+// products: 3xTF32 on mma.m16n8k8, Q split once (into registers for Dh <=
+// 64), K's and V's fragments split as they are read from the raw tile, P
+// split from the S accumulators.
+template <int D>
+__global__ void __launch_bounds__(kCThreads) cross_decode_split_kernel_tf32(const CrossArgs a) {
+  using C = CTf32<D>;
+  constexpr int KS = D / 8, NT = D / 8, TW = C::kTW, CH = D / 4, TF = C::kTile;
+  constexpr bool Q_REGS = D <= 64;
+  extern __shared__ __align__(128) unsigned char c_smem[];
+  float* merge = reinterpret_cast<float*>(c_smem + C::kRing);
+  float* q_tile = reinterpret_cast<float*>(c_smem + C::kQ);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tq = lane & 3;
+  const int K = a.K, S = a.S;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, split = blockIdx.y;
+  const int i1 = min((S + TW - 1) / TW, (split + 1) * a.tps);
+  const float* slab = static_cast<const float*>(a.kv) + (int64_t)bh * S * 2 * D;
+  const float* bias = a.bias + (int64_t)b * S;
+  float* ring = reinterpret_cast<float*>(c_smem + C::kRing) + warp * 2 * C::kStage;
+  auto gather = [&](int stage, int i) {  // key tile i into this warp's stage; past S zeros
+    float* kt = ring + stage * C::kStage;
+    const int s0 = i * TW;
+    for (int e = lane; e < TW * 2 * CH; e += 32) {
+      const int r = e / (2 * CH), c = e % (2 * CH);
+      const bool ok = s0 + r < S;
+      cp_async16(smem_u32(c < CH ? kt + rsw<D>(r, 4 * c) : kt + TF + rsw<D>(r, 4 * (c - CH))),
+                 slab + (int64_t)(ok ? s0 + r : 0) * 2 * D + c * 4, ok);
     }
+    if (lane < TW) {
+      const bool ok = s0 + lane < S;
+      cp_async4(smem_u32(kt + 2 * TF + lane), bias + (ok ? s0 + lane : 0), ok);
+    }
+  };
+  int i = split * a.tps + warp;
+  if (i < i1) {  // the warp's first tile goes in flight before q is staged
+    gather(0, i);
+    cp_async_commit();
   }
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) mw[(g + 8 * (e >> 1)) * D + 8 * n + 2 * tq + (e & 1)] = o[n][e];
+  const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  for (int e = threadIdx.x; e < 16 * D; e += kCThreads) {
+    const int r = e / D, d = e % D;
+    q_tile[rsw<D>(r, d)] = r < K ? q[r * a.q_sk + d] : 0.f;
   }
   __syncthreads();
-  const int64_t part = (int64_t)bh * a.n_split + split;
-  bf16* out = static_cast<bf16*>(a.out) + b * a.o_sb + h * a.o_sh;
-  for (int e = threadIdx.x; e < K * D; e += kCThreads) {
-    const int k = e / D, d = e % D;
-    float M = -INFINITY, l = 0.f, acc = 0.f;
+  FragA32 qf[Q_REGS ? KS : 1];
+  if constexpr (Q_REGS) {
 #pragma unroll
-    for (int w = 0; w < 4; ++w) M = fmaxf(M, merge[w * C::kMerge + 16 * D + k]);
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const float* mv = merge + w * C::kMerge;
-      const float m = mv[16 * D + k];
-      if (m == -INFINITY) continue;  // the warp saw no key (or only -inf logits)
-      const float sc = exp_e(m - M);
-      l = fmaf(sc, mv[16 * D + 16 + k], l);
-      acc = fmaf(sc, mv[k * D + d], acc);
-    }
-    if (a.n_split == 1) {
-      out[k * a.o_sk + d] = __float2bfloat16_rn(acc / l);
-      continue;
-    }
-    if (d == 0) {
-      a.part_m[part * K + k] = M;
-      a.part_l[part * K + k] = l;
-    }
-    a.part_acc[(part * K + k) * D + d] = acc;
+    for (int kk = 0; kk < KS; ++kk) frag_a32_rows<D>(qf[kk], q_tile, 0, kk);
   }
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  for (int j = 0; i < i1; ++j, i += 4) {
+    const int stage = j & 1;
+    if (i + 4 < i1) {
+      gather(stage ^ 1, i + 4);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncwarp();
+    const float* kt = ring + stage * C::kStage;
+    const float* vt = kt + TF;
+    const float* bs = kt + 2 * TF;
+    const int n_in = min(TW, S - i * TW);
+    float s[TW / 8][4];
+#pragma unroll
+    for (int n = 0; n < TW / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      FragA32 qa;
+      if constexpr (Q_REGS)
+        qa = qf[kk];
+      else
+        frag_a32_rows<D>(qa, q_tile, 0, kk);
+#pragma unroll
+      for (int n = 0; n < TW / 8; ++n) {
+        FragB32 kf;
+        frag_b32_rows<D>(kf, kt, 8 * n, kk);
+        mma3(s[n], qa, kf);
+      }
+    }
+    // Element e of n-tile n: row g + 8 (e >> 1), key i.TW + 8 n + 2 tq + (e & 1).
+#pragma unroll
+    for (int n = 0; n < TW / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * tq + (e & 1);
+        s[n][e] = c < n_in ? s[n][e] + bs[c] : -INFINITY;
+      }
+    }
+    softmax_tile(s, o, m_run, l_run);
+#pragma unroll
+    for (int n = 0; n < TW / 8; ++n) {
+      FragA32 pa;
+      acc_to_a32(pa, s[n]);
+#pragma unroll
+      for (int dn = 0; dn < NT; ++dn) {
+        FragB32 vf;
+        frag_bt32_rows<D>(vf, vt, 8 * n, dn);
+        mma3(o[dn], pa, vf);
+      }
+    }
+    __syncwarp();  // the stage is refilled by the next iteration's gather
+  }
+  write_cross<float, D>(a, merge, b, h, m_run, l_run, o);
 }
 
 // Merge (n_split > 1): one block per (b, h) folds the splits' (m, l, O) in
 // split order; a split that saw no column (max -inf) weighs 0. bf16 takes
-// the split pass's exp_e, fp32 the SIMT pass's expf.
+// the split pass's exp_e, fp32 expf.
 template <typename T, int D>
 __global__ void __launch_bounds__(kCThreads) cross_decode_merge_kernel(const CrossArgs a) {
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, K = a.K, S = a.n_split;
@@ -945,146 +1219,61 @@ __global__ void __launch_bounds__(kCThreads) cross_decode_merge_kernel(const Cro
   }
 }
 
-// fp32 SIMT kernel: grid (B.H, n_split, ceil(K/16)), a block's <= 16 rows
-// over its split's keys [s0, s0 + tps). One split writes acc / sum, several
-// their (max, sum, acc) for the merge (a.tps counts keys here, not tiles).
-template <int DH>
-__global__ void __launch_bounds__(kCrossThreads) cross_decode_kernel(const CrossArgs a) {
-  extern __shared__ float smem[];
-  const int r0 = blockIdx.z * kMaxBeams;  // this block's rows: [r0, r0 + K)
-  const int K = min(kMaxBeams, a.K - r0), split = blockIdx.y;
-  const int s0 = split * a.tps, S = min(a.S - s0, a.tps);
-  float* qs = smem;            // [K][DH]
-  float* sc = qs + K * DH;     // [K][S] scores, then probabilities
-  float* rsum = sc + K * S;    // [K]
-  float* rmax = rsum + K;      // [K]
-
-  const int bh = blockIdx.x;
-  const int b = bh / a.H, h = bh % a.H;
-  const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh + r0 * a.q_sk;
-  const float* kv = static_cast<const float*>(a.kv) + ((int64_t)bh * a.S + s0) * 2 * DH;
-  const float* bias = a.bias + (int64_t)b * a.S + s0;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int NW = kCrossThreads / 32;
-
-  for (int i = threadIdx.x; i < K * DH; i += kCrossThreads) qs[i] = q[(i / DH) * a.q_sk + i % DH];
-  __syncthreads();
-
-  // Pass 1: scores, one thread per source column, its K row read 16 bytes
-  // (4 floats) at a time.
-  for (int s = threadIdx.x; s < S; s += kCrossThreads) {
-    const float4* krow = reinterpret_cast<const float4*>(kv + (int64_t)s * 2 * DH);
-    float acc[kMaxBeams];
-#pragma unroll
-    for (int k = 0; k < kMaxBeams; ++k) acc[k] = 0.f;
-#pragma unroll 2
-    for (int c = 0; c < DH / 4; ++c) {
-      const float4 x = krow[c];
-      const float kd[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int k = 0; k < kMaxBeams; ++k)
-          if (k < K) acc[k] = fmaf(qs[k * DH + 4 * c + i], kd[i], acc[k]);
-      }
-    }
-    const float bs = bias[s];
-#pragma unroll
-    for (int k = 0; k < kMaxBeams; ++k)
-      if (k < K) sc[k * S + s] = acc[k] + bs;
+// The split pass of T (bf16 m16n8k16, or fp32 3xTF32), then the merge
+// when n_split > 1.
+template <typename T, int D>
+cudaError_t launch_cross(const CrossArgs& a, int B, cudaStream_t stream) {
+  const dim3 grid(B * a.H, a.n_split);
+  cudaError_t err;
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int smem = CTf32<D>::kBytes;
+    err = allow_smem_max(cross_decode_split_kernel_tf32<D>, smem);
+    if (err != cudaSuccess) return err;
+    cross_decode_split_kernel_tf32<D><<<grid, kCThreads, smem, stream>>>(a);
+  } else {
+    constexpr int smem = CMma<D>::kBytes;
+    err = allow_smem(cross_decode_split_kernel_mma<D>, smem);
+    if (err != cudaSuccess) return err;
+    cross_decode_split_kernel_mma<D><<<grid, kCThreads, smem, stream>>>(a);
   }
-  __syncthreads();
-
-  // Softmax numerators and row sums, one warp per beam row.
-  for (int k = warp; k < K; k += NW) {
-    float mx = -INFINITY;
-    for (int s = lane; s < S; s += 32) mx = fmaxf(mx, sc[k * S + s]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int s = lane; s < S; s += 32) {
-      const float p = mx == -INFINITY ? 0.f : expf(sc[k * S + s] - mx);
-      sc[k * S + s] = p;
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) rsum[k] = sum, rmax[k] = mx;
-  }
-  __syncthreads();
-
-  // Pass 2: out[k, d] = sum_s p[k, s] . v[s, d] / rsum[k].
-  constexpr int NKG = kCrossThreads / DH;                 // beam groups
-  constexpr int KPT = (kMaxBeams + NKG - 1) / NKG;        // beams per thread
-  const int d = threadIdx.x % DH, kg = threadIdx.x / DH;
-  float acc[KPT];
-#pragma unroll
-  for (int i = 0; i < KPT; ++i) acc[i] = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const float vd = kv[(int64_t)s * 2 * DH + DH + d];
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const int k = kg + i * NKG;
-      if (k < K) acc[i] = fmaf(sc[k * S + s], vd, acc[i]);
-    }
-  }
-  const int64_t part = ((int64_t)bh * a.n_split + split) * a.K + r0;
-  float* out = static_cast<float*>(a.out) + b * a.o_sb + h * a.o_sh + r0 * a.o_sk;
-#pragma unroll
-  for (int i = 0; i < KPT; ++i) {
-    const int k = kg + i * NKG;
-    if (k >= K) continue;
-    if (a.n_split == 1) {
-      out[k * a.o_sk + d] = acc[i] / rsum[k];
-    } else {
-      if (d == 0) {
-        a.part_m[part + k] = rmax[k];
-        a.part_l[part + k] = rsum[k];
-      }
-      a.part_acc[(part + k) * DH + d] = acc[i];
-    }
-  }
-}
-
-template <int DH>
-cudaError_t launch_cross_f32(const CrossArgs& a, int B, size_t smem, cudaStream_t stream) {
-  cudaError_t err = allow_smem(cross_decode_kernel<DH>, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * a.H, a.n_split, (a.K + kMaxBeams - 1) / kMaxBeams);
-  cross_decode_kernel<DH><<<grid, kCrossThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.n_split == 1) return err;
-  cross_decode_merge_kernel<float, DH><<<B * a.H, kCThreads, 0, stream>>>(a);
+  cross_decode_merge_kernel<T, D><<<B * a.H, kCThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_cross_mma(const CrossArgs& a, int B, cudaStream_t stream) {
-  constexpr int smem = CMma<D>::kBytes;
-  cudaError_t err = allow_smem(cross_decode_split_kernel_mma<D>, smem);
-  if (err != cudaSuccess) return err;
-  cross_decode_split_kernel_mma<D><<<dim3(B * a.H, a.n_split), kCThreads, smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || a.n_split == 1) return err;
-  cross_decode_merge_kernel<bf16, D><<<B * a.H, kCThreads, 0, stream>>>(a);
-  return cudaGetLastError();
+template <typename T>
+cudaError_t dispatch_cross(int DH, const CrossArgs& a, int B, cudaStream_t stream) {
+  switch (DH) {
+    case 16: return launch_cross<T, 16>(a, B, stream);
+    case 32: return launch_cross<T, 32>(a, B, stream);
+    case 64: return launch_cross<T, 64>(a, B, stream);
+    case 128: return launch_cross<T, 128>(a, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
-int cross_tile(int DH) { return DH <= 64 ? 32 : 16; }
+// Keys per warp tile of C's split pass.
+int cross_tile(int dtype, int DH) {
+  if (dtype == kFloat32) return DH <= 64 ? CTf32<64>::kTW : CTf32<128>::kTW;
+  return DH <= 64 ? CMma<64>::kTW : CMma<128>::kTW;
+}
 
 }  // namespace
 }  // namespace mm
 
 // C entries: each returns cudaGetLastError() after its launch (0 on success).
 // Kernel B's split count for B batch rows of H heads over TS columns:
-// enough blocks of (b, head group) x split for one wave on the card (3
-// tensor-core blocks or 8 SIMT blocks per SM), each split at least one
-// tile and at most kBSpan columns wide, at most kBMaxSplits. ``variant`` as
+// enough blocks of (b, head group) x split for one wave on the card (as
+// many tensor-core blocks per SM as fit, 3 in bf16 and kBF32Blocks in
+// fp32, or 8 SIMT blocks), each split at least one SIMT tile and at most
+// kBSpan columns wide, at most kBMaxSplits. ``variant`` as
 // mm_ancestry_decode_attention's.
 extern "C" int mm_ancestry_decode_splits(int dtype, int B, int H, int TS, int variant) {
   if (variant == 3) return 1;
-  const bool mma = dtype == mm::kBFloat16 && variant != 2;
   const int groups = B * (variant == 1 ? 1 : H);
-  const int target = (mma ? 3 : 8) * mm::kSMs;
-  const int want = (target + groups - 1) / groups;
+  const int per_sm = variant == 2 ? 8 : (dtype == mm::kFloat32 ? mm::kBF32Blocks : 3);
+  const int want = (per_sm * mm::kSMs + groups - 1) / groups;
   const int lo = (TS + mm::kBSpan - 1) / mm::kBSpan;
   int hi = (TS + mm::kBTile - 1) / mm::kBTile;
   hi = hi < mm::kBMaxSplits ? hi : mm::kBMaxSplits;
@@ -1095,9 +1284,9 @@ extern "C" int mm_ancestry_decode_splits(int dtype, int B, int H, int TS, int va
 // (B.H.n_split.K) maxima, as many denominators, then (B.H.n_split.K.Dh)
 // partial sums, fp32, with n_split from mm_ancestry_decode_splits.
 // ``variant`` (0 in the port; the others for tools/kernel_ab.py): 0 one
-// head per block, on the tensor cores in bf16 and SIMT in fp32; 1 all H
-// heads of a batch row per block (the reference's grid); 2 the SIMT pass
-// in bf16 too; 3 one block per (b, h) over the whole slab, no split
+// head per block, on the tensor cores (bf16, or fp32 in 3xTF32); 1 all H
+// heads of a batch row per block (the reference's grid); 2 the SIMT pass,
+// bf16 only; 3 one block per (b, h) over the whole slab, no split
 // (ancestry_whole_kernel: Dh = 64, TS = T.K, n_split 1).
 extern "C" int mm_ancestry_decode_attention(
     int dtype, int variant, const void* q, const void* k_new, const void* v_new,
@@ -1107,7 +1296,9 @@ extern "C" int mm_ancestry_decode_attention(
     int64_t vn_sb, int64_t vn_sh, int64_t vn_sk, int64_t o_sb, int64_t o_sh, int64_t o_sk,
     int64_t kv_sb, int64_t kv_sl, int64_t kv_sh, int64_t kv_sj, void* stream) {
   if (K < 1 || K > mm::kMaxBeams || TS < 1 || n_split < 1 || n_split > mm::kBMaxSplits ||
-      variant < 0 || variant > 3 || (variant == 3 && (TS % K != 0 || n_split != 1)))
+      variant < 0 || variant > 3 || (variant == 3 && (TS % K != 0 || n_split != 1)) ||
+      (dtype != mm::kFloat32 && dtype != mm::kBFloat16) ||
+      (variant == 2 && dtype != mm::kBFloat16))
     return (int)cudaErrorInvalidValue;
   const int span = (TS + n_split - 1) / n_split;
   if (span > mm::kBSpan && variant != 3) return (int)cudaErrorInvalidValue;
@@ -1119,55 +1310,27 @@ extern "C" int mm_ancestry_decode_attention(
                            part, part + n_part, part + 2 * n_part,
                            H, K, TS, layer, n_split, span, variant == 1 ? H : 1};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool f32 = dtype == mm::kFloat32;
   if (variant == 3) {
     const int smem = 4 * (TS + 8 * K * DH + 48);
-    if (smem > 232448 || (dtype != mm::kFloat32 && dtype != mm::kBFloat16))
-      return (int)cudaErrorInvalidValue;
-    switch (DH) {
-      case 64:
-        return dtype == mm::kFloat32 ? (int)mm::launch_ancestry_whole<float, 64>(a, B, st)
-                                     : (int)mm::launch_ancestry_whole<__nv_bfloat16, 64>(a, B, st);
-      default: return (int)cudaErrorInvalidValue;
-    }
+    if (smem > mm::kSmemPerSM - 1024 || DH != 64) return (int)cudaErrorInvalidValue;
+    return f32 ? (int)mm::launch_ancestry_whole<float, 64>(a, B, st)
+               : (int)mm::launch_ancestry_whole<__nv_bfloat16, 64>(a, B, st);
   }
-  if (dtype == mm::kFloat32) return (int)mm::dispatch_ancestry<float, false>(DH, a, B, st);
-  if (dtype != mm::kBFloat16) return (int)cudaErrorInvalidValue;
+  if (f32) return (int)mm::dispatch_ancestry<float, true>(DH, a, B, st);
   return variant == 2 ? (int)mm::dispatch_ancestry<__nv_bfloat16, false>(DH, a, B, st)
                       : (int)mm::dispatch_ancestry<__nv_bfloat16, true>(DH, a, B, st);
 }
 
-// Dynamic shared memory of fp32 kernel C for (K rows, S keys of a split,
-// Dh), in bytes: a block holds at most 16 rows' queries, scores, maxima and
-// sums.
-extern "C" long long mm_cross_decode_smem_bytes(int K, int S, int DH) {
-  const long long k = K < mm::kMaxBeams ? K : mm::kMaxBeams;
-  return 4LL * (k * DH + k * S + 2 * k);
-}
-
-// Kernel C's split count for B batch rows of H heads, K rows, S columns.
-// fp32: enough splits over S that a block's min(K, 16) rows of scores fit
-// in its shared memory, and more while B.H is under a wave: about two
-// (b.h) x split blocks per SM, each split at least kCF32MinKeys keys, at
-// most kCMaxSplits (merged in split order). B.H, S and min(K, 16) alone
-// decide it, so a 16-row call splits as the K rows it heads. bf16: 1 for
-// more than 16 rows; else enough (b.h) x split blocks for about two per
-// SM, each split a whole number (>= 1) of key tiles.
+// Kernel C's split count for B batch rows of H heads over S columns: enough
+// (b.h) x split blocks for about two per SM, each split a whole number (>=
+// 1) of key tiles (32 keys in bf16, 16 in fp32; half that at Dh = 128), at
+// most kCMaxSplits. B.H, S and the tile alone decide it, not the K rows:
+// more than 16 rows (a prefill) take A, which does not split.
 extern "C" int mm_cross_decode_splits(int dtype, int B, int H, int K, int S, int DH) {
-  if (S < 1 || K < 1) return 1;
-  if (dtype == mm::kFloat32) {
-    const long long k = K < mm::kMaxBeams ? K : mm::kMaxBeams;
-    const long long most = (mm::kMaxSmem / 4 - k * DH - 2 * k) / k;  // keys of one split
-    long long n = (2LL * mm::kSMs + (long long)B * H - 1) / ((long long)B * H);
-    const long long by_keys = (S + mm::kCF32MinKeys - 1) / mm::kCF32MinKeys;
-    n = n < by_keys ? n : by_keys;
-    n = n < mm::kCMaxSplits ? n : mm::kCMaxSplits;
-    const long long fit = (S + most - 1) / most;
-    n = n > fit ? n : fit;
-    const long long tps = (S + n - 1) / n;
-    return (int)((S + tps - 1) / tps);  // no empty split
-  }
-  if (dtype != mm::kBFloat16 || K > mm::kMaxBeams) return 1;
-  const int n_tiles = (S + mm::cross_tile(DH) - 1) / mm::cross_tile(DH);
+  if (S < 1 || K < 1 || (dtype != mm::kFloat32 && dtype != mm::kBFloat16)) return 1;
+  const int tile = mm::cross_tile(dtype, DH);
+  const int n_tiles = (S + tile - 1) / tile;
   int n = (2 * mm::kSMs + B * H - 1) / (B * H);
   n = n < n_tiles ? n : n_tiles;
   n = n < mm::kCMaxSplits ? n : mm::kCMaxSplits;
@@ -1176,54 +1339,38 @@ extern "C" int mm_cross_decode_splits(int dtype, int B, int H, int K, int S, int
 }
 
 // Kernel C on ``stream``. q and out go through their (b, h, k) strides (the
-// head dim dense). bf16: up to 16 rows the split pass (then the merge when
-// n_split > 1; ``scratch`` holds (B.H.n_split.K) maxima, as many
-// denominators and (B.H.n_split.K.Dh) partial sums, fp32), more rows A's
-// tensor-core forward, which needs out beam-major contiguous (B, K, H, Dh).
-// fp32: the SIMT kernel over n_split spans of S, then the merge when
-// n_split > 1 (scratch as bf16's).
+// head dim dense). Up to 16 rows the split pass of the dtype (then the
+// merge when n_split > 1; ``scratch`` holds (B.H.n_split.K) maxima, as many
+// denominators and (B.H.n_split.K.Dh) partial sums, fp32); more rows A's
+// forward of the dtype, which needs out beam-major contiguous (B, K, H, Dh)
+// and q's rows 16-byte aligned.
 extern "C" int mm_cross_decode_attention(
     int dtype, const void* q, const void* kv, const void* bias, void* out, void* scratch,
     int B, int H, int K, int DH, int S, int n_split, int64_t q_sb, int64_t q_sh, int64_t q_sk,
     int64_t o_sb, int64_t o_sh, int64_t o_sk, void* stream) {
-  if (K < 1 || S < 1 || n_split != mm_cross_decode_splits(dtype, B, H, K, S, DH))
+  if (K < 1 || S < 1 || (dtype != mm::kFloat32 && dtype != mm::kBFloat16) ||
+      n_split != mm_cross_decode_splits(dtype, B, H, K, S, DH))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (S + mm::cross_tile(DH) - 1) / mm::cross_tile(DH);
-  float* part = static_cast<float*>(scratch);
-  const int64_t n_part = (int64_t)B * H * n_split * K;
   const bool f32 = dtype == mm::kFloat32;
-  const int tps = f32 ? (S + n_split - 1) / n_split : (n_tiles + n_split - 1) / n_split;
-  const mm::CrossArgs a{q, q_sb, q_sh, q_sk, kv, static_cast<const float*>(bias), out,
-                        o_sb, o_sh, o_sk, part, part + n_part, part + 2 * n_part,
-                        H, K, S, n_split, tps};
-  if (f32) {
-    const size_t smem = (size_t)mm_cross_decode_smem_bytes(K, tps, DH);
-    switch (DH) {
-      case 16: return (int)mm::launch_cross_f32<16>(a, B, smem, st);
-      case 32: return (int)mm::launch_cross_f32<32>(a, B, smem, st);
-      case 64: return (int)mm::launch_cross_f32<64>(a, B, smem, st);
-      case 128: return (int)mm::launch_cross_f32<128>(a, B, smem, st);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  if (dtype != mm::kBFloat16) return (int)cudaErrorInvalidValue;
   if (K > mm::kMaxBeams) {  // the prefill's rows: A over the slab's K and V halves
     if (o_sk != (int64_t)H * DH || o_sh != DH || o_sb != (int64_t)K * H * DH)
       return (int)cudaErrorInvalidValue;
     const int64_t row = 2 * DH, head = (int64_t)S * row, batch = H * head;
-    const mm::FlashArgs f{q, kv, static_cast<const __nv_bfloat16*>(kv) + DH,
-                          static_cast<const float*>(bias), out, K, S, H,
+    const void* v = static_cast<const char*>(kv) + DH * (f32 ? 4 : 2);
+    const mm::FlashArgs f{q, kv, v, static_cast<const float*>(bias), out, K, S, H,
                           q_sb, q_sk, q_sh, batch, row, head, batch, row, head,
                           1.0f, 0, 0.0f, 1.0f, 0u, 0u, static_cast<uint32_t>(H), 0u,
                           nullptr, nullptr};
-    return (int)mm::launch_flash_fwd_mma(f, B, DH, false, false, st);
+    return f32 ? (int)mm::launch_flash_fwd_f32(f, B, DH, false, false, st)
+               : (int)mm::launch_flash_fwd_mma(f, B, DH, false, false, st);
   }
-  switch (DH) {
-    case 16: return (int)mm::launch_cross_mma<16>(a, B, st);
-    case 32: return (int)mm::launch_cross_mma<32>(a, B, st);
-    case 64: return (int)mm::launch_cross_mma<64>(a, B, st);
-    case 128: return (int)mm::launch_cross_mma<128>(a, B, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int n_tiles = (S + mm::cross_tile(dtype, DH) - 1) / mm::cross_tile(dtype, DH);
+  float* part = static_cast<float*>(scratch);
+  const int64_t n_part = (int64_t)B * H * n_split * K;
+  const mm::CrossArgs a{q, q_sb, q_sh, q_sk, kv, static_cast<const float*>(bias), out,
+                        o_sb, o_sh, o_sk, part, part + n_part, part + 2 * n_part,
+                        H, K, S, n_split, (n_tiles + n_split - 1) / n_split};
+  return f32 ? (int)mm::dispatch_cross<float>(DH, a, B, st)
+             : (int)mm::dispatch_cross<__nv_bfloat16>(DH, a, B, st);
 }

@@ -1,7 +1,7 @@
 // What the beam-decode kernels share: B and C (decode_attention.cu), D, E
 // and F (decode_attention_q.cu). The compaction of the live cache columns
-// of a split, mma.sync on signed 8-bit operands, and the int4 cache's
-// nibble unpack.
+// of a split, mma.sync on signed 8-bit operands, the int4 cache's nibble
+// unpack, and the fp32 kernels' 3xTF32 fragments read from raw tiles.
 //
 // Fragment layouts of mma.m16n8k32.row.col.s32.s8.s8.s32 (lane = 4 g + tq),
 // four int8 per register, the lowest k in the lowest byte:
@@ -22,7 +22,8 @@ namespace mm {
 constexpr int kMaxBeams = 16;  // query rows per (b, h) of B, C's decode step, D, F
 constexpr int kBSpan = 2048;   // most columns one split covers (16-bit offsets)
 constexpr int kSMs = 132;      // an H100's SMs
-constexpr int kMaxSmem = 232448;  // a block's dynamic shared memory on Hopper, bytes
+constexpr int kSmemPerSM = 233472;  // an SM's shared memory for blocks on Hopper, 1 KB of it
+                                    // reserved per resident block
 
 // The live columns of [c0, c1) (those on some beam's path, flat_rep[k][j]
 // == j), in column order, as (offset | beams << 16) into ``live``; returns
@@ -124,6 +125,60 @@ __device__ __forceinline__ uint32_t nibbles(uint32_t w, bool high) {
     const uint32_t n = (high ? w >> 4 : w) & 0x0F0F0F0Fu;
     return __vsub4(n ^ 0x08080808u, 0x08080808u);
   }
+}
+
+// ------------------------------------------------ fp32: 3xTF32 on raw tiles
+//
+// In fp32 B and C a warp owns its key tiles, so each K and V element meets
+// one warp and one product. A split tile (flash_attention.cu's, written
+// once per block for the 4 warps that share it) would cost a pass over
+// shared memory and twice its room for nothing here: the fragments are
+// read from the raw fp32 tile that cp.async filled and split into their
+// tf32 halves in registers (split_tf32), each element once. A raw tile
+// holds rows of D floats; 16-byte chunk c of row r sits at chunk
+// c ^ (2 ((r ^ (r >> 2)) & 3) mod D / 4), so that the 8-byte reads of
+// frag_b32_rows (a half-warp: rows n0 .. n0 + 3, 8 floats each) and the
+// 4-byte reads of frag_bt32_rows (rows k0 + 2 tq + j, 8 floats each) fall on
+// 32 distinct banks for D >= 32 (2-way at D = 16). The k-step order is
+// flash_attention_mma.cuh's 0, 2, 4, 6, 1, 3, 5, 7.
+
+// The float offset of element e of row r of a raw D-wide tile.
+template <int D>
+__device__ __forceinline__ int rsw(int r, int e) {
+  constexpr int CH = D / 4;
+  static_assert(CH >= 4, "at least four 16-byte chunks per row");
+  return r * D + (((e >> 2) ^ ((2 * ((r ^ (r >> 2)) & 3)) & (CH - 1))) << 2) + (e & 3);
+}
+
+// A fragment: rows r0..r0+15 of a raw tile, k = head dims 8 kk..8 kk+7.
+template <int D>
+__device__ __forceinline__ void frag_a32_rows(FragA32& f, const float* tile, int r0, int kk) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const float2 x0 = *reinterpret_cast<const float2*>(tile + rsw<D>(r0 + g, 8 * kk + 2 * tq));
+  const float2 x1 = *reinterpret_cast<const float2*>(tile + rsw<D>(r0 + g + 8, 8 * kk + 2 * tq));
+  split_tf32(x0.x, f.hi[0], f.lo[0]);
+  split_tf32(x1.x, f.hi[1], f.lo[1]);
+  split_tf32(x0.y, f.hi[2], f.lo[2]);
+  split_tf32(x1.y, f.hi[3], f.lo[3]);
+}
+
+// B fragment with n = rows n0..n0+7 of a raw tile and k = head dims
+// 8 kk..8 kk+7 (Q.K^T reads K so).
+template <int D>
+__device__ __forceinline__ void frag_b32_rows(FragB32& f, const float* tile, int n0, int kk) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const float2 x = *reinterpret_cast<const float2*>(tile + rsw<D>(n0 + g, 8 * kk + 2 * tq));
+  split_tf32(x.x, f.hi[0], f.lo[0]);
+  split_tf32(x.y, f.hi[1], f.lo[1]);
+}
+
+// B fragment with k = rows k0..k0+7 of a raw tile in the k-step order and
+// n = head dims 8 dn..8 dn+7 (P.V reads V so).
+template <int D>
+__device__ __forceinline__ void frag_bt32_rows(FragB32& f, const float* tile, int k0, int dn) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  split_tf32(tile[rsw<D>(k0 + 2 * tq, 8 * dn + g)], f.hi[0], f.lo[0]);
+  split_tf32(tile[rsw<D>(k0 + 2 * tq + 1, 8 * dn + g)], f.hi[1], f.lo[1]);
 }
 
 }  // namespace tc

@@ -318,6 +318,14 @@ cudaError_t dispatch_flash(int D, const FlashArgs& a, int B, cudaStream_t stream
 }
 
 }  // namespace
+
+cudaError_t launch_flash_fwd_f32(const FlashArgs& a, int B, int D, bool causal, bool skip,
+                                 cudaStream_t stream) {
+  if (skip) return dispatch_flash<true, true>(D, a, B, stream);
+  return causal ? dispatch_flash<true, false>(D, a, B, stream)
+                : dispatch_flash<false, false>(D, a, B, stream);
+}
+
 }  // namespace mm
 
 // C entries: each returns cudaGetLastError() after its launch (0 on success).
@@ -346,8 +354,7 @@ extern "C" int mm_flash_attention(
   if (dtype == mm::kBFloat16)
     return (int)mm::launch_flash_fwd_mma(a, B, D, causal != 0, false, st);
   if (dtype != mm::kFloat32) return (int)cudaErrorInvalidValue;
-  return causal ? (int)mm::dispatch_flash<true, false>(D, a, B, st)
-                : (int)mm::dispatch_flash<false, false>(D, a, B, st);
+  return (int)mm::launch_flash_fwd_f32(a, B, D, causal != 0, false, st);
 }
 
 // Kernel G: causal (``causal`` must be 1) with key-tile skipping, T <= S;
@@ -368,7 +375,7 @@ extern "C" int mm_flash_attention_causal_skip(
                         (float)rate, (float)(1.0 / (1.0 - rate)), seed, bh0, h_total, h0,
                         stat_m, stat_l};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == mm::kFloat32) return (int)mm::dispatch_flash<true, true>(D, a, B, st);
+  if (dtype == mm::kFloat32) return (int)mm::launch_flash_fwd_f32(a, B, D, true, true, st);
   if (dtype == mm::kBFloat16) return (int)mm::launch_flash_fwd_mma(a, B, D, true, true, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -109,6 +109,9 @@ __device__ __forceinline__ float keep_factor(const BwdArgs& a, uint32_t hrow, in
 // aligned (base and strides multiples of 8).
 cudaError_t launch_flash_fwd_mma(const FlashArgs& a, int B, int D, bool causal, bool skip,
                                  cudaStream_t stream);
+// The same in fp32, 3xTF32 on the tensor cores (flash_attention.cu); the same rules.
+cudaError_t launch_flash_fwd_f32(const FlashArgs& a, int B, int D, bool causal, bool skip,
+                                 cudaStream_t stream);
 // Kernel H (H-q, then H-kv) in bf16 on the tensor cores; the same rules.
 cudaError_t launch_flash_bwd_mma(const BwdArgs& a, int B, int D, cudaStream_t stream);
 

@@ -53,7 +53,6 @@ _SIGNATURES = {
         [_i, _i] + [_p] * 7 + [_i] * 7 + [_i64] * 16 + [_p],
         ctypes.c_int,
     ),
-    "mm_cross_decode_smem_bytes": ([_i, _i, _i], ctypes.c_longlong),
     "mm_cross_decode_splits": ([_i] * 6, ctypes.c_int),
     "mm_cross_decode_attention": (
         [_i] + [_p] * 5 + [_i] * 6 + [_i64] * 6 + [_p],

@@ -284,10 +284,10 @@ def cross_decode_attention(
     """(B, H, K, Dh) in q's dtype. K is any number of query rows: the
     beams of a decode step, or the prefix positions of a prefill. q is read
     through its strides (the decoder's beam-major view), and the result is
-    a (B, H, K, Dh) view of a beam-major (B, K, H, Dh) buffer. In fp32 the
-    slab is split over S where its scores would not fit in a block's
-    shared memory and while B·H is under a wave, and merged in split
-    order (``mm_cross_decode_splits``)."""
+    a (B, H, K, Dh) view of a beam-major (B, K, H, Dh) buffer. Up to 16
+    rows the slab is split over S while B·H is under a wave and merged in
+    split order (``mm_cross_decode_splits``); more rows take kernel A's
+    forward over the slab's K and V halves."""
     if q.device.type == "cpu":
         return cross_reference(q, kv, bias)
     name = "cross_decode_attention"
@@ -308,7 +308,8 @@ def cross_decode_attention(
         q = q.contiguous()  # rows 16-byte aligned, as A's tensor-core path copies them
     bias = bias.float().contiguous()
     n_split = lib.mm_cross_decode_splits(code, B, H, K, S, Dh)
-    scratch = torch.empty(B * H * n_split * K * (Dh + 2) if n_split > 1 else 1,
+    split = n_split > 1 and K <= MAX_BEAMS  # the split pass's partials, for its merge
+    scratch = torch.empty(B * H * n_split * K * (Dh + 2) if split else 1,
                           dtype=torch.float32, device=q.device)
     out = torch.empty((B, K, H, Dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     rc = lib.mm_cross_decode_attention(

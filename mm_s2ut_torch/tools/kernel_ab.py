@@ -12,10 +12,12 @@ timed, alternating the trees in the order given, twice (CUDA events over
 ``reps`` back-to-back launches each). A and G run in bf16 and, in the
 ``float32`` cases (A at the ViT's Tq = 577 over S = 584, at B = 8, T = 499
 and at B = 128, T = 250; G at B = 8, T = 250, window 64; H at the ViT's
-training shape and at T = 499), in fp32. A and G run at rate 0 without row
-statistics (the inference path's call) and, in trees that have attention
-dropout, at rate 0.1 with the statistics (the training forward); H runs
-in trees that have it. A tree whose flash entries predate dropout (no
+training shape and at T = 499; B at the decode shapes below, with this
+tree's ``this/v1``; C at B = 8 and 128, the prefill's 501 rows, which take
+A, and 16 rows over a 4000-key slab, split 16 ways), in fp32. A and G run
+at rate 0 without row statistics (the inference path's call) and, in
+trees that have attention dropout, at rate 0.1 with the statistics (the
+training forward); H runs in trees that have it. A tree whose flash entries predate dropout (no
 rate, seed and statistics arguments), or whose kernel B predates the
 split over blocks, or whose kernel C, D, E or F predates this tree's
 design, is launched with its own signature. Kernel B runs at
@@ -114,6 +116,14 @@ DECODE_CASES = [  # (entry, B, H, K, Dh, L, T_dec, step or S), bf16
     ("mm_cross_decode_attention_i8", 128, 8, 10, 64, 0, 0, 250),
     ("mm_cross_decode_attention_i8", 1, 8, 501, 64, 0, 0, 250),
     ("mm_dense_attention_probe", 128, 8, 10, 64, 0, 0, 2010),  # int4_support_probe.py's shape
+]
+FP32_DECODE_CASES = [  # DECODE_CASES' fields, fp32 (B and C in 3xTF32 on the tensor cores)
+    ("mm_ancestry_decode_attention", 8, 8, 10, 64, 6, 500, 300),
+    ("mm_ancestry_decode_attention", 128, 8, 10, 64, 6, 201, 150),
+    ("mm_cross_decode_attention", 8, 8, 10, 64, 0, 0, 250),
+    ("mm_cross_decode_attention", 128, 8, 10, 64, 0, 0, 250),
+    ("mm_cross_decode_attention", 1, 8, 501, 64, 0, 0, 250),  # the prefill's rows: A in fp32
+    ("mm_cross_decode_attention", 2, 8, 16, 64, 0, 0, 4000),  # a long slab, 16 splits
 ]
 WRITE_CASES = [  # (cache, B, K, cap, L, H, Dh, step)
     ("bfloat16", 32, 5, 201, 6, 8, 64, 100),  # cache_write_fix_probe.py's shape
@@ -278,24 +288,34 @@ def _launcher(tree: Tree, entry, B, T, H, D, causal, window, rate, S=None, dtype
     return launch
 
 
-def _ancestry_inputs(B, H, K, Dh, L, T, step):
+def _ancestry_inputs(B, H, K, Dh, L, T, step, dtype=torch.bfloat16):
     """q, k_new, v_new, a (B, L, H, T·K, 2·Dh) cache and the flat_rep of a
-    random ancestry at ``step``, as ``chip_smoke.ancestry_inputs`` makes them."""
-    g = torch.Generator().manual_seed(0)
-    q = torch.randn((B, H, K, Dh), generator=g) * Dh ** -0.5
-    k_new, v_new = (torch.randn((B, H, K, Dh), generator=g) for _ in range(2))
-    kv = torch.randn((B, L, H, T * K, 2 * Dh), generator=g)
-    ancestry = torch.randint(0, K, (B, K, T), generator=g)
-    t_idx = torch.arange(T)[None, None, :]
+    random ancestry at ``step``, as ``chip_smoke.ancestry_inputs`` makes them
+    (drawn on the card from a seeded generator)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    q = randn(B, H, K, Dh) * Dh ** -0.5
+    k_new, v_new = randn(B, H, K, Dh), randn(B, H, K, Dh)
+    kv = torch.empty((B, L, H, T * K, 2 * Dh), dtype=dtype, device="cuda")
+    for layer in range(L):
+        kv[:, layer] = randn(B, H, T * K, 2 * Dh)
+    ancestry = torch.randint(0, K, (B, K, T), generator=g, device="cuda")
+    t_idx = torch.arange(T, device="cuda")[None, None, :]
     flat = torch.where(t_idx < step, t_idx * K + ancestry, torch.full_like(ancestry, -1))
-    flat_rep = flat.repeat_interleave(K, dim=2).to("cuda", torch.int32)
-    return [t.to("cuda", torch.bfloat16) for t in (q, k_new, v_new, kv)] + [flat_rep]
+    flat_rep = flat.repeat_interleave(K, dim=2).to(torch.int32)
+    return [t.to(dtype) for t in (q, k_new, v_new)] + [kv, flat_rep]
 
 
-def _decode_launchers(trees, entry, B, H, K, Dh, L, T, step, fixed_work=False):
-    """{label: launch} for kernel B (each tree, and this tree's variants), C
-    (each tree, and SDPA on the same inputs), D, E, F or the dense probe."""
+def _decode_launchers(trees, entry, B, H, K, Dh, L, T, step, fixed_work=False,
+                      dtype=torch.bfloat16):
+    """{label: launch} for kernel B (each tree, and this tree's variants; in
+    fp32 v1 only), C (each tree, and SDPA on the same inputs), D, E, F or the
+    dense probe. B and C run in ``dtype``, the others in bf16."""
     stream = torch.cuda.current_stream().cuda_stream
+    code = _build.dtype_code(dtype)
     fns = {}
     if entry == "mm_ancestry_decode_attention_i4":
         keep = _i4_launchers(trees, fns, B, H, K, Dh, L, T, step, fixed_work)
@@ -306,28 +326,28 @@ def _decode_launchers(trees, entry, B, H, K, Dh, L, T, step, fixed_work=False):
     elif entry == "mm_cross_decode_attention":
         S = step
         g = torch.Generator().manual_seed(S)
-        q = (torch.randn((B, H, K, Dh), generator=g) * Dh ** -0.5).to("cuda", torch.bfloat16)
-        kv = torch.randn((B, H, S, 2 * Dh), generator=g).to("cuda", torch.bfloat16)
+        q = (torch.randn((B, H, K, Dh), generator=g) * Dh ** -0.5).to("cuda", dtype)
+        kv = torch.randn((B, H, S, 2 * Dh), generator=g).to("cuda", dtype)
         lengths = torch.clamp(S - 23 * torch.arange(B), min=1)
         bias = torch.where(torch.arange(S)[None, :] < lengths[:, None], 0.0, -1e9).cuda()
         keep = [q, kv, bias]
         for tree in trees:
             if tree.split_c:
-                n_split = tree.lib.mm_cross_decode_splits(_build.BF16, B, H, K, S, Dh)
+                n_split = tree.lib.mm_cross_decode_splits(code, B, H, K, S, Dh)
                 scratch = torch.empty(max(1, B * H * n_split * K * (Dh + 2)), device="cuda")
                 out = torch.empty((B, K, H, Dh), dtype=q.dtype, device="cuda").transpose(1, 2)
-                args = [_build.BF16, q.data_ptr(), kv.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                args = [code, q.data_ptr(), kv.data_ptr(), bias.data_ptr(), out.data_ptr(),
                         scratch.data_ptr(), B, H, K, Dh, S, n_split, *q.stride()[:3],
                         *out.stride()[:3], stream]
                 keep += [scratch, out]
             else:
                 out = torch.empty_like(q)
-                args = [_build.BF16, q.data_ptr(), kv.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                args = [code, q.data_ptr(), kv.data_ptr(), bias.data_ptr(), out.data_ptr(),
                         B, H, K, Dh, S, stream]
                 keep.append(out)
             fns[tree.label] = (lambda fn, args: lambda: _build.check(fn(*args), entry))(
                 tree.lib.mm_cross_decode_attention, args)
-        mask = bias[:, None, None, :].to(torch.bfloat16)
+        mask = bias[:, None, None, :].to(dtype)
         k2, v2 = kv[..., :Dh], kv[..., Dh:]
         fns["sdpa"] = lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k2, v2, attn_mask=mask, scale=1.0)
@@ -335,24 +355,25 @@ def _decode_launchers(trees, entry, B, H, K, Dh, L, T, step, fixed_work=False):
     elif entry == "mm_ancestry_decode_attention_i8":
         keep = _i8_launchers(trees, fns, B, H, K, Dh, L, T, step, fixed_work)
     else:
-        q, k_new, v_new, kv, flat_rep = _ancestry_inputs(B, H, K, Dh, L, T, step)
+        q, k_new, v_new, kv, flat_rep = _ancestry_inputs(B, H, K, Dh, L, T, step, dtype)
         keep = [q, k_new, v_new, kv, flat_rep]
         TS, layer = T * K, L // 2
         kv_strides = list(kv.stride()[:4])
+        variants = (0, 1, 2, 3) if dtype == torch.bfloat16 else (0, 1)
         for tree in trees:
-            for variant in ((0, 1, 2, 3) if tree.split_b and tree.label == "this" else (0,)):
+            for variant in (variants if tree.split_b and tree.label == "this" else (0,)):
                 label = tree.label + (f"/v{variant}" if variant else "")
                 fn = tree.lib.mm_ancestry_decode_attention
                 if not tree.split_b:
                     out = torch.empty_like(q)
-                    args = [_build.BF16, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                    args = [code, q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
                             kv.data_ptr(), flat_rep.data_ptr(), out.data_ptr(), B, H, K, Dh, TS,
                             layer, *kv_strides, stream]
                 else:
-                    n_split = tree.lib.mm_ancestry_decode_splits(_build.BF16, B, H, TS, variant)
+                    n_split = tree.lib.mm_ancestry_decode_splits(code, B, H, TS, variant)
                     scratch = torch.empty(B * H * n_split * K * (Dh + 2), device="cuda")
                     out = torch.empty((B, K, H, Dh), dtype=q.dtype, device="cuda").transpose(1, 2)
-                    args = [_build.BF16, variant, q.data_ptr(), k_new.data_ptr(),
+                    args = [code, variant, q.data_ptr(), k_new.data_ptr(),
                             v_new.data_ptr(), kv.data_ptr(), flat_rep.data_ptr(), out.data_ptr(),
                             scratch.data_ptr(), B, H, K, Dh, TS, layer, n_split,
                             *(st for t in (q, k_new, v_new, out) for st in t.stride()[:3]),
@@ -658,6 +679,11 @@ def main(argv=None) -> int:
                lambda c=(entry, B, H, K, Dh, L, T, n): _decode_launchers(
                    trees, *c, fixed_work=args.fixed_work))
               for entry, B, H, K, Dh, L, T, n in DECODE_CASES]
+    cases += [(dict(entry=entry, dtype="float32", B=B, H=H, K=K, Dh=Dh,
+                    **({"S": n} if L == 0 else {"T_dec": T, "step": n})),
+               lambda c=(entry, B, H, K, Dh, L, T, n): _decode_launchers(
+                   trees, *c, dtype=torch.float32))
+              for entry, B, H, K, Dh, L, T, n in FP32_DECODE_CASES]
     cases += [(dict(entry="mm_cache_write", cache=cache, B=B, K=K, cap=cap, L=L, H=H, Dh=Dh,
                     step=step), lambda c=(cache, B, K, cap, L, H, Dh, step): _write_launchers(*c))
               for cache, B, K, cap, L, H, Dh, step in WRITE_CASES]

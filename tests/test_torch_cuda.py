@@ -580,13 +580,12 @@ def test_cross_decode_i8(card, dtype, K, Dh, S):
 def test_cross_decode_many_rows(card, dtype, int8, K, Dh, S):
     """Kernels C and E with more rows than a decode step has (the
     prefill's P = max_len + 1): against the plain version. A 16-row
-    (decode-step) call on the first 16 rows takes the same code path in
-    fp32 C and in E (one block per 16 rows) wherever E splits S the same
-    way for 16 rows and for K, so there it gives the same bits (fp32 E's
-    split is a function of S alone; bf16 E takes fewer splits once its row
-    groups fill a wave); bf16 C takes A's tensor-core forward for many rows
-    and its split kernel for 16, so there both are held to the plain
-    version."""
+    (decode-step) call on the first 16 rows takes the same code path in E
+    (one block per 16 rows) wherever E splits S the same way for 16 rows
+    and for K, so there it gives the same bits (fp32 E's split is a
+    function of S alone; bf16 E takes fewer splits once its row groups fill
+    a wave); C takes A's forward for many rows and its split kernel for 16,
+    in either dtype, so there both are held to the plain version."""
     if int8:
         args = quant_cross_inputs(2, 3, K, Dh, S, dtype, seed=S)
         kern, plain, counter = D.cross_decode_attention_i8, D.cross_reference_i8, \
@@ -601,8 +600,7 @@ def test_cross_decode_many_rows(card, dtype, int8, K, Dh, S):
     _close(got, plain(*args), dtype)
     head = kern(args[0][:, :, :16].contiguous(), *args[1:])
     torch.cuda.synchronize()
-    if dtype == torch.float32 or (int8 and _e_splits(dtype, 2, 3, K, S, Dh)
-                                  == _e_splits(dtype, 2, 3, 16, S, Dh)):
+    if int8 and _e_splits(dtype, 2, 3, K, S, Dh) == _e_splits(dtype, 2, 3, 16, S, Dh):
         assert torch.equal(got[:, :, :16], head)
     else:
         _close(head, plain(args[0][:, :, :16].contiguous(), *args[1:]), dtype)
@@ -709,6 +707,105 @@ def test_i4_beam16_at_the_position_clamp(card, dtype):
     got = D.ancestry_decode_attention_i4(q, k_new, v_new, kv, sk, sv, flat_rep, 0)
     _close(got, D.reference_i4(q, k_new, v_new, kv, sk, sv, flat_rep, 0), dtype,
            TOL_REQUANT[dtype])
+
+
+F32_ROWS = [1, 10, 16]  # a decode step's rows: one beam, the flagship's 10, the most
+
+
+def _splits_b(B, H, TS):
+    return _build.library().mm_ancestry_decode_splits(_build.F32, B, H, TS, 0)
+
+
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("K", F32_ROWS)
+def test_fp32_ancestry_tensor_cores(card, K, Dh):
+    """fp32 B (3xTF32 on the tensor cores) against its plain version at B =
+    8 (split over blocks) and B = 128 (one split per (b, h)), over 40 steps
+    of K slots, at step 0 (exactly v_new), step 5 (the splits past column
+    5·K hold no live column) and step 37 (most of the cache live, in
+    8-column tiles); two launches give the same bits, and all heads per
+    block (variant 1) the same result."""
+    H, L, T = 2, 2, 40
+    for B in (8, 128):
+        n_split = _splits_b(B, H, T * K)
+        if B == 8 and K > 1:
+            assert 5 * K < (n_split - 1) * -(-T * K // n_split), n_split  # a split of no column
+        for step in (0, 5, 37):
+            args = ancestry_inputs(B, H, K, Dh, L, T, step, torch.float32, seed=K + Dh + step)
+            got = D.ancestry_decode_attention(*args, 1)
+            again = D.ancestry_decode_attention(*args, 1)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            if step == 0:
+                assert torch.equal(got, args[2])
+            want = D.reference(*args, 1)
+            _close(got, want, torch.float32)
+            _close(D._launch_ancestry(*args, 1, variant=1), want, torch.float32)
+
+
+def test_fp32_ancestry_takes_the_decoder_views(card):
+    """fp32 B reads q, k_new and v_new as the decoder hands them and returns
+    a view the decoder flattens without a copy, as bf16 B does."""
+    B, H, K, Dh, L, T = 3, 4, 10, 64, 2, 16
+    q, k_new, v_new, kv, flat_rep = ancestry_inputs(B, H, K, Dh, L, T, 9, torch.float32)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k_new, v_new)]
+    got = D.ancestry_decode_attention(*views, kv, flat_rep, 0)
+    assert got.transpose(1, 2).is_contiguous()
+    _close(got, D.reference(q, k_new, v_new, kv, flat_rep, 0), torch.float32)
+
+
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("K", F32_ROWS)
+def test_fp32_cross_tensor_cores(card, K, Dh):
+    """fp32 C's split pass (3xTF32) against its plain version at B = 2
+    (split over blocks) and B = 128 (one split), S = 37 and 250 (not
+    multiples of the 16-key tile, 8 at Dh = 128), batch rows of S, S / 8
+    and 1 valid keys, so that at B = 2 whole splits are padding; two
+    launches give the same bits."""
+    for B in (2, 128):
+        for S in (37, 250):
+            q, kv, _ = cross_inputs(B, 3, K, Dh, S, torch.float32, seed=K + Dh + S)
+            lengths = torch.tensor([S, S // 8, 1] * B, device="cuda")[:B]
+            bias = torch.where(torch.arange(S, device="cuda")[None, :] < lengths[:, None],
+                               0.0, A.NEG_INF)
+            n_split = _build.library().mm_cross_decode_splits(_build.F32, B, 3, K, S, Dh)
+            if B == 2 and S == 250:
+                assert n_split > 2, n_split  # row 1's later splits hold only padding
+            got = D.cross_decode_attention(q, kv, bias)
+            again = D.cross_decode_attention(q, kv, bias)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            _close(got, D.cross_reference(q, kv, bias), torch.float32)
+
+
+def test_fp32_cross_takes_the_decoder_views(card):
+    """fp32 C reads q as the decoder hands it and returns a view the decoder
+    flattens without a copy, for a decode step and for a prefill."""
+    for K in (10, 40):
+        q, kv, bias = cross_inputs(2, 4, K, 64, 120, torch.float32, seed=K)
+        view = q.transpose(1, 2).contiguous().transpose(1, 2)
+        got = D.cross_decode_attention(view, kv, bias)
+        assert got.transpose(1, 2).is_contiguous()
+        _close(got, D.cross_reference(q, kv, bias), torch.float32)
+
+
+@pytest.mark.parametrize("B,K,S", [(1, 501, 250), (2, 501, 250), (3, 17, 13)])
+def test_fp32_prefill_through_a(card, B, K, S):
+    """fp32 C with more than 16 rows (the streaming prefill's P = 501) is
+    kernel A's fp32 forward with scale 1 over the slab's K and V halves:
+    the same bits as that call, one A launch and one C count, and within
+    TOL of the plain version."""
+    H, Dh = 8, 64
+    q, kv, bias = cross_inputs(B, H, K, Dh, S, torch.float32, seed=K + S)
+    before = (D.cross_decode_attention.launches, A.flash_attention.launches)
+    got = D.cross_decode_attention(q, kv, bias)
+    assert (D.cross_decode_attention.launches, A.flash_attention.launches) == \
+        (before[0] + 1, before[1])
+    direct = A._launch("mm_flash_attention", q.transpose(1, 2), kv[..., :Dh].transpose(1, 2),
+                       kv[..., Dh:].transpose(1, 2), bias, 1.0, False, 0, 0.0, None, None)
+    torch.cuda.synchronize()
+    assert torch.equal(got.transpose(1, 2), direct)
+    _close(got, D.cross_reference(q, kv, bias), torch.float32)
 
 
 @pytest.mark.parametrize("K", [16, 10, 40])
