@@ -227,7 +227,14 @@ is no CPU path):
     step), one profiled decode step 200; then on 2 utterances the CPU's
     encoder output and the CPU search's 10 hypotheses of 200 units fed as
     fixed beam paths through ``UnitDecoder.step`` on the card and on the
-    CPU: log-probs within 1e-4 at steps 1, 50, 100, 150 and 200.
+    CPU: log-probs within 1e-4 at steps 1, 50, 100, 150 and 200;
+    26b. the same model and wavs with ``kv_cache_dtype`` int8, then int4
+    (``phase_fp32_quant_decode``): D (F) and E 6 launches per decode step,
+    one profiled decode step 200 naming E's tensor-core kernel, and the
+    teacher-forced card-vs-CPU check on the same paths, every E call of
+    steps 1 and 200 (and, int8, of a 200-row prefill, 6 more E launches)
+    held against its plain version at fp32 TOL, log-probs within
+    2·L·``TOL_REQUANT`` (L decoder layers).
 
 Phase 2 also holds A at the image encoders' shape (B=16, 577 queries
 over 584 keys, the last 7 padding, H=12 and 16, Dh=64), H at the ViT's
@@ -261,8 +268,9 @@ decodes, both members counted; A's and H's ``fp32_*`` fields time their
 fp32 instances, 3xTF32 on the tensor cores, at the ViT's shapes, H=12,
 with their bounds at the TF32 peak; B-F's time theirs at phase 2's
 record shapes, B and C 3xTF32 (bound at the TF32 peak), D and F D's s8
-passes, E its SIMT kernel (bound at the fp32 FMA peak); every kernel's
-``fp32_launches`` are its launches in phase 26's fp32 decode);
+passes, E 2xTF32 (bound at the TF32 peak); every kernel's
+``fp32_launches`` are its launches in phase 26's and 26b's fp32 decodes;
+``bytes_ms`` and ``ops_ms`` are the two times whose larger is the bound);
 the last line is ``{"ok": true, "device": {...}}``. Artifacts (.unit files,
 generate-smoke.txt, wavs, the training runs) go to ``--out`` (default
 ``smoke_out/`` beside this file).
@@ -270,6 +278,7 @@ generate-smoke.txt, wavs, the training runs) go to ``--out`` (default
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -285,8 +294,10 @@ TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # where one TF32 pass keeps ~2^-11 and misses 1e-4;
 # tests/test_torch_attention_tf32_numerics.py and
 # tests/test_torch_decode_tf32_numerics.py emulate them against the JAX
-# reference on the CPU and hold them to TOL); fp32 E's SIMT kernel keeps
-# fp32 throughout, and fp32 D and F take D's integer passes.
+# reference on the CPU and hold them to TOL); fp32 E takes the same
+# products in two passes, not three (every int8 operand is exact in tf32,
+# so hi(q).lo(k8) and hi(P).lo(v8) are 0: 3xTF32's bits, emulated there
+# too), and fp32 D and F take D's integer passes.
 # bf16: the plain versions round the softmax weights and every product to
 # bf16 between the two contractions. bf16 A and H (tensor cores) round
 # p times the dropout factor, and H its dS, to bf16 before the second
@@ -315,16 +326,17 @@ BENCH = dict(B=128, H=8, Dh=64, K=10, L=6, T_dec=201, step=150, S_cross=250)
 HBM = 3.35e12
 PEAK = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "int8": 1979e12}
 EB = {torch.bfloat16: 2, torch.float32: 4}
-MMA_PEAK = {torch.bfloat16: "bf16", torch.float32: "tf32"}  # A-C, G, H: the tensor cores' input type
-E_PEAK = {torch.bfloat16: "bf16", torch.float32: "fp32"}  # E: bf16 tensor cores, fp32 SIMT
+MMA_PEAK = {torch.bfloat16: "bf16", torch.float32: "tf32"}  # A-C, E, G, H: the tensor cores' input type
 DROP_SEED = 0x5EED
 
 
 def bound(flops: float, nbytes: float, peak: str) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the peak for the inputs' type."""
+    the memory rate and the operations over the peak for the inputs' type
+    (both kept)."""
     t_bytes, t_ops = nbytes / HBM * 1e3, flops / PEAK[peak] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "ops_ms": t_ops}
 
 
 def flash_work(B, Tq, S, H, D, dtype, pairs=None):
@@ -370,7 +382,9 @@ def ancestry_work(q, kv, flat_rep, col_bytes, peak, packed=False):
 
 def cross_work(q, S, slab_bytes, peak):
     """C, E: q and the output, the (B, H, S) slab (``slab_bytes`` per
-    column and head) and the bias; 4·Dh operations per (row, column)."""
+    column and head) and the bias; 4·Dh operations per (row, column),
+    counted once (fp32 E's two tf32 passes are the kernel's way, not the
+    function's work)."""
     B, H, K, Dh = q.shape
     nbytes = 2 * q.numel() * q.element_size() + B * H * S * slab_bytes + 4 * B * S
     return bound(4 * B * H * K * S * Dh, nbytes, peak)
@@ -550,7 +564,7 @@ def kernel_cases(dtype, shapes=FLAGSHIP, bench=BENCH):
          ancestry_work(d_args[0], d_args[3], d_args[6], 2 * n["Dh"] + 8, "int8")),
         ("E", lambda: D.cross_decode_attention_i8(*e_args),
          lambda: D.cross_reference_i8(*e_args), TOL[dtype], None,
-         cross_work(e_args[0], n["S_cross"], 2 * n["Dh"] + 8, E_PEAK[dtype])),
+         cross_work(e_args[0], n["S_cross"], 2 * n["Dh"] + 8, MMA_PEAK[dtype])),
         ("F", lambda: D.ancestry_decode_attention_i4(*f_args, layer),
          lambda: D.reference_i4(*f_args, layer), TOL_REQUANT[dtype], None,
          ancestry_work(f_args[0], f_args[3], f_args[6], 0, "int8", packed=True)),
@@ -610,6 +624,11 @@ def phase_kernels():
                 record[name] = {**result, **work}
             elif name != "A":  # fp32 A's fields are the ViT shape's (phase_vit_kernels)
                 record[name].update(fp32_fields(result, work, FP32_SOURCES[name]))
+            if name == "E":
+                print(f"phase 2: E B=128 {str(dtype)[6:]}: bound {work['bound_ms'] * 1e3:.2f} us "
+                      f"({work['bound_by']}; bytes {work['bytes_ms'] * 1e3:.2f}, operations "
+                      f"{work['ops_ms'] * 1e3:.2f}), kernel / bound "
+                      f"{result['ms'] / work['bound_ms']:.2f}")
             if name in "BC":
                 print(f"phase 2: {name} flagship {str(dtype)[6:]}: bound "
                       f"{work['bound_ms'] * 1e3:.2f} us ({work['bound_by']}), kernel / bound "
@@ -679,9 +698,10 @@ def phase_kernels():
         e_args = quant_cross_inputs(s["B"], s["H"], s["K"], s["Dh"], s["S_cross"], dtype, seed=6)
         res = check_and_time("E B=8", dtype, lambda: D.cross_decode_attention_i8(*e_args),
                              lambda: D.cross_reference_i8(*e_args), TOL[dtype])
-        work = cross_work(e_args[0], s["S_cross"], 2 * s["Dh"] + 8, E_PEAK[dtype])
+        work = cross_work(e_args[0], s["S_cross"], 2 * s["Dh"] + 8, MMA_PEAK[dtype])
         print(f"phase 2: E B=8 {str(dtype)[6:]}: bound {work['bound_ms'] * 1e3:.2f} us "
-              f"({work['bound_by']}), kernel / bound {res['ms'] / work['bound_ms']:.2f}")
+              f"({work['bound_by']}; bytes {work['bytes_ms'] * 1e3:.2f}, operations "
+              f"{work['ops_ms'] * 1e3:.2f}), kernel / bound {res['ms'] / work['bound_ms']:.2f}")
         del e_args
         torch.cuda.empty_cache()
     return record
@@ -4755,13 +4775,12 @@ def phase_fusion_small(out_dir: Path):
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default for the runs below
 
 
-def checking_cross_kernels(S: int, L: int):
+def checking_cross_kernels(S, L: int, dtype=torch.bfloat16):
     """A context in which the decoder's first L calls of kernel C and of E
-    over a slab of S columns (one decode step's layers) are held against
-    their plain versions on the same inputs, bf16, TOL times max(1, the
-    largest |plain|); yields the list of (kernel, max|err|, limit)."""
-    import contextlib
-
+    over a slab of S columns (one decode step's layers; any slab for S
+    None) are held against their plain versions on the same inputs, TOL
+    of ``dtype`` times max(1, the largest |plain|); yields the list of
+    (kernel, max|err|, limit)."""
     import mm_s2ut_torch.models.layers as layers_mod
     from mm_s2ut_torch.ops import decode_attention as D
 
@@ -4771,19 +4790,19 @@ def checking_cross_kernels(S: int, L: int):
     def held(name, got, want):
         assert torch.isfinite(got).all(), f"kernel {name} at S={S}: non-finite output"
         err = (got.float() - want.float()).abs().max().item()
-        lim = TOL[torch.bfloat16] * max(1.0, want.float().abs().max().item())
+        lim = TOL[dtype] * max(1.0, want.float().abs().max().item())
         assert err <= lim, f"kernel {name} at S={S}: max|err| {err} > {lim}"
         seen.append((name, err, lim))
 
     def c_checked(q, kv, bias):
         out = c_kernel(q, kv, bias)
-        if kv.shape[2] == S and sum(n == "C" for n, _, _ in seen) < L:
+        if S in (None, kv.shape[2]) and sum(n == "C" for n, _, _ in seen) < L:
             held("C", out, D.cross_reference(q, kv, bias))
         return out
 
     def e_checked(q, kv, sk, sv, bias):
         out = e_kernel(q, kv, sk, sv, bias)
-        if kv.shape[2] == S and sum(n == "E" for n, _, _ in seen) < L:
+        if S in (None, kv.shape[2]) and sum(n == "E" for n, _, _ in seen) < L:
             held("E", out, D.cross_reference_i8(q, kv, sk, sv, bias))
         return out
 
@@ -5239,7 +5258,9 @@ def phase_fp32_decode():
     hypotheses of 200 units as the beams' fixed paths (each beam on its
     own cache slot), fed through ``UnitDecoder.step`` on the card (kernels)
     and on the CPU (plain versions): every beam's log-probs within 1e-4 at
-    steps 1, 50, 100, 150 and 200. Returns the launches of A, B and C."""
+    steps 1, 50, 100, 150 and 200. Then phase 26b on the same model, wavs
+    and paths (``phase_fp32_quant_decode``). Returns the launches of A-F
+    (D, E and F: 26b's)."""
     import copy
 
     from mm_s2ut_torch.config import GenerationConfig
@@ -5292,7 +5313,7 @@ def phase_fp32_decode():
 
     # Card against CPU, teacher-forced on the CPU search's hypotheses.
     cpu_model = copy.deepcopy(model).to("cpu")
-    n, K, T = 2, gcfg.beam, FP32_CHECK_STEPS[-1]
+    n, K, T, L = 2, gcfg.beam, FP32_CHECK_STEPS[-1], model.cfg.decoder_layers
     with torch.no_grad():
         cfeats, cflens = waveform_frontend(wav[:n], lens[:n], FbankConfig())
         enc = cpu_model.encode(cfeats, cflens, [imgs[:n]], [masks[:n]])
@@ -5303,22 +5324,32 @@ def phase_fp32_decode():
                            for k in range(K)] for h in cpu_hyps])  # (n, K, T)
     prev = torch.cat([torch.full((n, K, 1), 2), paths[:, :, :-1]], dim=2).reshape(n * K, T)
 
-    @torch.no_grad()
-    def forced(m, dev):
+    def init(m, dev, kv=None):
         e = {"encoder_out": enc["encoder_out"].to(dev),
              "encoder_padding_mask": None if enc["encoder_padding_mask"] is None
              else enc["encoder_padding_mask"].to(dev)}
-        state = tile_state_for_beams(m.decode_init(e, T), K)
+        return tile_state_for_beams(m.decode_init(e, T, kv_dtype=kv), K)
+
+    @torch.no_grad()
+    def forced(m, dev, kv=None, check_e=()):
+        """Log-probs at FP32_CHECK_STEPS of the paths fed on cache ``kv``
+        (the model's dtype for None), and the E checks of the steps in
+        ``check_e``, each step's L calls against the plain version."""
+        state = init(m, dev, kv)
         state["ancestry"][:] = torch.arange(K, device=dev)[None, :, None]  # beam k on slot k
-        out = {}
+        out, seen = {}, []
         for t in range(T):
-            logits, state = m.decode_step(prev[:, t:t + 1].to(dev), state)
+            checking = (checking_cross_kernels(None, L, torch.float32) if t + 1 in check_e
+                        else contextlib.nullcontext([]))
+            with checking as s:
+                logits, state = m.decode_step(prev[:, t:t + 1].to(dev), state)
+            seen += s
             if t + 1 in FP32_CHECK_STEPS:
                 out[t + 1] = torch.log_softmax(logits.float(), dim=-1).cpu()
-        return out
+        return out, seen
 
     before = (D.ancestry_decode_attention.launches, D.cross_decode_attention.launches)
-    card, cpu = forced(model, "cuda"), forced(cpu_model, "cpu")
+    (card, _), (cpu, _) = forced(model, "cuda"), forced(cpu_model, "cpu")
     assert (D.ancestry_decode_attention.launches - before[0],
             D.cross_decode_attention.launches - before[1]) == (6 * T, 6 * T)
     errs = {t: (card[t] - cpu[t]).abs().max().item() for t in FP32_CHECK_STEPS}
@@ -5326,11 +5357,136 @@ def phase_fp32_decode():
           f"{T}-unit hypotheses: max|log-prob diff| by step {json.dumps(errs)} (tol 1e-4)")
     assert all(torch.isfinite(card[t]).all() for t in FP32_CHECK_STEPS)
     assert max(errs.values()) <= 1e-4, errs
+    print(f"phase 26: {time.perf_counter() - t0:.1f} s")
+    launches.update(phase_fp32_quant_decode(
+        generator_for=lambda kv: UnitGenerator(
+            model, GenerationConfig(beam=K, max_len_a=1.0, max_len_b=200, kv_cache_dtype=kv),
+            max_target_positions=model.cfg.max_target_positions),
+        run=lambda g: drive(g, vocoder, wav, lens, imgs, masks), imgs=imgs, masks=masks,
+        models=(model, cpu_model), init=init, forced=forced, paths=paths))
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     del model, vocoder, cpu_model
     torch.cuda.empty_cache()
-    print(f"phase 26: {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def phase_fp32_quant_decode(generator_for, run, imgs, masks, models, init, forced, paths):
+    """Phase 26b: phase 26's fp32 flagship and wavs with the int8 cache,
+    then the int4 one (whose cross slab is int8 too): fp32 E (2xTF32 on
+    the tensor cores) and D, or F, 6 launches each per decode step, outputs
+    checked, one profiled decode step 200 that must name E's tensor-core
+    kernel; then phase 26's teacher-forced run on the same paths, card
+    against CPU, on that cache, every E call of steps 1 and 200 held against
+    its plain version at fp32 TOL times max(1, |plain|); with int8 also a
+    prefill of each utterance's best path (200 rows through E: 6 launches,
+    each held so) and the step after it. The log-probs cannot be held to
+    1e-4: D and F quantize q and the weights per row, and where the card's
+    and the CPU's fp32 GEMMs put a value within an ulp of a rounding tie,
+    one q8 or w8 level flips, moving that head's output by up to
+    TOL_REQUANT[fp32] = 2e-3 (its comment), as a flipped level of the int8
+    or int4 rows the step writes moves a column's value; the layers after it
+    map a change at no gain (weights N(0, 1/fan_in), LayerNorm), a log-prob
+    moves by at most twice its logit's change, and each of the L layers of
+    a step may flip one: log-probs within 2·L·TOL_REQUANT[fp32] (2.4e-2 for
+    L = 6), the max difference printed by step. Returns the launches of D,
+    E (both caches) and F in the search runs."""
+    from mm_s2ut_torch.ops import decode_attention as D
+    from mm_s2ut_torch.tools.host_cost import profile_decode_step
+
+    model, cpu_model = models
+    L = model.cfg.decoder_layers
+    lim = 2 * L * TOL_REQUANT[torch.float32]
+    launches = {"D": 0, "E": 0, "F": 0}
+    for kv, self_kernel in (("int8", "D"), ("int4", "F")):
+        t0 = time.perf_counter()
+        generator = generator_for(kv)
+        steps = [0]
+        inner = model.decode_step
+
+        def step(tok, state):
+            steps[0] += 1
+            return inner(tok, state)
+
+        model.decode_step = step
+        counters = {self_kernel: {"D": D.ancestry_decode_attention_i8,
+                                  "F": D.ancestry_decode_attention_i4}[self_kernel],
+                    "E": D.cross_decode_attention_i8}
+        try:
+            (feats, flens, hyps, unit_lines, wavs, stages), total, counts = counted(
+                counters, lambda: run(generator))
+        finally:
+            del model.decode_step
+        check_outputs(hyps, unit_lines, wavs, len(hyps), generator.cfg.beam)
+        assert counts[self_kernel] == counts["E"] == 6 * steps[0], (kv, counts, steps)
+        for k, c in counts.items():
+            launches[k] += c
+        print(f"phase 26b: flagship fp32, {kv} cache, {len(hyps)} utts: unit lengths "
+              f"{[len(l.split()) for l in unit_lines]}; launches {counts} over {steps[0]} decode "
+              f"steps ({self_kernel} and E 6 per step); stages "
+              f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}; total {total:.3f} s")
+        prof = profile_decode_step(generator, feats, flens, [imgs.cuda()], [masks.cuda()], 200)
+        print(f"phase 26b: {kv}: profiled decode step 200: {json.dumps(prof)}")
+        assert prof[f"{self_kernel}_ms"] > 0 and prof["E_ms"] > 0, prof
+        assert any(k.startswith("cross_i8_split_kernel_tf32") for k in prof["E_kernels"]), \
+            f"the profile names no fp32 E tensor-core kernel: {prof['E_kernels']}"
+
+        before = (counters[self_kernel].launches, D.cross_decode_attention_i8.launches)
+        (card, seen), (cpu, _) = forced(model, "cuda", kv, E_CHECK_STEPS), forced(cpu_model, "cpu", kv)
+        T = FP32_CHECK_STEPS[-1]
+        assert (counters[self_kernel].launches - before[0],
+                D.cross_decode_attention_i8.launches - before[1]) == (L * T, L * T)
+        assert len(seen) == L * len(E_CHECK_STEPS), seen
+        errs = {t: (card[t] - cpu[t]).abs().max().item() for t in FP32_CHECK_STEPS}
+        assert all(torch.isfinite(card[t]).all() for t in FP32_CHECK_STEPS)
+        print(f"phase 26b: {kv}: E at steps {E_CHECK_STEPS} against its plain version, max|err| "
+              f"{max(e for _, e, _ in seen):.3e} (tol {TOL[torch.float32]:g} x max(1, |plain|)); "
+              f"card vs CPU teacher-forced, max|log-prob diff| by step {json.dumps(errs)} "
+              f"(tol {lim:g})")
+        assert max(errs.values()) <= lim, (kv, errs)
+        if kv == "int8":
+            check_prefill(models, init, paths, lim)
+        print(f"phase 26b: {kv}: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+E_CHECK_STEPS = (1, 200)  # phase 26b: the decode steps whose E calls are held to the plain version
+
+
+@torch.no_grad()
+def check_prefill(models, init, paths, lim):
+    """Phase 26b's int8 prefill: each utterance's best path, BOS and its
+    first P - 1 = 199 units, through ``decode_prefill`` into a fresh
+    beam-tiled int8 state (E over P rows per layer, each call held against
+    its plain version at fp32 TOL), then one decode step of the last unit
+    on all beams; that step's log-probs card against CPU within ``lim``,
+    and the prefill's summed prefix log-probs printed."""
+    from mm_s2ut_torch.ops import decode_attention as D
+
+    model, cpu_model = models
+    n, K, P = paths.shape[0], paths.shape[1], FP32_CHECK_STEPS[-1]
+    L = model.cfg.decoder_layers
+    prefix = torch.cat([torch.full((n, 1), 2), paths[:, 0, :P - 1]], dim=1)  # (n, P)
+    last = prefix[:, -1:].repeat_interleave(K, dim=0)  # (n.K, 1): the search re-feeds it
+    out = {}
+    for m, dev in ((model, "cuda"), (cpu_model, "cpu")):
+        state = init(m, dev, "int8")
+        before = D.cross_decode_attention_i8.launches
+        checking = (checking_cross_kernels(None, L, torch.float32) if dev == "cuda"
+                    else contextlib.nullcontext([]))
+        with checking as seen:
+            state, prefix_logp = m.decode_prefill(prefix.to(dev), P, state)
+        if dev == "cuda":
+            assert D.cross_decode_attention_i8.launches - before == L, "6 E launches per prefill"
+            assert len(seen) == L, seen
+            err = max(e for _, e, _ in seen)
+        logits, _ = m.decode_step(last.to(dev), state)
+        out[dev] = (prefix_logp.float().cpu(), torch.log_softmax(logits.float(), dim=-1).cpu())
+    diff = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    print(f"phase 26b: int8 prefill of {P} rows x {n} utts: E's {L} calls against the plain "
+          f"version max|err| {err:.3e} (tol {TOL[torch.float32]:g} x max(1, |plain|)); the step "
+          f"after it card vs CPU max|log-prob diff| {diff:.3e} (tol {lim:g}); prefix log-probs "
+          f"card {out['cuda'][0].tolist()} CPU {out['cpu'][0].tolist()}")
+    assert torch.isfinite(out["cuda"][1]).all() and diff <= lim, diff
 
 
 KERNELS = {  # name, source (of the bf16 instance the record times; the fp32_* fields time

@@ -131,93 +131,6 @@ __device__ __forceinline__ void write_empty(const AncestryArgs& a, int64_t part0
     a.part_m[(part0 + (int64_t)(i / a.K) * a.n_split) * a.K + i % a.K] = -INFINITY;
 }
 
-// One tile of a warp's online softmax over its 16 mma rows (rows g and g +
-// 8 of each thread): ``s`` holds the tile's logits, -inf where masked,
-// element e of n-tile n in row g + 8 (e >> 1). On return it holds p =
-// exp(s - m_new) (0 while a row's max is still -inf), and l_run and o are
-// rescaled by exp(m_old - m_new), l_run with the tile's p added. B and C,
-// both dtypes.
-template <int NS, int NT>
-__device__ __forceinline__ void softmax_tile(float (&s)[NS][4], float (&o)[NT][4],
-                                             float (&m_run)[2], float (&l_run)[2]) {
-  float mt[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int n = 0; n < NS; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
-  float alpha[2], m_new[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    m_new[r] = fmaxf(m_run[r], quad_max(mt[r]));
-    // -inf until an unmasked column comes: nothing to rescale yet
-    alpha[r] = m_new[r] == -INFINITY ? 1.f : exp_e(m_run[r] - m_new[r]);
-    m_run[r] = m_new[r];
-    l_run[r] *= alpha[r];
-  }
-#pragma unroll
-  for (int n = 0; n < NS; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = e >> 1;
-      const float p = m_new[r] == -INFINITY ? 0.f : exp_e(s[n][e] - m_new[r]);
-      l_run[r] += p;
-      s[n][e] = p;
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    o[n][0] *= alpha[0];
-    o[n][1] *= alpha[0];
-    o[n][2] *= alpha[1];
-    o[n][3] *= alpha[1];
-  }
-}
-
-// The end of the 4 warps' tiles: each warp's (m, l, O) of its 16 rows into
-// ``merge`` (4 x 16 (D + 2) floats over the drained rings), then, for each
-// (row k < K, dim d) of the block in turn per thread, fn(k, d, M, l, acc):
-// the warps folded in warp order, a warp that saw no column (max -inf)
-// weighing 0. Starts with a block barrier and ends without one.
-template <int D, class Fn>
-__device__ __forceinline__ void merge_warps(float* merge, int K, const float (&m_run)[2],
-                                            const float (&l_run)[2], const float (&o)[D / 8][4],
-                                            Fn&& fn) {
-  constexpr int W = 16 * (D + 2);  // floats per warp: O (16 x D), m, l
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
-  __syncthreads();  // every ring is drained: the merge goes over them
-  float* mw = merge + warp * W;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l = quad_sum(l_run[r]);
-    if (tq == 0) {
-      mw[16 * D + g + 8 * r] = m_run[r];
-      mw[16 * D + 16 + g + 8 * r] = l;
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) mw[(g + 8 * (e >> 1)) * D + 8 * n + 2 * tq + (e & 1)] = o[n][e];
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < K * D; e += blockDim.x) {
-    const int k = e / D, d = e % D;
-    float M = -INFINITY, l = 0.f, acc = 0.f;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) M = fmaxf(M, merge[w * W + 16 * D + k]);
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const float* mv = merge + w * W;
-      const float m = mv[16 * D + k];
-      if (m == -INFINITY) continue;  // the warp saw no column (or only -inf logits)
-      const float sc = exp_e(m - M);
-      l = fmaf(sc, mv[16 * D + 16 + k], l);
-      acc = fmaf(sc, mv[k * D + d], acc);
-    }
-    fn(k, d, M, l, acc);
-  }
-}
-
 // The split pass's partials of head h: (max, denominator) per beam and the
 // unnormalised w.V, from merge_warps, then the barrier before the merge
 // area is the next head's ring.

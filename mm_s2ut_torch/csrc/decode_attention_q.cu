@@ -110,34 +110,43 @@
 // so that every float is formed as in v0).
 //
 // Design of E, kernel C's tensor-core split (decode_attention.cu) over the
-// int8 slab. bf16: grid (B.H, n_split, ceil(K/16)); each group of <= 16
-// rows (the beams of a decode step, or 16 of the prefill's P rows) are the
-// 16 rows of mma.m16n8k16; the S columns are cut into n_split spans of
-// whole key tiles where B.H.groups is under a wave (one tile per split
-// for a 501-row prefill would pay a merge for nothing); 4 warps per block,
-// each with its own 2-stage cp.async ring of raw int8 K||V rows and their
-// sk, sv and bias; K's B fragments are converted to bf16 (exact: |x| <=
+// int8 slab, in both dtypes. Grid (B.H, n_split, ceil(K/16)); each group of
+// <= 16 rows (the beams of a decode step, or 16 of the prefill's P rows)
+// are the 16 mma rows; the S columns are cut into n_split spans of whole
+// key tiles where B.H.groups is under a wave (one tile per split for a
+// 501-row prefill would pay a merge for nothing); 4 warps per block, each
+// with its own 2-stage cp.async ring of raw int8 K||V rows (padded, so
+// that the 8 keys of a fragment load hit distinct banks) and their sk, sv
+// and bias, and its own online softmax: s = (q.k8) . sk + bias (the
+// reference's order, -inf past S), l += p, O += (p . sv).V (sv folded into
+// each unnormalised weight, as the reference folds it into the normalised
+// one). The warps merge in shared memory, the splits in a merge kernel in
+// split order (a span that saw only -inf keeps max -inf and weighs 0; a
+// span of -1e9 padding keeps a finite max that exp(-1e9 - M) wipes). q and
+// the output go through strides.
+// bf16: mma.m16n8k16; K's B fragments converted to bf16 (exact: |x| <=
 // 127) as they are read from the raw rows, V's rows into the warp's bf16
 // tile in C's swizzled layout, which P.V reads through ldmatrix .trans as
 // C does (a bf16 K tile as well cost a fifth block's worth of shared
-// memory: three blocks per SM, not four); and its own
-// online softmax: s = (q.k8) . sk + bias (the reference's order, -inf past
-// S), l += p, O += bf16(p . sv).V (sv folded into the weight before it is
-// rounded, as the reference folds it, but unnormalised: both round each
-// weight to a few bf16 ulps of a convex mix, inside the card checks' 2e-2).
-// The warps merge in shared memory, the splits in a merge kernel in split
-// order (a span that saw only -inf keeps max -inf and weighs 0; a span of
-// -1e9 padding keeps a finite max that exp(-1e9 - M) wipes). fp32 (TF32
-// would miss the 1e-4 tolerance) stays on the SIMT pipes: a block's <= 16
-// rows of scores in shared memory for a two-pass softmax, each thread
-// reading its K row in 16-byte chunks, one output dim per thread over the V
-// half; S split over blocks, merged as in bf16, wherever one block's scores
-// would not fit (S > 3567 at Dh = 64). q and the output go through strides.
-// Variant 1 (tools/kernel_ab.py; the port of scripts_dev/cross_block_probe.py):
-// two batch rows per block, in turn; v0's bits at the same split count. The
-// same split kernel, without scales or bias, reads a dense int8 slab or its
-// values nibble-packed (mm_dense_attention_probe, the port of
-// scripts_dev/int4_support_probe.py's _attnish timing).
+// memory: three blocks per SM, not four); the weights p . sv rounded to
+// bf16 (both sides round each weight to a few bf16 ulps of a convex mix,
+// inside the card checks' 2e-2).
+// fp32 (one TF32 pass would miss the 1e-4 tolerance): fp32 C's m16n8k8
+// products with two passes, not three, since every int8 value is exact in
+// tf32 (lo(k8) = lo(v8) = 0): lo(q).k8 + hi(q).k8, lo(P).v8 + hi(P).v8,
+// 3xTF32's bits. q is split once per block (in registers for Dh <= 64), P
+// = p . sv from the S accumulators. K and V are read straight from the raw
+// rows, a word of 4 consecutive dims of one key per lane: K's word serves
+// the two k-steps of a 16-dim chunk (dims 4tq, 4tq + 1, then 4tq + 2,
+// 4tq + 3; q's fragments read the same way), V's word 4 n-tiles at once
+// (n-tile 4j + i holds dims 32j + 4col + i), so no tile is converted or
+// transposed in shared memory.
+// Variant 1 (bf16; tools/kernel_ab.py; the port of
+// scripts_dev/cross_block_probe.py): two batch rows per block, in turn;
+// v0's bits at the same split count. The bf16 split kernel, without scales
+// or bias, reads a dense int8 slab or its values nibble-packed
+// (mm_dense_attention_probe, the port of scripts_dev/int4_support_probe.py's
+// _attnish timing).
 #include "decode_attention.cuh"
 
 namespace mm {
@@ -953,13 +962,13 @@ cudaError_t launch_fixed_work(bool packed, const I8Args& a, int B, cudaStream_t 
 
 // ------------------------------------------------------------------ kernel E
 
-constexpr int kEThreads = 128;   // bf16 split pass and merge: 4 warps
-constexpr int kEFThreads = 256;  // fp32 SIMT pass
+constexpr int kEThreads = 128;  // split passes and merge: 4 warps
 constexpr int kEMaxSplits = 16;
 
 // What the bf16 split pass reads: E's int8 slab with its scales and the
 // bias, or (mm_dense_attention_probe) a dense int8 slab or the same values
 // nibble-packed (half-split, as the int4 cache), without scales or bias.
+// The fp32 split pass reads E's.
 enum CrossLoad : int { kE = 0, kDense8 = 1, kDense4 = 2 };
 
 struct CrossQArgs {
@@ -974,9 +983,10 @@ struct CrossQArgs {
   float* part_m;       // (B.H.G, n_split, 16) max of each split, -inf if it saw no column
   float* part_l;       // (B.H.G, n_split, 16) its denominator
   float* part_acc;     // (B.H.G, n_split, 16, Dh) its unnormalised sum
-  int H, K, S, G, n_split, tps, rpb;  // G: groups of 16 rows; tps: key tiles (bf16) or keys
-                                      // (fp32) per split; rpb: batch rows per block
+  int H, K, S, G, n_split, tps, rpb;  // G: groups of 16 rows; tps: key tiles per split;
+                                      // rpb: batch rows per block
 };
+
 
 // Shared memory of the bf16 split pass: each warp's 2-stage ring of TW raw
 // int8 K||V rows (padded to kRawRow bytes, so that the 8 rows of one
@@ -1207,101 +1217,219 @@ __global__ void __launch_bounds__(kEThreads, 4) cross_i8_split_kernel_mma(const 
   }
 }
 
-// fp32 SIMT pass: block (b.H + h, split, row group), the group's <= 16 rows
-// over the split's keys [s0, s0 + tps): scores (q.k8).sk + bias, one thread
-// per key, each K row read 16 bytes at a time (a byte-wide load would touch
-// 32 rows' lines per warp instruction, Dh times over); one warp per row
-// takes the max and the sum and leaves p . sv; then one thread per output
-// dim adds p . sv . v8 over the keys. One split writes acc / sum, several
-// their (max, sum, acc).
-template <int DH>
-__global__ void __launch_bounds__(kEFThreads) cross_i8_kernel_f32(const CrossQArgs a) {
-  extern __shared__ float f_smem[];
-  constexpr int NW = kEFThreads / 32;
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H, split = blockIdx.y, grp = blockIdx.z;
-  const int r0 = grp * 16, K = min(16, a.K - r0);
-  const int s0 = split * a.tps, n = min(a.S - s0, a.tps);
-  float* qs = f_smem;              // [K][DH]
-  float* sc = qs + 16 * DH;        // [K][tps] scores, then p . sv
-  float* rmax = sc + 16 * a.tps;   // [16]
-  float* rsum = rmax + 16;         // [16]
-  const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh + r0 * a.q_sk;
-  const int8_t* kv = a.kv + ((int64_t)bh * a.S + s0) * 2 * DH;
-  const float* sk = a.sk + (int64_t)bh * a.S + s0;
-  const float* sv = a.sv + (int64_t)bh * a.S + s0;
-  const float* bias = a.bias + (int64_t)b * a.S + s0;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, T = a.tps;
+// ------------------------------------------------- kernel E in fp32: 2xTF32
+//
+// Every int8 value is exact in tf32 (|x| <= 128 needs 8 of its 11
+// significant bits), so split_tf32 of k8 or v8 gives lo = 0, and of
+// 3xTF32's three products the cross term hi(q).lo(k8) (hi(P).lo(v8)) adds
+// exactly 0: two products per tile, lo(q).k8 then hi(q).k8 (lo(P).v8 then
+// hi(P).v8), the bits of 3xTF32 with a third fewer mma.
 
-  for (int i = threadIdx.x; i < K * DH; i += kEFThreads) qs[i] = q[(i / DH) * a.q_sk + i % DH];
-  __syncthreads();
-  for (int s = threadIdx.x; s < n; s += kEFThreads) {
-    const int4* krow = reinterpret_cast<const int4*>(kv + (int64_t)s * 2 * DH);
-    float acc[kMaxBeams];
-#pragma unroll
-    for (int k = 0; k < kMaxBeams; ++k) acc[k] = 0.f;
-#pragma unroll 1
-    for (int c = 0; c < DH / 16; ++c) {
-      const int4 chunk = krow[c];
-      const int8_t* kb = reinterpret_cast<const int8_t*>(&chunk);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const float kd = (float)kb[i];
-        const float* qd = qs + c * 16 + i;
-#pragma unroll
-        for (int k = 0; k < kMaxBeams; ++k)
-          if (k < K) acc[k] = fmaf(qd[k * DH], kd, acc[k]);
-      }
+// Shared memory of the fp32 split pass: each warp's 2-stage ring of kTW raw
+// int8 K||V rows (kRawRow bytes, as bf16's) with their sk, sv and bias,
+// then the group's q as 16 zero-padded fp32 rows of kQRow floats, kQRow =
+// 16 mod 32, so that the 16-byte reads of rows g and g + 1 by a
+// quarter-warp fall on distinct banks. The warps' (O, m, l) go over the
+// drained ring. 44 KB at Dh = 64: the registers (143 at Dh = 64) hold it
+// to three blocks per SM. 32-key tiles (bf16's) were measured against 16
+// (2-14% slower), and V through a per-warp fp32 tile in C's layout against
+// V read from the raw rows (6-28% slower, tools/kernel_ab.py; PERF.md).
+template <int D>
+struct ETf32 {
+  static constexpr int kTW = D <= 64 ? 32 : 16;  // keys per warp tile
+  static constexpr int kRawRow = 2 * D + 16;
+  static constexpr int kRaw = kTW * kRawRow;
+  static constexpr int kStage = kRaw + 3 * kTW * 4;
+  static constexpr int kRing = 0;
+  static constexpr int kQ = kRing + 4 * 2 * kStage;
+  static constexpr int kQRow = D % 32 == 0 ? D + 16 : D;
+  static constexpr int kBytes = kQ + 16 * kQRow * 4;
+  static_assert(4 * 16 * (D + 2) * 4 <= kQ - kRing, "the merge fits over the ring");
+  static_assert(kStage % 16 == 0 && kRawRow % 16 == 0, "16-byte aligned rows");
+};
+
+// Byte i of w, a signed int8, as the bits of the exact float: a tf32
+// operand whose lo half is 0.
+__device__ __forceinline__ uint32_t i8_tf32(uint32_t w, int i) {
+  return __float_as_uint((float)(int8_t)(w >> (8 * i)));
+}
+
+// c += a . b with b exact in tf32 (an int8 value): lo(a).b, then hi(a).b.
+__device__ __forceinline__ void mma2(float (&c)[4], const FragA32& a, uint32_t b0, uint32_t b1) {
+  mma_tf32(c, a.lo, b0, b1);
+  mma_tf32(c, a.hi, b0, b1);
+}
+
+// q's A fragments of the 16 head dims 16 c.. from the staged rows (row
+// stride QR floats), split into tf32 halves: lane (g, tq) reads dims
+// 16 c + 4 tq .. + 3 of rows g and g + 8, as K's int8 words hold them, so
+// k-step 2 c takes dims 16 c + 4 tq and + 1 (k-indices tq and tq + 4) and
+// k-step 2 c + 1 dims + 2 and + 3; both operands agree, and a dot product
+// does not depend on the order of its dims.
+template <int QR>
+__device__ __forceinline__ void frag_q_e(FragA32 (&f)[2], const float* q, int c) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const float4 x0 = *reinterpret_cast<const float4*>(q + g * QR + 16 * c + 4 * tq);
+  const float4 x1 = *reinterpret_cast<const float4*>(q + (g + 8) * QR + 16 * c + 4 * tq);
+  split_tf32(x0.x, f[0].hi[0], f[0].lo[0]);
+  split_tf32(x1.x, f[0].hi[1], f[0].lo[1]);
+  split_tf32(x0.y, f[0].hi[2], f[0].lo[2]);
+  split_tf32(x1.y, f[0].hi[3], f[0].lo[3]);
+  split_tf32(x0.z, f[1].hi[0], f[1].lo[0]);
+  split_tf32(x1.z, f[1].hi[1], f[1].lo[1]);
+  split_tf32(x0.w, f[1].hi[2], f[1].lo[2]);
+  split_tf32(x1.w, f[1].hi[3], f[1].lo[3]);
+}
+
+// R bytes of a raw row (R = 4 or 2) as one load.
+template <int R>
+__device__ __forceinline__ uint32_t load_bytes(const unsigned char* p) {
+  if constexpr (R == 4) return *reinterpret_cast<const uint32_t*>(p);
+  return *reinterpret_cast<const uint16_t*>(p);
+}
+
+// fp32 split pass: block (b.H + h, split, row group), bf16's blocks, rings
+// and online softmax with fp32 C's m16n8k8 products in 2xTF32: q split once
+// (into registers for Dh <= 64); K read straight from the raw int8 rows,
+// one word of 4 dims per lane, each byte an exact tf32 operand; s = (q.k8)
+// . sk + bias (the reference's order, -inf past S); P = p . sv split from
+// the S accumulators (sv folded into each unnormalised weight, l summing
+// p); V read from the raw rows too, R bytes (R consecutive dims of one key)
+// per lane, which serve R n-tiles: n-tile R j + i holds dims 8 R j + R col
+// + i (merge_warps' R).
+template <int D>
+__global__ void __launch_bounds__(kEThreads, 3) cross_i8_split_kernel_tf32(const CrossQArgs a) {
+  using C = ETf32<D>;
+  constexpr int NC = D / 16, NT = D / 8, CH = 2 * D / 16, TW = C::kTW;
+  constexpr int R = D >= 32 ? 4 : 2;
+  constexpr bool Q_REGS = D <= 64;
+  extern __shared__ __align__(128) unsigned char e_smem[];
+  float* merge = reinterpret_cast<float*>(e_smem + C::kRing);
+  float* q_tile = reinterpret_cast<float*>(e_smem + C::kQ);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int S = a.S, b = blockIdx.x / a.H, h = blockIdx.x % a.H, split = blockIdx.y;
+  const int r0 = blockIdx.z * 16, K = min(16, a.K - r0);
+  const int i1 = min((S + TW - 1) / TW, (split + 1) * a.tps);
+  const int64_t bh = (int64_t)b * a.H + h;
+  const int8_t* slab = a.kv + bh * S * 2 * D;
+  const float* skp = a.sk + bh * S;
+  const float* svp = a.sv + bh * S;
+  const float* bias = a.bias + (int64_t)b * S;
+  const uint32_t ring = smem_u32(e_smem + C::kRing) + warp * 2 * C::kStage;
+  auto gather = [&](uint32_t stage, int i) {  // key tile i; past S zeros
+    const int s0 = i * TW;
+    for (int e = lane; e < TW * CH; e += 32) {
+      const int r = e / CH, c = e % CH;
+      const bool ok = s0 + r < S;
+      cp_async16(stage + r * C::kRawRow + c * 16,
+                 slab + (int64_t)(ok ? s0 + r : 0) * 2 * D + c * 16, ok);
     }
-    const float sks = sk[s], bs = bias[s];
-#pragma unroll
-    for (int k = 0; k < kMaxBeams; ++k)
-      if (k < K) sc[k * T + s] = __fadd_rn(__fmul_rn(acc[k], sks), bs);
+    if (lane < TW) {
+      const bool ok = s0 + lane < S;
+      const int s = ok ? s0 + lane : 0;
+      cp_async4(stage + C::kRaw + lane * 4, skp + s, ok);
+      cp_async4(stage + C::kRaw + (TW + lane) * 4, svp + s, ok);
+      cp_async4(stage + C::kRaw + (2 * TW + lane) * 4, bias + s, ok);
+    }
+  };
+  int i = split * a.tps + warp;
+  if (i < i1) {  // the warp's first tile goes in flight before q is staged
+    gather(ring, i);
+    cp_async_commit();
+  }
+  const float* q = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh + r0 * a.q_sk;
+  for (int e = threadIdx.x; e < 16 * D; e += kEThreads) {
+    const int r = e / D, d = e % D;
+    q_tile[r * C::kQRow + d] = r < K ? q[r * a.q_sk + d] : 0.f;
   }
   __syncthreads();
-  for (int k = warp; k < K; k += NW) {
-    float mx = -INFINITY;
-    for (int s = lane; s < n; s += 32) mx = fmaxf(mx, sc[k * T + s]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int s = lane; s < n; s += 32) {
-      const float p = mx == -INFINITY ? 0.f : expf(sc[k * T + s] - mx);
-      sc[k * T + s] = __fmul_rn(p, sv[s]);
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) rmax[k] = mx, rsum[k] = sum;
+  FragA32 qf[Q_REGS ? NC : 1][2];
+  if constexpr (Q_REGS) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) frag_q_e<C::kQRow>(qf[c], q_tile, c);
   }
-  __syncthreads();
-  constexpr int NKG = kEFThreads / DH;               // row groups
-  constexpr int KPT = (kMaxBeams + NKG - 1) / NKG;  // rows per thread
-  const int d = threadIdx.x % DH, kg = threadIdx.x / DH;
-  float acc[KPT];
+  float o[NT][4];
 #pragma unroll
-  for (int i = 0; i < KPT; ++i) acc[i] = 0.f;
-  for (int s = 0; s < n; ++s) {
-    const float vd = (float)kv[(int64_t)s * 2 * DH + DH + d];
-#pragma unroll
-    for (int i = 0; i < KPT; ++i) {
-      const int k = kg + i * NKG;
-      if (k < K) acc[i] = fmaf(sc[k * T + s], vd, acc[i]);
-    }
-  }
-  const int64_t part = ((int64_t)bh * a.G + grp) * a.n_split + split;
-  float* out = static_cast<float*>(a.out) + b * a.o_sb + h * a.o_sh + r0 * a.o_sk;
-#pragma unroll
-  for (int i = 0; i < KPT; ++i) {
-    const int k = kg + i * NKG;
-    if (k >= K) continue;
-    if (a.n_split == 1) {
-      out[k * a.o_sk + d] = acc[i] / rsum[k];
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  for (int j = 0; i < i1; ++j, i += 4) {
+    const int stage = j & 1;
+    if (i + 4 < i1) {
+      gather(ring + (stage ^ 1) * C::kStage, i + 4);
+      cp_async_commit();
+      cp_async_wait<1>();
     } else {
-      if (d == 0) {
-        a.part_m[part * 16 + k] = rmax[k];
-        a.part_l[part * 16 + k] = rsum[k];
-      }
-      a.part_acc[(part * 16 + k) * DH + d] = acc[i];
+      cp_async_wait<0>();
     }
+    __syncwarp();
+    const unsigned char* raw = e_smem + C::kRing + (warp * 2 + stage) * C::kStage;
+    const float* sks = reinterpret_cast<const float*>(raw + C::kRaw);  // sk, sv, bias
+    const int n_in = min(TW, S - i * TW);
+    // S = Q.K^T: one word of key 8 n + g, dims 16 c + 4 tq .. + 3, per lane.
+    float s[TW / 8][4];
+#pragma unroll
+    for (int n = 0; n < TW / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      FragA32 qc[2];
+      if constexpr (Q_REGS) {
+        qc[0] = qf[c][0];
+        qc[1] = qf[c][1];
+      } else {
+        frag_q_e<C::kQRow>(qc, q_tile, c);
+      }
+#pragma unroll
+      for (int n = 0; n < TW / 8; ++n) {
+        const uint32_t w =
+            *reinterpret_cast<const uint32_t*>(raw + (8 * n + g) * C::kRawRow + 16 * c + 4 * tq);
+        mma2(s[n], qc[0], i8_tf32(w, 0), i8_tf32(w, 1));
+        mma2(s[n], qc[1], i8_tf32(w, 2), i8_tf32(w, 3));
+      }
+    }
+    // Element e of n-tile n: row g + 8 (e >> 1), key i.TW + 8 n + 2 tq + (e & 1).
+#pragma unroll
+    for (int n = 0; n < TW / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * tq + (e & 1);
+        s[n][e] = c < n_in ? __fadd_rn(__fmul_rn(s[n][e], sks[c]), sks[2 * TW + c]) : -INFINITY;
+      }
+    }
+    softmax_tile(s, o, m_run, l_run);
+#pragma unroll
+    for (int n = 0; n < TW / 8; ++n) {
+      float w[4];  // sv folded into each weight before it is split
+#pragma unroll
+      for (int e = 0; e < 4; ++e) w[e] = __fmul_rn(s[n][e], sks[TW + 8 * n + 2 * tq + (e & 1)]);
+      FragA32 pa;
+      acc_to_a32(pa, w);
+      // Keys 8 n + 2 tq and + 1 (k-indices tq, tq + 4), dims 8 R jd + R g .. + R - 1.
+      const unsigned char* vr = raw + (8 * n + 2 * tq) * C::kRawRow + D + R * g;
+#pragma unroll
+      for (int jd = 0; jd < NT / R; ++jd) {
+        const uint32_t w0 = load_bytes<R>(vr + 8 * R * jd);
+        const uint32_t w1 = load_bytes<R>(vr + C::kRawRow + 8 * R * jd);
+#pragma unroll
+        for (int r = 0; r < R; ++r) mma2(o[R * jd + r], pa, i8_tf32(w0, r), i8_tf32(w1, r));
+      }
+    }
+    __syncwarp();  // the stage is refilled by the next tile's gather
   }
+  // The 4 warps merged; one split writes O / l, several their partials.
+  const int64_t part = (bh * a.G + blockIdx.z) * a.n_split + split;
+  float* out = static_cast<float*>(a.out) + b * a.o_sb + h * a.o_sh + r0 * a.o_sk;
+  merge_warps<D, R>(merge, K, m_run, l_run, o, [&](int k, int d, float M, float l, float acc) {
+    if (a.n_split == 1) {
+      out[k * a.o_sk + d] = acc / l;
+      return;
+    }
+    if (d == 0) {
+      a.part_m[part * 16 + k] = M;
+      a.part_l[part * 16 + k] = l;
+    }
+    a.part_acc[(part * 16 + k) * D + d] = acc;
+  });
 }
 
 // Merge (n_split > 1): one block per (b, h, row group) folds the splits'
@@ -1341,23 +1469,21 @@ cudaError_t launch_cross_i8_mma(const CrossQArgs& a, int B, cudaStream_t stream)
   return cudaGetLastError();
 }
 
-template <int DH>
-cudaError_t launch_cross_i8_f32(const CrossQArgs& a, int B, cudaStream_t stream) {
-  const int smem = 4 * (16 * DH + 16 * a.tps + 32);
-  cudaError_t err = allow_smem(cross_i8_kernel_f32<DH>, smem);
+template <int D>
+cudaError_t launch_cross_i8_tf32(const CrossQArgs& a, int B, cudaStream_t stream) {
+  constexpr int smem = ETf32<D>::kBytes;
+  cudaError_t err = allow_smem(cross_i8_split_kernel_tf32<D>, smem);
   if (err != cudaSuccess) return err;
-  cross_i8_kernel_f32<DH><<<dim3(B * a.H, a.n_split, a.G), kEFThreads, smem, stream>>>(a);
+  const dim3 grid(B * a.H, a.n_split, a.G);
+  cross_i8_split_kernel_tf32<D><<<grid, kEThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.n_split == 1) return err;
-  cross_i8_merge_kernel<float, DH><<<B * a.H * a.G, kEThreads, 0, stream>>>(a);
+  cross_i8_merge_kernel<float, D><<<B * a.H * a.G, kEThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
+// Keys per warp tile of E's split passes, both dtypes.
 int e_tile(int DH) { return DH <= 64 ? 32 : 16; }
-
-// Most keys of one fp32 split: 16 rows' scores, queries and statistics in a
-// block's 227 KB.
-int e_f32_keys(int DH) { return (232448 / 4 - 16 * DH - 32) / 16; }
 
 }  // namespace
 }  // namespace mm
@@ -1555,17 +1681,12 @@ extern "C" int mm_ancestry_decode_fixed_work(
 }
 
 // Kernel E's split count for B batch rows of H heads, K rows (groups of 16)
-// over S columns: bf16 one split where the (b.h, group) blocks fill a wave,
-// else enough splits for about two blocks per SM, each a whole number of
-// key tiles, at most kEMaxSplits; fp32 as
-// few as keep each block's scores in shared memory (not a function of K,
-// so a group of 16 rows gets the same bits in a decode step and a prefill).
+// over S columns, in either dtype (``dtype`` picks nothing today): one split
+// where the (b.h, group) blocks fill a wave, else enough splits for about
+// two blocks per SM, each a whole number of key tiles, at most kEMaxSplits.
 extern "C" int mm_cross_decode_i8_splits(int dtype, int B, int H, int K, int S, int DH) {
+  (void)dtype;
   if (S < 1 || B * H < 1 || K < 1) return 1;
-  if (dtype == mm::kFloat32) {
-    const int most = mm::e_f32_keys(DH);
-    return (S + most - 1) / most;
-  }
   const int n_tiles = (S + mm::e_tile(DH) - 1) / mm::e_tile(DH);
   const int blocks = B * H * ((K + 15) / 16);
   if (blocks >= mm::kSMs) return 1;  // a wave already: a split would only add a merge
@@ -1588,31 +1709,29 @@ extern "C" int mm_cross_decode_attention_i8(
     const void* bias, void* out, void* scratch, int B, int H, int K, int DH, int S, int n_split,
     int64_t q_sb, int64_t q_sh, int64_t q_sk, int64_t o_sb, int64_t o_sh, int64_t o_sk,
     void* stream) {
-  if (K < 1 || S < 1 || variant < 0 || variant > 1 || (variant == 1 && (B % 2 || dtype != mm::kBFloat16)) ||
-      n_split != mm_cross_decode_i8_splits(dtype, B, H, K, S, DH))
+  const bool f32 = dtype == mm::kFloat32;
+  if (K < 1 || S < 1 || (!f32 && dtype != mm::kBFloat16) || variant < 0 || variant > 1 ||
+      (variant == 1 && (B % 2 || f32)) || n_split != mm_cross_decode_i8_splits(dtype, B, H, K, S, DH))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(scratch);
   const int G = (K + 15) / 16;
   const int64_t n_part = (int64_t)B * H * G * n_split * 16;
-  const bool f32 = dtype == mm::kFloat32;
   const int n_tiles = (S + mm::e_tile(DH) - 1) / mm::e_tile(DH);
-  const int tps = f32 ? (S + n_split - 1) / n_split : (n_tiles + n_split - 1) / n_split;
   const mm::CrossQArgs a{q, q_sb, q_sh, q_sk, static_cast<const int8_t*>(kv),
                          static_cast<const float*>(sk), static_cast<const float*>(sv),
                          static_cast<const float*>(bias), out, o_sb, o_sh, o_sk,
-                         part, part + n_part, part + 2 * n_part, H, K, S, G, n_split, tps,
-                         variant == 1 ? 2 : 1};
+                         part, part + n_part, part + 2 * n_part, H, K, S, G, n_split,
+                         (n_tiles + n_split - 1) / n_split, variant == 1 ? 2 : 1};
   if (f32) {
     switch (DH) {
-      case 16: return (int)mm::launch_cross_i8_f32<16>(a, B, st);
-      case 32: return (int)mm::launch_cross_i8_f32<32>(a, B, st);
-      case 64: return (int)mm::launch_cross_i8_f32<64>(a, B, st);
-      case 128: return (int)mm::launch_cross_i8_f32<128>(a, B, st);
+      case 16: return (int)mm::launch_cross_i8_tf32<16>(a, B, st);
+      case 32: return (int)mm::launch_cross_i8_tf32<32>(a, B, st);
+      case 64: return (int)mm::launch_cross_i8_tf32<64>(a, B, st);
+      case 128: return (int)mm::launch_cross_i8_tf32<128>(a, B, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  if (dtype != mm::kBFloat16) return (int)cudaErrorInvalidValue;
   switch (DH) {
     case 16: return (int)mm::launch_cross_i8_mma<16, mm::kE>(a, B, st);
     case 32: return (int)mm::launch_cross_i8_mma<32, mm::kE>(a, B, st);

@@ -211,6 +211,12 @@ def kernel_of(name: str):
     return None
 
 
+def _short(name: str) -> str:
+    """A CUDA kernel's name without its return type, namespaces and
+    parameters: ``cross_i8_split_kernel_tf32<64, 32, false>``."""
+    return name.replace("void ", "").replace("mm::(anonymous namespace)::", "").split("(")[0]
+
+
 def profile_decode_step(generator, feats, flens, imgs, masks, at_step: int) -> dict:
     """Run ``generator.generate`` once with decode step ``at_step`` (the
     interval from the start of that ``decode_step`` call to the start of
@@ -245,8 +251,8 @@ def profile_decode_step(generator, feats, flens, imgs, masks, at_step: int) -> d
 
 def _device_shares(prof, wall_ms: float) -> dict:
     """A trace's kernel time on the device, its busy share of ``wall_ms``,
-    launches and aten calls, the time and share of each of kernels B-F,
-    and the eight longest kernels."""
+    launches and aten calls, the time, share and CUDA kernel names of each
+    of kernels B-F, and the eight longest kernels."""
     events = prof.key_averages()
     kernels = [e for e in events
                if str(e.device_type).endswith("CUDA") and not e.key.startswith("ProfilerStep")]
@@ -263,9 +269,11 @@ def _device_shares(prof, wall_ms: float) -> dict:
         "aten_calls": sum(e.count for e in events if e.key.startswith("aten::")),
     }
     for k in "BCDEF":
-        us = sum(dev_us(e) for e in kernels if kernel_of(e.key) == k)
+        mine = [e for e in kernels if kernel_of(e.key) == k]
+        us = sum(dev_us(e) for e in mine)
         result[f"{k}_ms"] = us / 1e3
         result[f"{k}_share"] = us / total if total > 0 else None
+        result[f"{k}_kernels"] = sorted({_short(e.key) for e in mine})
     result["top"] = [(e.key[:60], e.count, round(dev_us(e) / 1e3, 4)) for e in top]
     return result
 

@@ -14,7 +14,8 @@ timed, alternating the trees in the order given, twice (CUDA events over
 and at B = 128, T = 250; G at B = 8, T = 250, window 64; H at the ViT's
 training shape and at T = 499; B at the decode shapes below, with this
 tree's ``this/v1``; C at B = 8 and 128, the prefill's 501 rows, which take
-A, and 16 rows over a 4000-key slab, split 16 ways), in fp32. A and G run
+A, and 16 rows over a 4000-key slab, split 16 ways; E at C's shapes,
+beside ``this/C``), in fp32. A and G run
 at rate 0 without row statistics (the inference path's call) and, in
 trees that have attention dropout, at rate 0.1 with the statistics (the
 training forward); H runs in trees that have it. A tree whose flash entries predate dropout (no
@@ -117,13 +118,17 @@ DECODE_CASES = [  # (entry, B, H, K, Dh, L, T_dec, step or S), bf16
     ("mm_cross_decode_attention_i8", 1, 8, 501, 64, 0, 0, 250),
     ("mm_dense_attention_probe", 128, 8, 10, 64, 0, 0, 2010),  # int4_support_probe.py's shape
 ]
-FP32_DECODE_CASES = [  # DECODE_CASES' fields, fp32 (B and C in 3xTF32 on the tensor cores)
+FP32_DECODE_CASES = [  # DECODE_CASES' fields, fp32 (B and C in 3xTF32 on the tensor cores, E in 2xTF32)
     ("mm_ancestry_decode_attention", 8, 8, 10, 64, 6, 500, 300),
     ("mm_ancestry_decode_attention", 128, 8, 10, 64, 6, 201, 150),
     ("mm_cross_decode_attention", 8, 8, 10, 64, 0, 0, 250),
     ("mm_cross_decode_attention", 128, 8, 10, 64, 0, 0, 250),
     ("mm_cross_decode_attention", 1, 8, 501, 64, 0, 0, 250),  # the prefill's rows: A in fp32
     ("mm_cross_decode_attention", 2, 8, 16, 64, 0, 0, 4000),  # a long slab, 16 splits
+    ("mm_cross_decode_attention_i8", 8, 8, 10, 64, 0, 0, 250),  # E: 2xTF32 on the tensor cores
+    ("mm_cross_decode_attention_i8", 128, 8, 10, 64, 0, 0, 250),
+    ("mm_cross_decode_attention_i8", 1, 8, 501, 64, 0, 0, 250),
+    ("mm_cross_decode_attention_i8", 2, 8, 16, 64, 0, 0, 4000),
 ]
 WRITE_CASES = [  # (cache, B, K, cap, L, H, Dh, step)
     ("bfloat16", 32, 5, 201, 6, 8, 64, 100),  # cache_write_fix_probe.py's shape
@@ -313,14 +318,14 @@ def _decode_launchers(trees, entry, B, H, K, Dh, L, T, step, fixed_work=False,
                       dtype=torch.bfloat16):
     """{label: launch} for kernel B (each tree, and this tree's variants; in
     fp32 v1 only), C (each tree, and SDPA on the same inputs), D, E, F or the
-    dense probe. B and C run in ``dtype``, the others in bf16."""
+    dense probe. B, C and E run in ``dtype``, the others in bf16."""
     stream = torch.cuda.current_stream().cuda_stream
     code = _build.dtype_code(dtype)
     fns = {}
     if entry == "mm_ancestry_decode_attention_i4":
         keep = _i4_launchers(trees, fns, B, H, K, Dh, L, T, step, fixed_work)
     elif entry == "mm_cross_decode_attention_i8":
-        keep = _cross_i8_launchers(trees, fns, B, H, K, Dh, step)
+        keep = _cross_i8_launchers(trees, fns, B, H, K, Dh, step, dtype)
     elif entry == "mm_dense_attention_probe":
         keep = _dense_launchers(fns, B, H, K, Dh, step)
     elif entry == "mm_cross_decode_attention":
@@ -505,13 +510,15 @@ def _i4_launchers(trees, fns, B, H, K, Dh, L, T, step, fixed_work=False):
     return keep
 
 
-def _cross_i8_launchers(trees, fns, B, H, K, Dh, S):
-    """Kernel E of each tree (this tree also as v1, two batch rows per
-    block), and this tree's C on a bf16 slab of the same values (``this/C``)."""
+def _cross_i8_launchers(trees, fns, B, H, K, Dh, S, dtype=torch.bfloat16):
+    """Kernel E of each tree in ``dtype`` (this tree in bf16 also as v1, two
+    batch rows per block), and this tree's C on a slab of the same values
+    in ``dtype`` (``this/C``)."""
     entry = "mm_cross_decode_attention_i8"
     stream = torch.cuda.current_stream().cuda_stream
+    code = _build.dtype_code(dtype)
     g = torch.Generator(device="cuda").manual_seed(S)
-    q = (torch.randn((B, H, K, Dh), generator=g, device="cuda") * Dh ** -0.5).to(torch.bfloat16)
+    q = (torch.randn((B, H, K, Dh), generator=g, device="cuda") * Dh ** -0.5).to(dtype)
     kv = torch.randint(-127, 128, (B, H, S, 2 * Dh), generator=g, device="cuda", dtype=torch.int8)
     sk, sv = (torch.rand((B, H, S), generator=g, device="cuda") * 0.01 + 0.002 for _ in range(2))
     lengths = torch.clamp(S - 23 * torch.arange(B, device="cuda"), min=1)
@@ -523,25 +530,25 @@ def _cross_i8_launchers(trees, fns, B, H, K, Dh, S):
             out = torch.empty_like(q)
             keep.append(out)
             _add(fns, tree.label, tree.lib.mm_cross_decode_attention_i8,
-                 [_build.BF16, *ptrs, out.data_ptr(), B, H, K, Dh, S, stream], entry, out)
+                 [code, *ptrs, out.data_ptr(), B, H, K, Dh, S, stream], entry, out)
             continue
-        n_split = tree.lib.mm_cross_decode_i8_splits(_build.BF16, B, H, K, S, Dh)
-        for v in (0, 1) if tree.label == "this" and B % 2 == 0 else (0,):
+        n_split = tree.lib.mm_cross_decode_i8_splits(code, B, H, K, S, Dh)
+        for v in (0, 1) if tree.label == "this" and B % 2 == 0 and dtype == torch.bfloat16 else (0,):
             scratch = torch.empty(max(1, B * H * -(-K // 16) * n_split * 16 * (Dh + 2)),
                                   device="cuda")
             out = torch.empty((B, K, H, Dh), dtype=q.dtype, device="cuda").transpose(1, 2)
             keep += [scratch, out]
             _add(fns, tree.label + (f"/v{v}" if v else ""), tree.lib.mm_cross_decode_attention_i8,
-                 [_build.BF16, v, *ptrs, out.data_ptr(), scratch.data_ptr(), B, H, K, Dh, S,
+                 [code, v, *ptrs, out.data_ptr(), scratch.data_ptr(), B, H, K, Dh, S,
                   n_split, *q.stride()[:3], *out.stride()[:3], stream], entry, out)
         if tree.label == "this":
-            kvb = kv.to(torch.bfloat16)
-            c_split = tree.lib.mm_cross_decode_splits(_build.BF16, B, H, K, S, Dh)
+            kvb = kv.to(dtype)
+            c_split = tree.lib.mm_cross_decode_splits(code, B, H, K, S, Dh)
             scratch = torch.empty(max(1, B * H * c_split * K * (Dh + 2)), device="cuda")
             out = torch.empty((B, K, H, Dh), dtype=q.dtype, device="cuda").transpose(1, 2)
             keep += [kvb, scratch, out]
             _add(fns, "C", tree.lib.mm_cross_decode_attention,
-                 [_build.BF16, q.data_ptr(), kvb.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                 [code, q.data_ptr(), kvb.data_ptr(), bias.data_ptr(), out.data_ptr(),
                   scratch.data_ptr(), B, H, K, Dh, S, c_split, *q.stride()[:3],
                   *out.stride()[:3], stream], "mm_cross_decode_attention")
     return keep

@@ -19,7 +19,8 @@ at the tile edges, G to A-causal's bits, two launches to the same bits,
 and a view one float off a 16-byte boundary raises, as in bf16.
 Kernels D and F (int8 / int4 cache): fp32 2e-3, bf16 2e-2, for a
 requantized softmax weight that flips one level at a rounding tie
-(``chip_smoke.TOL_REQUANT``); E as C. A's causal branch and G are held
+(``chip_smoke.TOL_REQUANT``); E as C (fp32 E in 2xTF32: its int8
+operands are exact in tf32, so the third product of 3xTF32 is 0). A's causal branch and G are held
 against the plain version on every row, the padded rows whose whole
 window band is padding included (G reproduces the reference's uniform
 average there, ``csrc/flash_attention.cu``). A and G with attention
@@ -582,9 +583,8 @@ def test_cross_decode_many_rows(card, dtype, int8, K, Dh, S):
     prefill's P = max_len + 1): against the plain version. A 16-row
     (decode-step) call on the first 16 rows takes the same code path in E
     (one block per 16 rows) wherever E splits S the same way for 16 rows
-    and for K, so there it gives the same bits (fp32 E's split is a
-    function of S alone; bf16 E takes fewer splits once its row groups fill
-    a wave); C takes A's forward for many rows and its split kernel for 16,
+    and for K, so there it gives the same bits (E takes fewer splits once
+    its row groups fill a wave, in either dtype); C takes A's forward for many rows and its split kernel for 16,
     in either dtype, so there both are held to the plain version."""
     if int8:
         args = quant_cross_inputs(2, 3, K, Dh, S, dtype, seed=S)
@@ -806,6 +806,48 @@ def test_fp32_prefill_through_a(card, B, K, S):
     torch.cuda.synchronize()
     assert torch.equal(got.transpose(1, 2), direct)
     _close(got, D.cross_reference(q, kv, bias), torch.float32)
+
+
+F32_E_ROWS = [1, 10, 16, 40]  # a decode step's rows, and three row groups
+
+
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("K", F32_E_ROWS)
+def test_fp32_cross_i8_tensor_cores(card, K, Dh):
+    """fp32 E's split pass (2xTF32 on the tensor cores) against its plain
+    version at B = 8 (split over blocks) and B = 128 (one split), S = 37,
+    250 and 4000 (not multiples of the 32-key tile, 16 at Dh = 128), batch
+    rows of S, S / 8 and 1 valid keys, so that at B = 8 whole splits are
+    padding; two launches give the same bits."""
+    H = 2
+    for B in (8, 128):
+        for S in (37, 250, 4000):
+            q, kv, sk, sv, _ = quant_cross_inputs(B, H, K, Dh, S, torch.float32, seed=K + Dh + S)
+            lengths = torch.tensor([S, S // 8, 1] * B, device="cuda")[:B]
+            bias = torch.where(torch.arange(S, device="cuda")[None, :] < lengths[:, None],
+                               0.0, A.NEG_INF)
+            args = (q, kv, sk, sv, bias)
+            n_split = _e_splits(torch.float32, B, H, K, S, Dh)
+            assert (n_split > 1) == (B == 8), n_split  # B = 128 fills a wave
+            got = D.cross_decode_attention_i8(*args)
+            again = D.cross_decode_attention_i8(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            want = D.cross_reference_i8(*args)
+            tol = TOL[torch.float32] * max(1.0, want.abs().max().item())
+            _close(got, want, torch.float32, tol)
+
+
+def test_fp32_cross_i8_takes_the_decoder_views(card):
+    """fp32 E reads q as the decoder hands it and returns a view the decoder
+    flattens without a copy, for a decode step and for a prefill's rows."""
+    for K in (10, 40):
+        q, kv, sk, sv, bias = quant_cross_inputs(2, 4, K, 64, 120, torch.float32, seed=K)
+        view = q.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not view.is_contiguous()
+        got = D.cross_decode_attention_i8(view, kv, sk, sv, bias)
+        assert got.transpose(1, 2).is_contiguous()
+        _close(got, D.cross_reference_i8(q, kv, sk, sv, bias), torch.float32)
 
 
 @pytest.mark.parametrize("K", [16, 10, 40])

@@ -1,6 +1,6 @@
-"""The arithmetic of the fp32 kernels B and C on the tensor cores, emulated
-in plain PyTorch on the CPU and held against the JAX package's Pallas
-kernels (interpret mode) at the card checks' fp32 tolerance.
+"""The arithmetic of the fp32 kernels B, C and E on the tensor cores,
+emulated in plain PyTorch on the CPU and held against the JAX package's
+Pallas kernels (interpret mode) at the card checks' fp32 tolerance.
 
 fp32 B and C (``csrc/decode_attention.cu``) do every product as 3xTF32 on
 ``mma.m16n8k8``, as fp32 A does (``tests/test_torch_attention_tf32_numerics.py``
@@ -22,8 +22,20 @@ rounded once into the fp32 accumulator). What differs is the walk:
   by l, several are folded in split order by the merge kernel (expf).
 * C's prefill rows (K > 16) take fp32 A with scale 1 over the slab's K and
   V halves: A's 64-key walk (``emulate_a``).
+* E (``csrc/decode_attention_q.cu``, the int8 slab): C's walk over 32-key
+  tiles (16 at Dh = 128), any number of rows (each group of 16 is a block
+  of its own, and rows do not meet in the arithmetic), with two products
+  per tile, not three: every int8 value is exact in tf32, so the k8 and v8
+  operands have lo = 0 and 3xTF32's hi·lo term is exactly 0 (``mm2``:
+  lo(a)·b, then hi(a)·b). The logit is (q·k8)·sk + bias, two fp32
+  roundings; the weight p·sv (one rounding) is split, l sums p. The
+  kernel reads 4 consecutive head dims of a key per lane, so its k-steps
+  over q·k8 take, per 16 dims, 4tq and 4tq + 1, then 4tq + 2 and 4tq + 3
+  (``e_dims``).
 
-Shapes: B at the flagship's K = 10, Dh = 64, step 300 of T·S = 5000 at
+Shapes: E at the flagship's S = 250 with K = 10, over S = 4000 with
+padded keys, at K = 1, 16, 40 and the prefill's 501 rows, Dh 16 to 128,
+split counts with spans of all padding. B at the flagship's K = 10, Dh = 64, step 300 of T·S = 5000 at
 small B·H (the split count of the flagship's B = 8, H = 8), and at split
 counts, beam counts and head dims where splits hold no live column and
 step 0 returns exactly v_new; C at S = 250 and S = 4000 with padded keys;
@@ -38,24 +50,48 @@ import torch
 
 from chip_smoke import TOL
 from mm_s2ut.ops import decode_attention as jda
-from test_torch_attention_tf32_numerics import emulate_a, exp_e, mm3
+from test_torch_attention_tf32_numerics import emulate_a, exp_e, mm3, split, tf32
 
 torch.set_num_threads(1)
 LIM = TOL[torch.float32]
 B_TILE = 8  # live columns per warp tile of B
 C_TILE = {16: 16, 32: 16, 64: 16, 128: 8}  # keys per warp tile of C, by Dh
+E_TILE = {16: 32, 32: 32, 64: 32, 128: 16}  # keys per warp tile of E, by Dh
 WARPS = 4
 
 
 # ------------------------------------------------------------ the emulation
 
 
-def _warp_walk(tiles, scores_of, v_of, H, K, Dh, passes):
+def mm2(a: torch.Tensor, b: torch.Tensor, acc=None) -> torch.Tensor:
+    """acc + a @ b (fp32, batched) for b exact in tf32 (int8 values), as
+    fp32 E takes it: k-steps of 8 in order, each adding lo(a)·b, then
+    hi(a)·b, one mma each (``mm3`` less its hi(a)·lo(b) term, 0 here)."""
+    a, b = a.float(), b.float()
+    assert torch.equal(tf32(b), b)
+    ah, al = split(a)
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:]) if acc is None else acc
+    for k0 in range(0, a.shape[-1], 8):
+        for x in (al, ah):
+            part = x[..., k0:k0 + 8].double() @ b[..., k0:k0 + 8, :].double()
+            out = (out.double() + part).float()
+    return out
+
+
+def e_dims(Dh):
+    """The head dims in the order of fp32 E's k-steps over q·k8: per 16
+    dims, 4tq and 4tq + 1 (tq = 0..3), then 4tq + 2 and 4tq + 3."""
+    return torch.tensor([c + 4 * t + j for c in range(0, Dh, 16) for pair in ((0, 1), (2, 3))
+                         for t in range(4) for j in pair])
+
+
+def _warp_walk(tiles, scores_of, v_of, H, K, Dh, passes, pv=None):
     """Warp w of 4 takes ``tiles`` w, w + 4, ...; each keeps an online
     softmax per (head, row) over its tiles: ``scores_of(t)`` (H, K, n)
-    logits (−inf masked), ``v_of(t)`` (H, n, Dh). Returns the warps merged
-    in warp order: (m, l, acc) per (head, row), m −inf where no warp saw an
-    unmasked column."""
+    logits (−inf masked), ``v_of(t)`` (H, n, Dh), or ``pv(p, t, acc)``
+    the product acc + P·V itself. Returns the warps merged in warp order:
+    (m, l, acc) per (head, row), m −inf where no warp saw an unmasked
+    column."""
     warps = []
     for w in range(WARPS):
         m = torch.full((H, K), -torch.inf)
@@ -67,7 +103,8 @@ def _warp_walk(tiles, scores_of, v_of, H, K, Dh, passes):
             alpha = torch.where(seen, exp_e(m - m_new), torch.ones_like(m))
             p = torch.where(seen[..., None], exp_e(x - m_new[..., None]), torch.zeros_like(x))
             l = l * alpha + p.sum(-1)
-            acc = mm3(p, v_of(t), acc=acc * alpha[..., None], passes=passes)
+            acc = acc * alpha[..., None]
+            acc = pv(p, t, acc) if pv else mm3(p, v_of(t), acc=acc, passes=passes)
             m = m_new
         warps.append((m, l, acc))
     M = torch.stack([w[0] for w in warps]).amax(0)
@@ -150,6 +187,46 @@ def emulate_c(q, kv, bias, n_split, passes=3):
     return out, empty
 
 
+def emulate_e(q, kv, sk, sv, bias, n_split):
+    """Kernel E in fp32 (2xTF32) for any number of rows: (out (B, H, K,
+    Dh), the number of (b, split)s whose keys are all padding)."""
+    B, H, K, Dh = q.shape
+    S = kv.shape[2]
+    tile, dims = E_TILE[Dh], e_dims(Dh)
+    n_tiles = -(-S // tile)
+    tps = -(-n_tiles // n_split)
+    out, empty = torch.empty((B, H, K, Dh)), 0
+    for b in range(B):
+        qb, k8, v8 = q[b].float()[..., dims], kv[b, ..., :Dh].float()[..., dims], kv[b, ..., Dh:].float()
+
+        def cols(i):
+            return slice(i * tile, min(S, i * tile + tile))
+
+        def scores_of(i, b=b, qb=qb, k8=k8):
+            s = cols(i)
+            return mm2(qb, k8[:, s].transpose(-1, -2)) * sk[b][:, None, s] + bias[b, s]
+
+        def pv(p, i, acc, b=b, v8=v8):
+            s = cols(i)
+            return mm2(p * sv[b][:, None, s], v8[:, s], acc)
+
+        parts = []
+        for sp in range(-(-n_tiles // tps)):
+            tiles = list(range(sp * tps, min(n_tiles, (sp + 1) * tps)))
+            parts.append(_warp_walk(tiles, scores_of, None, H, K, Dh, None, pv=pv))
+            empty += bool((bias[b, sp * tps * tile: (sp + 1) * tps * tile] < -5e8).all())
+        if len(parts) == 1:
+            _, l, acc = parts[0]
+        else:
+            M = torch.stack([p[0] for p in parts]).amax(0)
+            l, acc = torch.zeros((H, K)), torch.zeros((H, K, Dh))
+            for m, lp, ap in parts:
+                sc = torch.where(m > -torch.inf, torch.exp(m - M), torch.zeros_like(m))
+                l, acc = l + sc * lp, acc + sc[..., None] * ap
+        out[b] = acc / l[..., None]
+    return out, empty
+
+
 def emulate_c_prefill(q, kv, bias, passes=3):
     """C's many rows: fp32 A with scale 1 over the slab's K and V halves."""
     Dh = q.shape[-1]
@@ -182,6 +259,21 @@ def _cross_inputs(B, H, K, Dh, S, lengths, seed):
     return q, kv, bias.astype(np.float32)
 
 
+def _quant_cross_inputs(B, H, K, Dh, S, lengths, seed):
+    """q (pre-scaled) and an int8 K‖V slab quantized per (head, column) by
+    its absolute max over 127, with those scales, from N(0, 1) states."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, H, K, Dh).astype(np.float32) * np.float32(Dh ** -0.5)
+    halves, scales = [], []
+    for _ in range(2):
+        x = rng.randn(B, H, S, Dh).astype(np.float32)
+        s = (np.abs(x).max(-1) / np.float32(127)).astype(np.float32)
+        halves.append(np.clip(np.round(x / s[..., None]), -127, 127).astype(np.int8))
+        scales.append(s)
+    bias = np.where(np.arange(S)[None, :] < np.asarray(lengths)[:, None], 0.0, -1e9)
+    return q, np.concatenate(halves, -1), scales[0], scales[1], bias.astype(np.float32)
+
+
 def _jax_b(args, layer):
     return np.asarray(jda.ancestry_decode_attention(*map(jnp.asarray, args), layer,
                                                     interpret=True))
@@ -189,6 +281,10 @@ def _jax_b(args, layer):
 
 def _jax_c(args):
     return np.asarray(jda.cross_decode_attention(*map(jnp.asarray, args), interpret=True))
+
+
+def _jax_e(args):
+    return np.asarray(jda.cross_decode_attention_i8(*map(jnp.asarray, args), interpret=True))
 
 
 def _err(got, want):
@@ -250,6 +346,43 @@ def test_c_3xtf32_tile_walk(K, Dh, S, lengths, n_split):
     assert _err(got, _jax_c(args)) <= LIM
     if lengths[1] * 4 <= S and n_split > 1:
         assert empty > 0  # a split wholly padding
+
+
+E_CASES = [  # (K, Dh, S, lengths, n_split)
+    (10, 64, 250, (250, 200), 4),      # the flagship's decode step (B = 8, H = 8)
+    (10, 64, 250, (250, 3), 1),        # the bench point's (B = 128): one split
+    (10, 64, 4000, (4000, 1000), 16),  # a long slab, 16 spans; row 1's last 12 all padding
+    (1, 16, 37, (37, 5), 2),           # one beam, Dh = 16 (2-byte V reads)
+    (16, 32, 250, (250, 40), 4),       # row 1: padding fills splits 1-3
+    (40, 128, 70, (70, 1), 2),         # three row groups, Dh = 128: 16-key tiles
+    (501, 64, 250, (250, 200), 1),     # the streaming prefill's rows, 32 groups
+]
+
+
+@pytest.mark.parametrize("K,Dh,S,lengths,n_split", E_CASES)
+def test_e_2xtf32_tile_walk(K, Dh, S, lengths, n_split):
+    args = _quant_cross_inputs(2, 2, K, Dh, S, lengths, seed=K + S + Dh)
+    got, empty = emulate_e(*map(torch.from_numpy, args), n_split)
+    want = _jax_e(args)
+    assert _err(got, want) <= LIM * max(1.0, float(np.abs(want).max()))
+    if lengths[1] * 4 <= S and n_split > 1:
+        assert empty > 0  # a split wholly padding
+
+
+def test_int8_operands_are_exact_in_tf32():
+    """Why fp32 E takes two products, not three: every int8 value is its
+    own tf32 rounding (lo = 0), so 3xTF32's hi·lo term adds exactly 0, and
+    the two products give 3xTF32's bits, over q·k8 and over P·v8."""
+    x = torch.arange(-128, 128, dtype=torch.float32)
+    hi, lo = split(x)
+    assert torch.equal(hi, x) and torch.equal(lo, torch.zeros_like(x))
+    rng = np.random.RandomState(8)
+    a = torch.from_numpy(rng.randn(3, 16, 64).astype(np.float32))
+    b = torch.from_numpy(rng.randint(-128, 128, (3, 64, 32)).astype(np.float32))
+    acc = torch.from_numpy(rng.randn(3, 16, 32).astype(np.float32))
+    assert torch.equal(mm2(a, b), mm3(a, b))
+    assert torch.equal(mm2(a, b, acc.clone()), mm3(a, b, acc=acc.clone()))
+    assert not torch.equal(mm3(a, b, passes=1), mm3(a, b))  # one pass is not enough
 
 
 def test_c_prefill_rows_through_a():
