@@ -48,7 +48,7 @@ is no CPU path):
    (``benchmarks/bench_streaming.py:56-82``) at full width with random
    weights: the 12-layer causal encoder, speech only, bf16, 320 ms chunks
    (32 frames) of 10 s utterances, beam 10, max_len 500, 48 new tokens per
-   search with prefix reuse; one warm-up and three measured utterances
+   search with prefix reuse; one warm-up and two measured utterances
    through ``StreamingS2ST``, per-chunk latency percentiles, finalize ms and
    commit ratio, then one offline encode of the same frames, with the
    launches of G, B and C counted over the measured utterances and that
@@ -123,9 +123,10 @@ is no CPU path):
     ``tests/torch_images/`` decoded without Pillow (pixels equal to PIL's
     committed ones, and the decoder's images/s), and every fixture of
     ``tests/torch_images/formats/`` (progressive, arithmetic, lossless,
-    CMYK/YCCK, h1v2 and 4:1:1 JPEG; Adam7, 16-bit and low-depth PNG) the
-    same way, with a 500x375 progressive JPEG's images/s beside the
-    baseline's; ViT-B/16-384 from random
+    CMYK/YCCK, h1v2 and 4:1:1 JPEG; Adam7, 16-bit and low-depth PNG; BMP,
+    GIF, TIFF and WebP, lossless and lossy) the same way, with a 500x375
+    progressive JPEG's and a 500x375 lossy WebP's images/s beside the
+    baseline's and the host decode time per container; ViT-B/16-384 from random
     timm weights saved with ``torch.save`` and read by
     ``load_timm_checkpoint``, 16 preprocessed images in fp32 and bf16
     (A launched 12 times per forward, images/s, card against CPU with
@@ -139,6 +140,10 @@ is no CPU path):
     ``python -m mm_s2ut_torch.inference --image_path <fixture>.jpg
     --vit_checkpoint`` (``vit_tiny``) card = CPU, ``cli.extract_features``
     over JPEG and PNG images card against CPU, and ``cli.vit_rollout``;
+    (g) ``cli.extract_features`` with ViT-B/16-384 under bf16 autocast
+    over one BMP, GIF, TIFF and WebP fixture of each kind, then over
+    their ``.npy`` twins (Pillow's pixels): features equal bit for bit, A
+    launched 12 times per forward;
 20. training the speech encoders and the enhanced path
     (``phase_train_speech_encoders``): (e) A with attention dropout 0.1
     and 0, and H after it, at B=8, T=499 over the padding of 2-10 s
@@ -1258,7 +1263,7 @@ def phase_streaming():
     max_len = min(500, cfg.max_target_positions - 1)
     srv = StreamingS2ST(model, chunk_frames=chunk, max_frames=total + 4, beam=10,
                         max_len=max_len, prefix_reuse=True, max_new_tokens=48)
-    utts = torch.randn(4, 1, total, 80, generator=gen).cuda()
+    utts = torch.randn(3, 1, total, 80, generator=gen).cuda()
 
     def run(feats):
         srv.reset()
@@ -1275,9 +1280,9 @@ def phase_streaming():
                 "C": D.cross_decode_attention}
 
     def measured():
-        res = [run(utts[i]) for i in (1, 2, 3)]
+        res = [run(utts[i]) for i in (1, 2)]
         with torch.no_grad():  # one offline encode of the last utterance's frames
-            off = model.encode(utts[3], torch.tensor([total], device="cuda"))["encoder_out"]
+            off = model.encode(utts[2], torch.tensor([total], device="cuda"))["encoder_out"]
         return res, off
 
     (res, off), wall, launches = counted(counters, measured)
@@ -1292,7 +1297,7 @@ def phase_streaming():
     diff = (streamed.float() - off.float()).abs()
     print(f"phase 8: streaming, causal flagship bf16 ({n_params / 1e6:.1f} M params), "
           f"{chunk_ms} ms chunks of 10 s utts, beam 10, max_len {max_len}, 48 new tokens per "
-          f"search, prefix reuse: {len(lat)} chunks over 3 utts; per-chunk ms p50 "
+          f"search, prefix reuse: {len(lat)} chunks over 2 utts; per-chunk ms p50 "
           f"{np.percentile(lat, 50):.3f} p95 {np.percentile(lat, 95):.3f} p99 "
           f"{np.percentile(lat, 99):.3f} max {lat.max():.3f}; finalize ms "
           f"{[round(f, 3) for f in fin]}; commit ratio {[round(r, 3) for r in ratios]}; final "
@@ -2654,11 +2659,18 @@ def loaded_vit(name, gen, path=None):
     return vit.eval()
 
 
+FORMAT_FIXTURES = 66  # tests/torch_images/formats/: 17 JPEG and PNG, 49 BMP, GIF, TIFF, WebP
+CONTAINERS = {".jpg": "JPEG", ".png": "PNG", ".bmp": "BMP", ".gif": "GIF", ".tif": "TIFF",
+              ".webp": "WebP"}
+
+
 def format_fixtures():
     """Every fixture of ``tests/torch_images/formats/`` (progressive, stopped
     early and smoothed, arithmetic-coded, lossless, CMYK, YCCK, h1v2, 4:1:1
-    JPEG; Adam7, 16-bit and 1/2/4-bit PNG), decoded on the host without
-    Pillow and held to the PIL pixels committed beside it: [(name, s)]."""
+    JPEG; Adam7, 16-bit and 1/2/4-bit PNG; BMP, GIF, TIFF and WebP of every
+    kind ``tests/test_torch_image_containers.py`` writes), decoded on the
+    host without Pillow and held to the PIL pixels committed beside it:
+    [(name, s)]."""
     import numpy as np
 
     from mm_s2ut_torch.data.image_io import read_image
@@ -2671,7 +2683,16 @@ def format_fixtures():
         want = np.load(path.with_suffix(".npy"))
         assert px.shape == want.shape and (px == want).all(), f"{path.name}: decoded pixels differ"
         out.append((path.name, secs))
-    assert len(out) == 17, [n for n, _ in out]
+    assert len(out) == FORMAT_FIXTURES, [n for n, _ in out]
+    return out
+
+
+def per_container(formats):
+    """{container: (fixtures, mean host decode ms)} of ``format_fixtures``."""
+    out = {}
+    for kind in CONTAINERS.values():
+        secs = [s for n, s in formats if CONTAINERS[Path(n).suffix] == kind]
+        out[kind] = (len(secs), 1e3 * sum(secs) / len(secs))
     return out
 
 
@@ -2734,10 +2755,19 @@ def phase_image_path(out_dir: Path):
     for _ in range(reps):
         read_image(prog)
     prog_s = (time.perf_counter() - t0) / reps
+    lossy = FIXTURES / "formats" / "webp_lossy_photo.webp"
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        read_image(lossy)
+    lossy_s = (time.perf_counter() - t0) / reps
     print(f"phase 19a: {len(formats)} format fixtures decoded without Pillow, pixels equal to "
           f"PIL's ({', '.join(f'{n} {s * 1e3:.1f} ms' for n, s in formats)}); host decode "
           f"{1 / prog_s:.2f} images/s at 500x375 progressive ({prog.name}, "
-          f"{prog.stat().st_size} B) beside {1 / big_s:.2f} images/s baseline")
+          f"{prog.stat().st_size} B) and {1 / lossy_s:.2f} images/s at 500x375 lossy WebP "
+          f"({lossy.name}, {lossy.stat().st_size} B) beside {1 / big_s:.2f} images/s baseline")
+    print("phase 19a: host decode per container, mean over its fixtures (at most 64x48 but the "
+          "two 500x375): " + ", ".join(f"{k} {n} files {ms:.2f} ms ({1e3 / ms:.1f} images/s)"
+                                       for k, (n, ms) in per_container(formats).items()))
 
     # (b) ViT-B/16-384
     vit_cpu = loaded_vit("vit_base_patch16_384", gen, root / "vit_base.bin")
@@ -2873,6 +2903,8 @@ def phase_image_path(out_dir: Path):
 
     # (f) the entry points
     image_entry_points(root, vit_cpu, gen, images)
+    # (g) the containers through cli.extract_features
+    container_features(root, gen)
     return launches
 
 
@@ -2954,6 +2986,68 @@ def image_entry_points(root: Path, vit_b, gen, images):
           f"extract_features over {len(names)} JPEG/PNG images: {feats['cuda'].shape}, card vs "
           f"CPU max|err| {f_err:.3e} (tol {f_tol:.2e}); vit_rollout: mask {mask.shape}, overlay "
           f"{overlay.shape[1]}x{overlay.shape[0]} PNG; A launched {n_a} times in all")
+
+
+# one fixture of each kind the BMP, GIF, TIFF and WebP readers decode
+CONTAINER_FEATURE_FIXTURES = [
+    "bmp_rle8.bmp", "bmp32_bitfields_v5.bmp", "gif_offset_transparent.gif",
+    "gif_interlaced.gif", "tiff_jpeg.tif", "tiff_tiles_lzw.tif", "tiff_planar2.tif",
+    "webp_lossless.webp", "webp_lossy_photo.webp", "webp_lossy_alpha.webp",
+    "webp_lossy_animated.webp"]
+
+
+def container_features(root: Path, gen):
+    """Phase 19g: ``cli.extract_features`` on the card with ViT-B/16-384 at
+    full width under bf16 autocast, over ``CONTAINER_FEATURE_FIXTURES`` and,
+    in a second run, over their ``.npy`` twins (Pillow's pixels, committed
+    beside each): the features equal bit for bit, A launched 12 times per
+    forward."""
+    import math
+
+    import numpy as np
+
+    from mm_s2ut_torch.cli import extract_features
+    from mm_s2ut_torch.ops import attention as A
+
+    loaded_vit("vit_base_patch16_384", gen, root / "vit_base_19g.bin")
+    batch = 4
+    forwards = math.ceil(len(CONTAINER_FEATURE_FIXTURES) / batch)
+    feats, secs = {}, {}
+    for kind in ("containers", "npy"):
+        flickr = root / f"flickr30k_{kind}"
+        (flickr / "flickr30k-images").mkdir(parents=True, exist_ok=True)
+        names = []
+        for name in CONTAINER_FEATURE_FIXTURES:
+            src = FIXTURES / "formats" / name
+            if kind == "npy":
+                src = src.with_suffix(".npy")
+            names.append(src.name)
+            (flickr / "flickr30k-images" / src.name).write_bytes(src.read_bytes())
+        (flickr / "test_2016_flickr.txt").write_text("\n".join(names) + "\n")
+        A.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            assert extract_features.main([
+                "--flickr30k-root", str(flickr), "--splits", "test2016", "--model",
+                "vit_base_patch16_384", "--checkpoint", str(root / "vit_base_19g.bin"),
+                "--batch-size", str(batch), "--output-dir", str(root / f"feats_19g_{kind}"),
+                "--device", "cuda"]) == 0
+        torch.cuda.synchronize()
+        secs[kind] = time.perf_counter() - t0
+        n_a = A.flash_attention.launches
+        assert n_a == 12 * forwards, f"19g {kind}: A launched {n_a} times in {forwards} forwards"
+        feats[kind] = np.load(root / f"feats_19g_{kind}" / "test2016.npy")
+    (root / "vit_base_19g.bin").unlink()
+    got, want = feats["containers"], feats["npy"]
+    assert got.shape == (len(CONTAINER_FEATURE_FIXTURES), 577, 768), got.shape
+    assert np.isfinite(got).all() and np.array_equal(got, want), (
+        "19g: features from the containers differ from their .npy twins' "
+        f"(max|diff| {float(np.abs(got - want).max())})")
+    print(f"phase 19g: extract_features ViT-B/16-384 bf16 over {len(CONTAINER_FEATURE_FIXTURES)} "
+          f"BMP/GIF/TIFF/WebP fixtures ({', '.join(CONTAINER_FEATURE_FIXTURES)}): features "
+          f"{got.shape} equal bit for bit to those of their .npy twins; A launched 12 times in "
+          f"each of {forwards} forwards per run; {secs['containers']:.2f} s and "
+          f"{secs['npy']:.2f} s per run (checkpoint load, decode, preprocess, ViT)")
 
 
 # ------------------------------------------------- training the speech encoders
@@ -5530,45 +5624,55 @@ def main(argv=None) -> int:
         return 1
 
     t0 = time.perf_counter()
-    smi = phase_build()
-    record = phase_kernels()
-    phase_xm_kernels()
-    vit_fp32 = phase_vit_kernels()
-    phase_long_cross()
-    record.update(phase_causal_kernels())
-    record.update(phase_train_kernels())
+    seconds = {}
+
+    def run(phase, *args):
+        """``phase(*args)``, its wall seconds kept under its name."""
+        start = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__] = round(time.perf_counter() - start, 1)
+        return out
+
+    smi = run(phase_build)
+    record = run(phase_kernels)
+    run(phase_xm_kernels)
+    vit_fp32 = run(phase_vit_kernels)
+    run(phase_long_cross)
+    record.update(run(phase_causal_kernels))
+    record.update(run(phase_train_kernels))
     for name, fields in vit_fp32.items():
         record[name].update(fields)
-    phase_small_parity()
+    run(phase_small_parity)
     model, vocoder, gen = flagship()
-    launches = phase_main_path(model, vocoder, gen, Path(args.out))
-    bench = phase_bench_point(model, vocoder, gen)
+    launches = run(phase_main_path, model, vocoder, gen, Path(args.out))
+    bench = run(phase_bench_point, model, vocoder, gen)
     launches.update(D=bench["D"], E=bench["E"])
-    launches["F"] = phase_int4(model, vocoder, gen)["F"]
+    launches["F"] = run(phase_int4, model, vocoder, gen)["F"]
     del model, vocoder
     torch.cuda.empty_cache()
-    phase_stream_parity()
-    launches["G"] = phase_streaming()["G"]
-    phase_entry_points(Path(args.out))
-    phase_train_parity(Path(args.out))
-    launches["H"], plain_step_ms = phase_train_bench()
-    phase_train_entry(Path(args.out))
-    phase_serving(smi)
-    phase_small_serving()
-    phase_config_branches(Path(args.out))
-    xm_launches = phase_xm_path(torch.Generator().manual_seed(16))
-    phase_xm_small_parity()
-    phase_xm_entry(Path(args.out))
-    image_launches = phase_image_path(Path(args.out))
-    train_launches = phase_train_speech_encoders(Path(args.out), plain_step_ms)
-    vit_train_launches = phase_train_through_images(Path(args.out))
-    tools_launches = phase_tools(Path(args.out))
-    fusion_launches, fusion_record = phase_fusion_types(Path(args.out))
+    run(phase_stream_parity)
+    launches["G"] = run(phase_streaming)["G"]
+    run(phase_entry_points, Path(args.out))
+    run(phase_train_parity, Path(args.out))
+    launches["H"], plain_step_ms = run(phase_train_bench)
+    run(phase_train_entry, Path(args.out))
+    run(phase_serving, smi)
+    run(phase_small_serving)
+    run(phase_config_branches, Path(args.out))
+    xm_launches = run(phase_xm_path, torch.Generator().manual_seed(16))
+    run(phase_xm_small_parity)
+    run(phase_xm_entry, Path(args.out))
+    image_launches = run(phase_image_path, Path(args.out))
+    train_launches = run(phase_train_speech_encoders, Path(args.out), plain_step_ms)
+    vit_train_launches = run(phase_train_through_images, Path(args.out))
+    tools_launches = run(phase_tools, Path(args.out))
+    fusion_launches, fusion_record = run(phase_fusion_types, Path(args.out))
     for name, fields in fusion_record.items():
         record[name].update({f"s827_{k}": v for k, v in fields.items()})
-    phase_tp_kernels()
-    pipe_launches = phase_pipeline()
-    fp32_launches = phase_fp32_decode()
+    run(phase_tp_kernels)
+    pipe_launches = run(phase_pipeline)
+    fp32_launches = run(phase_fp32_decode)
+    print(f"chip_smoke: wall seconds per phase {json.dumps(seconds)}")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -4,16 +4,20 @@ What the JAX package asks of PIL (``mm_s2ut/models/vit.py:141-194``,
 ``mm_s2ut/cli/vit_rollout.py``), for a machine that has no Pillow:
 
 * :func:`read_image` — a file → ``(H, W, 3)`` uint8, equal to
-  ``np.asarray(Image.open(path).convert("RGB"))`` for every PNG and JPEG
-  Pillow opens, and ``ValueError`` naming the file for those it refuses.
+  ``np.asarray(Image.open(path).convert("RGB"))`` for every PNG, JPEG,
+  BMP, GIF, TIFF and WebP file Pillow opens (the container known by its
+  first bytes), and ``ValueError`` naming the file for those it refuses.
   It reads ``.npy`` pixels ((H, W, 3) or (H, W) uint8); PNG in every
   colour type and bit depth, Adam7-interlaced or not (gray of 1/2/4 bits
   scaled as Pillow's ``1``/``L;2``/``L;4``, 16-bit gray clamped to 255
   as Pillow's ``I;16`` converts, the other 16-bit types' high bytes,
-  alpha dropped as ``convert("RGB")`` drops it); and JPEG through
+  alpha dropped as ``convert("RGB")`` drops it); JPEG through
   ``data/jpeg.py``: Huffman, arithmetic, progressive and lossless frames,
   block smoothing, every integral sampling ratio, CMYK and YCCK, all in
-  libjpeg-turbo's integer arithmetic.
+  libjpeg-turbo's integer arithmetic; BMP through ``data/bmp.py``, GIF
+  (the first frame) through ``data/gif.py``, TIFF (the first page)
+  through ``data/tiff.py`` and WebP, lossless and lossy, through
+  ``data/webp.py``; each module's docstring says what it reads.
 * :func:`resize` — Pillow's ``Image.resize`` for ``BICUBIC`` and
   ``BILINEAR`` on 8-bit images (``Resample.c``): a separable filter
   whose support widens with the downscale factor, coefficients
@@ -34,12 +38,16 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from mm_s2ut_torch.data.bmp import decode_bmp
+from mm_s2ut_torch.data.gif import decode_gif
 from mm_s2ut_torch.data.jpeg import decode_jpeg
+from mm_s2ut_torch.data.tiff import decode_tiff
+from mm_s2ut_torch.data.webp import decode_webp
 
 
 def read_image(path: str | Path) -> np.ndarray:
-    """``(H, W, 3)`` uint8 RGB pixels of a ``.npy``, PNG or JPEG file (by
-    its first bytes; ``.npy`` also by its suffix)."""
+    """``(H, W, 3)`` uint8 RGB pixels of a ``.npy``, PNG, JPEG, BMP, GIF,
+    TIFF or WebP file (by its first bytes; ``.npy`` also by its suffix)."""
     path = Path(path)
     data = path.read_bytes()
     name = str(path)
@@ -53,7 +61,15 @@ def read_image(path: str | Path) -> np.ndarray:
         return decode_png(data, name)
     if data[:2] == b"\xff\xd8":
         return decode_jpeg(data, name)
-    raise ValueError(f"{name}: not a PNG, JPEG or .npy image")
+    if data[:2] == b"BM":
+        return decode_bmp(data, name)
+    if data[:4] == b"GIF8":
+        return decode_gif(data, name)
+    if data[:4] in (b"II*\0", b"MM\0*"):
+        return decode_tiff(data, name)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return decode_webp(data, name)
+    raise ValueError(f"{name}: not a PNG, JPEG, BMP, GIF, TIFF, WebP or .npy image")
 
 
 def _rgb(arr: np.ndarray) -> np.ndarray:

@@ -13,7 +13,10 @@ the ranks' ``DistributedTransport`` (``parallel/pipeline.py``). Rank 0
 also runs the plain trainer on its card, from the same weights and seed.
 With ``--data`` > 1 every rank also runs the data-parallel step without
 the pipeline (the pipe ranks replicas): the same half batches, the
-reference of the pipelined step's own rounding.
+reference of the pipelined step's own rounding; its parameter change is
+held to the plain run's within ``UPDATE_TOL`` in fp32 and
+``BF16_DP_UPDATE_TOL`` in bf16, its losses within 1e-5 and
+``BF16_DP_LOSS_TOL``.
 
 In fp32 with TF32 off and in bf16 autocast, three steps each: the losses
 within a relative 1e-5 of the reference's (the plain run's, in bf16 with
@@ -53,6 +56,11 @@ from mm_s2ut_torch.parallel.pipeline import sequential_params
 from mm_s2ut_torch.train.trainer import Trainer
 
 UPDATE_TOL = 2e-2  # chip_smoke.py phase 20d's limit on the parameters' change
+# A bf16 data-parallel step against one card's: bf16 matmuls round a row by
+# the call's shape, which reorders every later sum (tests/test_torch_ddp_bf16.py
+# holds the port to 3x JAX's own gap on the CPU; the card's was 6.34e-2).
+BF16_DP_UPDATE_TOL = 1e-1
+BF16_DP_LOSS_TOL = 1e-4  # and its losses, relative (the card's were 1.71e-5 apart)
 
 
 def flagship(seed: int = 25):
@@ -194,7 +202,12 @@ def main(argv=None) -> int:
                 upd = update_error(runs["dp"][1], runs["plain"][1])
                 say(f"pipe_step: {dtype} data {args.data} x pipe 1 (the data-parallel step) "
                     f"against the plain run: parameter change {upd:.2e} of the plain run's")
+                lrel = max(abs(a - b) / abs(b) for a, b in zip(runs["dp"][0], runs["plain"][0]))
                 out[dtype]["dp_vs_plain_update_err"] = upd
+                out[dtype]["dp_vs_plain_max_rel"] = lrel
+                bf16 = dtype == "bfloat16"
+                assert (upd <= (BF16_DP_UPDATE_TOL if bf16 else UPDATE_TOL)
+                        and lrel <= (BF16_DP_LOSS_TOL if bf16 else 1e-5)), (upd, lrel)
             assert (out[dtype][ref]["max_rel"] <= 1e-5
                     and out[dtype][ref]["update_err"] <= UPDATE_TOL), (dtype, ref, out[dtype])
         say(f"pipe_step: {dtype}: A and H {per_step} launches per pipelined step on each rank")

@@ -317,7 +317,7 @@ class Trainer:
             if not has_rows:
                 self.rng.load_state_dict(shared[1])
         names = self.metric_names
-        sums = (torch.stack([metrics[k].float() for k in names]) if has_rows
+        sums = (torch.stack([metrics[k].detach().float() for k in names]) if has_rows
                 else torch.zeros(len(names), device=self.device))
         sums = self._all_reduce(sums)
         ntokens = sums[names.index("ntokens")]

@@ -1,0 +1,847 @@
+"""The containers Pillow opens besides PNG and JPEG, without Pillow:
+``data/image_io.read_image`` on BMP, GIF, TIFF and WebP files against
+``np.asarray(Image.open(p).convert("RGB"))``, max |difference| 0.
+
+* BMP (``data/bmp.py``): 1/4/8-bit palettes (and Pillow's ``1``/``L``
+  for palettes of grays), 16 bits 5-5-5 and BI_BITFIELDS 5-6-5 (every
+  one of the 65536 values), 24 and 32 bits (BI_RGB and BI_BITFIELDS
+  layouts), RLE8 and RLE4 with delta and end-of-line escapes, top-down
+  rows, the 12-byte core header and the V4/V5 headers.
+* GIF (``data/gif.py``): the first frame of a global or local palette,
+  interlaced rows, a frame at an offset on its screen with a transparent
+  index, one that grows the screen, an animation, a full LZW table kept
+  without a clear code.
+* TIFF (``data/tiff.py``): strips and tiles, planar configuration 2,
+  none / PackBits / LZW / Deflate / JPEG (YCbCr), the horizontal
+  predictor on 8- and 16-bit samples, both byte orders, fill order 2,
+  MinIsWhite and MinIsBlack at 1/2/4/8/16 bits, palettes, RGB and RGBA at
+  8 and 16 bits (premultiplied alpha too), CMYK.
+* WebP (``data/webp.py``): lossless files using each of the four
+  transforms, with alpha, animated; lossy files at several qualities, a
+  photo-sized one, with an ALPH chunk, animated, and with the simple loop
+  filter, a sharpness and loop-filter deltas (libwebp's encoder writes
+  none of these, so :func:`vp8_rewrite` re-encodes a file's first
+  partition with them set).
+
+What Pillow refuses raises ``ValueError`` naming the file, each refusal
+checked against Pillow first; what Pillow reads and the port does not
+decode yet (TIFF CCITT, float samples, CIELab) raises ``ValueError``
+naming the file and the tag's value. JAX's ``RawImageStore`` (Pillow) and
+the port's read one file of each container to equal pixels.
+
+Pillow writes what it can; the small writers here write the rest
+(:func:`bmp_bytes` with :func:`rle8`/:func:`rle4`, :func:`gif_bytes` with
+its LZW coder, :func:`tiff_bytes` with TIFF's LZW and PackBits, and
+:func:`vp8_rewrite` with RFC 6386's boolean encoder). The committed
+fixtures under ``tests/torch_images/formats/`` are
+:func:`container_fixture_bytes`, written anew with the other formats by
+``PYTHONPATH=. python tests/test_torch_image_formats.py``.
+"""
+import io
+import struct
+import zlib
+from pathlib import Path
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from mm_s2ut_torch.data import image_io as I
+from mm_s2ut_torch.data import webp as webp_mod
+from test_torch_image_formats import FORMATS, pil_refuses, pil_rgb, save, scene
+
+
+def assert_equals_pil(data: bytes, tmp_path, name: str):
+    want = pil_rgb(data)
+    (tmp_path / name).write_bytes(data)
+    got = I.read_image(tmp_path / name)
+    assert got.shape == want.shape and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+
+
+# ----------------------------------------------------------------------- BMP
+
+def bmp_bytes(pixels, bits, *, palette=None, compression=0, header=40, masks=None,
+              top_down=False, data=None, colors=None) -> bytes:
+    """A BMP file: ``pixels`` (h, w) indices or (h, w, c) bytes in file
+    order (B, G, R[, X]) or (h, w) 16-bit values; ``data`` replaces the
+    packed rows (RLE streams)."""
+    px = np.asarray(pixels)
+    h, w = px.shape[:2]
+    if data is None:
+        stride = ((w * bits + 31) >> 3) & ~3
+        if bits < 8:
+            vals = px.astype(np.int64)
+            bitrows = ((vals[..., None] >> np.arange(bits - 1, -1, -1)) & 1).reshape(h, -1)
+            rows = np.packbits(bitrows.astype(np.uint8), axis=1)
+        elif bits == 16:
+            rows = px.astype("<u2").view(np.uint8).reshape(h, -1)
+        else:
+            rows = px.astype(np.uint8).reshape(h, -1)
+        rows = np.pad(rows, ((0, 0), (0, stride - rows.shape[1])))
+        data = (rows if top_down else rows[::-1]).tobytes()
+    pal = b""
+    if palette is not None:
+        entries = np.asarray(palette, np.uint8)[:, ::-1]  # RGB → BGR
+        if header != 12:
+            entries = np.pad(entries, ((0, 0), (0, 1)))
+        pal = entries.tobytes()
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+        extra = b""
+    else:
+        ncol = len(palette) if colors is None and palette is not None else colors or 0
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h, 1, bits,
+                           compression, len(data), 2835, 2835, ncol, 0)
+        extra = b""
+        if header == 40 and masks is not None:
+            extra = struct.pack("<3I", *masks[:3])
+        elif header > 40:
+            m = list(masks or (0, 0, 0, 0)) + [0] * 4
+            info += struct.pack("<4I", *m[:4]) + bytes(header - 56)
+    offset = 14 + len(info) + len(extra) + len(pal)
+    return (b"BM" + struct.pack("<IHHI", offset + len(data), 0, 0, offset) + info + extra + pal
+            + data)
+
+
+def _rle(rows, rle4: bool) -> bytes:
+    """An RLE8/RLE4 stream of (h, w) indices in file order (bottom row
+    first): runs, odd and even absolute runs (word-aligned), a delta over
+    pixels of index 0, end of line after each row, end of bitmap."""
+    out = bytearray()
+    for y, row in enumerate(rows):
+        row = [int(v) for v in row]
+        x = 0
+        while x < len(row):
+            if y % 5 == 2 and x == 1 and len(row) > 6 and all(v == 0 for v in row[1:4]):
+                out += bytes([0, 2, 0xEE, 0xEE, 3, 0])  # Pillow skips two bytes, then (3, 0)
+                x += 3
+                continue
+            run = 1
+            while x + run < len(row) and row[x + run] == row[x] and run < 255:
+                run += 1
+            if rle4 and run == 1 and x + 1 < len(row):  # alternating pair as an encoded run
+                run, pair = 2, (row[x] << 4) | row[x + 1]
+                out += bytes([run, pair])
+                x += 2
+                continue
+            if run >= 3 or len(row) - x < 3:
+                out += bytes([run, row[x] if not rle4 else (row[x] << 4) | row[x]])
+                x += run
+                continue
+            n = 3
+            while x + n < len(row) and n < 254 and row[x + n] != row[x + n - 1]:
+                n += 1
+            if rle4:
+                n -= n % 2  # whole bytes only
+                lit = bytes((row[x + i] << 4) | row[x + i + 1] for i in range(0, n, 2))
+            else:
+                lit = bytes(row[x: x + n])
+            out += bytes([0, n]) + lit
+            if len(lit) % 2:
+                out += b"\0"
+            x += n
+        out += bytes([0, 0])
+    return bytes(out + bytes([0, 1]))
+
+
+def rle8(indices) -> bytes:
+    return _rle(np.asarray(indices)[::-1], False)
+
+
+def rle4(indices) -> bytes:
+    return _rle(np.asarray(indices)[::-1], True)
+
+
+def _palette(n, seed):
+    return np.random.RandomState(seed).randint(0, 256, (n, 3))
+
+
+def _indices(h, w, n, seed):
+    """Indices with runs and zeros (so that RLE has runs, literals and deltas)."""
+    rng = np.random.RandomState(seed)
+    idx = (scene(h, w, seed=seed, noise=0)[..., 0].astype(np.int64) * n // 256)
+    idx[rng.rand(h, w) < 0.2] = rng.randint(0, n)
+    idx[2::5, 1:4] = 0
+    return idx
+
+
+def bmp_fixtures():
+    rgb = scene(37, 45, seed=21)
+    bgr = rgb[..., ::-1]
+    v16 = (scene(29, 33, seed=22).astype(np.int64) * 257)[..., 0] & 0xFFFF
+    bgrx = np.concatenate([bgr, scene(37, 45, c=1, seed=23)], 2)
+    return {
+        "bmp_bw1.bmp": save(Image.fromarray(rgb).convert("1"), "BMP"),
+        "bmp_pal1.bmp": bmp_bytes(_indices(37, 45, 2, 1), 1, palette=_palette(2, 1)),
+        "bmp_pal4.bmp": bmp_bytes(_indices(37, 45, 16, 2), 4, palette=_palette(16, 2)),
+        "bmp_pal8.bmp": save(Image.fromarray(rgb).quantize(64), "BMP"),
+        "bmp_gray8.bmp": save(Image.fromarray(rgb).convert("L"), "BMP"),
+        "bmp_core8.bmp": bmp_bytes(_indices(29, 33, 200, 3), 8, palette=_palette(200, 3),
+                                   header=12),
+        "bmp_555.bmp": bmp_bytes(v16, 16),
+        "bmp_565_v4.bmp": bmp_bytes(v16, 16, compression=3, header=108,
+                                    masks=(0xF800, 0x7E0, 0x1F, 0)),
+        "bmp24.bmp": save(Image.fromarray(rgb), "BMP"),
+        "bmp24_topdown.bmp": bmp_bytes(bgr, 24, top_down=True),
+        "bmp32.bmp": bmp_bytes(bgrx, 32),
+        "bmp32_bitfields_v5.bmp": bmp_bytes(bgrx, 32, compression=3, header=124,
+                                            masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000)),
+        "bmp_rle8.bmp": bmp_bytes(np.zeros((37, 45)), 8, palette=_palette(40, 4),
+                                  compression=1, data=rle8(_indices(37, 45, 40, 4))),
+        "bmp_rle4.bmp": bmp_bytes(np.zeros((37, 45)), 4, palette=_palette(16, 5),
+                                  compression=2, data=rle4(_indices(37, 45, 16, 5))),
+    }
+
+
+# ----------------------------------------------------------------------- GIF
+
+def gif_lzw(idx: bytes, min_size: int, clear_when_full: bool = True) -> bytes:
+    """GIF's LZW of ``idx`` (a clear code first; with ``clear_when_full``
+    False the full table is kept: a deferred clear)."""
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    table = {bytes([i]): i for i in range(clear)}
+    nxt, size = end + 1, min_size + 1
+    codes = [(clear, size)]
+    w = b""
+    for p in idx:
+        wc = w + bytes([p])
+        if wc in table:
+            w = wc
+            continue
+        codes.append((table[w], size))
+        if nxt < 4096:
+            table[wc] = nxt
+            nxt += 1
+            if nxt - 1 == (1 << size) and size < 12:
+                size += 1
+        elif clear_when_full:
+            codes.append((clear, size))
+            table = {bytes([i]): i for i in range(clear)}
+            nxt, size = end + 1, min_size + 1
+        w = bytes([p])
+    codes += [(table[w], size), (end, size)]
+    acc = n = 0
+    out = bytearray()
+    for c, s in codes:
+        acc |= c << n
+        n += s
+        while n >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            n -= 8
+    return bytes(out + (bytes([acc]) if n else b""))
+
+
+def gif_bytes(screen, frame, *, global_pal=None, local_pal=None, offset=(0, 0),
+              transparency=None, interlace=False, min_size=8, clear=True) -> bytes:
+    """A GIF89a of one frame: ``frame`` (h, w) indices at ``offset`` on a
+    ``screen`` (width, height)."""
+    h, w = frame.shape
+    flags = (0x80 | 7) if global_pal is not None else 0
+    out = b"GIF89a" + struct.pack("<HHBBB", *screen, flags, 0, 0)
+    if global_pal is not None:
+        out += np.asarray(global_pal, np.uint8).tobytes()
+    if transparency is not None:
+        out += bytes([0x21, 0xF9, 4, 1, 0, 0, transparency, 0])
+    iflags = (0x80 | 7 if local_pal is not None else 0) | (0x40 if interlace else 0)
+    out += b"," + struct.pack("<HHHHB", *offset, w, h, iflags)
+    if local_pal is not None:
+        out += np.asarray(local_pal, np.uint8).tobytes()
+    rows = frame
+    if interlace:
+        rows = frame[np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8), np.arange(2, h, 4),
+                                     np.arange(1, h, 2)])]
+    code = gif_lzw(rows.astype(np.uint8).tobytes(), min_size, clear)
+    out += bytes([min_size]) + b"".join(bytes([len(code[i: i + 255])]) + code[i: i + 255]
+                                        for i in range(0, len(code), 255))
+    return out + b"\0;"
+
+
+def gif_fixtures():
+    rgb = Image.fromarray(scene(37, 45, seed=31))
+    frames = [Image.fromarray(scene(37, 45, seed=32 + k)) for k in range(3)]
+    buf = io.BytesIO()
+    frames[0].save(buf, "GIF", save_all=True, append_images=frames[1:], duration=40)
+    idx = _indices(30, 40, 256, 33)
+    return {
+        "gif_global.gif": save(rgb, "GIF"),
+        "gif_gray.gif": save(rgb.convert("L"), "GIF"),
+        "gif_interlaced.gif": save(rgb, "GIF", interlace=True),
+        "gif_animated.gif": buf.getvalue(),
+        "gif_local_palette.gif": gif_bytes((40, 30), idx, global_pal=_palette(256, 34),
+                                           local_pal=_palette(256, 35), interlace=True),
+        "gif_offset_transparent.gif": gif_bytes((48, 40), idx[:20, :30],
+                                                global_pal=_palette(256, 36), offset=(9, 13),
+                                                transparency=7),
+        "gif_grows.gif": gif_bytes((30, 20), idx[:25, :35], local_pal=_palette(256, 37),
+                                   offset=(8, 6)),
+    }
+
+
+# ---------------------------------------------------------------------- TIFF
+
+def tiff_lzw(raw: bytes) -> bytes:
+    """TIFF's LZW: MSB-first codes, widths growing one code early, a clear
+    code before the table fills."""
+    table = {bytes([i]): i for i in range(256)}
+    nxt, size = 258, 9
+    codes = [(256, 9)]
+    w = b""
+    for b in raw:
+        wc = w + bytes([b])
+        if wc in table:
+            w = wc
+            continue
+        codes.append((table[w], size))
+        table[wc] = nxt
+        nxt += 1
+        if nxt >= (1 << size) and size < 12:
+            size += 1
+        if nxt >= 4094:
+            codes.append((256, size))
+            table = {bytes([i]): i for i in range(256)}
+            nxt, size = 258, 9
+        w = bytes([b])
+    if w:
+        codes.append((table[w], size))
+    codes.append((257, size))
+    acc = n = 0
+    out = bytearray()
+    for c, s in codes:
+        acc = (acc << s) | c
+        n += s
+        while n >= 8:
+            n -= 8
+            out.append((acc >> n) & 255)
+    return bytes(out + (bytes([(acc << (8 - n)) & 255]) if n else b""))
+
+
+def packbits(raw: bytes) -> bytes:
+    out, i = bytearray(), 0
+    while i < len(raw):
+        j = i
+        while j + 1 < len(raw) and raw[j + 1] == raw[i] and j - i < 127:
+            j += 1
+        if j > i:
+            out += bytes([257 - (j - i + 1)]) + raw[i: i + 1]
+            i = j + 1
+            continue
+        k = i + 1
+        while k < len(raw) and k - i < 128 and not (k + 1 < len(raw) and raw[k + 1] == raw[k]):
+            k += 1
+        out += bytes([k - i - 1]) + raw[i:k]
+        i = k
+    return bytes(out)
+
+
+_REV = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
+
+
+def tiff_bytes(samples, bps, photo, *, bo="<", compression=1, predictor=1, tile=None,
+               rows_per_strip=None, planar=1, extra=(), colormap=None, fill=1, fmt=None,
+               tags=()) -> bytes:
+    """A one-page TIFF of (h, w, s) integer samples."""
+    samples = np.asarray(samples)
+    h, w, spp = samples.shape
+    dt = np.dtype(bo + {8: "u1", 16: "u2", 32: "f4"}.get(bps, "u1"))
+    planes = [samples] if planar == 1 else [samples[..., i: i + 1] for i in range(spp)]
+    tw, th = tile if tile else (w, rows_per_strip or h)
+    chunks = []
+    for pl in planes:
+        for ty in range(-(-h // th)):
+            for tx in range(-(-w // tw)):
+                blk = pl[ty * th: (ty + 1) * th, tx * tw: (tx + 1) * tw]
+                rows = th if tile else blk.shape[0]
+                full = np.zeros((rows, tw, pl.shape[2]), blk.dtype)
+                full[: blk.shape[0], : blk.shape[1]] = blk
+                if predictor == 2:
+                    full = full.astype(np.int64)
+                    full[:, 1:] = (full[:, 1:] - full[:, :-1]) & ((1 << bps) - 1)
+                if bps >= 8:
+                    raw = full.astype(dt).tobytes()
+                else:
+                    vals = full.astype(np.int64).reshape(rows, -1)
+                    bits = (vals[..., None] >> np.arange(bps - 1, -1, -1)) & 1
+                    raw = np.packbits(bits.reshape(rows, -1).astype(np.uint8), axis=1).tobytes()
+                raw = {5: tiff_lzw, 8: zlib.compress, 32946: zlib.compress,
+                       32773: packbits}.get(compression, lambda r: r)(raw)
+                chunks.append(_REV[np.frombuffer(raw, np.uint8)].tobytes() if fill == 2 else raw)
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bps] * spp), (259, 3, [compression]),
+               (262, 3, [photo]), (277, 3, [spp]), (284, 3, [planar])]
+    for tag, val in ((266, fill), (317, predictor)):
+        if val != 1:
+            entries.append((tag, 3, [val]))
+    if extra:
+        entries.append((338, 3, list(extra)))
+    if colormap is not None:
+        entries.append((320, 3, [int(v) for v in np.asarray(colormap).reshape(-1)]))
+    if fmt is not None:
+        entries.append((339, 3, [fmt] * spp))
+    entries += list(tags)
+    data = bytearray(b"II*\0" if bo == "<" else b"MM\0*") + bytearray(4)
+    offs = []
+    for c in chunks:
+        offs.append(len(data))
+        data += c + b"\0" * (len(c) % 2)
+    counts = [len(c) for c in chunks]
+    entries += ([(322, 3, [tw]), (323, 3, [th]), (324, 4, offs), (325, 4, counts)] if tile
+                else [(273, 4, offs), (278, 4, [th]), (279, 4, counts)])
+    entries.sort()
+    struct.pack_into(bo + "I", data, 4, len(data))
+    body = bytearray(struct.pack(bo + "H", len(entries)))
+    tail, tail_at = bytearray(), len(data) + 2 + 12 * len(entries) + 4
+    for tag, typ, vals in entries:
+        raw = b"".join(struct.pack(bo + {3: "H", 4: "I"}[typ], v) for v in vals)
+        if len(raw) <= 4:
+            body += struct.pack(bo + "HHI", tag, typ, len(vals)) + raw.ljust(4, b"\0")
+        else:
+            body += struct.pack(bo + "HHII", tag, typ, len(vals), tail_at + len(tail))
+            tail += raw + b"\0" * (len(raw) % 2)
+    return bytes(data + body + b"\0\0\0\0" + tail)
+
+
+def tiff_fixtures():
+    rgb = scene(37, 45, seed=41)
+    img = Image.fromarray(rgb)
+    rng = np.random.RandomState(42)
+    r16 = rgb.astype(np.int64) * 257 + rng.randint(0, 256, rgb.shape)
+    return {
+        "tiff_strips.tif": tiff_bytes(rgb, 8, 2, rows_per_strip=8),
+        "tiff_packbits.tif": save(img, "TIFF", compression="packbits"),
+        "tiff_lzw.tif": save(img, "TIFF", compression="tiff_lzw"),
+        "tiff_deflate.tif": save(img, "TIFF", compression="tiff_adobe_deflate"),
+        "tiff_jpeg.tif": save(img, "TIFF", compression="jpeg"),
+        "tiff_tiles_lzw.tif": tiff_bytes(rgb, 8, 2, compression=5, tile=(16, 16)),
+        "tiff_planar2.tif": tiff_bytes(rgb, 8, 2, compression=32773, planar=2,
+                                       rows_per_strip=10),
+        "tiff_predictor2_lzw.tif": tiff_bytes(rgb, 8, 2, compression=5, predictor=2,
+                                              rows_per_strip=16),
+        "tiff_rgb16_mm_predictor2.tif": tiff_bytes(r16, 16, 2, compression=8, predictor=2,
+                                                   bo=">"),
+        "tiff_gray1_miniswhite.tif": tiff_bytes(rng.randint(0, 2, (37, 45, 1)), 1, 0),
+        "tiff_gray4_fill2.tif": tiff_bytes(rng.randint(0, 16, (37, 45, 1)), 4, 0, fill=2,
+                                           compression=5),
+        "tiff_gray8.tif": save(img.convert("L"), "TIFF"),
+        "tiff_gray16.tif": save(Image.fromarray(r16[..., 0].astype(np.uint16) // 97), "TIFF",
+                                compression="tiff_lzw"),
+        "tiff_palette.tif": save(img.quantize(32), "TIFF", compression="tiff_lzw"),
+        "tiff_rgba.tif": save(img.convert("RGBA"), "TIFF", compression="tiff_adobe_deflate"),
+        "tiff_rgba16_premultiplied.tif": tiff_bytes(
+            np.concatenate([r16 // 2, np.full(rgb.shape[:2] + (1,), 40000)], 2), 16, 2,
+            extra=(1,)),
+        "tiff_cmyk.tif": save(Image.fromarray(scene(37, 45, c=4, seed=43), "CMYK"), "TIFF",
+                              compression="packbits"),
+    }
+
+
+# ---------------------------------------------------------------------- WebP
+
+def bool_encode(seq) -> bytes:
+    """RFC 6386's boolean encoder over (probability, bit) pairs."""
+    out = bytearray()
+    rng, bottom, count = 255, 0, 24
+
+    def carry():
+        i = len(out) - 1
+        while out[i] == 255:
+            out[i] = 0
+            i -= 1
+        out[i] += 1
+
+    for prob, bit in seq:
+        split = 1 + (((rng - 1) * prob) >> 8)
+        if bit:
+            bottom += split
+            rng -= split
+        else:
+            rng = split
+        while rng < 128:
+            rng <<= 1
+            if bottom & (1 << 31):
+                carry()
+            bottom = (bottom << 1) & 0xFFFFFFFF
+            count -= 1
+            if count == 0:
+                out.append(bottom >> 24)
+                bottom &= 0xFFFFFF
+                count = 8
+    if bottom & (1 << (32 - count)):
+        carry()
+    v = (bottom << (count & 7)) & 0xFFFFFFFF
+    for _ in range(count >> 3):
+        v = (v << 8) & 0xFFFFFFFF
+    for _ in range(4):
+        out.append(v >> 24)
+        v = (v << 8) & 0xFFFFFFFF
+    return bytes(out)
+
+
+def _first_partition_log(vp8: bytes):
+    """The (probability, bit) pairs the port's decoder reads from a VP8
+    frame's first partition."""
+    logs = []
+
+    class Recorder(webp_mod._Bool):
+        def __init__(self, data):
+            super().__init__(data)
+            self.log = []
+            logs.append(self)
+
+        def bit(self, prob):
+            b = super().bit(prob)
+            self.log.append((prob, b))
+            return b
+
+    original, webp_mod._Bool = webp_mod._Bool, Recorder
+    try:
+        webp_mod.decode_vp8(vp8)
+    finally:
+        webp_mod._Bool = original
+    return logs[0].log
+
+
+def vp8_rewrite(data: bytes, simple=None, sharpness=None, lf_deltas=None) -> bytes:
+    """A simple lossy WebP with its frame header's loop-filter fields set:
+    the first partition is decoded, the fields' bits replaced (``lf_deltas``
+    = (ref frame delta 0, mode delta 0) added where none were sent), and
+    the partition encoded again; the token partitions are kept."""
+    assert data[12:16] == b"VP8 "
+    vp8 = data[20: 20 + struct.unpack_from("<I", data, 16)[0]]
+    log = _first_partition_log(vp8)
+    bits = [b for _, b in log]
+    i = 3
+    if bits[2]:  # segmentation: update map, update data, then their fields
+        update_map, update_data = bits[3], bits[4]
+        i = 5
+        if update_data:
+            i += 1
+            for width in (7,) * 4 + (6,) * 4:
+                i += 1 + (width + 1 if bits[i] else 0)
+        if update_map:
+            for _ in range(3):
+                i += 1 + (8 if bits[i] else 0)
+    seq = list(log)
+    if simple is not None:
+        seq[i] = (128, int(simple))
+    if sharpness is not None:
+        seq[i + 7: i + 10] = [(128, (sharpness >> s) & 1) for s in (2, 1, 0)]
+    if lf_deltas is not None:
+        assert bits[i + 10] == 0, "the file already sends loop-filter deltas"
+
+        def delta(v):
+            return [(128, 1)] + [(128, (abs(v) >> s) & 1) for s in range(5, -1, -1)] + [
+                (128, int(v < 0))]
+
+        ref, mode = lf_deltas
+        seq[i + 10: i + 11] = ([(128, 1), (128, 1)] + delta(ref) + [(128, 0)] * 3 + delta(mode)
+                               + [(128, 0)] * 3)
+    part = bool_encode(seq)
+    tag = (int.from_bytes(vp8[:3], "little") & 0x1F) | (len(part) << 5)
+    old = int.from_bytes(vp8[:3], "little") >> 5
+    body = tag.to_bytes(3, "little") + vp8[3:10] + part + vp8[10 + old:]
+    body += b"\0" * (len(body) % 2)
+    chunk = b"VP8 " + struct.pack("<I", len(body)) + body
+    return b"RIFF" + struct.pack("<I", 4 + len(chunk)) + b"WEBP" + chunk
+
+
+def _webp_anim(frames, **kw) -> bytes:
+    buf = io.BytesIO()
+    frames[0].save(buf, "WEBP", save_all=True, append_images=frames[1:], duration=40, **kw)
+    return buf.getvalue()
+
+
+def webp_fixtures():
+    img = Image.fromarray(scene(48, 64, seed=51))
+    small = Image.fromarray(scene(37, 45, seed=52))
+    few = Image.fromarray(_palette(6, 53).astype(np.uint8)[_indices(48, 64, 6, 53)])
+    rgba = Image.fromarray(np.concatenate([scene(37, 45, seed=54), scene(37, 45, c=1, seed=55)],
+                                          2), "RGBA")
+    photo = Image.fromarray(scene(375, 500, seed=56, period=(23.0, 17.0), noise=3.0))
+    frames = [Image.fromarray(scene(37, 45, seed=57 + k)) for k in range(3)]
+    lossy = save(small, "WEBP", quality=50)
+    return {
+        "webp_lossless.webp": save(img, "WEBP", lossless=True),
+        "webp_lossless_m0.webp": save(img, "WEBP", lossless=True, method=0),
+        "webp_lossless_palette.webp": save(few, "WEBP", lossless=True),
+        "webp_lossless_alpha.webp": save(rgba, "WEBP", lossless=True, exact=True),
+        "webp_lossless_animated.webp": _webp_anim(frames, lossless=True),
+        "webp_lossy.webp": lossy,
+        "webp_lossy_photo.webp": save(photo, "WEBP", quality=60),
+        "webp_lossy_alpha.webp": save(rgba, "WEBP", quality=70),
+        "webp_lossy_animated.webp": _webp_anim(frames, quality=60),
+        "webp_lossy_simple_filter.webp": vp8_rewrite(lossy, simple=True, sharpness=3),
+        "webp_lossy_lf_deltas.webp": vp8_rewrite(lossy, sharpness=6, lf_deltas=(5, -9)),
+    }
+
+
+def container_fixture_bytes():
+    """name → bytes of the committed container fixtures (each at most
+    64x48 but the photo-sized lossy WebP)."""
+    return {**bmp_fixtures(), **gif_fixtures(), **tiff_fixtures(), **webp_fixtures()}
+
+
+CONTAINERS = {".bmp": "BMP", ".gif": "GIF", ".tif": "TIFF", ".webp": "WEBP"}
+FIXTURE_NAMES = sorted(p.name for p in FORMATS.iterdir() if p.suffix in CONTAINERS)
+
+
+@pytest.mark.parametrize("name", FIXTURE_NAMES)
+def test_container_fixture_equals_pil(name):
+    data = (FORMATS / name).read_bytes()
+    want = np.load(FORMATS / (Path(name).stem + ".npy"))
+    assert Image.open(io.BytesIO(data)).format == CONTAINERS[Path(name).suffix]
+    np.testing.assert_array_equal(pil_rgb(data), want)
+    got = I.read_image(FORMATS / name)
+    assert got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    big = want.shape[0] * want.shape[1] > 64 * 48
+    assert not big or name == "webp_lossy_photo.webp", want.shape
+
+
+def test_fixtures_cover_each_kind():
+    """The committed fixtures hold what the decoders are asked to read."""
+    from mm_s2ut_torch.data import webp
+
+    made = container_fixture_bytes()
+    assert sorted(made) == FIXTURE_NAMES
+    kinds = set()
+    for name in FIXTURE_NAMES:
+        data = made[name]
+        if data[12:16] == b"VP8L":
+            br = webp._Bits(data[21:], name)
+            w, h = br.read(14) + 1, br.read(14) + 1
+            br.read(4)
+            kinds |= {t[0] for t in webp._transforms(br, w, h)[0]}
+    assert kinds == {0, 1, 2, 3}  # predictor, colour, subtract green, colour indexing
+    tiff = [Image.open(io.BytesIO(made[n])) for n in FIXTURE_NAMES if n.endswith(".tif")]
+    assert {im.info["compression"] for im in tiff} == {"raw", "packbits", "tiff_lzw",
+                                                      "tiff_adobe_deflate", "jpeg"}
+    assert {im.mode for im in tiff} >= {"1", "L", "I;16", "P", "RGB", "RGBA", "CMYK"}
+    assert {Image.open(io.BytesIO(made[n])).info.get("compression") for n in FIXTURE_NAMES
+            if n.endswith(".bmp")} == {0, 1, 2, 3}
+
+
+@pytest.mark.parametrize("case", ["555", "565", "555_bitfields", "565_v5"])
+def test_bmp_16_bit_every_value_equals_pil(case, tmp_path):
+    v = np.arange(65536).reshape(256, 256)
+    masks = (0xF800, 0x7E0, 0x1F, 0) if "565" in case else (0x7C00, 0x3E0, 0x1F, 0)
+    data = bmp_bytes(v, 16, compression=0 if case == "555" else 3,
+                     header=124 if case.endswith("v5") else 40,
+                     masks=None if case == "555" else masks)
+    assert_equals_pil(data, tmp_path, f"{case}.bmp")
+
+
+@pytest.mark.parametrize("masks", [(0xFF0000, 0xFF00, 0xFF, 0), (0xFF000000, 0xFF0000, 0xFF00, 0),
+                                   (0xFF000000, 0xFF00, 0xFF, 0),
+                                   (0xFF000000, 0xFF0000, 0xFF00, 0xFF),
+                                   (0xFF, 0xFF00, 0xFF0000, 0xFF000000),
+                                   (0xFF000000, 0xFF00, 0xFF, 0xFF0000), (0, 0, 0, 0)])
+def test_bmp_32_bit_layouts_equal_pil(masks, tmp_path):
+    px = np.random.RandomState(6).randint(0, 256, (9, 11, 4))
+    assert_equals_pil(bmp_bytes(px, 32, compression=3, header=108, masks=masks), tmp_path,
+                      "x.bmp")
+
+
+@pytest.mark.parametrize("bits,header,top_down", [(1, 40, True), (4, 12, False), (8, 56, True),
+                                                  (24, 64, False), (24, 12, False)])
+def test_bmp_headers_and_row_orders_equal_pil(bits, header, top_down, tmp_path):
+    px = (_indices(13, 19, 1 << min(bits, 8), 7) if bits <= 8
+          else scene(13, 19, seed=8)[..., ::-1])
+    pal = _palette(1 << bits, 9) if bits <= 8 else None
+    assert_equals_pil(bmp_bytes(px, bits, palette=pal, header=header, top_down=top_down),
+                      tmp_path, "x.bmp")
+
+
+@pytest.mark.parametrize("four", [False, True])
+@pytest.mark.parametrize("h,w", [(13, 19), (8, 7), (1, 30)])
+def test_bmp_rle_equals_pil(four, h, w, tmp_path):
+    n = 16 if four else 200
+    idx = _indices(h, w, n, h + w)
+    data = bmp_bytes(np.zeros((h, w)), 4 if four else 8, palette=_palette(n, 3),
+                     compression=2 if four else 1, data=(rle4 if four else rle8)(idx))
+    assert_equals_pil(data, tmp_path, "x.bmp")
+
+
+@pytest.mark.parametrize("kw", [dict(min_size=2), dict(min_size=8, clear=False),
+                                dict(min_size=8, interlace=True, transparency=255)])
+def test_gif_lzw_and_layouts_equal_pil(kw, tmp_path):
+    """Code sizes from 3 bits, a table kept full past 4095 codes (a
+    deferred clear), interlaced rows of a tall frame."""
+    n = 4 if kw["min_size"] == 2 else 256
+    idx = (np.arange(512 * 64) * 7919 % 251 % n).astype(np.uint8).reshape(512, 64)
+    idx ^= np.random.RandomState(9).randint(0, 2, idx.shape).astype(np.uint8) & (n - 1)
+    data = gif_bytes((64, 512), idx, global_pal=_palette(256, 10), **kw)
+    assert_equals_pil(data, tmp_path, "x.gif")
+
+
+TIFF_CASES = {
+    "tiles_deflate_mm": dict(bps=8, photo=2, compression=8, tile=(16, 32), bo=">"),
+    "planar2_tiles_lzw": dict(bps=8, photo=2, compression=5, planar=2, tile=(16, 16)),
+    "planar2_predictor16": dict(bps=16, photo=2, compression=8, planar=2, predictor=2),
+    "rgba16_mm": dict(bps=16, photo=2, bo=">", extra=(2,)),
+    "rgba8_premultiplied": dict(bps=8, photo=2, extra=(1,)),
+    "rgbx": dict(bps=8, photo=2, extra=(0,)),
+    "gray2": dict(bps=2, photo=1),
+    "gray1_fill2_lzw": dict(bps=1, photo=1, fill=2, compression=5),
+    "gray8_miniswhite_deflate": dict(bps=8, photo=0, compression=8),
+    "gray16_mm": dict(bps=16, photo=1, bo=">"),
+    "gray16_miniswhite": dict(bps=16, photo=0),
+    "gray_alpha": dict(bps=8, photo=1, extra=(2,)),
+    "palette4": dict(bps=4, photo=3),
+    "palette8_tiles": dict(bps=8, photo=3, tile=(16, 16), compression=5),
+    "cmyk_tiles": dict(bps=8, photo=5, tile=(32, 16), compression=8),
+    "cmyk_planar2": dict(bps=8, photo=5, planar=2),
+    "signed8": dict(bps=8, photo=1, fmt=2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TIFF_CASES))
+def test_tiff_layouts_equal_pil(case, tmp_path):
+    kw = dict(TIFF_CASES[case])
+    bps, photo = kw.pop("bps"), kw.pop("photo")
+    rng = np.random.RandomState(len(case))
+    spp = {0: 1, 1: 1, 2: 3, 3: 1, 5: 4}[photo] + len(kw.get("extra", ()))
+    samples = rng.randint(0, 1 << bps, (37, 45, spp))
+    if photo == 2 and bps == 8:
+        samples[..., :3] = scene(37, 45, seed=11)
+        if kw.get("extra") == (1,):  # premultiplied colours never pass their alpha
+            samples[..., :3] = samples[..., :3] * samples[..., 3:] // 255
+    if photo == 3:
+        kw["colormap"] = rng.randint(0, 65536, (3, 1 << bps))
+    assert_equals_pil(tiff_bytes(samples, bps, photo, **kw), tmp_path, "x.tif")
+
+
+@pytest.mark.parametrize("kw", [dict(lossless=True, method=6, quality=100),
+                                dict(lossless=True, method=2), dict(quality=5),
+                                dict(quality=95, method=6), dict(quality=30, method=0)])
+def test_webp_encodings_equal_pil(kw, tmp_path):
+    img = Image.fromarray(scene(61, 83, seed=12, noise=12))
+    assert_equals_pil(save(img, "WEBP", **kw), tmp_path, "x.webp")
+
+
+@pytest.mark.parametrize("kw", [dict(simple=True), dict(sharpness=7),
+                                dict(simple=True, sharpness=2, lf_deltas=(-20, 30)),
+                                dict(lf_deltas=(63, 63))])
+def test_vp8_loop_filter_settings_equal_pil(kw, tmp_path):
+    """libwebp's encoder writes the normal filter without sharpness or
+    deltas; the rewritten first partition sets them (Pillow decodes it)."""
+    data = save(Image.fromarray(scene(64, 80, seed=13, noise=25)), "WEBP", quality=40)
+    assert_equals_pil(vp8_rewrite(data, **kw), tmp_path, "x.webp")
+
+
+def test_webp_colours_do_not_depend_on_alpha(tmp_path):
+    """libwebp's RGBA output is not premultiplied: a lossless file's
+    colours with varying alpha equal the same colours fully opaque."""
+    rgb = scene(24, 32, seed=14)
+    alpha = np.random.RandomState(15).randint(0, 256, (24, 32, 1)).astype(np.uint8)
+    with_alpha = save(Image.fromarray(np.concatenate([rgb, alpha], 2), "RGBA"), "WEBP",
+                      lossless=True, exact=True)
+    assert_equals_pil(with_alpha, tmp_path, "a.webp")
+    np.testing.assert_array_equal(pil_rgb(with_alpha), rgb)
+    np.testing.assert_array_equal(I.read_image(tmp_path / "a.webp"), rgb)
+
+
+def _cut(data: bytes, keep: float) -> bytes:
+    return data[: int(len(data) * keep)]
+
+
+def tif_bad_deflate(rgb) -> bytes:
+    """A Deflate TIFF whose strip is not a zlib stream."""
+    data = bytearray(tiff_bytes(rgb, 8, 2, compression=8))
+    data[8: 8 + 16] = bytes(range(16))
+    return bytes(data)
+
+
+def _refusals():
+    rgb = scene(20, 24, seed=16)
+    gif = gif_bytes((24, 20), _indices(20, 24, 256, 17), global_pal=_palette(256, 17))
+    lossless = save(Image.fromarray(rgb), "WEBP", lossless=True)
+    lossy = save(Image.fromarray(rgb), "WEBP", quality=60)
+    tif = tiff_bytes(rgb, 8, 2)
+    return {
+        "bmp_bitfields_444.bmp": bmp_bytes(np.zeros((4, 4)), 16, compression=3,
+                                           masks=(0xF00, 0xF0, 0xF)),
+        "bmp_2bit.bmp": bmp_bytes(np.zeros((4, 4)), 2, palette=_palette(4, 1)),
+        "bmp_jpeg.bmp": bmp_bytes(np.zeros((4, 4)), 24, compression=4, data=b"\xff\xd8"),
+        "bmp_rle_short.bmp": bmp_bytes(np.zeros((6, 6)), 8, palette=_palette(8, 2),
+                                       compression=1, data=bytes([6, 1, 0, 0, 0, 1])),
+        "bmp_truncated.bmp": _cut(bmp_bytes(rgb, 24), 0.6),
+        "gif_lzw_ends_early.gif": gif[:-40] + b"\0;",
+        "gif_no_image.gif": gif[:13 + 768] + b";",
+        "tiff_no_width.tif": tif.replace(struct.pack("<HHI", 256, 4, 1),
+                                         struct.pack("<HHI", 999, 4, 1)),
+        "tiff_bad_deflate.tif": tif_bad_deflate(rgb),
+        "webp_lossless_truncated.webp": _cut(lossless, 0.5),
+        "webp_lossy_truncated.webp": _cut(lossy, 0.5),
+    }
+
+
+REFUSALS = sorted(_refusals())
+
+
+@pytest.mark.parametrize("name", REFUSALS)
+def test_what_pillow_refuses_raises_naming_the_file(name, tmp_path):
+    data = _refusals()[name]
+    assert pil_refuses(data), "Pillow decodes it: not a refusal"
+    (tmp_path / name).write_bytes(data)
+    with pytest.raises(ValueError, match=name):
+        I.read_image(tmp_path / name)
+
+
+LEFT_TO_PORT = {
+    "ccitt_g4.tif": (dict(bps=1, photo=0, compression=4), "Compression 4"),
+    "float32.tif": (dict(bps=32, photo=1, fmt=3), "SampleFormat (3,)"),
+    "cielab.tif": (dict(bps=8, photo=8), "PhotometricInterpretation 8"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LEFT_TO_PORT))
+def test_tiff_kinds_left_to_port_raise_naming_the_tag(name, tmp_path):
+    """Pillow reads these; the port raises, naming the file and the tag's
+    value (ROADMAP §1 lists them)."""
+    kw, tag = LEFT_TO_PORT[name]
+    kw = dict(kw)
+    bps, photo = kw.pop("bps"), kw.pop("photo")
+    spp = 3 if photo == 8 else 1
+    samples = np.random.RandomState(18).rand(16, 24, spp) if bps == 32 else \
+        np.random.RandomState(18).randint(0, 1 << bps, (16, 24, spp))
+    data = tiff_bytes(samples, bps, photo, **kw)
+    assert not pil_refuses(data)
+    (tmp_path / name).write_bytes(data)
+    with pytest.raises(ValueError, match=f"{name}.*{tag.replace('(', '[(]').replace(')', '[)]')}"):
+        I.read_image(tmp_path / name)
+
+
+def test_raw_image_store_equals_jax_over_every_container(tmp_path):
+    """JAX's ``RawImageStore`` (Pillow) and the port's over one directory
+    holding one fixture of each container: equal (S, S, 3) pixels."""
+    from mm_s2ut.data.image_store import RawImageStore as JStore
+    from mm_s2ut_torch.data.image_store import RawImageStore
+
+    names = ["bmp_rle8.bmp", "gif_offset_transparent.gif", "tiff_jpeg.tif",
+             "webp_lossless.webp", "webp_lossy.webp"]
+    for n in names:
+        (tmp_path / n).write_bytes((FORMATS / n).read_bytes())
+    for mode, size in (("vit_timm", 32), ("vit_openai", 48)):
+        want, got = JStore(str(tmp_path), names, mode, size), RawImageStore(str(tmp_path), names,
+                                                                            mode, size)
+        for i in range(len(names)):
+            (wp, wx, _), (gp, gx, _) = want[i], got[i]
+            assert gp == wp and gx.shape == (size, size, 3)
+            np.testing.assert_array_equal(gx, wx, err_msg=names[i])
+
+
+def test_decoders_import_no_pillow():
+    """``data/bmp.py``, ``gif.py``, ``tiff.py`` and ``webp.py`` import
+    numpy, ``zlib`` and the port only."""
+    import ast
+    import importlib
+
+    for mod in ("bmp", "gif", "tiff", "webp"):
+        path = Path(importlib.import_module(f"mm_s2ut_torch.data.{mod}").__file__)
+        tree = ast.parse(path.read_text())
+        names = {a.name.split(".")[0] for n in ast.walk(tree)
+                 if isinstance(n, (ast.Import, ast.ImportFrom))
+                 for a in (n.names if isinstance(n, ast.Import) else [ast.alias(n.module or "")])}
+        assert names <= {"__future__", "struct", "zlib", "typing", "numpy", "mm_s2ut_torch"}, \
+            (mod, names)

@@ -20,7 +20,8 @@ quantization, Huffman tables built per scan (Annex K.2), the QM
 arithmetic coder (Annex D, as libjpeg's ``jcarith.c`` drives it), the
 lossless predictors (Annex H), any sampling factors, 8 or 12 bits.
 
-``tests/torch_images/formats/`` holds small fixtures of these kinds beside
+``tests/torch_images/formats/`` holds small fixtures of these kinds (and
+of ``tests/test_torch_image_containers.py``'s containers) beside
 Pillow's pixels (``chip_smoke.py`` phase 19a decodes them where no Pillow
 is installed); ``PYTHONPATH=. python tests/test_torch_image_formats.py``
 writes them anew.
@@ -995,7 +996,10 @@ def test_png_every_colour_type_and_depth_equals_pil(color, depth, interlace, tmp
 # ------------------------------------------------------------------ fixtures
 
 def fixture_bytes():
-    """name → bytes of the committed fixtures (a few KB each)."""
+    """name → bytes of the committed fixtures (a few KB each), the BMP,
+    GIF, TIFF and WebP ones of ``test_torch_image_containers.py`` too."""
+    from test_torch_image_containers import container_fixture_bytes
+
     img = Image.fromarray(scene(375, 500, seed=10, period=(23.0, 17.0), noise=3.0))
     small = Image.fromarray(scene(45, 61, seed=7, period=(11.0, 9.0), noise=6.0))
     prog = save(small, "JPEG", quality=85, progressive=True)
@@ -1024,6 +1028,7 @@ def fixture_bytes():
         "gray1.png": _png_case(0, 1, 15, 11, 8, False),
         "gray2_adam7.png": _png_case(0, 2, 15, 11, 9, True),
         "gray4.png": _png_case(0, 4, 15, 11, 10, False),
+        **container_fixture_bytes(),
     }
 
 
