@@ -124,7 +124,9 @@ is no CPU path):
     committed ones, and the decoder's images/s), and every fixture of
     ``tests/torch_images/formats/`` (progressive, arithmetic, lossless,
     CMYK/YCCK, h1v2 and 4:1:1 JPEG; Adam7, 16-bit and low-depth PNG; BMP,
-    GIF, TIFF and WebP, lossless and lossy) the same way, with a 500x375
+    GIF, TIFF and WebP, lossless and lossy; BigTIFF, LZMA, ZSTD, CCITT and
+    ThunderScan TIFFs, Pillow's F and I modes, 16-bit CMYK, an Orientation)
+    the same way, each one's host ms, with a 500x375
     progressive JPEG's and a 500x375 lossy WebP's images/s beside the
     baseline's and the host decode time per container; ViT-B/16-384 from random
     timm weights saved with ``torch.save`` and read by
@@ -141,9 +143,9 @@ is no CPU path):
     --vit_checkpoint`` (``vit_tiny``) card = CPU, ``cli.extract_features``
     over JPEG and PNG images card against CPU, and ``cli.vit_rollout``;
     (g) ``cli.extract_features`` with ViT-B/16-384 under bf16 autocast
-    over one BMP, GIF, TIFF and WebP fixture of each kind, then over
-    their ``.npy`` twins (Pillow's pixels): features equal bit for bit, A
-    launched 12 times per forward;
+    over one BMP, GIF, TIFF and WebP fixture of each kind (a TIFF of each
+    compression), then over their ``.npy`` twins (Pillow's pixels):
+    features equal bit for bit, A launched 12 times per forward;
 20. training the speech encoders and the enhanced path
     (``phase_train_speech_encoders``): (e) A with attention dropout 0.1
     and 0, and H after it, at B=8, T=499 over the padding of 2-10 s
@@ -178,7 +180,9 @@ is no CPU path):
     tower card against CPU over three steps at lr 1e-3 (``card_vs_cpu``,
     its control included), and the ResEncoder's batch statistics card
     against CPU; (c) ``cli.train`` under ``torch.distributed`` (NCCL,
-    world size 1) against the plain run: params.npz equal; (d)
+    world size 1) against the plain run: params.npz equal, and each run's
+    TensorBoard events file decoded here (every CRC) equal to its
+    metrics.csv; (d)
     ``train.eval_inference`` at full width (a random CodeHiFiGAN in
     fairseq's format, 8 utterances, beam 10, the bf16 then the int8 cache:
     the MCD metrics and the validation's seconds), ``eval.asr`` on the
@@ -190,8 +194,12 @@ is no CPU path):
     libvorbis, Ogg): ``manifest``, ``quantize`` through a random
     HuBERT-base written as an HF directory with 1000 centroids fitted on
     the card (k-means++ and Lloyd) at layer 11, on the card (A in fp32)
-    and on the CPU, the units equal but at near-ties; the same encoder as
-    a fairseq HuBERT through ``convert_checkpoint --kind hubert``; then
+    and on the CPU, the units equal but at near-ties; ``quantize`` with the
+    reference's own k-means format (``tests/torch_kmeans/km100.bin``, a
+    ``joblib.dump`` of an sklearn MiniBatchKMeans, read without joblib or
+    sklearn) equal to its ``.npy`` twin's units, with the load's ms; the
+    same encoder as a fairseq HuBERT through ``convert_checkpoint --kind
+    hubert``; then
     ``prep-s2ut``; quantize's seconds of audio per second, A's and
     k-means' shares, ``kmeans_assign`` at 8192 x 1000 x 768; (b)
     ``convert_checkpoint --kind mm_s2ut`` on a full-width flagship saved by
@@ -2659,7 +2667,15 @@ def loaded_vit(name, gen, path=None):
     return vit.eval()
 
 
-FORMAT_FIXTURES = 66  # tests/torch_images/formats/: 17 JPEG and PNG, 49 BMP, GIF, TIFF, WebP
+FORMAT_FIXTURES = 80  # tests/torch_images/formats/: 17 JPEG and PNG, 63 BMP, GIF, TIFF, WebP
+# the TIFF kinds data/tiff.py took on after the first containers (BigTIFF, LZMA, ZSTD,
+# CCITT RLE, Group 3 2D, Group 4, ThunderScan, Pillow's F and I modes, 16-bit CMYK,
+# an Orientation that swaps the sides, YCbCr in data units, old-style JPEG)
+NEW_TIFF_FIXTURES = [
+    "tiff_bigtiff.tif", "tiff_lzma.tif", "tiff_zstd.tif", "tiff_ccitt_rle.tif",
+    "tiff_group3_2d.tif", "tiff_group4.tif", "tiff_thunderscan.tif",
+    "tiff_float32_predictor3.tif", "tiff_int16_signed_mm.tif", "tiff_int32_signed.tif",
+    "tiff_cmyk16.tif", "tiff_orientation6.tif", "tiff_ycbcr_deflate.tif", "tiff_old_jpeg.tif"]
 CONTAINERS = {".jpg": "JPEG", ".png": "PNG", ".bmp": "BMP", ".gif": "GIF", ".tif": "TIFF",
               ".webp": "WebP"}
 
@@ -2768,6 +2784,10 @@ def phase_image_path(out_dir: Path):
     print("phase 19a: host decode per container, mean over its fixtures (at most 64x48 but the "
           "two 500x375): " + ", ".join(f"{k} {n} files {ms:.2f} ms ({1e3 / ms:.1f} images/s)"
                                        for k, (n, ms) in per_container(formats).items()))
+    decode_s = dict(formats)
+    assert set(NEW_TIFF_FIXTURES) <= set(decode_s), sorted(set(NEW_TIFF_FIXTURES) - set(decode_s))
+    print("phase 19a: the newer TIFF kinds, each equal to its PIL twin, host decode: "
+          + ", ".join(f"{n} {decode_s[n] * 1e3:.2f} ms" for n in NEW_TIFF_FIXTURES))
 
     # (b) ViT-B/16-384
     vit_cpu = loaded_vit("vit_base_patch16_384", gen, root / "vit_base.bin")
@@ -2993,7 +3013,11 @@ CONTAINER_FEATURE_FIXTURES = [
     "bmp_rle8.bmp", "bmp32_bitfields_v5.bmp", "gif_offset_transparent.gif",
     "gif_interlaced.gif", "tiff_jpeg.tif", "tiff_tiles_lzw.tif", "tiff_planar2.tif",
     "webp_lossless.webp", "webp_lossy_photo.webp", "webp_lossy_alpha.webp",
-    "webp_lossy_animated.webp"]
+    "webp_lossy_animated.webp",
+    # one of each TIFF compression added later, a BigTIFF and YCbCr in data units
+    "tiff_lzma.tif", "tiff_zstd.tif", "tiff_ccitt_rle.tif", "tiff_group3_2d.tif",
+    "tiff_group4.tif", "tiff_thunderscan.tif", "tiff_old_jpeg.tif", "tiff_bigtiff.tif",
+    "tiff_ycbcr_deflate.tif"]
 
 
 def container_features(root: Path, gen):
@@ -3044,7 +3068,9 @@ def container_features(root: Path, gen):
         "19g: features from the containers differ from their .npy twins' "
         f"(max|diff| {float(np.abs(got - want).max())})")
     print(f"phase 19g: extract_features ViT-B/16-384 bf16 over {len(CONTAINER_FEATURE_FIXTURES)} "
-          f"BMP/GIF/TIFF/WebP fixtures ({', '.join(CONTAINER_FEATURE_FIXTURES)}): features "
+          f"BMP/GIF/TIFF/WebP fixtures ({', '.join(CONTAINER_FEATURE_FIXTURES)}; TIFF in LZMA, "
+          f"ZSTD, CCITT RLE, Group 3, Group 4, ThunderScan, old-style JPEG, BigTIFF, YCbCr "
+          f"among them): features "
           f"{got.shape} equal bit for bit to those of their .npy twins; A launched 12 times in "
           f"each of {forwards} forwards per run; {secs['containers']:.2f} s and "
           f"{secs['npy']:.2f} s per run (checkpoint load, decode, preprocess, ViT)")
@@ -3779,13 +3805,98 @@ def small_corpus(root: Path, n: int, seed: int, img_dim: int = 64, img_tokens: i
     return rows
 
 
+def _crc32c(data: bytes) -> int:
+    c = 0xFFFFFFFF
+    for b in data:
+        c ^= b
+        for _ in range(8):
+            c = (c >> 1) ^ (0x82F63B78 & -(c & 1))
+    return c ^ 0xFFFFFFFF
+
+
+def _proto(buf: bytes):
+    """(field, wire type, value) of a protobuf message, one level deep."""
+    i = 0
+    while i < len(buf):
+        key, i = _uvarint(buf, i)
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            v, i = _uvarint(buf, i)
+        elif wire == 1:
+            v, i = buf[i: i + 8], i + 8
+        elif wire == 2:
+            n, i = _uvarint(buf, i)
+            v, i = buf[i: i + n], i + n
+        elif wire == 5:
+            v, i = buf[i: i + 4], i + 4
+        else:
+            raise AssertionError(f"protobuf wire type {wire}")
+        yield field, wire, v
+
+
+def _uvarint(buf: bytes, i: int):
+    v = shift = 0
+    while True:
+        b = buf[i]
+        i += 1
+        v |= (b & 0x7F) << shift
+        shift += 7
+        if b < 0x80:
+            return v, i
+
+
+def check_events_against_csv(logdir: Path, rows) -> int:
+    """Phase 21c: the one ``events.out.tfevents.*`` file of ``logdir`` read
+    with the few lines above (TFRecords with their masked CRC32Cs, Event
+    and Summary protobufs); every (tag, step) scalar equals the float32 of
+    ``metrics.csv``'s cell, and every cell has its scalar. Returns the
+    number of scalars."""
+    import struct
+
+    files = sorted(logdir.glob("events.out.tfevents.*"))
+    assert len(files) == 1, files
+    data, i, events = files[0].read_bytes(), 0, []
+
+    def masked(b):
+        c = _crc32c(b)
+        return (((c >> 15) | (c << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+    while i < len(data):
+        head = data[i: i + 8]
+        n = struct.unpack("<Q", head)[0]
+        assert struct.unpack_from("<I", data, i + 8)[0] == masked(head), "length CRC"
+        rec = data[i + 12: i + 12 + n]
+        assert struct.unpack_from("<I", data, i + 12 + n)[0] == masked(rec), "data CRC"
+        events.append(rec)
+        i += 16 + n
+    first = {f: v for f, _, v in _proto(events[0])}
+    assert first.get(3) == b"brain.Event:2", first
+    got = {}
+    for rec in events[1:]:
+        ev = {f: v for f, _, v in _proto(rec)}
+        step = ev.get(2, 0)
+        for _, _, value in _proto(ev[5]):
+            val = {f: v for f, _, v in _proto(value)}
+            tensor = {f: v for f, _, v in _proto(val[8])}
+            plugin = {f: v for f, _, v in _proto({f: v for f, _, v in _proto(val[9])}[1])}
+            assert tensor[1] == 1 and plugin[1] == b"scalars", (tensor, plugin)
+            got[(val[1].decode(), step)] = struct.unpack("<f", tensor[4])[0]
+    want = {(k, int(r["step"])): struct.unpack("<f", struct.pack("<f", float(v)))[0]
+            for r in rows for k, v in r.items() if k != "step" and v not in ("", None)}
+    assert got.keys() == want.keys(), (sorted(got)[:5], sorted(want)[:5])
+    bad = [k for k in got if not (got[k] == want[k] or (got[k] != got[k] and want[k] != want[k]))]
+    assert not bad, bad[:5]
+    return len(got)
+
+
 def phase_dp_on_card(out_dir: Path):
     """Phase 21c: ``cli.train`` under ``torch.distributed`` at world size 1
     with NCCL (a process with torchrun's ``RANK``, ``WORLD_SIZE``,
     ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``) against the same
     command without them, on a small fp32 config with every dropout 0.1
     (TF32 off), 3 steps: ``params.npz`` equal bit for bit, or within phase
-    20d's tolerances (losses 1e-5, the parameter change 2e-2 in L2). The
+    20d's tolerances (losses 1e-5, the parameter change 2e-2 in L2); each
+    run's ``logs/`` events file equal to its ``metrics.csv``. The
     machine has one card: world sizes above 1 run on the CPU (gloo) in
     ``tests/test_torch_ddp.py``."""
     import csv
@@ -3827,6 +3938,7 @@ def phase_dp_on_card(out_dir: Path):
         assert proc.returncode == 0, proc.stderr[-3000:]
         with open(save / "logs" / "metrics.csv", newline="") as f:
             rows = list(csv.DictReader(f))
+        n_events = check_events_against_csv(save / "logs", rows)
         runs[label] = (flatten(load_npz(save / "params.npz")), rows, secs)
     (p0, r0, s0), (p1, r1, s1) = runs.values()
     bitwise = all(np.array_equal(p0[k], p1[k]) for k in p0)
@@ -3838,7 +3950,8 @@ def phase_dp_on_card(out_dir: Path):
           f"under torch.distributed (NCCL, world size 1) {s1:.2f} s; params.npz "
           f"{'bit for bit equal' if bitwise else f'max abs diff {diff:.3e}'}, train losses max "
           f"relative diff {rel:.1e} (tol 1e-5); world sizes above 1 are tested on the CPU with "
-          f"gloo (tests/test_torch_ddp.py)")
+          f"gloo (tests/test_torch_ddp.py); logs/ of each run holds a TensorBoard events file, "
+          f"every CRC checked, its {n_events} scalars equal to metrics.csv's")
     assert rel <= 1e-5 and (bitwise or diff <= 1e-5), (rel, diff)
 
 
@@ -4231,13 +4344,19 @@ def flagship_model(seed: int):
     return sharpened_(model).to("cuda").eval()
 
 
+# ``tests/test_torch_joblib.py`` writes it: the reference's k-means format at HuBERT's width
+KMEANS_FIXTURE = HERE / "tests" / "torch_kmeans" / "km100.bin"
+
+
 def phase_prep_data(root: Path):
     """Phase 22a: ``cli.prep_data`` at full width. 16 utterances of 2-10 s
     (wav, FLAC and, where the host has libvorbis, Ogg); ``manifest`` per
     extension, merged; a random HuBERT-base (12 x 768, 12 heads) written as
     an HF directory; 1000 centroids from ``kmeans_plusplus_init`` + 5 Lloyd
     steps on the card over its layer-11 features; ``quantize`` on the card
-    and on the CPU (units equal but at near-ties, each checked); the same
+    and on the CPU (units equal but at near-ties, each checked); with the
+    committed joblib k-means (``KMEANS_FIXTURE``) and its ``.npy`` twin
+    (units equal); the same
     encoder as a fairseq HuBERT through ``convert_checkpoint --kind hubert``
     and ``quantize`` again (the same units); then ``prep-s2ut``. Timed in
     process: seconds of audio per second, A's and k-means' shares,
@@ -4314,6 +4433,27 @@ def phase_prep_data(root: Path):
           f"{cpu_s:.2f} s: {frames} frames, {differ} differ, {ties} of them near-ties "
           f"(the two nearest centroids within 1e-5 relative); A launched {launches['A']} times")
     assert differ == ties, (differ, ties)
+
+    # The reference's own k-means format: an sklearn MiniBatchKMeans saved by
+    # joblib.dump (zlib), read by utils/joblib_pickle.py without joblib or sklearn.
+    km_bin = KMEANS_FIXTURE
+    km_npy = km_bin.with_suffix(".npy")
+    q_bin, bin_s = timed(lambda: kmeans.KMeansQuantizer.load(km_bin))
+    q_npy, npy_s = timed(lambda: kmeans.KMeansQuantizer.load(km_npy))
+    assert q_bin.n_units == 100 and torch.equal(q_bin.centroids, q_npy.centroids)
+    _, bin_run_s = timed(lambda: prep_data.main(quantize[:4] + [
+        str(km_bin)] + quantize[5:] + ["--hubert-model", str(root / "hubert"), "--dest",
+                                       str(root / "units_km100.txt")]))
+    units_bin = (root / "units_km100.txt").read_text().splitlines()
+    # the .npy route in process, through the model already on the card
+    units_npy = [" ".join(map(str, u)) for b in batches
+                 for u in prep_data.quantize_batch(model, cfg, q_npy, b, 11)]
+    assert len(units_bin) == 16 and units_bin == units_npy
+    print(f"phase 22a: prep_data quantize --km-path {km_bin.name} (joblib.dump of an sklearn "
+          f"MiniBatchKMeans, 100 x 768, zlib, read without joblib or sklearn) on the card "
+          f"{bin_run_s:.2f} s: units equal to {km_npy.name}'s on all {len(units_bin)} lines; "
+          f"KMeansQuantizer.load {bin_s * 1e3:.2f} ms ({km_bin.stat().st_size} B) against "
+          f"{npy_s * 1e3:.2f} ms for the .npy")
 
     # The same encoder as a fairseq HuBERT checkpoint → convert → quantize.
     save_fairseq(root / "mhubert.pt", fairseq_hubert_state(encoder), cfg_blob={"model": {

@@ -1681,11 +1681,11 @@ extern "C" int mm_ancestry_decode_fixed_work(
 }
 
 // Kernel E's split count for B batch rows of H heads, K rows (groups of 16)
-// over S columns, in either dtype (``dtype`` picks nothing today): one split
-// where the (b.h, group) blocks fill a wave, else enough splits for about
-// two blocks per SM, each a whole number of key tiles, at most kEMaxSplits.
-extern "C" int mm_cross_decode_i8_splits(int dtype, int B, int H, int K, int S, int DH) {
-  (void)dtype;
+// over S columns, the same in both dtypes (their key tiles are alike): one
+// split where the (b.h, group) blocks fill a wave, else enough splits for
+// about two blocks per SM, each a whole number of key tiles, at most
+// kEMaxSplits.
+extern "C" int mm_cross_decode_i8_splits(int B, int H, int K, int S, int DH) {
   if (S < 1 || B * H < 1 || K < 1) return 1;
   const int n_tiles = (S + mm::e_tile(DH) - 1) / mm::e_tile(DH);
   const int blocks = B * H * ((K + 15) / 16);
@@ -1711,7 +1711,7 @@ extern "C" int mm_cross_decode_attention_i8(
     void* stream) {
   const bool f32 = dtype == mm::kFloat32;
   if (K < 1 || S < 1 || (!f32 && dtype != mm::kBFloat16) || variant < 0 || variant > 1 ||
-      (variant == 1 && (B % 2 || f32)) || n_split != mm_cross_decode_i8_splits(dtype, B, H, K, S, DH))
+      (variant == 1 && (B % 2 || f32)) || n_split != mm_cross_decode_i8_splits(B, H, K, S, DH))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(scratch);
@@ -1752,7 +1752,7 @@ extern "C" int mm_dense_attention_probe(int packed, const void* q, const void* k
                                         int n_split, int64_t q_sb, int64_t q_sh, int64_t q_sk,
                                         int64_t o_sb, int64_t o_sh, int64_t o_sk, void* stream) {
   if (K < 1 || S < 2 || DH != 64 || (packed && S % 2) ||
-      n_split != mm_cross_decode_i8_splits(mm::kBFloat16, B, H, K, S, DH))
+      n_split != mm_cross_decode_i8_splits(B, H, K, S, DH))
     return (int)cudaErrorInvalidValue;
   float* part = static_cast<float*>(scratch);
   const int G = (K + 15) / 16;

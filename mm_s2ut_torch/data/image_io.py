@@ -65,7 +65,7 @@ def read_image(path: str | Path) -> np.ndarray:
         return decode_bmp(data, name)
     if data[:4] == b"GIF8":
         return decode_gif(data, name)
-    if data[:4] in (b"II*\0", b"MM\0*"):
+    if data[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):  # TIFF, BigTIFF
         return decode_tiff(data, name)
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return decode_webp(data, name)

@@ -746,6 +746,26 @@ class _Frame:
 
 def decode_jpeg(data: bytes, name: str = "<jpeg>") -> np.ndarray:
     """Any JPEG Pillow decodes → its RGB uint8 pixels (module docstring)."""
+    return _assemble(*_parse(data, name), name)
+
+
+def decode_jpeg_components(data: bytes, name: str = "<jpeg>"):
+    """A lossy JPEG's components as libjpeg's raw-data interface gives them
+    (``jpeg_read_raw_data``): each one's IDCT output at its own resolution,
+    cropped to its size, not upsampled or colour-converted. Returns
+    [(plane int64, (h, v))]."""
+    frame = _parse(data, name)[0]
+    if frame.coding == "lossless":
+        raise _refuse(name, "a lossless JPEG's raw components")
+    out = []
+    for ci, (plane, (_, h, v, _)) in enumerate(zip(_idct_planes(frame, name), frame.comps)):
+        cw, ch = frame.comp_size(ci)
+        out.append((plane[:ch, :cw].astype(np.int64), (h, v)))
+    return out
+
+
+def _parse(data: bytes, name: str):
+    """The markers and scans of a JPEG → (frame, jfif, adobe, transform)."""
     pos = 2
     quant: Dict[int, np.ndarray] = {}
     dc_tabs: Dict[int, List[int]] = {}
@@ -816,7 +836,7 @@ def decode_jpeg(data: bytes, name: str = "<jpeg>") -> np.ndarray:
                         (dac_l, dac_u, dac_k), restart, name)
     if frame is None:
         raise ValueError(f"{name}: JPEG without a frame header")
-    return _assemble(frame, jfif, adobe, adobe_transform, name)
+    return frame, jfif, adobe, adobe_transform
 
 
 def _segments(data: bytes, pos: int, name: str) -> Tuple[List[bytes], int]:
@@ -966,6 +986,30 @@ def _colour_space(n: int, ids, jfif: bool, adobe: bool, transform, lossless: boo
     return "rgb" if lossless else "ycc"
 
 
+def _idct_planes(frame: _Frame, name: str) -> List[np.ndarray]:
+    """Each component's samples at its own resolution, over whole blocks
+    (block smoothing where libjpeg smooths)."""
+    if any(q is None for q in frame.quant):
+        raise ValueError(f"{name}: JPEG with a component no scan carried")
+    smooth = frame.progressive and all(b[0] >= 0 for b in frame.coef_bits) and any(
+        b[k] != 0 for b in frame.coef_bits for k in range(1, 10)) and all(
+        (q[:10] != 0).all() for q in frame.quant)
+    planes = []
+    for ci, ((_, h, v, _), flat) in enumerate(zip(frame.comps, frame.coefs)):
+        nbx, nby = frame.mcux * h, frame.mcuy * v
+        zz = np.asarray(flat, np.int64).reshape(nby, nbx, 64)
+        if smooth:
+            cw, ch = frame.comp_size(ci)
+            zz = _smooth(zz, frame.coef_bits[ci], frame.quant[ci], -(-ch // 8), -(-cw // 8),
+                         v, frame.mcuy)
+        natural = np.zeros((nby * nbx, 64), np.int64)
+        natural[:, ZIGZAG] = zz.reshape(-1, 64)
+        blocks = idct_islow(natural, frame.quant[ci])
+        planes.append(blocks.reshape(nby, nbx, 8, 8).transpose(0, 2, 1, 3)
+                      .reshape(nby * 8, nbx * 8))
+    return planes
+
+
 def _assemble(frame: _Frame, jfif: bool, adobe: bool, adobe_transform, name: str) -> np.ndarray:
     width, height, comps = frame.width, frame.height, frame.comps
     n = len(comps)
@@ -982,23 +1026,8 @@ def _assemble(frame: _Frame, jfif: bool, adobe: bool, adobe_transform, name: str
         for _, h, v, _ in comps:
             if frame.hmax % h or frame.vmax % v:
                 raise _refuse(name, "JPEG sampling factors that do not divide the largest")
-        if any(q is None for q in frame.quant):
-            raise ValueError(f"{name}: JPEG with a component no scan carried")
-        smooth = frame.progressive and all(b[0] >= 0 for b in frame.coef_bits) and any(
-            b[k] != 0 for b in frame.coef_bits for k in range(1, 10)) and all(
-            (q[:10] != 0).all() for q in frame.quant)
         planes = []
-        for ci, ((_, h, v, _), flat) in enumerate(zip(comps, frame.coefs)):
-            nbx, nby = frame.mcux * h, frame.mcuy * v
-            zz = np.asarray(flat, np.int64).reshape(nby, nbx, 64)
-            if smooth:
-                cw, ch = frame.comp_size(ci)
-                zz = _smooth(zz, frame.coef_bits[ci], frame.quant[ci], -(-ch // 8), -(-cw // 8),
-                             v, frame.mcuy)
-            natural = np.zeros((nby * nbx, 64), np.int64)
-            natural[:, ZIGZAG] = zz.reshape(-1, 64)
-            blocks = idct_islow(natural, frame.quant[ci])
-            plane = blocks.reshape(nby, nbx, 8, 8).transpose(0, 2, 1, 3).reshape(nby * 8, nbx * 8)
+        for ci, ((_, h, v, _), plane) in enumerate(zip(comps, _idct_planes(frame, name))):
             dw, dh = frame.comp_size(ci)
             planes.append(_upsample(plane, frame.hmax // h, frame.vmax // v, dw, dh)
                           [:height, :width].astype(np.int64))

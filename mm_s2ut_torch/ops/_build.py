@@ -74,7 +74,7 @@ _SIGNATURES = {
         [_i, _i] + [_p] * 9 + [_i] * 7 + [_i64] * 22 + [_p],
         ctypes.c_int,
     ),
-    "mm_cross_decode_i8_splits": ([_i] * 6, ctypes.c_int),
+    "mm_cross_decode_i8_splits": ([_i] * 5, ctypes.c_int),
     "mm_cross_decode_attention_i8": (
         [_i, _i] + [_p] * 7 + [_i] * 6 + [_i64] * 6 + [_p],
         ctypes.c_int,

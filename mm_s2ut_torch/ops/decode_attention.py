@@ -496,7 +496,7 @@ def _launch_cross_i8(q, kv, sk, sv, bias, variant: int = 0):
     bias = bias.float().contiguous()
     lib = _build.library()
     code = _build.dtype_code(q.dtype)
-    n_split = lib.mm_cross_decode_i8_splits(code, B, H, K, S, Dh)
+    n_split = lib.mm_cross_decode_i8_splits(B, H, K, S, Dh)
     groups = -(-K // MAX_BEAMS)
     scratch = torch.empty(B * H * groups * n_split * MAX_BEAMS * (Dh + 2) if n_split > 1 else 1,
                           dtype=torch.float32, device=q.device)
@@ -542,7 +542,7 @@ def dense_attention(q, kv, packed: bool = False) -> torch.Tensor:
         raise ValueError(f"{name}: slab {tuple(kv.shape)} {kv.dtype}")
     kv = kv.contiguous()
     lib = _build.library()
-    n_split = lib.mm_cross_decode_i8_splits(_build.BF16, B, H, K, S, Dh)
+    n_split = lib.mm_cross_decode_i8_splits(B, H, K, S, Dh)
     scratch = torch.empty(B * H * -(-K // MAX_BEAMS) * n_split * MAX_BEAMS * (Dh + 2)
                           if n_split > 1 else 1, dtype=torch.float32, device=q.device)
     out = torch.empty((B, K, H, Dh), dtype=q.dtype, device=q.device).transpose(1, 2)

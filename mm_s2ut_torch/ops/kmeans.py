@@ -86,8 +86,9 @@ def kmeans_plusplus_init(x: torch.Tensor, k: int, generator: Optional[torch.Gene
 
 
 class KMeansQuantizer:
-    """Centroids from a ``.npy``/``.npz`` file (or an sklearn joblib
-    pickle, the reference's format, where joblib is installed) → units.
+    """Centroids from a ``.npy``/``.npz`` file or from the reference's
+    ``joblib.dump`` of an sklearn k-means (read by ``utils/joblib_pickle``,
+    without joblib or sklearn) → units.
 
     The quantizer has no device of its own: each call assigns on its
     features' device (an array is a CPU tensor), with the centroids
@@ -104,14 +105,9 @@ class KMeansQuantizer:
             if hasattr(arr, "keys"):
                 arr = arr[list(arr.keys())[0]]
             return cls(arr)
-        try:
-            import joblib  # sklearn MiniBatchKMeans pickle
-        except ImportError as e:
-            raise RuntimeError(
-                f"{path}: reading an sklearn k-means needs joblib, which is not installed; "
-                "save its cluster_centers_ with numpy.save and pass the .npy") from e
-        km = joblib.load(path)
-        return cls(np.asarray(km.cluster_centers_, np.float32))
+        from mm_s2ut_torch.utils.joblib_pickle import load_kmeans_centroids
+
+        return cls(load_kmeans_centroids(path))  # the reference's joblib.dump of sklearn
 
     def save(self, path: str | Path) -> None:
         np.save(path, self.centroids.numpy())

@@ -184,6 +184,8 @@ class Tree:
         self.split_d = "mm_ancestry_decode_i8_splits" in q_src
         self.split_f = "mm_ancestry_decode_i4_splits" in q_src
         self.split_e = "mm_cross_decode_i8_splits" in q_src
+        # trees before the split rule lost its unused dtype argument
+        self.e_split_dtype = "mm_cross_decode_i8_splits(int dtype" in q_src
         self.lib = ctypes.CDLL(str(_build.build(csrc)))
         flash = list(_build._FLASH[0])
         if not self.heads:
@@ -213,6 +215,8 @@ class Tree:
         for name in names:
             fn = getattr(self.lib, name)
             fn.argtypes, fn.restype = _build._SIGNATURES[name]
+        if self.e_split_dtype:
+            self.lib.mm_cross_decode_i8_splits.argtypes = [ctypes.c_int] * 6
         if self.has_bwd and not self.heads:
             fn = self.lib.mm_flash_attention_bwd
             fn.argtypes = fn.argtypes[:-3] + fn.argtypes[-1:]
@@ -236,6 +240,11 @@ class Tree:
             fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
                 + [ctypes.c_int64] * 4 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+
+    def e_splits(self, code, B, H, K, S, Dh) -> int:
+        """Kernel E's split count in this tree."""
+        args = (code, B, H, K, S, Dh) if self.e_split_dtype else (B, H, K, S, Dh)
+        return self.lib.mm_cross_decode_i8_splits(*args)
 
     def takes(self, entry: str, rate: float) -> bool:
         if entry == "mm_flash_attention_bwd":
@@ -532,7 +541,7 @@ def _cross_i8_launchers(trees, fns, B, H, K, Dh, S, dtype=torch.bfloat16):
             _add(fns, tree.label, tree.lib.mm_cross_decode_attention_i8,
                  [code, *ptrs, out.data_ptr(), B, H, K, Dh, S, stream], entry, out)
             continue
-        n_split = tree.lib.mm_cross_decode_i8_splits(code, B, H, K, S, Dh)
+        n_split = tree.e_splits(code, B, H, K, S, Dh)
         for v in (0, 1) if tree.label == "this" and B % 2 == 0 and dtype == torch.bfloat16 else (0,):
             scratch = torch.empty(max(1, B * H * -(-K // 16) * n_split * 16 * (Dh + 2)),
                                   device="cuda")
@@ -565,7 +574,7 @@ def _dense_launchers(fns, B, H, K, Dh, S):
     q = (torch.randn((B, H, K, Dh), generator=g, device="cuda") * 0.3).to(torch.bfloat16)
     kv8 = torch.randint(-7, 8, (B, H, S, 2 * Dh), generator=g, device="cuda", dtype=torch.int8)
     kv4 = i4_pack(kv8, S // 2)
-    n_split = lib.mm_cross_decode_i8_splits(_build.BF16, B, H, K, S, Dh)
+    n_split = lib.mm_cross_decode_i8_splits(B, H, K, S, Dh)
     keep = [q, kv8, kv4]
     for packed, kv in ((0, kv8), (1, kv4)):
         scratch = torch.empty(max(1, B * H * -(-K // 16) * n_split * 16 * (Dh + 2)), device="cuda")

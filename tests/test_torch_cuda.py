@@ -600,7 +600,7 @@ def test_cross_decode_many_rows(card, dtype, int8, K, Dh, S):
     _close(got, plain(*args), dtype)
     head = kern(args[0][:, :, :16].contiguous(), *args[1:])
     torch.cuda.synchronize()
-    if int8 and _e_splits(dtype, 2, 3, K, S, Dh) == _e_splits(dtype, 2, 3, 16, S, Dh):
+    if int8 and _e_splits(2, 3, K, S, Dh) == _e_splits(2, 3, 16, S, Dh):
         assert torch.equal(got[:, :, :16], head)
     else:
         _close(head, plain(args[0][:, :, :16].contiguous(), *args[1:]), dtype)
@@ -609,8 +609,8 @@ def test_cross_decode_many_rows(card, dtype, int8, K, Dh, S):
     assert torch.equal(got, again)
 
 
-def _e_splits(dtype, B, H, K, S, Dh):
-    return _build.library().mm_cross_decode_i8_splits(_build.dtype_code(dtype), B, H, K, S, Dh)
+def _e_splits(B, H, K, S, Dh):
+    return _build.library().mm_cross_decode_i8_splits(B, H, K, S, Dh)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -620,7 +620,7 @@ def test_cross_decode_i8_many_rows_one_wave(card, dtype, K, Dh, S):
     take the same split count in both dtypes: the first 16 of K rows give
     a 16-row call's bits, and both match the plain version."""
     B, H = 24, 6
-    assert _e_splits(dtype, B, H, K, S, Dh) == _e_splits(dtype, B, H, 16, S, Dh)
+    assert _e_splits(B, H, K, S, Dh) == _e_splits(B, H, 16, S, Dh)
     args = quant_cross_inputs(B, H, K, Dh, S, dtype, seed=K)
     got = D.cross_decode_attention_i8(*args)
     head = D.cross_decode_attention_i8(args[0][:, :, :16].contiguous(), *args[1:])
@@ -827,7 +827,7 @@ def test_fp32_cross_i8_tensor_cores(card, K, Dh):
             bias = torch.where(torch.arange(S, device="cuda")[None, :] < lengths[:, None],
                                0.0, A.NEG_INF)
             args = (q, kv, sk, sv, bias)
-            n_split = _e_splits(torch.float32, B, H, K, S, Dh)
+            n_split = _e_splits(B, H, K, S, Dh)
             assert (n_split > 1) == (B == 8), n_split  # B = 128 fills a wave
             got = D.cross_decode_attention_i8(*args)
             again = D.cross_decode_attention_i8(*args)
@@ -937,8 +937,10 @@ def test_serve_step_on_a_wrapped_ring(card, cache):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cross_decode_i8_long_slab(card, dtype):
-    """E over S = 4000 encoder positions (fp32: split over blocks, where
-    one block's scores would not fit) against the plain version."""
+    """E over S = 4000 encoder positions against the plain version: 250
+    key tiles over few (b.h, group) blocks, so both dtypes split the tiles
+    over blocks (about two blocks per SM, whole tiles each, at most
+    kEMaxSplits) and merge the partial sums, one rule for bf16 and fp32."""
     args = quant_cross_inputs(2, 2, 10, 64, 4000, dtype, seed=40)
     _close(D.cross_decode_attention_i8(*args), D.cross_reference_i8(*args), dtype)
 

@@ -11,11 +11,15 @@
   interlaced rows, a frame at an offset on its screen with a transparent
   index, one that grows the screen, an animation, a full LZW table kept
   without a clear code.
-* TIFF (``data/tiff.py``): strips and tiles, planar configuration 2,
-  none / PackBits / LZW / Deflate / JPEG (YCbCr), the horizontal
-  predictor on 8- and 16-bit samples, both byte orders, fill order 2,
-  MinIsWhite and MinIsBlack at 1/2/4/8/16 bits, palettes, RGB and RGBA at
-  8 and 16 bits (premultiplied alpha too), CMYK.
+* TIFF (``data/tiff.py``): classic and BigTIFF, strips and tiles, planar
+  configuration 2, none / PackBits / LZW / Deflate / JPEG (YCbCr) / LZMA /
+  ZSTD (``data/zstd.py``) / CCITT RLE, Group 3 1D and 2D, Group 4
+  (``data/ccitt.py``) / ThunderScan, the horizontal predictor on 8-, 16-
+  and 32-bit samples and the floating-point one, both byte orders, fill
+  order 2, MinIsWhite and MinIsBlack at 1/2/4/8/16 bits, Pillow's ``I``
+  and ``F`` (signed 16/32-bit, unsigned 32-bit and float gray), palettes,
+  RGB and RGBA at 8 and 16 bits (premultiplied alpha too), CMYK at 8 and
+  16 bits, every Orientation.
 * WebP (``data/webp.py``): lossless files using each of the four
   transforms, with alpha, animated; lossy files at several qualities, a
   photo-sized one, with an ALPH chunk, animated, and with the simple loop
@@ -24,20 +28,25 @@
   partition with them set).
 
 What Pillow refuses raises ``ValueError`` naming the file, each refusal
-checked against Pillow first; what Pillow reads and the port does not
-decode yet (TIFF CCITT, float samples, CIELab) raises ``ValueError``
+checked against Pillow first (big-endian BigTIFF, WebP-in-TIFF, which
+this libtiff lacks, 64-bit floats, a cut ZSTD strip); what Pillow reads
+and the port does not decode (CIELab, which Pillow converts through
+LittleCMS, YCbCr without JPEG, old-style JPEG) raises ``ValueError``
 naming the file and the tag's value. JAX's ``RawImageStore`` (Pillow) and
 the port's read one file of each container to equal pixels.
 
 Pillow writes what it can; the small writers here write the rest
 (:func:`bmp_bytes` with :func:`rle8`/:func:`rle4`, :func:`gif_bytes` with
-its LZW coder, :func:`tiff_bytes` with TIFF's LZW and PackBits, and
+its LZW coder, :func:`tiff_bytes` with TIFF's LZW and PackBits, the
+floating-point predictor and BigTIFF, :func:`thunderscan`, and
 :func:`vp8_rewrite` with RFC 6386's boolean encoder). The committed
 fixtures under ``tests/torch_images/formats/`` are
 :func:`container_fixture_bytes`, written anew with the other formats by
 ``PYTHONPATH=. python tests/test_torch_image_formats.py``.
 """
 import io
+import lzma
+import re
 import struct
 import zlib
 from pathlib import Path
@@ -338,13 +347,26 @@ def packbits(raw: bytes) -> bytes:
 _REV = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
 
+def fp_predict(rows: np.ndarray, spp: int) -> np.ndarray:
+    """libtiff's floating-point predictor (3) on (rows, samples) float32:
+    each row's bytes split into planes, most significant first, then
+    differenced at a stride of one pixel."""
+    be = rows.astype(">f4").view(np.uint8).reshape(rows.shape[0], -1, 4)
+    planes = be.transpose(0, 2, 1).reshape(rows.shape[0], -1, spp).astype(np.int64)
+    planes[:, 1:] = (planes[:, 1:] - planes[:, :-1]) & 255
+    return planes.reshape(rows.shape[0], -1).astype(np.uint8)
+
+
 def tiff_bytes(samples, bps, photo, *, bo="<", compression=1, predictor=1, tile=None,
                rows_per_strip=None, planar=1, extra=(), colormap=None, fill=1, fmt=None,
-               tags=()) -> bytes:
-    """A one-page TIFF of (h, w, s) integer samples."""
+               tags=(), big=False, codec=None) -> bytes:
+    """A one-page TIFF (or BigTIFF) of (h, w, s) samples; ``codec`` replaces
+    the compression of each strip or tile's bytes."""
     samples = np.asarray(samples)
     h, w, spp = samples.shape
-    dt = np.dtype(bo + {8: "u1", 16: "u2", 32: "f4"}.get(bps, "u1"))
+    code = {(32, 3): "f4", (32, 2): "i4", (32, 1): "u4", (16, 2): "i2"}.get(
+        (bps, fmt or 1), {8: "u1", 16: "u2", 32: "f4"}.get(bps, "u1"))
+    dt = np.dtype(bo + code)
     planes = [samples] if planar == 1 else [samples[..., i: i + 1] for i in range(spp)]
     tw, th = tile if tile else (w, rows_per_strip or h)
     chunks = []
@@ -356,16 +378,21 @@ def tiff_bytes(samples, bps, photo, *, bo="<", compression=1, predictor=1, tile=
                 full = np.zeros((rows, tw, pl.shape[2]), blk.dtype)
                 full[: blk.shape[0], : blk.shape[1]] = blk
                 if predictor == 2:
-                    full = full.astype(np.int64)
+                    full = (full.astype(dt).view(np.dtype(bo + f"u{bps // 8}")) if bps >= 16
+                            else full).astype(np.int64)
                     full[:, 1:] = (full[:, 1:] - full[:, :-1]) & ((1 << bps) - 1)
-                if bps >= 8:
-                    raw = full.astype(dt).tobytes()
+                if predictor == 3:
+                    raw = fp_predict(full.reshape(rows, -1), pl.shape[2]).tobytes()
+                elif bps >= 8:
+                    raw = full.astype(dt if predictor != 2 or bps < 16
+                                      else np.dtype(bo + f"u{bps // 8}")).tobytes()
                 else:
                     vals = full.astype(np.int64).reshape(rows, -1)
                     bits = (vals[..., None] >> np.arange(bps - 1, -1, -1)) & 1
                     raw = np.packbits(bits.reshape(rows, -1).astype(np.uint8), axis=1).tobytes()
-                raw = {5: tiff_lzw, 8: zlib.compress, 32946: zlib.compress,
-                       32773: packbits}.get(compression, lambda r: r)(raw)
+                raw = codec(raw) if codec else {
+                    5: tiff_lzw, 8: zlib.compress, 32946: zlib.compress, 32773: packbits,
+                    34925: lzma.compress}.get(compression, lambda r: r)(raw)
                 chunks.append(_REV[np.frombuffer(raw, np.uint8)].tobytes() if fill == 2 else raw)
     entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bps] * spp), (259, 3, [compression]),
                (262, 3, [photo]), (277, 3, [spp]), (284, 3, [planar])]
@@ -379,7 +406,11 @@ def tiff_bytes(samples, bps, photo, *, bo="<", compression=1, predictor=1, tile=
     if fmt is not None:
         entries.append((339, 3, [fmt] * spp))
     entries += list(tags)
-    data = bytearray(b"II*\0" if bo == "<" else b"MM\0*") + bytearray(4)
+    off, head = ("Q", 16) if big else ("I", 8)
+    data = bytearray((b"II" if bo == "<" else b"MM") + struct.pack(
+        bo + "H", 43 if big else 42)) + bytearray(head - 4)
+    if big:
+        struct.pack_into(bo + "HH", data, 4, 8, 0)
     offs = []
     for c in chunks:
         offs.append(len(data))
@@ -388,17 +419,104 @@ def tiff_bytes(samples, bps, photo, *, bo="<", compression=1, predictor=1, tile=
     entries += ([(322, 3, [tw]), (323, 3, [th]), (324, 4, offs), (325, 4, counts)] if tile
                 else [(273, 4, offs), (278, 4, [th]), (279, 4, counts)])
     entries.sort()
-    struct.pack_into(bo + "I", data, 4, len(data))
-    body = bytearray(struct.pack(bo + "H", len(entries)))
-    tail, tail_at = bytearray(), len(data) + 2 + 12 * len(entries) + 4
-    for tag, typ, vals in entries:
-        raw = b"".join(struct.pack(bo + {3: "H", 4: "I"}[typ], v) for v in vals)
-        if len(raw) <= 4:
-            body += struct.pack(bo + "HHI", tag, typ, len(vals)) + raw.ljust(4, b"\0")
+    struct.pack_into(bo + off, data, head - struct.calcsize(off), len(data))
+    entry, inline = (20, 8) if big else (12, 4)
+    body = bytearray(struct.pack(bo + ("Q" if big else "H"), len(entries)))
+    tail = bytearray()
+    tail_at = len(data) + len(body) + entry * len(entries) + inline
+    for tag, typ, vals in entries:  # RATIONAL (5) values come as numerator, denominator pairs
+        raw = b"".join(struct.pack(bo + {3: "H", 4: "I", 5: "I"}[typ], v) for v in vals)
+        count = len(vals) // 2 if typ == 5 else len(vals)
+        if len(raw) <= inline:
+            body += struct.pack(bo + "HH" + off, tag, typ, count) + raw.ljust(inline, b"\0")
         else:
-            body += struct.pack(bo + "HHII", tag, typ, len(vals), tail_at + len(tail))
+            body += struct.pack(bo + "HH" + off + off, tag, typ, count, tail_at + len(tail))
             tail += raw + b"\0" * (len(raw) % 2)
-    return bytes(data + body + b"\0\0\0\0" + tail)
+    return bytes(data + body + bytes(inline) + tail)
+
+
+def thunderscan(px, seed=0) -> bytes:
+    """ThunderScan rows of 4-bit pixels, using every code: runs of the last
+    pixel, 2-bit and 3-bit deltas (with their skip values) and raw values."""
+    rng = np.random.RandomState(seed)
+    two, three = {0: 0, 1: 1, 15: 3}, {0: 0, 1: 1, 2: 2, 3: 3, 13: 5, 14: 6, 15: 7}
+    out = bytearray()
+    for row in np.asarray(px).tolist():
+        last, i = 0, 0
+        while i < len(row):
+            run = 0
+            while i + run < len(row) and row[i + run] == last and run < 63:
+                run += 1
+            d = (row[i] - last) & 15
+            d2 = (row[i + 1] - row[i]) & 15 if i + 1 < len(row) else None
+            if run >= 2:
+                out.append(run)
+                i += run
+            elif d in two and d2 in two and rng.rand() < 0.7:
+                out.append(0x40 | two[d] << 4 | two[d2] << 2 | 2)
+                last, i = row[i + 1], i + 2
+            elif d in three and rng.rand() < 0.7:
+                out.append(0x80 | three[d] << 3 | 4)
+                last, i = row[i], i + 1
+            else:
+                out.append(0xC0 | row[i])
+                last, i = row[i], i + 1
+    return bytes(out)
+
+
+def _nibbles(h, w, seed):
+    rng = np.random.RandomState(seed)
+    px = np.cumsum(rng.choice([-1, 0, 0, 0, 1, 2, -3, 5], (h, w)), axis=1) & 15
+    if w > 6:
+        px[0, -5:] = px[0, -6]  # a run up to the row's end
+    return px
+
+
+def ycbcr_units(y, cb, cr, h, v) -> bytes:
+    """TIFF's YCbCr data units: for each block of v rows by h columns, its
+    h·v Y samples, then Cb and Cr (``cb``, ``cr``: one per block)."""
+    H, W = y.shape
+    bh, bw = -(-H // v), -(-W // h)
+    Y = np.zeros((bh * v, bw * h), np.int64)
+    Y[:H, :W] = y
+    blocks = Y.reshape(bh, v, bw, h).transpose(0, 2, 1, 3).reshape(bh, bw, h * v)
+    return np.concatenate([blocks, np.asarray(cb)[..., None], np.asarray(cr)[..., None]], -1) \
+        .astype(np.uint8).tobytes()
+
+
+def ycbcr_tiff(H, W, h, v, seed, rows_per_strip=None, compression=8, tags=()) -> bytes:
+    """A YCbCr TIFF without JPEG: seeded Y, Cb and Cr in data units."""
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, 256, (H, W))
+    cb, cr = rng.randint(0, 256, (2, -(-H // v), -(-W // h)))
+    rps = rows_per_strip or H
+    strips = iter([ycbcr_units(y[i: i + rps], cb[i // v: -(-(i + rps) // v)],
+                               cr[i // v: -(-(i + rps) // v)], h, v) for i in range(0, H, rps)])
+    code = {8: zlib.compress, 5: tiff_lzw, 1: lambda r: r}[compression]
+    return tiff_bytes(np.zeros((H, W, 3)), 8, 6, compression=compression, rows_per_strip=rps,
+                      codec=lambda r: code(next(strips)), tags=[(530, 3, [h, v])] + list(tags))
+
+
+def old_jpeg_tiff(rgb, subsampling=2, tags=()) -> bytes:
+    """An old-style JPEG TIFF (compression 6): the JPEG file as the strip,
+    named again by JPEGInterchangeFormat (513) and its length (514)."""
+    jpg = save(Image.fromarray(rgb), "JPEG", quality=90, subsampling=subsampling)
+    off = tiff_bytes(rgb, 8, 6, compression=6, codec=lambda r: jpg, tags=tags).index(jpg)
+    return tiff_bytes(rgb, 8, 6, compression=6, codec=lambda r: jpg,
+                      tags=[(513, 4, [off]), (514, 4, [len(jpg)])] + list(tags))
+
+
+def special_floats(h, w, seed):
+    f = (np.random.RandomState(seed).randn(h, w, 1) * 150 + 100).astype(np.float32)
+    f[0, :8, 0] = [np.nan, np.inf, -np.inf, 254.99, 255.0, 0.5, -0.0, 1e-40]
+    return f
+
+
+def signed(h, w, bits, seed):
+    rng = np.random.RandomState(seed)
+    v = rng.randint(-(1 << (bits - 1)), 1 << (bits - 1), (h, w, 1), dtype=np.int64)
+    v[1::2] = rng.randint(-50, 300, (len(v[1::2]), w, 1))  # rows inside and around 0..255
+    return v
 
 
 def tiff_fixtures():
@@ -406,6 +524,7 @@ def tiff_fixtures():
     img = Image.fromarray(rgb)
     rng = np.random.RandomState(42)
     r16 = rgb.astype(np.int64) * 257 + rng.randint(0, 256, rgb.shape)
+    r16_cmyk = scene(37, 45, c=4, seed=48, depth=16)
     return {
         "tiff_strips.tif": tiff_bytes(rgb, 8, 2, rows_per_strip=8),
         "tiff_packbits.tif": save(img, "TIFF", compression="packbits"),
@@ -432,6 +551,26 @@ def tiff_fixtures():
             extra=(1,)),
         "tiff_cmyk.tif": save(Image.fromarray(scene(37, 45, c=4, seed=43), "CMYK"), "TIFF",
                               compression="packbits"),
+        "tiff_bigtiff.tif": tiff_bytes(rgb, 8, 2, big=True, compression=5, rows_per_strip=8),
+        "tiff_lzma.tif": save(img, "TIFF", compression="lzma"),
+        "tiff_zstd.tif": save(img, "TIFF", compression="zstd"),
+        "tiff_ccitt_rle.tif": save(img.convert("1"), "TIFF", compression="tiff_ccitt"),
+        "tiff_group3_2d.tif": save(img.convert("1"), "TIFF", compression="group3",
+                                   tiffinfo={292: 1}),
+        "tiff_group4.tif": save(img.convert("1"), "TIFF", compression="group4"),
+        "tiff_float32_predictor3.tif": tiff_bytes(special_floats(37, 45, 44), 32, 1, fmt=3,
+                                                  compression=8, predictor=3),
+        "tiff_int16_signed_mm.tif": tiff_bytes(signed(37, 45, 16, 45), 16, 1, fmt=2, bo=">"),
+        "tiff_int32_signed.tif": tiff_bytes(signed(37, 45, 32, 46), 32, 1, fmt=2,
+                                            compression=5, predictor=2),
+        "tiff_cmyk16.tif": tiff_bytes(r16_cmyk, 16, 5, compression=8, bo=">"),
+        "tiff_orientation6.tif": tiff_bytes(rgb, 8, 2, compression=5,
+                                            tags=[(274, 3, [6])]),
+        "tiff_ycbcr_deflate.tif": ycbcr_tiff(37, 45, 2, 2, 49, rows_per_strip=8),
+        "tiff_old_jpeg.tif": old_jpeg_tiff(rgb),
+        "tiff_thunderscan.tif": tiff_bytes(_nibbles(37, 45, 47)[..., None], 4, 1,
+                                           compression=32809,
+                                           codec=lambda r: thunderscan(_nibbles(37, 45, 47))),
     }
 
 
@@ -614,9 +753,13 @@ def test_fixtures_cover_each_kind():
             kinds |= {t[0] for t in webp._transforms(br, w, h)[0]}
     assert kinds == {0, 1, 2, 3}  # predictor, colour, subtract green, colour indexing
     tiff = [Image.open(io.BytesIO(made[n])) for n in FIXTURE_NAMES if n.endswith(".tif")]
-    assert {im.info["compression"] for im in tiff} == {"raw", "packbits", "tiff_lzw",
-                                                      "tiff_adobe_deflate", "jpeg"}
-    assert {im.mode for im in tiff} >= {"1", "L", "I;16", "P", "RGB", "RGBA", "CMYK"}
+    assert {im.info["compression"] for im in tiff} == {
+        "raw", "packbits", "tiff_lzw", "tiff_adobe_deflate", "jpeg", "lzma", "zstd",
+        "tiff_ccitt", "group3", "group4", "tiff_thunderscan", "tiff_jpeg"}
+    assert {im.tag_v2[262] for im in tiff} >= {0, 1, 2, 3, 5, 6}
+    assert {im.mode for im in tiff} >= {"1", "L", "I;16", "P", "RGB", "RGBA", "CMYK", "I", "F"}
+    assert any(made[n][:4] == b"II+\0" for n in FIXTURE_NAMES)  # BigTIFF
+    assert {im.tag_v2.get(274, 1) for im in tiff} == {1, 6}
     assert {Image.open(io.BytesIO(made[n])).info.get("compression") for n in FIXTURE_NAMES
             if n.endswith(".bmp")} == {0, 1, 2, 3}
 
@@ -711,6 +854,116 @@ def test_tiff_layouts_equal_pil(case, tmp_path):
     assert_equals_pil(tiff_bytes(samples, bps, photo, **kw), tmp_path, "x.tif")
 
 
+SAMPLE_FORMATS = {"float32": (special_floats, 32, 3), "int16": (lambda h, w, s: signed(h, w, 16, s),
+                                                                16, 2),
+                  "int32": (lambda h, w, s: signed(h, w, 32, s), 32, 2),
+                  "uint32": (lambda h, w, s: signed(h, w, 32, s) & 0xFFFFFFFF, 32, 1)}
+
+
+CODINGS = [(1, 1), (8, 1), (5, 2), (34925, 1), (32773, 1), (1, 2)]
+
+
+@pytest.mark.parametrize("bo", ["<", ">"])
+@pytest.mark.parametrize("kind,compression,predictor",
+                         [(k, c, p) for k in sorted(SAMPLE_FORMATS) for c, p in CODINGS]
+                         + [("float32", 8, 3), ("float32", 34925, 3)])
+def test_tiff_sample_formats_equal_pil(kind, compression, predictor, bo, tmp_path):
+    """Pillow's F and I modes: clipped to 0..255 (F truncated, NaN 0); a
+    compressed big-endian file's samples come out byte-swapped (libtiff's
+    native order unpacked as big-endian); Pillow ignores the predictor of
+    an uncompressed file; big-endian unsigned 32-bit gray is refused."""
+    make, bps, fmt = SAMPLE_FORMATS[kind]
+    data = tiff_bytes(make(16, 24, bps + compression), bps, 1, fmt=fmt, bo=bo,
+                      compression=compression, predictor=predictor, rows_per_strip=5)
+    if kind == "uint32" and bo == ">":
+        assert pil_refuses(data)
+        with pytest.raises(ValueError, match="BitsPerSample"):
+            I.read_image(_written(tmp_path, "x.tif", data))
+        return
+    assert_equals_pil(data, tmp_path, "x.tif")
+
+
+def _written(tmp_path, name, data):
+    (tmp_path / name).write_bytes(data)
+    return tmp_path / name
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_tiff_orientations_equal_pil(orientation, tmp_path):
+    """Pillow applies every Orientation (exif_transpose); 5-8 swap the sides."""
+    rgb = scene(13, 19, seed=orientation)
+    for tile in (None, (16, 16)):
+        data = tiff_bytes(rgb, 8, 2, compression=8, tile=tile, tags=[(274, 3, [orientation])])
+        assert_equals_pil(data, tmp_path, "x.tif")
+
+
+@pytest.mark.parametrize("layout", ["strips", "tiles_planar2", "gray16_lzma"])
+def test_bigtiff_equals_pil(layout, tmp_path):
+    """Little-endian BigTIFF (Pillow reads no other): 8-byte counts and
+    offsets, 20-byte entries, values of up to 8 bytes inline."""
+    rgb = scene(21, 35, seed=30)
+    data = {"strips": lambda: tiff_bytes(rgb, 8, 2, big=True, compression=5, rows_per_strip=4),
+            "tiles_planar2": lambda: tiff_bytes(rgb, 8, 2, big=True, compression=8,
+                                                tile=(16, 16), planar=2),
+            "gray16_lzma": lambda: tiff_bytes(rgb[..., :1].astype(np.int64) * 3, 16, 1,
+                                              big=True, compression=34925)}[layout]()
+    assert data[:4] == b"II+\0"
+    assert_equals_pil(data, tmp_path, "x.tif")
+
+
+CCITT = [("tiff_ccitt", {}), ("group3", {}), ("group3", {"tiffinfo": {292: 1}}),
+         ("group3", {"tiffinfo": {292: 5}}), ("group4", {}), ("group4", {"tiffinfo": {266: 2}}),
+         ("group3", {"tiffinfo": {262: 0}}), ("group4", {"tiffinfo": {262: 0, 266: 2}})]
+
+
+@pytest.mark.parametrize("case", range(len(CCITT)))
+@pytest.mark.parametrize("h,w", [(37, 45), (12, 3000), (9, 1)])
+def test_tiff_ccitt_equals_pil(case, h, w, tmp_path):
+    """CCITT RLE, Group 3 1D and 2D (with fill bits to byte-align EOLs),
+    Group 4, fill order 2 and MinIsWhite, as libtiff writes them; a row 3000
+    wide takes the make-up codes of both colours and the extended ones."""
+    comp, kw = CCITT[case]
+    bw = scene(h, w, seed=case)[..., 0] > 128
+    bw ^= np.random.RandomState(h).rand(h, w) < 0.05
+    if w == 3000:
+        bw[3, 5:2900], bw[4], bw[5] = True, False, True
+        bw[6, 1800:] = False
+    data = save(Image.fromarray(bw), "TIFF", compression=comp, **kw)
+    assert Image.open(io.BytesIO(data)).info["compression"] == comp
+    assert_equals_pil(data, tmp_path, "x.tif")
+
+
+@pytest.mark.parametrize("content", ["text", "letters", "mixed"])
+def test_tiff_zstd_and_lzma_equal_pil(content, tmp_path):
+    """Larger strips than the fixtures: ZSTD frames of several blocks with
+    raw, RLE, Huffman and treeless literals, one and four streams, and
+    predefined, FSE and repeated sequence tables; LZMA over the same."""
+    rng = np.random.RandomState(31)
+    text = np.frombuffer((Path(__file__).read_bytes() * 8)[:120000], np.uint8).reshape(-1, 600)
+    letters = rng.choice(np.arange(97, 105), (200, 600),
+                         p=[0.3, 0.2, 0.15, 0.1, 0.1, 0.05, 0.05, 0.05]).astype(np.uint8)
+    mixed = np.concatenate([text[:40], np.zeros((20, 600)), rng.randint(0, 256, (20, 600)),
+                            np.full((10, 600), 7)]).astype(np.uint8)
+    img = Image.fromarray({"text": text, "letters": letters, "mixed": mixed}[content], "L")
+    for comp in ("zstd", "lzma"):
+        assert_equals_pil(save(img, "TIFF", compression=comp, strip_size=1 << 22), tmp_path,
+                          "x.tif")
+
+
+@pytest.mark.parametrize("h,w", [(9, 16), (7, 13), (5, 1), (6, 64)])
+@pytest.mark.parametrize("photo", [0, 1])
+def test_tiff_thunderscan_equals_pil(h, w, photo, tmp_path):
+    """libtiff decodes ThunderScan (it cannot encode it): rows of 4-bit
+    pixels written by :func:`thunderscan`."""
+    px = _nibbles(h, w, h * w)
+    strips = iter([thunderscan(px[i: i + 3], seed=i) for i in range(0, h, 3)])
+    data = tiff_bytes(px[..., None], 4, photo, compression=32809, rows_per_strip=3,
+                      codec=lambda r: next(strips))
+    want = (px * 17).astype(np.uint8)
+    np.testing.assert_array_equal(pil_rgb(data)[..., 0], want if photo else 255 - want)
+    assert_equals_pil(data, tmp_path, "x.tif")
+
+
 @pytest.mark.parametrize("kw", [dict(lossless=True, method=6, quality=100),
                                 dict(lossless=True, method=2), dict(quality=5),
                                 dict(quality=95, method=6), dict(quality=30, method=0)])
@@ -752,6 +1005,12 @@ def tif_bad_deflate(rgb) -> bytes:
     return bytes(data)
 
 
+def _strip(data: bytes) -> bytes:
+    """The first strip of a TIFF Pillow wrote."""
+    im = Image.open(io.BytesIO(data))
+    return data[im.tag_v2[273][0]: im.tag_v2[273][0] + im.tag_v2[279][0]]
+
+
 def _refusals():
     rgb = scene(20, 24, seed=16)
     gif = gif_bytes((24, 20), _indices(20, 24, 256, 17), global_pal=_palette(256, 17))
@@ -771,6 +1030,14 @@ def _refusals():
         "tiff_no_width.tif": tif.replace(struct.pack("<HHI", 256, 4, 1),
                                          struct.pack("<HHI", 999, 4, 1)),
         "tiff_bad_deflate.tif": tif_bad_deflate(rgb),
+        "tiff_bigtiff_mm.tif": tiff_bytes(rgb, 8, 2, bo=">", big=True),
+        "tiff_webp.tif": tiff_bytes(rgb, 8, 2, compression=50001,
+                                    codec=lambda r: save(Image.fromarray(rgb), "WEBP")),
+        "tiff_float64.tif": tiff_bytes(rgb[..., :1].astype(np.float64), 64, 1, fmt=3,
+                                       codec=lambda r: rgb[..., 0].astype("<f8").tobytes()),
+        "tiff_ycbcr_uncompressed.tif": ycbcr_tiff(16, 24, 1, 1, 18, compression=1),
+        "tiff_zstd_truncated.tif": tiff_bytes(rgb, 8, 2, compression=50000, codec=lambda r: (
+            _strip(save(Image.fromarray(rgb), "TIFF", compression="zstd"))[:-40])),
         "webp_lossless_truncated.webp": _cut(lossless, 0.5),
         "webp_lossy_truncated.webp": _cut(lossy, 0.5),
     }
@@ -789,27 +1056,73 @@ def test_what_pillow_refuses_raises_naming_the_file(name, tmp_path):
 
 
 LEFT_TO_PORT = {
-    "ccitt_g4.tif": (dict(bps=1, photo=0, compression=4), "Compression 4"),
-    "float32.tif": (dict(bps=32, photo=1, fmt=3), "SampleFormat (3,)"),
-    "cielab.tif": (dict(bps=8, photo=8), "PhotometricInterpretation 8"),
+    "cielab.tif": (lambda: tiff_bytes(np.random.RandomState(18).randint(0, 256, (16, 24, 3)), 8,
+                                      8), "PhotometricInterpretation 8"),
+    "ycbcr_44_odd.tif": (lambda: ycbcr_tiff(16, 12, 4, 4, 18), "YCbCrSubsampling (4, 4)"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(LEFT_TO_PORT))
 def test_tiff_kinds_left_to_port_raise_naming_the_tag(name, tmp_path):
     """Pillow reads these; the port raises, naming the file and the tag's
-    value (ROADMAP §1 lists them)."""
-    kw, tag = LEFT_TO_PORT[name]
-    kw = dict(kw)
-    bps, photo = kw.pop("bps"), kw.pop("photo")
-    spp = 3 if photo == 8 else 1
-    samples = np.random.RandomState(18).rand(16, 24, spp) if bps == 32 else \
-        np.random.RandomState(18).randint(0, 1 << bps, (16, 24, spp))
-    data = tiff_bytes(samples, bps, photo, **kw)
+    value (ROADMAP §1 item 12 gives each reason: LittleCMS's Lab → sRGB, and
+    libtiff's short read of 4x4 blocks when a row's bytes do not divide by
+    4)."""
+    make, tag = LEFT_TO_PORT[name]
+    data = make()
     assert not pil_refuses(data)
     (tmp_path / name).write_bytes(data)
-    with pytest.raises(ValueError, match=f"{name}.*{tag.replace('(', '[(]').replace(')', '[)]')}"):
+    with pytest.raises(ValueError, match=f"{re.escape(name)}.*{re.escape(tag)}"):
         I.read_image(tmp_path / name)
+
+
+ONCE_LEFT = {
+    "ccitt_g4.tif": lambda: save(Image.fromarray(
+        np.random.RandomState(18).randint(0, 2, (16, 24)).astype(bool)), "TIFF",
+        compression="group4", tiffinfo={262: 0}),
+    "float32.tif": lambda: tiff_bytes(np.random.RandomState(18).rand(16, 24, 1) * 300, 32, 1,
+                                      fmt=3),
+    "ycbcr_deflate.tif": lambda: ycbcr_tiff(16, 24, 2, 2, 18),
+    "ojpeg.tif": lambda: old_jpeg_tiff(scene(16, 24, seed=18)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ONCE_LEFT))
+def test_tiff_kinds_once_left_to_port_equal_pil(name, tmp_path):
+    """Kinds the refusal test above pinned before they were ported: a Group 4
+    file (MinIsWhite), float samples, YCbCr in data units (Deflate) and an
+    old-style JPEG."""
+    assert_equals_pil(ONCE_LEFT[name](), tmp_path, name)
+
+
+YCBCR = [(h, v, H, W, rps) for h, v in [(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)]
+         for H, W, rps in [(8, 16, 8), (7, 13, 4), (16, 8, 4)]
+         if not ((h, v) == (4, 4) and -(-W // 4) % 2)]
+
+
+@pytest.mark.parametrize("tags", ["default", "reference_black_white", "coefficients"])
+@pytest.mark.parametrize("h,v,H,W,rps", YCBCR)
+def test_tiff_ycbcr_equals_pil(h, v, H, W, rps, tags, tmp_path):
+    """YCbCr without JPEG as libtiff's TIFFRGBAImage converts it: every
+    subsampling it takes, partial blocks, several strips, a CCIR
+    ReferenceBlackWhite and Rec. 709 YCbCrCoefficients (RATIONAL tags)."""
+    extra = {"default": [], "reference_black_white": [
+        (532, 5, [16, 1, 235, 1, 128, 1, 240, 1, 128, 1, 240, 1])],
+        "coefficients": [(529, 5, [2126, 10000, 7152, 10000, 722, 10000])]}[tags]
+    data = ycbcr_tiff(H, W, h, v, H * W + h, rows_per_strip=rps, tags=extra,
+                      compression=5 if h == v else 8)
+    assert_equals_pil(data, tmp_path, "x.tif")
+
+
+@pytest.mark.parametrize("subsampling", [0, 1, 2])
+@pytest.mark.parametrize("tag", [None, (1, 1), (2, 2)])
+def test_tiff_old_jpeg_equals_pil(subsampling, tag, tmp_path):
+    """Old-style JPEG 4:4:4, 4:2:2 and 4:2:0 (the JPEG's sampling overrides
+    YCbCrSubsampling, as libtiff's OJPEG makes it): libjpeg's raw components,
+    each chroma sample replicated over its block, libtiff's conversion."""
+    tags = [] if tag is None else [(530, 3, list(tag))]
+    assert_equals_pil(old_jpeg_tiff(scene(21, 30, seed=subsampling), subsampling, tags),
+                      tmp_path, "x.tif")
 
 
 def test_raw_image_store_equals_jax_over_every_container(tmp_path):
@@ -832,16 +1145,18 @@ def test_raw_image_store_equals_jax_over_every_container(tmp_path):
 
 
 def test_decoders_import_no_pillow():
-    """``data/bmp.py``, ``gif.py``, ``tiff.py`` and ``webp.py`` import
-    numpy, ``zlib`` and the port only."""
+    """``data/bmp.py``, ``gif.py``, ``tiff.py``, ``webp.py``, ``ccitt.py``
+    and ``zstd.py`` import numpy, the standard library's ``zlib``, ``lzma``
+    and ``bisect``, and the port only."""
     import ast
     import importlib
 
-    for mod in ("bmp", "gif", "tiff", "webp"):
+    for mod in ("bmp", "gif", "tiff", "webp", "ccitt", "zstd"):
         path = Path(importlib.import_module(f"mm_s2ut_torch.data.{mod}").__file__)
         tree = ast.parse(path.read_text())
         names = {a.name.split(".")[0] for n in ast.walk(tree)
                  if isinstance(n, (ast.Import, ast.ImportFrom))
                  for a in (n.names if isinstance(n, ast.Import) else [ast.alias(n.module or "")])}
-        assert names <= {"__future__", "struct", "zlib", "typing", "numpy", "mm_s2ut_torch"}, \
+        assert names <= {"__future__", "struct", "zlib", "lzma", "bisect", "typing", "numpy",
+                         "mm_s2ut_torch"}, \
             (mod, names)

@@ -3,8 +3,8 @@ against the JAX package's on the same numpy inputs: distances and
 assignments (fp32 1e-4; units equal except at near-ties, where the two
 best distances differ by less than 1e-5 relative), Lloyd steps from the
 same initial centroids (centroids and inertia per step within 1e-4), the
-init's spread, ``decode`` greedy and beam, ``load``/``save`` and
-``dedup_units``."""
+init's spread, ``decode`` greedy and beam, ``load`` (``.npy`` and the
+reference's joblib file without joblib)/``save`` and ``dedup_units``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -168,18 +168,33 @@ def test_quantizer_assigns_on_the_features_device():
 
 
 def test_joblib_quantizer_without_joblib_names_npy(tmp_path, monkeypatch):
+    """Without joblib or sklearn the quantizer still reads the reference's
+    ``joblib.dump`` of an sklearn k-means, equal to its ``.npy`` twin (the
+    file a user once had to write by hand)."""
     import builtins
+    import warnings
 
+    import joblib
+    from sklearn.cluster import MiniBatchKMeans
+
+    x = np.random.RandomState(7).randn(200, 6).astype(np.float32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        km = MiniBatchKMeans(n_clusters=5, random_state=0, n_init=3).fit(x)
+    joblib.dump(km, tmp_path / "km.bin")
+    np.save(tmp_path / "km.npy", km.cluster_centers_)
     real_import = builtins.__import__
 
     def no_joblib(name, *args, **kwargs):
-        if name == "joblib":
-            raise ImportError("no joblib")
+        if name.split(".")[0] in ("joblib", "sklearn"):
+            raise ImportError(f"no {name}")
         return real_import(name, *args, **kwargs)
 
     monkeypatch.setattr(builtins, "__import__", no_joblib)
-    with pytest.raises(RuntimeError, match=r"joblib.*\.npy"):
-        tk.KMeansQuantizer.load(tmp_path / "km.bin")
+    got = tk.KMeansQuantizer.load(tmp_path / "km.bin")
+    want = tk.KMeansQuantizer.load(tmp_path / "km.npy")
+    np.testing.assert_array_equal(got.centroids.numpy(), want.centroids.numpy())
+    np.testing.assert_array_equal(got(x).numpy(), want(x).numpy())
 
 
 def test_dedup_units():
