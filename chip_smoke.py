@@ -2667,7 +2667,8 @@ def loaded_vit(name, gen, path=None):
     return vit.eval()
 
 
-FORMAT_FIXTURES = 80  # tests/torch_images/formats/: 17 JPEG and PNG, 63 BMP, GIF, TIFF, WebP
+FORMAT_FIXTURES = 107  # tests/torch_images/formats/: 17 JPEG and PNG, 63 BMP, GIF, TIFF, WebP,
+# 27 Netpbm, TGA, ICO/CUR/DIB, QOI and SGI
 # the TIFF kinds data/tiff.py took on after the first containers (BigTIFF, LZMA, ZSTD,
 # CCITT RLE, Group 3 2D, Group 4, ThunderScan, Pillow's F and I modes, 16-bit CMYK,
 # an Orientation that swaps the sides, YCbCr in data units, old-style JPEG)
@@ -2677,7 +2678,10 @@ NEW_TIFF_FIXTURES = [
     "tiff_float32_predictor3.tif", "tiff_int16_signed_mm.tif", "tiff_int32_signed.tif",
     "tiff_cmyk16.tif", "tiff_orientation6.tif", "tiff_ycbcr_deflate.tif", "tiff_old_jpeg.tif"]
 CONTAINERS = {".jpg": "JPEG", ".png": "PNG", ".bmp": "BMP", ".gif": "GIF", ".tif": "TIFF",
-              ".webp": "WebP"}
+              ".webp": "WebP", ".pbm": "Netpbm", ".pgm": "Netpbm", ".ppm": "Netpbm",
+              ".pfm": "Netpbm", ".tga": "TGA", ".ico": "ICO/CUR/DIB", ".cur": "ICO/CUR/DIB",
+              ".dib": "ICO/CUR/DIB", ".qoi": "QOI", ".sgi": "SGI"}
+RASTER_FAMILIES = ["Netpbm", "TGA", "ICO/CUR/DIB", "QOI", "SGI"]  # read by the raster decoders
 
 
 def format_fixtures():
@@ -2706,7 +2710,7 @@ def format_fixtures():
 def per_container(formats):
     """{container: (fixtures, mean host decode ms)} of ``format_fixtures``."""
     out = {}
-    for kind in CONTAINERS.values():
+    for kind in dict.fromkeys(CONTAINERS.values()):
         secs = [s for n, s in formats if CONTAINERS[Path(n).suffix] == kind]
         out[kind] = (len(secs), 1e3 * sum(secs) / len(secs))
     return out
@@ -2788,6 +2792,12 @@ def phase_image_path(out_dir: Path):
     assert set(NEW_TIFF_FIXTURES) <= set(decode_s), sorted(set(NEW_TIFF_FIXTURES) - set(decode_s))
     print("phase 19a: the newer TIFF kinds, each equal to its PIL twin, host decode: "
           + ", ".join(f"{n} {decode_s[n] * 1e3:.2f} ms" for n in NEW_TIFF_FIXTURES))
+    families = per_container(formats)
+    for family in RASTER_FAMILIES:
+        names = [n for n, _ in formats if CONTAINERS[Path(n).suffix] == family]
+        print(f"phase 19a: {family} ({families[family][0]} fixtures, each equal to its PIL twin), "
+              f"host decode mean {families[family][1]:.3f} ms: "
+              + ", ".join(f"{n} {decode_s[n] * 1e3:.3f} ms" for n in names))
 
     # (b) ViT-B/16-384
     vit_cpu = loaded_vit("vit_base_patch16_384", gen, root / "vit_base.bin")
@@ -3008,7 +3018,7 @@ def image_entry_points(root: Path, vit_b, gen, images):
           f"{overlay.shape[1]}x{overlay.shape[0]} PNG; A launched {n_a} times in all")
 
 
-# one fixture of each kind the BMP, GIF, TIFF and WebP readers decode
+# one fixture of each kind the BMP, GIF, TIFF and WebP readers decode, and of each raster family
 CONTAINER_FEATURE_FIXTURES = [
     "bmp_rle8.bmp", "bmp32_bitfields_v5.bmp", "gif_offset_transparent.gif",
     "gif_interlaced.gif", "tiff_jpeg.tif", "tiff_tiles_lzw.tif", "tiff_planar2.tif",
@@ -3017,7 +3027,10 @@ CONTAINER_FEATURE_FIXTURES = [
     # one of each TIFF compression added later, a BigTIFF and YCbCr in data units
     "tiff_lzma.tif", "tiff_zstd.tif", "tiff_ccitt_rle.tif", "tiff_group3_2d.tif",
     "tiff_group4.tif", "tiff_thunderscan.tif", "tiff_old_jpeg.tif", "tiff_bigtiff.tif",
-    "tiff_ycbcr_deflate.tif"]
+    "tiff_ycbcr_deflate.tif",
+    # one of each raster family: Netpbm, TGA, ICO, QOI, SGI
+    "netpbm_p6_16bit.ppm", "tga_palette16_rle.tga", "ico_bmp4_bmp8.ico", "qoi_rgba.qoi",
+    "sgi_rgb16_rle.sgi"]
 
 
 def container_features(root: Path, gen):
@@ -3068,7 +3081,8 @@ def container_features(root: Path, gen):
         "19g: features from the containers differ from their .npy twins' "
         f"(max|diff| {float(np.abs(got - want).max())})")
     print(f"phase 19g: extract_features ViT-B/16-384 bf16 over {len(CONTAINER_FEATURE_FIXTURES)} "
-          f"BMP/GIF/TIFF/WebP fixtures ({', '.join(CONTAINER_FEATURE_FIXTURES)}; TIFF in LZMA, "
+          f"BMP/GIF/TIFF/WebP/Netpbm/TGA/ICO/QOI/SGI fixtures "
+          f"({', '.join(CONTAINER_FEATURE_FIXTURES)}; TIFF in LZMA, "
           f"ZSTD, CCITT RLE, Group 3, Group 4, ThunderScan, old-style JPEG, BigTIFF, YCbCr "
           f"among them): features "
           f"{got.shape} equal bit for bit to those of their .npy twins; A launched 12 times in "

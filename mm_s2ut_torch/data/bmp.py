@@ -2,7 +2,9 @@
 
 :func:`decode_bmp` gives ``np.asarray(Image.open(p).convert("RGB"))`` for
 every ``BM`` file Pillow 12's ``BmpImagePlugin`` opens, and ``ValueError``
-naming the file for those it refuses:
+naming the file for those it refuses; :func:`decode_dib` reads the same
+bitmaps without the 14-byte file header (Pillow's ``DIB``, and the entries
+of ICO and CUR files, ``data/ico.py``):
 
 * BITMAPCOREHEADER (12 bytes: 16-bit sizes, 3-byte palette entries) and
   the INFOHEADER family (40, 52, 56, 64, V4 108, V5 124), rows bottom-up
@@ -21,8 +23,11 @@ naming the file for those it refuses:
 from __future__ import annotations
 
 import struct
+from typing import Tuple
 
 import numpy as np
+
+from mm_s2ut_torch.data import Unidentified, check_pixels
 
 _RAW, _RLE8, _RLE4, _BITFIELDS = 0, 1, 2, 3
 # Pillow's BI_BITFIELDS layouts: (bits, masks) → byte order of a pixel
@@ -46,12 +51,31 @@ def decode_bmp(data: bytes, name: str = "<bmp>") -> np.ndarray:
     """A ``BM`` file → (H, W, 3) uint8 RGB, as Pillow gives it."""
     if len(data) < 18 or data[:2] != b"BM":
         raise ValueError(f"{name}: not a BMP file")
-    offset = struct.unpack_from("<I", data, 10)[0]
-    hsize = struct.unpack_from("<I", data, 14)[0]
-    hdr = data[18: 14 + hsize]
+    return _bitmap(data, 14, struct.unpack_from("<I", data, 10)[0], name)[0]
+
+
+def decode_dib(data: bytes, name: str = "<dib>", at: int = 0,
+               halve: bool = False) -> Tuple[np.ndarray, int]:
+    """A device-independent bitmap without the file header, its info header
+    at ``at`` (Pillow's ``DibImageFile``): the pixels follow the header, the
+    masks of a 40-byte BI_BITFIELDS header and the palette. ``halve`` keeps
+    the first half of the rows the header counts, as Pillow reads an ICO or
+    CUR entry (an XOR image over an AND mask). → (RGB pixels, the offset of
+    the pixel rows)."""
+    return _bitmap(data, at, 0, name, halve)
+
+
+def _bitmap(data: bytes, at: int, offset: int, name: str,
+            halve: bool = False) -> Tuple[np.ndarray, int]:
+    """Pillow's ``BmpImageFile._bitmap``: the info header at ``at``, the
+    pixels at ``offset`` (0: right after the header, masks and palette)."""
+    if len(data) < at + 4:
+        raise Unidentified(f"{name}: truncated BMP header size")
+    hsize = struct.unpack_from("<I", data, at)[0]
+    hdr = data[at + 4: at + hsize]
     if len(hdr) < hsize - 4:
         raise ValueError(f"{name}: truncated BMP header")
-    pos = 14 + hsize
+    pos = at + hsize
     direction = -1  # rows bottom-up
     if hsize == 12:
         width, height, _, bits = struct.unpack_from("<HHHH", hdr)
@@ -68,11 +92,18 @@ def decode_bmp(data: bytes, name: str = "<bmp>") -> np.ndarray:
             if len(hdr) >= 48:
                 masks = struct.unpack_from(f"<{n}I", hdr, 36)
             else:  # a 40-byte header: the three masks follow it
+                if len(data) < pos + 12:
+                    raise Unidentified(f"{name}: truncated BMP bitfields masks")
                 masks = struct.unpack_from("<3I", data, pos)
                 pos += 12
             masks = tuple(masks) + (0,) * (4 - len(masks))
     else:
         raise ValueError(f"{name}: unsupported BMP header type ({hsize})")
+    if halve:
+        height //= 2
+    if width <= 0 or height <= 0:
+        raise Unidentified(f"{name}: BMP size {width}x{height}")
+    check_pixels(width, height * (2 if halve else 1), name)
     colors = colors or (1 << bits)
     if offset == 14 + hsize and bits <= 8:
         offset += 4 * colors
@@ -93,6 +124,7 @@ def decode_bmp(data: bytes, name: str = "<bmp>") -> np.ndarray:
         if not 0 < colors <= 65536:
             raise ValueError(f"{name}: unsupported BMP palette size ({colors})")
         raw = np.frombuffer(data[pos: pos + pad * colors], np.uint8)
+        pos += len(raw)
         entries = raw[: len(raw) // pad * pad].reshape(-1, pad)[:, 2::-1]  # BGR(X) → RGB
         gray = np.array([0, 255]) if colors == 2 else np.arange(colors)
         if len(entries) == colors and np.array_equal(entries, np.repeat(gray[:, None], 3, 1)):
@@ -101,6 +133,7 @@ def decode_bmp(data: bytes, name: str = "<bmp>") -> np.ndarray:
             palette = np.zeros((max(256, len(entries)), 3), np.uint8)
             palette[: len(entries)] = entries
 
+    offset = offset or pos
     if compression in (_RLE8, _RLE4):
         idx = _rle(data, offset, width, height, compression == _RLE4, name)
     elif order == "L" and bits < 8:  # Pillow reads such rows a byte per pixel
@@ -112,13 +145,13 @@ def decode_bmp(data: bytes, name: str = "<bmp>") -> np.ndarray:
         idx = _rows(data, offset, width, height, bits, bits, name)
     if direction == -1:
         idx = idx[::-1]
-    if bits <= 8:
-        if order == "1":
-            idx = np.where(idx != 0, 255, 0)
-        if palette is None:
-            return np.ascontiguousarray(np.repeat(idx.astype(np.uint8)[..., None], 3, 2))
-        return palette[idx]
-    return _direct(idx, order)
+    if bits > 8:
+        return _direct(idx, order), offset
+    if order == "1":
+        idx = np.where(idx != 0, 255, 0)
+    if palette is None:
+        return np.ascontiguousarray(np.repeat(idx.astype(np.uint8)[..., None], 3, 2)), offset
+    return palette[idx], offset
 
 
 def _rows(data, offset, width, height, bits, read_bits, name) -> np.ndarray:

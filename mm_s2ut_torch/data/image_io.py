@@ -5,19 +5,27 @@ What the JAX package asks of PIL (``mm_s2ut/models/vit.py:141-194``,
 
 * :func:`read_image` — a file → ``(H, W, 3)`` uint8, equal to
   ``np.asarray(Image.open(path).convert("RGB"))`` for every PNG, JPEG,
-  BMP, GIF, TIFF and WebP file Pillow opens (the container known by its
-  first bytes), and ``ValueError`` naming the file for those it refuses.
-  It reads ``.npy`` pixels ((H, W, 3) or (H, W) uint8); PNG in every
-  colour type and bit depth, Adam7-interlaced or not (gray of 1/2/4 bits
-  scaled as Pillow's ``1``/``L;2``/``L;4``, 16-bit gray clamped to 255
-  as Pillow's ``I;16`` converts, the other 16-bit types' high bytes,
-  alpha dropped as ``convert("RGB")`` drops it); JPEG through
-  ``data/jpeg.py``: Huffman, arithmetic, progressive and lossless frames,
-  block smoothing, every integral sampling ratio, CMYK and YCCK, all in
-  libjpeg-turbo's integer arithmetic; BMP through ``data/bmp.py``, GIF
-  (the first frame) through ``data/gif.py``, TIFF (the first page)
-  through ``data/tiff.py`` and WebP, lossless and lossy, through
-  ``data/webp.py``; each module's docstring says what it reads.
+  BMP, DIB, GIF, TIFF, WebP, Netpbm, TGA, ICO, CUR, QOI and SGI file
+  Pillow opens, and ``ValueError`` naming the file for those it refuses.
+  :func:`decode_image` picks the container as ``Image.open`` does: Pillow's
+  plugins in its order, each behind its test of the first bytes, TGA
+  (which has none) last, and a file whose header a plugin's open rejects
+  passed on to the next (an RGB TGA starts with CUR's magic). It reads
+  ``.npy`` pixels ((H, W, 3) or (H, W) uint8); PNG in every colour type
+  and bit depth, Adam7-interlaced or not (gray of 1/2/4 bits scaled as
+  Pillow's ``1``/``L;2``/``L;4``, 16-bit gray clamped to 255 as Pillow's
+  ``I;16`` converts, the other 16-bit types' high bytes, alpha dropped as
+  ``convert("RGB")`` drops it; the CRCs of the chunks before the image
+  data checked, the Adler-32 only where the stream ends with the image,
+  as Pillow reads them); JPEG through ``data/jpeg.py``: Huffman,
+  arithmetic, progressive and lossless frames, block smoothing, every
+  integral sampling ratio, CMYK and YCCK, all in libjpeg-turbo's integer
+  arithmetic; BMP and DIB through ``data/bmp.py``, GIF (the first frame)
+  through ``data/gif.py``, TIFF (the first page) through ``data/tiff.py``,
+  WebP, lossless and lossy, through ``data/webp.py``, Netpbm (P1-P6,
+  ``Pf``) through ``data/netpbm.py``, TGA through ``data/tga.py``, ICO and
+  CUR through ``data/ico.py``, QOI through ``data/qoi.py`` and SGI through
+  ``data/sgi.py``; each module's docstring says what it reads.
 * :func:`resize` — Pillow's ``Image.resize`` for ``BICUBIC`` and
   ``BILINEAR`` on 8-bit images (``Resample.c``): a separable filter
   whose support widens with the downscale factor, coefficients
@@ -38,16 +46,23 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from mm_s2ut_torch.data.bmp import decode_bmp
+from mm_s2ut_torch.data import Unidentified
+from mm_s2ut_torch.data.bmp import decode_bmp, decode_dib
 from mm_s2ut_torch.data.gif import decode_gif
+from mm_s2ut_torch.data.ico import decode_cur, decode_ico
 from mm_s2ut_torch.data.jpeg import decode_jpeg
+from mm_s2ut_torch.data.netpbm import decode_netpbm
+from mm_s2ut_torch.data.qoi import decode_qoi
+from mm_s2ut_torch.data.sgi import decode_sgi
+from mm_s2ut_torch.data.tga import decode_tga
 from mm_s2ut_torch.data.tiff import decode_tiff
 from mm_s2ut_torch.data.webp import decode_webp
 
 
 def read_image(path: str | Path) -> np.ndarray:
-    """``(H, W, 3)`` uint8 RGB pixels of a ``.npy``, PNG, JPEG, BMP, GIF,
-    TIFF or WebP file (by its first bytes; ``.npy`` also by its suffix)."""
+    """``(H, W, 3)`` uint8 RGB pixels of a ``.npy`` file (by its first bytes
+    or its suffix) or of any container :func:`decode_image` reads: PNG,
+    JPEG, BMP, DIB, GIF, TIFF, WebP, Netpbm, TGA, ICO, CUR, QOI, SGI."""
     path = Path(path)
     data = path.read_bytes()
     name = str(path)
@@ -57,19 +72,57 @@ def read_image(path: str | Path) -> np.ndarray:
             raise ValueError(f"{name}: expected (H, W, 3) or (H, W) uint8 pixels, got "
                              f"{arr.dtype} {arr.shape}")
         return _rgb(arr)
-    if data[:8] == b"\x89PNG\r\n\x1a\n":
-        return decode_png(data, name)
-    if data[:2] == b"\xff\xd8":
-        return decode_jpeg(data, name)
-    if data[:2] == b"BM":
-        return decode_bmp(data, name)
-    if data[:4] == b"GIF8":
-        return decode_gif(data, name)
-    if data[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):  # TIFF, BigTIFF
-        return decode_tiff(data, name)
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return decode_webp(data, name)
-    raise ValueError(f"{name}: not a PNG, JPEG, BMP, GIF, TIFF, WebP or .npy image")
+    return decode_image(data, name)[1]
+
+
+def _pcx(data: bytes, name: str) -> np.ndarray:
+    """What Pillow's ``PcxImagePlugin`` passes on (a header under 68 bytes or
+    an empty box; a TGA with a 10-byte ID field may be such a file), and a
+    refusal of the rest, which Pillow reads as PCX or refuses."""
+    if len(data) < 68:
+        raise Unidentified(f"{name}: not a PCX file ({len(data)} bytes)")
+    x0, y0, x1, y1 = struct.unpack_from("<4H", data, 4)
+    if x1 + 1 <= x0 or y1 + 1 <= y0:
+        raise Unidentified(f"{name}: not a PCX file (box {x0},{y0} to {x1},{y1})")
+    raise ValueError(f"{name}: PCX (version {data[1]}), which the port does not read yet")
+
+
+# Pillow's plugins in the order Image.open tries them, each with its test of the
+# first bytes (TGA, which has none, last); a decoder raising Unidentified passes
+# the file on to the next, as Pillow does where a plugin's open raises SyntaxError
+_DIB_HEADERS = (12, 40, 52, 56, 64, 108, 124)
+_CONTAINERS = (
+    ("BMP", lambda d: d[:2] == b"BM", decode_bmp),
+    ("DIB", lambda d: len(d) >= 4 and struct.unpack_from("<I", d)[0] in _DIB_HEADERS,
+     lambda d, n: decode_dib(d, n)[0]),
+    ("GIF", lambda d: d[:4] == b"GIF8", decode_gif),
+    ("JPEG", lambda d: d[:2] == b"\xff\xd8", decode_jpeg),
+    ("PPM", lambda d: d[:1] == b"P" and d[1:2] != b"" and d[1:2] in b"0123456fy",
+     decode_netpbm),
+    ("PNG", lambda d: d[:8] == b"\x89PNG\r\n\x1a\n", lambda d, n: decode_png(d, n)),
+    ("CUR", lambda d: d[:4] == b"\0\0\2\0", decode_cur),
+    ("PCX", lambda d: d[:1] == b"\n" and d[1:2] != b"" and d[1:2] in b"\0\2\3\5", _pcx),
+    ("ICO", lambda d: d[:4] == b"\0\0\1\0", decode_ico),
+    ("QOI", lambda d: d[:4] == b"qoif", decode_qoi),
+    ("SGI", lambda d: d[:2] == b"\x01\xda", decode_sgi),
+    ("TIFF", lambda d: d[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"), decode_tiff),
+    ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP", decode_webp),
+    ("TGA", lambda d: True, decode_tga),
+)
+
+
+def decode_image(data: bytes, name: str = "<image>") -> Tuple[str, np.ndarray]:
+    """The container Pillow's ``Image.open`` takes the bytes for (its
+    ``format``) and ``(H, W, 3)`` uint8 RGB pixels equal to
+    ``np.asarray(Image.open(p).convert("RGB"))``."""
+    for fmt, accepts, decode in _CONTAINERS:
+        if accepts(data):
+            try:
+                return fmt, decode(data, name)
+            except Unidentified:
+                continue
+    raise ValueError(f"{name}: not an image the port reads (PNG, JPEG, BMP, DIB, GIF, TIFF, "
+                     f"WebP, Netpbm, TGA, ICO, CUR, QOI, SGI or .npy)")
 
 
 def _rgb(arr: np.ndarray) -> np.ndarray:
@@ -151,8 +204,15 @@ def decode_png(data: bytes, name: str = "<png>") -> np.ndarray:
     while pos + 8 <= len(data):
         length, ctype = struct.unpack(">I4s", data[pos: pos + 8])
         body = data[pos + 8: pos + 8 + length]
+        crc = data[pos + 8 + length: pos + 12 + length]
         pos += 12 + length
+        if not idat and ctype != b"IDAT" and (
+                len(crc) < 4 or struct.unpack(">I", crc)[0] != zlib.crc32(ctype + body)):
+            # Pillow checks the chunks before the image data; its open fails there
+            raise Unidentified(f"{name}: broken PNG file (bad checksum in {ctype!r})")
         if ctype == b"IHDR":
+            if len(body) != 13:
+                raise ValueError(f"{name}: PNG IHDR of {len(body)} bytes")
             header = struct.unpack(">IIBBBBB", body)
         elif ctype == b"PLTE":
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
@@ -170,7 +230,19 @@ def decode_png(data: bytes, name: str = "<png>") -> np.ndarray:
     if interlace not in (0, 1):
         raise ValueError(f"{name}: unknown PNG interlace method {interlace}")
     channels = _PNG_CHANNELS[color]
-    raw = zlib.decompress(b"".join(idat))
+    stream = b"".join(idat)
+    try:
+        raw = zlib.decompress(stream)
+    except zlib.error as e:
+        # Pillow inflates row by row and stops at the image's last byte: it reads
+        # the Adler-32 only where the stream ends there too
+        raw = zlib.decompressobj(-15).decompress(stream[2:]) if "data check" in str(e) else b""
+        need = sum(-(-(height - y0) // dy) * (1 + (-(-(width - x0) // dx) * channels * depth + 7)
+                                                // 8)
+                   for y0, x0, dy, dx in (_ADAM7 if interlace else ((0, 0, 1, 1),))
+                   if height > y0 and width > x0)
+        if len(raw) <= need:
+            raise ValueError(f"{name}: PNG image data: {e}") from None
     px = np.zeros((height, width, channels), np.int64)
     off = 0
     for y0, x0, dy, dx in _ADAM7 if interlace else ((0, 0, 1, 1),):

@@ -35,6 +35,11 @@ LittleCMS, YCbCr without JPEG, old-style JPEG) raises ``ValueError``
 naming the file and the tag's value. JAX's ``RawImageStore`` (Pillow) and
 the port's read one file of each container to equal pixels.
 
+The committed fixtures of Netpbm, TGA, ICO/CUR/DIB, QOI and SGI files
+(``test_torch_image_rasters.py``, which holds their sweeps) join these in
+the fixture test, the format each is opened as checked against Pillow's,
+and in the test against JAX's ``RawImageStore``.
+
 Pillow writes what it can; the small writers here write the rest
 (:func:`bmp_bytes` with :func:`rle8`/:func:`rle4`, :func:`gif_bytes` with
 its LZW coder, :func:`tiff_bytes` with TIFF's LZW and PackBits, the
@@ -716,11 +721,17 @@ def webp_fixtures():
 
 def container_fixture_bytes():
     """name → bytes of the committed container fixtures (each at most
-    64x48 but the photo-sized lossy WebP)."""
-    return {**bmp_fixtures(), **gif_fixtures(), **tiff_fixtures(), **webp_fixtures()}
+    64x48 but the photo-sized lossy WebP), the Netpbm, TGA, ICO/CUR/DIB, QOI
+    and SGI ones of ``test_torch_image_rasters.py`` too."""
+    from test_torch_image_rasters import raster_fixture_bytes
+
+    return {**bmp_fixtures(), **gif_fixtures(), **tiff_fixtures(), **webp_fixtures(),
+            **raster_fixture_bytes()}
 
 
-CONTAINERS = {".bmp": "BMP", ".gif": "GIF", ".tif": "TIFF", ".webp": "WEBP"}
+CONTAINERS = {".bmp": "BMP", ".gif": "GIF", ".tif": "TIFF", ".webp": "WEBP", ".pbm": "PPM",
+              ".pgm": "PPM", ".ppm": "PPM", ".pfm": "PPM", ".tga": "TGA", ".ico": "ICO",
+              ".cur": "CUR", ".dib": "DIB", ".qoi": "QOI", ".sgi": "SGI"}
 FIXTURE_NAMES = sorted(p.name for p in FORMATS.iterdir() if p.suffix in CONTAINERS)
 
 
@@ -732,6 +743,7 @@ def test_container_fixture_equals_pil(name):
     np.testing.assert_array_equal(pil_rgb(data), want)
     got = I.read_image(FORMATS / name)
     assert got.dtype == np.uint8
+    assert I.decode_image(data, name)[0] == CONTAINERS[Path(name).suffix]
     np.testing.assert_array_equal(got, want)
     big = want.shape[0] * want.shape[1] > 64 * 48
     assert not big or name == "webp_lossy_photo.webp", want.shape
@@ -762,6 +774,26 @@ def test_fixtures_cover_each_kind():
     assert {im.tag_v2.get(274, 1) for im in tiff} == {1, 6}
     assert {Image.open(io.BytesIO(made[n])).info.get("compression") for n in FIXTURE_NAMES
             if n.endswith(".bmp")} == {0, 1, 2, 3}
+    pnm = {made[n].split()[0] for n in FIXTURE_NAMES if Path(n).suffix in (".pbm", ".pgm",
+                                                                           ".ppm", ".pfm")}
+    assert pnm == {b"P1", b"P2", b"P3", b"P4", b"P5", b"P6", b"Pf"}
+    assert {made[n].split(b"\n")[2] for n in FIXTURE_NAMES if n.endswith(".pgm")} >= {
+        b"15", b"255", b"1000"}  # maxvals
+    tga = [made[n] for n in FIXTURE_NAMES if n.endswith(".tga")]
+    assert {(d[2], d[16]) for d in tga} >= {(1, 8), (2, 16), (2, 24), (3, 1), (9, 8), (10, 32),
+                                           (11, 8)}  # (image type, depth)
+    assert {d[17] & 0x30 for d in tga} >= {0x00, 0x10, 0x20} and any(d[0] for d in tga)
+    assert {Image.open(io.BytesIO(made[n])).mode for n in FIXTURE_NAMES
+            if n.endswith(".qoi")} == {"RGB", "RGBA"}
+    sgi = [made[n] for n in FIXTURE_NAMES if n.endswith(".sgi")]
+    assert {(d[2], d[3], struct.unpack(">H", d[10:12])[0]) for d in sgi} == {
+        (0, 1, 3), (0, 2, 1), (1, 1, 4), (1, 2, 3)}  # (RLE, bytes per sample, channels)
+    payloads = set()  # PNG, or a bitmap's bits per pixel
+    for d in (made[n] for n in FIXTURE_NAMES if n.endswith((".ico", ".cur"))):
+        for k in range(struct.unpack_from("<H", d, 4)[0]):
+            at = struct.unpack_from("<I", d, 18 + 16 * k)[0]
+            payloads.add("PNG" if d[at: at + 4] == b"\x89PNG" else d[at + 14])
+    assert payloads == {"PNG", 4, 8, 24, 32}
 
 
 @pytest.mark.parametrize("case", ["555", "565", "555_bitfields", "565_v5"])
@@ -1132,7 +1164,9 @@ def test_raw_image_store_equals_jax_over_every_container(tmp_path):
     from mm_s2ut_torch.data.image_store import RawImageStore
 
     names = ["bmp_rle8.bmp", "gif_offset_transparent.gif", "tiff_jpeg.tif",
-             "webp_lossless.webp", "webp_lossy.webp"]
+             "webp_lossless.webp", "webp_lossy.webp", "netpbm_p5_maxval1000.pgm",
+             "netpbm_pf.pfm", "tga_palette16_rle.tga", "ico_bmp4_bmp8.ico", "cur_bmp24.cur",
+             "dib_rgb.dib", "qoi_rgba.qoi", "sgi_rgb16_rle.sgi"]
     for n in names:
         (tmp_path / n).write_bytes((FORMATS / n).read_bytes())
     for mode, size in (("vit_timm", 32), ("vit_openai", 48)):
@@ -1145,18 +1179,20 @@ def test_raw_image_store_equals_jax_over_every_container(tmp_path):
 
 
 def test_decoders_import_no_pillow():
-    """``data/bmp.py``, ``gif.py``, ``tiff.py``, ``webp.py``, ``ccitt.py``
-    and ``zstd.py`` import numpy, the standard library's ``zlib``, ``lzma``
-    and ``bisect``, and the port only."""
+    """``data/bmp.py``, ``gif.py``, ``tiff.py``, ``webp.py``, ``ccitt.py``,
+    ``zstd.py``, ``netpbm.py``, ``tga.py``, ``ico.py``, ``qoi.py`` and
+    ``sgi.py`` import numpy, the standard library's ``zlib``, ``lzma``,
+    ``bisect`` and ``math``, and the port only."""
     import ast
     import importlib
 
-    for mod in ("bmp", "gif", "tiff", "webp", "ccitt", "zstd"):
+    for mod in ("bmp", "gif", "tiff", "webp", "ccitt", "zstd", "netpbm", "tga", "ico", "qoi",
+                "sgi"):
         path = Path(importlib.import_module(f"mm_s2ut_torch.data.{mod}").__file__)
         tree = ast.parse(path.read_text())
         names = {a.name.split(".")[0] for n in ast.walk(tree)
                  if isinstance(n, (ast.Import, ast.ImportFrom))
                  for a in (n.names if isinstance(n, ast.Import) else [ast.alias(n.module or "")])}
-        assert names <= {"__future__", "struct", "zlib", "lzma", "bisect", "typing", "numpy",
-                         "mm_s2ut_torch"}, \
+        assert names <= {"__future__", "struct", "zlib", "lzma", "bisect", "math", "typing",
+                         "numpy", "mm_s2ut_torch"}, \
             (mod, names)
