@@ -2667,8 +2667,8 @@ def loaded_vit(name, gen, path=None):
     return vit.eval()
 
 
-FORMAT_FIXTURES = 107  # tests/torch_images/formats/: 17 JPEG and PNG, 63 BMP, GIF, TIFF, WebP,
-# 27 Netpbm, TGA, ICO/CUR/DIB, QOI and SGI
+FORMAT_FIXTURES = 125  # tests/torch_images/formats/: 17 JPEG and PNG, 63 BMP, GIF, TIFF, WebP,
+# 27 Netpbm, TGA, ICO/CUR/DIB, QOI and SGI, 18 PCX/DCX, Sun, XBM, XPM and PSD
 # the TIFF kinds data/tiff.py took on after the first containers (BigTIFF, LZMA, ZSTD,
 # CCITT RLE, Group 3 2D, Group 4, ThunderScan, Pillow's F and I modes, 16-bit CMYK,
 # an Orientation that swaps the sides, YCbCr in data units, old-style JPEG)
@@ -2680,15 +2680,19 @@ NEW_TIFF_FIXTURES = [
 CONTAINERS = {".jpg": "JPEG", ".png": "PNG", ".bmp": "BMP", ".gif": "GIF", ".tif": "TIFF",
               ".webp": "WebP", ".pbm": "Netpbm", ".pgm": "Netpbm", ".ppm": "Netpbm",
               ".pfm": "Netpbm", ".tga": "TGA", ".ico": "ICO/CUR/DIB", ".cur": "ICO/CUR/DIB",
-              ".dib": "ICO/CUR/DIB", ".qoi": "QOI", ".sgi": "SGI"}
-RASTER_FAMILIES = ["Netpbm", "TGA", "ICO/CUR/DIB", "QOI", "SGI"]  # read by the raster decoders
+              ".dib": "ICO/CUR/DIB", ".qoi": "QOI", ".sgi": "SGI", ".pcx": "PCX/DCX",
+              ".dcx": "PCX/DCX", ".ras": "Sun", ".xbm": "XBM", ".xpm": "XPM", ".psd": "PSD"}
+RASTER_FAMILIES = ["Netpbm", "TGA", "ICO/CUR/DIB", "QOI", "SGI", "PCX/DCX", "Sun", "XBM", "XPM",
+                   "PSD"]  # read by the raster decoders
 
 
 def format_fixtures():
     """Every fixture of ``tests/torch_images/formats/`` (progressive, stopped
     early and smoothed, arithmetic-coded, lossless, CMYK, YCCK, h1v2, 4:1:1
     JPEG; Adam7, 16-bit and 1/2/4-bit PNG; BMP, GIF, TIFF and WebP of every
-    kind ``tests/test_torch_image_containers.py`` writes), decoded on the
+    kind ``tests/test_torch_image_containers.py`` writes; the raster
+    families of ``tests/test_torch_image_rasters.py`` and
+    ``tests/test_torch_image_rasters2.py``), decoded on the
     host without Pillow and held to the PIL pixels committed beside it:
     [(name, s)]."""
     import numpy as np
@@ -3028,9 +3032,10 @@ CONTAINER_FEATURE_FIXTURES = [
     "tiff_lzma.tif", "tiff_zstd.tif", "tiff_ccitt_rle.tif", "tiff_group3_2d.tif",
     "tiff_group4.tif", "tiff_thunderscan.tif", "tiff_old_jpeg.tif", "tiff_bigtiff.tif",
     "tiff_ycbcr_deflate.tif",
-    # one of each raster family: Netpbm, TGA, ICO, QOI, SGI
+    # one of each raster family: Netpbm, TGA, ICO, QOI, SGI, PCX, DCX, Sun, XBM, XPM, PSD
     "netpbm_p6_16bit.ppm", "tga_palette16_rle.tga", "ico_bmp4_bmp8.ico", "qoi_rgba.qoi",
-    "sgi_rgb16_rle.sgi"]
+    "sgi_rgb16_rle.sgi", "pcx_4planes.pcx", "dcx_two_frames.dcx", "sun_rgb_rle.ras",
+    "xbm_hotspot.xbm", "xpm_2cpp.xpm", "psd_rgb_packbits.psd"]
 
 
 def container_features(root: Path, gen):
@@ -3081,7 +3086,7 @@ def container_features(root: Path, gen):
         "19g: features from the containers differ from their .npy twins' "
         f"(max|diff| {float(np.abs(got - want).max())})")
     print(f"phase 19g: extract_features ViT-B/16-384 bf16 over {len(CONTAINER_FEATURE_FIXTURES)} "
-          f"BMP/GIF/TIFF/WebP/Netpbm/TGA/ICO/QOI/SGI fixtures "
+          f"BMP/GIF/TIFF/WebP/Netpbm/TGA/ICO/QOI/SGI/PCX/DCX/Sun/XBM/XPM/PSD fixtures "
           f"({', '.join(CONTAINER_FEATURE_FIXTURES)}; TIFF in LZMA, "
           f"ZSTD, CCITT RLE, Group 3, Group 4, ThunderScan, old-style JPEG, BigTIFF, YCbCr "
           f"among them): features "

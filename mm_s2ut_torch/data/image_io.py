@@ -5,16 +5,20 @@ What the JAX package asks of PIL (``mm_s2ut/models/vit.py:141-194``,
 
 * :func:`read_image` — a file → ``(H, W, 3)`` uint8, equal to
   ``np.asarray(Image.open(path).convert("RGB"))`` for every PNG, JPEG,
-  BMP, DIB, GIF, TIFF, WebP, Netpbm, TGA, ICO, CUR, QOI and SGI file
-  Pillow opens, and ``ValueError`` naming the file for those it refuses.
-  :func:`decode_image` picks the container as ``Image.open`` does: Pillow's
-  plugins in its order, each behind its test of the first bytes, TGA
-  (which has none) last, and a file whose header a plugin's open rejects
-  passed on to the next (an RGB TGA starts with CUR's magic). It reads
-  ``.npy`` pixels ((H, W, 3) or (H, W) uint8); PNG in every colour type
-  and bit depth, Adam7-interlaced or not (gray of 1/2/4 bits scaled as
-  Pillow's ``1``/``L;2``/``L;4``, 16-bit gray clamped to 255 as Pillow's
-  ``I;16`` converts, the other 16-bit types' high bytes, alpha dropped as
+  BMP, DIB, GIF, TIFF, WebP, Netpbm, TGA, ICO, CUR, QOI, SGI, PCX, DCX,
+  Sun raster, XBM, XPM and PSD file Pillow opens, and ``ValueError``
+  naming the file for those it refuses. :func:`decode_image` picks the
+  container as ``Image.open`` does: Pillow's plugins in its order (the
+  six it loads first, then the rest as ``Image.ID`` lists them), each
+  behind its test of the first 16 bytes, TGA (which has none) in its
+  place, and a file whose header a plugin's open rejects passed on to the
+  next (an RGB TGA starts with CUR's magic; a Sun raster 1 pixel wide may
+  pass Pillow's GIMP-brush test, and that plugin, which the port does not
+  read, takes it). It reads ``.npy`` pixels ((H, W, 3) or (H, W) uint8);
+  PNG in every colour type and bit depth, Adam7-interlaced or not (gray
+  of 1/2/4 bits scaled as Pillow's ``1``/``L;2``/``L;4``, 16-bit gray
+  clamped to 255 as Pillow's ``I;16`` converts, the other 16-bit types'
+  high bytes, alpha dropped as
   ``convert("RGB")`` drops it; the CRCs of the chunks before the image
   data checked, the Adler-32 only where the stream ends with the image,
   as Pillow reads them); JPEG through ``data/jpeg.py``: Huffman,
@@ -24,8 +28,11 @@ What the JAX package asks of PIL (``mm_s2ut/models/vit.py:141-194``,
   through ``data/gif.py``, TIFF (the first page) through ``data/tiff.py``,
   WebP, lossless and lossy, through ``data/webp.py``, Netpbm (P1-P6,
   ``Pf``) through ``data/netpbm.py``, TGA through ``data/tga.py``, ICO and
-  CUR through ``data/ico.py``, QOI through ``data/qoi.py`` and SGI through
-  ``data/sgi.py``; each module's docstring says what it reads.
+  CUR through ``data/ico.py``, QOI through ``data/qoi.py``, SGI through
+  ``data/sgi.py``, PCX and DCX through ``data/pcx.py``, Sun raster through
+  ``data/sun.py``, XBM through ``data/xbm.py``, XPM through
+  ``data/xpm.py`` and PSD through ``data/psd.py``; each module's docstring
+  says what it reads.
 * :func:`resize` — Pillow's ``Image.resize`` for ``BICUBIC`` and
   ``BILINEAR`` on 8-bit images (``Resample.c``): a separable filter
   whose support widens with the downscale factor, coefficients
@@ -52,17 +59,23 @@ from mm_s2ut_torch.data.gif import decode_gif
 from mm_s2ut_torch.data.ico import decode_cur, decode_ico
 from mm_s2ut_torch.data.jpeg import decode_jpeg
 from mm_s2ut_torch.data.netpbm import decode_netpbm
+from mm_s2ut_torch.data.pcx import decode_dcx, decode_pcx
+from mm_s2ut_torch.data.psd import decode_psd
 from mm_s2ut_torch.data.qoi import decode_qoi
 from mm_s2ut_torch.data.sgi import decode_sgi
+from mm_s2ut_torch.data.sun import decode_sun
 from mm_s2ut_torch.data.tga import decode_tga
 from mm_s2ut_torch.data.tiff import decode_tiff
 from mm_s2ut_torch.data.webp import decode_webp
+from mm_s2ut_torch.data.xbm import decode_xbm
+from mm_s2ut_torch.data.xpm import decode_xpm
 
 
 def read_image(path: str | Path) -> np.ndarray:
     """``(H, W, 3)`` uint8 RGB pixels of a ``.npy`` file (by its first bytes
     or its suffix) or of any container :func:`decode_image` reads: PNG,
-    JPEG, BMP, DIB, GIF, TIFF, WebP, Netpbm, TGA, ICO, CUR, QOI, SGI."""
+    JPEG, BMP, DIB, GIF, TIFF, WebP, Netpbm, TGA, ICO, CUR, QOI, SGI, PCX,
+    DCX, Sun raster, XBM, XPM, PSD."""
     path = Path(path)
     data = path.read_bytes()
     name = str(path)
@@ -75,21 +88,24 @@ def read_image(path: str | Path) -> np.ndarray:
     return decode_image(data, name)[1]
 
 
-def _pcx(data: bytes, name: str) -> np.ndarray:
-    """What Pillow's ``PcxImagePlugin`` passes on (a header under 68 bytes or
-    an empty box; a TGA with a 10-byte ID field may be such a file), and a
-    refusal of the rest, which Pillow reads as PCX or refuses."""
-    if len(data) < 68:
-        raise Unidentified(f"{name}: not a PCX file ({len(data)} bytes)")
-    x0, y0, x1, y1 = struct.unpack_from("<4H", data, 4)
-    if x1 + 1 <= x0 or y1 + 1 <= y0:
-        raise Unidentified(f"{name}: not a PCX file (box {x0},{y0} to {x1},{y1})")
-    raise ValueError(f"{name}: PCX (version {data[1]}), which the port does not read yet")
+def _gbr(data: bytes, name: str) -> np.ndarray:
+    """What Pillow's ``GbrImagePlugin`` passes on, and a refusal of the GIMP
+    brushes it opens, which the port does not read (a Sun raster 1 pixel
+    wide whose length field is 1 or 4 is one: Pillow cannot load it)."""
+    if len(data) < 20:
+        raise Unidentified(f"{name}: not a GIMP brush")
+    size, version, width, height, depth = struct.unpack_from(">5I", data)
+    if width == 0 or height == 0 or depth not in (1, 4):
+        raise Unidentified(f"{name}: not a GIMP brush")
+    if version == 2 and (data[20:24] != b"GIMP" or len(data) < 28):
+        raise Unidentified(f"{name}: not a GIMP brush")
+    raise ValueError(f"{name}: a GIMP brush (GBR, header of {size} bytes), which the port does "
+                     f"not read")
 
 
 # Pillow's plugins in the order Image.open tries them, each with its test of the
-# first bytes (TGA, which has none, last); a decoder raising Unidentified passes
-# the file on to the next, as Pillow does where a plugin's open raises SyntaxError
+# first 16 bytes (TGA has none); a decoder raising Unidentified passes the file on
+# to the next, as Pillow does where a plugin's open raises SyntaxError
 _DIB_HEADERS = (12, 40, 52, 56, 64, 108, 124)
 _CONTAINERS = (
     ("BMP", lambda d: d[:2] == b"BM", decode_bmp),
@@ -101,13 +117,20 @@ _CONTAINERS = (
      decode_netpbm),
     ("PNG", lambda d: d[:8] == b"\x89PNG\r\n\x1a\n", lambda d, n: decode_png(d, n)),
     ("CUR", lambda d: d[:4] == b"\0\0\2\0", decode_cur),
-    ("PCX", lambda d: d[:1] == b"\n" and d[1:2] != b"" and d[1:2] in b"\0\2\3\5", _pcx),
+    ("PCX", lambda d: d[:1] == b"\n" and d[1:2] != b"" and d[1:2] in b"\0\2\3\5", decode_pcx),
+    ("DCX", lambda d: d[:4] == b"\xb1\x68\xde\x3a", decode_dcx),
+    ("GBR", lambda d: len(d) >= 8 and struct.unpack_from(">I", d)[0] >= 20
+     and struct.unpack_from(">I", d, 4)[0] in (1, 2), _gbr),
     ("ICO", lambda d: d[:4] == b"\0\0\1\0", decode_ico),
+    ("TIFF", lambda d: d[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"), decode_tiff),
+    ("PSD", lambda d: d[:4] == b"8BPS", decode_psd),
     ("QOI", lambda d: d[:4] == b"qoif", decode_qoi),
     ("SGI", lambda d: d[:2] == b"\x01\xda", decode_sgi),
-    ("TIFF", lambda d: d[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"), decode_tiff),
-    ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP", decode_webp),
+    ("SUN", lambda d: d[:4] == b"\x59\xa6\x6a\x95", decode_sun),
     ("TGA", lambda d: True, decode_tga),
+    ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP", decode_webp),
+    ("XBM", lambda d: d[:16].lstrip().startswith(b"#define"), decode_xbm),
+    ("XPM", lambda d: d[:9] == b"/* XPM */", decode_xpm),
 )
 
 
@@ -122,7 +145,8 @@ def decode_image(data: bytes, name: str = "<image>") -> Tuple[str, np.ndarray]:
             except Unidentified:
                 continue
     raise ValueError(f"{name}: not an image the port reads (PNG, JPEG, BMP, DIB, GIF, TIFF, "
-                     f"WebP, Netpbm, TGA, ICO, CUR, QOI, SGI or .npy)")
+                     f"WebP, Netpbm, TGA, ICO, CUR, QOI, SGI, PCX, DCX, Sun raster, XBM, XPM, "
+                     f"PSD or .npy)")
 
 
 def _rgb(arr: np.ndarray) -> np.ndarray:

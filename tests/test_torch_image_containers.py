@@ -721,8 +721,10 @@ def webp_fixtures():
 
 def container_fixture_bytes():
     """name → bytes of the committed container fixtures (each at most
-    64x48 but the photo-sized lossy WebP), the Netpbm, TGA, ICO/CUR/DIB, QOI
-    and SGI ones of ``test_torch_image_rasters.py`` too."""
+    64x48 but the photo-sized lossy WebP), the Netpbm, TGA, ICO/CUR/DIB,
+    QOI, SGI, PCX/DCX, Sun, XBM, XPM and PSD ones of
+    ``test_torch_image_rasters.py`` and ``test_torch_image_rasters2.py``
+    too."""
     from test_torch_image_rasters import raster_fixture_bytes
 
     return {**bmp_fixtures(), **gif_fixtures(), **tiff_fixtures(), **webp_fixtures(),
@@ -731,7 +733,8 @@ def container_fixture_bytes():
 
 CONTAINERS = {".bmp": "BMP", ".gif": "GIF", ".tif": "TIFF", ".webp": "WEBP", ".pbm": "PPM",
               ".pgm": "PPM", ".ppm": "PPM", ".pfm": "PPM", ".tga": "TGA", ".ico": "ICO",
-              ".cur": "CUR", ".dib": "DIB", ".qoi": "QOI", ".sgi": "SGI"}
+              ".cur": "CUR", ".dib": "DIB", ".qoi": "QOI", ".sgi": "SGI", ".pcx": "PCX",
+              ".dcx": "DCX", ".ras": "SUN", ".xbm": "XBM", ".xpm": "XPM", ".psd": "PSD"}
 FIXTURE_NAMES = sorted(p.name for p in FORMATS.iterdir() if p.suffix in CONTAINERS)
 
 
@@ -751,7 +754,7 @@ def test_container_fixture_equals_pil(name):
 
 def test_fixtures_cover_each_kind():
     """The committed fixtures hold what the decoders are asked to read."""
-    from mm_s2ut_torch.data import webp
+    from mm_s2ut_torch.data import psd, webp
 
     made = container_fixture_bytes()
     assert sorted(made) == FIXTURE_NAMES
@@ -794,6 +797,16 @@ def test_fixtures_cover_each_kind():
             at = struct.unpack_from("<I", d, 18 + 16 * k)[0]
             payloads.add("PNG" if d[at: at + 4] == b"\x89PNG" else d[at + 14])
     assert payloads == {"PNG", 4, 8, 24, 32}
+    pcx = [made[n] for n in FIXTURE_NAMES if n.endswith(".pcx")]
+    assert {(d[3], d[65]) for d in pcx} == {(1, 1), (1, 4), (8, 1), (8, 3)}  # (bits, planes)
+    assert {Image.open(io.BytesIO(made[n])).mode for n in FIXTURE_NAMES
+            if n.endswith((".pcx", ".dcx"))} == {"1", "L", "P", "RGB"}
+    sun = [made[n] for n in FIXTURE_NAMES if n.endswith(".ras")]
+    assert {struct.unpack(">I", d[12:16])[0] for d in sun} == {1, 8, 24, 32}  # depths
+    assert {struct.unpack(">I", d[20:24])[0] for d in sun} == {1, 2, 3}  # types
+    assert {Image.open(io.BytesIO(made[n])).mode for n in FIXTURE_NAMES
+            if n.endswith(".psd")} == {"1", "L", "P", "RGB", "CMYK"}
+    assert {psd._open(made[n], n)[6] for n in FIXTURE_NAMES if n.endswith(".psd")} == {0, 1}
 
 
 @pytest.mark.parametrize("case", ["555", "565", "555_bitfields", "565_v5"])
@@ -1166,7 +1179,9 @@ def test_raw_image_store_equals_jax_over_every_container(tmp_path):
     names = ["bmp_rle8.bmp", "gif_offset_transparent.gif", "tiff_jpeg.tif",
              "webp_lossless.webp", "webp_lossy.webp", "netpbm_p5_maxval1000.pgm",
              "netpbm_pf.pfm", "tga_palette16_rle.tga", "ico_bmp4_bmp8.ico", "cur_bmp24.cur",
-             "dib_rgb.dib", "qoi_rgba.qoi", "sgi_rgb16_rle.sgi"]
+             "dib_rgb.dib", "qoi_rgba.qoi", "sgi_rgb16_rle.sgi", "pcx_4planes.pcx",
+             "dcx_two_frames.dcx", "sun_rgb_rle.ras", "xbm_hotspot.xbm", "xpm_2cpp.xpm",
+             "psd_rgb_packbits.psd"]
     for n in names:
         (tmp_path / n).write_bytes((FORMATS / n).read_bytes())
     for mode, size in (("vit_timm", 32), ("vit_openai", 48)):
@@ -1180,19 +1195,20 @@ def test_raw_image_store_equals_jax_over_every_container(tmp_path):
 
 def test_decoders_import_no_pillow():
     """``data/bmp.py``, ``gif.py``, ``tiff.py``, ``webp.py``, ``ccitt.py``,
-    ``zstd.py``, ``netpbm.py``, ``tga.py``, ``ico.py``, ``qoi.py`` and
-    ``sgi.py`` import numpy, the standard library's ``zlib``, ``lzma``,
-    ``bisect`` and ``math``, and the port only."""
+    ``zstd.py``, ``netpbm.py``, ``tga.py``, ``ico.py``, ``qoi.py``,
+    ``sgi.py``, ``pcx.py``, ``sun.py``, ``xbm.py``, ``xpm.py`` and ``psd.py``
+    import numpy, the standard library's ``zlib``, ``lzma``, ``bisect``,
+    ``math``, ``io`` and ``re``, and the port only."""
     import ast
     import importlib
 
     for mod in ("bmp", "gif", "tiff", "webp", "ccitt", "zstd", "netpbm", "tga", "ico", "qoi",
-                "sgi"):
+                "sgi", "pcx", "sun", "xbm", "xpm", "psd"):
         path = Path(importlib.import_module(f"mm_s2ut_torch.data.{mod}").__file__)
         tree = ast.parse(path.read_text())
         names = {a.name.split(".")[0] for n in ast.walk(tree)
                  if isinstance(n, (ast.Import, ast.ImportFrom))
                  for a in (n.names if isinstance(n, ast.Import) else [ast.alias(n.module or "")])}
         assert names <= {"__future__", "struct", "zlib", "lzma", "bisect", "math", "typing",
-                         "numpy", "mm_s2ut_torch"}, \
+                         "io", "re", "numpy", "mm_s2ut_torch"}, \
             (mod, names)
