@@ -48,10 +48,10 @@ is no CPU path):
    (``benchmarks/bench_streaming.py:56-82``) at full width with random
    weights: the 12-layer causal encoder, speech only, bf16, 320 ms chunks
    (32 frames) of 10 s utterances, beam 10, max_len 500, 48 new tokens per
-   search with prefix reuse; one warm-up and two measured utterances
+   search with prefix reuse; one warm-up and one measured utterance
    through ``StreamingS2ST``, per-chunk latency percentiles, finalize ms and
    commit ratio, then one offline encode of the same frames, with the
-   launches of G, B and C counted over the measured utterances and that
+   launches of G, B and C counted over the measured utterance and that
    encode;
 9. the two entry points of the causal model on an exported checkpoint
    (small fp32 config, random weights) and a default-config vocoder:
@@ -125,8 +125,9 @@ is no CPU path):
     ``tests/torch_images/formats/`` (progressive, arithmetic, lossless,
     CMYK/YCCK, h1v2 and 4:1:1 JPEG; Adam7, 16-bit and low-depth PNG; BMP,
     GIF, TIFF and WebP, lossless and lossy; BigTIFF, LZMA, ZSTD, CCITT and
-    ThunderScan TIFFs, Pillow's F and I modes, 16-bit CMYK, an Orientation)
-    the same way, each one's host ms, with a 500x375
+    ThunderScan TIFFs, Pillow's F and I modes, 16-bit CMYK, an Orientation,
+    JPEG-compressed CMYK and gray + alpha; the raster families; DDS in every
+    layout ``data/dds.py`` reads) the same way, each one's host ms, with a 500x375
     progressive JPEG's and a 500x375 lossy WebP's images/s beside the
     baseline's and the host decode time per container; ViT-B/16-384 from random
     timm weights saved with ``torch.save`` and read by
@@ -144,7 +145,8 @@ is no CPU path):
     over JPEG and PNG images card against CPU, and ``cli.vit_rollout``;
     (g) ``cli.extract_features`` with ViT-B/16-384 under bf16 autocast
     over one BMP, GIF, TIFF and WebP fixture of each kind (a TIFF of each
-    compression), then over their ``.npy`` twins (Pillow's pixels):
+    compression), one of each raster family and every DDS fixture, then
+    over their ``.npy`` twins (Pillow's pixels):
     features equal bit for bit, A launched 12 times per forward;
 20. training the speech encoders and the enhanced path
     (``phase_train_speech_encoders``): (e) A with attention dropout 0.1
@@ -207,7 +209,7 @@ is no CPU path):
     directory's logits equal the source model's bit for bit; (c) the
     logit ensemble: ``cli.generate --model_path a:b`` on two small XM
     checkpoints, bf16 and int8 caches, card = CPU; two full-width
-    flagships over 8 utterances, beam 10, 200 units, bf16 then int8: ms
+    flagships over 8 utterances, beam 10, 100 units, bf16 then int8: ms
     per decode step of the pair against one model, launches per step;
     (d) ``cli.vocode --dur-prediction`` and ``vocode_bucketed`` against
     the fixed budget, with their ms; (e) ``cli.inference_all`` in units
@@ -234,11 +236,11 @@ is no CPU path):
     and ms per step beside the plain step's;
 26. the fp32 decode (``phase_fp32_decode``): phase 4's flagship weights
     and 8 wavs with ``model.dtype: float32`` and the default cache, which
-    then holds fp32, beam 10, max_len_b 200, CodeHiFiGAN after it, TF32
+    then holds fp32, beam 10, 210 units (``FP32_SEARCH``), CodeHiFiGAN after it, TF32
     off for PyTorch's own matmuls (restored after): unit lengths, stage
     seconds, utt/s, the launches of A, B and C (B and C 6 per decode
     step), one profiled decode step 200; then on 2 utterances the CPU's
-    encoder output and the CPU search's 10 hypotheses of 200 units fed as
+    encoder output and the card search's 10 hypotheses, cut to 200 units, fed as
     fixed beam paths through ``UnitDecoder.step`` on the card and on the
     CPU: log-probs within 1e-4 at steps 1, 50, 100, 150 and 200;
     26b. the same model and wavs with ``kv_cache_dtype`` int8, then int4
@@ -1271,7 +1273,7 @@ def phase_streaming():
     max_len = min(500, cfg.max_target_positions - 1)
     srv = StreamingS2ST(model, chunk_frames=chunk, max_frames=total + 4, beam=10,
                         max_len=max_len, prefix_reuse=True, max_new_tokens=48)
-    utts = torch.randn(3, 1, total, 80, generator=gen).cuda()
+    utts = torch.randn(2, 1, total, 80, generator=gen).cuda()
 
     def run(feats):
         srv.reset()
@@ -1288,9 +1290,9 @@ def phase_streaming():
                 "C": D.cross_decode_attention}
 
     def measured():
-        res = [run(utts[i]) for i in (1, 2)]
-        with torch.no_grad():  # one offline encode of the last utterance's frames
-            off = model.encode(utts[2], torch.tensor([total], device="cuda"))["encoder_out"]
+        res = [run(utts[1])]
+        with torch.no_grad():  # one offline encode of the measured utterance's frames
+            off = model.encode(utts[1], torch.tensor([total], device="cuda"))["encoder_out"]
         return res, off
 
     (res, off), wall, launches = counted(counters, measured)
@@ -1305,7 +1307,7 @@ def phase_streaming():
     diff = (streamed.float() - off.float()).abs()
     print(f"phase 8: streaming, causal flagship bf16 ({n_params / 1e6:.1f} M params), "
           f"{chunk_ms} ms chunks of 10 s utts, beam 10, max_len {max_len}, 48 new tokens per "
-          f"search, prefix reuse: {len(lat)} chunks over 2 utts; per-chunk ms p50 "
+          f"search, prefix reuse: {len(lat)} chunks over 1 utt; per-chunk ms p50 "
           f"{np.percentile(lat, 50):.3f} p95 {np.percentile(lat, 95):.3f} p99 "
           f"{np.percentile(lat, 99):.3f} max {lat.max():.3f}; finalize ms "
           f"{[round(f, 3) for f in fin]}; commit ratio {[round(r, 3) for r in ratios]}; final "
@@ -2667,23 +2669,33 @@ def loaded_vit(name, gen, path=None):
     return vit.eval()
 
 
-FORMAT_FIXTURES = 125  # tests/torch_images/formats/: 17 JPEG and PNG, 63 BMP, GIF, TIFF, WebP,
-# 27 Netpbm, TGA, ICO/CUR/DIB, QOI and SGI, 18 PCX/DCX, Sun, XBM, XPM and PSD
+FORMAT_FIXTURES = 151  # tests/torch_images/formats/: 17 JPEG and PNG, 65 BMP, GIF, TIFF, WebP,
+# 27 Netpbm, TGA, ICO/CUR/DIB, QOI and SGI, 18 PCX/DCX, Sun, XBM, XPM and PSD, 24 DDS
 # the TIFF kinds data/tiff.py took on after the first containers (BigTIFF, LZMA, ZSTD,
 # CCITT RLE, Group 3 2D, Group 4, ThunderScan, Pillow's F and I modes, 16-bit CMYK,
-# an Orientation that swaps the sides, YCbCr in data units, old-style JPEG)
+# an Orientation that swaps the sides, YCbCr in data units, old-style JPEG, JPEG-compressed
+# CMYK and gray with alpha)
 NEW_TIFF_FIXTURES = [
     "tiff_bigtiff.tif", "tiff_lzma.tif", "tiff_zstd.tif", "tiff_ccitt_rle.tif",
     "tiff_group3_2d.tif", "tiff_group4.tif", "tiff_thunderscan.tif",
     "tiff_float32_predictor3.tif", "tiff_int16_signed_mm.tif", "tiff_int32_signed.tif",
-    "tiff_cmyk16.tif", "tiff_orientation6.tif", "tiff_ycbcr_deflate.tif", "tiff_old_jpeg.tif"]
+    "tiff_cmyk16.tif", "tiff_orientation6.tif", "tiff_ycbcr_deflate.tif", "tiff_old_jpeg.tif",
+    "tiff_jpeg_cmyk.tif", "tiff_jpeg_la.tif"]
 CONTAINERS = {".jpg": "JPEG", ".png": "PNG", ".bmp": "BMP", ".gif": "GIF", ".tif": "TIFF",
               ".webp": "WebP", ".pbm": "Netpbm", ".pgm": "Netpbm", ".ppm": "Netpbm",
               ".pfm": "Netpbm", ".tga": "TGA", ".ico": "ICO/CUR/DIB", ".cur": "ICO/CUR/DIB",
               ".dib": "ICO/CUR/DIB", ".qoi": "QOI", ".sgi": "SGI", ".pcx": "PCX/DCX",
-              ".dcx": "PCX/DCX", ".ras": "Sun", ".xbm": "XBM", ".xpm": "XPM", ".psd": "PSD"}
+              ".dcx": "PCX/DCX", ".ras": "Sun", ".xbm": "XBM", ".xpm": "XPM", ".psd": "PSD",
+              ".dds": "DDS"}
 RASTER_FAMILIES = ["Netpbm", "TGA", "ICO/CUR/DIB", "QOI", "SGI", "PCX/DCX", "Sun", "XBM", "XPM",
-                   "PSD"]  # read by the raster decoders
+                   "PSD", "DDS"]  # read by the raster and texture decoders
+# every DDS layout data/dds.py reads: Pillow's BCn and uncompressed writes, BC4-BC7, masks
+DDS_FIXTURES = [
+    "dds_dxt1.dds", "dds_dxt3.dds", "dds_dxt5.dds", "dds_bc2.dds", "dds_bc3.dds", "dds_bc5.dds",
+    "dds_l_1x1.dds", "dds_la.dds", "dds_rgb_1x1.dds", "dds_rgba.dds", "dds_bc4_ati1.dds",
+    "dds_bc4u.dds", "dds_bc4_dx10.dds", "dds_bc5s.dds", "dds_bc6h.dds", "dds_bc6hs.dds",
+    "dds_bc7.dds", "dds_r5g6b5.dds", "dds_a1r5g5b5.dds", "dds_a4r4g4b4.dds", "dds_x8r8g8b8.dds",
+    "dds_bgr24.dds", "dds_p8.dds", "dds_dx10_rgba.dds"]
 
 
 def format_fixtures():
@@ -2692,7 +2704,8 @@ def format_fixtures():
     JPEG; Adam7, 16-bit and 1/2/4-bit PNG; BMP, GIF, TIFF and WebP of every
     kind ``tests/test_torch_image_containers.py`` writes; the raster
     families of ``tests/test_torch_image_rasters.py`` and
-    ``tests/test_torch_image_rasters2.py``), decoded on the
+    ``tests/test_torch_image_rasters2.py``, the DDS textures of
+    ``tests/test_torch_image_dds.py``), decoded on the
     host without Pillow and held to the PIL pixels committed beside it:
     [(name, s)]."""
     import numpy as np
@@ -2794,6 +2807,7 @@ def phase_image_path(out_dir: Path):
                                        for k, (n, ms) in per_container(formats).items()))
     decode_s = dict(formats)
     assert set(NEW_TIFF_FIXTURES) <= set(decode_s), sorted(set(NEW_TIFF_FIXTURES) - set(decode_s))
+    assert sorted(DDS_FIXTURES) == sorted(n for n in decode_s if n.endswith(".dds")), DDS_FIXTURES
     print("phase 19a: the newer TIFF kinds, each equal to its PIL twin, host decode: "
           + ", ".join(f"{n} {decode_s[n] * 1e3:.2f} ms" for n in NEW_TIFF_FIXTURES))
     families = per_container(formats)
@@ -3022,7 +3036,8 @@ def image_entry_points(root: Path, vit_b, gen, images):
           f"{overlay.shape[1]}x{overlay.shape[0]} PNG; A launched {n_a} times in all")
 
 
-# one fixture of each kind the BMP, GIF, TIFF and WebP readers decode, and of each raster family
+# one fixture of each kind the BMP, GIF, TIFF and WebP readers decode, of each raster family,
+# and every DDS fixture
 CONTAINER_FEATURE_FIXTURES = [
     "bmp_rle8.bmp", "bmp32_bitfields_v5.bmp", "gif_offset_transparent.gif",
     "gif_interlaced.gif", "tiff_jpeg.tif", "tiff_tiles_lzw.tif", "tiff_planar2.tif",
@@ -3035,7 +3050,7 @@ CONTAINER_FEATURE_FIXTURES = [
     # one of each raster family: Netpbm, TGA, ICO, QOI, SGI, PCX, DCX, Sun, XBM, XPM, PSD
     "netpbm_p6_16bit.ppm", "tga_palette16_rle.tga", "ico_bmp4_bmp8.ico", "qoi_rgba.qoi",
     "sgi_rgb16_rle.sgi", "pcx_4planes.pcx", "dcx_two_frames.dcx", "sun_rgb_rle.ras",
-    "xbm_hotspot.xbm", "xpm_2cpp.xpm", "psd_rgb_packbits.psd"]
+    "xbm_hotspot.xbm", "xpm_2cpp.xpm", "psd_rgb_packbits.psd", *DDS_FIXTURES]
 
 
 def container_features(root: Path, gen):
@@ -3086,7 +3101,7 @@ def container_features(root: Path, gen):
         "19g: features from the containers differ from their .npy twins' "
         f"(max|diff| {float(np.abs(got - want).max())})")
     print(f"phase 19g: extract_features ViT-B/16-384 bf16 over {len(CONTAINER_FEATURE_FIXTURES)} "
-          f"BMP/GIF/TIFF/WebP/Netpbm/TGA/ICO/QOI/SGI/PCX/DCX/Sun/XBM/XPM/PSD fixtures "
+          f"BMP/GIF/TIFF/WebP/Netpbm/TGA/ICO/QOI/SGI/PCX/DCX/Sun/XBM/XPM/PSD/DDS fixtures "
           f"({', '.join(CONTAINER_FEATURE_FIXTURES)}; TIFF in LZMA, "
           f"ZSTD, CCITT RLE, Group 3, Group 4, ThunderScan, old-style JPEG, BigTIFF, YCbCr "
           f"among them): features "
@@ -4602,13 +4617,17 @@ def xm_checkpoints(root: Path, seeds, heads=None):
     return rows, dirs
 
 
+ENSEMBLE_UNITS = 100  # phase 22c's search budget at full width (200 before PR 26)
+
+
 def phase_ensemble(root: Path):
     """Phase 22c: the logit ensemble. ``cli.generate --model_path a:b`` on
     phase 18's corpus with two small fp32 XM checkpoints, the bf16 and the
     int8 cache, on the card and with ``--device cpu`` (TF32 off): the same
     D- lines. Then two full-width flagships (bf16) over 8 utterances, beam
-    10, 200 units, bf16 then int8 cache: ms per decode step of the pair
-    against the first alone, and B, C / D, E launches per step. Returns
+    10, ``ENSEMBLE_UNITS`` units, bf16 then int8 cache: ms per decode step
+    of the pair against the first alone (runs alternated, each member count
+    warmed up once per cache), and B, C / D, E launches per step. Returns
     the pair's launches over both caches."""
     from mm_s2ut_torch.cli import generate
     from mm_s2ut_torch.config import GenerationConfig
@@ -4649,13 +4668,15 @@ def phase_ensemble(root: Path):
     L = members[0].cfg.decoder_layers
     totals = {k: 0 for k in counters}
     for kv in (None, "int8"):
-        gcfg = GenerationConfig(beam=10, max_len_a=0.0, max_len_b=200, kv_cache_dtype=kv)
+        gcfg = GenerationConfig(beam=10, max_len_a=0.0, max_len_b=ENSEMBLE_UNITS,
+                                kv_cache_dtype=kv)
         cross = "C" if kv is None else "E"
         result = {}
         for n in (1, 2, 2, 1):  # alternated
             gen = UnitGenerator(members[:n], gcfg)
-            gen.generate(feats[:2, :200], flens[:2].clamp(max=200), [i[:2] for i in imgs],
-                         [m[:2] for m in masks])  # warm-up
+            if n not in result:  # warm-up
+                gen.generate(feats[:2, :200], flens[:2].clamp(max=200), [i[:2] for i in imgs],
+                             [m[:2] for m in masks])
             with torch.no_grad():
                 _, enc_s = timed(lambda: [m.encode(feats, flens, imgs, masks) for m in members[:n]])
             hyps, secs, launches = counted(counters, lambda: timed(
@@ -4671,7 +4692,8 @@ def phase_ensemble(root: Path):
                 per = {k: launches[k] / steps for k in (self_k, cross)}
                 for k in counters:
                     totals[k] += launches[k]
-        print(f"phase 22c: flagship bf16 x 8 utts, beam 10, 200 units, {kv or 'bf16'} cache: "
+        print(f"phase 22c: flagship bf16 x 8 utts, beam 10, {ENSEMBLE_UNITS} units, "
+              f"{kv or 'bf16'} cache: "
               f"{steps} steps; ms per step (search alone, encode subtracted) one model "
               f"{result[1]}, the pair {result[2]}; the pair's launches per step {per} "
               f"({L} layers x 2 members)")
@@ -4925,8 +4947,9 @@ FUSION_TYPES = {
     "q_former": {"multimodal_attention_type": "selective_attention",
                  "multimodal_extractor_type": "q_former"},
 }
-FUSION_FULL = dict(B=8, seconds=10.0, img_tokens=577, beam=10, max_len_b=200, train_B=8,
-                   train_T=1000, train_Tt=100, warm_steps=2, timed_steps=5, profile_step=50)
+FUSION_FULL = dict(B=4, seconds=10.0, img_tokens=577, beam=10, max_len_b=100, slab_B=8,
+                   train_B=8, train_T=1000, train_Tt=100, warm_steps=2, timed_steps=5,
+                   profile_step=50)
 
 
 def fusion_small_configs():
@@ -5074,13 +5097,17 @@ def checking_cross_kernels(S, L: int, dtype=torch.bfloat16):
 
 def phase_fusion_full():
     """Phase 23b: each fusion type at the flagship's width (random weights),
-    8 x 10 s utterances with 577 image tokens, beam 10, max_len_b 200, the
+    4 x 10 s utterances with 577 image tokens, beam 10, max_len_b 100, the
     int8 then the bf16 cache: ms per utterance (encode and search), the
     launches of A-E over exactly that run, one decode step profiled (busy
     share, launches); for the merged type (S = 250 + 577 = 827) C and E held
     against their plain versions on the first decode step's slab, and both
-    timed at that shape beside SDPA. Returns the launches summed over the
-    timed runs, and C's and E's records at S = 827."""
+    timed at that shape (B = ``slab_B`` = 8) beside SDPA. The profiled step
+    runs in a search whose budget ends 3 steps after it (the slabs it reads
+    are those of the full search's step). Returns the launches summed over
+    the timed runs, and C's and E's records at S = 827."""
+    import dataclasses
+
     from mm_s2ut_torch.config import GenerationConfig
     from mm_s2ut_torch.infer.generator import UnitGenerator
     from mm_s2ut_torch.models.mm_s2ut import MMS2UTModel
@@ -5140,8 +5167,9 @@ def phase_fusion_full():
             total = {k: total[k] + counts[k] for k in counts}
             # the search runs at least as many steps as its longest hypothesis
             at_step = min(f["profile_step"], max(len(h[0]["tokens"]) for h in hyps) - 3)
-            if at_step >= 2:
-                prof = profile_decode_step(generator, feats, flens, imgs, [masks], at_step)
+            if at_step >= 2:  # a search whose budget ends just after the traced step
+                short = UnitGenerator(model, dataclasses.replace(gcfg, max_len_b=at_step + 3))
+                prof = profile_decode_step(short, feats, flens, imgs, [masks], at_step)
                 shares = {k: prof[f"{k}_share"] for k in ("B", "C", "D", "E")
                           if prof.get(f"{k}_share")}
                 profiled = (f"decode step {at_step} profiled: {prof['step_ms']:.3f} ms, device "
@@ -5159,18 +5187,19 @@ def phase_fusion_full():
     # C and E alone at the merged slab's shape, beside SDPA (C) and the bound
     s, S = FLAGSHIP, 250 + 577
     record = {}
-    c_args = cross_inputs(f["B"], s["H"], f["beam"], s["Dh"], S, torch.bfloat16, seed=827)
+    c_args = cross_inputs(f["slab_B"], s["H"], f["beam"], s["Dh"], S, torch.bfloat16, seed=827)
     c_mask = c_args[2][:, None, None, :].to(torch.bfloat16)
     c_k, c_v = c_args[1][..., : s["Dh"]], c_args[1][..., s["Dh"]:]
     record["C"] = {**check_and_time(
-        f"C B={f['B']} K={f['beam']} S={S}", torch.bfloat16,
+        f"C B={f['slab_B']} K={f['beam']} S={S}", torch.bfloat16,
         lambda: D.cross_decode_attention(*c_args), lambda: D.cross_reference(*c_args),
         TOL[torch.bfloat16], lambda: torch.nn.functional.scaled_dot_product_attention(
             c_args[0], c_k, c_v, attn_mask=c_mask, scale=1.0), phase="phase 23b"),
         **cross_work(c_args[0], S, 2 * s["Dh"] * 2, "bf16")}
-    e_args = quant_cross_inputs(f["B"], s["H"], f["beam"], s["Dh"], S, torch.bfloat16, seed=828)
+    e_args = quant_cross_inputs(f["slab_B"], s["H"], f["beam"], s["Dh"], S, torch.bfloat16,
+                                seed=828)
     record["E"] = {**check_and_time(
-        f"E B={f['B']} K={f['beam']} S={S}", torch.bfloat16,
+        f"E B={f['slab_B']} K={f['beam']} S={S}", torch.bfloat16,
         lambda: D.cross_decode_attention_i8(*e_args), lambda: D.cross_reference_i8(*e_args),
         TOL[torch.bfloat16], phase="phase 23b"),
         **cross_work(e_args[0], S, 2 * s["Dh"] + 8, "bf16")}
@@ -5237,9 +5266,13 @@ def phase_fusion_types(out_dir: Path):
     at the merged slab's S = 827."""
     t0 = time.perf_counter()
     phase_fusion_small(out_dir)
+    t1 = time.perf_counter()
     launches, record = phase_fusion_full()
+    t2 = time.perf_counter()
     launches["H"] = phase_fusion_train()
-    print(f"phase 23: {time.perf_counter() - t0:.1f} s; launches {launches}")
+    t3 = time.perf_counter()
+    print(f"phase 23: {t3 - t0:.1f} s (23a {t1 - t0:.1f}, 23b {t2 - t1:.1f}, 23c {t3 - t2:.1f}); "
+          f"launches {launches}")
     return launches, record
 
 
@@ -5498,17 +5531,20 @@ def phase_pipeline():
 
 
 FP32_CHECK_STEPS = (1, 50, 100, 150, 200)
+# phases 26 and 26b's search budget, a flat 210 units (random weights reach no EOS):
+# the profiled decode step 200 needs 203 steps, the log-prob checks none of them
+FP32_SEARCH = {"max_len_a": 0.0, "max_len_b": 210}
 
 
 def phase_fp32_decode():
     """Phase 26: the flagship's decode with ``model.dtype: float32`` and the
     default cache (which then holds fp32), at full width on phase 4's
-    weights and 8 wavs (beam 10, max_len_b 200, CodeHiFiGAN after it), TF32
+    weights and 8 wavs (beam 10, ``FP32_SEARCH``'s 210 steps, CodeHiFiGAN after it), TF32
     off for PyTorch's own fp32 matmuls and convolutions (restored after):
     fp32 B and C, 3xTF32 on the tensor cores, 6 launches each per decode
     step. Then one profiled decode step 200, and the card held against the
-    CPU on 2 utterances: the CPU's encoder output, the CPU search's 10
-    hypotheses of 200 units as the beams' fixed paths (each beam on its
+    CPU on 2 utterances: the CPU's encoder output, the card search's 10
+    hypotheses cut to 200 units as the beams' fixed paths (each beam on its
     own cache slot), fed through ``UnitDecoder.step`` on the card (kernels)
     and on the CPU (plain versions): every beam's log-probs within 1e-4 at
     steps 1, 50, 100, 150 and 200. Then phase 26b on the same model, wavs
@@ -5532,7 +5568,7 @@ def phase_fp32_decode():
     n_params = sum(p.numel() for p in model.parameters())
     wav, lens, imgs = synthetic_batch(8, gen)  # phase 4's
     masks = torch.zeros(imgs.shape[:2], dtype=torch.bool)
-    gcfg = GenerationConfig(beam=10, max_len_a=1.0, max_len_b=200)
+    gcfg = GenerationConfig(beam=10, **FP32_SEARCH)
     generator = UnitGenerator(model, gcfg, max_target_positions=model.cfg.max_target_positions)
     drive(generator, vocoder, wav[:2, :16000], torch.clamp(lens[:2], max=16000), imgs[:2],
           masks[:2])  # warm-up
@@ -5564,17 +5600,17 @@ def phase_fp32_decode():
     print(f"phase 26: profiled decode step 200: {json.dumps(prof)}")
     assert prof["B_ms"] > 0 and prof["C_ms"] > 0, f"the profile names no B or C kernel: {prof}"
 
-    # Card against CPU, teacher-forced on the CPU search's hypotheses.
+    # Card against CPU, teacher-forced on the card search's hypotheses of the
+    # first n utterances (any fixed paths will do: both sides are fed the same).
+    t_check = time.perf_counter()
     cpu_model = copy.deepcopy(model).to("cpu")
     n, K, T, L = 2, gcfg.beam, FP32_CHECK_STEPS[-1], model.cfg.decoder_layers
     with torch.no_grad():
         cfeats, cflens = waveform_frontend(wav[:n], lens[:n], FbankConfig())
         enc = cpu_model.encode(cfeats, cflens, [imgs[:n]], [masks[:n]])
-        cpu_hyps = UnitGenerator(cpu_model, GenerationConfig(beam=K, max_len_a=0.0, max_len_b=T + 1)
-                                 ).generate(cfeats, cflens, [imgs[:n]], [masks[:n]])
-    assert all(len(h[0]["tokens"]) >= T for h in cpu_hyps), [len(h[0]["tokens"]) for h in cpu_hyps]
+    assert all(len(h[0]["tokens"]) >= T for h in hyps[:n]), [len(h[0]["tokens"]) for h in hyps]
     paths = torch.tensor([[(h[k] if len(h[k]["tokens"]) >= T else h[0])["tokens"][:T]
-                           for k in range(K)] for h in cpu_hyps])  # (n, K, T)
+                           for k in range(K)] for h in hyps[:n]])  # (n, K, T)
     prev = torch.cat([torch.full((n, K, 1), 2), paths[:, :, :-1]], dim=2).reshape(n * K, T)
 
     def init(m, dev, kv=None):
@@ -5606,14 +5642,15 @@ def phase_fp32_decode():
     assert (D.ancestry_decode_attention.launches - before[0],
             D.cross_decode_attention.launches - before[1]) == (6 * T, 6 * T)
     errs = {t: (card[t] - cpu[t]).abs().max().item() for t in FP32_CHECK_STEPS}
-    print(f"phase 26: card vs CPU, {n} utts x {K} beams teacher-forced on the CPU search's "
-          f"{T}-unit hypotheses: max|log-prob diff| by step {json.dumps(errs)} (tol 1e-4)")
+    print(f"phase 26: card vs CPU, {n} utts x {K} beams teacher-forced on the card search's "
+          f"hypotheses cut to {T} units: max|log-prob diff| by step {json.dumps(errs)} (tol "
+          f"1e-4); {time.perf_counter() - t_check:.1f} s with the CPU's encode")
     assert all(torch.isfinite(card[t]).all() for t in FP32_CHECK_STEPS)
     assert max(errs.values()) <= 1e-4, errs
     print(f"phase 26: {time.perf_counter() - t0:.1f} s")
     launches.update(phase_fp32_quant_decode(
         generator_for=lambda kv: UnitGenerator(
-            model, GenerationConfig(beam=K, max_len_a=1.0, max_len_b=200, kv_cache_dtype=kv),
+            model, GenerationConfig(beam=K, kv_cache_dtype=kv, **FP32_SEARCH),
             max_target_positions=model.cfg.max_target_positions),
         run=lambda g: drive(g, vocoder, wav, lens, imgs, masks), imgs=imgs, masks=masks,
         models=(model, cpu_model), init=init, forced=forced, paths=paths))

@@ -6,7 +6,7 @@ What the JAX package asks of PIL (``mm_s2ut/models/vit.py:141-194``,
 * :func:`read_image` — a file → ``(H, W, 3)`` uint8, equal to
   ``np.asarray(Image.open(path).convert("RGB"))`` for every PNG, JPEG,
   BMP, DIB, GIF, TIFF, WebP, Netpbm, TGA, ICO, CUR, QOI, SGI, PCX, DCX,
-  Sun raster, XBM, XPM and PSD file Pillow opens, and ``ValueError``
+  DDS, Sun raster, XBM, XPM and PSD file Pillow opens, and ``ValueError``
   naming the file for those it refuses. :func:`decode_image` picks the
   container as ``Image.open`` does: Pillow's plugins in its order (the
   six it loads first, then the rest as ``Image.ID`` lists them), each
@@ -29,7 +29,8 @@ What the JAX package asks of PIL (``mm_s2ut/models/vit.py:141-194``,
   WebP, lossless and lossy, through ``data/webp.py``, Netpbm (P1-P6,
   ``Pf``) through ``data/netpbm.py``, TGA through ``data/tga.py``, ICO and
   CUR through ``data/ico.py``, QOI through ``data/qoi.py``, SGI through
-  ``data/sgi.py``, PCX and DCX through ``data/pcx.py``, Sun raster through
+  ``data/sgi.py``, PCX and DCX through ``data/pcx.py``, DDS through
+  ``data/dds.py``, Sun raster through
   ``data/sun.py``, XBM through ``data/xbm.py``, XPM through
   ``data/xpm.py`` and PSD through ``data/psd.py``; each module's docstring
   says what it reads.
@@ -55,6 +56,7 @@ import numpy as np
 
 from mm_s2ut_torch.data import Unidentified
 from mm_s2ut_torch.data.bmp import decode_bmp, decode_dib
+from mm_s2ut_torch.data.dds import decode_dds
 from mm_s2ut_torch.data.gif import decode_gif
 from mm_s2ut_torch.data.ico import decode_cur, decode_ico
 from mm_s2ut_torch.data.jpeg import decode_jpeg
@@ -75,7 +77,7 @@ def read_image(path: str | Path) -> np.ndarray:
     """``(H, W, 3)`` uint8 RGB pixels of a ``.npy`` file (by its first bytes
     or its suffix) or of any container :func:`decode_image` reads: PNG,
     JPEG, BMP, DIB, GIF, TIFF, WebP, Netpbm, TGA, ICO, CUR, QOI, SGI, PCX,
-    DCX, Sun raster, XBM, XPM, PSD."""
+    DCX, DDS, Sun raster, XBM, XPM, PSD."""
     path = Path(path)
     data = path.read_bytes()
     name = str(path)
@@ -119,6 +121,7 @@ _CONTAINERS = (
     ("CUR", lambda d: d[:4] == b"\0\0\2\0", decode_cur),
     ("PCX", lambda d: d[:1] == b"\n" and d[1:2] != b"" and d[1:2] in b"\0\2\3\5", decode_pcx),
     ("DCX", lambda d: d[:4] == b"\xb1\x68\xde\x3a", decode_dcx),
+    ("DDS", lambda d: d[:4] == b"DDS ", decode_dds),
     ("GBR", lambda d: len(d) >= 8 and struct.unpack_from(">I", d)[0] >= 20
      and struct.unpack_from(">I", d, 4)[0] in (1, 2), _gbr),
     ("ICO", lambda d: d[:4] == b"\0\0\1\0", decode_ico),
@@ -145,8 +148,8 @@ def decode_image(data: bytes, name: str = "<image>") -> Tuple[str, np.ndarray]:
             except Unidentified:
                 continue
     raise ValueError(f"{name}: not an image the port reads (PNG, JPEG, BMP, DIB, GIF, TIFF, "
-                     f"WebP, Netpbm, TGA, ICO, CUR, QOI, SGI, PCX, DCX, Sun raster, XBM, XPM, "
-                     f"PSD or .npy)")
+                     f"WebP, Netpbm, TGA, ICO, CUR, QOI, SGI, PCX, DCX, DDS, Sun raster, XBM, "
+                     f"XPM, PSD or .npy)")
 
 
 def _rgb(arr: np.ndarray) -> np.ndarray:

@@ -6,7 +6,9 @@ opens:
 
 * frames: sequential (SOF0/SOF1) and progressive (SOF2) Huffman,
   sequential (SOF9) and progressive (SOF10) arithmetic coding, lossless
-  Huffman (SOF3), all at 8-bit precision, with 1, 3 or 4 components and
+  Huffman (SOF3), all at 8-bit precision, with 1, 3 or 4 components (a
+  TIFF strip's 2 too, through :func:`decode_jpeg_samples`, which gives the
+  samples as stored) and
   restart intervals (lossless with 1x1 sampling only where several
   components are interleaved: those alone raise without Pillow's word). Pillow refuses other precisions (its frame parser
   takes 8 bits only) and libjpeg-turbo refuses hierarchical frames
@@ -705,11 +707,11 @@ def _cmyk_to_rgb(cmyk: List[np.ndarray]) -> np.ndarray:
 # -------------------------------------------------------------------- frame
 
 class _Frame:
-    def __init__(self, marker: int, body: bytes, name: str):
+    def __init__(self, marker: int, body: bytes, name: str, counts: Sequence[int] = (1, 3, 4)):
         self.precision, self.height, self.width, ncomp = struct.unpack(">BHHB", body[:6])
         if self.precision != 8:
             raise _refuse(name, f"a {self.precision}-bit JPEG")
-        if ncomp not in (1, 3, 4):
+        if ncomp not in counts:
             raise _refuse(name, f"a {ncomp}-component JPEG")
         if self.height == 0 or self.width == 0:
             raise ValueError(f"{name}: JPEG of {self.width}x{self.height} pixels")
@@ -764,8 +766,30 @@ def decode_jpeg_components(data: bytes, name: str = "<jpeg>"):
     return out
 
 
-def _parse(data: bytes, name: str):
-    """The markers and scans of a JPEG → (frame, jfif, adobe, transform)."""
+def decode_jpeg_samples(data: bytes, components: int, name: str = "<jpeg>") -> np.ndarray:
+    """A JPEG of ``components`` components, each sampled 1x1, as libjpeg gives
+    it with no colour conversion (``JCS_UNKNOWN`` in and out, as libtiff's
+    JPEG codec asks for everything but YCbCr): (H, W, components) uint8, the
+    samples as stored. A TIFF strip of gray and alpha has 2 components, one
+    of RGBA or CMYK 4; libjpeg-turbo finds no component past the fourth in a
+    scan, so 5 or more (CMYK with extra samples) are refused, as Pillow
+    refuses them."""
+    frame = _parse(data, name, (components,) if components <= 4 else ())[0]
+    if any((h, v) != (1, 1) for _, h, v, _ in frame.comps):
+        raise ValueError(f"{name}: JPEG sampling factors other than 1x1 in a JPEG of "
+                         "samples without colour conversion")
+    if frame.coding == "lossless":
+        if any(s is None for s in frame.samples):
+            raise ValueError(f"{name}: lossless JPEG with a component no scan carried")
+        planes = frame.samples
+    else:
+        planes = _idct_planes(frame, name)
+    return np.stack([p[:frame.height, :frame.width] for p in planes], -1).astype(np.uint8)
+
+
+def _parse(data: bytes, name: str, counts: Sequence[int] = (1, 3, 4)):
+    """The markers and scans of a JPEG → (frame, jfif, adobe, transform);
+    ``counts``: the numbers of components read."""
     pos = 2
     quant: Dict[int, np.ndarray] = {}
     dc_tabs: Dict[int, List[int]] = {}
@@ -822,7 +846,7 @@ def _parse(data: bytes, name: str):
                 else:
                     dac_l[tb], dac_u[tb] = cs & 15, cs >> 4
         elif marker in _FRAMES:
-            frame = _Frame(marker, body, name)
+            frame = _Frame(marker, body, name, counts)
         elif marker == 0xDD:
             restart = struct.unpack(">H", body[:2])[0]
         elif marker == 0xE0 and body[:5] == b"JFIF\x00":

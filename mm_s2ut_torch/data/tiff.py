@@ -13,7 +13,12 @@ the first image (IFD 0) of a TIFF, as Pillow 12 reads it through libtiff:
   (``data/ccitt.py``), ThunderScan (4-bit), and new-style JPEG (7): each
   strip or tile a JPEG stream decoded by ``data/jpeg.py`` with the
   JPEGTables tag's tables before it, YCbCr converted to RGB by libjpeg's
-  rules (libtiff's ``JPEGCOLORMODE_RGB``);
+  rules (libtiff's ``JPEGCOLORMODE_RGB``), every other kind's samples
+  taken as stored, as libtiff's JPEG codec hands them to Pillow (no
+  colour conversion: CMYK not inverted, gray with alpha as 2 components,
+  RGBA as 4), then converted as those of any other compression; CMYK with
+  extra samples (5 or 6 components, more than libjpeg-turbo reads) is
+  refused, as Pillow refuses it;
 * YCbCr without new-style JPEG as libtiff's ``TIFFRGBAImage`` gives it to
   Pillow: compressed strips of data units at any subsampling it takes, or
   an old-style JPEG (6) through JPEGInterchangeFormat as libjpeg's raw
@@ -54,7 +59,8 @@ import numpy as np
 
 from mm_s2ut_torch.data import zstd
 from mm_s2ut_torch.data.ccitt import decode_ccitt
-from mm_s2ut_torch.data.jpeg import _cmyk_to_rgb, decode_jpeg, decode_jpeg_components
+from mm_s2ut_torch.data.jpeg import (_cmyk_to_rgb, decode_jpeg, decode_jpeg_components,
+                                     decode_jpeg_samples)
 
 _TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii",
           11: "f", 12: "d", 13: "I", 16: "Q", 17: "q", 18: "Q"}
@@ -370,7 +376,7 @@ def decode_tiff(data: bytes, name: str = "<tiff>") -> np.ndarray:
             ty, tx = divmod(t, across)
             rows = th if tiled else min(th, height - ty * th)
             if compression == 7:
-                block = _jpeg_block(tables, raw, kind, name)[:rows, :tw]
+                block = _jpeg_block(tables, raw, kind, per_plane, name)[:rows, :tw]
                 block = block.reshape(block.shape[0], -1)
                 out[ty * th: ty * th + block.shape[0],
                     tx * row_bytes: tx * row_bytes + block.shape[1]] = block
@@ -391,7 +397,7 @@ def decode_tiff(data: bytes, name: str = "<tiff>") -> np.ndarray:
     # (little-endian) samples as big-endian, reversing each sample's bytes
     sample_bo = "<" if kind in (_INT, _FLOAT) and compression != 1 else bo
     rgb = _to_rgb(planes_out, kind, photo, bps, extra, width, height, sample_bo, tags, name,
-                  compression == 7)
+                  compression == 7 and kind == _YCBCR)
     orient = _ORIENT.get(tag(274, (1,))[0])
     return np.ascontiguousarray(orient(rgb) if orient else rgb)
 
@@ -503,12 +509,16 @@ def _ojpeg_planes(data, tags, width, height, name):
     return h, v, np.clip(y, 0, 255), np.clip(cb, 0, 255), np.clip(cr, 0, 255)
 
 
-def _jpeg_block(tables: bytes, raw: bytes, kind: str, name: str) -> np.ndarray:
-    """One JPEG strip or tile (its tables from JPEGTables) → (rows, cols, c)."""
+def _jpeg_block(tables: bytes, raw: bytes, kind: str, samples: int, name: str) -> np.ndarray:
+    """One JPEG strip or tile (its tables from JPEGTables) → (rows, cols, c):
+    YCbCr as RGB (libtiff's ``JPEGCOLORMODE_RGB``), any other kind its
+    ``samples`` components as stored (libtiff asks libjpeg for no colour
+    conversion there)."""
     stream = tables[:-2] + raw[2:] if tables[:2] == b"\xff\xd8" and raw[:2] == b"\xff\xd8" \
         else raw
-    rgb = decode_jpeg(stream, name)
-    return rgb[..., :1] if kind == _GRAY else rgb
+    if kind == _YCBCR:
+        return decode_jpeg(stream, name)
+    return decode_jpeg_samples(stream, samples, name)
 
 
 def _samples(planes: List[np.ndarray], bps: Tuple[int, ...], width: int, height: int,
@@ -530,10 +540,8 @@ def _samples(planes: List[np.ndarray], bps: Tuple[int, ...], width: int, height:
 
 
 def _to_rgb(planes, kind, photo, bps, extra, width, height, bo, tags, name, jpeg) -> np.ndarray:
-    if jpeg:  # data/jpeg.py's RGB (or gray) rows already
-        c = 1 if kind == _GRAY else 3
-        px = planes[0][:height, : width * c].reshape(height, width, c)
-        return np.ascontiguousarray(np.repeat(px, 3, 2) if c == 1 else px)
+    if jpeg:  # data/jpeg.py's RGB rows already
+        return np.ascontiguousarray(planes[0][:height, : width * 3].reshape(height, width, 3))
     if kind in (_INT, _FLOAT):
         b = bps[0] // 8
         code = "f" if kind == _FLOAT else "i"

@@ -536,6 +536,9 @@ def tiff_fixtures():
         "tiff_lzw.tif": save(img, "TIFF", compression="tiff_lzw"),
         "tiff_deflate.tif": save(img, "TIFF", compression="tiff_adobe_deflate"),
         "tiff_jpeg.tif": save(img, "TIFF", compression="jpeg"),
+        "tiff_jpeg_cmyk.tif": save(Image.fromarray(scene(21, 30, c=4, seed=50), "CMYK"),
+                                   "TIFF", compression="jpeg"),
+        "tiff_jpeg_la.tif": save(img.convert("LA"), "TIFF", compression="jpeg"),
         "tiff_tiles_lzw.tif": tiff_bytes(rgb, 8, 2, compression=5, tile=(16, 16)),
         "tiff_planar2.tif": tiff_bytes(rgb, 8, 2, compression=32773, planar=2,
                                        rows_per_strip=10),
@@ -724,17 +727,19 @@ def container_fixture_bytes():
     64x48 but the photo-sized lossy WebP), the Netpbm, TGA, ICO/CUR/DIB,
     QOI, SGI, PCX/DCX, Sun, XBM, XPM and PSD ones of
     ``test_torch_image_rasters.py`` and ``test_torch_image_rasters2.py``
-    too."""
+    and the DDS ones of ``test_torch_image_dds.py`` too."""
+    from test_torch_image_dds import dds_fixture_bytes
     from test_torch_image_rasters import raster_fixture_bytes
 
     return {**bmp_fixtures(), **gif_fixtures(), **tiff_fixtures(), **webp_fixtures(),
-            **raster_fixture_bytes()}
+            **raster_fixture_bytes(), **dds_fixture_bytes()}
 
 
 CONTAINERS = {".bmp": "BMP", ".gif": "GIF", ".tif": "TIFF", ".webp": "WEBP", ".pbm": "PPM",
               ".pgm": "PPM", ".ppm": "PPM", ".pfm": "PPM", ".tga": "TGA", ".ico": "ICO",
               ".cur": "CUR", ".dib": "DIB", ".qoi": "QOI", ".sgi": "SGI", ".pcx": "PCX",
-              ".dcx": "DCX", ".ras": "SUN", ".xbm": "XBM", ".xpm": "XPM", ".psd": "PSD"}
+              ".dcx": "DCX", ".ras": "SUN", ".xbm": "XBM", ".xpm": "XPM", ".psd": "PSD",
+              ".dds": "DDS"}
 FIXTURE_NAMES = sorted(p.name for p in FORMATS.iterdir() if p.suffix in CONTAINERS)
 
 
@@ -1181,7 +1186,8 @@ def test_raw_image_store_equals_jax_over_every_container(tmp_path):
              "netpbm_pf.pfm", "tga_palette16_rle.tga", "ico_bmp4_bmp8.ico", "cur_bmp24.cur",
              "dib_rgb.dib", "qoi_rgba.qoi", "sgi_rgb16_rle.sgi", "pcx_4planes.pcx",
              "dcx_two_frames.dcx", "sun_rgb_rle.ras", "xbm_hotspot.xbm", "xpm_2cpp.xpm",
-             "psd_rgb_packbits.psd"]
+             "psd_rgb_packbits.psd", "tiff_jpeg_cmyk.tif", "tiff_jpeg_la.tif", "dds_dxt1.dds",
+             "dds_bc7.dds", "dds_r5g6b5.dds"]
     for n in names:
         (tmp_path / n).write_bytes((FORMATS / n).read_bytes())
     for mode, size in (("vit_timm", 32), ("vit_openai", 48)):
@@ -1196,14 +1202,14 @@ def test_raw_image_store_equals_jax_over_every_container(tmp_path):
 def test_decoders_import_no_pillow():
     """``data/bmp.py``, ``gif.py``, ``tiff.py``, ``webp.py``, ``ccitt.py``,
     ``zstd.py``, ``netpbm.py``, ``tga.py``, ``ico.py``, ``qoi.py``,
-    ``sgi.py``, ``pcx.py``, ``sun.py``, ``xbm.py``, ``xpm.py`` and ``psd.py``
-    import numpy, the standard library's ``zlib``, ``lzma``, ``bisect``,
+    ``sgi.py``, ``pcx.py``, ``sun.py``, ``xbm.py``, ``xpm.py``, ``psd.py`` and
+    ``dds.py`` import numpy, the standard library's ``zlib``, ``lzma``, ``bisect``,
     ``math``, ``io`` and ``re``, and the port only."""
     import ast
     import importlib
 
     for mod in ("bmp", "gif", "tiff", "webp", "ccitt", "zstd", "netpbm", "tga", "ico", "qoi",
-                "sgi", "pcx", "sun", "xbm", "xpm", "psd"):
+                "sgi", "pcx", "sun", "xbm", "xpm", "psd", "dds"):
         path = Path(importlib.import_module(f"mm_s2ut_torch.data.{mod}").__file__)
         tree = ast.parse(path.read_text())
         names = {a.name.split(".")[0] for n in ast.walk(tree)
