@@ -127,7 +127,8 @@ is no CPU path):
     GIF, TIFF and WebP, lossless and lossy; BigTIFF, LZMA, ZSTD, CCITT and
     ThunderScan TIFFs, Pillow's F and I modes, 16-bit CMYK, an Orientation,
     JPEG-compressed CMYK and gray + alpha; the raster families; DDS in every
-    layout ``data/dds.py`` reads) the same way, each one's host ms, with a 500x375
+    layout ``data/dds.py`` reads; IM in each mode Pillow writes, MSP, SPIDER,
+    BLP palettes, JPEG and DXT, ICNS) the same way, each one's host ms, with a 500x375
     progressive JPEG's and a 500x375 lossy WebP's images/s beside the
     baseline's and the host decode time per container; ViT-B/16-384 from random
     timm weights saved with ``torch.save`` and read by
@@ -145,7 +146,8 @@ is no CPU path):
     over JPEG and PNG images card against CPU, and ``cli.vit_rollout``;
     (g) ``cli.extract_features`` with ViT-B/16-384 under bf16 autocast
     over one BMP, GIF, TIFF and WebP fixture of each kind (a TIFF of each
-    compression), one of each raster family and every DDS fixture, then
+    compression), one of each raster family, every DDS fixture and one IM,
+    MSP, SPIDER, ICNS and two BLP (DXT5, JPEG) fixtures, then
     over their ``.npy`` twins (Pillow's pixels):
     features equal bit for bit, A launched 12 times per forward;
 20. training the speech encoders and the enhanced path
@@ -155,7 +157,7 @@ is no CPU path):
     timed beside SDPA (its backward for H) with their bounds; (a) the XM
     train step at full width (``mm_xm_architecture_base`` over
     wav2vec2-base, LayerDrop 0.1, every dropout 0.1, bf16, Adam) on phase
-    16's 8 waves of 2-10 s with 20-60 text tokens: 3 + 10 steps with
+    16's 8 waves of 2-10 s with 20-60 text tokens: 3 + 5 steps with
     ``gradient_checkpointing`` off, then on from the same weights (the
     step-1 loss equal), ms per step and its spread, peak memory, A and H
     per step (the layers LayerDrop keeps; A twice with checkpointing), one
@@ -175,7 +177,7 @@ is no CPU path):
     validation-time inference (``phase_train_through_images``): (a) the
     flagship with ViT-B/16-384 in its graph (154.5 M params) trained at
     phase 11's point with 8 decoded fixture images at 384², bf16
-    autocast, dropouts 0.1, Adam, 3 + 10 steps: ms per step and its
+    autocast, dropouts 0.1, Adam, 3 + 5 steps: ms per step and its
     spread, peak memory, A and H 24 times a step (12 speech, 12 ViT), one
     step profiled (busy share, A's and H's shares); then ViT-L/16-384 for
     one step; (b) small fp32 configs with the tiny timm ViT and a CLIP
@@ -2669,8 +2671,9 @@ def loaded_vit(name, gen, path=None):
     return vit.eval()
 
 
-FORMAT_FIXTURES = 151  # tests/torch_images/formats/: 17 JPEG and PNG, 65 BMP, GIF, TIFF, WebP,
-# 27 Netpbm, TGA, ICO/CUR/DIB, QOI and SGI, 18 PCX/DCX, Sun, XBM, XPM and PSD, 24 DDS
+FORMAT_FIXTURES = 185  # tests/torch_images/formats/: 17 JPEG and PNG, 65 BMP, GIF, TIFF, WebP,
+# 27 Netpbm, TGA, ICO/CUR/DIB, QOI and SGI, 18 PCX/DCX, Sun, XBM, XPM and PSD, 24 DDS,
+# 34 IM, MSP, SPIDER, BLP and ICNS
 # the TIFF kinds data/tiff.py took on after the first containers (BigTIFF, LZMA, ZSTD,
 # CCITT RLE, Group 3 2D, Group 4, ThunderScan, Pillow's F and I modes, 16-bit CMYK,
 # an Orientation that swaps the sides, YCbCr in data units, old-style JPEG, JPEG-compressed
@@ -2686,9 +2689,11 @@ CONTAINERS = {".jpg": "JPEG", ".png": "PNG", ".bmp": "BMP", ".gif": "GIF", ".tif
               ".pfm": "Netpbm", ".tga": "TGA", ".ico": "ICO/CUR/DIB", ".cur": "ICO/CUR/DIB",
               ".dib": "ICO/CUR/DIB", ".qoi": "QOI", ".sgi": "SGI", ".pcx": "PCX/DCX",
               ".dcx": "PCX/DCX", ".ras": "Sun", ".xbm": "XBM", ".xpm": "XPM", ".psd": "PSD",
-              ".dds": "DDS"}
+              ".dds": "DDS", ".im": "IM", ".msp": "MSP", ".spi": "SPIDER", ".blp": "BLP",
+              ".icns": "ICNS"}
 RASTER_FAMILIES = ["Netpbm", "TGA", "ICO/CUR/DIB", "QOI", "SGI", "PCX/DCX", "Sun", "XBM", "XPM",
-                   "PSD", "DDS"]  # read by the raster and texture decoders
+                   "PSD", "DDS", "IM", "MSP", "SPIDER", "BLP",
+                   "ICNS"]  # read by the raster and texture decoders
 # every DDS layout data/dds.py reads: Pillow's BCn and uncompressed writes, BC4-BC7, masks
 DDS_FIXTURES = [
     "dds_dxt1.dds", "dds_dxt3.dds", "dds_dxt5.dds", "dds_bc2.dds", "dds_bc3.dds", "dds_bc5.dds",
@@ -2703,8 +2708,9 @@ def format_fixtures():
     early and smoothed, arithmetic-coded, lossless, CMYK, YCCK, h1v2, 4:1:1
     JPEG; Adam7, 16-bit and 1/2/4-bit PNG; BMP, GIF, TIFF and WebP of every
     kind ``tests/test_torch_image_containers.py`` writes; the raster
-    families of ``tests/test_torch_image_rasters.py`` and
-    ``tests/test_torch_image_rasters2.py``, the DDS textures of
+    families of ``tests/test_torch_image_rasters.py``,
+    ``tests/test_torch_image_rasters2.py`` and
+    ``tests/test_torch_image_rasters3.py``, the DDS textures of
     ``tests/test_torch_image_dds.py``), decoded on the
     host without Pillow and held to the PIL pixels committed beside it:
     [(name, s)]."""
@@ -2803,8 +2809,9 @@ def phase_image_path(out_dir: Path):
           f"{prog.stat().st_size} B) and {1 / lossy_s:.2f} images/s at 500x375 lossy WebP "
           f"({lossy.name}, {lossy.stat().st_size} B) beside {1 / big_s:.2f} images/s baseline")
     print("phase 19a: host decode per container, mean over its fixtures (at most 64x48 but the "
-          "two 500x375): " + ", ".join(f"{k} {n} files {ms:.2f} ms ({1e3 / ms:.1f} images/s)"
-                                       for k, (n, ms) in per_container(formats).items()))
+          "two 500x375 and ICNS's 128x128 it32): "
+          + ", ".join(f"{k} {n} files {ms:.2f} ms ({1e3 / ms:.1f} images/s)"
+                      for k, (n, ms) in per_container(formats).items()))
     decode_s = dict(formats)
     assert set(NEW_TIFF_FIXTURES) <= set(decode_s), sorted(set(NEW_TIFF_FIXTURES) - set(decode_s))
     assert sorted(DDS_FIXTURES) == sorted(n for n in decode_s if n.endswith(".dds")), DDS_FIXTURES
@@ -3037,7 +3044,7 @@ def image_entry_points(root: Path, vit_b, gen, images):
 
 
 # one fixture of each kind the BMP, GIF, TIFF and WebP readers decode, of each raster family,
-# and every DDS fixture
+# every DDS fixture, and one of each of IM, MSP, SPIDER, BLP (DXT and JPEG) and ICNS
 CONTAINER_FEATURE_FIXTURES = [
     "bmp_rle8.bmp", "bmp32_bitfields_v5.bmp", "gif_offset_transparent.gif",
     "gif_interlaced.gif", "tiff_jpeg.tif", "tiff_tiles_lzw.tif", "tiff_planar2.tif",
@@ -3050,7 +3057,9 @@ CONTAINER_FEATURE_FIXTURES = [
     # one of each raster family: Netpbm, TGA, ICO, QOI, SGI, PCX, DCX, Sun, XBM, XPM, PSD
     "netpbm_p6_16bit.ppm", "tga_palette16_rle.tga", "ico_bmp4_bmp8.ico", "qoi_rgba.qoi",
     "sgi_rgb16_rle.sgi", "pcx_4planes.pcx", "dcx_two_frames.dcx", "sun_rgb_rle.ras",
-    "xbm_hotspot.xbm", "xpm_2cpp.xpm", "psd_rgb_packbits.psd", *DDS_FIXTURES]
+    "xbm_hotspot.xbm", "xpm_2cpp.xpm", "psd_rgb_packbits.psd", *DDS_FIXTURES,
+    "im_ycbcr.im", "msp_v2_rle.msp", "spider_big_endian.spi", "blp2_dxt5.blp", "blp1_jpeg.blp",
+    "icns_it32.icns"]
 
 
 def container_features(root: Path, gen):
@@ -3101,7 +3110,8 @@ def container_features(root: Path, gen):
         "19g: features from the containers differ from their .npy twins' "
         f"(max|diff| {float(np.abs(got - want).max())})")
     print(f"phase 19g: extract_features ViT-B/16-384 bf16 over {len(CONTAINER_FEATURE_FIXTURES)} "
-          f"BMP/GIF/TIFF/WebP/Netpbm/TGA/ICO/QOI/SGI/PCX/DCX/Sun/XBM/XPM/PSD/DDS fixtures "
+          f"BMP/GIF/TIFF/WebP/Netpbm/TGA/ICO/QOI/SGI/PCX/DCX/Sun/XBM/XPM/PSD/DDS/IM/MSP/SPIDER/"
+          f"BLP/ICNS fixtures "
           f"({', '.join(CONTAINER_FEATURE_FIXTURES)}; TIFF in LZMA, "
           f"ZSTD, CCITT RLE, Group 3, Group 4, ThunderScan, old-style JPEG, BigTIFF, YCbCr "
           f"among them): features "
@@ -3189,12 +3199,16 @@ def pos_conv_ms(pos_conv) -> float:
     return time_ms(step, n=5)
 
 
+XM_TIMED_STEPS = 5  # phase 20a's timed steps for each checkpointing setting
+VIT_TIMED_STEPS = 5  # phase 21a's timed ViT-B/16-384 steps
+
+
 def phase_xm_train():
     """Phase 20a: the XM train step at full width. ``mm_xm_architecture_base``
     over wav2vec2-base (LayerDrop 0.1, hidden and attention dropout 0.1),
     selective fusion over 577x768 features, bf16 autocast, Adam; phase
-    16's 8 waves of 2-10 s with 20-60 text tokens each. 3 warm-up + 10
-    timed steps with ``gradient_checkpointing`` off, then on, from the
+    16's 8 waves of 2-10 s with 20-60 text tokens each. 3 warm-up +
+    ``XM_TIMED_STEPS`` timed steps with ``gradient_checkpointing`` off, then on, from the
     same weights and seed (the step-1 loss equal); one step profiled; then
     one step at wav2vec2-large-lv60's geometry with checkpointing.
     Returns A's and H's launches in the first timed step without
@@ -3218,7 +3232,7 @@ def phase_xm_train():
         trainer = Trainer(Config(model=cfg, train=tcfg), model, "cuda")
         torch.cuda.reset_peak_memory_stats()
         warm, _, _ = timed_steps(trainer, batch, 3, counters)
-        metrics, ms, launches = timed_steps(trainer, batch, 10, counters)
+        metrics, ms, launches = timed_steps(trainer, batch, XM_TIMED_STEPS, counters)
         first_loss[ckpt] = warm[0]["loss"] / warm[0]["ntokens"]
         losses = [m["loss"] / m["ntokens"] for m in warm + metrics]
         assert all(np.isfinite(losses)) and all(np.isfinite(m["grad_norm"]) for m in metrics)
@@ -3231,7 +3245,7 @@ def phase_xm_train():
         print(f"phase 20a: XM train step, bf16, {n_params / 1e6:.1f} M params, wav2vec2-base "
               f"(LayerDrop 0.1), B=8 of 2-10 s (frames {frames.tolist()}), "
               f"{int(host['target'].shape[1])} target columns, gradient_checkpointing {ckpt}: "
-              f"{spread(ms)} over 10 steps (3 warm-up), peak memory "
+              f"{spread(ms)} over {XM_TIMED_STEPS} steps (3 warm-up), peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; step-1 loss "
               f"{first_loss[ckpt]:.6f}; launches per step {[(c['A'], c['H']) for c in launches]}")
         print(f"phase 20a: losses {[round(x, 4) for x in losses]}")
@@ -3688,7 +3702,7 @@ def phase_vit_train(images):
     """Phase 21a: the flagship with ViT-B/16-384 in its graph trained at full
     width: phase 11's point (B=8 x 10 s, 100 units, dropouts 0.1, bf16
     autocast, Adam) with 8 decoded fixture images at 384² through the
-    extractor, 3 warm-up + 10 timed steps (ms per step and its spread,
+    extractor, 3 warm-up + ``VIT_TIMED_STEPS`` timed steps (ms per step and its spread,
     peak memory, A and H per step: 12 in the speech encoder and 12 in the
     ViT each), one step profiled; then ViT-L/16-384 for one step (A and H
     36 each). Returns A's and H's launches in the first timed ViT-B step."""
@@ -3702,7 +3716,8 @@ def phase_vit_train(images):
     counters = {"A": A.flash_attention, "H": A.flash_attention_bwd}
     tcfg = TrainConfig(warmup_updates=10, label_smoothing=0.2)
     launches_b = {}
-    for name, warm, steps in (("vit_base_patch16_384", 3, 10), ("vit_large_patch16_384", 1, 1)):
+    for name, warm, steps in (("vit_base_patch16_384", 3, VIT_TIMED_STEPS),
+                              ("vit_large_patch16_384", 1, 1)):
         mcfg, vit = vit_train_config(name)
         model = init_random_(MMS2UTModel(mcfg, vit_cfg=vit), torch.Generator().manual_seed(21))
         n_params = sum(p.numel() for p in model.parameters())

@@ -277,16 +277,20 @@ def _masks(body: bytes, masks, bytecount: int, width: int, height: int) -> np.nd
 
 # -------------------------------------------------------------------- BC1-5
 
-def _bc1(blocks: np.ndarray, four: bool) -> np.ndarray:
+def _bc1(blocks: np.ndarray, four: bool, shift_only: bool = False) -> np.ndarray:
     """(n, 8) BC1 colour blocks → (n, 16, 3): 5:6:5 endpoints, the 4-colour
     mode where c0 > c1 (or ``four``, as BC2 and BC3 use them), else the
-    3-colour mode with black at index 3."""
+    3-colour mode with black at index 3. The endpoints' 5 and 6 bits are
+    widened to 8 by repeating their high bits (31 → 255), or, with
+    ``shift_only`` (Pillow's BLP decoder), by a shift alone (31 → 248)."""
     b = blocks.astype(np.int64)
     c0, c1 = b[:, 0] | b[:, 1] << 8, b[:, 2] | b[:, 3] << 8
     lut = b[:, 4] | b[:, 5] << 8 | b[:, 6] << 16 | b[:, 7] << 24
 
     def rgb565(c):
         r, g, bl = (c & 0xF800) >> 8, (c & 0x7E0) >> 3, (c & 0x1F) << 3
+        if shift_only:
+            return np.stack([r, g, bl], -1)
         return np.stack([r | r >> 5, g | g >> 6, bl | bl >> 5], -1)
 
     p0, p1 = rgb565(c0), rgb565(c1)

@@ -6,15 +6,16 @@ What the JAX package asks of PIL (``mm_s2ut/models/vit.py:141-194``,
 * :func:`read_image` — a file → ``(H, W, 3)`` uint8, equal to
   ``np.asarray(Image.open(path).convert("RGB"))`` for every PNG, JPEG,
   BMP, DIB, GIF, TIFF, WebP, Netpbm, TGA, ICO, CUR, QOI, SGI, PCX, DCX,
-  DDS, Sun raster, XBM, XPM and PSD file Pillow opens, and ``ValueError``
-  naming the file for those it refuses. :func:`decode_image` picks the
-  container as ``Image.open`` does: Pillow's plugins in its order (the
-  six it loads first, then the rest as ``Image.ID`` lists them), each
-  behind its test of the first 16 bytes, TGA (which has none) in its
-  place, and a file whose header a plugin's open rejects passed on to the
-  next (an RGB TGA starts with CUR's magic; a Sun raster 1 pixel wide may
-  pass Pillow's GIMP-brush test, and that plugin, which the port does not
-  read, takes it). It reads ``.npy`` pixels ((H, W, 3) or (H, W) uint8);
+  DDS, Sun raster, XBM, XPM, PSD, IM, MSP, SPIDER, BLP and ICNS file
+  Pillow opens, and ``ValueError`` naming the file for those it refuses.
+  :func:`decode_image` picks the container as ``Image.open`` does:
+  Pillow's plugins in its order (the six it loads first, then the rest as
+  ``Image.ID`` lists them), each behind its test of the first 16 bytes,
+  IM, SPIDER and TGA (which have none) in their places, and a file whose
+  header a plugin's open rejects passed on to the next (an RGB TGA starts
+  with CUR's magic; a Sun raster 1 pixel wide may pass Pillow's
+  GIMP-brush test, and that plugin, which the port does not read, takes
+  it). It reads ``.npy`` pixels ((H, W, 3) or (H, W) uint8);
   PNG in every colour type and bit depth, Adam7-interlaced or not (gray
   of 1/2/4 bits scaled as Pillow's ``1``/``L;2``/``L;4``, 16-bit gray
   clamped to 255 as Pillow's ``I;16`` converts, the other 16-bit types'
@@ -32,8 +33,10 @@ What the JAX package asks of PIL (``mm_s2ut/models/vit.py:141-194``,
   ``data/sgi.py``, PCX and DCX through ``data/pcx.py``, DDS through
   ``data/dds.py``, Sun raster through
   ``data/sun.py``, XBM through ``data/xbm.py``, XPM through
-  ``data/xpm.py`` and PSD through ``data/psd.py``; each module's docstring
-  says what it reads.
+  ``data/xpm.py``, PSD through ``data/psd.py``, IM through ``data/im.py``,
+  MSP through ``data/msp.py``, SPIDER through ``data/spider.py``, BLP
+  through ``data/blp.py`` and ICNS through ``data/icns.py``; each module's
+  docstring says what it reads.
 * :func:`resize` — Pillow's ``Image.resize`` for ``BICUBIC`` and
   ``BILINEAR`` on 8-bit images (``Resample.c``): a separable filter
   whose support widens with the downscale factor, coefficients
@@ -55,16 +58,21 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from mm_s2ut_torch.data import Unidentified
+from mm_s2ut_torch.data.blp import decode_blp
 from mm_s2ut_torch.data.bmp import decode_bmp, decode_dib
 from mm_s2ut_torch.data.dds import decode_dds
 from mm_s2ut_torch.data.gif import decode_gif
+from mm_s2ut_torch.data.icns import decode_icns
 from mm_s2ut_torch.data.ico import decode_cur, decode_ico
+from mm_s2ut_torch.data.im import decode_im
 from mm_s2ut_torch.data.jpeg import decode_jpeg
+from mm_s2ut_torch.data.msp import decode_msp
 from mm_s2ut_torch.data.netpbm import decode_netpbm
 from mm_s2ut_torch.data.pcx import decode_dcx, decode_pcx
 from mm_s2ut_torch.data.psd import decode_psd
 from mm_s2ut_torch.data.qoi import decode_qoi
 from mm_s2ut_torch.data.sgi import decode_sgi
+from mm_s2ut_torch.data.spider import decode_spider
 from mm_s2ut_torch.data.sun import decode_sun
 from mm_s2ut_torch.data.tga import decode_tga
 from mm_s2ut_torch.data.tiff import decode_tiff
@@ -77,7 +85,7 @@ def read_image(path: str | Path) -> np.ndarray:
     """``(H, W, 3)`` uint8 RGB pixels of a ``.npy`` file (by its first bytes
     or its suffix) or of any container :func:`decode_image` reads: PNG,
     JPEG, BMP, DIB, GIF, TIFF, WebP, Netpbm, TGA, ICO, CUR, QOI, SGI, PCX,
-    DCX, DDS, Sun raster, XBM, XPM, PSD."""
+    DCX, DDS, Sun raster, XBM, XPM, PSD, IM, MSP, SPIDER, BLP, ICNS."""
     path = Path(path)
     data = path.read_bytes()
     name = str(path)
@@ -106,29 +114,34 @@ def _gbr(data: bytes, name: str) -> np.ndarray:
 
 
 # Pillow's plugins in the order Image.open tries them, each with its test of the
-# first 16 bytes (TGA has none); a decoder raising Unidentified passes the file on
-# to the next, as Pillow does where a plugin's open raises SyntaxError
+# first 16 bytes (IM, SPIDER and TGA have none); a decoder raising Unidentified passes
+# the file on to the next, as Pillow does where a plugin's open raises SyntaxError
 _DIB_HEADERS = (12, 40, 52, 56, 64, 108, 124)
 _CONTAINERS = (
     ("BMP", lambda d: d[:2] == b"BM", decode_bmp),
     ("DIB", lambda d: len(d) >= 4 and struct.unpack_from("<I", d)[0] in _DIB_HEADERS,
      lambda d, n: decode_dib(d, n)[0]),
     ("GIF", lambda d: d[:4] == b"GIF8", decode_gif),
-    ("JPEG", lambda d: d[:2] == b"\xff\xd8", decode_jpeg),
+    ("JPEG", lambda d: d[:3] == b"\xff\xd8\xff", decode_jpeg),
     ("PPM", lambda d: d[:1] == b"P" and d[1:2] != b"" and d[1:2] in b"0123456fy",
      decode_netpbm),
     ("PNG", lambda d: d[:8] == b"\x89PNG\r\n\x1a\n", lambda d, n: decode_png(d, n)),
+    ("BLP", lambda d: d[:4] in (b"BLP1", b"BLP2"), decode_blp),
     ("CUR", lambda d: d[:4] == b"\0\0\2\0", decode_cur),
     ("PCX", lambda d: d[:1] == b"\n" and d[1:2] != b"" and d[1:2] in b"\0\2\3\5", decode_pcx),
     ("DCX", lambda d: d[:4] == b"\xb1\x68\xde\x3a", decode_dcx),
     ("DDS", lambda d: d[:4] == b"DDS ", decode_dds),
     ("GBR", lambda d: len(d) >= 8 and struct.unpack_from(">I", d)[0] >= 20
      and struct.unpack_from(">I", d, 4)[0] in (1, 2), _gbr),
+    ("ICNS", lambda d: d[:4] == b"icns", decode_icns),
     ("ICO", lambda d: d[:4] == b"\0\0\1\0", decode_ico),
+    ("IM", lambda d: True, decode_im),
     ("TIFF", lambda d: d[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"), decode_tiff),
+    ("MSP", lambda d: d[:4] in (b"DanM", b"LinS"), decode_msp),
     ("PSD", lambda d: d[:4] == b"8BPS", decode_psd),
     ("QOI", lambda d: d[:4] == b"qoif", decode_qoi),
     ("SGI", lambda d: d[:2] == b"\x01\xda", decode_sgi),
+    ("SPIDER", lambda d: True, decode_spider),
     ("SUN", lambda d: d[:4] == b"\x59\xa6\x6a\x95", decode_sun),
     ("TGA", lambda d: True, decode_tga),
     ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP", decode_webp),
@@ -149,7 +162,7 @@ def decode_image(data: bytes, name: str = "<image>") -> Tuple[str, np.ndarray]:
                 continue
     raise ValueError(f"{name}: not an image the port reads (PNG, JPEG, BMP, DIB, GIF, TIFF, "
                      f"WebP, Netpbm, TGA, ICO, CUR, QOI, SGI, PCX, DCX, DDS, Sun raster, XBM, "
-                     f"XPM, PSD or .npy)")
+                     f"XPM, PSD, IM, MSP, SPIDER, BLP, ICNS or .npy)")
 
 
 def _rgb(arr: np.ndarray) -> np.ndarray:
@@ -262,13 +275,20 @@ def decode_png(data: bytes, name: str = "<png>") -> np.ndarray:
         raw = zlib.decompress(stream)
     except zlib.error as e:
         # Pillow inflates row by row and stops at the image's last byte: it reads
-        # the Adler-32 only where the stream ends there too
-        raw = zlib.decompressobj(-15).decompress(stream[2:]) if "data check" in str(e) else b""
+        # the Adler-32 only where the stream ends there too, and a stream cut
+        # short after that byte (in its Adler-32, say) still gives the image
+        cut = "incomplete or truncated" in str(e)
+        try:
+            raw = (zlib.decompressobj().decompress(stream) if cut else
+                   zlib.decompressobj(-15).decompress(stream[2:]) if "data check" in str(e)
+                   else b"")
+        except zlib.error:
+            raw = b""
         need = sum(-(-(height - y0) // dy) * (1 + (-(-(width - x0) // dx) * channels * depth + 7)
                                                 // 8)
                    for y0, x0, dy, dx in (_ADAM7 if interlace else ((0, 0, 1, 1),))
                    if height > y0 and width > x0)
-        if len(raw) <= need:
+        if len(raw) < need or len(raw) == need and not cut:
             raise ValueError(f"{name}: PNG image data: {e}") from None
     px = np.zeros((height, width, channels), np.int64)
     off = 0

@@ -28,7 +28,24 @@ opens:
   modulo 2^16 and shifted back (``jdpred.c``, ``jdlossls.c``). libjpeg-turbo
   converts no colour space in lossless mode: 3 components read as RGB
   unless a JFIF or Adobe marker says YCbCr, which it refuses.
-* samples: the "islow" IDCT (``jidctint.c``) with its range limit; fancy
+* corrupt data, as libjpeg-turbo reads it where Pillow gets an image: a
+  bit pattern that starts no Huffman code is 17 bits and symbol 0, a
+  coefficient past 63 lands on 63, and once an MCU has read past its
+  interval's data (zero bits) the rest of the interval stays as it was;
+  0xFF bytes before a 0x00 are one data byte, before a marker none; any
+  marker ends the entropy data (a restart marker only splits it where a
+  restart interval is set). The markers libjpeg stops at are refused
+  (reserved ones, a second SOI, bad DHT, DQT, DRI, DAC and SOS lengths or
+  indices, a DC table symbol past 15, a Huffman code that overflows, a
+  progressive scan whose Al is not Ah - 1), and a baseline image is whole
+  after its one scan of every component: the markers after it are read
+  only until the data runs out (no EOI needed), as Pillow's decoder stops
+  there. Not modelled: lossless and arithmetic-coded data that runs out
+  mid-row (libjpeg resets the undifferencer there), and the resync to a
+  restart marker out of sequence.
+* samples: the "islow" IDCT (``jidctint.c``) as libjpeg-turbo's x86-64
+  SIMD code computes it (16-bit lanes, which only corrupt data overflows)
+  with its range limit; fancy
   upsampling for 2:1 horizontal, 2:1 vertical and 2:2 ratios
   (``jdsample.c`` ``h2v1``/``h1v2``/``h2v2_fancy_upsample``), replication
   for other integral ratios (``int_upsample``), libjpeg's error
@@ -41,6 +58,7 @@ whole images; the entropy decoders are Python loops over the symbols.
 """
 from __future__ import annotations
 
+import re
 import struct
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -64,40 +82,68 @@ def _refuse(name: str, what: str) -> ValueError:
 
 # ------------------------------------------------------------------ Huffman
 
-def _huffman_table(counts: Sequence[int], symbols: Sequence[int]) -> List[int]:
+def _huffman_table(counts: Sequence[int], symbols: Sequence[int]) -> Tuple[List[int], bool]:
     """Canonical Huffman code → a 65536-entry lookup over the next 16 bits:
-    ``symbol | length << 8`` (0 where no code starts)."""
+    ``symbol | length << 8`` (0 where no code starts), and whether the code
+    overflows (a length's codes past its all-ones code: libjpeg's
+    ``jpeg_make_d_derived_tbl`` refuses the table when a scan uses it)."""
     lut = np.zeros(1 << 16, np.int64)
-    code, k = 0, 0
+    code, k, overflow = 0, 0, False
+    used = [n for n in range(1, 17) if counts[n - 1]]
     for length in range(1, 17):
         for _ in range(counts[length - 1]):
             lo = code << (16 - length)
             lut[lo: lo + (1 << (16 - length))] = symbols[k] | (length << 8)
             code += 1
             k += 1
+        overflow |= bool(used) and used[0] <= length <= used[-1] and code >= 1 << length
         code <<= 1
-    return lut.tolist()
+    return lut.tolist(), overflow
 
 
-def _unstuff(seg: bytes) -> List[int]:
-    """Entropy-coded bytes (0xFF00 → 0xFF), then each byte's 24-bit window
-    (it and the next two), zero-padded past the end as libjpeg pads."""
-    b = np.frombuffer(seg.replace(b"\xff\x00", b"\xff") + b"\x00" * 4, np.uint8).astype(np.int64)
-    return ((b[:-2] << 16) | (b[1:-1] << 8) | b[2:]).tolist()
+# zero windows past a segment's end, added once an MCU could read past its data: enough
+# for one MCU of 10 blocks read from zero bits (each coefficient at most a 17-bit code
+# and 15 bits)
+_PAD = [0] * (10 * 64 * 32 // 8)
+
+
+def _unstuff(seg: bytes) -> Tuple[List[int], int]:
+    """Entropy-coded bytes (0xFF 0x00, or several 0xFF then 0x00, → 0xFF, as
+    libjpeg reads them), then each byte's 24-bit window (it and the next
+    two), zero-padded past the end as libjpeg pads; and the number of bits
+    the segment holds."""
+    raw = re.sub(b"\xff+\x00", b"\xff", seg)
+    b = np.frombuffer(raw + b"\x00" * 4, np.uint8).astype(np.int64)
+    return ((b[:-2] << 16) | (b[1:-1] << 8) | b[2:]).tolist(), 8 * len(raw)
+
+
+def _room(win: List[int], p: int, end: int) -> bool:
+    """Whether an MCU may start at bit ``p``: not once bits past the data were
+    read (libjpeg's ``insufficient_data``); the zero windows are added where
+    this MCU could read past the data."""
+    if p > end:
+        return False
+    if p + 8 * len(_PAD) > end and len(win) < end // 8 + len(_PAD):
+        win.extend(_PAD)
+    return True
 
 
 class _Bits:
-    """A Huffman scan segment: symbols through a lookup table, raw bits."""
+    """A Huffman scan segment: symbols through a lookup table, raw bits. A
+    bit pattern that starts no code is libjpeg's bad code: 17 bits read,
+    symbol 0 (``jpeg_huff_decode``)."""
 
     def __init__(self, seg: bytes, name: str):
-        self.win, self.p, self.name = _unstuff(seg), 0, name
+        (self.win, self.end), self.p, self.name = _unstuff(seg), 0, name
+
+    def room(self) -> bool:
+        """:func:`_room` at the reader's bit."""
+        return _room(self.win, self.p, self.end)
 
     def symbol(self, lut: List[int]) -> int:
         p = self.p
         e = lut[(self.win[p >> 3] >> (8 - (p & 7))) & 0xFFFF]
-        if not e:
-            raise ValueError(f"{self.name}: corrupt JPEG data (bad Huffman code)")
-        self.p = p + (e >> 8)
+        self.p = p + (e >> 8 if e else 17)
         return e & 0xFF
 
     def bits(self, n: int) -> int:
@@ -112,74 +158,84 @@ class _Bits:
         return v - (1 << s) + 1 if s and v < (1 << (s - 1)) else v
 
 
-def _wrap16(v: int) -> int:
-    """``v`` as a JCOEF (int16) holds it."""
+def _wrap16(v):
+    """``v`` (an int or an int64 array) as a JCOEF or a 16-bit SIMD lane holds it."""
     return ((v + 0x8000) & 0xFFFF) - 0x8000
 
 
-def _huffman_sequential(seg, units, coefs, preds, name) -> None:
-    """One restart interval of a sequential scan: ``units`` lists (component,
-    block offset, DC table, AC table); coefficients land in zigzag order."""
-    win = _unstuff(seg)
+def _huffman_sequential(seg, mcus, coefs, preds, name) -> None:
+    """One restart interval of a sequential scan: ``mcus`` lists the MCUs,
+    each a list of (component, block offset, DC table, AC table);
+    coefficients land in zigzag order. As libjpeg's ``decode_mcu``: a bad
+    code reads 17 bits as symbol 0; once an MCU has read past the data, the
+    rest of the interval stays zero."""
+    win, end = _unstuff(seg)
     p = 0
-    for c, base, dc, ac in units:
-        w = (win[p >> 3] >> (8 - (p & 7))) & 0xFFFF
-        e = dc[w]
-        if not e:
-            raise ValueError(f"{name}: corrupt JPEG data (bad Huffman code)")
-        p += e >> 8
-        s = e & 0xFF
-        diff = 0
-        if s:
-            diff = ((win[p >> 3] >> (8 - (p & 7))) & 0xFFFF) >> (16 - s)
-            p += s
-            if diff < (1 << (s - 1)):
-                diff -= (1 << s) - 1
-        preds[c] += diff
-        out = coefs[c]
-        out[base] = _wrap16(preds[c])
-        k = 1
-        while k < 64:
+    for mcu in mcus:
+        if not _room(win, p, end):
+            break
+        for c, base, dc, ac in mcu:
             w = (win[p >> 3] >> (8 - (p & 7))) & 0xFFFF
-            e = ac[w]
-            if not e:
-                raise ValueError(f"{name}: corrupt JPEG data (bad Huffman code)")
-            p += e >> 8
-            rs = e & 0xFF
-            s = rs & 15
+            e = dc[w]
+            p += e >> 8 if e else 17
+            s = e & 0xFF
+            diff = 0
             if s:
-                k += rs >> 4
-                v = ((win[p >> 3] >> (8 - (p & 7))) & 0xFFFF) >> (16 - s)
+                diff = ((win[p >> 3] >> (8 - (p & 7))) & 0xFFFF) >> (16 - s)
                 p += s
-                if v < (1 << (s - 1)):
-                    v -= (1 << s) - 1
-                if k < 64:
-                    out[base + k] = v
-                k += 1
-            elif rs == 0xF0:
-                k += 16
-            else:
-                break
+                if diff < (1 << (s - 1)):
+                    diff -= (1 << s) - 1
+            preds[c] += diff
+            out = coefs[c]
+            out[base] = _wrap16(preds[c])
+            k = 1
+            while k < 64:
+                w = (win[p >> 3] >> (8 - (p & 7))) & 0xFFFF
+                e = ac[w]
+                p += e >> 8 if e else 17
+                rs = e & 0xFF
+                s = rs & 15
+                if s:
+                    k += rs >> 4
+                    v = ((win[p >> 3] >> (8 - (p & 7))) & 0xFFFF) >> (16 - s)
+                    p += s
+                    if v < (1 << (s - 1)):
+                        v -= (1 << s) - 1
+                    out[base + min(k, 63)] = v  # past 63: jpeg_natural_order's extra entries
+                    k += 1
+                elif rs == 0xF0:
+                    k += 16
+                else:
+                    break
 
 
-def _huffman_progressive(seg, units, coefs, ss, se, ah, al, name) -> None:
-    """One restart interval of a progressive Huffman scan (``jdphuff.c``)."""
+def _huffman_progressive(seg, mcus, coefs, ss, se, ah, al, name) -> None:
+    """One restart interval of a progressive Huffman scan (``jdphuff.c``);
+    once an MCU has read past the data, the rest of the interval is left as
+    it was (a DC refinement reads on, zeros that change nothing)."""
     bits = _Bits(seg, name)
     if ss == 0:  # DC scans: every block of the (possibly interleaved) MCU
         if ah == 0:
             preds: Dict[int, int] = {}
-            for c, base, dc, _ in units:
-                preds[c] = preds.get(c, 0) + bits.extend(bits.symbol(dc))
-                coefs[c][base] = _wrap16(preds[c] << al)
+            for mcu in mcus:
+                if not bits.room():
+                    break
+                for c, base, dc, _ in mcu:
+                    preds[c] = preds.get(c, 0) + bits.extend(bits.symbol(dc))
+                    coefs[c][base] = _wrap16(preds[c] << al)
         else:
             p1 = 1 << al
-            for c, base, _, _ in units:
+            for c, base, _, _ in (u for mcu in mcus for u in mcu):
+                if bits.p >= bits.end:
+                    break
                 if bits.bits(1):
                     coefs[c][base] |= p1
         return
     eobrun = 0
     p1, m1 = 1 << al, -1 << al
-    for c, base, _, ac in units:  # one block per MCU
+    for (c, base, _, ac), in mcus:  # one block per MCU
+        if not bits.room():
+            break
         out = coefs[c]
         if ah == 0:
             if eobrun:
@@ -445,13 +501,18 @@ def _arith_ac_refine(dec, st, fixed, out, base, ss, se, al) -> None:
 
 # ----------------------------------------------------------------- lossless
 
-def _lossless_scan(seg, units, diffs, name) -> None:
-    """One restart interval of a lossless Huffman scan: ``units`` lists
-    (component, flat sample index, table); differences land in ``diffs``."""
+def _lossless_scan(seg, mcus, diffs, name) -> None:
+    """One restart interval of a lossless Huffman scan: ``mcus`` lists the
+    MCUs, each a list of (component, flat sample index, table); differences
+    land in ``diffs``. Once an MCU has read past the data, the rest of the
+    interval stays zero."""
     bits = _Bits(seg, name)
-    for c, idx, tab in units:
-        s = bits.symbol(tab)
-        diffs[c][idx] = 32768 if s == 16 else bits.extend(s)
+    for mcu in mcus:
+        if not bits.room():
+            break
+        for c, idx, tab in mcu:
+            s = bits.symbol(tab)
+            diffs[c][idx] = 32768 if s == 16 else bits.extend(s)
 
 
 def _undifference(d: np.ndarray, psv: int, precision: int, rows_per_interval: int) -> np.ndarray:
@@ -503,17 +564,19 @@ _F = {"0_298631336": 2446, "0_390180644": 3196, "0_541196100": 4433, "0_76536686
 
 def _idct_1d(c: List[np.ndarray], shift: int) -> List[np.ndarray]:
     """One pass of ``jpeg_idct_islow`` over 8 int64 vectors (the inputs at
-    positions 0..7), descaled by ``shift`` bits with rounding."""
+    positions 0..7), descaled by ``shift`` bits with rounding. The sums the
+    x86-64 SIMD code forms in 16-bit lanes (in0 ± in4, in7 + in3, in5 + in1)
+    wrap as there; the rest is exact, as its products and sums in 32 bits."""
     z2, z3 = c[2], c[6]
     z1 = (z2 + z3) * _F["0_541196100"]
     tmp2 = z1 + z3 * -_F["1_847759065"]
     tmp3 = z1 + z2 * _F["0_765366865"]
-    tmp0 = (c[0] + c[4]) << 13
-    tmp1 = (c[0] - c[4]) << 13
+    tmp0 = _wrap16(c[0] + c[4]) << 13
+    tmp1 = _wrap16(c[0] - c[4]) << 13
     tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
     tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
     t0, t1, t2, t3 = c[7], c[5], c[3], c[1]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, _wrap16(t0 + t2), _wrap16(t1 + t3)
     z5 = (z3 + z4) * _F["1_175875602"]
     t0 = t0 * _F["0_298631336"]
     t1 = t1 * _F["2_053119869"]
@@ -533,32 +596,26 @@ def _idct_1d(c: List[np.ndarray], shift: int) -> List[np.ndarray]:
     return [(o + half) >> shift for o in out]
 
 
-def _range_limit() -> np.ndarray:
-    """libjpeg's post-IDCT table, indexed by (value & 1023) for a value
-    centred on 0: +128 and clamped for |value| < 512, wrapping beyond."""
-    idx = np.arange(1024)
-    table = np.zeros(1024, np.int64)
-    table[:128] = idx[:128] + 128
-    table[128:512] = 255
-    table[896:] = idx[896:] - 896
-    return table
-
-
-_RANGE = _range_limit()
-
-
 def idct_islow(coefs: np.ndarray, quant: np.ndarray) -> np.ndarray:
     """(N, 64) natural-order coefficients, (64,) quantization table →
-    (N, 8, 8) uint8 samples, as libjpeg-turbo's ``jpeg_idct_islow``."""
-    d = coefs.astype(np.int64) * quant.astype(np.int64)[None]
-    d = d.reshape(-1, 8, 8)
+    (N, 8, 8) uint8 samples, as libjpeg-turbo's ``jpeg_idct_islow`` on
+    x86-64 (``jidctint-avx2.asm``, which Pillow's libjpeg-turbo runs): equal
+    to ``jidctint.c`` wherever no 16-bit lane overflows, which only corrupt
+    data makes happen. Dequantized in 16 bits (a product wraps), a block
+    whose rows 1-7 are zero takes pass 1's shortcut (the row shifted in 16
+    bits), pass 1's outputs saturate to 16 bits, pass 2's to 0..255."""
+    c = coefs.astype(np.int64).reshape(-1, 8, 8)
+    d = _wrap16(c * quant.astype(np.int64).reshape(8, 8)[None])
     # Pass 1: columns (input row k of each column), descale to PASS1_BITS.
     cols = _idct_1d([d[:, k, :] for k in range(8)], 13 - 2)
-    ws = np.stack(cols, axis=1)  # (N, 8 rows, 8 cols)
+    ws = np.clip(np.stack(cols, axis=1), -0x8000, 0x7FFF)  # (N, 8 rows, 8 cols)
+    dc_only = ~c[:, 1:, :].any(axis=(1, 2))
+    if dc_only.any():
+        ws[dc_only] = _wrap16(d[dc_only, :1, :] << 2)
     # Pass 2: rows, descale by CONST_BITS + PASS1_BITS + 3.
     rows = _idct_1d([ws[:, :, k] for k in range(8)], 13 + 2 + 3)
     out = np.stack(rows, axis=2)
-    return _RANGE[out & 1023].astype(np.uint8)
+    return (np.clip(out, -128, 127) + 128).astype(np.uint8)
 
 
 # ---------------------------------------------------------- block smoothing
@@ -746,9 +803,12 @@ class _Frame:
         return -(-self.width * h // self.hmax), -(-self.height * v // self.vmax)
 
 
-def decode_jpeg(data: bytes, name: str = "<jpeg>") -> np.ndarray:
-    """Any JPEG Pillow decodes → its RGB uint8 pixels (module docstring)."""
-    return _assemble(*_parse(data, name), name)
+def decode_jpeg(data: bytes, name: str = "<jpeg>", cmyk_as_stored: bool = False) -> np.ndarray:
+    """Any JPEG Pillow decodes → its RGB uint8 pixels (module docstring).
+    ``cmyk_as_stored``: a 4-component image's samples taken as CMYK whatever
+    its Adobe transform says (Pillow's ``jpegmode`` ``CMYK``, which Pillow's
+    BLP plugin sets), so a YCCK one is not converted."""
+    return _assemble(*_parse(data, name), name, cmyk_as_stored)
 
 
 def decode_jpeg_components(data: bytes, name: str = "<jpeg>"):
@@ -792,63 +852,104 @@ def _parse(data: bytes, name: str, counts: Sequence[int] = (1, 3, 4)):
     ``counts``: the numbers of components read."""
     pos = 2
     quant: Dict[int, np.ndarray] = {}
-    dc_tabs: Dict[int, List[int]] = {}
-    ac_tabs: Dict[int, List[int]] = {}
-    dac_l, dac_u, dac_k = [0] * 4, [1] * 4, [5] * 4
+    dc_tabs: Dict[int, Tuple[List[int], bool, int]] = {}  # (lookup, overflow, largest symbol)
+    ac_tabs: Dict[int, Tuple[List[int], bool, int]] = {}
+    dac_l, dac_u, dac_k = [0] * 16, [1] * 16, [5] * 16
     frame: Optional[_Frame] = None
-    restart = 0
+    restart = scans = 0
     jfif = adobe = False
     adobe_transform = None
+    # after one scan of every component (not progressive) libjpeg has the image;
+    # it reads the markers after it only until the data runs out
+    single = False
     while True:
         while pos < len(data) and data[pos] != 0xFF:
             pos += 1
         while pos < len(data) and data[pos] == 0xFF:
             pos += 1
         if pos >= len(data):
+            if single:
+                break
             raise ValueError(f"{name}: JPEG ends before EOI")
         marker = data[pos]
         pos += 1
         if marker == 0xD9:
             break
-        if 0xD0 <= marker <= 0xD7 or marker == 0x01:
+        if marker == 0xD8:
+            raise ValueError(f"{name}: a second JPEG SOI marker")
+        if 0xD0 <= marker <= 0xD7 or marker in (0x00, 0x01):  # FF 00 outside a scan: junk
             continue
-        length = struct.unpack(">H", data[pos: pos + 2])[0]
-        body = data[pos + 2: pos + length]
-        pos += length
         if marker in _HIERARCHICAL:
             raise _refuse(name, "a hierarchical JPEG")
+        if marker < 0xC0 or marker in (0xC8, 0xDE, 0xDF) or 0xF0 <= marker <= 0xFD:
+            # DHP, EXP, JPG, JPGn, RESn: libjpeg's read_markers stops at them
+            raise ValueError(f"{name}: unsupported JPEG marker 0x{marker:02X}")
         if marker == 0xCB:
             raise _refuse(name, "a lossless arithmetic-coded JPEG")
+        if single and (marker == 0xDA or marker in _FRAMES):
+            raise ValueError(f"{name}: JPEG marker 0x{marker:02X} after the image's one scan")
+        if pos + 2 > len(data):
+            if single:
+                break
+            raise ValueError(f"{name}: JPEG ends inside marker 0x{marker:02X}")
+        length = struct.unpack_from(">H", data, pos)[0]
+        body = data[pos + 2: pos + length]
+        cut = pos + max(length, 2) > len(data)  # past the end: libjpeg checks what it reads
+        if cut and not single:
+            raise ValueError(f"{name}: JPEG marker 0x{marker:02X} runs past the end of the file")
+        pos += length
         if marker == 0xDB:
             i = 0
             while i < len(body):
                 pq, tq = body[i] >> 4, body[i] & 15
+                if tq >= 4:
+                    raise ValueError(f"{name}: bogus JPEG DQT index {tq}")
                 n = 128 if pq else 64
                 raw = np.frombuffer(body[i + 1: i + 1 + n], ">u2" if pq else np.uint8)
+                if raw.size < 64:
+                    if cut:
+                        break
+                    raise ValueError(f"{name}: bogus JPEG DQT marker length")
                 table = np.zeros(64, np.int64)
                 table[ZIGZAG] = raw
                 quant[tq] = table
                 i += 1 + n
-        elif marker == 0xC4:
-            i = 0
-            while i < len(body):
-                tc, th = body[i] >> 4, body[i] & 15
-                counts = list(body[i + 1: i + 17])
+        elif marker == 0xC4:  # libjpeg's get_dht, with its checks
+            i, left = 0, length - 2
+            while left - i > 16 and i + 17 <= len(body):
+                index, counts = body[i], list(body[i + 1: i + 17])
                 n = sum(counts)
-                table = _huffman_table(counts, list(body[i + 17: i + 17 + n]))
-                (ac_tabs if tc else dc_tabs)[th] = table
+                if n > 256 or n > left - i - 17:
+                    raise ValueError(f"{name}: bogus JPEG Huffman table definition")
+                tc, th = (1, index - 0x10) if index & 0x10 else (0, index)
+                if th >= 4:
+                    raise ValueError(f"{name}: bogus JPEG DHT index {index}")
+                symbols = list(body[i + 17: i + 17 + n])
+                (ac_tabs if tc else dc_tabs)[th] = (*_huffman_table(counts, symbols),
+                                                    max(symbols, default=0))
                 i += 17 + n
-        elif marker == 0xCC:
+            if i != left and not cut:
+                raise ValueError(f"{name}: bogus JPEG DHT marker length")
+        elif marker == 0xCC:  # get_dac: DC tables 0-15 (L <= U), AC tables 16-31
             for i in range(0, len(body) - 1, 2):
-                tc, tb, cs = body[i] >> 4, body[i] & 15, body[i + 1]
-                if tc:
-                    dac_k[tb] = cs
+                index, cs = body[i], body[i + 1]
+                if index >= 32 or index < 16 and cs & 15 > cs >> 4:
+                    raise ValueError(f"{name}: bogus JPEG DAC entry {index}, {cs}")
+                if index >= 16:
+                    dac_k[index - 16] = cs
                 else:
-                    dac_l[tb], dac_u[tb] = cs & 15, cs >> 4
+                    dac_l[index], dac_u[index] = cs & 15, cs >> 4
+            if length % 2 and not cut:
+                raise ValueError(f"{name}: bogus JPEG DAC marker length")
+        elif marker == 0xDD:
+            if length != 4:
+                raise ValueError(f"{name}: bogus JPEG DRI marker length")
+            if not cut:
+                restart = struct.unpack(">H", body[:2])[0]
+        elif single:  # APPn, COM, DNL after the one scan: skipped, changing nothing
+            pass
         elif marker in _FRAMES:
             frame = _Frame(marker, body, name, counts)
-        elif marker == 0xDD:
-            restart = struct.unpack(">H", body[:2])[0]
         elif marker == 0xE0 and body[:5] == b"JFIF\x00":
             jfif = True
         elif marker == 0xEE and body[:5] == b"Adobe":
@@ -858,25 +959,34 @@ def _parse(data: bytes, name: str, counts: Sequence[int] = (1, 3, 4)):
                 raise ValueError(f"{name}: JPEG scan before its frame header")
             pos = _scan(data, pos, body, frame, quant, dc_tabs, ac_tabs,
                         (dac_l, dac_u, dac_k), restart, name)
+            scans += 1
+            single = scans == 1 and not frame.progressive and body[0] == len(frame.comps)
+        if cut:
+            break
     if frame is None:
         raise ValueError(f"{name}: JPEG without a frame header")
     return frame, jfif, adobe, adobe_transform
 
 
-def _segments(data: bytes, pos: int, name: str) -> Tuple[List[bytes], int]:
+def _segments(data: bytes, pos: int, restart: int, name: str) -> Tuple[List[bytes], int]:
     """The entropy-coded data from ``pos`` split at its restart markers, and
-    the position of the marker that ends the scan."""
+    the position of the marker that ends the scan (without a restart
+    interval, a restart marker ends it too, as any marker ends libjpeg's
+    entropy data)."""
     segments, start = [], pos
     while True:
         nxt = data.find(b"\xff", pos)
+        run = nxt
+        while 0 <= nxt < len(data) - 1 and data[nxt + 1] == 0xFF:
+            nxt += 1
         if nxt < 0 or nxt + 1 >= len(data):
             raise ValueError(f"{name}: JPEG scan runs past the end of the file")
         m = data[nxt + 1]
-        if m == 0x00 or m == 0xFF:
-            pos = nxt + (2 if m == 0x00 else 1)
+        if m == 0x00:
+            pos = nxt + 2
             continue
-        segments.append(data[start:nxt])
-        if 0xD0 <= m <= 0xD7:
+        segments.append(data[start:run])  # the 0xFF bytes before a marker are not data
+        if restart and 0xD0 <= m <= 0xD7:
             start = pos = nxt + 2
             continue
         return segments, nxt
@@ -886,7 +996,9 @@ def _scan(data: bytes, pos: int, header: bytes, frame: _Frame, quant, dc_tabs, a
           restart: int, name: str) -> int:
     """Decode one scan whose entropy-coded data starts at ``pos``; returns
     the position of the marker that ends it."""
-    ns = header[0]
+    ns = header[0] if header else 0
+    if not 1 <= ns <= 4 or len(header) != 2 * ns + 4:  # libjpeg's get_sos
+        raise ValueError(f"{name}: bogus JPEG SOS marker length")
     ids = [c[0] for c in frame.comps]
     sel = []
     for k in range(ns):
@@ -905,17 +1017,22 @@ def _scan(data: bytes, pos: int, header: bytes, frame: _Frame, quant, dc_tabs, a
                 raise ValueError(f"{name}: JPEG component without its quantization table")
             frame.quant[ci] = quant[tq].copy()
     if frame.progressive:
-        if (ss == 0) != (se == 0) or se > 63 or ss > se or (ss and ns != 1) or al > 13:
+        if (ss == 0) != (se == 0) or se > 63 or ss > se or (ss and ns != 1) or al > 13 or (
+                ah and al != ah - 1):
             raise ValueError(f"{name}: bad progressive JPEG scan ({ss}, {se}, {ah}, {al})")
-    elif frame.coding != "lossless" and (ss, se, ah, al) != (0, 63, 0, 0):
-        raise ValueError(f"{name}: bad sequential JPEG scan ({ss}, {se}, {ah}, {al})")
-    segments, end = _segments(data, pos, name)
+    elif frame.coding != "lossless":  # libjpeg only warns where these are not 0, 63, 0, 0
+        ss, se, ah, al = 0, 63, 0, 0
+    segments, end = _segments(data, pos, restart, name)
     huffman = frame.coding in ("huffman", "lossless")
 
     def table(tabs, i):
+        """The lookup of table ``i``, checked as libjpeg derives it for a scan."""
         if i not in tabs:
             raise ValueError(f"{name}: JPEG scan uses an undefined Huffman table {i}")
-        return tabs[i]
+        lut, overflow, top = tabs[i]
+        if overflow or tabs is dc_tabs and top > (16 if frame.coding == "lossless" else 15):
+            raise ValueError(f"{name}: bad JPEG Huffman table {i}")
+        return lut
 
     units = _units(frame, sel, huffman, dc_tabs, ac_tabs, ss, ah, table)
     per = restart or len(units)
@@ -925,14 +1042,14 @@ def _scan(data: bytes, pos: int, header: bytes, frame: _Frame, quant, dc_tabs, a
             break
         flat = [u for mcu in chunk for u in mcu]
         if frame.coding == "lossless":
-            _lossless_scan(seg, flat, frame.diffs, name)
+            _lossless_scan(seg, chunk, frame.diffs, name)
         elif frame.coding == "arith":
             _arith_scan(seg, flat, frame.coefs, ss, se, ah, al, frame.progressive,
                         {t for _, t, _ in sel}, {t for _, _, t in sel}, *dac)
         elif frame.progressive:
-            _huffman_progressive(seg, flat, frame.coefs, ss, se, ah, al, name)
+            _huffman_progressive(seg, chunk, frame.coefs, ss, se, ah, al, name)
         else:
-            _huffman_sequential(seg, flat, frame.coefs, [0] * len(frame.comps), name)
+            _huffman_sequential(seg, chunk, frame.coefs, [0] * len(frame.comps), name)
     if frame.coding == "lossless":
         rows = (restart // frame.width) if restart and len(sel) else frame.height
         if restart and (restart % frame.width or not rows):
@@ -1034,11 +1151,14 @@ def _idct_planes(frame: _Frame, name: str) -> List[np.ndarray]:
     return planes
 
 
-def _assemble(frame: _Frame, jfif: bool, adobe: bool, adobe_transform, name: str) -> np.ndarray:
+def _assemble(frame: _Frame, jfif: bool, adobe: bool, adobe_transform, name: str,
+              cmyk_as_stored: bool = False) -> np.ndarray:
     width, height, comps = frame.width, frame.height, frame.comps
     n = len(comps)
     space = _colour_space(n, [c[0] for c in comps], jfif, adobe, adobe_transform,
                           frame.coding == "lossless")
+    if cmyk_as_stored and n == 4:
+        space = "cmyk"
     if frame.coding == "lossless":
         if any(s is None for s in frame.samples):
             raise ValueError(f"{name}: lossless JPEG with a component no scan carried")

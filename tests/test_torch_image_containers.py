@@ -724,9 +724,10 @@ def webp_fixtures():
 
 def container_fixture_bytes():
     """name → bytes of the committed container fixtures (each at most
-    64x48 but the photo-sized lossy WebP), the Netpbm, TGA, ICO/CUR/DIB,
-    QOI, SGI, PCX/DCX, Sun, XBM, XPM and PSD ones of
-    ``test_torch_image_rasters.py`` and ``test_torch_image_rasters2.py``
+    64x48 but the photo-sized lossy WebP and ICNS's 128x128 ``it32``), the
+    Netpbm, TGA, ICO/CUR/DIB, QOI, SGI, PCX/DCX, Sun, XBM, XPM, PSD, IM,
+    MSP, SPIDER, BLP and ICNS ones of ``test_torch_image_rasters.py``,
+    ``test_torch_image_rasters2.py`` and ``test_torch_image_rasters3.py``
     and the DDS ones of ``test_torch_image_dds.py`` too."""
     from test_torch_image_dds import dds_fixture_bytes
     from test_torch_image_rasters import raster_fixture_bytes
@@ -739,7 +740,8 @@ CONTAINERS = {".bmp": "BMP", ".gif": "GIF", ".tif": "TIFF", ".webp": "WEBP", ".p
               ".pgm": "PPM", ".ppm": "PPM", ".pfm": "PPM", ".tga": "TGA", ".ico": "ICO",
               ".cur": "CUR", ".dib": "DIB", ".qoi": "QOI", ".sgi": "SGI", ".pcx": "PCX",
               ".dcx": "DCX", ".ras": "SUN", ".xbm": "XBM", ".xpm": "XPM", ".psd": "PSD",
-              ".dds": "DDS"}
+              ".dds": "DDS", ".im": "IM", ".msp": "MSP", ".spi": "SPIDER", ".blp": "BLP",
+              ".icns": "ICNS"}
 FIXTURE_NAMES = sorted(p.name for p in FORMATS.iterdir() if p.suffix in CONTAINERS)
 
 
@@ -754,7 +756,7 @@ def test_container_fixture_equals_pil(name):
     assert I.decode_image(data, name)[0] == CONTAINERS[Path(name).suffix]
     np.testing.assert_array_equal(got, want)
     big = want.shape[0] * want.shape[1] > 64 * 48
-    assert not big or name == "webp_lossy_photo.webp", want.shape
+    assert not big or name in ("webp_lossy_photo.webp", "icns_it32.icns"), want.shape
 
 
 def test_fixtures_cover_each_kind():
@@ -1187,7 +1189,8 @@ def test_raw_image_store_equals_jax_over_every_container(tmp_path):
              "dib_rgb.dib", "qoi_rgba.qoi", "sgi_rgb16_rle.sgi", "pcx_4planes.pcx",
              "dcx_two_frames.dcx", "sun_rgb_rle.ras", "xbm_hotspot.xbm", "xpm_2cpp.xpm",
              "psd_rgb_packbits.psd", "tiff_jpeg_cmyk.tif", "tiff_jpeg_la.tif", "dds_dxt1.dds",
-             "dds_bc7.dds", "dds_r5g6b5.dds"]
+             "dds_bc7.dds", "dds_r5g6b5.dds", "im_ycbcr.im", "msp_v2_rle.msp",
+             "spider_big_endian.spi", "blp2_dxt5.blp", "blp1_jpeg.blp", "icns_it32.icns"]
     for n in names:
         (tmp_path / n).write_bytes((FORMATS / n).read_bytes())
     for mode, size in (("vit_timm", 32), ("vit_openai", 48)):
@@ -1202,14 +1205,16 @@ def test_raw_image_store_equals_jax_over_every_container(tmp_path):
 def test_decoders_import_no_pillow():
     """``data/bmp.py``, ``gif.py``, ``tiff.py``, ``webp.py``, ``ccitt.py``,
     ``zstd.py``, ``netpbm.py``, ``tga.py``, ``ico.py``, ``qoi.py``,
-    ``sgi.py``, ``pcx.py``, ``sun.py``, ``xbm.py``, ``xpm.py``, ``psd.py`` and
-    ``dds.py`` import numpy, the standard library's ``zlib``, ``lzma``, ``bisect``,
+    ``sgi.py``, ``pcx.py``, ``sun.py``, ``xbm.py``, ``xpm.py``, ``psd.py``,
+    ``dds.py``, ``im.py``, ``msp.py``, ``spider.py``, ``blp.py`` and ``icns.py``
+    import numpy, the standard library's ``zlib``, ``lzma``, ``bisect``,
     ``math``, ``io`` and ``re``, and the port only."""
     import ast
     import importlib
 
     for mod in ("bmp", "gif", "tiff", "webp", "ccitt", "zstd", "netpbm", "tga", "ico", "qoi",
-                "sgi", "pcx", "sun", "xbm", "xpm", "psd", "dds"):
+                "sgi", "pcx", "sun", "xbm", "xpm", "psd", "dds", "im", "msp", "spider", "blp",
+                "icns"):
         path = Path(importlib.import_module(f"mm_s2ut_torch.data.{mod}").__file__)
         tree = ast.parse(path.read_text())
         names = {a.name.split(".")[0] for n in ast.walk(tree)

@@ -711,9 +711,11 @@ def test_netpbm_kinds_left_to_port_raise_naming_the_magic(name, tmp_path):
 
 def raster_fixture_bytes():
     """name → bytes of the committed Netpbm, TGA, ICO/CUR/DIB, QOI and SGI
-    fixtures (each at most 64x48), and the PCX/DCX, Sun, XBM, XPM and PSD
-    ones of ``test_torch_image_rasters2.py``."""
+    fixtures (each at most 64x48), the PCX/DCX, Sun, XBM, XPM and PSD ones
+    of ``test_torch_image_rasters2.py`` and the IM, MSP, SPIDER, BLP and
+    ICNS ones of ``test_torch_image_rasters3.py``."""
     from test_torch_image_rasters2 import raster2_fixture_bytes
+    from test_torch_image_rasters3 import raster3_fixture_bytes
 
     img = Image.fromarray(scene(37, 45, seed=40))
     small = Image.fromarray(scene(19, 21, seed=41))
@@ -761,6 +763,7 @@ def raster_fixture_bytes():
         "sgi_rgba_rle.sgi": sgi_bytes(np.moveaxis(rgba, 2, 0), 1, True),
         "sgi_rgb16_rle.sgi": sgi_bytes(_sgi_planes(3, 20, 24, 2, 54), 2, True),
         **raster2_fixture_bytes(),
+        **raster3_fixture_bytes(),
     }
 
 
