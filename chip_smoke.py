@@ -297,6 +297,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -609,6 +610,14 @@ def timed(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def subphase(parts: dict, fn, *args):
+    """``fn(*args)``, its wall seconds kept in ``parts`` under its name."""
+    start = time.perf_counter()
+    out = fn(*args)
+    parts[fn.__name__] = round(time.perf_counter() - start, 1)
+    return out
 
 
 # ------------------------------------------------------------------ phases
@@ -2671,9 +2680,9 @@ def loaded_vit(name, gen, path=None):
     return vit.eval()
 
 
-FORMAT_FIXTURES = 185  # tests/torch_images/formats/: 17 JPEG and PNG, 65 BMP, GIF, TIFF, WebP,
+FORMAT_FIXTURES = 208  # tests/torch_images/formats/: 17 JPEG and PNG, 65 BMP, GIF, TIFF, WebP,
 # 27 Netpbm, TGA, ICO/CUR/DIB, QOI and SGI, 18 PCX/DCX, Sun, XBM, XPM and PSD, 24 DDS,
-# 34 IM, MSP, SPIDER, BLP and ICNS
+# 34 IM, MSP, SPIDER, BLP and ICNS, 23 FITS, FTEX, GBR, IMT, McIdas, PIXAR and XV thumbnails
 # the TIFF kinds data/tiff.py took on after the first containers (BigTIFF, LZMA, ZSTD,
 # CCITT RLE, Group 3 2D, Group 4, ThunderScan, Pillow's F and I modes, 16-bit CMYK,
 # an Orientation that swaps the sides, YCbCr in data units, old-style JPEG, JPEG-compressed
@@ -2690,10 +2699,11 @@ CONTAINERS = {".jpg": "JPEG", ".png": "PNG", ".bmp": "BMP", ".gif": "GIF", ".tif
               ".dib": "ICO/CUR/DIB", ".qoi": "QOI", ".sgi": "SGI", ".pcx": "PCX/DCX",
               ".dcx": "PCX/DCX", ".ras": "Sun", ".xbm": "XBM", ".xpm": "XPM", ".psd": "PSD",
               ".dds": "DDS", ".im": "IM", ".msp": "MSP", ".spi": "SPIDER", ".blp": "BLP",
-              ".icns": "ICNS"}
+              ".icns": "ICNS", ".fits": "FITS", ".ftc": "FTEX", ".ftu": "FTEX", ".gbr": "GBR",
+              ".imt": "IMT", ".area": "McIdas", ".pxr": "PIXAR", ".xvthumb": "XVThumb"}
 RASTER_FAMILIES = ["Netpbm", "TGA", "ICO/CUR/DIB", "QOI", "SGI", "PCX/DCX", "Sun", "XBM", "XPM",
-                   "PSD", "DDS", "IM", "MSP", "SPIDER", "BLP",
-                   "ICNS"]  # read by the raster and texture decoders
+                   "PSD", "DDS", "IM", "MSP", "SPIDER", "BLP", "ICNS", "FITS", "FTEX", "GBR",
+                   "IMT", "McIdas", "PIXAR", "XVThumb"]  # read by the raster and texture decoders
 # every DDS layout data/dds.py reads: Pillow's BCn and uncompressed writes, BC4-BC7, masks
 DDS_FIXTURES = [
     "dds_dxt1.dds", "dds_dxt3.dds", "dds_dxt5.dds", "dds_bc2.dds", "dds_bc3.dds", "dds_bc5.dds",
@@ -2708,9 +2718,8 @@ def format_fixtures():
     early and smoothed, arithmetic-coded, lossless, CMYK, YCCK, h1v2, 4:1:1
     JPEG; Adam7, 16-bit and 1/2/4-bit PNG; BMP, GIF, TIFF and WebP of every
     kind ``tests/test_torch_image_containers.py`` writes; the raster
-    families of ``tests/test_torch_image_rasters.py``,
-    ``tests/test_torch_image_rasters2.py`` and
-    ``tests/test_torch_image_rasters3.py``, the DDS textures of
+    families of ``tests/test_torch_image_rasters.py`` to
+    ``tests/test_torch_image_rasters4.py``, the DDS textures of
     ``tests/test_torch_image_dds.py``), decoded on the
     host without Pillow and held to the PIL pixels committed beside it:
     [(name, s)]."""
@@ -3044,7 +3053,8 @@ def image_entry_points(root: Path, vit_b, gen, images):
 
 
 # one fixture of each kind the BMP, GIF, TIFF and WebP readers decode, of each raster family,
-# every DDS fixture, and one of each of IM, MSP, SPIDER, BLP (DXT and JPEG) and ICNS
+# every DDS fixture, one of each of IM, MSP, SPIDER, BLP (DXT and JPEG) and ICNS, and one of
+# each of FITS, FTEX, GBR, IMT, McIdas, PIXAR and XV thumbnails
 CONTAINER_FEATURE_FIXTURES = [
     "bmp_rle8.bmp", "bmp32_bitfields_v5.bmp", "gif_offset_transparent.gif",
     "gif_interlaced.gif", "tiff_jpeg.tif", "tiff_tiles_lzw.tif", "tiff_planar2.tif",
@@ -3059,7 +3069,8 @@ CONTAINER_FEATURE_FIXTURES = [
     "sgi_rgb16_rle.sgi", "pcx_4planes.pcx", "dcx_two_frames.dcx", "sun_rgb_rle.ras",
     "xbm_hotspot.xbm", "xpm_2cpp.xpm", "psd_rgb_packbits.psd", *DDS_FIXTURES,
     "im_ycbcr.im", "msp_v2_rle.msp", "spider_big_endian.spi", "blp2_dxt5.blp", "blp1_jpeg.blp",
-    "icns_it32.icns"]
+    "icns_it32.icns", "fits_gzip_16.fits", "ftex_dxt1.ftc", "gbr_v2_rgba.gbr", "imt_gray.imt",
+    "mcidas_32.area", "pixar_rgb.pxr", "xvthumb_comments.xvthumb"]
 
 
 def container_features(root: Path, gen):
@@ -3111,7 +3122,7 @@ def container_features(root: Path, gen):
         f"(max|diff| {float(np.abs(got - want).max())})")
     print(f"phase 19g: extract_features ViT-B/16-384 bf16 over {len(CONTAINER_FEATURE_FIXTURES)} "
           f"BMP/GIF/TIFF/WebP/Netpbm/TGA/ICO/QOI/SGI/PCX/DCX/Sun/XBM/XPM/PSD/DDS/IM/MSP/SPIDER/"
-          f"BLP/ICNS fixtures "
+          f"BLP/ICNS/FITS/FTEX/GBR/IMT/McIdas/PIXAR/XVThumb fixtures "
           f"({', '.join(CONTAINER_FEATURE_FIXTURES)}; TIFF in LZMA, "
           f"ZSTD, CCITT RLE, Group 3, Group 4, ThunderScan, old-style JPEG, BigTIFF, YCbCr "
           f"among them): features "
@@ -3662,11 +3673,13 @@ def phase_w2v_train_kernels():
 def phase_train_speech_encoders(out_dir: Path, plain_step_ms: float):
     """Phase 20 (training the speech encoders and the enhanced path):
     20e's kernel cases first, then 20a-d. Returns 20a's ``train_launches``."""
-    phase_w2v_train_kernels()
-    train_launches = phase_xm_train()
-    phase_hubert_train()
-    phase_heads_train(plain_step_ms)
-    phase_train_card_vs_cpu(out_dir)
+    parts = {}
+    subphase(parts, phase_w2v_train_kernels)
+    train_launches = subphase(parts, phase_xm_train)
+    subphase(parts, phase_hubert_train)
+    subphase(parts, phase_heads_train, plain_step_ms)
+    subphase(parts, phase_train_card_vs_cpu, out_dir)
+    print(f"phase 20: wall seconds of its parts {json.dumps(parts)}")
     return train_launches
 
 
@@ -3938,24 +3951,14 @@ def check_events_against_csv(logdir: Path, rows) -> int:
     return len(got)
 
 
-def phase_dp_on_card(out_dir: Path):
-    """Phase 21c: ``cli.train`` under ``torch.distributed`` at world size 1
-    with NCCL (a process with torchrun's ``RANK``, ``WORLD_SIZE``,
-    ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``) against the same
-    command without them, on a small fp32 config with every dropout 0.1
-    (TF32 off), 3 steps: ``params.npz`` equal bit for bit, or within phase
-    20d's tolerances (losses 1e-5, the parameter change 2e-2 in L2); each
-    run's ``logs/`` events file equal to its ``metrics.csv``. The
-    machine has one card: world sizes above 1 run on the CPU (gloo) in
-    ``tests/test_torch_ddp.py``."""
-    import csv
-    import os
+def start_dp_on_card(out_dir: Path) -> dict:
+    """Phase 21c's first half: its corpus and config, and the NCCL run in a
+    process of its own (torchrun's ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR``/``MASTER_PORT`` set), which starts and trains while 21b
+    runs. Returns what ``phase_dp_on_card`` reads."""
     import socket
 
-    import numpy as np
-
     from mm_s2ut_torch.config import Config, DataConfig, TrainConfig, save_yaml
-    from mm_s2ut_torch.convert import flatten, load_npz
 
     root = out_dir / "dp"
     small_corpus(root, 8, seed=29)
@@ -3970,21 +3973,55 @@ def phase_dp_on_card(out_dir: Path):
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    code = ("import sys, torch; torch.backends.cuda.matmul.allow_tf32 = False; "
+    code = ("import sys, time; t0 = time.perf_counter(); import torch; "
+            "torch.backends.cuda.matmul.allow_tf32 = False; "
             "torch.backends.cudnn.allow_tf32 = False; from mm_s2ut_torch.cli import train; "
-            "sys.exit(train.main(sys.argv[1:]))")
+            "rc = train.main(sys.argv[1:]); print(time.perf_counter() - t0); sys.exit(rc)")
+    env = dict(os.environ, RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+               MASTER_PORT=str(port))
+    proc = subprocess.Popen([sys.executable, "-c", code, "--config", str(root / "run.yaml"),
+                             f"train.save_dir={root / 'ckpt_dp'}"], cwd=HERE, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return {"root": root, "proc": proc}
+
+
+def phase_dp_on_card(dp: dict):
+    """Phase 21c: ``cli.train`` under ``torch.distributed`` at world size 1
+    with NCCL (``start_dp_on_card``'s process) against the same command
+    without torchrun's variables, run in this process, on a small fp32
+    config with every dropout 0.1 (TF32 off), 3 steps: ``params.npz``
+    equal bit for bit, or within phase 20d's tolerances (losses 1e-5, the
+    parameter change 2e-2 in L2); each run's ``logs/`` events file equal
+    to its ``metrics.csv``. The machine has one card: world sizes above 1
+    run on the CPU (gloo) in ``tests/test_torch_ddp.py``."""
+    import csv
+
+    import numpy as np
+
+    from mm_s2ut_torch.cli import train
+    from mm_s2ut_torch.convert import flatten, load_npz
+
+    root, proc = dp["root"], dp["proc"]
+    unset = {k: os.environ.pop(k) for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR",
+                                            "MASTER_PORT") if k in os.environ}
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        rc, plain_s = timed(lambda: train.main(["--config", str(root / "run.yaml"),
+                                                f"train.save_dir={root / 'ckpt'}"]))
+        t0 = time.perf_counter()
+        out, err = proc.communicate(timeout=300)
+        wait_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        os.environ.update(unset)
+    assert rc == 0, rc
+    assert proc.returncode == 0, err[-3000:]
     runs = {}
-    for label, extra in (("plain", {}), ("torch.distributed, NCCL, world 1", dict(
-            RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
-            MASTER_PORT=str(port)))):
-        save = root / ("ckpt_dp" if extra else "ckpt")
-        env = {k: v for k, v in os.environ.items()
-               if k not in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
-        (proc, secs) = timed(lambda: subprocess.run(
-            [sys.executable, "-c", code, "--config", str(root / "run.yaml"),
-             f"train.save_dir={save}"], cwd=HERE, env=dict(env, **extra), capture_output=True,
-            text=True, timeout=300))
-        assert proc.returncode == 0, proc.stderr[-3000:]
+    for label, save, secs in (("plain, in process", root / "ckpt", plain_s),
+                              ("torch.distributed, NCCL, world 1", root / "ckpt_dp",
+                               float(out.split()[-1]))):
         with open(save / "logs" / "metrics.csv", newline="") as f:
             rows = list(csv.DictReader(f))
         n_events = check_events_against_csv(save / "logs", rows)
@@ -3995,8 +4032,10 @@ def phase_dp_on_card(out_dir: Path):
               if a.get("train/loss")]
     rel = max(abs(a - b) / abs(a) for a, b in losses)
     diff = max(float(np.abs(p0[k] - p1[k]).max()) for k in p0)
-    print(f"phase 21c: cli.train, small fp32 config, dropouts 0.1, 3 steps: plain {s0:.2f} s, "
-          f"under torch.distributed (NCCL, world size 1) {s1:.2f} s; params.npz "
+    print(f"phase 21c: cli.train, small fp32 config, dropouts 0.1, 3 steps: plain in this "
+          f"process {s0:.2f} s; under torch.distributed (NCCL, world size 1) in a process of "
+          f"its own, started before 21b, {s1:.2f} s from its imports, {wait_s:.2f} s waited for "
+          f"after the plain run; params.npz "
           f"{'bit for bit equal' if bitwise else f'max abs diff {diff:.3e}'}, train losses max "
           f"relative diff {rel:.1e} (tol 1e-5); world sizes above 1 are tested on the CPU with "
           f"gloo (tests/test_torch_ddp.py); logs/ of each run holds a TensorBoard events file, "
@@ -4213,14 +4252,22 @@ def phase_eval_inference(out_dir: Path):
 
 def phase_train_through_images(out_dir: Path):
     """Phase 21: 21a's full-width train step with the extractor in the
-    graph, 21b card against CPU, 21c data parallelism on the card, 21d
-    ``train.eval_inference`` with eval.asr and eval.bleu. Returns 21a's
-    launches per ViT-B step."""
+    graph, 21b card against CPU, 21c data parallelism on the card (its
+    NCCL process started before 21b), 21d ``train.eval_inference`` with
+    eval.asr and eval.bleu. Returns 21a's launches per ViT-B step."""
     images = fixture_images()
-    launches = phase_vit_train(images)
-    phase_vit_train_card_vs_cpu(images)
-    phase_dp_on_card(out_dir)
-    phase_eval_inference(out_dir)
+    parts = {}
+    launches = subphase(parts, phase_vit_train, images)
+    dp = subphase(parts, start_dp_on_card, out_dir)
+    try:  # 21c's NCCL process trains while 21b runs
+        subphase(parts, phase_vit_train_card_vs_cpu, images)
+        subphase(parts, phase_dp_on_card, dp)
+    finally:
+        if dp["proc"].poll() is None:
+            dp["proc"].kill()
+            dp["proc"].wait()
+    subphase(parts, phase_eval_inference, out_dir)
+    print(f"phase 21: wall seconds of its parts {json.dumps(parts)}")
     return launches
 
 
@@ -4395,6 +4442,9 @@ def flagship_model(seed: int):
 
 # ``tests/test_torch_joblib.py`` writes it: the reference's k-means format at HuBERT's width
 KMEANS_FIXTURE = HERE / "tests" / "torch_kmeans" / "km100.bin"
+# 22a's CPU quantize: the card's first batch of 8 utterances, padded alike: the GroupNorm
+# after conv0 normalizes over the padded frames too
+CPU_QUANTIZE_UTTS = 8
 
 
 def phase_prep_data(root: Path):
@@ -4403,7 +4453,8 @@ def phase_prep_data(root: Path):
     extension, merged; a random HuBERT-base (12 x 768, 12 heads) written as
     an HF directory; 1000 centroids from ``kmeans_plusplus_init`` + 5 Lloyd
     steps on the card over its layer-11 features; ``quantize`` on the card
-    and on the CPU (units equal but at near-ties, each checked); with the
+    and, over the first ``CPU_QUANTIZE_UTTS`` utterances, on the CPU (units
+    equal but at near-ties, each checked); with the
     committed joblib k-means (``KMEANS_FIXTURE``) and its ``.npy`` twin
     (units equal); the same
     encoder as a fairseq HuBERT through ``convert_checkpoint --kind hubert``
@@ -4464,12 +4515,15 @@ def phase_prep_data(root: Path):
     _, card_s, launches = counted({"A": A.flash_attention}, lambda: prep_data.main(
         quantize + ["--hubert-model", str(root / "hubert"), "--dest", str(root / "units_card.txt")]))
     assert launches["A"] == 2 * 12, launches  # 12 layers, two batches
+    head = (root / "src.tsv").read_text().splitlines()[: 1 + CPU_QUANTIZE_UTTS]
+    (root / "src_head.tsv").write_text("\n".join(head) + "\n")
     _, cpu_s = timed(lambda: prep_data.main(
-        quantize + ["--hubert-model", str(root / "hubert"), "--dest", str(root / "units_cpu.txt"),
-                    "--device", "cpu"]))
+        quantize[:2] + [str(root / "src_head.tsv")] + quantize[3:]
+        + ["--hubert-model", str(root / "hubert"), "--dest", str(root / "units_cpu.txt"),
+           "--device", "cpu"]))
     card = (root / "units_card.txt").read_text().splitlines()
     cpu = (root / "units_cpu.txt").read_text().splitlines()
-    assert len(card) == len(cpu) == 16
+    assert len(card) == 16 and len(cpu) == CPU_QUANTIZE_UTTS
     differ = ties = frames = 0
     for i, (a, b) in enumerate(zip(card, cpu)):
         a, b = np.array(a.split(), int), np.array(b.split(), int)
@@ -4478,8 +4532,9 @@ def phase_prep_data(root: Path):
         rows_differ = torch.from_numpy(a != b).cuda()
         differ += int(rows_differ.sum())
         ties += int((near_ties(feats[i], centroids) & rows_differ).sum())
-    print(f"phase 22a: prep_data quantize (HF dir) on the card {card_s:.2f} s and the CPU "
-          f"{cpu_s:.2f} s: {frames} frames, {differ} differ, {ties} of them near-ties "
+    print(f"phase 22a: prep_data quantize (HF dir) on the card {card_s:.2f} s (16 utterances) "
+          f"and the CPU {cpu_s:.2f} s (the first {CPU_QUANTIZE_UTTS}): {frames} frames held, "
+          f"{differ} differ, {ties} of them near-ties "
           f"(the two nearest centroids within 1e-5 relative); A launched {launches['A']} times")
     assert differ == ties, (differ, ties)
 
@@ -4936,14 +4991,16 @@ def phase_tools(out_dir: Path):
     B-E (the full-width ensemble's decodes)."""
     root = out_dir / "tools"
     t0 = time.perf_counter()
-    a_quantize = phase_prep_data(root / "prep")
-    phase_convert_flagship(root / "convert")
-    launches = phase_ensemble(root / "ensemble")
+    parts = {}
+    a_quantize = subphase(parts, phase_prep_data, root / "prep")
+    subphase(parts, phase_convert_flagship, root / "convert")
+    launches = subphase(parts, phase_ensemble, root / "ensemble")
     launches["A"] += a_quantize
-    vocoder_files = phase_vocode(root / "vocode")
-    phase_inference_all(root / "eval", *vocoder_files)
-    phase_native_loader(root / "native")
-    print(f"phase 22: {time.perf_counter() - t0:.1f} s; launches {launches}")
+    vocoder_files = subphase(parts, phase_vocode, root / "vocode")
+    subphase(parts, phase_inference_all, root / "eval", *vocoder_files)
+    subphase(parts, phase_native_loader, root / "native")
+    print(f"phase 22: {time.perf_counter() - t0:.1f} s (its parts {json.dumps(parts)}); "
+          f"launches {launches}")
     return launches
 
 

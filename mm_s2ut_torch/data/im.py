@@ -178,7 +178,7 @@ def decode_im(data: bytes, name: str = "<im>") -> np.ndarray:
         if mode != "F" or not 1 <= int(bits) < 32:
             raise ValueError(f"{name}: IM mode {mode} of {bits}-bit samples, which Pillow's bit "
                              f"decoder does not read")
-        return _rgb(mode, _bit_rows(data, pos, width, height, int(bits), name), None)
+        return mode_to_rgb(mode, _bit_rows(data, pos, width, height, int(bits), name), None)
     if mode == "LAB" and rawmode == "L":
         raise ValueError(f"{name}: IM mode LAB, which Pillow converts to RGB through LittleCMS "
                          f"and the port does not read yet")
@@ -189,7 +189,7 @@ def decode_im(data: bytes, name: str = "<im>") -> np.ndarray:
     if (mode, rawmode) not in PAIRS:
         raise ValueError(f"{name}: IM mode {mode!r} with raw mode {rawmode!r}, which Pillow "
                          f"has no unpacker for")
-    return _rgb(mode, _raw(data, pos, rawmode, width, height, name), palette)
+    return mode_to_rgb(mode, _raw(data, pos, rawmode, width, height, name), palette)
 
 
 def _raw(data: bytes, pos: int, rawmode: str, width: int, height: int, name: str) -> np.ndarray:
@@ -227,7 +227,7 @@ def _bit_rows(data: bytes, pos: int, width: int, height: int, bits: int,
     return v[::-1, :, None].astype(np.float64)
 
 
-def _rgb(mode: str, px: np.ndarray, palette) -> np.ndarray:
+def mode_to_rgb(mode: str, px: np.ndarray, palette=None) -> np.ndarray:
     """Pillow's ``convert("RGB")`` of (H, W, bands) samples of ``mode``."""
     if mode in ("P", "PA"):
         if palette is None:  # a P image without a palette is black

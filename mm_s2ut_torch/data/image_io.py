@@ -6,16 +6,17 @@ What the JAX package asks of PIL (``mm_s2ut/models/vit.py:141-194``,
 * :func:`read_image` — a file → ``(H, W, 3)`` uint8, equal to
   ``np.asarray(Image.open(path).convert("RGB"))`` for every PNG, JPEG,
   BMP, DIB, GIF, TIFF, WebP, Netpbm, TGA, ICO, CUR, QOI, SGI, PCX, DCX,
-  DDS, Sun raster, XBM, XPM, PSD, IM, MSP, SPIDER, BLP and ICNS file
-  Pillow opens, and ``ValueError`` naming the file for those it refuses.
+  DDS, Sun raster, XBM, XPM, PSD, IM, MSP, SPIDER, BLP, ICNS, FITS, FTEX,
+  GBR, IMT, McIdas, PIXAR and XV thumbnail file Pillow opens, and
+  ``ValueError`` naming the file for those it refuses.
   :func:`decode_image` picks the container as ``Image.open`` does:
   Pillow's plugins in its order (the six it loads first, then the rest as
   ``Image.ID`` lists them), each behind its test of the first 16 bytes,
-  IM, SPIDER and TGA (which have none) in their places, and a file whose
-  header a plugin's open rejects passed on to the next (an RGB TGA starts
-  with CUR's magic; a Sun raster 1 pixel wide may pass Pillow's
-  GIMP-brush test, and that plugin, which the port does not read, takes
-  it). It reads ``.npy`` pixels ((H, W, 3) or (H, W) uint8);
+  IM, IMT, SPIDER and TGA (which have none) in their places, and a file
+  whose header a plugin's open rejects passed on to the next (an RGB TGA
+  starts with CUR's magic; a Sun raster 1 pixel wide may pass Pillow's
+  GIMP-brush test, and that plugin takes it, then fails to load it). It
+  reads ``.npy`` pixels ((H, W, 3) or (H, W) uint8);
   PNG in every colour type and bit depth, Adam7-interlaced or not (gray
   of 1/2/4 bits scaled as Pillow's ``1``/``L;2``/``L;4``, 16-bit gray
   clamped to 255 as Pillow's ``I;16`` converts, the other 16-bit types'
@@ -35,8 +36,11 @@ What the JAX package asks of PIL (``mm_s2ut/models/vit.py:141-194``,
   ``data/sun.py``, XBM through ``data/xbm.py``, XPM through
   ``data/xpm.py``, PSD through ``data/psd.py``, IM through ``data/im.py``,
   MSP through ``data/msp.py``, SPIDER through ``data/spider.py``, BLP
-  through ``data/blp.py`` and ICNS through ``data/icns.py``; each module's
-  docstring says what it reads.
+  through ``data/blp.py``, ICNS through ``data/icns.py``, FITS through
+  ``data/fits.py``, FTEX through ``data/ftex.py``, GBR through
+  ``data/gbr.py``, IMT through ``data/imt.py``, McIdas through
+  ``data/mcidas.py``, PIXAR through ``data/pixar.py`` and XV thumbnails
+  through ``data/xvthumb.py``; each module's docstring says what it reads.
 * :func:`resize` — Pillow's ``Image.resize`` for ``BICUBIC`` and
   ``BILINEAR`` on 8-bit images (``Resample.c``): a separable filter
   whose support widens with the downscale factor, coefficients
@@ -61,14 +65,20 @@ from mm_s2ut_torch.data import Unidentified
 from mm_s2ut_torch.data.blp import decode_blp
 from mm_s2ut_torch.data.bmp import decode_bmp, decode_dib
 from mm_s2ut_torch.data.dds import decode_dds
+from mm_s2ut_torch.data.fits import decode_fits
+from mm_s2ut_torch.data.ftex import decode_ftex
+from mm_s2ut_torch.data.gbr import decode_gbr
 from mm_s2ut_torch.data.gif import decode_gif
 from mm_s2ut_torch.data.icns import decode_icns
 from mm_s2ut_torch.data.ico import decode_cur, decode_ico
 from mm_s2ut_torch.data.im import decode_im
+from mm_s2ut_torch.data.imt import decode_imt
 from mm_s2ut_torch.data.jpeg import decode_jpeg
+from mm_s2ut_torch.data.mcidas import decode_mcidas
 from mm_s2ut_torch.data.msp import decode_msp
 from mm_s2ut_torch.data.netpbm import decode_netpbm
 from mm_s2ut_torch.data.pcx import decode_dcx, decode_pcx
+from mm_s2ut_torch.data.pixar import decode_pixar
 from mm_s2ut_torch.data.psd import decode_psd
 from mm_s2ut_torch.data.qoi import decode_qoi
 from mm_s2ut_torch.data.sgi import decode_sgi
@@ -79,13 +89,15 @@ from mm_s2ut_torch.data.tiff import decode_tiff
 from mm_s2ut_torch.data.webp import decode_webp
 from mm_s2ut_torch.data.xbm import decode_xbm
 from mm_s2ut_torch.data.xpm import decode_xpm
+from mm_s2ut_torch.data.xvthumb import decode_xvthumb
 
 
 def read_image(path: str | Path) -> np.ndarray:
     """``(H, W, 3)`` uint8 RGB pixels of a ``.npy`` file (by its first bytes
     or its suffix) or of any container :func:`decode_image` reads: PNG,
     JPEG, BMP, DIB, GIF, TIFF, WebP, Netpbm, TGA, ICO, CUR, QOI, SGI, PCX,
-    DCX, DDS, Sun raster, XBM, XPM, PSD, IM, MSP, SPIDER, BLP, ICNS."""
+    DCX, DDS, Sun raster, XBM, XPM, PSD, IM, MSP, SPIDER, BLP, ICNS, FITS,
+    FTEX, GBR, IMT, McIdas, PIXAR, XV thumbnail."""
     path = Path(path)
     data = path.read_bytes()
     name = str(path)
@@ -98,24 +110,10 @@ def read_image(path: str | Path) -> np.ndarray:
     return decode_image(data, name)[1]
 
 
-def _gbr(data: bytes, name: str) -> np.ndarray:
-    """What Pillow's ``GbrImagePlugin`` passes on, and a refusal of the GIMP
-    brushes it opens, which the port does not read (a Sun raster 1 pixel
-    wide whose length field is 1 or 4 is one: Pillow cannot load it)."""
-    if len(data) < 20:
-        raise Unidentified(f"{name}: not a GIMP brush")
-    size, version, width, height, depth = struct.unpack_from(">5I", data)
-    if width == 0 or height == 0 or depth not in (1, 4):
-        raise Unidentified(f"{name}: not a GIMP brush")
-    if version == 2 and (data[20:24] != b"GIMP" or len(data) < 28):
-        raise Unidentified(f"{name}: not a GIMP brush")
-    raise ValueError(f"{name}: a GIMP brush (GBR, header of {size} bytes), which the port does "
-                     f"not read")
-
-
-# Pillow's plugins in the order Image.open tries them, each with its test of the
-# first 16 bytes (IM, SPIDER and TGA have none); a decoder raising Unidentified passes
-# the file on to the next, as Pillow does where a plugin's open raises SyntaxError
+# Pillow's plugins in the order Image.open tries them (by their Image.ID keys), each
+# with its test of the first 16 bytes (IM, IMT, SPIDER and TGA have none); a decoder
+# raising Unidentified passes the file on to the next, as Pillow does where a plugin's
+# open raises SyntaxError
 _DIB_HEADERS = (12, 40, 52, 56, 64, 108, 124)
 _CONTAINERS = (
     ("BMP", lambda d: d[:2] == b"BM", decode_bmp),
@@ -131,13 +129,18 @@ _CONTAINERS = (
     ("PCX", lambda d: d[:1] == b"\n" and d[1:2] != b"" and d[1:2] in b"\0\2\3\5", decode_pcx),
     ("DCX", lambda d: d[:4] == b"\xb1\x68\xde\x3a", decode_dcx),
     ("DDS", lambda d: d[:4] == b"DDS ", decode_dds),
+    ("FITS", lambda d: d[:6] == b"SIMPLE", decode_fits),
+    ("FTEX", lambda d: d[:4] == b"FTEX", decode_ftex),
     ("GBR", lambda d: len(d) >= 8 and struct.unpack_from(">I", d)[0] >= 20
-     and struct.unpack_from(">I", d, 4)[0] in (1, 2), _gbr),
+     and struct.unpack_from(">I", d, 4)[0] in (1, 2), decode_gbr),
     ("ICNS", lambda d: d[:4] == b"icns", decode_icns),
     ("ICO", lambda d: d[:4] == b"\0\0\1\0", decode_ico),
     ("IM", lambda d: True, decode_im),
+    ("IMT", lambda d: True, decode_imt),
+    ("MCIDAS", lambda d: d[:8] == b"\0\0\0\0\0\0\0\4", decode_mcidas),
     ("TIFF", lambda d: d[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"), decode_tiff),
     ("MSP", lambda d: d[:4] in (b"DanM", b"LinS"), decode_msp),
+    ("PIXAR", lambda d: d[:4] == b"\x80\xe8\0\0", decode_pixar),
     ("PSD", lambda d: d[:4] == b"8BPS", decode_psd),
     ("QOI", lambda d: d[:4] == b"qoif", decode_qoi),
     ("SGI", lambda d: d[:2] == b"\x01\xda", decode_sgi),
@@ -147,7 +150,9 @@ _CONTAINERS = (
     ("WEBP", lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP", decode_webp),
     ("XBM", lambda d: d[:16].lstrip().startswith(b"#define"), decode_xbm),
     ("XPM", lambda d: d[:9] == b"/* XPM */", decode_xpm),
+    ("XVTHUMB", lambda d: d[:6] == b"P7 332", decode_xvthumb),
 )
+_FORMATS = {"XVTHUMB": "XVThumb"}  # Pillow's format where it is not its Image.ID key
 
 
 def decode_image(data: bytes, name: str = "<image>") -> Tuple[str, np.ndarray]:
@@ -157,12 +162,13 @@ def decode_image(data: bytes, name: str = "<image>") -> Tuple[str, np.ndarray]:
     for fmt, accepts, decode in _CONTAINERS:
         if accepts(data):
             try:
-                return fmt, decode(data, name)
+                return _FORMATS.get(fmt, fmt), decode(data, name)
             except Unidentified:
                 continue
     raise ValueError(f"{name}: not an image the port reads (PNG, JPEG, BMP, DIB, GIF, TIFF, "
                      f"WebP, Netpbm, TGA, ICO, CUR, QOI, SGI, PCX, DCX, DDS, Sun raster, XBM, "
-                     f"XPM, PSD, IM, MSP, SPIDER, BLP, ICNS or .npy)")
+                     f"XPM, PSD, IM, MSP, SPIDER, BLP, ICNS, FITS, FTEX, GBR, IMT, McIdas, "
+                     f"PIXAR, XV thumbnail or .npy)")
 
 
 def _rgb(arr: np.ndarray) -> np.ndarray:

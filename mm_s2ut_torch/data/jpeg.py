@@ -31,18 +31,27 @@ opens:
 * corrupt data, as libjpeg-turbo reads it where Pillow gets an image: a
   bit pattern that starts no Huffman code is 17 bits and symbol 0, a
   coefficient past 63 lands on 63, and once an MCU has read past its
-  interval's data (zero bits) the rest of the interval stays as it was;
-  0xFF bytes before a 0x00 are one data byte, before a marker none; any
-  marker ends the entropy data (a restart marker only splits it where a
-  restart interval is set). The markers libjpeg stops at are refused
+  interval's data (zero bits) the rest of the interval stays as it was; a
+  lossless scan reads the rest of that row of MCUs from zero bits, and
+  each later row of the interval is zero differences from a reset
+  undifferencer (``jdlhuff.c``). An arithmetic-coded magnitude or AC index
+  past its bound (``JWRN_ARITH_BAD_CODE``) stops the interval there: its
+  later MCUs keep their coefficients; data that runs into a marker is zero
+  bytes to the QM decoder. 0xFF bytes before a 0x00 are one data byte,
+  before a marker none; any marker ends a segment of entropy data. Where
+  a restart is due, the marker after the segment is taken as
+  ``jpeg_resync_to_restart`` takes it: the expected RSTn, one far from it,
+  is read and the next segment decoded; a marker below SOF0 or one of the
+  two restarts before the expected one is skipped with the data after it;
+  any other marker, or one of the next two restarts, is left unread, so
+  the interval decodes no data (zero bits: a Huffman interval whose data
+  had run out stays as it was). The markers libjpeg stops at are refused
   (reserved ones, a second SOI, bad DHT, DQT, DRI, DAC and SOS lengths or
   indices, a DC table symbol past 15, a Huffman code that overflows, a
   progressive scan whose Al is not Ah - 1), and a baseline image is whole
   after its one scan of every component: the markers after it are read
   only until the data runs out (no EOI needed), as Pillow's decoder stops
-  there. Not modelled: lossless and arithmetic-coded data that runs out
-  mid-row (libjpeg resets the undifferencer there), and the resync to a
-  restart marker out of sequence.
+  there.
 * samples: the "islow" IDCT (``jidctint.c``) as libjpeg-turbo's x86-64
   SIMD code computes it (16-bit lanes, which only corrupt data overflows)
   with its range limit; fancy
@@ -133,8 +142,9 @@ class _Bits:
     bit pattern that starts no code is libjpeg's bad code: 17 bits read,
     symbol 0 (``jpeg_huff_decode``)."""
 
-    def __init__(self, seg: bytes, name: str):
+    def __init__(self, seg: bytes, name: str, pad: int = 0):
         (self.win, self.end), self.p, self.name = _unstuff(seg), 0, name
+        self.win.extend([0] * pad)  # zero windows for reads past the data
 
     def room(self) -> bool:
         """:func:`_room` at the reader's bit."""
@@ -163,17 +173,22 @@ def _wrap16(v):
     return ((v + 0x8000) & 0xFFFF) - 0x8000
 
 
-def _huffman_sequential(seg, mcus, coefs, preds, name) -> None:
+def _huffman_sequential(seg, mcus, coefs, ncomp, short) -> bool:
     """One restart interval of a sequential scan: ``mcus`` lists the MCUs,
     each a list of (component, block offset, DC table, AC table);
     coefficients land in zigzag order. As libjpeg's ``decode_mcu``: a bad
-    code reads 17 bits as symbol 0; once an MCU has read past the data, the
-    rest of the interval stays zero."""
+    code reads 17 bits as symbol 0; once an MCU has read past the data
+    (``short``: before the interval, where its restart marker was left
+    unread), the rest of the interval stays zero. Returns whether it read
+    past the data (libjpeg's ``insufficient_data``)."""
+    if short:
+        return True
     win, end = _unstuff(seg)
     p = 0
+    preds = [0] * ncomp
     for mcu in mcus:
         if not _room(win, p, end):
-            break
+            return True
         for c, base, dc, ac in mcu:
             w = (win[p >> 3] >> (8 - (p & 7))) & 0xFFFF
             e = dc[w]
@@ -207,35 +222,42 @@ def _huffman_sequential(seg, mcus, coefs, preds, name) -> None:
                     k += 16
                 else:
                     break
+    return p > end
 
 
-def _huffman_progressive(seg, mcus, coefs, ss, se, ah, al, name) -> None:
+def _huffman_progressive(seg, mcus, coefs, ss, se, ah, al, short,
+                         name) -> Tuple[bool, int]:
     """One restart interval of a progressive Huffman scan (``jdphuff.c``);
-    once an MCU has read past the data, the rest of the interval is left as
-    it was (a DC refinement reads on, zeros that change nothing)."""
+    once an MCU has read past the data (or ``short``), the rest of the
+    interval is left as it was (a DC refinement reads on, zeros that change
+    nothing). Returns whether it read past the data, and the number of MCUs
+    it started before that."""
     bits = _Bits(seg, name)
-    if ss == 0:  # DC scans: every block of the (possibly interleaved) MCU
-        if ah == 0:
-            preds: Dict[int, int] = {}
-            for mcu in mcus:
-                if not bits.room():
-                    break
-                for c, base, dc, _ in mcu:
-                    preds[c] = preds.get(c, 0) + bits.extend(bits.symbol(dc))
-                    coefs[c][base] = _wrap16(preds[c] << al)
-        else:
-            p1 = 1 << al
-            for c, base, _, _ in (u for mcu in mcus for u in mcu):
+    if ss == 0 and ah:  # DC refinement: one bit of every block of the MCU
+        p1 = 1 << al
+        for j, mcu in enumerate(mcus):
+            for c, base, _, _ in mcu:
                 if bits.p >= bits.end:
-                    break
+                    return True, j + 1
                 if bits.bits(1):
                     coefs[c][base] |= p1
-        return
+        return False, len(mcus)
+    if short:
+        return True, 0
+    if ss == 0:  # DC first: every block of the (possibly interleaved) MCU
+        preds: Dict[int, int] = {}
+        for j, mcu in enumerate(mcus):
+            if not bits.room():
+                return True, j
+            for c, base, dc, _ in mcu:
+                preds[c] = preds.get(c, 0) + bits.extend(bits.symbol(dc))
+                coefs[c][base] = _wrap16(preds[c] << al)
+        return bits.p > bits.end, len(mcus)
     eobrun = 0
     p1, m1 = 1 << al, -1 << al
-    for (c, base, _, ac), in mcus:  # one block per MCU
+    for j, ((c, base, _, ac),) in enumerate(mcus):  # one block per MCU
         if not bits.room():
-            break
+            return True, j
         out = coefs[c]
         if ah == 0:
             if eobrun:
@@ -285,6 +307,7 @@ def _huffman_progressive(seg, mcus, coefs, ss, se, ah, al, name) -> None:
                     out[base + k] = v + (p1 if v >= 0 else m1)
                 k += 1
             eobrun -= 1
+    return bits.p > bits.end, len(mcus)
 
 
 # --------------------------------------------------------------- arithmetic
@@ -324,12 +347,17 @@ _QE = [(q << 16) | (nm << 8) | (sw << 7) | nl for q, nl, nm, sw in [
 ]]
 
 
+class _BadCode(Exception):
+    """``JWRN_ARITH_BAD_CODE``: ``jdarith.c`` sets ``ct`` to -1, and the rest
+    of the restart interval decodes nothing."""
+
+
 class _Arith:
     """The QM decoder over one restart interval's bytes (``jdarith.c``
     ``arith_decode``): past the end, zeros."""
 
     def __init__(self, seg: bytes):
-        self.data = seg.replace(b"\xff\x00", b"\xff")
+        self.data = re.sub(b"\xff+\x00", b"\xff", seg)
         self.pos, self.c, self.a, self.ct = 0, 0, 0, -16
 
     def decode(self, st: List[int], i: int) -> int:
@@ -381,7 +409,7 @@ def _arith_dc(dec: _Arith, st: List[int], ctx: int, L: int, U: int) -> Tuple[int
         while dec.decode(st, i):
             m <<= 1
             if m == 0x8000:
-                raise ValueError("corrupt JPEG data (arithmetic magnitude overflow)")
+                raise _BadCode  # magnitude overflow
             i += 1
     if m < (1 << L) >> 1:
         nxt = 0
@@ -409,7 +437,7 @@ def _arith_ac_value(dec: _Arith, st: List[int], i: int, k: int, K: int) -> int:
             while dec.decode(st, i):
                 m <<= 1
                 if m == 0x8000:
-                    raise ValueError("corrupt JPEG data (arithmetic magnitude overflow)")
+                    raise _BadCode  # magnitude overflow
                 i += 1
     v = m
     i += 14
@@ -424,7 +452,17 @@ def _arith_scan(seg, units, coefs, ss, se, ah, al, progressive, dc_stats, ac_sta
                 dac_u, dac_k) -> None:
     """One restart interval of an arithmetic-coded scan (``jdarith.c``
     ``decode_mcu`` and its four progressive forms); ``units`` lists
-    (component, block offset, DC table, AC table). Statistics start at 0."""
+    (component, block offset, DC table, AC table). Statistics start at 0; a
+    bad code ends the interval, the blocks before it as decoded."""
+    try:
+        _arith_units(seg, units, coefs, ss, se, ah, al, progressive, dc_stats, ac_stats, dac_l,
+                     dac_u, dac_k)
+    except _BadCode:
+        pass
+
+
+def _arith_units(seg, units, coefs, ss, se, ah, al, progressive, dc_stats, ac_stats, dac_l,
+                 dac_u, dac_k) -> None:
     dec = _Arith(seg)
     fixed = [113]  # the fixed probability 0.5 of signs and DC refinement bits
     dcs = {t: [0] * 64 for t in dc_stats}
@@ -462,7 +500,7 @@ def _arith_ac_first(dec, st, fixed, out, base, ss, se, al, K) -> None:
             i += 3
             k += 1
             if k > se:
-                raise ValueError("corrupt JPEG data (arithmetic spectral overflow)")
+                raise _BadCode  # spectral overflow
         sign = dec.decode(fixed, 0)
         v = _arith_ac_value(dec, st, i + 2, k, K)
         out[base + k] = _wrap16((-v if sign else v) << al)
@@ -495,35 +533,46 @@ def _arith_ac_refine(dec, st, fixed, out, base, ss, se, al) -> None:
             i += 3
             k += 1
             if k > se:
-                raise ValueError("corrupt JPEG data (arithmetic spectral overflow)")
+                raise _BadCode  # spectral overflow
         k += 1
 
 
 # ----------------------------------------------------------------- lossless
 
-def _lossless_scan(seg, mcus, diffs, name) -> None:
-    """One restart interval of a lossless Huffman scan: ``mcus`` lists the
+def _lossless_scan(seg, mcus, width, diffs, short, name) -> Tuple[bool, List[int]]:
+    """One restart interval of a lossless Huffman scan (``jdlhuff.c``
+    ``decode_mcus``, a row of ``width`` MCUs a call): ``mcus`` lists the
     MCUs, each a list of (component, flat sample index, table); differences
-    land in ``diffs``. Once an MCU has read past the data, the rest of the
-    interval stays zero."""
-    bits = _Bits(seg, name)
-    for mcu in mcus:
-        if not bits.room():
-            break
-        for c, idx, tab in mcu:
-            s = bits.symbol(tab)
-            diffs[c][idx] = 32768 if s == 16 else bits.extend(s)
+    land in ``diffs``. A row whose call starts with the data run out (or
+    ``short``) is zero differences, and libjpeg resets the undifferencer
+    there; the row that runs out reads on from zero bits. Returns whether
+    the data ran out, and the rows of the interval decoded as reset."""
+    bits = _Bits(seg, name, pad=width * len(mcus[0]) * 33 // 8 + 8)
+    reset = []
+    for r in range(0, len(mcus), width):
+        if short:
+            reset.append(r // width)
+            for c, idx, _ in (u for mcu in mcus[r: r + width] for u in mcu):
+                diffs[c][idx] = 0
+            continue
+        for mcu in mcus[r: r + width]:
+            for c, idx, tab in mcu:
+                s = bits.symbol(tab)
+                diffs[c][idx] = 32768 if s == 16 else bits.extend(s)
+        short = bits.p > bits.end
+    return short, reset
 
 
-def _undifference(d: np.ndarray, psv: int, precision: int, rows_per_interval: int) -> np.ndarray:
-    """``jdpred.c``: (h, w) differences → samples modulo 2^16; the first row
-    of each restart interval from 2^(P-1) then its left neighbour, the first
-    column from above."""
+def _undifference(d: np.ndarray, psv: int, precision: int, first: np.ndarray) -> np.ndarray:
+    """``jdpred.c``: (h, w) differences → samples modulo 2^16; a first row
+    (``first[y]``: the image's, each restart interval's, and each row libjpeg
+    reset the undifferencer for) from 2^(P-1) then its left neighbour, the
+    first column of the others from above."""
     h, w = d.shape
     out = np.zeros((h, w), np.int64)
     for y in range(h):
         row = d[y]
-        if y % rows_per_interval == 0:
+        if first[y]:
             acc = np.cumsum(row) + (1 << (precision - 1))
             out[y] = acc & 0xFFFF
             continue
@@ -796,6 +845,11 @@ class _Frame:
             self.coefs = [[0] * (self.mcuy * v * self.mcux * h * 64)
                           for _, h, v, _ in self.comps]
         self.coef_bits = [[-1] * 64 for _ in self.comps]
+        # coef_bits[1..9] before each component's latest scan, the number of
+        # scans, and the last iMCU row of the last scan an MCU of which
+        # started with data left (libjpeg-turbo's last_good_iMCU_row)
+        self.prev_bits = [[0] * 10 for _ in self.comps]
+        self.scans, self.last_good = 0, 0
         self.quant: List[Optional[np.ndarray]] = [None] * ncomp  # latched at a first scan
 
     def comp_size(self, ci: int) -> Tuple[int, int]:
@@ -968,28 +1022,50 @@ def _parse(data: bytes, name: str, counts: Sequence[int] = (1, 3, 4)):
     return frame, jfif, adobe, adobe_transform
 
 
-def _segments(data: bytes, pos: int, restart: int, name: str) -> Tuple[List[bytes], int]:
-    """The entropy-coded data from ``pos`` split at its restart markers, and
-    the position of the marker that ends the scan (without a restart
-    interval, a restart marker ends it too, as any marker ends libjpeg's
-    entropy data)."""
-    segments, start = [], pos
-    while True:
-        nxt = data.find(b"\xff", pos)
-        run = nxt
-        while 0 <= nxt < len(data) - 1 and data[nxt + 1] == 0xFF:
-            nxt += 1
-        if nxt < 0 or nxt + 1 >= len(data):
-            raise ValueError(f"{name}: JPEG scan runs past the end of the file")
-        m = data[nxt + 1]
-        if m == 0x00:
-            pos = nxt + 2
-            continue
-        segments.append(data[start:run])  # the 0xFF bytes before a marker are not data
-        if restart and 0xD0 <= m <= 0xD7:
-            start = pos = nxt + 2
-            continue
-        return segments, nxt
+class _Segments:
+    """The entropy-coded data from ``pos`` split at every marker, as far as
+    it is asked for: item ``i`` is (the data before marker ``i``, the
+    marker's code, the position of its last 0xFF). Asking past the end of
+    the file raises, as Pillow does where libjpeg's reader suspends there."""
+
+    def __init__(self, data: bytes, pos: int, name: str):
+        self.data, self.pos, self.name = data, pos, name
+        self.parts: List[Tuple[bytes, int, int]] = []
+
+    def __getitem__(self, i: int) -> Tuple[bytes, int, int]:
+        data = self.data
+        while len(self.parts) <= i:
+            start = pos = self.pos
+            while True:
+                nxt = data.find(b"\xff", pos)
+                run = nxt
+                while 0 <= nxt < len(data) - 1 and data[nxt + 1] == 0xFF:
+                    nxt += 1
+                if nxt < 0 or nxt + 1 >= len(data):
+                    raise ValueError(f"{self.name}: JPEG scan runs past the end of the file")
+                if data[nxt + 1]:
+                    break
+                pos = nxt + 2
+            # the 0xFF bytes before a marker are not data
+            self.parts.append((data[start:run], data[nxt + 1], nxt))
+            self.pos = nxt + 2
+        return self.parts[i]
+
+
+def _resync(marker: int, expected: int) -> int:
+    """What ``read_restart_marker`` does with ``marker`` where RST``expected``
+    is due (``jpeg_resync_to_restart``'s actions): 1 read it and go on, 2
+    skip to the next marker and decide again, 3 leave it unread."""
+    if marker == 0xD0 + expected:
+        return 1
+    if marker < 0xC0:
+        return 2
+    if not 0xD0 <= marker <= 0xD7:
+        return 3
+    n = marker - 0xD0
+    if n in ((expected + 1) & 7, (expected + 2) & 7):
+        return 3
+    return 2 if n in ((expected - 1) & 7, (expected - 2) & 7) else 1
 
 
 def _scan(data: bytes, pos: int, header: bytes, frame: _Frame, quant, dc_tabs, ac_tabs, dac,
@@ -1022,7 +1098,6 @@ def _scan(data: bytes, pos: int, header: bytes, frame: _Frame, quant, dc_tabs, a
             raise ValueError(f"{name}: bad progressive JPEG scan ({ss}, {se}, {ah}, {al})")
     elif frame.coding != "lossless":  # libjpeg only warns where these are not 0, 63, 0, 0
         ss, se, ah, al = 0, 63, 0, 0
-    segments, end = _segments(data, pos, restart, name)
     huffman = frame.coding in ("huffman", "lossless")
 
     def table(tabs, i):
@@ -1035,32 +1110,58 @@ def _scan(data: bytes, pos: int, header: bytes, frame: _Frame, quant, dc_tabs, a
         return lut
 
     units = _units(frame, sel, huffman, dc_tabs, ac_tabs, ss, ah, table)
+    if frame.coding == "lossless" and restart % frame.width:
+        raise ValueError(f"{name}: lossless restart interval {restart} is not whole rows")
     per = restart or len(units)
-    for i, seg in enumerate(segments):
-        chunk = units[i * per: (i + 1) * per]
-        if not chunk:
-            break
-        flat = [u for mcu in chunk for u in mcu]
+    first = np.zeros(frame.height, bool)  # lossless: the rows predicted as a first row
+    segments = _Segments(data, pos, name)
+    at = expected = 0  # the marker that ends the segment being read, the RSTn due next
+    parked = short = False  # a marker left unread; the data ran out (insufficient_data)
+    good = 0  # the last MCU that started with data left
+    for start in range(0, len(units), per):
+        before = short
+        if start:  # process_restart: read_restart_marker, resyncing where it must
+            while (action := _resync(segments[at][1], expected)) == 2:
+                at += 1
+            parked = action == 3
+            if not parked:
+                at, short = at + 1, False
+            expected = (expected + 1) & 7
+        seg = b"" if parked else segments[at][0]
+        chunk = units[start: start + per]
         if frame.coding == "lossless":
-            _lossless_scan(seg, chunk, frame.diffs, name)
+            short, reset = _lossless_scan(seg, chunk, frame.width, frame.diffs, short, name)
+            row = start // frame.width
+            first[row] = True
+            first[[row + r for r in reset]] = True
         elif frame.coding == "arith":
-            _arith_scan(seg, flat, frame.coefs, ss, se, ah, al, frame.progressive,
-                        {t for _, t, _ in sel}, {t for _, _, t in sel}, *dac)
+            _arith_scan(seg, [u for mcu in chunk for u in mcu], frame.coefs, ss, se, ah, al,
+                        frame.progressive, {t for _, t, _ in sel}, {t for _, _, t in sel}, *dac)
         elif frame.progressive:
-            _huffman_progressive(seg, chunk, frame.coefs, ss, se, ah, al, name)
+            short, n = _huffman_progressive(seg, chunk, frame.coefs, ss, se, ah, al, short, name)
+            # libjpeg reads the flag before an MCU's restart, after the MCU before it
+            good = start + n - 1 if n > 1 else start if not before else good
+            continue
         else:
-            _huffman_sequential(seg, chunk, frame.coefs, [0] * len(frame.comps), name)
+            short = _huffman_sequential(seg, chunk, frame.coefs, len(frame.comps), short)
+        good = start + len(chunk) - 1
+    end = segments[at][2]
     if frame.coding == "lossless":
-        rows = (restart // frame.width) if restart and len(sel) else frame.height
-        if restart and (restart % frame.width or not rows):
-            raise ValueError(f"{name}: lossless restart interval {restart} is not whole rows")
         for ci, _, _ in sel:
             d = np.asarray(frame.diffs[ci], np.int64).reshape(frame.height, frame.width)
-            frame.samples[ci] = _undifference(d, ss, frame.precision - al, rows or frame.height)
+            frame.samples[ci] = _undifference(d, ss, frame.precision - al, first)
             frame.samples[ci] = (frame.samples[ci] << al) & 0xFF
     else:
+        frame.scans += 1
+        if len(sel) > 1:
+            frame.last_good = good // frame.mcux
+        else:
+            ci = sel[0][0]
+            frame.last_good = good // -(-frame.comp_size(ci)[0] // 8) // frame.comps[ci][2]
         for ci, _, _ in sel:
             bits = frame.coef_bits[ci]
+            for k in range(1, 10):
+                frame.prev_bits[ci][k] = bits[k] if frame.scans > 1 else 0
             for k in range(ss, se + 1):
                 bits[k] = al
     return end
@@ -1141,8 +1242,14 @@ def _idct_planes(frame: _Frame, name: str) -> List[np.ndarray]:
         zz = np.asarray(flat, np.int64).reshape(nby, nbx, 64)
         if smooth:
             cw, ch = frame.comp_size(ci)
-            zz = _smooth(zz, frame.coef_bits[ci], frame.quant[ci], -(-ch // 8), -(-cw // 8),
-                         v, frame.mcuy)
+            args = frame.quant[ci], -(-ch // 8), -(-cw // 8), v, frame.mcuy
+            smoothed = _smooth(zz, frame.coef_bits[ci], *args)
+            # iMCU rows past the last scan's last good one: the bits before that scan
+            late = np.arange(nby) // v > frame.last_good
+            if late.any():
+                prev = frame.prev_bits[ci] if frame.scans > 1 else [-1] * 10
+                smoothed[late] = _smooth(zz, prev, *args)[late]
+            zz = smoothed
         natural = np.zeros((nby * nbx, 64), np.int64)
         natural[:, ZIGZAG] = zz.reshape(-1, 64)
         blocks = idct_islow(natural, frame.quant[ci])

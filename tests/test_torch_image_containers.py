@@ -726,9 +726,10 @@ def container_fixture_bytes():
     """name → bytes of the committed container fixtures (each at most
     64x48 but the photo-sized lossy WebP and ICNS's 128x128 ``it32``), the
     Netpbm, TGA, ICO/CUR/DIB, QOI, SGI, PCX/DCX, Sun, XBM, XPM, PSD, IM,
-    MSP, SPIDER, BLP and ICNS ones of ``test_torch_image_rasters.py``,
-    ``test_torch_image_rasters2.py`` and ``test_torch_image_rasters3.py``
-    and the DDS ones of ``test_torch_image_dds.py`` too."""
+    MSP, SPIDER, BLP, ICNS, FITS, FTEX, GBR, IMT, McIdas, PIXAR and XV
+    thumbnail ones of ``test_torch_image_rasters.py`` to
+    ``test_torch_image_rasters4.py`` and the DDS ones of
+    ``test_torch_image_dds.py`` too."""
     from test_torch_image_dds import dds_fixture_bytes
     from test_torch_image_rasters import raster_fixture_bytes
 
@@ -741,7 +742,8 @@ CONTAINERS = {".bmp": "BMP", ".gif": "GIF", ".tif": "TIFF", ".webp": "WEBP", ".p
               ".cur": "CUR", ".dib": "DIB", ".qoi": "QOI", ".sgi": "SGI", ".pcx": "PCX",
               ".dcx": "DCX", ".ras": "SUN", ".xbm": "XBM", ".xpm": "XPM", ".psd": "PSD",
               ".dds": "DDS", ".im": "IM", ".msp": "MSP", ".spi": "SPIDER", ".blp": "BLP",
-              ".icns": "ICNS"}
+              ".icns": "ICNS", ".fits": "FITS", ".ftc": "FTEX", ".ftu": "FTEX", ".gbr": "GBR",
+              ".imt": "IMT", ".area": "MCIDAS", ".pxr": "PIXAR", ".xvthumb": "XVThumb"}
 FIXTURE_NAMES = sorted(p.name for p in FORMATS.iterdir() if p.suffix in CONTAINERS)
 
 
@@ -1190,7 +1192,9 @@ def test_raw_image_store_equals_jax_over_every_container(tmp_path):
              "dcx_two_frames.dcx", "sun_rgb_rle.ras", "xbm_hotspot.xbm", "xpm_2cpp.xpm",
              "psd_rgb_packbits.psd", "tiff_jpeg_cmyk.tif", "tiff_jpeg_la.tif", "dds_dxt1.dds",
              "dds_bc7.dds", "dds_r5g6b5.dds", "im_ycbcr.im", "msp_v2_rle.msp",
-             "spider_big_endian.spi", "blp2_dxt5.blp", "blp1_jpeg.blp", "icns_it32.icns"]
+             "spider_big_endian.spi", "blp2_dxt5.blp", "blp1_jpeg.blp", "icns_it32.icns",
+             "fits_gzip_16.fits", "fits_f64.fits", "ftex_dxt1.ftc", "gbr_v2_rgba.gbr",
+             "imt_gray.imt", "mcidas_32.area", "pixar_rgb.pxr", "xvthumb_comments.xvthumb"]
     for n in names:
         (tmp_path / n).write_bytes((FORMATS / n).read_bytes())
     for mode, size in (("vit_timm", 32), ("vit_openai", 48)):
@@ -1206,20 +1210,22 @@ def test_decoders_import_no_pillow():
     """``data/bmp.py``, ``gif.py``, ``tiff.py``, ``webp.py``, ``ccitt.py``,
     ``zstd.py``, ``netpbm.py``, ``tga.py``, ``ico.py``, ``qoi.py``,
     ``sgi.py``, ``pcx.py``, ``sun.py``, ``xbm.py``, ``xpm.py``, ``psd.py``,
-    ``dds.py``, ``im.py``, ``msp.py``, ``spider.py``, ``blp.py`` and ``icns.py``
-    import numpy, the standard library's ``zlib``, ``lzma``, ``bisect``,
-    ``math``, ``io`` and ``re``, and the port only."""
+    ``dds.py``, ``im.py``, ``msp.py``, ``spider.py``, ``blp.py``, ``icns.py``,
+    ``fits.py``, ``ftex.py``, ``gbr.py``, ``imt.py``, ``mcidas.py``,
+    ``pixar.py`` and ``xvthumb.py`` import numpy, the standard library's
+    ``zlib``, ``gzip``, ``lzma``, ``bisect``, ``math``, ``io`` and ``re``,
+    and the port only."""
     import ast
     import importlib
 
     for mod in ("bmp", "gif", "tiff", "webp", "ccitt", "zstd", "netpbm", "tga", "ico", "qoi",
                 "sgi", "pcx", "sun", "xbm", "xpm", "psd", "dds", "im", "msp", "spider", "blp",
-                "icns"):
+                "icns", "fits", "ftex", "gbr", "imt", "mcidas", "pixar", "xvthumb"):
         path = Path(importlib.import_module(f"mm_s2ut_torch.data.{mod}").__file__)
         tree = ast.parse(path.read_text())
         names = {a.name.split(".")[0] for n in ast.walk(tree)
                  if isinstance(n, (ast.Import, ast.ImportFrom))
                  for a in (n.names if isinstance(n, ast.Import) else [ast.alias(n.module or "")])}
-        assert names <= {"__future__", "struct", "zlib", "lzma", "bisect", "math", "typing",
-                         "io", "re", "numpy", "mm_s2ut_torch"}, \
+        assert names <= {"__future__", "struct", "zlib", "gzip", "lzma", "bisect", "math",
+                         "typing", "io", "re", "numpy", "mm_s2ut_torch"}, \
             (mod, names)

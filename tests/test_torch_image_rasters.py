@@ -712,10 +712,12 @@ def test_netpbm_kinds_left_to_port_raise_naming_the_magic(name, tmp_path):
 def raster_fixture_bytes():
     """name → bytes of the committed Netpbm, TGA, ICO/CUR/DIB, QOI and SGI
     fixtures (each at most 64x48), the PCX/DCX, Sun, XBM, XPM and PSD ones
-    of ``test_torch_image_rasters2.py`` and the IM, MSP, SPIDER, BLP and
-    ICNS ones of ``test_torch_image_rasters3.py``."""
+    of ``test_torch_image_rasters2.py``, the IM, MSP, SPIDER, BLP and ICNS
+    ones of ``test_torch_image_rasters3.py`` and the FITS, FTEX, GBR, IMT,
+    McIdas, PIXAR and XV thumbnail ones of ``test_torch_image_rasters4.py``."""
     from test_torch_image_rasters2 import raster2_fixture_bytes
     from test_torch_image_rasters3 import raster3_fixture_bytes
+    from test_torch_image_rasters4 import raster4_fixture_bytes
 
     img = Image.fromarray(scene(37, 45, seed=40))
     small = Image.fromarray(scene(19, 21, seed=41))
@@ -764,6 +766,7 @@ def raster_fixture_bytes():
         "sgi_rgb16_rle.sgi": sgi_bytes(_sgi_planes(3, 20, 24, 2, 54), 2, True),
         **raster2_fixture_bytes(),
         **raster3_fixture_bytes(),
+        **raster4_fixture_bytes(),
     }
 
 

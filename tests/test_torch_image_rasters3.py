@@ -28,6 +28,7 @@ fixtures under ``tests/torch_images/formats/``, written anew with the other
 formats by ``PYTHONPATH=. python tests/test_torch_image_formats.py``.
 """
 import random
+import re
 import struct
 
 import numpy as np
@@ -583,16 +584,24 @@ def _jpegs():
                                 progressive=True)}
 
 
+# the committed lossless and arithmetic-coded fixtures (test_torch_image_formats.py)
+CODED = {"lossless": "lossless_rgb_p5.jpg", "arith_progressive": "arith_prog444_dac.jpg",
+         "arith_restarts": "arith420_rst.jpg"}
+
+
 @pytest.mark.parametrize("seed", range(8))
-@pytest.mark.parametrize("kind", ["baseline", "cmyk", "progressive"])
+@pytest.mark.parametrize("kind", ["baseline", "cmyk", "progressive", *CODED])
 def test_jpeg_corrupt_scan_data_equals_pil(kind, seed, tmp_path):
-    """Bytes of a Huffman JPEG past its first scan header changed (markers
-    among them), as libjpeg-turbo reads them: a bad code is 17 bits and
-    symbol 0, coefficients past 63 land on 63, the rest of an interval
-    stays zero once the data ran out, the x86-64 IDCT's 16-bit lanes wrap
-    and saturate, markers libjpeg stops at are refused, and after a
-    baseline image's one scan only the markers it then reads matter."""
-    jpeg = _jpegs()[kind]
+    """Bytes of a JPEG past its first scan header changed (markers among
+    them), as libjpeg-turbo reads them: a bad code is 17 bits and symbol 0,
+    coefficients past 63 land on 63, the rest of an interval stays zero
+    once the data ran out (a lossless row reads on from zero bits, the rows
+    after it reset the undifferencer), an arithmetic-coded bad code ends
+    its interval, a restart marker out of sequence is resynced, the x86-64
+    IDCT's 16-bit lanes wrap and saturate, markers libjpeg stops at are
+    refused, and after a baseline image's one scan only the markers it
+    then reads matter."""
+    jpeg = (FORMATS / CODED[kind]).read_bytes() if kind in CODED else _jpegs()[kind]
     first = jpeg.index(b"\xff\xda") + 14
     rng = random.Random(f"{kind}{seed}")
     for k in range(12):
@@ -618,6 +627,91 @@ def test_jpeg_endings_equal_pil(kind, case, tmp_path):
             "eoi_then_junk": j + b"\xff\xd9junk",
             "junk_after_soi": j[:2] + b"\x00" + j[2:] + b"\xff\xd9"}[case]
     same_as_pil(data, tmp_path, "x.jpg")
+
+
+def _restart_markers(jpeg: bytes):
+    """The positions of the RSTn markers in a JPEG's scans."""
+    at, out = jpeg.index(b"\xff\xda"), []
+    while (at := jpeg.find(b"\xff", at + 1)) >= 0:
+        if 0xD0 <= jpeg[at + 1] <= 0xD7:
+            out.append(at)
+    return out
+
+
+def _restart_cases(jpeg: bytes, change: str):
+    """``jpeg`` with its restart markers renumbered (each to every other
+    number), dropped, repeated, replaced by other markers, or three of them
+    renumbered at random."""
+    marks = _restart_markers(jpeg)
+    if change == "random":
+        rng = random.Random(len(jpeg))
+        for _ in range(16):
+            b = bytearray(jpeg)
+            for at in rng.sample(marks, 3):
+                b[at + 1] = 0xD0 + rng.randrange(8)
+            yield bytes(b)
+        return
+    for at in marks:
+        if change == "renumbered":
+            for n in range(8):
+                if 0xD0 + n != jpeg[at + 1]:
+                    yield jpeg[: at + 1] + bytes([0xD0 + n]) + jpeg[at + 2:]
+        elif change == "dropped":
+            yield jpeg[:at] + jpeg[at + 2:]
+        elif change == "repeated":
+            yield jpeg[:at] + jpeg[at: at + 2] * 2 + jpeg[at + 2:]
+        else:  # another marker: below SOF0 (skipped), TEM, DHT, APP1, SOI, EOI (left unread)
+            for m in (0x05, 0x01, 0xC4, 0xE1, 0xD8, 0xD9):
+                yield jpeg[: at + 1] + bytes([m]) + jpeg[at + 2:]
+
+
+@pytest.mark.parametrize("change", ["renumbered", "dropped", "repeated", "other_marker",
+                                    "random"])
+@pytest.mark.parametrize("name", ["rst422_q80.jpg", "arith420_rst.jpg"])
+def test_jpeg_restart_sequence_equals_pil(name, change, tmp_path):
+    """Restart markers out of sequence, as ``jpeg_resync_to_restart`` takes
+    them: the expected one, or one 3 to 5 ahead, read; one of the two
+    before the expected one, or a marker below SOF0, skipped with the data
+    after it; one of the next two, or another marker, left unread, and the
+    interval decoded from no data (a Huffman one left as it was where the
+    data before had run out; an arithmetic one from zero bytes)."""
+    path = FORMATS / name if (FORMATS / name).exists() else FORMATS.parent / name
+    jpeg = path.read_bytes()
+    assert len(_restart_markers(jpeg)) >= 3
+    for k, data in enumerate(_restart_cases(jpeg, change)):
+        same_as_pil(data, tmp_path, f"x{k}.jpg")
+
+
+@pytest.mark.parametrize("name", ["rst422_q80.jpg", "arith420_rst.jpg", "lossless_rgb_p5.jpg",
+                                  "arith_prog444_dac.jpg"])
+def test_jpeg_ff_runs_before_a_stuffed_zero_equal_pil(name, tmp_path):
+    """0xFF bytes before a stuffed 0x00 are one data byte to the Huffman and
+    the arithmetic decoders alike: an 0xFF added before each of the scan
+    data's ``FF 00`` pairs in turn."""
+    path = FORMATS / name if (FORMATS / name).exists() else FORMATS.parent / name
+    jpeg = path.read_bytes()
+    pairs = [m.start() for m in re.finditer(b"\xff\x00", jpeg)
+             if m.start() > jpeg.index(b"\xff\xda")]
+    assert pairs, name
+    for k, at in enumerate(pairs[:6]):
+        assert same_as_pil(jpeg[:at] + b"\xff" + jpeg[at:], tmp_path, f"x{k}.jpg") == "JPEG"
+
+
+@pytest.mark.parametrize("cut", [0.2, 0.5, 0.8])
+@pytest.mark.parametrize("scan", [2, 4, 6])
+def test_jpeg_scan_cut_by_eoi_smooths_as_pil(scan, cut, tmp_path):
+    """A progressive JPEG whose EOI comes inside a scan: libjpeg-turbo
+    smooths the iMCU rows past the last one that scan started with data
+    left by the coefficient bits from before that scan (its
+    ``last_good_iMCU_row``)."""
+    jpeg = _jpegs()["progressive"]
+    starts = [m.start() for m in re.finditer(b"\xff\xda", jpeg)]
+    body = starts[scan] + 2 + struct.unpack_from(">H", jpeg, starts[scan] + 2)[0]
+    end = jpeg.index(b"\xff", body + 1)
+    while jpeg[end + 1] == 0:
+        end = jpeg.index(b"\xff", end + 2)
+    at = body + int(cut * (end - body))
+    assert same_as_pil(jpeg[:at] + b"\xff\xd9", tmp_path, "x.jpg") == "JPEG"
 
 
 # ------------------------------------------------- Pillow's rules, one case each
